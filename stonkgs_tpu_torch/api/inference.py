@@ -1,0 +1,177 @@
+"""Inference engine of the port: embed / classify batches on the card.
+
+The port of ``STonKGsEngine`` from the JAX package's
+``stonkgs_tpu/api/inference.py``, built from a config plus parameters.
+Every batch is dispatched before any is fetched: CUDA launches are
+asynchronous, so the card runs the batches back to back and the host
+waits only in :meth:`STonKGsEngine._fetch`, the one place that copies to
+the host.
+
+The engine runs on the card (``device="cuda"``) unless the caller asks
+for the CPU, as the tests do; with no CUDA device it raises rather than
+running on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from stonkgs_tpu_torch.config import STonKGsConfig
+from stonkgs_tpu_torch.models import stonkgs
+from stonkgs_tpu_torch.utils.batching import iter_padded_batches
+from stonkgs_tpu_torch.utils.convert import params_to
+
+BATCH_KEYS = ("input_ids", "attention_mask", "token_type_ids")
+
+
+@dataclasses.dataclass
+class STonKGsEngine:
+    """STonKGs model + parameters on a device, serving pooled embeddings
+    and classification logits over preprocessed features."""
+
+    cfg: STonKGsConfig
+    params: dict
+    compute_dtype: str = "bfloat16"
+    batch_size: int = 64
+    # Length-bucketed speed mode (opt-in; None = exact-parity shapes).
+    # e.g. (64, 128): rows whose true text length fits a bucket run the
+    # frozen backbone at that length and the trunk at bucket+entity_len,
+    # the entity half kept on its original position rows via position_ids.
+    length_buckets: Optional[Tuple[int, ...]] = None
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "STonKGsEngine: no CUDA device; pass device='cpu' to run the "
+                "plain path on the CPU")
+        self.params = params_to(self.params, self.device)
+        dtype = getattr(torch, self.compute_dtype)
+        self._pooler = partial(stonkgs.pooler_output, cfg=self.cfg,
+                               compute_dtype=dtype)
+        self._classify = partial(stonkgs.classification_logits, cfg=self.cfg,
+                                 compute_dtype=dtype)
+        self._bucket_poolers = {}
+        self._bucket_classifiers = {}
+        if self.length_buckets:
+            buckets = tuple(sorted(set(int(b) for b in self.length_buckets)))
+            if any(b <= 0 or b > self.cfg.text_len for b in buckets):
+                raise ValueError(
+                    f"length_buckets {buckets} must lie in "
+                    f"(0, text_len={self.cfg.text_len}]")
+            self.length_buckets = buckets
+            for b in buckets:
+                if b == self.cfg.text_len:
+                    continue  # full shape = the parity functions above
+                bcfg = self.cfg.replace(text_len=b)
+                self._bucket_poolers[b] = partial(
+                    stonkgs.pooler_output, cfg=bcfg, compute_dtype=dtype)
+                self._bucket_classifiers[b] = partial(
+                    stonkgs.classification_logits, cfg=bcfg,
+                    compute_dtype=dtype)
+
+    def _bucket_features(self, features: Dict[str, np.ndarray]):
+        """Partition rows by true text length into the buckets.
+
+        Yields ``(bucket_len, row_indices, sub_features, position_ids)``
+        where sub_features carry the text half truncated to bucket_len and
+        position_ids keep the entity half on its original position rows
+        (``[0..b-1, text_len..text_len+entity_len-1]``).  Rows longer than
+        every bucket run at the full parity shape (bucket_len ==
+        cfg.text_len, position_ids None)."""
+        tl, el = self.cfg.text_len, self.cfg.entity_len
+        am = np.asarray(features["attention_mask"])
+        true_len = am[:, :tl].sum(axis=1)
+        buckets = list(self.length_buckets or ())
+        if not buckets or buckets[-1] < tl:
+            buckets.append(tl)
+        taken = np.zeros(len(am), bool)
+        if 0 < len(am) <= self.batch_size:
+            # Latency-shaped request (one padded batch either way): run the
+            # WHOLE request at the smallest bucket that fits its longest row
+            # rather than one round trip per bucket.
+            buckets = [b for b in buckets if true_len.max() <= b or b == tl]
+            true_len = np.full(len(am), int(true_len.max()))
+        for b in buckets:
+            idx = np.nonzero(~taken & (true_len <= b))[0] if b < tl \
+                else np.nonzero(~taken)[0]
+            taken[idx] = True
+            if len(idx) == 0:
+                continue
+            if b == tl:
+                sub = {k: np.asarray(features[k])[idx]
+                       for k in BATCH_KEYS if k in features}
+                yield b, idx, sub, None
+                continue
+            sub = {}
+            for k in BATCH_KEYS:
+                if k in features:
+                    v = np.asarray(features[k])[idx]
+                    sub[k] = np.concatenate([v[:, :b], v[:, tl:]], axis=1)
+            pos = np.concatenate(
+                [np.arange(b), np.arange(tl, tl + el)]).astype(np.int64)
+            yield b, idx, sub, pos
+
+    @torch.inference_mode()
+    def _dispatch(self, features: Dict[str, np.ndarray], fns, full_fn):
+        """Dispatch forwards (bucketed when configured) without syncing.
+
+        Returns ``(pending, n_rows)``; pending entries are
+        ``(device_tensor, n_valid, dest_row_indices)``."""
+        n = len(features["input_ids"])
+        pending = []
+        if not self.length_buckets:
+            groups = [(self.cfg.text_len, np.arange(n), features, None)]
+        else:
+            groups = self._bucket_features(features)
+        for b, idx, sub, pos in groups:
+            fn = full_fn if pos is None else fns[b]
+            off = 0
+            for piece, valid in iter_padded_batches(
+                    sub, BATCH_KEYS, self.batch_size, self.device):
+                if pos is not None:
+                    piece["position_ids"] = torch.as_tensor(
+                        pos[None]).to(self.device)
+                out = fn(self.params, batch=piece)
+                pending.append((out, valid, idx[off: off + valid]))
+                off += valid
+        return pending, n
+
+    @staticmethod
+    def _fetch(pending, n: int) -> np.ndarray:
+        """Copy dispatched outputs to the host in original row order."""
+        if not pending:
+            return np.zeros((n, 0), np.float32)
+        width = pending[0][0].shape[-1]
+        out = np.zeros((n, width), np.float32)
+        for dev, valid, dest in pending:
+            out[dest] = dev[:valid].float().cpu().numpy()
+        return out
+
+    def embed(self, features: Dict[str, np.ndarray]) -> np.ndarray:
+        """Pooled [CLS] embeddings, (N, hidden) float32."""
+        if len(features["input_ids"]) == 0:
+            return np.zeros((0, self.cfg.bert.hidden_size), np.float32)
+        return self._fetch(*self._dispatch(
+            features, self._bucket_poolers, self._pooler))
+
+    def logits(self, features: Dict[str, np.ndarray]) -> np.ndarray:
+        """Classification logits, (N, num_labels) float32."""
+        if "classifier" not in self.params:
+            raise ValueError("no classification head loaded")
+        if len(features["input_ids"]) == 0:
+            return np.zeros((0, self.cfg.num_labels or 0), np.float32)
+        return self._fetch(*self._dispatch(
+            features, self._bucket_classifiers, self._classify))
+
+    def predict_proba(self, features: Dict[str, np.ndarray]) -> np.ndarray:
+        """Softmax class probabilities over preprocessed features."""
+        lg = self.logits(features)
+        e = np.exp(lg - lg.max(axis=-1, keepdims=True))
+        return e / e.sum(axis=-1, keepdims=True)

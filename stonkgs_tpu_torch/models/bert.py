@@ -1,0 +1,281 @@
+"""Functional BERT encoder in PyTorch, inference only.
+
+The port of the JAX package's ``stonkgs_tpu/models/bert.py``: HF
+``BertModel`` semantics (post-LayerNorm, erf-gelu, LayerNorm eps 1e-12,
+tanh pooler on the first token).  Parameters are plain dicts of tensors
+with the JAX layouts (dense kernels ``(in, out)``); the encoder is a list
+of per-layer dicts run by a Python loop where the JAX package scans over
+stacked layers.
+
+The post-attention half of every full layer runs through
+:func:`stonkgs_tpu_torch.ops.fused_ffn.fused_ffn_ln_block`, and its
+attention through the port's attention kernel; the ``cls_only`` last
+layer stays plain torch, as in the JAX package.  Training (dropout,
+``deterministic=False``, remat) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from stonkgs_tpu_torch.config import BertConfig
+from stonkgs_tpu_torch.ops.attention import dot_product_attention, plain_attention
+from stonkgs_tpu_torch.ops.fused_ffn import fused_ffn_ln_block
+
+NEG_INF = -1e9  # additive attention bias for masked positions
+
+
+def check_inference(deterministic: bool) -> None:
+    """Raise for a training-mode call: only inference is ported."""
+    if not deterministic:
+        raise NotImplementedError(
+            "training (deterministic=False, dropout) is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def dense(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """y = x @ kernel + bias, kernel (in, out), both used in ``x.dtype``."""
+    y = x @ p["kernel"].to(x.dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis; statistics in >= fp32, result in x.dtype."""
+    f = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(f)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(f) + p["bias"].to(f)).to(x.dtype)
+
+
+def activation(name: str):
+    """Resolve an HF activation name to its torch function."""
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="none")
+    if name in ("gelu_new", "gelu_pytorch_tanh"):
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unsupported activation: {name}")
+
+
+# ---------------------------------------------------------------------------
+# parameter initialization
+# ---------------------------------------------------------------------------
+
+def _trunc_normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
+    # truncated at two standard deviations, as the JAX package's init
+    t = torch.empty(shape, dtype=torch.float32)
+    return torch.nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std,
+                                       generator=gen)
+
+
+def _init_dense(gen, d_in, d_out, std) -> dict:
+    return {"kernel": _trunc_normal(gen, (d_in, d_out), std),
+            "bias": torch.zeros(d_out)}
+
+
+def _init_layer_norm(dim) -> dict:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def init_layer_params(gen: torch.Generator, cfg: BertConfig) -> dict:
+    """One encoder layer."""
+    h, i, std = cfg.hidden_size, cfg.intermediate_size, cfg.initializer_range
+    return {
+        "attention": {
+            "query": _init_dense(gen, h, h, std),
+            "key": _init_dense(gen, h, h, std),
+            "value": _init_dense(gen, h, h, std),
+            "output": _init_dense(gen, h, h, std),
+            "output_layer_norm": _init_layer_norm(h),
+        },
+        "intermediate": _init_dense(gen, h, i, std),
+        "output": _init_dense(gen, i, h, std),
+        "output_layer_norm": _init_layer_norm(h),
+    }
+
+
+def init_bert_params(gen: torch.Generator, cfg: BertConfig,
+                     with_pooler: bool = True) -> dict:
+    """A full BertModel parameter tree on the CPU, fp32, drawn from ``gen``
+    (a CPU ``torch.Generator``); ``encoder`` is a list of layer dicts."""
+    h, std = cfg.hidden_size, cfg.initializer_range
+    params = {
+        "embeddings": {
+            "word_embeddings": _trunc_normal(gen, (cfg.vocab_size, h), std),
+            "position_embeddings": _trunc_normal(
+                gen, (cfg.max_position_embeddings, h), std),
+            "token_type_embeddings": _trunc_normal(
+                gen, (cfg.type_vocab_size, h), std),
+            "layer_norm": _init_layer_norm(h),
+        },
+        "encoder": [init_layer_params(gen, cfg)
+                    for _ in range(cfg.num_hidden_layers)],
+    }
+    if with_pooler:
+        params["pooler"] = _init_dense(gen, h, h, std)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def embed(
+    params: dict,
+    cfg: BertConfig,
+    input_ids: Optional[torch.Tensor] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    token_type_ids: Optional[torch.Tensor] = None,
+    position_ids: Optional[torch.Tensor] = None,
+    *,
+    deterministic: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """BertEmbeddings: word/inputs + position + token-type, LayerNorm.
+
+    With ``inputs_embeds`` the position and token-type embeddings are still
+    added: this is how the STonKGs trunk consumes backbone embeddings."""
+    check_inference(deterministic)
+    p = params["embeddings"]
+    if inputs_embeds is None:
+        inputs_embeds = p["word_embeddings"][input_ids]
+    inputs_embeds = inputs_embeds.to(compute_dtype)
+    seq_len = inputs_embeds.shape[-2]
+    device = inputs_embeds.device
+    if position_ids is None:
+        position_ids = torch.arange(seq_len, device=device)[None, :]
+    if token_type_ids is None:
+        token_type_ids = torch.zeros(inputs_embeds.shape[:-1],
+                                     dtype=torch.int64, device=device)
+    pos = p["position_embeddings"][position_ids].to(compute_dtype)
+    tok = p["token_type_embeddings"][token_type_ids].to(compute_dtype)
+    x = inputs_embeds + pos + tok
+    return layer_norm(x, p["layer_norm"], cfg.layer_norm_eps)
+
+
+def attention_bias_from_mask(attention_mask: Optional[torch.Tensor],
+                             dtype=torch.float32) -> Optional[torch.Tensor]:
+    """(B, S) 1/0 mask -> (B, 1, 1, S) additive bias (0 keep, -1e9 drop)."""
+    if attention_mask is None:
+        return None
+    bias = (1.0 - attention_mask.to(dtype)) * NEG_INF
+    return bias[:, None, None, :]
+
+
+def encoder_layer(
+    x: torch.Tensor,
+    lp: dict,
+    cfg: BertConfig,
+    attn_bias: Optional[torch.Tensor],
+    *,
+    deterministic: bool = True,
+) -> torch.Tensor:
+    """One post-LN BERT layer; the post-attention half is the fused block."""
+    check_inference(deterministic)
+    B, S, H = x.shape
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    ap = lp["attention"]
+    q = dense(x, ap["query"]).reshape(B, S, nh, hd)
+    k = dense(x, ap["key"]).reshape(B, S, nh, hd)
+    v = dense(x, ap["value"]).reshape(B, S, nh, hd)
+    ctx = dot_product_attention(q, k, v, attn_bias)
+    attn_out = dense(ctx.reshape(B, S, H), ap["output"])
+    return fused_ffn_ln_block(
+        x, attn_out,
+        ap["output_layer_norm"]["scale"], ap["output_layer_norm"]["bias"],
+        lp["intermediate"]["kernel"], lp["intermediate"]["bias"],
+        lp["output"]["kernel"], lp["output"]["bias"],
+        lp["output_layer_norm"]["scale"], lp["output_layer_norm"]["bias"],
+        act=cfg.hidden_act, eps=cfg.layer_norm_eps,
+    )
+
+
+def encoder_layer_cls(
+    x: torch.Tensor,
+    lp: dict,
+    cfg: BertConfig,
+    attn_bias: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """Final encoder layer restricted to the [CLS] query position, in plain
+    torch: one query row against every key. Returns (B, 1, H)."""
+    B, S, H = x.shape
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    ap = lp["attention"]
+    x0 = x[:, :1]
+    q = dense(x0, ap["query"]).reshape(B, 1, nh, hd)
+    k = dense(x, ap["key"]).reshape(B, S, nh, hd)
+    v = dense(x, ap["value"]).reshape(B, S, nh, hd)
+    ctx = plain_attention(q, k, v, attn_bias)
+    attn_out = dense(ctx.reshape(B, 1, H), ap["output"])
+    x0 = layer_norm(x0 + attn_out, ap["output_layer_norm"], cfg.layer_norm_eps)
+    ff = activation(cfg.hidden_act)(dense(x0, lp["intermediate"]))
+    ff = dense(ff, lp["output"])
+    return layer_norm(x0 + ff, lp["output_layer_norm"], cfg.layer_norm_eps)
+
+
+def encode(
+    params: dict,
+    cfg: BertConfig,
+    hidden: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    *,
+    deterministic: bool = True,
+    cls_only: bool = False,
+) -> torch.Tensor:
+    """Run the encoder layers in order.
+
+    ``cls_only``: compute the LAST layer only for the [CLS] position
+    (pooled-output paths) and return (B, 1, H)."""
+    check_inference(deterministic)
+    attn_bias = attention_bias_from_mask(attention_mask, torch.float32)
+    layers: List[dict] = params["encoder"]
+    body = layers[:-1] if cls_only else layers
+    x = hidden
+    for lp in body:
+        x = encoder_layer(x, lp, cfg, attn_bias)
+    if cls_only:
+        x = encoder_layer_cls(x, layers[-1], cfg, attn_bias)
+    return x
+
+
+def pool(params: dict, sequence_output: torch.Tensor) -> torch.Tensor:
+    """BertPooler: dense + tanh on the [CLS] (first) position."""
+    return torch.tanh(dense(sequence_output[:, 0], params["pooler"]))
+
+
+def bert_model(
+    params: dict,
+    cfg: BertConfig,
+    input_ids: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    token_type_ids: Optional[torch.Tensor] = None,
+    position_ids: Optional[torch.Tensor] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    *,
+    deterministic: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
+    with_pooler: bool = True,
+    cls_only: bool = False,
+):
+    """Full BertModel forward: returns (sequence_output, pooled_output|None).
+
+    ``cls_only`` restricts the last encoder layer to the [CLS] position;
+    the returned sequence output is then (B, 1, H)."""
+    hidden = embed(
+        params, cfg, input_ids=input_ids, inputs_embeds=inputs_embeds,
+        token_type_ids=token_type_ids, position_ids=position_ids,
+        deterministic=deterministic, compute_dtype=compute_dtype,
+    )
+    seq = encode(params, cfg, hidden, attention_mask,
+                 deterministic=deterministic, cls_only=cls_only)
+    pooled = pool(params, seq) if (with_pooler and "pooler" in params) else None
+    return seq, pooled

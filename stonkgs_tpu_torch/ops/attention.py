@@ -1,0 +1,56 @@
+"""Multi-head attention for the port's inference path.
+
+``dot_product_attention`` runs every full-sequence attention of the
+serving path through the CUDA kernel of
+:func:`stonkgs_tpu_torch.ops.flash_attention.flash_attention_infer`
+(on a CPU tensor, through its plain version).  Unlike the JAX package,
+which sends S < 384 to XLA on a TPU (``stonkgs_tpu/ops/attention.py:34``),
+the port takes the kernel at every S: that routing was measured on a
+TPU and says nothing about the H100.
+
+``plain_attention`` is the counterpart of the JAX package's
+``_xla_attention``: the einsum form that the single-query ``cls_only``
+layer keeps, with the same rounding points.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from stonkgs_tpu_torch.ops.flash_attention import flash_attention_infer
+
+
+def dot_product_attention(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,  # (B, 1, 1, S) additive key bias
+    *,
+    deterministic: bool = True,
+    dropout_rate: float = 0.0,
+) -> torch.Tensor:
+    """Scaled dot-product attention, deterministic only. Returns (B, S, H, D)."""
+    if not deterministic or dropout_rate:
+        raise NotImplementedError(
+            "attention dropout (training) is not ported yet")
+    return flash_attention_infer(q, k, v, bias)
+
+
+def plain_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, H, D)
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,  # broadcastable to (B, H, Sq, Sk)
+) -> torch.Tensor:
+    """Einsum attention in the input dtype, softmax in fp32 (the JAX
+    package's ``_xla_attention``, deterministic)."""
+    # the scale rounded to the input dtype first, as the JAX package does
+    scale = float(torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    if bias is not None:
+        scores = scores + bias.to(scores.dtype)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -1,0 +1,70 @@
+"""Parameters of the JAX package -> parameters of the port.
+
+The JAX package keeps a BERT's layers stacked on a leading axis of every
+``encoder`` leaf; the port keeps a list of per-layer dicts.  Every other
+layout is shared (dense kernels are ``(in, out)`` in both), so the
+conversion unstacks the encoder and turns numpy leaves into fp32 tensors.
+The input is a tree of numpy arrays (``jax.tree.map(np.asarray, params)``),
+so this module needs no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from stonkgs_tpu_torch.config import BertConfig, STonKGsConfig
+
+
+def _tree_map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def bert_params_from_jax(tree: dict, cfg: BertConfig) -> dict:
+    """One BERT tree: unstack ``encoder`` (leaves ``(L, ...)``) into L layers."""
+    n = cfg.num_hidden_layers
+    stacked = tree["encoder"]
+
+    def layer(i):
+        def take(a):
+            a = np.asarray(a)
+            if a.shape[0] != n:
+                raise ValueError(f"encoder leaf of shape {a.shape} is not "
+                                 f"stacked over {n} layers")
+            return _tensor(a[i])
+        return _tree_map(take, stacked)
+
+    out = {k: _tree_map(_tensor, v) for k, v in tree.items() if k != "encoder"}
+    out["encoder"] = [layer(i) for i in range(n)]
+    return out
+
+
+def params_from_jax(tree: dict, cfg: STonKGsConfig) -> dict:
+    """A STonKGs tree of the JAX package -> the port's serving parameters.
+
+    Keeps the trunk, the LM backbone, the KG table and, where present, the
+    classifier; the pre-training heads (``cls``) are not used by the port's
+    serving path and are dropped."""
+    params = {
+        "trunk": bert_params_from_jax(tree["trunk"], cfg.bert),
+        "lm_backbone": bert_params_from_jax(tree["lm_backbone"], cfg.bert),
+        "kg_backbone": _tensor(tree["kg_backbone"]),
+    }
+    if "classifier" in tree:
+        params["classifier"] = _tree_map(_tensor, tree["classifier"])
+    return params
+
+
+def params_to(params: Any, device=None, dtype: torch.dtype | None = None) -> Any:
+    """Move (and optionally cast) every tensor of a parameter tree."""
+    return _tree_map(lambda t: t.to(device=device, dtype=dtype), params)

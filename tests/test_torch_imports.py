@@ -1,0 +1,48 @@
+"""Import hygiene of the port: it imports neither jax nor stonkgs_tpu.
+
+The PyTorch/CUDA package and ``chip_smoke.py`` run on machines without
+JAX, so neither may import it, nor anything of the JAX package (not even
+its jax-free modules: the port keeps its own copies).
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "stonkgs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == "stonkgs_tpu" or name.startswith("stonkgs_tpu."))
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import stonkgs_tpu_torch\n"
+        "from stonkgs_tpu_torch.api import inference\n"
+        "new = sorted(set(sys.modules) - before)\n"
+        "print('\\n'.join(new))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120).stdout.split()
+    assert "stonkgs_tpu_torch" in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert [n for n in names if _forbidden(n)] == []
