@@ -1,0 +1,324 @@
+// Training attention, forward and backward, with the TPU kernels' in-kernel
+// hash dropout; q, k, v, out, dO, dq, dk, dv in the (B, S, H, D=64) layout,
+// read with strides; lse and delta (B, H, S) fp32.
+//
+// Replaces the TPU kernels _train_fwd_kernel and _train_bwd_kernel
+// (stonkgs_tpu/ops/flash_attention.py:92 and :118, with _dropout_keep at
+// :69).  Bounds on the H100 and the design are in
+// stonkgs_tpu_torch/ops/flash_attention.py.
+//
+// Forward: attn_fwd_kernel<T, true> of attention.cuh (two passes over K;
+// writes O and the fp32 logsumexp).
+//
+// Backward, three launches on the stream:
+//   1. delta = rowsum(dO * O) in fp32, one warp per (b, s, h) row;
+//   2. dQ: one block per (64-row query tile, head, batch); keys stream
+//      through shared memory in 64-key tiles; per tile S = Q K^T and
+//      dP~ = dO V^T, p = exp(S*scale + bias - lse), dP = dP~ * mr with mr
+//      = 1/(1-rate) where the hash keeps and 0 where it drops,
+//      dS = p (dP - delta) rounded to T, dQ += dS K; dQ = scale * dQ;
+//   3. dK, dV, db: one block per (64-key tile, head, batch); query tiles
+//      stream through shared memory; each warp owns 16 keys and forms the
+//      transposed tiles S^T = K_w Q^T and dP~^T = V_w dO^T, then
+//      dV += round(p * mr)^T dO and dK += round(dS)^T Q in fp32 registers
+//      across all query tiles; dK = scale * dK.  db (B, S) = sum over rows
+//      and heads of the fp32 dS: each block sums its keys over all rows and
+//      adds the result into db with one atomicAdd per key (12 heads per
+//      address, so the order of the fp32 sum may vary between runs).
+// Parallel over key tiles in (3), the backward needs no cross-block
+// reduction for dK and dV; dQ takes the second pass (2) instead of atomics,
+// at the cost of computing S and dP~ twice.
+//
+// C interface (dtype 0 fp32, 1 bf16; key_bias (B, S) fp32 or NULL; the
+// dropout arguments as attention.cuh's Dropout):
+//   int flash_attention_train_fwd(int dtype, q, k, v, key_bias, out,
+//       float* lse, int B, int S, int H, float scale, int dropout,
+//       int s_pad, unsigned threshold, unsigned seed0, unsigned seed1,
+//       float keep_scale, cudaStream_t stream)
+//   int flash_attention_train_bwd(int dtype, q, k, v, key_bias, out,
+//       const float* lse, dout, dq, dk, dv, float* db /*(B, S) zeroed, or
+//       NULL*/, float* delta /*(B, H, S) scratch*/, int B, int S, int H,
+//       float scale, int dropout, int s_pad, unsigned threshold,
+//       unsigned seed0, unsigned seed1, float keep_scale,
+//       cudaStream_t stream)
+// each returns cudaGetLastError() after its launches.
+
+#include "attention.cuh"
+
+namespace stonkgs {
+namespace attn {
+namespace {
+
+// delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d], one warp per row
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                      float* __restrict__ delta, int B, int S, int H) {
+  const size_t row = size_t(blockIdx.x) * 8 + threadIdx.x / 32;  // (b*S + s)*H + h
+  const int lane = threadIdx.x % 32;
+  if (row >= size_t(B) * S * H) return;
+  const T* op = o + row * kD;
+  const T* dp = dout + row * kD;
+  float acc = to_f(op[lane]) * to_f(dp[lane]) + to_f(op[lane + 32]) * to_f(dp[lane + 32]);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const int h = int(row % H);
+    const size_t bs = row / H;  // b*S + s
+    const int s = int(bs % S), b = int(bs / S);
+    delta[(size_t(b) * H + h) * S + s] = acc;
+  }
+}
+
+// Backward shared memory: four T tiles, two fp32 staging tiles, two
+// per-warp T tiles, four 64-float vectors.
+template <typename T>
+constexpr size_t bwd_smem_bytes() {
+  using Z = Sizes<T>;
+  return 4 * Z::tile + 2 * Z::stage + 2 * Z::wtile + 4 * Z::vec;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ key_bias, const T* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   T* __restrict__ dq, int S, int H, float scale, Dropout drop) {
+  using Z = Sizes<T>;
+  constexpr int TS = Z::TS;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = reinterpret_cast<T*>(smem + Z::tile);
+  T* ks = reinterpret_cast<T*>(smem + 2 * Z::tile);
+  T* vs = reinterpret_cast<T*>(smem + 3 * Z::tile);
+  float* sst = reinterpret_cast<float*>(smem + 4 * Z::tile);
+  float* pst = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::stage);
+  T* dst = reinterpret_cast<T*>(smem + 4 * Z::tile + 2 * Z::stage);
+  float* bs = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage + 2 * Z::wtile);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t rs = size_t(H) * kD;
+  const size_t head0 = (size_t(b) * S * H + h) * kD;
+  const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
+  const size_t stat0 = (size_t(b) * H + h) * S;  // (b, h, 0) of lse and delta
+
+  load_rows<T>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
+  load_rows<T>(dos, dout + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
+
+  const T* qw = qs + warp * 16 * TS;
+  const T* dow = dos + warp * 16 * TS;
+  float* sw = sst + warp * 16 * kSST;  // S tile
+  float* pw = pst + warp * 16 * kSST;  // dP~ tile
+  T* dsw = dst + warp * 16 * TS;       // dS tile, in T
+
+  const int row = lane >> 1, half = lane & 1;
+  const int qrow = q0 + warp * 16 + row;
+  const bool live = qrow < S;
+  const float lse_r = live ? lse[stat0 + qrow] : 0.f;
+  const float delta_r = live ? delta[stat0 + qrow] : 0.f;
+  const uint32_t base = drop.row_base(b * H + h, qrow);
+
+  PvAcc<T> acc;
+  acc.zero();
+  for (int k0 = 0; k0 < S; k0 += kTile) {
+    const int n = min(kTile, S - k0);
+    __syncthreads();  // the previous tiles are consumed
+    load_rows<T>(ks, k + head0 + size_t(k0) * rs, rs, n);
+    load_rows<T>(vs, v + head0 + size_t(k0) * rs, rs, n);
+    load_vec(bs, kb ? kb + k0 : nullptr, n);
+    __syncthreads();
+    score_tile<T>(qw, ks, sw, lane);
+    score_tile<T>(dow, vs, pw, lane);
+    for (int c = half; c < kTile; c += 2) {
+      float ds = 0.f;
+      if (live && c < n) {
+        const float p = expf(sw[row * kSST + c] * scale + bs[c] - lse_r);
+        float dp = pw[row * kSST + c];
+        if (drop.enabled) dp = drop.keep(base + uint32_t(k0 + c)) ? dp * drop.keep_scale : 0.f;
+        ds = p * (dp - delta_r);
+      }
+      dsw[row * TS + c] = from_f<T>(ds);
+    }
+    __syncwarp();
+    acc.mma(dsw, ks, lane);
+    __syncwarp();
+  }
+  acc.store(sw, lane);
+  store_rows<T>(dq + head0 + size_t(q0 + warp * 16) * rs, rs, sw, S - (q0 + warp * 16), scale,
+                lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ key_bias, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ db, int S,
+                     int H, float scale, Dropout drop) {
+  using Z = Sizes<T>;
+  constexpr int TS = Z::TS;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = reinterpret_cast<T*>(smem + Z::tile);
+  T* qs = reinterpret_cast<T*>(smem + 2 * Z::tile);
+  T* dos = reinterpret_cast<T*>(smem + 3 * Z::tile);
+  float* sst = reinterpret_cast<float*>(smem + 4 * Z::tile);
+  float* pst = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::stage);
+  T* pdt = reinterpret_cast<T*>(smem + 4 * Z::tile + 2 * Z::stage);
+  T* dst = reinterpret_cast<T*>(smem + 4 * Z::tile + 2 * Z::stage + Z::wtile);
+  float* vecs = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage + 2 * Z::wtile);
+  float* bs = vecs;                            // bias of the block's keys
+  float* lse_s = vecs + Z::vec / sizeof(float);  // lse and delta of the query tile
+  float* delta_s = vecs + 2 * Z::vec / sizeof(float);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t rs = size_t(H) * kD;
+  const size_t head0 = (size_t(b) * S * H + h) * kD;
+  const size_t stat0 = (size_t(b) * H + h) * S;
+  const int nk = min(kTile, S - k0);
+
+  load_rows<T>(ks, k + head0 + size_t(k0) * rs, rs, nk);
+  load_rows<T>(vs, v + head0 + size_t(k0) * rs, rs, nk);
+  load_vec(bs, key_bias ? key_bias + size_t(b) * S + k0 : nullptr, nk);
+
+  const T* kw = ks + warp * 16 * TS;   // the warp's 16 keys
+  const T* vw = vs + warp * 16 * TS;
+  float* sw = sst + warp * 16 * kSST;  // S^T tile (keys x queries)
+  float* pw = pst + warp * 16 * kSST;  // dP~^T tile
+  T* pdw = pdt + warp * 16 * TS;       // round(p * mr)^T
+  T* dsw = dst + warp * 16 * TS;       // round(dS)^T
+
+  const int row = lane >> 1, half = lane & 1;
+  const int key = k0 + warp * 16 + row;  // this lane's key
+  const bool live = key < S;
+  const int bh = b * H + h;
+
+  PvAcc<T> dv_acc, dk_acc;
+  dv_acc.zero();
+  dk_acc.zero();
+  float db_acc = 0.f;
+  for (int q0 = 0; q0 < S; q0 += kTile) {
+    const int nq = min(kTile, S - q0);
+    __syncthreads();  // the previous query tile is consumed
+    load_rows<T>(qs, q + head0 + size_t(q0) * rs, rs, nq);
+    load_rows<T>(dos, dout + head0 + size_t(q0) * rs, rs, nq);
+    load_vec(lse_s, lse + stat0 + q0, nq);
+    load_vec(delta_s, delta + stat0 + q0, nq);
+    __syncthreads();
+    score_tile<T>(kw, qs, sw, lane);
+    score_tile<T>(vw, dos, pw, lane);
+    const float bias_r = bs[warp * 16 + row];
+    for (int c = half; c < kTile; c += 2) {
+      float pd = 0.f, ds = 0.f;
+      if (live && c < nq) {
+        const float p = expf(sw[row * kSST + c] * scale + bias_r - lse_s[c]);
+        float dp = pw[row * kSST + c];
+        pd = p;
+        if (drop.enabled) {
+          const bool kept = drop.keep(drop.row_base(bh, q0 + c) + uint32_t(key));
+          pd = kept ? p * drop.keep_scale : 0.f;
+          dp = kept ? dp * drop.keep_scale : 0.f;
+        }
+        ds = p * (dp - delta_s[c]);
+      }
+      pdw[row * TS + c] = from_f<T>(pd);
+      dsw[row * TS + c] = from_f<T>(ds);
+      db_acc += ds;
+    }
+    __syncwarp();
+    dv_acc.mma(pdw, dos, lane);
+    dk_acc.mma(dsw, qs, lane);
+    __syncwarp();
+  }
+  const int rows_left = S - (k0 + warp * 16);
+  dv_acc.store(sw, lane);
+  store_rows<T>(dv + head0 + size_t(k0 + warp * 16) * rs, rs, sw, rows_left, 1.f, lane);
+  dk_acc.store(pw, lane);
+  store_rows<T>(dk + head0 + size_t(k0 + warp * 16) * rs, rs, pw, rows_left, scale, lane);
+  db_acc += __shfl_xor_sync(0xffffffffu, db_acc, 1);
+  if (db && live && half == 0) atomicAdd(db + size_t(b) * S + key, db_acc);
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const float* key_bias,
+               const void* out, const float* lse, const void* dout, void* dq, void* dk,
+               void* dv, float* db, float* delta, int B, int S, int H, float scale,
+               Dropout drop, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const size_t rows = size_t(B) * S * H;
+  attn_bwd_delta_kernel<T><<<unsigned((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(out), dot, delta, B, S, H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+
+  constexpr size_t smem = bwd_smem_bytes<T>();
+  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  e = cudaFuncSetAttribute(attn_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           int(smem));
+  if (e != cudaSuccess) return int(e);
+  attn_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
+      qt, kt, vt, key_bias, dot, lse, delta, static_cast<T*>(dq), S, H, scale, drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+
+  e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  attn_bwd_dkdv_kernel<T><<<grid, kThreads, smem, stream>>>(
+      qt, kt, vt, key_bias, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), db, S,
+      H, scale, drop);
+  return int(cudaGetLastError());
+}
+
+Dropout make_dropout(int enabled, int s_pad, unsigned threshold, unsigned seed0,
+                     unsigned seed1, float keep_scale) {
+  return Dropout{enabled, s_pad, threshold, seed0, seed1, keep_scale};
+}
+
+}  // namespace
+}  // namespace attn
+}  // namespace stonkgs
+
+extern "C" int flash_attention_train_fwd(int dtype, const void* q, const void* k, const void* v,
+                                         const float* key_bias, void* out, float* lse, int B,
+                                         int S, int H, float scale, int dropout, int s_pad,
+                                         unsigned threshold, unsigned seed0, unsigned seed1,
+                                         float keep_scale, void* stream) {
+  using namespace stonkgs::attn;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s_pad < S) return int(cudaErrorInvalidValue);
+  const Dropout drop = make_dropout(dropout, s_pad, threshold, seed0, seed1, keep_scale);
+  if (dtype == 0)
+    return launch_fwd<float, true>(q, k, v, key_bias, out, lse, B, S, H, scale, drop, st);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16, true>(q, k, v, key_bias, out, lse, B, S, H, scale, drop,
+                                           st);
+  return int(cudaErrorInvalidValue);
+}
+
+extern "C" int flash_attention_train_bwd(int dtype, const void* q, const void* k, const void* v,
+                                         const float* key_bias, const void* out,
+                                         const float* lse, const void* dout, void* dq,
+                                         void* dk, void* dv, float* db, float* delta, int B,
+                                         int S, int H, float scale, int dropout, int s_pad,
+                                         unsigned threshold, unsigned seed0, unsigned seed1,
+                                         float keep_scale, void* stream) {
+  using namespace stonkgs::attn;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s_pad < S) return int(cudaErrorInvalidValue);
+  const Dropout drop = make_dropout(dropout, s_pad, threshold, seed0, seed1, keep_scale);
+  if (dtype == 0)
+    return launch_bwd<float>(q, k, v, key_bias, out, lse, dout, dq, dk, dv, db, delta, B, S, H,
+                             scale, drop, st);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(q, k, v, key_bias, out, lse, dout, dq, dk, dv, db, delta,
+                                     B, S, H, scale, drop, st);
+  return int(cudaErrorInvalidValue);
+}

@@ -1,4 +1,4 @@
-"""Functional BERT encoder in PyTorch, inference only.
+"""Functional BERT encoder in PyTorch, for serving and training.
 
 The port of the JAX package's ``stonkgs_tpu/models/bert.py``: HF
 ``BertModel`` semantics (post-LayerNorm, erf-gelu, LayerNorm eps 1e-12,
@@ -7,15 +7,24 @@ with the JAX layouts (dense kernels ``(in, out)``); the encoder is a list
 of per-layer dicts run by a Python loop where the JAX package scans over
 stacked layers.
 
-The post-attention half of every full layer runs through
+Inference (``deterministic=True``): the post-attention half of every full
+layer runs through
 :func:`stonkgs_tpu_torch.ops.fused_ffn.fused_ffn_ln_block`, and its
-attention through the port's attention kernel; the ``cls_only`` last
-layer stays plain torch, as in the JAX package.  Training (dropout,
-``deterministic=False``, remat) is not ported yet and raises.
+attention through the port's inference attention kernel; the ``cls_only``
+last layer stays plain torch, as in the JAX package.
+
+Training (``deterministic=False`` with a :class:`DropoutRng`): attention
+runs the training kernel pair with its in-kernel hash dropout, the FFN
+the training FFN kernel pair, and the hidden-state dropouts and
+LayerNorms sit between them in the JAX order.  Layer remat is not
+ported: the attention and FFN backward kernels recompute their
+intermediates, which is what the JAX package's ``resolve_train_impl``
+chooses on a TPU; ``remat`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import torch
@@ -23,16 +32,35 @@ import torch.nn.functional as F
 
 from stonkgs_tpu_torch.config import BertConfig
 from stonkgs_tpu_torch.ops.attention import dot_product_attention, plain_attention
-from stonkgs_tpu_torch.ops.fused_ffn import fused_ffn_ln_block
+from stonkgs_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_ln_block
 
 NEG_INF = -1e9  # additive attention bias for masked positions
 
 
-def check_inference(deterministic: bool) -> None:
-    """Raise for a training-mode call: only inference is ported."""
-    if not deterministic:
+@dataclasses.dataclass
+class DropoutRng:
+    """The random streams of one training forward.
+
+    Hidden-state dropout masks come from ``device``, a generator on the
+    activations' device.  Each attention call's two-word int32 dropout
+    seed comes from ``host``, a CPU generator, so the hash mask is the same
+    whichever device runs the kernel."""
+
+    device: torch.Generator
+    host: torch.Generator
+
+    def attention_seed(self) -> torch.Tensor:
+        """Two int32 words for one attention call's hash dropout."""
+        return torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
+                             generator=self.host)
+
+
+def check_no_remat(remat) -> None:
+    """Raise for a request of layer remat, which the port does not have."""
+    if remat not in (False, None, "none"):
         raise NotImplementedError(
-            "training (deterministic=False, dropout) is not ported yet")
+            f"remat={remat!r}: layer remat is not ported; the attention and "
+            "FFN backward kernels recompute their intermediates instead")
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +92,16 @@ def activation(name: str):
     if name in ("gelu_new", "gelu_pytorch_tanh"):
         return lambda x: F.gelu(x, approximate="tanh")
     raise ValueError(f"unsupported activation: {name}")
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng],
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout with a mask from ``rng.device``; the identity when
+    deterministic, at rate 0 or without an rng (as the JAX package)."""
+    if deterministic or rate == 0.0 or rng is None:
+        return x
+    keep = torch.rand(x.shape, generator=rng.device, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -138,13 +176,14 @@ def embed(
     position_ids: Optional[torch.Tensor] = None,
     *,
     deterministic: bool = True,
+    rng: Optional[DropoutRng] = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """BertEmbeddings: word/inputs + position + token-type, LayerNorm.
+    """BertEmbeddings: word/inputs + position + token-type, LayerNorm,
+    dropout.
 
     With ``inputs_embeds`` the position and token-type embeddings are still
     added: this is how the STonKGs trunk consumes backbone embeddings."""
-    check_inference(deterministic)
     p = params["embeddings"]
     if inputs_embeds is None:
         inputs_embeds = p["word_embeddings"][input_ids]
@@ -159,7 +198,8 @@ def embed(
     pos = p["position_embeddings"][position_ids].to(compute_dtype)
     tok = p["token_type_embeddings"][token_type_ids].to(compute_dtype)
     x = inputs_embeds + pos + tok
-    return layer_norm(x, p["layer_norm"], cfg.layer_norm_eps)
+    x = layer_norm(x, p["layer_norm"], cfg.layer_norm_eps)
+    return dropout(x, cfg.hidden_dropout_prob, rng, deterministic)
 
 
 def attention_bias_from_mask(attention_mask: Optional[torch.Tensor],
@@ -178,25 +218,40 @@ def encoder_layer(
     attn_bias: Optional[torch.Tensor],
     *,
     deterministic: bool = True,
+    rng: Optional[DropoutRng] = None,
 ) -> torch.Tensor:
-    """One post-LN BERT layer; the post-attention half is the fused block."""
-    check_inference(deterministic)
+    """One post-LN BERT layer.
+
+    Inference: the post-attention half is the fused LN1 -> FFN -> LN2
+    block.  Training, in the JAX order (``stonkgs_tpu/models/bert.py:
+    316-337``): attention output -> dropout -> LN(x + attn) -> fused FFN
+    -> dropout -> LN(x + ff)."""
     B, S, H = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     ap = lp["attention"]
     q = dense(x, ap["query"]).reshape(B, S, nh, hd)
     k = dense(x, ap["key"]).reshape(B, S, nh, hd)
     v = dense(x, ap["value"]).reshape(B, S, nh, hd)
-    ctx = dot_product_attention(q, k, v, attn_bias)
+    seed = None if deterministic or rng is None else rng.attention_seed()
+    ctx = dot_product_attention(q, k, v, attn_bias, deterministic=deterministic,
+                                dropout_rate=cfg.attention_probs_dropout_prob,
+                                seed=seed)
     attn_out = dense(ctx.reshape(B, S, H), ap["output"])
-    return fused_ffn_ln_block(
-        x, attn_out,
-        ap["output_layer_norm"]["scale"], ap["output_layer_norm"]["bias"],
-        lp["intermediate"]["kernel"], lp["intermediate"]["bias"],
-        lp["output"]["kernel"], lp["output"]["bias"],
-        lp["output_layer_norm"]["scale"], lp["output_layer_norm"]["bias"],
-        act=cfg.hidden_act, eps=cfg.layer_norm_eps,
-    )
+    if deterministic:
+        return fused_ffn_ln_block(
+            x, attn_out,
+            ap["output_layer_norm"]["scale"], ap["output_layer_norm"]["bias"],
+            lp["intermediate"]["kernel"], lp["intermediate"]["bias"],
+            lp["output"]["kernel"], lp["output"]["bias"],
+            lp["output_layer_norm"]["scale"], lp["output_layer_norm"]["bias"],
+            act=cfg.hidden_act, eps=cfg.layer_norm_eps,
+        )
+    attn_out = dropout(attn_out, cfg.hidden_dropout_prob, rng, deterministic)
+    x = layer_norm(x + attn_out, ap["output_layer_norm"], cfg.layer_norm_eps)
+    ff = fused_ffn(x, lp["intermediate"]["kernel"], lp["intermediate"]["bias"],
+                   lp["output"]["kernel"], lp["output"]["bias"], act=cfg.hidden_act)
+    ff = dropout(ff, cfg.hidden_dropout_prob, rng, deterministic)
+    return layer_norm(x + ff, lp["output_layer_norm"], cfg.layer_norm_eps)
 
 
 def encoder_layer_cls(
@@ -229,19 +284,21 @@ def encode(
     attention_mask: Optional[torch.Tensor] = None,
     *,
     deterministic: bool = True,
+    rng: Optional[DropoutRng] = None,
     cls_only: bool = False,
 ) -> torch.Tensor:
     """Run the encoder layers in order.
 
     ``cls_only``: compute the LAST layer only for the [CLS] position
-    (pooled-output paths) and return (B, 1, H)."""
-    check_inference(deterministic)
+    (pooled-output paths, inference only) and return (B, 1, H)."""
+    if cls_only and not deterministic:
+        raise ValueError("cls_only is an inference-path optimization")
     attn_bias = attention_bias_from_mask(attention_mask, torch.float32)
     layers: List[dict] = params["encoder"]
     body = layers[:-1] if cls_only else layers
     x = hidden
     for lp in body:
-        x = encoder_layer(x, lp, cfg, attn_bias)
+        x = encoder_layer(x, lp, cfg, attn_bias, deterministic=deterministic, rng=rng)
     if cls_only:
         x = encoder_layer_cls(x, layers[-1], cfg, attn_bias)
     return x
@@ -262,20 +319,24 @@ def bert_model(
     inputs_embeds: Optional[torch.Tensor] = None,
     *,
     deterministic: bool = True,
+    rng: Optional[DropoutRng] = None,
     compute_dtype: torch.dtype = torch.float32,
+    remat=False,
     with_pooler: bool = True,
     cls_only: bool = False,
 ):
     """Full BertModel forward: returns (sequence_output, pooled_output|None).
 
     ``cls_only`` restricts the last encoder layer to the [CLS] position;
-    the returned sequence output is then (B, 1, H)."""
+    the returned sequence output is then (B, 1, H).  Training passes
+    ``deterministic=False`` and the step's :class:`DropoutRng`."""
+    check_no_remat(remat)
     hidden = embed(
         params, cfg, input_ids=input_ids, inputs_embeds=inputs_embeds,
         token_type_ids=token_type_ids, position_ids=position_ids,
-        deterministic=deterministic, compute_dtype=compute_dtype,
+        deterministic=deterministic, rng=rng, compute_dtype=compute_dtype,
     )
     seq = encode(params, cfg, hidden, attention_mask,
-                 deterministic=deterministic, cls_only=cls_only)
+                 deterministic=deterministic, rng=rng, cls_only=cls_only)
     pooled = pool(params, seq) if (with_pooler and "pooler" in params) else None
     return seq, pooled

@@ -1,13 +1,19 @@
-"""STonKGs, dual-modality (text + KG) BERT, inference path in PyTorch.
+"""STonKGs, dual-modality (text + KG) BERT, in PyTorch.
 
-The port of the JAX package's ``stonkgs_tpu/models/stonkgs.py`` for
-serving: parameter init, the KG table, the frozen backbones, the trunk,
-the pooled output and classification logits.  Quirks kept on purpose:
+The port of the JAX package's ``stonkgs_tpu/models/stonkgs.py``: parameter
+init, the KG table, the frozen backbones, the trunk, the pooled output and
+classification logits (serving), and the pre-training logits and loss
+(MLM + ELM on the gathered masked positions, plus NSP).  Quirks kept on
+purpose:
 
 * the frozen LM backbone runs with NO attention mask and attends over
   PAD positions, as the reference model does;
+* in training the frozen backbone runs WITH dropout, under
+  ``torch.no_grad()``: the JAX package's ``stop_gradient`` after a
+  training-mode backbone (``stonkgs.py:218-229``);
 * the KG table's special rows 100/102/103 hold the LM backbone's output
   for the length-1 sequence of each special token id;
+* the ELM decoder biases exist but are never applied;
 * the TransE layout (256 + 4) is the same code with another config.
 """
 
@@ -20,7 +26,18 @@ import torch
 
 from stonkgs_tpu_torch.config import BertConfig, STonKGsConfig
 from stonkgs_tpu_torch.models import bert
-from stonkgs_tpu_torch.models.heads import classifier_head, init_classifier_head
+from stonkgs_tpu_torch.models.bert import DropoutRng
+from stonkgs_tpu_torch.models.heads import (
+    classifier_head,
+    elm_decode_segment,
+    elm_head_dense,
+    elm_transform,
+    init_classifier_head,
+    init_elm_head,
+    init_nsp_head,
+    nsp_head,
+)
+from stonkgs_tpu_torch.ops.losses import gather_masked_positions, masked_cross_entropy
 
 
 def init_stonkgs_params(
@@ -29,7 +46,9 @@ def init_stonkgs_params(
     *,
     with_classifier: bool = False,
 ) -> dict:
-    """The serving path's parameter tree, fp32 on the CPU, from ``gen``.
+    """The full parameter tree, fp32 on the CPU, from ``gen``: trunk, LM
+    backbone, KG table, the pre-training heads (``cls``) and, optionally,
+    the classifier.
 
     The frozen KG backbone ((kg_vocab+3, H)) starts as zeros: fill it with
     :func:`build_kg_table`."""
@@ -38,6 +57,11 @@ def init_stonkgs_params(
         "trunk": bert.init_bert_params(gen, bcfg, with_pooler=True),
         "lm_backbone": bert.init_bert_params(gen, bcfg, with_pooler=True),
         "kg_backbone": torch.zeros(cfg.kg_table_size, bcfg.hidden_size),
+    }
+    params["cls"] = {
+        "predictions": init_elm_head(gen, bcfg, [bcfg.vocab_size, cfg.kg_vocab_size],
+                                     ("text", "entity")),
+        "seq_relationship": init_nsp_head(gen, bcfg),
     }
     if with_classifier:
         if cfg.num_labels is None:
@@ -92,6 +116,8 @@ def backbone_embeddings(
     cfg: STonKGsConfig,
     input_ids: torch.Tensor,      # (B, text_len + entity_len)
     *,
+    deterministic: bool = True,
+    rng: Optional[DropoutRng] = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Frozen-backbone input embeddings for the trunk: (B, S, H).
@@ -102,7 +128,8 @@ def backbone_embeddings(
     ent_ids = input_ids[:, cfg.text_len:]
     token_embeddings, _ = bert.bert_model(
         params["lm_backbone"], cfg.bert, input_ids=text_ids,
-        attention_mask=None, compute_dtype=compute_dtype, with_pooler=False,
+        attention_mask=None, deterministic=deterministic, rng=rng,
+        compute_dtype=compute_dtype, with_pooler=False,
     )
     ent_embeddings = params["kg_backbone"].to(compute_dtype)[ent_ids]
     return torch.cat([token_embeddings, ent_embeddings], dim=1)
@@ -116,26 +143,34 @@ def trunk_forward(
     token_type_ids: Optional[torch.Tensor] = None,
     *,
     deterministic: bool = True,
+    rng: Optional[DropoutRng] = None,
     compute_dtype: torch.dtype = torch.float32,
+    remat=False,
     cls_only: bool = False,
     position_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbones + trunk. Returns (sequence_output, pooled_output).
 
+    The frozen backbones run under ``torch.no_grad()`` (in training with
+    their dropout, as the JAX package's ``stop_gradient`` after them), so
+    no gradient reaches them and their layers launch forward kernels only.
+
     ``position_ids`` apply to the TRUNK only (the backbone always embeds its
     text at positions 0..text_len-1): the length-bucketed mode passes
     ``[0..Sb-1, text_len..]`` so a truncated text half keeps the entity
     half on its original position rows."""
-    bert.check_inference(deterministic)
-    inputs_embeds = backbone_embeddings(params, cfg, input_ids,
-                                        compute_dtype=compute_dtype)
+    with torch.no_grad():
+        inputs_embeds = backbone_embeddings(
+            params, cfg, input_ids, deterministic=deterministic, rng=rng,
+            compute_dtype=compute_dtype)
     return bert.bert_model(
         params["trunk"], cfg.bert,
         inputs_embeds=inputs_embeds,
         attention_mask=attention_mask,
         token_type_ids=token_type_ids,
         position_ids=position_ids,
-        compute_dtype=compute_dtype, with_pooler=True, cls_only=cls_only,
+        deterministic=deterministic, rng=rng,
+        compute_dtype=compute_dtype, remat=remat, with_pooler=True, cls_only=cls_only,
     )
 
 
@@ -154,7 +189,73 @@ def pooler_output(params: dict, cfg: STonKGsConfig, batch: dict, *,
 def classification_logits(params: dict, cfg: STonKGsConfig, batch: dict, *,
                           deterministic: bool = True,
                           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Sequence-classification forward (evaluation: no dropout)."""
-    bert.check_inference(deterministic)
+    """Sequence-classification forward (evaluation: no dropout; the
+    training half belongs to fine-tuning, which is not ported)."""
+    if not deterministic:
+        raise NotImplementedError("fine-tuning (classification training) is not ported")
     pooled = pooler_output(params, cfg, batch, compute_dtype=compute_dtype)
     return classifier_head(params["classifier"], pooled)
+
+
+def pretraining_logits(
+    params: dict,
+    cfg: STonKGsConfig,
+    input_ids: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    token_type_ids: Optional[torch.Tensor] = None,
+    **kw,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference-shaped outputs: (mlm_logits, elm_logits, nsp_logits, pooled)."""
+    seq, pooled = trunk_forward(params, cfg, input_ids, attention_mask,
+                                token_type_ids, **kw)
+    mlm, elm = elm_head_dense(
+        params["cls"]["predictions"], seq, cfg.bert,
+        [(0, cfg.text_len), (cfg.text_len, cfg.seq_len)], ("text", "entity"))
+    nsp = nsp_head(params["cls"]["seq_relationship"], pooled)
+    return mlm, elm, nsp, pooled
+
+
+def pretraining_loss(
+    params: dict,
+    cfg: STonKGsConfig,
+    batch: dict,
+    *,
+    max_text_predictions: Optional[int] = None,
+    max_entity_predictions: Optional[int] = None,
+    dense_heads: bool = False,
+    **kw,
+) -> Tuple[torch.Tensor, dict]:
+    """MLM + ELM + NSP loss, their sum (``stonkgs_tpu/models/stonkgs.py:
+    285-368``); ``kw`` goes to :func:`trunk_forward`.
+
+    With ``dense_heads=False`` only the masked positions are decoded: the
+    data pipeline masks exactly ``int(0.15 * len)`` positions per half, and
+    k = ``max(int(0.15 * len), 1)`` slots are gathered per half.  Returns
+    (loss, {"loss", "mlm_loss", "elm_loss", "nsp_loss"})."""
+    seq, pooled = trunk_forward(
+        params, cfg, batch["input_ids"], batch.get("attention_mask"),
+        batch.get("token_type_ids"), **kw)
+    p = params["cls"]["predictions"]
+    mlm_labels = batch["masked_lm_labels"]
+    elm_labels = batch["ent_masked_lm_labels"]
+    tl = cfg.text_len
+    if dense_heads:
+        t = elm_transform(p, seq, cfg.bert)
+        mlm_loss = masked_cross_entropy(elm_decode_segment(p, t[:, :tl], "text"),
+                                        mlm_labels)
+        elm_loss = masked_cross_entropy(elm_decode_segment(p, t[:, tl:], "entity"),
+                                        elm_labels)
+    else:
+        k_text = max_text_predictions or max(int(cfg.text_len * 0.15), 1)
+        k_ent = max_entity_predictions or max(int(cfg.entity_len * 0.15), 1)
+        text_h, text_l, _ = gather_masked_positions(seq[:, :tl], mlm_labels, k_text)
+        ent_h, ent_l, _ = gather_masked_positions(seq[:, tl:], elm_labels, k_ent)
+        mlm_loss = masked_cross_entropy(
+            elm_decode_segment(p, elm_transform(p, text_h, cfg.bert), "text"), text_l)
+        elm_loss = masked_cross_entropy(
+            elm_decode_segment(p, elm_transform(p, ent_h, cfg.bert), "entity"), ent_l)
+    nsp_logits = nsp_head(params["cls"]["seq_relationship"], pooled)
+    nsp_loss = masked_cross_entropy(nsp_logits, batch["next_sentence_labels"])
+    loss = mlm_loss + elm_loss + nsp_loss
+    return loss, {"loss": loss, "mlm_loss": mlm_loss,
+                  "elm_loss": elm_loss, "nsp_loss": nsp_loss}

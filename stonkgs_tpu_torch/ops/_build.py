@@ -144,4 +144,5 @@ def stream(device) -> ctypes.c_void_p:
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
+U32 = ctypes.c_uint32
 F32 = ctypes.c_float

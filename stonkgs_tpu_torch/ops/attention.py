@@ -1,12 +1,17 @@
-"""Multi-head attention for the port's inference path.
+"""Multi-head attention of the port.
 
-``dot_product_attention`` runs every full-sequence attention of the
-serving path through the CUDA kernel of
-:func:`stonkgs_tpu_torch.ops.flash_attention.flash_attention_infer`
-(on a CPU tensor, through its plain version).  Unlike the JAX package,
-which sends S < 384 to XLA on a TPU (``stonkgs_tpu/ops/attention.py:34``),
-the port takes the kernel at every S: that routing was measured on a
-TPU and says nothing about the H100.
+``dot_product_attention`` runs every full-sequence attention through the
+port's kernels (on a CPU tensor, through their plain versions):
+
+* inference (``deterministic=True``):
+  :func:`stonkgs_tpu_torch.ops.flash_attention.flash_attention_infer`;
+* training: :func:`stonkgs_tpu_torch.ops.flash_attention.flash_attention_train`
+  with the layer's dropout rate and the call's two-word seed, as the JAX
+  package's flash path does (``stonkgs_tpu/ops/attention.py:98-121``).
+
+Unlike the JAX package, which sends S < 384 to XLA on a TPU
+(``stonkgs_tpu/ops/attention.py:34``), the port takes the kernels at every
+S: that routing was measured on a TPU and says nothing about the H100.
 
 ``plain_attention`` is the counterpart of the JAX package's
 ``_xla_attention``: the einsum form that the single-query ``cls_only``
@@ -20,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from stonkgs_tpu_torch.ops.flash_attention import flash_attention_infer
+from stonkgs_tpu_torch.ops.flash_attention import flash_attention_infer, flash_attention_train
 
 
 def dot_product_attention(
@@ -31,12 +36,15 @@ def dot_product_attention(
     *,
     deterministic: bool = True,
     dropout_rate: float = 0.0,
+    seed: Optional[torch.Tensor] = None,  # two int32 words (training)
 ) -> torch.Tensor:
-    """Scaled dot-product attention, deterministic only. Returns (B, S, H, D)."""
-    if not deterministic or dropout_rate:
-        raise NotImplementedError(
-            "attention dropout (training) is not ported yet")
-    return flash_attention_infer(q, k, v, bias)
+    """Scaled dot-product attention. Returns (B, S, H, D).
+
+    Training applies the hash dropout at ``dropout_rate`` when ``seed`` is
+    given (no seed: no dropout, as the JAX package without an rng)."""
+    if deterministic:
+        return flash_attention_infer(q, k, v, bias)
+    return flash_attention_train(q, k, v, bias, dropout_rate=dropout_rate, seed=seed)
 
 
 def plain_attention(

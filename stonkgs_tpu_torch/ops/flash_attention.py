@@ -1,4 +1,7 @@
-"""Inference attention: softmax(Q Kᵀ/√D + key_bias) V over (B, S, H, D).
+"""Attention over (B, S, H, D): the inference kernel and the training pair.
+
+Inference, softmax(Q Kᵀ/√D + key_bias) V
+========================================
 
 Kernel: ``csrc/flash_attention_infer.cu`` (CUDA C++ for ``sm_90a``).  It
 replaces the TPU kernel ``_infer_kernel`` of the JAX package
@@ -6,9 +9,10 @@ replaces the TPU kernel ``_infer_kernel`` of the JAX package
 at ``:487``).
 
 What bounds it on the H100: at the trunk's shape (B=128, S=512, H=12,
-D=64, bf16) the two products are 4*B*H*S²*D = 103 GFLOP against 201 MB
-of q, k, v and out, so operations bound it (0.104 ms at 989 TFLOP/s,
-against 0.060 ms for the bytes at 3.35 TB/s).
+D=64, bf16) the two products are 4*B*H*S²*D = 103 GFLOP against 402.7 MB
+of q, k, v and out (4 x 128·512·768 x 2 bytes), so bytes bound it
+(0.120 ms at 3.35 TB/s, against 0.104 ms for the products at
+989 TFLOP/s).
 
 Design: the TPU kernel runs one program per (batch, q-block) with all
 heads unrolled inside, because TPU grid steps run in order and each has
@@ -30,13 +34,58 @@ products but needs ~54 KB, so four blocks share an SM.  bf16 products
 run on the tensor cores (``nvcuda::wmma``); the fp32 instantiation uses
 plain fp32 FMAs and exists to hold the whole model against the CPU.  The
 kernel takes any S >= 1 and D = 64, the head width of every model in the
-repo.
+repo.  Its body is ``attn_fwd_kernel`` of ``csrc/attention.cuh``, which
+the training forward shares.
+
+Training, with the TPU kernels' hash dropout
+============================================
+
+Kernels: ``csrc/flash_attention_train.cu``, two entry points.  They
+replace ``_train_fwd_kernel`` (``stonkgs_tpu/ops/flash_attention.py:92``,
+launched at ``:218``, with ``_dropout_keep`` at ``:69``) and
+``_train_bwd_kernel`` (``:118``, launched at ``:267``).
+
+What bounds them on the H100, counted as above (each input byte read once,
+each output byte written once), at the pre-training step's shapes
+(B=32, H=12, D=64, bf16):
+
+* forward, trunk S=512 with key bias: 4*B*H*S²*D = 25.8 GFLOP against
+  101.5 MB of q, k, v, out and the fp32 lse: bound by bytes, 0.030 ms at
+  3.35 TB/s against 0.026 ms of products;
+* forward, backbone S=256, no bias: 6.4 GFLOP against 50.7 MB, bound by
+  bytes (0.015 ms);
+* backward, trunk: 10*B*H*S²*D = 64.4 GFLOP against 202 MB (q, k, v, o,
+  dO, lse and bias read; dq, dk, dv and db written): bound by operations,
+  0.065 ms against 0.060 ms for the bytes.
+
+Design.  The forward is the inference kernel with three additions: the
+fp32 logsumexp of each row, the dropout of the normalised probabilities
+before they are rounded, and the TPU kernel's padded keys (S_pad - S keys
+of score -1e9, which change a row only when all its keys are masked).
+The TPU backward runs one program per (b, h, q-block) and carries dK and
+dV across the sequential q-blocks in fp32 scratch.  Hopper blocks run in
+parallel, so the backward is three launches: a warp per row computes
+delta = rowsum(dO·O); a block per (64-row query tile, head, batch)
+streams the keys and forms dQ; a block per (64-key tile, head, batch)
+streams the queries and forms dK and dV in fp32 registers, and adds its
+keys' share of db into a zeroed (B, S) buffer with atomics.  S and dPᵀ
+are thus computed twice, for no cross-block reduction of dQ.  Every
+launch regenerates the dropout mask from the hash of the position.  The
+rounding points are the TPU kernels' (``flash_attention.py:92-178``):
+products of the input dtype accumulated in fp32, scale after the
+product, dS rounded to q's dtype before the dQ and dK products, the
+dropped probabilities rounded to dO's dtype for dV.
+
+The dropout hash indexes ((b·H + h)·S_pad + row)·S_pad + col, modulo 2³²,
+where S_pad pads S to the TPU kernel's query block (``padded_length``):
+on the card and in the plain version the mask is the JAX package's, bit
+for bit, for the same two seed words.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -44,10 +93,25 @@ from stonkgs_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIM = 64
-_P, _I, _F = _build.P, _build.I32, _build.F32
-# int flash_attention_infer(dtype, q, k, v, key_bias, out, B, S, H, scale,
-#                           stream)
-_SIGNATURES = {"flash_attention_infer": [_I] + [_P] * 5 + [_I, _I, _I, _F, _P]}
+NEG_BIAS = -1e9  # score of a padded key, as the JAX package's NEG_BIAS
+_P, _I, _U, _F = _build.P, _build.I32, _build.U32, _build.F32
+# the dropout arguments of both training entry points:
+# dropout, s_pad, threshold, seed0, seed1, keep_scale
+_DROP = [_I, _I, _U, _U, _U, _F]
+_SIGNATURES = {
+    # int flash_attention_infer(dtype, q, k, v, key_bias, out, B, S, H,
+    #                           scale, stream)
+    "flash_attention_infer": [_I] + [_P] * 5 + [_I, _I, _I, _F, _P],
+}
+_TRAIN_SIGNATURES = {
+    # int flash_attention_train_fwd(dtype, q, k, v, key_bias, out, lse, B,
+    #                               S, H, scale, *dropout, stream)
+    "flash_attention_train_fwd": [_I] + [_P] * 6 + [_I, _I, _I, _F] + _DROP + [_P],
+    # int flash_attention_train_bwd(dtype, q, k, v, key_bias, out, lse, dout,
+    #                               dq, dk, dv, db, delta, B, S, H, scale,
+    #                               *dropout, stream)
+    "flash_attention_train_bwd": [_I] + [_P] * 12 + [_I, _I, _I, _F] + _DROP + [_P],
+}
 
 
 def _key_bias(bias: Optional[torch.Tensor], B: int, S: int):
@@ -59,6 +123,34 @@ def _key_bias(bias: Optional[torch.Tensor], B: int, S: int):
                          f"got {tuple(bias.shape)}")
     return bias.reshape(B, S).float()
 
+
+def _check_cuda_inputs(what: str, q: torch.Tensor, others, extra=()) -> None:
+    """Raise unless q and ``others`` (same shape and dtype as q) and
+    ``extra`` are contiguous tensors on q's CUDA device that the kernels
+    take: (B, S, H, 64) in fp32 or bf16, S >= 1."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{what}: unsupported dtype {q.dtype}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, S, H, D), got {tuple(q.shape)}")
+    _, S, _, D = q.shape
+    if D != KERNEL_HEAD_DIM or S < 1:
+        raise ValueError(f"{what} kernel takes D={KERNEL_HEAD_DIM} and S >= 1, "
+                         f"got D={D}, S={S}")
+    for t in others:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{what}: q, k, v (and o, dO) must share shape and dtype")
+    for t in (q, *others, *(t for t in extra if t is not None)):
+        if t.device != q.device:
+            raise ValueError(f"{what}: tensors on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# inference
+# ---------------------------------------------------------------------------
 
 def flash_attention_infer_plain(q, k, v, bias=None):
     """Plain PyTorch version of the kernel: fp32 scores from products of
@@ -86,26 +178,9 @@ def flash_attention_infer(
     the kernel (or raises)."""
     if q.device.type == "cpu":
         return flash_attention_infer_plain(q, k, v, bias)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_infer: unsupported device {q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention_infer: unsupported dtype {q.dtype}")
-    if q.dim() != 4:
-        raise ValueError(f"q must be (B, S, H, D), got {tuple(q.shape)}")
     B, S, H, D = q.shape
-    if D != KERNEL_HEAD_DIM or S < 1:
-        raise ValueError(
-            f"flash_attention_infer kernel takes D={KERNEL_HEAD_DIM} and "
-            f"S >= 1, got D={D}, S={S}")
     kb = _key_bias(bias, B, S)
-    for t in (k, v):
-        if t.shape != q.shape or t.dtype != q.dtype:
-            raise ValueError("q, k and v must share shape and dtype")
-    for t in (q, k, v) + (() if kb is None else (kb,)):
-        if t.device != q.device:
-            raise ValueError("flash_attention_infer: tensors on different devices")
-        if not t.is_contiguous():
-            raise ValueError("flash_attention_infer: tensors must be contiguous")
+    _check_cuda_inputs("flash_attention_infer", q, (k, v), (kb,))
     out = torch.empty_like(q)
     _build.check_aligned("flash_attention_infer", q, k, v, out)
     if B == 0 or H == 0:
@@ -121,3 +196,259 @@ def flash_attention_infer(
 
 
 flash_attention_infer.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training: the dropout hash
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def padded_length(S: int, block_q: int = 256) -> int:
+    """S padded to the TPU training kernels' query block: ``ceil(S/bq)·bq``
+    with ``bq = min(block_q, S)``, and block_q at most 128 when S > 1024
+    (``stonkgs_tpu/ops/flash_attention.py:181-183, 540-541``).  The
+    dropout hash indexes positions of the padded (S_pad, S_pad) grid."""
+    if S > 1024:
+        block_q = min(block_q, 128)
+    bq = min(block_q, S)
+    return -(-S // bq) * bq
+
+
+def dropout_threshold(rate: float) -> int:
+    """uint32 threshold: a position is kept iff its hash < threshold."""
+    return min(int(round((1.0 - rate) * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def _seed_words(seed) -> Tuple[int, int]:
+    """Two int32 seed words (a (2,) CPU tensor or two ints) as uint32."""
+    words = seed.tolist() if isinstance(seed, torch.Tensor) else list(seed)
+    if len(words) != 2:
+        raise ValueError(f"the dropout seed is two 32-bit words, got {words}")
+    return int(words[0]) & _MASK32, int(words[1]) & _MASK32
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32): c is split into 16-bit
+    halves so that no product leaves the int64 range."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def dropout_keep_plain(seed, B: int, H: int, s_pad: int, rows: torch.Tensor,
+                       cols: torch.Tensor, rate: float) -> torch.Tensor:
+    """The JAX package's ``_dropout_keep`` (``flash_attention.py:69-89``)
+    as a (B, H, len(rows), len(cols)) bool mask: a murmur3-finalizer hash
+    of ((b·H + h)·s_pad + row)·s_pad + col and the two seed words, every
+    step modulo 2**32, kept iff hash < ``dropout_threshold(rate)``."""
+    s0, s1 = _seed_words(seed)
+    dev = rows.device
+    bh = torch.arange(B * H, dtype=torch.int64, device=dev).view(B, H, 1, 1)
+    r = rows.to(torch.int64).view(1, 1, -1, 1)
+    c = cols.to(torch.int64).view(1, 1, 1, -1)
+    x = (_mul32((_mul32(bh, s_pad) + r) & _MASK32, s_pad) + c) & _MASK32
+    x = x ^ s0
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 16) ^ s1
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0x27D4EB2F)
+    x = x ^ (x >> 16)
+    return x < dropout_threshold(rate)
+
+
+def _dropout_args(rate: float, seed, S: int, block_q: int) -> list:
+    """The kernels' dropout arguments (dropout, s_pad, threshold, seed0,
+    seed1, keep_scale)."""
+    s0, s1 = _seed_words(seed)
+    return [int(rate > 0.0), padded_length(S, block_q), dropout_threshold(rate),
+            s0, s1, 1.0 / (1.0 - rate)]
+
+
+# ---------------------------------------------------------------------------
+# training: plain versions and kernel wrappers
+# ---------------------------------------------------------------------------
+
+def flash_attention_train_fwd_plain(q, k, v, bias=None, seed=(0, 0), rate=0.0,
+                                    block_q=256):
+    """Plain PyTorch version of the training forward kernel.
+
+    Returns (out (B, S, H, D) in q's dtype, lse (B, H, S) fp32): fp32
+    scores s = (q·kᵀ)·scale + bias from products of the input dtype, the
+    TPU kernel's S_pad - S padded keys at score -1e9, lse = m + log Σ
+    exp(s - m), probabilities normalised, dropped with scale 1/(1-rate),
+    rounded to v's dtype, P V accumulated in fp32."""
+    B, S, H, D = q.shape
+    f = torch.float32
+    s_pad = padded_length(S, block_q)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f), k.to(f)) * (1.0 / math.sqrt(D))
+    kb = _key_bias(bias, B, S)
+    if kb is not None:
+        s = s + kb[:, None, None, :]
+    if s_pad > S:
+        s = torch.cat([s, s.new_full((B, H, S, s_pad - S), NEG_BIAS)], dim=-1)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(denom))[..., 0]
+    pn = (p / denom)[..., :S]
+    if rate > 0.0:
+        idx = torch.arange(S, device=q.device)
+        keep = dropout_keep_plain(seed, B, H, s_pad, idx, idx, rate)
+        pn = torch.where(keep, pn * (1.0 / (1.0 - rate)), 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", pn.to(v.dtype).to(f), v.to(f))
+    return out.to(q.dtype).contiguous(), lse.contiguous()
+
+
+def flash_attention_train_bwd_plain(q, k, v, bias, out, lse, dout, seed=(0, 0),
+                                    rate=0.0, block_q=256, need_db=True):
+    """Plain PyTorch version of the training backward kernel.
+
+    Returns (dq, dk, dv, db): p = exp(s - lse) recomputed; dp = (dO·Vᵀ)·mr,
+    mr = 1/(1-rate) where the hash keeps and 0 where it drops; delta =
+    Σ dO·O in fp32; dS = p·(dp - delta) in fp32, rounded to q's dtype for
+    the dQ and dK products; the dropped p rounded to dO's dtype for dV;
+    db (B, S) = Σ over rows and heads of the fp32 dS (None unless
+    ``need_db``)."""
+    B, S, H, D = q.shape
+    f = torch.float32
+    scale = 1.0 / math.sqrt(D)
+    dout = dout.to(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f), k.to(f)) * scale
+    kb = _key_bias(bias, B, S)
+    if kb is not None:
+        s = s + kb[:, None, None, :]
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.to(f), v.to(f))
+    pd = p
+    if rate > 0.0:
+        idx = torch.arange(S, device=q.device)
+        keep = dropout_keep_plain(seed, B, H, padded_length(S, block_q), idx, idx, rate)
+        mr = torch.where(keep, 1.0 / (1.0 - rate), 0.0).to(f)
+        pd = p * mr
+        dp = dp * mr
+    delta = (dout.to(f) * out.to(f)).sum(dim=-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta)
+    ds_lp = ds.to(q.dtype).to(f)
+    dq = (scale * torch.einsum("bhqk,bkhd->bqhd", ds_lp, k.to(f))).to(q.dtype)
+    dk = (scale * torch.einsum("bhqk,bqhd->bkhd", ds_lp, q.to(f))).to(k.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd.to(dout.dtype).to(f), dout.to(f)).to(v.dtype)
+    db = ds.sum(dim=(1, 2)) if need_db else None
+    return dq.contiguous(), dk.contiguous(), dv.contiguous(), db
+
+
+def flash_attention_train_fwd(q, k, v, bias=None, seed=(0, 0), rate=0.0, block_q=256):
+    """Training forward: (out, lse), as :func:`flash_attention_train_fwd_plain`.
+
+    A tensor on the CPU takes the plain version; a CUDA tensor launches
+    the kernel (or raises)."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if q.device.type == "cpu":
+        return flash_attention_train_fwd_plain(q, k, v, bias, seed, rate, block_q)
+    B, S, H, D = q.shape
+    kb = _key_bias(bias, B, S)
+    _check_cuda_inputs("flash_attention_train_fwd", q, (k, v), (kb,))
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    _build.check_aligned("flash_attention_train_fwd", q, k, v, out)
+    if B == 0 or H == 0:
+        return out, lse
+    lib = _build.load("flash_attention_train", _TRAIN_SIGNATURES)
+    status = lib.flash_attention_train_fwd(
+        _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v),
+        _build.ptr(kb), _build.ptr(out), _build.ptr(lse), B, S, H,
+        1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
+        _build.stream(q.device))
+    _build.check(status, "flash_attention_train_fwd")
+    flash_attention_train_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_train_fwd.launches = 0
+
+
+def flash_attention_train_bwd(q, k, v, bias, out, lse, dout, seed=(0, 0), rate=0.0,
+                              block_q=256, need_db=True):
+    """Training backward: (dq, dk, dv, db), as
+    :func:`flash_attention_train_bwd_plain`; ``dout`` in q's dtype.
+
+    A tensor on the CPU takes the plain version; a CUDA tensor launches
+    the kernel (or raises)."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if q.device.type == "cpu":
+        return flash_attention_train_bwd_plain(q, k, v, bias, out, lse, dout, seed,
+                                               rate, block_q, need_db)
+    B, S, H, D = q.shape
+    kb = _key_bias(bias, B, S)
+    if tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 (B, H, S), got {lse.dtype} {tuple(lse.shape)}")
+    _check_cuda_inputs("flash_attention_train_bwd", q, (k, v, out, dout), (kb, lse))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    db = torch.zeros((B, S), dtype=torch.float32, device=q.device) if need_db else None
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    _build.check_aligned("flash_attention_train_bwd", q, k, v, out, dout, dq, dk, dv)
+    if B == 0 or H == 0:
+        return dq, dk, dv, db
+    lib = _build.load("flash_attention_train", _TRAIN_SIGNATURES)
+    status = lib.flash_attention_train_bwd(
+        _DTYPES[q.dtype], *(_build.ptr(t) for t in (q, k, v, kb, out, lse, dout, dq, dk,
+                                                    dv, db, delta)),
+        B, S, H, 1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
+        _build.stream(q.device))
+    _build.check(status, "flash_attention_train_bwd")
+    flash_attention_train_bwd.launches += 1
+    return dq, dk, dv, db
+
+
+flash_attention_train_bwd.launches = 0
+
+
+class _FlashAttentionTrain(torch.autograd.Function):
+    """The training pair as one autograd function; it saves what the JAX
+    custom VJP saves: q, k, v, the bias, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, rate, block_q):
+        out, lse = flash_attention_train_fwd(q, k, v, bias, seed, rate, block_q)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.dropout = (seed, rate, block_q)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        seed, rate, block_q = ctx.dropout
+        need_db = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, db = flash_attention_train_bwd(
+            q, k, v, bias, out, lse, g.to(q.dtype).contiguous(), seed, rate, block_q,
+            need_db)
+        dbias = db.reshape(bias.shape).to(bias.dtype) if need_db else None
+        return dq, dk, dv, dbias, None, None, None
+
+
+def flash_attention_train(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,  # (B, 1, 1, S) additive key bias
+    *,
+    dropout_rate: float = 0.0,
+    seed: Optional[Sequence[int]] = None,  # two int32 words, e.g. a (2,) CPU tensor
+    block_q: int = 256,
+) -> torch.Tensor:
+    """Differentiable attention with the TPU kernels' hash dropout.
+
+    Dropout applies when ``dropout_rate > 0`` and ``seed`` is given, as
+    in the JAX package's ``flash_attention_train`` (whose two key words,
+    bitcast to int32, are the seed).  ``block_q`` only sets S_pad, and so
+    the hash (see :func:`padded_length`).  The backward recomputes the
+    probabilities from the saved logsumexp; the bias gets a gradient when
+    it requires one."""
+    if dropout_rate > 0.0 and seed is not None:
+        rate, words = float(dropout_rate), _seed_words(seed)
+    else:
+        rate, words = 0.0, (0, 0)
+    return _FlashAttentionTrain.apply(q, k, v, bias, words, rate, block_q)

@@ -1,4 +1,7 @@
-"""Post-attention half of a post-LN BERT layer: LN1 -> FFN -> LN2, fused.
+"""The BERT FFN on the card: the serving block and the training pair.
+
+Serving: LN1 -> FFN -> LN2 of a post-LN layer, fused
+=====================================================
 
 Kernel: ``csrc/ffn_ln_block.cu`` (CUDA C++ for ``sm_90a``).  It replaces
 the TPU kernel ``_ffn_ln_kernel`` of the JAX package
@@ -33,7 +36,43 @@ fp32 accumulation); the fp32 instantiation runs plain fp32 FMAs on
 Rounding points, as the TPU kernel (``fused_ffn.py:444-467``):
 x2 = LN1(x + attn) in fp32, rounded; h accumulated in fp32, + b1, gelu in
 fp32 (exact erf, or the tanh ``gelu_new``), rounded; ff = h @ W2 + b2,
-rounded; out = LN2(x2 + ff) in fp32, rounded.
+rounded; out = LN2(x2 + ff) in fp32, rounded.  The kernel body is
+``ffn_fwd_kernel`` of ``csrc/ffn.cuh``, which the training forward shares.
+
+Training: dense -> gelu -> dense, forward and backward
+======================================================
+
+Kernels: ``csrc/ffn_train.cu``, two entry points.  They replace
+``_ffn_kernel`` (``stonkgs_tpu/ops/fused_ffn.py:54``, launched at
+``:153``) and ``_ffn_bwd_kernel`` (``:206``, launched at ``:306``).
+
+What bounds them on the H100, at the pre-training step's trunk shape
+(M = 32·512 = 16,384 rows, 768 -> 3072 -> 768, bf16), counting each input
+byte once and each output byte once:
+
+* forward: 4*M*768*3072 = 154.6 GFLOP against 59.8 MB (x, y, both
+  weights): bound by operations, 0.156 ms at 989 TFLOP/s;
+* backward kernel: 6*M*768*3072 = 231.9 GFLOP (h recomputed, g W2ᵀ,
+  dh W1ᵀ) against 286 MB (x, g and dx; the (M, 3072) dh and a it
+  writes; W1 and W2): bound by operations, 0.234 ms.  The dW products,
+  another 4*M*768*3072, run outside it.
+
+Design.  The forward is the serving block's kernel without its two
+LayerNorms.  The TPU backward kernel holds a whole row block's (bm, 3072)
+fp32 chains in VMEM and emits dx, dh and a.  A Hopper block holds 32 rows
+(bf16) of x and of the cotangent g in shared memory and walks the
+intermediate axis in chunks of 192: per chunk it recomputes h = x W1 + b1,
+writes a = gelu(h), forms g W2ᵀ, multiplies by gelu'(h), writes the
+rounded dh and accumulates dx += dh W1ᵀ in an fp32 register tile.  The
+wrapper passes W2ᵀ and W1ᵀ (transposed copies, 9.4 MB in bf16) so that
+all three weight streams have the tile shapes of the forward.  dW1 = xᵀ
+dh, dW2 = aᵀ g (fp32 results of bf16 products) and the bias sums stay
+plain PyTorch, as the JAX package leaves them to XLA
+(``fused_ffn.py:334-341``).  Rounding points as the TPU kernels: g cast
+to x's dtype; h, gelu and gelu' in fp32; a rounded; dh = (g W2ᵀ) ⊙
+gelu'(h) rounded before the dx product (``fused_ffn.py:243``).  The
+port computes gelu with the exact erf (the JAX kernel's
+Abramowitz-Stegun erf was a Mosaic workaround).
 """
 
 from __future__ import annotations
@@ -52,6 +91,15 @@ _P, _I, _F = _build.P, _build.I32, _build.F32
 # int ffn_ln_block(dtype, x, attn_out, ln1_scale, ln1_bias, w1, b1, w2, b2,
 #                  ln2_scale, ln2_bias, out, M, I, act, eps, stream)
 _SIGNATURES = {"ffn_ln_block": [_I] + [_P] * 11 + [_I, _I, _I, _F, _P]}
+_TRAIN_SIGNATURES = {
+    # int ffn_train_fwd(dtype, x, w1, b1, w2, b2, out, M, I, act, stream)
+    "ffn_train_fwd": [_I] + [_P] * 6 + [_I, _I, _I, _P],
+    # int ffn_train_bwd(dtype, x, g, w1, b1, w2t, w1t, dx, dh, a, M, I, act,
+    #                   stream)
+    "ffn_train_bwd": [_I] + [_P] * 9 + [_I, _I, _I, _P],
+}
+_INV_SQRT2 = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
 
 
 def _layer_norm_rows(y32, scale, bias, eps):
@@ -66,6 +114,47 @@ def _gelu(h32: torch.Tensor, act: str) -> torch.Tensor:
         return 0.5 * h32 * (1.0 + torch.erf(h32 * (2.0 ** -0.5)))
     c = math.sqrt(2.0 / math.pi)
     return 0.5 * h32 * (1.0 + torch.tanh(c * (h32 + 0.044715 * h32 * h32 * h32)))
+
+
+def _gelu_and_grad(h32: torch.Tensor, act: str):
+    """gelu(h) and gelu'(h) in fp32, as the backward kernels compute them."""
+    if act == "gelu":
+        e = torch.erf(h32 * _INV_SQRT2)
+        return (0.5 * h32 * (1.0 + e),
+                0.5 * (1.0 + e) + h32 * _INV_SQRT_2PI * torch.exp(-0.5 * h32 * h32))
+    c = math.sqrt(2.0 / math.pi)
+    u = torch.tanh(c * (h32 + 0.044715 * h32 * h32 * h32))
+    return (0.5 * h32 * (1.0 + u),
+            0.5 * (1.0 + u) + 0.5 * h32 * (1.0 - u * u) * c
+            * (1.0 + 3 * 0.044715 * h32 * h32))
+
+
+def _check_act(act: str) -> None:
+    if act not in _ACTS:
+        raise ValueError(f"unsupported activation for the fused FFN: {act}")
+
+
+def _check_cuda_ffn(what: str, x, w1, w2, *tensors) -> None:
+    """Raise unless x (..., 768) and the weights suit the kernels and
+    every tensor is contiguous on x's CUDA device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: unsupported dtype {x.dtype}")
+    H = x.shape[-1]
+    I = w1.shape[-1]
+    if H != KERNEL_HIDDEN or I % KERNEL_CHUNK:
+        raise ValueError(
+            f"{what} kernel takes H={KERNEL_HIDDEN} and I a multiple of "
+            f"{KERNEL_CHUNK}, got H={H}, I={I}")
+    if tuple(w1.shape) != (H, I) or tuple(w2.shape) != (I, H):
+        raise ValueError(f"weight shapes {tuple(w1.shape)}, {tuple(w2.shape)}"
+                         f" do not match H={H}, I={I}")
+    for t in (x, w1, w2, *tensors):
+        if t.device != x.device:
+            raise ValueError(f"{what}: tensors on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
 
 
 def fused_ffn_ln_block_plain(x, attn_out, ln1_scale, ln1_bias, w1, b1, w2, b2,
@@ -99,37 +188,20 @@ def fused_ffn_ln_block(
     A tensor on the CPU takes the plain version; a CUDA tensor launches
     the kernel (or raises).  Weights are used in ``x.dtype`` and the
     LayerNorm and bias vectors in fp32, as the TPU kernel reads them."""
-    if act not in _ACTS:
-        raise ValueError(f"unsupported activation for the fused block: {act}")
+    _check_act(act)
     if x.device.type == "cpu":
         return fused_ffn_ln_block_plain(
             x, attn_out, ln1_scale, ln1_bias, w1, b1, w2, b2,
             ln2_scale, ln2_bias, act=act, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ffn_ln_block: unsupported device {x.device}")
     dt = x.dtype
-    if dt not in _DTYPES:
-        raise TypeError(f"fused_ffn_ln_block: unsupported dtype {dt}")
-    H = x.shape[-1]
-    I = w1.shape[-1]
-    if H != KERNEL_HIDDEN or I % KERNEL_CHUNK:
-        raise ValueError(
-            f"fused_ffn_ln_block kernel takes H={KERNEL_HIDDEN} and I a "
-            f"multiple of {KERNEL_CHUNK}, got H={H}, I={I}")
-    if tuple(w1.shape) != (H, I) or tuple(w2.shape) != (I, H):
-        raise ValueError(f"weight shapes {tuple(w1.shape)}, {tuple(w2.shape)}"
-                         f" do not match H={H}, I={I}")
-    if attn_out.shape != x.shape or attn_out.dtype != dt:
-        raise ValueError("attn_out must match x in shape and dtype")
     w1 = w1.to(dt)
     w2 = w2.to(dt)
     vecs = [t.float() for t in (ln1_scale, ln1_bias, b1, b2,
                                 ln2_scale, ln2_bias)]
-    for t in (x, attn_out, w1, w2, *vecs):
-        if t.device != x.device:
-            raise ValueError("fused_ffn_ln_block: tensors on different devices")
-        if not t.is_contiguous():
-            raise ValueError("fused_ffn_ln_block: tensors must be contiguous")
+    _check_cuda_ffn("fused_ffn_ln_block", x, w1, w2, attn_out, *vecs)
+    if attn_out.shape != x.shape or attn_out.dtype != dt:
+        raise ValueError("attn_out must match x in shape and dtype")
+    H, I = w1.shape
     for t, n in zip(vecs, (H, H, I, H, H, H)):
         if tuple(t.shape) != (n,):
             raise ValueError(f"vector of shape {tuple(t.shape)}, expected ({n},)")
@@ -152,3 +224,149 @@ def fused_ffn_ln_block(
 
 
 fused_ffn_ln_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training: dense -> gelu -> dense, forward and backward
+# ---------------------------------------------------------------------------
+
+def fused_ffn_plain(x, w1, b1, w2, b2, *, act="gelu"):
+    """Plain PyTorch version of the training forward kernel: h = x W1 + b1
+    in fp32 from products of x's dtype, gelu in fp32, rounded; y = h W2 +
+    b2 in fp32, rounded."""
+    dt = x.dtype
+    f = torch.float32
+    h = _gelu(x.to(f) @ w1.to(dt).to(f) + b1.to(f), act).to(dt)
+    return (h.to(f) @ w2.to(dt).to(f) + b2.to(f)).to(dt)
+
+
+def fused_ffn_bwd_plain(x, g, w1, b1, w2, *, act="gelu"):
+    """Plain PyTorch version of the backward kernel, on (M, H) rows.
+
+    Returns (dx, dh, a) in x's dtype: h = x W1 + b1 recomputed in fp32;
+    a = gelu(h) rounded; dh = (g W2ᵀ) ⊙ gelu'(h) in fp32, rounded;
+    dx = dh W1ᵀ in fp32, rounded.  ``g`` is used in x's dtype."""
+    dt = x.dtype
+    f = torch.float32
+    w1f = w1.to(dt).to(f)
+    a32, dact = _gelu_and_grad(x.to(f) @ w1f + b1.to(f), act)
+    dh = ((g.to(dt).to(f) @ w2.to(dt).to(f).T) * dact).to(dt)
+    dx = (dh.to(f) @ w1f.T).to(dt)
+    return dx, dh, a32.to(dt)
+
+
+def fused_ffn_fwd(x, w1, b1, w2, b2, *, act="gelu"):
+    """Training forward, y = gelu(x W1 + b1) W2 + b2 over x (..., H).
+
+    A tensor on the CPU takes the plain version; a CUDA tensor launches
+    the kernel (or raises)."""
+    _check_act(act)
+    if x.device.type == "cpu":
+        return fused_ffn_plain(x, w1, b1, w2, b2, act=act)
+    dt = x.dtype
+    w1, w2 = w1.to(dt), w2.to(dt)
+    b1f, b2f = b1.float(), b2.float()
+    _check_cuda_ffn("fused_ffn_fwd", x, w1, w2, b1f, b2f)
+    H, I = w1.shape
+    M = x.numel() // H
+    out = torch.empty_like(x)
+    _build.check_aligned("fused_ffn_fwd", x, w1, w2, out)
+    if M == 0:
+        return out
+    lib = _build.load("ffn_train", _TRAIN_SIGNATURES)
+    status = lib.ffn_train_fwd(
+        _DTYPES[dt], _build.ptr(x), _build.ptr(w1), _build.ptr(b1f), _build.ptr(w2),
+        _build.ptr(b2f), _build.ptr(out), M, I, _ACTS[act], _build.stream(x.device))
+    _build.check(status, "ffn_train_fwd")
+    fused_ffn_fwd.launches += 1
+    return out
+
+
+fused_ffn_fwd.launches = 0
+
+
+def fused_ffn_bwd(x, g, w1, b1, w2, *, act="gelu"):
+    """Backward of the training FFN's activation side over (M, H) rows:
+    (dx, dh, a), as :func:`fused_ffn_bwd_plain`; ``g`` in x's dtype.
+
+    A tensor on the CPU takes the plain version; a CUDA tensor launches
+    the kernel (or raises)."""
+    _check_act(act)
+    if x.device.type == "cpu":
+        return fused_ffn_bwd_plain(x, g, w1, b1, w2, act=act)
+    dt = x.dtype
+    w1 = w1.to(dt)
+    w2t = w2.to(dt).t().contiguous()
+    w1t = w1.t().contiguous()
+    b1f = b1.float()
+    _check_cuda_ffn("fused_ffn_bwd", x, w1, w2, g, b1f, w2t, w1t)
+    if x.dim() != 2 or g.shape != x.shape or g.dtype != dt:
+        raise ValueError("fused_ffn_bwd takes x and g as (M, H) in one dtype")
+    M, (H, I) = x.shape[0], w1.shape
+    dx = torch.empty_like(x)
+    dh = torch.empty((M, I), dtype=dt, device=x.device)
+    a = torch.empty((M, I), dtype=dt, device=x.device)
+    _build.check_aligned("fused_ffn_bwd", x, g, w1, w2t, w1t, dx, dh, a)
+    if M == 0:
+        return dx, dh, a
+    lib = _build.load("ffn_train", _TRAIN_SIGNATURES)
+    status = lib.ffn_train_bwd(
+        _DTYPES[dt], _build.ptr(x), _build.ptr(g), _build.ptr(w1), _build.ptr(b1f),
+        _build.ptr(w2t), _build.ptr(w1t), _build.ptr(dx), _build.ptr(dh), _build.ptr(a),
+        M, I, _ACTS[act], _build.stream(x.device))
+    _build.check(status, "ffn_train_bwd")
+    fused_ffn_bwd.launches += 1
+    return dx, dh, a
+
+
+fused_ffn_bwd.launches = 0
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as fp32 sums of products of the inputs' dtype (the JAX
+    package's ``preferred_element_type=f32``)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _FusedFFN(torch.autograd.Function):
+    """The training FFN pair as one autograd function; it saves what the
+    JAX custom VJP saves, the inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, act):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.act = act
+        return fused_ffn_fwd(x, w1, b1, w2, b2, act=act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2 = ctx.saved_tensors
+        H = x.shape[-1]
+        x2 = x.reshape(-1, H)
+        g2 = g.reshape(-1, H).to(x.dtype).contiguous()
+        dx, dh, a = fused_ffn_bwd(x2, g2, w1, b1, w2, act=ctx.act)
+        dw1 = _matmul_f32(x2.t(), dh)
+        dw2 = _matmul_f32(a.t(), g2)
+        db1 = dh.float().sum(dim=0)
+        db2 = g2.float().sum(dim=0)
+        return (dx.reshape(x.shape), dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(b2.dtype), None)
+
+
+def fused_ffn(
+    x: torch.Tensor,   # (..., H)
+    w1: torch.Tensor,  # (H, I)
+    b1: torch.Tensor,  # (I,)
+    w2: torch.Tensor,  # (I, H)
+    b2: torch.Tensor,  # (H,)
+    *,
+    act: str = "gelu",
+) -> torch.Tensor:
+    """dense(H->I) -> gelu/gelu_new -> dense(I->H), differentiable.
+
+    The forward and the backward's activation side are kernels; the
+    (M, I) intermediate is recomputed in the backward, never saved."""
+    _check_act(act)
+    return _FusedFFN.apply(x, w1, b1, w2, b2, act)

@@ -1,0 +1,344 @@
+"""Pre-training engine of the port: the train step and the training loop.
+
+The port of the JAX package's ``stonkgs_tpu/train/pretraining.py`` for one
+device: ``make_train_step`` differentiates
+:func:`stonkgs_tpu_torch.models.stonkgs.pretraining_loss` with respect to
+the trainable subtree (trunk and heads; the frozen backbones run under
+``torch.no_grad()``), accumulates gradients over micro-batches in fp32,
+and applies :class:`stonkgs_tpu_torch.train.optimizer.AdamW`.  ``pretrain``
+drives it over a shuffled feature set with a prefetching input thread, a
+deferred metric fetch and a non-finite-loss watchdog.
+
+The parameters' device is the device of the run: the entry points run on
+the card when the parameters are there, as ``chip_smoke.py`` puts them.
+
+Randomness is explicit: a step's generators are derived from the run's
+seed and the step number (:func:`step_rng`), so any step can be replayed.
+
+Not ported here: the mesh (data/model parallelism, FSDP) and checkpoints;
+``pretrain`` raises ``NotImplementedError`` for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from stonkgs_tpu_torch.config import STonKGsConfig
+from stonkgs_tpu_torch.models import stonkgs
+from stonkgs_tpu_torch.models.bert import DropoutRng, check_no_remat
+from stonkgs_tpu_torch.train.optimizer import AdamW, merge_frozen, split_frozen
+from stonkgs_tpu_torch.utils.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Train-step carry: step counter, params, optimizer state, run seed."""
+    step: int
+    params: dict
+    opt_state: dict
+    seed: int
+
+
+def init_train_state(params: dict, tx: AdamW, seed: int = 0) -> TrainState:
+    """The train state; optimizer state covers the TRAINABLE subtree only."""
+    return TrainState(step=0, params=params, opt_state=tx.init(split_frozen(params)[0]),
+                      seed=seed)
+
+
+def resolve_train_impl(remat="auto", attention_impl="auto", mesh=None):
+    """The training configuration of the port: no layer remat, and the
+    training kernels for attention and the FFN (``(False, "flash")``), the
+    JAX package's choice on a TPU.  Remat and a mesh are not ported."""
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported")
+    if remat in ("auto", True):
+        remat = False
+    check_no_remat(remat)
+    if attention_impl not in (None, "auto", "flash"):
+        raise ValueError(f"attention_impl={attention_impl!r}: the port trains "
+                         "with its flash attention kernels only")
+    return False, "flash"
+
+
+def step_rng(seed: int, step: int, device, micro: int = 0) -> DropoutRng:
+    """The generators of micro-batch ``micro`` of step ``step``: a device
+    generator for hidden-state dropout and a CPU one for the attention
+    seeds, both seeded from (seed, step, micro)."""
+    words = np.random.SeedSequence([seed, step, micro]).generate_state(2, dtype=np.uint64)
+    return DropoutRng(
+        device=torch.Generator(device=device).manual_seed(int(words[0])),
+        host=torch.Generator().manual_seed(int(words[1])))
+
+
+def make_train_step(
+    cfg: STonKGsConfig,
+    tx: AdamW,
+    *,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    grad_accumulation_steps: int = 1,
+    remat=False,
+):
+    """The train step: ``step(state, batch) -> (state, metrics)``.
+
+    ``batch`` holds ``grad_accumulation_steps * micro_batch`` rows on the
+    parameters' device; gradients of the micro-batches are summed in fp32
+    and averaged, as are the metrics (0-dim tensors on the device).  The
+    state is updated in place and returned."""
+    check_no_remat(remat)
+    n = grad_accumulation_steps
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        train_p, frozen_p = split_frozen(state.params)
+        leaves = tree_leaves(train_p)
+        device = leaves[0].device
+        micro = [batch] if n == 1 else [
+            {k: v.reshape((n, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
+            for i in range(n)]
+        grads = metrics = None
+        try:
+            for t in leaves:
+                t.requires_grad_(True)
+            for i, mb in enumerate(micro):
+                loss, m = stonkgs.pretraining_loss(
+                    merge_frozen(train_p, frozen_p), cfg, mb, deterministic=False,
+                    rng=step_rng(state.seed, state.step, device, i),
+                    compute_dtype=compute_dtype)
+                g = torch.autograd.grad(loss, leaves, allow_unused=True)
+                # leaves outside the loss (the ELM decoder biases) get zeros
+                g = [torch.zeros_like(p) if gi is None else gi.float()
+                     for p, gi in zip(leaves, g)]
+                m = {k: v.detach().float() for k, v in m.items()}
+                if grads is None:
+                    grads, metrics = g, m
+                else:
+                    torch._foreach_add_(grads, g)
+                    metrics = {k: metrics[k] + m[k] for k in m}
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        if n > 1:
+            torch._foreach_mul_(grads, 1.0 / n)
+            metrics = {k: v / n for k, v in metrics.items()}
+        tx.update_and_apply(grads, state.opt_state, leaves)
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+@dataclasses.dataclass
+class PretrainingConfig:
+    """Run configuration: the fields of the JAX package's
+    ``PretrainingConfig`` that the port runs, with its defaults (the
+    reference CLI's).  The checkpoint fields (``save_*``, ``stop_at_step``)
+    and the mesh's (``fsdp*``) come with those features; ``remat`` and
+    ``attention_impl`` go through :func:`resolve_train_impl`."""
+
+    learning_rate: float = 1e-4
+    max_steps: int = 200
+    warmup_steps: int = 0
+    weight_decay: float = 0.0
+    micro_batch_size: int = 8
+    grad_accumulation_steps: int = 1
+    log_steps: int = 100
+    seed: int = 0
+    compute_dtype: str = "bfloat16"
+    remat: bool = False
+    attention_impl: str = "auto"
+
+    @property
+    def batch_size(self) -> int:
+        return self.micro_batch_size * self.grad_accumulation_steps
+
+
+class _EndOfStream(Exception):
+    """A finite iterator ran out before the run's last step."""
+
+
+def _prefetch_to_device(it, place, n_steps: int, depth: int = 3):
+    """Yield ``n_steps`` placed batches, prepared on a background thread so
+    the host gather and the copy to the device overlap the running step.
+
+    The producer checks a stop event at every (timed) queue put, so a
+    consumer that stops early (an exception, the watchdog, ``close()``)
+    releases the thread."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(item) -> None:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+
+    def work():
+        try:
+            for _ in range(n_steps):
+                try:
+                    item = place(next(it))
+                except StopIteration:
+                    raise _EndOfStream("data iterator exhausted early")
+                put(item)
+                if stop.is_set():
+                    return
+        except BaseException as e:  # noqa: BLE001 -- handed to the consumer
+            put(e)
+
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+    try:
+        for _ in range(n_steps):
+            item = q.get()
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def data_iterator(
+    features: Dict[str, np.ndarray],
+    batch_size: int,
+    *,
+    seed: int = 0,
+    skip_steps: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Shuffling epoch iterator over preprocessed feature arrays (the JAX
+    package's, batch for batch).  ``skip_steps`` fast-forwards without
+    materialising the skipped batches."""
+    n = len(features["input_ids"])
+    if n < batch_size:
+        raise ValueError(
+            f"dataset has {n} examples < batch_size {batch_size}: the "
+            f"epoch loop would never yield")
+    rng = np.random.default_rng(seed)
+    steps_per_epoch = max((n - batch_size) // batch_size + 1, 0)
+    while skip_steps >= steps_per_epoch > 0:
+        rng.permutation(n)
+        skip_steps -= steps_per_epoch
+    while True:
+        perm = rng.permutation(n)
+        start = skip_steps * batch_size
+        skip_steps = 0
+        for i in range(start, n - batch_size + 1, batch_size):
+            idx = perm[i: i + batch_size]
+            yield {k: v[idx] for k, v in features.items()}
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A numpy batch as tensors on ``device`` (integers as int64), copied
+    from pinned host memory without blocking when the device is a card."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if not t.is_floating_point():
+            t = t.to(torch.int64)
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def pretrain(
+    cfg: STonKGsConfig,
+    params: dict,
+    features: Dict[str, np.ndarray],
+    run_cfg: PretrainingConfig,
+    *,
+    mesh=None,
+    checkpoint_dir: Optional[str] = None,
+    log_fn: Optional[Callable[[int, dict], None]] = None,
+) -> TrainState:
+    """Run the pre-training loop on the parameters' device.
+
+    The caller's trainable tensors are copied first (the step updates in
+    place); the frozen backbones are shared and never written.  Metrics of
+    a log step are fetched one log interval later, so the copy to the host
+    overlaps the running steps; the watchdog raises ``FloatingPointError``
+    after three non-finite losses in a row, up to one interval late.
+    ``log_fn(step, metrics)`` gets floats, ``elapsed_sec`` and, after the
+    first step, ``examples_per_sec``."""
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported")
+    if checkpoint_dir is not None:
+        raise NotImplementedError("checkpoints are not ported")
+    remat, _ = resolve_train_impl(run_cfg.remat, run_cfg.attention_impl)
+    train, frozen = split_frozen(params)
+    params = merge_frozen(tree_map(lambda t: t.detach().clone(), train), frozen)
+    device = tree_leaves(train)[0].device
+    tx = AdamW(learning_rate=run_cfg.learning_rate, total_steps=run_cfg.max_steps,
+               warmup_steps=run_cfg.warmup_steps, weight_decay=run_cfg.weight_decay)
+    state = init_train_state(params, tx, run_cfg.seed)
+    step_fn = make_train_step(
+        cfg, tx, compute_dtype=getattr(torch, run_cfg.compute_dtype),
+        grad_accumulation_steps=run_cfg.grad_accumulation_steps, remat=remat)
+    batches = _prefetch_to_device(
+        data_iterator(features, run_cfg.batch_size, seed=run_cfg.seed),
+        lambda b: to_device(b, device), run_cfg.max_steps)
+
+    t0 = time.perf_counter()
+    steady_t0 = None  # set after step 1, so throughput excludes the first step
+    nan_streak = 0
+    pending = None    # (1-based step, metric names, host values, event)
+
+    def start_fetch(step_num, metrics):
+        names = sorted(metrics)
+        vals = torch.stack([metrics[k].float() for k in names])
+        event = None
+        if vals.is_cuda:
+            vals = vals.to("cpu", non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        return step_num, names, vals, event
+
+    def fetch_and_log(step_num, names, vals, event):
+        nonlocal nan_streak
+        if event is not None:
+            event.synchronize()
+        m = dict(zip(names, vals.tolist()))
+        if not np.isfinite(m["loss"]):
+            nan_streak += 1
+            if nan_streak >= 3:
+                raise FloatingPointError(
+                    f"non-finite loss for {nan_streak} consecutive checks at "
+                    f"step {step_num}")
+        else:
+            nan_streak = 0
+        if log_fn:
+            now = time.perf_counter()
+            m["elapsed_sec"] = now - t0
+            if step_num > 1 and steady_t0 is not None:
+                m["examples_per_sec"] = run_cfg.batch_size * (step_num - 1) / (now - steady_t0)
+            log_fn(step_num, m)
+
+    try:
+        for step in range(run_cfg.max_steps):
+            state, metrics = step_fn(state, next(batches))
+            if steady_t0 is None:
+                _sync(device)
+                steady_t0 = time.perf_counter()
+            if (step + 1) % run_cfg.log_steps == 0 or step + 1 == run_cfg.max_steps:
+                started = start_fetch(step + 1, metrics)
+                if pending is not None:
+                    fetch_and_log(*pending)
+                pending = started
+        if pending is not None:
+            fetch_and_log(*pending)
+    finally:
+        batches.close()
+    return state

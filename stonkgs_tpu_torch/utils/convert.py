@@ -10,20 +10,13 @@ so this module needs no JAX.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
 
 from stonkgs_tpu_torch.config import BertConfig, STonKGsConfig
-
-
-def _tree_map(fn: Callable, tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
+from stonkgs_tpu_torch.utils.tree import tree_map
 
 
 def _tensor(a) -> torch.Tensor:
@@ -42,29 +35,29 @@ def bert_params_from_jax(tree: dict, cfg: BertConfig) -> dict:
                 raise ValueError(f"encoder leaf of shape {a.shape} is not "
                                  f"stacked over {n} layers")
             return _tensor(a[i])
-        return _tree_map(take, stacked)
+        return tree_map(take, stacked)
 
-    out = {k: _tree_map(_tensor, v) for k, v in tree.items() if k != "encoder"}
+    out = {k: tree_map(_tensor, v) for k, v in tree.items() if k != "encoder"}
     out["encoder"] = [layer(i) for i in range(n)]
     return out
 
 
 def params_from_jax(tree: dict, cfg: STonKGsConfig) -> dict:
-    """A STonKGs tree of the JAX package -> the port's serving parameters.
+    """A STonKGs tree of the JAX package -> the port's parameters.
 
     Keeps the trunk, the LM backbone, the KG table and, where present, the
-    classifier; the pre-training heads (``cls``) are not used by the port's
-    serving path and are dropped."""
+    pre-training heads (``cls``) and the classifier."""
     params = {
         "trunk": bert_params_from_jax(tree["trunk"], cfg.bert),
         "lm_backbone": bert_params_from_jax(tree["lm_backbone"], cfg.bert),
         "kg_backbone": _tensor(tree["kg_backbone"]),
     }
-    if "classifier" in tree:
-        params["classifier"] = _tree_map(_tensor, tree["classifier"])
+    for head in ("cls", "classifier"):
+        if head in tree:
+            params[head] = tree_map(_tensor, tree[head])
     return params
 
 
 def params_to(params: Any, device=None, dtype: torch.dtype | None = None) -> Any:
     """Move (and optionally cast) every tensor of a parameter tree."""
-    return _tree_map(lambda t: t.to(device=device, dtype=dtype), params)
+    return tree_map(lambda t: t.to(device=device, dtype=dtype), params)

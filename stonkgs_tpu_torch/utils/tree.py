@@ -1,0 +1,28 @@
+"""Parameter trees of the port: nested dicts and lists of tensors.
+
+The port's counterpart of the ``jax.tree`` functions it needs.  Dict
+leaves come in insertion order, so two trees built the same way flatten
+to matching leaves.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """The tree with ``fn`` applied to every leaf (tuples become lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """Every leaf of the tree, depth first."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]

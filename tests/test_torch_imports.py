@@ -27,12 +27,15 @@ def test_import_pulls_in_no_jax():
         "before = set(sys.modules)\n"
         "import stonkgs_tpu_torch\n"
         "from stonkgs_tpu_torch.api import inference\n"
+        "from stonkgs_tpu_torch.ops import losses\n"
+        "from stonkgs_tpu_torch.train import optimizer, pretraining\n"
         "new = sorted(set(sys.modules) - before)\n"
         "print('\\n'.join(new))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120).stdout.split()
     assert "stonkgs_tpu_torch" in out
+    assert "stonkgs_tpu_torch.train.pretraining" in out
     assert [m for m in out if _forbidden(m)] == []
 
 

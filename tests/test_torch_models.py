@@ -119,10 +119,13 @@ def test_bert_inputs_embeds_path(params):
 
 
 def test_training_arguments_raise(params):
+    """What training does not port yet raises: layer remat and the
+    training half of classification (fine-tuning)."""
     tp = bert_params_from_jax(params["trunk"], port_cfg(BERT))
     ids = torch.zeros(1, 4, dtype=torch.int64)
     with pytest.raises(NotImplementedError):
-        tbert.bert_model(tp, port_cfg(BERT), input_ids=ids, deterministic=False)
+        tbert.bert_model(tp, port_cfg(BERT), input_ids=ids, deterministic=False,
+                         remat="full")
     batch = _t(features(CFG, [3], seed=0))
     with pytest.raises(NotImplementedError):
         tstonkgs.classification_logits(params_from_jax(params, port_cfg(CFG)),

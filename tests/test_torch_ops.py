@@ -147,9 +147,12 @@ def test_plain_attention_matches_xla_attention(Sq, dtype):
 
 
 def test_attention_rejects_training_and_bad_bias():
+    """Training attention takes a dropout rate in [0, 1); a bias must be
+    (B, 1, 1, S); a tensor on neither the CPU nor a card is refused."""
     _, _, tx, tb = _attn_pair(_attn_inputs(7), "float32")
-    with pytest.raises(NotImplementedError):
-        tattn.dot_product_attention(*tx, tb, deterministic=False)
+    with pytest.raises(ValueError, match="rate"):
+        tattn.dot_product_attention(*tx, tb, deterministic=False, dropout_rate=1.0,
+                                    seed=torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="bias"):
         tflash.flash_attention_infer(*tx, tb[:, 0])
     with pytest.raises(ValueError, match="device"):
