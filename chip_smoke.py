@@ -10,9 +10,12 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. build: every CUDA source of ``stonkgs_tpu_torch/csrc`` with nvcc, all
    started together, with ptxas's register and spill report;
 3. kernels: the serving kernels against their plain PyTorch versions on
-   the card, in bf16 and fp32, at the serving path's shapes;
+   the card, in bf16 and fp32, at the serving paths' shapes (the FFN
+   block at H=768 with gelu and gelu_new and at ProtBERT's H=1024;
+   attention up to S=1024 and at ProtBERT's S=3072 with 16 heads);
 4. training kernels: the attention pair (rate 0 and 0.1, S = 1, 260, 512,
-   1024) and the FFN pair (M = 0, 3, 8,192, 16,384), forward and
+   1024; the forward at S=3072, 16 heads) and the FFN pair (M = 0, 3,
+   8,192, 16,384; the forward at H=1024, M = 3 and 6,144), forward and
    backward, against their plain versions, in bf16 and fp32;
 5. serving: ``STonKGsEngine.embed`` at full BERT-base width (backbone and
    trunk, 256 + 256, KG vocabulary 100,000, random seeded weights) on 512
@@ -31,7 +34,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    the same seeds, hidden dropout 0);
 9. training timing: ms per step and examples/s (median of 6 steps after 2
    of warm-up), and each training kernel's time at the step's shapes
-   beside its bound, its plain version and, for attention, SDPA.
+   beside its bound, its plain version and, for attention, SDPA;
+10. sparse kernels: the BigBird pair against its plain versions, bf16 and
+    fp32, at nb = 5, 8 (padded mask) and 64 (S=4096), with the eval and
+    the training plan, at B=2 (forward and backward) and B=8 (forward);
+11. ProtSTonKGs serving: ``ProtSTonKGsEngine.embed`` at full width
+    (BigBird trunk 12 x 768, BioBERT 12 x 768, ProtBERT 30 x 1024, KG
+    vocabulary 20,000, seeded random weights) on 32 rows at B=8; checks
+    the launch counts, finite output, and, at 2 layers a stack, the card
+    in fp32 and bf16 against the CPU in fp32;
+12. ProtSTonKGs training: ``pretrain(..., loss_fn=protstonkgs.
+    pretraining_loss)`` at full width (B=2, 4 steps, the training plan);
+    checks the launch counts, finite losses, the three backbones
+    bit-unchanged and the trunk and projection trained;
+13. ProtSTonKGs training numerics: loss and gradients, card fp32 against
+    CPU fp32, at 2 layers a stack (hidden dropout 0, the backbones'
+    attention dropout 0.1 on the same seeds);
+14. ProtSTonKGs timing: embed sequences/s, ms per step (median of 6 after
+    2), and each new or widened kernel at the path's shapes beside its
+    bound and its plain version.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -40,21 +61,30 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stonkgs_tpu_torch import STonKGsEngine
-from stonkgs_tpu_torch.config import BertConfig, STonKGsConfig
-from stonkgs_tpu_torch.models import stonkgs
+from stonkgs_tpu_torch import ProtSTonKGsEngine, STonKGsEngine
+from stonkgs_tpu_torch.config import BertConfig, BigBirdConfig, ProtSTonKGsConfig, STonKGsConfig
+from stonkgs_tpu_torch.models import protstonkgs, stonkgs
 from stonkgs_tpu_torch.ops import _build
+from stonkgs_tpu_torch.ops.bigbird_sparse import (
+    bigbird_mid_bwd,
+    bigbird_mid_bwd_plain,
+    bigbird_mid_fwd,
+    bigbird_mid_fwd_plain,
+    build_rand_attn,
+)
 from stonkgs_tpu_torch.ops.flash_attention import (
     flash_attention_infer,
     flash_attention_infer_plain,
@@ -94,7 +124,8 @@ TOL = {F32: dict(atol=1e-4, rtol=0.0), BF16: dict(atol=2e-2, rtol=1e-2)}
 # the tolerance is relative to the largest value (fp32: sums in another
 # order; bf16: an operand rounded to the other neighbour, one step 2^-8)
 GRAD_TOL = {F32: 1e-4, BF16: 2e-2}
-SOURCES = ("ffn_ln_block", "flash_attention_infer", "flash_attention_train", "ffn_train")
+SOURCES = ("ffn_ln_block", "flash_attention_infer", "flash_attention_train", "ffn_train",
+           "bigbird_sparse")
 BATCH = 128
 ROWS = 512
 BUCKETS = (64, 128)
@@ -160,6 +191,8 @@ def _attn_inputs(B, S, dtype, gen, masked=True, H=12, D=64):
 
 
 def _ffn_inputs(M, dtype, gen, H=768, I=3072):
+    """x, attn_out, LN1, W1, b1, W2, b2, LN2 of the serving block (fp32
+    vectors, weights in dtype)."""
     def n(*shape, std=1.0, mean=0.0):
         return (mean + std * torch.randn(*shape, generator=gen)).to(DEV)
     return [n(M, H).to(dtype), n(M, H).to(dtype),
@@ -220,25 +253,33 @@ def phase_kernels() -> dict:
                 if dtype == BF16 and S == 512:
                     errs["flash_attention_infer"] = max(
                         errs.get("flash_attention_infer", 0.0), err)
-        for M in (3, 1000, 32768):
-            for act in ("gelu", "gelu_new"):
-                if act == "gelu_new" and M != 1000:
-                    continue
-                args = _ffn_inputs(M, dtype, gen)
-                err = _compare(
-                    f"ffn_ln {tag} M={M} {act}",
-                    fused_ffn_ln_block(*args, act=act),
-                    fused_ffn_ln_block_plain(*args, act=act), dtype)
-                if dtype == BF16 and M == 32768:
-                    errs["ffn_ln_block"] = err
+        # BERT-base (gelu), the BigBird trunk (gelu_new), ProtBERT (H=1024)
+        for H, I, M, act in ((768, 3072, 3, "gelu"), (768, 3072, 1000, "gelu"),
+                             (768, 3072, 1000, "gelu_new"), (768, 3072, 32768, "gelu"),
+                             (768, 3072, 32768, "gelu_new"), (1024, 4096, 3, "gelu"),
+                             (1024, 4096, 24576, "gelu")):
+            args = _ffn_inputs(M, dtype, gen, H, I)
+            err = _compare(
+                f"ffn_ln {tag} H={H} M={M} {act}",
+                fused_ffn_ln_block(*args, act=act),
+                fused_ffn_ln_block_plain(*args, act=act), dtype)
+            if dtype == BF16 and M >= 24576:
+                errs["ffn_ln_block"] = max(errs.get("ffn_ln_block", 0.0), err)
+        # ProtBERT's attention: S=3072, 16 heads, no mask
+        q, k, v, _, _ = _attn_inputs(8, 3072, dtype, gen, masked=False, H=16)
+        err = _compare(f"attention {tag} B=8 S=3072 H=16 no-bias",
+                       flash_attention_infer(q, k, v), flash_attention_infer_plain(q, k, v),
+                       dtype)
+        if dtype == BF16:
+            errs["flash_attention_infer"] = max(errs["flash_attention_infer"], err)
     return errs
 
 
-def _train_attn_inputs(B, S, dtype, gen, masked=True):
+def _train_attn_inputs(B, S, dtype, gen, masked=True, H=12):
     """q, k, v, bias, keep, a two-word seed and an output cotangent."""
-    q, k, v, bias, keep = _attn_inputs(B, S, dtype, gen, masked)
+    q, k, v, bias, keep = _attn_inputs(B, S, dtype, gen, masked, H)
     seed = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32, generator=gen)
-    do = torch.randn(B, S, 12, 64, generator=gen).to(DEV, dtype)
+    do = torch.randn(B, S, H, 64, generator=gen).to(DEV, dtype)
     return q, k, v, bias, keep, seed, do
 
 
@@ -280,6 +321,22 @@ def phase_train_kernels() -> dict:
                 e = max(_compare_rel(f"attention {n} {label}", g, w, dtype if n != "db" else F32)
                         for n, g, w in zip(("dq", "dk", "dv", "db"), got, want))
                 note("flash_attention_train_bwd", e, dtype, S == 512)
+        # ProtBERT's attention in training: S=3072, 16 heads, rate 0.1
+        q, k, v, _, _, seed, _ = _train_attn_inputs(2, 3072, dtype, gen, False, H=16)
+        out, lse = flash_attention_train_fwd(q, k, v, None, seed, ATTN_RATE)
+        out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, None, seed, ATTN_RATE)
+        label = f"{tag} B=2 S=3072 H=16 rate={ATTN_RATE}"
+        e = max(_compare(f"attention fwd {label}", out, out_p, dtype),
+                _compare(f"attention lse {label}", lse, lse_p, F32))
+        note("flash_attention_train_fwd", e, dtype, True)
+        del q, k, v, out, lse, out_p, lse_p
+        # the frozen ProtBERT's FFN forward (H=1024)
+        for M in (3, 6144):
+            x, w1, b1, w2, b2, _ = _train_ffn_inputs(M, dtype, gen, 1024, 4096)
+            e = _compare(f"ffn fwd {tag} H=1024 M={M} gelu",
+                         fused_ffn_fwd(x, w1, b1, w2, b2), fused_ffn_plain(x, w1, b1, w2, b2),
+                         dtype)
+            note("ffn_train_fwd", e, dtype, M == 6144)
         for M in (0, 3, 8192, 16384):
             for act in ("gelu", "gelu_new") if M == 3 else ("gelu",):
                 x, w1, b1, w2, b2, g = _train_ffn_inputs(M, dtype, gen)
@@ -293,6 +350,58 @@ def phase_train_kernels() -> dict:
                         _compare_rel(f"ffn dh {label}", got[1], want[1], dtype),
                         _compare(f"ffn a {label}", got[2], want[2], dtype))
                 note("ffn_train_bwd", e, dtype, M == 16384)
+    return errs
+
+
+def _sparse_inputs(B, nb, dtype, gen, plan, padded, H=12):
+    """q, k, v (B, S, H, 64), a (B, S) mask, an (H, nb-2, 3) plan on the
+    card and an output cotangent for the middle rows.  ``plan``: "eval"
+    (all zeros) or "train" (HF's training plan at S=4096, else random
+    legal blocks)."""
+    S = nb * 64
+    q, k, v = (torch.randn(B, S, H, 64, generator=gen).to(DEV, dtype) for _ in range(3))
+    mask = torch.ones(B, S)
+    if padded:
+        lengths = torch.randint(S // 2, S, (B,), generator=gen)
+        mask = (torch.arange(S)[None, :] < lengths[:, None]).float()
+    if plan == "eval":
+        rand = torch.zeros(H, nb - 2, 3, dtype=torch.int32)
+    elif S == 4096:
+        rand = torch.as_tensor(build_rand_attn(S, 64, 3, H, 1, S, training=True)[0])
+    else:
+        rand = torch.randint(1, nb - 1, (H, nb - 2, 3), generator=gen, dtype=torch.int32)
+    do = torch.randn(B, (nb - 2) * 64, H, 64, generator=gen).to(DEV, dtype)
+    return q, k, v, mask.to(DEV), rand.to(DEV), do
+
+
+def phase_sparse_kernels() -> dict:
+    """The BigBird kernel pair vs its plain versions on the card, bf16 and
+    fp32: the smallest block-sparse S (nb=5), a padded mask (nb=8) and the
+    trunk's S=4096, with the eval and the training plan, at B=2 (forward
+    and backward) and the serving batch B=8 (forward).  Returns, per
+    kernel, the worst bf16 error at S=4096."""
+    gen = torch.Generator().manual_seed(6)
+    errs = {}
+    for dtype in (BF16, F32):
+        tag = "bf16" if dtype == BF16 else "fp32"
+        for B, nb, padded in ((2, 5, False), (2, 8, True), (2, 64, False), (8, 64, True)):
+            for plan in ("eval", "train"):
+                q, k, v, mask, rand, do = _sparse_inputs(B, nb, dtype, gen, plan, padded)
+                label = f"{tag} B={B} S={nb * 64} {plan} plan{' mask' if padded else ''}"
+                out, lse = bigbird_mid_fwd(q, k, v, mask, rand, 64)
+                out_p, lse_p = bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)
+                e = max(_compare(f"sparse fwd {label}", out, out_p, dtype),
+                        _compare(f"sparse lse {label}", lse, lse_p, dtype))
+                if dtype == BF16 and nb == 64:
+                    errs["bigbird_mid_fwd"] = max(errs.get("bigbird_mid_fwd", 0.0), e)
+                if B == 2:
+                    got = bigbird_mid_bwd(q, k, v, mask, rand, 64, out_p, lse_p, do)
+                    want = bigbird_mid_bwd_plain(q, k, v, mask, rand, 64, out_p, lse_p, do)
+                    e = max(_compare_rel(f"sparse {n} {label}", g, w, dtype)
+                            for n, g, w in zip(("dq", "dk", "dv"), got, want))
+                    if dtype == BF16 and nb == 64:
+                        errs["bigbird_mid_bwd"] = max(errs.get("bigbird_mid_bwd", 0.0), e)
+                del q, k, v, out, lse, out_p, lse_p
     return errs
 
 
@@ -412,24 +521,23 @@ def _bound_ms(flops: float, nbytes: float, dtype) -> tuple:
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
-def _time_ffn(label: str, M: int, gen) -> dict:
+def _time_ffn(label: str, M: int, gen, H=768, I=3072, act="gelu") -> dict:
     """Kernel vs plain at the main path's shape, then both timed."""
-    args = _ffn_inputs(M, BF16, gen)
-    H, I = args[4].shape
+    args = _ffn_inputs(M, BF16, gen, H, I)
     flops = 4.0 * M * H * I
     nbytes = (3 * M * H + 2 * H * I) * 2 + (5 * H + I) * 4
     bound, by = _bound_ms(flops, nbytes, BF16)
-    err = _compare(f"ffn_ln bf16 {label}", fused_ffn_ln_block(*args),
-                   fused_ffn_ln_block_plain(*args), BF16)
+    err = _compare(f"ffn_ln bf16 {label}", fused_ffn_ln_block(*args, act=act),
+                   fused_ffn_ln_block_plain(*args, act=act), BF16)
     return dict(max_abs_err=err,
-                ms=_time_ms(lambda: fused_ffn_ln_block(*args)),
-                plain_ms=_time_ms(lambda: fused_ffn_ln_block_plain(*args), iters=3),
+                ms=_time_ms(lambda: fused_ffn_ln_block(*args, act=act)),
+                plain_ms=_time_ms(lambda: fused_ffn_ln_block_plain(*args, act=act), iters=3),
                 bound_ms=bound, bound_by=by, library_ms=None)
 
 
-def _time_attention(label: str, B: int, S: int, masked: bool, gen) -> dict:
+def _time_attention(label: str, B: int, S: int, masked: bool, gen, H=12) -> dict:
     """Kernel vs plain at the main path's shape, then both and SDPA timed."""
-    q, k, v, bias, keep = _attn_inputs(B, S, BF16, gen, masked)
+    q, k, v, bias, keep = _attn_inputs(B, S, BF16, gen, masked, H)
     H, D = q.shape[2], q.shape[3]
     flops = 4.0 * B * H * S * S * D
     nbytes = 4 * B * S * H * D * 2 + (B * S * 4 if masked else 0)
@@ -621,11 +729,11 @@ def phase_train_numerics(cfg_full: STonKGsConfig) -> None:
     check(err <= 1e-3 * scale, "card gradients disagree with the CPU")
 
 
-def _time_train_attention(label, B, S, masked, gen, backward) -> dict:
+def _time_train_attention(label, B, S, masked, gen, backward, H=12) -> dict:
     """A training attention kernel vs plain at the step's shape, then both
     and the library call (SDPA without dropout, which cannot draw the
     hash mask) timed."""
-    q, k, v, bias, keep, seed, do = _train_attn_inputs(B, S, BF16, gen, masked)
+    q, k, v, bias, keep, seed, do = _train_attn_inputs(B, S, BF16, gen, masked, H)
     H, D = q.shape[2], q.shape[3]
     io = B * S * H * D * 2   # one (B, S, H, D) bf16 tensor
     stats = B * H * S * 4    # lse (and, backward, delta is scratch: not counted)
@@ -660,10 +768,10 @@ def _time_train_attention(label, B, S, masked, gen, backward) -> dict:
                 bound_ms=bound, bound_by=by, library_ms=lib)
 
 
-def _time_train_ffn(label, M, gen, backward) -> dict:
+def _time_train_ffn(label, M, gen, backward, H=768, I=3072) -> dict:
     """A training FFN kernel vs plain at the step's shape, then both timed
     (no single library call computes the fused function)."""
-    x, w1, b1, w2, b2, g = _train_ffn_inputs(M, BF16, gen)
+    x, w1, b1, w2, b2, g = _train_ffn_inputs(M, BF16, gen, H, I)
     H, I = w1.shape
     if not backward:
         bound, by = _bound_ms(4.0 * M * H * I, 2 * M * H * 2 + 2 * H * I * 2 + (H + I) * 4,
@@ -739,6 +847,312 @@ def phase_train_timing(cfg: STonKGsConfig, state) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# ProtSTonKGs: serving and pre-training
+# ---------------------------------------------------------------------------
+
+PROT_BATCH = 8
+PROT_ROWS = 32
+PROT_TRAIN_BATCH = 2
+PROT_TRAIN_STEPS = 4
+PROT_SERVING_KERNELS = {"bigbird_mid_fwd": bigbird_mid_fwd, **SERVING_KERNELS}
+PROT_TRAINING_KERNELS = {"bigbird_mid_fwd": bigbird_mid_fwd,
+                         "bigbird_mid_bwd": bigbird_mid_bwd, **TRAINING_KERNELS}
+# trainable leaves outside the ProtSTonKGs loss: the trunk reads backbone
+# embeddings, not its word embeddings; there is no NSP head on the pooler;
+# the decoder biases are never applied
+PROT_UNUSED_LEAVES = ("trunk/embeddings/word_embeddings", "trunk/pooler/kernel",
+                      "trunk/pooler/bias", "cls/predictions/text_bias",
+                      "cls/predictions/entity_bias", "cls/predictions/prot_bias")
+
+
+def _prot_cfg(kg_vocab: int = 20_000, layers: Optional[int] = None,
+              hidden_dropout: Optional[float] = None) -> ProtSTonKGsConfig:
+    """The published widths (BigBird trunk 12 x 768, BioBERT 12 x 768,
+    ProtBERT 30 x 1024, 4096 = 768 | 256 | 3072), KG vocabulary 20,000 as
+    ``benchmarks/bench_protstonkgs.py:31``; ``layers`` cuts every stack's
+    depth, ``hidden_dropout`` sets every hidden dropout."""
+    trunk, lm, prot = BigBirdConfig(), BertConfig(), ProtSTonKGsConfig().prot
+    cut = {} if layers is None else {"num_hidden_layers": layers}
+    if hidden_dropout is not None:
+        cut["hidden_dropout_prob"] = hidden_dropout
+    return ProtSTonKGsConfig(trunk=dataclasses.replace(trunk, **cut),
+                             lm=dataclasses.replace(lm, **cut),
+                             prot=dataclasses.replace(prot, **cut), kg_vocab_size=kg_vocab)
+
+
+def _prot_params(cfg: ProtSTonKGsConfig, seed: int, dtype=F32):
+    """Seeded random parameters (fp32 on the CPU) with the KG table built
+    on the card in ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    params = protstonkgs.init_protstonkgs_params(gen, cfg)
+    vectors = torch.randn(cfg.kg_vocab_size, cfg.trunk.hidden_size, generator=gen).numpy()
+    lm = params_to(params["lm_backbone"], DEV, dtype)
+    params["kg_backbone"] = protstonkgs.build_kg_table(lm, cfg, vectors,
+                                                       compute_dtype=dtype).cpu()
+    check(bool(torch.isfinite(params["kg_backbone"]).all()), "KG table not finite")
+    return params
+
+
+def _prot_features(cfg: ProtSTonKGsConfig, n: int, seed: int = 0, labels: bool = False):
+    """Rows of uniform random ids with a full mask; with ``labels``, k =
+    max(int(0.15 * len), 1) masked positions per segment, as
+    ``benchmarks/bench_protstonkgs.py:115-134`` builds them."""
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([rng.integers(0, cfg.lm.vocab_size, (n, cfg.text_len)),
+                          rng.integers(0, cfg.kg_table_size, (n, cfg.entity_len)),
+                          rng.integers(0, cfg.prot_vocab_size, (n, cfg.prot_len))], 1)
+    out = {"input_ids": ids.astype(np.int64),
+           "attention_mask": np.ones((n, cfg.seq_len), np.int64)}
+    if labels:
+        for name, length, vocab in (("masked_lm_labels", cfg.text_len, cfg.lm_vocab_size),
+                                    ("ent_masked_lm_labels", cfg.entity_len,
+                                     cfg.kg_vocab_size),
+                                    ("prot_masked_lm_labels", cfg.prot_len,
+                                     cfg.prot_vocab_size)):
+            k = max(int(length * 0.15), 1)
+            lab = np.full((n, length), -100, np.int64)
+            for i in range(n):
+                lab[i, rng.choice(length, k, replace=False)] = rng.integers(0, vocab, k)
+            out[name] = lab
+    return out
+
+
+def _train_plan(cfg: ProtSTonKGsConfig) -> np.ndarray:
+    t = cfg.trunk
+    return build_rand_attn(cfg.seq_len, t.block_size, t.num_random_blocks,
+                           t.num_attention_heads, t.num_hidden_layers,
+                           t.max_position_embeddings, training=True)
+
+
+def phase_prot_serving(cfg: ProtSTonKGsConfig):
+    """``ProtSTonKGsEngine.embed`` at full width (B=8, 32 rows): the main
+    serving path, counts from 0 just before it; then card fp32 vs CPU fp32
+    and card bf16 vs CPU fp32 on 2 rows at 2 layers per stack.  Returns
+    the engine, the rows, the launch counts and the fp32 parameters."""
+    t0 = time.perf_counter()
+    params = _prot_params(cfg, seed=10, dtype=BF16)
+    engine = ProtSTonKGsEngine(cfg=cfg, params=params_to(params, DEV, BF16),
+                               batch_size=PROT_BATCH, device=DEV)
+    feats = _prot_features(cfg, PROT_ROWS)
+    log(f"# ProtSTonKGs serving setup (init + KG table): {time.perf_counter() - t0:.1f} s")
+    _reset_counts(PROT_SERVING_KERNELS)
+    out = engine.embed(feats)
+    counts = _counts(PROT_SERVING_KERNELS)
+    n_batches = math.ceil(PROT_ROWS / PROT_BATCH)
+    t, lm, prot = cfg.trunk, cfg.lm, cfg.prot
+    per_batch = {"bigbird_mid_fwd": t.num_hidden_layers - 1,
+                 "ffn_ln_block": lm.num_hidden_layers + prot.num_hidden_layers
+                 + t.num_hidden_layers - 1,
+                 "flash_attention_infer": lm.num_hidden_layers + prot.num_hidden_layers}
+    log(f"# launches ProtSTonKGs embed ({n_batches} batches of {PROT_BATCH}): {counts}")
+    check(out.shape == (PROT_ROWS, t.hidden_size), f"ProtSTonKGs embed shape {out.shape}")
+    check(bool(np.isfinite(out).all()), "ProtSTonKGs embed output not finite")
+    for name, c in per_batch.items():
+        check(counts[name] == c * n_batches,
+              f"{name}: {counts[name]} launches, expected {c} x {n_batches}")
+
+    # numerics at 2 layers per stack, full widths and layout
+    small = _prot_cfg(cfg.kg_vocab_size, layers=2)
+    p32 = _prot_params(small, seed=11)
+    few = _prot_features(small, 2, seed=1)
+    card32 = ProtSTonKGsEngine(cfg=small, params=p32, compute_dtype="float32",
+                               batch_size=2, device=DEV).embed(few)
+    card16 = ProtSTonKGsEngine(cfg=small, params=params_to(p32, DEV, BF16),
+                               batch_size=2, device=DEV).embed(few)
+    cpu32 = ProtSTonKGsEngine(cfg=small, params=p32, compute_dtype="float32",
+                              batch_size=2, device="cpu").embed(few)
+    err32 = float(np.abs(card32 - cpu32).max())
+    cos = _cosine(card16, cpu32)
+    log(f"# ProtSTonKGs card fp32 vs CPU fp32 (2 rows, 2 layers a stack): max_abs_err "
+        f"{err32!r} (limit 1e-3)")
+    log(f"# ProtSTonKGs card bf16 vs CPU fp32 (2 rows, 2 layers a stack): cosine "
+        f"{cos.tolist()!r} (limit 0.99)")
+    check(err32 <= 1e-3, "ProtSTonKGs card fp32 disagrees with the CPU")
+    check(bool((cos >= 0.99).all()), "ProtSTonKGs card bf16 too far from the CPU fp32")
+    return engine, feats, counts, params
+
+
+def phase_prot_training(cfg: ProtSTonKGsConfig, params_cpu: dict):
+    """``pretrain(..., loss_fn=protstonkgs.pretraining_loss)`` at full width
+    (B=2, fp32 parameters, bf16 compute, the training plan): the main
+    training path, counts from 0 just before it.  Returns its launch
+    counts, its state and the loss function."""
+    t0 = time.perf_counter()
+    params = params_to(params_cpu, DEV)
+    frozen_before = tree_map(lambda t: t.clone(), split_frozen(params)[1])
+    feats = _prot_features(cfg, PROT_TRAIN_BATCH * PROT_TRAIN_STEPS, seed=2, labels=True)
+    loss_fn = functools.partial(protstonkgs.pretraining_loss, rand_attn=_train_plan(cfg))
+    run_cfg = pretraining.PretrainingConfig(
+        max_steps=PROT_TRAIN_STEPS, micro_batch_size=PROT_TRAIN_BATCH, log_steps=1,
+        compute_dtype="bfloat16")
+    logged = []
+    log(f"# ProtSTonKGs training setup: {time.perf_counter() - t0:.1f} s")
+    _reset_counts(PROT_TRAINING_KERNELS)
+    state = pretraining.pretrain(cfg, params, feats, run_cfg, loss_fn=loss_fn,
+                                 log_fn=lambda step, m: logged.append((step, m)))
+    torch.cuda.synchronize()
+    counts = _counts(PROT_TRAINING_KERNELS)
+    t, lm, prot = cfg.trunk, cfg.lm, cfg.prot
+    log(f"# launches ProtSTonKGs pretrain ({PROT_TRAIN_STEPS} steps, B={PROT_TRAIN_BATCH}): "
+        f"{counts}")
+    expected = {"bigbird_mid_fwd": t.num_hidden_layers, "bigbird_mid_bwd": t.num_hidden_layers,
+                "ffn_train_fwd": lm.num_hidden_layers + prot.num_hidden_layers
+                + t.num_hidden_layers,
+                "ffn_train_bwd": t.num_hidden_layers,
+                "flash_attention_train_fwd": lm.num_hidden_layers + prot.num_hidden_layers}
+    for name, per_step in expected.items():
+        check(counts[name] == per_step * PROT_TRAIN_STEPS,
+              f"{name}: {counts[name]} launches, expected {per_step} x {PROT_TRAIN_STEPS}")
+    for step, m in logged:
+        log(f"# ProtSTonKGs pretrain step {step}: " + json.dumps(m))
+    check([s for s, _ in logged] == list(range(1, PROT_TRAIN_STEPS + 1)),
+          f"ProtSTonKGs pretrain logged steps {[s for s, _ in logged]}")
+    check(all(math.isfinite(m["loss"]) for _, m in logged),
+          "non-finite ProtSTonKGs pretraining loss")
+    frozen_after = split_frozen(state.params)[1]
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(frozen_before),
+                                                tree_leaves(frozen_after))),
+          "a frozen ProtSTonKGs backbone changed")
+    before, after = _named_leaves(split_frozen(params)[0]), _named_leaves(state.params)
+    unchanged = [k for k in before if torch.equal(before[k], after[k])]
+    log(f"# ProtSTonKGs trainable leaves unchanged after {PROT_TRAIN_STEPS} steps: "
+        f"{unchanged}")
+    check(set(unchanged) <= set(PROT_UNUSED_LEAVES), "a trainable leaf did not change")
+    check(not any(k.startswith("prot_projection") for k in unchanged),
+          "prot_projection did not train")
+    return counts, state, loss_fn
+
+
+def phase_prot_train_numerics(cfg_full: ProtSTonKGsConfig) -> None:
+    """Loss and trunk gradients, card fp32 vs CPU fp32, at 2 rows and 2
+    layers a stack of the full widths, hidden dropout 0 and the backbones'
+    attention dropout 0.1 (seeds from the same CPU generator)."""
+    cfg = _prot_cfg(cfg_full.kg_vocab_size, layers=2, hidden_dropout=0.0)
+    params = _prot_params(cfg, seed=12)
+    feats = _prot_features(cfg, 2, seed=3, labels=True)
+    plan = _train_plan(cfg)
+
+    def loss_and_grads(device):
+        p = params_to(params, device)
+        leaves = tree_leaves(p["trunk"]) + tree_leaves(p["prot_projection"])
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = protstonkgs.pretraining_loss(
+            p, cfg, pretraining.to_device(feats, device), deterministic=False,
+            rng=pretraining.step_rng(0, 0, device), compute_dtype=F32, rand_attn=plan)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return float(loss.detach()), [g.detach().cpu() for g in grads if g is not None]
+
+    launches = bigbird_mid_bwd.launches
+    loss_card, g_card = loss_and_grads(DEV)
+    check(bigbird_mid_bwd.launches > launches, "the card run launched no sparse backward")
+    loss_cpu, g_cpu = loss_and_grads("cpu")
+    err = max(float((a - b).abs().max()) for a, b in zip(g_card, g_cpu))
+    scale = max(float(b.abs().max()) for b in g_cpu)
+    log(f"# ProtSTonKGs train card fp32 vs CPU fp32 (2 rows, 2 layers a stack, attention "
+        f"dropout {ATTN_RATE}): loss {loss_card!r} vs {loss_cpu!r}; trunk and projection "
+        f"grads max_abs_err {err!r} of max |grad| {scale!r} (limits: loss 1e-4 relative, "
+        f"grads 1e-3 of max |grad|)")
+    check(abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu),
+          "ProtSTonKGs card loss disagrees with the CPU")
+    check(err <= 1e-3 * scale, "ProtSTonKGs card gradients disagree with the CPU")
+
+
+def _time_sparse(label: str, B: int, gen, backward: bool, plan: str) -> dict:
+    """A BigBird kernel vs plain at the path's shape (S=4096, H=12), then
+    both timed.  No single PyTorch call computes the function: the eval
+    plan's repeated blocks are separate keys, which an SDPA mask cannot
+    express, so the library column is null."""
+    nb, H, D, r = 64, 12, 64, 3
+    q, k, v, mask, rand, do = _sparse_inputs(B, nb, BF16, gen, plan, False, H)
+    n_mid, W = nb - 2, (5 + r) * 64
+    tensor = B * nb * 64 * H * D * 2           # one (B, S, H, D) bf16 tensor
+    mid = B * n_mid * 64 * H * D * 2           # its middle rows
+    lse_b, mask_b = B * H * n_mid * 64 * 4, B * nb * 64 * 4
+    products = 2.0 * B * H * n_mid * 64 * W * D  # one (bs x W x D) product per block
+    out, lse = bigbird_mid_fwd(q, k, v, mask, rand, 64)
+    if not backward:
+        # q's middle rows, k, v and the mask read; out and lse written
+        bound, by = _bound_ms(2 * products, 2 * mid + 2 * tensor + lse_b + mask_b, BF16)
+        fn = lambda: bigbird_mid_fwd(q, k, v, mask, rand, 64)  # noqa: E731
+        plain = lambda: bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)  # noqa: E731
+        err = _compare(f"sparse fwd bf16 {label}", fn()[0], plain()[0], BF16)
+    else:
+        # q, o, dO middle rows, k, v, lse, mask read; dq (middle), dk, dv written
+        bound, by = _bound_ms(5 * products, 4 * mid + 4 * tensor + lse_b + mask_b, BF16)
+        fn = lambda: bigbird_mid_bwd(q, k, v, mask, rand, 64, out, lse, do)  # noqa: E731
+        plain = lambda: bigbird_mid_bwd_plain(q, k, v, mask, rand, 64, out, lse, do)  # noqa: E731
+        err = max(_compare_rel(f"sparse {n} bf16 {label}", g, w, BF16)
+                  for n, g, w in zip(("dq", "dk", "dv"), fn(), plain()))
+    return dict(max_abs_err=err, ms=_time_ms(fn), plain_ms=_time_ms(plain, iters=3),
+                bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def phase_prot_timing(cfg: ProtSTonKGsConfig, engine, feats, state, loss_fn) -> dict:
+    """Embed sequences/s (B=8), the training step (B=2, median of 6 after
+    2 of warm-up), then each new or widened kernel at the ProtSTonKGs
+    path's shapes.  Returns per kernel the path shape's numbers."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.embed(feats)
+        times.append(time.perf_counter() - t0)
+    check(bool(np.isfinite(out).all()), "ProtSTonKGs embed not finite")
+    log(f"# ProtSTonKGs embed: {len(out)} rows, B={PROT_BATCH}, seconds {times!r}; best "
+        f"{len(out) / min(times)!r} sequences/s, median "
+        f"{len(out) / statistics.median(times)!r} sequences/s")
+    tx = AdamW(total_steps=1000)
+    step = pretraining.make_train_step(cfg, tx, loss_fn=loss_fn, compute_dtype=BF16)
+    batch = pretraining.to_device(_prot_features(cfg, PROT_TRAIN_BATCH, seed=4, labels=True),
+                                  DEV)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2 + 6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+        check(math.isfinite(loss), "non-finite ProtSTonKGs loss in the timed steps")
+    med = statistics.median(times)
+    log(f"# ProtSTonKGs train step B={PROT_TRAIN_BATCH} bf16: seconds {times!r}; median "
+        f"{med * 1e3!r} ms, {PROT_TRAIN_BATCH / med!r} sequences/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    del state, step, tx
+    gen = torch.Generator().manual_seed(7)
+    B, Bt = PROT_BATCH, PROT_TRAIN_BATCH
+    cases = [
+        ("bigbird_mid_fwd", f"serving B={B} S=4096 eval plan",
+         lambda lb: _time_sparse(lb, B, gen, False, "eval")),
+        ("bigbird_mid_fwd:train", f"training B={Bt} S=4096 train plan",
+         lambda lb: _time_sparse(lb, Bt, gen, False, "train")),
+        ("bigbird_mid_bwd", f"training B={Bt} S=4096 train plan",
+         lambda lb: _time_sparse(lb, Bt, gen, True, "train")),
+        ("ffn_ln_block:prot", f"ProtBERT M={B * cfg.prot_len} H=1024",
+         lambda lb: _time_ffn(lb, B * cfg.prot_len, gen, 1024, 4096)),
+        ("ffn_ln_block:bigbird", f"trunk M={B * cfg.seq_len} gelu_new",
+         lambda lb: _time_ffn(lb, B * cfg.seq_len, gen, act="gelu_new")),
+        ("flash_attention_infer:prot", f"ProtBERT B={B} S={cfg.prot_len} H=16 no-bias",
+         lambda lb: _time_attention(lb, B, cfg.prot_len, False, gen, H=16)),
+        ("ffn_train_fwd:prot", f"ProtBERT M={Bt * cfg.prot_len} H=1024",
+         lambda lb: _time_train_ffn(lb, Bt * cfg.prot_len, gen, False, 1024, 4096)),
+        ("flash_attention_train_fwd:prot",
+         f"ProtBERT B={Bt} S={cfg.prot_len} H=16 no-bias, rate 0.1",
+         lambda lb: _time_train_attention(lb, Bt, cfg.prot_len, False, gen, False, H=16)),
+    ]
+    result = {}
+    for key, label, fn in cases:
+        t = fn(label)
+        log(f"# time {key.split(':')[0]} {label} bf16: {json.dumps(t)}")
+        result[key] = t
+    result["bigbird_mid_fwd"]["max_abs_err"] = max(
+        result["bigbird_mid_fwd"]["max_abs_err"], result["bigbird_mid_fwd:train"]["max_abs_err"])
+    return result
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -753,11 +1167,29 @@ def main() -> int:
         counts.update(train_counts)
         phase_train_numerics(cfg)
         times.update(phase_train_timing(cfg, state))
+        del state, params
+        errs.update(phase_sparse_kernels())
+        pcfg = _prot_cfg()
+        engine, pfeats, prot_counts, pparams = phase_prot_serving(pcfg)
+        for name, c in prot_counts.items():
+            counts[name] = counts.get(name, 0) + c
+        prot_train_counts, pstate, loss_fn = phase_prot_training(pcfg, pparams)
+        for name, c in prot_train_counts.items():
+            counts[name] = counts.get(name, 0) + c
+        phase_prot_train_numerics(pcfg)
+        prot_times = phase_prot_timing(pcfg, engine, pfeats, pstate, loss_fn)
+        for name in ("bigbird_mid_fwd", "bigbird_mid_bwd"):
+            times[name] = prot_times[name]
+        for name in ("ffn_ln_block", "flash_attention_infer", "ffn_train_fwd",
+                     "flash_attention_train_fwd"):
+            times[name]["max_abs_err"] = max(times[name]["max_abs_err"], *(
+                t["max_abs_err"] for k, t in prot_times.items() if k.startswith(name + ":")))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     attn_cu = "stonkgs_tpu_torch/csrc/flash_attention_train.cu"
     ffn_cu = "stonkgs_tpu_torch/csrc/ffn_train.cu"
+    sparse_cu = "stonkgs_tpu_torch/csrc/bigbird_sparse.cu"
     sources = {"ffn_ln_block": ("stonkgs_tpu_torch/csrc/ffn_ln_block.cu",
                                 "stonkgs_tpu/ops/fused_ffn.py:438"),
                "flash_attention_infer": ("stonkgs_tpu_torch/csrc/flash_attention_infer.cu",
@@ -765,7 +1197,9 @@ def main() -> int:
                "flash_attention_train_fwd": (attn_cu, "stonkgs_tpu/ops/flash_attention.py:92"),
                "flash_attention_train_bwd": (attn_cu, "stonkgs_tpu/ops/flash_attention.py:118"),
                "ffn_train_fwd": (ffn_cu, "stonkgs_tpu/ops/fused_ffn.py:54"),
-               "ffn_train_bwd": (ffn_cu, "stonkgs_tpu/ops/fused_ffn.py:206")}
+               "ffn_train_bwd": (ffn_cu, "stonkgs_tpu/ops/fused_ffn.py:206"),
+               "bigbird_mid_fwd": (sparse_cu, "stonkgs_tpu/ops/bigbird_sparse_pallas.py:83"),
+               "bigbird_mid_bwd": (sparse_cu, "stonkgs_tpu/ops/bigbird_sparse_pallas.py:113")}
     kernels = []
     for name in sources:
         src, replaces = sources[name]

@@ -1,14 +1,20 @@
-"""Where the time of one pre-training step goes, on one CUDA card.
+"""Where the time of one pre-training step (or serving batch) goes, on one
+CUDA card.
 
 Run from the root of a checkout, with one CUDA card visible:
 
-    python3 profile_train_step.py [--out profile_train_step.json]
+    python3 profile_train_step.py [--model stonkgs|protstonkgs] [--serve]
+                                  [--out profile_train_step.json]
 
-Builds the port's kernels, makes the full-width STonKGs model of
-``chip_smoke.py`` (BERT-base backbone and trunk, 256 + 256, KG vocabulary
-100,000, random seeded weights, fp32 parameters), runs two warm-up steps
-of ``make_train_step`` at B=32 in bf16, then traces three steps with
-``torch.profiler`` (each step synchronised through its loss).  It prints
+Builds the port's kernels and makes the full-width model of
+``chip_smoke.py`` with random seeded weights: STonKGs (BERT-base backbone
+and trunk, 256 + 256, KG vocabulary 100,000; B=32) or ProtSTonKGs
+(BigBird trunk, BioBERT, ProtBERT 30 x 1024, 4096 tokens, KG vocabulary
+20,000; B=2 with the training plan).  It runs two warm-up steps of
+``make_train_step`` in bf16 with fp32 parameters, then traces three steps
+with ``torch.profiler`` (each step synchronised through its loss).  With
+``--serve`` (ProtSTonKGs) it traces three embed batches of
+``ProtSTonKGsEngine`` at B=8 in bf16 instead.  It prints
 the device time by kernel, the device time by group (the port's kernels,
 cuBLAS products, everything else), and the device's busy share of the
 traced wall time (the sum of kernel times over the wall time: one stream,
@@ -18,6 +24,7 @@ so kernels do not overlap), and writes the groups to ``--out``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -28,21 +35,26 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
+from stonkgs_tpu_torch import ProtSTonKGsEngine
 from stonkgs_tpu_torch.config import BertConfig, STonKGsConfig
-from stonkgs_tpu_torch.models import stonkgs
+from stonkgs_tpu_torch.models import protstonkgs, stonkgs
 from stonkgs_tpu_torch.ops import _build
 from stonkgs_tpu_torch.train import pretraining
 from stonkgs_tpu_torch.train.optimizer import AdamW
 from stonkgs_tpu_torch.utils.convert import params_to
 
-# kernel-name prefixes of the port's own CUDA kernels (csrc/*.cu)
+# kernel-name prefixes of the port's own CUDA kernels (csrc/*.cu); the
+# two forward templates serve two entry points each, told apart by their
+# second template argument (kTrain, kLN)
 PORT_KERNELS = {
-    "attn_fwd_kernel": "flash_attention_train_fwd",
+    "attn_fwd_kernel": ("flash_attention_infer", "flash_attention_train_fwd"),
     "attn_bwd_delta_kernel": "flash_attention_train_bwd",
     "attn_bwd_dq_kernel": "flash_attention_train_bwd",
     "attn_bwd_dkdv_kernel": "flash_attention_train_bwd",
-    "ffn_fwd_kernel": "ffn_train_fwd",
+    "ffn_fwd_kernel": ("ffn_train_fwd", "ffn_ln_block"),
     "ffn_bwd_kernel": "ffn_train_bwd",
+    "mid_fwd_kernel": "bigbird_mid_fwd",
+    "mid_bwd_kernel": "bigbird_mid_bwd",
 }
 STEPS = 3  # traced steps
 # cuBLAS kernels on Hopper are named nvjet_*, sm90_xmma_gemm_* or *gemm*
@@ -54,6 +66,9 @@ def group_of(name: str) -> str:
     base = name.split("<")[0].split("::")[-1].replace("void ", "")
     for prefix, group in PORT_KERNELS.items():
         if base.startswith(prefix):
+            if isinstance(group, tuple):
+                flag = name.split("<", 1)[1].split(">", 1)[0].split(",")[1].strip()
+                return group[flag == "true"]
             return group
     if any(m in name.lower() for m in GEMM_MARKS):
         return "cuBLAS products"
@@ -63,7 +78,12 @@ def group_of(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_train_step.json")
+    ap.add_argument("--model", choices=("stonkgs", "protstonkgs"), default="stonkgs")
+    ap.add_argument("--serve", action="store_true",
+                    help="trace ProtSTonKGsEngine.embed batches (ProtSTonKGs only)")
     args = ap.parse_args()
+    if args.serve and args.model != "protstonkgs":
+        ap.error("--serve traces the ProtSTonKGs engine: pass --model protstonkgs")
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
         return 1
@@ -72,27 +92,16 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
     _build.build_all(chip_smoke.SOURCES)
-
-    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000)
-    gen = torch.Generator().manual_seed(0)
-    params = stonkgs.init_stonkgs_params(gen, cfg)
-    params["kg_backbone"] = torch.randn(cfg.kg_table_size, cfg.bert.hidden_size, generator=gen)
-    params = params_to(params, "cuda")
-    tx = AdamW(total_steps=1000)
-    state = pretraining.init_train_state(params, tx)
-    step = pretraining.make_train_step(cfg, tx, compute_dtype=torch.bfloat16)
-    batch = pretraining.to_device(
-        chip_smoke._pretraining_features(cfg, chip_smoke.TRAIN_BATCH), "cuda")
+    run, batch_size = (_prot_embed() if args.serve else
+                       _prot_train() if args.model == "protstonkgs" else _stonkgs_train())
     for _ in range(2):
-        state, m = step(state, batch)
-        float(m["loss"])
+        run()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
-            state, m = step(state, batch)
-            float(m["loss"])
+            run()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -108,7 +117,8 @@ def main() -> int:
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
     step_ms = wall_ms / STEPS
     busy = device_ms / wall_ms
-    print(f"# {STEPS} steps, B={chip_smoke.TRAIN_BATCH}: {step_ms!r} ms a step on the "
+    print(f"# {args.model}{' embed' if args.serve else ''}: {STEPS} steps, B={batch_size}: "
+          f"{step_ms!r} ms a step on the "
           f"host clock, device time {device_ms / STEPS!r} ms a step; device busy "
           f"{busy!r}, idle {1 - busy!r}")
     for name, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms_per_step"]):
@@ -118,13 +128,65 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:40]
     out.write_text(json.dumps({
-        "card": card, "steps": STEPS, "step_ms": step_ms,
+        "card": card, "model": args.model, "serve": args.serve, "batch": batch_size,
+        "steps": STEPS, "step_ms": step_ms,
         "device_ms_per_step": device_ms / STEPS, "device_busy": busy,
         "groups": groups,
         "kernels": [{"name": e.key, "group": group_of(e.key),
                      "ms_per_step": e.self_device_time_total / 1e3 / STEPS,
                      "launches_per_step": e.count / STEPS} for e in top]}, indent=1))
     return 0
+
+
+def _stonkgs_train():
+    """One STonKGs train step at B=32, synchronised through its loss."""
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000)
+    gen = torch.Generator().manual_seed(0)
+    params = stonkgs.init_stonkgs_params(gen, cfg)
+    params["kg_backbone"] = torch.randn(cfg.kg_table_size, cfg.bert.hidden_size, generator=gen)
+    tx = AdamW(total_steps=1000)
+    state = pretraining.init_train_state(params_to(params, "cuda"), tx)
+    step = pretraining.make_train_step(cfg, tx, compute_dtype=torch.bfloat16)
+    batch = pretraining.to_device(
+        chip_smoke._pretraining_features(cfg, chip_smoke.TRAIN_BATCH), "cuda")
+
+    def run():
+        _, m = step(state, batch)
+        float(m["loss"])
+    return run, chip_smoke.TRAIN_BATCH
+
+
+def _prot_train():
+    """One ProtSTonKGs train step at B=2 with the training plan."""
+    cfg = chip_smoke._prot_cfg()
+    params = chip_smoke._prot_params(cfg, seed=0)
+    tx = AdamW(total_steps=1000)
+    state = pretraining.init_train_state(params_to(params, "cuda"), tx)
+    loss_fn = functools.partial(protstonkgs.pretraining_loss,
+                                rand_attn=chip_smoke._train_plan(cfg))
+    step = pretraining.make_train_step(cfg, tx, loss_fn=loss_fn, compute_dtype=torch.bfloat16)
+    B = chip_smoke.PROT_TRAIN_BATCH
+    batch = pretraining.to_device(chip_smoke._prot_features(cfg, B, labels=True), "cuda")
+
+    def run():
+        _, m = step(state, batch)
+        float(m["loss"])
+    return run, B
+
+
+def _prot_embed():
+    """One ProtSTonKGs embed batch of 8 (bf16), synchronised by the copy
+    of its output to the host."""
+    cfg = chip_smoke._prot_cfg()
+    params = chip_smoke._prot_params(cfg, seed=0, dtype=torch.bfloat16)
+    B = chip_smoke.PROT_BATCH
+    engine = ProtSTonKGsEngine(cfg=cfg, params=params_to(params, "cuda", torch.bfloat16),
+                               batch_size=B)
+    feats = chip_smoke._prot_features(cfg, B)
+
+    def run():
+        engine.embed(feats)
+    return run, B
 
 
 if __name__ == "__main__":

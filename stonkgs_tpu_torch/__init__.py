@@ -6,5 +6,6 @@ nvcc for ``sm_90a`` the first time they launch.
 """
 
 from stonkgs_tpu_torch.api.inference import STonKGsEngine
+from stonkgs_tpu_torch.api.prot_inference import ProtSTonKGsEngine
 
-__all__ = ["STonKGsEngine"]
+__all__ = ["ProtSTonKGsEngine", "STonKGsEngine"]

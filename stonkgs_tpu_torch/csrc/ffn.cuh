@@ -1,15 +1,19 @@
 // Pieces shared by the FFN kernels (ffn_ln_block.cu and ffn_train.cu): the
-// tiling of the (rows, 768) x (768, I) x (I, 768) products, the weight-tile
+// tiling of the (rows, H) x (H, I) x (I, H) products, the weight-tile
 // stream, gelu and its derivative, and the forward kernel that both the
 // serving block (LN1 -> FFN -> LN2) and the training FFN launch.
 //
-// A block owns BM rows and 384 threads (12 warps).  The intermediate axis
-// is walked in chunks of 192; the weight tiles of all chunks form one
-// stream through a ring of STAGES shared-memory buffers filled by
-// cp.async, STAGES - 1 tiles ahead of the tile in use, with one block
-// barrier per tile.  Two tile shapes:
-//   "W1 tile": 64 x 192 of a (768, I) matrix (rows t*64, columns chunk);
-//   "W2 tile": 16 x 768 of an (I, 768) matrix (rows chunk + t*16).
+// Two hidden widths, each with its own thread count and chunk (Width):
+// H = 768 (BERT-base, BioBERT, the BigBird trunk): 384 threads (12 warps),
+// chunks of 192; H = 1024 (ProtBERT): 512 threads (16 warps), chunks of
+// 256.  A block owns BM rows.  The intermediate axis is walked in chunks;
+// the weight tiles of all chunks form one stream through a ring of STAGES
+// shared-memory buffers filled by cp.async, STAGES - 1 tiles ahead of the
+// tile in use, with one block barrier per tile.  Two tile shapes:
+//   "W1 tile": 64 x chunk of an (H, I) matrix (rows t*64, columns chunk);
+//   "W2 tile": 16 x H of an (I, H) matrix (rows chunk + t*16).
+// In the bf16 products each warp owns 16 columns of the chunk (so a chunk
+// is 16 columns per warp) and H / warps = 64 output columns.
 // bf16 products use the tensor cores through nvcuda::wmma (16x16x16, fp32
 // accumulation); fp32 products are plain FMAs on 16-row blocks.
 
@@ -24,25 +28,30 @@ namespace ffn {
 
 using namespace nvcuda;
 
-constexpr int kH = 768;      // hidden width
-constexpr int kChunk = 192;  // intermediate-axis chunk
 constexpr int kK1 = 64;      // rows (hidden axis) of a W1 tile
 constexpr int kK2 = 16;      // rows (intermediate axis) of a W2 tile
-constexpr int kThreads = 384;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPer = kH / 32;        // row values per lane in the LayerNorms
-constexpr int kTiles1 = kH / kK1;    // W1 tiles per chunk
-constexpr int kTiles2 = kChunk / kK2;  // W2 tiles per chunk
+
+// hidden width -> threads of a block (768: 384, 1024: 512) and
+// intermediate-axis chunk (768: 192, 1024: 256)
+template <int H> struct Width {
+  static constexpr int kH = H, kThreads = H / 2, kChunk = H / 4;
+};
 
 template <typename T> struct Pad;
 template <> struct Pad<__nv_bfloat16> { static constexpr int value = 8; };
 template <> struct Pad<float> { static constexpr int value = 4; };
 
-// Shared memory of a kernel with BM rows, NROW (BM, 768) row operands and
-// a STAGES-deep weight ring; after the row operands, a work area (ring,
-// fp32 h chunk, rounded h chunk) that the epilogue reuses as its staging.
-template <typename T, int BM_, int STAGES_, int NROW>
+// Shared memory of a kernel of hidden width H with BM rows, NROW (BM, H)
+// row operands and a STAGES-deep weight ring; after the row operands, a
+// work area (ring, fp32 h chunk, rounded h chunk) that the epilogue reuses
+// as its staging.  It also carries the width's thread mapping.
+template <typename T, int H, int BM_, int STAGES_, int NROW>
 struct Layout {
+  static constexpr int kH = H, kThreads = Width<H>::kThreads, kChunk = Width<H>::kChunk;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kPer = kH / 32;           // row values per lane in the LayerNorms
+  static constexpr int kTiles1 = kH / kK1;       // W1 tiles per chunk
+  static constexpr int kTiles2 = kChunk / kK2;   // W2 tiles per chunk
   static constexpr int BM = BM_, STAGES = STAGES_, PAD = Pad<T>::value;
   static constexpr int XS = kH + PAD;       // row operand stride (T)
   static constexpr int W1S = kChunk + PAD;  // W1 tile row stride (T)
@@ -61,10 +70,16 @@ struct Layout {
       NROW * xs_bytes + (work_bytes > stage_bytes ? work_bytes : stage_bytes);
 };
 
-// the forward kernels: 48 rows (bf16) or 16 (fp32) and one row operand
-template <typename T> struct FwdTiling;
-template <> struct FwdTiling<__nv_bfloat16> { using L = Layout<__nv_bfloat16, 48, 3, 1>; };
-template <> struct FwdTiling<float> { using L = Layout<float, 16, 2, 1>; };
+// the forward kernels, one row operand: at H = 768, 48 rows (bf16) or 16
+// (fp32); at H = 1024, 32 rows (bf16: 217 KB of shared memory) or 16
+// (fp32: 232,192 bytes, just under the 232,448 a block may have)
+template <typename T, int H> struct FwdTiling;
+template <> struct FwdTiling<__nv_bfloat16, 768> { using L = Layout<__nv_bfloat16, 768, 48, 3, 1>; };
+template <> struct FwdTiling<float, 768> { using L = Layout<float, 768, 16, 2, 1>; };
+template <> struct FwdTiling<__nv_bfloat16, 1024> {
+  using L = Layout<__nv_bfloat16, 1024, 32, 3, 1>;
+};
+template <> struct FwdTiling<float, 1024> { using L = Layout<float, 1024, 16, 2, 1>; };
 
 __device__ __forceinline__ float gelu(float h, int act) {
   if (act == 0) return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
@@ -88,42 +103,42 @@ __device__ __forceinline__ void gelu_and_grad(float h, int act, float& a, float&
 
 // rows x cols elements of T, global (row stride gs) -> shared (row stride ss),
 // in 16-byte cp.async pieces spread over the block
-template <typename T>
+template <typename L, typename T>
 __device__ __forceinline__ void load_tile_async(T* s, int ss, const T* g, size_t gs,
                                                 int rows, int cols) {
   constexpr int V = 16 / sizeof(T);
   const int vpr = cols / V;
-  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * vpr; i += L::kThreads) {
     const int r = i / vpr, c = (i % vpr) * V;
     cp_async16(s + r * ss + c, g + r * gs + c);
   }
 }
 
-// W1 tile t of chunk c0 of a (768, I) matrix
+// W1 tile t of chunk c0 of an (H, I) matrix
 template <typename L, typename T>
 __device__ __forceinline__ void fetch_w1(T* dst, const T* w, int I, int c0, int t) {
-  load_tile_async(dst, L::W1S, w + size_t(t) * kK1 * I + c0, size_t(I), kK1, kChunk);
+  load_tile_async<L>(dst, L::W1S, w + size_t(t) * kK1 * I + c0, size_t(I), kK1, L::kChunk);
 }
 
-// W2 tile t of chunk c0 of an (I, 768) matrix
+// W2 tile t of chunk c0 of an (I, H) matrix
 template <typename L, typename T>
 __device__ __forceinline__ void fetch_w2(T* dst, const T* w, int c0, int t) {
-  load_tile_async(dst, L::W2S, w + size_t(c0 + t * kK2) * kH, size_t(kH), kK2, kH);
+  load_tile_async<L>(dst, L::W2S, w + size_t(c0 + t * kK2) * L::kH, size_t(L::kH), kK2, L::kH);
 }
 
-// BM rows of a (M, 768) matrix -> shared (stride XS); rows >= M are zero
+// BM rows of a (M, H) matrix -> shared (stride XS); rows >= M are zero
 template <typename L, typename T>
 __device__ __forceinline__ void load_row_block(T* s, const T* g, int row0, int M) {
-  constexpr int V = 16 / sizeof(T), VPR = kH / V;
-  for (int i = threadIdx.x; i < L::BM * VPR; i += kThreads) {
+  constexpr int V = 16 / sizeof(T), VPR = L::kH / V;
+  for (int i = threadIdx.x; i < L::BM * VPR; i += L::kThreads) {
     const int r = i / VPR, c = (i % VPR) * V;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < M) val = *reinterpret_cast<const uint4*>(g + size_t(row0 + r) * kH + c);
+    if (row0 + r < M) val = *reinterpret_cast<const uint4*>(g + size_t(row0 + r) * L::kH + c);
     *reinterpret_cast<uint4*>(s + r * L::XS + c) = val;
   }
 }
 
-// bf16: acc[i] += a (BM x 768 in shared, rows i*16.., columns t*64..) .
+// bf16: acc[i] += a (BM x H in shared, rows i*16.., columns t*64..) .
 // W1 tile (the warp's 16 columns)
 template <typename L>
 __device__ __forceinline__ void mma_w1_tile(
@@ -144,15 +159,15 @@ __device__ __forceinline__ void mma_w1_tile(
   }
 }
 
-// bf16: acc[i][j] += hs (BM x 192 chunk, columns kt*16..) . W2 tile (the
+// bf16: acc[i][j] += hs (BM x chunk, columns kt*16..) . W2 tile (the
 // warp's 64 output columns)
 template <typename L>
 __device__ __forceinline__ void mma_w2_tile(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[L::BM / 16][kH / kWarps / 16],
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[L::BM / 16][L::kH / L::kWarps / 16],
     const __nv_bfloat16* hs, const __nv_bfloat16* cur, int kt, int warp) {
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
   using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-  constexpr int RF = L::BM / 16, kCols = kH / kWarps;
+  constexpr int RF = L::BM / 16, kCols = L::kH / L::kWarps;
   FragA af[RF];
 #pragma unroll
   for (int i = 0; i < RF; ++i) wmma::load_matrix_sync(af[i], hs + i * 16 * L::HSS + kt * kK2, L::HSS);
@@ -176,12 +191,12 @@ __device__ __forceinline__ void fma_w1_tile(float (&hacc)[8], const float* as, c
   }
 }
 
-// fp32: acc[r][*] += hs[r, kt*16 + kk] * W2 tile[kk, tid and tid + 384]
+// fp32: acc[r][*] += hs[r, kt*16 + kk] * W2 tile[kk, tid and tid + threads]
 template <typename L>
 __device__ __forceinline__ void fma_w2_tile(float (&acc)[16][2], const float* hs,
                                             const float* cur, int kt, int tid) {
   for (int kk = 0; kk < kK2; ++kk) {
-    const float wa = cur[kk * L::W2S + tid], wb = cur[kk * L::W2S + tid + kThreads];
+    const float wa = cur[kk * L::W2S + tid], wb = cur[kk * L::W2S + tid + L::kThreads];
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const float h = hs[r * L::HSS + kt * kK2 + kk];
@@ -191,20 +206,23 @@ __device__ __forceinline__ void fma_w2_tile(float (&acc)[16][2], const float* hs
   }
 }
 
-// LayerNorm of one row held as kPer values per lane (column lane + 32*i)
-__device__ __forceinline__ void layer_norm_row(float (&v)[kPer], const float* g,
+// LayerNorm of one row of width H held as H / 32 values per lane (column
+// lane + 32*i)
+template <int H>
+__device__ __forceinline__ void layer_norm_row(float (&v)[H / 32], const float* g,
                                                const float* b, float eps, int lane) {
+  constexpr int kPer = H / 32;
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) s += v[i];
-  const float mean = warp_sum(s) / kH;
+  const float mean = warp_sum(s) / H;
   float q = 0.f;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const float d = v[i] - mean;
     q += d * d;
   }
-  const float rstd = rsqrtf(warp_sum(q) / kH + eps);
+  const float rstd = rsqrtf(warp_sum(q) / H + eps);
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int c = lane + 32 * i;
@@ -227,11 +245,12 @@ struct LnArgs {
 template <typename L, typename T, bool kLN>
 __device__ __forceinline__ void epilogue_rows(const float* stage, const T* xs, int r0, int row0,
                                               int M, const float* b2, const LnArgs& ln, T* out) {
+  constexpr int kPer = L::kPer;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < 16; r += kWarps) {
+  for (int r = warp; r < 16; r += L::kWarps) {
     const int gr = row0 + r0 + r;
     if (gr >= M) continue;
-    T* o = out + size_t(gr) * kH;
+    T* o = out + size_t(gr) * L::kH;
     float v[kPer];
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -239,7 +258,7 @@ __device__ __forceinline__ void epilogue_rows(const float* stage, const T* xs, i
       v[i] = round_to<T>(stage[r * L::STS + c] + (b2 ? b2[c] : 0.f));
       if constexpr (kLN) v[i] += to_f(xs[(r0 + r) * L::XS + c]);
     }
-    if constexpr (kLN) layer_norm_row(v, ln.g2, ln.be2, ln.eps, lane);
+    if constexpr (kLN) layer_norm_row<L::kH>(v, ln.g2, ln.be2, ln.eps, lane);
 #pragma unroll
     for (int i = 0; i < kPer; ++i) o[lane + 32 * i] = from_f<T>(v[i]);
   }
@@ -251,16 +270,18 @@ __device__ __forceinline__ void epilogue_rows(const float* stage, const T* xs, i
 //   else x2 = x and out = y (the training FFN, _ffn_kernel).
 // Rounding points as the TPU kernels: h accumulated in fp32, + b1, gelu in
 // fp32, rounded to T; y = h @ W2 + b2 rounded.  The (BM, I) intermediate
-// never reaches device memory; the (BM, 768) fp32 accumulator stays in
+// never reaches device memory; the (BM, H) fp32 accumulator stays in
 // registers across the whole walk.
-template <typename T, bool kLN>
-__global__ void __launch_bounds__(kThreads, 1)
+template <typename T, bool kLN, int H>
+__global__ void __launch_bounds__(Width<H>::kThreads, 1)
 ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __restrict__ w1,
                const float* __restrict__ b1, const T* __restrict__ w2,
                const float* __restrict__ b2, LnArgs ln, T* __restrict__ out, int M, int I,
                int act) {
-  using L = typename FwdTiling<T>::L;
+  using L = typename FwdTiling<T, H>::L;
   constexpr int BM = L::BM, STAGES = L::STAGES;
+  constexpr int kH = L::kH, kChunk = L::kChunk, kThreads = L::kThreads, kWarps = L::kWarps;
+  constexpr int kPer = L::kPer, kTiles1 = L::kTiles1, kTiles2 = L::kTiles2;
   extern __shared__ __align__(128) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
   unsigned char* work = smem + L::xs_bytes;
@@ -309,7 +330,7 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __rest
         const int c = lane + 32 * i;
         v[i] = to_f(xp[c]) + to_f(ap[c]);
       }
-      layer_norm_row(v, ln.g1, ln.be1, ln.eps, lane);
+      layer_norm_row<kH>(v, ln.g1, ln.be1, ln.eps, lane);
 #pragma unroll
       for (int i = 0; i < kPer; ++i) xr[lane + 32 * i] = from_f<T>(v[i]);
     }
@@ -333,7 +354,7 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __rest
     // W1 product: warp owns h columns [warp*16, +16) of the chunk, all rows.
     // W2 product: warp owns output columns [warp*64, +64), all rows.
     constexpr int RF = BM / 16;         // row fragments
-    constexpr int kCols = kH / kWarps;  // 64
+    constexpr int kCols = kH / kWarps;  // 64 at both widths
     using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
     static_assert(kChunk / 16 == kWarps, "one h column fragment per warp");
     Acc acc[RF][kCols / 16];
@@ -375,8 +396,9 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __rest
       __syncthreads();
     }
   } else {
-    // fp32: plain FMAs.  W1 product: thread owns h column tid % 192 and rows
-    // [(tid / 192) * 8, +8); W2 product: columns tid and tid + 384, all rows.
+    // fp32: plain FMAs.  W1 product: thread owns h column tid % chunk and
+    // rows [(tid / chunk) * 8, +8); W2 product: columns tid and tid +
+    // threads, all rows.
     static_assert(BM == 16 && kThreads == 2 * kChunk && kH == 2 * kThreads,
                   "fp32 thread mapping");
     const int tid = threadIdx.x;
@@ -406,22 +428,34 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __rest
   }
 }
 
-template <typename T, bool kLN>
-int launch_fwd(const void* x, const void* a, const void* w1, const float* b1, const void* w2,
-               const float* b2, const LnArgs& ln, void* out, int M, int I, int act,
-               cudaStream_t stream) {
-  using L = typename FwdTiling<T>::L;
-  if (M <= 0 || I <= 0 || I % kChunk != 0 || (act != 0 && act != 1))
+template <typename T, bool kLN, int H>
+int launch_fwd_width(const void* x, const void* a, const void* w1, const float* b1,
+                     const void* w2, const float* b2, const LnArgs& ln, void* out, int M, int I,
+                     int act, cudaStream_t stream) {
+  using L = typename FwdTiling<T, H>::L;
+  if (M <= 0 || I <= 0 || I % L::kChunk != 0 || (act != 0 && act != 1))
     return int(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(ffn_fwd_kernel<T, kLN>,
+  cudaError_t e = cudaFuncSetAttribute(ffn_fwd_kernel<T, kLN, H>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(L::smem_bytes));
   if (e != cudaSuccess) return int(e);
   const dim3 grid((M + L::BM - 1) / L::BM);
-  ffn_fwd_kernel<T, kLN><<<grid, kThreads, L::smem_bytes, stream>>>(
+  ffn_fwd_kernel<T, kLN, H><<<grid, L::kThreads, L::smem_bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(a), static_cast<const T*>(w1), b1,
       static_cast<const T*>(w2), b2, ln, static_cast<T*>(out), M, I, act);
   return int(cudaGetLastError());
+}
+
+// the forward kernel at hidden width H (768 or 1024)
+template <typename T, bool kLN>
+int launch_fwd(const void* x, const void* a, const void* w1, const float* b1, const void* w2,
+               const float* b2, const LnArgs& ln, void* out, int M, int H, int I, int act,
+               cudaStream_t stream) {
+  if (H == 768)
+    return launch_fwd_width<T, kLN, 768>(x, a, w1, b1, w2, b2, ln, out, M, I, act, stream);
+  if (H == 1024)
+    return launch_fwd_width<T, kLN, 1024>(x, a, w1, b1, w2, b2, ln, out, M, I, act, stream);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace ffn

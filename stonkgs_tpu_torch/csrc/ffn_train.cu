@@ -2,15 +2,17 @@
 //   forward   y = gelu(x @ W1 + b1) @ W2 + b2
 //   backward  h = x @ W1 + b1 (recomputed), a = gelu(h),
 //             dh = (g @ W2^T) * gelu'(h) rounded to T, dx = dh @ W1^T
-// with x, g, y, dx (M, 768), W1 (768, I), W2 (I, 768), dh and a (M, I).
+// with x, g, y, dx (M, H), W1 (H, I), W2 (I, H), dh and a (M, I); the
+// forward takes H = 768 and 1024 (ProtBERT), the backward H = 768 (only
+// the 768-wide trunk trains).
 //
 // Replaces the TPU kernels _ffn_kernel and _ffn_bwd_kernel
 // (stonkgs_tpu/ops/fused_ffn.py:54 and :206).  Both are bound on the H100
-// by operations (4*M*768*I forward, 6*M*768*I backward); see
+// by operations (4*M*H*I forward, 6*M*768*I backward); see
 // stonkgs_tpu_torch/ops/fused_ffn.py for the design note.
 //
-// Forward: ffn_fwd_kernel<T, false> of ffn.cuh, the serving block's kernel
-// without its two LayerNorms.
+// Forward: ffn_fwd_kernel<T, false, H> of ffn.cuh, the serving block's
+// kernel without its two LayerNorms.
 //
 // Backward: one block owns BM rows (32 for bf16, 16 for fp32) of x and g,
 // both kept in shared memory, and walks I in chunks of 192.  For each
@@ -29,13 +31,13 @@
 //
 // C interface (all pointers on the device; b1, b2 fp32):
 //   int ffn_train_fwd(int dtype /*0 fp32, 1 bf16*/, x, w1, b1, w2, b2, out,
-//                     int M, int I, int act /*0 gelu(erf), 1 gelu_new*/,
-//                     cudaStream_t stream)
+//                     int M, int H /*768 or 1024*/, int I,
+//                     int act /*0 gelu(erf), 1 gelu_new*/, cudaStream_t stream)
 //   int ffn_train_bwd(int dtype, x, g, w1 (768, I), b1, w2t (768, I),
 //                     w1t (I, 768), dx, dh (M, I), a (M, I), int M, int I,
 //                     int act, cudaStream_t stream)
-// with I a multiple of 192; each returns cudaGetLastError() after its
-// launch.
+// with I a multiple of the width's chunk (192 at 768, 256 at 1024); each
+// returns cudaGetLastError() after its launch.
 
 #include "ffn.cuh"
 
@@ -45,17 +47,19 @@ namespace {
 
 // the backward kernels: two row operands (x and g), 32 rows (bf16) or 16
 template <typename T> struct BwdTiling;
-template <> struct BwdTiling<__nv_bfloat16> { using L = Layout<__nv_bfloat16, 32, 3, 2>; };
-template <> struct BwdTiling<float> { using L = Layout<float, 16, 2, 2>; };
+template <> struct BwdTiling<__nv_bfloat16> { using L = Layout<__nv_bfloat16, 768, 32, 3, 2>; };
+template <> struct BwdTiling<float> { using L = Layout<float, 768, 16, 2, 2>; };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Width<768>::kThreads, 1)
 ffn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy, const T* __restrict__ w1,
                const float* __restrict__ b1, const T* __restrict__ w2t,
                const T* __restrict__ w1t, T* __restrict__ dx, T* __restrict__ dh_out,
                T* __restrict__ a_out, int M, int I, int act) {
   using L = typename BwdTiling<T>::L;
   constexpr int BM = L::BM, STAGES = L::STAGES;
+  constexpr int kH = L::kH, kChunk = L::kChunk, kThreads = L::kThreads, kWarps = L::kWarps;
+  constexpr int kTiles1 = L::kTiles1, kTiles2 = L::kTiles2;
   extern __shared__ __align__(128) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
   T* gs = reinterpret_cast<T*>(smem + L::xs_bytes);
@@ -214,14 +218,14 @@ int launch_bwd(const void* x, const void* g, const void* w1, const float* b1, co
                const void* w1t, void* dx, void* dh, void* a, int M, int I, int act,
                cudaStream_t stream) {
   using L = typename BwdTiling<T>::L;
-  if (M <= 0 || I <= 0 || I % kChunk != 0 || (act != 0 && act != 1))
+  if (M <= 0 || I <= 0 || I % L::kChunk != 0 || (act != 0 && act != 1))
     return int(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(ffn_bwd_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(L::smem_bytes));
   if (e != cudaSuccess) return int(e);
   const dim3 grid((M + L::BM - 1) / L::BM);
-  ffn_bwd_kernel<T><<<grid, kThreads, L::smem_bytes, stream>>>(
+  ffn_bwd_kernel<T><<<grid, L::kThreads, L::smem_bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(w1), b1,
       static_cast<const T*>(w2t), static_cast<const T*>(w1t), static_cast<T*>(dx),
       static_cast<T*>(dh), static_cast<T*>(a), M, I, act);
@@ -233,16 +237,16 @@ int launch_bwd(const void* x, const void* g, const void* w1, const float* b1, co
 }  // namespace stonkgs
 
 extern "C" int ffn_train_fwd(int dtype, const void* x, const void* w1, const float* b1,
-                             const void* w2, const float* b2, void* out, int M, int I, int act,
-                             void* stream) {
+                             const void* w2, const float* b2, void* out, int M, int H, int I,
+                             int act, void* stream) {
   using namespace stonkgs::ffn;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const LnArgs no_ln{};
   if (dtype == 0)
-    return launch_fwd<float, false>(x, nullptr, w1, b1, w2, b2, no_ln, out, M, I, act, s);
+    return launch_fwd<float, false>(x, nullptr, w1, b1, w2, b2, no_ln, out, M, H, I, act, s);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, false>(x, nullptr, w1, b1, w2, b2, no_ln, out, M, I, act,
-                                            s);
+    return launch_fwd<__nv_bfloat16, false>(x, nullptr, w1, b1, w2, b2, no_ln, out, M, H, I,
+                                            act, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -11,8 +11,8 @@ purpose:
 * in training the frozen backbone runs WITH dropout, under
   ``torch.no_grad()``: the JAX package's ``stop_gradient`` after a
   training-mode backbone (``stonkgs.py:218-229``);
-* the KG table's special rows 100/102/103 hold the LM backbone's output
-  for the length-1 sequence of each special token id;
+* the KG table's special rows (100/102/103 by default) hold the LM
+  backbone's output for the length-1 sequence of each special token id;
 * the ELM decoder biases exist but are never applied;
 * the TransE layout (256 + 4) is the same code with another config.
 """
@@ -70,7 +70,8 @@ def init_stonkgs_params(
     return params
 
 
-SPECIAL_IDS = (102, 103, 100)  # sep, mask, unk: the KG table's LM-derived rows
+# sep, mask, unk of the BERT tokenizer: STonKGs' LM-derived KG table rows
+SPECIAL_IDS = (102, 103, 100)
 
 
 def kg_row_permutation(n_entities: int, special_ids=SPECIAL_IDS) -> np.ndarray:
@@ -88,26 +89,28 @@ def build_kg_table(
     kg_vectors: np.ndarray,       # (N, H) node2vec vectors in key order
     *,
     compute_dtype: torch.dtype = torch.float32,
+    special_ids=SPECIAL_IDS,
 ) -> torch.Tensor:
     """Build the (N+3, H) fp32 KG backbone table on the LM params' device.
 
-    Special rows hold the LM backbone's hidden state for the length-1
+    Special rows, at ``special_ids`` (STonKGs' BERT sep/mask/unk by
+    default), hold the LM backbone's hidden state for the length-1
     sequence ``[special_id]``."""
     n, h = kg_vectors.shape
     if h != bert_cfg.hidden_size:
         raise ValueError(f"KG embedding dim {h} != model hidden size "
                          f"{bert_cfg.hidden_size}")
-    if max(SPECIAL_IDS) >= bert_cfg.vocab_size:
-        raise ValueError(f"special token ids {SPECIAL_IDS} exceed LM vocab "
+    if max(special_ids) >= bert_cfg.vocab_size:
+        raise ValueError(f"special token ids {tuple(special_ids)} exceed LM vocab "
                          f"{bert_cfg.vocab_size}")
     device = lm_params["embeddings"]["word_embeddings"].device
-    table = np.zeros((n + 3, h), np.float32)
-    table[kg_row_permutation(n)] = np.asarray(kg_vectors, np.float32)
-    ids = torch.tensor([[s] for s in SPECIAL_IDS], device=device)  # (3, 1)
+    table = np.zeros((n + len(special_ids), h), np.float32)
+    table[kg_row_permutation(n, special_ids)] = np.asarray(kg_vectors, np.float32)
+    ids = torch.tensor([[s] for s in special_ids], device=device)  # (3, 1)
     seq, _ = bert.bert_model(lm_params, bert_cfg, input_ids=ids,
                              compute_dtype=compute_dtype, with_pooler=False)
     table = torch.from_numpy(table).to(device)
-    table[list(SPECIAL_IDS)] = seq[:, 0, :].float()
+    table[list(special_ids)] = seq[:, 0, :].float()
     return table
 
 

@@ -144,5 +144,6 @@ def stream(device) -> ctypes.c_void_p:
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
+I64 = ctypes.c_int64
 U32 = ctypes.c_uint32
 F32 = ctypes.c_float

@@ -1,0 +1,531 @@
+"""BigBird block-sparse attention (HF ``BigBirdBlockSparseAttention``).
+
+The port of the JAX package's ``stonkgs_tpu/ops/bigbird_sparse.py`` (the
+random-block plan and the semantics) and ``ops/bigbird_sparse_pallas.py``
+(the kernels), in one module.  Per query block: the 2 global blocks
+(first and last), a 3-block sliding window and ``r`` random key blocks;
+the first and last query blocks attend the whole sequence; masked keys
+take the penalty -10000 (not BERT's -1e9); the context is multiplied by
+the query mask.
+
+The random plan
+===============
+
+HF reseeds ``np.random.seed(layer)`` on every forward, so the plan is a
+host-side constant per (layer, mode), and all zeros in eval mode.
+:func:`build_rand_attn` replays HF's call sequence with a local
+``np.random.RandomState(layer)``: the same stream as the global seed,
+without touching the global state.
+
+Kernels: the middle query blocks
+================================
+
+``csrc/bigbird_sparse.cu`` (CUDA C++ for ``sm_90a``), two entry points.
+They replace ``_mid_blocks_kernel`` (``stonkgs_tpu/ops/
+bigbird_sparse_pallas.py:83``, launched at ``:227``, with ``_gather_kv``
+at ``:51`` and ``_mid_logits`` at ``:70``) and ``_mid_blocks_bwd_kernel``
+(``:113``, launched at ``:272``).
+
+What bounds them on the H100, at the trunk's shape (S=4096, H=12, D=64,
+bs=64, r=3, so W = (5+r)·bs = 512 keys per middle query block), counting
+each input byte once and each output byte once:
+
+* forward, B=8 bf16: 4·B·H·(nb-2)·bs·W·D = 49.9 GFLOP against q, k, v and
+  out (4 × 50.3 MB) plus the mask and the fp32 lse: 0.050 ms of products
+  at 989 TFLOP/s against 0.061 ms of bytes at 3.35 TB/s: bound by bytes;
+* backward, B=2: 10·B·H·(nb-2)·bs·W·D (the logits recomputed, dP, dQ, dK,
+  dV) = 31.2 GFLOP against q, k, v, o, dO read and dq, dk, dv written
+  (8 × 12.6 MB) plus lse: 0.032 ms of products, 0.030 ms of bytes: bound
+  by operations.
+
+Design.  The TPU kernel keeps a whole (S, D) key and value slice in VMEM
+per (batch, head) and assembles the 8 key blocks of a middle query block
+by VMEM-to-VMEM slices.  On Hopper a block takes one (middle query block
+j, head, batch) and streams the 8 key blocks of its slots [g0 | window
+i-1, i, i+1 | g_last | random r] from device memory through shared memory
+one 64-key tile at a time, straight from the (B, S, H, D) layout with
+strides.  The forward makes two passes over the tiles (row max and sum of
+exp, then normalised probabilities, rounded, times V), because the TPU
+kernel normalises before it rounds, as the port's dense attention kernels
+do.  The (B, S) mask is read in the kernel, and the duplicate window slot
+at query blocks 1 and nb-2 (where the window holds a global block) takes
+the penalty there: the TPU kernel's gathered mask outside the kernel was
+a Mosaic workaround.  The eval plan is all zeros: its random slots repeat
+block 0, each as a key of its own in the softmax, as the TPU kernel and
+HF count them.
+
+The TPU backward carries dK and dV in VMEM across the sequential j axis.
+Hopper blocks run in no order, so each block adds its slots' dK and dV
+rows into fp32 (B, S, H, D) accumulators with ``atomicAdd``; every key
+row takes at most 3 window adds, its random adds and, for the global
+blocks, one add from each of the nb-2 query blocks of its (batch, head),
+spread over the kernel's run.  The wrapper casts the accumulators to the
+input dtype.  dQ of a middle block is the block's own and is written
+once.
+
+Rounding, as ``_mid_logits`` and the two TPU kernels: Q·Kᵀ accumulated in
+fp32 from products of the input dtype, rounded to it, times 1/√D (rounded
+again: exact at D=64), plus the fp32 penalty; softmax in fp32;
+probabilities normalised, then rounded; P·V in fp32, the output rounded;
+the lse in fp32.  Backward: p = exp(logits - lse); dP = dO·Vᵀ; row =
+Σ dO⊙O; dS = p(dP - row)/√D in fp32; dq = dS·K rounded; dK = dSᵀ·q; dV =
+round(p)ᵀ·dO, all in fp32.  The bf16 kernel feeds dS to the tensor cores
+as the sum of two bf16 terms (hi = round(dS), lo = round(dS - hi)), which
+carries 16 of its 24 significant bits; the fp32 instantiation multiplies
+in plain fp32.
+
+The first and last query blocks are dense rows in plain PyTorch under
+autograd, as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from stonkgs_tpu_torch.ops import _build
+
+ATTN_PENALTY = -10000.0
+KERNEL_BLOCK = 64       # the kernels' block size
+KERNEL_HEAD_DIM = 64    # and head width
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _L, _F = _build.P, _build.I32, _build.I64, _build.F32
+_SIGNATURES = {
+    # int bigbird_mid_fwd(dtype, q, k, v, mask, rand, out, lse, B, S, H, r,
+    #                     sb, ss, sh, scale, stream)
+    "bigbird_mid_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_L] * 3 + [_F, _P],
+    # int bigbird_mid_bwd(dtype, q, k, v, mask, rand, out, lse, dout, dq, dk,
+    #                     dv, B, S, H, r, sb, ss, sh, scale, stream)
+    "bigbird_mid_bwd": [_I] + [_P] * 11 + [_I] * 4 + [_L] * 3 + [_F, _P],
+}
+
+
+# ---------------------------------------------------------------------------
+# the random-block plan (HF's np.random stream, replayed)
+# ---------------------------------------------------------------------------
+
+def _rand_mask_fixed_plan(max_seqlen: int, block_size: int, n_rand: int, last_idx: int,
+                          rs: np.random.RandomState) -> np.ndarray:
+    """HF ``_bigbird_block_rand_mask`` (training path), one head."""
+    nb = max_seqlen // block_size
+    out = np.zeros((nb - 2, n_rand), np.int32)
+    middle = np.arange(1, nb - 1, dtype=np.int32)
+    last = nb - 1
+    if last_idx > (2 * block_size):
+        last = (last_idx // block_size) - 1
+    for i in range(1, nb - 1):
+        start, end = i - 2, i
+        if i == 1:
+            out[i - 1] = rs.permutation(middle[2:last])[:n_rand]
+        elif i == 2:
+            out[i - 1] = rs.permutation(middle[3:last])[:n_rand]
+        elif i in (nb - 3, nb - 2):
+            out[i - 1] = rs.permutation(middle[:last])[:n_rand]
+        elif start > last:
+            out[i - 1] = rs.permutation(middle[:last])[:n_rand]
+        elif (end + 1) == last:
+            out[i - 1] = rs.permutation(middle[:start])[:n_rand]
+        else:
+            out[i - 1] = rs.permutation(
+                np.concatenate((middle[:start], middle[end + 1: last])))[:n_rand]
+    return out
+
+
+def _single_row_rand(block_id: int, to_start: int, to_end: int, n_rand: int,
+                     rs: np.random.RandomState) -> np.ndarray:
+    """HF ``_get_single_block_row_attention`` with window and global 1."""
+    perm = rs.permutation(np.arange(to_start, to_end, dtype=np.int32))
+    illegal = set(range(block_id - 1, block_id + 2))
+    illegal.add(0)
+    illegal.add(to_end - 1)
+    if block_id == 1:
+        illegal.add(to_end - 2)
+    if block_id == to_end - 2:
+        illegal.add(1)
+    picked = []
+    for v in perm:
+        if int(v) not in illegal:
+            picked.append(int(v))
+        if len(picked) == n_rand:
+            break
+    return np.asarray(picked, np.int32)
+
+
+def _rand_mask_with_plan(seq_len: int, block_size: int, n_rand: int, num_heads: int,
+                         rs: np.random.RandomState) -> list:
+    """HF ``_bigbird_block_rand_mask_with_head`` for the single- or
+    two-phase plan of ``_get_rand_attn_plan``."""
+    nb = seq_len // block_size
+    if (2 * n_rand + 5) < nb:
+        plan_len = [(2 * n_rand + 5) * block_size, seq_len]
+        plan_cnt = [n_rand, 0]
+    elif (n_rand + 5) < nb:
+        plan_len = [(n_rand + 5) * block_size, seq_len]
+        plan_cnt = [n_rand // 2, n_rand - n_rand // 2]
+    else:
+        plan_len = [seq_len]
+        plan_cnt = [n_rand]
+    plan_blocks = np.array(plan_len) // block_size
+    max_plan_idx = plan_len.index(seq_len)
+
+    rand_attn = [np.zeros((nb, int(np.sum(plan_cnt[: max_plan_idx + 1]))), np.int32)
+                 for _ in range(num_heads)]
+    for plan_idx in range(max_plan_idx + 1):
+        rnd_r_cnt = 0
+        if plan_idx > 0:
+            if plan_cnt[plan_idx] > 0:
+                rnd_r_cnt = int(np.sum(plan_cnt[:plan_idx]))
+                curr = int(np.sum(plan_cnt[: plan_idx + 1]))
+                for row in range(1, plan_blocks[plan_idx - 1]):
+                    for h in range(num_heads):
+                        rand_attn[h][row, rnd_r_cnt:curr] = _single_row_rand(
+                            row, plan_blocks[plan_idx - 1], plan_blocks[plan_idx],
+                            plan_cnt[plan_idx], rs)
+            for pl_id in range(plan_idx):
+                if plan_cnt[pl_id] == 0:
+                    continue
+                for row in range(plan_blocks[plan_idx - 1], plan_blocks[plan_idx]):
+                    r0, start = 0, 0
+                    if pl_id > 0:
+                        r0 = int(np.sum(plan_cnt[:pl_id]))
+                        start = plan_blocks[pl_id - 1]
+                    curr = int(np.sum(plan_cnt[: pl_id + 1]))
+                    for h in range(num_heads):
+                        rand_attn[h][row, r0:curr] = _single_row_rand(
+                            row, start, plan_blocks[pl_id], plan_cnt[pl_id], rs)
+        if plan_cnt[plan_idx] == 0:
+            continue
+        curr = int(np.sum(plan_cnt[: plan_idx + 1]))
+        from_start, to_start = 1, 0
+        if plan_idx > 0:
+            rnd_r_cnt = int(np.sum(plan_cnt[:plan_idx]))
+            from_start = plan_blocks[plan_idx - 1]
+            to_start = plan_blocks[plan_idx - 1]
+        for row in range(from_start, plan_blocks[plan_idx]):
+            for h in range(num_heads):
+                rand_attn[h][row, rnd_r_cnt:curr] = _single_row_rand(
+                    row, to_start, plan_blocks[plan_idx], plan_cnt[plan_idx], rs)
+    return [ra[1: nb - 1, :] for ra in rand_attn]
+
+
+def build_rand_attn(seq_len: int, block_size: int, num_random_blocks: int,
+                    num_heads: int, num_layers: int, max_seqlen: int,
+                    training: bool) -> np.ndarray:
+    """(L, H, nb-2, r) int32 random-block plan: layer ``i`` draws from
+    ``RandomState(i)`` (HF seeds ``np.random.seed(i)``); all zeros in eval
+    mode."""
+    nb = seq_len // block_size
+    r = num_random_blocks
+    out = np.zeros((num_layers, num_heads, nb - 2, r), np.int32)
+    if not training:
+        return out
+    for layer in range(num_layers):
+        rs = np.random.RandomState(layer)
+        if seq_len in (1024, 3072, 4096):
+            per_head = [_rand_mask_fixed_plan(max_seqlen, block_size, r, 1024, rs)[: nb - 2]
+                        for _ in range(num_heads)]
+        else:
+            per_head = _rand_mask_with_plan(seq_len, block_size, r, num_heads, rs)
+        out[layer] = np.stack(per_head, axis=0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the middle query blocks: plain versions
+# ---------------------------------------------------------------------------
+
+def _slot_blocks(nb: int, rand_attn: torch.Tensor) -> torch.Tensor:
+    """(H, nb-2, 5+r) key block of every slot [g0 | i-1, i, i+1 | g_last |
+    random] of middle query block i = j+1."""
+    H, n_mid, _ = rand_attn.shape
+    j = torch.arange(n_mid, device=rand_attn.device)
+    fixed = torch.stack([torch.zeros_like(j), j, j + 1, j + 2, torch.full_like(j, nb - 1)], -1)
+    return torch.cat([fixed.expand(H, n_mid, 5), rand_attn.long()], -1)
+
+
+def _blocked(t: torch.Tensor, bs: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, H, nb, bs, D)."""
+    B, S, H, D = t.shape
+    return t.reshape(B, S // bs, bs, H, D).permute(0, 3, 1, 2, 4)
+
+
+def _mid_operands(q, k, v, mask, rand_attn, bs):
+    """The plain versions' gathers: mid query blocks (B, H, n, bs, D),
+    slot keys and values (B, H, n, W, D), slot penalties (B, H, n, 1, W)
+    and the slot block ids."""
+    B, S, H, D = q.shape
+    nb = S // bs
+    idx = _slot_blocks(nb, rand_attn)                    # (H, n, 5+r)
+    n_mid, slots = idx.shape[1], idx.shape[2]
+    hix = torch.arange(H, device=q.device)[:, None, None]
+    qm = _blocked(q, bs)[:, :, 1:-1]
+    kc = _blocked(k, bs)[:, hix, idx].reshape(B, H, n_mid, slots * bs, D)
+    vc = _blocked(v, bs)[:, hix, idx].reshape(B, H, n_mid, slots * bs, D)
+    gm = mask.float().reshape(B, nb, bs)[:, idx].clone()  # (B, H, n, 5+r, bs)
+    gm[:, :, 0, 1] = 0.0           # query block 1: window block 0 is g0
+    gm[:, :, n_mid - 1, 3] = 0.0   # query block nb-2: window block nb-1 is g_last
+    pen = ((1.0 - gm) * ATTN_PENALTY).reshape(B, H, n_mid, 1, slots * bs)
+    return qm, kc, vc, pen, idx
+
+
+def _mid_logits(qm, kc, pen, dt):
+    """Masked fp32 logits as ``_mid_logits``: the product rounded to the
+    compute dtype, times 1/√D in it, plus the fp32 penalty."""
+    f = torch.float32
+    s = torch.einsum("bhjqd,bhjkd->bhjqk", qm.to(f), kc.to(f)).to(dt)
+    return (s * (1.0 / math.sqrt(qm.shape[-1]))).to(f) + pen
+
+
+def bigbird_mid_fwd_plain(q, k, v, mask, rand_attn, block_size):
+    """Plain PyTorch version of the forward kernel.
+
+    q, k, v (B, S, H, D); mask (B, S); rand_attn (H, nb-2, r).  Returns
+    (ctx (B, (nb-2)·bs, H, D) in q's dtype, lse (B, H, (nb-2)·bs) fp32)."""
+    B, S, H, D = q.shape
+    f = torch.float32
+    qm, kc, vc, pen, _ = _mid_operands(q, k, v, mask, rand_attn, block_size)
+    logits = _mid_logits(qm, kc, pen, q.dtype)
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(denom))[..., 0]
+    w = (e / denom).to(q.dtype)
+    ctx = torch.einsum("bhjqk,bhjkd->bhjqd", w.to(f), vc.to(f)).to(q.dtype)
+    n = qm.shape[2] * block_size
+    return (ctx.permute(0, 2, 3, 1, 4).reshape(B, n, H, D).contiguous(),
+            lse.reshape(B, H, n).contiguous())
+
+
+def bigbird_mid_bwd_plain(q, k, v, mask, rand_attn, block_size, out, lse, dout):
+    """Plain PyTorch version of the backward kernel.
+
+    ``out`` and ``dout`` are (B, (nb-2)·bs, H, D), ``lse`` (B, H,
+    (nb-2)·bs).  Returns (dq, dk, dv), each (B, S, H, D) in q's dtype; dq
+    is zero on the first and last query blocks (their gradient comes from
+    the dense rows)."""
+    B, S, H, D = q.shape
+    bs = block_size
+    nb = S // bs
+    f = torch.float32
+    scale = 1.0 / math.sqrt(D)
+    qm, kc, vc, pen, idx = _mid_operands(q, k, v, mask, rand_attn, bs)
+    n_mid, slots = idx.shape[1], idx.shape[2]
+    blocked = lambda t: _blocked(t.to(q.dtype), bs).to(f)  # noqa: E731
+    do, o = blocked(dout), blocked(out)                     # (B, H, n, bs, D)
+    p = torch.exp(_mid_logits(qm, kc, pen, q.dtype) - lse.reshape(B, H, n_mid, bs, 1))
+    dp = torch.einsum("bhjqd,bhjkd->bhjqk", do, vc.to(f))
+    row = (do * o).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - row)) * scale
+    dq_mid = torch.einsum("bhjqk,bhjkd->bhjqd", ds, kc.to(f)).to(q.dtype)
+    dkc = torch.einsum("bhjqk,bhjqd->bhjkd", ds, qm.to(f))
+    dvc = torch.einsum("bhjqk,bhjqd->bhjkd", p.to(q.dtype).to(f), do)
+
+    def scatter(c):
+        acc = torch.zeros(B, H, nb, bs, D, dtype=f, device=q.device)
+        bix = torch.arange(B, device=q.device)[:, None, None, None]
+        hix = torch.arange(H, device=q.device)[None, :, None, None]
+        acc.index_put_((bix, hix, idx[None]), c.reshape(B, H, n_mid, slots, bs, D),
+                       accumulate=True)
+        return acc.permute(0, 2, 3, 1, 4).reshape(B, S, H, D)
+
+    dq = torch.zeros(B, S, H, D, dtype=q.dtype, device=q.device)
+    dq[:, bs:S - bs] = dq_mid.permute(0, 2, 3, 1, 4).reshape(B, n_mid * bs, H, D)
+    return dq, scatter(dkc).to(k.dtype), scatter(dvc).to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the middle query blocks: kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _geometry(q, k, v, mask, rand_attn, block_size) -> Tuple[int, int, int, int, int]:
+    """(B, S, H, nb, r), checked against every argument."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, S, H, D), got {tuple(q.shape)}")
+    B, S, H, D = q.shape
+    for t in (k, v):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError("q, k and v must share shape and dtype")
+    if S % block_size:
+        raise ValueError(f"S={S} is not a multiple of the block size {block_size}")
+    nb = S // block_size
+    if nb < 5:
+        raise ValueError(f"block-sparse attention needs at least 5 blocks, got {nb}")
+    if tuple(mask.shape) != (B, S):
+        raise ValueError(f"mask must be (B, S) = {(B, S)}, got {tuple(mask.shape)}")
+    if rand_attn.dim() != 3 or tuple(rand_attn.shape[:2]) != (H, nb - 2):
+        raise ValueError(f"rand_attn must be (H, nb-2, r) = ({H}, {nb - 2}, r), "
+                         f"got {tuple(rand_attn.shape)}")
+    return B, S, H, nb, int(rand_attn.shape[2])
+
+
+def _check_cuda(what: str, q, tensors, block_size: int) -> None:
+    """Raise unless the CUDA kernels take these arguments: fp32 or bf16 q
+    of head width 64, block size 64, every tensor on q's card."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{what}: unsupported dtype {q.dtype}")
+    if q.shape[-1] != KERNEL_HEAD_DIM or block_size != KERNEL_BLOCK:
+        raise ValueError(f"{what} kernel takes D={KERNEL_HEAD_DIM} and block size "
+                         f"{KERNEL_BLOCK}, got D={q.shape[-1]}, block size {block_size}")
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{what}: tensors on different devices")
+
+
+def _strided_qkv(q, k, v):
+    """q, k, v sharing one (B, S, H, D) stride set with a unit last stride
+    and 16-byte rows (copies only where they do not); returns them and
+    the strides (sb, ss, sh) in elements."""
+    def ok(t):
+        return t.stride(3) == 1 and all(s % (16 // t.element_size()) == 0
+                                        for s in t.stride()[:3])
+    if not (ok(q) and k.stride() == q.stride() and v.stride() == q.stride()):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q, k, v, q.stride()[:3]
+
+
+def bigbird_mid_fwd(q, k, v, mask, rand_attn, block_size):
+    """Middle query blocks of block-sparse attention: (ctx, lse), as
+    :func:`bigbird_mid_fwd_plain`.  q, k, v (B, S, H, D) may be strided
+    views (the last axis contiguous).
+
+    A tensor on the CPU takes the plain version; a CUDA tensor launches
+    the kernel (or raises)."""
+    B, S, H, nb, r = _geometry(q, k, v, mask, rand_attn, block_size)
+    if q.device.type == "cpu":
+        return bigbird_mid_fwd_plain(q, k, v, mask, rand_attn, block_size)
+    _check_cuda("bigbird_mid_fwd", q, (k, v, mask, rand_attn), block_size)
+    q, k, v, (sb, ss, sh) = _strided_qkv(q, k, v)
+    maskf = mask.float().contiguous()
+    rand = rand_attn.to(torch.int32).contiguous()
+    n = (nb - 2) * block_size
+    out = torch.empty((B, n, H, q.shape[3]), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, n), dtype=torch.float32, device=q.device)
+    _build.check_aligned("bigbird_mid_fwd", q, k, v, out)
+    if B == 0 or H == 0:
+        return out, lse
+    lib = _build.load("bigbird_sparse", _SIGNATURES)
+    status = lib.bigbird_mid_fwd(
+        _DTYPES[q.dtype], *(_build.ptr(t) for t in (q, k, v, maskf, rand, out, lse)),
+        B, S, H, r, sb, ss, sh, 1.0 / math.sqrt(q.shape[3]), _build.stream(q.device))
+    _build.check(status, "bigbird_mid_fwd")
+    bigbird_mid_fwd.launches += 1
+    return out, lse
+
+
+bigbird_mid_fwd.launches = 0
+
+
+def bigbird_mid_bwd(q, k, v, mask, rand_attn, block_size, out, lse, dout):
+    """Gradients of the middle query blocks: (dq, dk, dv), as
+    :func:`bigbird_mid_bwd_plain`; ``dout`` in q's dtype.
+
+    A tensor on the CPU takes the plain version; a CUDA tensor launches
+    the kernel (or raises)."""
+    B, S, H, nb, r = _geometry(q, k, v, mask, rand_attn, block_size)
+    if q.device.type == "cpu":
+        return bigbird_mid_bwd_plain(q, k, v, mask, rand_attn, block_size, out, lse, dout)
+    _check_cuda("bigbird_mid_bwd", q, (k, v, mask, rand_attn, out, lse, dout), block_size)
+    n = (nb - 2) * block_size
+    D = q.shape[3]
+    if (tuple(out.shape) != (B, n, H, D) or dout.shape != out.shape
+            or out.dtype != q.dtype or dout.dtype != q.dtype):
+        raise ValueError(f"out and dout must be ({B}, {n}, {H}, {D}) in {q.dtype}")
+    if tuple(lse.shape) != (B, H, n) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 ({B}, {H}, {n})")
+    q, k, v, (sb, ss, sh) = _strided_qkv(q, k, v)
+    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    maskf = mask.float().contiguous()
+    rand = rand_attn.to(torch.int32).contiguous()
+    dq = torch.zeros((B, S, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.zeros((B, S, H, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    _build.check_aligned("bigbird_mid_bwd", q, k, v, out, dout, dq, dk, dv)
+    if B == 0 or H == 0:
+        return dq, dk.to(q.dtype), dv.to(q.dtype)
+    lib = _build.load("bigbird_sparse", _SIGNATURES)
+    status = lib.bigbird_mid_bwd(
+        _DTYPES[q.dtype],
+        *(_build.ptr(t) for t in (q, k, v, maskf, rand, out, lse, dout, dq, dk, dv)),
+        B, S, H, r, sb, ss, sh, 1.0 / math.sqrt(D), _build.stream(q.device))
+    _build.check(status, "bigbird_mid_bwd")
+    bigbird_mid_bwd.launches += 1
+    return dq, dk.to(q.dtype), dv.to(q.dtype)
+
+
+bigbird_mid_bwd.launches = 0
+
+
+class _MidBlocks(torch.autograd.Function):
+    """The kernel pair as one autograd function; it saves what the JAX
+    custom VJP saves: q, k, v, the mask, the plan, the output and lse.
+    No gradient reaches the mask or the plan."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, rand_attn, block_size):
+        out, lse = bigbird_mid_fwd(q, k, v, mask, rand_attn, block_size)
+        ctx.save_for_backward(q, k, v, mask, rand_attn, out, lse)
+        ctx.block_size = block_size
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, rand_attn, out, lse = ctx.saved_tensors
+        dq, dk, dv = bigbird_mid_bwd(q, k, v, mask, rand_attn, ctx.block_size, out, lse,
+                                     g.to(q.dtype).contiguous())
+        return dq, dk, dv, None, None, None
+
+
+def plan_to_device(rand_attn, nb: int, device) -> torch.Tensor:
+    """A random-block plan (numpy or tensor, any leading axes) as int32 on
+    ``device``.  A numpy plan must hold block ids in [0, nb); it goes to a
+    card from pinned memory without blocking the host, so a forward keeps
+    its launches queued."""
+    if torch.is_tensor(rand_attn):
+        return rand_attn.to(device=device, dtype=torch.int32)
+    plan = np.array(rand_attn, np.int32)
+    if plan.size and (plan.min() < 0 or plan.max() >= nb):
+        raise ValueError(f"rand_attn block ids must lie in [0, {nb})")
+    t = torch.from_numpy(plan)
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def block_sparse_attention(
+    q: torch.Tensor,            # (B, H, S, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rand_attn,                  # (H, nb-2, r) int plan, numpy or tensor
+    attention_mask: torch.Tensor,  # (B, S) 0/1
+    block_size: int,
+) -> torch.Tensor:
+    """(B, H, S, D) context with HF's block-sparse semantics, structured as
+    the JAX package's ``block_sparse_attention_pallas``: the middle query
+    blocks through the kernel pair, the first and last query blocks as
+    dense rows in plain PyTorch, the context times the query mask.
+
+    Differentiable in q, k and v; the (B, H, S, D) arguments may be views
+    of (B, S, H, D) tensors, which the kernels read with their strides."""
+    B, H, S, D = q.shape
+    bs = block_size
+    rand = plan_to_device(rand_attn, S // bs, q.device)
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))   # (B, S, H, D) views
+    mask = attention_mask.to(device=q.device, dtype=torch.float32)
+    ctx_mid = _MidBlocks.apply(qs, ks, vs, mask, rand, bs)
+
+    penalty = ((1.0 - mask) * ATTN_PENALTY)[:, None, None, :]   # (B, 1, 1, S)
+    scale = 1.0 / math.sqrt(D)
+
+    def dense_block(qb):   # (B, bs, H, D) -> (B, bs, H, D)
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, ks) * scale
+        w = torch.softmax(s.float() + penalty, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", w, vs)
+
+    ctx = torch.cat([dense_block(qs[:, :bs]), ctx_mid, dense_block(qs[:, S - bs:])], dim=1)
+    ctx = ctx * mask[:, :, None, None].to(ctx.dtype)
+    return ctx.transpose(1, 2)

@@ -33,6 +33,14 @@ next steps.  bf16 products run on the tensor cores (``nvcuda::wmma``,
 fp32 accumulation); the fp32 instantiation runs plain fp32 FMAs on
 16-row blocks and exists to hold the whole model against the CPU.
 
+Width 1024 (ProtBERT, 30 layers, intermediate 4096): the same kernel
+body is instantiated at H = 1024 with 16 warps (512 threads), 256-wide
+intermediate chunks and 32-row blocks (bf16; 217 KB of shared memory),
+so each warp still owns 16 columns of a chunk and 64 output columns.
+The 768 instantiation keeps its tiling.  At ProtBERT's serving shape
+(M = 8·3072 = 24,576 rows) the products are 4·M·1024·4096 = 412 GFLOP,
+bound by operations (0.42 ms at 989 TFLOP/s).
+
 Rounding points, as the TPU kernel (``fused_ffn.py:444-467``):
 x2 = LN1(x + attn) in fp32, rounded; h accumulated in fp32, + b1, gelu in
 fp32 (exact erf, or the tanh ``gelu_new``), rounded; ff = h @ W2 + b2,
@@ -58,8 +66,10 @@ byte once and each output byte once:
   another 4*M*768*3072, run outside it.
 
 Design.  The forward is the serving block's kernel without its two
-LayerNorms.  The TPU backward kernel holds a whole row block's (bm, 3072)
-fp32 chains in VMEM and emits dx, dh and a.  A Hopper block holds 32 rows
+LayerNorms, at H = 768 and 1024 (the frozen ProtBERT backbone runs it in
+a ProtSTonKGs training step).  The backward is written for 768 only:
+only the 768-wide trunks train.  The TPU backward kernel holds a whole
+row block's (bm, 3072) fp32 chains in VMEM and emits dx, dh and a.  A Hopper block holds 32 rows
 (bf16) of x and of the cotangent g in shared memory and walks the
 intermediate axis in chunks of 192: per chunk it recomputes h = x W1 + b1,
 writes a = gelu(h), forms g W2ᵀ, multiplies by gelu'(h), writes the
@@ -85,15 +95,17 @@ from stonkgs_tpu_torch.ops import _build
 
 _ACTS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HIDDEN = 768     # the CUDA tiling is written for BERT-base width
-KERNEL_CHUNK = 192      # intermediate-axis chunk; I must be a multiple
+# hidden widths the forward kernels take -> their intermediate-axis chunk
+# (I must be a multiple); the backward takes 768 only
+KERNEL_CHUNKS = {768: 192, 1024: 256}
+BWD_HIDDEN = 768
 _P, _I, _F = _build.P, _build.I32, _build.F32
 # int ffn_ln_block(dtype, x, attn_out, ln1_scale, ln1_bias, w1, b1, w2, b2,
-#                  ln2_scale, ln2_bias, out, M, I, act, eps, stream)
-_SIGNATURES = {"ffn_ln_block": [_I] + [_P] * 11 + [_I, _I, _I, _F, _P]}
+#                  ln2_scale, ln2_bias, out, M, H, I, act, eps, stream)
+_SIGNATURES = {"ffn_ln_block": [_I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P]}
 _TRAIN_SIGNATURES = {
-    # int ffn_train_fwd(dtype, x, w1, b1, w2, b2, out, M, I, act, stream)
-    "ffn_train_fwd": [_I] + [_P] * 6 + [_I, _I, _I, _P],
+    # int ffn_train_fwd(dtype, x, w1, b1, w2, b2, out, M, H, I, act, stream)
+    "ffn_train_fwd": [_I] + [_P] * 6 + [_I, _I, _I, _I, _P],
     # int ffn_train_bwd(dtype, x, g, w1, b1, w2t, w1t, dx, dh, a, M, I, act,
     #                   stream)
     "ffn_train_bwd": [_I] + [_P] * 9 + [_I, _I, _I, _P],
@@ -134,19 +146,19 @@ def _check_act(act: str) -> None:
         raise ValueError(f"unsupported activation for the fused FFN: {act}")
 
 
-def _check_cuda_ffn(what: str, x, w1, w2, *tensors) -> None:
-    """Raise unless x (..., 768) and the weights suit the kernels and
-    every tensor is contiguous on x's CUDA device."""
+def _check_cuda_ffn(what: str, x, w1, w2, *tensors, widths=tuple(KERNEL_CHUNKS)) -> None:
+    """Raise unless x (..., H) with H in ``widths`` and the weights suit
+    the kernels and every tensor is contiguous on x's CUDA device."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: unsupported dtype {x.dtype}")
     H = x.shape[-1]
     I = w1.shape[-1]
-    if H != KERNEL_HIDDEN or I % KERNEL_CHUNK:
+    if H not in widths or I % KERNEL_CHUNKS[H]:
         raise ValueError(
-            f"{what} kernel takes H={KERNEL_HIDDEN} and I a multiple of "
-            f"{KERNEL_CHUNK}, got H={H}, I={I}")
+            f"{what} kernel takes H in {widths} and I a multiple of the "
+            f"width's chunk {KERNEL_CHUNKS}, got H={H}, I={I}")
     if tuple(w1.shape) != (H, I) or tuple(w2.shape) != (I, H):
         raise ValueError(f"weight shapes {tuple(w1.shape)}, {tuple(w2.shape)}"
                          f" do not match H={H}, I={I}")
@@ -216,7 +228,7 @@ def fused_ffn_ln_block(
         _DTYPES[dt], _build.ptr(x), _build.ptr(attn_out),
         _build.ptr(g1), _build.ptr(be1), _build.ptr(w1), _build.ptr(b1f),
         _build.ptr(w2), _build.ptr(b2f), _build.ptr(g2), _build.ptr(be2),
-        _build.ptr(out), M, I, _ACTS[act], float(eps),
+        _build.ptr(out), M, H, I, _ACTS[act], float(eps),
         _build.stream(x.device))
     _build.check(status, "ffn_ln_block")
     fused_ffn_ln_block.launches += 1
@@ -276,7 +288,7 @@ def fused_ffn_fwd(x, w1, b1, w2, b2, *, act="gelu"):
     lib = _build.load("ffn_train", _TRAIN_SIGNATURES)
     status = lib.ffn_train_fwd(
         _DTYPES[dt], _build.ptr(x), _build.ptr(w1), _build.ptr(b1f), _build.ptr(w2),
-        _build.ptr(b2f), _build.ptr(out), M, I, _ACTS[act], _build.stream(x.device))
+        _build.ptr(b2f), _build.ptr(out), M, H, I, _ACTS[act], _build.stream(x.device))
     _build.check(status, "ffn_train_fwd")
     fused_ffn_fwd.launches += 1
     return out
@@ -299,7 +311,7 @@ def fused_ffn_bwd(x, g, w1, b1, w2, *, act="gelu"):
     w2t = w2.to(dt).t().contiguous()
     w1t = w1.t().contiguous()
     b1f = b1.float()
-    _check_cuda_ffn("fused_ffn_bwd", x, w1, w2, g, b1f, w2t, w1t)
+    _check_cuda_ffn("fused_ffn_bwd", x, w1, w2, g, b1f, w2t, w1t, widths=(BWD_HIDDEN,))
     if x.dim() != 2 or g.shape != x.shape or g.dtype != dt:
         raise ValueError("fused_ffn_bwd takes x and g as (M, H) in one dtype")
     M, (H, I) = x.shape[0], w1.shape

@@ -1,11 +1,12 @@
 """Pre-training engine of the port: the train step and the training loop.
 
 The port of the JAX package's ``stonkgs_tpu/train/pretraining.py`` for one
-device: ``make_train_step`` differentiates
-:func:`stonkgs_tpu_torch.models.stonkgs.pretraining_loss` with respect to
-the trainable subtree (trunk and heads; the frozen backbones run under
-``torch.no_grad()``), accumulates gradients over micro-batches in fp32,
-and applies :class:`stonkgs_tpu_torch.train.optimizer.AdamW`.  ``pretrain``
+device: ``make_train_step`` differentiates a pre-training loss (by default
+:func:`stonkgs_tpu_torch.models.stonkgs.pretraining_loss`; ProtSTonKGs
+passes :func:`stonkgs_tpu_torch.models.protstonkgs.pretraining_loss`) with
+respect to the trainable subtree (trunk, projection and heads; the frozen
+backbones run under ``torch.no_grad()``), accumulates gradients over
+micro-batches in fp32, and applies :class:`stonkgs_tpu_torch.train.optimizer.AdamW`.  ``pretrain``
 drives it over a shuffled feature set with a prefetching input thread, a
 deferred metric fetch and a non-finite-loss watchdog.
 
@@ -25,12 +26,12 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
-from stonkgs_tpu_torch.config import STonKGsConfig
+from stonkgs_tpu_torch.config import ProtSTonKGsConfig, STonKGsConfig
 from stonkgs_tpu_torch.models import stonkgs
 from stonkgs_tpu_torch.models.bert import DropoutRng, check_no_remat
 from stonkgs_tpu_torch.train.optimizer import AdamW, merge_frozen, split_frozen
@@ -78,21 +79,29 @@ def step_rng(seed: int, step: int, device, micro: int = 0) -> DropoutRng:
 
 
 def make_train_step(
-    cfg: STonKGsConfig,
+    cfg: Union[STonKGsConfig, ProtSTonKGsConfig],
     tx: AdamW,
     *,
+    loss_fn: Optional[Callable] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
     grad_accumulation_steps: int = 1,
     remat=False,
 ):
     """The train step: ``step(state, batch) -> (state, metrics)``.
 
+    ``loss_fn(params, cfg, batch, deterministic=False, rng=...,
+    compute_dtype=...) -> (loss, metrics)`` defaults to the STonKGs
+    MLM + ELM + NSP loss; a ProtSTonKGs run passes
+    ``protstonkgs.pretraining_loss`` (with its training plan bound by
+    ``functools.partial(..., rand_attn=plan)`` where it keeps one).
     ``batch`` holds ``grad_accumulation_steps * micro_batch`` rows on the
     parameters' device; gradients of the micro-batches are summed in fp32
     and averaged, as are the metrics (0-dim tensors on the device).  The
     state is updated in place and returned."""
     check_no_remat(remat)
     n = grad_accumulation_steps
+    if loss_fn is None:
+        loss_fn = stonkgs.pretraining_loss
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         train_p, frozen_p = split_frozen(state.params)
@@ -106,12 +115,13 @@ def make_train_step(
             for t in leaves:
                 t.requires_grad_(True)
             for i, mb in enumerate(micro):
-                loss, m = stonkgs.pretraining_loss(
+                loss, m = loss_fn(
                     merge_frozen(train_p, frozen_p), cfg, mb, deterministic=False,
                     rng=step_rng(state.seed, state.step, device, i),
                     compute_dtype=compute_dtype)
                 g = torch.autograd.grad(loss, leaves, allow_unused=True)
-                # leaves outside the loss (the ELM decoder biases) get zeros
+                # leaves outside the loss (the ELM decoder biases, the
+                # trunk's word embeddings) get zeros
                 g = [torch.zeros_like(p) if gi is None else gi.float()
                      for p, gi in zip(leaves, g)]
                 m = {k: v.detach().float() for k, v in m.items()}
@@ -255,7 +265,7 @@ def _sync(device: torch.device) -> None:
 
 
 def pretrain(
-    cfg: STonKGsConfig,
+    cfg: Union[STonKGsConfig, ProtSTonKGsConfig],
     params: dict,
     features: Dict[str, np.ndarray],
     run_cfg: PretrainingConfig,
@@ -263,8 +273,13 @@ def pretrain(
     mesh=None,
     checkpoint_dir: Optional[str] = None,
     log_fn: Optional[Callable[[int, dict], None]] = None,
+    loss_fn: Optional[Callable] = None,
 ) -> TrainState:
     """Run the pre-training loop on the parameters' device.
+
+    ``loss_fn`` defaults to the STonKGs MLM + ELM + NSP loss; pass
+    ``protstonkgs.pretraining_loss`` for the tri-modality variant (see
+    :func:`make_train_step`).
 
     The caller's trainable tensors are copied first (the step updates in
     place); the frozen backbones are shared and never written.  Metrics of
@@ -285,7 +300,7 @@ def pretrain(
                warmup_steps=run_cfg.warmup_steps, weight_decay=run_cfg.weight_decay)
     state = init_train_state(params, tx, run_cfg.seed)
     step_fn = make_train_step(
-        cfg, tx, compute_dtype=getattr(torch, run_cfg.compute_dtype),
+        cfg, tx, loss_fn=loss_fn, compute_dtype=getattr(torch, run_cfg.compute_dtype),
         grad_accumulation_steps=run_cfg.grad_accumulation_steps, remat=remat)
     batches = _prefetch_to_device(
         data_iterator(features, run_cfg.batch_size, seed=run_cfg.seed),

@@ -1,7 +1,7 @@
 """Parameters of the JAX package -> parameters of the port.
 
-The JAX package keeps a BERT's layers stacked on a leading axis of every
-``encoder`` leaf; the port keeps a list of per-layer dicts.  Every other
+The JAX package keeps a BERT's (or BigBird's) layers stacked on a leading
+axis of every ``encoder`` leaf; the port keeps a list of per-layer dicts.  Every other
 layout is shared (dense kernels are ``(in, out)`` in both), so the
 conversion unstacks the encoder and turns numpy leaves into fp32 tensors.
 The input is a tree of numpy arrays (``jax.tree.map(np.asarray, params)``),
@@ -15,7 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from stonkgs_tpu_torch.config import BertConfig, STonKGsConfig
+from stonkgs_tpu_torch.config import BertConfig, BigBirdConfig, ProtSTonKGsConfig, STonKGsConfig
 from stonkgs_tpu_torch.utils.tree import tree_map
 
 
@@ -40,6 +40,31 @@ def bert_params_from_jax(tree: dict, cfg: BertConfig) -> dict:
     out = {k: tree_map(_tensor, v) for k, v in tree.items() if k != "encoder"}
     out["encoder"] = [layer(i) for i in range(n)]
     return out
+
+
+def bigbird_params_from_jax(tree: dict, cfg: BigBirdConfig) -> dict:
+    """One BigBird tree: the same unstacking as BERT's (a BigBird layer has
+    BERT's leaves, without q/k/v biases when ``cfg.use_bias`` is off)."""
+    return bert_params_from_jax(tree, cfg)
+
+
+def protstonkgs_params_from_jax(tree: dict, cfg: ProtSTonKGsConfig) -> dict:
+    """A ProtSTonKGs tree of the JAX package -> the port's parameters.
+
+    Unstacks the trunk and both backbones and keeps the protein
+    projection, the KG table and, where present, the heads (``cls``) and
+    the classifier."""
+    params = {
+        "trunk": bigbird_params_from_jax(tree["trunk"], cfg.trunk),
+        "lm_backbone": bert_params_from_jax(tree["lm_backbone"], cfg.lm),
+        "prot_backbone": bert_params_from_jax(tree["prot_backbone"], cfg.prot),
+        "prot_projection": tree_map(_tensor, tree["prot_projection"]),
+        "kg_backbone": _tensor(tree["kg_backbone"]),
+    }
+    for head in ("cls", "classifier"):
+        if head in tree:
+            params[head] = tree_map(_tensor, tree[head])
+    return params
 
 
 def params_from_jax(tree: dict, cfg: STonKGsConfig) -> dict:

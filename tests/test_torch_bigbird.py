@@ -1,0 +1,207 @@
+"""The port's BigBird pieces against the JAX package at fp32, on the CPU.
+
+* the random-block plan, exactly (HF's np.random stream replayed);
+* ``block_sparse_attention`` (its CPU path: the kernels' plain versions)
+  against the JAX XLA lowering and against the Pallas kernel in interpret
+  mode, forward and q/k/v gradients, as ``tests/test_bigbird_sparse_pallas.py``
+  holds the two JAX versions: forwards within 1e-5 absolute, gradients
+  within 2e-5 absolute + 1e-4 relative (both frameworks sum in fp32, in
+  another order);
+* ``bigbird_model`` in block-sparse mode, in ``original_full`` mode and
+  with ``cls_only``, within 1e-5 absolute (inputs made with a numpy seed,
+  weights from the JAX ``init_bigbird_params``).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from stonkgs_tpu import config as jconfig
+from stonkgs_tpu.models import bigbird as jbigbird
+from stonkgs_tpu.ops import bigbird_sparse as jsparse
+from stonkgs_tpu.ops.bigbird_sparse_pallas import block_sparse_attention_pallas
+from stonkgs_tpu_torch import config as tconfig
+from stonkgs_tpu_torch.models import bigbird as tbigbird
+from stonkgs_tpu_torch.ops import bigbird_sparse as tsparse
+from stonkgs_tpu_torch.utils.convert import bigbird_params_from_jax
+
+FWD_TOL = dict(atol=1e-5, rtol=0)
+GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
+B, H, D, BS = 2, 3, 8, 16
+
+
+@pytest.mark.parametrize("seq_len,bs,r,heads,max_len,training", [
+    (4096, 64, 3, 12, 4096, True),    # the trunk: HF's fixed plan, last_idx 1024
+    (3072, 64, 3, 4, 4096, True),
+    (768, 64, 3, 4, 4096, True),      # a non-special length: the per-head plan
+    (48, 4, 1, 2, 48, True),
+    (4096, 64, 3, 12, 4096, False),   # eval: all zeros
+], ids=["4096", "3072", "768", "48", "eval"])
+def test_rand_attn_matches_jax(seq_len, bs, r, heads, max_len, training):
+    state = np.random.get_state()
+    want = jsparse.build_rand_attn(seq_len, bs, r, heads, 3, max_len, training)
+    np.random.set_state(state)
+    got = tsparse.build_rand_attn(seq_len, bs, r, heads, 3, max_len, training)
+    assert got.dtype == np.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    # the port leaves the global stream alone
+    assert np.random.get_state()[1][0] == state[1][0]
+
+
+def _inputs(nb, r, seed, padded, zero_plan):
+    rng = np.random.default_rng(seed)
+    S = nb * BS
+    q, k, v = (rng.normal(size=(B, H, S, D)).astype(np.float32) * 0.5 for _ in range(3))
+    mask = np.ones((B, S), np.float32)
+    if padded:
+        mask[0, -20:] = 0.0   # pad crossing the last block boundary
+        mask[1, 37:45] = 0.0  # pad inside a middle block
+    if zero_plan:
+        rand = np.zeros((H, nb - 2, r), np.int32)
+    else:
+        rand = rng.integers(1, nb - 1, (H, nb - 2, r)).astype(np.int32)
+    w = rng.normal(size=(B, H, S, D)).astype(np.float32)
+    return q, k, v, rand, mask, w
+
+
+CASES = [(nb, r, padded, zero) for nb, r in ((5, 1), (6, 3), (8, 2))
+         for padded in (True, False) for zero in (True, False)]
+IDS = [f"nb{nb}-r{r}-{'pad' if p else 'full'}-{'zero' if z else 'rand'}"
+       for nb, r, p, z in CASES]
+
+
+@pytest.mark.parametrize("nb,r,padded,zero_plan", CASES, ids=IDS)
+def test_block_sparse_forward_matches_jax(nb, r, padded, zero_plan):
+    q, k, v, rand, mask, _ = _inputs(nb, r, nb * 10 + r, padded, zero_plan)
+    jargs = [jnp.asarray(a) for a in (q, k, v, rand, mask)]
+    xla = np.asarray(jsparse.block_sparse_attention(*jargs, BS))
+    pallas = np.asarray(block_sparse_attention_pallas(*jargs, BS, interpret=True))
+    got = tsparse.block_sparse_attention(*(torch.from_numpy(a) for a in (q, k, v)), rand,
+                                         torch.from_numpy(mask), BS).numpy()
+    np.testing.assert_allclose(got, xla, **FWD_TOL)
+    np.testing.assert_allclose(got, pallas, **FWD_TOL)
+
+
+@pytest.mark.parametrize("nb,r,padded,zero_plan", CASES[::2], ids=IDS[::2])
+def test_block_sparse_gradients_match_jax(nb, r, padded, zero_plan):
+    """q/k/v cotangents of the port's autograd Function against JAX
+    autodiff through the XLA lowering and the Pallas custom VJP."""
+    q, k, v, rand, mask, w = _inputs(nb, r, nb * 10 + r + 1, padded, zero_plan)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    jr, jm, jw = jnp.asarray(rand), jnp.asarray(mask), jnp.asarray(w)
+    xla = jax.grad(lambda *a: jnp.sum(jsparse.block_sparse_attention(*a, jr, jm, BS) * jw),
+                   argnums=(0, 1, 2))(jq, jk, jv)
+    pallas = jax.grad(
+        lambda *a: jnp.sum(block_sparse_attention_pallas(*a, jr, jm, BS, interpret=True) * jw),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = tsparse.block_sparse_attention(tq, tk, tv, rand, torch.from_numpy(mask), BS)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, got, a, b in zip("qkv", (tq, tk, tv), xla, pallas):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(a), err_msg=f"d{name} xla",
+                                   **GRAD_TOL)
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(b), err_msg=f"d{name} pallas",
+                                   **GRAD_TOL)
+
+
+def test_mid_blocks_plain_shapes_and_lse():
+    """The plain forward's lse is the log-sum-exp of its masked logits,
+    and the backward returns zero dq on the dense first and last blocks."""
+    nb, r = 6, 2
+    q, k, v, rand, mask, _ = _inputs(nb, r, 3, True, False)
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    tmask, trand = torch.from_numpy(mask), torch.from_numpy(rand)
+    out, lse = tsparse.bigbird_mid_fwd(tq, tk, tv, tmask, trand, BS)
+    assert out.shape == (B, (nb - 2) * BS, H, D) and lse.shape == (B, H, (nb - 2) * BS)
+    assert torch.isfinite(lse).all()
+    dq, dk, dv = tsparse.bigbird_mid_bwd(tq, tk, tv, tmask, trand, BS, out, lse,
+                                         torch.ones_like(out))
+    assert dq.shape == tq.shape and dk.shape == tk.shape and dv.shape == tv.shape
+    assert torch.count_nonzero(dq[:, :BS]) == 0 and torch.count_nonzero(dq[:, -BS:]) == 0
+    with pytest.raises(ValueError, match="at least 5 blocks"):
+        tsparse.bigbird_mid_fwd(tq[:, :4 * BS], tk[:, :4 * BS], tv[:, :4 * BS],
+                                tmask[:, :4 * BS], trand[:, :2], BS)
+
+
+# ---------------------------------------------------------------------------
+# the encoder
+# ---------------------------------------------------------------------------
+
+BB = jconfig.BigBirdConfig(
+    vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+    intermediate_size=64, max_position_embeddings=64, block_size=4, num_random_blocks=1,
+    hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+S_SPARSE = 32   # > (5 + 2r) * bs = 28: block-sparse
+
+
+def port_bigbird_cfg(cfg):
+    return tconfig.BigBirdConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.fixture(scope="module")
+def bb_params():
+    return jax.tree.map(np.asarray, jbigbird.init_bigbird_params(jax.random.PRNGKey(0), BB))
+
+
+def _encoder_inputs(seed, S=S_SPARSE):
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(3, S, BB.hidden_size)).astype(np.float32)
+    mask = np.ones((3, S), np.int32)
+    mask[1, 20:] = 0
+    mask[2, 9:] = 0
+    return emb, mask
+
+
+@pytest.mark.parametrize("attention_type,cls_only,training", [
+    ("block_sparse", False, False), ("block_sparse", True, False),
+    ("original_full", False, False), ("original_full", True, False),
+    ("block_sparse", False, True),
+], ids=["sparse", "sparse-cls", "full", "full-cls", "sparse-train-plan"])
+def test_bigbird_model_matches_jax(bb_params, attention_type, cls_only, training):
+    emb, mask = _encoder_inputs(1)
+    jseq, jpool = jbigbird.bigbird_model(
+        jax.tree.map(jnp.asarray, bb_params), BB, inputs_embeds=jnp.asarray(emb),
+        attention_mask=jnp.asarray(mask), attention_type=attention_type, cls_only=cls_only,
+        deterministic=not training, dropout_rng=jax.random.PRNGKey(0) if training else None)
+    tp = bigbird_params_from_jax(bb_params, port_bigbird_cfg(BB))
+    tseq, tpool = tbigbird.bigbird_model(
+        tp, port_bigbird_cfg(BB), inputs_embeds=torch.from_numpy(emb),
+        attention_mask=torch.from_numpy(mask), attention_type=attention_type,
+        cls_only=cls_only, deterministic=not training)
+    assert tseq.shape == jseq.shape
+    np.testing.assert_allclose(tseq.detach().numpy(), np.asarray(jseq), **FWD_TOL)
+    np.testing.assert_allclose(tpool.detach().numpy(), np.asarray(jpool), **FWD_TOL)
+
+
+def test_bigbird_embed_and_attention_type(bb_params):
+    """Token ids through the embeddings (dropout before LayerNorm, token
+    types all zero), and HF's fallback to full attention."""
+    ids = np.random.default_rng(2).integers(0, BB.vocab_size, (2, 12))
+    want = jbigbird.embed(jax.tree.map(jnp.asarray, bb_params), BB, input_ids=jnp.asarray(ids))
+    got = tbigbird.embed(bigbird_params_from_jax(bb_params, port_bigbird_cfg(BB)),
+                         port_bigbird_cfg(BB), input_ids=torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+    tcfg = port_bigbird_cfg(BB)
+    for S in (28, 32, 64):
+        assert (tbigbird.effective_attention_type(tcfg, S)
+                == jbigbird.effective_attention_type(BB, S))
+    full = dataclasses.replace(tcfg, attention_type="original_full")
+    assert tbigbird.effective_attention_type(full, 64) == "original_full"
+
+
+def test_bigbird_unported_options_raise(bb_params):
+    tcfg = port_bigbird_cfg(BB)
+    tp = bigbird_params_from_jax(bb_params, tcfg)
+    emb = torch.zeros(1, S_SPARSE, BB.hidden_size)
+    with pytest.raises(NotImplementedError, match="remat"):
+        tbigbird.bigbird_model(tp, tcfg, inputs_embeds=emb, remat=True)
+    with pytest.raises(ValueError, match="cls_only"):
+        tbigbird.bigbird_model(tp, tcfg, inputs_embeds=emb, cls_only=True, deterministic=False)
+    with pytest.raises(ValueError, match="block id"):
+        tbigbird.bigbird_model(tp, tcfg, inputs_embeds=emb,
+                               rand_attn=np.full((2, 2, 6, 1), 99, np.int32))

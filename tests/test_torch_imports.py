@@ -29,6 +29,9 @@ def test_import_pulls_in_no_jax():
         "from stonkgs_tpu_torch.api import inference\n"
         "from stonkgs_tpu_torch.ops import losses\n"
         "from stonkgs_tpu_torch.train import optimizer, pretraining\n"
+        "from stonkgs_tpu_torch.api import prot_inference\n"
+        "from stonkgs_tpu_torch.models import bigbird, protstonkgs\n"
+        "from stonkgs_tpu_torch.ops import bigbird_sparse\n"
         "new = sorted(set(sys.modules) - before)\n"
         "print('\\n'.join(new))\n"
     )
@@ -36,6 +39,8 @@ def test_import_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=120).stdout.split()
     assert "stonkgs_tpu_torch" in out
     assert "stonkgs_tpu_torch.train.pretraining" in out
+    assert "stonkgs_tpu_torch.models.protstonkgs" in out
+    assert "stonkgs_tpu_torch.ops.bigbird_sparse" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
