@@ -52,7 +52,30 @@ Phases, each fatal on failure (exit code 1, no result line):
     attention dropout 0.1 on the same seeds);
 14. ProtSTonKGs timing: embed sequences/s, ms per step (median of 6 after
     2), and each new or widened kernel at the path's shapes beside its
-    bound and its plain version.
+    bound and its plain version;
+15. int8 kernels: the fused int8 dense against its plain version, bf16
+    and fp32, at every shape of the int8 serving paths, at M = 0, 1 and
+    300, an all-zero row, N = 100, the decoders' N = 28,996 and 100,000
+    and a strided ``x[:, :1]``; the int8 GEMM probe exactly equal to its
+    plain version at 512 x 1024 x 512 and 4096^3, bf16 within tolerance;
+16. int8 serving: ``quantize_params`` on phase 5's parameters, then
+    ``STonKGsEngine.embed`` on 512 rows at B=128 in bf16; checks the
+    launch counts (144 int8 denses, 23 attentions, no FFN block a batch),
+    finite output, card fp32 against CPU fp32 (both int8; cosine 0.9999
+    at 2 layers a stack; at full depth each layer fed the CPU's input,
+    cosine 0.9999 and at most 1e-3 of its activation codes flipped, where
+    the bf16 control must flip more; end to end 0.999 against gross
+    faults) and card bf16 against CPU fp32; int8 and bf16 pairs/s in
+    turns;
+17. ProtSTonKGs int8 serving: the same with ``ProtSTonKGsEngine`` at full
+    width on 32 rows at B=8 (325 int8 denses, 42 attentions, 11 sparse
+    a batch) and at 2 layers a stack against the CPU; sequences/s in
+    turns with bf16;
+18. int8 timing: the int8 dense at each path shape beside its bound, its
+    plain version, ``torch._int_mm`` on codes made beforehand and the
+    bf16 dense it replaces; the probe's ``main`` (its exactness checks,
+    then ``torch.mm`` bf16, ``torch._int_mm`` and the kernel on int8 and
+    on bf16 at 4096^3, in TFLOP/s).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -60,6 +83,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -76,7 +100,7 @@ import torch.nn.functional as F
 
 from stonkgs_tpu_torch import ProtSTonKGsEngine, STonKGsEngine
 from stonkgs_tpu_torch.config import BertConfig, BigBirdConfig, ProtSTonKGsConfig, STonKGsConfig
-from stonkgs_tpu_torch.models import protstonkgs, stonkgs
+from stonkgs_tpu_torch.models import bert, protstonkgs, stonkgs
 from stonkgs_tpu_torch.ops import _build
 from stonkgs_tpu_torch.ops.bigbird_sparse import (
     bigbird_mid_bwd,
@@ -103,6 +127,16 @@ from stonkgs_tpu_torch.ops.fused_ffn import (
     fused_ffn_ln_block_plain,
     fused_ffn_plain,
 )
+from stonkgs_tpu_torch.ops.quantization import (
+    dense_int8_fused,
+    dense_int8_fused_plain,
+    quantize_kernel,
+    quantize_params,
+    quantize_rows,
+)
+from stonkgs_tpu_torch.benchmarks import bench_int8_gemm
+from stonkgs_tpu_torch.benchmarks._util import time_ms
+from stonkgs_tpu_torch.benchmarks.bench_int8_gemm import int8_gemm, int8_gemm_plain
 from stonkgs_tpu_torch.train import pretraining
 from stonkgs_tpu_torch.train.optimizer import AdamW, split_frozen
 from stonkgs_tpu_torch.utils.convert import params_to
@@ -111,9 +145,10 @@ from stonkgs_tpu_torch.utils.tree import tree_leaves, tree_map
 DEV = "cuda"
 BF16 = torch.bfloat16
 F32 = torch.float32
-# H100 SXM data-sheet peaks (dense): tensor-core bf16, fp32 outside the
-# tensor cores, and HBM3 bandwidth
-PEAK_FLOPS = {BF16: 989e12, F32: 67e12}
+I8 = torch.int8
+# H100 SXM data-sheet peaks (dense): tensor-core bf16 and int8, fp32
+# outside the tensor cores, and HBM3 bandwidth
+PEAK_FLOPS = {BF16: 989e12, F32: 67e12, I8: 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 # kernel vs plain on the card: fp32 sums run in another order; bf16 may
 # round an intermediate or the output to the other neighbour (one bf16
@@ -124,8 +159,11 @@ TOL = {F32: dict(atol=1e-4, rtol=0.0), BF16: dict(atol=2e-2, rtol=1e-2)}
 # the tolerance is relative to the largest value (fp32: sums in another
 # order; bf16: an operand rounded to the other neighbour, one step 2^-8)
 GRAD_TOL = {F32: 1e-4, BF16: 2e-2}
+# the int8 dense in fp32 against its plain version: the same codes and
+# the same rounded epilogue, so equal up to 1e-6 of the largest output
+INT8_F32_TOL = 1e-6
 SOURCES = ("ffn_ln_block", "flash_attention_infer", "flash_attention_train", "ffn_train",
-           "bigbird_sparse")
+           "bigbird_sparse", "dense_int8", "int8_gemm")
 BATCH = 128
 ROWS = 512
 BUCKETS = (64, 128)
@@ -502,17 +540,7 @@ def phase_serving(cfg: STonKGsConfig):
     return engine, bucketed, feats, counts, params
 
 
-def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+_time_ms = functools.partial(time_ms, iters=10)
 
 
 def _bound_ms(flops: float, nbytes: float, dtype) -> tuple:
@@ -694,11 +722,11 @@ def phase_train_numerics(cfg_full: STonKGsConfig) -> None:
     """Loss and trunk gradients, card fp32 vs CPU fp32, at 2 rows and 2
     layers of the full width, hidden dropout 0 and attention dropout 0.1:
     the attention seeds come from the same CPU generator on both sides."""
-    bert = dataclasses.replace(cfg_full.bert, num_hidden_layers=2, hidden_dropout_prob=0.0)
-    cfg = cfg_full.replace(bert=bert)
+    bcfg = dataclasses.replace(cfg_full.bert, num_hidden_layers=2, hidden_dropout_prob=0.0)
+    cfg = cfg_full.replace(bert=bcfg)
     gen = torch.Generator().manual_seed(5)
     params = stonkgs.init_stonkgs_params(gen, cfg)
-    params["kg_backbone"] = torch.randn(cfg.kg_table_size, bert.hidden_size, generator=gen)
+    params["kg_backbone"] = torch.randn(cfg.kg_table_size, bcfg.hidden_size, generator=gen)
     feats = _pretraining_features(cfg, 2, seed=7)
 
     def loss_and_grads(device):
@@ -1153,6 +1181,379 @@ def phase_prot_timing(cfg: ProtSTonKGsConfig, engine, feats, state, loss_fn) -> 
     return result
 
 
+# ---------------------------------------------------------------------------
+# int8 serving: the fused int8 dense and the int8 GEMM probe
+# ---------------------------------------------------------------------------
+
+INT8_SERVING_KERNELS = {"dense_int8": dense_int8_fused, **SERVING_KERNELS}
+PROT_INT8_SERVING_KERNELS = {"dense_int8": dense_int8_fused, **PROT_SERVING_KERNELS}
+# (M, K, N) of the int8 paths' denses: the STonKGs trunk (B=128 x 512 rows)
+# and backbone (x 256; the ProtSTonKGs BigBird trunk, B=8 x 4096, has the
+# same M), ProtBERT (B=8 x 3072) and its projection to 768, and BioBERT in
+# ProtSTonKGs (3 text chunks a row: 24 x 256)
+INT8_SHAPES = {
+    "trunk Q/K/V/O": (65536, 768, 768), "trunk FFN in": (65536, 768, 3072),
+    "trunk FFN out": (65536, 3072, 768), "backbone Q/K/V/O": (32768, 768, 768),
+    "backbone FFN in": (32768, 768, 3072), "backbone FFN out": (32768, 3072, 768),
+    "ProtBERT Q/K/V/O": (24576, 1024, 1024), "ProtBERT FFN in": (24576, 1024, 4096),
+    "ProtBERT FFN out": (24576, 4096, 1024), "protein projection": (24576, 1024, 768),
+    "BioBERT Q/K/V/O": (6144, 768, 768), "BioBERT FFN in": (6144, 768, 3072),
+    "BioBERT FFN out": (6144, 3072, 768),
+}
+# the [CLS] layers' denses (STonKGs 128 rows, ProtSTonKGs 8), the edges and
+# the decoders (N = 28,996, 100,000)
+INT8_EDGES = [(128, 768, 768), (128, 768, 3072), (128, 3072, 768), (8, 768, 768),
+              (8, 768, 3072), (8, 3072, 768), (0, 768, 768), (1, 768, 768), (300, 768, 3072),
+              (64, 768, 100), (128, 768, 28996), (8, 768, 100000)]
+# card vs CPU layer by layer (both fp32, int8, each layer fed the CPU's
+# input): the share of activation codes that may differ.  A code flips
+# where the two fp32 inputs of a dense straddle a rounding boundary, a
+# chance of order 1e-5 a code; the bf16 control flips of order 1e-1
+INT8_FLIP_LIMIT = 1e-3
+GEMM_SIZE = 4096
+
+
+def _int8_dense_inputs(M, K, N, dtype, gen, zero_row=False):
+    """x (M, K) in dtype on the card (row 1 zero with ``zero_row``), an
+    int8 (K, N) weight with its fp32 scales, and an fp32 bias."""
+    x = torch.randn(M, K, device=DEV, generator=gen).to(dtype)
+    if zero_row and M > 1:
+        x[1] = 0
+    q = quantize_kernel(0.02 * torch.randn(K, N, device=DEV, generator=gen))
+    return x, q["kernel_q"], q["scale"], 0.02 * torch.randn(N, device=DEV, generator=gen)
+
+
+def _compare_int8(name, got, want, dtype) -> float:
+    """bf16: within TOL[BF16]; fp32: within INT8_F32_TOL of max |want|."""
+    if dtype == BF16:
+        return _compare(name, got, want, dtype)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: shape/dtype {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    limit = INT8_F32_TOL * (float(want.abs().max()) if want.numel() else 0.0)
+    log(f"# check {name}: max_abs_err {err!r} limit {limit!r} {'ok' if err <= limit else 'FAIL'}")
+    check(err <= limit, f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def phase_int8_kernels() -> dict:
+    """The int8 dense vs its plain version on the card, bf16 and fp32, at
+    the paths' shapes and the edges; the GEMM probe exactly equal to its
+    plain version (int8), within tolerance (bf16).  Returns the worst
+    bf16 error at the paths' shapes."""
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    errs = {"dense_int8": 0.0}
+    for dtype in (BF16, F32):
+        tag = "bf16" if dtype == BF16 else "fp32"
+        for M, K, N in [*INT8_SHAPES.values(), *INT8_EDGES]:
+            x, w, s, b = _int8_dense_inputs(M, K, N, dtype, gen, zero_row=True)
+            e = _compare_int8(f"dense_int8 {tag} M={M} {K}->{N} zero row",
+                              dense_int8_fused(x, w, s, b), dense_int8_fused_plain(x, w, s, b),
+                              dtype)
+            if dtype == BF16 and (M, K, N) in INT8_SHAPES.values():
+                errs["dense_int8"] = max(errs["dense_int8"], e)
+            del x, w, s, b
+        x, w, s, _ = _int8_dense_inputs(300, 768, 768, dtype, gen)
+        _compare_int8(f"dense_int8 {tag} M=300 no bias", dense_int8_fused(x, w, s),
+                      dense_int8_fused_plain(x, w, s), dtype)
+        # the [CLS] rows of the trunk's (B, S, H) activation: a strided view
+        h = torch.randn(BATCH, 512, 768, device=DEV, generator=gen).to(dtype)[:, :1]
+        _compare_int8(f"dense_int8 {tag} x[:, :1] of ({BATCH}, 512, 768)",
+                      dense_int8_fused(h, w, s), dense_int8_fused_plain(h.contiguous(), w, s),
+                      dtype)
+        del h
+    ops = bench_int8_gemm.operands(GEMM_SIZE, GEMM_SIZE, GEMM_SIZE)
+    errs["int8_gemm"] = 0.0
+    for a, b in ((ops["a8"][:512, :1024], ops["b8"][:1024, :512]), (ops["a8"], ops["b8"])):
+        err = _gemm_int8_err(a, b)
+        log(f"# check int8_gemm int8 {tuple(a.shape)} x {tuple(b.shape)}: max_abs_err {err!r} "
+            f"(exactly equal)")
+        check(err == 0, "int8_gemm: int8 result differs from its plain version")
+        errs["int8_gemm"] = max(errs["int8_gemm"], err)
+    errs["int8_gemm"] = max(errs["int8_gemm"], _compare_rel(
+        f"int8_gemm bf16 {GEMM_SIZE}^3", int8_gemm(ops["abf"], ops["bbf"]),
+        int8_gemm_plain(ops["abf"], ops["bbf"]), F32))
+    return errs
+
+
+def _gemm_int8_err(a, b) -> float:
+    """max |kernel - plain| of the probe's int8 product (exact in fp64)."""
+    got, want = int8_gemm(a, b), int8_gemm_plain(a, b)
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype == torch.int32 and got.shape == want.shape,
+          f"int8_gemm: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    return float((got.double() - want.double()).abs().max())
+
+
+def _time_embed_in_turns(label: str, engines: dict, feats: dict, unit: str) -> dict:
+    """Each engine's embed 3 times, in turns; logs rows/s and returns the
+    last outputs by name."""
+    times = {name: [] for name in engines}
+    outs = {}
+    for _ in range(3):
+        for name, eng in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = eng.embed(feats)
+            times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        n = len(outs[name])
+        check(bool(np.isfinite(outs[name]).all()), f"{label} {name} embed not finite")
+        log(f"# embed {label} {name}: {n} rows, B={engines[name].batch_size}, seconds {ts!r}; "
+            f"best {n / min(ts)!r} {unit}, median {n / statistics.median(ts)!r} {unit}")
+    return outs
+
+
+def phase_int8_serving(cfg: STonKGsConfig, params: dict, feats: dict) -> dict:
+    """``quantize_params`` on phase 5's fp32 parameters (KG table
+    included), then ``STonKGsEngine.embed`` in bf16 on the card: the
+    int8 main path, counts from 0 just before it.  Then card fp32 vs CPU
+    fp32 (both int8) on 4 rows, card bf16 vs CPU fp32, and pairs/s in
+    turns with the bf16 engine.  Returns the launch counts.
+
+    End to end, the 0.9999 cosine holds at 2 layers a stack (full
+    width).  At full depth a code that flips in one layer (the card's
+    and the CPU's fp32 inputs of a dense straddling a rounding boundary)
+    moves every later layer's input, so there the end-to-end cosine is
+    logged, held only at 0.999 against gross faults, and the precision
+    is held layer by layer (:func:`_int8_layers_card_vs_cpu`)."""
+    t0 = time.perf_counter()
+    params_q = quantize_params(params_to(params, DEV))
+    engine = STonKGsEngine(cfg=cfg, params=params_to(params_q, DEV, BF16), batch_size=BATCH,
+                           device=DEV)
+    log(f"# int8 serving setup (quantize on the card): {time.perf_counter() - t0:.1f} s")
+    _reset_counts(INT8_SERVING_KERNELS)
+    out = engine.embed(feats)
+    counts = _counts(INT8_SERVING_KERNELS)
+    n_batches = math.ceil(ROWS / BATCH)
+    layers = cfg.bert.num_hidden_layers
+    # 6 denses a layer: the backbone's L layers, the trunk's L - 1 full
+    # layers and its [CLS] layer; attention in every full layer
+    per_batch = {"dense_int8": 6 * 2 * layers, "flash_attention_infer": 2 * layers - 1,
+                 "ffn_ln_block": 0}
+    log(f"# launches int8 parity embed ({n_batches} batches): {counts}")
+    check(out.shape == (ROWS, cfg.bert.hidden_size), f"int8 embed shape {out.shape}")
+    check(bool(np.isfinite(out).all()), "int8 embed output not finite")
+    for name, c in per_batch.items():
+        check(counts[name] == c * n_batches,
+              f"{name}: {counts[name]} launches, expected {c} x {n_batches}")
+
+    # numerics on 4 rows: card fp32 vs CPU fp32 (both int8) at 2 layers a
+    # stack of the full width, then at full depth layer by layer and end
+    # to end, and card bf16 vs CPU fp32
+    few = {k: v[:4] for k, v in feats.items()}
+
+    def embed32(p, device, c=cfg):
+        return STonKGsEngine(cfg=c, params=p, compute_dtype="float32", batch_size=4,
+                             device=device).embed(few)
+
+    small = cfg.replace(bert=dataclasses.replace(cfg.bert, num_hidden_layers=2))
+    q2 = {**params_q, **{k: {**params_q[k], "encoder": params_q[k]["encoder"][:2]}
+                         for k in ("trunk", "lm_backbone")}}
+    cos2 = _cosine(embed32(q2, DEV, small), embed32(params_to(q2, "cpu"), "cpu", small))
+    log(f"# int8 card fp32 vs CPU fp32 (4 rows, 2 layers a stack): cosine {cos2.tolist()!r} "
+        f"(limit 0.9999)")
+    check(bool((cos2 >= 0.9999).all()), "int8 card fp32 disagrees with the CPU (2 layers)")
+    cpu32 = _int8_layers_card_vs_cpu(lambda p: embed32(p, "cpu"), params_q)
+    card32 = embed32(params_q, DEV)
+    cos32, cos16 = _cosine(card32, cpu32), _cosine(out[:4], cpu32)
+    log(f"# int8 card fp32 vs CPU fp32 (4 rows, {layers} layers end to end): cosine "
+        f"{cos32.tolist()!r}, max_abs_err {float(np.abs(card32 - cpu32).max())!r} "
+        f"(limit 0.999)")
+    log(f"# int8 card bf16 vs CPU fp32 (4 rows, {layers} layers end to end): cosine "
+        f"{cos16.tolist()!r} (limit 0.99)")
+    check(bool((cos32 >= 0.999).all()), "int8 card fp32 disagrees with the CPU")
+    check(bool((cos16 >= 0.99).all()), "int8 card bf16 too far from the CPU fp32")
+    del params_q, q2, card32
+    bf16 = STonKGsEngine(cfg=cfg, params=params_to(params, DEV, BF16), batch_size=BATCH,
+                         device=DEV)
+    outs = _time_embed_in_turns("STonKGs parity", {"bf16": bf16, "int8": engine}, feats,
+                                "pairs/s")
+    cos = _cosine(outs["int8"], outs["bf16"])
+    log(f"# int8 vs bf16 embeddings ({ROWS} rows, random weights, not gated): cosine mean "
+        f"{float(cos.mean())!r} min {float(cos.min())!r}")
+    return counts
+
+
+@contextlib.contextmanager
+def _wrapped(module, name: str, wrap):
+    """``module.name`` replaced by ``wrap(module.name)`` for the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _recording_codes(store: list):
+    """A wrapper of ``dense_int8`` that keeps each input's row codes."""
+    def wrap(fn):
+        def run(x, p):
+            store.append(quantize_rows(x)[0].cpu())
+            return fn(x, p)
+        return run
+    return wrap
+
+
+def _int8_layers_card_vs_cpu(embed_cpu, params_q: dict) -> np.ndarray:
+    """Card vs CPU, one encoder layer at a time, at full depth.
+
+    ``embed_cpu(params)`` runs the int8 model in fp32 on the CPU; every
+    encoder layer it runs (the backbone's, the trunk's and its [CLS]
+    layer) is kept with its input, its output and the row codes of each
+    of its denses' inputs.  Each layer then runs again on the card from
+    the CPU's input, in fp32 and in bf16 (the control).  Per layer: the
+    least cosine over tokens and the share of codes that differ from the
+    CPU's.  fp32 must keep every layer's cosine at 0.9999 and its flips
+    under :data:`INT8_FLIP_LIMIT`; the bf16 control must exceed that
+    limit, or the count could not tell fp32 from bf16.  Returns the CPU's
+    embeddings."""
+    calls, codes = [], []
+
+    def record(fn):
+        def run(x, lp, c, bias, **kw):
+            start = len(codes)
+            y = fn(x, lp, c, bias, **kw)
+            calls.append((fn, x, lp, c, bias, kw, y, codes[start:]))
+            return y
+        return run
+
+    with _wrapped(bert, "encoder_layer", record), _wrapped(bert, "encoder_layer_cls", record), \
+            _wrapped(bert, "dense_int8", _recording_codes(codes)):
+        cpu32 = embed_cpu(params_to(params_q, "cpu"))
+    del codes
+    rows = {"fp32": [], "bf16": []}
+    for fn, x, lp, c, bias, kw, want, want_codes in calls:
+        for tag, dtype in (("fp32", F32), ("bf16", BF16)):
+            got_codes = []
+            with _wrapped(bert, "dense_int8", _recording_codes(got_codes)):
+                got = fn(x.to(DEV, dtype), params_to(lp, DEV, dtype), c,
+                         None if bias is None else bias.to(DEV), **kw)
+            check(len(got_codes) == len(want_codes), "layer runs a different number of denses")
+            flips = sum(int((g != w).sum()) for g, w in zip(got_codes, want_codes))
+            n = sum(w.numel() for w in want_codes)
+            H = want.shape[-1]
+            cos = _cosine(got.float().cpu().reshape(-1, H).numpy(), want.reshape(-1, H).numpy())
+            rows[tag].append((float(cos.min()), flips / n, flips, n))
+    for tag, r in rows.items():
+        log(f"# int8 card {tag} vs CPU fp32, each of {len(r)} layers fed the CPU's input "
+            f"(backbone, then trunk): least cosine over tokens {[c for c, *_ in r]!r}; "
+            f"codes flipped {[f for _, _, f, _ in r]!r} of {[n for *_, n in r]!r}")
+    worst_cos = min(c for c, *_ in rows["fp32"])
+    worst_flip = max(f for _, f, *_ in rows["fp32"])
+    least_flip16 = min(f for _, f, *_ in rows["bf16"])
+    log(f"# int8 layer by layer: fp32 least cosine {worst_cos!r} (limit 0.9999), most "
+        f"flipped share {worst_flip!r} (limit {INT8_FLIP_LIMIT}); bf16 control least flipped "
+        f"share {least_flip16!r} (must exceed the limit)")
+    check(worst_cos >= 0.9999, "an int8 layer on the card in fp32 disagrees with the CPU")
+    check(worst_flip <= INT8_FLIP_LIMIT, "an int8 layer on the card flips too many codes")
+    check(least_flip16 > INT8_FLIP_LIMIT, "the flip count does not tell fp32 from bf16")
+    return cpu32
+
+
+def phase_prot_int8_serving(cfg: ProtSTonKGsConfig, params: dict, bf16_engine, feats) -> dict:
+    """``ProtSTonKGsEngine.embed`` with quantized parameters at full
+    width (B=8, 32 rows): the int8 main path, counts from 0 just before
+    it; then at 2 layers a stack card fp32 and bf16 vs CPU fp32 (all
+    int8), and sequences/s in turns with the bf16 engine.  Returns the
+    launch counts."""
+    t0 = time.perf_counter()
+    engine = ProtSTonKGsEngine(cfg=cfg, params=params_to(quantize_params(params_to(params, DEV)),
+                                                         DEV, BF16),
+                               batch_size=PROT_BATCH, device=DEV)
+    log(f"# ProtSTonKGs int8 serving setup: {time.perf_counter() - t0:.1f} s")
+    _reset_counts(PROT_INT8_SERVING_KERNELS)
+    out = engine.embed(feats)
+    counts = _counts(PROT_INT8_SERVING_KERNELS)
+    n_batches = math.ceil(PROT_ROWS / PROT_BATCH)
+    t, lm, prot = cfg.trunk, cfg.lm, cfg.prot
+    # 6 denses a layer in the LM and protein backbones and the trunk (its
+    # [CLS] layer included), and the protein projection
+    per_batch = {"dense_int8": 6 * (lm.num_hidden_layers + prot.num_hidden_layers
+                                    + t.num_hidden_layers) + 1,
+                 "flash_attention_infer": lm.num_hidden_layers + prot.num_hidden_layers,
+                 "bigbird_mid_fwd": t.num_hidden_layers - 1, "ffn_ln_block": 0}
+    log(f"# launches ProtSTonKGs int8 embed ({n_batches} batches of {PROT_BATCH}): {counts}")
+    check(out.shape == (PROT_ROWS, t.hidden_size), f"ProtSTonKGs int8 embed shape {out.shape}")
+    check(bool(np.isfinite(out).all()), "ProtSTonKGs int8 embed output not finite")
+    for name, c in per_batch.items():
+        check(counts[name] == c * n_batches,
+              f"{name}: {counts[name]} launches, expected {c} x {n_batches}")
+
+    small = _prot_cfg(cfg.kg_vocab_size, layers=2)
+    q32 = quantize_params(params_to(_prot_params(small, seed=11), DEV))
+    few = _prot_features(small, 2, seed=1)
+    card32 = ProtSTonKGsEngine(cfg=small, params=q32, compute_dtype="float32", batch_size=2,
+                               device=DEV).embed(few)
+    card16 = ProtSTonKGsEngine(cfg=small, params=params_to(q32, DEV, BF16), batch_size=2,
+                               device=DEV).embed(few)
+    cpu32 = ProtSTonKGsEngine(cfg=small, params=params_to(q32, "cpu"), compute_dtype="float32",
+                              batch_size=2, device="cpu").embed(few)
+    cos32, cos16 = _cosine(card32, cpu32), _cosine(card16, cpu32)
+    log(f"# ProtSTonKGs int8 card fp32 vs CPU fp32 (2 rows, 2 layers a stack): cosine "
+        f"{cos32.tolist()!r}, max_abs_err {float(np.abs(card32 - cpu32).max())!r} "
+        f"(limit: cosine 0.9999)")
+    log(f"# ProtSTonKGs int8 card bf16 vs CPU fp32: cosine {cos16.tolist()!r} (limit 0.99)")
+    check(bool((cos32 >= 0.9999).all()), "ProtSTonKGs int8 card fp32 disagrees with the CPU")
+    check(bool((cos16 >= 0.99).all()), "ProtSTonKGs int8 card bf16 too far from the CPU fp32")
+    del q32
+    outs = _time_embed_in_turns("ProtSTonKGs", {"bf16": bf16_engine, "int8": engine}, feats,
+                                "sequences/s")
+    cos = _cosine(outs["int8"], outs["bf16"])
+    log(f"# ProtSTonKGs int8 vs bf16 embeddings (random weights, not gated): cosine mean "
+        f"{float(cos.mean())!r} min {float(cos.min())!r}")
+    return counts
+
+
+def phase_int8_timing():
+    """The int8 dense at each path shape (held against its plain version
+    there, then timed) beside its bound, its plain version and two
+    references: ``torch._int_mm`` on codes made beforehand (the GEMM
+    alone) and the bf16 dense ``x @ W + b`` that the int8 mode replaces.
+    Then the probe's ``main`` at 4096^3, counts from 0 just before it.
+    Returns the per-shape numbers, the probe's kernel-line numbers and
+    its launch count."""
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    result = {}
+    for label, (M, K, N) in INT8_SHAPES.items():
+        x, w, s, b = _int8_dense_inputs(M, K, N, BF16, gen)
+        bound, by = _bound_ms(2.0 * M * K * N, M * K * 2 + K * N + 2 * N * 4 + M * N * 2, I8)
+        err = _compare(f"dense_int8 bf16 {label} M={M} {K}->{N}", dense_int8_fused(x, w, s, b),
+                       dense_int8_fused_plain(x, w, s, b), BF16)
+        codes = quantize_rows(x)[0]
+        wb, bb = (w.float() * s).to(BF16), b.to(BF16)
+        t = dict(max_abs_err=err, ms=_time_ms(lambda: dense_int8_fused(x, w, s, b)),
+                 plain_ms=_time_ms(lambda: dense_int8_fused_plain(x, w, s, b), iters=3),
+                 bound_ms=bound, bound_by=by, library_ms=None,
+                 int_mm_ms=_time_ms(lambda: torch._int_mm(codes, w)),
+                 bf16_dense_ms=_time_ms(lambda: x @ wb + bb))
+        log(f"# time dense_int8 {label} M={M} {K}->{N} bf16: {json.dumps(t)}")
+        result[label] = t
+        del x, w, s, b, codes, wb, bb
+    ops = bench_int8_gemm.operands(GEMM_SIZE, GEMM_SIZE, GEMM_SIZE)
+    err = _gemm_int8_err(ops["a8"], ops["b8"])
+    check(err == 0, "int8_gemm: int8 result differs from its plain version")
+    int8_gemm.launches = 0
+    try:
+        variants = bench_int8_gemm.main(GEMM_SIZE)
+    except RuntimeError as e:
+        raise SmokeFailure(f"int8 GEMM probe: {e}") from e
+    launches = int8_gemm.launches
+    log(f"# launches int8 GEMM probe main: {launches}")
+    check(launches > 0, "the probe launched no kernel")
+    n = GEMM_SIZE
+    bound, by = _bound_ms(2.0 * n ** 3, 2 * n * n + 4 * n * n, I8)
+    gemm = dict(max_abs_err=err, ms=variants["kernel int8"]["ms"],
+                plain_ms=_time_ms(lambda: int8_gemm_plain(ops["a8"], ops["b8"]), iters=3),
+                bound_ms=bound, bound_by=by, library_ms=variants["torch int8"]["ms"])
+    log(f"# time int8_gemm {n}^3 int8: {json.dumps(gemm)}")
+    return result, gemm, launches
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -1167,7 +1568,7 @@ def main() -> int:
         counts.update(train_counts)
         phase_train_numerics(cfg)
         times.update(phase_train_timing(cfg, state))
-        del state, params
+        del state          # params (CPU, fp32) stay for the int8 path
         errs.update(phase_sparse_kernels())
         pcfg = _prot_cfg()
         engine, pfeats, prot_counts, pparams = phase_prot_serving(pcfg)
@@ -1178,12 +1579,25 @@ def main() -> int:
             counts[name] = counts.get(name, 0) + c
         phase_prot_train_numerics(pcfg)
         prot_times = phase_prot_timing(pcfg, engine, pfeats, pstate, loss_fn)
+        del pstate, loss_fn
         for name in ("bigbird_mid_fwd", "bigbird_mid_bwd"):
             times[name] = prot_times[name]
         for name in ("ffn_ln_block", "flash_attention_infer", "ffn_train_fwd",
                      "flash_attention_train_fwd"):
             times[name]["max_abs_err"] = max(times[name]["max_abs_err"], *(
                 t["max_abs_err"] for k, t in prot_times.items() if k.startswith(name + ":")))
+        errs.update(phase_int8_kernels())
+        int8_counts = phase_int8_serving(cfg, params, feats)
+        del params
+        for counted in (int8_counts, phase_prot_int8_serving(pcfg, pparams, engine, pfeats)):
+            for name, c in counted.items():
+                counts[name] = counts.get(name, 0) + c
+        del engine, pparams
+        int8_times, times["int8_gemm"], counts["int8_gemm"] = phase_int8_timing()
+        # the trunk's FFN-in shape goes into the kernel line, with the
+        # worst error of every path shape
+        times["dense_int8"] = dict(int8_times["trunk FFN in"], max_abs_err=max(
+            t["max_abs_err"] for t in int8_times.values()))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -1199,13 +1613,18 @@ def main() -> int:
                "ffn_train_fwd": (ffn_cu, "stonkgs_tpu/ops/fused_ffn.py:54"),
                "ffn_train_bwd": (ffn_cu, "stonkgs_tpu/ops/fused_ffn.py:206"),
                "bigbird_mid_fwd": (sparse_cu, "stonkgs_tpu/ops/bigbird_sparse_pallas.py:83"),
-               "bigbird_mid_bwd": (sparse_cu, "stonkgs_tpu/ops/bigbird_sparse_pallas.py:113")}
+               "bigbird_mid_bwd": (sparse_cu, "stonkgs_tpu/ops/bigbird_sparse_pallas.py:113"),
+               "dense_int8": ("stonkgs_tpu_torch/csrc/dense_int8.cu",
+                              "stonkgs_tpu/ops/quantization_pallas.py:33"),
+               "int8_gemm": ("stonkgs_tpu_torch/csrc/int8_gemm.cu",
+                             "benchmarks/bench_int8_gemm.py:27")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name in sources:
         src, replaces = sources[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],
-                        **times[name],
+                        **{k: times[name][k] for k in keys},
                         "max_abs_err": max(errs[name], times[name]["max_abs_err"])})
     log(f"# card: {card}")
     print(json.dumps({"kernels": kernels}))

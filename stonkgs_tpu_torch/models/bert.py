@@ -13,6 +13,13 @@ layer runs through
 attention through the port's inference attention kernel; the ``cls_only``
 last layer stays plain torch, as in the JAX package.
 
+Int8 serving: a dense leaf quantized by
+:func:`stonkgs_tpu_torch.ops.quantization.quantize_params` (it holds
+``kernel_q``) runs the int8 dense kernel; a layer whose FFN leaves are
+quantized runs its post-attention half unfused, LN(x + attn) -> int8
+dense -> gelu -> int8 dense -> LN(x + ff), as the JAX package does when
+its FFN leaves hold no ``kernel``.
+
 Training (``deterministic=False`` with a :class:`DropoutRng`): attention
 runs the training kernel pair with its in-kernel hash dropout, the FFN
 the training FFN kernel pair, and the hidden-state dropouts and
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 from stonkgs_tpu_torch.config import BertConfig
 from stonkgs_tpu_torch.ops.attention import dot_product_attention, plain_attention
 from stonkgs_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_ln_block
+from stonkgs_tpu_torch.ops.quantization import dense_int8, is_quantized
 
 NEG_INF = -1e9  # additive attention bias for masked positions
 
@@ -68,7 +76,12 @@ def check_no_remat(remat) -> None:
 # ---------------------------------------------------------------------------
 
 def dense(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """y = x @ kernel + bias, kernel (in, out), both used in ``x.dtype``."""
+    """y = x @ kernel + bias, kernel (in, out), both used in ``x.dtype``.
+
+    A leaf quantized by :func:`stonkgs_tpu_torch.ops.quantization.
+    quantize_params` (it holds ``kernel_q``) goes to the int8 dense."""
+    if is_quantized(p):
+        return dense_int8(x, p)
     y = x @ p["kernel"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
@@ -225,7 +238,9 @@ def encoder_layer(
     Inference: the post-attention half is the fused LN1 -> FFN -> LN2
     block.  Training, in the JAX order (``stonkgs_tpu/models/bert.py:
     316-337``): attention output -> dropout -> LN(x + attn) -> fused FFN
-    -> dropout -> LN(x + ff)."""
+    -> dropout -> LN(x + ff).  A layer whose FFN leaves are quantized
+    (no ``kernel``) runs that unfused order with two :func:`dense` calls
+    around the activation, in inference too, as the JAX package."""
     B, S, H = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     ap = lp["attention"]
@@ -237,7 +252,17 @@ def encoder_layer(
                                 dropout_rate=cfg.attention_probs_dropout_prob,
                                 seed=seed)
     attn_out = dense(ctx.reshape(B, S, H), ap["output"])
-    if deterministic:
+    return ffn_half(x, attn_out, lp, cfg, deterministic, rng)
+
+
+def ffn_half(x: torch.Tensor, attn_out: torch.Tensor, lp: dict, cfg, deterministic: bool,
+             rng: Optional[DropoutRng]) -> torch.Tensor:
+    """The post-attention half of a layer: LN(x + attn) -> FFN -> LN(x + ff),
+    fused in inference and as the training FFN pair when both FFN leaves
+    hold ``kernel``, else (quantized leaves) two :func:`dense` calls."""
+    ap = lp["attention"]
+    fusable = "kernel" in lp["intermediate"] and "kernel" in lp["output"]
+    if deterministic and fusable:
         return fused_ffn_ln_block(
             x, attn_out,
             ap["output_layer_norm"]["scale"], ap["output_layer_norm"]["bias"],
@@ -248,8 +273,11 @@ def encoder_layer(
         )
     attn_out = dropout(attn_out, cfg.hidden_dropout_prob, rng, deterministic)
     x = layer_norm(x + attn_out, ap["output_layer_norm"], cfg.layer_norm_eps)
-    ff = fused_ffn(x, lp["intermediate"]["kernel"], lp["intermediate"]["bias"],
-                   lp["output"]["kernel"], lp["output"]["bias"], act=cfg.hidden_act)
+    if fusable:
+        ff = fused_ffn(x, lp["intermediate"]["kernel"], lp["intermediate"]["bias"],
+                       lp["output"]["kernel"], lp["output"]["bias"], act=cfg.hidden_act)
+    else:
+        ff = dense(activation(cfg.hidden_act)(dense(x, lp["intermediate"])), lp["output"])
     ff = dropout(ff, cfg.hidden_dropout_prob, rng, deterministic)
     return layer_norm(x + ff, lp["output_layer_norm"], cfg.layer_norm_eps)
 

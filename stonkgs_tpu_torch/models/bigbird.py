@@ -15,8 +15,10 @@ of ProtSTonKGs.  Differences from BERT kept on purpose:
 
 Inference runs the post-attention half of every full layer through the
 fused LN1 -> FFN -> LN2 kernel (``gelu_new``); training runs the training
-FFN kernel pair with explicit dropouts and LayerNorms between them.  The
-encoder is a list of layer dicts; the per-layer random plan (see
+FFN kernel pair with explicit dropouts and LayerNorms between them; a
+layer with quantized FFN leaves runs them unfused through the int8 dense
+(``models/bert.py::ffn_half``).  The encoder is a list of layer dicts;
+the per-layer random plan (see
 :func:`stonkgs_tpu_torch.ops.bigbird_sparse.build_rand_attn`) is indexed
 by the loop.  Layer remat raises ``NotImplementedError``.
 """
@@ -41,6 +43,7 @@ from stonkgs_tpu_torch.models.bert import (
     check_no_remat,
     dense,
     dropout,
+    ffn_half,
     layer_norm,
 )
 from stonkgs_tpu_torch.ops.attention import dot_product_attention, plain_attention
@@ -50,7 +53,6 @@ from stonkgs_tpu_torch.ops.bigbird_sparse import (
     build_rand_attn,
     plan_to_device,
 )
-from stonkgs_tpu_torch.ops.fused_ffn import fused_ffn, fused_ffn_ln_block
 
 
 def init_bigbird_params(gen: torch.Generator, cfg: BigBirdConfig,
@@ -161,23 +163,12 @@ def _attention(x, ap, cfg, attn_type, mask_f, attn_bias, plan, deterministic, rn
 
 
 def _layer(x, lp, cfg, attn_type, mask_f, attn_bias, plan, deterministic, rng):
-    """One post-LN BigBird layer (``stonkgs_tpu/models/bigbird.py:178-268``)."""
-    ap = lp["attention"]
-    attn_out = _attention(x, ap, cfg, attn_type, mask_f, attn_bias, plan, deterministic, rng)
-    if deterministic:
-        return fused_ffn_ln_block(
-            x, attn_out,
-            ap["output_layer_norm"]["scale"], ap["output_layer_norm"]["bias"],
-            lp["intermediate"]["kernel"], lp["intermediate"]["bias"],
-            lp["output"]["kernel"], lp["output"]["bias"],
-            lp["output_layer_norm"]["scale"], lp["output_layer_norm"]["bias"],
-            act=cfg.hidden_act, eps=cfg.layer_norm_eps)
-    attn_out = dropout(attn_out, cfg.hidden_dropout_prob, rng, deterministic)
-    x = layer_norm(x + attn_out, ap["output_layer_norm"], cfg.layer_norm_eps)
-    ff = fused_ffn(x, lp["intermediate"]["kernel"], lp["intermediate"]["bias"],
-                   lp["output"]["kernel"], lp["output"]["bias"], act=cfg.hidden_act)
-    ff = dropout(ff, cfg.hidden_dropout_prob, rng, deterministic)
-    return layer_norm(x + ff, lp["output_layer_norm"], cfg.layer_norm_eps)
+    """One post-LN BigBird layer (``stonkgs_tpu/models/bigbird.py:178-268``);
+    its post-attention half is BERT's (fused, or unfused for quantized
+    FFN leaves)."""
+    attn_out = _attention(x, lp["attention"], cfg, attn_type, mask_f, attn_bias, plan,
+                          deterministic, rng)
+    return ffn_half(x, attn_out, lp, cfg, deterministic, rng)
 
 
 def _layer_cls(x, lp, cfg, attn_type, mask_f, attn_bias):

@@ -3,7 +3,9 @@
 The JAX package keeps a BERT's (or BigBird's) layers stacked on a leading
 axis of every ``encoder`` leaf; the port keeps a list of per-layer dicts.  Every other
 layout is shared (dense kernels are ``(in, out)`` in both), so the
-conversion unstacks the encoder and turns numpy leaves into fp32 tensors.
+conversion unstacks the encoder and turns numpy leaves into tensors:
+floating leaves fp32, integer leaves (the int8 ``kernel_q`` of a quantized
+tree) in their own dtype.
 The input is a tree of numpy arrays (``jax.tree.map(np.asarray, params)``),
 so this module needs no JAX.
 """
@@ -16,10 +18,14 @@ import numpy as np
 import torch
 
 from stonkgs_tpu_torch.config import BertConfig, BigBirdConfig, ProtSTonKGsConfig, STonKGsConfig
+from stonkgs_tpu_torch.ops.quantization import is_quantized, quantized_to
 from stonkgs_tpu_torch.utils.tree import tree_map
 
 
 def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.from_numpy(np.array(a))
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
@@ -84,5 +90,14 @@ def params_from_jax(tree: dict, cfg: STonKGsConfig) -> dict:
 
 
 def params_to(params: Any, device=None, dtype: torch.dtype | None = None) -> Any:
-    """Move (and optionally cast) every tensor of a parameter tree."""
-    return tree_map(lambda t: t.to(device=device, dtype=dtype), params)
+    """Move every tensor of a parameter tree, and cast its floating tensors
+    to ``dtype`` when one is given.  Integer tensors keep their dtype; a
+    quantized dense moves as :func:`~stonkgs_tpu_torch.ops.quantization.
+    quantized_to` says (its scale and bias stay fp32)."""
+    def move(t):
+        if is_quantized(t):
+            return quantized_to(t, device)
+        return t.to(device=device,
+                    dtype=dtype if dtype is not None and t.is_floating_point() else None)
+
+    return tree_map(move, params, is_leaf=is_quantized)

@@ -7,15 +7,20 @@ to matching leaves.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """The tree with ``fn`` applied to every leaf (tuples become lists)."""
+def tree_map(fn: Callable, tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
+    """The tree with ``fn`` applied to every leaf (tuples become lists).
+
+    ``is_leaf``, as in ``jax.tree.map``: a subtree for which it is true is
+    handed to ``fn`` whole."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
+        return [tree_map(fn, v, is_leaf) for v in tree]
     return fn(tree)
 
 

@@ -32,6 +32,8 @@ def test_import_pulls_in_no_jax():
         "from stonkgs_tpu_torch.api import prot_inference\n"
         "from stonkgs_tpu_torch.models import bigbird, protstonkgs\n"
         "from stonkgs_tpu_torch.ops import bigbird_sparse\n"
+        "from stonkgs_tpu_torch.ops import quantization\n"
+        "from stonkgs_tpu_torch.benchmarks import bench_int8_embed, bench_int8_gemm\n"
         "new = sorted(set(sys.modules) - before)\n"
         "print('\\n'.join(new))\n"
     )
@@ -41,6 +43,8 @@ def test_import_pulls_in_no_jax():
     assert "stonkgs_tpu_torch.train.pretraining" in out
     assert "stonkgs_tpu_torch.models.protstonkgs" in out
     assert "stonkgs_tpu_torch.ops.bigbird_sparse" in out
+    assert "stonkgs_tpu_torch.ops.quantization" in out
+    assert "stonkgs_tpu_torch.benchmarks.bench_int8_gemm" in out
     assert [m for m in out if _forbidden(m)] == []
 
 

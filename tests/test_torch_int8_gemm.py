@@ -1,0 +1,77 @@
+"""The int8 GEMM probe's plain version against numpy and the JAX probe's
+XLA variant, on the CPU.
+
+On a CPU tensor ``int8_gemm`` runs its plain version: int8 -> int32 through
+an fp64 matmul, exact while |C| < 2^53, and bf16 -> fp32 through an fp32
+matmul.  The CUDA kernel is held against the plain version on the card
+by ``chip_smoke.py``.  Tolerance of the bf16 control: products of bf16
+values are exact in fp32, only the order of the fp32 sums differs, so
+1e-5 relative to the largest value.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from stonkgs_tpu_torch.benchmarks import bench_int8_gemm as probe
+
+
+def _int8(rng, shape):
+    return rng.integers(-127, 127, shape).astype(np.int8)
+
+
+@pytest.mark.parametrize("tiles", probe.TILES)
+def test_int8_plain_is_exact(tiles):
+    """At one tile of every instantiated shape, and at 127 x 127 products
+    summed over K = 1,024 (the largest sums the test can make cheaply)."""
+    rng = np.random.default_rng(0)
+    bm, bn, bk = tiles
+    a, b = _int8(rng, (bm, 2 * bk)), _int8(rng, (2 * bk, bn))
+    launches = probe.int8_gemm.launches
+    got = probe.int8_gemm(torch.from_numpy(a), torch.from_numpy(b), tiles)
+    assert probe.int8_gemm.launches == launches      # CPU: no kernel
+    assert got.dtype == torch.int32 and got.shape == (bm, bn)
+    np.testing.assert_array_equal(got.numpy(), a.astype(np.int64) @ b.astype(np.int64))
+    xla = jax.lax.dot_general(jnp.asarray(a), jnp.asarray(b), (((1,), (0,)), ((), ())),
+                              preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(xla))
+
+
+def test_int8_plain_at_the_extremes():
+    a = np.full((64, 1024), -127, np.int8)
+    b = np.full((1024, 128), 127, np.int8)
+    got = probe.int8_gemm(torch.from_numpy(a), torch.from_numpy(b), (64, 128, 64))
+    assert int(got.min()) == int(got.max()) == -127 * 127 * 1024
+
+
+def test_bf16_plain_matches_fp32_product():
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=(128, 256)).astype(np.float32)
+    b = rng.normal(size=(256, 128)).astype(np.float32)
+    ta, tb = torch.from_numpy(a).to(torch.bfloat16), torch.from_numpy(b).to(torch.bfloat16)
+    got = probe.int8_gemm(ta, tb, (128, 128, 64))
+    assert got.dtype == torch.float32
+    want = ta.float().numpy().astype(np.float64) @ tb.float().numpy().astype(np.float64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_tile_shapes_and_operands_are_checked():
+    a8 = torch.zeros(128, 128, dtype=torch.int8)
+    with pytest.raises(ValueError, match="do not divide"):
+        probe.int8_gemm(a8[:100], a8, (64, 128, 64))          # M % bm
+    with pytest.raises(ValueError, match="do not divide"):
+        probe.int8_gemm(a8, torch.zeros(128, 96, dtype=torch.int8), (64, 128, 64))  # N % bn
+    with pytest.raises(ValueError, match="do not divide"):
+        probe.int8_gemm(a8[:, :96], torch.zeros(96, 128, dtype=torch.int8),
+                        (64, 128, 64))                          # K % bk
+    with pytest.raises(ValueError, match="not instantiated"):
+        probe.int8_gemm(a8, a8, (512, 512, 1024))               # a TPU tile
+    with pytest.raises(TypeError):
+        probe.int8_gemm(a8, a8.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="A \\(M, K\\)"):
+        probe.int8_gemm(a8, torch.zeros(64, 128, dtype=torch.int8))
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        probe.main(size=1000)
