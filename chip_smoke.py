@@ -8,13 +8,21 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. device: the card's name and power limit (nvidia-smi); CUDA must exist;
 2. build: every CUDA source of ``stonkgs_tpu_torch/csrc`` with nvcc, all
-   started together, with ptxas's register and spill report;
+   started together, with ptxas's register and spill report (fatal if the
+   Hopper attention forward spills);
 3. kernels: the serving kernels against their plain PyTorch versions on
    the card, in bf16 and fp32, at the serving paths' shapes (the FFN
    block at H=768 with gelu and gelu_new and at ProtBERT's H=1024;
-   attention up to S=1024 and at ProtBERT's S=3072 with 16 heads);
+   attention up to S=1024 and at ProtBERT's S=3072 with 16 heads), then
+   the bf16 attention at the edges of its 128-row tiles (S = 63, 64, 65,
+   127, 128, 129, 200, 3000; B=H=1 and B=8; masked, unmasked, and a row
+   whose keys are all at -1e9); bf16 attention outputs are also held
+   within one bf16 step of the output's scale (``ATTN_STEP``), and at
+   S=3000 that limit must reject the plain output without one key tile;
 4. training kernels: the attention pair (rate 0 and 0.1, S = 1, 260, 512,
-   1024; the forward at S=3072, 16 heads) and the FFN pair (M = 0, 3,
+   1024; the forward also at S = 129 and 300, and at S=3072 with 16
+   heads, where the output limit must reject a missing keep scale) and
+   the FFN pair (M = 0, 3,
    8,192, 16,384; the forward at H=1024, M = 3 and 6,144), forward and
    backward, against their plain versions, in bf16 and fp32;
 5. serving: ``STonKGsEngine.embed`` at full BERT-base width (backbone and
@@ -23,7 +31,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    kernels' launch counts, finite output, the card in fp32 against the
    CPU in fp32, and the card in bf16 against the CPU in fp32;
 6. timing: embed throughput, and each serving kernel's time at the path's
-   shapes beside its bound, its plain version and PyTorch's SDPA;
+   shapes beside its bound, its plain version and PyTorch's SDPA (for
+   attention also its TFLOP/s and its time as a multiple of SDPA's);
 7. training: ``pretrain`` at full width (B=32, fp32 parameters, bf16
    compute, synthetic batches with int(0.15*len) masked positions per
    half); checks the training kernels' launch counts, a finite loss at
@@ -88,6 +97,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -154,6 +164,11 @@ HBM_BYTES_PER_S = 3.35e12
 # round an intermediate or the output to the other neighbour (one bf16
 # step is 2^-7 relative)
 TOL = {F32: dict(atol=1e-4, rtol=0.0), BF16: dict(atol=2e-2, rtol=1e-2)}
+# the bf16 attention output, besides TOL, elementwise within one bf16 step
+# (2^-7) of max |plain| plus one step of itself: at long S the output is
+# small (rms about sqrt(e / S), 0.03 at S=3072), where TOL's atol alone
+# would pass a missing dropout keep scale or a dropped key tile
+ATTN_STEP = 2.0 ** -7
 # gradients and backward outputs are sums over up to 1,024 rows of
 # products of rounded operands, so their error grows with their size:
 # the tolerance is relative to the largest value (fp32: sums in another
@@ -212,6 +227,33 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line.lower():
                 log(f"# ptxas {name}: {line.strip()}")
+    # the Hopper attention forward must not spill (both instantiations)
+    for name in ("flash_attention_infer", "flash_attention_train"):
+        if name not in _build.build_logs:
+            log(f"# ptxas {name}: library not rebuilt, no report to check")
+            continue
+        spills = _ptxas_spills(_build.build_logs[name])
+        found = {f: n for f, n in spills.items() if "attn_fwd_sm90_kernel" in f}
+        check(bool(found), f"{name}: no ptxas report for attn_fwd_sm90_kernel")
+        for fn, (stores, loads) in found.items():
+            check(stores == 0 and loads == 0,
+                  f"{name}: {fn} spills ({stores} bytes stored, {loads} loaded)")
+        log(f"# ptxas {name}: attn_fwd_sm90_kernel x{len(found)} without spills")
+
+
+def _ptxas_spills(text: str) -> dict:
+    """{function: (spill store bytes, spill load bytes)} from ptxas -v."""
+    spills, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn is not None:
+            spills[fn] = (int(m.group(1)), int(m.group(2)))
+            fn = None
+    return spills
 
 
 def _bias(B: int, S: int, gen: torch.Generator) -> tuple:
@@ -256,6 +298,35 @@ def _compare(name, got, want, dtype) -> float:
     return err
 
 
+def _attn_within(got, want) -> tuple:
+    """(max |got - want|, max |want|, ok) under the ATTN_STEP limit."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max()) if w.numel() else 0.0
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    ok = bool(((g - w).abs() <= ATTN_STEP * (scale + w.abs())).all())
+    return err, scale, ok
+
+
+def _compare_attn(name, got, want, dtype) -> float:
+    """An attention output: TOL, and for bf16 also the ATTN_STEP limit."""
+    err = _compare(name, got, want, dtype)
+    if dtype == BF16:
+        _, scale, ok = _attn_within(got, want)
+        log(f"# check {name}: max_abs_err {err!r} max|plain| {scale!r} limit "
+            f"{ATTN_STEP!r}*(max|plain|+|plain|) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name}: kernel disagrees with its plain version (scaled limit)")
+    return err
+
+
+def _attn_limit_rejects(name, want, wrong) -> None:
+    """Fail unless the ATTN_STEP limit tells ``wrong`` (a known kernel
+    fault applied to the plain output) from ``want``."""
+    err, scale, ok = _attn_within(wrong, want)
+    log(f"# check {name}: max_abs_err {err!r} max|plain| {scale!r} "
+        f"{'passes: FAIL' if ok else 'rejected: ok'}")
+    check(not ok, f"{name}: the attention limit does not catch this fault")
+
+
 def _compare_rel(name, got, want, dtype) -> float:
     """got vs want within GRAD_TOL[dtype] times max(1, max |want|)."""
     torch.cuda.synchronize()
@@ -284,7 +355,7 @@ def phase_kernels() -> dict:
         for S in (1, 256, 260, 320, 384, 512, 1024):
             for masked in (True, False):
                 q, k, v, bias, _ = _attn_inputs(8, S, dtype, gen, masked)
-                err = _compare(
+                err = _compare_attn(
                     f"attention {tag} B=8 S={S} {'mask' if masked else 'no-bias'}",
                     flash_attention_infer(q, k, v, bias),
                     flash_attention_infer_plain(q, k, v, bias), dtype)
@@ -305,12 +376,37 @@ def phase_kernels() -> dict:
                 errs["ffn_ln_block"] = max(errs.get("ffn_ln_block", 0.0), err)
         # ProtBERT's attention: S=3072, 16 heads, no mask
         q, k, v, _, _ = _attn_inputs(8, 3072, dtype, gen, masked=False, H=16)
-        err = _compare(f"attention {tag} B=8 S=3072 H=16 no-bias",
+        err = _compare_attn(f"attention {tag} B=8 S=3072 H=16 no-bias",
                        flash_attention_infer(q, k, v), flash_attention_infer_plain(q, k, v),
                        dtype)
         if dtype == BF16:
             errs["flash_attention_infer"] = max(errs["flash_attention_infer"], err)
+    _attention_edges(gen)
     return errs
+
+
+def _attention_edges(gen) -> None:
+    """The bf16 kernel at the edges of its 128-row and 128-key tiles: S
+    one under, at and one over 64 and 128, 200 and 3000; one head of one
+    row and B=8 with 12 heads; masked and not, and masked with batch row
+    0's keys all at -1e9 (a uniform softmax on both sides)."""
+    for S in (63, 64, 65, 127, 128, 129, 200, 3000):
+        for B, H in ((1, 1), (8, 12)):
+            for masked in (True, False):
+                q, k, v, bias, _ = _attn_inputs(B, S, BF16, gen, masked, H)
+                label = f"attention bf16 edge B={B} H={H} S={S} {'mask' if masked else 'no-bias'}"
+                want = flash_attention_infer_plain(q, k, v, bias)
+                _compare_attn(label, flash_attention_infer(q, k, v, bias), want, BF16)
+                if S == 3000 and B > 1 and not masked:
+                    # the plain output with the second key tile left out
+                    cut = torch.zeros(B, 1, 1, S, device=DEV)
+                    cut[..., 128:256] = -1e9
+                    _attn_limit_rejects(label + " without keys 128-255", want,
+                                        flash_attention_infer_plain(q, k, v, cut))
+                if masked and B > 1:
+                    bias[0] = -1e9
+                    _compare_attn(label + " row 0 all -1e9", flash_attention_infer(q, k, v, bias),
+                                  flash_attention_infer_plain(q, k, v, bias), BF16)
 
 
 def _train_attn_inputs(B, S, dtype, gen, masked=True, H=12):
@@ -349,7 +445,7 @@ def phase_train_kernels() -> dict:
                 label = f"{tag} B={B} S={S} rate={rate}"
                 out, lse = flash_attention_train_fwd(q, k, v, bias, seed, rate)
                 out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, bias, seed, rate)
-                e = max(_compare(f"attention fwd {label}", out, out_p, dtype),
+                e = max(_compare_attn(f"attention fwd {label}", out, out_p, dtype),
                         _compare(f"attention lse {label}", lse, lse_p, F32))
                 note("flash_attention_train_fwd", e, dtype, S == 512)
                 # both backwards from the plain forward's out and lse
@@ -359,15 +455,30 @@ def phase_train_kernels() -> dict:
                 e = max(_compare_rel(f"attention {n} {label}", g, w, dtype if n != "db" else F32)
                         for n, g, w in zip(("dq", "dk", "dv", "db"), got, want))
                 note("flash_attention_train_bwd", e, dtype, S == 512)
-        # ProtBERT's attention in training: S=3072, 16 heads, rate 0.1
-        q, k, v, _, _, seed, _ = _train_attn_inputs(2, 3072, dtype, gen, False, H=16)
-        out, lse = flash_attention_train_fwd(q, k, v, None, seed, ATTN_RATE)
-        out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, None, seed, ATTN_RATE)
-        label = f"{tag} B=2 S=3072 H=16 rate={ATTN_RATE}"
-        e = max(_compare(f"attention fwd {label}", out, out_p, dtype),
-                _compare(f"attention lse {label}", lse, lse_p, F32))
-        note("flash_attention_train_fwd", e, dtype, True)
-        del q, k, v, out, lse, out_p, lse_p
+        # the forward across a 128-key tile (S=129) and with the TPU
+        # kernel's padded keys (S=300, S_pad=512)
+        for S in (129, 300):
+            for rate in (0.0, ATTN_RATE):
+                q, k, v, bias, _, seed, _ = _train_attn_inputs(8, S, dtype, gen)
+                label = f"{tag} B=8 S={S} rate={rate}"
+                out, lse = flash_attention_train_fwd(q, k, v, bias, seed, rate)
+                out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, bias, seed, rate)
+                _compare_attn(f"attention fwd {label}", out, out_p, dtype)
+                _compare(f"attention lse {label}", lse, lse_p, F32)
+        # ProtBERT's attention in training: S=3072, 16 heads, rate 0.1 and 0
+        for rate in (ATTN_RATE, 0.0):
+            q, k, v, _, _, seed, _ = _train_attn_inputs(2, 3072, dtype, gen, False, H=16)
+            out, lse = flash_attention_train_fwd(q, k, v, None, seed, rate)
+            out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, None, seed, rate)
+            label = f"{tag} B=2 S=3072 H=16 rate={rate}"
+            e = max(_compare_attn(f"attention fwd {label}", out, out_p, dtype),
+                    _compare(f"attention lse {label}", lse, lse_p, F32))
+            note("flash_attention_train_fwd", e, dtype, True)
+            if dtype == BF16 and rate > 0:
+                # the kept probabilities without their 1/(1-rate) scale
+                _attn_limit_rejects(f"attention fwd {label} without the keep scale", out_p,
+                                    (out_p.float() * (1.0 - rate)).to(BF16))
+            del q, k, v, out, lse, out_p, lse_p
         # the frozen ProtBERT's FFN forward (H=1024)
         for M in (3, 6144):
             x, w1, b1, w2, b2, _ = _train_ffn_inputs(M, dtype, gen, 1024, 4096)
@@ -570,17 +681,25 @@ def _time_attention(label: str, B: int, S: int, masked: bool, gen, H=12) -> dict
     flops = 4.0 * B * H * S * S * D
     nbytes = 4 * B * S * H * D * 2 + (B * S * 4 if masked else 0)
     bound, by = _bound_ms(flops, nbytes, BF16)
-    err = _compare(f"attention bf16 {label}", flash_attention_infer(q, k, v, bias),
-                   flash_attention_infer_plain(q, k, v, bias), BF16)
+    err = _compare_attn(f"attention bf16 {label}", flash_attention_infer(q, k, v, bias),
+                        flash_attention_infer_plain(q, k, v, bias), BF16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # views, no copy
     mask = None if keep is None else keep[:, None, None, :]
-    return dict(max_abs_err=err,
-                ms=_time_ms(lambda: flash_attention_infer(q, k, v, bias)),
-                plain_ms=_time_ms(lambda: flash_attention_infer_plain(q, k, v, bias),
-                                  iters=3),
-                bound_ms=bound, bound_by=by,
-                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask)))
+    t = dict(max_abs_err=err,
+             ms=_time_ms(lambda: flash_attention_infer(q, k, v, bias)),
+             plain_ms=_time_ms(lambda: flash_attention_infer_plain(q, k, v, bias), iters=3),
+             bound_ms=bound, bound_by=by,
+             library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=mask)))
+    _log_attention_rate(f"flash_attention_infer {label}", flops, t)
+    return t
+
+
+def _log_attention_rate(label: str, flops: float, t: dict) -> None:
+    """The kernel's TFLOP/s at the counted products and its time as a
+    multiple of SDPA's."""
+    log(f"# rate {label}: {flops / (t['ms'] * 1e-3) / 1e12!r} TFLOP/s at "
+        f"{flops:.4g} flops; {t['ms'] / t['library_ms']!r} x SDPA")
 
 
 def phase_timing(cfg: STonKGsConfig, engine, bucketed, feats) -> dict:
@@ -768,16 +887,17 @@ def _time_train_attention(label, B, S, masked, gen, backward, H=12) -> dict:
     kb = B * S * 4 if masked else 0
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None if keep is None else keep[:, None, None, :]
+    flops = (10.0 if backward else 4.0) * B * H * S * S * D
     if not backward:
-        bound, by = _bound_ms(4.0 * B * H * S * S * D, 4 * io + stats + kb, BF16)
+        bound, by = _bound_ms(flops, 4 * io + stats + kb, BF16)
         fn = lambda: flash_attention_train_fwd(q, k, v, bias, seed, ATTN_RATE)  # noqa: E731
         plain = lambda: flash_attention_train_fwd_plain(q, k, v, bias, seed, ATTN_RATE)  # noqa: E731
-        err = _compare(f"attention fwd bf16 {label}", fn()[0], plain()[0], BF16)
+        err = _compare_attn(f"attention fwd bf16 {label}", fn()[0], plain()[0], BF16)
         lib = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
     else:
         out, lse = flash_attention_train_fwd(q, k, v, bias, seed, ATTN_RATE)
         # the path's bias takes no gradient: no db
-        bound, by = _bound_ms(10.0 * B * H * S * S * D, 8 * io + stats + kb, BF16)
+        bound, by = _bound_ms(flops, 8 * io + stats + kb, BF16)
         fn = lambda: flash_attention_train_bwd(  # noqa: E731
             q, k, v, bias, out, lse, do, seed, ATTN_RATE, need_db=False)
         plain = lambda: flash_attention_train_bwd_plain(  # noqa: E731
@@ -792,8 +912,11 @@ def _time_train_attention(label, B, S, masked, gen, backward, H=12) -> dict:
             torch.autograd.grad(o, (qg, kg, vg), dot)
         lib = _time_ms(sdpa_fwd_bwd) - _time_ms(
             lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask))
-    return dict(max_abs_err=err, ms=_time_ms(fn), plain_ms=_time_ms(plain, iters=3),
-                bound_ms=bound, bound_by=by, library_ms=lib)
+    t = dict(max_abs_err=err, ms=_time_ms(fn), plain_ms=_time_ms(plain, iters=3),
+             bound_ms=bound, bound_by=by, library_ms=lib)
+    _log_attention_rate(f"flash_attention_train_{'bwd' if backward else 'fwd'} {label}", flops,
+                        t)
+    return t
 
 
 def _time_train_ffn(label, M, gen, backward, H=768, I=3072) -> dict:

@@ -43,11 +43,12 @@ from stonkgs_tpu_torch.train import pretraining
 from stonkgs_tpu_torch.train.optimizer import AdamW
 from stonkgs_tpu_torch.utils.convert import params_to
 
-# kernel-name prefixes of the port's own CUDA kernels (csrc/*.cu); the
-# two forward templates serve two entry points each, told apart by their
-# second template argument (kTrain, kLN)
+# kernel-name prefixes of the port's own CUDA kernels (csrc/*.cu, *.cuh);
+# the forward templates serve two entry points each, told apart by their
+# first bool template argument (kTrain, kLN)
 PORT_KERNELS = {
     "attn_fwd_kernel": ("flash_attention_infer", "flash_attention_train_fwd"),
+    "attn_fwd_sm90_kernel": ("flash_attention_infer", "flash_attention_train_fwd"),
     "attn_bwd_delta_kernel": "flash_attention_train_bwd",
     "attn_bwd_dq_kernel": "flash_attention_train_bwd",
     "attn_bwd_dkdv_kernel": "flash_attention_train_bwd",
@@ -67,7 +68,8 @@ def group_of(name: str) -> str:
     for prefix, group in PORT_KERNELS.items():
         if base.startswith(prefix):
             if isinstance(group, tuple):
-                flag = name.split("<", 1)[1].split(">", 1)[0].split(",")[1].strip()
+                args = name.split("<", 1)[1].split(">", 1)[0].split(",")
+                flag = next(a.strip() for a in args if a.strip() in ("true", "false"))
                 return group[flag == "true"]
             return group
     if any(m in name.lower() for m in GEMM_MARKS):

@@ -1,16 +1,18 @@
 // Pieces shared by the attention kernels (flash_attention_infer.cu and
 // flash_attention_train.cu): 64-row tiles of the (B, S, H, D=64) layout in
-// shared memory, the two per-warp tile products, the dropout hash, and the
-// forward kernel that both the inference and the training entry points
-// launch.
+// shared memory, the two per-warp tile products, the dropout hash, the
+// backward's helpers, and the fp32 forward kernel.  The bf16 forward is
+// the Hopper kernel of attention_sm90.cuh (wgmma and TMA); no bf16
+// instance of the forward below exists.
 //
 // A block has 4 warps; in a product each warp owns 16 rows of the block's
 // 64-row tile:
 //   score_tile: sw (16 x 64, fp32) = A_w (16 x D) . B^T, B a 64 x D tile;
 //   PvAcc:      acc (16 x D, fp32) += P_w (16 x 64) . V, V a 64 x D tile.
-// bf16 products use the tensor cores through nvcuda::wmma (16x16x16, fp32
-// accumulation); fp32 products are plain FMAs (that instantiation exists
-// to hold the whole model against the CPU).
+// bf16 products (the backward's) use the tensor cores through
+// nvcuda::wmma (16x16x16, fp32 accumulation); fp32 products are plain
+// FMAs (that instantiation exists to hold the whole model against the
+// CPU).
 
 #pragma once
 
@@ -214,7 +216,7 @@ struct Dropout {
   }
 };
 
-// The forward attention kernel: out = dropout(softmax(Q K^T * scale +
+// The fp32 forward attention kernel: out = dropout(softmax(Q K^T * scale +
 // key_bias)) V over (B, S, H, D), one block per (64-row query tile, head,
 // batch), K streamed through shared memory in 64-key tiles twice:
 //   pass 1: S = Q K^T; each row's running max m and sum l of exp(s - m),
@@ -227,11 +229,13 @@ struct Dropout {
 // logsumexp m + log(l) per row into lse (B, H, S), the dropout, and the
 // TPU kernel's padded keys (s_pad - S keys of score -1e9, which matter
 // only for a row whose every key is masked).
-template <typename T, bool kTrain>
+template <bool kTrain>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const float* __restrict__ key_bias, T* __restrict__ out,
-                float* __restrict__ lse, int S, int H, float scale, Dropout drop) {
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ key_bias,
+                float* __restrict__ out, float* __restrict__ lse, int S, int H, float scale,
+                Dropout drop) {
+  using T = float;
   using Z = Sizes<T>;
   constexpr int TS = Z::TS;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
@@ -321,25 +325,24 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
 // Shared memory of attn_fwd_kernel: q, k, v tiles, score staging,
 // probability tiles, bias tile.
-template <typename T>
 constexpr size_t fwd_smem_bytes() {
-  using Z = Sizes<T>;
+  using Z = Sizes<float>;
   return 3 * Z::tile + Z::stage + Z::wtile + Z::vec;
 }
 
-template <typename T, bool kTrain>
-int launch_fwd(const void* q, const void* k, const void* v, const float* key_bias, void* out,
-               float* lse, int B, int S, int H, float scale, Dropout drop,
-               cudaStream_t stream) {
+template <bool kTrain>
+int launch_fwd_f32(const void* q, const void* k, const void* v, const float* key_bias,
+                   void* out, float* lse, int B, int S, int H, float scale, Dropout drop,
+                   cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
-  constexpr size_t smem = fwd_smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<T, kTrain>,
+  constexpr size_t smem = fwd_smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<kTrain>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  attn_fwd_kernel<T, kTrain><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_bias,
-      static_cast<T*>(out), lse, S, H, scale, drop);
+  attn_fwd_kernel<kTrain><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      key_bias, static_cast<float*>(out), lse, S, H, scale, drop);
   return int(cudaGetLastError());
 }
 

@@ -2,16 +2,24 @@
 // v and out in the (B, S, H, D=64) layout, read with strides.
 //
 // Replaces the TPU kernel _infer_kernel
-// (stonkgs_tpu/ops/flash_attention.py:359).  Bound on the H100 by the bytes
-// of q, k, v and out at the trunk's shape (or by operations, 4*B*H*S^2*D,
-// at longer S); see stonkgs_tpu_torch/ops/flash_attention.py for the
-// design note.
+// (stonkgs_tpu/ops/flash_attention.py:359).  The table's bound on the H100
+// is the bytes of q, k, v and out at the trunk's shape (or operations,
+// 4*B*H*S^2*D, at longer S); the design's own floor is higher: two passes
+// over the keys (the TPU kernel normalises, then rounds, which rules out
+// the online softmax) make three products (QK^T twice, PV once) and two
+// exps a score, and at D=64 the SFU's exps cost about as much as the
+// products.  Design note: stonkgs_tpu_torch/ops/flash_attention.py.
 //
-// The kernel is attn_fwd_kernel<T, false> of attention.cuh: one block per
-// (64-row query tile, head, batch) with 4 warps, K streamed through shared
-// memory twice (row statistics, then normalised P rounded to T and P V).
-// Keys >= S take no part.  About 54 KB of shared memory (bf16), so four
-// blocks share an SM.
+// bf16: attn_fwd_sm90_kernel<false> of attention_sm90.cuh, for Hopper: a
+// block per 128 query rows of one (b, h); a producer warpgroup streams
+// 128-key tiles (and their key bias) through a 3-stage TMA ring; two
+// consumer warpgroups run S = Q K^T and O += P V as wgmma, P from
+// registers, the softmax in registers.  Numerics: exp2 on the SFU and a
+// per-row reciprocal instead of an IEEE exp and a division per score
+// (a bf16 probability moves by at most one step at a rounding boundary).
+// fp32: attn_fwd_kernel<false> of attention.cuh, the SIMT body (64-row
+// tiles, K streamed twice), which holds the model against the CPU.
+// Keys >= S take no part; rows >= S are not written.
 //
 // C interface:
 //   int flash_attention_infer(int dtype /*0 fp32, 1 bf16*/, q, k, v,
@@ -20,7 +28,7 @@
 //                             cudaStream_t stream)
 // returns cudaGetLastError() after the launch.
 
-#include "attention.cuh"
+#include "attention_sm90.cuh"
 
 extern "C" int flash_attention_infer(int dtype, const void* q, const void* k, const void* v,
                                      const float* key_bias, void* out, int B, int S, int H,
@@ -29,9 +37,9 @@ extern "C" int flash_attention_infer(int dtype, const void* q, const void* k, co
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout none{};
   if (dtype == 0)
-    return launch_fwd<float, false>(q, k, v, key_bias, out, nullptr, B, S, H, scale, none, s);
+    return launch_fwd_f32<false>(q, k, v, key_bias, out, nullptr, B, S, H, scale, none, s);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, false>(q, k, v, key_bias, out, nullptr, B, S, H, scale,
-                                            none, s);
+    return stonkgs::attn90::launch_fwd_sm90<false>(q, k, v, key_bias, out, nullptr, B, S, H,
+                                                   scale, none, s);
   return int(cudaErrorInvalidValue);
 }

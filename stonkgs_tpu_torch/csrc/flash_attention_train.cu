@@ -7,8 +7,15 @@
 // :69).  Bounds on the H100 and the design are in
 // stonkgs_tpu_torch/ops/flash_attention.py.
 //
-// Forward: attn_fwd_kernel<T, true> of attention.cuh (two passes over K;
-// writes O and the fp32 logsumexp).
+// Forward (writes O and the fp32 logsumexp; two passes over the keys, so
+// three products and two exps a score, plus the dropout hash of each
+// score's position): in bf16 the Hopper kernel attn_fwd_sm90_kernel<true>
+// of attention_sm90.cuh (TMA ring fed by a producer warpgroup, wgmma
+// products, S and P in registers, exp2 on the SFU and a per-row
+// reciprocal: a bf16 probability moves by at most one step at a rounding
+// boundary); in fp32 the SIMT body attn_fwd_kernel<true> of
+// attention.cuh.  The TPU kernel's S_pad - S padded keys enter each
+// row's max and sum analytically.
 //
 // Backward, three launches on the stream:
 //   1. delta = rowsum(dO * O) in fp32, one warp per (b, s, h) row;
@@ -43,7 +50,7 @@
 //       cudaStream_t stream)
 // each returns cudaGetLastError() after its launches.
 
-#include "attention.cuh"
+#include "attention_sm90.cuh"
 
 namespace stonkgs {
 namespace attn {
@@ -296,10 +303,10 @@ extern "C" int flash_attention_train_fwd(int dtype, const void* q, const void* k
   if (s_pad < S) return int(cudaErrorInvalidValue);
   const Dropout drop = make_dropout(dropout, s_pad, threshold, seed0, seed1, keep_scale);
   if (dtype == 0)
-    return launch_fwd<float, true>(q, k, v, key_bias, out, lse, B, S, H, scale, drop, st);
+    return launch_fwd_f32<true>(q, k, v, key_bias, out, lse, B, S, H, scale, drop, st);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, true>(q, k, v, key_bias, out, lse, B, S, H, scale, drop,
-                                           st);
+    return stonkgs::attn90::launch_fwd_sm90<true>(q, k, v, key_bias, out, lse, B, S, H, scale,
+                                                  drop, st);
   return int(cudaErrorInvalidValue);
 }
 

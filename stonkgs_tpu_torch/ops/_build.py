@@ -9,8 +9,8 @@ is built the first time a wrapper launches one of its kernels (or by
 
 Calling convention shared by every entry point: each pointer argument
 and the CUDA stream are ``ctypes.c_void_p``, and the function returns
-``cudaGetLastError()`` after its launch, which :func:`check` turns into
-an exception.
+``cudaGetLastError()`` after its launch (or a negative code of its own),
+which :func:`check` turns into an exception.
 """
 
 from __future__ import annotations
@@ -116,8 +116,15 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
         return lib
 
 
+# the port's own negative status codes (no cudaError_t is negative)
+_PORT_ERRORS = {-1: "cuTensorMapEncodeTiled could not encode a TMA tensor map"}
+
+
 def check(status: int, what: str) -> None:
-    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    """Raise if a C entry point returned a non-zero ``cudaError_t`` or one
+    of the port's own negative codes."""
+    if status in _PORT_ERRORS:
+        raise RuntimeError(f"{what}: {_PORT_ERRORS[status]} at launch")
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
 

@@ -17,25 +17,47 @@ of q, k, v and out (4 x 128·512·768 x 2 bytes), so bytes bound it
 Design: the TPU kernel runs one program per (batch, q-block) with all
 heads unrolled inside, because TPU grid steps run in order and each has
 a fixed cost.  On Hopper blocks run in parallel, so a block takes one
-(b, h, 64-row q tile): 12,288 blocks at the trunk's shape for 132 SMs.
-The block reads q, k and v straight from the (B, S, H, D) layout with
-strides (no transposes, no padding of S: rows and keys past S are masked
-inside the kernel).  Each of its four warps owns 16 query rows.  The TPU
-kernel's rounding (probabilities normalised, then rounded to the input
-dtype, ``flash_attention.py:375-385``) rules out the online softmax of
-flash attention, which rounds before it normalises.  The first version
-kept all fp32 score rows in shared memory (128 KB at S=512), which left
-one block of four warps per SM and ran 8.4 ms at the trunk's shape on an
-H100 SXM (700 W).  So
-K streams through shared memory twice in 64-key tiles: pass 1 computes
-each row's max and sum of exp, pass 2 recomputes the scores, normalises,
-rounds and accumulates P V in fp32.  That costs half again the QKᵀ
-products but needs ~54 KB, so four blocks share an SM.  bf16 products
-run on the tensor cores (``nvcuda::wmma``); the fp32 instantiation uses
-plain fp32 FMAs and exists to hold the whole model against the CPU.  The
-kernel takes any S >= 1 and D = 64, the head width of every model in the
-repo.  Its body is ``attn_fwd_kernel`` of ``csrc/attention.cuh``, which
-the training forward shares.
+(b, h, 128-row q tile): 6,144 blocks at the trunk's shape for 132 SMs.
+The TPU kernel's rounding (probabilities normalised, then rounded to the
+input dtype, ``flash_attention.py:375-385``) rules out the online softmax
+of flash attention, which rounds before it normalises.  So the kernel
+makes two passes over the keys: pass 1 forms each row's max and sum of
+exp, pass 2 recomputes the scores, normalises, rounds and accumulates
+P V in fp32.  That sets the design's own floor above the bound: three
+products (QKᵀ twice, PV once, 6·B·H·S²·D flops) and two exps a score.
+At D=64 one exp a score costs the SFU (16 ex2 a clock an SM) about as
+much time as one pass's products cost the tensor cores, so the kernel
+is bound by the SFU and the tensor cores together (at ProtBERT's B=8,
+S=3072, H=16: 1.21e9 scores, ~0.6 ms of exps and ~0.7 ms of products at
+a realistic 650 TFLOP/s).
+
+bf16 runs the Hopper kernel of ``csrc/attention_sm90.cuh`` (``sm_90a``):
+384 threads a block.  A producer warpgroup (``setmaxnreg.dec``) streams
+128-key tiles through a 3-stage ring of shared memory with TMA (one 4-D
+tensor map per tensor over the (B, S, H, D) layout, 128-byte swizzle;
+TMA zero-fills the ragged last tile) and writes each tile's key bias
+beside it (-inf for keys >= S, which masks them), with full/empty
+mbarriers; pass 1 streams K, pass 2 K and V.  Two consumer warpgroups
+(``setmaxnreg.inc``) own 64 query rows each: S = QKᵀ is
+``wgmma.m64n128k16`` from shared memory, O += PV is ``wgmma.m64n64k16``
+with P from registers (the S accumulator packed to bf16 pairs is already
+the A fragment) and V MN-major.  S and P never touch shared memory; the
+softmax runs in registers, a row's max and sum across the 4 lanes that
+hold it.  One consumer's exps overlap the other's products.
+
+Numerics of the bf16 kernel against the plain version: products summed
+in another order; each probability is exp2((s - m)·log2 e) on the SFU
+times the row's reciprocal 1/l, not an IEEE exp and a division per
+score.  Each moves the fp32 probability by a few ulps, so its bf16
+rounding moves by at most one step at a rounding boundary, inside the
+card's bf16 tolerance.  s, m and the logsumexp stay in the natural
+domain, so a row whose keys all carry the -1e9 bias gets the plain
+version's uniform probabilities.
+
+fp32 runs the SIMT body ``attn_fwd_kernel`` of ``csrc/attention.cuh``
+(64-row tiles, plain FMAs, an IEEE exp and division per score); it
+exists to hold the whole model against the CPU.  Both take any S >= 1
+and D = 64, the head width of every model in the repo.
 
 Training, with the TPU kernels' hash dropout
 ============================================
@@ -58,10 +80,13 @@ each output byte written once), at the pre-training step's shapes
   dO, lse and bias read; dq, dk, dv and db written): bound by operations,
   0.065 ms against 0.060 ms for the bytes.
 
-Design.  The forward is the inference kernel with three additions: the
-fp32 logsumexp of each row, the dropout of the normalised probabilities
-before they are rounded, and the TPU kernel's padded keys (S_pad - S keys
-of score -1e9, which change a row only when all its keys are masked).
+Design.  The forward is the inference kernel (the Hopper kernel in bf16,
+the SIMT body in fp32) with three additions: the fp32 logsumexp of each
+row, the dropout of the normalised probabilities before they are
+rounded (the hash of each score's position, ~12 integer operations a
+score on top of the floor above), and the TPU kernel's padded keys
+(S_pad - S keys of score -1e9, added to each row's max and sum
+analytically; they change a row only when all its keys are masked).
 The TPU backward runs one program per (b, h, q-block) and carries dK and
 dV across the sequential q-blocks in fp32 scratch.  Hopper blocks run in
 parallel, so the backward is three launches: a warp per row computes

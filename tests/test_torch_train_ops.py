@@ -55,14 +55,14 @@ def _attn_arrays(S, B=2, H=3, D=16, seed=0):
     return q, k, v, bias, w
 
 
-def _jax_attention(arrays, dtype, rate):
+def _jax_attention(arrays, dtype, rate, block_q=32):
     q, k, v, bias, w = arrays
     jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v))
 
     def loss(q, k, v, b):
         out = jflash.flash_attention_train(
             q, k, v, b, dropout_rate=rate, dropout_rng=jnp.asarray(SEED_WORDS),
-            block_q=32, interpret=True)
+            block_q=block_q, interpret=True)
         return jnp.sum(out.astype(jnp.float32) * w), out
 
     (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3), has_aux=True)(
@@ -70,27 +70,30 @@ def _jax_attention(arrays, dtype, rate):
     return out, grads
 
 
-def _torch_attention(arrays, dtype, rate):
+def _torch_attention(arrays, dtype, rate, block_q=32):
     q, k, v, bias, w = arrays
     tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype)).requires_grad_(True)
                   for a in (q, k, v))
     tb = torch.from_numpy(bias).requires_grad_(True)
     seed = torch.from_numpy(SEED_WORDS.view(np.int32))
     out = tflash.flash_attention_train(tq, tk, tv, tb, dropout_rate=rate, seed=seed,
-                                       block_q=32)
+                                       block_q=block_q)
     (out.float() * torch.from_numpy(w)).sum().backward()
     return out, (tq.grad, tk.grad, tv.grad, tb.grad)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S", [1, 40, 64])   # 40 pads to S_pad = 64
+# 40 pads to S_pad = 64 at block_q 32; 300 (one row, one head, to keep
+# interpret mode quick) to S_pad = 512 at the default block_q 256
+@pytest.mark.parametrize("S", [1, 40, 64, 300])
 def test_flash_attention_train_matches_pallas_kernel(S, dtype, rate):
-    arrays = _attn_arrays(S)
-    want_out, want_grads = _jax_attention(arrays, dtype, rate)
+    B, H, block_q = (1, 1, 256) if S == 300 else (2, 3, 32)
+    arrays = _attn_arrays(S, B, H)
+    want_out, want_grads = _jax_attention(arrays, dtype, rate, block_q)
     launches = (tflash.flash_attention_train_fwd.launches,
                 tflash.flash_attention_train_bwd.launches)
-    got_out, got_grads = _torch_attention(arrays, dtype, rate)
+    got_out, got_grads = _torch_attention(arrays, dtype, rate, block_q)
     assert (tflash.flash_attention_train_fwd.launches,
             tflash.flash_attention_train_bwd.launches) == launches  # CPU: no kernel
     assert got_out.dtype == getattr(torch, dtype)
