@@ -8,23 +8,29 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. device: the card's name and power limit (nvidia-smi); CUDA must exist;
 2. build: every CUDA source of ``stonkgs_tpu_torch/csrc`` with nvcc, all
-   started together, with ptxas's register and spill report (fatal if the
-   Hopper attention forward spills);
+   started together, with ptxas's register and spill report (fatal if any
+   Hopper kernel spills: the attention forward and backward, the FFN
+   block's GEMM and LayerNorm passes);
 3. kernels: the serving kernels against their plain PyTorch versions on
    the card, in bf16 and fp32, at the serving paths' shapes (the FFN
-   block at H=768 with gelu and gelu_new and at ProtBERT's H=1024;
+   block at H=768 with gelu and gelu_new and at ProtBERT's H=1024, at
+   M = 0, 1, 3, 127, 128, 129, 1,000, 6,144, 24,576, 32,768 and 65,536;
    attention up to S=1024 and at ProtBERT's S=3072 with 16 heads), then
    the bf16 attention at the edges of its 128-row tiles (S = 63, 64, 65,
    127, 128, 129, 200, 3000; B=H=1 and B=8; masked, unmasked, and a row
    whose keys are all at -1e9); bf16 attention outputs are also held
    within one bf16 step of the output's scale (``ATTN_STEP``), and at
    S=3000 that limit must reject the plain output without one key tile;
-4. training kernels: the attention pair (rate 0 and 0.1, S = 1, 260, 512,
-   1024; the forward also at S = 129 and 300, and at S=3072 with 16
-   heads, where the output limit must reject a missing keep scale) and
-   the FFN pair (M = 0, 3,
-   8,192, 16,384; the forward at H=1024, M = 3 and 6,144), forward and
-   backward, against their plain versions, in bf16 and fp32;
+4. training kernels: the attention forward (rate 0 and 0.1, S = 1, 129,
+   260, 300, 512, 1024, and S=3072 with 16 heads, where the output limit
+   must reject a missing keep scale), the attention backward (rates 0 and
+   0.1, with and without db, S = 1, 63, 64, 65, 127, 128, 129, 260, 300,
+   512 and 1024, at B=H=1 and at the step's B=32 H=12, masked, unmasked
+   and with a row whose keys are all at -1e9; bf16 gradients also within
+   ``ATTN_STEP`` of their scale, a limit that must reject dK without its
+   scale and dV without the keep scale) and the FFN pair (M = 0, 3,
+   8,192, 16,384; the forward at H=1024, M = 3 and 6,144), against their
+   plain versions, in bf16 and fp32;
 5. serving: ``STonKGsEngine.embed`` at full BERT-base width (backbone and
    trunk, 256 + 256, KG vocabulary 100,000, random seeded weights) on 512
    rows, in parity mode and with ``length_buckets=(64, 128)``; checks the
@@ -32,7 +38,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    CPU in fp32, and the card in bf16 against the CPU in fp32;
 6. timing: embed throughput, and each serving kernel's time at the path's
    shapes beside its bound, its plain version and PyTorch's SDPA (for
-   attention also its TFLOP/s and its time as a multiple of SDPA's);
+   attention also its TFLOP/s and its time as a multiple of SDPA's; for
+   the FFN block the two cuBLAS products it contains, timed alone);
 7. training: ``pretrain`` at full width (B=32, fp32 parameters, bf16
    compute, synthetic batches with int(0.15*len) masked positions per
    half); checks the training kernels' launch counts, a finite loss at
@@ -43,7 +50,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    the same seeds, hidden dropout 0);
 9. training timing: ms per step and examples/s (median of 6 steps after 2
    of warm-up), and each training kernel's time at the step's shapes
-   beside its bound, its plain version and, for attention, SDPA;
+   beside its bound, its plain version and, for attention, SDPA (the
+   backward: ``torch.autograd.grad`` alone over a saved SDPA forward,
+   with the backend that ran);
 10. sparse kernels: the BigBird pair against its plain versions, bf16 and
     fp32, at nb = 5, 8 (padded mask) and 64 (S=4096), with the eval and
     the training plan, at B=2 (forward and backward) and B=8 (forward);
@@ -167,8 +176,14 @@ TOL = {F32: dict(atol=1e-4, rtol=0.0), BF16: dict(atol=2e-2, rtol=1e-2)}
 # the bf16 attention output, besides TOL, elementwise within one bf16 step
 # (2^-7) of max |plain| plus one step of itself: at long S the output is
 # small (rms about sqrt(e / S), 0.03 at S=3072), where TOL's atol alone
-# would pass a missing dropout keep scale or a dropped key tile
+# would pass a missing dropout keep scale or a dropped key tile.  The bf16
+# attention gradients are held to the same elementwise limit besides
+# GRAD_TOL (which holds only the largest error against the largest value),
+# plus GRAD_STEP_FLOOR: a gradient that cancels to 0 in the plain version
+# (S=1: one key, so dS = p (dP - delta) = 0) comes out at the fp32
+# rounding level
 ATTN_STEP = 2.0 ** -7
+GRAD_STEP_FLOOR = 1e-4
 # gradients and backward outputs are sums over up to 1,024 rows of
 # products of rounded operands, so their error grows with their size:
 # the tolerance is relative to the largest value (fp32: sums in another
@@ -179,6 +194,21 @@ GRAD_TOL = {F32: 1e-4, BF16: 2e-2}
 INT8_F32_TOL = 1e-6
 SOURCES = ("ffn_ln_block", "flash_attention_infer", "flash_attention_train", "ffn_train",
            "bigbird_sparse", "dense_int8", "int8_gemm")
+# the Hopper (wgmma, TMA) kernels of each library, which must not spill
+SM90_KERNELS = {
+    "flash_attention_infer": ("attn_fwd_sm90_kernel",),
+    "flash_attention_train": ("attn_fwd_sm90_kernel", "attn_bwd_dq_sm90_kernel",
+                              "attn_bwd_dkdv_sm90_kernel"),
+    "ffn_ln_block": ("gemm_sm90_kernel", "add_layer_norm_kernel"),
+}
+# rows of the FFN block's checks: empty, ragged, the edges of the 128-row
+# tile, the ProtSTonKGs BioBERT (6,144) and ProtBERT (24,576) shapes, the
+# STonKGs backbone and BigBird trunk (32,768) and the STonKGs trunk
+FFN_ROWS = (0, 1, 3, 127, 128, 129, 1000, 6144, 24576, 32768, 65536)
+# sequence lengths of the attention backward's checks: one key, the edges
+# of the 64- and 128-row tiles, TransE's 260, S_pad > S (300), and the
+# paths' 512 and 1024
+ATTN_BWD_S = (1, 63, 64, 65, 127, 128, 129, 260, 300, 512, 1024)
 BATCH = 128
 ROWS = 512
 BUCKETS = (64, 128)
@@ -227,18 +257,19 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line.lower():
                 log(f"# ptxas {name}: {line.strip()}")
-    # the Hopper attention forward must not spill (both instantiations)
-    for name in ("flash_attention_infer", "flash_attention_train"):
+    # no Hopper kernel may spill (every instantiation)
+    for name, kernels in SM90_KERNELS.items():
         if name not in _build.build_logs:
             log(f"# ptxas {name}: library not rebuilt, no report to check")
             continue
         spills = _ptxas_spills(_build.build_logs[name])
-        found = {f: n for f, n in spills.items() if "attn_fwd_sm90_kernel" in f}
-        check(bool(found), f"{name}: no ptxas report for attn_fwd_sm90_kernel")
-        for fn, (stores, loads) in found.items():
-            check(stores == 0 and loads == 0,
-                  f"{name}: {fn} spills ({stores} bytes stored, {loads} loaded)")
-        log(f"# ptxas {name}: attn_fwd_sm90_kernel x{len(found)} without spills")
+        for kernel in kernels:
+            found = {f: n for f, n in spills.items() if kernel in f}
+            check(bool(found), f"{name}: no ptxas report for {kernel}")
+            for fn, (stores, loads) in found.items():
+                check(stores == 0 and loads == 0,
+                      f"{name}: {fn} spills ({stores} bytes stored, {loads} loaded)")
+            log(f"# ptxas {name}: {kernel} x{len(found)} without spills")
 
 
 def _ptxas_spills(text: str) -> dict:
@@ -298,12 +329,13 @@ def _compare(name, got, want, dtype) -> float:
     return err
 
 
-def _attn_within(got, want) -> tuple:
-    """(max |got - want|, max |want|, ok) under the ATTN_STEP limit."""
+def _attn_within(got, want, floor: float = 0.0) -> tuple:
+    """(max |got - want|, max |want|, ok) under the ATTN_STEP limit (plus
+    ``floor``)."""
     g, w = got.float(), want.float()
     scale = float(w.abs().max()) if w.numel() else 0.0
     err = float((g - w).abs().max()) if g.numel() else 0.0
-    ok = bool(((g - w).abs() <= ATTN_STEP * (scale + w.abs())).all())
+    ok = bool(((g - w).abs() <= ATTN_STEP * (scale + w.abs()) + floor).all())
     return err, scale, ok
 
 
@@ -362,18 +394,18 @@ def phase_kernels() -> dict:
                 if dtype == BF16 and S == 512:
                     errs["flash_attention_infer"] = max(
                         errs.get("flash_attention_infer", 0.0), err)
-        # BERT-base (gelu), the BigBird trunk (gelu_new), ProtBERT (H=1024)
-        for H, I, M, act in ((768, 3072, 3, "gelu"), (768, 3072, 1000, "gelu"),
-                             (768, 3072, 1000, "gelu_new"), (768, 3072, 32768, "gelu"),
-                             (768, 3072, 32768, "gelu_new"), (1024, 4096, 3, "gelu"),
-                             (1024, 4096, 24576, "gelu")):
-            args = _ffn_inputs(M, dtype, gen, H, I)
-            err = _compare(
-                f"ffn_ln {tag} H={H} M={M} {act}",
-                fused_ffn_ln_block(*args, act=act),
-                fused_ffn_ln_block_plain(*args, act=act), dtype)
-            if dtype == BF16 and M >= 24576:
-                errs["ffn_ln_block"] = max(errs.get("ffn_ln_block", 0.0), err)
+        # BERT-base (gelu), the BigBird trunk (gelu_new), ProtBERT (H=1024),
+        # at the edges of the 128-row tiles and at the paths' M
+        for H, I, act in ((768, 3072, "gelu"), (768, 3072, "gelu_new"), (1024, 4096, "gelu")):
+            for M in FFN_ROWS:
+                args = _ffn_inputs(M, dtype, gen, H, I)
+                err = _compare(
+                    f"ffn_ln {tag} H={H} M={M} {act}",
+                    fused_ffn_ln_block(*args, act=act),
+                    fused_ffn_ln_block_plain(*args, act=act), dtype)
+                if dtype == BF16 and M >= 24576:
+                    errs["ffn_ln_block"] = max(errs.get("ffn_ln_block", 0.0), err)
+                del args
         # ProtBERT's attention: S=3072, 16 heads, no mask
         q, k, v, _, _ = _attn_inputs(8, 3072, dtype, gen, masked=False, H=16)
         err = _compare_attn(f"attention {tag} B=8 S=3072 H=16 no-bias",
@@ -417,6 +449,69 @@ def _train_attn_inputs(B, S, dtype, gen, masked=True, H=12):
     return q, k, v, bias, keep, seed, do
 
 
+def _compare_grad(name, got, want, dtype) -> float:
+    """An attention gradient: GRAD_TOL, and for bf16 also the ATTN_STEP
+    limit."""
+    err = _compare_rel(name, got, want, dtype)
+    if dtype == BF16:
+        _, scale, ok = _attn_within(got, want, GRAD_STEP_FLOOR)
+        log(f"# check {name}: max_abs_err {err!r} max|plain| {scale!r} limit "
+            f"{ATTN_STEP!r}*(max|plain|+|plain|)+{GRAD_STEP_FLOOR!r} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name}: kernel disagrees with its plain version (scaled limit)")
+    return err
+
+
+def _attention_bwd_cases(tag, dtype, B, H, S, rate, gen) -> float:
+    """The backward kernel against its plain version from the plain
+    forward's out and lse: masked with db, masked without db, unmasked
+    with db and, for B > 1, masked with batch row 0's keys all at -1e9.
+    At the step's shape, bf16 and rate 0.1, it also shows that the bf16
+    gradient limits reject dK without its final scale and dV without the
+    keep scale.  Returns the worst gradient error."""
+    worst = 0.0
+    cases = [("mask db", True, True, False), ("mask no-db", True, False, False),
+             ("no-bias db", False, True, False)]
+    if B > 1:
+        cases.append(("mask db row 0 all -1e9", True, True, True))
+    for name, masked, need_db, dead_row in cases:
+        q, k, v, bias, _, seed, do = _train_attn_inputs(B, S, dtype, gen, masked, H)
+        if dead_row:
+            bias[0] = -1e9
+        out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, bias, seed, rate)
+        got = flash_attention_train_bwd(q, k, v, bias, out_p, lse_p, do, seed, rate,
+                                        need_db=need_db)
+        want = flash_attention_train_bwd_plain(q, k, v, bias, out_p, lse_p, do, seed, rate,
+                                               need_db=need_db)
+        label = f"{tag} B={B} H={H} S={S} rate={rate} {name}"
+        for n, g, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+            worst = max(worst, _compare_grad(f"attention {n} {label}", g, w, dtype))
+        check((got[3] is None) == (want[3] is None) == (not need_db), f"{label}: db presence")
+        if need_db:
+            worst = max(worst, _compare_rel(f"attention db {label}", got[3], want[3], F32))
+        if dtype == BF16 and B > 1 and S == 512 and rate > 0 and name == "mask db":
+            _grad_limit_rejects(f"attention dk {label} without the scale", want[1],
+                                (want[1].float() * math.sqrt(64)).to(BF16))
+            _grad_limit_rejects(f"attention dv {label} without the keep scale", want[2],
+                                (want[2].float() * (1.0 - rate)).to(BF16))
+        del q, k, v, bias, do, out_p, lse_p, got, want
+    return worst
+
+
+def _grad_limit_rejects(name, want, wrong) -> None:
+    """Fail unless the bf16 gradient limits (GRAD_TOL and ATTN_STEP) tell
+    ``wrong`` (a known kernel fault applied to the plain gradient) from
+    ``want``; logs which of the two rejects it."""
+    g, w = wrong.float(), want.float()
+    err = float((g - w).abs().max())
+    scale = float(w.abs().max())
+    by_tol = err > GRAD_TOL[BF16] * max(1.0, scale)
+    by_step = not _attn_within(wrong, want, GRAD_STEP_FLOOR)[2]
+    log(f"# check {name}: max_abs_err {err!r} max|plain| {scale!r}; GRAD_TOL "
+        f"{'rejects' if by_tol else 'passes'} it, ATTN_STEP {'rejects' if by_step else 'passes'} "
+        f"it: {'ok' if by_tol or by_step else 'FAIL'}")
+    check(by_tol or by_step, f"{name}: the gradient limits do not catch this fault")
+
+
 def _train_ffn_inputs(M, dtype, gen, H=768, I=3072):
     """x, w1, b1, w2, b2 (fp32 weights, as the model's parameters) and a
     cotangent g."""
@@ -441,20 +536,18 @@ def phase_train_kernels() -> dict:
         for S in (1, 260, 512, 1024):
             B = 4 if S == 1024 else 8
             for rate in (0.0, ATTN_RATE):
-                q, k, v, bias, _, seed, do = _train_attn_inputs(B, S, dtype, gen)
+                q, k, v, bias, _, seed, _ = _train_attn_inputs(B, S, dtype, gen)
                 label = f"{tag} B={B} S={S} rate={rate}"
                 out, lse = flash_attention_train_fwd(q, k, v, bias, seed, rate)
                 out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, bias, seed, rate)
                 e = max(_compare_attn(f"attention fwd {label}", out, out_p, dtype),
                         _compare(f"attention lse {label}", lse, lse_p, F32))
                 note("flash_attention_train_fwd", e, dtype, S == 512)
-                # both backwards from the plain forward's out and lse
-                got = flash_attention_train_bwd(q, k, v, bias, out_p, lse_p, do, seed, rate)
-                want = flash_attention_train_bwd_plain(q, k, v, bias, out_p, lse_p, do,
-                                                       seed, rate)
-                e = max(_compare_rel(f"attention {n} {label}", g, w, dtype if n != "db" else F32)
-                        for n, g, w in zip(("dq", "dk", "dv", "db"), got, want))
-                note("flash_attention_train_bwd", e, dtype, S == 512)
+        for S in ATTN_BWD_S:
+            for B, H in ((1, 1), (TRAIN_BATCH, 12)):
+                for rate in (0.0, ATTN_RATE):
+                    e = _attention_bwd_cases(tag, dtype, B, H, S, rate, gen)
+                    note("flash_attention_train_bwd", e, dtype, S == 512 and B > 1)
         # the forward across a 128-key tile (S=129) and with the TPU
         # kernel's padded keys (S=300, S_pad=512)
         for S in (129, 300):
@@ -661,17 +754,25 @@ def _bound_ms(flops: float, nbytes: float, dtype) -> tuple:
 
 
 def _time_ffn(label: str, M: int, gen, H=768, I=3072, act="gelu") -> dict:
-    """Kernel vs plain at the main path's shape, then both timed."""
+    """Kernel vs plain at the main path's shape, then both timed, and the
+    two cuBLAS bf16 products the block contains (x @ W1, h @ W2) alone, a
+    yardstick only: no one PyTorch call computes the block."""
     args = _ffn_inputs(M, BF16, gen, H, I)
     flops = 4.0 * M * H * I
     nbytes = (3 * M * H + 2 * H * I) * 2 + (5 * H + I) * 4
     bound, by = _bound_ms(flops, nbytes, BF16)
     err = _compare(f"ffn_ln bf16 {label}", fused_ffn_ln_block(*args, act=act),
                    fused_ffn_ln_block_plain(*args, act=act), BF16)
-    return dict(max_abs_err=err,
-                ms=_time_ms(lambda: fused_ffn_ln_block(*args, act=act)),
-                plain_ms=_time_ms(lambda: fused_ffn_ln_block_plain(*args, act=act), iters=3),
-                bound_ms=bound, bound_by=by, library_ms=None)
+    x, w1, w2 = args[0], args[4], args[6]
+    h = x @ w1
+    t = dict(max_abs_err=err,
+             ms=_time_ms(lambda: fused_ffn_ln_block(*args, act=act)),
+             plain_ms=_time_ms(lambda: fused_ffn_ln_block_plain(*args, act=act), iters=3),
+             bound_ms=bound, bound_by=by, library_ms=None,
+             cublas_gemms_ms=_time_ms(lambda: x @ w1) + _time_ms(lambda: h @ w2))
+    log(f"# rate ffn_ln_block {label}: {flops / (t['ms'] * 1e-3) / 1e12!r} TFLOP/s at "
+        f"{flops:.4g} flops; {t['ms'] / t['cublas_gemms_ms']!r} x the two cuBLAS products")
+    return t
 
 
 def _time_attention(label: str, B: int, S: int, masked: bool, gen, H=12) -> dict:
@@ -902,21 +1003,42 @@ def _time_train_attention(label, B, S, masked, gen, backward, H=12) -> dict:
             q, k, v, bias, out, lse, do, seed, ATTN_RATE, need_db=False)
         plain = lambda: flash_attention_train_bwd_plain(  # noqa: E731
             q, k, v, bias, out, lse, do, seed, ATTN_RATE, need_db=False)
-        err = max(_compare_rel(f"attention {n} bf16 {label}", g, w, BF16)
+        err = max(_compare_grad(f"attention {n} bf16 {label}", g, w, BF16)
                   for n, g, w in zip(("dq", "dk", "dv"), fn()[:3], plain()[:3]))
-        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
-        dot = do.transpose(1, 2)
-
-        def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
-            torch.autograd.grad(o, (qg, kg, vg), dot)
-        lib = _time_ms(sdpa_fwd_bwd) - _time_ms(
-            lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask))
+        lib = _time_sdpa_backward(label, qt, kt, vt, mask, do.transpose(1, 2))
     t = dict(max_abs_err=err, ms=_time_ms(fn), plain_ms=_time_ms(plain, iters=3),
              bound_ms=bound, bound_by=by, library_ms=lib)
     _log_attention_rate(f"flash_attention_train_{'bwd' if backward else 'fwd'} {label}", flops,
                         t)
     return t
+
+
+def _time_sdpa_backward(label, q, k, v, mask, dout) -> float:
+    """SDPA's backward alone: one forward with inputs that require grad,
+    then ``torch.autograd.grad`` over that saved graph, timed; logs the
+    backend that ran and its kernels' device time (from three traced
+    backwards: the timed call also carries autograd's host work)."""
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+    def backward():
+        return torch.autograd.grad(o, (qg, kg, vg), dout, retain_graph=True)
+    backward()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            backward()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    names = sorted(e.key for e in events)
+    device_ms = sum(e.self_device_time_total for e in events) / 3 / 1e3
+    low = " ".join(names).lower()
+    backend = ("cudnn" if "cudnn" in low else "flash" if "flash" in low
+               else "efficient" if ("fmha" in low or "efficient" in low) else "math")
+    ms = _time_ms(backward)
+    log(f"# SDPA backward {label}: {ms!r} ms a call alone over a saved forward, "
+        f"{device_ms!r} ms of it on the device, backend {backend}; kernels {names}")
+    return ms
 
 
 def _time_train_ffn(label, M, gen, backward, H=768, I=3072) -> dict:

@@ -52,7 +52,11 @@ PORT_KERNELS = {
     "attn_bwd_delta_kernel": "flash_attention_train_bwd",
     "attn_bwd_dq_kernel": "flash_attention_train_bwd",
     "attn_bwd_dkdv_kernel": "flash_attention_train_bwd",
+    "attn_bwd_dq_sm90_kernel": "flash_attention_train_bwd",
+    "attn_bwd_dkdv_sm90_kernel": "flash_attention_train_bwd",
     "ffn_fwd_kernel": ("ffn_train_fwd", "ffn_ln_block"),
+    "gemm_sm90_kernel": "ffn_ln_block",
+    "add_layer_norm_kernel": "ffn_ln_block",
     "ffn_bwd_kernel": "ffn_train_bwd",
     "mid_fwd_kernel": "bigbird_mid_fwd",
     "mid_bwd_kernel": "bigbird_mid_bwd",
@@ -64,7 +68,10 @@ GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_")
 
 def group_of(name: str) -> str:
     """The group a device kernel's time is booked to."""
-    base = name.split("<")[0].split("::")[-1].replace("void ", "")
+    # the kernel's own name: before its template and parameter lists (a
+    # parameter's type may hold "::" too)
+    base = (name.replace("(anonymous namespace)", "").split("(")[0].split("<")[0]
+            .split("::")[-1].replace("void ", ""))
     for prefix, group in PORT_KERNELS.items():
         if base.startswith(prefix):
             if isinstance(group, tuple):

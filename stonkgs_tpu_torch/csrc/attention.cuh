@@ -1,15 +1,16 @@
-// Pieces shared by the attention kernels (flash_attention_infer.cu and
-// flash_attention_train.cu): 64-row tiles of the (B, S, H, D=64) layout in
-// shared memory, the two per-warp tile products, the dropout hash, the
-// backward's helpers, and the fp32 forward kernel.  The bf16 forward is
-// the Hopper kernel of attention_sm90.cuh (wgmma and TMA); no bf16
-// instance of the forward below exists.
+// Pieces shared by the attention kernels (flash_attention_infer.cu,
+// flash_attention_train.cu and bigbird_sparse.cu): 64-row tiles of the
+// (B, S, H, D=64) layout in shared memory, the two per-warp tile products,
+// the dropout hash, and the fp32 forward kernel.  The bf16 attention
+// forward and backward are the Hopper kernels of attention_sm90.cuh and
+// attention_bwd_sm90.cuh (wgmma and TMA): the SIMT attention bodies (the
+// forward here, dQ and dK/dV in flash_attention_train.cu) are fp32 only.
 //
 // A block has 4 warps; in a product each warp owns 16 rows of the block's
 // 64-row tile:
 //   score_tile: sw (16 x 64, fp32) = A_w (16 x D) . B^T, B a 64 x D tile;
 //   PvAcc:      acc (16 x D, fp32) += P_w (16 x 64) . V, V a 64 x D tile.
-// bf16 products (the backward's) use the tensor cores through
+// bf16 products (the BigBird kernels') use the tensor cores through
 // nvcuda::wmma (16x16x16, fp32 accumulation); fp32 products are plain
 // FMAs (that instantiation exists to hold the whole model against the
 // CPU).

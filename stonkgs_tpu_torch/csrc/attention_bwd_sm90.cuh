@@ -1,0 +1,406 @@
+// The bf16 attention backward for Hopper (sm_90a), launched by
+// flash_attention_train.cu after the delta pass:
+//
+//   p  = exp(S*scale + bias - lse)        (S = Q K^T, the saved fp32 lse)
+//   dP = (dO V^T) * mr                    (mr = 1/(1-rate) where the hash
+//                                          keeps, 0 where it drops)
+//   dS = p * (dP - delta)                 (fp32; delta = rowsum(dO * O))
+//   dQ = scale * round(dS) K,  dK = scale * round(dS)^T Q,
+//   dV = round(p * mr)^T dO,   db[b, key] = sum over heads and rows of dS
+//
+// over (B, S, H, D=64) bf16 q, k, v, dO and dq, dk, dv, with an optional
+// (B, S) fp32 key bias.  Rounding points as the TPU kernel
+// (stonkgs_tpu/ops/flash_attention.py:131-178): dS rounded to bf16 before
+// the dQ and dK products, the dropped p rounded for dV, the scale applied
+// after the products; the dropout mask is the forward's hash of
+// ((b*H + h)*s_pad + row)*s_pad + col.
+//
+// Two kernels, as the SIMT fp32 backward of flash_attention_train.cu:
+// dQ in one, dK, dV and db in the other, so neither needs atomics on a
+// gradient (db adds its keys' sums over all rows with one atomicAdd a key
+// and head).  Both recompute S and dP~, so the backward is 7 products of
+// 2*B*H*S^2*D flops and two exps a score (one per kernel), plus the hash
+// of each score twice when training with dropout.
+//
+// Each has the forward's shape (attention_sm90.cuh): 384 threads, a
+// producer warpgroup (setmaxnreg.dec) whose first warp streams 128-row
+// tiles of the other operand pair through a kStages-deep ring with TMA
+// (the forward's 4-D tensor maps over (B, S, H, D), 128-byte swizzle;
+// TMA zero-fills rows >= S) and writes the tile's fp32 vectors beside
+// them, and two consumer warpgroups of 64 rows each.  The register split
+// is 56 for the producer (its address arithmetic for the lse and delta
+// vectors spills at the forward's 40) and 224 for the consumers.  The
+// consumers take a stage in two halves of 64 rows: with the whole
+// 128-row tile, two 64-float score tiles, the accumulators and the
+// packed fragments (256 registers in dK/dV) spilled.
+// * attn_bwd_dq_sm90_kernel: a block per 128 query rows of one (b, h); Q
+//   and dO loaded once; K and V tiles stream with the keys' bias (-inf
+//   for keys >= S, which makes p = 0 there).  Per half, S = Q K^T and dP~
+//   = dO V^T by wgmma.m64n64k16 from shared memory (both K-major), the
+//   element pass in registers, then dQ += dS K by wgmma.m64n64k16 with dS
+//   from registers (the packed accumulator is the A fragment) and the K
+//   rows MN-major (its keys are the product's k).
+// * attn_bwd_dkdv_sm90_kernel: a block per 128 keys of one (b, h); K and
+//   V loaded once; Q and dO tiles stream with the rows' lse (+inf for rows
+//   >= S, which makes p = 0) and delta.  The transposed form: S^T = K Q^T
+//   and dP~^T = V dO^T (rows are keys, columns queries), then dV +=
+//   round(p*mr)^T dO and dK += round(dS)^T Q with dO and Q MN-major.  dK
+//   and dV stay in fp32 registers across all query tiles; db's row sums
+//   of the fp32 dS are kept per thread and summed across the quad that
+//   shares a key at the end.
+// The element pass packs each pair of results to bf16x2 as it goes; the
+// peak is two 32-float score tiles, their packed fragments and the
+// accumulators (32 floats in dQ, 64 in dK/dV).
+//
+// Numerics against the plain version: products summed in another order;
+// p = exp2((S*scale + bias - lse) * log2 e) on the SFU (ex2.approx), a
+// few ulps from an IEEE exp, so a rounded dS or p*mr moves by at most one
+// bf16 step where it sits at a rounding boundary, inside chip_smoke.py's
+// GRAD_TOL[bf16].  The argument stays in the natural domain, so a row
+// whose keys all carry the -1e9 bias gets the plain version's p.
+
+#pragma once
+
+#include "attention_sm90.cuh"
+
+namespace stonkgs {
+namespace attn90 {
+
+constexpr int kHalf = 64;  // rows of a stage's half
+
+struct alignas(1024) SmemBwdQ {
+  bf16 q[kBM * kD];
+  bf16 dout[kBM * kD];
+  bf16 k[kStages][kBN * kD];
+  bf16 v[kStages][kBN * kD];
+  float bias[kStages][kBN];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint64_t rowbar;
+};
+
+struct alignas(1024) SmemBwdKV {
+  bf16 k[kBN * kD];
+  bf16 v[kBN * kD];
+  bf16 q[kStages][kBM * kD];
+  bf16 dout[kStages][kBM * kD];
+  float lse[kStages][kBM];
+  float delta[kStages][kBM];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint64_t rowbar;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ key_bias, const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq, int S, int H,
+                        float scale, Dropout drop) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemBwdQ& sm = aligned_smem<SmemBwdQ>(smem_raw);
+  const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (S + kBN - 1) / kBN;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  init_ring(sm);
+
+  if (wg == kConsumers) {
+    // ---------------- producer ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_arrive_tx(&sm.rowbar, 2 * kTileBytes);
+        tma_load_4d(sm.q, &map_q, 0, h, q0, b, &sm.rowbar);
+        tma_load_4d(sm.dout, &map_do, 0, h, q0, b, &sm.rowbar);
+      }
+      const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int stage = it % kStages, k0 = it * kBN;
+        mbar_wait(&sm.empty[stage], ((it / kStages) & 1) ^ 1);
+#pragma unroll
+        for (int t = 0; t < kBN / 32; ++t) {
+          const int key = k0 + t * 32 + lane;
+          sm.bias[stage][t * 32 + lane] = key < S ? (kb ? __ldg(kb + key) : 0.f) : -INFINITY;
+        }
+        if (lane == 0) {
+          mbar_arrive_tx(&sm.full[stage], 2 * kTileBytes);
+          tma_load_4d(sm.k[stage], &map_k, 0, h, k0, b, &sm.full[stage]);
+          tma_load_4d(sm.v[stage], &map_v, 0, h, k0, b, &sm.full[stage]);
+        } else {
+          mbar_arrive(&sm.full[stage]);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // the thread's rows: row0, row0 + 8
+    const size_t stat0 = (size_t(b) * H + h) * S;          // (b, h, 0) of lse and delta
+    float lse_r[2], delta_r[2];
+    uint32_t base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse_r[r] = row < S ? lse[stat0 + row] : 0.f;
+      delta_r[r] = row < S ? delta[stat0 + row] : 0.f;
+      base[r] = drop.row_base(b * H + h, row);
+    }
+    const uint64_t dqd = desc_sw128(sm.q + wg * 64 * kD);
+    const uint64_t dod = desc_sw128(sm.dout + wg * 64 * kD);
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+    mbar_wait(&sm.rowbar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % kStages;
+      mbar_wait(&sm.full[stage], (j / kStages) & 1);
+#pragma unroll 1
+      for (int half = 0; half < kBN / kHalf; ++half) {
+        // S = Q K^T and dP~ = dO V^T over the half's 64 keys
+        const int c0 = half * kHalf, k0 = j * kBN + c0;
+        const uint64_t dk = desc_sw128(sm.k[stage] + c0 * kD);
+        const uint64_t dv = desc_sw128(sm.v[stage] + c0 * kD);
+        float s[32], dp[32];
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk64(s, dqd + 2 * kk, dk + 2 * kk, kk);
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk64(dp, dod + 2 * kk, dv + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        // dS = p (dP~ * mr - delta), packed to bf16 pairs as it goes
+        const float* bs = sm.bias[stage] + c0;
+        uint32_t pa[16];
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+          const int i = 2 * t, r = acc_row(i), c = acc_col(i, lane);
+          const float2 bv = *reinterpret_cast<const float2*>(bs + c);
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2((fmaf(s[i + e], scale, e ? bv.y : bv.x) - lse_r[r]) * kLog2e);
+            float d = dp[i + e];
+            if (drop.enabled)
+              d = drop.keep(base[r] + uint32_t(k0 + c + e)) ? d * drop.keep_scale : 0.f;
+            ds[e] = p * (d - delta_r[r]);
+          }
+          pa[t] = pack_bf16(ds[0], ds[1]);
+        }
+        // dQ += dS K: the half's K rows MN-major, its 64 keys the k of 4 steps
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kHalf / 16; ++kk)
+          wgmma_pv(acc, pa + 4 * kk, dk + kk * (16 * 128 / 16));  // 16 keys = 16 lines of 128 B
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      release_stage(&sm.empty[stage], lane);
+    }
+    store_rows_sm90(dq + (size_t(b) * S * H + h) * kD, acc, row0, S, H, scale, lane);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const float* __restrict__ key_bias, const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, float* __restrict__ db, int S, int H,
+                          float scale, Dropout drop) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemBwdKV& sm = aligned_smem<SmemBwdKV>(smem_raw);
+  const int k0 = blockIdx.x * kBN, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (S + kBM - 1) / kBM;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const size_t stat0 = (size_t(b) * H + h) * S;
+  init_ring(sm);
+
+  if (wg == kConsumers) {
+    // ---------------- producer ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_arrive_tx(&sm.rowbar, 2 * kTileBytes);
+        tma_load_4d(sm.k, &map_k, 0, h, k0, b, &sm.rowbar);
+        tma_load_4d(sm.v, &map_v, 0, h, k0, b, &sm.rowbar);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int stage = it % kStages, q0 = it * kBM;
+        mbar_wait(&sm.empty[stage], ((it / kStages) & 1) ^ 1);
+#pragma unroll
+        for (int t = 0; t < kBM / 32; ++t) {
+          const int row = q0 + t * 32 + lane;
+          sm.lse[stage][t * 32 + lane] = row < S ? __ldg(lse + stat0 + row) : INFINITY;
+          sm.delta[stage][t * 32 + lane] = row < S ? __ldg(delta + stat0 + row) : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_tx(&sm.full[stage], 2 * kTileBytes);
+          tma_load_4d(sm.q[stage], &map_q, 0, h, q0, b, &sm.full[stage]);
+          tma_load_4d(sm.dout[stage], &map_do, 0, h, q0, b, &sm.full[stage]);
+        } else {
+          mbar_arrive(&sm.full[stage]);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    const int key0 = k0 + wg * 64 + warp * 16 + lane / 4;  // the thread's keys: key0, key0 + 8
+    const int bh = b * H + h;
+    float bias_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      bias_r[r] = key < S ? (key_bias ? key_bias[size_t(b) * S + key] : 0.f) : -INFINITY;
+    }
+    const uint64_t dkd = desc_sw128(sm.k + wg * 64 * kD);
+    const uint64_t dvd = desc_sw128(sm.v + wg * 64 * kD);
+    float dk_acc[32], dv_acc[32], db_acc[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(&sm.rowbar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % kStages;
+      mbar_wait(&sm.full[stage], (j / kStages) & 1);
+#pragma unroll 1
+      for (int half = 0; half < kBM / kHalf; ++half) {
+        // S^T = K Q^T over the half's 64 queries (rows keys, columns queries)
+        const int c0 = half * kHalf, q0 = j * kBM + c0;
+        const uint64_t dq = desc_sw128(sm.q[stage] + c0 * kD);
+        const uint64_t ddo = desc_sw128(sm.dout[stage] + c0 * kD);
+        float s[32], dp[32];
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk64(s, dkd + 2 * kk, dq + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        // p in place of S, the keep bits, round(p*mr) packed to bf16 pairs
+        const float* ls = sm.lse[stage] + c0;
+        uint32_t kept = 0xFFFFFFFFu, pa[16];
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+          const int i = 2 * t, r = acc_row(i), c = acc_col(i, lane);
+          const float2 lv = *reinterpret_cast<const float2*>(ls + c);
+          float pd[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2((fmaf(s[i + e], scale, bias_r[r]) - (e ? lv.y : lv.x)) * kLog2e);
+            s[i + e] = p;
+            pd[e] = p;
+            if (drop.enabled) {
+              if (drop.keep(drop.row_base(bh, q0 + c + e) + uint32_t(key0 + 8 * r))) {
+                pd[e] = p * drop.keep_scale;
+              } else {
+                kept &= ~(1u << (i + e));
+                pd[e] = 0.f;
+              }
+            }
+          }
+          pa[t] = pack_bf16(pd[0], pd[1]);
+        }
+        // dV += round(p*mr)^T dO (dO MN-major, the half's 64 queries the k of
+        // 4 steps) and dP~^T = V dO^T, one group
+        fence_regs(dv_acc);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kHalf / 16; ++kk)
+          wgmma_pv(dv_acc, pa + 4 * kk, ddo + kk * (16 * 128 / 16));
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk64(dp, dvd + 2 * kk, ddo + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dp);
+        // dS = p (dP~ * mr - delta) packed to bf16 pairs; db's fp32 row sums
+        const float* dl = sm.delta[stage] + c0;
+        uint32_t pb[16];
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+          const int i = 2 * t, r = acc_row(i), c = acc_col(i, lane);
+          const float2 dlv = *reinterpret_cast<const float2*>(dl + c);
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float d = dp[i + e];
+            if (drop.enabled) d = (kept >> (i + e)) & 1u ? d * drop.keep_scale : 0.f;
+            ds[e] = s[i + e] * (d - (e ? dlv.y : dlv.x));
+            db_acc[r] += ds[e];
+          }
+          pb[t] = pack_bf16(ds[0], ds[1]);
+        }
+        // dK += round(dS)^T Q: Q MN-major
+        fence_regs(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kHalf / 16; ++kk)
+          wgmma_pv(dk_acc, pb + 4 * kk, dq + kk * (16 * 128 / 16));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk_acc);
+      }
+      release_stage(&sm.empty[stage], lane);
+    }
+    const size_t head0 = (size_t(b) * S * H + h) * kD;
+    store_rows_sm90(dv + head0, dv_acc, key0, S, H, 1.f, lane);
+    store_rows_sm90(dk + head0, dk_acc, key0, S, H, scale, lane);
+    if (db) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = db_acc[r];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const int key = key0 + 8 * r;
+        if ((lane & 3) == 0 && key < S) atomicAdd(db + size_t(b) * S + key, v);
+      }
+    }
+  }
+}
+
+// the two kernels after the delta pass; delta (B, H, S) fp32 is written
+template <typename Kernel>
+inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+}
+
+inline int launch_bwd_sm90(const void* q, const void* k, const void* v, const float* key_bias,
+                           const float* lse, const void* dout, const float* delta, void* dq,
+                           void* dk, void* dv, float* db, int B, int S, int H, float scale,
+                           Dropout drop, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, q, B, S, H) || !make_map(&mk, k, B, S, H) || !make_map(&mv, v, B, S, H) ||
+      !make_map(&mdo, dout, B, S, H))
+    return kErrTensorMap;
+  constexpr size_t smem_q = sizeof(SmemBwdQ) + 1024, smem_kv = sizeof(SmemBwdKV) + 1024;
+  cudaError_t e = set_smem(attn_bwd_dq_sm90_kernel, smem_q);
+  if (e != cudaSuccess) return int(e);
+  e = set_smem(attn_bwd_dkdv_sm90_kernel, smem_kv);
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid((S + kBM - 1) / kBM, H, B);
+  attn_bwd_dq_sm90_kernel<<<grid, kThreads, smem_q, stream>>>(
+      mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dq), S, H, scale, drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  attn_bwd_dkdv_sm90_kernel<<<grid, kThreads, smem_kv, stream>>>(
+      mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), db,
+      S, H, scale, drop);
+  return int(cudaGetLastError());
+}
+
+}  // namespace attn90
+}  // namespace stonkgs

@@ -60,20 +60,19 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums (the driver is reached through the runtime)
-
 #include <cmath>
 #include <cstdint>
 
 #include "attention.cuh"
+#include "sm90.cuh"
 
 namespace stonkgs {
 namespace attn90 {
 
+using namespace sm90;
 using attn::Dropout;
 using attn::kD;
 using attn::kNegBias;
-using bf16 = __nv_bfloat16;
 
 constexpr int kBM = 128;                  // query rows of a block
 constexpr int kBN = 128;                  // keys of a tile
@@ -83,8 +82,7 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr uint32_t kTileBytes = kBN * kD * 2;  // one 128 x 64 bf16 tile, 16 KB
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory, 1024-byte aligned tiles (the 128-byte swizzle repeats
-// every 8 lines, and the wgmma descriptors assume base offset 0).
+// Shared memory, 1024-byte aligned tiles (aligned_smem).
 struct alignas(1024) Smem {
   bf16 q[kBM * kD];
   bf16 k[kStages][kBN * kD];
@@ -92,139 +90,41 @@ struct alignas(1024) Smem {
   float bias[kStages][kBN];
   uint64_t full[kStages];
   uint64_t empty[kStages];
-  uint64_t qbar;
+  uint64_t rowbar;  // the block's own tile (Q)
 };
 constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
-// --- PTX wrappers -----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// the barriers of a ring whose stages the producer warp's 32 lanes fill
+// (lane 0 with the TMA bytes) and each consumer warp empties, and rowbar
+// for the block's own tiles; shared by the forward and the backward
+template <typename SmemT>
+__device__ __forceinline__ void init_ring(SmemT& sm) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 32);
+      mbar_init(&sm.empty[s], 4 * kConsumers);
+    }
+    mbar_init(&sm.rowbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the barrier's phase with the given parity has completed; a
-// wait far longer than any tile load (a fault in the ring's protocol)
-// traps, so that the launch fails instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done, tries = 0;
-  do {
-    if (++tries == (1u << 24)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: a (64, 1, 128, 1) box at (0, h, s0, b) of a 4-D map -> shared
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int h, int s0, int b,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(h), "r"(s0), "r"(b), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile of 128-byte lines with the
-// 128-byte swizzle: start address, leading offset (unused by K-major
-// swizzled operands; for the MN-major V it would step between 64-wide
-// atoms, of which V has one), stride 1024 bytes between 8-line groups.
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(64) << 16) | (uint64_t(64) << 32) |
-         (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accumulator accesses across the async products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+// a warpgroup's 64 x 64 fp32 accumulator times `scale`, rounded, into rows
+// row0 and row0 + 8 (< S) of a (B, S, H, 64) tensor whose (b, 0, h, 0) is
+// `base`: bf16 pairs straight from the accumulator
+__device__ __forceinline__ void store_rows_sm90(bf16* base, const float (&d)[32], int row0,
+                                                int S, int H, float scale, int lane) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define STONKGS_ACC8(d, i)                                                            \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 128, fp32) (+)= A (64 x 16, desc) . B^T (B 128 x 16, desc), both K-major
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : STONKGS_ACC8(d, 0), STONKGS_ACC8(d, 8), STONKGS_ACC8(d, 16), STONKGS_ACC8(d, 24),
-        STONKGS_ACC8(d, 32), STONKGS_ACC8(d, 40), STONKGS_ACC8(d, 48), STONKGS_ACC8(d, 56)
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64 x 64, fp32) += A (64 x 16 bf16, registers) . B (16 x 64, desc, MN-major)
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : STONKGS_ACC8(d, 0), STONKGS_ACC8(d, 8), STONKGS_ACC8(d, 16), STONKGS_ACC8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef STONKGS_ACC8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The accumulator layout of a wgmma with M = 64 (PTX ISA, wgmma D
-// fragments): in warp w of the warpgroup, lane l, register i holds
-//   row 16w + l/4 + 8*((i/2) % 2),  column 8*(i/4) + 2*(l%4) + i%2.
-// The key mask, the bias, the padded keys and the dropout index all use
-// this map; a register pair (2j, 2j+1) is also one bf16x2 of the A
-// fragment of the next product (columns 16kk.. of S are k-step kk).
-__device__ __forceinline__ int acc_row(int i) { return (i >> 1) & 1; }  // + l/4 + 16w
-__device__ __forceinline__ int acc_col(int i, int lane) {
-  return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    bf16* dst = base + size_t(row) * H * kD;
+#pragma unroll
+    for (int i = 2 * r; i < 32; i += 4)
+      *reinterpret_cast<uint32_t*>(dst + acc_col(i, lane)) =
+          pack_bf16(d[i] * scale, d[i + 1] * scale);
+  }
 }
 
 // --- the kernel -------------------------------------------------------------
@@ -237,29 +137,19 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                      const float* __restrict__ key_bias, bf16* __restrict__ out,
                      float* __restrict__ lse, int S, int H, float scale, Dropout drop) {
   extern __shared__ unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  Smem& sm = aligned_smem<Smem>(smem_raw);
   const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (S + kBN - 1) / kBN;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&sm.full[s], 32);                // the producer warp's lanes (+ TMA bytes)
-      mbar_init(&sm.empty[s], 4 * kConsumers);   // one arrival per consumer warp
-    }
-    mbar_init(&sm.qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring(sm);
 
   if (wg == kConsumers) {
     // ---------------- producer ----------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (warp == 0) {
       if (lane == 0) {
-        mbar_arrive_tx(&sm.qbar, kBM * kD * 2);
-        tma_load(sm.q, &map_q, h, q0, b, &sm.qbar);
+        mbar_arrive_tx(&sm.rowbar, kBM * kD * 2);
+        tma_load_4d(sm.q, &map_q, 0, h, q0, b, &sm.rowbar);
       }
       const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
       for (int it = 0; it < 2 * n_tiles; ++it) {
@@ -275,8 +165,8 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         }
         if (lane == 0) {
           mbar_arrive_tx(&sm.full[stage], pass2 ? 2 * kTileBytes : kTileBytes);
-          tma_load(sm.k[stage], &map_k, h, k0, b, &sm.full[stage]);
-          if (pass2) tma_load(sm.v[stage], &map_v, h, k0, b, &sm.full[stage]);
+          tma_load_4d(sm.k[stage], &map_k, 0, h, k0, b, &sm.full[stage]);
+          if (pass2) tma_load_4d(sm.v[stage], &map_v, 0, h, k0, b, &sm.full[stage]);
         } else {
           mbar_arrive(&sm.full[stage]);
         }
@@ -298,7 +188,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int kk = 0; kk < kD / 16; ++kk)  // 16 bf16 = 32 bytes = 2 descriptor units
         wgmma_qk(acc, dq + 2 * kk, dk + 2 * kk, kk);
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       fence_regs(acc);
       const float* bs = sm.bias[stage];
 #pragma unroll
@@ -308,12 +198,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         acc[i + 1] = fmaf(acc[i + 1], scale, bv.y);
       }
     };
-    auto release = [&](int stage) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&sm.empty[stage]);
-    };
-
-    mbar_wait(&sm.qbar, 0);
+    mbar_wait(&sm.rowbar, 0);
 
     // pass 1: each row's max m and sum l of exp(s - m); l is kept per
     // thread (over its 32 columns, scaled by the row's shared m) and
@@ -323,7 +208,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const int stage = it % kStages;
       mbar_wait(&sm.full[stage], (it / kStages) & 1);
       scores(stage);
-      release(stage);
+      release_stage(&sm.empty[stage], lane);
       float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int i = 0; i < 64; ++i) tmax[acc_row(i)] = fmaxf(tmax[acc_row(i)], acc[i]);
@@ -391,65 +276,25 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int kk = 0; kk < kBN / 16; ++kk)
         wgmma_pv(o, pa + 4 * kk, dv + kk * (16 * 128 / 16));  // 16 keys = 16 lines of 128 B
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       fence_regs(o);
-      release(stage);
+      release_stage(&sm.empty[stage], lane);
     }
 
-    // epilogue: O rows < S, bf16 pairs straight from the accumulator
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row >= S) continue;
-      bf16* dst = out + ((size_t(b) * S + row) * H + h) * kD;
-#pragma unroll
-      for (int i = 2 * r; i < 32; i += 4)
-        *reinterpret_cast<uint32_t*>(dst + acc_col(i, lane)) = pack_bf16(o[i], o[i + 1]);
-    }
+    // epilogue: O rows < S
+    store_rows_sm90(out + (size_t(b) * S * H + h) * kD, o, row0, S, H, 1.f, lane);
   }
 }
 
 // --- host side --------------------------------------------------------------
 
-// returned when a TMA tensor map cannot be encoded (no cudaError_t is negative;
-// ops/_build.py names it)
-constexpr int kErrTensorMap = -1;
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no -lcuda)
-inline EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    const bool ok = e == cudaSuccess && found == cudaDriverEntryPointSuccess;
-    return ok ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
-
 // 4-D map of a (B, S, H, 64) bf16 tensor: dims (64, H, S, B), box (64, 1, 128, 1)
 inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int H) {
-  const EncodeTiled encode = encode_fn();
-  if (!encode) return false;
   const cuuint64_t dims[4] = {cuuint64_t(kD), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
   const cuuint64_t row = kD * 2;  // bytes of one (b, s, h) row
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
   const cuuint32_t box[4] = {kD, 1, kBN, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16(map, base, 4, dims, strides, box);
 }
 
 template <bool kTrain>

@@ -1,7 +1,9 @@
-// Pieces shared by the FFN kernels (ffn_ln_block.cu and ffn_train.cu): the
-// tiling of the (rows, H) x (H, I) x (I, H) products, the weight-tile
-// stream, gelu and its derivative, and the forward kernel that both the
-// serving block (LN1 -> FFN -> LN2) and the training FFN launch.
+// Pieces shared by the FFN kernels (ffn_ln_block.cu, ffn_train.cu and
+// ffn_sm90.cuh): the tiling of the (rows, H) x (H, I) x (I, H) products,
+// the weight-tile stream, gelu and its derivative, and the fused forward
+// kernel that the training FFN (bf16 and fp32) and the fp32 serving block
+// (LN1 -> FFN -> LN2) launch.  The bf16 serving block is the Hopper
+// design of ffn_sm90.cuh.
 //
 // Two hidden widths, each with its own thread count and chunk (Width):
 // H = 768 (BERT-base, BioBERT, the BigBird trunk): 384 threads (12 warps),

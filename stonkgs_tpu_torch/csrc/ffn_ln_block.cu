@@ -1,44 +1,45 @@
-// Post-attention half of a post-LN BERT layer in one kernel:
+// Post-attention half of a post-LN BERT layer:
 //   out = LN2(x2 + (gelu(x2 @ W1 + b1) @ W2 + b2)),  x2 = LN1(x + attn_out)
 //
 // Replaces the TPU kernel _ffn_ln_kernel (stonkgs_tpu/ops/fused_ffn.py:438).
 // Bound on the H100 by operations (4*M*H*I); see
 // stonkgs_tpu_torch/ops/fused_ffn.py for the design note.
 //
-// The kernel is ffn_fwd_kernel<T, true, H> of ffn.cuh, at H = 768 (BERT-base
-// layers and the BigBird trunk) or 1024 (ProtBERT).  One block owns BM rows
-// (H = 768: 48 for bf16, 16 for fp32, 384 threads; H = 1024: 32 for bf16,
-// 16 for fp32, 512 threads):
-//   1. LN1 of its rows into shared memory (x2, rounded to T);
-//   2. for each chunk (192 or 256 wide) of the intermediate axis:
-//        h = x2 @ W1[:, chunk]    (W1 streamed in 64 x chunk tiles)
-//        h = round_T(gelu(h + b1))
-//        acc += h @ W2[chunk, :]  (W2 streamed in 16 x H tiles)
-//      with the (BM, H) fp32 accumulator held in registers;
-//   3. epilogue per 16 rows: ff = round_T(acc + b2), LN2(x2 + ff) -> out.
+// bf16 runs the Hopper kernels of ffn_sm90.cuh, four launches: LN1 into
+// the scratch x2, the wgmma GEMM x2 @ W1 with a b1 + gelu epilogue into
+// the scratch h (M, I), the wgmma GEMM h @ W2 with a b2 epilogue into out,
+// and LN2 in place.  fp32 runs ffn_fwd_kernel<float, true, H> of ffn.cuh
+// in one launch (one block owns 16 rows: LN1 into shared memory, the
+// intermediate axis walked in chunks with the (16, H) fp32 accumulator
+// in registers, LN2 in the epilogue); it exists to hold the model against
+// the CPU.  H is 768 (BERT-base layers and the BigBird trunk) or 1024
+// (ProtBERT).
 //
 // C interface (all pointers on the device; LayerNorm and bias vectors fp32):
 //   int ffn_ln_block(int dtype /*0 fp32, 1 bf16*/, x, attn_out, ln1_scale,
 //                    ln1_bias, w1 (H, I), b1, w2 (I, H), b2, ln2_scale,
-//                    ln2_bias, out, int M, int H, int I, int act /*0 gelu(erf),
+//                    ln2_bias, x2 /*(M, H) bf16 scratch, or NULL for fp32*/,
+//                    h /*(M, I) bf16 scratch, or NULL for fp32*/, out,
+//                    int M, int H, int I, int act /*0 gelu(erf),
 //                    1 gelu_new(tanh)*/, float eps, cudaStream_t stream)
-// with H 768 or 1024 and I a multiple of its chunk (192 or 256); returns
-// cudaGetLastError() after the launch.
+// with H 768 or 1024 and I a multiple of its chunk (192 or 256) in fp32,
+// of 8 in bf16; returns cudaGetLastError() after the launches (or -1 when
+// a TMA tensor map cannot be encoded).
 
-#include "ffn.cuh"
+#include "ffn_sm90.cuh"
 
 extern "C" int ffn_ln_block(int dtype, const void* x, const void* attn_out,
                             const float* ln1_scale, const float* ln1_bias, const void* w1,
                             const float* b1, const void* w2, const float* b2,
-                            const float* ln2_scale, const float* ln2_bias, void* out, int M,
-                            int H, int I, int act, float eps, void* stream) {
+                            const float* ln2_scale, const float* ln2_bias, void* x2, void* h,
+                            void* out, int M, int H, int I, int act, float eps, void* stream) {
   using namespace stonkgs::ffn;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const LnArgs ln{ln1_scale, ln1_bias, ln2_scale, ln2_bias, eps};
   if (dtype == 0)
     return launch_fwd<float, true>(x, attn_out, w1, b1, w2, b2, ln, out, M, H, I, act, s);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, true>(x, attn_out, w1, b1, w2, b2, ln, out, M, H, I, act,
-                                           s);
+    return stonkgs::ffn90::launch_ffn_ln_sm90(x, attn_out, ln, w1, b1, w2, b2, x2, h, out, M, H,
+                                              I, act, s);
   return int(cudaErrorInvalidValue);
 }

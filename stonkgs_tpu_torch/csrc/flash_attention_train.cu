@@ -19,22 +19,26 @@
 //
 // Backward, three launches on the stream:
 //   1. delta = rowsum(dO * O) in fp32, one warp per (b, s, h) row;
-//   2. dQ: one block per (64-row query tile, head, batch); keys stream
-//      through shared memory in 64-key tiles; per tile S = Q K^T and
-//      dP~ = dO V^T, p = exp(S*scale + bias - lse), dP = dP~ * mr with mr
-//      = 1/(1-rate) where the hash keeps and 0 where it drops,
-//      dS = p (dP - delta) rounded to T, dQ += dS K; dQ = scale * dQ;
-//   3. dK, dV, db: one block per (64-key tile, head, batch); query tiles
-//      stream through shared memory; each warp owns 16 keys and forms the
-//      transposed tiles S^T = K_w Q^T and dP~^T = V_w dO^T, then
-//      dV += round(p * mr)^T dO and dK += round(dS)^T Q in fp32 registers
-//      across all query tiles; dK = scale * dK.  db (B, S) = sum over rows
-//      and heads of the fp32 dS: each block sums its keys over all rows and
-//      adds the result into db with one atomicAdd per key (12 heads per
-//      address, so the order of the fp32 sum may vary between runs).
-// Parallel over key tiles in (3), the backward needs no cross-block
-// reduction for dK and dV; dQ takes the second pass (2) instead of atomics,
-// at the cost of computing S and dP~ twice.
+//   2. dQ: a block per query tile, head and batch streams the keys; per
+//      tile S = Q K^T and dP~ = dO V^T, p = exp(S*scale + bias - lse), dP
+//      = dP~ * mr with mr = 1/(1-rate) where the hash keeps and 0 where it
+//      drops, dS = p (dP - delta) rounded to T, dQ += dS K; dQ = scale * dQ;
+//   3. dK, dV, db: a block per key tile, head and batch streams the
+//      queries and forms the transposed tiles S^T = K Q^T and dP~^T =
+//      V dO^T, then dV += round(p * mr)^T dO and dK += round(dS)^T Q in fp32
+//      registers across all query tiles; dK = scale * dK.  db (B, S) = sum
+//      over rows and heads of the fp32 dS: each block sums its keys over
+//      all rows and adds the result into db with one atomicAdd per key (12
+//      heads per address, so the order of the fp32 sum may vary between
+//      runs).
+// In bf16, (2) and (3) are the Hopper kernels of attention_bwd_sm90.cuh
+// (128-row tiles streamed by TMA, wgmma products, S, dP~, dS and P in
+// registers); in fp32 they are the SIMT bodies below (64-row tiles, plain
+// FMAs through attention.cuh's score_tile and PvAcc), which exist to hold
+// the model against the CPU.  Parallel over key tiles in (3), the
+// backward needs no cross-block reduction for dK and dV; dQ takes the
+// second pass (2) instead of atomics, at the cost of computing S and dP~
+// twice.
 //
 // C interface (dtype 0 fp32, 1 bf16; key_bias (B, S) fp32 or NULL; the
 // dropout arguments as attention.cuh's Dropout):
@@ -50,7 +54,7 @@
 //       cudaStream_t stream)
 // each returns cudaGetLastError() after its launches.
 
-#include "attention_sm90.cuh"
+#include "attention_bwd_sm90.cuh"
 
 namespace stonkgs {
 namespace attn {
@@ -76,32 +80,30 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-// Backward shared memory: four T tiles, two fp32 staging tiles, two
-// per-warp T tiles, four 64-float vectors.
-template <typename T>
+// Backward shared memory of the fp32 bodies: four tiles, two fp32
+// staging tiles, two per-warp tiles, four 64-float vectors.
 constexpr size_t bwd_smem_bytes() {
-  using Z = Sizes<T>;
+  using Z = Sizes<float>;
   return 4 * Z::tile + 2 * Z::stage + 2 * Z::wtile + 4 * Z::vec;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const float* __restrict__ key_bias, const T* __restrict__ dout,
+attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ key_bias, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   T* __restrict__ dq, int S, int H, float scale, Dropout drop) {
-  using Z = Sizes<T>;
+                   float* __restrict__ dq, int S, int H, float scale, Dropout drop) {
+  using Z = Sizes<float>;
   constexpr int TS = Z::TS;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = reinterpret_cast<T*>(smem + Z::tile);
-  T* ks = reinterpret_cast<T*>(smem + 2 * Z::tile);
-  T* vs = reinterpret_cast<T*>(smem + 3 * Z::tile);
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = reinterpret_cast<float*>(smem + Z::tile);
+  float* ks = reinterpret_cast<float*>(smem + 2 * Z::tile);
+  float* vs = reinterpret_cast<float*>(smem + 3 * Z::tile);
   float* sst = reinterpret_cast<float*>(smem + 4 * Z::tile);
   float* pst = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::stage);
-  T* dst = reinterpret_cast<T*>(smem + 4 * Z::tile + 2 * Z::stage);
+  float* dst = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage);
   float* bs = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage + 2 * Z::wtile);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -110,14 +112,14 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
   const size_t stat0 = (size_t(b) * H + h) * S;  // (b, h, 0) of lse and delta
 
-  load_rows<T>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
-  load_rows<T>(dos, dout + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
+  load_rows<float>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
+  load_rows<float>(dos, dout + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
 
-  const T* qw = qs + warp * 16 * TS;
-  const T* dow = dos + warp * 16 * TS;
+  const float* qw = qs + warp * 16 * TS;
+  const float* dow = dos + warp * 16 * TS;
   float* sw = sst + warp * 16 * kSST;  // S tile
   float* pw = pst + warp * 16 * kSST;  // dP~ tile
-  T* dsw = dst + warp * 16 * TS;       // dS tile, in T
+  float* dsw = dst + warp * 16 * TS;   // dS tile
 
   const int row = lane >> 1, half = lane & 1;
   const int qrow = q0 + warp * 16 + row;
@@ -126,17 +128,17 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const float delta_r = live ? delta[stat0 + qrow] : 0.f;
   const uint32_t base = drop.row_base(b * H + h, qrow);
 
-  PvAcc<T> acc;
+  PvAcc<float> acc;
   acc.zero();
   for (int k0 = 0; k0 < S; k0 += kTile) {
     const int n = min(kTile, S - k0);
     __syncthreads();  // the previous tiles are consumed
-    load_rows<T>(ks, k + head0 + size_t(k0) * rs, rs, n);
-    load_rows<T>(vs, v + head0 + size_t(k0) * rs, rs, n);
+    load_rows<float>(ks, k + head0 + size_t(k0) * rs, rs, n);
+    load_rows<float>(vs, v + head0 + size_t(k0) * rs, rs, n);
     load_vec(bs, kb ? kb + k0 : nullptr, n);
     __syncthreads();
-    score_tile<T>(qw, ks, sw, lane);
-    score_tile<T>(dow, vs, pw, lane);
+    score_tile<float>(qw, ks, sw, lane);
+    score_tile<float>(dow, vs, pw, lane);
     for (int c = half; c < kTile; c += 2) {
       float ds = 0.f;
       if (live && c < n) {
@@ -145,37 +147,36 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
         if (drop.enabled) dp = drop.keep(base + uint32_t(k0 + c)) ? dp * drop.keep_scale : 0.f;
         ds = p * (dp - delta_r);
       }
-      dsw[row * TS + c] = from_f<T>(ds);
+      dsw[row * TS + c] = ds;
     }
     __syncwarp();
     acc.mma(dsw, ks, lane);
     __syncwarp();
   }
   acc.store(sw, lane);
-  store_rows<T>(dq + head0 + size_t(q0 + warp * 16) * rs, rs, sw, S - (q0 + warp * 16), scale,
-                lane);
+  store_rows<float>(dq + head0 + size_t(q0 + warp * 16) * rs, rs, sw, S - (q0 + warp * 16),
+                    scale, lane);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ key_bias, const T* __restrict__ dout,
+attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ key_bias, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ db, int S,
+                     float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ db, int S,
                      int H, float scale, Dropout drop) {
-  using Z = Sizes<T>;
+  using Z = Sizes<float>;
   constexpr int TS = Z::TS;
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = reinterpret_cast<T*>(smem + Z::tile);
-  T* qs = reinterpret_cast<T*>(smem + 2 * Z::tile);
-  T* dos = reinterpret_cast<T*>(smem + 3 * Z::tile);
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = reinterpret_cast<float*>(smem + Z::tile);
+  float* qs = reinterpret_cast<float*>(smem + 2 * Z::tile);
+  float* dos = reinterpret_cast<float*>(smem + 3 * Z::tile);
   float* sst = reinterpret_cast<float*>(smem + 4 * Z::tile);
   float* pst = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::stage);
-  T* pdt = reinterpret_cast<T*>(smem + 4 * Z::tile + 2 * Z::stage);
-  T* dst = reinterpret_cast<T*>(smem + 4 * Z::tile + 2 * Z::stage + Z::wtile);
+  float* pdt = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage);
+  float* dst = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage + Z::wtile);
   float* vecs = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage + 2 * Z::wtile);
   float* bs = vecs;                            // bias of the block's keys
   float* lse_s = vecs + Z::vec / sizeof(float);  // lse and delta of the query tile
@@ -187,36 +188,36 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const size_t stat0 = (size_t(b) * H + h) * S;
   const int nk = min(kTile, S - k0);
 
-  load_rows<T>(ks, k + head0 + size_t(k0) * rs, rs, nk);
-  load_rows<T>(vs, v + head0 + size_t(k0) * rs, rs, nk);
+  load_rows<float>(ks, k + head0 + size_t(k0) * rs, rs, nk);
+  load_rows<float>(vs, v + head0 + size_t(k0) * rs, rs, nk);
   load_vec(bs, key_bias ? key_bias + size_t(b) * S + k0 : nullptr, nk);
 
-  const T* kw = ks + warp * 16 * TS;   // the warp's 16 keys
-  const T* vw = vs + warp * 16 * TS;
+  const float* kw = ks + warp * 16 * TS;   // the warp's 16 keys
+  const float* vw = vs + warp * 16 * TS;
   float* sw = sst + warp * 16 * kSST;  // S^T tile (keys x queries)
   float* pw = pst + warp * 16 * kSST;  // dP~^T tile
-  T* pdw = pdt + warp * 16 * TS;       // round(p * mr)^T
-  T* dsw = dst + warp * 16 * TS;       // round(dS)^T
+  float* pdw = pdt + warp * 16 * TS;   // (p * mr)^T
+  float* dsw = dst + warp * 16 * TS;   // dS^T
 
   const int row = lane >> 1, half = lane & 1;
   const int key = k0 + warp * 16 + row;  // this lane's key
   const bool live = key < S;
   const int bh = b * H + h;
 
-  PvAcc<T> dv_acc, dk_acc;
+  PvAcc<float> dv_acc, dk_acc;
   dv_acc.zero();
   dk_acc.zero();
   float db_acc = 0.f;
   for (int q0 = 0; q0 < S; q0 += kTile) {
     const int nq = min(kTile, S - q0);
     __syncthreads();  // the previous query tile is consumed
-    load_rows<T>(qs, q + head0 + size_t(q0) * rs, rs, nq);
-    load_rows<T>(dos, dout + head0 + size_t(q0) * rs, rs, nq);
+    load_rows<float>(qs, q + head0 + size_t(q0) * rs, rs, nq);
+    load_rows<float>(dos, dout + head0 + size_t(q0) * rs, rs, nq);
     load_vec(lse_s, lse + stat0 + q0, nq);
     load_vec(delta_s, delta + stat0 + q0, nq);
     __syncthreads();
-    score_tile<T>(kw, qs, sw, lane);
-    score_tile<T>(vw, dos, pw, lane);
+    score_tile<float>(kw, qs, sw, lane);
+    score_tile<float>(vw, dos, pw, lane);
     const float bias_r = bs[warp * 16 + row];
     for (int c = half; c < kTile; c += 2) {
       float pd = 0.f, ds = 0.f;
@@ -231,8 +232,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         }
         ds = p * (dp - delta_s[c]);
       }
-      pdw[row * TS + c] = from_f<T>(pd);
-      dsw[row * TS + c] = from_f<T>(ds);
+      pdw[row * TS + c] = pd;
+      dsw[row * TS + c] = ds;
       db_acc += ds;
     }
     __syncwarp();
@@ -242,46 +243,51 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
   const int rows_left = S - (k0 + warp * 16);
   dv_acc.store(sw, lane);
-  store_rows<T>(dv + head0 + size_t(k0 + warp * 16) * rs, rs, sw, rows_left, 1.f, lane);
+  store_rows<float>(dv + head0 + size_t(k0 + warp * 16) * rs, rs, sw, rows_left, 1.f, lane);
   dk_acc.store(pw, lane);
-  store_rows<T>(dk + head0 + size_t(k0 + warp * 16) * rs, rs, pw, rows_left, scale, lane);
+  store_rows<float>(dk + head0 + size_t(k0 + warp * 16) * rs, rs, pw, rows_left, scale, lane);
   db_acc += __shfl_xor_sync(0xffffffffu, db_acc, 1);
   if (db && live && half == 0) atomicAdd(db + size_t(b) * S + key, db_acc);
 }
 
+// delta = rowsum(dO * O), then dQ and dK/dV/db: the Hopper kernels in
+// bf16, the SIMT bodies in fp32
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const float* key_bias,
                const void* out, const float* lse, const void* dout, void* dq, void* dk,
                void* dv, float* db, float* delta, int B, int S, int H, float scale,
                Dropout drop, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
   const size_t rows = size_t(B) * S * H;
   attn_bwd_delta_kernel<T><<<unsigned((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(out), dot, delta, B, S, H);
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, B, S, H);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-
-  constexpr size_t smem = bwd_smem_bytes<T>();
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
-  e = cudaFuncSetAttribute(attn_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           int(smem));
-  if (e != cudaSuccess) return int(e);
-  attn_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
-      qt, kt, vt, key_bias, dot, lse, delta, static_cast<T*>(dq), S, H, scale, drop);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-
-  e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  attn_bwd_dkdv_kernel<T><<<grid, kThreads, smem, stream>>>(
-      qt, kt, vt, key_bias, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), db, S,
-      H, scale, drop);
-  return int(cudaGetLastError());
+  if constexpr (kIsBf16<T>) {
+    return attn90::launch_bwd_sm90(q, k, v, key_bias, lse, dout, delta, dq, dk, dv, db, B, S, H,
+                                   scale, drop, stream);
+  } else {
+    const float* qt = static_cast<const float*>(q);
+    const float* kt = static_cast<const float*>(k);
+    const float* vt = static_cast<const float*>(v);
+    const float* dot = static_cast<const float*>(dout);
+    constexpr size_t smem = bwd_smem_bytes();
+    const dim3 grid((S + kTile - 1) / kTile, H, B);
+    e = cudaFuncSetAttribute(attn_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem));
+    if (e != cudaSuccess) return int(e);
+    attn_bwd_dq_kernel<<<grid, kThreads, smem, stream>>>(
+        qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dq), S, H, scale, drop);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return int(e);
+    e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem));
+    if (e != cudaSuccess) return int(e);
+    attn_bwd_dkdv_kernel<<<grid, kThreads, smem, stream>>>(
+        qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
+        db, S, H, scale, drop);
+    return int(cudaGetLastError());
+  }
 }
 
 Dropout make_dropout(int enabled, int s_pad, unsigned threshold, unsigned seed0,

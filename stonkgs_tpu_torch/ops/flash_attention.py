@@ -78,7 +78,9 @@ each output byte written once), at the pre-training step's shapes
   bytes (0.015 ms);
 * backward, trunk: 10*B*H*S²*D = 64.4 GFLOP against 202 MB (q, k, v, o,
   dO, lse and bias read; dq, dk, dv and db written): bound by operations,
-  0.065 ms against 0.060 ms for the bytes.
+  0.065 ms against 0.060 ms for the bytes (the design below recomputes S
+  and dP̃ in both kernels: 14*B*H*S²*D of products, 0.091 ms at the
+  peak).
 
 Design.  The forward is the inference kernel (the Hopper kernel in bf16,
 the SIMT body in fp32) with three additions: the fp32 logsumexp of each
@@ -90,16 +92,32 @@ analytically; they change a row only when all its keys are masked).
 The TPU backward runs one program per (b, h, q-block) and carries dK and
 dV across the sequential q-blocks in fp32 scratch.  Hopper blocks run in
 parallel, so the backward is three launches: a warp per row computes
-delta = rowsum(dO·O); a block per (64-row query tile, head, batch)
-streams the keys and forms dQ; a block per (64-key tile, head, batch)
+delta = rowsum(dO·O); a block per (128-row query tile, head, batch)
+streams the keys and forms dQ; a block per (128-key tile, head, batch)
 streams the queries and forms dK and dV in fp32 registers, and adds its
-keys' share of db into a zeroed (B, S) buffer with atomics.  S and dPᵀ
-are thus computed twice, for no cross-block reduction of dQ.  Every
-launch regenerates the dropout mask from the hash of the position.  The
-rounding points are the TPU kernels' (``flash_attention.py:92-178``):
-products of the input dtype accumulated in fp32, scale after the
-product, dS rounded to q's dtype before the dQ and dK products, the
-dropped probabilities rounded to dO's dtype for dV.
+keys' share of db into a zeroed (B, S) buffer with atomics.  S and dP̃
+are thus computed twice, for no cross-block reduction of dQ: the design's
+floor is 7 products of 2·B·H·S²·D and two exps a score, plus the hash of
+each score twice with dropout.  In bf16 the dQ and dK/dV kernels are
+those of ``csrc/attention_bwd_sm90.cuh``, shaped as the forward: a
+producer warpgroup streams the other operand pair's 128-row tiles
+through a TMA ring (the forward's 4-D tensor maps) and writes each
+tile's key bias, or its rows' lse and delta, beside it; two consumer
+warpgroups of 64 rows run S = QKᵀ and dP̃ = dO Vᵀ (in dK/dV the
+transposed Sᵀ = K Qᵀ and dP̃ᵀ = V dOᵀ) as ``wgmma.m64n128k16`` from shared
+memory, the element pass in registers, and dQ += dS K (dV += (p·mr)ᵀ dO,
+dK += dSᵀ Q) as ``wgmma.m64n64k16`` with the packed bf16 dS or p·mr from
+registers as the A operand and K (dO, Q) MN-major.  S, dP̃, dS and p
+never touch shared memory.  In fp32 they are the SIMT bodies of
+``csrc/flash_attention_train.cu`` (64-row tiles, plain FMAs, an IEEE exp
+per score).  Every launch regenerates the dropout mask from the hash of
+the position.  The rounding points are the TPU kernels'
+(``flash_attention.py:92-178``): products of the input dtype accumulated
+in fp32, scale after the product, dS rounded to q's dtype before the dQ
+and dK products, the dropped probabilities rounded to dO's dtype for dV.
+The bf16 kernels take p = exp2((S·scale + bias − lse)·log2 e) on the
+SFU, a few ulps from an IEEE exp: a rounded dS or p·mr moves by at most
+one bf16 step at a rounding boundary.
 
 The dropout hash indexes ((b·H + h)·S_pad + row)·S_pad + col, modulo 2³²,
 where S_pad pads S to the TPU kernel's query block (``padded_length``):

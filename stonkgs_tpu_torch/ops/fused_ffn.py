@@ -1,7 +1,7 @@
 """The BERT FFN on the card: the serving block and the training pair.
 
-Serving: LN1 -> FFN -> LN2 of a post-LN layer, fused
-=====================================================
+Serving: LN1 -> FFN -> LN2 of a post-LN layer
+=============================================
 
 Kernel: ``csrc/ffn_ln_block.cu`` (CUDA C++ for ``sm_90a``).  It replaces
 the TPU kernel ``_ffn_ln_kernel`` of the JAX package
@@ -17,35 +17,44 @@ bf16 peak).
 
 Design: the TPU kernel keeps a whole (512, 3072) intermediate and both
 weight matrices in ~48 MB of VMEM.  A Hopper block has 227 KB of shared
-memory, so one block takes 48 rows (bf16; 12 warps) and keeps only their
-LN1 output ``x2`` in shared memory.  It walks the intermediate axis in
-chunks of 192: h = x2 @ W1[:, chunk] + b1, gelu, rounded to the input
-dtype, then ``h @ W2[chunk, :]`` accumulates into an fp32 (48, 768)
-accumulator that stays in registers across the whole walk, and LN2 runs
-in the epilogue.  Neither ``x2`` nor the (M, 3072) intermediate reaches
-device memory.  Both weight matrices (9.4 MB in bf16) stream through the
-50 MB L2 as one sequence of tiles in a 3-stage ``cp.async`` ring.  Each
-row block re-reads all of them from L2, so the row tile sets the L2
-traffic: 48 rows (against 32 in the first version, 6.9 -> 5.3 ms at
-M = 65,536 on an H100 SXM at 700 W) is as far as the registers of the
-accumulator allow; sharing tiles across a cluster and ``wgmma`` are the
-next steps.  bf16 products run on the tensor cores (``nvcuda::wmma``,
-fp32 accumulation); the fp32 instantiation runs plain fp32 FMAs on
-16-row blocks and exists to hold the whole model against the CPU.
+memory and 64K registers.  The first version of the port fused the
+block into one kernel: a block of 48 rows kept its fp32 (48, 768) accumulator in
+registers while it walked the intermediate axis, re-streaming both
+weight matrices from L2 for every 48 rows on ``mma.sync`` (5.4 ms at
+M = 65,536 on an H100 SXM at 700 W, 3.7x the two cuBLAS products it
+contains).  The accumulator caps the row tile: 128 x 768 in fp32 is more
+than the whole register file.  So bf16 runs the Hopper design of
+``csrc/ffn_sm90.cuh``, four launches that keep the TPU kernel's rounding
+points: LN1 over x + attn into a bf16 scratch x2; a ``wgmma`` GEMM x2 @ W1
+with a b1 + gelu epilogue into a bf16 scratch h (M, I); a ``wgmma`` GEMM
+h @ W2 with a b2 epilogue into ``out``; LN2 over x2 + ff in place.  h
+makes a round trip through device memory (402 MB at the trunk's shape,
+~0.24 ms of HBM time) that the products, bound by operations, hide.  The
+GEMM takes a 128 x 256 tile of C a block: a producer warpgroup streams
+the K axis in 64-deep steps through a 4-stage TMA ring (A K-major, the
+(K, N) row-major weight read MN-major as it lies, no transposed copy),
+two consumer warpgroups run ``wgmma.m64n256k16`` into 128 fp32
+registers each, and the epilogue adds the bias, applies gelu (erf) or
+``gelu_new`` (tanh) in fp32 and stores bf16 pairs; TMA zero-fills a
+ragged M, N or K edge.  The epilogue is the GEMM's second cost at K = 768
+(it does not overlap the products), so it is written without branches:
+erf and tanh are evaluated branch-free (``gelu_sel``: erf within 1.3 ulp
+of the true erf in fp32, as against 2 ulp for CUDA's ``erff``) and only
+the stores are guarded, so its 128 values a thread interleave.  The LayerNorm passes take a warp a row with
+16-byte loads.  The fp32 instantiation keeps the fused kernel
+(``ffn_fwd_kernel`` of ``csrc/ffn.cuh``, 16-row blocks of plain fp32 FMAs):
+it exists to hold the whole model against the CPU.
 
-Width 1024 (ProtBERT, 30 layers, intermediate 4096): the same kernel
-body is instantiated at H = 1024 with 16 warps (512 threads), 256-wide
-intermediate chunks and 32-row blocks (bf16; 217 KB of shared memory),
-so each warp still owns 16 columns of a chunk and 64 output columns.
-The 768 instantiation keeps its tiling.  At ProtBERT's serving shape
+Width 1024 (ProtBERT, 30 layers, intermediate 4096): the same kernels at
+H = 1024 (the LayerNorm pass is instantiated per width; the GEMM takes
+any N and K that are multiples of 8).  At ProtBERT's serving shape
 (M = 8·3072 = 24,576 rows) the products are 4·M·1024·4096 = 412 GFLOP,
 bound by operations (0.42 ms at 989 TFLOP/s).
 
 Rounding points, as the TPU kernel (``fused_ffn.py:444-467``):
 x2 = LN1(x + attn) in fp32, rounded; h accumulated in fp32, + b1, gelu in
 fp32 (exact erf, or the tanh ``gelu_new``), rounded; ff = h @ W2 + b2,
-rounded; out = LN2(x2 + ff) in fp32, rounded.  The kernel body is
-``ffn_fwd_kernel`` of ``csrc/ffn.cuh``, which the training forward shares.
+rounded; out = LN2(x2 + ff) in fp32, rounded.
 
 Training: dense -> gelu -> dense, forward and backward
 ======================================================
@@ -65,8 +74,8 @@ byte once and each output byte once:
   writes; W1 and W2): bound by operations, 0.234 ms.  The dW products,
   another 4*M*768*3072, run outside it.
 
-Design.  The forward is the serving block's kernel without its two
-LayerNorms, at H = 768 and 1024 (the frozen ProtBERT backbone runs it in
+Design.  The forward is the fused kernel of the first serving version
+without its two LayerNorms, at H = 768 and 1024 (the frozen ProtBERT backbone runs it in
 a ProtSTonKGs training step).  The backward is written for 768 only:
 only the 768-wide trunks train.  The TPU backward kernel holds a whole
 row block's (bm, 3072) fp32 chains in VMEM and emits dx, dh and a.  A Hopper block holds 32 rows
@@ -101,8 +110,8 @@ KERNEL_CHUNKS = {768: 192, 1024: 256}
 BWD_HIDDEN = 768
 _P, _I, _F = _build.P, _build.I32, _build.F32
 # int ffn_ln_block(dtype, x, attn_out, ln1_scale, ln1_bias, w1, b1, w2, b2,
-#                  ln2_scale, ln2_bias, out, M, H, I, act, eps, stream)
-_SIGNATURES = {"ffn_ln_block": [_I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P]}
+#                  ln2_scale, ln2_bias, x2, h, out, M, H, I, act, eps, stream)
+_SIGNATURES = {"ffn_ln_block": [_I] + [_P] * 13 + [_I, _I, _I, _I, _F, _P]}
 _TRAIN_SIGNATURES = {
     # int ffn_train_fwd(dtype, x, w1, b1, w2, b2, out, M, H, I, act, stream)
     "ffn_train_fwd": [_I] + [_P] * 6 + [_I, _I, _I, _I, _P],
@@ -219,7 +228,11 @@ def fused_ffn_ln_block(
             raise ValueError(f"vector of shape {tuple(t.shape)}, expected ({n},)")
     M = x.numel() // H
     out = torch.empty_like(x)
-    _build.check_aligned("fused_ffn_ln_block", x, attn_out, w1, w2, out)
+    # bf16 scratch of the Hopper design: x2 = LN1(x + attn) and h (M, I)
+    x2, h = ((torch.empty((M, H), dtype=dt, device=x.device),
+              torch.empty((M, I), dtype=dt, device=x.device))
+             if dt == torch.bfloat16 else (None, None))
+    _build.check_aligned("fused_ffn_ln_block", x, attn_out, w1, w2, x2, h, out)
     if M == 0:
         return out
     lib = _build.load("ffn_ln_block", _SIGNATURES)
@@ -228,8 +241,8 @@ def fused_ffn_ln_block(
         _DTYPES[dt], _build.ptr(x), _build.ptr(attn_out),
         _build.ptr(g1), _build.ptr(be1), _build.ptr(w1), _build.ptr(b1f),
         _build.ptr(w2), _build.ptr(b2f), _build.ptr(g2), _build.ptr(be2),
-        _build.ptr(out), M, H, I, _ACTS[act], float(eps),
-        _build.stream(x.device))
+        _build.ptr(x2), _build.ptr(h), _build.ptr(out), M, H, I, _ACTS[act],
+        float(eps), _build.stream(x.device))
     _build.check(status, "ffn_ln_block")
     fused_ffn_ln_block.launches += 1
     return out

@@ -62,7 +62,9 @@ def _np(t):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("act", ["gelu", "gelu_new"])
-@pytest.mark.parametrize("M", [1, 3, 37])
+# 127, 128 and 129: the edges of the card's 128-row GEMM tile (the plain
+# version the card compares with does not depend on the width)
+@pytest.mark.parametrize("M", [1, 3, 37, 127, 128, 129])
 def test_fused_ffn_ln_block_matches_pallas_kernel(M, act, dtype):
     jx, tx = _as_dtype(_ffn_inputs(M), dtype)
     want = jffn.fused_ffn_ln_block(*jx, act=act, eps=1e-12, block_m=16,

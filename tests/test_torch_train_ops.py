@@ -84,9 +84,10 @@ def _torch_attention(arrays, dtype, rate, block_q=32):
 
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-# 40 pads to S_pad = 64 at block_q 32; 300 (one row, one head, to keep
-# interpret mode quick) to S_pad = 512 at the default block_q 256
-@pytest.mark.parametrize("S", [1, 40, 64, 300])
+# 40 pads to S_pad = 64 at block_q 32; 65 and 129 sit one past the card's
+# 64- and 128-row tiles (S_pad 96 and 160); 300 (one row, one head, to
+# keep interpret mode quick) pads to S_pad = 512 at the default block_q 256
+@pytest.mark.parametrize("S", [1, 40, 64, 65, 129, 300])
 def test_flash_attention_train_matches_pallas_kernel(S, dtype, rate):
     B, H, block_q = (1, 1, 256) if S == 300 else (2, 3, 32)
     arrays = _attn_arrays(S, B, H)
