@@ -10,7 +10,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. build: every CUDA source of ``stonkgs_tpu_torch/csrc`` with nvcc, all
    started together, with ptxas's register and spill report (fatal if any
    Hopper kernel spills: the attention forward and backward, the FFN
-   block's GEMM and LayerNorm passes);
+   block's GEMM and LayerNorm passes, the training FFN's GEMMs and dual
+   GEMM);
 3. kernels: the serving kernels against their plain PyTorch versions on
    the card, in bf16 and fp32, at the serving paths' shapes (the FFN
    block at H=768 with gelu and gelu_new and at ProtBERT's H=1024, at
@@ -28,9 +29,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    512 and 1024, at B=H=1 and at the step's B=32 H=12, masked, unmasked
    and with a row whose keys are all at -1e9; bf16 gradients also within
    ``ATTN_STEP`` of their scale, a limit that must reject dK without its
-   scale and dV without the keep scale) and the FFN pair (M = 0, 3,
-   8,192, 16,384; the forward at H=1024, M = 3 and 6,144), against their
-   plain versions, in bf16 and fp32;
+   scale and dV without the keep scale) and the FFN pair (M = 0, 1, 3,
+   127, 128, 129, 1,000, 8,192, 16,384 with gelu and gelu_new; bf16 at
+   I=1000; H=1024 at M = 3 and 6,144; the bf16 dh limit must reject a dh
+   whose gelu' lacks its h-dependent term), against their plain versions,
+   in bf16 and fp32;
 5. serving: ``STonKGsEngine.embed`` at full BERT-base width (backbone and
    trunk, 256 + 256, KG vocabulary 100,000, random seeded weights) on 512
    rows, in parity mode and with ``length_buckets=(64, 128)``; checks the
@@ -47,12 +50,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    parameters changed;
 8. training numerics: the loss and trunk gradients on the card in fp32
    against the CPU in fp32 (2 rows, 2 layers, attention dropout 0.1 with
-   the same seeds, hidden dropout 0);
+   the same seeds, hidden dropout 0), then on the card in bf16 through
+   the Hopper kernels against the same CPU fp32 run (loss within 1e-2
+   relative, every gradient leaf at a cosine of at least 0.99);
 9. training timing: ms per step and examples/s (median of 6 steps after 2
    of warm-up), and each training kernel's time at the step's shapes
    beside its bound, its plain version and, for attention, SDPA (the
    backward: ``torch.autograd.grad`` alone over a saved SDPA forward,
-   with the backend that ran);
+   with the backend that ran), for the FFN pair the cuBLAS products it
+   contains, timed alone;
 10. sparse kernels: the BigBird pair against its plain versions, bf16 and
     fp32, at nb = 5, 8 (padded mask) and 64 (S=4096), with the eval and
     the training plan, at B=2 (forward and backward) and B=8 (forward);
@@ -70,7 +76,8 @@ Phases, each fatal on failure (exit code 1, no result line):
     attention dropout 0.1 on the same seeds);
 14. ProtSTonKGs timing: embed sequences/s, ms per step (median of 6 after
     2), and each new or widened kernel at the path's shapes beside its
-    bound and its plain version;
+    bound and its plain version (the training FFN pair at ProtBERT's,
+    the BigBird trunk's and BioBERT's shapes);
 15. int8 kernels: the fused int8 dense against its plain version, bf16
     and fp32, at every shape of the int8 serving paths, at M = 0, 1 and
     300, an all-zero row, N = 100, the decoders' N = 28,996 and 100,000
@@ -139,6 +146,7 @@ from stonkgs_tpu_torch.ops.flash_attention import (
     flash_attention_train_fwd_plain,
 )
 from stonkgs_tpu_torch.ops.fused_ffn import (
+    BWD_HIDDEN,
     fused_ffn_bwd,
     fused_ffn_bwd_plain,
     fused_ffn_fwd,
@@ -200,11 +208,15 @@ SM90_KERNELS = {
     "flash_attention_train": ("attn_fwd_sm90_kernel", "attn_bwd_dq_sm90_kernel",
                               "attn_bwd_dkdv_sm90_kernel"),
     "ffn_ln_block": ("gemm_sm90_kernel", "add_layer_norm_kernel"),
+    "ffn_train": ("gemm_sm90_kernel", "ffn_bwd_dual_sm90_kernel"),
 }
 # rows of the FFN block's checks: empty, ragged, the edges of the 128-row
 # tile, the ProtSTonKGs BioBERT (6,144) and ProtBERT (24,576) shapes, the
 # STonKGs backbone and BigBird trunk (32,768) and the STonKGs trunk
 FFN_ROWS = (0, 1, 3, 127, 128, 129, 1000, 6144, 24576, 32768, 65536)
+# rows of the training FFN pair's checks: empty, ragged, the edges of the
+# 128-row tile, and the STonKGs step's backbone and trunk
+TRAIN_FFN_ROWS = (0, 1, 3, 127, 128, 129, 1000, 8192, 16384)
 # sequence lengths of the attention backward's checks: one key, the edges
 # of the 64- and 128-row tiles, TransE's 260, S_pad > S (300), and the
 # paths' 512 and 1024
@@ -521,6 +533,63 @@ def _train_ffn_inputs(M, dtype, gen, H=768, I=3072):
             n(H, std=0.02), n(M, H).to(dtype))
 
 
+def _train_ffn_cases(gen, note) -> None:
+    """The training FFN pair against its plain versions: bf16 and fp32 at
+    H=768, I=3072 at every M of TRAIN_FFN_ROWS with gelu and gelu_new;
+    bf16 at I=1000 (a ragged edge of the 128-column tiles); ProtBERT's
+    H=1024, I=4096 at M = 3 and 6,144 (the fp32 backward takes H=768
+    only).  At M=8,192 the bf16 dh limit must reject dh whose gelu' lacks
+    its h-dependent term."""
+    cases = [(dtype, 768, 3072, M, act) for dtype in (BF16, F32) for M in TRAIN_FFN_ROWS
+             for act in ("gelu", "gelu_new")]
+    cases += [(BF16, 768, 1000, M, act) for M in (3, 129, 1000) for act in ("gelu", "gelu_new")]
+    cases += [(dtype, 1024, 4096, M, "gelu") for dtype in (BF16, F32) for M in (3, 6144)]
+    for dtype, H, I, M, act in cases:
+        tag = "bf16" if dtype == BF16 else "fp32"
+        x, w1, b1, w2, b2, g = _train_ffn_inputs(M, dtype, gen, H, I)
+        label = f"{tag} H={H} I={I} M={M} {act}"
+        e = _compare(f"ffn fwd {label}", fused_ffn_fwd(x, w1, b1, w2, b2, act=act),
+                     fused_ffn_plain(x, w1, b1, w2, b2, act=act), dtype)
+        note("ffn_train_fwd", e, dtype, (H, M) in ((768, 16384), (1024, 6144)))
+        if dtype == F32 and H != BWD_HIDDEN:
+            continue
+        got = fused_ffn_bwd(x, g, w1, b1, w2, act=act)
+        want = fused_ffn_bwd_plain(x, g, w1, b1, w2, act=act)
+        e = max(_compare_rel(f"ffn dx {label}", got[0], want[0], dtype),
+                _compare_rel(f"ffn dh {label}", got[1], want[1], dtype),
+                _compare(f"ffn a {label}", got[2], want[2], dtype))
+        note("ffn_train_bwd", e, dtype, (H, M) == (768, 16384))
+        if dtype == BF16 and (H, I, M) == (768, 3072, 8192):
+            _rel_limit_rejects(f"ffn dh {label} without the h-dependent term of gelu'",
+                               want[1], _dh_without_h_term(x, g, w1, b1, w2, act))
+        del x, w1, b1, w2, b2, g, got, want
+
+
+def _dh_without_h_term(x, g, w1, b1, w2, act):
+    """The plain version's dh with gelu' cut to its first term: 0.5 (1 +
+    erf(h / sqrt 2)) without h phi(h), or 0.5 (1 + tanh(u)) without the
+    tanh's derivative."""
+    dt = x.dtype
+    h = x.float() @ w1.to(dt).float() + b1.float()
+    if act == "gelu":
+        first = 0.5 * (1.0 + torch.erf(h * 2.0 ** -0.5))
+    else:
+        first = 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (h + 0.044715 * h ** 3)))
+    return ((g.to(dt).float() @ w2.to(dt).float().T) * first).to(dt)
+
+
+def _rel_limit_rejects(name, want, wrong) -> None:
+    """Fail unless ``_compare_rel``'s limit (GRAD_TOL of max(1, max
+    |want|)) tells ``wrong`` (a known kernel fault applied to the plain
+    output) from ``want``."""
+    g, w = wrong.float(), want.float()
+    err = float((g - w).abs().max())
+    limit = GRAD_TOL[want.dtype] * max(1.0, float(w.abs().max()))
+    log(f"# check {name}: max_abs_err {err!r} limit {limit!r} "
+        f"{'passes: FAIL' if err <= limit else 'rejected: ok'}")
+    check(err > limit, f"{name}: the limit does not catch this fault")
+
+
 def phase_train_kernels() -> dict:
     """The training kernels vs their plain versions on the card; returns,
     per kernel, the worst bf16 error at the step's largest shape."""
@@ -572,26 +641,7 @@ def phase_train_kernels() -> dict:
                 _attn_limit_rejects(f"attention fwd {label} without the keep scale", out_p,
                                     (out_p.float() * (1.0 - rate)).to(BF16))
             del q, k, v, out, lse, out_p, lse_p
-        # the frozen ProtBERT's FFN forward (H=1024)
-        for M in (3, 6144):
-            x, w1, b1, w2, b2, _ = _train_ffn_inputs(M, dtype, gen, 1024, 4096)
-            e = _compare(f"ffn fwd {tag} H=1024 M={M} gelu",
-                         fused_ffn_fwd(x, w1, b1, w2, b2), fused_ffn_plain(x, w1, b1, w2, b2),
-                         dtype)
-            note("ffn_train_fwd", e, dtype, M == 6144)
-        for M in (0, 3, 8192, 16384):
-            for act in ("gelu", "gelu_new") if M == 3 else ("gelu",):
-                x, w1, b1, w2, b2, g = _train_ffn_inputs(M, dtype, gen)
-                label = f"{tag} M={M} {act}"
-                e = _compare(f"ffn fwd {label}", fused_ffn_fwd(x, w1, b1, w2, b2, act=act),
-                             fused_ffn_plain(x, w1, b1, w2, b2, act=act), dtype)
-                note("ffn_train_fwd", e, dtype, M == 16384)
-                got = fused_ffn_bwd(x, g, w1, b1, w2, act=act)
-                want = fused_ffn_bwd_plain(x, g, w1, b1, w2, act=act)
-                e = max(_compare_rel(f"ffn dx {label}", got[0], want[0], dtype),
-                        _compare_rel(f"ffn dh {label}", got[1], want[1], dtype),
-                        _compare(f"ffn a {label}", got[2], want[2], dtype))
-                note("ffn_train_bwd", e, dtype, M == 16384)
+    _train_ffn_cases(gen, note)
     return errs
 
 
@@ -938,10 +988,19 @@ def _named_leaves(tree, prefix: str = "") -> dict:
     return out
 
 
+# trunk leaves whose gradient is zero in exact arithmetic: a key bias
+# adds the same q . b_k to every score of a query row, which the softmax
+# cancels; both sides hold it at the rounding level, where a cosine means
+# nothing
+ZERO_GRAD_LEAVES = ("attention/key/bias",)
+
+
 def phase_train_numerics(cfg_full: STonKGsConfig) -> None:
-    """Loss and trunk gradients, card fp32 vs CPU fp32, at 2 rows and 2
-    layers of the full width, hidden dropout 0 and attention dropout 0.1:
-    the attention seeds come from the same CPU generator on both sides."""
+    """Loss and trunk gradients at 2 rows and 2 layers of the full width,
+    hidden dropout 0 and attention dropout 0.1 (the attention seeds come
+    from the same CPU generator on both sides), against the CPU in fp32:
+    the card in fp32 (the SIMT bodies), then the card in bf16 (the Hopper
+    kernels), each leaf by its cosine."""
     bcfg = dataclasses.replace(cfg_full.bert, num_hidden_layers=2, hidden_dropout_prob=0.0)
     cfg = cfg_full.replace(bert=bcfg)
     gen = torch.Generator().manual_seed(5)
@@ -949,32 +1008,63 @@ def phase_train_numerics(cfg_full: STonKGsConfig) -> None:
     params["kg_backbone"] = torch.randn(cfg.kg_table_size, bcfg.hidden_size, generator=gen)
     feats = _pretraining_features(cfg, 2, seed=7)
 
-    def loss_and_grads(device):
+    def loss_and_grads(device, dtype=F32):
         p = params_to(params, device)
-        leaves = tree_leaves(p["trunk"])
-        for t in leaves:
+        named = _named_leaves(p["trunk"])
+        for t in named.values():
             t.requires_grad_(True)
         loss, _ = stonkgs.pretraining_loss(
             p, cfg, pretraining.to_device(feats, device), deterministic=False,
-            rng=pretraining.step_rng(0, 0, device), compute_dtype=F32)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        for t in leaves:
+            rng=pretraining.step_rng(0, 0, device), compute_dtype=dtype)
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+        for t in named.values():
             t.requires_grad_(False)
         # the trunk's word embeddings take no part (it reads the backbones')
-        return float(loss.detach()), [g.detach().cpu() for g in grads if g is not None]
+        return float(loss.detach()), {n: g.detach().cpu() for n, g in zip(named, grads)
+                                      if g is not None}
 
     launches = flash_attention_train_fwd.launches
     loss_card, g_card = loss_and_grads(DEV)
     check(flash_attention_train_fwd.launches > launches, "the card run launched no kernel")
     loss_cpu, g_cpu = loss_and_grads("cpu")
-    err = max(float((a - b).abs().max()) for a, b in zip(g_card, g_cpu))
-    scale = max(float(b.abs().max()) for b in g_cpu)
+    check(g_card.keys() == g_cpu.keys(), "card and CPU differ in their gradient leaves")
+    err = max(float((g_card[n] - g_cpu[n]).abs().max()) for n in g_cpu)
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
     log(f"# train card fp32 vs CPU fp32 (2 rows, 2 layers, attention dropout "
         f"{ATTN_RATE}): loss {loss_card!r} vs {loss_cpu!r}; trunk grads max_abs_err "
         f"{err!r} of max |grad| {scale!r} (limits: loss 1e-4 relative, grads 1e-3 of "
         f"max |grad|)")
     check(abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu), "card loss disagrees with the CPU")
     check(err <= 1e-3 * scale, "card gradients disagree with the CPU")
+
+    # bf16 compute on the card: every FFN of the 2 trunk and 2 backbone
+    # layers through the Hopper pair
+    before = (fused_ffn_fwd.launches, fused_ffn_bwd.launches)
+    loss_bf16, g_bf16 = loss_and_grads(DEV, BF16)
+    check(fused_ffn_fwd.launches - before[0] == 4 and fused_ffn_bwd.launches - before[1] == 2,
+          f"bf16 numerics launched the FFN pair {fused_ffn_fwd.launches - before[0]} / "
+          f"{fused_ffn_bwd.launches - before[1]} times, expected 4 / 2")
+    check(g_bf16.keys() == g_cpu.keys(), "card bf16 and CPU differ in their gradient leaves")
+    norm_max = max(float(g.norm()) for g in g_cpu.values())
+    cosines = {}
+    for n, want in g_cpu.items():
+        got = g_bf16[n].double().flatten()
+        w = want.double().flatten()
+        if n.endswith(ZERO_GRAD_LEAVES):
+            check(float(w.norm()) <= 1e-6 * norm_max and float(got.norm()) <= 1e-4 * norm_max,
+                  f"{n}: a gradient that should cancel reads {float(w.norm())!r} (CPU), "
+                  f"{float(got.norm())!r} (card bf16) of the largest leaf norm {norm_max!r}")
+            continue
+        cosines[n] = float(got @ w / (got.norm() * w.norm()))
+    worst = min(cosines, key=cosines.get)
+    rel = abs(loss_bf16 - loss_cpu) / abs(loss_cpu)
+    log(f"# train card bf16 vs CPU fp32 (same rows and seeds): loss {loss_bf16!r} vs "
+        f"{loss_cpu!r} ({rel!r} relative; limit 1e-2); {len(cosines)} trunk gradient leaves, "
+        f"lowest cosine {cosines[worst]!r} ({worst}; limit 0.99); mean "
+        f"{statistics.fmean(cosines.values())!r}; {ZERO_GRAD_LEAVES} at the rounding level "
+        f"on both sides")
+    check(rel <= 1e-2, "card bf16 loss disagrees with the CPU")
+    check(cosines[worst] >= 0.99, f"card bf16 gradient {worst} disagrees with the CPU")
 
 
 def _time_train_attention(label, B, S, masked, gen, backward, H=12) -> dict:
@@ -1041,29 +1131,41 @@ def _time_sdpa_backward(label, q, k, v, mask, dout) -> float:
     return ms
 
 
-def _time_train_ffn(label, M, gen, backward, H=768, I=3072) -> dict:
-    """A training FFN kernel vs plain at the step's shape, then both timed
-    (no single library call computes the fused function)."""
+def _time_train_ffn(label, M, gen, backward, H=768, I=3072, act="gelu") -> dict:
+    """A training FFN kernel vs plain at the path's shape, then both timed,
+    and the cuBLAS bf16 products the kernel contains timed alone (x W1 + h
+    W2 forward; x W1 + g W2^T + dh W1^T backward), a yardstick only: no
+    one PyTorch call computes the fused function."""
     x, w1, b1, w2, b2, g = _train_ffn_inputs(M, BF16, gen, H, I)
-    H, I = w1.shape
+    w1b, w2b = w1.to(BF16), w2.to(BF16)
     if not backward:
-        bound, by = _bound_ms(4.0 * M * H * I, 2 * M * H * 2 + 2 * H * I * 2 + (H + I) * 4,
-                              BF16)
-        fn = lambda: fused_ffn_fwd(x, w1, b1, w2, b2)  # noqa: E731
-        plain = lambda: fused_ffn_plain(x, w1, b1, w2, b2)  # noqa: E731
+        flops = 4.0 * M * H * I
+        bound, by = _bound_ms(flops, 2 * M * H * 2 + 2 * H * I * 2 + (H + I) * 4, BF16)
+        fn = lambda: fused_ffn_fwd(x, w1, b1, w2, b2, act=act)  # noqa: E731
+        plain = lambda: fused_ffn_plain(x, w1, b1, w2, b2, act=act)  # noqa: E731
         err = _compare(f"ffn fwd bf16 {label}", fn(), plain(), BF16)
+        h = x @ w1b
+        gemms = [lambda: x @ w1b, lambda: h @ w2b]
     else:
         # x, g, dx; dh and a; W1 and W2 in bf16; b1
+        flops = 6.0 * M * H * I
         nbytes = 3 * M * H * 2 + 2 * M * I * 2 + 2 * H * I * 2 + I * 4
-        bound, by = _bound_ms(6.0 * M * H * I, nbytes, BF16)
-        fn = lambda: fused_ffn_bwd(x, g, w1, b1, w2)  # noqa: E731
-        plain = lambda: fused_ffn_bwd_plain(x, g, w1, b1, w2)  # noqa: E731
+        bound, by = _bound_ms(flops, nbytes, BF16)
+        fn = lambda: fused_ffn_bwd(x, g, w1, b1, w2, act=act)  # noqa: E731
+        plain = lambda: fused_ffn_bwd_plain(x, g, w1, b1, w2, act=act)  # noqa: E731
         got, want = fn(), plain()
         err = max(_compare_rel(f"ffn dx bf16 {label}", got[0], want[0], BF16),
                   _compare_rel(f"ffn dh bf16 {label}", got[1], want[1], BF16),
                   _compare(f"ffn a bf16 {label}", got[2], want[2], BF16))
-    return dict(max_abs_err=err, ms=_time_ms(fn), plain_ms=_time_ms(plain, iters=3),
-                bound_ms=bound, bound_by=by, library_ms=None)
+        dh = got[1]
+        gemms = [lambda: x @ w1b, lambda: g @ w2b.T, lambda: dh @ w1b.T]
+    t = dict(max_abs_err=err, ms=_time_ms(fn), plain_ms=_time_ms(plain, iters=3),
+             bound_ms=bound, bound_by=by, library_ms=None,
+             cublas_gemms_ms=sum(_time_ms(f) for f in gemms))
+    log(f"# rate ffn_train_{'bwd' if backward else 'fwd'} {label}: "
+        f"{flops / (t['ms'] * 1e-3) / 1e12!r} TFLOP/s at {flops:.4g} flops; "
+        f"{t['ms'] / t['cublas_gemms_ms']!r} x the {len(gemms)} cuBLAS products")
+    return t
 
 
 def phase_train_timing(cfg: STonKGsConfig, state) -> dict:
@@ -1412,6 +1514,12 @@ def phase_prot_timing(cfg: ProtSTonKGsConfig, engine, feats, state, loss_fn) -> 
          lambda lb: _time_attention(lb, B, cfg.prot_len, False, gen, H=16)),
         ("ffn_train_fwd:prot", f"ProtBERT M={Bt * cfg.prot_len} H=1024",
          lambda lb: _time_train_ffn(lb, Bt * cfg.prot_len, gen, False, 1024, 4096)),
+        ("ffn_train_fwd:bigbird", f"trunk M={Bt * cfg.seq_len} gelu_new",
+         lambda lb: _time_train_ffn(lb, Bt * cfg.seq_len, gen, False, act="gelu_new")),
+        ("ffn_train_bwd:bigbird", f"trunk M={Bt * cfg.seq_len} gelu_new",
+         lambda lb: _time_train_ffn(lb, Bt * cfg.seq_len, gen, True, act="gelu_new")),
+        ("ffn_train_fwd:biobert", f"BioBERT M={Bt * cfg.text_len}",
+         lambda lb: _time_train_ffn(lb, Bt * cfg.text_len, gen, False)),
         ("flash_attention_train_fwd:prot",
          f"ProtBERT B={Bt} S={cfg.prot_len} H=16 no-bias, rate 0.1",
          lambda lb: _time_train_attention(lb, Bt, cfg.prot_len, False, gen, False, H=16)),
@@ -1827,7 +1935,7 @@ def main() -> int:
         del pstate, loss_fn
         for name in ("bigbird_mid_fwd", "bigbird_mid_bwd"):
             times[name] = prot_times[name]
-        for name in ("ffn_ln_block", "flash_attention_infer", "ffn_train_fwd",
+        for name in ("ffn_ln_block", "flash_attention_infer", "ffn_train_fwd", "ffn_train_bwd",
                      "flash_attention_train_fwd"):
             times[name]["max_abs_err"] = max(times[name]["max_abs_err"], *(
                 t["max_abs_err"] for k, t in prot_times.items() if k.startswith(name + ":")))

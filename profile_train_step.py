@@ -44,8 +44,10 @@ from stonkgs_tpu_torch.train.optimizer import AdamW
 from stonkgs_tpu_torch.utils.convert import params_to
 
 # kernel-name prefixes of the port's own CUDA kernels (csrc/*.cu, *.cuh);
-# the forward templates serve two entry points each, told apart by their
-# first bool template argument (kTrain, kLN)
+# a template that serves two entry points is told apart by its first bool
+# template argument (kTrain, kLN; the FFN GEMM's kBKMajor: W K-major is
+# the training backward's dx, W MN-major the training forward or, in a
+# serving trace, the serving block)
 PORT_KERNELS = {
     "attn_fwd_kernel": ("flash_attention_infer", "flash_attention_train_fwd"),
     "attn_fwd_sm90_kernel": ("flash_attention_infer", "flash_attention_train_fwd"),
@@ -55,9 +57,10 @@ PORT_KERNELS = {
     "attn_bwd_dq_sm90_kernel": "flash_attention_train_bwd",
     "attn_bwd_dkdv_sm90_kernel": "flash_attention_train_bwd",
     "ffn_fwd_kernel": ("ffn_train_fwd", "ffn_ln_block"),
-    "gemm_sm90_kernel": "ffn_ln_block",
+    "gemm_sm90_kernel": ("ffn_train_fwd", "ffn_train_bwd"),
     "add_layer_norm_kernel": "ffn_ln_block",
     "ffn_bwd_kernel": "ffn_train_bwd",
+    "ffn_bwd_dual_sm90_kernel": "ffn_train_bwd",
     "mid_fwd_kernel": "bigbird_mid_fwd",
     "mid_bwd_kernel": "bigbird_mid_bwd",
 }
@@ -66,12 +69,15 @@ STEPS = 3  # traced steps
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_")
 
 
-def group_of(name: str) -> str:
-    """The group a device kernel's time is booked to."""
+def group_of(name: str, serve: bool = False) -> str:
+    """The group a device kernel's time is booked to (``serve``: a serving
+    trace)."""
     # the kernel's own name: before its template and parameter lists (a
     # parameter's type may hold "::" too)
     base = (name.replace("(anonymous namespace)", "").split("(")[0].split("<")[0]
             .split("::")[-1].replace("void ", ""))
+    if serve and base.startswith("gemm_sm90_kernel"):
+        return "ffn_ln_block"
     for prefix, group in PORT_KERNELS.items():
         if base.startswith(prefix):
             if isinstance(group, tuple):
@@ -120,7 +126,8 @@ def main() -> int:
         return 1
     groups: dict = {}
     for e in kernels:
-        g = groups.setdefault(group_of(e.key), {"ms_per_step": 0.0, "launches_per_step": 0})
+        g = groups.setdefault(group_of(e.key, args.serve),
+                              {"ms_per_step": 0.0, "launches_per_step": 0})
         g["ms_per_step"] += e.self_device_time_total / 1e3 / STEPS
         g["launches_per_step"] += e.count / STEPS
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
@@ -141,7 +148,7 @@ def main() -> int:
         "steps": STEPS, "step_ms": step_ms,
         "device_ms_per_step": device_ms / STEPS, "device_busy": busy,
         "groups": groups,
-        "kernels": [{"name": e.key, "group": group_of(e.key),
+        "kernels": [{"name": e.key, "group": group_of(e.key, args.serve),
                      "ms_per_step": e.self_device_time_total / 1e3 / STEPS,
                      "launches_per_step": e.count / STEPS} for e in top]}, indent=1))
     return 0

@@ -1,9 +1,9 @@
-// Pieces shared by the FFN kernels (ffn_ln_block.cu, ffn_train.cu and
-// ffn_sm90.cuh): the tiling of the (rows, H) x (H, I) x (I, H) products,
-// the weight-tile stream, gelu and its derivative, and the fused forward
-// kernel that the training FFN (bf16 and fp32) and the fp32 serving block
-// (LN1 -> FFN -> LN2) launch.  The bf16 serving block is the Hopper
-// design of ffn_sm90.cuh.
+// The fp32 FFN bodies (ffn_ln_block.cu, ffn_train.cu), which exist to hold
+// the model against the CPU: the tiling of the (rows, H) x (H, I) x (I, H)
+// products, the weight-tile stream, gelu and its derivative, and the fused
+// forward kernel that the fp32 training FFN and the fp32 serving block
+// (LN1 -> FFN -> LN2) launch; LnArgs is shared with ffn_sm90.cuh.  bf16
+// runs the Hopper kernels of ffn_sm90.cuh and ffn_train_sm90.cuh.
 //
 // Two hidden widths, each with its own thread count and chunk (Width):
 // H = 768 (BERT-base, BioBERT, the BigBird trunk): 384 threads (12 warps),
@@ -14,21 +14,14 @@
 // tile in use, with one block barrier per tile.  Two tile shapes:
 //   "W1 tile": 64 x chunk of an (H, I) matrix (rows t*64, columns chunk);
 //   "W2 tile": 16 x H of an (I, H) matrix (rows chunk + t*16).
-// In the bf16 products each warp owns 16 columns of the chunk (so a chunk
-// is 16 columns per warp) and H / warps = 64 output columns.
-// bf16 products use the tensor cores through nvcuda::wmma (16x16x16, fp32
-// accumulation); fp32 products are plain FMAs on 16-row blocks.
+// The products are plain FMAs on 16-row blocks.
 
 #pragma once
-
-#include <mma.h>
 
 #include "common.cuh"
 
 namespace stonkgs {
 namespace ffn {
-
-using namespace nvcuda;
 
 constexpr int kK1 = 64;      // rows (hidden axis) of a W1 tile
 constexpr int kK2 = 16;      // rows (intermediate axis) of a W2 tile
@@ -40,13 +33,12 @@ template <int H> struct Width {
 };
 
 template <typename T> struct Pad;
-template <> struct Pad<__nv_bfloat16> { static constexpr int value = 8; };
 template <> struct Pad<float> { static constexpr int value = 4; };
 
 // Shared memory of a kernel of hidden width H with BM rows, NROW (BM, H)
 // row operands and a STAGES-deep weight ring; after the row operands, a
-// work area (ring, fp32 h chunk, rounded h chunk) that the epilogue reuses
-// as its staging.  It also carries the width's thread mapping.
+// work area (ring, h chunk) that the epilogue reuses as its staging.  It
+// also carries the width's thread mapping.
 template <typename T, int H, int BM_, int STAGES_, int NROW>
 struct Layout {
   static constexpr int kH = H, kThreads = Width<H>::kThreads, kChunk = Width<H>::kChunk;
@@ -59,28 +51,21 @@ struct Layout {
   static constexpr int W1S = kChunk + PAD;  // W1 tile row stride (T)
   static constexpr int W2S = kH + PAD;      // W2 tile row stride (T)
   static constexpr int WBUF = kK1 * W1S > kK2 * W2S ? kK1 * W1S : kK2 * W2S;
-  static constexpr int HFS = kChunk + 4;    // fp32 h chunk row stride
   static constexpr int HSS = kChunk + PAD;  // rounded h chunk row stride (T)
   static constexpr int STS = kH + 4;        // fp32 epilogue staging row stride
   static constexpr size_t xs_bytes = align128(size_t(BM) * XS * sizeof(T));
   static constexpr size_t wbuf_bytes = align128(size_t(STAGES) * WBUF * sizeof(T));
-  static constexpr size_t hf_bytes = align128(size_t(BM) * HFS * sizeof(float));
   static constexpr size_t hs_bytes = align128(size_t(BM) * HSS * sizeof(T));
-  static constexpr size_t work_bytes = wbuf_bytes + hf_bytes + hs_bytes;
+  static constexpr size_t work_bytes = wbuf_bytes + hs_bytes;
   static constexpr size_t stage_bytes = size_t(16) * STS * sizeof(float);
   static constexpr size_t smem_bytes =
       NROW * xs_bytes + (work_bytes > stage_bytes ? work_bytes : stage_bytes);
 };
 
-// the forward kernels, one row operand: at H = 768, 48 rows (bf16) or 16
-// (fp32); at H = 1024, 32 rows (bf16: 217 KB of shared memory) or 16
-// (fp32: 232,192 bytes, just under the 232,448 a block may have)
+// the forward kernels, one row operand, 16 rows (at H = 1024: 215,552
+// bytes of shared memory of the 232,448 a block may have)
 template <typename T, int H> struct FwdTiling;
-template <> struct FwdTiling<__nv_bfloat16, 768> { using L = Layout<__nv_bfloat16, 768, 48, 3, 1>; };
 template <> struct FwdTiling<float, 768> { using L = Layout<float, 768, 16, 2, 1>; };
-template <> struct FwdTiling<__nv_bfloat16, 1024> {
-  using L = Layout<__nv_bfloat16, 1024, 32, 3, 1>;
-};
 template <> struct FwdTiling<float, 1024> { using L = Layout<float, 1024, 16, 2, 1>; };
 
 __device__ __forceinline__ float gelu(float h, int act) {
@@ -137,48 +122,6 @@ __device__ __forceinline__ void load_row_block(T* s, const T* g, int row0, int M
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < M) val = *reinterpret_cast<const uint4*>(g + size_t(row0 + r) * L::kH + c);
     *reinterpret_cast<uint4*>(s + r * L::XS + c) = val;
-  }
-}
-
-// bf16: acc[i] += a (BM x H in shared, rows i*16.., columns t*64..) .
-// W1 tile (the warp's 16 columns)
-template <typename L>
-__device__ __forceinline__ void mma_w1_tile(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[L::BM / 16],
-    const __nv_bfloat16* as, const __nv_bfloat16* cur, int t, int warp) {
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-#pragma unroll
-  for (int kk = 0; kk < kK1; kk += 16) {
-    FragB bf;
-    wmma::load_matrix_sync(bf, cur + kk * L::W1S + warp * 16, L::W1S);
-#pragma unroll
-    for (int i = 0; i < L::BM / 16; ++i) {
-      FragA af;
-      wmma::load_matrix_sync(af, as + i * 16 * L::XS + t * kK1 + kk, L::XS);
-      wmma::mma_sync(acc[i], af, bf, acc[i]);
-    }
-  }
-}
-
-// bf16: acc[i][j] += hs (BM x chunk, columns kt*16..) . W2 tile (the
-// warp's 64 output columns)
-template <typename L>
-__device__ __forceinline__ void mma_w2_tile(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[L::BM / 16][L::kH / L::kWarps / 16],
-    const __nv_bfloat16* hs, const __nv_bfloat16* cur, int kt, int warp) {
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-  constexpr int RF = L::BM / 16, kCols = L::kH / L::kWarps;
-  FragA af[RF];
-#pragma unroll
-  for (int i = 0; i < RF; ++i) wmma::load_matrix_sync(af[i], hs + i * 16 * L::HSS + kt * kK2, L::HSS);
-#pragma unroll
-  for (int j = 0; j < kCols / 16; ++j) {
-    FragB bf;
-    wmma::load_matrix_sync(bf, cur + warp * kCols + j * 16, L::W2S);
-#pragma unroll
-    for (int i = 0; i < RF; ++i) wmma::mma_sync(acc[i][j], af[i], bf, acc[i][j]);
   }
 }
 
@@ -288,8 +231,7 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __rest
   T* xs = reinterpret_cast<T*>(smem);
   unsigned char* work = smem + L::xs_bytes;
   T* wbuf = reinterpret_cast<T*>(work);
-  float* hf = reinterpret_cast<float*>(work + L::wbuf_bytes);
-  T* hs = reinterpret_cast<T*>(work + L::wbuf_bytes + L::hf_bytes);
+  T* hs = reinterpret_cast<T*>(work + L::wbuf_bytes);
   float* stage = reinterpret_cast<float*>(work);  // epilogue only
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -352,82 +294,33 @@ ffn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __rest
     return cur;
   };
 
-  if constexpr (kIsBf16<T>) {
-    // W1 product: warp owns h columns [warp*16, +16) of the chunk, all rows.
-    // W2 product: warp owns output columns [warp*64, +64), all rows.
-    constexpr int RF = BM / 16;         // row fragments
-    constexpr int kCols = kH / kWarps;  // 64 at both widths
-    using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-    static_assert(kChunk / 16 == kWarps, "one h column fragment per warp");
-    Acc acc[RF][kCols / 16];
+  // W1 product: thread owns h column tid % chunk and rows [(tid / chunk) *
+  // 8, +8); W2 product: columns tid and tid + threads, all rows.
+  static_assert(BM == 16 && kThreads == 2 * kChunk && kH == 2 * kThreads,
+                "fp32 thread mapping");
+  const int tid = threadIdx.x;
+  const int hc = tid % kChunk, hr = (tid / kChunk) * 8;
+  float acc[16][2];
 #pragma unroll
-    for (int i = 0; i < RF; ++i) {
+  for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int c0 = 0; c0 < I; c0 += kChunk) {
+    float hacc[8];
 #pragma unroll
-      for (int j = 0; j < kCols / 16; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    }
-    for (int c0 = 0; c0 < I; c0 += kChunk) {
-      // h = x2 @ W1[:, chunk]
-      Acc hacc[RF];
+    for (int r = 0; r < 8; ++r) hacc[r] = 0.f;
+    for (int t = 0; t < kTiles1; ++t) fma_w1_tile<L>(hacc, xs, advance(), t, hr, hc);
 #pragma unroll
-      for (int i = 0; i < RF; ++i) wmma::fill_fragment(hacc[i], 0.f);
-      for (int t = 0; t < kTiles1; ++t) mma_w1_tile<L>(hacc, xs, advance(), t, warp);
-      // h = round(gelu(h + b1)) on the warp's own strip; the barrier in
-      // the next advance() publishes hs to every warp
-#pragma unroll
-      for (int i = 0; i < RF; ++i)
-        wmma::store_matrix_sync(hf + i * 16 * L::HFS + warp * 16, hacc[i], L::HFS,
-                                wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < BM * 16; e += 32) {
-        const int r = e / 16, c = warp * 16 + e % 16;
-        hs[r * L::HSS + c] = from_f<T>(gelu(hf[r * L::HFS + c] + b1[c0 + c], act));
-      }
-      // acc += h @ W2[chunk, :]
-      for (int kt = 0; kt < kTiles2; ++kt) mma_w2_tile<L>(acc, hs, advance(), kt, warp);
-    }
-    __syncthreads();  // the ring is free: stage the accumulators there
-    // epilogue, 16 rows at a time
-#pragma unroll
-    for (int i = 0; i < RF; ++i) {
-#pragma unroll
-      for (int j = 0; j < kCols / 16; ++j)
-        wmma::store_matrix_sync(stage + warp * kCols + j * 16, acc[i][j], L::STS,
-                                wmma::mem_row_major);
-      __syncthreads();
-      epilogue_rows<L, T, kLN>(stage, xs, i * 16, row0, M, b2, ln, out);
-      __syncthreads();
-    }
-  } else {
-    // fp32: plain FMAs.  W1 product: thread owns h column tid % chunk and
-    // rows [(tid / chunk) * 8, +8); W2 product: columns tid and tid +
-    // threads, all rows.
-    static_assert(BM == 16 && kThreads == 2 * kChunk && kH == 2 * kThreads,
-                  "fp32 thread mapping");
-    const int tid = threadIdx.x;
-    const int hc = tid % kChunk, hr = (tid / kChunk) * 8;
-    float acc[16][2];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
-    for (int c0 = 0; c0 < I; c0 += kChunk) {
-      float hacc[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) hacc[r] = 0.f;
-      for (int t = 0; t < kTiles1; ++t) fma_w1_tile<L>(hacc, xs, advance(), t, hr, hc);
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        hs[(hr + r) * L::HSS + hc] = from_f<T>(gelu(hacc[r] + b1[c0 + hc], act));
-      for (int kt = 0; kt < kTiles2; ++kt) fma_w2_tile<L>(acc, hs, advance(), kt, tid);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      stage[r * L::STS + tid] = acc[r][0];
-      stage[r * L::STS + tid + kThreads] = acc[r][1];
-    }
-    __syncthreads();
-    epilogue_rows<L, T, kLN>(stage, xs, 0, row0, M, b2, ln, out);
-    (void)hf;
+    for (int r = 0; r < 8; ++r)
+      hs[(hr + r) * L::HSS + hc] = from_f<T>(gelu(hacc[r] + b1[c0 + hc], act));
+    for (int kt = 0; kt < kTiles2; ++kt) fma_w2_tile<L>(acc, hs, advance(), kt, tid);
   }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    stage[r * L::STS + tid] = acc[r][0];
+    stage[r * L::STS + tid + kThreads] = acc[r][1];
+  }
+  __syncthreads();
+  epilogue_rows<L, T, kLN>(stage, xs, 0, row0, M, b2, ln, out);
 }
 
 template <typename T, bool kLN, int H>

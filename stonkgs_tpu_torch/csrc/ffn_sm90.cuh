@@ -14,31 +14,37 @@
 // Why not one fused kernel: the fused shape keeps a block's fp32 (rows,
 // H) accumulator in registers, which caps the row tile (48 rows at
 // H = 768), and every row block re-streams both whole weight matrices
-// from L2 (ffn.cuh, the fp32 and training instantiations).  Split at h,
+// from L2 (ffn.cuh, the fp32 body).  Split at h,
 // each product is a plain GEMM at a 128 x 256 tile: the (M, I)
 // intermediate makes a round trip through device memory in bf16 (402 MB
 // at M = 65,536, I = 3,072), which the products, bound by operations,
 // hide.
 //
-// The GEMM: C (M, N) = A (M, K) @ W (K, N), A and W row-major bf16, an fp32
-// bias over N and an epilogue (+ bias, optional gelu / gelu_new, round),
-// one block per 128 x 256 tile of C, 384 threads:
+// The GEMM: C (M, N) = A (M, K) @ W (K, N), A and W row-major bf16, an
+// optional fp32 bias over N and an epilogue (+ bias, optional gelu /
+// gelu_new, round), one block per 128 x 256 tile of C, 384 threads.  The
+// training FFN (ffn_train_sm90.cuh) launches it too: its forward is these
+// two GEMMs without the LayerNorms, and its backward's dx = dh @ W1^T takes
+// W as it lies, (N, K) row-major, the K-major B operand (kBKMajor):
 // * warpgroup 2, the producer (setmaxnreg.dec): one thread streams the K
 //   axis in 64-deep steps through a kStages-deep ring with TMA and
 //   full/empty mbarriers: A's 128 x 64 tile (K-major, one 128-byte
 //   swizzled line a row) and W's 64 x 256 tile as four 64 x 64 boxes
 //   (MN-major: each box is 64 lines of 64 columns, and the four boxes
-//   are the wgmma B operand's four 64-wide column blocks, 8 KB apart);
+//   are the wgmma B operand's four 64-wide column blocks, 8 KB apart),
+//   or, K-major, as one box of 256 lines of 64 K values;
 //   TMA zero-fills rows >= M and a ragged K or N edge;
 // * warpgroups 0 and 1, the consumers (setmaxnreg.inc), own 64 rows each:
-//   per step four wgmma.m64n256k16 with A and B from shared memory, B
-//   MN-major (W is read as it lies, with no transposed copy), into a
-//   128-float fp32 accumulator; a step's stage is released once the next
-//   step's products are issued (wgmma.wait_group 1), so the tensor cores
-//   never wait for a release;
-// * the epilogue adds the bias in fp32, applies the activation (gelu_sel,
-//   without branches), rounds and stores bf16 pairs from registers; the
-//   stores of rows >= M and columns >= N are skipped.
+//   per step four wgmma.m64n256k16 with A and B from shared memory (W
+//   is read as it lies, with no transposed copy), into a 128-float fp32
+//   accumulator (without gelu it starts at the bias: the fp32 sum of the
+//   products and the bias in another order than the plain version's); a
+//   step's stage is released once the next step's products are issued
+//   (wgmma.wait_group 1), so the tensor cores never wait for a release;
+// * the epilogue adds the bias and applies the activation (gelu_sel,
+//   without branches), rounds, and writes bf16 pairs into the free ring as
+//   64 x 64 swizzled boxes, which one thread a consumer stores with TMA
+//   (rows >= M and columns >= N are not written).
 // The LayerNorm passes are bound by bytes: one warp a row, 16-byte loads
 // and stores, the row's H / 32 values in registers.
 
@@ -61,6 +67,7 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr uint32_t kABytes = kBM * kBK * 2;  // 16 KB
 constexpr uint32_t kBBytes = kBK * kBN * 2;  // 32 KB
 constexpr uint32_t kBBlock = kBK * 64 * 2;   // one 64-wide column block of B, 8 KB
+constexpr uint32_t kOutBox = 64 * 64 * 2;    // one 64 x 64 bf16 box of C, 8 KB
 constexpr int kNoAct = -1;                   // epilogue without gelu
 
 struct alignas(1024) SmemGemm {
@@ -72,52 +79,91 @@ struct alignas(1024) SmemGemm {
 constexpr size_t kGemmSmemBytes = sizeof(SmemGemm) + 1024;  // + alignment slack
 
 // gelu (kAct 0, with erf) or gelu_new (1, with tanh) of an fp32 value,
-// without branches, so that the epilogue's independent values interleave
-// (erff and tanhf branch on |x|, which leaves each value's chain of
-// dependent instructions exposed).  Both follow the plain version's
-// formula, 0.5 h (1 + erf(h / sqrt 2)) and 0.5 h (1 + tanh(sqrt(2/pi) (h
-// + 0.044715 h^3))), in fp32:
+// and its derivative, without branches, so that the epilogue's
+// independent values interleave (erff and tanhf branch on |x|, which
+// leaves each value's chain of dependent instructions exposed).  Both
+// follow the plain version's formulas in fp32 (ops/fused_ffn.py, _gelu and
+// _gelu_and_grad):
+//   gelu      0.5 h (1 + erf(h / sqrt 2)),
+//             gelu' = 0.5 (1 + erf(h / sqrt 2)) + h phi(h);
+//   gelu_new  0.5 h (1 + t), t = tanh(u), u = sqrt(2/pi) (h + 0.044715 h^3),
+//             gelu' = 0.5 (1 + t) + 0.5 h (1 - t^2) sqrt(2/pi) (1 + 3 * 0.044715 h^2).
 // * erf(z): for |z| < 0.921875, z + z P(z^2) with P of degree 6; else
 //   sign(z) (1 - exp(R(|z|))), R of degree 8 fitted to log(erfc) on
 //   [0.921875, 4] (|z| clamped to 4, where erf rounds to 1).  One Horner
 //   chain evaluates whichever applies, its coefficients selected per
 //   value (P's two highest are 0).  Fitted by least squares in double,
 //   within 1.3 ulp of erf over [-6, 6] in fp32 (CUDA's erff: 2 ulp);
-// * tanh(u) = sign(u) (1 - 2 / (exp(2|u|) + 1)), within a few 1e-8 of
-//   tanh in absolute terms, which is what 1 + tanh needs.
+// * tanh(u) = sign(u) (1 - q), q = 2 / (exp(2|u|) + 1), within a few 1e-8
+//   of tanh in absolute terms, which is what 1 + t needs; 1 - t^2 is
+//   q (2 - q), without the cancellation of 1 - t*t.
 // exp runs on the SFU (ex2.approx, a relative error of about 2^-22).
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kSqrt2OverPi = 0.79788456080286536f;
+
+__device__ __forceinline__ float erf_sel(float z) {
+  const bool small = fabsf(z) < 0.921875f;
+  const float x = small ? z * z : fminf(fabsf(z), 4.0f);
+  float r = small ? 0.0f : 1.613091118e-06f;
+  r = fmaf(r, x, small ? 0.0f : -4.557097782e-05f);
+  r = fmaf(r, x, small ? 8.461760155e-05f : 5.926000286e-04f);
+  r = fmaf(r, x, small ? -8.165880161e-04f : -4.739410013e-03f);
+  r = fmaf(r, x, small ? 5.203235866e-03f : 2.636235909e-02f);
+  r = fmaf(r, x, small ? -2.686036991e-02f : -1.099740105e-01f);
+  r = fmaf(r, x, small ? 1.128371515e-01f : -6.319416728e-01f);
+  r = fmaf(r, x, small ? -3.761263525e-01f : -1.130163957e+00f);
+  r = fmaf(r, x, small ? 1.283791669e-01f : 3.025367787e-04f);
+  return small ? fmaf(z, r, z) : copysignf(1.0f - ex2(r * kLog2e), z);
+}
+
+// q = 1 - |tanh(u)|
+__device__ __forceinline__ float tanh_gap(float u) {
+  return __fdividef(2.0f, ex2(2.0f * fabsf(u) * kLog2e) + 1.0f);
+}
+
 template <int kAct>
 __device__ __forceinline__ float gelu_sel(float h) {
-  constexpr float kLog2e = 1.4426950408889634f;
   if constexpr (kAct == 0) {
-    const float z = h * 0.70710678118654752f;
-    const bool small = fabsf(z) < 0.921875f;
-    const float x = small ? z * z : fminf(fabsf(z), 4.0f);
-    float r = small ? 0.0f : 1.613091118e-06f;
-    r = fmaf(r, x, small ? 0.0f : -4.557097782e-05f);
-    r = fmaf(r, x, small ? 8.461760155e-05f : 5.926000286e-04f);
-    r = fmaf(r, x, small ? -8.165880161e-04f : -4.739410013e-03f);
-    r = fmaf(r, x, small ? 5.203235866e-03f : 2.636235909e-02f);
-    r = fmaf(r, x, small ? -2.686036991e-02f : -1.099740105e-01f);
-    r = fmaf(r, x, small ? 1.128371515e-01f : -6.319416728e-01f);
-    r = fmaf(r, x, small ? -3.761263525e-01f : -1.130163957e+00f);
-    r = fmaf(r, x, small ? 1.283791669e-01f : 3.025367787e-04f);
-    const float erf_z = small ? fmaf(z, r, z) : copysignf(1.0f - ex2(r * kLog2e), z);
-    return 0.5f * h * (1.0f + erf_z);
+    return 0.5f * h * (1.0f + erf_sel(h * 0.70710678118654752f));
   } else {
-    const float u = 0.79788456080286536f * (h + 0.044715f * h * h * h);
-    const float e = ex2(2.0f * fabsf(u) * kLog2e);
-    const float t = copysignf(1.0f - __fdividef(2.0f, e + 1.0f), u);
-    return 0.5f * h * (1.0f + t);
+    const float u = kSqrt2OverPi * (h + 0.044715f * h * h * h);
+    return 0.5f * h * (1.0f + copysignf(1.0f - tanh_gap(u), u));
   }
 }
 
-// C = epilogue(A @ W + bias); kAct: kNoAct, 0 gelu (erf), 1 gelu_new (tanh)
+// gelu(h) -> a and gelu'(h) -> da
 template <int kAct>
+__device__ __forceinline__ void gelu_grad_sel(float h, float& a, float& da) {
+  if constexpr (kAct == 0) {
+    const float half1p = 0.5f * (1.0f + erf_sel(h * 0.70710678118654752f));
+    const float phi = 0.39894228040143268f * ex2(-0.5f * h * h * kLog2e);
+    a = h * half1p;
+    da = fmaf(h, phi, half1p);
+  } else {
+    const float u = kSqrt2OverPi * (h + 0.044715f * h * h * h);
+    const float q = tanh_gap(u);
+    const float half1p = 0.5f * (1.0f + copysignf(1.0f - q, u));
+    a = h * half1p;
+    da = fmaf(0.5f * h * q * (2.0f - q), kSqrt2OverPi * fmaf(3.0f * 0.044715f, h * h, 1.0f),
+              half1p);
+  }
+}
+
+// bias[col], bias[col + 1], or zeros past n or without a bias
+__device__ __forceinline__ float2 bias_pair(const float* __restrict__ bias, int col, int n) {
+  return bias && col < n ? __ldg(reinterpret_cast<const float2*>(bias + col))
+                         : make_float2(0.f, 0.f);
+}
+
+// C = epilogue(A @ W + bias); kAct: kNoAct, 0 gelu (erf), 1 gelu_new
+// (tanh); bias may be null; kBKMajor: W is (N, K) row-major (map_w's box 64
+// x 256), else (K, N) (box 64 x 64); C through map_c (box 64 x 64)
+template <int kAct, bool kBKMajor>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
-                 const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bias,
-                 bf16* __restrict__ out, int M, int N, int K) {
+                 const __grid_constant__ CUtensorMap map_w,
+                 const __grid_constant__ CUtensorMap map_c, const float* __restrict__ bias,
+                 int M, int N, int K) {
   extern __shared__ unsigned char smem_raw[];
   SmemGemm& sm = aligned_smem<SmemGemm>(smem_raw);
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
@@ -142,18 +188,31 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
         mbar_wait(&sm.empty[stage], ((kt / kStages) & 1) ^ 1);
         mbar_arrive_tx(&sm.full[stage], kABytes + kBBytes);
         tma_load_2d(sm.a[stage], &map_a, kt * kBK, m0, &sm.full[stage]);
+        if constexpr (kBKMajor) {
+          tma_load_2d(sm.b[stage], &map_w, kt * kBK, n0, &sm.full[stage]);
+        } else {
 #pragma unroll
-        for (int j = 0; j < kBN / 64; ++j)
-          tma_load_2d(sm.b[stage] + j * (kBBlock / 2), &map_w, n0 + 64 * j, kt * kBK,
-                      &sm.full[stage]);
+          for (int j = 0; j < kBN / 64; ++j)
+            tma_load_2d(sm.b[stage] + j * (kBBlock / 2), &map_w, n0 + 64 * j, kt * kBK,
+                        &sm.full[stage]);
+        }
       }
     }
   } else {
     // ---------------- consumers ----------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    // without gelu the products accumulate onto the bias, loaded while the
+    // ring fills; with gelu the epilogue adds it (an accumulator that
+    // starts at the bias made ptxas spill in the gelu epilogue, and adding
+    // it there made the epilogue without gelu spill)
     float acc[128];
 #pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 128; i += 2) {
+      const float2 bv = kAct == kNoAct ? bias_pair(bias, n0 + acc_col(i, lane), N)
+                                       : make_float2(0.f, 0.f);
+      acc[i] = bv.x;
+      acc[i + 1] = bv.y;
+    }
     for (int kt = 0; kt < nk; ++kt) {
       const int stage = kt % kStages;
       mbar_wait(&sm.full[stage], (kt / kStages) & 1);
@@ -161,9 +220,11 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       const uint64_t db = desc_sw128(sm.b[stage], kBBlock);
       fence_regs(acc);
       wgmma_fence();
+      // A (and a K-major B): 16 bf16 = 2 descriptor units; an MN-major B: 16 lines
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)  // A: 16 bf16 = 2 descriptor units; B: 16 lines
-        wgmma_n256(acc, da + 2 * kk, db + kk * (16 * 128 / 16));
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_n256<kBKMajor ? 0 : 1>(acc, da + 2 * kk,
+                                     db + (kBKMajor ? 2 * kk : kk * (16 * 128 / 16)));
       wgmma_commit();
       wgmma_wait<1>();  // the previous step's products are done: free its stage
       fence_regs(acc);
@@ -173,28 +234,36 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
     fence_regs(acc);
     if (nk > 0) release_stage(&sm.empty[(nk - 1) % kStages], lane);
 
-    // epilogue: the thread's rows r0 and r0 + 8, 64 column pairs.  With
-    // gelu every value is computed and only the stores are guarded, so
-    // the epilogue is one block of independent chains that interleave (a
-    // branch per pair, or erff's and tanhf's own, leaves each chain's
-    // latency exposed); without gelu, the values are skipped with the
-    // stores (computing them all as well made ptxas spill)
-    const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+    // epilogue: with gelu, + bias and gelu_sel (without branches, so that
+    // the thread's 128 values interleave); round; write into the A ring as
+    // the consumer's four 64 x 64 boxes of C (128-byte swizzle: a warp's
+    // stores hit 32 distinct banks); then one thread stores the boxes with
+    // TMA, which skips rows >= M and columns >= N.  The ring is free once
+    // both consumers' products are done.
+    static_assert(sizeof(SmemGemm::a) >= kConsumers * (kBN / 64) * kOutBox,
+                  "C staging fits in A's ring");
+    named_barrier(1, 128 * kConsumers);
+    unsigned char* tile = reinterpret_cast<unsigned char*>(sm.a) + wg * (kBN / 64) * kOutBox;
+    const int r = warp * 16 + lane / 4;  // + 8 acc_row(i), of the consumer's 64 rows
 #pragma unroll
     for (int i = 0; i < 128; i += 2) {
-      const int col = n0 + acc_col(i, lane), row = r0 + 8 * acc_row(i);
-      const bool live = col < N && row < M;
-      if constexpr (kAct == kNoAct) {
-        if (!live) continue;
-      }
-      const float2 bv =
-          col < N ? __ldg(reinterpret_cast<const float2*>(bias + col)) : make_float2(0.f, 0.f);
-      float v0 = acc[i] + bv.x, v1 = acc[i + 1] + bv.y;
+      const int c = acc_col(i, lane);
+      float v0 = acc[i], v1 = acc[i + 1];
       if constexpr (kAct != kNoAct) {
-        v0 = gelu_sel<kAct>(v0);
-        v1 = gelu_sel<kAct>(v1);
+        const float2 bv = bias_pair(bias, n0 + c, N);
+        v0 = gelu_sel<kAct>(v0 + bv.x);
+        v1 = gelu_sel<kAct>(v1 + bv.y);
       }
-      if (live) *reinterpret_cast<uint32_t*>(out + size_t(row) * N + col) = pack_bf16(v0, v1);
+      *reinterpret_cast<uint32_t*>(tile + (c / 64) * kOutBox +
+                                   sw128_offset(r + 8 * acc_row(i), c % 64)) = pack_bf16(v0, v1);
+    }
+    fence_async_shared();
+    named_barrier(2 + wg, 128);
+    if (warp == 0 && lane == 0) {
+      const int row0 = m0 + wg * 64;
+      for (int j = 0; j < kBN / 64 && row0 < M && n0 + 64 * j < N; ++j)
+        tma_store_2d(&map_c, tile + j * kOutBox, n0 + 64 * j, row0);
+      tma_store_wait_read();
     }
   }
 }
@@ -245,15 +314,41 @@ add_layer_norm_kernel(const bf16* a, const bf16* b, const float* __restrict__ g,
   }
 }
 
-template <int kAct>
-inline int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mw, const float* bias,
-                       bf16* out, int M, int N, int K, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      gemm_sm90_kernel<kAct>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kGemmSmemBytes));
+template <int kAct, bool kBKMajor = false>
+inline int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mw, const CUtensorMap& mc,
+                       const float* bias, int M, int N, int K, cudaStream_t stream) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(gemm_sm90_kernel<kAct, kBKMajor>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(kGemmSmemBytes));
   if (e != cudaSuccess) return int(e);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_sm90_kernel<kAct><<<grid, kThreads, kGemmSmemBytes, stream>>>(ma, mw, bias, out, M, N, K);
+  gemm_sm90_kernel<kAct, kBKMajor>
+      <<<grid, kThreads, kGemmSmemBytes, stream>>>(ma, mw, mc, bias, M, N, K);
   return int(cudaGetLastError());
+}
+
+// whether the GEMMs take (M, H) rows and an intermediate width I: TMA
+// needs 16-byte row strides, and the grid's y extent is at most 65,535
+inline bool gemm_shapes_ok(int M, int H, int I, int act) {
+  return M > 0 && H > 0 && I > 0 && H % 8 == 0 && I % 8 == 0 && (act == 0 || act == 1) &&
+         (M + kBM - 1) / kBM <= 65535;
+}
+
+// h = round(gelu(x @ W1 + b1)) into the (M, I) scratch h, then out =
+// round(h @ W2 + b2): the FFN of the serving block and the training forward
+inline int launch_ffn_gemms(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                            const float* b2, bf16* h, bf16* out, int M, int H, int I, int act,
+                            cudaStream_t stream) {
+  if (!gemm_shapes_ok(M, H, I, act) || !h) return int(cudaErrorInvalidValue);
+  CUtensorMap ma1, mw1, mh, ma2, mw2, mo;
+  if (!make_map_2d(&ma1, x, M, H, kBK, kBM) || !make_map_2d(&mw1, w1, H, I, 64, kBK) ||
+      !make_map_2d(&mh, h, M, I, 64, 64) || !make_map_2d(&ma2, h, M, I, kBK, kBM) ||
+      !make_map_2d(&mw2, w2, I, H, 64, kBK) || !make_map_2d(&mo, out, M, H, 64, 64))
+    return kErrTensorMap;
+  const int s1 = act == 0 ? launch_gemm<0>(ma1, mw1, mh, b1, M, I, H, stream)
+                          : launch_gemm<1>(ma1, mw1, mh, b1, M, I, H, stream);
+  if (s1 != 0) return s1;
+  return launch_gemm<kNoAct>(ma2, mw2, mo, b2, M, H, I, stream);
 }
 
 // the block at hidden width H (768 or 1024); x2 (M, H) and h (M, I) are
@@ -262,22 +357,13 @@ template <int H>
 int launch_ffn_ln_width(const bf16* x, const bf16* attn, const ffn::LnArgs& ln, const bf16* w1,
                         const float* b1, const bf16* w2, const float* b2, bf16* x2, bf16* h,
                         bf16* out, int M, int I, int act, cudaStream_t stream) {
-  if (M <= 0 || I <= 0 || I % 8 != 0 || (act != 0 && act != 1) ||
-      (M + kBM - 1) / kBM > 65535 || !x2 || !h)
-    return int(cudaErrorInvalidValue);
-  CUtensorMap ma1, mw1, ma2, mw2;
-  if (!make_map_2d(&ma1, x2, M, H, kBK, kBM) || !make_map_2d(&mw1, w1, H, I, 64, kBK) ||
-      !make_map_2d(&ma2, h, M, I, kBK, kBM) || !make_map_2d(&mw2, w2, I, H, 64, kBK))
-    return kErrTensorMap;
+  if (!gemm_shapes_ok(M, H, I, act) || !x2) return int(cudaErrorInvalidValue);
   const unsigned ln_blocks = unsigned((M + 7) / 8);
   add_layer_norm_kernel<H><<<ln_blocks, 256, 0, stream>>>(x, attn, ln.g1, ln.be1, ln.eps, x2, M);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-  const int s1 = act == 0 ? launch_gemm<0>(ma1, mw1, b1, h, M, I, H, stream)
-                          : launch_gemm<1>(ma1, mw1, b1, h, M, I, H, stream);
-  if (s1 != 0) return s1;
-  const int s2 = launch_gemm<kNoAct>(ma2, mw2, b2, out, M, H, I, stream);
-  if (s2 != 0) return s2;
+  const int s = launch_ffn_gemms(x2, w1, b1, w2, b2, h, out, M, H, I, act, stream);
+  if (s != 0) return s;
   add_layer_norm_kernel<H><<<ln_blocks, 256, 0, stream>>>(x2, out, ln.g2, ln.be2, ln.eps, out, M);
   return int(cudaGetLastError());
 }

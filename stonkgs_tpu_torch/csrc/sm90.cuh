@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (attention_sm90.cuh, attention_bwd_sm90.cuh, ffn_sm90.cuh): mbarriers,
-// TMA loads, wgmma shared-memory descriptors and the wgmma instructions,
-// the accumulator's register map, and the driver's tensor-map encoder.
+// (attention_sm90.cuh, attention_bwd_sm90.cuh, ffn_sm90.cuh,
+// ffn_train_sm90.cuh): mbarriers, TMA loads, wgmma shared-memory
+// descriptors and the wgmma instructions, the accumulator's register map,
+// and the driver's tensor-map encoder.
 
 #pragma once
 
@@ -98,6 +99,39 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// a 2-D box of shared memory -> a map at (c0, c1), in this thread's bulk
+// group; rows and columns outside the map are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// commit this thread's TMA stores and wait until they have read their
+// shared memory (which may then be reused or freed)
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// make this thread's shared-memory writes visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier among `count` threads (whole warps); id 0 is __syncthreads'
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// byte offset of bf16 element (row, col < 64) in a box of 128-byte lines
+// with the 128-byte swizzle (TMA's and wgmma's layout: the 16-byte chunk
+// index is XORed with the line's index mod 8; the box is 1024-byte aligned)
+__device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
+  return uint32_t(row) * 128 + ((uint32_t((col >> 3) ^ row) & 7) << 4) + uint32_t(col & 7) * 2;
+}
+
 // --- wgmma ------------------------------------------------------------------
 
 // wgmma shared-memory descriptor of a tile of 128-byte lines with the
@@ -139,9 +173,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define STONKGS_ACC32(d, i) \
   STONKGS_ACC8(d, i), STONKGS_ACC8(d, i + 8), STONKGS_ACC8(d, i + 16), STONKGS_ACC8(d, i + 24)
 
-// d (64 x 128, fp32) (+)= A (64 x 16, desc) . B^T (B 128 x 16, desc), both
-// K-major; acc = 0 overwrites d
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+// d (64 x 128, fp32) (+)= A (64 x 16, desc, K-major) . B (16 x 128, desc):
+// B K-major (kTnspB 0: 128 lines of K, read as B^T) or MN-major (1: two
+// 64-wide column blocks `lbo` bytes apart); acc = 0 overwrites d
+template <int kTnspB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -149,9 +185,15 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t d
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : STONKGS_ACC32(d, 0), STONKGS_ACC32(d, 32)
-      : "l"(da), "l"(db), "r"(acc));
+      : "l"(da), "l"(db), "r"(acc), "n"(kTnspB));
+}
+
+// d (64 x 128, fp32) (+)= A (64 x 16, desc) . B^T (B 128 x 16, desc), both
+// K-major; acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  wgmma_n128<0>(d, da, db, acc);
 }
 
 // d (64 x 64, fp32) (+)= A (64 x 16, desc) . B^T (B 64 x 16, desc), both
@@ -179,8 +221,10 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x 256, fp32) += A (64 x 16, desc, K-major) . B (16 x 256, desc,
-// MN-major: four 64-wide column blocks `lbo` bytes apart)
+// d (64 x 256, fp32) += A (64 x 16, desc, K-major) . B (16 x 256, desc):
+// B MN-major (kTnspB 1: four 64-wide column blocks `lbo` bytes apart) or
+// K-major (0: 256 lines of K, read as B^T)
+template <int kTnspB>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -194,9 +238,9 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
       "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
       "%124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      "%128, %129, p, 1, 1, 0, %131;\n}\n"
       : STONKGS_ACC32(d, 0), STONKGS_ACC32(d, 32), STONKGS_ACC32(d, 64), STONKGS_ACC32(d, 96)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTnspB));
 }
 
 #undef STONKGS_ACC32

@@ -69,23 +69,38 @@ byte once and each output byte once:
 
 * forward: 4*M*768*3072 = 154.6 GFLOP against 59.8 MB (x, y, both
   weights): bound by operations, 0.156 ms at 989 TFLOP/s;
-* backward kernel: 6*M*768*3072 = 231.9 GFLOP (h recomputed, g W2ᵀ,
-  dh W1ᵀ) against 286 MB (x, g and dx; the (M, 3072) dh and a it
-  writes; W1 and W2): bound by operations, 0.234 ms.  The dW products,
-  another 4*M*768*3072, run outside it.
+* backward: 6*M*768*3072 = 231.9 GFLOP (h recomputed, g W2ᵀ, dh W1ᵀ)
+  against 286 MB (x, g and dx; the (M, 3072) dh and a it writes; W1 and
+  W2): bound by operations, 0.234 ms.  The dW products, another
+  4*M*768*3072, run outside it.
 
-Design.  The forward is the fused kernel of the first serving version
-without its two LayerNorms, at H = 768 and 1024 (the frozen ProtBERT backbone runs it in
-a ProtSTonKGs training step).  The backward is written for 768 only:
-only the 768-wide trunks train.  The TPU backward kernel holds a whole
-row block's (bm, 3072) fp32 chains in VMEM and emits dx, dh and a.  A Hopper block holds 32 rows
-(bf16) of x and of the cotangent g in shared memory and walks the
-intermediate axis in chunks of 192: per chunk it recomputes h = x W1 + b1,
-writes a = gelu(h), forms g W2ᵀ, multiplies by gelu'(h), writes the
-rounded dh and accumulates dx += dh W1ᵀ in an fp32 register tile.  The
-wrapper passes W2ᵀ and W1ᵀ (transposed copies, 9.4 MB in bf16) so that
-all three weight streams have the tile shapes of the forward.  dW1 = xᵀ
-dh, dW2 = aᵀ g (fp32 results of bf16 products) and the bias sums stay
+Design.  The TPU kernels keep a whole row block's (bm, 3072) fp32
+intermediate and both weight matrices in VMEM.  On a Hopper block the
+same fused shape keeps a (rows, H) fp32 accumulator in registers, which
+caps the row tile at 32-48 rows, and re-streams both weight matrices
+from L2 for every row block (9-14× the bound forward, 10.7× backward,
+on ``mma.sync`` in the port's first version).  So bf16 runs the Hopper
+kernels of ``csrc/ffn_train_sm90.cuh``, GEMMs at a 128-row tile with TMA
+rings and ``wgmma``, each weight read as it lies (no transposed copy):
+
+* forward: the serving block's two GEMMs without its LayerNorms,
+  x W1 + b1 -> gelu -> round into a bf16 scratch h (M, I), then h W2 + b2
+  -> round; h's round trip through device memory (100 MB at the trunk's
+  shape) is hidden by the products;
+* backward, two launches: a dual GEMM over 128 x 128 tiles of (M, I)
+  forms both x W1 (W1 MN-major) and g W2ᵀ (W2 as the K-major B operand)
+  from one TMA ring over K = H, each of two consumer warpgroups holding
+  both fp32 accumulators of its 64 rows; its epilogue adds b1, computes
+  gelu and gelu' together without branches and stores a and dh, so h
+  never leaves registers; then dx = dh W1ᵀ with W1 (H, I) as the K-major
+  B operand.
+
+Any H and I that are multiples of 8 (the forward at 768 and ProtBERT's
+1024; the backward at 768, and 1024 is the same code).  fp32 keeps the
+SIMT bodies of ``csrc/ffn.cuh`` and ``csrc/ffn_train.cu`` (H = 768 or
+1024 forward, 768 backward; the backward streams W2ᵀ and W1ᵀ copies that
+the wrapper makes): they exist to hold the model against the CPU.  dW1 =
+xᵀ dh, dW2 = aᵀ g (fp32 results of bf16 products) and the bias sums stay
 plain PyTorch, as the JAX package leaves them to XLA
 (``fused_ffn.py:334-341``).  Rounding points as the TPU kernels: g cast
 to x's dtype; h, gelu and gelu' in fp32; a rounded; dh = (g W2ᵀ) ⊙
@@ -104,8 +119,10 @@ from stonkgs_tpu_torch.ops import _build
 
 _ACTS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# hidden widths the forward kernels take -> their intermediate-axis chunk
-# (I must be a multiple); the backward takes 768 only
+# hidden widths of the fused fp32 bodies and of the serving block ->
+# their intermediate-axis chunk (I must be a multiple); the fp32 training
+# backward takes 768 only.  The bf16 training pair runs GEMMs that take
+# any H and I that are multiples of 8.
 KERNEL_CHUNKS = {768: 192, 1024: 256}
 BWD_HIDDEN = 768
 _P, _I, _F = _build.P, _build.I32, _build.F32
@@ -113,11 +130,11 @@ _P, _I, _F = _build.P, _build.I32, _build.F32
 #                  ln2_scale, ln2_bias, x2, h, out, M, H, I, act, eps, stream)
 _SIGNATURES = {"ffn_ln_block": [_I] + [_P] * 13 + [_I, _I, _I, _I, _F, _P]}
 _TRAIN_SIGNATURES = {
-    # int ffn_train_fwd(dtype, x, w1, b1, w2, b2, out, M, H, I, act, stream)
-    "ffn_train_fwd": [_I] + [_P] * 6 + [_I, _I, _I, _I, _P],
-    # int ffn_train_bwd(dtype, x, g, w1, b1, w2t, w1t, dx, dh, a, M, I, act,
-    #                   stream)
-    "ffn_train_bwd": [_I] + [_P] * 9 + [_I, _I, _I, _P],
+    # int ffn_train_fwd(dtype, x, w1, b1, w2, b2, h, out, M, H, I, act, stream)
+    "ffn_train_fwd": [_I] + [_P] * 7 + [_I, _I, _I, _I, _P],
+    # int ffn_train_bwd(dtype, x, g, w1, b1, w2, w2t, w1t, dx, dh, a, M, H, I,
+    #                   act, stream)
+    "ffn_train_bwd": [_I] + [_P] * 10 + [_I, _I, _I, _I, _P],
 }
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -155,16 +172,22 @@ def _check_act(act: str) -> None:
         raise ValueError(f"unsupported activation for the fused FFN: {act}")
 
 
-def _check_cuda_ffn(what: str, x, w1, w2, *tensors, widths=tuple(KERNEL_CHUNKS)) -> None:
-    """Raise unless x (..., H) with H in ``widths`` and the weights suit
-    the kernels and every tensor is contiguous on x's CUDA device."""
+def _check_cuda_ffn(what: str, x, w1, w2, *tensors, widths=tuple(KERNEL_CHUNKS),
+                    gemm: bool = False) -> None:
+    """Raise unless x (..., H) and the weights suit the kernels and every
+    tensor is contiguous on x's CUDA device: H in ``widths`` and I a
+    multiple of the width's chunk, or, with ``gemm`` in bf16 (the
+    training pair's Hopper GEMMs), H and I multiples of 8."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: unsupported dtype {x.dtype}")
     H = x.shape[-1]
     I = w1.shape[-1]
-    if H not in widths or I % KERNEL_CHUNKS[H]:
+    if gemm and x.dtype == torch.bfloat16:
+        if H % 8 or I % 8:
+            raise ValueError(f"{what} kernel takes H and I multiples of 8, got H={H}, I={I}")
+    elif H not in widths or I % KERNEL_CHUNKS[H]:
         raise ValueError(
             f"{what} kernel takes H in {widths} and I a multiple of the "
             f"width's chunk {KERNEL_CHUNKS}, got H={H}, I={I}")
@@ -291,17 +314,21 @@ def fused_ffn_fwd(x, w1, b1, w2, b2, *, act="gelu"):
     dt = x.dtype
     w1, w2 = w1.to(dt), w2.to(dt)
     b1f, b2f = b1.float(), b2.float()
-    _check_cuda_ffn("fused_ffn_fwd", x, w1, w2, b1f, b2f)
+    _check_cuda_ffn("fused_ffn_fwd", x, w1, w2, b1f, b2f, gemm=True)
     H, I = w1.shape
     M = x.numel() // H
     out = torch.empty_like(x)
-    _build.check_aligned("fused_ffn_fwd", x, w1, w2, out)
+    # bf16 scratch of the Hopper design: h (M, I)
+    h = (torch.empty((M, I), dtype=dt, device=x.device)
+         if dt == torch.bfloat16 else None)
+    _build.check_aligned("fused_ffn_fwd", x, w1, w2, h, out)
     if M == 0:
         return out
     lib = _build.load("ffn_train", _TRAIN_SIGNATURES)
     status = lib.ffn_train_fwd(
         _DTYPES[dt], _build.ptr(x), _build.ptr(w1), _build.ptr(b1f), _build.ptr(w2),
-        _build.ptr(b2f), _build.ptr(out), M, H, I, _ACTS[act], _build.stream(x.device))
+        _build.ptr(b2f), _build.ptr(h), _build.ptr(out), M, H, I, _ACTS[act],
+        _build.stream(x.device))
     _build.check(status, "ffn_train_fwd")
     fused_ffn_fwd.launches += 1
     return out
@@ -320,25 +347,29 @@ def fused_ffn_bwd(x, g, w1, b1, w2, *, act="gelu"):
     if x.device.type == "cpu":
         return fused_ffn_bwd_plain(x, g, w1, b1, w2, act=act)
     dt = x.dtype
-    w1 = w1.to(dt)
-    w2t = w2.to(dt).t().contiguous()
-    w1t = w1.t().contiguous()
+    w1, w2 = w1.to(dt), w2.to(dt)
     b1f = b1.float()
-    _check_cuda_ffn("fused_ffn_bwd", x, w1, w2, g, b1f, w2t, w1t, widths=(BWD_HIDDEN,))
+    # fp32: the SIMT body streams W2ᵀ and W1ᵀ copies; the bf16 GEMMs read
+    # both weights as they lie
+    w2t, w1t = ((w2.t().contiguous(), w1.t().contiguous())
+                if dt == torch.float32 else (None, None))
+    _check_cuda_ffn("fused_ffn_bwd", x, w1, w2, g, b1f,
+                    *(t for t in (w2t, w1t) if t is not None),
+                    widths=(BWD_HIDDEN,), gemm=True)
     if x.dim() != 2 or g.shape != x.shape or g.dtype != dt:
         raise ValueError("fused_ffn_bwd takes x and g as (M, H) in one dtype")
     M, (H, I) = x.shape[0], w1.shape
     dx = torch.empty_like(x)
     dh = torch.empty((M, I), dtype=dt, device=x.device)
     a = torch.empty((M, I), dtype=dt, device=x.device)
-    _build.check_aligned("fused_ffn_bwd", x, g, w1, w2t, w1t, dx, dh, a)
+    _build.check_aligned("fused_ffn_bwd", x, g, w1, w2, w2t, w1t, dx, dh, a)
     if M == 0:
         return dx, dh, a
     lib = _build.load("ffn_train", _TRAIN_SIGNATURES)
     status = lib.ffn_train_bwd(
         _DTYPES[dt], _build.ptr(x), _build.ptr(g), _build.ptr(w1), _build.ptr(b1f),
-        _build.ptr(w2t), _build.ptr(w1t), _build.ptr(dx), _build.ptr(dh), _build.ptr(a),
-        M, I, _ACTS[act], _build.stream(x.device))
+        _build.ptr(w2), _build.ptr(w2t), _build.ptr(w1t), _build.ptr(dx), _build.ptr(dh),
+        _build.ptr(a), M, H, I, _ACTS[act], _build.stream(x.device))
     _build.check(status, "ffn_train_bwd")
     fused_ffn_bwd.launches += 1
     return dx, dh, a

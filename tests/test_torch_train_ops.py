@@ -156,14 +156,16 @@ def _ffn_arrays(M, H=64, I=128):
             rng.normal(size=(M, H)).astype(f)]
 
 
+@pytest.mark.parametrize("H,I", [(64, 128), (128, 320)], ids=["H64", "H128-I320"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("act", ["gelu", "gelu_new"])
 @pytest.mark.parametrize("M", [0, 3, 37])
-def test_fused_ffn_matches_pallas_kernels(M, act, dtype, monkeypatch):
-    """Forward output and all five gradients.  JAX's kernels divide by zero
-    at M = 0, so there the port is held against the JAX package's unfused
-    chain."""
-    x, w1, b1, w2, b2, w = _ffn_arrays(M)
+def test_fused_ffn_matches_pallas_kernels(H, I, M, act, dtype, monkeypatch):
+    """Forward output and all five gradients, at two widths: I = 320 is
+    not a multiple of the Hopper kernels' 128-column tiles.  JAX's kernels
+    divide by zero at M = 0, so there the port is held against the JAX
+    package's unfused chain."""
+    x, w1, b1, w2, b2, w = _ffn_arrays(M, H, I)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     monkeypatch.setattr(jffn, "BWD_IMPL", "kernel")
     if M:
@@ -181,12 +183,23 @@ def test_fused_ffn_matches_pallas_kernels(M, act, dtype, monkeypatch):
     got_out = tffn.fused_ffn(*targs, act=act)
     got_out.backward(torch.from_numpy(w).to(tdt))
     assert (tffn.fused_ffn_fwd.launches, tffn.fused_ffn_bwd.launches) == launches
-    assert got_out.dtype == tdt and got_out.shape == (M, 64)
+    assert got_out.dtype == tdt and got_out.shape == (M, H)
     tol = FFN_TOL[dtype]
     np.testing.assert_allclose(_np(got_out), _np(want_out), **tol)
     for name, t, want in zip(("x", "w1", "b1", "w2", "b2"), targs, want_grads):
         assert t.grad.dtype == t.dtype, name
         np.testing.assert_allclose(_np(t.grad), _np(want), err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_new"])
+def test_gelu_grad_matches_autograd(act):
+    """gelu' of the plain backward (which the Hopper kernel's epilogue
+    mirrors) is the derivative of its gelu, in fp32 over [-6, 6]."""
+    h = torch.linspace(-6.0, 6.0, 24001, dtype=torch.float32, requires_grad=True)
+    (want,) = torch.autograd.grad(tffn._gelu(h, act).sum(), h)
+    a, got = tffn._gelu_and_grad(h.detach(), act)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(a.numpy(), tffn._gelu(h.detach(), act).numpy())
 
 
 def test_fused_ffn_3d_input_and_bad_args():
