@@ -11,7 +11,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    started together, with ptxas's register and spill report (fatal if any
    Hopper kernel spills: the attention forward and backward, the FFN
    block's GEMM and LayerNorm passes, the training FFN's GEMMs and dual
-   GEMM);
+   GEMM, the int8 dense's row-quantize pass and the int8 GEMM of the
+   dense and the probe);
 3. kernels: the serving kernels against their plain PyTorch versions on
    the card, in bf16 and fp32, at the serving paths' shapes (the FFN
    block at H=768 with gelu and gelu_new and at ProtBERT's H=1024, at
@@ -80,25 +81,33 @@ Phases, each fatal on failure (exit code 1, no result line):
     the BigBird trunk's and BioBERT's shapes);
 15. int8 kernels: the fused int8 dense against its plain version, bf16
     and fp32, at every shape of the int8 serving paths, at M = 0, 1 and
-    300, an all-zero row, N = 100, the decoders' N = 28,996 and 100,000
-    and a strided ``x[:, :1]``; the int8 GEMM probe exactly equal to its
-    plain version at 512 x 1024 x 512 and 4096^3, bf16 within tolerance;
+    300, an all-zero row, N = 100, the decoders' N = 28,996 and 100,000,
+    K = 48 and 784 (K % 32 == 16), a strided ``x[:, :1]`` and a
+    row-major weight (copied for the call); its row-quantize pass's codes
+    and scales equal to ``quantize_rows`` bit for bit at every shape; the
+    limits shown to reject codes made with a reciprocal and an epilogue
+    without s_w; the int8 GEMM probe exactly equal to its plain version
+    at 512 x 1024 x 512 and 4096^3, bf16 within tolerance;
 16. int8 serving: ``quantize_params`` on phase 5's parameters, then
     ``STonKGsEngine.embed`` on 512 rows at B=128 in bf16; checks the
     launch counts (144 int8 denses, 23 attentions, no FFN block a batch),
-    finite output, card fp32 against CPU fp32 (both int8; cosine 0.9999
-    at 2 layers a stack; at full depth each layer fed the CPU's input,
-    cosine 0.9999 and at most 1e-3 of its activation codes flipped, where
-    the bf16 control must flip more; end to end 0.999 against gross
-    faults) and card bf16 against CPU fp32; int8 and bf16 pairs/s in
-    turns;
+    every quantized weight of the engine column-major (the kernel reads
+    it without a copy), finite output, card fp32 against CPU fp32 (both
+    int8; cosine 0.9999 at 2 layers a stack; at full depth each layer fed
+    the CPU's input, cosine 0.9999 and at most 1e-3 of its activation
+    codes flipped, where the bf16 control must flip more; end to end
+    0.999 against gross faults) and card bf16 against CPU fp32; int8 and
+    bf16 pairs/s in turns;
 17. ProtSTonKGs int8 serving: the same with ``ProtSTonKGsEngine`` at full
     width on 32 rows at B=8 (325 int8 denses, 42 attentions, 11 sparse
     a batch) and at 2 layers a stack against the CPU; sequences/s in
     turns with bf16;
 18. int8 timing: the int8 dense at each path shape beside its bound, its
-    plain version, ``torch._int_mm`` on codes made beforehand and the
-    bf16 dense it replaces; the probe's ``main`` (its exactness checks,
+    plain version, ``torch._int_mm`` on codes made beforehand (with the
+    column-major weight) and the bf16 dense it replaces, and its two
+    launches timed apart, each beside its own bound (the pass by bytes,
+    the GEMM by bytes or operations; their sum is the design's floor);
+    the probe's ``main`` (its exactness checks,
     then ``torch.mm`` bf16, ``torch._int_mm`` and the kernel on int8 and
     on bf16 at 4096^3, in TFLOP/s).
 
@@ -155,8 +164,13 @@ from stonkgs_tpu_torch.ops.fused_ffn import (
     fused_ffn_plain,
 )
 from stonkgs_tpu_torch.ops.quantization import (
+    _dequant_plain,
     dense_int8_fused,
     dense_int8_fused_plain,
+    dense_int8_gemm,
+    dense_int8_quantize,
+    is_quantized,
+    k_major,
     quantize_kernel,
     quantize_params,
     quantize_rows,
@@ -209,6 +223,8 @@ SM90_KERNELS = {
                               "attn_bwd_dkdv_sm90_kernel"),
     "ffn_ln_block": ("gemm_sm90_kernel", "add_layer_norm_kernel"),
     "ffn_train": ("gemm_sm90_kernel", "ffn_bwd_dual_sm90_kernel"),
+    "dense_int8": ("quantize_rows_kernel", "gemm_kmajor_sm90_kernel"),
+    "int8_gemm": ("gemm_kmajor_sm90_kernel",),
 }
 # rows of the FFN block's checks: empty, ragged, the edges of the 128-row
 # tile, the ProtSTonKGs BioBERT (6,144) and ProtBERT (24,576) shapes, the
@@ -1557,7 +1573,9 @@ INT8_SHAPES = {
 # the decoders (N = 28,996, 100,000)
 INT8_EDGES = [(128, 768, 768), (128, 768, 3072), (128, 3072, 768), (8, 768, 768),
               (8, 768, 3072), (8, 3072, 768), (0, 768, 768), (1, 768, 768), (300, 768, 3072),
-              (64, 768, 100), (128, 768, 28996), (8, 768, 100000)]
+              (64, 768, 100), (128, 768, 28996), (8, 768, 100000),
+              # K % 32 == 16: TMA zero-fills the last k32 step
+              (300, 48, 100), (1, 784, 100), (128, 48, 28996), (300, 784, 28996)]
 # card vs CPU layer by layer (both fp32, int8, each layer fed the CPU's
 # input): the share of activation codes that may differ.  A code flips
 # where the two fp32 inputs of a dense straddle a rounding boundary, a
@@ -1568,12 +1586,58 @@ GEMM_SIZE = 4096
 
 def _int8_dense_inputs(M, K, N, dtype, gen, zero_row=False):
     """x (M, K) in dtype on the card (row 1 zero with ``zero_row``), an
-    int8 (K, N) weight with its fp32 scales, and an fp32 bias."""
+    int8 (K, N) weight, column-major as the engines hold it, with its fp32
+    scales, and an fp32 bias."""
     x = torch.randn(M, K, device=DEV, generator=gen).to(dtype)
     if zero_row and M > 1:
         x[1] = 0
     q = quantize_kernel(0.02 * torch.randn(K, N, device=DEV, generator=gen))
-    return x, q["kernel_q"], q["scale"], 0.02 * torch.randn(N, device=DEV, generator=gen)
+    return (x, k_major(q["kernel_q"]), q["scale"],
+            0.02 * torch.randn(N, device=DEV, generator=gen))
+
+
+def _check_codes(name, x) -> None:
+    """The row-quantize pass's codes and scales equal to ``quantize_rows``
+    (the plain version, on the card) bit for bit."""
+    got_q, got_s = dense_int8_quantize(x)
+    want_q, want_s = quantize_rows(x.reshape(-1, x.shape[-1]))
+    torch.cuda.synchronize()
+    flips = int((got_q != want_q).sum())
+    same_s = torch.equal(got_s, want_s.reshape(-1))
+    log(f"# check {name} codes and scales: {flips} of {want_q.numel()} codes differ, scales "
+        f"{'equal' if same_s else 'DIFFER'} {'ok' if flips == 0 and same_s else 'FAIL'}")
+    check(flips == 0 and same_s, f"{name}: the row-quantize pass differs from quantize_rows")
+
+
+def _int8_limits_reject(gen) -> None:
+    """The phase's limits against two known faults, applied to the plain
+    version: codes made with a reciprocal (x * (1 / s) instead of x / s)
+    differ from the pass's exact codes and move the fp32 output past
+    INT8_F32_TOL; an epilogue without s_w fails the bf16 tolerance."""
+    M, K, N = INT8_SHAPES["trunk FFN out"]
+    x, w, s, b = _int8_dense_inputs(M, K, N, F32, gen)
+    q, sx = quantize_rows(x)
+    recip = torch.clamp(torch.round(x * torch.reciprocal(sx)), -127, 127).to(I8)
+    flips = int((recip != q).sum())
+    log(f"# check dense_int8 fault: codes with a reciprocal at M={M} {K}->{N} fp32: {flips} of "
+        f"{q.numel()} codes differ from the exact ones {'rejected: ok' if flips else 'FAIL'}")
+    check(flips > 0, "the exact code check does not catch codes made with a reciprocal")
+    want = _dequant_plain(q, sx, w, s, b, F32)
+    err = float((_dequant_plain(recip, sx, w, s, b, F32) - want).abs().max())
+    limit = INT8_F32_TOL * float(want.abs().max())
+    log(f"# check dense_int8 fault: its fp32 output: max_abs_err {err!r} limit {limit!r} "
+        f"{'passes: FAIL' if err <= limit else 'rejected: ok'}")
+    check(err > limit, "the fp32 limit does not catch codes made with a reciprocal")
+    del x, q, recip, want
+    x, w, s, b = _int8_dense_inputs(300, 768, 768, BF16, gen)
+    want = dense_int8_fused_plain(x, w, s, b)
+    q, sx = quantize_rows(x)
+    wrong = _dequant_plain(q, sx, w, torch.ones_like(s), b, BF16)
+    ok = bool(torch.allclose(wrong.float(), want.float(), **TOL[BF16]))
+    log(f"# check dense_int8 fault: epilogue without s_w, bf16 M=300: max_abs_err "
+        f"{float((wrong.float() - want.float()).abs().max())!r} "
+        f"{'passes: FAIL' if ok else 'rejected: ok'}")
+    check(not ok, "the bf16 tolerance does not catch an epilogue without s_w")
 
 
 def _compare_int8(name, got, want, dtype) -> float:
@@ -1594,15 +1658,17 @@ def _compare_int8(name, got, want, dtype) -> float:
 
 def phase_int8_kernels() -> dict:
     """The int8 dense vs its plain version on the card, bf16 and fp32, at
-    the paths' shapes and the edges; the GEMM probe exactly equal to its
-    plain version (int8), within tolerance (bf16).  Returns the worst
-    bf16 error at the paths' shapes."""
+    the paths' shapes and the edges, its row-quantize pass's codes and
+    scales bit for bit, and the limits against two known faults; the GEMM
+    probe exactly equal to its plain version (int8), within tolerance
+    (bf16).  Returns the worst bf16 error at the paths' shapes."""
     gen = torch.Generator(device=DEV).manual_seed(20)
     errs = {"dense_int8": 0.0}
     for dtype in (BF16, F32):
         tag = "bf16" if dtype == BF16 else "fp32"
         for M, K, N in [*INT8_SHAPES.values(), *INT8_EDGES]:
             x, w, s, b = _int8_dense_inputs(M, K, N, dtype, gen, zero_row=True)
+            _check_codes(f"dense_int8 {tag} M={M} K={K}", x)
             e = _compare_int8(f"dense_int8 {tag} M={M} {K}->{N} zero row",
                               dense_int8_fused(x, w, s, b), dense_int8_fused_plain(x, w, s, b),
                               dtype)
@@ -1617,7 +1683,13 @@ def phase_int8_kernels() -> dict:
         _compare_int8(f"dense_int8 {tag} x[:, :1] of ({BATCH}, 512, 768)",
                       dense_int8_fused(h, w, s), dense_int8_fused_plain(h.contiguous(), w, s),
                       dtype)
-        del h
+        _check_codes(f"dense_int8 {tag} x[:, :1]", h)
+        # a row-major weight: correct, through a K-major copy made for the call
+        w_row = w.contiguous()
+        _compare_int8(f"dense_int8 {tag} M=300 row-major kernel_q", dense_int8_fused(x, w_row, s),
+                      dense_int8_fused_plain(x, w_row, s), dtype)
+        del h, w_row
+    _int8_limits_reject(gen)
     ops = bench_int8_gemm.operands(GEMM_SIZE, GEMM_SIZE, GEMM_SIZE)
     errs["int8_gemm"] = 0.0
     for a, b in ((ops["a8"][:512, :1024], ops["b8"][:1024, :512]), (ops["a8"], ops["b8"])):
@@ -1678,6 +1750,7 @@ def phase_int8_serving(cfg: STonKGsConfig, params: dict, feats: dict) -> dict:
     engine = STonKGsEngine(cfg=cfg, params=params_to(params_q, DEV, BF16), batch_size=BATCH,
                            device=DEV)
     log(f"# int8 serving setup (quantize on the card): {time.perf_counter() - t0:.1f} s")
+    _check_k_major("STonKGs int8 engine", engine.params)
     _reset_counts(INT8_SERVING_KERNELS)
     out = engine.embed(feats)
     counts = _counts(INT8_SERVING_KERNELS)
@@ -1729,6 +1802,17 @@ def phase_int8_serving(cfg: STonKGsConfig, params: dict, feats: dict) -> dict:
     log(f"# int8 vs bf16 embeddings ({ROWS} rows, random weights, not gated): cosine mean "
         f"{float(cos.mean())!r} min {float(cos.min())!r}")
     return counts
+
+
+def _check_k_major(name: str, params) -> None:
+    """Every quantized dense of an engine's parameters holds its weight
+    column-major on the card, so the timed path never copies W."""
+    leaves = []
+    tree_map(lambda p: leaves.append(p) or p, params, is_leaf=is_quantized)
+    dense = [p["kernel_q"] for p in leaves if is_quantized(p)]
+    bad = sum(1 for w in dense if w.device.type != "cuda" or not w.t().is_contiguous())
+    log(f"# {name}: {len(dense)} quantized weights, {bad} not column-major on the card")
+    check(bool(dense) and bad == 0, f"{name}: a quantized weight is not column-major")
 
 
 @contextlib.contextmanager
@@ -1819,6 +1903,7 @@ def phase_prot_int8_serving(cfg: ProtSTonKGsConfig, params: dict, bf16_engine, f
                                                          DEV, BF16),
                                batch_size=PROT_BATCH, device=DEV)
     log(f"# ProtSTonKGs int8 serving setup: {time.perf_counter() - t0:.1f} s")
+    _check_k_major("ProtSTonKGs int8 engine", engine.params)
     _reset_counts(PROT_INT8_SERVING_KERNELS)
     out = engine.embed(feats)
     counts = _counts(PROT_INT8_SERVING_KERNELS)
@@ -1865,28 +1950,41 @@ def phase_prot_int8_serving(cfg: ProtSTonKGsConfig, params: dict, bf16_engine, f
 def phase_int8_timing():
     """The int8 dense at each path shape (held against its plain version
     there, then timed) beside its bound, its plain version and two
-    references: ``torch._int_mm`` on codes made beforehand (the GEMM
-    alone) and the bf16 dense ``x @ W + b`` that the int8 mode replaces.
-    Then the probe's ``main`` at 4096^3, counts from 0 just before it.
-    Returns the per-shape numbers, the probe's kernel-line numbers and
-    its launch count."""
+    references: ``torch._int_mm`` on codes made beforehand and the
+    column-major weight (the GEMM alone) and the bf16 dense ``x @ W + b``
+    that the int8 mode replaces; then its two launches apart, the
+    row-quantize pass and the GEMM, each beside its own bound, whose sum
+    is the two-pass design's floor.  Then the probe's ``main`` at 4096^3,
+    counts from 0 just before it.  Returns the per-shape numbers, the
+    probe's kernel-line numbers and its launch count."""
     gen = torch.Generator(device=DEV).manual_seed(21)
     result = {}
     for label, (M, K, N) in INT8_SHAPES.items():
         x, w, s, b = _int8_dense_inputs(M, K, N, BF16, gen)
         bound, by = _bound_ms(2.0 * M * K * N, M * K * 2 + K * N + 2 * N * 4 + M * N * 2, I8)
+        pass_bound, _ = _bound_ms(0.0, M * K * 2 + M * K + M * 4, I8)
+        gemm_bound, gemm_by = _bound_ms(2.0 * M * K * N,
+                                        M * K + M * 4 + K * N + 2 * N * 4 + M * N * 2, I8)
         err = _compare(f"dense_int8 bf16 {label} M={M} {K}->{N}", dense_int8_fused(x, w, s, b),
                        dense_int8_fused_plain(x, w, s, b), BF16)
-        codes = quantize_rows(x)[0]
+        codes, scales = dense_int8_quantize(x)
         wb, bb = (w.float() * s).to(BF16), b.to(BF16)
         t = dict(max_abs_err=err, ms=_time_ms(lambda: dense_int8_fused(x, w, s, b)),
                  plain_ms=_time_ms(lambda: dense_int8_fused_plain(x, w, s, b), iters=3),
                  bound_ms=bound, bound_by=by, library_ms=None,
+                 pass_ms=_time_ms(lambda: dense_int8_quantize(x)), pass_bound_ms=pass_bound,
+                 gemm_ms=_time_ms(lambda: dense_int8_gemm(codes, scales, w, s, b, BF16)),
+                 gemm_bound_ms=gemm_bound, gemm_bound_by=gemm_by,
+                 floor_ms=pass_bound + gemm_bound,
                  int_mm_ms=_time_ms(lambda: torch._int_mm(codes, w)),
                  bf16_dense_ms=_time_ms(lambda: x @ wb + bb))
         log(f"# time dense_int8 {label} M={M} {K}->{N} bf16: {json.dumps(t)}")
+        log(f"# rate dense_int8 {label}: {2.0 * M * K * N / (t['ms'] * 1e-3) / 1e12!r} TOP/s; "
+            f"GEMM alone {2.0 * M * K * N / (t['gemm_ms'] * 1e-3) / 1e12!r} TOP/s; "
+            f"{t['ms'] / t['floor_ms']!r} x the floor, {t['ms'] / t['bf16_dense_ms']!r} x the "
+            f"bf16 dense")
         result[label] = t
-        del x, w, s, b, codes, wb, bb
+        del x, w, s, b, codes, scales, wb, bb
     ops = bench_int8_gemm.operands(GEMM_SIZE, GEMM_SIZE, GEMM_SIZE)
     err = _gemm_int8_err(ops["a8"], ops["b8"])
     check(err == 0, "int8_gemm: int8 result differs from its plain version")

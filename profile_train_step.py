@@ -3,7 +3,7 @@ CUDA card.
 
 Run from the root of a checkout, with one CUDA card visible:
 
-    python3 profile_train_step.py [--model stonkgs|protstonkgs] [--serve]
+    python3 profile_train_step.py [--model stonkgs|protstonkgs] [--serve [--int8]]
                                   [--out profile_train_step.json]
 
 Builds the port's kernels and makes the full-width model of
@@ -13,8 +13,10 @@ and trunk, 256 + 256, KG vocabulary 100,000; B=32) or ProtSTonKGs
 20,000; B=2 with the training plan).  It runs two warm-up steps of
 ``make_train_step`` in bf16 with fp32 parameters, then traces three steps
 with ``torch.profiler`` (each step synchronised through its loss).  With
-``--serve`` (ProtSTonKGs) it traces three embed batches of
-``ProtSTonKGsEngine`` at B=8 in bf16 instead.  It prints
+``--serve`` it traces three embed batches in bf16 instead
+(``STonKGsEngine`` at B=128, ``ProtSTonKGsEngine`` at B=8), and with
+``--int8`` as well the same engine on ``quantize_params`` output (int8
+serving: every dense but the pooler through ``dense_int8``).  It prints
 the device time by kernel, the device time by group (the port's kernels,
 cuBLAS products, everything else), and the device's busy share of the
 traced wall time (the sum of kernel times over the wall time: one stream,
@@ -35,10 +37,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
-from stonkgs_tpu_torch import ProtSTonKGsEngine
+from stonkgs_tpu_torch import ProtSTonKGsEngine, STonKGsEngine
 from stonkgs_tpu_torch.config import BertConfig, STonKGsConfig
 from stonkgs_tpu_torch.models import protstonkgs, stonkgs
 from stonkgs_tpu_torch.ops import _build
+from stonkgs_tpu_torch.ops.quantization import quantize_params
 from stonkgs_tpu_torch.train import pretraining
 from stonkgs_tpu_torch.train.optimizer import AdamW
 from stonkgs_tpu_torch.utils.convert import params_to
@@ -63,6 +66,8 @@ PORT_KERNELS = {
     "ffn_bwd_dual_sm90_kernel": "ffn_train_bwd",
     "mid_fwd_kernel": "bigbird_mid_fwd",
     "mid_bwd_kernel": "bigbird_mid_bwd",
+    "quantize_rows_kernel": "dense_int8",
+    "gemm_kmajor_sm90_kernel": "dense_int8",
 }
 STEPS = 3  # traced steps
 # cuBLAS kernels on Hopper are named nvjet_*, sm90_xmma_gemm_* or *gemm*
@@ -94,11 +99,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_train_step.json")
     ap.add_argument("--model", choices=("stonkgs", "protstonkgs"), default="stonkgs")
-    ap.add_argument("--serve", action="store_true",
-                    help="trace ProtSTonKGsEngine.embed batches (ProtSTonKGs only)")
+    ap.add_argument("--serve", action="store_true", help="trace the engine's embed batches")
+    ap.add_argument("--int8", action="store_true",
+                    help="with --serve: the engine on quantize_params output")
     args = ap.parse_args()
-    if args.serve and args.model != "protstonkgs":
-        ap.error("--serve traces the ProtSTonKGs engine: pass --model protstonkgs")
+    if args.int8 and not args.serve:
+        ap.error("--int8 traces int8 serving: pass --serve")
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
         return 1
@@ -107,8 +113,11 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
     _build.build_all(chip_smoke.SOURCES)
-    run, batch_size = (_prot_embed() if args.serve else
-                       _prot_train() if args.model == "protstonkgs" else _stonkgs_train())
+    if args.serve:
+        embed = _prot_embed if args.model == "protstonkgs" else _stonkgs_embed
+        run, batch_size = embed(args.int8)
+    else:
+        run, batch_size = _prot_train() if args.model == "protstonkgs" else _stonkgs_train()
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -133,7 +142,8 @@ def main() -> int:
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
     step_ms = wall_ms / STEPS
     busy = device_ms / wall_ms
-    print(f"# {args.model}{' embed' if args.serve else ''}: {STEPS} steps, B={batch_size}: "
+    mode = (" int8" if args.int8 else "") + (" embed" if args.serve else "")
+    print(f"# {args.model}{mode}: {STEPS} steps, B={batch_size}: "
           f"{step_ms!r} ms a step on the "
           f"host clock, device time {device_ms / STEPS!r} ms a step; device busy "
           f"{busy!r}, idle {1 - busy!r}")
@@ -144,7 +154,8 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:40]
     out.write_text(json.dumps({
-        "card": card, "model": args.model, "serve": args.serve, "batch": batch_size,
+        "card": card, "model": args.model, "serve": args.serve, "int8": args.int8,
+        "batch": batch_size,
         "steps": STEPS, "step_ms": step_ms,
         "device_ms_per_step": device_ms / STEPS, "device_busy": busy,
         "groups": groups,
@@ -190,14 +201,38 @@ def _prot_train():
     return run, B
 
 
-def _prot_embed():
+def _serving_params(params, int8: bool):
+    """The engine's parameters on the card in bf16, quantized first (on
+    the card, from fp32) with ``int8``."""
+    if int8:
+        params = quantize_params(params_to(params, "cuda"))
+    return params_to(params, "cuda", torch.bfloat16)
+
+
+def _stonkgs_embed(int8: bool):
+    """One STonKGs embed batch of 128 (bf16), synchronised by the copy of
+    its output to the host."""
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000)
+    gen = torch.Generator().manual_seed(0)
+    params = stonkgs.init_stonkgs_params(gen, cfg)
+    params["kg_backbone"] = 0.05 * torch.randn(cfg.kg_table_size, cfg.bert.hidden_size,
+                                               generator=gen)
+    B = chip_smoke.BATCH
+    engine = STonKGsEngine(cfg=cfg, params=_serving_params(params, int8), batch_size=B)
+    feats = chip_smoke._features(cfg, B)
+
+    def run():
+        engine.embed(feats)
+    return run, B
+
+
+def _prot_embed(int8: bool):
     """One ProtSTonKGs embed batch of 8 (bf16), synchronised by the copy
     of its output to the host."""
     cfg = chip_smoke._prot_cfg()
-    params = chip_smoke._prot_params(cfg, seed=0, dtype=torch.bfloat16)
+    params = chip_smoke._prot_params(cfg, seed=0, dtype=torch.float32 if int8 else torch.bfloat16)
     B = chip_smoke.PROT_BATCH
-    engine = ProtSTonKGsEngine(cfg=cfg, params=params_to(params, "cuda", torch.bfloat16),
-                               batch_size=B)
+    engine = ProtSTonKGsEngine(cfg=cfg, params=_serving_params(params, int8), batch_size=B)
     feats = chip_smoke._prot_features(cfg, B)
 
     def run():

@@ -13,21 +13,29 @@ out, ``torch._int_mm`` (int8 -> int32), the kernel on int8 and the kernel
 on bf16 (the control).  ``sweep`` times the kernel at every instantiated
 tile shape.  The two PyTorch calls are yardsticks, not ports.
 
-Kernel: ``csrc/int8_gemm.cu`` (CUDA C++ for ``sm_90a``).  It replaces the
-TPU kernel ``_matmul_kernel`` (``benchmarks/bench_int8_gemm.py:27``,
-launched at ``:46``): a tiled GEMM ``C = A . B``, int8 -> int32 or bf16 ->
-fp32.  At 4096^3 it is bound by operations: 137.4 GOP is 0.069 ms at
-1,979 int8 TOP/s (0.139 ms at 989 bf16 TFLOP/s), against 0.030 ms for the
-bytes (A and B int8, C int32; 0.040 ms in bf16 with fp32 out).
+Kernel: ``csrc/int8_gemm.cu`` over ``csrc/int8_sm90.cuh`` (CUDA C++ for
+``sm_90a``).  It replaces the TPU kernel ``_matmul_kernel``
+(``benchmarks/bench_int8_gemm.py:27``, launched at ``:46``): a tiled GEMM
+``C = A . B``, int8 -> int32 or bf16 -> fp32.  At 4096^3 it is bound by
+operations: 137.4 GOP is 0.069 ms at 1,979 int8 TOP/s (0.139 ms at 989
+bf16 TFLOP/s), against 0.030 ms for the bytes (A and B int8, C int32;
+0.040 ms in bf16 with fp32 out).
 
 Design: the TPU kernel walks k in its sequential grid and carries the sum
-in a VMEM scratch accumulator; a Hopper block owns a (bm, bn) tile of C,
-walks K itself with the sum in wmma accumulators (registers), and streams
-the (bm, bk) and (bk, bn) tiles through a 3-stage ``cp.async`` ring.  The
-tile shapes are template parameters (:data:`TILES`); the TPU sweep's VMEM
-tiles, such as (2048, 512, 2048), do not fit in a block's 227 KB of
-shared memory and are not copied.  A shape the tiles do not divide raises
-``ValueError``, as the JAX probe exits for it.
+in a VMEM scratch accumulator; a Hopper block owns a (bm, bn) tile of C
+and walks K itself with the sum in registers: the int8 dense's GEMM core
+without its dequantizing epilogue.  A producer warpgroup streams A and B
+through a TMA ring, one 128-byte swizzled line of K a stage (``bk`` =
+128 bytes: 128 int8 or 64 bf16 values); two consumer warpgroups issue
+``wgmma.m64nNk32.s32.s8.s8`` (the bf16 control
+``wgmma.m64nNk16.f32.bf16.bf16``); C leaves through TMA stores.  ``wgmma``
+takes 8-bit operands only K-major, so B is read as B^T (N, K): a
+column-major B (as :func:`operands` makes it, and as cuBLASLt prefers it
+for ``torch._int_mm``) is passed as it lies, any other B is copied for
+the call.  The tile shapes are template parameters (:data:`TILES`); the
+TPU sweep's VMEM tiles, such as (2048, 512, 2048), do not fit in a
+block's 227 KB of shared memory and are not copied.  A shape the tiles do
+not divide raises ``ValueError``, as the JAX probe exits for it.
 
 The plain version computes the int8 product as an fp64 matmul (exact:
 |C| <= 127^2 * K < 2^53) and the bf16 one as an fp32 matmul.
@@ -44,14 +52,16 @@ import torch
 from stonkgs_tpu_torch.benchmarks._util import emit, require_cuda, time_ms
 from stonkgs_tpu_torch.ops import _build
 
-# the instantiated (bm, bn, bk) tiles of csrc/int8_gemm.cu
-TILES = ((64, 128, 64), (128, 128, 64), (128, 128, 128), (128, 256, 64), (256, 128, 64))
+# the instantiated (bm, bn, bk) tiles of csrc/int8_gemm.cu: rows and
+# columns of a C tile, and the K bytes of a ring stage (128 int8 or 64
+# bf16 values)
+TILES = ((128, 128, 128), (128, 256, 128), (256, 128, 128))
 # the fastest int8 tile of the sweep at 4096^3 on an H100 SXM (PERF.md)
-DEFAULT_TILES = (256, 128, 64)
+DEFAULT_TILES = (128, 256, 128)
 _DTYPES = {torch.int8: 0, torch.bfloat16: 1}
 _OUT = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
 _P, _I = _build.P, _build.I32
-# int int8_gemm(dtype, bm, bn, bk, a, b, c, M, N, K, stream)
+# int int8_gemm(dtype, bm, bn, bk, a, bt, c, M, N, K, stream), bt = B^T (N, K)
 _SIGNATURES = {"int8_gemm": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P]}
 
 
@@ -75,7 +85,7 @@ def _check(a, b, tiles) -> Tuple[int, int, int]:
         raise ValueError(f"tiles {tuple(tiles)} are not instantiated; choose from {TILES}")
     (M, K), N = a.shape, b.shape[1]
     bm, bn, bk = tiles
-    if M % bm or N % bn or K % bk or min(M, N, K) == 0:
+    if M % bm or N % bn or (K * a.element_size()) % bk or min(M, N, K) == 0:
         raise ValueError(f"the tiles {tuple(tiles)} do not divide M={M}, N={N}, K={K} "
                          "(no remainder handling)")
     return M, N, K
@@ -85,17 +95,18 @@ def int8_gemm(a: torch.Tensor, b: torch.Tensor, tiles=DEFAULT_TILES) -> torch.Te
     """C = A . B, int8 -> int32 or bf16 -> fp32, with the given tiles.
 
     A tensor on the CPU takes the plain version; a CUDA tensor launches
-    the kernel (or raises)."""
+    the kernel (or raises).  B is read without a copy when it is
+    column-major (B^T contiguous)."""
     M, N, K = _check(a, b, tiles)
     if a.device.type == "cpu":
         return int8_gemm_plain(a, b)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"int8_gemm: unsupported devices {a.device}, {b.device}")
-    a, b = a.contiguous(), b.contiguous()
+    a, bt = a.contiguous(), b.t().contiguous()
     c = torch.empty((M, N), dtype=_OUT[a.dtype], device=a.device)
-    _build.check_aligned("int8_gemm", a, b, c)
+    _build.check_aligned("int8_gemm", a, bt, c)
     lib = _build.load("int8_gemm", _SIGNATURES)
-    status = lib.int8_gemm(_DTYPES[a.dtype], *tiles, _build.ptr(a), _build.ptr(b),
+    status = lib.int8_gemm(_DTYPES[a.dtype], *tiles, _build.ptr(a), _build.ptr(bt),
                            _build.ptr(c), M, N, K, _build.stream(a.device))
     _build.check(status, "int8_gemm")
     int8_gemm.launches += 1
@@ -107,13 +118,15 @@ int8_gemm.launches = 0
 
 def operands(M: int, K: int, N: int, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Seeded operands on the card: int8 codes in [-127, 127) and bf16
-    normals, as the JAX probe draws them."""
+    normals, as the JAX probe draws them; each B a column-major (K, N)
+    view, the layout the kernel and cuBLASLt read as they lie."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     return {
         "a8": torch.randint(-127, 127, (M, K), generator=gen, device="cuda", dtype=torch.int8),
-        "b8": torch.randint(-127, 127, (K, N), generator=gen, device="cuda", dtype=torch.int8),
+        "b8": torch.randint(-127, 127, (N, K), generator=gen, device="cuda",
+                            dtype=torch.int8).t(),
         "abf": torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16),
-        "bbf": torch.randn(K, N, generator=gen, device="cuda").to(torch.bfloat16),
+        "bbf": torch.randn(N, K, generator=gen, device="cuda").to(torch.bfloat16).t(),
     }
 
 

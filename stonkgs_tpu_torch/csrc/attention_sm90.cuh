@@ -294,7 +294,7 @@ inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int H) {
   const cuuint64_t row = kD * 2;  // bytes of one (b, s, h) row
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
   const cuuint32_t box[4] = {kD, 1, kBN, 1};
-  return encode_bf16(map, base, 4, dims, strides, box);
+  return encode_map(map, MapType<bf16>::kType, base, 4, dims, strides, box);
 }
 
 template <bool kTrain>

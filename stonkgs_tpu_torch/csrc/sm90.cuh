@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
 // (attention_sm90.cuh, attention_bwd_sm90.cuh, ffn_sm90.cuh,
-// ffn_train_sm90.cuh): mbarriers, TMA loads, wgmma shared-memory
-// descriptors and the wgmma instructions, the accumulator's register map,
-// and the driver's tensor-map encoder.
+// ffn_train_sm90.cuh, int8_sm90.cuh): mbarriers, TMA loads, wgmma
+// shared-memory descriptors and the wgmma instructions (bf16 and s8), the
+// accumulator's register map, and the driver's tensor-map encoder.
 
 #pragma once
 
@@ -108,11 +108,22 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
                : "memory");
 }
 
-// commit this thread's TMA stores and wait until they have read their
-// shared memory (which may then be reused or freed)
-__device__ __forceinline__ void tma_store_wait_read() {
+// close this thread's bulk group of TMA stores
+__device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until this thread's committed TMA stores have read their shared
+// memory (which may then be reused or freed)
+__device__ __forceinline__ void tma_store_read_done() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// commit this thread's TMA stores and wait until they have read their
+// shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
+  tma_store_commit();
+  tma_store_read_done();
 }
 
 // make this thread's shared-memory writes visible to TMA (the async proxy)
@@ -125,11 +136,17 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// byte offset of bf16 element (row, col < 64) in a box of 128-byte lines
-// with the 128-byte swizzle (TMA's and wgmma's layout: the 16-byte chunk
-// index is XORed with the line's index mod 8; the box is 1024-byte aligned)
+// byte offset of byte `b` (< 128) of line `row` in a box of 128-byte
+// lines with the 128-byte swizzle (TMA's and wgmma's layout: the 16-byte
+// chunk index is XORed with the line's index mod 8; the box is 1024-byte
+// aligned)
+__device__ __forceinline__ uint32_t sw128_byte(int row, int b) {
+  return uint32_t(row) * 128 + ((uint32_t((b >> 4) ^ row) & 7) << 4) + uint32_t(b & 15);
+}
+
+// byte offset of bf16 element (row, col < 64) in such a box
 __device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
-  return uint32_t(row) * 128 + ((uint32_t((col >> 3) ^ row) & 7) << 4) + uint32_t(col & 7) * 2;
+  return sw128_byte(row, col * 2);
 }
 
 // --- wgmma ------------------------------------------------------------------
@@ -165,6 +182,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define STONKGS_ACC8(d, i)                                                            \
@@ -243,6 +265,50 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(1), "n"(kTnspB));
 }
 
+#define STONKGS_IACC8(d, i)                                                           \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define STONKGS_IACC32(d, i) \
+  STONKGS_IACC8(d, i), STONKGS_IACC8(d, i + 8), STONKGS_IACC8(d, i + 16), STONKGS_IACC8(d, i + 24)
+
+// d (64 x 128, s32) += A (64 x 32 s8, desc) . B^T (B 128 x 32 s8, desc),
+// both K-major (the only layout wgmma takes for 8-bit operands); one k32
+// step is 32 bytes, as a bf16 k16 step, so desc_sw128 and its 2-unit
+// advance serve unchanged
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : STONKGS_IACC32(d, 0), STONKGS_IACC32(d, 32)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 256, s32) += A (64 x 32 s8, desc) . B^T (B 256 x 32 s8, desc), both K-major
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : STONKGS_IACC32(d, 0), STONKGS_IACC32(d, 32), STONKGS_IACC32(d, 64), STONKGS_IACC32(d, 96)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef STONKGS_IACC32
+#undef STONKGS_IACC8
 #undef STONKGS_ACC32
 #undef STONKGS_ACC8
 
@@ -296,28 +362,45 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// a bf16 tensor map with the 128-byte swizzle: `rank` dims (innermost
-// first), the byte strides of dims 1.., and the box; out-of-range
-// elements of a box read as zero
-inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                        const cuuint64_t* strides, const cuuint32_t* box) {
+// the tensor-map data type of each element type
+template <typename T> struct MapType;
+template <> struct MapType<bf16> {
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <> struct MapType<float> {
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <> struct MapType<int> {
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_INT32;
+};
+template <> struct MapType<int8_t> {  // codes move as bytes; wgmma reads them as s8
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+
+// a tensor map of `type` with the 128-byte swizzle: `rank` dims
+// (innermost first), the byte strides of dims 1.., and the box;
+// out-of-range elements of a box read as zero
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled encode = encode_fn();
   if (!encode) return false;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(rank), const_cast<void*>(base),
-                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode(map, type, cuuint32_t(rank), const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// 2-D map of a row-major (rows, cols) bf16 matrix: dims (cols, rows), box
-// (box_cols <= 64, box_rows)
+// 2-D map of a row-major (rows, cols) matrix of T with rows `ld` elements
+// apart (ld * sizeof(T) a multiple of 16; cols by default): dims (cols,
+// rows), box (box_cols, box_rows), box_cols * sizeof(T) <= 128
+template <typename T = bf16>
 inline bool make_map_2d(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
-                        int box_rows) {
+                        int box_rows, long long ld = 0) {
   const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(cols) * 2};
+  const cuuint64_t strides[1] = {cuuint64_t(ld > 0 ? ld : cols) * sizeof(T)};
   const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
-  return encode_bf16(map, base, 2, dims, strides, box);
+  return encode_map(map, MapType<T>::kType, base, 2, dims, strides, box);
 }
 
 }  // namespace sm90

@@ -15,7 +15,8 @@ epilogue is ``acc * s_x * s_w + bias`` in fp32, rounded once to x's dtype.
 Kernel: the fused int8 dense
 ============================
 
-``csrc/dense_int8.cu`` (CUDA C++ for ``sm_90a``).  It replaces the TPU
+``csrc/dense_int8.cu`` over ``csrc/int8_sm90.cuh`` (CUDA C++ for
+``sm_90a``).  It replaces the TPU
 kernel ``_fused_kernel`` (``stonkgs_tpu/ops/quantization_pallas.py:33``,
 launched at ``:77``).  The TPU wrapper's gate (``supported``: K and N
 multiples of 128, W under 8 MB of VMEM) and its padding of M to 256 rows
@@ -27,31 +28,41 @@ What bounds it on the H100 (each input byte once, each output byte once;
 x and y bf16, W int8; 3.35 TB/s and 1,979 int8 TOP/s): at M = 65,536 the
 768 -> 768 projections move 201.9 MB for 77 GOP (0.060 ms, bytes); the
 768 -> 3072 and 3072 -> 768 products are 309 GOP (0.156 ms, operations).
+The two-pass design below also writes and reads the int8 codes (M, K)
+once.  Its own floor, the pass's bound plus the GEMM's, is at the trunk
+0.090 ms (Q/K/V/O), 0.201 ms (FFN in) and 0.336 ms (FFN out, where the
+pass alone moves 604 MB, 0.180 ms).
 
 Design.  The TPU kernel keeps the whole (K, N) weight in VMEM and takes
-256 rows at a time.  A Hopper block owns a 128 x 128 output tile and runs
-in three steps:
+256 rows at a time, quantizing them in the kernel.  On Hopper a call is
+two launches (``csrc/int8_sm90.cuh``), so that each row is quantized once
+(a block of one launch that quantized its rows would do so once for each
+of the N / 256 column tiles):
 
-1. the absmax of each of its 128 rows over the whole K (read through L2),
-   whose scale ``max(absmax / 127, 1e-12)`` goes to shared memory;
-2. a loop over K in steps of 64: the x tile is loaded into registers one
-   step ahead, quantized against its row's scale into an int8 shared
-   tile, the int8 W tile (128 columns) beside it, and the int8 tensor
-   cores (``nvcuda::wmma`` 16 x 16 x 16 on ``signed char``) accumulate in
-   int32 registers, two shared buffers in turn;
-3. the epilogue ``acc * s_x * s_w + b`` in fp32, each product rounded
-   (``__fmul_rn``, ``__fadd_rn``: no fused multiply-add), rounded once to
-   x's dtype.
+1. the row-quantize pass: one to eight warps a row (at most four 16-byte
+   vectors a lane) read x once through its row stride (the strided
+   ``x[:, :1]`` [CLS] rows need no copy), keep the row in registers, and
+   write ``s_x`` (M,) and the int8 codes into an (M, K) scratch;
+2. the GEMM: one persistent block an SM walks 256 x 128 tiles of y; a
+   producer warpgroup streams the codes and W through a 3-stage TMA ring
+   (128 K values a stage) that runs on from tile to tile, two consumer
+   warpgroups of 128 rows each issue ``wgmma.m64n128k32.s32.s8.s8`` into
+   int32 registers, and the epilogue ``acc * s_x * s_w + b`` in fp32,
+   each product rounded (``__fmul_rn``, ``__fadd_rn``: no fused
+   multiply-add), is rounded once to x's dtype, staged in shared memory
+   and stored with TMA while the next tile's first stages load.  TMA
+   zero-fills rows past M and N and a ragged K (K % 32 == 16) and clips
+   the store, so no store is guarded.
 
-Every block of a row tile quantizes the same rows again (N / 128 times):
-the price of one kernel without an int8 copy of x in device memory.
-``wgmma``, TMA and a W kept resident belong to later work.
-
-Rounding, as the TPU kernel and the XLA path: the scale is an IEEE fp32
-division by 127 floored at 1e-12; a code is ``clip(rint(x / s), -127,
-127)`` with an IEEE division and round-half-to-even, never a reciprocal
-and never ``roundf``; ``-use_fast_math`` stays out of the build flags.
-The int32 sums cannot overflow (127^2 * 4,096 ~ 6.6e7).
+``wgmma`` takes 8-bit operands only K-major, both A and B.  W is kept
+(K, N) in the tree, but on the card :func:`quantized_to` stores it as a
+column-major view (``kernel_q.t().contiguous().t()``: the same shape,
+values and keys), whose transpose is the (N, K) row-major operand the
+GEMM reads.  Every engine moves its parameters through
+:func:`~stonkgs_tpu_torch.utils.convert.params_to`, which calls it; a
+row-major ``kernel_q`` on the card still works, through a K-major copy
+made for the call.  fp32 and bf16 x share the GEMM; only the pass's input
+and the epilogue's output type differ.
 
 The plain version computes the int32 product as an fp64 matmul of the
 codes: exact while |acc| < 2^53, on the CPU and on the card alike (CUDA
@@ -73,8 +84,14 @@ SKIP_KEYS = ("pooler",)   # the tanh pooler is scale-sensitive
 K_MULTIPLE = 16           # the kernel's K step of its tensor-core products
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = _build.P, _build.I32, _build.I64
-# int dense_int8(dtype, x, ldx, w, w_scale, bias, out, M, K, N, stream)
-_SIGNATURES = {"dense_int8": [_I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P]}
+_SIGNATURES = {
+    # int dense_int8(dtype, x, ldx, q, s_x, w, w_scale, bias, out, ldo, M, K, N, stream)
+    "dense_int8": [_I, _P, _L, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # int dense_int8_quantize(dtype, x, ldx, q, s_x, M, K, stream)
+    "dense_int8_quantize": [_I, _P, _L, _P, _P, _I, _I, _P],
+    # int dense_int8_gemm(dtype, q, s_x, w, w_scale, bias, out, ldo, M, K, N, stream)
+    "dense_int8_gemm": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+}
 
 
 def _scale(absmax: torch.Tensor) -> torch.Tensor:
@@ -137,11 +154,22 @@ def is_quantized(tree) -> bool:
     return isinstance(tree, Mapping) and "kernel_q" in tree
 
 
+def k_major(kernel_q: torch.Tensor) -> torch.Tensor:
+    """``kernel_q`` (K, N) as a column-major view: the same shape and
+    values, its transpose the (N, K) row-major operand of the card's GEMM
+    (no copy where it already is one)."""
+    return kernel_q.t().contiguous().t()
+
+
 def quantized_to(p: Mapping, device=None) -> dict:
     """A quantized dense moved to ``device``, every leaf in its own dtype:
     :func:`dense_int8` reads the scale and the bias in fp32 whatever the
-    compute dtype."""
-    return {k: v.to(device) for k, v in p.items()}
+    compute dtype.  On the card ``kernel_q`` is stored column-major
+    (:func:`k_major`), the layout the kernel reads without a copy."""
+    out = {k: v.to(device) for k, v in p.items()}
+    if out["kernel_q"].device.type == "cuda":
+        out["kernel_q"] = k_major(out["kernel_q"])
+    return out
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -149,6 +177,16 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     xf = x.to(torch.float32)
     scale = _scale(xf.abs().amax(dim=-1, keepdim=True))
     return _codes(xf, scale), scale
+
+
+def _dequant_plain(q, s, kernel_q, w_scale, bias, dtype):
+    """The exact int32 product of the codes q (M, K) (an fp64 matmul) and
+    ``acc * s_x * s_w (+ bias)`` in fp32, rounded to ``dtype``; s (M, 1)."""
+    acc = (q.double() @ kernel_q.double()).to(torch.float32)
+    y = acc * s * w_scale.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y.to(dtype)
 
 
 def dense_int8_fused_plain(x, kernel_q, w_scale, bias=None):
@@ -159,11 +197,7 @@ def dense_int8_fused_plain(x, kernel_q, w_scale, bias=None):
     K, N = kernel_q.shape
     lead = x.shape[:-1]
     q, s = quantize_rows(x.reshape(-1, K))
-    acc = (q.double() @ kernel_q.double()).to(torch.float32)
-    y = acc * s * w_scale.to(torch.float32)
-    if bias is not None:
-        y = y + bias.to(torch.float32)
-    return y.to(x.dtype).reshape(*lead, N)
+    return _dequant_plain(q, s, kernel_q, w_scale, bias, x.dtype).reshape(*lead, N)
 
 
 def _check_args(x, kernel_q, w_scale, bias) -> Tuple[int, int]:
@@ -193,6 +227,87 @@ def _rows(x: torch.Tensor, K: int) -> torch.Tensor:
     return x2
 
 
+def _gemm_operands(kernel_q, w_scale, bias):
+    """W^T (N, K) row-major (a view of a column-major ``kernel_q``, as
+    :func:`quantized_to` stores it on the card, else a copy for the call),
+    and s_w and the bias in fp32."""
+    wt = kernel_q.t()
+    if not (wt.is_contiguous() and wt.data_ptr() % 16 == 0):
+        wt = wt.clone(memory_format=torch.contiguous_format)
+    b = None if bias is None else bias.to(torch.float32).contiguous()
+    return wt, w_scale.to(torch.float32).contiguous(), b
+
+
+def _cuda_args(x, *tensors):
+    """Raise unless x is fp32 or bf16 on the card with the other tensors."""
+    if x.device.type != "cuda":
+        raise ValueError(f"dense_int8: unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"dense_int8: unsupported dtype {x.dtype}")
+    for t in tensors:
+        if t is not None and t.device != x.device:
+            raise ValueError("dense_int8: tensors on different devices")
+
+
+def _scratch(M: int, K: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pass's outputs: codes (M, K) int8 and scales (M,) fp32."""
+    return (torch.empty((M, K), dtype=torch.int8, device=device),
+            torch.empty((M,), dtype=torch.float32, device=device))
+
+
+def _out(M: int, N: int, dtype, device) -> torch.Tensor:
+    """y (M, N) with rows padded to 16 bytes (TMA's row stride): the
+    kernel writes columns < N only; :func:`_unpad` drops the rest."""
+    per = 16 // (torch.finfo(dtype).bits // 8)
+    return torch.empty((M, -(-N // per) * per), dtype=dtype, device=device)
+
+
+def _unpad(out: torch.Tensor, N: int) -> torch.Tensor:
+    return out if out.shape[1] == N else out[:, :N].contiguous()
+
+
+def dense_int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's first launch alone: codes (M, K) int8 and scales (M,)
+    fp32 of x (..., K) flattened to rows.  A CPU tensor takes
+    :func:`quantize_rows`.  Not counted: the checks and timings of the
+    pass use it, the engines call :func:`dense_int8_fused`."""
+    K = x.shape[-1]
+    if x.device.type == "cpu":
+        q, s = quantize_rows(x.reshape(-1, K))
+        return q, s.reshape(-1)
+    _cuda_args(x)
+    if K % K_MULTIPLE:
+        raise ValueError(f"dense_int8 takes K a multiple of {K_MULTIPLE}, got K={K}")
+    x2 = _rows(x, K)
+    M = x2.shape[0]
+    q, s = _scratch(M, K, x.device)
+    if M:
+        lib = _build.load("dense_int8", _SIGNATURES)
+        _build.check(lib.dense_int8_quantize(
+            _DTYPES[x.dtype], _build.ptr(x2), x2.stride(0), _build.ptr(q), _build.ptr(s), M, K,
+            _build.stream(x.device)), "dense_int8_quantize")
+    return q, s
+
+
+def dense_int8_gemm(q, s, kernel_q, w_scale, bias=None, dtype=torch.bfloat16):
+    """The kernel's second launch alone: y (M, N) in ``dtype`` from the
+    codes q (M, K) and scales s (M,) of :func:`dense_int8_quantize`.  A
+    CPU tensor takes the plain product and epilogue.  Not counted."""
+    K, N = kernel_q.shape
+    if q.device.type == "cpu":
+        return _dequant_plain(q, s.reshape(-1, 1), kernel_q, w_scale, bias, dtype)
+    wt, sw, b = _gemm_operands(kernel_q, w_scale, bias)
+    M = q.shape[0]
+    out = _out(M, N, dtype, q.device)
+    if M:
+        lib = _build.load("dense_int8", _SIGNATURES)
+        _build.check(lib.dense_int8_gemm(
+            _DTYPES[dtype], _build.ptr(q), _build.ptr(s), _build.ptr(wt), _build.ptr(sw),
+            _build.ptr(b), _build.ptr(out), out.stride(0), M, K, N, _build.stream(q.device)),
+            "dense_int8_gemm")
+    return _unpad(out, N)
+
+
 def dense_int8_fused(
     x: torch.Tensor,               # (..., K) fp32 or bf16
     kernel_q: torch.Tensor,        # (K, N) int8
@@ -202,34 +317,29 @@ def dense_int8_fused(
     """y = dequant(quant_rows(x) @ kernel_q) + bias, (..., N) in x's dtype.
 
     A tensor on the CPU takes the plain version; a CUDA tensor launches
-    the kernel (or raises).  x may be a strided view whose rows have a
-    unit column stride (the [CLS] rows ``x[:, :1]``)."""
+    the kernel, the row-quantize pass and the GEMM from one call (or
+    raises).  x may be a strided view whose rows have a unit column
+    stride (the [CLS] rows ``x[:, :1]``).  ``kernel_q`` is read without a
+    copy when it is column-major (:func:`quantized_to`)."""
     K, N = _check_args(x, kernel_q, w_scale, bias)
     if x.device.type == "cpu":
         return dense_int8_fused_plain(x, kernel_q, w_scale, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"dense_int8: unsupported device {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"dense_int8: unsupported dtype {x.dtype}")
+    _cuda_args(x, kernel_q, w_scale, bias)
     lead = x.shape[:-1]
     x2 = _rows(x, K)
-    w = kernel_q.contiguous()
-    sw = w_scale.to(torch.float32).contiguous()
-    b = None if bias is None else bias.to(torch.float32).contiguous()
-    for t in (w, sw, b):
-        if t is not None and t.device != x.device:
-            raise ValueError("dense_int8: tensors on different devices")
+    wt, sw, b = _gemm_operands(kernel_q, w_scale, bias)
     M = x2.shape[0]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M == 0:
-        return out.reshape(*lead, N)
-    lib = _build.load("dense_int8", _SIGNATURES)
-    status = lib.dense_int8(
-        _DTYPES[x.dtype], _build.ptr(x2), x2.stride(0), _build.ptr(w), _build.ptr(sw),
-        _build.ptr(b), _build.ptr(out), M, K, N, _build.stream(x.device))
-    _build.check(status, "dense_int8")
-    dense_int8_fused.launches += 1
-    return out.reshape(*lead, N)
+    out = _out(M, N, x.dtype, x.device)
+    if M:
+        q, s = _scratch(M, K, x.device)
+        lib = _build.load("dense_int8", _SIGNATURES)
+        status = lib.dense_int8(
+            _DTYPES[x.dtype], _build.ptr(x2), x2.stride(0), _build.ptr(q), _build.ptr(s),
+            _build.ptr(wt), _build.ptr(sw), _build.ptr(b), _build.ptr(out), out.stride(0), M, K,
+            N, _build.stream(x.device))
+        _build.check(status, "dense_int8")
+        dense_int8_fused.launches += 1
+    return _unpad(out, N).reshape(*lead, N)
 
 
 dense_int8_fused.launches = 0

@@ -256,6 +256,45 @@ def test_dense_int8_bad_args_and_strided_rows():
     assert torch.equal(got, tq.dense_int8(x[:, :1].contiguous(), q))
 
 
+@pytest.mark.parametrize("lead,K,N,bias", [((5,), 64, 96, True), ((2, 3), 48, 100, False),
+                                          ((4,), 784, 100, True)])
+def test_k_major_weight_gives_the_same_dense(lead, K, N, bias):
+    """``kernel_q`` relaid column-major (``k_major``, as ``quantized_to``
+    stores it on the card): the same shape and values, its transpose read
+    as it lies, and the same dense as the row-major weight and as the JAX
+    ``dense_int8`` (K % 32 == 16 included); the two launches' plain
+    versions, one after the other, give the dense bit for bit."""
+    x, w, b = _dense_inputs(lead, K, N, bias, zero_row=False, seed=3)
+    q = jq.quantize_kernel(w)
+    jp = {**q, **({"bias": jnp.asarray(b)} if bias else {})}
+    want = np.asarray(jq.dense_int8(jnp.asarray(x), jp))
+    kq = torch.from_numpy(np.array(q["kernel_q"]))
+    kcol = tq.k_major(kq)
+    assert kcol.shape == kq.shape and kcol.dtype == torch.int8 and torch.equal(kcol, kq)
+    assert kcol.t().is_contiguous() and not kcol.is_contiguous()
+    assert tq.k_major(kcol).data_ptr() == kcol.data_ptr()          # no second copy
+    s = torch.from_numpy(np.array(q["scale"]))
+    wt = tq._gemm_operands(kcol, s, None)[0]
+    assert wt.data_ptr() == kcol.data_ptr() and wt.is_contiguous()   # read as it lies
+    wt_copy = tq._gemm_operands(kq, s, None)[0]
+    assert wt_copy.is_contiguous() and torch.equal(wt_copy, kq.t())
+    xt = torch.from_numpy(x)
+    bt = torch.from_numpy(b) if bias else None
+    row, col = tq.dense_int8_fused(xt, kq, s, bt), tq.dense_int8_fused(xt, kcol, s, bt)
+    assert torch.equal(row, col)
+    limit = 1e-6 * max(float(np.abs(want).max(initial=0.0)), 1.0)
+    np.testing.assert_allclose(col.numpy(), want, atol=limit, rtol=0)
+    codes, scales = tq.dense_int8_quantize(xt)
+    M = int(np.prod(lead))
+    assert codes.shape == (M, K) and codes.dtype == torch.int8
+    assert scales.shape == (M,) and scales.dtype == torch.float32
+    jcodes, jscale = _jax_codes(x.reshape(M, K))
+    np.testing.assert_array_equal(codes.numpy(), jcodes)
+    np.testing.assert_array_equal(scales.numpy(), jscale.reshape(-1))
+    y = tq.dense_int8_gemm(codes, scales, kcol, s, bt, torch.float32)
+    assert torch.equal(y.reshape(*lead, N), row)
+
+
 # ---------------------------------------------------------------------------
 # the quantized models and engines
 # ---------------------------------------------------------------------------
@@ -410,6 +449,26 @@ def test_convert_and_params_to_keep_int8_and_scales(tree):
     # without a dtype nothing is cast
     assert all(a.dtype == b.dtype for a, b in zip(tree_leaves(params_to(tp, "cpu")),
                                                   tree_leaves(tp)))
+
+
+def test_params_to_keeps_a_k_major_weight(tree):
+    """A tree whose ``kernel_q`` leaves are column-major (as the card holds
+    them): ``params_to`` and ``quantized_to`` keep every key, shape, dtype
+    and value, and cast nothing of a quantized dense."""
+    tp = params_from_jax(_jax_quantized(tree), TCFG)
+    col = tree_map(lambda p: {**p, "kernel_q": tq.k_major(p["kernel_q"])}
+                   if tq.is_quantized(p) else p, tp, is_leaf=tq.is_quantized)
+    moved = params_to(col, "cpu", torch.bfloat16)
+    named, got = _named(tp), _named(moved)
+    assert set(named) == set(got)
+    for k, t in named.items():
+        if k.endswith("kernel_q"):
+            assert got[k].dtype == torch.int8 and got[k].shape == t.shape, k
+            assert torch.equal(got[k], t) and got[k].t().is_contiguous(), k
+    one = col["trunk"]["encoder"][0]["attention"]["query"]
+    again = tq.quantized_to(one, "cpu")
+    assert set(again) == set(one)
+    assert all(torch.equal(again[k], one[k]) and again[k].dtype == one[k].dtype for k in one)
 
 
 def test_tree_map_hands_a_quantized_dense_whole():
