@@ -11,8 +11,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    started together, with ptxas's register and spill report (fatal if any
    Hopper kernel spills: the attention forward and backward, the FFN
    block's GEMM and LayerNorm passes, the training FFN's GEMMs and dual
-   GEMM, the int8 dense's row-quantize pass and the int8 GEMM of the
-   dense and the probe);
+   GEMM, the BigBird forward and backward, the int8 dense's row-quantize
+   pass and the int8 GEMM of the dense and the probe);
 3. kernels: the serving kernels against their plain PyTorch versions on
    the card, in bf16 and fp32, at the serving paths' shapes (the FFN
    block at H=768 with gelu and gelu_new and at ProtBERT's H=1024, at
@@ -63,6 +63,10 @@ Phases, each fatal on failure (exit code 1, no result line):
 10. sparse kernels: the BigBird pair against its plain versions, bf16 and
     fp32, at nb = 5, 8 (padded mask) and 64 (S=4096), with the eval and
     the training plan, at B=2 (forward and backward) and B=8 (forward);
+    bf16 contexts also within ``ATTN_STEP`` of their scale, bf16
+    gradients within it plus ``GRAD_STEP_FLOOR``; at S=4096 the limits
+    must reject a context without one random slot, a context without the
+    duplicate window slot's penalty and dK without the g0 slot's adds;
 11. ProtSTonKGs serving: ``ProtSTonKGsEngine.embed`` at full width
     (BigBird trunk 12 x 768, BioBERT 12 x 768, ProtBERT 30 x 1024, KG
     vocabulary 20,000, seeded random weights) on 32 rows at B=8; checks
@@ -78,7 +82,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 14. ProtSTonKGs timing: embed sequences/s, ms per step (median of 6 after
     2), and each new or widened kernel at the path's shapes beside its
     bound and its plain version (the training FFN pair at ProtBERT's,
-    the BigBird trunk's and BioBERT's shapes);
+    the BigBird trunk's and BioBERT's shapes; the BigBird pair also
+    beside its floor and SDPA over operands gathered beforehand, its
+    backward alone over a saved forward);
 15. int8 kernels: the fused int8 dense against its plain version, bf16
     and fp32, at every shape of the int8 serving paths, at M = 0, 1 and
     300, an all-zero row, N = 100, the decoders' N = 28,996 and 100,000,
@@ -138,6 +144,9 @@ from stonkgs_tpu_torch.config import BertConfig, BigBirdConfig, ProtSTonKGsConfi
 from stonkgs_tpu_torch.models import bert, protstonkgs, stonkgs
 from stonkgs_tpu_torch.ops import _build
 from stonkgs_tpu_torch.ops.bigbird_sparse import (
+    _blocked,
+    _mid_logits,
+    _mid_operands,
     bigbird_mid_bwd,
     bigbird_mid_bwd_plain,
     bigbird_mid_fwd,
@@ -176,6 +185,7 @@ from stonkgs_tpu_torch.ops.quantization import (
     quantize_rows,
 )
 from stonkgs_tpu_torch.benchmarks import bench_int8_gemm
+from stonkgs_tpu_torch.benchmarks.bigbird_sdpa import gathered_operands, sdpa_mid, to_ctx
 from stonkgs_tpu_torch.benchmarks._util import time_ms
 from stonkgs_tpu_torch.benchmarks.bench_int8_gemm import int8_gemm, int8_gemm_plain
 from stonkgs_tpu_torch.train import pretraining
@@ -191,6 +201,8 @@ I8 = torch.int8
 # outside the tensor cores, and HBM3 bandwidth
 PEAK_FLOPS = {BF16: 989e12, F32: 67e12, I8: 1979e12}
 HBM_BYTES_PER_S = 3.35e12
+# the SFU's exp rate: 16 ex2 a clock on each of 132 SMs at 1.98 GHz
+EX2_PER_S = 132 * 16 * 1.98e9
 # kernel vs plain on the card: fp32 sums run in another order; bf16 may
 # round an intermediate or the output to the other neighbour (one bf16
 # step is 2^-7 relative)
@@ -223,6 +235,7 @@ SM90_KERNELS = {
                               "attn_bwd_dkdv_sm90_kernel"),
     "ffn_ln_block": ("gemm_sm90_kernel", "add_layer_norm_kernel"),
     "ffn_train": ("gemm_sm90_kernel", "ffn_bwd_dual_sm90_kernel"),
+    "bigbird_sparse": ("bigbird_fwd_sm90_kernel", "bigbird_bwd_sm90_kernel"),
     "dense_int8": ("quantize_rows_kernel", "gemm_kmajor_sm90_kernel"),
     "int8_gemm": ("gemm_kmajor_sm90_kernel",),
 }
@@ -686,8 +699,10 @@ def phase_sparse_kernels() -> dict:
     """The BigBird kernel pair vs its plain versions on the card, bf16 and
     fp32: the smallest block-sparse S (nb=5), a padded mask (nb=8) and the
     trunk's S=4096, with the eval and the training plan, at B=2 (forward
-    and backward) and the serving batch B=8 (forward).  Returns, per
-    kernel, the worst bf16 error at S=4096."""
+    and backward) and the serving batch B=8 (forward); bf16 contexts and
+    gradients also under the elementwise limits, which must reject three
+    faults at S=4096 (``_sparse_limits_reject``).  Returns, per kernel,
+    the worst bf16 error at S=4096."""
     gen = torch.Generator().manual_seed(6)
     errs = {}
     for dtype in (BF16, F32):
@@ -698,19 +713,73 @@ def phase_sparse_kernels() -> dict:
                 label = f"{tag} B={B} S={nb * 64} {plan} plan{' mask' if padded else ''}"
                 out, lse = bigbird_mid_fwd(q, k, v, mask, rand, 64)
                 out_p, lse_p = bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)
-                e = max(_compare(f"sparse fwd {label}", out, out_p, dtype),
+                e = max(_compare_attn(f"sparse fwd {label}", out, out_p, dtype),
                         _compare(f"sparse lse {label}", lse, lse_p, dtype))
                 if dtype == BF16 and nb == 64:
                     errs["bigbird_mid_fwd"] = max(errs.get("bigbird_mid_fwd", 0.0), e)
                 if B == 2:
                     got = bigbird_mid_bwd(q, k, v, mask, rand, 64, out_p, lse_p, do)
                     want = bigbird_mid_bwd_plain(q, k, v, mask, rand, 64, out_p, lse_p, do)
-                    e = max(_compare_rel(f"sparse {n} {label}", g, w, dtype)
+                    e = max(_compare_grad(f"sparse {n} {label}", g, w, dtype)
                             for n, g, w in zip(("dq", "dk", "dv"), got, want))
                     if dtype == BF16 and nb == 64:
                         errs["bigbird_mid_bwd"] = max(errs.get("bigbird_mid_bwd", 0.0), e)
+                    if dtype == BF16 and nb == 64 and plan == "train":
+                        _sparse_limits_reject(label, q, k, v, mask, rand, out_p, lse_p, do,
+                                              want[1])
+                    del got, want
                 del q, k, v, out, lse, out_p, lse_p
     return errs
+
+
+def _sparse_fwd_with(q, k, v, rand, pen_of):
+    """The plain forward's context with the slot penalties (B, H, n, 1, W)
+    replaced by ``pen_of(pen, gathered mask)``: a known fault applied to
+    the plain version."""
+    B, S, H, D = q.shape
+    qm, kc, vc, pen, idx = _mid_operands(q, k, v, torch.ones(B, S, device=q.device), rand, 64)
+    logits = _mid_logits(qm, kc, pen_of(pen, idx), q.dtype)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhjqk,bhjkd->bhjqd", w.float(), vc.float()).to(q.dtype)
+    return ctx.permute(0, 2, 3, 1, 4).reshape(B, -1, H, D)
+
+
+def _sparse_limits_reject(label, q, k, v, mask, rand, out, lse, do, dk) -> None:
+    """At S=4096 (bf16, the training plan, no padding), the limits the
+    pair is held to must reject: a context without the first random slot,
+    a context where the duplicate window slot (block 0 at query block 1,
+    block nb-1 at query block nb-2) keeps its keys, and dK without the g0
+    slot's adds."""
+    check(bool((mask == 1).all()), "the fault checks take an unpadded mask")
+    want = bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)[0]
+
+    def no_random_slot(pen, idx):
+        pen = pen.clone()
+        pen[..., 5 * 64:6 * 64] = -math.inf
+        return pen
+
+    def no_dup_penalty(pen, idx):
+        return torch.zeros_like(pen)   # an unpadded mask: only the duplicate slots had one
+
+    _attn_limit_rejects(f"sparse fwd {label} without one random slot", want,
+                        _sparse_fwd_with(q, k, v, rand, no_random_slot))
+    _attn_limit_rejects(f"sparse fwd {label} without the duplicate slot's penalty", want,
+                        _sparse_fwd_with(q, k, v, rand, no_dup_penalty))
+    # dK less the g0 slot's adds: sum over the middle query blocks of its
+    # dS^T q, taken from block 0's rows
+    B, S, H, D = q.shape
+    qm, kc, _, pen, _ = _mid_operands(q, k, v, mask, rand, 64)
+    f = torch.float32
+    p = torch.exp(_mid_logits(qm, kc, pen, q.dtype) - lse.reshape(B, H, -1, 64, 1))
+    do_b, o_b = (_blocked(t, 64).float() for t in (do, out))
+    vg = _blocked(v, 64)[:, :, 0].float()   # block 0's values (the g0 slot)
+    dp = torch.einsum("bhjqd,bhkd->bhjqk", do_b, vg)
+    row = (do_b * o_b).sum(dim=-1, keepdim=True)
+    ds = p[..., :64] * (dp - row) / math.sqrt(D)
+    dk_g0 = torch.einsum("bhjqk,bhjqd->bhkd", ds, qm.to(f))   # (B, H, 64, D)
+    wrong = dk.float().clone()
+    wrong[:, :64] -= dk_g0.permute(0, 2, 1, 3)
+    _grad_limit_rejects(f"sparse dk {label} without the g0 slot's adds", dk, wrong.to(dk.dtype))
 
 
 def _features(cfg: STonKGsConfig, n: int, seed: int = 0) -> dict:
@@ -1452,32 +1521,49 @@ def phase_prot_train_numerics(cfg_full: ProtSTonKGsConfig) -> None:
 
 def _time_sparse(label: str, B: int, gen, backward: bool, plan: str) -> dict:
     """A BigBird kernel vs plain at the path's shape (S=4096, H=12), then
-    both timed.  No single PyTorch call computes the function: the eval
-    plan's repeated blocks are separate keys, which an SDPA mask cannot
-    express, so the library column is null."""
+    both timed, beside the bound and the design's floor (the forward: two
+    exps a score on the SFU or its three products; the backward: its seven
+    products, dS as two bf16 terms, or its one exp a score) and the library
+    call: SDPA over operands gathered beforehand (``benchmarks/
+    bigbird_sdpa.py``), its backward alone over a saved forward."""
     nb, H, D, r = 64, 12, 64, 3
     q, k, v, mask, rand, do = _sparse_inputs(B, nb, BF16, gen, plan, False, H)
     n_mid, W = nb - 2, (5 + r) * 64
     tensor = B * nb * 64 * H * D * 2           # one (B, S, H, D) bf16 tensor
     mid = B * n_mid * 64 * H * D * 2           # its middle rows
     lse_b, mask_b = B * H * n_mid * 64 * 4, B * nb * 64 * 4
-    products = 2.0 * B * H * n_mid * 64 * W * D  # one (bs x W x D) product per block
+    scores = B * H * n_mid * 64 * W
+    products = 2.0 * scores * D                # one (bs x W x D) product per block
     out, lse = bigbird_mid_fwd(q, k, v, mask, rand, 64)
+    qg, kg, vg, bias = gathered_operands(q, k, v, mask, rand, 64)
     if not backward:
         # q's middle rows, k, v and the mask read; out and lse written
         bound, by = _bound_ms(2 * products, 2 * mid + 2 * tensor + lse_b + mask_b, BF16)
+        floor = max(2 * scores / EX2_PER_S, 3 * products / PEAK_FLOPS[BF16]) * 1e3
         fn = lambda: bigbird_mid_fwd(q, k, v, mask, rand, 64)  # noqa: E731
         plain = lambda: bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)  # noqa: E731
-        err = _compare(f"sparse fwd bf16 {label}", fn()[0], plain()[0], BF16)
+        want = plain()[0]
+        err = _compare_attn(f"sparse fwd bf16 {label}", fn()[0], want, BF16)
+        sdpa_err = float((to_ctx(sdpa_mid(qg, kg, vg, bias), B, H).float() - want.float())
+                         .abs().max())
+        log(f"# sparse fwd bf16 {label}: SDPA over the gathered operands against the plain "
+            f"version: max_abs_err {sdpa_err!r} (not gated: SDPA rounds elsewhere)")
+        lib = _time_ms(lambda: sdpa_mid(qg, kg, vg, bias))
     else:
         # q, o, dO middle rows, k, v, lse, mask read; dq (middle), dk, dv written
         bound, by = _bound_ms(5 * products, 4 * mid + 4 * tensor + lse_b + mask_b, BF16)
+        floor = max(scores / EX2_PER_S, 7 * products / PEAK_FLOPS[BF16]) * 1e3
         fn = lambda: bigbird_mid_bwd(q, k, v, mask, rand, 64, out, lse, do)  # noqa: E731
         plain = lambda: bigbird_mid_bwd_plain(q, k, v, mask, rand, 64, out, lse, do)  # noqa: E731
-        err = max(_compare_rel(f"sparse {n} bf16 {label}", g, w, BF16)
+        err = max(_compare_grad(f"sparse {n} bf16 {label}", g, w, BF16)
                   for n, g, w in zip(("dq", "dk", "dv"), fn(), plain()))
-    return dict(max_abs_err=err, ms=_time_ms(fn), plain_ms=_time_ms(plain, iters=3),
-                bound_ms=bound, bound_by=by, library_ms=None)
+        lib = _time_sdpa_backward(f"BigBird {label} (gathered)", qg, kg, vg, bias,
+                                  torch.randn(qg.shape, generator=gen).to(DEV, BF16))
+    t = dict(max_abs_err=err, ms=_time_ms(fn), plain_ms=_time_ms(plain, iters=3),
+             bound_ms=bound, bound_by=by, library_ms=lib, floor_ms=floor)
+    log(f"# rate bigbird_mid_{'bwd' if backward else 'fwd'} {label}: {t['ms'] / floor!r} x "
+        f"the floor, {t['ms'] / lib!r} x SDPA over the gathered operands")
+    return t
 
 
 def phase_prot_timing(cfg: ProtSTonKGsConfig, engine, feats, state, loss_fn) -> dict:

@@ -66,6 +66,8 @@ PORT_KERNELS = {
     "ffn_bwd_dual_sm90_kernel": "ffn_train_bwd",
     "mid_fwd_kernel": "bigbird_mid_fwd",
     "mid_bwd_kernel": "bigbird_mid_bwd",
+    "bigbird_fwd_sm90_kernel": "bigbird_mid_fwd",
+    "bigbird_bwd_sm90_kernel": "bigbird_mid_bwd",
     "quantize_rows_kernel": "dense_int8",
     "gemm_kmajor_sm90_kernel": "dense_int8",
 }

@@ -2,22 +2,19 @@
 // flash_attention_train.cu and bigbird_sparse.cu): 64-row tiles of the
 // (B, S, H, D=64) layout in shared memory, the two per-warp tile products,
 // the dropout hash, and the fp32 forward kernel.  The bf16 attention
-// forward and backward are the Hopper kernels of attention_sm90.cuh and
-// attention_bwd_sm90.cuh (wgmma and TMA): the SIMT attention bodies (the
-// forward here, dQ and dK/dV in flash_attention_train.cu) are fp32 only.
+// forward and backward and the bf16 BigBird pair are the Hopper kernels of
+// attention_sm90.cuh, attention_bwd_sm90.cuh and bigbird_sm90.cuh (wgmma
+// and TMA): the SIMT bodies that use these pieces (the forward here, dQ
+// and dK/dV in flash_attention_train.cu, the BigBird pair in
+// bigbird_sparse.cu) are fp32 only, and exist to hold the whole model
+// against the CPU.
 //
 // A block has 4 warps; in a product each warp owns 16 rows of the block's
-// 64-row tile:
+// 64-row tile, in plain fp32 FMAs:
 //   score_tile: sw (16 x 64, fp32) = A_w (16 x D) . B^T, B a 64 x D tile;
 //   PvAcc:      acc (16 x D, fp32) += P_w (16 x 64) . V, V a 64 x D tile.
-// bf16 products (the BigBird kernels') use the tensor cores through
-// nvcuda::wmma (16x16x16, fp32 accumulation); fp32 products are plain
-// FMAs (that instantiation exists to hold the whole model against the
-// CPU).
 
 #pragma once
-
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
@@ -27,8 +24,6 @@
 namespace stonkgs {
 namespace attn {
 
-using namespace nvcuda;
-
 constexpr int kD = 64;           // head width
 constexpr int kTile = 64;        // rows of a q, k, v or dO tile
 constexpr int kThreads = 128;
@@ -37,7 +32,6 @@ constexpr int kSST = kTile + 4;  // fp32 staging row stride
 constexpr float kNegBias = -1e9f;  // score of a padded key (the JAX package's NEG_BIAS)
 
 template <typename T> struct Pad;
-template <> struct Pad<__nv_bfloat16> { static constexpr int value = 8; };
 template <> struct Pad<float> { static constexpr int value = 4; };
 
 template <typename T> struct Sizes {
@@ -67,87 +61,33 @@ __device__ __forceinline__ void load_vec(float* s, const float* g, int n) {
   if (threadIdx.x < kTile) s[threadIdx.x] = (g && int(threadIdx.x) < n) ? g[threadIdx.x] : 0.f;
 }
 
-// sw (16 x kSST, fp32) = aw (16 x D) . bs^T, bs a 64 x D tile (both stride TS)
+// sw (16 x kSST, fp32) = aw (16 x D) . bs^T, bs a 64 x D tile (both stride
+// TS); lane owns columns lane and lane + 32 (rows of bs)
 template <typename T>
 __device__ __forceinline__ void score_tile(const T* aw, const T* bs, float* sw, int lane) {
   constexpr int TS = Sizes<T>::TS;
-  if constexpr (kIsBf16<T>) {
-    using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-    using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-    FragA af[kD / 16];
+  float acc[16][2];
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) wmma::load_matrix_sync(af[kk], aw + kk * 16, TS);
-#pragma unroll
-    for (int n = 0; n < kTile / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        FragBt bf;  // B^T: element (d, row) at bs[row * TS + d]
-        wmma::load_matrix_sync(bf, bs + n * 16 * TS + kk * 16, TS);
-        wmma::mma_sync(c, af[kk], bf, c);
-      }
-      wmma::store_matrix_sync(sw + n * 16, c, kSST, wmma::mem_row_major);
-    }
-  } else {
-    // lane owns columns lane and lane + 32 (rows of bs)
-    float acc[16][2];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
-    for (int d = 0; d < kD; ++d) {
-      const float b0 = to_f(bs[lane * TS + d]), b1 = to_f(bs[(lane + 32) * TS + d]);
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const float a = to_f(aw[r * TS + d]);
-        acc[r][0] += a * b0;
-        acc[r][1] += a * b1;
-      }
-    }
+  for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int d = 0; d < kD; ++d) {
+    const float b0 = to_f(bs[lane * TS + d]), b1 = to_f(bs[(lane + 32) * TS + d]);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
-      sw[r * kSST + lane] = acc[r][0];
-      sw[r * kSST + lane + 32] = acc[r][1];
+      const float a = to_f(aw[r * TS + d]);
+      acc[r][0] += a * b0;
+      acc[r][1] += a * b1;
     }
+  }
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    sw[r * kSST + lane] = acc[r][0];
+    sw[r * kSST + lane + 32] = acc[r][1];
   }
   __syncwarp();
 }
 
 // A warp's fp32 (16 x D) accumulator of P . V products.
 template <typename T> struct PvAcc;
-
-template <> struct PvAcc<__nv_bfloat16> {
-  using T = __nv_bfloat16;
-  static constexpr int TS = Sizes<T>::TS;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kD / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int j = 0; j < kD / 16; ++j) wmma::fill_fragment(o[j], 0.f);
-  }
-  // o += pw (16 x 64, stride TS) . vs (64 x D, stride TS)
-  __device__ __forceinline__ void mma(const T* pw, const T* vs, int) {
-    using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>;
-    using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>;
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, pw + kk * 16, TS);
-#pragma unroll
-      for (int j = 0; j < kD / 16; ++j) {
-        FragB vf;
-        wmma::load_matrix_sync(vf, vs + kk * 16 * TS + j * 16, TS);
-        wmma::mma_sync(o[j], pa, vf, o[j]);
-      }
-    }
-  }
-  // o -> sw (16 x kSST, fp32)
-  __device__ __forceinline__ void store(float* sw, int) const {
-#pragma unroll
-    for (int j = 0; j < kD / 16; ++j)
-      wmma::store_matrix_sync(sw + j * 16, o[j], kSST, wmma::mem_row_major);
-    __syncwarp();
-  }
-};
 
 template <> struct PvAcc<float> {
   using T = float;

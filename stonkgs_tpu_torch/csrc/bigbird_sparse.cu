@@ -14,33 +14,28 @@
 // GFLOP against ~101 MB, bound by operations.  See
 // stonkgs_tpu_torch/ops/bigbird_sparse.py for the numbers.
 //
-// Design.  One block of 128 threads (4 warps of 16 query rows) per
-// (middle query block j, head h, batch b); query block i = j + 1.  Its
-// 5 + r key slots are [g0 | window i-1, i, i+1 | g_last | random r]; the
-// block streams them one 64-key tile at a time from the (B, S, H, D)
-// layout with strides into shared memory (the TPU kernel assembles them
-// by VMEM slices).  The (B, S) mask is read per tile: slot key c takes the
-// penalty (1 - mask) * -10000, and the duplicate window slot at j = 0
-// (block 0 = g0) and j = nb - 3 (block nb - 1 = g_last) takes -10000
-// outright.  Repeated blocks (the all-zero eval plan) are separate keys.
+// bf16 runs the Hopper kernels of bigbird_sm90.cuh (TMA rings, wgmma; the
+// forward's two passes as the dense attention's, the backward's dK and dV
+// added with TMA reduce-adds).  The fp32 bodies here exist to hold the
+// model against the CPU: one block of 128 threads (4 warps of 16 query
+// rows) per (middle query block j, head h, batch b), query block i = j +
+// 1, streaming the 5 + r key slots [g0 | window i-1, i, i+1 | g_last |
+// random r] one 64-key tile at a time from the (B, S, H, D) layout with
+// strides into shared memory, with the slot penalties of bigbird_sm90.cuh.
 //
 // Forward, two passes over the slots (the TPU kernel normalises before it
 // rounds, which rules out the online softmax): pass 1 the row max m and
-// sum l of exp; pass 2 p = round(exp(s - m) / l), O += P V in fp32.  lse =
-// m + log l in fp32.  Logits as _mid_logits: s = round(round(Q K^T) *
-// scale) + penalty, Q K^T accumulated in fp32.
+// sum l of exp; pass 2 p = exp(s - m) / l, O += P V in fp32.  lse = m +
+// log l.  Logits as _mid_logits: s = Q K^T * scale + penalty (the
+// roundings to the input type are the identity in fp32).
 //
 // Backward: the block keeps q, dO of its rows, and the row statistics lse
 // and delta = sum(dO * O); per slot tile it recomputes p = exp(s - lse),
-// dP = dO V^T, dS = p (dP - delta) * scale (fp32), accumulates dQ += dS K
-// in registers, and forms the slot's dK = dS^T q and dV = round(p)^T dO,
-// which it adds into fp32 (B, S, H, D) accumulators with atomicAdd (blocks
-// run in no order; the TPU kernel carries them across its sequential j
-// axis).  Each global-block key row takes nb - 2 adds over the run, a
-// window row at most 3, so contention stays small.  bf16 products run on
-// the tensor cores (nvcuda::wmma, fp32 accumulation); dS, fp32 in the TPU
-// kernel, enters them as hi + lo, two bf16 terms (16 significant bits).
-// The fp32 instantiation multiplies in plain fp32 FMAs.
+// dP = dO V^T, dS = p (dP - delta) * scale, accumulates dQ += dS K in
+// registers, and forms the slot's dK = dS^T q and dV = p^T dO, which it
+// adds into the (B, S, H, D) accumulators with atomicAdd (blocks run in no
+// order; the TPU kernel carries them across its sequential j axis).  The
+// products are plain fp32 FMAs.
 //
 // C interface (pointers on the device; q, k, v share the element strides
 // sb, ss, sh of their (B, S, H, D) view, the last axis contiguous; out,
@@ -57,67 +52,47 @@
 // each returning cudaGetLastError() after its launch.
 
 #include "attention.cuh"
+#include "bigbird_sm90.cuh"
 
 namespace stonkgs {
 namespace bigbird {
 namespace {
 
-using namespace nvcuda;
 using attn::kD;
 using attn::kSST;
 using attn::kThreads;
 using attn::kTile;
-using attn::kWarps;
 using attn::load_rows;
 using attn::PvAcc;
 using attn::score_tile;
 using attn::Sizes;
 using attn::store_rows;
-
-constexpr float kPenalty = -10000.f;  // BigBird's mask penalty
-
-struct Geo {
-  int S, H, nb, r;
-  long long sb, ss, sh;  // element strides of q, k, v
-  float scale;
-};
-
-// key block of slot t of middle query block j
-__device__ __forceinline__ int slot_block(const int* rand_hj, int t, int j, int nb) {
-  if (t == 0) return 0;
-  if (t <= 3) return j + t - 1;
-  if (t == 4) return nb - 1;
-  return rand_hj[t - 5];
-}
+using T = float;  // the SIMT bodies' type (bf16 runs bigbird_sm90.cuh)
 
 // Slot t's K (and V) tile into shared memory, with its penalty vector;
 // barriers on both sides.
-template <typename T>
 __device__ __forceinline__ void load_slot(const Geo& g, const T* k, const T* v, const float* mask_b,
                                           const int* rand_hj, size_t head_off, int j, int t,
                                           T* ks, T* vs, float* pen) {
   const int blk = slot_block(rand_hj, t, j, g.nb);
-  const bool dup = (t == 1 && j == 0) || (t == 3 && j == g.nb - 3);
   const size_t off = head_off + size_t(blk) * kTile * g.ss;
   __syncthreads();  // the previous tile is consumed
   load_rows<T>(ks, k + off, g.ss, kTile);
   if (vs) load_rows<T>(vs, v + off, g.ss, kTile);
   if (threadIdx.x < kTile)
-    pen[threadIdx.x] = dup ? kPenalty : (1.f - mask_b[blk * kTile + threadIdx.x]) * kPenalty;
+    pen[threadIdx.x] = slot_penalty(mask_b, blk, threadIdx.x, dup_slot(t, j, g.nb));
   __syncthreads();
 }
 
-// the masked logit of a Q K^T sum, rounded as _mid_logits
-template <typename T>
+// the masked logit of a Q K^T sum (_mid_logits in fp32)
 __device__ __forceinline__ float logit(float qk, float scale, float pen) {
-  return round_to<T>(round_to<T>(qk) * scale) + pen;
+  return qk * scale + pen;
 }
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const float* __restrict__ mask, const int* __restrict__ rand,
@@ -149,16 +124,16 @@ mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   float m = -INFINITY, l = 0.f;
   // pass 1: running max and sum of exp over every slot's keys
   for (int t = 0; t < slots; ++t) {
-    load_slot<T>(g, k, v, mask_b, rand_hj, head_off, j, t, ks, nullptr, pen);
+    load_slot(g, k, v, mask_b, rand_hj, head_off, j, t, ks, nullptr, pen);
     score_tile<T>(qw, ks, sw, lane);
     float tmax = -INFINITY;
     for (int c = half; c < kTile; c += 2)
-      tmax = fmaxf(tmax, logit<T>(sw[row * kSST + c], g.scale, pen[c]));
+      tmax = fmaxf(tmax, logit(sw[row * kSST + c], g.scale, pen[c]));
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
     const float m_new = fmaxf(m, tmax);
     float tsum = 0.f;
     for (int c = half; c < kTile; c += 2)
-      tsum += expf(logit<T>(sw[row * kSST + c], g.scale, pen[c]) - m_new);
+      tsum += expf(logit(sw[row * kSST + c], g.scale, pen[c]) - m_new);
     tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
     l = l * expf(m - m_new) + tsum;
     m = m_new;
@@ -171,11 +146,10 @@ mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   PvAcc<T> acc;
   acc.zero();
   for (int t = 0; t < slots; ++t) {
-    load_slot<T>(g, k, v, mask_b, rand_hj, head_off, j, t, ks, vs, pen);
+    load_slot(g, k, v, mask_b, rand_hj, head_off, j, t, ks, vs, pen);
     score_tile<T>(qw, ks, sw, lane);
     for (int c = half; c < kTile; c += 2)
-      pw[row * TS + c] =
-          from_f<T>(expf(logit<T>(sw[row * kSST + c], g.scale, pen[c]) - m) / l);
+      pw[row * TS + c] = expf(logit(sw[row * kSST + c], g.scale, pen[c]) - m) / l;
     __syncwarp();
     acc.mma(pw, vs, lane);
     __syncwarp();
@@ -192,45 +166,10 @@ mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
 // A warp's fp32 (16 x D) accumulator of A^T B products: rows are 16 keys
 // [key0, key0 + 16) of A (64 query rows x 64 keys, stride TS), B is 64
-// query rows x D (stride TS).
-template <typename T> struct TAcc;
-
-template <> struct TAcc<__nv_bfloat16> {
-  using T = __nv_bfloat16;
+// query rows x D (stride TS); lane owns columns lane and lane + 32.
+struct TAcc {
   static constexpr int TS = Sizes<T>::TS;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kD / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int c = 0; c < kD / 16; ++c) wmma::fill_fragment(o[c], 0.f);
-  }
-  __device__ __forceinline__ void mma(const T* a, const T* bm, int key0, int) {
-    using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major>;
-    using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>;
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragAt af;  // A^T: element (key, row) at a[row * TS + key]
-      wmma::load_matrix_sync(af, a + kk * 16 * TS + key0, TS);
-#pragma unroll
-      for (int c = 0; c < kD / 16; ++c) {
-        FragB bf;
-        wmma::load_matrix_sync(bf, bm + kk * 16 * TS + c * 16, TS);
-        wmma::mma_sync(o[c], af, bf, o[c]);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* sw, int) const {
-#pragma unroll
-    for (int c = 0; c < kD / 16; ++c)
-      wmma::store_matrix_sync(sw + c * 16, o[c], kSST, wmma::mem_row_major);
-    __syncwarp();
-  }
-};
-
-template <> struct TAcc<float> {
-  using T = float;
-  static constexpr int TS = Sizes<T>::TS;
-  float o[16][2];  // lane owns columns lane and lane + 32
+  float o[16][2];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -266,15 +205,13 @@ __device__ __forceinline__ void atomic_add_rows(float* dst, size_t rs, const flo
   }
 }
 
-template <typename T>
 constexpr size_t bwd_smem_bytes() {
   using Z = Sizes<T>;
-  // q, dO, K, V, P, dS hi, dS lo tiles; two per-warp fp32 staging areas;
-  // penalty, lse and delta vectors
-  return 7 * Z::tile + 2 * Z::stage + 3 * Z::vec;
+  // q, dO, K, V, P, dS tiles; two per-warp fp32 staging areas; penalty,
+  // lse and delta vectors
+  return 6 * Z::tile + 2 * Z::stage + 3 * Z::vec;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const float* __restrict__ mask, const int* __restrict__ rand,
@@ -292,11 +229,10 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   T* ks = reinterpret_cast<T*>(smem + 2 * Z::tile);
   T* vs = reinterpret_cast<T*>(smem + 3 * Z::tile);
   T* pt = reinterpret_cast<T*>(smem + 4 * Z::tile);
-  T* dsh = reinterpret_cast<T*>(smem + 5 * Z::tile);
-  T* dsl = reinterpret_cast<T*>(smem + 6 * Z::tile);
-  float* sst = reinterpret_cast<float*>(smem + 7 * Z::tile);
-  float* dpst = reinterpret_cast<float*>(smem + 7 * Z::tile + Z::stage);
-  float* pen = reinterpret_cast<float*>(smem + 7 * Z::tile + 2 * Z::stage);
+  T* dst = reinterpret_cast<T*>(smem + 5 * Z::tile);
+  float* sst = reinterpret_cast<float*>(smem + 6 * Z::tile);
+  float* dpst = reinterpret_cast<float*>(smem + 6 * Z::tile + Z::stage);
+  float* pen = reinterpret_cast<float*>(smem + 6 * Z::tile + 2 * Z::stage);
   float* lse_s = pen + Z::vec / sizeof(float);
   float* delta_s = lse_s + Z::vec / sizeof(float);
 
@@ -315,7 +251,7 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   if (threadIdx.x < kTile) {
     const int r = threadIdx.x;
     float s = 0.f;
-    for (int d = 0; d < kD; ++d) s += to_f(dos[r * TS + d]) * to_f(ks[r * TS + d]);
+    for (int d = 0; d < kD; ++d) s += dos[r * TS + d] * ks[r * TS + d];
     delta_s[r] = s;
     lse_s[r] = lse[(size_t(b) * g.H + h) * (size_t(n_mid) * kTile) + size_t(j) * kTile + r];
   }
@@ -328,31 +264,27 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   PvAcc<T> dq_acc;
   dq_acc.zero();
   for (int t = 0; t < slots; ++t) {
-    load_slot<T>(g, k, v, mask_b, rand_hj, head_off, j, t, ks, vs, pen);
+    load_slot(g, k, v, mask_b, rand_hj, head_off, j, t, ks, vs, pen);
     score_tile<T>(qw, ks, sw, lane);   // Q K^T
     score_tile<T>(dow, vs, dpw, lane); // dO V^T
     for (int e = lane; e < 16 * kTile; e += 32) {
       const int r = e / kTile, c = e % kTile;
-      const float p = expf(logit<T>(sw[r * kSST + c], g.scale, pen[c]) - lse_s[wr + r]);
+      const float p = expf(logit(sw[r * kSST + c], g.scale, pen[c]) - lse_s[wr + r]);
       const float ds = p * (dpw[r * kSST + c] - delta_s[wr + r]) * g.scale;
       const int at = (wr + r) * TS + c;
-      pt[at] = from_f<T>(p);
-      const T hi = from_f<T>(ds);
-      dsh[at] = hi;
-      if constexpr (kIsBf16<T>) dsl[at] = from_f<T>(ds - to_f(hi));
+      pt[at] = p;
+      dst[at] = ds;
     }
     __syncwarp();
-    dq_acc.mma(dsh + wr * TS, ks, lane);
-    if constexpr (kIsBf16<T>) dq_acc.mma(dsl + wr * TS, ks, lane);
+    dq_acc.mma(dst + wr * TS, ks, lane);
     __syncthreads();  // every warp's rows of P and dS are in
 
     // the slot's dK and dV rows [key0, key0 + 16) of this warp
     const int blk = slot_block(rand_hj, t, j, g.nb);
     const size_t key_rows = full_b + size_t(blk * kTile + wr) * ors;
-    TAcc<T> acc;
+    TAcc acc;
     acc.zero();
-    acc.mma(dsh, qs, wr, lane);
-    if constexpr (kIsBf16<T>) acc.mma(dsl, qs, wr, lane);
+    acc.mma(dst, qs, wr, lane);
     acc.store(sw, lane);
     atomic_add_rows(dk + key_rows, ors, sw, lane);
     acc.zero();
@@ -364,31 +296,29 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   store_rows<T>(dq + full_b + size_t((j + 1) * kTile + wr) * ors, ors, sw, 16, 1.f, lane);
 }
 
-template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const float* mask, const int* rand,
                void* out, float* lse, int B, const Geo& g, cudaStream_t stream) {
   using Z = Sizes<T>;
   constexpr size_t smem = 3 * Z::tile + Z::stage + Z::wtile + Z::vec;
-  cudaError_t e = cudaFuncSetAttribute(mid_fwd_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(mid_fwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   const dim3 grid(g.nb - 2, g.H, B);
-  mid_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  mid_fwd_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, rand,
       static_cast<T*>(out), lse, g);
   return int(cudaGetLastError());
 }
 
-template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const float* mask, const int* rand,
                const void* out, const float* lse, const void* dout, void* dq, float* dk,
                float* dv, int B, const Geo& g, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(mid_bwd_kernel<T>,
+  constexpr size_t smem = bwd_smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(mid_bwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   const dim3 grid(g.nb - 2, g.H, B);
-  mid_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  mid_bwd_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, rand,
       static_cast<const T*>(out), lse, static_cast<const T*>(dout), static_cast<T*>(dq), dk, dv,
       g);
@@ -398,6 +328,12 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* mask, c
 bool bad_geometry(int B, int S, int H, int r) {
   return B <= 0 || H <= 0 || r < 0 || S % kTile != 0 || S / kTile < 5 || B > 65535 ||
          H > 65535;
+}
+
+// the bf16 kernels round a logit once: 1/sqrt(64) is a power of two
+bool power_of_two(float x) {
+  int e;
+  return x > 0.f && std::frexp(x, &e) == 0.5f;
 }
 
 }  // namespace
@@ -412,8 +348,9 @@ extern "C" int bigbird_mid_fwd(int dtype, const void* q, const void* k, const vo
   if (bad_geometry(B, S, H, r)) return int(cudaErrorInvalidValue);
   const Geo g{S, H, S / kTile, r, sb, ss, sh, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float>(q, k, v, mask, rand, out, lse, B, g, s);
-  if (dtype == 1) return launch_fwd<__nv_bfloat16>(q, k, v, mask, rand, out, lse, B, g, s);
+  if (dtype == 0) return launch_fwd(q, k, v, mask, rand, out, lse, B, g, s);
+  if (dtype == 1 && power_of_two(scale))
+    return stonkgs::bigbird90::launch_fwd_sm90(q, k, v, mask, rand, out, lse, B, g, s);
   return int(cudaErrorInvalidValue);
 }
 
@@ -426,9 +363,9 @@ extern "C" int bigbird_mid_bwd(int dtype, const void* q, const void* k, const vo
   if (bad_geometry(B, S, H, r)) return int(cudaErrorInvalidValue);
   const Geo g{S, H, S / kTile, r, sb, ss, sh, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_bwd<float>(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B, g, s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B, g, s);
+  if (dtype == 0) return launch_bwd(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B, g, s);
+  if (dtype == 1 && power_of_two(scale))
+    return stonkgs::bigbird90::launch_bwd_sm90(q, k, v, mask, rand, out, lse, dout, dq, dk, dv,
+                                               B, g, s);
   return int(cudaErrorInvalidValue);
 }

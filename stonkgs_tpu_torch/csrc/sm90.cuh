@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (attention_sm90.cuh, attention_bwd_sm90.cuh, ffn_sm90.cuh,
-// ffn_train_sm90.cuh, int8_sm90.cuh): mbarriers, TMA loads, wgmma
+// (attention_sm90.cuh, attention_bwd_sm90.cuh, bigbird_sm90.cuh,
+// ffn_sm90.cuh, ffn_train_sm90.cuh, int8_sm90.cuh): mbarriers, TMA loads,
+// stores and reduce-adds, wgmma
 // shared-memory descriptors and the wgmma instructions (bf16 and s8), the
 // accumulator's register map, and the driver's tensor-map encoder.
 
@@ -40,6 +41,12 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
+               : "memory");
+}
+
+// expect `bytes` more of TMA on the barrier's current phase, without arriving
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
 }
 
@@ -124,6 +131,23 @@ __device__ __forceinline__ void tma_store_read_done() {
 __device__ __forceinline__ void tma_store_wait_read() {
   tma_store_commit();
   tma_store_read_done();
+}
+
+// wait until this thread's committed TMA stores and reduce-adds are done
+__device__ __forceinline__ void tma_store_done() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// a box of shared memory added into a map at (c0, c1, c2, c3) (the adds
+// run in L2, element by element in the map's type), in this thread's bulk
+// group; rows and columns outside the map are not written
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
 // make this thread's shared-memory writes visible to TMA (the async proxy)
@@ -218,17 +242,26 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t d
   wgmma_n128<0>(d, da, db, acc);
 }
 
-// d (64 x 64, fp32) (+)= A (64 x 16, desc) . B^T (B 64 x 16, desc), both
-// K-major; acc = 0 overwrites d
-__device__ __forceinline__ void wgmma_qk64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+// d (64 x 64, fp32) (+)= A (64 x 16, desc) . B (16 x 64, desc), both from
+// shared memory: A K-major (kTnspA 0) or M-major (1: 16 lines of K, each
+// 64 values of M, as an MN-major B), B K-major (kTnspB 0: 64 lines of K,
+// read as B^T) or N-major (1); acc = 0 overwrites d
+template <int kTnspA, int kTnspB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : STONKGS_ACC32(d, 0)
-      : "l"(da), "l"(db), "r"(acc));
+      : "l"(da), "l"(db), "r"(acc), "n"(kTnspA), "n"(kTnspB));
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16, desc) . B^T (B 64 x 16, desc), both
+// K-major; acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_qk64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  wgmma_ss64<0, 0>(d, da, db, acc);
 }
 
 // d (64 x 64, fp32) += A (64 x 16 bf16, registers) . B (16 x 64, desc, MN-major)

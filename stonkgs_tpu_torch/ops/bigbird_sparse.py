@@ -38,30 +38,41 @@ each input byte once and each output byte once:
   (8 × 12.6 MB) plus lse: 0.032 ms of products, 0.030 ms of bytes: bound
   by operations.
 
+The design's floor on top of that bound (``csrc/bigbird_sm90.cuh``): the
+forward's two passes need 2 exps a score, 0.093 ms of the SFU at B=8
+(16 ex2 a clock an SM), above its 3 products (0.076 ms); the backward's
+7 products (dS as two bf16 terms) take 0.044 ms.
+
 Design.  The TPU kernel keeps a whole (S, D) key and value slice in VMEM
 per (batch, head) and assembles the 8 key blocks of a middle query block
-by VMEM-to-VMEM slices.  On Hopper a block takes one (middle query block
-j, head, batch) and streams the 8 key blocks of its slots [g0 | window
-i-1, i, i+1 | g_last | random r] from device memory through shared memory
-one 64-key tile at a time, straight from the (B, S, H, D) layout with
-strides.  The forward makes two passes over the tiles (row max and sum of
-exp, then normalised probabilities, rounded, times V), because the TPU
-kernel normalises before it rounds, as the port's dense attention kernels
-do.  The (B, S) mask is read in the kernel, and the duplicate window slot
-at query blocks 1 and nb-2 (where the window holds a global block) takes
-the penalty there: the TPU kernel's gathered mask outside the kernel was
-a Mosaic workaround.  The eval plan is all zeros: its random slots repeat
-block 0, each as a key of its own in the softmax, as the TPU kernel and
-HF count them.
+by VMEM-to-VMEM slices.  On Hopper (bf16, ``csrc/bigbird_sm90.cuh``) a
+block of 384 threads takes two neighbouring middle query blocks of one
+(batch, head), one consumer warpgroup each (64 rows, the ``wgmma`` M),
+and a producer warp streams the 64-key tiles of their slots [g0 | window
+i-1, i, i+1 | g_last | random r] through a TMA ring, from 4-D tensor maps
+built over the (B, S, H, D) views with their strides (:func:`tma_map_args`
+states which strides a map takes), with each tile's penalties beside it.
+The forward makes two passes over the slots (row max and sum of exp, then
+normalised probabilities, rounded, times V), because the TPU kernel
+normalises before it rounds, as the port's dense attention kernels do;
+Q·Kᵀ and P·V run on ``wgmma``, the softmax in registers.  The (B, S) mask
+is read in the kernel, and the duplicate window slot at query blocks 1
+and nb-2 (where the window holds a global block) takes the penalty there:
+the TPU kernel's gathered mask outside the kernel was a Mosaic
+workaround.  The eval plan is all zeros: its random slots repeat block 0,
+each as a key of its own in the softmax, as the TPU kernel and HF count
+them.
 
 The TPU backward carries dK and dV in VMEM across the sequential j axis.
-Hopper blocks run in no order, so each block adds its slots' dK and dV
-rows into fp32 (B, S, H, D) accumulators with ``atomicAdd``; every key
-row takes at most 3 window adds, its random adds and, for the global
-blocks, one add from each of the nb-2 query blocks of its (batch, head),
-spread over the kernel's run.  The wrapper casts the accumulators to the
-input dtype.  dQ of a middle block is the block's own and is written
-once.
+Hopper blocks run in no order, so each consumer forms a slot's 64 × 64
+dK and dV tiles on ``wgmma`` and adds them into fp32 (B, S, H, D)
+accumulators with TMA reduce-adds (the adds land in an order that changes
+from run to run); the global blocks take one add from each of the nb-2
+query blocks of their (batch, head).  The wrapper casts the accumulators
+to the input dtype.  dQ of a middle block is the block's own and is
+written once.  The fp32 instantiation (``csrc/bigbird_sparse.cu``) is a
+SIMT body with plain fp32 FMAs and ``atomicAdd``, there to hold the model
+against the CPU.
 
 Rounding, as ``_mid_logits`` and the two TPU kernels: Q·Kᵀ accumulated in
 fp32 from products of the input dtype, rounded to it, times 1/√D (rounded
@@ -71,8 +82,9 @@ the lse in fp32.  Backward: p = exp(logits - lse); dP = dO·Vᵀ; row =
 Σ dO⊙O; dS = p(dP - row)/√D in fp32; dq = dS·K rounded; dK = dSᵀ·q; dV =
 round(p)ᵀ·dO, all in fp32.  The bf16 kernel feeds dS to the tensor cores
 as the sum of two bf16 terms (hi = round(dS), lo = round(dS - hi)), which
-carries 16 of its 24 significant bits; the fp32 instantiation multiplies
-in plain fp32.
+carries 16 of its 24 significant bits, takes its exps from the SFU's
+``ex2.approx`` and divides by l as a per-row reciprocal; the fp32
+instantiation multiplies in plain fp32.
 
 The first and last query blocks are dense rows in plain PyTorch under
 autograd, as the JAX package leaves them to XLA.
@@ -376,14 +388,27 @@ def _check_cuda(what: str, q, tensors, block_size: int) -> None:
             raise ValueError(f"{what}: tensors on different devices")
 
 
+def tma_map_args(t: torch.Tensor):
+    """The 4-D TMA tensor map the Hopper kernels build over a (B, S, H, D)
+    view from its strides (``csrc/bigbird_sm90.cuh::make_map_bshd``): dims
+    (D, H, S, B) innermost first, the byte strides of dims 1-3 and the box
+    (D, 1, block, 1); None where a map cannot take the view (a last stride
+    other than 1, or a byte stride that is not a multiple of 16 or not
+    below 2**40)."""
+    B, S, H, D = t.shape
+    sb, ss, sh, sd = t.stride()
+    strides = tuple(x * t.element_size() for x in (sh, ss, sb))
+    if sd != 1 or any(x % 16 or x >= 2 ** 40 for x in strides):
+        return None
+    return (D, H, S, B), strides, (D, 1, KERNEL_BLOCK, 1)
+
+
 def _strided_qkv(q, k, v):
-    """q, k, v sharing one (B, S, H, D) stride set with a unit last stride
-    and 16-byte rows (copies only where they do not); returns them and
-    the strides (sb, ss, sh) in elements."""
-    def ok(t):
-        return t.stride(3) == 1 and all(s % (16 // t.element_size()) == 0
-                                        for s in t.stride()[:3])
-    if not (ok(q) and k.stride() == q.stride() and v.stride() == q.stride()):
+    """q, k, v sharing one (B, S, H, D) stride set that the kernels' tensor
+    maps take (copies only where they do not); returns them and the
+    strides (sb, ss, sh) in elements."""
+    if not (tma_map_args(q) is not None and k.stride() == q.stride()
+            and v.stride() == q.stride()):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return q, k, v, q.stride()[:3]
 

@@ -9,7 +9,11 @@
   another order);
 * ``bigbird_model`` in block-sparse mode, in ``original_full`` mode and
   with ``cls_only``, within 1e-5 absolute (inputs made with a numpy seed,
-  weights from the JAX ``init_bigbird_params``).
+  weights from the JAX ``init_bigbird_params``);
+* host-side pieces of the Hopper kernels and their yardstick: the tensor
+  map each (B, S, H, D) view gets, and SDPA over gathered operands
+  (``benchmarks/bigbird_sdpa.py``) against the plain forward at fp32
+  within 1e-5.
 """
 
 import dataclasses
@@ -26,6 +30,7 @@ from stonkgs_tpu.models import bigbird as jbigbird
 from stonkgs_tpu.ops import bigbird_sparse as jsparse
 from stonkgs_tpu.ops.bigbird_sparse_pallas import block_sparse_attention_pallas
 from stonkgs_tpu_torch import config as tconfig
+from stonkgs_tpu_torch.benchmarks import bigbird_sdpa
 from stonkgs_tpu_torch.models import bigbird as tbigbird
 from stonkgs_tpu_torch.ops import bigbird_sparse as tsparse
 from stonkgs_tpu_torch.utils.convert import bigbird_params_from_jax
@@ -126,6 +131,51 @@ def test_mid_blocks_plain_shapes_and_lse():
     with pytest.raises(ValueError, match="at least 5 blocks"):
         tsparse.bigbird_mid_fwd(tq[:, :4 * BS], tk[:, :4 * BS], tv[:, :4 * BS],
                                 tmask[:, :4 * BS], trand[:, :2], BS)
+
+
+@pytest.mark.parametrize("plan,padded", [("eval", False), ("eval", True), ("train", True)])
+def test_sdpa_over_gathered_operands_matches_plain(plan, padded):
+    """The library yardstick computes the plain forward's context: the eval
+    plan's repeated blocks stay separate keys, and the mask's and the
+    duplicate window slot's penalties enter as the float mask."""
+    nb, r = 8, 2
+    q, k, v, rand, mask, _ = _inputs(nb, r, 5, padded, plan == "eval")
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    tmask, trand = torch.from_numpy(mask), torch.from_numpy(rand)
+    want, _ = tsparse.bigbird_mid_fwd_plain(tq, tk, tv, tmask, trand, BS)
+    ops = bigbird_sdpa.gathered_operands(tq, tk, tv, tmask, trand, BS)
+    qg, kg, vg, bias = ops
+    n = B * H * (nb - 2)
+    assert qg.shape == (n, 1, BS, D) and kg.shape == vg.shape == (n, 1, (5 + r) * BS, D)
+    assert bias.shape == (n, 1, 1, (5 + r) * BS) and bias.dtype == tq.dtype
+    assert all(t.is_contiguous() for t in ops)
+    got = bigbird_sdpa.to_ctx(bigbird_sdpa.sdpa_mid(qg, kg, vg, bias), B, H)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **FWD_TOL)
+
+
+def test_tma_map_args_follow_the_view_strides():
+    """The kernels' 4-D tensor maps (dims D, H, S, B; byte strides of H, S
+    and B; box D x 1 x 64 x 1) over contiguous, fused-QKV and head-major
+    views, and the views a map cannot take, which the wrapper copies."""
+    Bq, S, Hq, Dq = 2, 256, 12, 64
+    bf = torch.bfloat16
+    x = torch.zeros(Bq, S, Hq, Dq, dtype=bf)
+    row = Hq * Dq * 2
+    assert tsparse.tma_map_args(x) == ((Dq, Hq, S, Bq), (Dq * 2, row, row * S), (Dq, 1, 64, 1))
+    fused = torch.zeros(Bq, S, 3, Hq, Dq, dtype=bf)[:, :, 1]
+    assert tsparse.tma_map_args(fused) == ((Dq, Hq, S, Bq), (Dq * 2, 3 * row, 3 * row * S),
+                                           (Dq, 1, 64, 1))
+    heads = torch.zeros(Bq, Hq, S, Dq, dtype=bf).transpose(1, 2)
+    assert tsparse.tma_map_args(heads) == ((Dq, Hq, S, Bq), (S * Dq * 2, Dq * 2, row * S),
+                                           (Dq, 1, 64, 1))
+    # a row of 66 bf16 (132 bytes) and a non-unit last stride: no map
+    ragged = torch.zeros(Bq, S, Hq, 66, dtype=bf)[..., :Dq]
+    assert tsparse.tma_map_args(ragged) is None
+    assert tsparse.tma_map_args(torch.zeros(Bq, S, Hq, 2 * Dq, dtype=bf)[..., ::2]) is None
+    q, k, v, strides = tsparse._strided_qkv(ragged, ragged, ragged)
+    assert q.is_contiguous() and strides == (S * Hq * Dq, Hq * Dq, Dq)
+    q, k, v, strides = tsparse._strided_qkv(fused, fused, fused)
+    assert q.data_ptr() == fused.data_ptr() and strides == fused.stride()[:3]
 
 
 # ---------------------------------------------------------------------------
