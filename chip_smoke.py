@@ -115,7 +115,22 @@ Phases, each fatal on failure (exit code 1, no result line):
     the GEMM by bytes or operations; their sum is the design's floor);
     the probe's ``main`` (its exactness checks,
     then ``torch.mm`` bf16, ``torch._int_mm`` and the kernel on int8 and
-    on bf16 at 4096^3, in TFLOP/s).
+    on bf16 at 4096^3, in TFLOP/s);
+19. README flow from files: the port's ``save_pretrained`` writes a
+    BERT-base checkpoint (seeded random parameters, KG vocabulary 5,000)
+    to a temporary directory, beside a 28,996-line vocabulary with
+    BioBERT's special ids and node2vec TSVs (5,000 BEL-named entities,
+    dim 768, walks of 127: the 256 + 256 layout); then
+    ``STonKGsEngine.from_pretrained`` (B=128) -> ``preprocess`` (512
+    rows, evidence of 10..256 word pieces, 8 sources not in the KG) ->
+    ``embed``, parity and with ``length_buckets=(64, 128)``; checks the
+    native tokenizer, its features equal to the Python tokenizer's, the
+    loaded parameters and KG table bit for bit, the embeddings equal to
+    an engine's built from the parameters in memory (bf16, and fp32 on 8
+    rows), the launch counts and finite output; times the tokenizer's
+    build, ``from_pretrained`` and its parts, ``preprocess`` and its
+    parts, ``embed`` alone and raw rows -> embeddings.  The directory is
+    removed at the end.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -126,12 +141,15 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -141,6 +159,16 @@ import torch.nn.functional as F
 
 from stonkgs_tpu_torch import ProtSTonKGsEngine, STonKGsEngine
 from stonkgs_tpu_torch.config import BertConfig, BigBirdConfig, ProtSTonKGsConfig, STonKGsConfig
+from stonkgs_tpu_torch.data.artifacts import (
+    load_kg_artifacts,
+    make_random_artifacts,
+    save_kg_artifacts,
+)
+from stonkgs_tpu_torch.data import fast_tokenizer
+from stonkgs_tpu_torch.data.fast_tokenizer import FastBertTokenizer
+from stonkgs_tpu_torch.data.masking import mask_tokens
+from stonkgs_tpu_torch.data.preprocessing import assemble_entity_half, preprocess_for_embeddings
+from stonkgs_tpu_torch.data.wordpiece import BertTokenizer
 from stonkgs_tpu_torch.models import bert, protstonkgs, stonkgs
 from stonkgs_tpu_torch.ops import _build
 from stonkgs_tpu_torch.ops.bigbird_sparse import (
@@ -190,7 +218,9 @@ from stonkgs_tpu_torch.benchmarks._util import time_ms
 from stonkgs_tpu_torch.benchmarks.bench_int8_gemm import int8_gemm, int8_gemm_plain
 from stonkgs_tpu_torch.train import pretraining
 from stonkgs_tpu_torch.train.optimizer import AdamW, split_frozen
+from stonkgs_tpu_torch.utils import hf_loader
 from stonkgs_tpu_torch.utils.convert import params_to
+from stonkgs_tpu_torch.utils.hf_export import save_pretrained
 from stonkgs_tpu_torch.utils.tree import tree_leaves, tree_map
 
 DEV = "cuda"
@@ -2091,6 +2121,231 @@ def phase_int8_timing():
     return result, gemm, launches
 
 
+# the README flow's files: a BERT-base checkpoint, a vocabulary of
+# BioBERT's size with its special ids, node2vec TSVs of 5,000 entities
+# (the published KG has more; 5,000 keeps the TSV near 75 MB) at dim 768
+# and walks of 127 (the 256 + 256 layout), 512 rows of evidence
+README_ENTITIES = 5_000
+README_RW_LEN = 127
+README_UNKNOWN = 8      # rows whose source is not in the KG (the UNK walk)
+
+
+def _readme_vocab(size: int, rng: np.random.Generator) -> list:
+    """A vocabulary of ``size`` lines with BioBERT's special ids (PAD 0,
+    UNK 100, CLS 101, SEP 102, MASK 103), punctuation and digits,
+    four-letter roots and two- and three-letter ``##`` pieces, so that a
+    root with a suffix tokenizes to two word pieces."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    tokens = [f"[unused{i}]" for i in range(104)]
+    tokens[0], tokens[100:104] = "[PAD]", ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    tokens += list(".,;:()-/") + [str(d) for d in range(10)]
+    pieces = ["##" + "".join(p) for n in (2, 3) for p in itertools.product(letters, repeat=n)]
+    pieces = pieces[:4_000]
+    roots = ["".join(p) for p in itertools.product(letters, repeat=4)]
+    roots = [roots[i] for i in rng.permutation(len(roots))[: size - len(tokens) - len(pieces)]]
+    return tokens + roots + pieces
+
+
+def _readme_rows(names: list, vocab: list, rng: np.random.Generator):
+    """ROWS (source, target, evidence) rows: evidence of 10..256 word
+    pieces (capitals, punctuation, roots with suffixes), sources and
+    targets from ``names``, the first README_UNKNOWN sources unknown."""
+    roots = [t for t in vocab[122:] if not t.startswith("##")]
+    suffixes = [t[2:] for t in vocab if t.startswith("##")]
+    evidences = []
+    for want in rng.integers(10, 257, ROWS):
+        words, n = [], 0
+        while n < want:
+            w = roots[rng.integers(len(roots))]
+            if rng.random() < 0.3:
+                w, n = w + suffixes[rng.integers(len(suffixes))], n + 1
+            if rng.random() < 0.1:
+                w = w.capitalize()
+            if rng.random() < 0.05:
+                w, n = f"({w})", n + 2
+            words.append(w)
+            n += 1
+        evidences.append(" ".join(words))
+    src = [names[i] for i in rng.integers(0, len(names), ROWS)]
+    tgt = [names[i] for i in rng.integers(0, len(names), ROWS)]
+    for i in range(README_UNKNOWN):
+        src[i] = f"p(HGNC:{90_000 + i} ! NOT_IN_KG{i})"
+    return src, tgt, evidences
+
+
+def _bel_names(n: int) -> list:
+    kinds = ("p(HGNC:{i} ! GENE{i})", 'a(CHEBI:"compound {i}")',
+             'bp(GO:"cell death {i}")', "complex(p(HGNC:{i}), p(HGNC:{j}))")
+    return [kinds[i % 4].format(i=i, j=i + 1) for i in range(n)]
+
+
+def _timed(fn, runs: int = 3):
+    """(last result, seconds of each run), each run ending synchronised."""
+    seconds = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return out, seconds
+
+
+def _rate(label: str, n: int, seconds: list, unit: str, card: str) -> None:
+    log(f"# readme {label}: {n} rows, seconds {seconds!r}; best {n / min(seconds)!r} "
+        f"{unit}, median {n / statistics.median(seconds)!r} {unit} ({card})")
+
+
+def phase_readme(card: str) -> dict:
+    """The README flow from files: a checkpoint written by the port's
+    ``save_pretrained`` from seeded random parameters, a vocabulary and
+    node2vec TSVs, all in a temporary directory removed at the end; then
+    ``STonKGsEngine.from_pretrained`` on the card, ``preprocess``,
+    ``embed`` (parity, then ``length_buckets``), counts from 0 just
+    before the parity embed.  Checks the native tokenizer, its features
+    against the Python tokenizer's, the loaded parameters and KG table
+    bit for bit against those saved, and the embeddings against an
+    engine built from the parameters in memory (bf16 on every row, fp32
+    on a few).  Returns the parity embed's launch counts."""
+    rng = np.random.default_rng(19)
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=README_ENTITIES)
+    with tempfile.TemporaryDirectory(prefix="stonkgs_readme_") as tmp:
+        t0 = time.perf_counter()
+        params = stonkgs.init_stonkgs_params(torch.Generator().manual_seed(19), cfg)
+        ckpt = save_pretrained(params, cfg, os.path.join(tmp, "ckpt"))
+        art = make_random_artifacts(README_ENTITIES, dim=cfg.bert.hidden_size,
+                                    rw_len=README_RW_LEN, seed=19)
+        art.names = _bel_names(README_ENTITIES)
+        art.name_to_idx = {n: i for i, n in enumerate(art.names)}
+        emb, walks = os.path.join(tmp, "emb.tsv"), os.path.join(tmp, "walks.tsv")
+        save_kg_artifacts(art, emb, walks)
+        vocab = _readme_vocab(cfg.bert.vocab_size, rng)
+        vocab_file = os.path.join(tmp, "vocab.txt")
+        with open(vocab_file, "w") as f:
+            f.write("\n".join(vocab) + "\n")
+        src, tgt, ev = _readme_rows(art.names, vocab, rng)
+        sizes = {n: os.path.getsize(os.path.join(tmp, p)) for n, p in (
+            ("pytorch_model.bin", "ckpt/pytorch_model.bin"), ("emb.tsv", "emb.tsv"),
+            ("walks.tsv", "walks.tsv"), ("vocab.txt", "vocab.txt"))}
+        log(f"# readme files written in {time.perf_counter() - t0:.1f} s: {sizes} bytes; "
+            f"{README_ENTITIES} entities (cut from the published KG's), dim "
+            f"{cfg.bert.hidden_size}, rw_len {README_RW_LEN}, vocabulary {len(vocab)}")
+
+        # the README flow; the tokenizer's library is built (g++) at its
+        # first use in a checkout, timed here on its own
+        t0 = time.perf_counter()
+        check(fast_tokenizer._load_lib() is not None, "the native tokenizer did not build")
+        log(f"# readme tokenizer build (g++, first use): {time.perf_counter() - t0!r} s")
+        engine, t_load = _timed(lambda: STonKGsEngine.from_pretrained(
+            ckpt, emb, walks, vocab_file=vocab_file, batch_size=BATCH), runs=1)
+        log(f"# readme from_pretrained: {t_load[0]!r} s ({card})")
+        check(engine.tokenizer.is_native, "the native tokenizer did not load on the card")
+        check(engine.cfg == cfg, f"loaded config {engine.cfg} differs from {cfg}")
+        feats, t_pre = _timed(lambda: engine.preprocess(src, tgt, ev))
+        _rate("preprocess (host)", ROWS, t_pre, "rows/s", card)
+        _reset_counts(SERVING_KERNELS)
+        out = engine.embed(feats)
+        counts = _counts(SERVING_KERNELS)
+        n_batches = math.ceil(ROWS / BATCH)
+        per_batch = cfg.bert.num_hidden_layers * 2 - 1
+        log(f"# launches readme parity embed ({n_batches} batches): {counts}")
+        check(out.shape == (ROWS, cfg.bert.hidden_size), f"readme embed shape {out.shape}")
+        check(bool(np.isfinite(out).all()), "readme embed output not finite")
+        for name, c in counts.items():
+            check(c == per_batch * n_batches,
+                  f"readme {name}: {c} launches, expected {per_batch} x {n_batches}")
+        bucketed = dataclasses.replace(engine, length_buckets=BUCKETS)
+        _reset_counts(SERVING_KERNELS)
+        out_b = bucketed.embed(feats)
+        log(f"# launches readme bucketed embed: {_counts(SERVING_KERNELS)}")
+        check(all(c > 0 for c in _counts(SERVING_KERNELS).values()),
+              "readme bucketed embed skipped a kernel")
+        check(bool(np.isfinite(out_b).all()), "readme bucketed embed not finite")
+
+        # the native tokenizer's features against the Python tokenizer's
+        py = preprocess_for_embeddings(
+            np.asarray(src, object), np.asarray(tgt, object), ev, engine.artifacts,
+            BertTokenizer(vocab_file), sep_id=cfg.sep_id, unk_id=cfg.unk_id,
+            mask_id=cfg.mask_id)
+        check(feats.keys() == py.keys(), "preprocess keys differ from the Python path's")
+        for k in py:
+            check(np.array_equal(feats[k], py[k]), f"preprocess {k} differs from the "
+                  "Python tokenizer's")
+        text_len = feats["attention_mask"][:, :cfg.text_len].sum(1)
+        ent = feats["input_ids"][:, cfg.text_len:]
+        ent = np.where(feats["ent_masked_lm_labels"] != -100, feats["ent_masked_lm_labels"],
+                       ent)                       # the entity ids before masking
+        unk_rows = int((ent[:, :README_RW_LEN] == cfg.unk_id).all(1).sum())
+        log(f"# readme features equal the Python tokenizer's; text lengths "
+            f"{int(text_len.min())}..{int(text_len.max())} word pieces with CLS and SEP, "
+            f"{unk_rows} rows with an UNK source walk")
+        check(unk_rows >= README_UNKNOWN, "the unknown sources did not take the UNK walk")
+
+        # the parameters and the KG table, bit for bit, against those saved
+        mem = params_to(params, DEV)
+        mem["kg_backbone"] = stonkgs.build_kg_table(mem["lm_backbone"], cfg.bert, art.vectors)
+        loaded = dict(_named_leaves(engine.params))
+        want = dict(_named_leaves(mem))
+        check(loaded.keys() == want.keys(), "loaded parameter tree differs from the saved one")
+        diff = [k for k in want if not torch.equal(loaded[k], want[k])]
+        check(not diff, f"loaded parameters differ from those saved: {diff[:5]}")
+        log(f"# readme parameters and KG table equal those saved bit for bit "
+            f"({len(want)} leaves, {sum(t.numel() for t in want.values())} values)")
+
+        # embeddings against engines built from the parameters in memory
+        for label, eng, got in (("parity", engine, out), ("bucketed", bucketed, out_b)):
+            ref = dataclasses.replace(eng, params=mem).embed(feats)
+            err = float(np.abs(got - ref).max())
+            log(f"# readme {label} bf16 vs in-memory engine ({ROWS} rows): max_abs_err {err!r}")
+            check(err == 0.0, f"readme {label} bf16 embed differs from the in-memory engine's")
+        few = {k: v[:8] for k, v in feats.items()}
+        got32 = dataclasses.replace(engine, compute_dtype="float32", batch_size=8).embed(few)
+        ref32 = dataclasses.replace(engine, params=mem, compute_dtype="float32",
+                                    batch_size=8).embed(few)
+        err32 = float(np.abs(got32 - ref32).max())
+        log(f"# readme fp32 vs in-memory engine (8 rows): max_abs_err {err32!r}")
+        check(err32 == 0.0, "readme fp32 embed differs from the in-memory engine's")
+        del mem, params
+
+        # timings: embed alone, then raw rows -> embeddings end to end
+        _, t_embed = _timed(lambda: engine.embed(feats))
+        _rate("embed alone (parity)", ROWS, t_embed, "pairs/s", card)
+        _, t_e2e = _timed(lambda: engine.embed(engine.preprocess(src, tgt, ev)))
+        _rate("rows -> embeddings (parity)", ROWS, t_e2e, "rows/s", card)
+        _, t_embed_b = _timed(lambda: bucketed.embed(feats))
+        _rate("embed alone (bucketed)", ROWS, t_embed_b, "pairs/s", card)
+        _, t_e2e_b = _timed(lambda: bucketed.embed(bucketed.preprocess(src, tgt, ev)))
+        _rate("rows -> embeddings (bucketed)", ROWS, t_e2e_b, "rows/s", card)
+        # where from_pretrained's and preprocess's seconds go, each part
+        # again on its own
+        sd, t_sd = _timed(lambda: hf_loader.load_state_dict(ckpt), runs=1)
+        tree, t_conv = _timed(lambda: hf_loader.stonkgs_params_from_state_dict(sd, cfg), runs=1)
+        _, t_art = _timed(lambda: load_kg_artifacts(emb, walks), runs=1)
+        _, t_tok = _timed(lambda: FastBertTokenizer(vocab_file), runs=1)
+        _, t_dev = _timed(lambda: stonkgs.build_kg_table(
+            params_to(tree, DEV)["lm_backbone"], cfg.bert, art.vectors), runs=1)
+        log(f"# readme from_pretrained parts: state dict {t_sd[0]!r} s, its conversion "
+            f"{t_conv[0]!r} s, KG artifacts {t_art[0]!r} s, vocabulary {t_tok[0]!r} s, to "
+            f"the card and the KG table {t_dev[0]!r} s, of {t_load[0]!r} s ({card})")
+        del sd, tree
+        text = {}
+        for threads in (engine.tokenizer.n_threads, 1):
+            tok = FastBertTokenizer(vocab_file, n_threads=threads)
+            _, text[threads] = _timed(lambda: tok.encode_batch(ev, cfg.text_len))
+        src_a, tgt_a = np.asarray(src, object), np.asarray(tgt, object)
+        halves, t_ent = _timed(lambda: assemble_entity_half(src_a, tgt_a, engine.artifacts))
+        _, t_mask = _timed(lambda: mask_tokens(halves.astype(np.int64), README_ENTITIES,
+                                               np.random.default_rng(0)))
+        log(f"# readme preprocess parts (median s): encode_batch "
+            f"{statistics.median(text[engine.tokenizer.n_threads])!r} on "
+            f"{engine.tokenizer.n_threads} threads, {statistics.median(text[1])!r} on 1; "
+            f"entity halves {statistics.median(t_ent)!r}; mask_tokens (one half) "
+            f"{statistics.median(t_mask)!r}; of {statistics.median(t_pre)!r} ({card})")
+        del engine, bucketed
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -2135,6 +2390,8 @@ def main() -> int:
         # worst error of every path shape
         times["dense_int8"] = dict(int8_times["trunk FFN in"], max_abs_err=max(
             t["max_abs_err"] for t in int8_times.values()))
+        for name, c in phase_readme(card).items():
+            counts[name] += c
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -1,7 +1,12 @@
 """Inference engine of the port: embed / classify batches on the card.
 
 The port of ``STonKGsEngine`` from the JAX package's
-``stonkgs_tpu/api/inference.py``, built from a config plus parameters.
+``stonkgs_tpu/api/inference.py``: built from a config plus parameters, or
+by :meth:`STonKGsEngine.from_pretrained` from the files a user of the
+published models has (an HF checkpoint directory, the node2vec TSVs and
+the BioBERT vocabulary), then :meth:`~STonKGsEngine.preprocess` turns
+(source, target, evidence) rows into features and
+:meth:`~STonKGsEngine.embed` serves them.
 Every batch is dispatched before any is fetched: CUDA launches are
 asynchronous, so the card runs the batches back to back and the host
 waits only in :meth:`STonKGsEngine._fetch`, the one place that copies to
@@ -16,13 +21,23 @@ from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from stonkgs_tpu_torch.config import STonKGsConfig
+from stonkgs_tpu_torch.config import BertConfig, STonKGsConfig
+from stonkgs_tpu_torch.data.artifacts import KGArtifacts, load_kg_artifacts
+from stonkgs_tpu_torch.data.fast_tokenizer import FastBertTokenizer
+from stonkgs_tpu_torch.data.preprocessing import preprocess_for_embeddings
+from stonkgs_tpu_torch.data.transe import (
+    TransEArtifacts,
+    assemble_transe_part,
+    load_transe_artifacts,
+    preprocess_transe_for_finetuning,
+)
 from stonkgs_tpu_torch.models import stonkgs
+from stonkgs_tpu_torch.utils import hf_export, hf_loader
 from stonkgs_tpu_torch.utils.batching import iter_padded_batches
 from stonkgs_tpu_torch.utils.convert import params_to
 
@@ -44,6 +59,10 @@ class STonKGsEngine:
     # the entity half kept on its original position rows via position_ids.
     length_buckets: Optional[Tuple[int, ...]] = None
     device: str = "cuda"
+    # what preprocess needs: a tokenizer (BertTokenizer's surface) and the
+    # KG artifacts (node2vec KGArtifacts, or TransEArtifacts)
+    tokenizer: Optional[object] = None
+    artifacts: Optional[Union[KGArtifacts, TransEArtifacts]] = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -75,6 +94,102 @@ class STonKGsEngine:
                 self._bucket_classifiers[b] = partial(
                     stonkgs.classification_logits, cfg=bcfg,
                     compute_dtype=dtype)
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        model_dir: str,
+        kg_embedding_path: str,
+        kg_random_walk_path: Optional[str] = None,
+        vocab_file: Optional[str] = None,
+        num_labels: Optional[int] = None,
+        variant: str = "stonkgs",
+        **kw,
+    ) -> "STonKGsEngine":
+        """Load an HF-format checkpoint, the KG artifacts and (optionally)
+        the vocabulary; ``kw`` are the engine's fields (``device``,
+        ``compute_dtype``, ``batch_size``, ``length_buckets``).
+
+        The parameters stay fp32, as saved; the KG table is built on the
+        engine's device from the LM backbone.  ``variant="transe"`` loads
+        TransE embeddings (no walks file) with the 256 + 4 layout."""
+        sd = hf_loader.load_state_dict(model_dir)
+        hf_cfg = hf_loader.load_config(model_dir)
+        bert_cfg = BertConfig.from_hf_dict(hf_cfg)
+        kg_vocab = hf_loader.infer_kg_vocab_size(sd)
+        num_labels = num_labels or hf_cfg.get("num_labels")
+        if variant == "transe":
+            artifacts = load_transe_artifacts(kg_embedding_path)
+            cfg = STonKGsConfig(
+                bert=bert_cfg, kg_vocab_size=kg_vocab,
+                text_len=bert_cfg.max_position_embeddings - 4, entity_len=4,
+                num_labels=num_labels)
+        elif variant == "stonkgs":
+            if kg_random_walk_path is None:
+                raise ValueError("variant 'stonkgs' needs kg_random_walk_path")
+            artifacts = load_kg_artifacts(kg_embedding_path, kg_random_walk_path)
+            half = artifacts.rw_len * 2 + 2
+            cfg = STonKGsConfig(bert=bert_cfg, kg_vocab_size=kg_vocab,
+                                text_len=half, entity_len=half, num_labels=num_labels)
+        else:
+            raise ValueError(f"unknown variant {variant!r}: 'stonkgs' or 'transe'")
+        params = hf_loader.stonkgs_params_from_state_dict(sd, cfg)
+        del sd
+        tokenizer = FastBertTokenizer(vocab_file) if vocab_file else None
+        engine = cls(cfg=cfg, params=params, tokenizer=tokenizer,
+                     artifacts=artifacts, **kw)
+        engine.params["kg_backbone"] = stonkgs.build_kg_table(
+            engine.params["lm_backbone"], cfg.bert, artifacts.vectors)
+        return engine
+
+    def save_pretrained(self, output_dir: str) -> str:
+        """Export to an HF-format checkpoint directory (fp32; the KG table,
+        rebuilt from the artifacts at load, is not written)."""
+        return hf_export.save_pretrained(self.params, self.cfg, output_dir)
+
+    def preprocess(
+        self, sources, targets, evidences,
+        *, relations=None, apply_masking: bool = True, seed: int = 0,
+    ) -> Dict[str, np.ndarray]:
+        """(source, target, evidence) rows -> model features, as the
+        reference's ``preprocess_df_for_embeddings`` (with its 15% masking
+        unless ``apply_masking=False``).
+
+        A TransE-variant engine takes ``relations`` too, and refuses rows
+        whose head, relation or tail is not in its embeddings (inference
+        keeps its rows 1:1)."""
+        if self.tokenizer is None or self.artifacts is None:
+            raise ValueError("preprocess needs the engine's tokenizer and artifacts "
+                             "(from_pretrained with a vocab_file)")
+        if isinstance(self.artifacts, TransEArtifacts):
+            if relations is None:
+                raise ValueError("TransE preprocessing needs relations")
+            ent_part = assemble_transe_part(
+                list(sources), list(relations), list(targets),
+                self.artifacts, self.cfg.sep_id)
+            keep = ent_part[1]
+            if not keep.all():
+                bad = [i for i, k in enumerate(keep) if not k]
+                raise ValueError(
+                    f"rows {bad[:10]}{'...' if len(bad) > 10 else ''} contain "
+                    "head/relation/tail names missing from the TransE "
+                    "embeddings; filter them out before inference")
+            feats = preprocess_transe_for_finetuning(
+                list(sources), list(relations), list(targets),
+                list(evidences), np.zeros(len(evidences), np.int64),
+                self.artifacts, self.tokenizer,
+                text_part_length=self.cfg.text_len, sep_id=self.cfg.sep_id,
+                ent_part=ent_part,
+            )
+            feats.pop("labels")
+            return feats
+        return preprocess_for_embeddings(
+            np.asarray(sources, object), np.asarray(targets, object),
+            list(evidences), self.artifacts, self.tokenizer,
+            sep_id=self.cfg.sep_id, unk_id=self.cfg.unk_id,
+            mask_id=self.cfg.mask_id,
+            apply_masking=apply_masking, seed=seed,
+        )
 
     def _bucket_features(self, features: Dict[str, np.ndarray]):
         """Partition rows by true text length into the buckets.

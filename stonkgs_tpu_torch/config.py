@@ -10,6 +10,8 @@ other.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional
 
 
@@ -37,6 +39,22 @@ class BertConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "BertConfig":
+        """Build from a HuggingFace config.json dict (unknown keys ignored)."""
+        return _from_hf_dict(cls, d)
+
+    @classmethod
+    def from_json_file(cls, path: str | os.PathLike) -> "BertConfig":
+        """Build from a config.json path (HF checkpoint layout)."""
+        with open(path) as f:
+            return cls.from_hf_dict(json.load(f))
+
+
+def _from_hf_dict(cls, d: dict):
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in d.items() if k in names})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,3 +183,9 @@ class BigBirdConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "BigBirdConfig":
+        """Build from a HuggingFace BigBird config.json dict (unknown keys
+        ignored)."""
+        return _from_hf_dict(cls, d)

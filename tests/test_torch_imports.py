@@ -34,6 +34,9 @@ def test_import_pulls_in_no_jax():
         "from stonkgs_tpu_torch.ops import bigbird_sparse\n"
         "from stonkgs_tpu_torch.ops import quantization\n"
         "from stonkgs_tpu_torch.benchmarks import bench_int8_embed, bench_int8_gemm\n"
+        "from stonkgs_tpu_torch.data import artifacts, fast_tokenizer, masking\n"
+        "from stonkgs_tpu_torch.data import preprocessing, prot, transe, wordpiece\n"
+        "from stonkgs_tpu_torch.utils import hf_export, hf_loader\n"
         "new = sorted(set(sys.modules) - before)\n"
         "print('\\n'.join(new))\n"
     )
@@ -45,7 +48,32 @@ def test_import_pulls_in_no_jax():
     assert "stonkgs_tpu_torch.ops.bigbird_sparse" in out
     assert "stonkgs_tpu_torch.ops.quantization" in out
     assert "stonkgs_tpu_torch.benchmarks.bench_int8_gemm" in out
+    assert "stonkgs_tpu_torch.data.preprocessing" in out
+    assert "stonkgs_tpu_torch.utils.hf_loader" in out
     assert [m for m in out if _forbidden(m)] == []
+
+
+# packages the port's paths must not need: a machine that serves the
+# port is given torch, numpy and g++ only
+ABSENT_ON_THE_CARD = ("pandas", "transformers", "safetensors", "sklearn")
+
+
+def test_engine_path_pulls_in_no_module_the_card_lacks():
+    """The README flow's modules import none of pandas, transformers,
+    safetensors or sklearn (safetensors only inside the loader, for a
+    ``.safetensors`` file)."""
+    code = (
+        "import sys\n"
+        "from stonkgs_tpu_torch.api import inference, prot_inference\n"
+        "from stonkgs_tpu_torch.data import artifacts, fast_tokenizer, masking\n"
+        "from stonkgs_tpu_torch.data import preprocessing, prot, transe, wordpiece\n"
+        "from stonkgs_tpu_torch.utils import hf_export, hf_loader\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120).stdout.split()
+    assert "stonkgs_tpu_torch.api.inference" in out
+    assert [m for m in out if m.split(".")[0] in ABSENT_ON_THE_CARD] == []
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
