@@ -131,6 +131,27 @@ Phases, each fatal on failure (exit code 1, no result line):
     build, ``from_pretrained`` and its parts, ``preprocess`` and its
     parts, ``embed`` alone and raw rows -> embeddings.  The directory is
     removed at the end.
+20. fine-tuning: (a) ``classification_loss`` and its trunk and
+    classifier gradients at 2 rows and 2 layers a stack of the full
+    width (hidden dropout 0, attention dropout 0.1 on the same seeds),
+    card fp32 against CPU fp32 (loss 1e-4 relative, gradients 1e-3 of
+    max |grad|) and card bf16 against it (loss 1e-2, every leaf at a
+    cosine of 0.99); (b) ``run_sequence_classification_cv`` at phase 5's
+    width and weights (fp32 on the card, bf16 compute) on 80 rows, 2
+    folds, 1 epoch, B=8, eval B=64, into a temporary directory: launch
+    counts, finite losses, F1s in [0, 1], the tree passed in bit-unchanged,
+    every trainable leaf but the trunk's word embeddings and ``cls/*``
+    trained, the TSV's 80 rows and labels, the exported model read back
+    equal to the last fold's; (c) the TransE layout (S=260) and (d)
+    ProtSTonKGs at phase 11's width (B=2, the training plan, backbones
+    unchanged), each ``cv=1`` for one epoch; (e) the NLP baseline
+    (BioBERT 12 x 768 trained whole, S=512, B=16) in fp32 and in bf16;
+    (f) the KG baseline on node2vec features (200, 254, 768) on the card,
+    F1 above 0.9; (g) the fine-tuning step at B=8 and the NLP baseline's
+    at B=16 (median of 6 after 2, forward+backward and optimizer apart),
+    ``predict`` sequences/s at B=64, and the training kernels at
+    fine-tuning's shapes beside their bounds, plain versions and library
+    calls.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -139,6 +160,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import functools
 import itertools
@@ -158,6 +180,7 @@ import torch
 import torch.nn.functional as F
 
 from stonkgs_tpu_torch import ProtSTonKGsEngine, STonKGsEngine
+from stonkgs_tpu_torch.baselines import kg_baseline, nlp_baseline
 from stonkgs_tpu_torch.config import BertConfig, BigBirdConfig, ProtSTonKGsConfig, STonKGsConfig
 from stonkgs_tpu_torch.data.artifacts import (
     load_kg_artifacts,
@@ -170,6 +193,7 @@ from stonkgs_tpu_torch.data.masking import mask_tokens
 from stonkgs_tpu_torch.data.preprocessing import assemble_entity_half, preprocess_for_embeddings
 from stonkgs_tpu_torch.data.wordpiece import BertTokenizer
 from stonkgs_tpu_torch.models import bert, protstonkgs, stonkgs
+from stonkgs_tpu_torch.models.heads import init_classifier_head
 from stonkgs_tpu_torch.ops import _build
 from stonkgs_tpu_torch.ops.bigbird_sparse import (
     _blocked,
@@ -216,11 +240,12 @@ from stonkgs_tpu_torch.benchmarks import bench_int8_gemm
 from stonkgs_tpu_torch.benchmarks.bigbird_sdpa import gathered_operands, sdpa_mid, to_ctx
 from stonkgs_tpu_torch.benchmarks._util import time_ms
 from stonkgs_tpu_torch.benchmarks.bench_int8_gemm import int8_gemm, int8_gemm_plain
-from stonkgs_tpu_torch.train import pretraining
-from stonkgs_tpu_torch.train.optimizer import AdamW, split_frozen
+from stonkgs_tpu_torch.train import finetuning, pretraining
+from stonkgs_tpu_torch.train.optimizer import AdamW, merge_frozen, split_frozen
 from stonkgs_tpu_torch.utils import hf_loader
 from stonkgs_tpu_torch.utils.convert import params_to
 from stonkgs_tpu_torch.utils.hf_export import save_pretrained
+from stonkgs_tpu_torch.utils.logging import RunLogger
 from stonkgs_tpu_torch.utils.tree import tree_leaves, tree_map
 
 DEV = "cuda"
@@ -850,20 +875,26 @@ def _cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
+def _stonkgs_params(cfg: STonKGsConfig, seed: int = 0) -> dict:
+    """Seeded random STonKGs parameters, fp32 on the CPU, with the KG
+    table's special rows from the backbone run on the card in bf16."""
+    gen = torch.Generator().manual_seed(seed)
+    params = stonkgs.init_stonkgs_params(gen, cfg)
+    kg_vectors = torch.randn(cfg.kg_vocab_size, cfg.bert.hidden_size,
+                             generator=gen).numpy()
+    lm = params_to(params["lm_backbone"], DEV, BF16)
+    params["kg_backbone"] = stonkgs.build_kg_table(lm, cfg.bert, kg_vectors,
+                                                   compute_dtype=BF16).cpu()
+    check(bool(torch.isfinite(params["kg_backbone"]).all()), "KG table not finite")
+    return params
+
+
 def phase_serving(cfg: STonKGsConfig):
     """Serving through STonKGsEngine; returns what phase 5 times and the
     main path's launch counts."""
     t0 = time.perf_counter()
-    gen = torch.Generator().manual_seed(0)
-    params = stonkgs.init_stonkgs_params(gen, cfg)
-    kg_vectors = torch.randn(cfg.kg_vocab_size, cfg.bert.hidden_size,
-                             generator=gen).numpy()
+    params = _stonkgs_params(cfg)
     params_bf16 = params_to(params, DEV, BF16)
-    # the KG table's special rows come from the backbone on the card
-    params["kg_backbone"] = stonkgs.build_kg_table(
-        params_bf16["lm_backbone"], cfg.bert, kg_vectors, compute_dtype=BF16).cpu()
-    params_bf16["kg_backbone"] = params["kg_backbone"].to(DEV, BF16)
-    check(bool(torch.isfinite(params["kg_backbone"]).all()), "KG table not finite")
     log(f"# serving setup (init + KG table): {time.perf_counter() - t0:.1f} s")
 
     feats = _features(cfg, ROWS)
@@ -2346,6 +2377,491 @@ def phase_readme(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# fine-tuning: the CV harness, the TransE layout, ProtSTonKGs, the baselines
+# ---------------------------------------------------------------------------
+
+ALL_KERNELS = {**SERVING_KERNELS, **TRAINING_KERNELS}
+PROT_ALL_KERNELS = {**PROT_SERVING_KERNELS, **PROT_TRAINING_KERNELS}
+FT_ROWS = 80          # the STonKGs CV's rows: two folds of 40
+FT_BATCH = 8          # FinetuneConfig's batch size
+FT_EVAL_BATCH = 64    # and its eval batch size
+FT_LABELS = ("increases", "decreases")
+# trainable leaves that no classification loss reaches: the trunk reads
+# backbone embeddings, not its word embeddings, and the pre-training heads
+# take no part (AdamW leaves a leaf without gradient as it was)
+FT_UNUSED = ("trunk/embeddings/word_embeddings", "cls/")
+
+
+def _ft_labels(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return np.array([FT_LABELS[int(b)] for b in rng.integers(0, 2, n)], object)
+
+
+def _recording_losses(store: list):
+    """A wrapper of ``make_train_step`` whose steps keep each loss."""
+    def wrap(make):
+        def made(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(state, batch):
+                state, m = step(state, batch)
+                store.append(m["loss"].detach())
+                return state, m
+            return run
+        return made
+    return wrap
+
+
+def _keeping_last(store: list):
+    """A wrapper of ``train_classifier`` that keeps the last fold's state."""
+    def wrap(fn):
+        def run(*a, **kw):
+            state, metrics = fn(*a, **kw)
+            store[:] = [state]
+            return state, metrics
+        return run
+    return wrap
+
+
+def _check_counts(label: str, counts: dict, expected: dict) -> None:
+    log(f"# launches {label}: {counts}")
+    for name, want in expected.items():
+        check(counts[name] == want, f"{label}: {name} launched {counts[name]} times, "
+              f"expected {want}")
+
+
+def _check_losses(label: str, losses: list, steps: int) -> list:
+    values = [float(v) for v in losses]
+    log(f"# {label} losses ({len(values)} steps): {values!r}")
+    check(len(values) == steps, f"{label}: {len(values)} steps, expected {steps}")
+    check(all(math.isfinite(v) for v in values), f"{label}: a non-finite loss")
+    return values
+
+
+def _finetune_numerics(cfg_full: STonKGsConfig) -> None:
+    """(a) ``classification_loss`` and its gradients (trunk and
+    classifier) at 2 rows and 2 layers a stack of the full width, hidden
+    dropout 0 and attention dropout 0.1 on the same CPU seeds: the card in
+    fp32 against the CPU in fp32, then the card in bf16 (the Hopper
+    kernels), each leaf by its cosine."""
+    bcfg = dataclasses.replace(cfg_full.bert, num_hidden_layers=2, hidden_dropout_prob=0.0)
+    cfg = cfg_full.replace(bert=bcfg, num_labels=2)
+    gen = torch.Generator().manual_seed(20)
+    params = stonkgs.init_stonkgs_params(gen, cfg, with_classifier=True)
+    params["kg_backbone"] = torch.randn(cfg.kg_table_size, bcfg.hidden_size, generator=gen)
+    batch = {**_features(cfg, 2, seed=21), "labels": np.array([0, 1])}
+
+    def loss_and_grads(device, dtype=F32):
+        p = params_to(params, device)
+        named = _named_leaves({"trunk": p["trunk"], "classifier": p["classifier"]})
+        for t in named.values():
+            t.requires_grad_(True)
+        loss, _ = stonkgs.classification_loss(
+            p, cfg, pretraining.to_device(batch, device), deterministic=False,
+            rng=pretraining.step_rng(0, 0, device), compute_dtype=dtype)
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+        return float(loss.detach()), {n: g.detach().cpu() for n, g in zip(named, grads)
+                                      if g is not None}
+
+    before = flash_attention_train_bwd.launches
+    loss_card, g_card = loss_and_grads(DEV)
+    check(flash_attention_train_bwd.launches > before, "the card run launched no kernel")
+    loss_cpu, g_cpu = loss_and_grads("cpu")
+    check({"classifier/kernel", "classifier/bias"} <= g_cpu.keys(),
+          "the classifier's leaves got no gradient")
+    check(g_card.keys() == g_cpu.keys(), "card and CPU differ in their gradient leaves")
+    err = max(float((g_card[n] - g_cpu[n]).abs().max()) for n in g_cpu)
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    log(f"# finetune card fp32 vs CPU fp32 (2 rows, 2 layers, attention dropout "
+        f"{ATTN_RATE}): loss {loss_card!r} vs {loss_cpu!r}; {len(g_cpu)} trunk and "
+        f"classifier grads max_abs_err {err!r} of max |grad| {scale!r} (limits: loss 1e-4 "
+        f"relative, grads 1e-3 of max |grad|)")
+    check(abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu),
+          "fine-tuning card loss disagrees with the CPU")
+    check(err <= 1e-3 * scale, "fine-tuning card gradients disagree with the CPU")
+
+    loss_bf16, g_bf16 = loss_and_grads(DEV, BF16)
+    check(g_bf16.keys() == g_cpu.keys(), "card bf16 and CPU differ in their gradient leaves")
+    norm_max = max(float(g.norm()) for g in g_cpu.values())
+    cosines = {}
+    for n, want in g_cpu.items():
+        got, w = g_bf16[n].double().flatten(), want.double().flatten()
+        if n.endswith(ZERO_GRAD_LEAVES):
+            check(float(w.norm()) <= 1e-6 * norm_max and float(got.norm()) <= 1e-4 * norm_max,
+                  f"{n}: a gradient that should cancel reads {float(w.norm())!r} (CPU), "
+                  f"{float(got.norm())!r} (card bf16) of the largest leaf norm {norm_max!r}")
+            continue
+        cosines[n] = float(got @ w / (got.norm() * w.norm()))
+    worst = min(cosines, key=cosines.get)
+    rel = abs(loss_bf16 - loss_cpu) / abs(loss_cpu)
+    log(f"# finetune card bf16 vs CPU fp32: loss {loss_bf16!r} vs {loss_cpu!r} ({rel!r} "
+        f"relative; limit 1e-2); {len(cosines)} leaves, lowest cosine {cosines[worst]!r} "
+        f"({worst}; limit 0.99); classifier kernel {cosines['classifier/kernel']!r}, bias "
+        f"{cosines['classifier/bias']!r}")
+    check(rel <= 1e-2, "fine-tuning card bf16 loss disagrees with the CPU")
+    check(cosines[worst] >= 0.99, f"fine-tuning card bf16 gradient {worst} disagrees")
+
+
+def _finetune_cv(cfg: STonKGsConfig, params: dict, card: str) -> dict:
+    """(b) ``run_sequence_classification_cv`` at full width on 80 rows:
+    2 folds, 1 epoch, B=8, eval B=64, bf16 compute, fp32 parameters on
+    the card; the main path, counts from 0 just before it.  Returns its
+    counts."""
+    feats, labels = _features(cfg, FT_ROWS, seed=22), _ft_labels(FT_ROWS, 22)
+    before = tree_map(torch.clone, params)
+    run_cfg = finetuning.FinetuneConfig(epochs=1, batch_size=FT_BATCH, cv=2,
+                                        eval_batch_size=FT_EVAL_BATCH,
+                                        compute_dtype="bfloat16")
+    losses, last = [], []
+    with tempfile.TemporaryDirectory(prefix="stonkgs_finetune_") as tmp:
+        with RunLogger(log_dir=tmp, experiment="smoke", run_name="cv", stdout=False) as logger, \
+                _wrapped(finetuning, "make_train_step", _recording_losses(losses)), \
+                _wrapped(finetuning, "train_classifier", _keeping_last(last)):
+            _reset_counts(ALL_KERNELS)
+            t0 = time.perf_counter()
+            result = finetuning.run_sequence_classification_cv(
+                feats, labels, params, cfg, run_cfg, task_name="smoke", output_dir=tmp,
+                logger=logger)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _counts(ALL_KERNELS)
+        log(f"# finetune CV ({FT_ROWS} rows, 2 folds, B={FT_BATCH}, bf16): {result} in "
+            f"{seconds!r} s, export included ({card})")
+        steps = 2 * (FT_ROWS // 2 // FT_BATCH)
+        layers = cfg.bert.num_hidden_layers
+        _check_counts("finetune CV", counts, {
+            "flash_attention_train_fwd": 2 * layers * steps,
+            "flash_attention_train_bwd": layers * steps,
+            "ffn_train_fwd": 2 * layers * steps, "ffn_train_bwd": layers * steps,
+            "ffn_ln_block": (2 * layers - 1) * 2, "flash_attention_infer": (2 * layers - 1) * 2})
+        _check_losses("finetune CV", losses, steps)
+        with open(os.path.join(tmp, "smoke-cv.jsonl")) as f:
+            f1s = [r["value"] for r in map(json.loads, f)
+                   if r["type"] == "metric" and r["key"] == "f1_score_weighted"]
+        check(len(f1s) == 2 and all(0.0 <= v <= 1.0 for v in f1s), f"fold F1s {f1s}")
+
+        same = [k for k, (a, b) in _paired(params, before) if not torch.equal(a, b)]
+        check(not same, f"the pretrained tree passed in changed: {same[:5]}")
+        state = last[0]
+        trained = _named_leaves(split_frozen(state.params)[0])
+        ref = _named_leaves(split_frozen(before)[0])
+        unchanged = [k for k in ref if torch.equal(trained[k], ref[k])]
+        log(f"# finetune trainable leaves unchanged after the last fold: {len(unchanged)} of "
+            f"{len(ref)} ({[k for k in unchanged if not k.startswith('cls/')]} and cls/*)")
+        check(all(k.startswith(FT_UNUSED) for k in unchanged), "a trainable leaf did not change")
+        head = init_classifier_head(torch.Generator().manual_seed(run_cfg.seed + 2),
+                                    cfg.bert, len(FT_LABELS))
+        check(not torch.equal(trained["classifier/kernel"].cpu(), head["kernel"]),
+              "the classifier did not train")
+
+        with open(os.path.join(tmp, "predicted_labels_stonkgs_smokedf.tsv"), newline="") as f:
+            rows = list(csv.reader(f, delimiter="\t"))
+        check(rows[0] == ["split", "index", "predicted_label", "true_label"],
+              f"TSV header {rows[0]}")
+        check(len(rows) == 1 + FT_ROWS and sorted(int(r[1]) for r in rows[1:])
+              == list(range(FT_ROWS)), "the TSV does not hold every row once")
+        check(all(r[2] in FT_LABELS and r[3] in FT_LABELS for r in rows[1:]),
+              "a TSV label outside the label set")
+        check([r[3] for r in sorted(rows[1:], key=lambda r: int(r[1]))] == list(labels),
+              "the TSV's true labels differ from the rows'")
+
+        sd = hf_loader.load_state_dict(os.path.join(tmp, "smoke"))
+        back = _named_leaves(hf_loader.stonkgs_params_from_state_dict(
+            sd, cfg.replace(num_labels=len(FT_LABELS))))
+        mem = _named_leaves(state.params)
+        diff = [k for k in back if not torch.equal(back[k], mem[k].cpu())]
+        log(f"# finetune export read back: {len(back)} leaves, {len(diff)} differ from the "
+            f"last fold's parameters")
+        check("classifier/kernel" in back and not diff,
+              f"the exported model differs from the last fold's: {diff[:5]}")
+    del last, state, before
+    return counts
+
+
+def _paired(a: dict, b: dict):
+    na, nb = _named_leaves(a), _named_leaves(b)
+    check(na.keys() == nb.keys(), "the trees differ in their leaves")
+    return [(k, (na[k], nb[k])) for k in na]
+
+
+def _transe_params(params: dict, tcfg: STonKGsConfig) -> dict:
+    """The STonKGs parameters with both position tables cut to the TransE
+    layout's 260 rows (widths unchanged)."""
+    out = dict(params)
+    for key in ("trunk", "lm_backbone"):
+        emb = dict(params[key]["embeddings"])
+        emb["position_embeddings"] = emb["position_embeddings"][
+            :tcfg.bert.max_position_embeddings]
+        out[key] = {**params[key], "embeddings": emb}
+    return out
+
+
+def _finetune_transe(cfg: STonKGsConfig, params: dict) -> dict:
+    """(c) The TransE layout (256 + 4, S=260) at full width: the CV with
+    ``cv=1`` (the first of 5 folds), 1 epoch on 40 rows; counts from 0
+    just before it."""
+    tcfg = STonKGsConfig.transe(cfg.kg_vocab_size,
+                                bert=dataclasses.replace(cfg.bert, max_position_embeddings=260))
+    tparams = _transe_params(params, tcfg)
+    n = 40
+    feats, labels = _features(tcfg, n, seed=23), _ft_labels(n, 23)
+    run_cfg = finetuning.FinetuneConfig(epochs=1, batch_size=FT_BATCH, cv=1,
+                                        eval_batch_size=FT_EVAL_BATCH, compute_dtype="bfloat16")
+    losses = []
+    with _wrapped(finetuning, "make_train_step", _recording_losses(losses)):
+        _reset_counts(ALL_KERNELS)
+        result = finetuning.run_sequence_classification_cv(feats, labels, tparams, tcfg, run_cfg)
+        torch.cuda.synchronize()
+        counts = _counts(ALL_KERNELS)
+    log(f"# finetune TransE (S={tcfg.seq_len}, {n} rows, cv=1): {result}")
+    steps, layers = (n - n // 5) // FT_BATCH, tcfg.bert.num_hidden_layers
+    _check_counts("finetune TransE", counts, {
+        "flash_attention_train_fwd": 2 * layers * steps,
+        "flash_attention_train_bwd": layers * steps,
+        "ffn_train_fwd": 2 * layers * steps, "ffn_train_bwd": layers * steps,
+        "ffn_ln_block": 2 * layers - 1, "flash_attention_infer": 2 * layers - 1})
+    _check_losses("finetune TransE", losses, steps)
+    return counts
+
+
+def _finetune_prot(pcfg: ProtSTonKGsConfig, pparams: dict) -> dict:
+    """(d) ProtSTonKGs at full width: the CV with ``cv=1``, 1 epoch on 20
+    rows at B=2 (the training plan), eval B=8; counts from 0 just before
+    it; the three backbones bit-unchanged."""
+    params = params_to(pparams, DEV)
+    frozen_before = tree_map(torch.clone, split_frozen(params)[1])
+    n, B = 20, PROT_TRAIN_BATCH
+    feats, labels = _prot_features(pcfg, n, seed=24), _ft_labels(n, 24)
+    run_cfg = finetuning.FinetuneConfig(epochs=1, batch_size=B, cv=1,
+                                        eval_batch_size=PROT_BATCH, compute_dtype="bfloat16")
+    losses = []
+    with _wrapped(finetuning, "make_train_step", _recording_losses(losses)):
+        _reset_counts(PROT_ALL_KERNELS)
+        result = finetuning.run_sequence_classification_cv(
+            feats, labels, params, pcfg, run_cfg, loss_fn=protstonkgs.classification_loss,
+            logits_fn=protstonkgs.classification_logits, trunk_cfg=pcfg.trunk)
+        torch.cuda.synchronize()
+        counts = _counts(PROT_ALL_KERNELS)
+    log(f"# finetune ProtSTonKGs ({n} rows, cv=1, B={B}): {result}")
+    steps = (n - n // 5) // B
+    t, lm, prot = pcfg.trunk, pcfg.lm, pcfg.prot
+    _check_counts("finetune ProtSTonKGs", counts, {
+        "bigbird_mid_fwd": t.num_hidden_layers * steps + t.num_hidden_layers - 1,
+        "bigbird_mid_bwd": t.num_hidden_layers * steps,
+        "ffn_train_fwd": (lm.num_hidden_layers + prot.num_hidden_layers
+                          + t.num_hidden_layers) * steps,
+        "ffn_train_bwd": t.num_hidden_layers * steps,
+        "flash_attention_train_fwd": (lm.num_hidden_layers + prot.num_hidden_layers) * steps,
+        "flash_attention_train_bwd": 0,
+        "ffn_ln_block": lm.num_hidden_layers + prot.num_hidden_layers
+        + t.num_hidden_layers - 1,
+        "flash_attention_infer": lm.num_hidden_layers + prot.num_hidden_layers})
+    _check_losses("finetune ProtSTonKGs", losses, steps)
+    frozen_after = split_frozen(params)[1]
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(frozen_before),
+                                                tree_leaves(frozen_after))),
+          "a frozen ProtSTonKGs backbone changed")
+    return counts
+
+
+def _nlp_features(bcfg: BertConfig, n: int, seed: int, S: int = 512) -> dict:
+    """Evidence-only rows: uniform word pieces, true lengths 10..S."""
+    rng = np.random.default_rng(seed)
+    keep = np.arange(S)[None, :] < rng.integers(10, S + 1, n)[:, None]
+    ids = np.where(keep, rng.integers(4, bcfg.vocab_size, (n, S)), 0)
+    return {"input_ids": ids.astype(np.int64), "attention_mask": keep.astype(np.int64)}
+
+
+def _finetune_nlp(bcfg: BertConfig, lm_params: dict) -> dict:
+    """(e) The NLP baseline: BioBERT 12 x 768 (the STonKGs LM backbone's
+    parameters) trained with its classifier at S=512, B=16, ``cv=1``, 1
+    epoch on 40 rows (2 steps), in fp32 (the default; the fp32 bodies)
+    and in bf16; counts from 0 just before each.  Returns their sum."""
+    n, B = 40, 16
+    feats, labels = _nlp_features(bcfg, n, 25), _ft_labels(n, 25)
+    steps, layers = (n - n // 5) // B, bcfg.num_hidden_layers
+    total = {}
+    for dtype in ("float32", "bfloat16"):
+        losses = []
+        with _wrapped(nlp_baseline, "make_train_step", _recording_losses(losses)):
+            _reset_counts(ALL_KERNELS)
+            t0 = time.perf_counter()
+            result = nlp_baseline.run_nlp_baseline_cv(
+                bcfg, feats, labels, pretrained_bert=lm_params, epochs=1, batch_size=B, cv=1,
+                compute_dtype=dtype, device=DEV)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _counts(ALL_KERNELS)
+        log(f"# finetune NLP baseline {dtype} ({n} rows, cv=1, B={B}): {result} in "
+            f"{seconds!r} s")
+        _check_counts(f"finetune NLP baseline {dtype}", counts, {
+            "flash_attention_train_fwd": layers * steps,
+            "flash_attention_train_bwd": layers * steps,
+            "ffn_train_fwd": layers * steps, "ffn_train_bwd": layers * steps,
+            "ffn_ln_block": layers, "flash_attention_infer": layers})
+        _check_losses(f"finetune NLP baseline {dtype}", losses, steps)
+        for name, c in counts.items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
+def _finetune_kg(card: str) -> None:
+    """(f) The KG baseline at the reference's defaults (10 epochs, lr
+    1e-3): node2vec features (N, 254, 768) of 200 rows over 1,000 random
+    entities (vectors N(0, 0.1^2)), on the card, with the class written
+    as +-1 into 8 dimensions (a separable task); 2-fold CV, F1 above 0.9."""
+    n = 200
+    art = make_random_artifacts(1_000, dim=768, rw_len=README_RW_LEN, seed=26)
+    art.vectors *= 0.1
+    rng = np.random.default_rng(26)
+    src = [art.names[i] for i in rng.integers(0, 1_000, n)]
+    tgt = [art.names[i] for i in rng.integers(0, 1_000, n)]
+    t0 = time.perf_counter()
+    x = torch.from_numpy(kg_baseline.build_node2vec_features(art, src, tgt)).to(DEV)
+    y = rng.integers(0, 2, n)
+    x[:, :, :8] = torch.from_numpy(np.where(y == 1, 1.0, -1.0)).to(DEV, F32)[:, None, None]
+    build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = kg_baseline.run_kg_baseline_cv(x, np.array([FT_LABELS[v] for v in y], object),
+                                            cv=2, seed=1)
+    torch.cuda.synchronize()
+    log(f"# finetune KG baseline: features {tuple(x.shape)} built in {build!r} s; 2-fold CV "
+        f"{result} in {time.perf_counter() - t0!r} s ({card})")
+    check(result["f1_score_mean"] > 0.9, f"KG baseline F1 {result['f1_score_mean']!r}")
+
+
+class _TimedAdamW(AdamW):
+    """AdamW whose update is timed alone, synchronised on both sides."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.seconds = []
+
+    def update_and_apply(self, grads, state, params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        super().update_and_apply(grads, state, params)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+
+
+def _time_steps(label: str, step, state, batch, tx: _TimedAdamW, card: str):
+    """The median of 6 steps after 2 of warm-up, each synchronised by its
+    loss, split into forward+backward and the optimizer."""
+    total = []
+    for i in range(2 + 6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        if i >= 2:
+            total.append(time.perf_counter() - t0)
+        check(math.isfinite(loss), f"{label}: non-finite loss in the timed steps")
+    opt = tx.seconds[2:]
+    med, med_opt = statistics.median(total), statistics.median(opt)
+    B = len(batch["input_ids"])
+    log(f"# {label} step B={B} bf16: seconds {total!r}; median {med * 1e3!r} ms, "
+        f"{B / med!r} examples/s; forward+backward {(med - med_opt) * 1e3!r} ms, optimizer "
+        f"{med_opt * 1e3!r} ms (median of {opt!r} s, synchronised alone); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB ({card})")
+    return state
+
+
+def _finetune_timing(cfg: STonKGsConfig, params: dict, card: str) -> dict:
+    """(g) The fine-tuning step at B=8 and the NLP baseline's at B=16,
+    ``predict`` at B=64, then the training kernels at fine-tuning's
+    shapes beside their bounds, plain versions and library calls.
+    Returns per kernel the trunk shape's numbers."""
+    ccfg = cfg.replace(num_labels=len(FT_LABELS))
+    train, frozen = split_frozen(params)
+    train = {k: tree_map(torch.clone, v) for k, v in train.items()}
+    train["classifier"] = params_to(init_classifier_head(
+        torch.Generator().manual_seed(27), cfg.bert, len(FT_LABELS)), DEV)
+    tx = _TimedAdamW(total_steps=1000)
+    state = pretraining.init_train_state(merge_frozen(train, frozen), tx)
+    step = pretraining.make_train_step(ccfg, tx, loss_fn=stonkgs.classification_loss,
+                                       compute_dtype=BF16)
+    feats = _features(cfg, 256, seed=28)
+    batch = pretraining.to_device({**{k: v[:FT_BATCH] for k, v in feats.items()},
+                                   "labels": np.arange(FT_BATCH) % 2}, DEV)
+    torch.cuda.reset_peak_memory_stats()
+    state = _time_steps("finetune", step, state, batch, tx, card)
+    _, seconds = _timed(lambda: finetuning.predict(ccfg, state.params, feats,
+                                                   batch_size=FT_EVAL_BATCH))
+    log(f"# finetune predict B={FT_EVAL_BATCH} bf16: {len(feats['input_ids'])} rows, seconds "
+        f"{seconds!r}; median {len(feats['input_ids']) / statistics.median(seconds)!r} "
+        f"sequences/s ({card})")
+    del state, step, tx, train
+
+    bcfg = cfg.bert
+    nparams = tree_map(lambda t: t.to(DEV, copy=True), nlp_baseline.init_nlp_baseline_params(
+        torch.Generator().manual_seed(29), bcfg, 2, pretrained_bert=params["lm_backbone"]))
+    tx = _TimedAdamW(total_steps=1000)
+    step = pretraining.make_train_step(bcfg, tx, loss_fn=nlp_baseline.classification_loss,
+                                       compute_dtype=BF16)
+    batch = pretraining.to_device({**_nlp_features(bcfg, 16, 30), "labels": np.arange(16) % 2},
+                                  DEV)
+    torch.cuda.reset_peak_memory_stats()
+    _time_steps("NLP baseline", step, pretraining.init_train_state(nparams, tx), batch, tx,
+                card)
+    del nparams, step, tx
+
+    gen = torch.Generator().manual_seed(31)
+    B, sl, tl = FT_BATCH, cfg.seq_len, cfg.text_len
+    cases = [
+        ("ffn_train_fwd", f"finetune trunk M={B * sl}",
+         lambda lb: _time_train_ffn(lb, B * sl, gen, False)),
+        ("ffn_train_bwd", f"finetune trunk M={B * sl}",
+         lambda lb: _time_train_ffn(lb, B * sl, gen, True)),
+        ("ffn_train_fwd:backbone", f"finetune backbone M={B * tl}",
+         lambda lb: _time_train_ffn(lb, B * tl, gen, False)),
+        ("flash_attention_train_fwd", f"finetune trunk B={B} S={sl} mask",
+         lambda lb: _time_train_attention(lb, B, sl, True, gen, False)),
+        ("flash_attention_train_bwd", f"finetune trunk B={B} S={sl} mask",
+         lambda lb: _time_train_attention(lb, B, sl, True, gen, True)),
+        ("flash_attention_train_fwd:backbone", f"finetune backbone B={B} S={tl} no-bias",
+         lambda lb: _time_train_attention(lb, B, tl, False, gen, False)),
+    ]
+    result = {}
+    for key, label, fn in cases:
+        t = fn(label)
+        log(f"# time {key.split(':')[0]} {label} bf16 ({card}): {json.dumps(t)}")
+        result[key] = t
+    return result
+
+
+def phase_finetune(card: str, params: Optional[dict] = None,
+                   pparams: Optional[dict] = None):
+    """Fine-tuning on the card: (a) numerics, (b) the STonKGs CV, (c) the
+    TransE layout, (d) ProtSTonKGs, (e) the NLP baseline, (f) the KG
+    baseline, (g) timing.  ``params`` and ``pparams`` are phase 5's and
+    phase 11's CPU parameters (made here when not given).  Returns the
+    main paths' launch counts, summed, and (g)'s kernel times."""
+    t0 = time.perf_counter()
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000)
+    pcfg = _prot_cfg()
+    if params is None:
+        params = _stonkgs_params(cfg)
+    if pparams is None:
+        pparams = _prot_params(pcfg, seed=10, dtype=BF16)
+    _finetune_numerics(cfg)
+    card_params = params_to(params, DEV)      # fp32 parameters on the card
+    counts = {}
+    for counted in (_finetune_cv(cfg, card_params, card),
+                    _finetune_transe(cfg, card_params),
+                    _finetune_prot(pcfg, pparams),
+                    _finetune_nlp(cfg.bert, params["lm_backbone"])):
+        for name, c in counted.items():
+            counts[name] = counts.get(name, 0) + c
+    _finetune_kg(card)
+    times = _finetune_timing(cfg, card_params, card)
+    del card_params
+    torch.cuda.empty_cache()
+    log(f"# finetune phase: {time.perf_counter() - t0:.1f} s")
+    return counts, times
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -2380,11 +2896,10 @@ def main() -> int:
                 t["max_abs_err"] for k, t in prot_times.items() if k.startswith(name + ":")))
         errs.update(phase_int8_kernels())
         int8_counts = phase_int8_serving(cfg, params, feats)
-        del params
         for counted in (int8_counts, phase_prot_int8_serving(pcfg, pparams, engine, pfeats)):
             for name, c in counted.items():
                 counts[name] = counts.get(name, 0) + c
-        del engine, pparams
+        del engine
         int8_times, times["int8_gemm"], counts["int8_gemm"] = phase_int8_timing()
         # the trunk's FFN-in shape goes into the kernel line, with the
         # worst error of every path shape
@@ -2392,6 +2907,14 @@ def main() -> int:
             t["max_abs_err"] for t in int8_times.values()))
         for name, c in phase_readme(card).items():
             counts[name] += c
+        ft_counts, ft_times = phase_finetune(card, params, pparams)
+        del params, pparams
+        for name, c in ft_counts.items():
+            counts[name] += c
+        # the fine-tuning shapes' worst error goes into the kernel line
+        for key, t in ft_times.items():
+            name = key.split(":")[0]
+            times[name]["max_abs_err"] = max(times[name]["max_abs_err"], t["max_abs_err"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -3,14 +3,16 @@ CUDA card.
 
 Run from the root of a checkout, with one CUDA card visible:
 
-    python3 profile_train_step.py [--model stonkgs|protstonkgs] [--serve [--int8]]
-                                  [--out profile_train_step.json]
+    python3 profile_train_step.py [--model stonkgs|stonkgs-finetune|protstonkgs]
+                                  [--serve [--int8]] [--out profile_train_step.json]
 
 Builds the port's kernels and makes the full-width model of
 ``chip_smoke.py`` with random seeded weights: STonKGs (BERT-base backbone
-and trunk, 256 + 256, KG vocabulary 100,000; B=32) or ProtSTonKGs
-(BigBird trunk, BioBERT, ProtBERT 30 x 1024, 4096 tokens, KG vocabulary
-20,000; B=2 with the training plan).  It runs two warm-up steps of
+and trunk, 256 + 256, KG vocabulary 100,000; B=32), the same model
+fine-tuned (``classification_loss``, two labels, B=8: a step of the
+fine-tuning battery) or ProtSTonKGs (BigBird trunk, BioBERT, ProtBERT
+30 x 1024, 4096 tokens, KG vocabulary 20,000; B=2 with the training
+plan).  It runs two warm-up steps of
 ``make_train_step`` in bf16 with fp32 parameters, then traces three steps
 with ``torch.profiler`` (each step synchronised through its loss).  With
 ``--serve`` it traces three embed batches in bf16 instead
@@ -20,7 +22,8 @@ serving: every dense but the pooler through ``dense_int8``).  It prints
 the device time by kernel, the device time by group (the port's kernels,
 cuBLAS products, everything else), and the device's busy share of the
 traced wall time (the sum of kernel times over the wall time: one stream,
-so kernels do not overlap), and writes the groups to ``--out``.
+so kernels do not overlap), the operators with the most host time, and
+writes the groups to ``--out``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -100,13 +104,16 @@ def group_of(name: str, serve: bool = False) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="profile_train_step.json")
-    ap.add_argument("--model", choices=("stonkgs", "protstonkgs"), default="stonkgs")
+    ap.add_argument("--model", choices=("stonkgs", "stonkgs-finetune", "protstonkgs"),
+                    default="stonkgs")
     ap.add_argument("--serve", action="store_true", help="trace the engine's embed batches")
     ap.add_argument("--int8", action="store_true",
                     help="with --serve: the engine on quantize_params output")
     args = ap.parse_args()
     if args.int8 and not args.serve:
         ap.error("--int8 traces int8 serving: pass --serve")
+    if args.serve and args.model == "stonkgs-finetune":
+        ap.error("--serve traces the engines: pass --model stonkgs or protstonkgs")
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device", file=sys.stderr)
         return 1
@@ -119,7 +126,9 @@ def main() -> int:
         embed = _prot_embed if args.model == "protstonkgs" else _stonkgs_embed
         run, batch_size = embed(args.int8)
     else:
-        run, batch_size = _prot_train() if args.model == "protstonkgs" else _stonkgs_train()
+        run, batch_size = {"stonkgs": _stonkgs_train, "protstonkgs": _prot_train,
+                           "stonkgs-finetune": functools.partial(_stonkgs_train, True)
+                           }[args.model]()
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -142,6 +151,8 @@ def main() -> int:
         g["ms_per_step"] += e.self_device_time_total / 1e3 / STEPS
         g["launches_per_step"] += e.count / STEPS
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
+    # the host's side: the operators that take the most CPU time
+    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=20))
     step_ms = wall_ms / STEPS
     busy = device_ms / wall_ms
     mode = (" int8" if args.int8 else "") + (" embed" if args.serve else "")
@@ -167,22 +178,32 @@ def main() -> int:
     return 0
 
 
-def _stonkgs_train():
-    """One STonKGs train step at B=32, synchronised through its loss."""
-    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000)
+def _stonkgs_train(finetune: bool = False):
+    """One STonKGs train step at B=32, synchronised through its loss; with
+    ``finetune`` a fine-tuning step (a classifier head, two labels,
+    ``classification_loss``) at B=8."""
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000,
+                        num_labels=2 if finetune else None)
     gen = torch.Generator().manual_seed(0)
-    params = stonkgs.init_stonkgs_params(gen, cfg)
+    params = stonkgs.init_stonkgs_params(gen, cfg, with_classifier=finetune)
     params["kg_backbone"] = torch.randn(cfg.kg_table_size, cfg.bert.hidden_size, generator=gen)
     tx = AdamW(total_steps=1000)
     state = pretraining.init_train_state(params_to(params, "cuda"), tx)
-    step = pretraining.make_train_step(cfg, tx, compute_dtype=torch.bfloat16)
-    batch = pretraining.to_device(
-        chip_smoke._pretraining_features(cfg, chip_smoke.TRAIN_BATCH), "cuda")
+    if finetune:
+        B = chip_smoke.FT_BATCH
+        step = pretraining.make_train_step(cfg, tx, loss_fn=stonkgs.classification_loss,
+                                           compute_dtype=torch.bfloat16)
+        feats = {**chip_smoke._features(cfg, B), "labels": np.arange(B) % 2}
+    else:
+        B = chip_smoke.TRAIN_BATCH
+        step = pretraining.make_train_step(cfg, tx, compute_dtype=torch.bfloat16)
+        feats = chip_smoke._pretraining_features(cfg, B)
+    batch = pretraining.to_device(feats, "cuda")
 
     def run():
         _, m = step(state, batch)
         float(m["loss"])
-    return run, chip_smoke.TRAIN_BATCH
+    return run, B
 
 
 def _prot_train():

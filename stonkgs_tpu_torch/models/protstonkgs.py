@@ -207,14 +207,26 @@ def pretraining_loss(
 
 def classification_logits(params: dict, cfg: ProtSTonKGsConfig, batch: dict, *,
                           deterministic: bool = True,
-                          compute_dtype: torch.dtype = torch.float32,
+                          rng: Optional[DropoutRng] = None,
                           **kw) -> torch.Tensor:
-    """Sequence-classification forward, evaluation only (the trunk's last
-    layer at [CLS] alone); the training half belongs to fine-tuning,
-    which is not ported."""
-    if not deterministic:
-        raise NotImplementedError("fine-tuning (classification training) is not ported")
-    kw.setdefault("cls_only", True)
+    """Sequence-classification forward (``stonkgs_tpu/models/
+    protstonkgs.py:288-307``); ``kw`` goes to :func:`trunk_forward`.
+
+    Evaluation runs the trunk's last layer at [CLS] alone; training runs
+    the whole trunk (by default with the seeded training plan of its
+    block-sparse layers), then the classifier's dropout at the trunk's
+    hidden dropout rate."""
+    kw.setdefault("cls_only", deterministic)
     _, pooled = trunk_forward(params, cfg, batch["input_ids"], batch.get("attention_mask"),
-                              compute_dtype=compute_dtype, **kw)
-    return classifier_head(params["classifier"], pooled)
+                              deterministic=deterministic, rng=rng, **kw)
+    return classifier_head(params["classifier"], pooled,
+                           dropout_prob=cfg.trunk.hidden_dropout_prob, rng=rng,
+                           deterministic=deterministic)
+
+
+def classification_loss(params: dict, cfg: ProtSTonKGsConfig, batch: dict,
+                        **kw) -> Tuple[torch.Tensor, dict]:
+    """Cross entropy and accuracy of :func:`classification_logits`
+    against ``batch["labels"]``: (loss, {"loss", "accuracy"})."""
+    return stonkgs.classification_metrics(
+        classification_logits(params, cfg, batch, **kw), batch["labels"])

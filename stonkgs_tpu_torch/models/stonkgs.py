@@ -2,9 +2,9 @@
 
 The port of the JAX package's ``stonkgs_tpu/models/stonkgs.py``: parameter
 init, the KG table, the frozen backbones, the trunk, the pooled output and
-classification logits (serving), and the pre-training logits and loss
-(MLM + ELM on the gathered masked positions, plus NSP).  Quirks kept on
-purpose:
+classification logits and loss (serving and fine-tuning), and the
+pre-training logits and loss (MLM + ELM on the gathered masked positions,
+plus NSP).  Quirks kept on purpose:
 
 * the frozen LM backbone runs with NO attention mask and attends over
   PAD positions, as the reference model does;
@@ -191,13 +191,42 @@ def pooler_output(params: dict, cfg: STonKGsConfig, batch: dict, *,
 
 def classification_logits(params: dict, cfg: STonKGsConfig, batch: dict, *,
                           deterministic: bool = True,
-                          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Sequence-classification forward (evaluation: no dropout; the
-    training half belongs to fine-tuning, which is not ported)."""
-    if not deterministic:
-        raise NotImplementedError("fine-tuning (classification training) is not ported")
-    pooled = pooler_output(params, cfg, batch, compute_dtype=compute_dtype)
-    return classifier_head(params["classifier"], pooled)
+                          rng: Optional[DropoutRng] = None,
+                          **kw) -> torch.Tensor:
+    """Sequence-classification forward (``stonkgs_tpu/models/stonkgs.py:
+    371-398``); ``kw`` goes to :func:`trunk_forward`.
+
+    Evaluation runs the trunk's last layer at [CLS] alone (``cls_only``);
+    training (``deterministic=False`` with the step's :class:`DropoutRng`)
+    runs the whole trunk through the training kernels, then the
+    classifier's dropout at the hidden dropout rate.  ``position_ids`` in
+    the batch reach the trunk."""
+    kw.setdefault("cls_only", deterministic)
+    kw.setdefault("position_ids", batch.get("position_ids"))
+    _, pooled = trunk_forward(
+        params, cfg, batch["input_ids"], batch.get("attention_mask"),
+        batch.get("token_type_ids"), deterministic=deterministic, rng=rng, **kw)
+    return classifier_head(params["classifier"], pooled,
+                           dropout_prob=cfg.bert.hidden_dropout_prob, rng=rng,
+                           deterministic=deterministic)
+
+
+def classification_loss(params: dict, cfg: STonKGsConfig, batch: dict,
+                        **kw) -> Tuple[torch.Tensor, dict]:
+    """Cross entropy of :func:`classification_logits` against
+    ``batch["labels"]``; returns (loss, {"loss", "accuracy"}).  ``kw`` are
+    :func:`make_train_step`'s (``deterministic``, ``rng``,
+    ``compute_dtype``) and :func:`trunk_forward`'s."""
+    return classification_metrics(classification_logits(params, cfg, batch, **kw),
+                                  batch["labels"])
+
+
+def classification_metrics(logits: torch.Tensor,
+                           labels: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """(cross entropy, {"loss", "accuracy"}) of classification logits."""
+    loss = masked_cross_entropy(logits, labels)
+    accuracy = (logits.argmax(dim=-1) == labels).float().mean()
+    return loss, {"loss": loss, "accuracy": accuracy}
 
 
 def pretraining_logits(

@@ -1,35 +1,67 @@
-"""Losses of the pre-training path, with torch ``CrossEntropyLoss`` semantics.
+"""Losses, with torch ``CrossEntropyLoss`` semantics.
 
-The port of ``masked_cross_entropy`` and ``gather_masked_positions`` from
-the JAX package's ``stonkgs_tpu/ops/losses.py``: the MLM and ELM losses
-decode only the gathered masked positions instead of (B, S, vocab) logits.
+The port of the JAX package's ``stonkgs_tpu/ops/losses.py``: the masked
+cross entropy of pre-training and classification (the MLM and ELM losses
+decode only the gathered masked positions instead of (B, S, vocab)
+logits), the class-weighted cross entropy of the KG baseline, and MSE and
+BCE-with-logits.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 IGNORE_INDEX = -100
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[label] in fp32 (labels already in range)."""
+    logits_f = logits.float()
+    lse = torch.logsumexp(logits_f, dim=-1)
+    return lse - torch.gather(logits_f, -1, labels.to(torch.int64)[..., None])[..., 0]
+
+
 def masked_cross_entropy(
     logits: torch.Tensor,   # (..., V)
     labels: torch.Tensor,   # (...,) int, IGNORE_INDEX to skip
+    *,
+    label_weights: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Mean cross entropy in fp32 over positions where labels != -100.
+    """Mean cross entropy in fp32 over positions where labels != -100,
+    each position weighted by ``label_weights`` where given.
 
     Matches ``torch.nn.CrossEntropyLoss(ignore_index=-100)`` (reduction
     ``mean``) except that an all-ignored batch yields 0 instead of NaN
     (``stonkgs_tpu/ops/losses.py:23-45``)."""
     valid = labels != IGNORE_INDEX
-    safe = torch.where(valid, labels, 0).to(torch.int64)
-    logits_f = logits.float()
-    lse = torch.logsumexp(logits_f, dim=-1)
-    target = torch.gather(logits_f, -1, safe[..., None])[..., 0]
     w = valid.float()
-    return ((lse - target) * w).sum() / w.sum().clamp_min(1.0)
+    if label_weights is not None:
+        w = w * label_weights
+    nll = _nll(logits, torch.where(valid, labels, 0))
+    return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
+def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           class_weights: torch.Tensor) -> torch.Tensor:
+    """``torch.nn.CrossEntropyLoss(weight=class_weights)``:
+    sum(w_y · nll) / sum(w_y), the KG baseline's loss
+    (``stonkgs_tpu/ops/losses.py:48-60``)."""
+    w = class_weights[labels]
+    return (_nll(logits, labels) * w).sum() / w.sum().clamp_min(1e-9)
+
+
+def mse_loss(preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean squared error in fp32."""
+    return (preds.float() - targets.float()).square().mean()
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``torch.nn.BCEWithLogitsLoss`` (mean reduction) in fp32, in the JAX
+    package's stable form max(z, 0) - z·t + log1p(exp(-|z|))."""
+    z, t = logits.float(), targets.float()
+    return (z.clamp_min(0) - z * t + torch.log1p(torch.exp(-z.abs()))).mean()
 
 
 def gather_masked_positions(

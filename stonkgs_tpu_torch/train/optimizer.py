@@ -3,9 +3,10 @@
 The port of the JAX package's ``stonkgs_tpu/train/optimizer.py``: AdamW
 (b1 0.9, b2 0.999, eps 1e-8), weight decay on leaves with ndim >= 2 only,
 a linear schedule from ``lr`` to 0 after an optional warmup, and
-global-norm clipping at 1.0.  The frozen backbones are split off
-structurally (:func:`split_frozen`): they never get gradients or
-optimizer state.
+global-norm clipping at ``max_grad_norm`` (1.0, as pre-training uses;
+``None`` turns it off, as the JAX package's ``make_optimizer`` allows).
+The frozen backbones are split off structurally (:func:`split_frozen`):
+they never get gradients or optimizer state.
 
 :class:`AdamW` is the math of the JAX package's
 ``FusedClippedAdamW.update_and_apply`` (``optimizer.py:177-203``): the clip
@@ -16,7 +17,7 @@ new arrays), which keeps one copy of each on the card.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -57,15 +58,17 @@ def merge_frozen(train: dict, frozen: dict) -> dict:
 
 class AdamW:
     """Clipped AdamW over the trainable subtree, updating in place, with
-    the HF Trainer's moments, epsilon and clip norm."""
+    the HF Trainer's moments and epsilon; ``max_grad_norm=None`` skips
+    the clip."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
-    max_grad_norm = 1.0
 
     def __init__(self, *, learning_rate: float = 1e-4, total_steps: int = 10_000,
-                 warmup_steps: int = 0, weight_decay: float = 0.0):
+                 warmup_steps: int = 0, weight_decay: float = 0.0,
+                 max_grad_norm: Optional[float] = 1.0):
         self.schedule = linear_schedule(learning_rate, total_steps, warmup_steps)
         self.weight_decay = weight_decay
+        self.max_grad_norm = max_grad_norm
 
     def init(self, train_params) -> dict:
         """Zero moments in each leaf's dtype, and the step count."""
@@ -86,8 +89,10 @@ class AdamW:
         lr = self.schedule(state["count"])
         count = state["count"] + 1
         g = [t.float() for t in grads]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
-        g = torch._foreach_mul(g, self.max_grad_norm / torch.clamp(norm, min=self.max_grad_norm))
+        if self.max_grad_norm is not None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            g = torch._foreach_mul(
+                g, self.max_grad_norm / torch.clamp(norm, min=self.max_grad_norm))
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)

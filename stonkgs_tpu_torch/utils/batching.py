@@ -1,12 +1,13 @@
-"""Fixed-size batched inference helper.
+"""Fixed-size batched inference helpers.
 
 Chunk the features and pad the final batch by repeating its last row, so
-every batch the device sees has the same shape.
+every batch the device sees has the same shape (the port's copy of the
+JAX package's ``stonkgs_tpu/utils/batching.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 import numpy as np
 import torch
@@ -32,3 +33,27 @@ def iter_padded_batches(
             }
         yield {k: torch.as_tensor(v, dtype=torch.int64).to(device)
                for k, v in chunk.items()}, valid
+
+
+def batched_apply(
+    fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
+    features: Dict[str, np.ndarray],
+    keys: Sequence[str],
+    batch_size: int,
+    device: torch.device | str = "cpu",
+) -> np.ndarray:
+    """``fn(batch)[:n_valid]`` over every padded batch, concatenated as an
+    fp32 numpy array.  Every batch is dispatched before the first is
+    copied to the host.  An empty input runs one zero batch to learn the
+    output's trailing shape and returns 0 rows of it ((0, num_labels)
+    for logits)."""
+    with torch.inference_mode():
+        outs = [(fn(chunk), valid)
+                for chunk, valid in iter_padded_batches(features, keys, batch_size, device)]
+        if not outs:
+            chunk = {k: torch.zeros((batch_size,) + np.shape(features[k])[1:],
+                                    dtype=torch.int64, device=device)
+                     for k in keys if k in features}
+            outs = [(fn(chunk), 0)]
+        return np.concatenate([out[:valid].float().cpu().numpy() for out, valid in outs],
+                              axis=0)

@@ -37,6 +37,10 @@ def test_import_pulls_in_no_jax():
         "from stonkgs_tpu_torch.data import artifacts, fast_tokenizer, masking\n"
         "from stonkgs_tpu_torch.data import preprocessing, prot, transe, wordpiece\n"
         "from stonkgs_tpu_torch.utils import hf_export, hf_loader\n"
+        "from stonkgs_tpu_torch.train import finetuning\n"
+        "from stonkgs_tpu_torch.cli import finetune\n"
+        "from stonkgs_tpu_torch.baselines import kg_baseline, nlp_baseline\n"
+        "from stonkgs_tpu_torch.utils import batching, logging\n"
         "new = sorted(set(sys.modules) - before)\n"
         "print('\\n'.join(new))\n"
     )
@@ -50,6 +54,8 @@ def test_import_pulls_in_no_jax():
     assert "stonkgs_tpu_torch.benchmarks.bench_int8_gemm" in out
     assert "stonkgs_tpu_torch.data.preprocessing" in out
     assert "stonkgs_tpu_torch.utils.hf_loader" in out
+    assert "stonkgs_tpu_torch.train.finetuning" in out
+    assert "stonkgs_tpu_torch.baselines.kg_baseline" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -59,21 +65,50 @@ ABSENT_ON_THE_CARD = ("pandas", "transformers", "safetensors", "sklearn")
 
 
 def test_engine_path_pulls_in_no_module_the_card_lacks():
-    """The README flow's modules import none of pandas, transformers,
-    safetensors or sklearn (safetensors only inside the loader, for a
-    ``.safetensors`` file)."""
+    """The README flow's and fine-tuning's modules import none of pandas,
+    transformers, safetensors or sklearn (safetensors only inside the
+    loader, for a ``.safetensors`` file; pandas only inside
+    ``cli/finetune.run_finetuning``, to read a task TSV)."""
     code = (
         "import sys\n"
         "from stonkgs_tpu_torch.api import inference, prot_inference\n"
         "from stonkgs_tpu_torch.data import artifacts, fast_tokenizer, masking\n"
         "from stonkgs_tpu_torch.data import preprocessing, prot, transe, wordpiece\n"
         "from stonkgs_tpu_torch.utils import hf_export, hf_loader\n"
+        "from stonkgs_tpu_torch.train import finetuning\n"
+        "from stonkgs_tpu_torch.cli import finetune\n"
+        "from stonkgs_tpu_torch.baselines import kg_baseline, nlp_baseline\n"
+        "from stonkgs_tpu_torch.utils import batching, logging\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120).stdout.split()
     assert "stonkgs_tpu_torch.api.inference" in out
+    assert "stonkgs_tpu_torch.train.finetuning" in out
     assert [m for m in out if m.split(".")[0] in ABSENT_ON_THE_CARD] == []
+
+
+def test_pandas_only_where_a_task_tsv_is_read():
+    """The port imports pandas in one place: inside
+    ``cli/finetune.py::run_finetuning``."""
+    def pandas_imports(node):
+        return {id(n) for n in ast.walk(node)
+                if (isinstance(n, ast.Import) and any(a.name.split(".")[0] == "pandas"
+                                                      for a in n.names))
+                or (isinstance(n, ast.ImportFrom) and n.level == 0
+                    and n.module.split(".")[0] == "pandas")}
+
+    places = []
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        found = pandas_imports(tree)
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                inner = pandas_imports(fn) & found
+                places += [(str(path.relative_to(ROOT)), fn.name)] * len(inner)
+                found -= inner
+        places += [(str(path.relative_to(ROOT)), None)] * len(found)
+    assert places == [("stonkgs_tpu_torch/cli/finetune.py", "run_finetuning")]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -119,17 +119,20 @@ def test_bert_inputs_embeds_path(params):
 
 
 def test_training_arguments_raise(params):
-    """What training does not port yet raises: layer remat and the
-    training half of classification (fine-tuning)."""
+    """What training does not take raises: layer remat (not ported), and
+    ``cls_only`` in the training half of classification, which runs the
+    whole trunk (that half is held against the JAX package in
+    ``tests/test_torch_finetuning.py``)."""
     tp = bert_params_from_jax(params["trunk"], port_cfg(BERT))
     ids = torch.zeros(1, 4, dtype=torch.int64)
     with pytest.raises(NotImplementedError):
         tbert.bert_model(tp, port_cfg(BERT), input_ids=ids, deterministic=False,
                          remat="full")
     batch = _t(features(CFG, [3], seed=0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="cls_only"):
         tstonkgs.classification_logits(params_from_jax(params, port_cfg(CFG)),
-                                       port_cfg(CFG), batch, deterministic=False)
+                                       port_cfg(CFG), batch, deterministic=False,
+                                       cls_only=True)
 
 
 def test_init_params_match_jax_layout(params):

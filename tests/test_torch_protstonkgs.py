@@ -178,9 +178,14 @@ def test_classification_logits_match_jax(params):
     got = tprot.classification_logits(protstonkgs_params_from_jax(params, TCFG), TCFG,
                                       _tb(batch))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
-    with pytest.raises(NotImplementedError, match="fine-tuning"):
-        tprot.classification_logits(protstonkgs_params_from_jax(params, TCFG), TCFG,
-                                    _tb(batch), deterministic=False)
+    # the training half (the whole trunk, the training plan) at dropout 0
+    want = jprot.classification_logits(jax.tree.map(jnp.asarray, params), CFG, _jb(batch),
+                                       deterministic=False,
+                                       dropout_rng=jax.random.PRNGKey(0))
+    got = tprot.classification_logits(protstonkgs_params_from_jax(params, TCFG), TCFG,
+                                      _tb(batch), deterministic=False,
+                                      rng=tpre.step_rng(0, 0, "cpu"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
 
 
 def test_build_kg_table_matches_jax(params):
