@@ -152,6 +152,28 @@ Phases, each fatal on failure (exit code 1, no result line):
     ``predict`` sequences/s at B=64, and the training kernels at
     fine-tuning's shapes beside their bounds, plain versions and library
     calls.
+21. pre-training from files: (a) a memmap store of 1,024 rows (S=512,
+    int(0.15 * 256) = 38 masked positions a half, NSP labels), phase 19's
+    node2vec TSVs (5,000 x 768) and vocabulary in a temporary directory;
+    (b) ``run_pretraining`` from the store at BERT-base width (B=32, 6
+    steps, a save every 3, bf16 compute, frozen backbones in bf16), twice:
+    launch counts, finite logged losses, checkpoints 3 and 6, the frozen
+    backbones in bf16 and unchanged, the two runs' spread; (c) checkpoint
+    6 deleted, the identical call resumes at 3 and logs 4-6 only, held to
+    the run-to-run spread or to a 1e-3 relative loss gap and an update
+    cosine of 0.9999 a trainable leaf; (d) the HF export read back by
+    ``from_pretrained``, its leaves equal to the run's and its embeddings
+    equal to an engine's on the run's parameters; (g) ``embed_stream``
+    over phase 19's 512 raw rows in chunks of 128, equal to ``embed`` bit
+    for bit, ``_dispatch`` under the sync debug mode "error"; (h) ms a step
+    from the store beside one batch on the card, checkpoint GB and save /
+    restore seconds, ``embed_stream`` rows/s beside sequential raw rows
+    -> embeddings and ``embed`` alone; (f) ``pretrain`` with
+    ``dynamic_masking_loss`` (B=32, 4 steps), then ``mask_tokens_torch``
+    (38 positions a row a half, 80/10/10 within 4 sigma) and
+    ``dynamic_nsp_swap`` (20% negatives within 4 sigma) on the card over
+    the store; (e) ``variant="transe"`` (S=260, B=32, 2 steps) and
+    ``variant="prot"`` at phase 11's widths (B=2, 2 steps, one save).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -169,6 +191,7 @@ import math
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -181,6 +204,11 @@ import torch.nn.functional as F
 
 from stonkgs_tpu_torch import ProtSTonKGsEngine, STonKGsEngine
 from stonkgs_tpu_torch.baselines import kg_baseline, nlp_baseline
+from stonkgs_tpu_torch.cli.pretrain import (
+    prot_pretraining_config,
+    run_pretraining,
+    stonkgs_pretraining_config,
+)
 from stonkgs_tpu_torch.config import BertConfig, BigBirdConfig, ProtSTonKGsConfig, STonKGsConfig
 from stonkgs_tpu_torch.data.artifacts import (
     load_kg_artifacts,
@@ -189,7 +217,8 @@ from stonkgs_tpu_torch.data.artifacts import (
 )
 from stonkgs_tpu_torch.data import fast_tokenizer
 from stonkgs_tpu_torch.data.fast_tokenizer import FastBertTokenizer
-from stonkgs_tpu_torch.data.masking import mask_tokens
+from stonkgs_tpu_torch.data.masking import mask_tokens, mask_tokens_torch
+from stonkgs_tpu_torch.data.memmap_dataset import MemmapFeatureStore
 from stonkgs_tpu_torch.data.preprocessing import assemble_entity_half, preprocess_for_embeddings
 from stonkgs_tpu_torch.data.wordpiece import BertTokenizer
 from stonkgs_tpu_torch.models import bert, protstonkgs, stonkgs
@@ -241,12 +270,14 @@ from stonkgs_tpu_torch.benchmarks.bigbird_sdpa import gathered_operands, sdpa_mi
 from stonkgs_tpu_torch.benchmarks._util import time_ms
 from stonkgs_tpu_torch.benchmarks.bench_int8_gemm import int8_gemm, int8_gemm_plain
 from stonkgs_tpu_torch.train import finetuning, pretraining
+from stonkgs_tpu_torch.train.checkpoint import CheckpointManager
+from stonkgs_tpu_torch.train.dynamic_masking import dynamic_masking_loss, dynamic_nsp_swap
 from stonkgs_tpu_torch.train.optimizer import AdamW, merge_frozen, split_frozen
 from stonkgs_tpu_torch.utils import hf_loader
 from stonkgs_tpu_torch.utils.convert import params_to
 from stonkgs_tpu_torch.utils.hf_export import save_pretrained
 from stonkgs_tpu_torch.utils.logging import RunLogger
-from stonkgs_tpu_torch.utils.tree import tree_leaves, tree_map
+from stonkgs_tpu_torch.utils.tree import tree_flatten_with_path, tree_leaves, tree_map
 
 DEV = "cuda"
 BF16 = torch.bfloat16
@@ -1106,7 +1137,7 @@ def phase_training(cfg: STonKGsConfig, params_cpu: dict):
     check(all(torch.equal(a, b) for a, b in zip(tree_leaves(frozen_before),
                                                 tree_leaves(frozen_after))),
           "a frozen backbone changed")
-    before, after = _named_leaves(split_frozen(params)[0]), _named_leaves(state.params)
+    before, after = tree_flatten_with_path(split_frozen(params)[0]), tree_flatten_with_path(state.params)
     unchanged = [k for k in before if torch.equal(before[k], after[k])]
     log(f"# trainable leaves unchanged after {TRAIN_STEPS} steps: {unchanged}")
     check(set(unchanged) <= set(UNUSED_LEAVES), "a trainable leaf did not change")
@@ -1118,20 +1149,6 @@ def phase_training(cfg: STonKGsConfig, params_cpu: dict):
 # and the ELM decoder biases are never applied (the reference's quirk)
 UNUSED_LEAVES = ("trunk/embeddings/word_embeddings", "cls/predictions/text_bias",
                  "cls/predictions/entity_bias")
-
-
-def _named_leaves(tree, prefix: str = "") -> dict:
-    """{"a/b/0/c": tensor} for a tree of dicts and lists."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, list):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, sub in items:
-        out.update(_named_leaves(sub, f"{prefix}/{k}" if prefix else str(k)))
-    return out
 
 
 # trunk leaves whose gradient is zero in exact arithmetic: a key bias
@@ -1156,7 +1173,7 @@ def phase_train_numerics(cfg_full: STonKGsConfig) -> None:
 
     def loss_and_grads(device, dtype=F32):
         p = params_to(params, device)
-        named = _named_leaves(p["trunk"])
+        named = tree_flatten_with_path(p["trunk"])
         for t in named.values():
             t.requires_grad_(True)
         loss, _ = stonkgs.pretraining_loss(
@@ -1535,7 +1552,7 @@ def phase_prot_training(cfg: ProtSTonKGsConfig, params_cpu: dict):
     check(all(torch.equal(a, b) for a, b in zip(tree_leaves(frozen_before),
                                                 tree_leaves(frozen_after))),
           "a frozen ProtSTonKGs backbone changed")
-    before, after = _named_leaves(split_frozen(params)[0]), _named_leaves(state.params)
+    before, after = tree_flatten_with_path(split_frozen(params)[0]), tree_flatten_with_path(state.params)
     unchanged = [k for k in before if torch.equal(before[k], after[k])]
     log(f"# ProtSTonKGs trainable leaves unchanged after {PROT_TRAIN_STEPS} steps: "
         f"{unchanged}")
@@ -2315,8 +2332,8 @@ def phase_readme(card: str) -> dict:
         # the parameters and the KG table, bit for bit, against those saved
         mem = params_to(params, DEV)
         mem["kg_backbone"] = stonkgs.build_kg_table(mem["lm_backbone"], cfg.bert, art.vectors)
-        loaded = dict(_named_leaves(engine.params))
-        want = dict(_named_leaves(mem))
+        loaded = dict(tree_flatten_with_path(engine.params))
+        want = dict(tree_flatten_with_path(mem))
         check(loaded.keys() == want.keys(), "loaded parameter tree differs from the saved one")
         diff = [k for k in want if not torch.equal(loaded[k], want[k])]
         check(not diff, f"loaded parameters differ from those saved: {diff[:5]}")
@@ -2454,7 +2471,7 @@ def _finetune_numerics(cfg_full: STonKGsConfig) -> None:
 
     def loss_and_grads(device, dtype=F32):
         p = params_to(params, device)
-        named = _named_leaves({"trunk": p["trunk"], "classifier": p["classifier"]})
+        named = tree_flatten_with_path({"trunk": p["trunk"], "classifier": p["classifier"]})
         for t in named.values():
             t.requires_grad_(True)
         loss, _ = stonkgs.classification_loss(
@@ -2544,8 +2561,8 @@ def _finetune_cv(cfg: STonKGsConfig, params: dict, card: str) -> dict:
         same = [k for k, (a, b) in _paired(params, before) if not torch.equal(a, b)]
         check(not same, f"the pretrained tree passed in changed: {same[:5]}")
         state = last[0]
-        trained = _named_leaves(split_frozen(state.params)[0])
-        ref = _named_leaves(split_frozen(before)[0])
+        trained = tree_flatten_with_path(split_frozen(state.params)[0])
+        ref = tree_flatten_with_path(split_frozen(before)[0])
         unchanged = [k for k in ref if torch.equal(trained[k], ref[k])]
         log(f"# finetune trainable leaves unchanged after the last fold: {len(unchanged)} of "
             f"{len(ref)} ({[k for k in unchanged if not k.startswith('cls/')]} and cls/*)")
@@ -2567,9 +2584,9 @@ def _finetune_cv(cfg: STonKGsConfig, params: dict, card: str) -> dict:
               "the TSV's true labels differ from the rows'")
 
         sd = hf_loader.load_state_dict(os.path.join(tmp, "smoke"))
-        back = _named_leaves(hf_loader.stonkgs_params_from_state_dict(
+        back = tree_flatten_with_path(hf_loader.stonkgs_params_from_state_dict(
             sd, cfg.replace(num_labels=len(FT_LABELS))))
-        mem = _named_leaves(state.params)
+        mem = tree_flatten_with_path(state.params)
         diff = [k for k in back if not torch.equal(back[k], mem[k].cpu())]
         log(f"# finetune export read back: {len(back)} leaves, {len(diff)} differ from the "
             f"last fold's parameters")
@@ -2580,7 +2597,7 @@ def _finetune_cv(cfg: STonKGsConfig, params: dict, card: str) -> dict:
 
 
 def _paired(a: dict, b: dict):
-    na, nb = _named_leaves(a), _named_leaves(b)
+    na, nb = tree_flatten_with_path(a), tree_flatten_with_path(b)
     check(na.keys() == nb.keys(), "the trees differ in their leaves")
     return [(k, (na[k], nb[k])) for k in na]
 
@@ -2862,6 +2879,437 @@ def phase_finetune(card: str, params: Optional[dict] = None,
     return counts, times
 
 
+# ---------------------------------------------------------------------------
+# pre-training from files: run_pretraining over a memmap store, checkpoints,
+# resume, the export, the other layouts, dynamic masking, embed_stream
+# ---------------------------------------------------------------------------
+
+PF_ROWS = 1024        # rows of the memmap store
+PF_STEPS = 6          # steps of the first run, saving every PF_SAVE
+PF_SAVE = 3
+PF_SHORT_STEPS = 2    # the TransE and ProtSTonKGs runs
+PF_PROT_BATCH = 2
+PF_DYN_STEPS = 4
+PF_CHUNK = 128        # embed_stream's chunk: one batch
+
+
+def _training_per_step(layers: int) -> dict:
+    return {"flash_attention_train_fwd": 2 * layers, "flash_attention_train_bwd": layers,
+            "ffn_train_fwd": 2 * layers, "ffn_train_bwd": layers}
+
+
+def _prot_training_per_step(cfg: ProtSTonKGsConfig) -> dict:
+    t, lm, prot = cfg.trunk, cfg.lm, cfg.prot
+    return {"bigbird_mid_fwd": t.num_hidden_layers, "bigbird_mid_bwd": t.num_hidden_layers,
+            "ffn_train_fwd": lm.num_hidden_layers + prot.num_hidden_layers
+            + t.num_hidden_layers,
+            "ffn_train_bwd": t.num_hidden_layers,
+            "flash_attention_train_fwd": lm.num_hidden_layers + prot.num_hidden_layers}
+
+
+def _metric_records(output_dir: str) -> list:
+    """The metric records of every JSONL run log in ``output_dir``, in order."""
+    out = []
+    if os.path.isdir(output_dir):
+        for name in sorted(os.listdir(output_dir)):
+            if name.endswith(".jsonl"):
+                with open(os.path.join(output_dir, name)) as f:
+                    out += [r for r in map(json.loads, f) if r.get("type") == "metric"]
+    return out
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for name, c in counts.items():
+        total[name] = total.get(name, 0) + c
+
+
+def _pf_run(label: str, store: str, out_dir: str, kernels: dict, per_step: dict,
+            steps: list, total: dict, **kw):
+    """``run_pretraining`` with the counts from 0 just before it: checks
+    the launches a step and a finite logged loss at exactly ``steps``.
+    Returns (state, {step: loss}, seconds, last examples_per_sec)."""
+    before = len(_metric_records(out_dir))
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    state = run_pretraining(store, output_dir=out_dir, log_steps=1, device=DEV, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts(kernels)
+    _check_counts(f"{label} ({len(steps)} steps)", counts,
+                  {n: c * len(steps) for n, c in per_step.items()})
+    _add_counts(total, counts)
+    recs = _metric_records(out_dir)[before:]
+    losses = {r["step"]: r["value"] for r in recs if r["key"] == "loss"}
+    eps = [r["value"] for r in recs if r["key"] == "examples_per_sec"]
+    log(f"# {label}: {seconds:.1f} s; losses {losses!r}; examples/s "
+        f"{eps[-1] if eps else None!r}")
+    check(list(losses) == steps, f"{label}: logged steps {list(losses)}, expected {steps}")
+    check(all(math.isfinite(v) for v in losses.values()), f"{label}: a non-finite loss")
+    check(state.step == steps[-1], f"{label}: ended at step {state.step}")
+    return state, losses, seconds, eps[-1] if eps else None
+
+
+def _dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+               for f in fs) / 1e9
+
+
+def _pf_spread(label: str, a, b, la: dict, lb: dict, init: dict) -> tuple:
+    """How far run ``a`` is from run ``b``: the largest relative loss gap
+    over ``la``'s steps, the lowest cosine of a trainable leaf's update
+    (final - init; leaves without a gradient, held equal, and the key
+    biases, whose gradient is 0 in exact arithmetic, left out), and
+    whether every trainable leaf is equal bit for bit."""
+    gap = max(abs(la[s] - lb[s]) / abs(lb[s]) for s in la)
+    ta, tb = tree_flatten_with_path(split_frozen(a.params)[0]), tree_flatten_with_path(split_frozen(b.params)[0])
+    unequal = {k: float((ta[k] - tb[k]).abs().max()) for k in tb if not torch.equal(ta[k], tb[k])}
+    equal = not unequal
+    cos = 1.0
+    for k, w in tb.items():
+        if k.startswith(UNUSED_LEAVES):
+            check(torch.equal(ta[k], w), f"{label}: unused leaf {k} differs")
+            continue
+        if any(z in k for z in ZERO_GRAD_LEAVES):
+            continue
+        ua, ub = (ta[k] - init[k].to(DEV)).flatten(), (w - init[k].to(DEV)).flatten()
+        if torch.equal(ua, ub):
+            continue
+        c = float(F.cosine_similarity(ua.double(), ub.double(), dim=0))
+        cos = min(cos, c if math.isfinite(c) else -1.0)
+    log(f"# {label}: largest relative loss gap {gap!r}, lowest update cosine {cos!r}, "
+        f"trainable leaves equal bit for bit: {equal} ({len(unequal)} of {len(tb)} differ; "
+        f"largest max |diff| {max(unequal.values(), default=0.0)!r} in "
+        f"{max(unequal, key=unequal.get, default=None)})")
+    return gap, cos, equal
+
+
+def _pf_files(tmp: str, cfg: STonKGsConfig):
+    """(a) The memmap store (PF_ROWS pre-training rows with int(0.15 * 256)
+    masked positions a half and NSP labels), phase 19's node2vec TSVs and
+    28,996-line vocabulary (the same seeds, so the same files)."""
+    t0 = time.perf_counter()
+    feats = _pretraining_features(cfg, PF_ROWS, seed=21)
+    store_dir = os.path.join(tmp, "store")
+    MemmapFeatureStore.write(store_dir, feats)
+    rng = np.random.default_rng(19)
+    art = make_random_artifacts(README_ENTITIES, dim=cfg.bert.hidden_size,
+                                rw_len=README_RW_LEN, seed=19)
+    art.names = _bel_names(README_ENTITIES)
+    art.name_to_idx = {n: i for i, n in enumerate(art.names)}
+    emb, walks = os.path.join(tmp, "emb.tsv"), os.path.join(tmp, "walks.tsv")
+    save_kg_artifacts(art, emb, walks)
+    vocab = _readme_vocab(cfg.bert.vocab_size, rng)
+    vocab_file = os.path.join(tmp, "vocab.txt")
+    with open(vocab_file, "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    rows = _readme_rows(art.names, vocab, rng)
+    log(f"# pretrain files written in {time.perf_counter() - t0:.1f} s: store "
+        f"{_dir_gb(store_dir)!r} GB ({PF_ROWS} rows, S={cfg.seq_len}), node2vec "
+        f"{README_ENTITIES} x {cfg.bert.hidden_size}, vocabulary {len(vocab)}")
+    return store_dir, emb, walks, vocab_file, art, rows
+
+
+def _pf_dynamic(cfg: STonKGsConfig, params: dict, store: MemmapFeatureStore, total: dict):
+    """(f) ``pretrain`` with ``dynamic_masking_loss`` on raw features, then
+    the masking's statistics on the card over the whole store."""
+    raw = {k: np.asarray(store[k][: TRAIN_BATCH * PF_DYN_STEPS])
+           for k in ("input_ids", "attention_mask", "token_type_ids")}
+    run_cfg = pretraining.PretrainingConfig(max_steps=PF_DYN_STEPS,
+                                            micro_batch_size=TRAIN_BATCH, log_steps=1,
+                                            compute_dtype="bfloat16")
+    logged = []
+    _reset_counts(TRAINING_KERNELS)
+    pretraining.pretrain(cfg, params, raw, run_cfg, loss_fn=dynamic_masking_loss(),
+                         log_fn=lambda step, m: logged.append((step, m["loss"])))
+    torch.cuda.synchronize()
+    counts = _counts(TRAINING_KERNELS)
+    _check_counts(f"pretrain dynamic masking ({PF_DYN_STEPS} steps)", counts,
+                  {n: c * PF_DYN_STEPS
+                   for n, c in _training_per_step(cfg.bert.num_hidden_layers).items()})
+    _add_counts(total, counts)
+    _check_losses("pretrain dynamic masking", [v for _, v in logged], PF_DYN_STEPS)
+
+    ids = torch.as_tensor(np.array(store["input_ids"]), dtype=torch.int64, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    tl = cfg.text_len
+    for half, vocab, name in ((ids[:, :tl], cfg.bert.vocab_size, "text"),
+                              (ids[:, tl:], cfg.kg_vocab_size, "entity")):
+        masked, labels = mask_tokens_torch(gen, half, vocab)
+        chosen = labels != -100
+        per_row = chosen.sum(1)
+        k = int(half.shape[1] * 0.15)
+        check(bool((per_row == k).all()), f"mask_tokens_torch {name}: "
+              f"{int(per_row.min())}..{int(per_row.max())} positions a row, expected {k}")
+        check(torch.equal(labels[chosen], half[chosen]) and
+              torch.equal(masked[~chosen], half[~chosen]), f"mask_tokens_torch {name}: labels")
+        n = int(chosen.sum())
+        is_mask = masked[chosen] == 103
+        kept = masked[chosen] == half[chosen]
+        shares = {"mask": (float(is_mask.float().mean()), 0.8),
+                  "kept": (float(kept.float().mean()), 0.1 + 0.1 / vocab),
+                  "random": (float((~is_mask & ~kept).float().mean()), 0.1 - 0.1 / vocab)}
+        for what, (share, p) in shares.items():
+            sigma = math.sqrt(p * (1 - p) / n)
+            log(f"# mask_tokens_torch {name} on the card: {what} share {share!r} of {n} "
+                f"(expected {p!r} +- 4 sigma = {4 * sigma!r})")
+            check(abs(share - p) <= 4 * sigma, f"mask_tokens_torch {name}: {what} share")
+    ent_labels = torch.full((len(ids), ids.shape[1] - tl), -100, dtype=torch.int64, device=DEV)
+    out, _, nsp = dynamic_nsp_swap(gen, ids, ent_labels, tl)
+    share, sigma = float(nsp.float().mean()), math.sqrt(0.2 * 0.8 / len(ids))
+    log(f"# dynamic_nsp_swap on the card: NSP negatives {share!r} of {len(ids)} rows "
+        f"(expected 0.2 +- {4 * sigma!r})")
+    check(abs(share - 0.2) <= 4 * sigma, "dynamic_nsp_swap: share of negatives")
+    check(torch.equal(out[:, :tl], ids[:, :tl])
+          and torch.equal(out[nsp == 0], ids[nsp == 0]), "dynamic_nsp_swap: rows changed")
+
+
+def _pf_step_times(cfg: STonKGsConfig, state, features: dict, card: str) -> None:
+    """(h) ms a step at B=32: phase 9's way (one batch on the card) and
+    from the memmap store through the prefetch thread, each step
+    synchronised by its loss; the median of 6 after 2."""
+    tx = AdamW(total_steps=1000)
+    step = pretraining.make_train_step(cfg, tx, compute_dtype=BF16)
+    fixed = pretraining.to_device({k: np.asarray(v[:TRAIN_BATCH]) for k, v in features.items()},
+                                  DEV)
+    sources = {
+        "in memory (one batch on the card)": itertools.repeat(fixed),
+        "from the memmap store (prefetch thread)": pretraining._prefetch_to_device(
+            pretraining.data_iterator(features, TRAIN_BATCH, seed=1),
+            lambda b: pretraining.to_device(b, DEV), 8),
+    }
+    for label, batches in sources.items():
+        times = []
+        for i in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, next(batches))
+            loss = float(m["loss"])
+            if i >= 2:
+                times.append(time.perf_counter() - t0)
+            check(math.isfinite(loss), "non-finite loss in the timed steps")
+        med = statistics.median(times)
+        log(f"# pretrain step {label} B={TRAIN_BATCH} bf16: seconds {times!r}; median "
+            f"{med * 1e3!r} ms, {TRAIN_BATCH / med!r} examples/s ({card})")
+
+
+def _pf_checkpoint_times(tmp: str, state, card: str) -> None:
+    """(h) Seconds to save (blocking, twice; non-blocking: the return and
+    the write) and to restore (twice) the first run's state, and its GB."""
+    mngr = CheckpointManager(os.path.join(tmp, "timing"), save_total_limit=1)
+    blocking = []
+    for s in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mngr.save(s, state, blocking=True)
+        blocking.append(time.perf_counter() - t0)
+    gb = _dir_gb(os.path.join(tmp, "timing", "2"))
+    t0 = time.perf_counter()
+    mngr.save(3, state, blocking=False)
+    returned = time.perf_counter() - t0
+    mngr.wait()
+    written = time.perf_counter() - t0
+    restore = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = mngr.restore_latest(state)
+        torch.cuda.synchronize()
+        restore.append(time.perf_counter() - t0)
+    a, b = tree_flatten_with_path(back.params), tree_flatten_with_path(state.params)
+    check(back.step == 3 and all(torch.equal(a[k], b[k]) for k in b),
+          "restored checkpoint differs from the state saved")
+    log(f"# checkpoint {gb!r} GB: blocking save seconds {blocking!r}; non-blocking save "
+        f"returns in {returned!r} s, on disk after {written!r} s; restore seconds "
+        f"{restore!r} ({card})")
+    shutil.rmtree(os.path.join(tmp, "timing"))
+
+
+def _pf_embed_stream(engine, rows, card: str, total: dict) -> None:
+    """(g) ``embed_stream`` over phase 19's 512 raw rows in chunks of one
+    batch: equal to ``embed`` on the preprocessed rows bit for bit (parity,
+    no masking), counts from 0 just before it; ``_dispatch`` with the
+    sync debug mode at "error" (no host sync); then the timings."""
+    src, tgt, ev = rows
+    feats = engine.preprocess(src, tgt, ev, apply_masking=False)
+    want = engine.embed(feats)
+    _reset_counts(SERVING_KERNELS)
+    got = np.concatenate(list(engine.embed_stream(zip(src, tgt, ev), chunk_rows=PF_CHUNK,
+                                                  apply_masking=False)))
+    counts = _counts(SERVING_KERNELS)
+    per_batch = engine.cfg.bert.num_hidden_layers * 2 - 1
+    _check_counts("embed_stream", counts,
+                  {n: per_batch * math.ceil(ROWS / PF_CHUNK) for n in SERVING_KERNELS})
+    _add_counts(total, counts)
+    check(got.shape == want.shape and bool(np.isfinite(got).all()), "embed_stream output")
+    check(np.array_equal(got, want), "embed_stream differs from embed on the same rows "
+          f"(max_abs_err {float(np.abs(got - want).max())!r})")
+    log(f"# embed_stream ({ROWS} rows, chunks of {PF_CHUNK}) equals embed bit for bit")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = engine._dispatch(feats, engine._bucket_poolers, engine._pooler)
+    except RuntimeError as e:
+        raise SmokeFailure(f"_dispatch synchronised with the card: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(np.array_equal(engine._fetch(*pending), want), "_dispatch/_fetch differ from embed")
+    log("# _dispatch ran under torch.cuda.set_sync_debug_mode('error'): no host sync")
+    rows_l = list(zip(src, tgt, ev))
+    _, t_embed = _timed(lambda: engine.embed(feats))
+    _, t_seq = _timed(lambda: engine.embed(engine.preprocess(src, tgt, ev)))
+    _, t_stream = _timed(lambda: list(engine.embed_stream(rows_l, chunk_rows=PF_CHUNK)))
+    _rate("embed alone (parity)", ROWS, t_embed, "pairs/s", card)
+    _rate("rows -> embeddings, sequential (parity)", ROWS, t_seq, "rows/s", card)
+    _rate(f"rows -> embeddings, embed_stream chunks of {PF_CHUNK} (parity)", ROWS, t_stream,
+          "rows/s", card)
+
+
+def _pf_prot(tmp: str, emb: str, hidden: int, total: dict) -> None:
+    """(e) ``run_pretraining(variant="prot")`` at phase 11's widths (the
+    config it derives from 768-wide KG vectors), B=2, one final save."""
+    pfeats = _prot_features(_prot_cfg(README_ENTITIES), 2 * PF_PROT_BATCH, seed=23,
+                            labels=True)
+    pderived = prot_pretraining_config(pfeats, hidden)
+    check(pderived == _prot_cfg(pderived.kg_vocab_size),
+          f"run_pretraining derives {pderived} for ProtSTonKGs, not phase 11's widths")
+    MemmapFeatureStore.write(os.path.join(tmp, "prot_store"), pfeats)
+    p_out = os.path.join(tmp, "prot")
+    _pf_run("run_pretraining prot", os.path.join(tmp, "prot_store"), p_out,
+            PROT_TRAINING_KERNELS, _prot_training_per_step(pderived),
+            list(range(1, PF_SHORT_STEPS + 1)), total, variant="prot",
+            kg_embedding_path=emb, batch_size=PF_PROT_BATCH, max_steps=PF_SHORT_STEPS,
+            save_steps=1000)
+    pck = os.path.join(p_out, "checkpoints")
+    check(CheckpointManager(pck).steps() == [PF_SHORT_STEPS], "ProtSTonKGs checkpoints")
+    log(f"# ProtSTonKGs checkpoint {_dir_gb(pck)!r} GB")
+    shutil.rmtree(p_out)
+
+
+def phase_pretrain_files(card: str) -> dict:
+    """Pre-training from files at full width (phase 21): (a) the files,
+    (b) ``run_pretraining`` from the memmap store twice, (c) a resume after
+    the last checkpoint is deleted, (d) the HF export read back, (e) the
+    TransE and ProtSTonKGs layouts, (f) dynamic masking, (g)
+    ``embed_stream``, (h) timings.  Every directory is removed at the
+    end.  Returns the launch counts of its counted runs, summed."""
+    t_phase = time.perf_counter()
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=README_ENTITIES)
+    layers = cfg.bert.num_hidden_layers
+    total: dict = {}
+    with tempfile.TemporaryDirectory(prefix="stonkgs_pretrain_") as tmp:
+        store_dir, emb, walks, vocab_file, art, rows = _pf_files(tmp, cfg)
+        store = MemmapFeatureStore(store_dir)
+        features = {k: store[k] for k in store.keys()}
+        derived = stonkgs_pretraining_config(features, "stonkgs", cfg.bert.hidden_size,
+                                             cfg.bert.vocab_size)
+        check(derived == cfg, f"run_pretraining derives {derived}, expected {cfg}")
+        kw = dict(kg_embedding_path=emb, vocab_file=vocab_file, batch_size=TRAIN_BATCH,
+                  max_steps=PF_STEPS, save_steps=PF_SAVE)
+        per_step = _training_per_step(layers)
+        steps = list(range(1, PF_STEPS + 1))
+
+        # (b) the first run, twice: the second measures the run-to-run spread
+        run1, hf = os.path.join(tmp, "run1"), os.path.join(tmp, "hf")
+        s1, l1, _, eps1 = _pf_run("run_pretraining (b)", store_dir, run1, TRAINING_KERNELS,
+                                  per_step, steps, total, export_hf_dir=hf, **kw)
+        ckpts = CheckpointManager(os.path.join(run1, "checkpoints"))
+        check(ckpts.steps() == [PF_SAVE, PF_STEPS], f"checkpoints {ckpts.steps()}")
+        log(f"# run_pretraining (b) checkpoints {ckpts.steps()}, "
+            f"{_dir_gb(os.path.join(run1, 'checkpoints', str(PF_SAVE)))!r} GB each; "
+            f"examples/s over steps 2-{PF_STEPS}: {eps1!r} ({card})")
+        init = stonkgs.init_stonkgs_params(torch.Generator().manual_seed(0), cfg)
+        frozen = tree_flatten_with_path(split_frozen(s1.params)[1])
+        check({t.dtype for t in frozen.values()} == {BF16}, "frozen backbones not in bf16")
+        lm0 = tree_flatten_with_path(params_to(init["lm_backbone"], dtype=BF16), "lm_backbone")
+        check(all(torch.equal(frozen[k].cpu(), w) for k, w in lm0.items()),
+              "the LM backbone changed")
+        saved = torch.load(os.path.join(run1, "checkpoints", str(PF_SAVE), "tensors.pt"),
+                           map_location="cpu", weights_only=True)
+        check(torch.equal(saved["params/kg_backbone"], frozen["kg_backbone"].cpu()),
+              "the KG table changed between steps 3 and 6")
+        check(all(torch.equal(saved["params/" + k], lm0[k]) for k in lm0),
+              "the checkpoint's LM backbone differs from the initial one")
+        del saved
+        init = tree_flatten_with_path(split_frozen(init)[0])
+        run2 = os.path.join(tmp, "run2")
+        s2, l2, _, _ = _pf_run("run_pretraining (b), again", store_dir, run2, TRAINING_KERNELS,
+                               per_step, steps, total, **kw)
+        check(torch.equal(tree_flatten_with_path(s2.params)["kg_backbone"], frozen["kg_backbone"]),
+              "the KG table differs between two runs")
+        late = {s: l2[s] for s in steps[PF_SAVE:]}
+        spread = _pf_spread("run to run (b) vs (b) again, steps 4-6", s1, s2, late, l1, init)
+        del s2
+        shutil.rmtree(run2)
+
+        # (c) resume: without checkpoint 6 the identical call resumes at 3
+        shutil.rmtree(os.path.join(run1, "checkpoints", str(PF_STEPS)))
+        s3, l3, _, eps3 = _pf_run("run_pretraining (c), resumed", store_dir, run1,
+                                  TRAINING_KERNELS, per_step, steps[PF_SAVE:], total, **kw)
+        log(f"# resumed run's examples/s over steps 5-{PF_STEPS}: {eps3!r}")
+        gap, cos, equal = _pf_spread("resumed (c) vs (b), steps 4-6", s3, s1, l3,
+                                     {s: l1[s] for s in l3}, init)
+        by_spread = gap <= spread[0] and cos >= spread[1] and (equal or not spread[2])
+        by_limit = gap <= 1e-3 and cos >= 0.9999
+        log(f"# resume held to the run-to-run spread: {by_spread}; to the limits 1e-3 / "
+            f"0.9999: {by_limit}")
+        check(by_spread or by_limit, "the resumed run is further from (b) than either limit")
+        del s3
+
+        # (d) the exported checkpoint, read back by from_pretrained
+        engine = STonKGsEngine.from_pretrained(hf, emb, walks, vocab_file=vocab_file,
+                                               batch_size=BATCH, device=DEV)
+        check(engine.cfg == cfg, f"exported config {engine.cfg}")
+        loaded, final = tree_flatten_with_path(engine.params), tree_flatten_with_path(s1.params)
+        check(loaded.keys() == final.keys(), "the export's tree differs from the run's")
+        diff = [k for k in final if k != "kg_backbone"
+                and not torch.equal(loaded[k], final[k].float())]
+        check(not diff, f"exported parameters differ from the run's: {diff[:5]}")
+        mem = dict(s1.params, lm_backbone=params_to(s1.params["lm_backbone"], dtype=F32))
+        mem["kg_backbone"] = stonkgs.build_kg_table(mem["lm_backbone"], cfg.bert, art.vectors)
+        feats = engine.preprocess(*rows, apply_masking=False)
+        out = engine.embed(feats)
+        ref = dataclasses.replace(engine, params=mem).embed(feats)
+        check(bool(np.isfinite(out).all()) and np.array_equal(out, ref),
+              "the exported checkpoint embeds differently from the run's parameters")
+        log(f"# export read back: {len(loaded)} leaves equal to the run's, embeddings of "
+            f"{ROWS} rows equal to an engine's on the run's parameters ({_dir_gb(hf)!r} GB)")
+        del mem
+
+        # (g) embed_stream on phase 19's rows, then (h) the timings
+        _pf_embed_stream(engine, rows, card, total)
+        del engine
+        _pf_step_times(cfg, s1, features, card)
+        _pf_checkpoint_times(tmp, s1, card)
+
+        # (f) dynamic masking from the first run's parameters
+        _pf_dynamic(cfg, s1.params, store, total)
+        del s1
+        shutil.rmtree(run1)
+
+        # (e) the TransE layout (256 + 4) and ProtSTonKGs at phase 11's width
+        tl = cfg.text_len
+        tcfg = cfg.replace(entity_len=4)
+        rng = np.random.default_rng(22)
+        tfeats = _pretraining_features(tcfg, 2 * TRAIN_BATCH, seed=22)
+        rows_t, pos = np.arange(2 * TRAIN_BATCH), rng.integers(0, 4, 2 * TRAIN_BATCH)
+        # one masked triple position a row (int(0.15 * 4) = 0), labelled
+        # with its own id: the derived KG vocabulary covers every label
+        tfeats["ent_masked_lm_labels"][rows_t, pos] = tfeats["input_ids"][rows_t, tl + pos]
+        MemmapFeatureStore.write(os.path.join(tmp, "transe_store"), tfeats)
+        t_out = os.path.join(tmp, "transe")
+        _pf_run("run_pretraining transe", os.path.join(tmp, "transe_store"), t_out,
+                TRAINING_KERNELS, per_step, list(range(1, PF_SHORT_STEPS + 1)), total,
+                variant="transe", **dict(kw, max_steps=PF_SHORT_STEPS))
+        check(CheckpointManager(os.path.join(t_out, "checkpoints")).steps() == [PF_SHORT_STEPS],
+              "TransE checkpoints")
+        shutil.rmtree(t_out)
+
+        _pf_prot(tmp, emb, cfg.bert.hidden_size, total)
+    torch.cuda.empty_cache()
+    log(f"# pretrain files phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -2910,6 +3358,8 @@ def main() -> int:
         ft_counts, ft_times = phase_finetune(card, params, pparams)
         del params, pparams
         for name, c in ft_counts.items():
+            counts[name] += c
+        for name, c in phase_pretrain_files(card).items():
             counts[name] += c
         # the fine-tuning shapes' worst error goes into the kernel line
         for key, t in ft_times.items():

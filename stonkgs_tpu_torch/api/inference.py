@@ -6,7 +6,9 @@ by :meth:`STonKGsEngine.from_pretrained` from the files a user of the
 published models has (an HF checkpoint directory, the node2vec TSVs and
 the BioBERT vocabulary), then :meth:`~STonKGsEngine.preprocess` turns
 (source, target, evidence) rows into features and
-:meth:`~STonKGsEngine.embed` serves them.
+:meth:`~STonKGsEngine.embed` serves them (:meth:`~STonKGsEngine.embed_stream`
+does both, chunk by chunk, overlapping the host's preprocessing with the
+card's forwards).
 Every batch is dispatched before any is fetched: CUDA launches are
 asynchronous, so the card runs the batches back to back and the host
 waits only in :meth:`STonKGsEngine._fetch`, the one place that copies to
@@ -20,8 +22,9 @@ running on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from functools import partial
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,7 +41,7 @@ from stonkgs_tpu_torch.data.transe import (
 )
 from stonkgs_tpu_torch.models import stonkgs
 from stonkgs_tpu_torch.utils import hf_export, hf_loader
-from stonkgs_tpu_torch.utils.batching import iter_padded_batches
+from stonkgs_tpu_torch.utils.batching import host_to_device, iter_padded_batches
 from stonkgs_tpu_torch.utils.convert import params_to
 
 BATCH_KEYS = ("input_ids", "attention_mask", "token_type_ids")
@@ -235,12 +238,16 @@ class STonKGsEngine:
 
     @torch.inference_mode()
     def _dispatch(self, features: Dict[str, np.ndarray], fns, full_fn):
-        """Dispatch forwards (bucketed when configured) without syncing.
+        """Dispatch forwards (bucketed when configured) and the copies of
+        their outputs to the host, without waiting for any.
 
-        Returns ``(pending, n_rows)``; pending entries are
-        ``(device_tensor, n_valid, dest_row_indices)``."""
+        Each output is copied into pinned host memory right behind its
+        forward in stream order, so a later dispatch does not delay it.
+        Returns ``((copies, event), n_rows)``: copies are
+        ``(host_tensor, dest_row_indices)``, the event (None on the CPU)
+        is recorded after the last copy."""
         n = len(features["input_ids"])
-        pending = []
+        copies = []
         if not self.length_buckets:
             groups = [(self.cfg.text_len, np.arange(n), features, None)]
         else:
@@ -251,22 +258,31 @@ class STonKGsEngine:
             for piece, valid in iter_padded_batches(
                     sub, BATCH_KEYS, self.batch_size, self.device):
                 if pos is not None:
-                    piece["position_ids"] = torch.as_tensor(
-                        pos[None]).to(self.device)
-                out = fn(self.params, batch=piece)
-                pending.append((out, valid, idx[off: off + valid]))
+                    piece["position_ids"] = host_to_device(pos[None], self.device)
+                out = fn(self.params, batch=piece)[:valid].float()
+                if out.is_cuda:
+                    out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True).copy_(
+                        out, non_blocking=True)
+                copies.append((out, idx[off: off + valid]))
                 off += valid
-        return pending, n
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return (copies, event), n
 
     @staticmethod
     def _fetch(pending, n: int) -> np.ndarray:
-        """Copy dispatched outputs to the host in original row order."""
-        if not pending:
+        """Wait for the dispatched copies (the one place the host waits
+        for the card) and assemble them in original row order."""
+        copies, event = pending
+        if not copies:
             return np.zeros((n, 0), np.float32)
-        width = pending[0][0].shape[-1]
-        out = np.zeros((n, width), np.float32)
-        for dev, valid, dest in pending:
-            out[dest] = dev[:valid].float().cpu().numpy()
+        if event is not None:
+            event.synchronize()
+        out = np.zeros((n, copies[0][0].shape[-1]), np.float32)
+        for host, dest in copies:
+            out[dest] = host.numpy()
         return out
 
     def embed(self, features: Dict[str, np.ndarray]) -> np.ndarray:
@@ -290,3 +306,32 @@ class STonKGsEngine:
         lg = self.logits(features)
         e = np.exp(lg - lg.max(axis=-1, keepdims=True))
         return e / e.sum(axis=-1, keepdims=True)
+
+    def embed_stream(
+        self, rows: Iterable, *, chunk_rows: int = 4096,
+        apply_masking: bool = True, seed: int = 0,
+    ) -> Iterator[np.ndarray]:
+        """Pooled embeddings over an iterable of (source, target, evidence)
+        rows, a chunk of ``chunk_rows`` at a time, without holding the
+        corpus: yields (N_chunk, hidden) float32 arrays.
+
+        Chunk i+1 is preprocessed on the host while chunk i's forwards run
+        on the card: a chunk is dispatched and fetched only after the next
+        one is dispatched, so :meth:`_fetch` is the one place the host
+        waits.  Each chunk is preprocessed with the same ``seed``, as the
+        JAX package's ``embed_stream``."""
+        rows = iter(rows)
+        pending = None
+        while True:
+            chunk = list(itertools.islice(rows, chunk_rows))
+            if not chunk:
+                break
+            src, tgt, ev = zip(*chunk)
+            feats = self.preprocess(list(src), list(tgt), list(ev),
+                                    apply_masking=apply_masking, seed=seed)
+            dispatched = self._dispatch(feats, self._bucket_poolers, self._pooler)
+            if pending is not None:
+                yield self._fetch(*pending)
+            pending = dispatched
+        if pending is not None:
+            yield self._fetch(*pending)

@@ -1,8 +1,11 @@
-"""Vectorized BERT-style masking and NSP negative sampling (numpy).
+"""Vectorized BERT-style masking and NSP negative sampling.
 
-The port's copy of the numpy half of the JAX package's
-``data/masking.py``; on the same ``np.random.Generator`` state it gives
-the same arrays.  Behaviour, from the reference's ``replace_mlm_tokens``
+The port's copy of the JAX package's ``data/masking.py``: the numpy half
+gives the same arrays on the same ``np.random.Generator`` state;
+:func:`mask_tokens_torch`, the counterpart of ``mask_tokens_jax``, masks on
+the tensors' device with a ``torch.Generator`` (the same distribution,
+not the same draws as ``jax.random``).  Behaviour, from the reference's
+``replace_mlm_tokens``
 and ``_add_negative_nsp_samples``:
 
   * exactly ``int(len * 0.15)`` distinct positions per sequence are
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 IGNORE_INDEX = -100
 
@@ -118,3 +122,34 @@ def add_negative_nsp_samples(
         "ent_masked_lm_labels": features["ent_masked_lm_labels"][j],
         "next_sentence_labels": np.ones(k, np.int64),
     }
+
+
+def mask_tokens_torch(
+    gen: torch.Generator,
+    tokens: torch.Tensor,         # (B, L) int
+    vocab_len: int,
+    mask_id: int = 103,
+    masked_tokens_percentage: float = 0.15,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """On-device 80/10/10 masking (the JAX package's ``mask_tokens_jax``).
+
+    ``gen`` is a generator on ``tokens``' device.  ``int(L * p)`` distinct
+    positions a row are the top-k of uniform noise; each is replaced by
+    ``mask_id`` (u < 0.8), kept (u < 0.9) or a uniform id in
+    [0, vocab_len).  Returns (masked tokens, labels): the labels hold the
+    original ids at the chosen positions and -100 elsewhere."""
+    B, L = tokens.shape
+    n_pred = int(L * masked_tokens_percentage)
+    labels = torch.full((B, L), IGNORE_INDEX, dtype=tokens.dtype, device=tokens.device)
+    if n_pred == 0:
+        return tokens, labels
+    noise = torch.rand((B, L), generator=gen, device=tokens.device)
+    positions = torch.topk(noise, n_pred, dim=1, largest=False).indices
+    original = torch.gather(tokens, 1, positions)
+    u = torch.rand((B, n_pred), generator=gen, device=tokens.device)
+    random_ids = torch.randint(0, vocab_len, (B, n_pred), generator=gen,
+                               device=tokens.device, dtype=tokens.dtype)
+    replacement = torch.where(u < 0.8, torch.full_like(original, mask_id),
+                              torch.where(u < 0.9, original, random_ids))
+    return (tokens.scatter(1, positions, replacement),
+            labels.scatter(1, positions, original))

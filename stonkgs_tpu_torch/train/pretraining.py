@@ -7,8 +7,11 @@ passes :func:`stonkgs_tpu_torch.models.protstonkgs.pretraining_loss`) with
 respect to the trainable subtree (trunk, projection and heads; the frozen
 backbones run under ``torch.no_grad()``), accumulates gradients over
 micro-batches in fp32, and applies :class:`stonkgs_tpu_torch.train.optimizer.AdamW`.  ``pretrain``
-drives it over a shuffled feature set with a prefetching input thread, a
-deferred metric fetch and a non-finite-loss watchdog.
+drives it over a shuffled feature set (arrays or the memmaps of a
+:class:`~stonkgs_tpu_torch.data.memmap_dataset.MemmapFeatureStore`) with a
+prefetching input thread, a deferred metric fetch, a non-finite-loss
+watchdog and checkpoints (:mod:`stonkgs_tpu_torch.train.checkpoint`):
+saved every ``save_steps`` with rotation, and resumed from the newest.
 
 The parameters' device is the device of the run: the entry points run on
 the card when the parameters are there, as ``chip_smoke.py`` puts them.
@@ -16,8 +19,8 @@ the card when the parameters are there, as ``chip_smoke.py`` puts them.
 Randomness is explicit: a step's generators are derived from the run's
 seed and the step number (:func:`step_rng`), so any step can be replayed.
 
-Not ported here: the mesh (data/model parallelism, FSDP) and checkpoints;
-``pretrain`` raises ``NotImplementedError`` for them.
+Not ported here: the mesh (data/model parallelism, FSDP); ``pretrain``
+raises ``NotImplementedError`` for one.
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ import torch
 from stonkgs_tpu_torch.config import ProtSTonKGsConfig, STonKGsConfig
 from stonkgs_tpu_torch.models import stonkgs
 from stonkgs_tpu_torch.models.bert import DropoutRng, check_no_remat
+from stonkgs_tpu_torch.train.checkpoint import CheckpointManager
 from stonkgs_tpu_torch.train.optimizer import AdamW, merge_frozen, split_frozen
+from stonkgs_tpu_torch.utils.batching import host_to_device
 from stonkgs_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -147,9 +152,8 @@ def make_train_step(
 class PretrainingConfig:
     """Run configuration: the fields of the JAX package's
     ``PretrainingConfig`` that the port runs, with its defaults (the
-    reference CLI's).  The checkpoint fields (``save_*``, ``stop_at_step``)
-    and the mesh's (``fsdp*``) come with those features; ``remat`` and
-    ``attention_impl`` go through :func:`resolve_train_impl`."""
+    reference CLI's).  The mesh's fields (``fsdp*``) come with the mesh;
+    ``remat`` and ``attention_impl`` go through :func:`resolve_train_impl`."""
 
     learning_rate: float = 1e-4
     max_steps: int = 200
@@ -157,11 +161,17 @@ class PretrainingConfig:
     weight_decay: float = 0.0
     micro_batch_size: int = 8
     grad_accumulation_steps: int = 1
+    save_steps: int = 5000
+    save_total_limit: int = 5
     log_steps: int = 100
     seed: int = 0
     compute_dtype: str = "bfloat16"
     remat: bool = False
     attention_impl: str = "auto"
+    # stop (cleanly, with a checkpoint) after this step while the LR
+    # schedule stays pinned to max_steps: a resumed run continues to
+    # max_steps on the trajectory of an uninterrupted one
+    stop_at_step: Optional[int] = None
 
     @property
     def batch_size(self) -> int:
@@ -247,16 +257,8 @@ def data_iterator(
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """A numpy batch as tensors on ``device`` (integers as int64), copied
     from pinned host memory without blocking when the device is a card."""
-    device = torch.device(device)
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if not t.is_floating_point():
-            t = t.to(torch.int64)
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
-    return out
+    return {k: host_to_device(v, device, None if np.asarray(v).dtype.kind == "f" else torch.int64)
+            for k, v in batch.items()}
 
 
 def _sync(device: torch.device) -> None:
@@ -275,7 +277,8 @@ def pretrain(
     log_fn: Optional[Callable[[int, dict], None]] = None,
     loss_fn: Optional[Callable] = None,
 ) -> TrainState:
-    """Run the pre-training loop on the parameters' device.
+    """Run the pre-training loop on the parameters' device; with a
+    ``checkpoint_dir``, resume from its newest checkpoint and save there.
 
     ``loss_fn`` defaults to the STonKGs MLM + ELM + NSP loss; pass
     ``protstonkgs.pretraining_loss`` for the tri-modality variant (see
@@ -285,13 +288,18 @@ def pretrain(
     place); the frozen backbones are shared and never written.  Metrics of
     a log step are fetched one log interval later, so the copy to the host
     overlaps the running steps; the watchdog raises ``FloatingPointError``
-    after three non-finite losses in a row, up to one interval late.
+    after three non-finite losses in a row, up to one interval late, and
+    always before a save could rotate out the last good checkpoint.
     ``log_fn(step, metrics)`` gets floats, ``elapsed_sec`` and, after the
-    first step, ``examples_per_sec``."""
+    first step of this run, ``examples_per_sec`` over this run's steps.
+
+    Checkpoints are saved every ``save_steps``, at ``max_steps`` and at
+    ``stop_at_step``, keeping ``save_total_limit``; the mid-run saves write
+    their files on a background thread, the last one blocks.  A resumed
+    run fast-forwards the data to its step and draws every step's dropout
+    from (seed, step), so it replays the uninterrupted run."""
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoints are not ported")
     remat, _ = resolve_train_impl(run_cfg.remat, run_cfg.attention_impl)
     train, frozen = split_frozen(params)
     params = merge_frozen(tree_map(lambda t: t.detach().clone(), train), frozen)
@@ -299,15 +307,23 @@ def pretrain(
     tx = AdamW(learning_rate=run_cfg.learning_rate, total_steps=run_cfg.max_steps,
                warmup_steps=run_cfg.warmup_steps, weight_decay=run_cfg.weight_decay)
     state = init_train_state(params, tx, run_cfg.seed)
+    ckpt = None
+    start_step = 0
+    if checkpoint_dir is not None:
+        ckpt = CheckpointManager(checkpoint_dir, run_cfg.save_total_limit)
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            state, start_step = restored, restored.step
     step_fn = make_train_step(
         cfg, tx, loss_fn=loss_fn, compute_dtype=getattr(torch, run_cfg.compute_dtype),
         grad_accumulation_steps=run_cfg.grad_accumulation_steps, remat=remat)
     batches = _prefetch_to_device(
-        data_iterator(features, run_cfg.batch_size, seed=run_cfg.seed),
-        lambda b: to_device(b, device), run_cfg.max_steps)
+        data_iterator(features, run_cfg.batch_size, seed=run_cfg.seed,
+                      skip_steps=start_step),
+        lambda b: to_device(b, device), max(run_cfg.max_steps - start_step, 0))
 
     t0 = time.perf_counter()
-    steady_t0 = None  # set after step 1, so throughput excludes the first step
+    steady_t0 = None  # set after this run's first step, which throughput excludes
     nan_streak = 0
     pending = None    # (1-based step, metric names, host values, event)
 
@@ -331,29 +347,42 @@ def pretrain(
             if nan_streak >= 3:
                 raise FloatingPointError(
                     f"non-finite loss for {nan_streak} consecutive checks at "
-                    f"step {step_num}")
+                    f"step {step_num}; the last checkpoint is in {checkpoint_dir}")
         else:
             nan_streak = 0
         if log_fn:
             now = time.perf_counter()
             m["elapsed_sec"] = now - t0
-            if step_num > 1 and steady_t0 is not None:
-                m["examples_per_sec"] = run_cfg.batch_size * (step_num - 1) / (now - steady_t0)
+            steady_steps = step_num - 1 - start_step
+            if steady_steps > 0 and steady_t0 is not None:
+                m["examples_per_sec"] = run_cfg.batch_size * steady_steps / (now - steady_t0)
             log_fn(step_num, m)
 
     try:
-        for step in range(run_cfg.max_steps):
+        for step in range(start_step, run_cfg.max_steps):
             state, metrics = step_fn(state, next(batches))
             if steady_t0 is None:
                 _sync(device)
                 steady_t0 = time.perf_counter()
-            if (step + 1) % run_cfg.log_steps == 0 or step + 1 == run_cfg.max_steps:
+            stopping = run_cfg.stop_at_step is not None and step + 1 >= run_cfg.stop_at_step
+            final = step + 1 == run_cfg.max_steps or stopping
+            if (step + 1) % run_cfg.log_steps == 0 or final:
                 started = start_fetch(step + 1, metrics)
                 if pending is not None:
                     fetch_and_log(*pending)
                 pending = started
+            if ckpt is not None and ((step + 1) % run_cfg.save_steps == 0 or final):
+                # the watchdog sees every logged loss before a save rotates
+                if pending is not None:
+                    fetch_and_log(*pending)
+                    pending = None
+                ckpt.save(step + 1, state, blocking=final)
+            if stopping:
+                break
         if pending is not None:
             fetch_and_log(*pending)
+        if ckpt is not None:
+            ckpt.wait()
     finally:
         batches.close()
     return state

@@ -13,6 +13,20 @@ import numpy as np
 import torch
 
 
+def host_to_device(a: np.ndarray, device: torch.device | str,
+                   dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A numpy array as a tensor on ``device`` (in ``dtype`` when given).
+    To a card it goes from pinned host memory without blocking, so the
+    host does not wait for the work already queued on the card."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:     # a read-only memmap's rows
+        a = a.copy()
+    t = torch.as_tensor(a, dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def iter_padded_batches(
     features: Dict[str, np.ndarray],
     keys: Sequence[str],
@@ -31,8 +45,7 @@ def iter_padded_batches(
                     [v, np.repeat(v[-1:], batch_size - valid, axis=0)], axis=0)
                 for k, v in chunk.items()
             }
-        yield {k: torch.as_tensor(v, dtype=torch.int64).to(device)
-               for k, v in chunk.items()}, valid
+        yield {k: host_to_device(v, device, torch.int64) for k, v in chunk.items()}, valid
 
 
 def batched_apply(

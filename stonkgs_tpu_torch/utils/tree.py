@@ -7,7 +7,7 @@ to matching leaves.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 
 def tree_map(fn: Callable, tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
@@ -31,3 +31,30 @@ def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_flatten_with_path(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """``{"a/b/0/c": leaf}``: every leaf under its path of dict keys and
+    list indices, depth first (the order of :func:`tree_leaves`)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for k, sub in items:
+        out.update(tree_flatten_with_path(sub, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
+    """The tree with ``fn(path, leaf)`` applied to every leaf, paths as in
+    :func:`tree_flatten_with_path` (tuples become lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)

@@ -41,6 +41,10 @@ def test_import_pulls_in_no_jax():
         "from stonkgs_tpu_torch.cli import finetune\n"
         "from stonkgs_tpu_torch.baselines import kg_baseline, nlp_baseline\n"
         "from stonkgs_tpu_torch.utils import batching, logging\n"
+        "from stonkgs_tpu_torch.data import filters, indra_extraction, memmap_dataset\n"
+        "from stonkgs_tpu_torch.train import checkpoint, dynamic_masking\n"
+        "from stonkgs_tpu_torch.cli import pretrain\n"
+        "from stonkgs_tpu_torch.api import api, embeddings\n"
         "new = sorted(set(sys.modules) - before)\n"
         "print('\\n'.join(new))\n"
     )
@@ -56,19 +60,22 @@ def test_import_pulls_in_no_jax():
     assert "stonkgs_tpu_torch.utils.hf_loader" in out
     assert "stonkgs_tpu_torch.train.finetuning" in out
     assert "stonkgs_tpu_torch.baselines.kg_baseline" in out
+    assert "stonkgs_tpu_torch.cli.pretrain" in out
+    assert "stonkgs_tpu_torch.api.embeddings" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
 # packages the port's paths must not need: a machine that serves the
 # port is given torch, numpy and g++ only
-ABSENT_ON_THE_CARD = ("pandas", "transformers", "safetensors", "sklearn")
+ABSENT_ON_THE_CARD = ("pandas", "transformers", "safetensors", "sklearn", "networkx")
 
 
 def test_engine_path_pulls_in_no_module_the_card_lacks():
-    """The README flow's and fine-tuning's modules import none of pandas,
-    transformers, safetensors or sklearn (safetensors only inside the
-    loader, for a ``.safetensors`` file; pandas only inside
-    ``cli/finetune.run_finetuning``, to read a task TSV)."""
+    """The README flow's, fine-tuning's, pre-training's and the serving
+    API's modules import none of pandas, transformers, safetensors,
+    sklearn or networkx at module scope (safetensors only inside the
+    loader, for a ``.safetensors`` file; pandas only inside the functions
+    that read a TSV or a pickle or build a DataFrame)."""
     code = (
         "import sys\n"
         "from stonkgs_tpu_torch.api import inference, prot_inference\n"
@@ -79,18 +86,28 @@ def test_engine_path_pulls_in_no_module_the_card_lacks():
         "from stonkgs_tpu_torch.cli import finetune\n"
         "from stonkgs_tpu_torch.baselines import kg_baseline, nlp_baseline\n"
         "from stonkgs_tpu_torch.utils import batching, logging\n"
+        "from stonkgs_tpu_torch.data import filters, indra_extraction, memmap_dataset\n"
+        "from stonkgs_tpu_torch.train import checkpoint, dynamic_masking\n"
+        "from stonkgs_tpu_torch.cli import pretrain\n"
+        "from stonkgs_tpu_torch.api import api, embeddings\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120).stdout.split()
     assert "stonkgs_tpu_torch.api.inference" in out
     assert "stonkgs_tpu_torch.train.finetuning" in out
+    assert "stonkgs_tpu_torch.cli.pretrain" in out
+    assert "stonkgs_tpu_torch.api.api" in out
     assert [m for m in out if m.split(".")[0] in ABSENT_ON_THE_CARD] == []
 
 
 def test_pandas_only_where_a_task_tsv_is_read():
-    """The port imports pandas in one place: inside
-    ``cli/finetune.py::run_finetuning``."""
+    """The port imports pandas only inside the functions that read a task
+    TSV (``cli/finetune.py::run_finetuning``), a pickle or a TSV of
+    features (``cli/pretrain.py::load_preprocessed_dataset``), or take or
+    return DataFrames (the serving API of ``api/api.py`` and
+    ``api/embeddings.py``); ``data/filters.py`` works on the caller's
+    DataFrames without importing it."""
     def pandas_imports(node):
         return {id(n) for n in ast.walk(node)
                 if (isinstance(n, ast.Import) and any(a.name.split(".")[0] == "pandas"
@@ -108,7 +125,15 @@ def test_pandas_only_where_a_task_tsv_is_read():
                 places += [(str(path.relative_to(ROOT)), fn.name)] * len(inner)
                 found -= inner
         places += [(str(path.relative_to(ROOT)), None)] * len(found)
-    assert places == [("stonkgs_tpu_torch/cli/finetune.py", "run_finetuning")]
+    assert sorted(places) == [
+        ("stonkgs_tpu_torch/api/api.py", "_convert_indra_statements"),
+        ("stonkgs_tpu_torch/api/api.py", "_prepare_df"),
+        ("stonkgs_tpu_torch/api/api.py", "infer_concat"),
+        ("stonkgs_tpu_torch/api/embeddings.py", "get_stonkgs_embeddings"),
+        ("stonkgs_tpu_torch/api/embeddings.py", "preprocess_df_for_embeddings"),
+        ("stonkgs_tpu_torch/cli/finetune.py", "run_finetuning"),
+        ("stonkgs_tpu_torch/cli/pretrain.py", "load_preprocessed_dataset"),
+    ]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

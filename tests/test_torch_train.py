@@ -17,6 +17,7 @@ step for elements with a small gradient).
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -208,14 +209,16 @@ def test_pretrain_runs_three_steps(params):
     assert not torch.equal(moved, before["trunk"]["encoder"][0]["intermediate"]["kernel"])
 
 
-def test_pretrain_unported_options_raise(params):
+def test_pretrain_unported_options_raise(params, tmp_path):
+    """The mesh and remat raise; a ``checkpoint_dir`` (ported) saves."""
     tp = params_from_jax(params, TCFG)
     feats = features(CFG, 4)
-    run = tpre.PretrainingConfig(max_steps=1, micro_batch_size=4)
+    run = tpre.PretrainingConfig(max_steps=1, micro_batch_size=4, compute_dtype="float32")
     with pytest.raises(NotImplementedError, match="mesh"):
         tpre.pretrain(TCFG, tp, feats, run, mesh=object())
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tpre.pretrain(TCFG, tp, feats, run, checkpoint_dir="ckpt")
+    state = tpre.pretrain(TCFG, tp, feats, run, checkpoint_dir=str(tmp_path / "ckpt"))
+    assert state.step == 1
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["1"]
     with pytest.raises(NotImplementedError, match="remat"):
         tpre.make_train_step(TCFG, topt.AdamW(), remat="full")
     assert tpre.resolve_train_impl() == (False, "flash")
