@@ -174,6 +174,29 @@ Phases, each fatal on failure (exit code 1, no result line):
     ``dynamic_nsp_swap`` (20% negatives within 4 sigma) on the card over
     the store; (e) ``variant="transe"`` (S=260, B=32, 2 steps) and
     ``variant="prot"`` at phase 11's widths (B=2, 2 steps, one save).
+22. KG embeddings: (a) a seeded synthetic INDRA corpus (communities of
+    50 agents, hubs, complexes, TEXT agents, small components, the four
+    contexts) through ``read_indra_triples``: the files, their counts
+    against the summary, one component of 10,000-20,000 nodes; (b)
+    ``run_node2vec`` from the extracted pre-training TSV on the card at
+    the reference's settings (dim 768, walks of 127, 4 epochs, window 3,
+    5 negatives, 1 iteration), with the host and with the device
+    pipeline: the native walker, the TSVs' shapes and row pairing,
+    finite vectors, the link-prediction AUC at least ``KG_AUC_MIN`` and
+    the edges' mean centred cosine ``KG_COS_MARGIN`` above random pairs';
+    (c) one host-pipeline step (65,536 pairs) and one device slab (2^17
+    slots, its draws made on the card) on the card against the CPU on equal
+    inputs (``KG_CARD_TOL``), the slab's keep, window and negative rates
+    within 4 sigma and its mask density within 3% of ``_make_pairs``'s;
+    (d) ``save_pretrained`` (BERT-base, the new graph's KG vocabulary) ->
+    ``STonKGsEngine.from_pretrained`` on the trained TSVs ->
+    ``preprocess`` of 512 extracted rows -> ``embed`` (launch counts,
+    finite output), then the KG battery over the extracted tasks after
+    ``filter_out_duplicates`` (cv 2, 1 epoch); (e) at 500,000 nodes: the
+    walker's steps/s, the host pipeline's pairs/s and step, the device
+    pipeline's slab in ms and tokens/s, its busy share under the
+    profiler, peak memory, and both pipelines' projected minutes for
+    254 M tokens.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -201,9 +224,10 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from stonkgs_tpu_torch import ProtSTonKGsEngine, STonKGsEngine
-from stonkgs_tpu_torch.baselines import kg_baseline, nlp_baseline
+from stonkgs_tpu_torch.baselines import batteries, kg_baseline, nlp_baseline
 from stonkgs_tpu_torch.cli.pretrain import (
     prot_pretraining_config,
     run_pretraining,
@@ -213,15 +237,24 @@ from stonkgs_tpu_torch.config import BertConfig, BigBirdConfig, ProtSTonKGsConfi
 from stonkgs_tpu_torch.data.artifacts import (
     load_kg_artifacts,
     make_random_artifacts,
+    read_tsv,
     save_kg_artifacts,
 )
-from stonkgs_tpu_torch.data import fast_tokenizer
+from stonkgs_tpu_torch.data import (
+    fast_tokenizer,
+    filters,
+    indra_extraction,
+    kg_graph,
+    tsv_io,
+    walker,
+)
 from stonkgs_tpu_torch.data.fast_tokenizer import FastBertTokenizer
 from stonkgs_tpu_torch.data.masking import mask_tokens, mask_tokens_torch
 from stonkgs_tpu_torch.data.memmap_dataset import MemmapFeatureStore
 from stonkgs_tpu_torch.data.preprocessing import assemble_entity_half, preprocess_for_embeddings
+from stonkgs_tpu_torch.data.walker import CSRGraph
 from stonkgs_tpu_torch.data.wordpiece import BertTokenizer
-from stonkgs_tpu_torch.models import bert, protstonkgs, stonkgs
+from stonkgs_tpu_torch.models import bert, node2vec, protstonkgs, stonkgs, word2vec
 from stonkgs_tpu_torch.models.heads import init_classifier_head
 from stonkgs_tpu_torch.ops import _build
 from stonkgs_tpu_torch.ops.bigbird_sparse import (
@@ -277,6 +310,7 @@ from stonkgs_tpu_torch.utils import hf_loader
 from stonkgs_tpu_torch.utils.convert import params_to
 from stonkgs_tpu_torch.utils.hf_export import save_pretrained
 from stonkgs_tpu_torch.utils.logging import RunLogger
+from stonkgs_tpu_torch.utils.batching import host_to_device
 from stonkgs_tpu_torch.utils.tree import tree_flatten_with_path, tree_leaves, tree_map
 
 DEV = "cuda"
@@ -3310,6 +3344,493 @@ def phase_pretrain_files(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# KG embeddings: an INDRA corpus -> the graph and its tasks -> node2vec on
+# the card -> serving from the trained files, the KG battery; timing at the
+# production node count
+# ---------------------------------------------------------------------------
+
+KG_COMMUNITIES = 260      # communities of KG_COMMUNITY agents: ~16,000 nodes
+KG_COMMUNITY = 50
+KG_INTRA = 0.95           # share of a statement's partners in its community
+KG_HUBS = 4               # hub agents (INDRA's TP53s) with KG_HUB_DEGREE partners
+KG_HUB_DEGREE = 300
+KG_CONTEXT_RATE = 0.01    # evidences with one of the four contexts
+KG_TRIPLES_PER_CLASS = 100  # the relation task's cap (the reference's: 25,000)
+KG_NODES = (10_000, 20_000)  # the largest component's size, by design
+KG_DIM, KG_WALK_LEN, KG_EPOCHS, KG_WINDOW, KG_NEGATIVE = 768, 127, 4, 3, 5
+# link-prediction AUC (hard predictions) at full width at least
+# KG_AUC_MIN, and the mean centred cosine of the graph's edges at least
+# KG_COS_MARGIN above that of random pairs, each pipeline's floor set from
+# the CPU rehearsal of (a)-(b) at this configuration (dim 768): host AUC
+# 0.553, margin 0.845; device AUC 0.500, margin 0.035.  The device
+# pipeline's ~380 updates, each a mean over a 172-row slab, leave vectors
+# so short that the regression predicts one class (chance), so its margin
+# shows what it learnt.  (At dim 64 the rehearsal gave AUC 0.80 and 0.56.)
+KG_AUC_MIN = {"host": 0.52, "device": 0.5}
+KG_COS_MARGIN = {"host": 0.5, "device": 0.02}
+# card against CPU on equal inputs: fp32 sums of up to a few hundred
+# contributions a row in another order (atomic adds on the card)
+KG_CARD_TOL = 1e-5
+KG_TIMING_NODES = 500_000  # the JAX package's production node count
+KG_TIMING_DEGREE = 8       # mean partners a node of the timing graph
+KG_CORPUS_TOKENS = 254_000_000  # 500,000 nodes x 4 walks x 127
+KG_HOST_PAIRS = 1 << 16    # the host pipeline's batch at its cap
+KG_SLAB_SLOTS = 1 << 17    # the device pipeline's slab
+KG_TIMED_SLABS = 200
+
+
+def _kg_agent(i: int) -> dict:
+    ns = ("CHEBI", "GO")[i % 2] if i % 10 == 0 else "HGNC"
+    return {"name": f"G{i}", "db_refs": {ns: str(i), "TEXT": f"g{i}"}}
+
+
+def _kg_statements(rng: np.random.Generator) -> list:
+    """A seeded INDRA corpus with community structure (each agent the
+    subject of two statements, nine in ten with a partner of its own
+    community), hubs, complexes, TEXT agents, a few small components off
+    the largest one, and evidence with the four contexts, XREF_BIBR
+    markers, a tab and a quote."""
+    n = KG_COMMUNITIES * KG_COMMUNITY
+    kinds = ("Activation", "Inhibition", "Phosphorylation", "Dephosphorylation",
+             "IncreaseAmount", "DecreaseAmount", "Association", "Complex")
+    contexts = (("species", ("human", "mouse", "rat")),
+                ("cell_line", tuple(f"line {i}" for i in range(10))),
+                ("disease", tuple(f"disease {i}" for i in range(5))),
+                ("location", ("nucleus", "cytoplasm", "membrane", "mitochondrion")))
+    words = ("alpha", "beta", "binds", "activates", "inhibits", "cells", "in", "the",
+             "protein", "signal", "kinase", "pathway")
+
+    def evidence(k: int) -> dict:
+        text = " ".join(words[j] for j in rng.integers(0, len(words), 6)) + f" {k}."
+        if k % 97 == 0:
+            text += " [XREF_BIBR, XREF_BIBR]"
+        if k % 1001 == 0:
+            text = 'a "quoted"\tword ' + text
+        ev = {"text": text, "pmid": str(10_000 + k)}
+        if rng.random() < 4 * KG_CONTEXT_RATE:
+            key, labels = contexts[int(rng.integers(4))]
+            ev["context"] = {key: {"name": labels[int(rng.integers(len(labels)))]}}
+        return ev
+
+    def statement(k: int, a: dict, b: dict) -> dict:
+        kind = kinds[k % len(kinds)]
+        stmt = {"type": kind, "belief": round(float(rng.random()), 4),
+                "evidence": [evidence(2 * k + j) for j in range(1 + k % 2)]}
+        if kind == "Complex":
+            stmt["members"] = [a, b]
+        elif kind in ("Phosphorylation", "Dephosphorylation"):
+            stmt.update(enz=a, sub=b)
+        else:
+            stmt.update(subj=a, obj=b)
+        return stmt
+
+    out, k = [], 0
+    for a in np.repeat(np.arange(n), 2):
+        comm = a // KG_COMMUNITY
+        b = (comm * KG_COMMUNITY + rng.integers(KG_COMMUNITY) if rng.random() < KG_INTRA
+             else rng.integers(n))
+        partner = ({"name": f"thing{k}", "db_refs": {"TEXT": f"thing{k}"}}
+                   if k % 50 == 0 else _kg_agent(int(b)))
+        out.append(statement(k, _kg_agent(int(a)), partner))
+        k += 1
+    for h in range(KG_HUBS):
+        for b in rng.integers(0, n, KG_HUB_DEGREE):
+            out.append(statement(k, _kg_agent(h * (n // KG_HUBS) + 7), _kg_agent(int(b))))
+            k += 1
+    for i in range(5):                       # small components off the largest
+        out.append(statement(k, _kg_agent(n + 2 * i), _kg_agent(n + 2 * i + 1)))
+        k += 1
+    return out
+
+
+def _kg_extract(tmp: str) -> tuple:
+    """(a) The corpus through ``read_indra_triples``: the files, their
+    counts against the summary, one component of the expected size."""
+    rng = np.random.default_rng(22)
+    t0 = time.perf_counter()
+    stmts = _kg_statements(rng)
+    raw = os.path.join(tmp, "statements.jsonl")
+    with open(raw, "w") as f:
+        f.writelines(json.dumps(s) + "\n" for s in stmts)
+    t_corpus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = indra_extraction.read_indra_triples(raw, os.path.join(tmp, "kg"),
+                                                triples_per_class=KG_TRIPLES_PER_CLASS)
+    t_extract = time.perf_counter() - t0
+    check(all(os.path.exists(p) for p in paths.values()), f"extraction files {paths}")
+    rows = {name: tsv_io.read_columns(p, ("source", "target"))
+            for name, p in paths.items()}
+    with open(os.path.join(tmp, "kg", "misc", "summary.tsv"), newline="") as f:
+        summary = {r["context"]: r for r in csv.DictReader(f, delimiter="\t")}
+    for name in indra_extraction.TASKS:
+        check(int(summary[name]["number_of_triples"]) == len(rows[name]["source"]) > 0,
+              f"{name}: {len(rows[name]['source'])} rows, summary {summary[name]}")
+    rel = len(rows["relation_type"]["source"])
+    check(int(summary["(in)direct relations and polarity"]["number_of_triples"]) == rel
+          == 4 * KG_TRIPLES_PER_CLASS, f"relation_type: {rel} rows")
+    # every written triple lies in one component of the expected size
+    kg = kg_graph.MultiDiGraph()
+    for r in rows.values():
+        for u, v in zip(r["source"], r["target"]):
+            kg.add_edge(u, v)
+    comps = kg.connected_components()
+    with open(os.path.join(tmp, "kg", "misc", "indra_kg_overview_summary.json")) as f:
+        n_kg = sum(json.load(f)[0]["value"].values())
+    n_files = kg.number_of_nodes()
+    check(len(comps) == 1 and KG_NODES[0] <= n_files <= n_kg <= KG_NODES[1],
+          f"{len(comps)} components, {n_files} nodes in the files, {n_kg} in the KG")
+    n = KG_COMMUNITIES * KG_COMMUNITY
+    check(not any(f" G{n + i})" in name for name in kg.nodes() for i in range(10)),
+          "a node of a small component survived")
+    log(f"# kg (a) corpus: {len(stmts)} statements written in {t_corpus!r} s; extraction "
+        f"{t_extract!r} s: {n_kg} nodes in the largest component, {n_files} in the files; "
+        f"rows {({k: len(r['source']) for k, r in rows.items()})}")
+    return paths
+
+
+def _kg_cosines(result, graph) -> tuple:
+    """Mean cosine of the graph's edges and of 20,000 random node pairs,
+    the vectors centred first (the host pipeline's share one direction:
+    their raw cosines are all near 1)."""
+    row = {n: i for i, n in enumerate(result.index_to_word)}
+    v = result.vectors[[row[n] for n in graph.names]].astype(np.float64)
+    v -= v.mean(axis=0)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    src = np.repeat(np.arange(graph.n_nodes), np.diff(graph.indptr))
+    a, b = np.random.default_rng(0).integers(0, graph.n_nodes, (2, 20_000))
+    return (float((v[src] * v[graph.indices]).sum(1).mean()),
+            float((v[a] * v[b]).sum(1).mean()))
+
+
+def _kg_node2vec(paths: dict, tmp: str, card: str) -> dict:
+    """(b) ``run_node2vec`` at the reference's settings on the card, host
+    and device pipelines: files, the row-pairing quirk, finite vectors,
+    the link-prediction AUC.  Returns {pipeline: (result, walks, graph,
+    embeddings TSV, walks TSV)}."""
+    check(walker.is_native(), "the native walker did not build")
+    runs = {}
+    for label, device_pipeline in (("host", False), ("device", True)):
+        out = os.path.join(tmp, f"n2v_{label}")
+        os.makedirs(out)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result, walks, graph = node2vec.run_node2vec(
+            pretraining_path=paths["pretraining"], dimensions=KG_DIM, walk_length=KG_WALK_LEN,
+            epochs=KG_EPOCHS, window_size=KG_WINDOW, negative=KG_NEGATIVE, iterations=1,
+            output_dir=out, device_pipeline=device_pipeline, device=DEV)
+        seconds = time.perf_counter() - t0
+        emb = os.path.join(out, "embeddings_best_model.tsv")
+        rw = os.path.join(out, "random_walks_best_model.tsv")
+        names, rests = read_tsv(emb)
+        check(names == result.index_to_word and len(names) == graph.n_nodes,
+              f"{label}: embeddings rows")
+        check(all(r.count("\t") == KG_DIM - 1 for r in rests[:50]), f"{label}: embedding width")
+        wnames, wrests = read_tsv(rw)
+        check(wnames == names and all(r.count("\t") == KG_WALK_LEN - 1 for r in wrests),
+              f"{label}: walks rows")
+        check(all(wrests[k].split("\t")[0] == graph.names[k] for k in range(0, len(wrests), 97)),
+              f"{label}: walk row k does not start at node k (the reference's pairing)")
+        check(bool(np.isfinite(result.vectors).all()) and result.vectors.shape == (
+            graph.n_nodes, KG_DIM), f"{label}: vectors {result.vectors.shape}, not finite")
+        t1 = time.perf_counter()
+        auc = node2vec.run_link_prediction(graph, result, seed=0)
+        t_lp = time.perf_counter() - t1
+        edge_cos, random_cos = _kg_cosines(result, graph)
+        log(f"# kg (b) run_node2vec {label} pipeline: {graph.n_nodes} nodes, walks "
+            f"{walks.shape}, dim {KG_DIM}, {seconds!r} s (peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB); link prediction AUC {auc!r} "
+            f"in {t_lp!r} s; mean centred cosine of edges {edge_cos!r}, of random pairs "
+            f"{random_cos!r} ({card})")
+        check(auc >= KG_AUC_MIN[label],
+              f"{label}: link-prediction AUC {auc!r} < {KG_AUC_MIN[label]}")
+        check(edge_cos - random_cos >= KG_COS_MARGIN[label],
+              f"{label}: edges' cosine {edge_cos!r} not {KG_COS_MARGIN[label]} above random "
+              f"pairs' {random_cos!r}")
+        runs[label] = (result, walks, graph, emb, rw)
+    return runs
+
+
+def _kg_card_vs_cpu(result, walks, graph) -> float:
+    """(c) One host-pipeline step and one device slab on the card against
+    the CPU on equal inputs (the slab's draws made on the card, copied to
+    the CPU); the slab's keep, window and negative rates, and its mask
+    density beside ``_make_pairs`` on the same rows.  Returns the largest
+    error."""
+    counts, order, rank = word2vec._build_vocab(walks, graph.n_nodes)
+    ranked = rank[walks].astype(np.int32)
+    counts_sorted = counts[order]
+    keep_prob = word2vec._keep_probabilities(counts_sorted, 1e-3)
+    neg_probs = word2vec._negative_probabilities(counts_sorted)
+    V = graph.n_nodes
+    gen = torch.Generator().manual_seed(23)
+    syn = [torch.randn(V, KG_DIM, generator=gen) * 0.1 for _ in range(2)]
+    rng = np.random.default_rng(23)
+    c, x = word2vec._make_pairs(ranked[:2_000], KG_WINDOW, rng, keep_prob)
+    pick = rng.permutation(len(c))[:KG_HOST_PAIRS]
+    neg = np.searchsorted(np.cumsum(neg_probs), rng.random((KG_HOST_PAIRS, KG_NEGATIVE)))
+    batch = [torch.from_numpy(a.astype(np.int32)) for a in (c[pick], x[pick], neg)]
+    errs = {}
+    cpu = word2vec._sgd_core(*(t.clone() for t in syn), *batch, 0.025)
+    dev = word2vec._sgd_core(*(t.to(DEV, copy=True) for t in syn), *(b.to(DEV) for b in batch),
+                             0.025)
+    errs["host step"] = max(float((a.cpu() - b).abs().max()) for a, b in zip(dev, cpu))
+    moved = max(float((a - b).abs().max()) for a, b in zip(cpu, syn))
+
+    # the device slab: draws on the card, the computation on both
+    slab_rows = KG_SLAB_SLOTS // word2vec._pair_slots_per_row(KG_WALK_LEN, KG_WINDOW)
+    toks = torch.from_numpy(ranked[rng.permutation(len(ranked))[:slab_rows]])
+    keep_t = torch.from_numpy(keep_prob)
+    alias, thresh = (torch.from_numpy(a) for a in word2vec._build_alias(neg_probs))
+    g = torch.Generator(device=DEV).manual_seed(word2vec._slab_seed(0, 0, 0))
+    keep, red = word2vec._slab_draws(toks.to(DEV), keep_t.to(DEV), KG_WINDOW, g)
+    cell, u = word2vec._negative_draws(2 * KG_WINDOW * toks.numel(), KG_NEGATIVE, V, g, DEV)
+    draws = [t.cpu() for t in (keep, red, cell, u)]
+    valid = torch.ones(slab_rows, dtype=torch.bool)
+
+    def slab(tables, on):
+        keep_, red_, cell_, u_, toks_, valid_, alias_, thresh_ = (
+            a.to(on) for a in (*draws, toks, valid, alias, thresh))
+        cen, ctx, mask = word2vec._device_pair_slab(toks_, valid_, keep_, red_, KG_WINDOW)
+        negs = word2vec._alias_negatives(cell_, u_, alias_, thresh_)
+        word2vec._sgd_core(*tables, cen, ctx, negs, 0.025, mask)
+        return tables, mask
+
+    (cpu, mask), (dev, _) = slab([a.clone() for a in syn], "cpu"), slab(
+        [a.to(DEV, copy=True) for a in syn], DEV)
+    errs["device slab"] = max(float((a.cpu() - b).abs().max()) for a, b in zip(dev, cpu))
+    log(f"# kg (c) card vs CPU, equal inputs: host step of {KG_HOST_PAIRS} pairs and a device "
+        f"slab of {slab_rows} rows ({mask.numel()} slots): max_abs_err {errs} (the tables "
+        f"moved by up to {moved!r})")
+    for name, err in errs.items():
+        check(err <= KG_CARD_TOL, f"kg {name}: card vs CPU {err!r} > {KG_CARD_TOL}")
+
+    # the draws' rates, each within 4 sigma
+    p_keep = keep_prob[toks.numpy()].astype(np.float64)
+    sigma = math.sqrt((p_keep * (1 - p_keep)).sum()) / p_keep.size
+    kept = float(draws[0].double().mean())
+    red_freq = np.bincount(draws[1].numpy().ravel(), minlength=KG_WINDOW) / draws[1].numel()
+    negs = word2vec._alias_negatives(*draws[2:], alias, thresh).numpy().ravel()
+    top = np.argsort(-neg_probs)[:20]
+    neg_freq = np.bincount(negs, minlength=V)[top] / negs.size
+    neg_sigma = np.sqrt(neg_probs[top] * (1 - neg_probs[top]) / negs.size)
+    red_sigma = math.sqrt((1 / KG_WINDOW) * (1 - 1 / KG_WINDOW) / draws[1].numel())
+    pc, _ = word2vec._make_pairs(toks.numpy(), KG_WINDOW, np.random.default_rng(5), keep_prob)
+    density, want_density = float(mask.mean()), len(pc) / mask.numel()
+    neg_dev = float(np.abs(neg_freq - neg_probs[top]).max() / neg_sigma.max())
+    log(f"# kg (c) slab draws: keep {kept!r} (expected {p_keep.mean()!r}, min keep "
+        f"probability {float(keep_prob.min())!r}); reduced windows {red_freq.tolist()}; the 20 "
+        f"likeliest negatives' frequencies within {neg_dev!r} sigma; mask density "
+        f"{density!r} against {want_density!r} from _make_pairs")
+    check(abs(kept - p_keep.mean()) <= 4 * sigma + 1e-12, "kg slab keep rate")
+    check(float(keep_prob.min()) < 1.0, "kg: no token was subsampled (no hub in the corpus)")
+    check(bool((np.abs(red_freq - 1 / KG_WINDOW) <= 4 * red_sigma).all()), "kg reduced windows")
+    check(bool((np.abs(neg_freq - neg_probs[top]) <= 4 * neg_sigma).all()), "kg negatives")
+    check(abs(density - want_density) <= 0.03 * want_density, "kg slab mask density")
+    return max(errs.values())
+
+
+def _no_duplicates_tasks(paths: dict, root: str) -> int:
+    """The extracted tasks after ``filter_out_duplicates``, where the
+    battery reads them; returns the rows written."""
+    import pandas as pd
+
+    n = 0
+    for name in indra_extraction.TASKS + ("relation_type",):
+        df = filters.filter_out_duplicates(pd.read_csv(paths[name], sep="\t"), name)
+        os.makedirs(os.path.join(root, name))
+        df.to_csv(os.path.join(root, name, f"{name}_no_duplicates.tsv"), sep="\t", index=False)
+        n += len(df)
+    return n
+
+
+def _kg_serving(paths: dict, run: tuple, tmp: str, card: str) -> dict:
+    """(d) ``save_pretrained`` (BERT-base, the new graph's KG vocabulary),
+    then ``from_pretrained`` on the trained TSVs -> ``preprocess`` on rows
+    of the extracted pre-training TSV -> ``embed``, counted from 0; then
+    the KG battery over the extracted tasks.  Returns the launch counts."""
+    result, _, graph, emb, rw = run
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=graph.n_nodes)
+    t0 = time.perf_counter()
+    params = stonkgs.init_stonkgs_params(torch.Generator().manual_seed(22), cfg)
+    ckpt = save_pretrained(params, cfg, os.path.join(tmp, "ckpt"))
+    del params
+    vocab_file = os.path.join(tmp, "vocab.txt")
+    with open(vocab_file, "w") as f:
+        f.write("\n".join(_readme_vocab(cfg.bert.vocab_size, np.random.default_rng(22))) + "\n")
+    engine = STonKGsEngine.from_pretrained(ckpt, emb, rw, vocab_file=vocab_file,
+                                           batch_size=BATCH, device=DEV)
+    check(engine.cfg == cfg and engine.artifacts.n_entities == graph.n_nodes,
+          f"kg engine config {engine.cfg}")
+    pre = tsv_io.read_columns(paths["pretraining"], ("source", "target", "evidence"))
+    feats = engine.preprocess(*(pre[c][:ROWS] for c in ("source", "target", "evidence")))
+    t_setup = time.perf_counter() - t0
+    _reset_counts(SERVING_KERNELS)
+    out = engine.embed(feats)
+    counts = _counts(SERVING_KERNELS)
+    n_batches, per_batch = math.ceil(ROWS / BATCH), cfg.bert.num_hidden_layers * 2 - 1
+    log(f"# kg (d) checkpoint, from_pretrained and preprocess in {t_setup!r} s; embed of "
+        f"{ROWS} extracted rows: launches {counts}")
+    check(out.shape == (ROWS, cfg.bert.hidden_size) and bool(np.isfinite(out).all()),
+          f"kg embed output {out.shape}, not finite")
+    for name, c in counts.items():
+        check(c == per_batch * n_batches, f"kg embed {name}: {c} launches, expected "
+              f"{per_batch} x {n_batches}")
+    del engine
+    torch.cuda.empty_cache()
+
+    root = os.path.join(tmp, "battery")
+    n_rows = _no_duplicates_tasks(paths, root)
+    t0 = time.perf_counter()
+    results = batteries.run_all_kg_baseline_tasks(root, load_kg_artifacts(emb, rw), cv=2,
+                                                  epochs=1, device=DEV)
+    log(f"# kg (d) KG battery over {n_rows} extracted rows (no duplicates), cv 2, 1 epoch, in "
+        f"{time.perf_counter() - t0!r} s: {results} ({card})")
+    check(sorted(results) == sorted(["cell_line", "disease", "location", "species",
+                                     "interaction", "polarity"]), f"battery tasks {results}")
+    check(all(0.0 <= r["f1_score_mean"] <= 1.0 for r in results.values()), "battery F1")
+    return counts
+
+
+def _kg_timing(card: str) -> None:
+    """(e) At the production node count: the walker's steps/s, the host
+    pipeline's pair generation and step, the device pipeline's slab, its
+    busy share under the profiler, peak memory, and projections for the
+    254 M-token corpus."""
+    n, rng = KG_TIMING_NODES, np.random.default_rng(24)
+    t0 = time.perf_counter()
+    a = np.repeat(np.arange(n), KG_TIMING_DEGREE // 2)
+    comm = a // KG_COMMUNITY
+    b = np.where(rng.random(a.size) < KG_INTRA, comm * KG_COMMUNITY
+                 + rng.integers(0, KG_COMMUNITY, a.size), rng.integers(0, n, a.size))
+    rows, cols = np.concatenate([a, b]), np.concatenate([b, a])
+    order = np.lexsort((cols, rows))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))]).astype(np.int64)
+    graph = CSRGraph([str(i) for i in range(n)], indptr, cols[order].astype(np.int32))
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walks = walker.random_walks(graph, walk_len=KG_WALK_LEN, epochs=1, seed=0)
+    t_walk = time.perf_counter() - t0
+    steps = walks.shape[0] * (KG_WALK_LEN - 1)
+    log(f"# kg (e) graph: {n} nodes, {len(graph.indices)} directed edges, built in {t_graph!r} s;"
+        f" walker: {steps} steps in {t_walk!r} s = {steps / t_walk!r} steps/s on "
+        f"{os.cpu_count()} CPUs")
+
+    counts, order, rank = word2vec._build_vocab(walks, n)
+    ranked = rank[walks].astype(np.int32)
+    counts_sorted = counts[order]
+    keep_prob = word2vec._keep_probabilities(counts_sorted, 1e-3)
+    neg_probs = word2vec._negative_probabilities(counts_sorted)
+    # host pair generation on a slice of rows, then the host loop's step
+    t0 = time.perf_counter()
+    c, x = word2vec._make_pairs(ranked[:50_000], KG_WINDOW, rng, keep_prob)
+    perm = rng.permutation(len(c))
+    c, x = c[perm], x[perm]
+    t_pairs = time.perf_counter() - t0
+    pairs_per_s = len(c) / t_pairs
+    pairs_per_token = len(c) / (50_000 * KG_WALK_LEN)
+    torch.cuda.reset_peak_memory_stats()
+    syn0 = word2vec._init_syn0(n, KG_DIM, 0, DEV)
+    syn1 = torch.zeros_like(syn0)
+    neg_cum = np.cumsum(neg_probs)
+    seconds, draw_s = [], []
+    with torch.no_grad():
+        for i in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            negs = np.searchsorted(neg_cum, rng.random((KG_HOST_PAIRS, KG_NEGATIVE)))
+            draw_s.append(time.perf_counter() - t0)
+            batch = np.empty((KG_HOST_PAIRS, 2 + KG_NEGATIVE), np.int32)
+            sl = slice(i * KG_HOST_PAIRS, (i + 1) * KG_HOST_PAIRS)
+            batch[:, 0], batch[:, 1], batch[:, 2:] = c[sl], x[sl], negs
+            dev = host_to_device(batch, DEV)
+            word2vec._sgd_core(syn0, syn1, dev[:, 0], dev[:, 1], dev[:, 2:], 0.025)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        dev = host_to_device(batch, DEV)
+        step_ms = time_ms(lambda: word2vec._sgd_core(syn0, syn1, dev[:, 0], dev[:, 1],
+                                                     dev[:, 2:], 0.025), iters=10)
+    host_step_ms = statistics.median(seconds[2:]) * 1e3
+    host_minutes = (KG_CORPUS_TOKENS * pairs_per_token / KG_HOST_PAIRS * host_step_ms / 1e3
+                    + KG_CORPUS_TOKENS * pairs_per_token / pairs_per_s) / 60
+    log(f"# kg (e) host pipeline: pairs {pairs_per_s!r} pairs/s on the host ({pairs_per_token!r}"
+        f" a token); a step of {KG_HOST_PAIRS} pairs {host_step_ms!r} ms with its host work "
+        f"(median of 10; the negatives' draws and searchsorted over the {n}-entry CDF "
+        f"{statistics.median(draw_s[2:]) * 1e3!r} ms of it), {step_ms!r} ms on the card "
+        f"alone; projected {host_minutes!r} min for {KG_CORPUS_TOKENS} tokens (pairs + "
+        f"steps, 1 iteration; {card})")
+
+    # the device pipeline's slab at 2^17 slots
+    slab_rows = KG_SLAB_SLOTS // word2vec._pair_slots_per_row(KG_WALK_LEN, KG_WINDOW)
+    corpus = host_to_device(ranked, DEV)
+    perm = host_to_device(rng.permutation(len(ranked)).astype(np.int32), DEV)
+    keep = host_to_device(keep_prob, DEV)
+    alias, thresh = (host_to_device(t, DEV) for t in word2vec._build_alias(neg_probs))
+    gen = torch.Generator(device=DEV)
+
+    def slabs(first: int, count: int) -> None:
+        for s in range(first, first + count):
+            gen.manual_seed(word2vec._slab_seed(0, 0, s))
+            word2vec._sgns_slab(syn0, syn1, corpus, perm, len(ranked), s, slab_rows, gen, keep,
+                                alias, thresh, 0.025, window=KG_WINDOW, negative=KG_NEGATIVE)
+
+    with torch.no_grad():
+        slabs(0, 3)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        slabs(3, KG_TIMED_SLABS)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        slab_ms = start.elapsed_time(end) / KG_TIMED_SLABS
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            slabs(3 + KG_TIMED_SLABS, KG_TIMED_SLABS)
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy = (f"{device_ms / (wall_prof * 1e3)!r} ({device_ms / KG_TIMED_SLABS!r} ms of kernels a "
+            f"slab under the profiler)" if device_ms > 0 else "not measured (no device time)")
+    launches = sum(e.count for e in kernels) / KG_TIMED_SLABS
+    tokens_per_s = slab_rows * KG_WALK_LEN / (slab_ms / 1e3)
+    host_ms = wall * 1e3 / KG_TIMED_SLABS
+    log(f"# kg (e) device pipeline: a slab of {slab_rows} rows ({KG_SLAB_SLOTS} slots) "
+        f"{slab_ms!r} ms on the card ({KG_TIMED_SLABS} slabs, host clock {host_ms!r}"
+        f" ms a slab) = {tokens_per_s!r} tokens/s; {launches!r} kernels a slab; device busy "
+        f"{busy}; projected {KG_CORPUS_TOKENS / tokens_per_s / 60!r} min for "
+        f"{KG_CORPUS_TOKENS} tokens; peak memory {torch.cuda.max_memory_allocated() / 2**30!r} "
+        f"GiB ({card})")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log("# kg (e) slab kernels: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3 / KG_TIMED_SLABS!r} ms "
+        f"x{e.count / KG_TIMED_SLABS!r}" for e in top))
+    check(bool(torch.isfinite(syn0).all()) and bool(torch.isfinite(syn1).all()),
+          "kg timing tables not finite")
+
+
+def phase_kg_embeddings(card: str) -> dict:
+    """KG embeddings (phase 22): (a) extraction, (b) node2vec at full width
+    with both pipelines, (c) card against CPU, (d) serving from the
+    trained files and the KG battery, (e) timing at the production node
+    count.  Returns (d)'s embed launch counts."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stonkgs_kg_") as tmp:
+        paths = _kg_extract(tmp)
+        runs = _kg_node2vec(paths, tmp, card)
+        result, walks, graph, _, _ = runs["host"]
+        _kg_card_vs_cpu(result, walks, graph)
+        counts = _kg_serving(paths, runs["host"], tmp, card)
+        del runs, result, walks
+    torch.cuda.empty_cache()
+    _kg_timing(card)
+    torch.cuda.empty_cache()
+    log(f"# kg embeddings phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -3360,6 +3881,8 @@ def main() -> int:
         for name, c in ft_counts.items():
             counts[name] += c
         for name, c in phase_pretrain_files(card).items():
+            counts[name] += c
+        for name, c in phase_kg_embeddings(card).items():
             counts[name] += c
         # the fine-tuning shapes' worst error goes into the kernel line
         for key, t in ft_times.items():

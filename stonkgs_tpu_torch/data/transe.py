@@ -1,21 +1,25 @@
 """TransE-variant preprocessing.
 
-The port's copy of the JAX package's ``data/transe.py`` (without its
-pandas TSV writer).  Sequence layout: 256 text tokens +
-``[idx(h), idx(r), idx(t), SEP]``.  Rows whose head, relation or tail is
-missing from the TransE embeddings are skipped and counted, as the
-reference's ``transe_indra_for_pretraining`` does.
+The port's copy of the JAX package's ``data/transe.py``.  Sequence
+layout: 256 text tokens + ``[idx(h), idx(r), idx(t), SEP]``.  Rows whose
+head, relation or tail is missing from the TransE embeddings are skipped
+and counted, as the reference's ``transe_indra_for_pretraining`` does.
+:func:`transe_pretraining_to_tsv` writes the pre-training features in
+chunks with a resume, byte for byte as the JAX package's pandas writer
+does, without pandas.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
 from stonkgs_tpu_torch.data.artifacts import parse_vectors, read_tsv
 from stonkgs_tpu_torch.data.masking import add_negative_nsp_samples, mask_tokens
+from stonkgs_tpu_torch.data.tsv_io import count_records, write_table
 from stonkgs_tpu_torch.data.wordpiece import BertTokenizer
 
 
@@ -157,3 +161,52 @@ def preprocess_transe_for_finetuning(
              np.ones((B, 4), np.int64)], 1),
         "labels": labels,
     }
+
+
+def transe_pretraining_to_tsv(
+    df,                      # a table: source, relation, target, evidence columns
+    artifacts: TransEArtifacts,
+    tokenizer: BertTokenizer,
+    output_path: str,
+    *,
+    chunk_size: int = 50_000,
+    seed: int = 0,
+    **kw,
+) -> int:
+    """Chunked, resumable positive-sample generation (appends to TSV).
+
+    ``df`` is a DataFrame or a dict of column lists.  Resume tracks the
+    number of INPUT rows consumed in a ``<output>.progress`` sidecar (the
+    reference resumes by counting OUTPUT rows, ``:51-69``, which
+    re-processes rows whenever earlier chunks skipped some); an existing
+    output without a sidecar falls back to the reference's output-row
+    count.  A 2-D feature is written one row a cell, as ``str`` of the
+    row (pandas' cell of a list of arrays).  Returns total skip count."""
+    progress_path = output_path + ".progress"
+    done = 0
+    header_written = False
+    if os.path.exists(output_path):
+        if os.path.getsize(output_path) > 0:
+            header_written = True
+            if os.path.exists(progress_path):
+                with open(progress_path) as f:
+                    done = int(f.read().strip() or 0)
+            else:  # an output without a sidecar: the output-row count
+                done = count_records(output_path)
+        else:
+            os.remove(output_path)  # stale empty file: start fresh
+    cols = {k: list(df[k]) for k in ("source", "relation", "target", "evidence")}
+    total_skips = 0
+    for start in range(done, len(cols["source"]), chunk_size):
+        stop = min(start + chunk_size, len(cols["source"]))
+        feats, skips = preprocess_transe_for_pretraining(
+            *(cols[k][start:stop] for k in ("source", "relation", "target", "evidence")),
+            artifacts, tokenizer, nsp_negative_proportion=0.0, seed=seed + start,
+            shuffle=False, **kw)
+        total_skips += skips
+        write_table(output_path, {k: list(v) for k, v in feats.items()}, mode="a",
+                    header=not header_written)
+        header_written = True
+        with open(progress_path, "w") as f:
+            f.write(str(stop))
+    return total_skips

@@ -96,13 +96,13 @@ def _approximate_mode(class_counts: np.ndarray, n_draws: int,
     return floored.astype(int)
 
 
-def _stratified_subsample(labels: np.ndarray, n_train: int, seed: int) -> np.ndarray:
-    """The train indices of ``StratifiedShuffleSplit(n_splits=1,
-    train_size=n_train, random_state=seed)``, in its order: per-class
-    counts for the train and then the test part, one permutation per class
-    (classes in sorted order, members by a stable argsort), then one of
-    the train indices."""
-    n_test = len(labels) - n_train
+def _stratified_shuffle_split(labels: np.ndarray, n_train: int, n_test: int,
+                              seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The (train, test) indices of ``StratifiedShuffleSplit(n_splits=1,
+    train_size=n_train, test_size=n_test, random_state=seed)``, in its
+    order: per-class counts for the train and then the test part, one
+    permutation per class (classes in sorted order, members by a stable
+    argsort), then one of the train and one of the test indices."""
     classes, y_idx, counts = np.unique(labels, return_inverse=True, return_counts=True)
     if counts.min() < 2:
         raise ValueError("The least populated classes in y have only 1 member, which is "
@@ -113,11 +113,19 @@ def _stratified_subsample(labels: np.ndarray, n_train: int, seed: int) -> np.nda
     members = np.split(np.argsort(y_idx, kind="stable"), np.cumsum(counts)[:-1])
     rng = np.random.RandomState(seed)
     n_i = _approximate_mode(counts, n_train, rng)
-    _approximate_mode(counts - n_i, n_test, rng)   # the test counts: drawn, not used
-    train = []
+    t_i = _approximate_mode(counts - n_i, n_test, rng)
+    train, test = [], []
     for i in range(len(classes)):
-        train.extend(members[i].take(rng.permutation(counts[i]), mode="clip")[: n_i[i]])
-    return rng.permutation(train)
+        perm = members[i].take(rng.permutation(counts[i]), mode="clip")
+        train.extend(perm[: n_i[i]])
+        test.extend(perm[n_i[i]: n_i[i] + t_i[i]])
+    return rng.permutation(train), rng.permutation(test)
+
+
+def _stratified_subsample(labels: np.ndarray, n_train: int, seed: int) -> np.ndarray:
+    """The train indices of ``StratifiedShuffleSplit(n_splits=1,
+    train_size=n_train, random_state=seed)``, in its order."""
+    return _stratified_shuffle_split(labels, n_train, len(labels) - n_train, seed)[0]
 
 
 def get_train_test_splits(

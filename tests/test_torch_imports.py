@@ -45,6 +45,9 @@ def test_import_pulls_in_no_jax():
         "from stonkgs_tpu_torch.train import checkpoint, dynamic_masking\n"
         "from stonkgs_tpu_torch.cli import pretrain\n"
         "from stonkgs_tpu_torch.api import api, embeddings\n"
+        "from stonkgs_tpu_torch.data import kg_graph, protein_sequences, tsv_io, walker\n"
+        "from stonkgs_tpu_torch.models import node2vec, word2vec\n"
+        "from stonkgs_tpu_torch.baselines import batteries\n"
         "new = sorted(set(sys.modules) - before)\n"
         "print('\\n'.join(new))\n"
     )
@@ -62,20 +65,24 @@ def test_import_pulls_in_no_jax():
     assert "stonkgs_tpu_torch.baselines.kg_baseline" in out
     assert "stonkgs_tpu_torch.cli.pretrain" in out
     assert "stonkgs_tpu_torch.api.embeddings" in out
+    assert "stonkgs_tpu_torch.models.node2vec" in out
+    assert "stonkgs_tpu_torch.baselines.batteries" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
 # packages the port's paths must not need: a machine that serves the
 # port is given torch, numpy and g++ only
-ABSENT_ON_THE_CARD = ("pandas", "transformers", "safetensors", "sklearn", "networkx")
+ABSENT_ON_THE_CARD = ("pandas", "transformers", "safetensors", "sklearn", "networkx", "optuna")
 
 
 def test_engine_path_pulls_in_no_module_the_card_lacks():
-    """The README flow's, fine-tuning's, pre-training's and the serving
-    API's modules import none of pandas, transformers, safetensors,
-    sklearn or networkx at module scope (safetensors only inside the
-    loader, for a ``.safetensors`` file; pandas only inside the functions
-    that read a TSV or a pickle or build a DataFrame)."""
+    """The README flow's, fine-tuning's, pre-training's, the serving
+    API's and the KG embeddings' modules (the walker, the extraction,
+    word2vec, node2vec, the batteries) import none of pandas,
+    transformers, safetensors, sklearn, networkx or optuna at module scope
+    (safetensors only inside the loader, for a ``.safetensors`` file;
+    pandas only inside the functions that read a TSV or a pickle or build
+    a DataFrame; optuna only inside ``run_node2vec_hpo``)."""
     code = (
         "import sys\n"
         "from stonkgs_tpu_torch.api import inference, prot_inference\n"
@@ -90,6 +97,9 @@ def test_engine_path_pulls_in_no_module_the_card_lacks():
         "from stonkgs_tpu_torch.train import checkpoint, dynamic_masking\n"
         "from stonkgs_tpu_torch.cli import pretrain\n"
         "from stonkgs_tpu_torch.api import api, embeddings\n"
+        "from stonkgs_tpu_torch.data import kg_graph, protein_sequences, tsv_io, walker\n"
+        "from stonkgs_tpu_torch.models import node2vec, word2vec\n"
+        "from stonkgs_tpu_torch.baselines import batteries\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -98,16 +108,23 @@ def test_engine_path_pulls_in_no_module_the_card_lacks():
     assert "stonkgs_tpu_torch.train.finetuning" in out
     assert "stonkgs_tpu_torch.cli.pretrain" in out
     assert "stonkgs_tpu_torch.api.api" in out
+    assert "stonkgs_tpu_torch.models.word2vec" in out
+    assert "stonkgs_tpu_torch.data.walker" in out
+    assert "stonkgs_tpu_torch.data.indra_extraction" in out
+    assert "stonkgs_tpu_torch.baselines.batteries" in out
     assert [m for m in out if m.split(".")[0] in ABSENT_ON_THE_CARD] == []
 
 
 def test_pandas_only_where_a_task_tsv_is_read():
     """The port imports pandas only inside the functions that read a task
-    TSV (``cli/finetune.py::run_finetuning``), a pickle or a TSV of
-    features (``cli/pretrain.py::load_preprocessed_dataset``), or take or
-    return DataFrames (the serving API of ``api/api.py`` and
-    ``api/embeddings.py``); ``data/filters.py`` works on the caller's
-    DataFrames without importing it."""
+    TSV (``cli/finetune.py::run_finetuning``, the batteries' ``_iter_tasks``,
+    ``add_protein_sequences_per_task``), a pickle or a TSV of features
+    (``cli/pretrain.py::load_preprocessed_dataset``), or take or return
+    DataFrames (the serving API of ``api/api.py`` and
+    ``api/embeddings.py``), and in ``chip_smoke.py`` where phase 22 reads
+    the extracted task TSVs; ``data/filters.py`` works on the caller's
+    DataFrames without importing it, and the extraction, node2vec and the
+    TransE TSV write and read their TSVs with the ``csv`` module."""
     def pandas_imports(node):
         return {id(n) for n in ast.walk(node)
                 if (isinstance(n, ast.Import) and any(a.name.split(".")[0] == "pandas"
@@ -126,13 +143,16 @@ def test_pandas_only_where_a_task_tsv_is_read():
                 found -= inner
         places += [(str(path.relative_to(ROOT)), None)] * len(found)
     assert sorted(places) == [
+        ("chip_smoke.py", "_no_duplicates_tasks"),
         ("stonkgs_tpu_torch/api/api.py", "_convert_indra_statements"),
         ("stonkgs_tpu_torch/api/api.py", "_prepare_df"),
         ("stonkgs_tpu_torch/api/api.py", "infer_concat"),
         ("stonkgs_tpu_torch/api/embeddings.py", "get_stonkgs_embeddings"),
         ("stonkgs_tpu_torch/api/embeddings.py", "preprocess_df_for_embeddings"),
+        ("stonkgs_tpu_torch/baselines/batteries.py", "_iter_tasks"),
         ("stonkgs_tpu_torch/cli/finetune.py", "run_finetuning"),
         ("stonkgs_tpu_torch/cli/pretrain.py", "load_preprocessed_dataset"),
+        ("stonkgs_tpu_torch/data/protein_sequences.py", "add_protein_sequences_per_task"),
     ]
 
 
