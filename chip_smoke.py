@@ -197,6 +197,21 @@ Phases, each fatal on failure (exit code 1, no result line):
     pipeline's slab in ms and tokens/s, its busy share under the
     profiler, peak memory, and both pipelines' projected minutes for
     254 M tokens.
+23. parallelism on torch.distributed, at phase 5's width (B=32, 4 steps,
+    bf16 compute): (a) ``pretrain(mesh=make_mesh(1, 1))`` in a world of one
+    on NCCL, equal bit for bit to the unmeshed run; (b) two ranks on
+    cuda:0 over gloo (``multihost.launch``, torchrun's variables), each on
+    a 1x2 mesh (the KG table and the decoders split), 2x1 with FSDP and
+    2x1 plain: launch counts a rank, equal logged losses and bit-equal
+    replicated leaves and moments on both ranks, each run held to one
+    rank's within the spread of a one-rank run that sums its batch in two
+    halves or within ``PAR_LOSS_GAP`` / ``PAR_UPDATE_COS`` /
+    ``PAR_NU_GAP``, peak memory and parameter bytes a rank, step seconds
+    under gloo (not a throughput); (c) ProtSTonKGs on 1x2 at phase 11's
+    widths (B=2, 2 steps, the training plan) against two one-rank runs;
+    (d) ``train_classifier`` on 2x1 (B=8, 2 steps) against one rank; (e)
+    ``run_pretraining(n_model_shards=2)`` from a memmap store, saved at 2,
+    resumed from it and equal to the uninterrupted run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2789,10 +2804,10 @@ class _TimedAdamW(AdamW):
         super().__init__(**kw)
         self.seconds = []
 
-    def update_and_apply(self, grads, state, params):
+    def update_and_apply(self, grads, state, params, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        super().update_and_apply(grads, state, params)
+        super().update_and_apply(grads, state, params, **kw)
         torch.cuda.synchronize()
         self.seconds.append(time.perf_counter() - t0)
 
@@ -3831,6 +3846,564 @@ def phase_kg_embeddings(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 23: parallelism on torch.distributed (a world of one on NCCL, two
+# ranks on cuda:0 over gloo)
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 4            # steps of every STonKGs run of the phase
+PAR_SHORT_STEPS = 2      # the ProtSTonKGs and fine-tuning runs
+PAR_FT_ROWS = 16         # fine-tuning rows: 2 steps of B=8
+PAR_STORE_ROWS = TRAIN_BATCH * PAR_STEPS
+# a rank's run against one rank's: passes within PAR_SPREADS times the
+# spread of two one-rank runs that differ as the mesh does (the batch summed
+# in two halves; for ProtSTonKGs two runs of one code, whose BigBird
+# backward adds with atomics), or within these limits
+PAR_SPREADS = 4
+PAR_LOSS_GAP = 1e-2      # largest relative gap of a step's loss
+PAR_UPDATE_COS = 0.999   # cosine of the whole trainable update (final - initial)
+PAR_LEAF_COS = 0.95      # lowest cosine of one trainable leaf's update: in bf16 a small
+                         # leaf's update moves with the rounding of a split reduction
+PAR_NU_GAP = 5e-2        # relative gap of the summed second moment (the gradients' scale)
+# (label, n_data, n_model, fsdp, dropout): the 2 x 1 shards draw other
+# dropout masks than one rank, so there dropout is 0
+PAR_MESHES = (("1x2 TP", 1, 2, False, True), ("2x1 FSDP", 2, 1, True, False),
+              ("2x1 DP", 2, 1, False, False))
+
+
+def _par_cfg(dropout: bool) -> STonKGsConfig:
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000)
+    if dropout:
+        return cfg
+    return cfg.replace(bert=dataclasses.replace(cfg.bert, hidden_dropout_prob=0.0,
+                                                attention_probs_dropout_prob=0.0))
+
+
+def _par_pretrain(cfg, params, feats, steps: int, batch: int, *, mesh=None, fsdp=False,
+                  accum: int = 1, loss_fn=None, kernels=TRAINING_KERNELS) -> dict:
+    """``pretrain`` with the counts from 0 just before it; returns the
+    state, losses, seconds a step after the first (from the last logged
+    examples/s, which ``pretrain`` takes between synchronised ends), counts
+    and the peak memory above the start (GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run = pretraining.PretrainingConfig(max_steps=steps, micro_batch_size=batch // accum,
+                                        grad_accumulation_steps=accum, log_steps=1,
+                                        compute_dtype="bfloat16", fsdp=fsdp)
+    logged = []
+    _reset_counts(kernels)
+    state = pretraining.pretrain(cfg, params, feats, run, mesh=mesh, loss_fn=loss_fn,
+                                 log_fn=lambda s, m: logged.append(m))
+    torch.cuda.synchronize()
+    eps = logged[-1].get("examples_per_sec")
+    return {"state": state, "losses": [m["loss"] for m in logged], "counts": _counts(kernels),
+            "step_s": batch / eps if eps else None,
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+
+
+def _state_gb(state) -> float:
+    """GB of the parameters and moments a rank holds."""
+    leaves = (tree_leaves(state.params) + tree_leaves(state.opt_state["mu"])
+              + tree_leaves(state.opt_state["nu"]))
+    return sum(t.numel() * t.element_size() for t in leaves) / 1e9
+
+
+def _whole(state) -> tuple:
+    """(trainable params, nu) of a state, gathered whole where it holds slices."""
+    train, nu = split_frozen(state.params)[0], state.opt_state["nu"]
+    if state.layout is not None:
+        train, nu = state.layout.gather(train), state.layout.gather(nu)
+    return tree_flatten_with_path(train), tree_flatten_with_path(nu)
+
+
+def _nu_sum(nu: dict) -> float:
+    return float(sum(t.double().sum() for t in nu.values()))
+
+
+def _par_reference(run: dict, path: str) -> dict:
+    """A one-rank run's losses, final trainable leaves and summed second
+    moment, saved for the ranks to compare with (CPU tensors)."""
+    train, nu = _whole(run["state"])
+    ref = {"losses": run["losses"], "nu_sum": _nu_sum(nu),
+           "train": {k: t.cpu() for k, t in train.items()}}
+    torch.save(ref, path)
+    return ref
+
+
+def _par_gap(label: str, losses: list, train: dict, nu_sum: float, ref: dict,
+             init: dict, unused=UNUSED_LEAVES) -> tuple:
+    """(largest relative loss gap, cosine of the whole update, lowest leaf
+    update cosine, nu gap) of a run against a one-rank reference; leaves
+    without a gradient (held equal) and the key biases (zero gradient in
+    exact arithmetic) left out of the cosines."""
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    cosines, dot, na, nb = {}, 0.0, 0.0, 0.0
+    for k, w in ref["train"].items():
+        got = train[k].to(DEV)
+        if k.startswith(unused):
+            check(torch.equal(got.cpu(), w), f"{label}: unused leaf {k} changed")
+            continue
+        if any(z in k for z in ZERO_GRAD_LEAVES):
+            continue
+        ua, ub = (got - init[k].to(DEV)).flatten(), (w.to(DEV) - init[k].to(DEV)).flatten()
+        if torch.equal(ua, ub):
+            continue
+        ua, ub = ua.double(), ub.double()
+        c = float(F.cosine_similarity(ua, ub, dim=0))
+        cosines[k] = c if math.isfinite(c) else -1.0
+        dot, na, nb = dot + float(ua @ ub), na + float(ua @ ua), nb + float(ub @ ub)
+    nu_gap = abs(nu_sum / ref["nu_sum"] - 1.0)
+    worst = sorted(cosines, key=cosines.get)[:3]
+    log(f"# {label}: lowest leaf update cosines "
+        f"{[(k, cosines[k], ref['train'][k].numel()) for k in worst]!r}")
+    whole = dot / math.sqrt(na * nb) if na and nb else 1.0
+    return gap, whole, min(cosines.values(), default=1.0), nu_gap
+
+
+def _replica_print(state) -> list:
+    """A bit-exact fingerprint of the leaves and moments a rank holds whole
+    (replicated): every rank of the mesh must print the same."""
+    words = []
+    for tree in (split_frozen(state.params)[0], state.opt_state["mu"], state.opt_state["nu"]):
+        for p, t in tree_flatten_with_path(tree).items():
+            if state.layout.kind(p) == "replicated":
+                words.append(t.reshape(-1).view(torch.int32).to(torch.int64))
+    flat = torch.cat(words)
+    weight = torch.arange(flat.numel(), device=flat.device) % 1_000_003 + 1
+    return [int(flat.sum()), int((flat * weight).sum()), int(flat.numel())]
+
+
+def _par_rank(job: dict) -> dict:
+    """One of two ranks on cuda:0 (gloo): (b) the three meshes, (c)
+    ProtSTonKGs on 1 x 2, (d) ``train_classifier`` on 2 x 1, (e)
+    ``run_pretraining(n_model_shards=2)`` with a save and a resume.  Rank 0
+    compares the gathered results with the one-rank references."""
+    import torch.distributed as dist
+    from stonkgs_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    out = {"rank": rank, "device": str(torch.cuda.current_device())}
+    params = torch.load(job["params"], weights_only=True)
+    init = tree_flatten_with_path(split_frozen(params)[0])
+    feats = {k: np.load(os.path.join(job["feats"], k + ".npy")) for k in job["feat_keys"]}
+    refs = {}
+    for label, n_data, n_model, fsdp, dropout in PAR_MESHES:
+        mesh = make_mesh(n_data, n_model)
+        run = _par_pretrain(_par_cfg(dropout), params_to(params, DEV), feats, PAR_STEPS,
+                            TRAIN_BATCH, mesh=mesh, fsdp=fsdp)
+        state = run.pop("state")
+        res = {**run, "state_gb": _state_gb(state), "print": _replica_print(state)}
+        train, nu = _whole(state)
+        if rank == 0:
+            ref_path = job["ref_on"] if dropout else job["ref_off"]
+            refs.setdefault(ref_path, torch.load(ref_path, weights_only=True))
+            res["gap"] = _par_gap(label, run["losses"], train, _nu_sum(nu), refs[ref_path], init)
+        out[label] = res
+        del state, train, nu
+        torch.cuda.empty_cache()
+    del refs
+
+    # (c) ProtSTonKGs on 1 x 2
+    pcfg = _prot_cfg()
+    pparams = torch.load(job["pparams"], weights_only=True)
+    pinit = tree_flatten_with_path(split_frozen(pparams)[0])
+    pfeats = _prot_features(pcfg, PROT_TRAIN_BATCH * PAR_SHORT_STEPS, seed=23, labels=True)
+    loss_fn = functools.partial(protstonkgs.pretraining_loss, rand_attn=_train_plan(pcfg))
+    run = _par_pretrain(pcfg, params_to(pparams, DEV), pfeats, PAR_SHORT_STEPS,
+                        PROT_TRAIN_BATCH, mesh=make_mesh(1, 2), loss_fn=loss_fn,
+                        kernels=PROT_TRAINING_KERNELS)
+    state = run.pop("state")
+    res = {**run, "state_gb": _state_gb(state), "print": _replica_print(state)}
+    train, nu = _whole(state)
+    if rank == 0:
+        res["gap"] = _par_gap("ProtSTonKGs 1x2", run["losses"], train, _nu_sum(nu),
+                              torch.load(job["ref_prot"], weights_only=True), pinit,
+                              PROT_UNUSED_LEAVES)
+    out["prot 1x2"] = res
+    del state, train, nu, pparams
+    torch.cuda.empty_cache()
+
+    # (d) train_classifier on 2 x 1
+    ccfg = _par_cfg(False).replace(num_labels=2)
+    cfeats = _par_ft_features(ccfg)
+    _reset_counts(TRAINING_KERNELS)
+    cstate, metrics = finetuning.train_classifier(
+        ccfg, params_to(params, DEV), cfeats, _par_ft_run(), mesh=make_mesh(2, 1), rng_seed=3)
+    torch.cuda.synchronize()
+    train, nu = _whole(cstate)
+    res = {"counts": _counts(TRAINING_KERNELS), "metrics": metrics,
+           "print": _replica_print(cstate), "step": cstate.step}
+    if rank == 0:
+        ref = torch.load(job["ref_ft"], weights_only=True)
+        cinit = {**init, **{k: v for k, v in ref["head0"].items()}}
+        res["gap"] = _par_gap("train_classifier 2x1", [metrics["loss"]], train, _nu_sum(nu),
+                              ref, cinit)
+    out["classifier 2x1"] = res
+    del cstate, train, nu
+    torch.cuda.empty_cache()
+
+    # (e) run_pretraining(n_model_shards=2) from the store, saved at 2, resumed
+    kw = dict(batch_size=TRAIN_BATCH, max_steps=PAR_STEPS, save_steps=2, log_steps=1,
+              device=DEV, n_model_shards=2, output_dir=job["run_dir"])
+    _reset_counts(TRAINING_KERNELS)
+    whole = run_pretraining(job["store"], **kw)
+    counts = _counts(TRAINING_KERNELS)
+    first = _whole(whole)[0]
+    del whole
+    if rank == 0:
+        shutil.rmtree(os.path.join(job["run_dir"], "checkpoints", str(PAR_STEPS)))
+    dist.barrier()
+    _reset_counts(TRAINING_KERNELS)
+    resumed = run_pretraining(job["store"], **kw)
+    again = _whole(resumed)[0]
+    res = {"counts": counts, "resumed_counts": _counts(TRAINING_KERNELS),
+           "mesh": (resumed.layout.mesh.n_data, resumed.layout.mesh.n_model),
+           "step": resumed.step, "print": _replica_print(resumed),
+           "equal": all(torch.equal(first[k], again[k]) for k in first),
+           "max_diff": max(float((first[k].float() - again[k].float()).abs().max())
+                           for k in first)}
+    out["run_pretraining 1x2"] = res
+    return out
+
+
+def _par_ft_features(cfg: STonKGsConfig) -> dict:
+    labels = np.random.default_rng(24).integers(0, 2, PAR_FT_ROWS)
+    return {**_features(cfg, PAR_FT_ROWS, seed=24), "labels": labels}
+
+
+def _par_ft_run():
+    return finetuning.FinetuneConfig(epochs=1, batch_size=FT_BATCH, compute_dtype="bfloat16")
+
+
+def _par_verdict(label: str, gap: tuple, spread: tuple) -> None:
+    """Hold a mesh run to one rank: within ``PAR_SPREADS`` spreads (each
+    metric's distance from a perfect match), or within the limits."""
+    k = PAR_SPREADS
+    by_spread = (gap[0] <= k * spread[0] and 1 - gap[1] <= k * (1 - spread[1])
+                 and 1 - gap[2] <= k * (1 - spread[2]) and gap[3] <= k * spread[3])
+    by_limit = (gap[0] <= PAR_LOSS_GAP and gap[1] >= PAR_UPDATE_COS and gap[2] >= PAR_LEAF_COS
+                and gap[3] <= PAR_NU_GAP)
+    log(f"# {label} vs one rank: largest relative loss gap {gap[0]!r}, update cosine "
+        f"{gap[1]!r} (lowest leaf {gap[2]!r}), summed second moment gap {gap[3]!r}; spread "
+        f"{spread!r}; within {k} spreads: {by_spread}; within the limits {PAR_LOSS_GAP} / "
+        f"{PAR_UPDATE_COS} / {PAR_LEAF_COS} / {PAR_NU_GAP}: {by_limit}")
+    check(by_spread or by_limit, f"{label}: further from one rank than the spread and the limits")
+
+
+def phase_parallel(card: str, params: Optional[dict] = None,
+                   pparams: Optional[dict] = None) -> dict:
+    """Phase 23: the mesh paths of ``pretrain``, ``train_classifier`` and
+    ``run_pretraining`` at full width.  ``params`` and ``pparams`` are
+    phase 5's and phase 11's CPU parameters (made here when not given).
+    Returns the main paths' launch counts (this process's and rank 0's)."""
+    import torch.distributed as dist
+    from stonkgs_tpu_torch.parallel import multihost
+    from stonkgs_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    cfg = _par_cfg(True)
+    pcfg = _prot_cfg()
+    if params is None:
+        params = _stonkgs_params(cfg)
+    if pparams is None:
+        pparams = _prot_params(pcfg, seed=10, dtype=BF16)
+    feats = _pretraining_features(cfg, TRAIN_BATCH * PAR_STEPS, seed=23)
+    per_step = _training_per_step(cfg.bert.num_hidden_layers)
+    total = {}
+    init = tree_flatten_with_path(split_frozen(params)[0])
+
+    # (a) a world of one on NCCL: the mesh path equals the unmeshed run bit for bit
+    one = _par_pretrain(cfg, params_to(params, DEV), feats, PAR_STEPS, TRAIN_BATCH)
+    _check_counts(f"pretrain, one rank ({PAR_STEPS} steps)", one["counts"],
+                  {n: c * PAR_STEPS for n, c in per_step.items()})
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{multihost.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        meshed = _par_pretrain(cfg, params_to(params, DEV), feats, PAR_STEPS, TRAIN_BATCH,
+                               mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    _check_counts(f"pretrain, 1x1 mesh on NCCL ({PAR_STEPS} steps)", meshed["counts"],
+                  {n: c * PAR_STEPS for n, c in per_step.items()})
+    _add_counts(total, meshed["counts"])
+    a = tree_flatten_with_path(one["state"].params)
+    b = tree_flatten_with_path(meshed["state"].params)
+    unequal = [k for k in a if not torch.equal(a[k], b[k])]
+    log(f"# (a) 1x1 mesh on NCCL vs unmeshed: losses {meshed['losses']!r} vs {one['losses']!r}; "
+        f"{len(unequal)} of {len(a)} leaves differ; peak above the start "
+        f"{meshed['peak_gb']!r} GB, state {_state_gb(meshed['state'])!r} GB a rank ({card})")
+    check(meshed["losses"] == one["losses"], "(a) the 1x1 mesh's losses differ from one rank's")
+    check(not unequal, f"(a) the 1x1 mesh's parameters differ: {unequal[:5]}")
+    log(f"# (a) seconds a step after the first: unmeshed {one['step_s']!r}, 1x1 mesh on NCCL "
+        f"{meshed['step_s']!r} ({card})")
+    meshed.pop("state")
+    del a, b
+
+    with tempfile.TemporaryDirectory(prefix="stonkgs_parallel_") as tmp:
+        # the one-rank references, and the spread of a one-rank run whose
+        # batch is summed in two halves (accumulation 2), as the 2 x 1 mesh sums it
+        t0 = time.perf_counter()
+        _par_reference(one, os.path.join(tmp, "ref_on.pt"))
+        del one
+        off = _par_pretrain(_par_cfg(False), params_to(params, DEV), feats, PAR_STEPS,
+                            TRAIN_BATCH)
+        ref_off = _par_reference(off, os.path.join(tmp, "ref_off.pt"))
+        del off
+        halves = _par_pretrain(_par_cfg(False), params_to(params, DEV), feats, PAR_STEPS,
+                               TRAIN_BATCH, accum=2)
+        train, nu = _whole(halves.pop("state"))
+        spread = _par_gap("one rank, accumulation 2", halves["losses"], train, _nu_sum(nu),
+                          ref_off, init)
+        del halves, train, nu
+        pfeats = _prot_features(pcfg, PROT_TRAIN_BATCH * PAR_SHORT_STEPS, seed=23, labels=True)
+        loss_fn = functools.partial(protstonkgs.pretraining_loss, rand_attn=_train_plan(pcfg))
+        pinit = tree_flatten_with_path(split_frozen(pparams)[0])
+        prot = [_par_pretrain(pcfg, params_to(pparams, DEV), pfeats, PAR_SHORT_STEPS,
+                              PROT_TRAIN_BATCH, loss_fn=loss_fn, kernels=PROT_TRAINING_KERNELS)
+                for _ in range(2)]
+        ref_prot = _par_reference(prot[0], os.path.join(tmp, "ref_prot.pt"))
+        train, nu = _whole(prot[1]["state"])
+        prot_spread = _par_gap("ProtSTonKGs one rank, twice", prot[1]["losses"], train,
+                               _nu_sum(nu), ref_prot, pinit, PROT_UNUSED_LEAVES)
+        del prot, train, nu
+        ccfg = _par_cfg(False).replace(num_labels=2)
+        cfeats = _par_ft_features(ccfg)
+        head0 = tree_flatten_with_path({"classifier": init_classifier_head(
+            torch.Generator().manual_seed(4), ccfg.bert, 2)})
+        ft = []
+        for accum in (1, 2):
+            run_cfg = dataclasses.replace(_par_ft_run(), batch_size=FT_BATCH // accum,
+                                          gradient_accumulation=accum)
+            state, metrics = finetuning.train_classifier(ccfg, params_to(params, DEV), cfeats,
+                                                         run_cfg, rng_seed=3)
+            ft.append(({"losses": [metrics["loss"]]}, state))
+        train, nu = _whole(ft[0][1])
+        ref_ft = {"losses": ft[0][0]["losses"], "nu_sum": _nu_sum(nu), "head0": head0,
+                  "train": {k: t.cpu() for k, t in train.items()}}
+        torch.save(ref_ft, os.path.join(tmp, "ref_ft.pt"))
+        train, nu = _whole(ft[1][1])
+        ft_spread = _par_gap("train_classifier one rank, accumulation 2", ft[1][0]["losses"],
+                             train, _nu_sum(nu), ref_ft, {**init, **head0})
+        del ft, train, nu, state
+        torch.save(params, os.path.join(tmp, "params.pt"))
+        torch.save(pparams, os.path.join(tmp, "pparams.pt"))
+        os.makedirs(os.path.join(tmp, "feats"))
+        for k, v in feats.items():
+            np.save(os.path.join(tmp, "feats", k + ".npy"), v)
+        store = os.path.join(tmp, "store")
+        MemmapFeatureStore.write(store, _pretraining_features(cfg, PAR_STORE_ROWS, seed=25))
+        torch.cuda.empty_cache()
+        log(f"# (b) one-rank references and spreads: {time.perf_counter() - t0:.1f} s")
+
+        # (b)-(e): two ranks on cuda:0 over gloo, launched with torchrun's variables
+        job = {"params": os.path.join(tmp, "params.pt"), "pparams": os.path.join(tmp, "pparams.pt"),
+               "feats": os.path.join(tmp, "feats"), "feat_keys": sorted(feats),
+               "ref_on": os.path.join(tmp, "ref_on.pt"), "ref_off": os.path.join(tmp, "ref_off.pt"),
+               "ref_prot": os.path.join(tmp, "ref_prot.pt"),
+               "ref_ft": os.path.join(tmp, "ref_ft.pt"),
+               "store": store, "run_dir": os.path.join(tmp, "run")}
+        t0 = time.perf_counter()
+        try:
+            ranks = multihost.launch(_par_rank, 2, (job,), backend="gloo", timeout=900)
+        except RuntimeError as e:
+            raise SmokeFailure(f"phase 23's ranks: {e}") from e
+        log(f"# (b)-(e) two ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s")
+        run_records = _metric_records(job["run_dir"])
+
+    for label, n_data, n_model, fsdp, dropout in PAR_MESHES:
+        for r in ranks:
+            res = r[label]
+            _check_counts(f"(b) {label}, rank {r['rank']} ({PAR_STEPS} steps)", res["counts"],
+                          {n: c * PAR_STEPS for n, c in per_step.items()})
+            _check_losses(f"(b) {label}, rank {r['rank']}", res["losses"], PAR_STEPS)
+            log(f"# (b) {label} rank {r['rank']}: peak above the start {res['peak_gb']!r} GB, "
+                f"parameters and moments {res['state_gb']!r} GB; seconds a step after the first, "
+                f"under gloo on a shared card (not a throughput): {res['step_s']!r} ({card})")
+        check(ranks[0][label]["losses"] == ranks[1][label]["losses"],
+              f"(b) {label}: the ranks logged different losses")
+        check(ranks[0][label]["print"] == ranks[1][label]["print"],
+              f"(b) {label}: the replicated leaves or moments differ between the ranks")
+        _par_verdict(f"(b) {label}", ranks[0][label]["gap"], spread)
+    _add_counts(total, ranks[0]["1x2 TP"]["counts"])
+    log(f"# (b) per-rank peak memory above the start: 1x1 {meshed['peak_gb']!r} GB, 1x2 TP "
+        f"{ranks[0]['1x2 TP']['peak_gb']!r} GB, 2x1 FSDP {ranks[0]['2x1 FSDP']['peak_gb']!r} GB; "
+        f"parameters and moments a rank: 1x2 TP {ranks[0]['1x2 TP']['state_gb']!r} GB, 2x1 FSDP "
+        f"{ranks[0]['2x1 FSDP']['state_gb']!r} GB, 2x1 DP {ranks[0]['2x1 DP']['state_gb']!r} GB "
+        f"({card})")
+
+    prot_step = _prot_training_per_step(pcfg)
+    for r in ranks:
+        res = r["prot 1x2"]
+        _check_counts(f"(c) ProtSTonKGs 1x2, rank {r['rank']} ({PAR_SHORT_STEPS} steps)",
+                      res["counts"], {n: c * PAR_SHORT_STEPS for n, c in prot_step.items()})
+        _check_losses(f"(c) ProtSTonKGs 1x2, rank {r['rank']}", res["losses"], PAR_SHORT_STEPS)
+        log(f"# (c) ProtSTonKGs 1x2 rank {r['rank']}: peak above the start {res['peak_gb']!r} GB, "
+            f"state {res['state_gb']!r} GB, seconds a step after the first (not a throughput) "
+            f"{res['step_s']!r}")
+    check(ranks[0]["prot 1x2"]["print"] == ranks[1]["prot 1x2"]["print"],
+          "(c) ProtSTonKGs: the replicated leaves or moments differ between the ranks")
+    _par_verdict("(c) ProtSTonKGs 1x2", ranks[0]["prot 1x2"]["gap"], prot_spread)
+    _add_counts(total, ranks[0]["prot 1x2"]["counts"])
+
+    ft_steps = PAR_FT_ROWS // FT_BATCH
+    for r in ranks:
+        res = r["classifier 2x1"]
+        _check_counts(f"(d) train_classifier 2x1, rank {r['rank']} ({ft_steps} steps)",
+                      res["counts"], {n: c * ft_steps for n, c in per_step.items()})
+        check(res["step"] == ft_steps and math.isfinite(res["metrics"]["loss"]),
+              f"(d) rank {r['rank']}: {res['step']} steps, metrics {res['metrics']}")
+    check(ranks[0]["classifier 2x1"]["print"] == ranks[1]["classifier 2x1"]["print"],
+          "(d) train_classifier: the replicated leaves or moments differ between the ranks")
+    _par_verdict("(d) train_classifier 2x1", ranks[0]["classifier 2x1"]["gap"], ft_spread)
+    _add_counts(total, ranks[0]["classifier 2x1"]["counts"])
+
+    for r in ranks:
+        res = r["run_pretraining 1x2"]
+        _check_counts(f"(e) run_pretraining, rank {r['rank']} ({PAR_STEPS} steps)",
+                      res["counts"], {n: c * PAR_STEPS for n, c in per_step.items()})
+        _check_counts(f"(e) run_pretraining resumed, rank {r['rank']} (2 steps)",
+                      res["resumed_counts"], {n: c * 2 for n, c in per_step.items()})
+        check(res["mesh"] == (1, 2) and res["step"] == PAR_STEPS,
+              f"(e) rank {r['rank']}: mesh {res['mesh']}, step {res['step']}")
+    check(ranks[0]["run_pretraining 1x2"]["print"] == ranks[1]["run_pretraining 1x2"]["print"],
+          "(e) run_pretraining: the replicated leaves or moments differ between the ranks")
+    losses = [(rec["step"], rec["value"]) for rec in run_records if rec["key"] == "loss"]
+    res = ranks[0]["run_pretraining 1x2"]
+    log(f"# (e) run_pretraining(n_model_shards=2): logged (main rank) {losses!r}; resumed at 2 "
+        f"equals the uninterrupted run bit for bit: {res['equal']} (largest |diff| "
+        f"{res['max_diff']!r})")
+    check([s for s, _ in losses] == [1, 2, 3, 4, 3, 4], f"(e) logged steps {losses}")
+    check(dict(losses[:4])[3] == losses[4][1] and dict(losses[:4])[4] == losses[5][1],
+          "(e) the resumed run's losses differ from the uninterrupted run's")
+    check(res["equal"], "(e) the resumed run's parameters differ from the uninterrupted run's")
+    _add_counts(total, res["counts"])
+    log(f"# parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths across cards (not part of main(): the driver's machine has
+# one card; run it alone where several cards are visible)
+# ---------------------------------------------------------------------------
+
+PAR_CARD_STEPS = 6
+# (label, n_data, n_model, fsdp, dropout), as PAR_MESHES
+PAR_CARD_MESHES = (("2x2", 2, 2, False, False), ("4x1 FSDP", 4, 1, True, False),
+                   ("4x1", 4, 1, False, False), ("1x4 TP", 1, 4, False, True))
+
+
+def _par_card_rank(job: dict) -> dict:
+    """One rank of ``phase_parallel_cards``: each mesh of
+    ``PAR_CARD_MESHES`` for ``PAR_CARD_STEPS`` steps on this rank's card."""
+    import torch.distributed as dist
+    from stonkgs_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    out = {"rank": rank, "device": torch.cuda.current_device(), "backend": dist.get_backend()}
+    params = torch.load(job["params"], weights_only=True)
+    init = tree_flatten_with_path(split_frozen(params)[0])
+    feats = {k: np.load(os.path.join(job["feats"], k + ".npy")) for k in job["feat_keys"]}
+    for label, n_data, n_model, fsdp, dropout in PAR_CARD_MESHES:
+        run = _par_pretrain(_par_cfg(dropout), params_to(params, DEV), feats, PAR_CARD_STEPS,
+                            TRAIN_BATCH, mesh=make_mesh(n_data, n_model), fsdp=fsdp)
+        state = run.pop("state")
+        res = {**run, "state_gb": _state_gb(state), "print": _replica_print(state)}
+        train, nu = _whole(state)
+        if rank == 0:
+            ref = torch.load(job["ref_on"] if dropout else job["ref_off"], weights_only=True)
+            res["gap"] = _par_gap(label, run["losses"], train, _nu_sum(nu), ref, init)
+        out[label] = res
+        del state, train, nu
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel_cards(card: str, n_cards: int = 4, params: Optional[dict] = None) -> dict:
+    """``pretrain`` on meshes over ``n_cards`` cards, one rank a card over
+    NCCL (``PAR_CARD_MESHES``, phase 5's STonKGs, global B=32), each held
+    to one rank as phase 23 holds its meshes (the spread: a one-rank run
+    that sums its batch in ``n_data`` parts); prints seconds a step after
+    the first beside one rank's, and each rank's parameter bytes and peak.
+    Run alone: ``python3 -c "import chip_smoke as c; card = c.phase_device();
+    c.phase_build(); c.phase_parallel_cards(card)"``.  Returns rank 0's
+    launch counts."""
+    from stonkgs_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    check(torch.cuda.device_count() >= n_cards,
+          f"{n_cards} cards needed, {torch.cuda.device_count()} visible")
+    cfg = _par_cfg(True)
+    if params is None:
+        params = _stonkgs_params(cfg)
+    feats = _pretraining_features(cfg, TRAIN_BATCH * PAR_CARD_STEPS, seed=23)
+    per_step = _training_per_step(cfg.bert.num_hidden_layers)
+    init = tree_flatten_with_path(split_frozen(params)[0])
+    with tempfile.TemporaryDirectory(prefix="stonkgs_cards_") as tmp:
+        one = {}
+        for dropout in (True, False):
+            run = _par_pretrain(_par_cfg(dropout), params_to(params, DEV), feats, PAR_CARD_STEPS,
+                                TRAIN_BATCH)
+            one[dropout] = (_par_reference(run, os.path.join(tmp, f"ref_{dropout}.pt")),
+                            run["step_s"], run["peak_gb"], _state_gb(run["state"]))
+            del run
+        spreads = {}
+        for parts in sorted({n_data for _, n_data, _, _, _ in PAR_CARD_MESHES} | {2}):
+            if parts == 1:
+                continue
+            run = _par_pretrain(_par_cfg(False), params_to(params, DEV), feats, PAR_CARD_STEPS,
+                                TRAIN_BATCH, accum=parts)
+            train, nu = _whole(run.pop("state"))
+            spreads[parts] = _par_gap(f"one rank, accumulation {parts}", run["losses"], train,
+                                      _nu_sum(nu), one[False][0], init)
+            del run, train, nu
+        log(f"# one rank: seconds a step after the first {one[True][1]!r} (dropout on), "
+            f"{one[False][1]!r} (off); peak above the start {one[True][2]!r} GB, parameters "
+            f"and moments {one[True][3]!r} GB ({card})")
+        torch.save(params, os.path.join(tmp, "params.pt"))
+        os.makedirs(os.path.join(tmp, "feats"))
+        for k, v in feats.items():
+            np.save(os.path.join(tmp, "feats", k + ".npy"), v)
+        torch.cuda.empty_cache()
+        job = {"params": os.path.join(tmp, "params.pt"), "feats": os.path.join(tmp, "feats"),
+               "feat_keys": sorted(feats), "ref_on": os.path.join(tmp, "ref_True.pt"),
+               "ref_off": os.path.join(tmp, "ref_False.pt")}
+        t0 = time.perf_counter()
+        try:
+            ranks = multihost.launch(_par_card_rank, n_cards, (job,), timeout=900)
+        except RuntimeError as e:
+            raise SmokeFailure(f"the ranks across cards: {e}") from e
+        log(f"# {n_cards} ranks: {time.perf_counter() - t0:.1f} s; backends "
+            f"{[r['backend'] for r in ranks]}, cards {[r['device'] for r in ranks]}")
+    check(sorted(r["device"] for r in ranks) == list(range(n_cards)),
+          "the ranks do not each hold a card of their own")
+    for label, n_data, n_model, fsdp, dropout in PAR_CARD_MESHES:
+        for r in ranks:
+            res = r[label]
+            _check_counts(f"{label} over {n_cards} cards, rank {r['rank']} ({PAR_CARD_STEPS} "
+                          "steps)", res["counts"],
+                          {n: c * PAR_CARD_STEPS for n, c in per_step.items()})
+            _check_losses(f"{label}, rank {r['rank']}", res["losses"], PAR_CARD_STEPS)
+        check(all(r[label]["losses"] == ranks[0][label]["losses"] for r in ranks),
+              f"{label}: the ranks logged different losses")
+        check(all(r[label]["print"] == ranks[0][label]["print"] for r in ranks),
+              f"{label}: the replicated leaves or moments differ between the ranks")
+        res = ranks[0][label]
+        log(f"# {label} over {n_cards} cards ({ranks[0]['backend']}): seconds a step after "
+            f"the first "
+            f"{res['step_s']!r} against one rank's {one[dropout][1]!r}; parameters and moments "
+            f"{res['state_gb']!r} GB a rank, peak above the start {res['peak_gb']!r} GB ({card})")
+        _par_verdict(f"{label} over {n_cards} cards", res["gap"], spreads[max(n_data, 2)])
+    log(f"# parallel phase across cards: {time.perf_counter() - t_phase:.1f} s")
+    return ranks[0]["2x2"]["counts"]
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -3877,13 +4450,15 @@ def main() -> int:
         for name, c in phase_readme(card).items():
             counts[name] += c
         ft_counts, ft_times = phase_finetune(card, params, pparams)
-        del params, pparams
         for name, c in ft_counts.items():
             counts[name] += c
         for name, c in phase_pretrain_files(card).items():
             counts[name] += c
         for name, c in phase_kg_embeddings(card).items():
             counts[name] += c
+        for name, c in phase_parallel(card, params, pparams).items():
+            counts[name] += c
+        del params, pparams
         # the fine-tuning shapes' worst error goes into the kernel line
         for key, t in ft_times.items():
             name = key.split(":")[0]

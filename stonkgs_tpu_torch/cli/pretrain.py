@@ -10,13 +10,26 @@ unless the caller asks for the CPU.
 
 pandas is imported only to read a pickle or a TSV; the memmap store, the
 KG embeddings (:func:`~stonkgs_tpu_torch.data.artifacts.read_tsv`) and the
-LM checkpoint need only torch and numpy.  The mesh (``n_model_shards > 1``,
-``fsdp``) is not ported and raises; with several cards visible the port
-trains on one.
+LM checkpoint need only torch and numpy.
+
+Several cards train as several processes, one a card::
+
+    torchrun --nproc_per_node=N your_script.py   # which calls run_pretraining(...)
+
+:func:`run_pretraining` starts the process group from torchrun's variables
+(:func:`stonkgs_tpu_torch.parallel.multihost.initialize`) and builds the mesh
+as the JAX package does (``cli/pretrain.py:190-199``): ``n_model_shards``
+ranks split the KG table and the decoders, and the data axis is the
+largest divisor of the batch that fits the rest; ``fsdp`` splits the large
+replicated leaves over it.  The main rank alone logs, writes the
+checkpoints and exports.  One process with several cards visible trains
+on one of them: a JAX process drives every card of its host, a torch
+process one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -25,12 +38,15 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stonkgs_tpu_torch.config import BertConfig, BigBirdConfig, ProtSTonKGsConfig, STonKGsConfig
 from stonkgs_tpu_torch.data.artifacts import parse_vectors, read_tsv
 from stonkgs_tpu_torch.data.filters import fix_stringified_lists
 from stonkgs_tpu_torch.data.memmap_dataset import MemmapFeatureStore
 from stonkgs_tpu_torch.models import protstonkgs, stonkgs
+from stonkgs_tpu_torch.parallel import multihost
+from stonkgs_tpu_torch.parallel.mesh import Mesh, make_mesh
 from stonkgs_tpu_torch.train.pretraining import PretrainingConfig, pretrain, resolve_train_impl
 from stonkgs_tpu_torch.utils.convert import params_to
 from stonkgs_tpu_torch.utils.hf_export import save_pretrained
@@ -83,17 +99,45 @@ def _device(device: str) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError("run_pretraining: no CUDA device; pass device='cpu' to "
                                "train on the CPU")
+        if dist.is_initialized():
+            return multihost.local_device()
         if torch.cuda.device_count() > 1:
-            logger.info("%d cards visible: the port trains on %s (the mesh is not ported)",
-                        torch.cuda.device_count(), device)
+            logger.info("%d cards visible: this process trains on %s; launch one process "
+                        "a card with torchrun --nproc_per_node=%d to train on all of them",
+                        torch.cuda.device_count(), device, torch.cuda.device_count())
     return device
 
 
-def _check_no_mesh(n_model_shards: int, fsdp: bool) -> None:
-    if n_model_shards > 1 or fsdp:
-        raise NotImplementedError(
-            f"n_model_shards={n_model_shards}, fsdp={fsdp}: the device mesh (model "
-            "sharding, FSDP) is not ported; the port trains on one card")
+def _make_mesh(batch_size: int, n_model_shards: int, fsdp: bool) -> Optional[Mesh]:
+    """The run's mesh over the process group (None for one process): the
+    model axis of ``n_model_shards``, the data axis the largest divisor of
+    the batch that is at most ``world // n_model_shards``."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_model_shards > world:
+        raise ValueError(f"n_model_shards {n_model_shards} exceeds the {world} ranks of the "
+                         "process group: launch one process a card with torchrun")
+    if world == 1:
+        if fsdp:
+            logger.info("fsdp has no data axis to split over in a single process")
+        return None
+    max_data = world // n_model_shards
+    n_data = max(d for d in range(1, max_data + 1) if batch_size % d == 0)
+    if n_data * n_model_shards != world:
+        raise ValueError(f"batch {batch_size} over {world} ranks: a {n_data}x{n_model_shards} "
+                         "mesh would leave ranks idle; pick a batch the data axis divides")
+    return make_mesh(n_data, n_model_shards)
+
+
+def _main_logger(mesh: Optional[Mesh], **kw):
+    """The run's logger on the main rank, nothing elsewhere."""
+    return RunLogger(**kw) if mesh is None or mesh.is_main else contextlib.nullcontext()
+
+
+def _export(state, cfg, export_hf_dir: str, mesh: Optional[Mesh]) -> None:
+    params = state.layout.gather(state.params) if state.layout is not None else state.params
+    if mesh is None or mesh.is_main:
+        save_pretrained(params, cfg, export_hf_dir)
+        logger.info("exported HF checkpoint to %s", export_hf_dir)
 
 
 def _frozen_to_bf16(params: dict, keys) -> None:
@@ -162,9 +206,14 @@ def run_pretraining(
     """Pre-train STonKGs, TransESTonKGs (``variant="transe"``) or
     ProtSTonKGs (``variant="prot"``) from preprocessed features; returns
     the final train state.  A second call with the same ``output_dir``
-    resumes from its newest checkpoint."""
-    _check_no_mesh(n_model_shards, fsdp)
+    resumes from its newest checkpoint.
+
+    Under a process group of several ranks (torchrun, or one started
+    before the call) every rank calls this with the same arguments; the
+    returned state holds the rank's slices and their layout."""
+    multihost.initialize()
     device = _device(device)
+    mesh = _make_mesh(batch_size, n_model_shards, fsdp)
     features = load_preprocessed_dataset(dataset_path)
     logger.info("dataset: %d examples, seq len %d (%.1f MB)",
                 len(features["input_ids"]), features["input_ids"].shape[1],
@@ -180,7 +229,7 @@ def run_pretraining(
             gradient_accumulation_steps=gradient_accumulation_steps,
             save_steps=save_steps, save_total_limit=save_total_limit,
             log_steps=log_steps, output_dir=output_dir, compute_dtype=compute_dtype,
-            remat=remat not in (False, "none"), seed=seed, device=device)
+            remat=remat not in (False, "none"), seed=seed, device=device, mesh=mesh, fsdp=fsdp)
     if variant not in ("stonkgs", "transe"):
         raise ValueError(f"unknown variant {variant!r}: 'stonkgs', 'transe' or 'prot'")
 
@@ -209,24 +258,25 @@ def run_pretraining(
         # memory and leaves the bf16 compute path as it is
         _frozen_to_bf16(params, ("lm_backbone", "kg_backbone"))
 
-    remat, attention_impl = resolve_train_impl(remat, attention_impl)
+    remat, attention_impl = resolve_train_impl(remat, attention_impl, mesh)
     run_cfg = PretrainingConfig(
         learning_rate=lr, max_steps=max_steps, micro_batch_size=batch_size,
         grad_accumulation_steps=gradient_accumulation_steps,
         save_steps=save_steps, save_total_limit=save_total_limit, log_steps=log_steps,
         compute_dtype=compute_dtype, seed=seed, remat=remat, attention_impl=attention_impl,
+        fsdp=fsdp,
     )
-    with RunLogger(log_dir=output_dir, experiment="stonkgs-pretraining") as log:
-        for k, v in vars(run_cfg).items():
-            log.log_param(k, v)
+    with _main_logger(mesh, log_dir=output_dir, experiment="stonkgs-pretraining") as log:
+        if log is not None:
+            for k, v in vars(run_cfg).items():
+                log.log_param(k, v)
         state = pretrain(
-            cfg, params, features, run_cfg,
+            cfg, params, features, run_cfg, mesh=mesh,
             checkpoint_dir=os.path.join(output_dir, "checkpoints"),
-            log_fn=lambda step, m: log.log_metrics(m, step),
+            log_fn=(lambda step, m: log.log_metrics(m, step)) if log is not None else None,
         )
     if export_hf_dir:
-        save_pretrained(state.params, cfg, export_hf_dir)
-        logger.info("exported HF checkpoint to %s", export_hf_dir)
+        _export(state, cfg, export_hf_dir, mesh)
     return state
 
 
@@ -294,6 +344,8 @@ def _run_prot_pretraining(
     remat=True,
     seed=0,
     device="cuda",
+    mesh=None,
+    fsdp=False,
 ):
     """ProtSTonKGs pre-training (tri-modality features; the layout from the
     label columns: text spans the masked_lm labels, KG the ent labels,
@@ -309,18 +361,18 @@ def _run_prot_pretraining(
     if compute_dtype == "bfloat16":
         # the frozen backbones are read only: bf16 storage halves ~2.3 GB
         _frozen_to_bf16(params, ("lm_backbone", "prot_backbone", "kg_backbone"))
-    remat, _ = resolve_train_impl(remat)
+    remat, _ = resolve_train_impl(remat, mesh=mesh)
     run_cfg = PretrainingConfig(
         learning_rate=lr, max_steps=max_steps, micro_batch_size=batch_size,
         grad_accumulation_steps=gradient_accumulation_steps,
         save_steps=save_steps, save_total_limit=save_total_limit, log_steps=log_steps,
-        compute_dtype=compute_dtype, seed=seed, remat=remat,
+        compute_dtype=compute_dtype, seed=seed, remat=remat, fsdp=fsdp,
     )
-    with RunLogger(log_dir=output_dir, experiment="protstonkgs-pretraining") as log:
+    with _main_logger(mesh, log_dir=output_dir, experiment="protstonkgs-pretraining") as log:
         state = pretrain(
-            cfg, params, features, run_cfg,
+            cfg, params, features, run_cfg, mesh=mesh,
             checkpoint_dir=os.path.join(output_dir, "checkpoints"),
-            log_fn=lambda step, m: log.log_metrics(m, step),
+            log_fn=(lambda step, m: log.log_metrics(m, step)) if log is not None else None,
             loss_fn=functools.partial(protstonkgs.pretraining_loss, remat=remat),
         )
     return state

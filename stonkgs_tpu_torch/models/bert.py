@@ -52,7 +52,10 @@ class DropoutRng:
     Hidden-state dropout masks come from ``device``, a generator on the
     activations' device.  Each attention call's two-word int32 dropout
     seed comes from ``host``, a CPU generator, so the hash mask is the same
-    whichever device runs the kernel."""
+    whichever device runs the kernel.  Under a mesh both are seeded per
+    data shard (:func:`stonkgs_tpu_torch.train.pretraining.step_rng`): the
+    ranks of one data index draw the same masks, so the replicated trunk
+    stays equal across the model axis."""
 
     device: torch.Generator
     host: torch.Generator

@@ -21,6 +21,10 @@ The backbones run under ``torch.no_grad()`` (in training with their
 dropout, as the JAX package's ``stop_gradient`` after train-mode
 backbones), so they launch forward kernels only; the trainable
 ``prot_projection`` is applied outside that scope.
+
+Under a mesh (``tp_mesh``) with a model axis the KG table and the three
+decoders hold this rank's slices (the JAX package's ``protstonkgs.py:
+148-153, 260-278``), as in :mod:`stonkgs_tpu_torch.models.stonkgs`.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from stonkgs_tpu_torch.models.heads import (
     init_elm_head,
 )
 from stonkgs_tpu_torch.ops.losses import gather_masked_positions, masked_cross_entropy
+from stonkgs_tpu_torch.parallel import tp
 
 SEGMENTS = ("text", "entity", "prot")
 
@@ -97,6 +102,7 @@ def backbone_embeddings(
     deterministic: bool = True,
     rng: Optional[DropoutRng] = None,
     compute_dtype: torch.dtype = torch.float32,
+    tp_mesh=None,
 ) -> torch.Tensor:
     """Three-modality input embeddings (B, seq_len, H): the text chunks
     through the LM backbone, the KG gather and the protein backbone under
@@ -111,7 +117,11 @@ def backbone_embeddings(
             rng=rng, compute_dtype=compute_dtype, with_pooler=False)
         text_emb = text_emb.reshape(B, cfg.kg_start_idx, -1)
         ent_ids = input_ids[:, cfg.kg_start_idx: cfg.prot_start_idx]
-        ent_emb = params["kg_backbone"].to(compute_dtype)[ent_ids]
+        table = params["kg_backbone"].to(compute_dtype)
+        if tp.has_model_axis(tp_mesh):
+            ent_emb = tp.tp_gather(table, ent_ids, tp_mesh)
+        else:
+            ent_emb = table[ent_ids]
         prot_out, _ = bert.bert_model(
             params["prot_backbone"], cfg.prot, input_ids=input_ids[:, cfg.prot_start_idx:],
             deterministic=deterministic, rng=rng, compute_dtype=compute_dtype,
@@ -133,6 +143,7 @@ def trunk_forward(
     rand_attn=None,
     trunk_attention_type: Optional[str] = None,
     cls_only: bool = False,
+    tp_mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbones + BigBird trunk: (sequence_output, pooled).
 
@@ -140,7 +151,7 @@ def trunk_forward(
     attention, valid only for models trained with it (the engine's
     ``fast_trunk``); the default is the checkpoint's block-sparse."""
     inputs_embeds = backbone_embeddings(params, cfg, input_ids, deterministic=deterministic,
-                                        rng=rng, compute_dtype=compute_dtype)
+                                        rng=rng, compute_dtype=compute_dtype, tp_mesh=tp_mesh)
     return bigbird.bigbird_model(
         params["trunk"], cfg.trunk, inputs_embeds=inputs_embeds,
         attention_mask=attention_mask, deterministic=deterministic, rng=rng,
@@ -179,7 +190,10 @@ def pretraining_loss(
 
     With ``dense_heads=False`` each segment decodes only its gathered
     masked positions, k = max(int(0.15 · len), 1) slots per segment.
-    Returns (loss, {"text_loss", "entity_loss", "prot_loss", "loss"})."""
+    Returns (loss, {"text_loss", "entity_loss", "prot_loss", "loss"}).
+    Under ``tp_mesh`` (in ``kw``) with a model axis every segment decodes
+    through the vocab-parallel loss."""
+    mesh = kw.get("tp_mesh")
     seq, _ = trunk_forward(params, cfg, batch["input_ids"], batch.get("attention_mask"), **kw)
     p = params["cls"]["predictions"]
     segs = [
@@ -193,12 +207,15 @@ def pretraining_loss(
     total = 0.0
     for name, (a, b), vocab, labels in segs:
         if dense_heads:
-            logits = elm_decode_segment(p, elm_transform(p, seq[:, a:b], cfg.trunk), name)
-            loss = masked_cross_entropy(logits[..., :vocab], labels)
+            h, lab = seq[:, a:b], labels
         else:
             h, lab, _ = gather_masked_positions(seq[:, a:b], labels, max(int((b - a) * 0.15), 1))
-            logits = elm_decode_segment(p, elm_transform(p, h, cfg.trunk), name)
-            loss = masked_cross_entropy(logits[..., :vocab], lab)
+        t = elm_transform(p, h, cfg.trunk)
+        if tp.has_model_axis(mesh):
+            loss = tp.tp_decode_cross_entropy(p, t, lab, name, vocab, mesh)
+        else:
+            loss = masked_cross_entropy(elm_decode_segment(p, t, name)[..., :vocab], lab,
+                                        mesh=mesh)
         losses[f"{name}_loss"] = loss
         total = total + loss
     losses["loss"] = total
@@ -229,4 +246,5 @@ def classification_loss(params: dict, cfg: ProtSTonKGsConfig, batch: dict,
     """Cross entropy and accuracy of :func:`classification_logits`
     against ``batch["labels"]``: (loss, {"loss", "accuracy"})."""
     return stonkgs.classification_metrics(
-        classification_logits(params, cfg, batch, **kw), batch["labels"])
+        classification_logits(params, cfg, batch, **kw), batch["labels"],
+        mesh=kw.get("tp_mesh"))

@@ -15,6 +15,14 @@ plus NSP).  Quirks kept on purpose:
   backbone's output for the length-1 sequence of each special token id;
 * the ELM decoder biases exist but are never applied;
 * the TransE layout (256 + 4) is the same code with another config.
+
+Under a mesh (``tp_mesh``, a :class:`~stonkgs_tpu_torch.parallel.mesh.Mesh`)
+the KG table and the decoders hold this rank's slices: the entity half is
+looked up by :func:`~stonkgs_tpu_torch.parallel.tp.tp_gather` and the MLM
+and ELM losses decode through
+:func:`~stonkgs_tpu_torch.parallel.tp.tp_masked_cross_entropy` when the
+mesh has a model axis, and every batch mean divides by the count over its
+data axis (the JAX package's ``tp_mesh``, ``stonkgs.py:155-181, 311-333``).
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from stonkgs_tpu_torch.models.heads import (
     nsp_head,
 )
 from stonkgs_tpu_torch.ops.losses import gather_masked_positions, masked_cross_entropy
+from stonkgs_tpu_torch.parallel import tp
+from stonkgs_tpu_torch.parallel.mesh import data_sum
 
 
 def init_stonkgs_params(
@@ -122,11 +132,12 @@ def backbone_embeddings(
     deterministic: bool = True,
     rng: Optional[DropoutRng] = None,
     compute_dtype: torch.dtype = torch.float32,
+    tp_mesh=None,
 ) -> torch.Tensor:
     """Frozen-backbone input embeddings for the trunk: (B, S, H).
 
     Text half -> frozen LM backbone (NO attention mask); entity half -> KG
-    table gather."""
+    table gather, row-split over ``tp_mesh``'s model axis where it has one."""
     text_ids = input_ids[:, : cfg.text_len]
     ent_ids = input_ids[:, cfg.text_len:]
     token_embeddings, _ = bert.bert_model(
@@ -134,7 +145,11 @@ def backbone_embeddings(
         attention_mask=None, deterministic=deterministic, rng=rng,
         compute_dtype=compute_dtype, with_pooler=False,
     )
-    ent_embeddings = params["kg_backbone"].to(compute_dtype)[ent_ids]
+    table = params["kg_backbone"].to(compute_dtype)
+    if tp.has_model_axis(tp_mesh):
+        ent_embeddings = tp.tp_gather(table, ent_ids, tp_mesh)
+    else:
+        ent_embeddings = table[ent_ids]
     return torch.cat([token_embeddings, ent_embeddings], dim=1)
 
 
@@ -151,6 +166,7 @@ def trunk_forward(
     remat=False,
     cls_only: bool = False,
     position_ids: Optional[torch.Tensor] = None,
+    tp_mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbones + trunk. Returns (sequence_output, pooled_output).
 
@@ -165,7 +181,7 @@ def trunk_forward(
     with torch.no_grad():
         inputs_embeds = backbone_embeddings(
             params, cfg, input_ids, deterministic=deterministic, rng=rng,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, tp_mesh=tp_mesh)
     return bert.bert_model(
         params["trunk"], cfg.bert,
         inputs_embeds=inputs_embeds,
@@ -178,13 +194,14 @@ def trunk_forward(
 
 
 def pooler_output(params: dict, cfg: STonKGsConfig, batch: dict, *,
-                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  compute_dtype: torch.dtype = torch.float32,
+                  tp_mesh=None) -> torch.Tensor:
     """Embedding-extraction path: the pooled [CLS] output only.  The trunk's
     last layer runs only at the [CLS] position (``cls_only``)."""
     _, pooled = trunk_forward(
         params, cfg, batch["input_ids"], batch.get("attention_mask"),
         batch.get("token_type_ids"), compute_dtype=compute_dtype,
-        cls_only=True, position_ids=batch.get("position_ids"),
+        cls_only=True, position_ids=batch.get("position_ids"), tp_mesh=tp_mesh,
     )
     return pooled
 
@@ -216,16 +233,21 @@ def classification_loss(params: dict, cfg: STonKGsConfig, batch: dict,
     """Cross entropy of :func:`classification_logits` against
     ``batch["labels"]``; returns (loss, {"loss", "accuracy"}).  ``kw`` are
     :func:`make_train_step`'s (``deterministic``, ``rng``,
-    ``compute_dtype``) and :func:`trunk_forward`'s."""
+    ``compute_dtype``, ``tp_mesh``) and :func:`trunk_forward`'s."""
     return classification_metrics(classification_logits(params, cfg, batch, **kw),
-                                  batch["labels"])
+                                  batch["labels"], mesh=kw.get("tp_mesh"))
 
 
-def classification_metrics(logits: torch.Tensor,
-                           labels: torch.Tensor) -> Tuple[torch.Tensor, dict]:
-    """(cross entropy, {"loss", "accuracy"}) of classification logits."""
-    loss = masked_cross_entropy(logits, labels)
-    accuracy = (logits.argmax(dim=-1) == labels).float().mean()
+def classification_metrics(logits: torch.Tensor, labels: torch.Tensor,
+                           mesh=None) -> Tuple[torch.Tensor, dict]:
+    """(cross entropy, {"loss", "accuracy"}) of classification logits;
+    under a ``mesh`` both are this data rank's share of the global mean."""
+    loss = masked_cross_entropy(logits, labels, mesh=mesh)
+    hits = (logits.argmax(dim=-1) == labels).float()
+    if mesh is None or mesh.n_data == 1:
+        accuracy = hits.mean()
+    else:
+        accuracy = hits.sum() / data_sum(hits.new_tensor(float(hits.numel())), mesh)
     return loss, {"loss": loss, "accuracy": accuracy}
 
 
@@ -263,7 +285,11 @@ def pretraining_loss(
     With ``dense_heads=False`` only the masked positions are decoded: the
     data pipeline masks exactly ``int(0.15 * len)`` positions per half, and
     k = ``max(int(0.15 * len), 1)`` slots are gathered per half.  Returns
-    (loss, {"loss", "mlm_loss", "elm_loss", "nsp_loss"})."""
+    (loss, {"loss", "mlm_loss", "elm_loss", "nsp_loss"}).
+
+    Under ``tp_mesh`` (in ``kw``) with a model axis, the decoders hold this
+    rank's padded columns and decode through the vocab-parallel loss."""
+    mesh = kw.get("tp_mesh")
     seq, pooled = trunk_forward(
         params, cfg, batch["input_ids"], batch.get("attention_mask"),
         batch.get("token_type_ids"), **kw)
@@ -271,23 +297,27 @@ def pretraining_loss(
     mlm_labels = batch["masked_lm_labels"]
     elm_labels = batch["ent_masked_lm_labels"]
     tl = cfg.text_len
+
+    def decode_loss(t, labels, name, vocab):
+        if tp.has_model_axis(mesh):
+            return tp.tp_decode_cross_entropy(p, t, labels, name, vocab, mesh)
+        return masked_cross_entropy(elm_decode_segment(p, t, name), labels, mesh=mesh)
+
     if dense_heads:
         t = elm_transform(p, seq, cfg.bert)
-        mlm_loss = masked_cross_entropy(elm_decode_segment(p, t[:, :tl], "text"),
-                                        mlm_labels)
-        elm_loss = masked_cross_entropy(elm_decode_segment(p, t[:, tl:], "entity"),
-                                        elm_labels)
+        mlm_loss = decode_loss(t[:, :tl], mlm_labels, "text", cfg.bert.vocab_size)
+        elm_loss = decode_loss(t[:, tl:], elm_labels, "entity", cfg.kg_vocab_size)
     else:
         k_text = max_text_predictions or max(int(cfg.text_len * 0.15), 1)
         k_ent = max_entity_predictions or max(int(cfg.entity_len * 0.15), 1)
         text_h, text_l, _ = gather_masked_positions(seq[:, :tl], mlm_labels, k_text)
         ent_h, ent_l, _ = gather_masked_positions(seq[:, tl:], elm_labels, k_ent)
-        mlm_loss = masked_cross_entropy(
-            elm_decode_segment(p, elm_transform(p, text_h, cfg.bert), "text"), text_l)
-        elm_loss = masked_cross_entropy(
-            elm_decode_segment(p, elm_transform(p, ent_h, cfg.bert), "entity"), ent_l)
+        mlm_loss = decode_loss(elm_transform(p, text_h, cfg.bert), text_l, "text",
+                               cfg.bert.vocab_size)
+        elm_loss = decode_loss(elm_transform(p, ent_h, cfg.bert), ent_l, "entity",
+                               cfg.kg_vocab_size)
     nsp_logits = nsp_head(params["cls"]["seq_relationship"], pooled)
-    nsp_loss = masked_cross_entropy(nsp_logits, batch["next_sentence_labels"])
+    nsp_loss = masked_cross_entropy(nsp_logits, batch["next_sentence_labels"], mesh=mesh)
     loss = mlm_loss + elm_loss + nsp_loss
     return loss, {"loss": loss, "mlm_loss": mlm_loss,
                   "elm_loss": elm_loss, "nsp_loss": nsp_loss}

@@ -8,6 +8,11 @@ port's kernels (on a CPU tensor, through their plain versions):
 * training: :func:`stonkgs_tpu_torch.ops.flash_attention.flash_attention_train`
   with the layer's dropout rate and the call's two-word seed, as the JAX
   package's flash path does (``stonkgs_tpu/ops/attention.py:98-121``).
+  Under a mesh each rank runs the kernel on its own rows; the seed comes
+  from the step's :class:`~stonkgs_tpu_torch.models.bert.DropoutRng`, which
+  :func:`stonkgs_tpu_torch.train.pretraining.step_rng` folds with the data
+  index (the counterpart of ``_sharded_flash``, ``attention.py:51-80``), so
+  ranks of one data index draw the same masks and data shards differ.
 
 Unlike the JAX package, which sends S < 384 to XLA on a TPU
 (``stonkgs_tpu/ops/attention.py:34``), the port takes the kernels at every

@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from stonkgs_tpu_torch.parallel.mesh import data_sum
+
 IGNORE_INDEX = -100
 
 
@@ -28,19 +30,22 @@ def masked_cross_entropy(
     labels: torch.Tensor,   # (...,) int, IGNORE_INDEX to skip
     *,
     label_weights: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Mean cross entropy in fp32 over positions where labels != -100,
     each position weighted by ``label_weights`` where given.
 
     Matches ``torch.nn.CrossEntropyLoss(ignore_index=-100)`` (reduction
     ``mean``) except that an all-ignored batch yields 0 instead of NaN
-    (``stonkgs_tpu/ops/losses.py:23-45``)."""
+    (``stonkgs_tpu/ops/losses.py:23-45``).  Under a ``mesh`` with a data
+    axis the rows are one data rank's share: the sum divides by the count
+    over every data rank, so the ranks' losses add up to the global mean."""
     valid = labels != IGNORE_INDEX
     w = valid.float()
     if label_weights is not None:
         w = w * label_weights
     nll = _nll(logits, torch.where(valid, labels, 0))
-    return (nll * w).sum() / w.sum().clamp_min(1.0)
+    return (nll * w).sum() / data_sum(w.sum(), mesh).clamp_min(1.0)
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

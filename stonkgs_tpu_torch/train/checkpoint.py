@@ -22,6 +22,14 @@ every tensor before it returns: a tensor on the card is copied into a
 pinned host buffer on the current stream (ordered before any later step's
 writes), and only the wait for those copies and the file write go to a
 background thread.
+
+Under a mesh (a state with a ``layout``) every rank takes part in a save:
+the split leaves are all-gathered and cut to their unpadded shapes, and
+the main rank alone writes them, in the same single-device format; a
+blocking save ends with a barrier, so no rank runs ahead of the files.  A
+restore reads the full leaves on every rank and keeps each rank's slices.
+So a checkpoint moves between meshes and one card.  The JAX package
+writes sharded Orbax checkpoints instead.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import threading
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from stonkgs_tpu_torch.utils.tree import tree_flatten_with_path, tree_map_with_path
 
@@ -47,6 +56,13 @@ def _state_tree(state) -> dict:
     """The tensors of a train state: params and the optimizer's moments."""
     opt = {k: v for k, v in state.opt_state.items() if k != "count"}
     return {"params": state.params, "opt_state": opt}
+
+
+def _leaf_path(path: str) -> str:
+    """A state-tree path -> the parameter path it stores (``params/a/b`` and
+    ``opt_state/mu/a/b`` -> ``a/b``), as a layout names it."""
+    head, rest = path.split("/", 1)
+    return rest if head == "params" else rest.split("/", 1)[1]
 
 
 def _snapshot(t: torch.Tensor):
@@ -90,6 +106,13 @@ class CheckpointManager:
         blocking save) makes it durable."""
         self.wait()
         flat = tree_flatten_with_path(_state_tree(state))
+        layout = getattr(state, "layout", None)
+        if layout is not None:
+            flat = {p: layout.gather_leaf(_leaf_path(p), t) for p, t in flat.items()}
+            if not layout.mesh.is_main:
+                if blocking:
+                    dist.barrier()
+                return
         snap, on_card = {}, False
         for path, t in flat.items():
             snap[path], card = _snapshot(t)
@@ -111,6 +134,8 @@ class CheckpointManager:
 
         if blocking:
             write()
+            if layout is not None:
+                dist.barrier()
             self._raise()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
@@ -157,13 +182,19 @@ class CheckpointManager:
         saved = torch.load(os.path.join(path, TENSORS), map_location="cpu",
                            weights_only=True)
         want = tree_flatten_with_path(_state_tree(template_state))
+        layout = getattr(template_state, "layout", None)
+
+        def full_shape(k, t):
+            return tuple(t.shape) if layout is None else layout.shapes[_leaf_path(k)]
+
         problems = [f"missing {k}" for k in want if k not in saved]
         problems += [f"unexpected {k}" for k in saved if k not in want]
         problems += [
             f"{k}: saved {tuple(saved[k].shape)} {saved[k].dtype}, expected "
-            f"{tuple(t.shape)} {t.dtype}"
+            f"{full_shape(k, t)} {t.dtype}"
             for k, t in want.items()
-            if k in saved and (saved[k].shape != t.shape or saved[k].dtype != t.dtype)]
+            if k in saved and (tuple(saved[k].shape) != full_shape(k, t)
+                               or saved[k].dtype != t.dtype)]
         if problems:
             raise ValueError(
                 f"checkpoint at step {step} in {self.directory} does not match the "
@@ -172,7 +203,10 @@ class CheckpointManager:
                 "resume with the configuration that wrote it")
 
         def load(p, t):
-            return saved[p].to(device=t.device)
+            full = saved[p]
+            if layout is not None:
+                full = layout.shard_leaf(_leaf_path(p), full)
+            return full.to(device=t.device)
 
         tree = tree_map_with_path(load, _state_tree(template_state))
         opt_state = {**tree["opt_state"], "count": meta["count"]}

@@ -14,7 +14,12 @@ index and value for value (a machine serving the port needs only torch and
 numpy); the TSV is written without pandas, byte for byte as
 ``DataFrame.to_csv(sep="\\t", index=False)`` writes it.
 
-Not ported here: the mesh (``mesh`` raises ``NotImplementedError``).
+With a ``mesh`` (every rank calls with the same arguments) a fold trains
+as the JAX package's does on its mesh (``finetuning.py:145-178``): the
+parameters split by :func:`~stonkgs_tpu_torch.parallel.mesh.shard_params`
+without FSDP, the KG gather over the model axis, each rank on its rows of
+every batch; the evaluation runs on the gathered parameters, and the main
+rank alone writes the TSV and the exported model.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 from stonkgs_tpu_torch.config import STonKGsConfig
 from stonkgs_tpu_torch.models import stonkgs
 from stonkgs_tpu_torch.models.heads import init_classifier_head
+from stonkgs_tpu_torch.parallel.mesh import shard_batch, shard_params
 from stonkgs_tpu_torch.train.optimizer import AdamW, merge_frozen, split_frozen
 from stonkgs_tpu_torch.train.pretraining import (
     TrainState,
@@ -221,10 +227,11 @@ def train_classifier(
     the frozen backbones are shared.  ``loss_fn`` defaults to the STonKGs
     classification loss; pass ``protstonkgs.classification_loss`` for the
     tri-modality variant, with ``trunk_cfg`` (the config holding its
-    hidden size) for the head."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported")
-    remat, _ = resolve_train_impl(run_cfg.remat, run_cfg.attention_impl)
+    hidden size) for the head.
+
+    With a ``mesh`` the returned state holds this rank's slices and their
+    layout (``state.layout.gather(state.params)`` makes them whole)."""
+    remat, _ = resolve_train_impl(run_cfg.remat, run_cfg.attention_impl, mesh)
     n = len(train_features["input_ids"])
     # folds smaller than one (accumulated) batch still train: accumulation
     # shrinks first, so the micro-batch never exceeds the configured one;
@@ -244,14 +251,20 @@ def train_classifier(
         trunk_cfg if trunk_cfg is not None else cfg.bert, cfg.num_labels), device)
     tx = AdamW(learning_rate=run_cfg.lr, total_steps=total_steps,
                max_grad_norm=run_cfg.max_grad_norm)
-    state = init_train_state(merge_frozen(train, frozen), tx, seed=rng_seed)
+    params, layout = merge_frozen(train, frozen), None
+    place = lambda b: to_device(b, device)  # noqa: E731
+    if mesh is not None:
+        mesh.require_groups()
+        params, layout = shard_params(params, mesh)
+        place = lambda b: to_device(shard_batch(b, mesh, accumulation), device)  # noqa: E731
+    state = init_train_state(params, tx, seed=rng_seed, layout=layout)
     step_fn = make_train_step(
         cfg, tx, loss_fn=loss_fn if loss_fn is not None else stonkgs.classification_loss,
         compute_dtype=getattr(torch, run_cfg.compute_dtype),
-        grad_accumulation_steps=accumulation, remat=remat)
+        grad_accumulation_steps=accumulation, remat=remat, mesh=mesh)
     batches = _prefetch_to_device(
         data_iterator(train_features, batch_size * accumulation, seed=rng_seed),
-        lambda b: to_device(b, device), total_steps)
+        place, total_steps)
     metrics = {}
     try:
         for batch in batches:
@@ -325,6 +338,9 @@ def run_sequence_classification_cv(
         state, _ = train_classifier(cfg, pretrained_params, train_feats, run_cfg,
                                     mesh=mesh, rng_seed=run_cfg.seed + fold,
                                     loss_fn=loss_fn, trunk_cfg=trunk_cfg)
+        if state.layout is not None:   # the evaluation and export read whole leaves
+            state = dataclasses.replace(state, params=state.layout.gather(state.params),
+                                        layout=None)
         logits = predict(cfg, state.params, {k: v[te] for k, v in features.items()
                                              if k != "labels"},
                          batch_size=run_cfg.eval_batch_size,
@@ -346,7 +362,7 @@ def run_sequence_classification_cv(
     if logger:
         logger.log_param("task name", task_name)
         logger.log_metrics(result)
-    if output_dir:
+    if output_dir and (mesh is None or mesh.is_main):
         os.makedirs(output_dir, exist_ok=True)
         write_predictions(os.path.join(output_dir,
                                        f"predicted_labels_stonkgs_{task_name}df.tsv"),

@@ -13,6 +13,11 @@ they never get gradients or optimizer state.
 factor ``max_norm / max(norm, max_norm)`` folded into the moment update.
 It updates the parameters and moments in place (the JAX function returns
 new arrays), which keeps one copy of each on the card.
+
+Under a mesh the leaves are this rank's slices: the moments and the decay
+work on them as they are, and the clip takes the norm of the global
+gradient from the ``grad_norm`` the train step passes
+(:meth:`stonkgs_tpu_torch.parallel.mesh.ParamLayout.grad_norm`).
 """
 
 from __future__ import annotations
@@ -77,20 +82,24 @@ class AdamW:
                 "nu": tree_map(zeros, train_params)}
 
     @torch.no_grad()
-    def update_and_apply(self, grads: list, state: dict, params: list) -> None:
+    def update_and_apply(self, grads: list, state: dict, params: list,
+                         grad_norm: Optional[Callable[[list], torch.Tensor]] = None) -> None:
         """One step: clip, moments, bias correction, decay, apply.
 
         ``grads`` and ``params`` are leaf lists in the order of
         ``tree_leaves`` of the tree ``state`` was made from; params and
         ``state`` change in place.  The learning rate is the schedule's at
         the step count before this step, the bias correction uses the
-        count after it (as optax)."""
+        count after it (as optax).  ``grad_norm(grads)`` gives the clip's
+        global norm where the leaves are slices of a sharded tree; by
+        default it is the norm over ``grads``."""
         mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
         lr = self.schedule(state["count"])
         count = state["count"] + 1
         g = [t.float() for t in grads]
         if self.max_grad_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            norm = (grad_norm(g) if grad_norm is not None
+                    else torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g))))
             g = torch._foreach_mul(
                 g, self.max_grad_norm / torch.clamp(norm, min=self.max_grad_norm))
         torch._foreach_mul_(mu, self.b1)

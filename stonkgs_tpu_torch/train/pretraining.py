@@ -19,8 +19,13 @@ the card when the parameters are there, as ``chip_smoke.py`` puts them.
 Randomness is explicit: a step's generators are derived from the run's
 seed and the step number (:func:`step_rng`), so any step can be replayed.
 
-Not ported here: the mesh (data/model parallelism, FSDP); ``pretrain``
-raises ``NotImplementedError`` for one.
+Under a mesh (:mod:`stonkgs_tpu_torch.parallel.mesh`, the JAX package's
+``mesh`` argument) every rank runs this loop on its share: it keeps its
+slices of the parameters and moments (the KG table and decoders split
+over ``model``, with ``fsdp`` the large replicated leaves over ``data``),
+feeds its own rows of every global batch, and the step sums the gradients
+over the data axis with explicit collectives; the metrics are the global
+batch's.  A 1 x 1 mesh runs the unmeshed arithmetic bit for bit.
 """
 
 from __future__ import annotations
@@ -37,33 +42,44 @@ import torch
 from stonkgs_tpu_torch.config import ProtSTonKGsConfig, STonKGsConfig
 from stonkgs_tpu_torch.models import stonkgs
 from stonkgs_tpu_torch.models.bert import DropoutRng, check_no_remat
+from stonkgs_tpu_torch.parallel.mesh import (
+    Mesh,
+    ParamLayout,
+    all_reduce_,
+    shard_batch,
+    shard_params,
+)
 from stonkgs_tpu_torch.train.checkpoint import CheckpointManager
 from stonkgs_tpu_torch.train.optimizer import AdamW, merge_frozen, split_frozen
 from stonkgs_tpu_torch.utils.batching import host_to_device
-from stonkgs_tpu_torch.utils.tree import tree_leaves, tree_map
+from stonkgs_tpu_torch.utils.tree import tree_flatten_with_path, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
 class TrainState:
-    """Train-step carry: step counter, params, optimizer state, run seed."""
+    """Train-step carry: step counter, params, optimizer state, run seed,
+    and under a mesh the layout of the rank's slices (None otherwise)."""
     step: int
     params: dict
     opt_state: dict
     seed: int
+    layout: Optional[ParamLayout] = None
 
 
-def init_train_state(params: dict, tx: AdamW, seed: int = 0) -> TrainState:
-    """The train state; optimizer state covers the TRAINABLE subtree only."""
+def init_train_state(params: dict, tx: AdamW, seed: int = 0,
+                     layout: Optional[ParamLayout] = None) -> TrainState:
+    """The train state; optimizer state covers the TRAINABLE subtree only
+    (under a mesh, the rank's slices of it, as ``layout`` records)."""
     return TrainState(step=0, params=params, opt_state=tx.init(split_frozen(params)[0]),
-                      seed=seed)
+                      seed=seed, layout=layout)
 
 
 def resolve_train_impl(remat="auto", attention_impl="auto", mesh=None):
     """The training configuration of the port: no layer remat, and the
     training kernels for attention and the FFN (``(False, "flash")``), the
-    JAX package's choice on a TPU.  Remat and a mesh are not ported."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported")
+    JAX package's choice on a TPU.  Remat is not ported.  A ``mesh``
+    changes nothing here: every rank runs the same kernels on its rows
+    (the JAX package wraps them in ``shard_map``)."""
     if remat in ("auto", True):
         remat = False
     check_no_remat(remat)
@@ -73,11 +89,15 @@ def resolve_train_impl(remat="auto", attention_impl="auto", mesh=None):
     return False, "flash"
 
 
-def step_rng(seed: int, step: int, device, micro: int = 0) -> DropoutRng:
+def step_rng(seed: int, step: int, device, micro: int = 0,
+             data_index: Optional[int] = None) -> DropoutRng:
     """The generators of micro-batch ``micro`` of step ``step``: a device
     generator for hidden-state dropout and a CPU one for the attention
-    seeds, both seeded from (seed, step, micro)."""
-    words = np.random.SeedSequence([seed, step, micro]).generate_state(2, dtype=np.uint64)
+    seeds, both seeded from (seed, step, micro), and from the data shard's
+    index where one is given (a mesh with a data axis: the shards draw
+    different masks, the ranks of one shard the same)."""
+    entropy = [seed, step, micro] + ([] if data_index is None else [data_index])
+    words = np.random.SeedSequence(entropy).generate_state(2, dtype=np.uint64)
     return DropoutRng(
         device=torch.Generator(device=device).manual_seed(int(words[0])),
         host=torch.Generator().manual_seed(int(words[1])))
@@ -91,6 +111,7 @@ def make_train_step(
     compute_dtype: torch.dtype = torch.bfloat16,
     grad_accumulation_steps: int = 1,
     remat=False,
+    mesh: Optional[Mesh] = None,
 ):
     """The train step: ``step(state, batch) -> (state, metrics)``.
 
@@ -102,33 +123,57 @@ def make_train_step(
     ``batch`` holds ``grad_accumulation_steps * micro_batch`` rows on the
     parameters' device; gradients of the micro-batches are summed in fp32
     and averaged, as are the metrics (0-dim tensors on the device).  The
-    state is updated in place and returned."""
+    state is updated in place and returned.
+
+    Under a ``mesh`` (the state made by :func:`pretrain` or
+    :func:`~stonkgs_tpu_torch.parallel.mesh.shard_params`, so it carries its
+    layout) ``batch`` holds this rank's rows
+    (:func:`~stonkgs_tpu_torch.parallel.mesh.shard_batch`), the loss gets
+    ``tp_mesh=mesh``, and the step all-gathers the data-split (FSDP) leaves
+    before the forward and reduces the gradients after the backward
+    (:meth:`~stonkgs_tpu_torch.parallel.mesh.ParamLayout.reduce_grads`);
+    the clip takes the global norm and the metrics are summed over the
+    data axis (each rank's loss is its share of the global mean)."""
     check_no_remat(remat)
     n = grad_accumulation_steps
     if loss_fn is None:
         loss_fn = stonkgs.pretraining_loss
+    extra = {}
+    if mesh is not None:
+        mesh.require_groups()
+        extra["tp_mesh"] = mesh
+    data_index = mesh.data_index if mesh is not None and mesh.n_data > 1 else None
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        layout = state.layout
+        if (mesh is None) != (layout is None) or (layout is not None and layout.mesh is not mesh):
+            raise ValueError("the train state's layout does not belong to the step's mesh")
         train_p, frozen_p = split_frozen(state.params)
         leaves = tree_leaves(train_p)
         device = leaves[0].device
+        if layout is not None and layout.has_fsdp:
+            # the step's view: data-split leaves whole, for this step only
+            train_v, frozen_v = layout.gather_fsdp(train_p), layout.gather_fsdp(frozen_p)
+        else:
+            train_v, frozen_v = train_p, frozen_p
+        view = tree_leaves(train_v)
         micro = [batch] if n == 1 else [
             {k: v.reshape((n, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
             for i in range(n)]
         grads = metrics = None
         try:
-            for t in leaves:
+            for t in view:
                 t.requires_grad_(True)
             for i, mb in enumerate(micro):
                 loss, m = loss_fn(
-                    merge_frozen(train_p, frozen_p), cfg, mb, deterministic=False,
-                    rng=step_rng(state.seed, state.step, device, i),
-                    compute_dtype=compute_dtype)
-                g = torch.autograd.grad(loss, leaves, allow_unused=True)
+                    merge_frozen(train_v, frozen_v), cfg, mb, deterministic=False,
+                    rng=step_rng(state.seed, state.step, device, i, data_index),
+                    compute_dtype=compute_dtype, **extra)
+                g = torch.autograd.grad(loss, view, allow_unused=True)
                 # leaves outside the loss (the ELM decoder biases, the
                 # trunk's word embeddings) get zeros
-                g = [torch.zeros_like(p) if gi is None else gi.float()
-                     for p, gi in zip(leaves, g)]
+                g = [torch.zeros_like(p, dtype=torch.float32) if gi is None else gi.float()
+                     for p, gi in zip(view, g)]
                 m = {k: v.detach().float() for k, v in m.items()}
                 if grads is None:
                     grads, metrics = g, m
@@ -136,12 +181,22 @@ def make_train_step(
                     torch._foreach_add_(grads, g)
                     metrics = {k: metrics[k] + m[k] for k in m}
         finally:
-            for t in leaves:
+            for t in view:
                 t.requires_grad_(False)
         if n > 1:
             torch._foreach_mul_(grads, 1.0 / n)
             metrics = {k: v / n for k, v in metrics.items()}
-        tx.update_and_apply(grads, state.opt_state, leaves)
+        clip = {}   # a split tree's global norm; the unmeshed call is unchanged
+        if layout is not None:
+            paths = list(tree_flatten_with_path(train_p))
+            grads = layout.reduce_grads(paths, grads)
+            norm = layout.grad_norm(paths)
+            if norm is not None:
+                clip["grad_norm"] = norm
+            names = sorted(metrics)
+            total = all_reduce_(torch.stack([metrics[k] for k in names]), mesh.data_group)
+            metrics = dict(zip(names, total.unbind()))
+        tx.update_and_apply(grads, state.opt_state, leaves, **clip)
         state.step += 1
         return state, metrics
 
@@ -152,7 +207,7 @@ def make_train_step(
 class PretrainingConfig:
     """Run configuration: the fields of the JAX package's
     ``PretrainingConfig`` that the port runs, with its defaults (the
-    reference CLI's).  The mesh's fields (``fsdp*``) come with the mesh;
+    reference CLI's).  ``fsdp`` and ``fsdp_min_size`` act under a mesh;
     ``remat`` and ``attention_impl`` go through :func:`resolve_train_impl`."""
 
     learning_rate: float = 1e-4
@@ -168,6 +223,11 @@ class PretrainingConfig:
     compute_dtype: str = "bfloat16"
     remat: bool = False
     attention_impl: str = "auto"
+    # split params, gradients and both moments over the data axis
+    # (ZeRO-3 storage; the reference's DeepSpeed config stops at stage 2)
+    fsdp: bool = False
+    # smallest leaf (elements) fsdp splits; None = mesh.FSDP_MIN_SIZE
+    fsdp_min_size: Optional[int] = None
     # stop (cleanly, with a checkpoint) after this step while the LR
     # schedule stays pinned to max_steps: a resumed run continues to
     # max_steps on the trajectory of an uninterrupted one
@@ -297,16 +357,29 @@ def pretrain(
     ``stop_at_step``, keeping ``save_total_limit``; the mid-run saves write
     their files on a background thread, the last one blocks.  A resumed
     run fast-forwards the data to its step and draws every step's dropout
-    from (seed, step), so it replays the uninterrupted run."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported")
-    remat, _ = resolve_train_impl(run_cfg.remat, run_cfg.attention_impl)
+    from (seed, step), so it replays the uninterrupted run.
+
+    With a ``mesh`` (every rank of the process group calls ``pretrain``
+    with the same arguments and the full ``params``) each rank keeps its
+    slices (``run_cfg.fsdp`` splits the large replicated leaves too),
+    feeds its own rows of every batch of the shared data order, and logs
+    the global batch's metrics; the returned state holds the rank's
+    slices and their layout (``ParamLayout.gather`` makes them whole).
+    Checkpoints are gathered: the main rank writes the single-device
+    format, and every rank restores its slices from it, so a run can
+    resume on another mesh or on one card."""
+    remat, _ = resolve_train_impl(run_cfg.remat, run_cfg.attention_impl, mesh)
     train, frozen = split_frozen(params)
     params = merge_frozen(tree_map(lambda t: t.detach().clone(), train), frozen)
+    layout = None
+    if mesh is not None:
+        mesh.require_groups()
+        params, layout = shard_params(params, mesh, fsdp=run_cfg.fsdp,
+                                      fsdp_min_size=run_cfg.fsdp_min_size)
     device = tree_leaves(train)[0].device
     tx = AdamW(learning_rate=run_cfg.learning_rate, total_steps=run_cfg.max_steps,
                warmup_steps=run_cfg.warmup_steps, weight_decay=run_cfg.weight_decay)
-    state = init_train_state(params, tx, run_cfg.seed)
+    state = init_train_state(params, tx, run_cfg.seed, layout)
     ckpt = None
     start_step = 0
     if checkpoint_dir is not None:
@@ -316,11 +389,17 @@ def pretrain(
             state, start_step = restored, restored.step
     step_fn = make_train_step(
         cfg, tx, loss_fn=loss_fn, compute_dtype=getattr(torch, run_cfg.compute_dtype),
-        grad_accumulation_steps=run_cfg.grad_accumulation_steps, remat=remat)
+        grad_accumulation_steps=run_cfg.grad_accumulation_steps, remat=remat, mesh=mesh)
+    if mesh is None:
+        place = lambda b: to_device(b, device)  # noqa: E731
+    else:
+        # every rank draws the same global order and keeps its own rows
+        place = lambda b: to_device(  # noqa: E731
+            shard_batch(b, mesh, run_cfg.grad_accumulation_steps), device)
     batches = _prefetch_to_device(
         data_iterator(features, run_cfg.batch_size, seed=run_cfg.seed,
                       skip_steps=start_step),
-        lambda b: to_device(b, device), max(run_cfg.max_steps - start_step, 0))
+        place, max(run_cfg.max_steps - start_step, 0))
 
     t0 = time.perf_counter()
     steady_t0 = None  # set after this run's first step, which throughput excludes

@@ -48,6 +48,7 @@ def test_import_pulls_in_no_jax():
         "from stonkgs_tpu_torch.data import kg_graph, protein_sequences, tsv_io, walker\n"
         "from stonkgs_tpu_torch.models import node2vec, word2vec\n"
         "from stonkgs_tpu_torch.baselines import batteries\n"
+        "from stonkgs_tpu_torch.parallel import dryrun, mesh, multihost, tp\n"
         "new = sorted(set(sys.modules) - before)\n"
         "print('\\n'.join(new))\n"
     )
@@ -67,6 +68,7 @@ def test_import_pulls_in_no_jax():
     assert "stonkgs_tpu_torch.api.embeddings" in out
     assert "stonkgs_tpu_torch.models.node2vec" in out
     assert "stonkgs_tpu_torch.baselines.batteries" in out
+    assert "stonkgs_tpu_torch.parallel.dryrun" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -77,8 +79,8 @@ ABSENT_ON_THE_CARD = ("pandas", "transformers", "safetensors", "sklearn", "netwo
 
 def test_engine_path_pulls_in_no_module_the_card_lacks():
     """The README flow's, fine-tuning's, pre-training's, the serving
-    API's and the KG embeddings' modules (the walker, the extraction,
-    word2vec, node2vec, the batteries) import none of pandas,
+    API's, the KG embeddings' (the walker, the extraction, word2vec,
+    node2vec, the batteries) and the parallel modules import none of pandas,
     transformers, safetensors, sklearn, networkx or optuna at module scope
     (safetensors only inside the loader, for a ``.safetensors`` file;
     pandas only inside the functions that read a TSV or a pickle or build
@@ -100,6 +102,7 @@ def test_engine_path_pulls_in_no_module_the_card_lacks():
         "from stonkgs_tpu_torch.data import kg_graph, protein_sequences, tsv_io, walker\n"
         "from stonkgs_tpu_torch.models import node2vec, word2vec\n"
         "from stonkgs_tpu_torch.baselines import batteries\n"
+        "from stonkgs_tpu_torch.parallel import dryrun, mesh, multihost, tp\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -112,6 +115,7 @@ def test_engine_path_pulls_in_no_module_the_card_lacks():
     assert "stonkgs_tpu_torch.data.walker" in out
     assert "stonkgs_tpu_torch.data.indra_extraction" in out
     assert "stonkgs_tpu_torch.baselines.batteries" in out
+    assert "stonkgs_tpu_torch.parallel.multihost" in out
     assert [m for m in out if m.split(".")[0] in ABSENT_ON_THE_CARD] == []
 
 

@@ -244,11 +244,17 @@ def test_derived_configs_match_jax(tmp_path, monkeypatch, variant, dim):
 
 
 def test_run_pretraining_raises_for_the_mesh_and_without_cuda(tmp_path, monkeypatch):
+    """In one process ``fsdp`` runs (there is no data axis to split over)
+    and ``n_model_shards=2`` asks for a torchrun launch; the two-rank run
+    is in ``test_torch_parallel.py``.  Without CUDA the default raises."""
     path = _write_dataset("pickle", tmp_path, features(CFG, 4))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="torchrun"):
         tcli.run_pretraining(path, n_model_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tcli.run_pretraining(path, fsdp=True, device="cpu")
+    emb = _write_vectors(tmp_path / "emb.tsv", CFG.kg_vocab_size, 32)
+    state = tcli.run_pretraining(path, fsdp=True, device="cpu", kg_embedding_path=emb,
+                                 batch_size=4, max_steps=1, compute_dtype="float32",
+                                 output_dir=str(tmp_path / "run"))
+    assert state.step == 1 and state.layout is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.run_pretraining(path)

@@ -210,12 +210,18 @@ def test_pretrain_runs_three_steps(params):
 
 
 def test_pretrain_unported_options_raise(params, tmp_path):
-    """The mesh and remat raise; a ``checkpoint_dir`` (ported) saves."""
+    """Remat raises; the mesh runs (a 1 x 1 mesh here, the sharded ones in
+    ``test_torch_parallel.py``), a mesh of several ranks without process
+    groups raises; a ``checkpoint_dir`` saves."""
+    from stonkgs_tpu_torch.parallel.mesh import Mesh, make_mesh
+
     tp = params_from_jax(params, TCFG)
     feats = features(CFG, 4)
     run = tpre.PretrainingConfig(max_steps=1, micro_batch_size=4, compute_dtype="float32")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpre.pretrain(TCFG, tp, feats, run, mesh=object())
+    meshed = tpre.pretrain(TCFG, tp, feats, run, mesh=make_mesh(1, 1))
+    assert meshed.step == 1 and meshed.layout is not None
+    with pytest.raises(ValueError, match="make_mesh"):
+        tpre.pretrain(TCFG, tp, feats, run, mesh=Mesh(2, 1))
     state = tpre.pretrain(TCFG, tp, feats, run, checkpoint_dir=str(tmp_path / "ckpt"))
     assert state.step == 1
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["1"]
@@ -223,6 +229,7 @@ def test_pretrain_unported_options_raise(params, tmp_path):
         tpre.make_train_step(TCFG, topt.AdamW(), remat="full")
     assert tpre.resolve_train_impl() == (False, "flash")
     assert tpre.resolve_train_impl("auto", "flash") == (False, "flash")
+    assert tpre.resolve_train_impl(mesh=make_mesh(1, 1)) == (False, "flash")
 
 
 def test_step_replays_from_seed_and_step(params):
