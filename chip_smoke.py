@@ -212,6 +212,32 @@ Phases, each fatal on failure (exit code 1, no result line):
     (d) ``train_classifier`` on 2x1 (B=8, 2 steps) against one rank; (e)
     ``run_pretraining(n_model_shards=2)`` from a memmap store, saved at 2,
     resumed from it and equal to the uninterrupted run.
+24. the command line, the published-model API and remat, at phase 19's
+    files (BERT-base, KG vocabulary 5,000, a 28,996-line vocabulary)
+    written under a temporary ``STONKGS_TPU_CACHE`` exactly where
+    ``utils/cache.py::ensure`` maps the published URLs, with
+    ``urllib.request.urlretrieve`` patched to fail: (a)
+    ``STonKGsEngine.from_default_pretrained()`` -> ``embed`` of 512 rows
+    (phase 5's launch counts, finite) and ``infer_species`` (probabilities
+    summing to 1 within 1e-5, equal to ``predict_proba`` of
+    ``from_pretrained`` on the same files within ``CLI_INFER_TOL``); (b)
+    ``python3 -m stonkgs_tpu_torch`` as subprocesses: ``--version``,
+    ``embed`` at B=128 (its TSV within ``CLI_INFER_TOL`` of the in-process
+    embed), ``verify-parity --tolerance 1e-3`` (PASS, exit 0) and the same
+    on a copy whose NSP bias is shifted by 1e-2 (FAIL, exit 1),
+    ``preprocess`` then ``pretrain --max_steps 2 --num_hidden_layers 2
+    --remat full`` (finite logged losses, checkpoint 2); (d)
+    ``utils/profiling.trace`` over one embed batch names the serving
+    kernels, and ``StepTimer``'s p50 over 6 batches is within 10% of CUDA
+    events; (c) phase 5's model (dropout 0.1) at B=32, 4 steps of
+    ``make_train_step`` under remat none, full and attention from the same
+    seeds: losses and every trainable leaf bit-equal to none, the
+    recompute's launches (full: the trunk's attention and FFN forwards
+    twice, attention: the attention forward twice), peak memory above the
+    start (full below none) and ms a step; then ProtSTonKGs at phase 11's
+    widths (B=2, 2 steps) under attention against two none runs, within
+    4 of their spreads as phase 23 holds a mesh (its BigBird backward adds
+    with atomics), ``bigbird_mid_fwd`` twice a trunk layer.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -234,6 +260,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -4404,6 +4431,386 @@ def phase_parallel_cards(card: str, n_cards: int = 4, params: Optional[dict] = N
     return ranks[0]["2x2"]["counts"]
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the command line, the published-model API from a filled cache,
+# layer remat and profiling
+# ---------------------------------------------------------------------------
+
+CLI_REMAT_BATCH = TRAIN_BATCH   # phase 5's model at B=32
+CLI_REMAT_STEPS = 4
+CLI_PROT_BATCH = 2
+CLI_PROT_STEPS = 2
+CLI_TIMER_BATCHES = 6
+CLI_TIMER_GAP = 0.10     # StepTimer's p50 against CUDA-event timing of the same batches
+CLI_INFER_TOL = 1e-6     # infer_species against predict_proba; the CLI's embed TSV
+CLI_PARITY_TOL = 1e-3    # verify-parity on the card (fp32, TF32 off) against transformers
+CLI_PARITY_FAULT = 1e-2  # the shift of cls.seq_relationship.bias the limit must reject
+
+
+# a fault on the port's side only: its loader shifts the NSP bias (a
+# shifted bias in the checkpoint itself would reach both sides of
+# verify-parity, which read the same file)
+CLI_FAULT = f"""
+from stonkgs_tpu_torch.utils import hf_loader
+_load = hf_loader.stonkgs_params_from_state_dict
+def _shifted(*a, **kw):
+    p = _load(*a, **kw)
+    p["cls"]["seq_relationship"]["bias"] += {CLI_PARITY_FAULT!r}
+    return p
+hf_loader.stonkgs_params_from_state_dict = _shifted
+import sys
+from stonkgs_tpu_torch.cli import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def _cli(args: list, env: dict, label: str, expect_rc: int = 0, program=None) -> str:
+    """``python3 -m stonkgs_tpu_torch <args>`` (or ``python3 -c program
+    <args>``) from the checkout's root; checks its exit code and returns
+    its standard output."""
+    t0 = time.perf_counter()
+    cmd = ["-m", "stonkgs_tpu_torch"] if program is None else ["-c", program]
+    proc = subprocess.run([sys.executable, *cmd, *args], env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    out = proc.stdout
+    shown = [ln for ln in out.splitlines() if not ln.startswith('{"type"')]
+    log(f"# cli {label}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+        f"output {shown[-4:]!r}")
+    if proc.returncode != expect_rc:
+        log(proc.stderr[-4000:])
+    check(proc.returncode == expect_rc,
+          f"cli {label}: exit code {proc.returncode}, expected {expect_rc}")
+    return out
+
+
+def _cli_files(cfg: STonKGsConfig, cache_dir: str):
+    """Phase 19's files, written where ``utils/cache.py::ensure`` maps the
+    published URLs under ``cache_dir``: a checkpoint with a 3-class
+    classifier at the species record's, the same without it at the hub's
+    ``stonkgs/stonkgs-150k``, the node2vec TSVs and the vocabulary.
+    Returns (rows, their paths)."""
+    from stonkgs_tpu_torch import constants
+    from stonkgs_tpu_torch.api import api
+    from stonkgs_tpu_torch.utils import cache
+
+    rng = np.random.default_rng(24)
+    cfg3 = cfg.replace(num_labels=3)
+    params = stonkgs.init_stonkgs_params(torch.Generator().manual_seed(24), cfg3,
+                                         with_classifier=True)
+    record = f"https://zenodo.org/record/{api.SPECIES_RECORD}/files"
+    species = cache.cache_path(f"{record}/pytorch_model.bin", "species").parent
+    save_pretrained(params, cfg3, str(species))
+    with open(cache.cache_path(f"{record}/training_args.bin", "species"), "wb") as f:
+        f.write(b"\0")           # ensure needs it to exist; nothing reads it
+    hub = cache.cache_path("https://huggingface.co/stonkgs/stonkgs-150k/resolve/main/"
+                           "pytorch_model.bin", "hub/stonkgs--stonkgs-150k").parent
+    save_pretrained({k: v for k, v in params.items() if k != "classifier"}, cfg, str(hub))
+    del params
+    art = make_random_artifacts(README_ENTITIES, dim=cfg.bert.hidden_size,
+                                rw_len=README_RW_LEN, seed=24)
+    art.names = _bel_names(README_ENTITIES)
+    art.name_to_idx = {n: i for i, n in enumerate(art.names)}
+    emb, walks = cache.cache_path(constants.EMBEDDINGS_URL), cache.cache_path(constants.WALKS_URL)
+    save_kg_artifacts(art, emb, walks)
+    vocab = _readme_vocab(cfg.bert.vocab_size, rng)
+    vocab_file = cache.cache_path(constants.VOCAB_URL, "misc")
+    vocab_file.parent.mkdir(parents=True, exist_ok=True)
+    vocab_file.write_text("\n".join(vocab) + "\n")
+    rows = list(zip(*_readme_rows(art.names, vocab, rng)))
+    check(all(str(p).startswith(cache_dir) for p in (species, hub, emb, walks, vocab_file)),
+          "the cache's paths lie outside STONKGS_TPU_CACHE")
+    return rows, {"species": str(species), "hub": str(hub), "emb": str(emb),
+                  "walks": str(walks), "vocab": str(vocab_file)}
+
+
+def _cli_published(rows: list, paths: dict, total: dict):
+    """(a) ``from_default_pretrained`` -> ``embed`` with phase 5's launch
+    counts; ``infer_species`` against ``predict_proba`` on the same files."""
+    from stonkgs_tpu_torch.api import api
+
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=README_ENTITIES)
+    src, tgt, ev = (list(c) for c in zip(*rows))
+    engine = STonKGsEngine.from_default_pretrained(batch_size=BATCH)
+    check(engine.cfg == cfg and engine.device.type == torch.device(DEV).type,
+          f"from_default_pretrained: {engine.cfg} on {engine.device}")
+    feats = engine.preprocess(src, tgt, ev)
+    _reset_counts(SERVING_KERNELS)
+    out = engine.embed(feats)
+    counts = _counts(SERVING_KERNELS)
+    n_batches = math.ceil(len(rows) / BATCH)
+    per_batch = cfg.bert.num_hidden_layers * 2 - 1
+    _check_counts(f"from_default_pretrained embed ({n_batches} batches)", counts,
+                  {n: per_batch * n_batches for n in counts})
+    _add_counts(total, counts)
+    check(out.shape == (len(rows), cfg.bert.hidden_size) and bool(np.isfinite(out).all()),
+          f"from_default_pretrained embed: shape {out.shape} or not finite")
+
+    api.get_species_model.cache_clear()
+    header, *got = list(api.infer_species([list(r) for r in rows]))
+    check(tuple(header) == ("source", "target", "evidence", *api.SPECIES_COLUMNS),
+          f"infer_species header {header}")
+    probs = np.asarray([r[3:] for r in got], np.float64)
+    ref = STonKGsEngine.from_pretrained(paths["species"], paths["emb"], paths["walks"],
+                                        vocab_file=paths["vocab"])
+    want = ref.predict_proba(ref.preprocess(src, tgt, ev))
+    sums = np.abs(probs.sum(1) - 1.0).max()
+    err = float(np.abs(probs - want).max())
+    log(f"# infer_species ({len(rows)} rows, on {api.get_species_model().device}): |sum - 1| "
+        f"at most {sums!r} (limit 1e-5), against predict_proba of from_pretrained on the "
+        f"same files max_abs_err {err!r} (limit {CLI_INFER_TOL})")
+    check(probs.shape == (len(rows), 3) and sums <= 1e-5, "infer_species probabilities")
+    check(err <= CLI_INFER_TOL, "infer_species differs from predict_proba")
+    api.get_species_model.cache_clear()
+    del ref
+    return engine, feats, out
+
+
+def _cli_commands(tmp: str, rows: list, paths: dict, out: np.ndarray, env: dict):
+    """(b) the command line as subprocesses."""
+    version = _cli(["--version"], env, "--version").strip()
+    check(version == "stonkgs-tpu-torch (dev)", f"--version printed {version!r}")
+    rows_tsv = os.path.join(tmp, "rows.tsv")
+    tsv_io.write_table(rows_tsv, {c: [r[i] for r in rows]
+                                  for i, c in enumerate(("source", "target", "evidence"))})
+    kg = ["--kg-embedding-path", paths["emb"], "--kg-walks-path", paths["walks"]]
+    emb_tsv = os.path.join(tmp, "embeddings.tsv")
+    printed = _cli(["embed", "--input", rows_tsv, "--model_path", paths["hub"], *kg,
+                    "--vocab-file", paths["vocab"], "--output", emb_tsv,
+                    "--batch_size", str(BATCH)], env, "embed")
+    check(f"wrote {len(rows)} embeddings to {emb_tsv}" in printed, "embed's printed line")
+    cli_emb = np.asarray([json.loads(c) for c in tsv_io.read_columns(
+        emb_tsv, ["embedding"])["embedding"]], np.float32)
+    err = float(np.abs(cli_emb - out).max())
+    log(f"# cli embed TSV ({cli_emb.shape}) against the in-process embed of the same engine: "
+        f"max_abs_err {err!r} (limit {CLI_INFER_TOL})")
+    check(cli_emb.shape == out.shape and err <= CLI_INFER_TOL, "cli embed differs")
+
+    parity = ["verify-parity", *kg, "--n_rows", "8", "--tolerance", str(CLI_PARITY_TOL)]
+    printed = _cli([*parity, "--model_path", paths["species"]], env, "verify-parity")
+    check(printed.startswith("PASS") and "cls " in printed, "verify-parity did not pass")
+    printed = _cli([*parity, "--model_path", paths["species"]], env,
+                   f"verify-parity, the port's NSP bias shifted by {CLI_PARITY_FAULT}",
+                   expect_rc=1, program=CLI_FAULT)
+    check(printed.startswith("FAIL") and "nsp 1.00e-02" in printed,
+          "verify-parity accepted the shifted NSP bias")
+
+    triples = os.path.join(tmp, "triples.tsv")
+    shutil.copy(rows_tsv, triples)
+    pkl = os.path.join(tmp, "features.pkl")
+    printed = _cli(["preprocess", "--pretraining_path", triples, *kg,
+                    "--vocab-file", paths["vocab"], "--output", pkl], env, "preprocess")
+    check(f"to {pkl}" in printed, "preprocess's printed line")
+    run_dir = os.path.join(tmp, "pretrain")
+    _cli(["pretrain", "--dataset", pkl, "--kg-embedding-path", paths["emb"],
+          "--vocab-file", paths["vocab"], "--max_steps", "2", "--save_steps", "2",
+          "--log_steps", "1", "--num_hidden_layers", "2", "--remat", "full",
+          "--output_dir", run_dir], env, "pretrain --remat full")
+    losses = {r["step"]: r["value"] for r in _metric_records(run_dir) if r["key"] == "loss"}
+    log(f"# cli pretrain --remat full losses {losses!r}; checkpoints "
+        f"{sorted(os.listdir(os.path.join(run_dir, 'checkpoints')))}")
+    check(list(losses) == [1, 2] and all(math.isfinite(v) for v in losses.values()),
+          "cli pretrain losses")
+    check(os.path.isdir(os.path.join(run_dir, "checkpoints", "2")),
+          "cli pretrain wrote no checkpoint")
+
+
+def _remat_run(cfg, params_cpu: dict, feats: dict, steps: int, batch: int, remat, *,
+               loss_fn=None, kernels=TRAINING_KERNELS) -> dict:
+    """``steps`` train steps of ``make_train_step(remat=...)`` from the
+    same parameters and seeds: the losses, the state, the launch counts,
+    the peak memory above the start (GB) and the median ms of the steps
+    after the first."""
+    params = tree_map(lambda t: t.to(DEV, copy=True), params_cpu)  # the step updates in place
+    tx = AdamW(learning_rate=1e-4, total_steps=steps)
+    state = pretraining.init_train_state(params, tx, seed=0)
+    step = pretraining.make_train_step(cfg, tx, loss_fn=loss_fn, compute_dtype=BF16,
+                                       remat=remat)
+    batches = [{k: host_to_device(v[i * batch:(i + 1) * batch], DEV) for k, v in feats.items()}
+               for i in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, seconds = [], []
+    _reset_counts(kernels)
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return {"state": state, "losses": losses, "counts": _counts(kernels),
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "step_ms": statistics.median(seconds[1:]) * 1e3 if steps > 1 else None}
+
+
+def _cli_remat(card: str, params: Optional[dict], pparams: Optional[dict], total: dict) -> dict:
+    """(c) remat none / full / attention: STonKGs bit-equal, ProtSTonKGs
+    within the spread of two none runs; peaks, step times and the
+    recompute's launches."""
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000)
+    check(cfg.bert.hidden_dropout_prob == 0.1 and cfg.bert.attention_probs_dropout_prob == 0.1,
+          "phase 5's model is meant to train with dropout 0.1")
+    if params is None:
+        params = _stonkgs_params(cfg)
+    feats = _pretraining_features(cfg, CLI_REMAT_BATCH * CLI_REMAT_STEPS, seed=24)
+    L = cfg.bert.num_hidden_layers
+    extra = {"none": {}, "full": {"flash_attention_train_fwd": L, "ffn_train_fwd": L},
+             "attention": {"flash_attention_train_fwd": L}}
+    runs = {}
+    for mode in ("none", "full", "attention"):
+        runs[mode] = run = _remat_run(cfg, params, feats, CLI_REMAT_STEPS, CLI_REMAT_BATCH,
+                                      mode)
+        per_step = _training_per_step(L)
+        for name, c in extra[mode].items():
+            per_step[name] += c
+        _check_counts(f"remat {mode} ({CLI_REMAT_STEPS} steps, B={CLI_REMAT_BATCH})",
+                      run["counts"], {n: c * CLI_REMAT_STEPS for n, c in per_step.items()})
+        _add_counts(total, run["counts"])
+        _check_losses(f"remat {mode}", run["losses"], CLI_REMAT_STEPS)
+        log(f"# remat {mode}: peak above the start {run['peak_gb']!r} GB, step "
+            f"{run['step_ms']!r} ms (median of steps 2-{CLI_REMAT_STEPS}) ({card})")
+        if mode != "none":
+            ref = tree_flatten_with_path(split_frozen(runs["none"]["state"].params)[0])
+            got = tree_flatten_with_path(split_frozen(run["state"].params)[0])
+            unequal = [k for k in ref if not torch.equal(ref[k], got[k])]
+            log(f"# remat {mode} vs none: losses equal {run['losses'] == runs['none']['losses']}, "
+                f"{len(ref) - len(unequal)} of {len(ref)} trainable leaves equal bit for bit")
+            check(run["losses"] == runs["none"]["losses"] and not unequal,
+                  f"remat {mode} differs from none: {unequal[:5]}")
+            del run["state"]
+        torch.cuda.empty_cache()
+    del runs["none"]["state"]
+    check(runs["full"]["peak_gb"] < runs["none"]["peak_gb"],
+          "remat full does not lower the peak memory")
+    log(f"# remat at B={CLI_REMAT_BATCH}: peak GB none {runs['none']['peak_gb']!r}, full "
+        f"{runs['full']['peak_gb']!r}, attention {runs['attention']['peak_gb']!r}; step ms none "
+        f"{runs['none']['step_ms']!r}, full {runs['full']['step_ms']!r}, attention "
+        f"{runs['attention']['step_ms']!r} ({card})")
+
+    pcfg = _prot_cfg()
+    if pparams is None:
+        pparams = _prot_params(pcfg, seed=1)
+    pfeats = _prot_features(pcfg, CLI_PROT_BATCH * CLI_PROT_STEPS, seed=24, labels=True)
+    loss_fn = functools.partial(protstonkgs.pretraining_loss, rand_attn=_train_plan(pcfg))
+    init = tree_flatten_with_path(split_frozen(pparams)[0])
+    prot = {}
+    for label, mode in (("none", "none"), ("none again", "none"), ("attention", "attention")):
+        run = _remat_run(pcfg, pparams, pfeats, CLI_PROT_STEPS, CLI_PROT_BATCH, mode,
+                         loss_fn=loss_fn, kernels=PROT_ALL_KERNELS)
+        per_step = _prot_training_per_step(pcfg)
+        if mode == "attention":
+            per_step["bigbird_mid_fwd"] += pcfg.trunk.num_hidden_layers
+        _check_counts(f"ProtSTonKGs remat {label} ({CLI_PROT_STEPS} steps, B={CLI_PROT_BATCH})",
+                      run["counts"], {n: c * CLI_PROT_STEPS for n, c in per_step.items()})
+        _add_counts(total, run["counts"])
+        _check_losses(f"ProtSTonKGs remat {label}", run["losses"], CLI_PROT_STEPS)
+        train, nu = _whole(run["state"])
+        prot[label] = {"losses": run["losses"], "nu_sum": _nu_sum(nu),
+                       "train": {k: t.cpu() for k, t in train.items()}}
+        log(f"# ProtSTonKGs remat {label}: peak above the start {run['peak_gb']!r} GB, step "
+            f"{run['step_ms']!r} ms ({card})")
+        del run, train, nu
+        torch.cuda.empty_cache()
+    ref = prot["none"]
+    unused = PROT_UNUSED_LEAVES
+    spread = _par_gap("ProtSTonKGs none vs none", prot["none again"]["losses"],
+                      prot["none again"]["train"], prot["none again"]["nu_sum"], ref, init,
+                      unused)
+    gap = _par_gap("ProtSTonKGs attention vs none", prot["attention"]["losses"],
+                   prot["attention"]["train"], prot["attention"]["nu_sum"], ref, init, unused)
+    _par_verdict("ProtSTonKGs remat attention", gap, spread)
+    return {m: {"peak_gb": r["peak_gb"], "step_ms": r["step_ms"]} for m, r in runs.items()}
+
+
+def _cli_profiling(tmp: str, engine, feats: dict, card: str) -> None:
+    """(d) ``utils/profiling.trace`` over one embed batch names the
+    serving kernels; ``StepTimer`` against CUDA events over 6 batches."""
+    from stonkgs_tpu_torch.utils import profiling
+
+    batch = {k: v[:BATCH] for k, v in feats.items()}
+    engine.embed(batch)
+    trace_dir = os.path.join(tmp, "trace")
+    with profiling.trace(trace_dir) as prof:
+        with profiling.annotate("embed batch"):
+            engine.embed(batch)
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    spans = [e for e in events if e.get("name") == "embed batch"]
+    device_us = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel")
+    log(f"# profiling.trace: {len(kernels)} kernel names, {device_us / 1e3!r} ms of kernel "
+        f"time, {len(spans)} 'embed batch' spans; {len(prof.key_averages())} op rows")
+    for want in ("gemm_sm90_kernel", "add_layer_norm_kernel", "attn_fwd_sm90_kernel"):
+        check(any(want in k for k in kernels), f"the trace names no {want}")
+    check(bool(spans), "the trace holds no annotated span")
+
+    timer = profiling.StepTimer()
+    events_ms = []
+    for i in range(CLI_TIMER_BATCHES):
+        chunk = {k: v[i * BATCH:(i + 1) * BATCH] if (i + 1) * BATCH <= len(v) else v[:BATCH]
+                 for k, v in feats.items()}
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        timer.start()
+        e0.record()
+        engine.embed(chunk)
+        e1.record()
+        timer.stop()
+        events_ms.append(e0.elapsed_time(e1))
+    p50, ev = timer.p50 * 1e3, statistics.median(events_ms)
+    log(f"# StepTimer p50 {p50!r} ms against CUDA events' median {ev!r} ms over "
+        f"{CLI_TIMER_BATCHES} embed batches of {BATCH} ({card})")
+    check(abs(p50 - ev) <= CLI_TIMER_GAP * ev, "StepTimer disagrees with CUDA events")
+
+
+def phase_cli(card: str, params: Optional[dict] = None,
+              pparams: Optional[dict] = None) -> dict:
+    """Phase 24: the command line, the published-model API from a filled
+    cache with no network, layer remat and profiling.  ``params`` and
+    ``pparams`` are phase 5's and phase 11's CPU parameters (made here
+    when not given).  Returns the phase's launch counts."""
+    import urllib.request
+
+    from stonkgs_tpu_torch.utils import cache
+
+    t_phase = time.perf_counter()
+    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=README_ENTITIES)
+    total: dict = {}
+    reached = []
+
+    def no_network(url, *a, **kw):
+        reached.append(url)
+        raise OSError(f"phase 24 reaches no network ({url})")
+
+    saved = (cache.CACHE_DIR, os.environ.get("STONKGS_TPU_CACHE"), urllib.request.urlretrieve)
+    with tempfile.TemporaryDirectory(prefix="stonkgs_cli_") as tmp:
+        cache_dir = os.path.join(tmp, "cache")
+        cache.CACHE_DIR = Path(cache_dir)
+        os.environ["STONKGS_TPU_CACHE"] = cache_dir
+        urllib.request.urlretrieve = no_network
+        try:
+            t0 = time.perf_counter()
+            rows, paths = _cli_files(cfg, cache_dir)
+            log(f"# cli files written in {time.perf_counter() - t0:.1f} s under the cache "
+                f"({_dir_gb(cache_dir)!r} GB)")
+            engine, feats, out = _cli_published(rows, paths, total)
+            check(not reached, f"the published-model API reached for {reached}")
+            _cli_commands(tmp, rows, paths, out, dict(os.environ))
+            _cli_profiling(tmp, engine, feats, card)
+            del engine
+            torch.cuda.empty_cache()
+            _cli_remat(card, params, pparams, total)
+        finally:
+            cache.CACHE_DIR, env_cache, urllib.request.urlretrieve = saved
+            if env_cache is None:
+                os.environ.pop("STONKGS_TPU_CACHE", None)
+            else:
+                os.environ["STONKGS_TPU_CACHE"] = env_cache
+    check(not reached, f"phase 24 reached for the network: {reached}")
+    log(f"# cli phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -4457,6 +4864,8 @@ def main() -> int:
         for name, c in phase_kg_embeddings(card).items():
             counts[name] += c
         for name, c in phase_parallel(card, params, pparams).items():
+            counts[name] += c
+        for name, c in phase_cli(card, params, pparams).items():
             counts[name] += c
         del params, pparams
         # the fine-tuning shapes' worst error goes into the kernel line

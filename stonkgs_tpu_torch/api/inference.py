@@ -1,11 +1,14 @@
 """Inference engine of the port: embed / classify batches on the card.
 
 The port of ``STonKGsEngine`` from the JAX package's
-``stonkgs_tpu/api/inference.py``: built from a config plus parameters, or
-by :meth:`STonKGsEngine.from_pretrained` from the files a user of the
+``stonkgs_tpu/api/inference.py``: built from a config plus parameters, by
+:meth:`STonKGsEngine.from_pretrained` from the files a user of the
 published models has (an HF checkpoint directory, the node2vec TSVs and
-the BioBERT vocabulary), then :meth:`~STonKGsEngine.preprocess` turns
-(source, target, evidence) rows into features and
+the BioBERT vocabulary), or by
+:meth:`STonKGsEngine.from_default_pretrained` from the published ones in
+the cache (:mod:`stonkgs_tpu_torch.utils.cache`); then
+:meth:`~STonKGsEngine.preprocess` turns (source, target, evidence) rows
+into features and
 :meth:`~STonKGsEngine.embed` serves them (:meth:`~STonKGsEngine.embed_stream`
 does both, chunk by chunk, overlapping the host's preprocessing with the
 card's forwards).
@@ -144,6 +147,31 @@ class STonKGsEngine:
         engine.params["kg_backbone"] = stonkgs.build_kg_table(
             engine.params["lm_backbone"], cfg.bert, artifacts.vectors)
         return engine
+
+    @classmethod
+    def from_default_pretrained(cls, model_name: Optional[str] = None,
+                                **kw) -> "STonKGsEngine":
+        """A published HF-hub checkpoint (``stonkgs/stonkgs-150k`` unless
+        ``model_name`` names another) with the published node2vec TSVs
+        and BioBERT vocabulary, through the cache: the hub's files under
+        ``hub/<org>--<name>``, each fetched only when missing, then
+        :meth:`from_pretrained` (``kw`` are its engine fields)."""
+        from stonkgs_tpu_torch.api.api import ensure_embeddings, ensure_vocab, ensure_walks
+        from stonkgs_tpu_torch.constants import DEFAULT_PRETRAINED_MODEL
+        from stonkgs_tpu_torch.utils.cache import ensure
+
+        name = model_name or DEFAULT_PRETRAINED_MODEL
+        sub = "hub/" + name.replace("/", "--")
+        base = f"https://huggingface.co/{name}/resolve/main"
+        ensure(f"{base}/config.json", sub)
+        ckpt = ensure(f"{base}/pytorch_model.bin", sub)
+        return cls.from_pretrained(
+            str(ckpt.parent),
+            kg_embedding_path=str(ensure_embeddings()),
+            kg_random_walk_path=str(ensure_walks()),
+            vocab_file=str(ensure_vocab()),
+            **kw,
+        )
 
     def save_pretrained(self, output_dir: str) -> str:
         """Export to an HF-format checkpoint directory (fp32; the KG table,

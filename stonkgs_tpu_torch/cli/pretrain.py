@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import logging
 import os
 from typing import Dict, Optional
@@ -229,7 +228,7 @@ def run_pretraining(
             gradient_accumulation_steps=gradient_accumulation_steps,
             save_steps=save_steps, save_total_limit=save_total_limit,
             log_steps=log_steps, output_dir=output_dir, compute_dtype=compute_dtype,
-            remat=remat not in (False, "none"), seed=seed, device=device, mesh=mesh, fsdp=fsdp)
+            remat=remat, seed=seed, device=device, mesh=mesh, fsdp=fsdp)
     if variant not in ("stonkgs", "transe"):
         raise ValueError(f"unknown variant {variant!r}: 'stonkgs', 'transe' or 'prot'")
 
@@ -341,7 +340,7 @@ def _run_prot_pretraining(
     log_steps=100,
     output_dir="protstonkgs-pretraining",
     compute_dtype="bfloat16",
-    remat=True,
+    remat="auto",
     seed=0,
     device="cuda",
     mesh=None,
@@ -349,7 +348,9 @@ def _run_prot_pretraining(
 ):
     """ProtSTonKGs pre-training (tri-modality features; the layout from the
     label columns: text spans the masked_lm labels, KG the ent labels,
-    protein the prot labels)."""
+    protein the prot labels).  ``remat`` keeps its mode here ("attention"
+    checkpoints the BigBird attention sub-blocks), where the JAX package
+    turns any mode but none into full-layer remat."""
     kg_vectors = _read_kg_vectors(kg_embedding_path) if kg_embedding_path else None
     hidden = int(kg_vectors.shape[1]) if kg_vectors is not None else 768
     cfg = prot_pretraining_config(features, hidden)
@@ -373,6 +374,6 @@ def _run_prot_pretraining(
             cfg, params, features, run_cfg, mesh=mesh,
             checkpoint_dir=os.path.join(output_dir, "checkpoints"),
             log_fn=(lambda step, m: log.log_metrics(m, step)) if log is not None else None,
-            loss_fn=functools.partial(protstonkgs.pretraining_loss, remat=remat),
+            loss_fn=protstonkgs.pretraining_loss,
         )
     return state

@@ -23,6 +23,7 @@ names are never such strings, and on them both readers agree.
 from __future__ import annotations
 
 import dataclasses
+import re
 from pathlib import Path
 from typing import Dict, List, Tuple, Union
 
@@ -55,6 +56,25 @@ def parse_vectors(rests: List[str], sep: str = "\t") -> np.ndarray:
         return np.zeros((0, 0), np.float32)
     return np.loadtxt(rests, delimiter=sep, dtype=np.float64, comments=None,
                       ndmin=2).astype(np.float32)
+
+
+def prepare_df(embedding_path: PathLike, sep: str = "\t") -> Dict[str, np.ndarray]:
+    """A headerless TSV -> ``{name: row}``, the reference's ``prepare_df``
+    (``kg_baseline_model.py:270-280``), kept for its API: names verbatim
+    (see the module's note), each row int64 where every field of the
+    table is an integer, float64 where every field is a number, else its
+    strings, as pandas types such a table.  The array loaders below are
+    the ones the port uses."""
+    names, rests = read_tsv(embedding_path, sep)
+    fields = [r.split(sep) for r in rests]
+    if all(re.fullmatch(r"[+-]?\d+", f) for row in fields for f in row):
+        rows = [np.asarray(row, np.int64) for row in fields]
+    else:
+        try:
+            rows = [np.asarray(row, np.float64) for row in fields]
+        except ValueError:
+            rows = [np.asarray(row, object) for row in fields]
+    return dict(zip(names, rows))
 
 
 @dataclasses.dataclass

@@ -23,19 +23,30 @@ its FFN leaves hold no ``kernel``.
 Training (``deterministic=False`` with a :class:`DropoutRng`): attention
 runs the training kernel pair with its in-kernel hash dropout, the FFN
 the training FFN kernel pair, and the hidden-state dropouts and
-LayerNorms sit between them in the JAX order.  Layer remat is not
-ported: the attention and FFN backward kernels recompute their
-intermediates, which is what the JAX package's ``resolve_train_impl``
-chooses on a TPU; ``remat`` raises ``NotImplementedError``.
+LayerNorms sit between them in the JAX order.
+
+Layer remat (``remat``, the JAX package's modes): "full" checkpoints each
+trunk layer and "attention" only its attention sub-block (Q/K/V, the
+attention, the output projection) with ``torch.utils.checkpoint``, so
+the backward recomputes them from the layer's input; "unroll", a
+scan-versus-loop distinction in JAX, is "none" here, where the loop is
+unrolled already.  The recompute draws the same dropout as the forward:
+a region's attention seed is drawn before it and passed in, and the
+device generator of the hidden-state masks is set back to its state at
+the region's start for the recompute (and restored after it), so a
+remat step equals a step without remat and leaves the generators where
+that step leaves them.  Only regions that gradients flow through are
+checkpointed; the frozen backbones run under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from stonkgs_tpu_torch.config import BertConfig
 from stonkgs_tpu_torch.ops.attention import dot_product_attention, plain_attention
@@ -66,12 +77,50 @@ class DropoutRng:
                              generator=self.host)
 
 
-def check_no_remat(remat) -> None:
-    """Raise for a request of layer remat, which the port does not have."""
-    if remat not in (False, None, "none"):
-        raise NotImplementedError(
-            f"remat={remat!r}: layer remat is not ported; the attention and "
-            "FFN backward kernels recompute their intermediates instead")
+REMAT_MODES = ("none", "full", "attention", "unroll")
+
+
+def remat_mode(remat) -> str:
+    """The JAX package's ``remat`` values as a mode: False, None, "none"
+    and "unroll" are "none" (the port's layer loop is unrolled already),
+    True and "full" are "full", "attention" is "attention"; anything else
+    raises ``ValueError``."""
+    if remat in (False, None, "none", "unroll"):
+        return "none"
+    if remat is True or remat == "full":
+        return "full"
+    if remat == "attention":
+        return "attention"
+    raise ValueError(f"remat={remat!r}: one of {REMAT_MODES}, True or False")
+
+
+def checkpointed(fn: Callable, x: torch.Tensor, rng: Optional[DropoutRng]) -> torch.Tensor:
+    """``fn(x)`` under ``torch.utils.checkpoint``, its intermediates
+    recomputed in the backward.  ``fn`` draws its hidden-state dropout
+    masks from ``rng.device``; the recompute starts that generator from
+    its state at the forward's start and gives it back as it found it, so
+    the masks match the forward's and no later draw shifts.  Attention
+    seeds (``rng.host``) must be drawn by the caller and bound into
+    ``fn``.  The region uses no default generator, so its state is not
+    saved."""
+    if rng is None:
+        return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+    start = rng.device.get_state()
+    recompute = False
+
+    def run(x):
+        nonlocal recompute
+        if not recompute:
+            recompute = True
+            return fn(x)
+        now = rng.device.get_state()
+        rng.device.set_state(start)
+        try:
+            return fn(x)
+        finally:
+            rng.device.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
@@ -157,20 +206,24 @@ def init_layer_params(gen: torch.Generator, cfg: BertConfig) -> dict:
     }
 
 
+def init_embedding_params(gen: torch.Generator, cfg: BertConfig) -> dict:
+    """The word, position and token-type tables and their LayerNorm."""
+    h, std = cfg.hidden_size, cfg.initializer_range
+    return {
+        "word_embeddings": _trunc_normal(gen, (cfg.vocab_size, h), std),
+        "position_embeddings": _trunc_normal(gen, (cfg.max_position_embeddings, h), std),
+        "token_type_embeddings": _trunc_normal(gen, (cfg.type_vocab_size, h), std),
+        "layer_norm": _init_layer_norm(h),
+    }
+
+
 def init_bert_params(gen: torch.Generator, cfg: BertConfig,
                      with_pooler: bool = True) -> dict:
     """A full BertModel parameter tree on the CPU, fp32, drawn from ``gen``
     (a CPU ``torch.Generator``); ``encoder`` is a list of layer dicts."""
     h, std = cfg.hidden_size, cfg.initializer_range
     params = {
-        "embeddings": {
-            "word_embeddings": _trunc_normal(gen, (cfg.vocab_size, h), std),
-            "position_embeddings": _trunc_normal(
-                gen, (cfg.max_position_embeddings, h), std),
-            "token_type_embeddings": _trunc_normal(
-                gen, (cfg.type_vocab_size, h), std),
-            "layer_norm": _init_layer_norm(h),
-        },
+        "embeddings": init_embedding_params(gen, cfg),
         "encoder": [init_layer_params(gen, cfg)
                     for _ in range(cfg.num_hidden_layers)],
     }
@@ -235,6 +288,7 @@ def encoder_layer(
     *,
     deterministic: bool = True,
     rng: Optional[DropoutRng] = None,
+    remat: str = "none",
 ) -> torch.Tensor:
     """One post-LN BERT layer.
 
@@ -243,19 +297,48 @@ def encoder_layer(
     316-337``): attention output -> dropout -> LN(x + attn) -> fused FFN
     -> dropout -> LN(x + ff).  A layer whose FFN leaves are quantized
     (no ``kernel``) runs that unfused order with two :func:`dense` calls
-    around the activation, in inference too, as the JAX package."""
+    around the activation, in inference too, as the JAX package.
+
+    ``remat`` ("none", "full" or "attention", see :func:`remat_mode`)
+    checkpoints the layer or its attention sub-block where gradients
+    flow."""
+    seed = None if deterministic or rng is None else rng.attention_seed()
+    return remat_layer(
+        lambda x: attention_block(x, lp["attention"], cfg, attn_bias, deterministic, seed),
+        x, lp, cfg, deterministic, rng, remat)
+
+
+def remat_layer(attention: Callable, x: torch.Tensor, lp: dict, cfg, deterministic: bool,
+                rng: Optional[DropoutRng], remat: str) -> torch.Tensor:
+    """``attention(x)`` (which draws no mask; its seed is bound in) and the
+    layer's :func:`ffn_half`, the whole layer under :func:`checkpointed`
+    for ``remat="full"`` and the attention alone for "attention", where
+    gradients flow (no checkpoint under ``torch.no_grad()``)."""
+    if not torch.is_grad_enabled():
+        remat = "none"
+
+    def layer(x):
+        attn_out = checkpointed(attention, x, None) if remat == "attention" else attention(x)
+        return ffn_half(x, attn_out, lp, cfg, deterministic, rng)
+
+    return checkpointed(layer, x, rng) if remat == "full" else layer(x)
+
+
+def attention_block(x: torch.Tensor, ap: dict, cfg: BertConfig,
+                    attn_bias: Optional[torch.Tensor], deterministic: bool,
+                    seed: Optional[torch.Tensor]) -> torch.Tensor:
+    """Q/K/V projections, attention with the two-word dropout ``seed``
+    (None without dropout), and the output projection: the sub-block
+    that ``remat="attention"`` checkpoints."""
     B, S, H = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
-    ap = lp["attention"]
     q = dense(x, ap["query"]).reshape(B, S, nh, hd)
     k = dense(x, ap["key"]).reshape(B, S, nh, hd)
     v = dense(x, ap["value"]).reshape(B, S, nh, hd)
-    seed = None if deterministic or rng is None else rng.attention_seed()
     ctx = dot_product_attention(q, k, v, attn_bias, deterministic=deterministic,
                                 dropout_rate=cfg.attention_probs_dropout_prob,
                                 seed=seed)
-    attn_out = dense(ctx.reshape(B, S, H), ap["output"])
-    return ffn_half(x, attn_out, lp, cfg, deterministic, rng)
+    return dense(ctx.reshape(B, S, H), ap["output"])
 
 
 def ffn_half(x: torch.Tensor, attn_out: torch.Tensor, lp: dict, cfg, deterministic: bool,
@@ -316,12 +399,18 @@ def encode(
     *,
     deterministic: bool = True,
     rng: Optional[DropoutRng] = None,
+    remat=False,
     cls_only: bool = False,
 ) -> torch.Tensor:
     """Run the encoder layers in order.
 
+    ``remat``: False / "none" / "unroll" (save everything), True / "full"
+    (checkpoint whole layers) or "attention" (checkpoint only each
+    layer's attention sub-block); see :func:`remat_mode`.
+
     ``cls_only``: compute the LAST layer only for the [CLS] position
     (pooled-output paths, inference only) and return (B, 1, H)."""
+    mode = remat_mode(remat)
     if cls_only and not deterministic:
         raise ValueError("cls_only is an inference-path optimization")
     attn_bias = attention_bias_from_mask(attention_mask, torch.float32)
@@ -329,7 +418,8 @@ def encode(
     body = layers[:-1] if cls_only else layers
     x = hidden
     for lp in body:
-        x = encoder_layer(x, lp, cfg, attn_bias, deterministic=deterministic, rng=rng)
+        x = encoder_layer(x, lp, cfg, attn_bias, deterministic=deterministic, rng=rng,
+                          remat=mode)
     if cls_only:
         x = encoder_layer_cls(x, layers[-1], cfg, attn_bias)
     return x
@@ -360,14 +450,14 @@ def bert_model(
 
     ``cls_only`` restricts the last encoder layer to the [CLS] position;
     the returned sequence output is then (B, 1, H).  Training passes
-    ``deterministic=False`` and the step's :class:`DropoutRng`."""
-    check_no_remat(remat)
+    ``deterministic=False`` and the step's :class:`DropoutRng`; ``remat``
+    goes to :func:`encode`."""
     hidden = embed(
         params, cfg, input_ids=input_ids, inputs_embeds=inputs_embeds,
         token_type_ids=token_type_ids, position_ids=position_ids,
         deterministic=deterministic, rng=rng, compute_dtype=compute_dtype,
     )
-    seq = encode(params, cfg, hidden, attention_mask,
-                 deterministic=deterministic, rng=rng, cls_only=cls_only)
+    seq = encode(params, cfg, hidden, attention_mask, deterministic=deterministic, rng=rng,
+                 remat=remat, cls_only=cls_only)
     pooled = pool(params, seq) if (with_pooler and "pooler" in params) else None
     return seq, pooled

@@ -20,7 +20,10 @@ layer with quantized FFN leaves runs them unfused through the int8 dense
 (``models/bert.py::ffn_half``).  The encoder is a list of layer dicts;
 the per-layer random plan (see
 :func:`stonkgs_tpu_torch.ops.bigbird_sparse.build_rand_attn`) is indexed
-by the loop.  Layer remat raises ``NotImplementedError``.
+by the loop.  Layer remat as in ``models/bert.py``: "full" checkpoints
+each layer, "attention" its attention sub-block (the JAX package's
+``bigbird.py:221-224``, ``:308-312``), with the same dropout in the
+recompute as in the forward.
 """
 
 from __future__ import annotations
@@ -40,11 +43,11 @@ from stonkgs_tpu_torch.models.bert import (
     _trunc_normal,
     activation,
     attention_bias_from_mask,
-    check_no_remat,
     dense,
     dropout,
-    ffn_half,
     layer_norm,
+    remat_layer,
+    remat_mode,
 )
 from stonkgs_tpu_torch.ops.attention import dot_product_attention, plain_attention
 from stonkgs_tpu_torch.ops.bigbird_sparse import (
@@ -145,8 +148,9 @@ def _default_plan(seq_len: int, cfg: BigBirdConfig, training: bool) -> np.ndarra
     return plan
 
 
-def _attention(x, ap, cfg, attn_type, mask_f, attn_bias, plan, deterministic, rng):
-    """The attention sub-block up to its output projection."""
+def _attention(x, ap, cfg, attn_type, mask_f, attn_bias, plan, deterministic, seed):
+    """The attention sub-block up to its output projection; ``seed`` is
+    the dense attention's two-word dropout seed (None without dropout)."""
     B, S, H = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     q = dense(x, ap["query"]).reshape(B, S, nh, hd)
@@ -156,19 +160,23 @@ def _attention(x, ap, cfg, attn_type, mask_f, attn_bias, plan, deterministic, rn
         ctx = block_sparse_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                      plan, mask_f, cfg.block_size).transpose(1, 2)
     else:
-        seed = None if deterministic or rng is None else rng.attention_seed()
         ctx = dot_product_attention(q, k, v, attn_bias, deterministic=deterministic,
                                     dropout_rate=cfg.attention_probs_dropout_prob, seed=seed)
     return dense(ctx.reshape(B, S, H), ap["output"])
 
 
-def _layer(x, lp, cfg, attn_type, mask_f, attn_bias, plan, deterministic, rng):
+def _layer(x, lp, cfg, attn_type, mask_f, attn_bias, plan, deterministic, rng, remat):
     """One post-LN BigBird layer (``stonkgs_tpu/models/bigbird.py:178-268``);
     its post-attention half is BERT's (fused, or unfused for quantized
-    FFN leaves)."""
-    attn_out = _attention(x, lp["attention"], cfg, attn_type, mask_f, attn_bias, plan,
-                          deterministic, rng)
-    return ffn_half(x, attn_out, lp, cfg, deterministic, rng)
+    FFN leaves).  ``remat`` checkpoints the layer ("full") or its
+    attention sub-block ("attention") where gradients flow; block-sparse
+    attention has no dropout and draws no seed."""
+    dense_dropout = not (deterministic or rng is None or attn_type == "block_sparse")
+    seed = rng.attention_seed() if dense_dropout else None
+    return remat_layer(
+        lambda x: _attention(x, lp["attention"], cfg, attn_type, mask_f, attn_bias, plan,
+                             deterministic, seed),
+        x, lp, cfg, deterministic, rng, remat)
 
 
 def _layer_cls(x, lp, cfg, attn_type, mask_f, attn_bias):
@@ -215,8 +223,9 @@ def bigbird_model(
     Without ``rand_attn`` the block-sparse layers use HF's plan for the
     mode: all zeros in inference, the seeded training plan otherwise.
     ``cls_only`` (inference only) computes the last layer for the [CLS]
-    query alone and returns a (B, 1, H) sequence output."""
-    check_no_remat(remat)
+    query alone and returns a (B, 1, H) sequence output.  ``remat`` is
+    one of :func:`~stonkgs_tpu_torch.models.bert.remat_mode`'s values."""
+    mode = remat_mode(remat)
     if cls_only and not deterministic:
         raise ValueError("cls_only is an inference-path optimization")
     hidden = embed(params, cfg, input_ids=input_ids, inputs_embeds=inputs_embeds,
@@ -248,7 +257,8 @@ def bigbird_model(
     body = layers[:-1] if cls_only else layers
     x = hidden
     for i, lp in enumerate(body):
-        x = _layer(x, lp, cfg, attn_type, mask_f, attn_bias, plan[i], deterministic, rng)
+        x = _layer(x, lp, cfg, attn_type, mask_f, attn_bias, plan[i], deterministic, rng,
+                   mode)
     if cls_only:
         x = _layer_cls(x, layers[-1], cfg, attn_type, mask_f, attn_bias)
     pooled = None

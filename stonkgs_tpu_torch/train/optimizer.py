@@ -49,6 +49,32 @@ def linear_schedule(lr: float, total_steps: int,
     return schedule
 
 
+def trainable_mask(params, frozen_prefixes: Sequence[str] = FROZEN_PREFIXES):
+    """The tree of ``params`` with each leaf labelled "train" or "frozen"
+    by its top-level key (the JAX package's ``trainable_mask``)."""
+    return {k: tree_map(lambda _: "frozen" if k in frozen_prefixes else "train", v)
+            for k, v in params.items()}
+
+
+def make_optimizer(params=None, *, learning_rate: float = 1e-4, total_steps: int = 10_000,
+                   warmup_steps: int = 0, weight_decay: float = 0.0, b1: float = 0.9,
+                   b2: float = 0.999, eps: float = 1e-8,
+                   max_grad_norm: Optional[float] = 1.0,
+                   frozen_prefixes: Sequence[str] = FROZEN_PREFIXES,
+                   fused: bool = False) -> "AdamW":
+    """The JAX package's ``make_optimizer``: an :class:`AdamW` with these
+    settings.  ``params`` and ``frozen_prefixes`` are accepted for its
+    signature (the train step splits the frozen subtree off itself), and
+    ``fused`` too: the port's update is always one pass of ``foreach``
+    kernels over the leaves."""
+    del params, frozen_prefixes, fused
+    tx = AdamW(learning_rate=learning_rate, total_steps=total_steps,
+               warmup_steps=warmup_steps, weight_decay=weight_decay,
+               max_grad_norm=max_grad_norm)
+    tx.b1, tx.b2, tx.eps = b1, b2, eps
+    return tx
+
+
 def split_frozen(params: dict, frozen_prefixes: Sequence[str] = FROZEN_PREFIXES):
     """Split a parameter dict into (trainable, frozen) top-level subtrees."""
     train = {k: v for k, v in params.items() if k not in frozen_prefixes}

@@ -41,7 +41,7 @@ import torch
 
 from stonkgs_tpu_torch.config import ProtSTonKGsConfig, STonKGsConfig
 from stonkgs_tpu_torch.models import stonkgs
-from stonkgs_tpu_torch.models.bert import DropoutRng, check_no_remat
+from stonkgs_tpu_torch.models.bert import DropoutRng, remat_mode
 from stonkgs_tpu_torch.parallel.mesh import (
     Mesh,
     ParamLayout,
@@ -65,6 +65,12 @@ class TrainState:
     seed: int
     layout: Optional[ParamLayout] = None
 
+    def tree(self) -> dict:
+        """The state as a dict (the JAX package's ``TrainState.tree``, with
+        the run's seed where it keeps a key)."""
+        return {"step": self.step, "params": self.params,
+                "opt_state": self.opt_state, "seed": self.seed}
+
 
 def init_train_state(params: dict, tx: AdamW, seed: int = 0,
                      layout: Optional[ParamLayout] = None) -> TrainState:
@@ -75,18 +81,28 @@ def init_train_state(params: dict, tx: AdamW, seed: int = 0,
 
 
 def resolve_train_impl(remat="auto", attention_impl="auto", mesh=None):
-    """The training configuration of the port: no layer remat, and the
-    training kernels for attention and the FFN (``(False, "flash")``), the
-    JAX package's choice on a TPU.  Remat is not ported.  A ``mesh``
-    changes nothing here: every rank runs the same kernels on its rows
-    (the JAX package wraps them in ``shard_map``)."""
-    if remat in ("auto", True):
+    """The training configuration: ``(remat, "flash")``, remat False or
+    the mode asked for ("full" or "attention"; "none" and "unroll" are
+    False), attention and the FFN always on the training kernels.
+
+    "auto" (and None or True, as in the JAX package) resolves to no remat,
+    the JAX package's choice where its flash kernel trains
+    (``stonkgs_tpu/train/pretraining.py:96-104``): the port always trains
+    through its flash attention and FFN kernels, whose backward kernels
+    recompute the S^2 and FFN intermediates themselves, so a layer keeps
+    only its (B, S, H)-sized activations: the full-width step at B=32
+    peaked 11.4 GB above its start on an H100 80GB (``chip_smoke.py``
+    phase 23, one rank).  Remat would only add recompute.  ``attention_impl`` "xla", "flash"
+    and "auto" all take the kernels.  A ``mesh`` changes nothing here:
+    every rank runs the same kernels on its rows (the JAX package wraps
+    them in ``shard_map``)."""
+    if remat in ("auto", None, True):
         remat = False
-    check_no_remat(remat)
-    if attention_impl not in (None, "auto", "flash"):
-        raise ValueError(f"attention_impl={attention_impl!r}: the port trains "
-                         "with its flash attention kernels only")
-    return False, "flash"
+    mode = remat_mode(remat)
+    if attention_impl not in (None, "auto", "flash", "xla"):
+        raise ValueError(f"attention_impl={attention_impl!r}: 'auto', 'flash' or 'xla' "
+                         "(all train through the port's flash attention kernels)")
+    return (False if mode == "none" else mode), "flash"
 
 
 def step_rng(seed: int, step: int, device, micro: int = 0,
@@ -120,6 +136,9 @@ def make_train_step(
     MLM + ELM + NSP loss; a ProtSTonKGs run passes
     ``protstonkgs.pretraining_loss`` (with its training plan bound by
     ``functools.partial(..., rand_attn=plan)`` where it keeps one).
+    ``remat`` (a mode of :func:`~stonkgs_tpu_torch.models.bert.remat_mode`
+    other than none) reaches the loss as its ``remat`` keyword, whichever
+    loss it is: every loss of the port passes it to its trunk.
     ``batch`` holds ``grad_accumulation_steps * micro_batch`` rows on the
     parameters' device; gradients of the micro-batches are summed in fp32
     and averaged, as are the metrics (0-dim tensors on the device).  The
@@ -134,11 +153,11 @@ def make_train_step(
     (:meth:`~stonkgs_tpu_torch.parallel.mesh.ParamLayout.reduce_grads`);
     the clip takes the global norm and the metrics are summed over the
     data axis (each rank's loss is its share of the global mean)."""
-    check_no_remat(remat)
+    mode = remat_mode(remat)
     n = grad_accumulation_steps
     if loss_fn is None:
         loss_fn = stonkgs.pretraining_loss
-    extra = {}
+    extra = {} if mode == "none" else {"remat": mode}
     if mesh is not None:
         mesh.require_groups()
         extra["tp_mesh"] = mesh

@@ -248,8 +248,8 @@ def test_bigbird_unported_options_raise(bb_params):
     tcfg = port_bigbird_cfg(BB)
     tp = bigbird_params_from_jax(bb_params, tcfg)
     emb = torch.zeros(1, S_SPARSE, BB.hidden_size)
-    with pytest.raises(NotImplementedError, match="remat"):
-        tbigbird.bigbird_model(tp, tcfg, inputs_embeds=emb, remat=True)
+    with pytest.raises(ValueError, match="remat"):
+        tbigbird.bigbird_model(tp, tcfg, inputs_embeds=emb, remat="selective")
     with pytest.raises(ValueError, match="cls_only"):
         tbigbird.bigbird_model(tp, tcfg, inputs_embeds=emb, cls_only=True, deterministic=False)
     with pytest.raises(ValueError, match="block id"):

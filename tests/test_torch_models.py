@@ -119,15 +119,16 @@ def test_bert_inputs_embeds_path(params):
 
 
 def test_training_arguments_raise(params):
-    """What training does not take raises: layer remat (not ported), and
+    """What training does not take raises: an unknown remat mode (the
+    modes themselves are held in ``tests/test_torch_remat.py``), and
     ``cls_only`` in the training half of classification, which runs the
     whole trunk (that half is held against the JAX package in
     ``tests/test_torch_finetuning.py``)."""
     tp = bert_params_from_jax(params["trunk"], port_cfg(BERT))
     ids = torch.zeros(1, 4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="remat"):
         tbert.bert_model(tp, port_cfg(BERT), input_ids=ids, deterministic=False,
-                         remat="full")
+                         remat="selective")
     batch = _t(features(CFG, [3], seed=0))
     with pytest.raises(ValueError, match="cls_only"):
         tstonkgs.classification_logits(params_from_jax(params, port_cfg(CFG)),

@@ -225,8 +225,8 @@ def test_pretrain_unported_options_raise(params, tmp_path):
     state = tpre.pretrain(TCFG, tp, feats, run, checkpoint_dir=str(tmp_path / "ckpt"))
     assert state.step == 1
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["1"]
-    with pytest.raises(NotImplementedError, match="remat"):
-        tpre.make_train_step(TCFG, topt.AdamW(), remat="full")
+    with pytest.raises(ValueError, match="remat"):
+        tpre.make_train_step(TCFG, topt.AdamW(), remat="selective")
     assert tpre.resolve_train_impl() == (False, "flash")
     assert tpre.resolve_train_impl("auto", "flash") == (False, "flash")
     assert tpre.resolve_train_impl(mesh=make_mesh(1, 1)) == (False, "flash")
