@@ -61,12 +61,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    with the backend that ran), for the FFN pair the cuBLAS products it
    contains, timed alone;
 10. sparse kernels: the BigBird pair against its plain versions, bf16 and
-    fp32, at nb = 5, 8 (padded mask) and 64 (S=4096), with the eval and
-    the training plan, at B=2 (forward and backward) and B=8 (forward);
-    bf16 contexts also within ``ATTN_STEP`` of their scale, bf16
-    gradients within it plus ``GRAD_STEP_FLOOR``; at S=4096 the limits
-    must reject a context without one random slot, a context without the
-    duplicate window slot's penalty and dK without the g0 slot's adds;
+    fp32, at block size 64 (nb = 5, 8 with a padded mask, and 64: S=4096)
+    and 128 (nb = 5, 8 padded, and 32: S=640, 1,024 and 4,096), with the
+    eval and the training plan, at B=2 (forward and backward) and B=8
+    (forward); bf16 contexts also within ``ATTN_STEP`` of their scale,
+    bf16 gradients within it plus ``GRAD_STEP_FLOOR``; at S=4096, at each
+    block size, the limits must reject a context without one random slot,
+    a context without the duplicate window slot's penalty and dK without
+    the g0 slot's adds;
 11. ProtSTonKGs serving: ``ProtSTonKGsEngine.embed`` at full width
     (BigBird trunk 12 x 768, BioBERT 12 x 768, ProtBERT 30 x 1024, KG
     vocabulary 20,000, seeded random weights) on 32 rows at B=8; checks
@@ -78,7 +80,8 @@ Phases, each fatal on failure (exit code 1, no result line):
     bit-unchanged and the trunk and projection trained;
 13. ProtSTonKGs training numerics: loss and gradients, card fp32 against
     CPU fp32, at 2 layers a stack (hidden dropout 0, the backbones'
-    attention dropout 0.1 on the same seeds);
+    attention dropout 0.1 on the same seeds), with the trunk at block 64
+    and again at block 128;
 14. ProtSTonKGs timing: embed sequences/s, ms per step (median of 6 after
     2), and each new or widened kernel at the path's shapes beside its
     bound and its plain version (the training FFN pair at ProtBERT's,
@@ -238,9 +241,24 @@ Phases, each fatal on failure (exit code 1, no result line):
     widths (B=2, 2 steps) under attention against two none runs, within
     4 of their spreads as phase 23 holds a mesh (its BigBird backward adds
     with atomics), ``bigbird_mid_fwd`` twice a trunk layer.
+25. ProtSTonKGs at ``block_size=128`` (runs right after phase 14, on
+    phase 11's parameters and rows, the trunk's config replaced): (a)
+    ``ProtSTonKGsEngine.embed`` at B=8 on 32 rows (11 ``bigbird_mid_fwd``
+    a batch), 2 of its rows against the card's fp32 engine at full depth
+    (cosine 0.99); (b) ``pretrain`` at B=2 for 2 steps (12 + 12 sparse
+    launches a step, finite losses, frozen backbones unchanged); (c)
+    ``save_protstonkgs_pretrained`` -> ``ProtSTonKGsEngine.from_pretrained``
+    with a config.json of block size 128 (KG vocabulary cut to 5,000 with
+    node2vec TSVs of that size), its embeddings equal to an in-memory
+    engine's bit for bit; (d) sequences/s and the step's median ms beside
+    phase 14's at block 64, and the pair at the path's three shapes
+    (B=8 eval plan, B=2 training plan forward and backward) beside its
+    bound, floor, plain version, SDPA over gathered operands and the
+    block-64 time of the same run.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (the
+BigBird pair's times at block 64, its error the worse of both block
+sizes); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -299,6 +317,7 @@ from stonkgs_tpu_torch.data.wordpiece import BertTokenizer
 from stonkgs_tpu_torch.models import bert, node2vec, protstonkgs, stonkgs, word2vec
 from stonkgs_tpu_torch.models.heads import init_classifier_head
 from stonkgs_tpu_torch.ops import _build
+from stonkgs_tpu_torch.ops import bigbird_sparse as bigbird_sparse_ops
 from stonkgs_tpu_torch.ops.bigbird_sparse import (
     _blocked,
     _mid_logits,
@@ -350,7 +369,7 @@ from stonkgs_tpu_torch.train.dynamic_masking import dynamic_masking_loss, dynami
 from stonkgs_tpu_torch.train.optimizer import AdamW, merge_frozen, split_frozen
 from stonkgs_tpu_torch.utils import hf_loader
 from stonkgs_tpu_torch.utils.convert import params_to
-from stonkgs_tpu_torch.utils.hf_export import save_pretrained
+from stonkgs_tpu_torch.utils.hf_export import save_pretrained, save_protstonkgs_pretrained
 from stonkgs_tpu_torch.utils.logging import RunLogger
 from stonkgs_tpu_torch.utils.batching import host_to_device
 from stonkgs_tpu_torch.utils.tree import tree_flatten_with_path, tree_leaves, tree_map
@@ -836,12 +855,12 @@ def phase_train_kernels() -> dict:
     return errs
 
 
-def _sparse_inputs(B, nb, dtype, gen, plan, padded, H=12):
-    """q, k, v (B, S, H, 64), a (B, S) mask, an (H, nb-2, 3) plan on the
-    card and an output cotangent for the middle rows.  ``plan``: "eval"
-    (all zeros) or "train" (HF's training plan at S=4096, else random
-    legal blocks)."""
-    S = nb * 64
+def _sparse_inputs(B, nb, dtype, gen, plan, padded, H=12, bs=64):
+    """q, k, v (B, S, H, 64) at S = nb * bs, a (B, S) mask, an (H, nb-2, 3)
+    plan on the card and an output cotangent for the middle rows.
+    ``plan``: "eval" (all zeros) or "train" (HF's training plan at S=4096,
+    else random legal blocks)."""
+    S = nb * bs
     q, k, v = (torch.randn(B, S, H, 64, generator=gen).to(DEV, dtype) for _ in range(3))
     mask = torch.ones(B, S)
     if padded:
@@ -850,97 +869,141 @@ def _sparse_inputs(B, nb, dtype, gen, plan, padded, H=12):
     if plan == "eval":
         rand = torch.zeros(H, nb - 2, 3, dtype=torch.int32)
     elif S == 4096:
-        rand = torch.as_tensor(build_rand_attn(S, 64, 3, H, 1, S, training=True)[0])
+        rand = torch.as_tensor(build_rand_attn(S, bs, 3, H, 1, S, training=True)[0])
     else:
         rand = torch.randint(1, nb - 1, (H, nb - 2, 3), generator=gen, dtype=torch.int32)
-    do = torch.randn(B, (nb - 2) * 64, H, 64, generator=gen).to(DEV, dtype)
+    do = torch.randn(B, (nb - 2) * bs, H, 64, generator=gen).to(DEV, dtype)
     return q, k, v, mask.to(DEV), rand.to(DEV), do
+
+
+# (B, nb, padded mask) of the sparse pair's checks at each block size: the
+# smallest block-sparse S (nb=5), a padded mask (nb=8) and the trunk's
+# S=4096, at B=2 (forward and backward) and B=8 (forward)
+SPARSE_CASES = {64: ((2, 5, False), (2, 8, True), (2, 64, False), (8, 64, True)),
+                128: ((2, 5, False), (2, 8, True), (2, 32, False), (8, 32, True))}
 
 
 def phase_sparse_kernels() -> dict:
     """The BigBird kernel pair vs its plain versions on the card, bf16 and
-    fp32: the smallest block-sparse S (nb=5), a padded mask (nb=8) and the
-    trunk's S=4096, with the eval and the training plan, at B=2 (forward
-    and backward) and the serving batch B=8 (forward); bf16 contexts and
-    gradients also under the elementwise limits, which must reject three
-    faults at S=4096 (``_sparse_limits_reject``).  Returns, per kernel,
-    the worst bf16 error at S=4096."""
+    fp32, at block sizes 64 and 128 (``SPARSE_CASES``), with the eval and
+    the training plan; bf16 contexts and gradients also under the
+    elementwise limits, which must reject three faults at S=4096, at each
+    block size (``_sparse_limits_reject``); other block sizes and head
+    widths raise (``_sparse_geometry_rejected``).  Returns, per kernel,
+    the worst bf16 error at S=4096 over both block sizes."""
     gen = torch.Generator().manual_seed(6)
+    _sparse_geometry_rejected(gen)
     errs = {}
-    for dtype in (BF16, F32):
-        tag = "bf16" if dtype == BF16 else "fp32"
-        for B, nb, padded in ((2, 5, False), (2, 8, True), (2, 64, False), (8, 64, True)):
-            for plan in ("eval", "train"):
-                q, k, v, mask, rand, do = _sparse_inputs(B, nb, dtype, gen, plan, padded)
-                label = f"{tag} B={B} S={nb * 64} {plan} plan{' mask' if padded else ''}"
-                out, lse = bigbird_mid_fwd(q, k, v, mask, rand, 64)
-                out_p, lse_p = bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)
-                e = max(_compare_attn(f"sparse fwd {label}", out, out_p, dtype),
-                        _compare(f"sparse lse {label}", lse, lse_p, dtype))
-                if dtype == BF16 and nb == 64:
-                    errs["bigbird_mid_fwd"] = max(errs.get("bigbird_mid_fwd", 0.0), e)
-                if B == 2:
-                    got = bigbird_mid_bwd(q, k, v, mask, rand, 64, out_p, lse_p, do)
-                    want = bigbird_mid_bwd_plain(q, k, v, mask, rand, 64, out_p, lse_p, do)
-                    e = max(_compare_grad(f"sparse {n} {label}", g, w, dtype)
-                            for n, g, w in zip(("dq", "dk", "dv"), got, want))
-                    if dtype == BF16 and nb == 64:
-                        errs["bigbird_mid_bwd"] = max(errs.get("bigbird_mid_bwd", 0.0), e)
-                    if dtype == BF16 and nb == 64 and plan == "train":
-                        _sparse_limits_reject(label, q, k, v, mask, rand, out_p, lse_p, do,
-                                              want[1])
-                    del got, want
-                del q, k, v, out, lse, out_p, lse_p
+    for bs, cases in SPARSE_CASES.items():
+        for dtype in (BF16, F32):
+            tag = "bf16" if dtype == BF16 else "fp32"
+            for B, nb, padded in cases:
+                for plan in ("eval", "train"):
+                    q, k, v, mask, rand, do = _sparse_inputs(B, nb, dtype, gen, plan, padded,
+                                                             bs=bs)
+                    label = (f"{tag} bs={bs} B={B} S={nb * bs} {plan} plan"
+                             f"{' mask' if padded else ''}")
+                    out, lse = bigbird_mid_fwd(q, k, v, mask, rand, bs)
+                    out_p, lse_p = bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)
+                    e = max(_compare_attn(f"sparse fwd {label}", out, out_p, dtype),
+                            _compare(f"sparse lse {label}", lse, lse_p, dtype))
+                    if dtype == BF16 and nb * bs == 4096:
+                        errs["bigbird_mid_fwd"] = max(errs.get("bigbird_mid_fwd", 0.0), e)
+                    if B == 2:
+                        got = bigbird_mid_bwd(q, k, v, mask, rand, bs, out_p, lse_p, do)
+                        want = bigbird_mid_bwd_plain(q, k, v, mask, rand, bs, out_p, lse_p, do)
+                        e = max(_compare_grad(f"sparse {n} {label}", g, w, dtype)
+                                for n, g, w in zip(("dq", "dk", "dv"), got, want))
+                        if dtype == BF16 and nb * bs == 4096:
+                            errs["bigbird_mid_bwd"] = max(errs.get("bigbird_mid_bwd", 0.0), e)
+                        if dtype == BF16 and nb * bs == 4096 and plan == "train":
+                            _sparse_limits_reject(label, q, k, v, mask, rand, out_p, lse_p, do,
+                                                  want[1], bs)
+                        del got, want
+                    del q, k, v, out, lse, out_p, lse_p
     return errs
 
 
-def _sparse_fwd_with(q, k, v, rand, pen_of):
+def _sparse_geometry_rejected(gen) -> None:
+    """A CUDA tensor at a block size other than 64 or 128, or a head width
+    other than 64, raises in the wrappers and launches nothing; the C
+    entry points refuse such a geometry themselves (cudaErrorInvalidValue,
+    1) without a launch."""
+    fwd0, bwd0 = bigbird_mid_fwd.launches, bigbird_mid_bwd.launches
+    for bs, D in ((32, 64), (256, 64), (64, 32), (128, 128)):
+        S = 8 * bs
+        q, k, v = (torch.randn(2, S, 2, D, generator=gen).to(DEV, BF16) for _ in range(3))
+        mask = torch.ones(2, S, device=DEV)
+        rand = torch.ones(2, 6, 1, dtype=torch.int32, device=DEV)
+        out = torch.zeros(2, 6 * bs, 2, D, dtype=BF16, device=DEV)
+        lse = torch.zeros(2, 2, 6 * bs, device=DEV)
+        for name, call in (("fwd", lambda: bigbird_mid_fwd(q, k, v, mask, rand, bs)),
+                           ("bwd", lambda: bigbird_mid_bwd(q, k, v, mask, rand, bs, out, lse,
+                                                           out))):
+            try:
+                call()
+            except ValueError as e:
+                log(f"# check sparse {name} bs={bs} D={D} raises: {e}")
+            else:
+                check(False, f"sparse {name} took block size {bs}, head width {D} on the card")
+    check((bigbird_mid_fwd.launches, bigbird_mid_bwd.launches) == (fwd0, bwd0),
+          "a refused geometry counted a launch")
+    lib = _build.load("bigbird_sparse", bigbird_sparse_ops._SIGNATURES)
+    q = torch.zeros(1, 8 * 96, 1, 64, dtype=BF16, device=DEV)
+    status = lib.bigbird_mid_fwd(1, *([_build.ptr(q)] * 7), 1, 8 * 96, 1, 1, 96, 64, 64, 64,
+                                 64, 0.125, _build.stream(q.device))
+    torch.cuda.synchronize()
+    log(f"# check bigbird_mid_fwd C entry point at bs=96: status {status} (1: refused)")
+    check(status == 1, f"the C entry point took block size 96 (status {status})")
+
+
+def _sparse_fwd_with(q, k, v, rand, bs, pen_of):
     """The plain forward's context with the slot penalties (B, H, n, 1, W)
     replaced by ``pen_of(pen, gathered mask)``: a known fault applied to
     the plain version."""
     B, S, H, D = q.shape
-    qm, kc, vc, pen, idx = _mid_operands(q, k, v, torch.ones(B, S, device=q.device), rand, 64)
+    qm, kc, vc, pen, idx = _mid_operands(q, k, v, torch.ones(B, S, device=q.device), rand, bs)
     logits = _mid_logits(qm, kc, pen_of(pen, idx), q.dtype)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     ctx = torch.einsum("bhjqk,bhjkd->bhjqd", w.float(), vc.float()).to(q.dtype)
     return ctx.permute(0, 2, 3, 1, 4).reshape(B, -1, H, D)
 
 
-def _sparse_limits_reject(label, q, k, v, mask, rand, out, lse, do, dk) -> None:
-    """At S=4096 (bf16, the training plan, no padding), the limits the
-    pair is held to must reject: a context without the first random slot,
-    a context where the duplicate window slot (block 0 at query block 1,
-    block nb-1 at query block nb-2) keeps its keys, and dK without the g0
-    slot's adds."""
+def _sparse_limits_reject(label, q, k, v, mask, rand, out, lse, do, dk, bs) -> None:
+    """At S=4096 (bf16, the training plan, no padding, block size ``bs``),
+    the limits the pair is held to must reject: a context without the
+    first random slot, a context where the duplicate window slot (block 0
+    at query block 1, block nb-1 at query block nb-2) keeps its keys, and
+    dK without the g0 slot's adds."""
     check(bool((mask == 1).all()), "the fault checks take an unpadded mask")
-    want = bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)[0]
+    want = bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)[0]
 
     def no_random_slot(pen, idx):
         pen = pen.clone()
-        pen[..., 5 * 64:6 * 64] = -math.inf
+        pen[..., 5 * bs:6 * bs] = -math.inf
         return pen
 
     def no_dup_penalty(pen, idx):
         return torch.zeros_like(pen)   # an unpadded mask: only the duplicate slots had one
 
     _attn_limit_rejects(f"sparse fwd {label} without one random slot", want,
-                        _sparse_fwd_with(q, k, v, rand, no_random_slot))
+                        _sparse_fwd_with(q, k, v, rand, bs, no_random_slot))
     _attn_limit_rejects(f"sparse fwd {label} without the duplicate slot's penalty", want,
-                        _sparse_fwd_with(q, k, v, rand, no_dup_penalty))
+                        _sparse_fwd_with(q, k, v, rand, bs, no_dup_penalty))
     # dK less the g0 slot's adds: sum over the middle query blocks of its
     # dS^T q, taken from block 0's rows
     B, S, H, D = q.shape
-    qm, kc, _, pen, _ = _mid_operands(q, k, v, mask, rand, 64)
+    qm, kc, _, pen, _ = _mid_operands(q, k, v, mask, rand, bs)
     f = torch.float32
-    p = torch.exp(_mid_logits(qm, kc, pen, q.dtype) - lse.reshape(B, H, -1, 64, 1))
-    do_b, o_b = (_blocked(t, 64).float() for t in (do, out))
-    vg = _blocked(v, 64)[:, :, 0].float()   # block 0's values (the g0 slot)
+    p = torch.exp(_mid_logits(qm, kc, pen, q.dtype) - lse.reshape(B, H, -1, bs, 1))
+    do_b, o_b = (_blocked(t, bs).float() for t in (do, out))
+    vg = _blocked(v, bs)[:, :, 0].float()   # block 0's values (the g0 slot)
     dp = torch.einsum("bhjqd,bhkd->bhjqk", do_b, vg)
     row = (do_b * o_b).sum(dim=-1, keepdim=True)
-    ds = p[..., :64] * (dp - row) / math.sqrt(D)
-    dk_g0 = torch.einsum("bhjqk,bhjqd->bhkd", ds, qm.to(f))   # (B, H, 64, D)
+    ds = p[..., :bs] * (dp - row) / math.sqrt(D)
+    dk_g0 = torch.einsum("bhjqk,bhjqd->bhkd", ds, qm.to(f))   # (B, H, bs, D)
     wrong = dk.float().clone()
-    wrong[:, :64] -= dk_g0.permute(0, 2, 1, 3)
+    wrong[:, :bs] -= dk_g0.permute(0, 2, 1, 3)
     _grad_limit_rejects(f"sparse dk {label} without the g0 slot's adds", dk, wrong.to(dk.dtype))
 
 
@@ -1539,6 +1602,38 @@ def _train_plan(cfg: ProtSTonKGsConfig) -> np.ndarray:
                            t.max_position_embeddings, training=True)
 
 
+def _prot_embed_counted(label: str, engine, feats):
+    """``engine.embed(feats)`` with the counts set to 0 just before it and
+    read just after; checks the launches a batch (the trunk's layers but
+    the [CLS]-only last one go through the sparse forward), the shape and
+    finite output.  Returns the output and the counts."""
+    cfg = engine.cfg
+    n = len(feats["input_ids"])
+    _reset_counts(PROT_SERVING_KERNELS)
+    out = engine.embed(feats)
+    counts = _counts(PROT_SERVING_KERNELS)
+    n_batches = math.ceil(n / engine.batch_size)
+    t, lm, prot = cfg.trunk, cfg.lm, cfg.prot
+    per_batch = {"bigbird_mid_fwd": t.num_hidden_layers - 1,
+                 "ffn_ln_block": lm.num_hidden_layers + prot.num_hidden_layers
+                 + t.num_hidden_layers - 1,
+                 "flash_attention_infer": lm.num_hidden_layers + prot.num_hidden_layers}
+    log(f"# launches {label} (block {t.block_size}, {n_batches} batches of "
+        f"{engine.batch_size}): {counts}")
+    check(out.shape == (n, t.hidden_size), f"{label} shape {out.shape}")
+    check(bool(np.isfinite(out).all()), f"{label} output not finite")
+    for name, c in per_batch.items():
+        check(counts[name] == c * n_batches,
+              f"{label} {name}: {counts[name]} launches, expected {c} x {n_batches}")
+    return out, counts
+
+
+def _with_block(cfg: ProtSTonKGsConfig, block_size: int) -> ProtSTonKGsConfig:
+    """``cfg`` with the BigBird trunk at ``block_size`` (its parameters do
+    not depend on it)."""
+    return cfg.replace(trunk=dataclasses.replace(cfg.trunk, block_size=block_size))
+
+
 def phase_prot_serving(cfg: ProtSTonKGsConfig):
     """``ProtSTonKGsEngine.embed`` at full width (B=8, 32 rows): the main
     serving path, counts from 0 just before it; then card fp32 vs CPU fp32
@@ -1550,21 +1645,7 @@ def phase_prot_serving(cfg: ProtSTonKGsConfig):
                                batch_size=PROT_BATCH, device=DEV)
     feats = _prot_features(cfg, PROT_ROWS)
     log(f"# ProtSTonKGs serving setup (init + KG table): {time.perf_counter() - t0:.1f} s")
-    _reset_counts(PROT_SERVING_KERNELS)
-    out = engine.embed(feats)
-    counts = _counts(PROT_SERVING_KERNELS)
-    n_batches = math.ceil(PROT_ROWS / PROT_BATCH)
-    t, lm, prot = cfg.trunk, cfg.lm, cfg.prot
-    per_batch = {"bigbird_mid_fwd": t.num_hidden_layers - 1,
-                 "ffn_ln_block": lm.num_hidden_layers + prot.num_hidden_layers
-                 + t.num_hidden_layers - 1,
-                 "flash_attention_infer": lm.num_hidden_layers + prot.num_hidden_layers}
-    log(f"# launches ProtSTonKGs embed ({n_batches} batches of {PROT_BATCH}): {counts}")
-    check(out.shape == (PROT_ROWS, t.hidden_size), f"ProtSTonKGs embed shape {out.shape}")
-    check(bool(np.isfinite(out).all()), "ProtSTonKGs embed output not finite")
-    for name, c in per_batch.items():
-        check(counts[name] == c * n_batches,
-              f"{name}: {counts[name]} launches, expected {c} x {n_batches}")
+    out, counts = _prot_embed_counted("ProtSTonKGs embed", engine, feats)
 
     # numerics at 2 layers per stack, full widths and layout
     small = _prot_cfg(cfg.kg_vocab_size, layers=2)
@@ -1587,28 +1668,31 @@ def phase_prot_serving(cfg: ProtSTonKGsConfig):
     return engine, feats, counts, params
 
 
-def phase_prot_training(cfg: ProtSTonKGsConfig, params_cpu: dict):
+def phase_prot_training(cfg: ProtSTonKGsConfig, params_cpu: dict,
+                        steps: int = PROT_TRAIN_STEPS):
     """``pretrain(..., loss_fn=protstonkgs.pretraining_loss)`` at full width
-    (B=2, fp32 parameters, bf16 compute, the training plan): the main
-    training path, counts from 0 just before it.  Returns its launch
-    counts, its state and the loss function."""
+    (B=2, fp32 parameters, bf16 compute, the training plan of the trunk's
+    block size) for ``steps`` steps: the main training path, counts from 0
+    just before it.  Returns its launch counts, its state and the loss
+    function."""
     t0 = time.perf_counter()
+    bs = cfg.trunk.block_size
     params = params_to(params_cpu, DEV)
     frozen_before = tree_map(lambda t: t.clone(), split_frozen(params)[1])
-    feats = _prot_features(cfg, PROT_TRAIN_BATCH * PROT_TRAIN_STEPS, seed=2, labels=True)
+    feats = _prot_features(cfg, PROT_TRAIN_BATCH * steps, seed=2, labels=True)
     loss_fn = functools.partial(protstonkgs.pretraining_loss, rand_attn=_train_plan(cfg))
     run_cfg = pretraining.PretrainingConfig(
-        max_steps=PROT_TRAIN_STEPS, micro_batch_size=PROT_TRAIN_BATCH, log_steps=1,
+        max_steps=steps, micro_batch_size=PROT_TRAIN_BATCH, log_steps=1,
         compute_dtype="bfloat16")
     logged = []
-    log(f"# ProtSTonKGs training setup: {time.perf_counter() - t0:.1f} s")
+    log(f"# ProtSTonKGs training setup (block {bs}): {time.perf_counter() - t0:.1f} s")
     _reset_counts(PROT_TRAINING_KERNELS)
     state = pretraining.pretrain(cfg, params, feats, run_cfg, loss_fn=loss_fn,
                                  log_fn=lambda step, m: logged.append((step, m)))
     torch.cuda.synchronize()
     counts = _counts(PROT_TRAINING_KERNELS)
     t, lm, prot = cfg.trunk, cfg.lm, cfg.prot
-    log(f"# launches ProtSTonKGs pretrain ({PROT_TRAIN_STEPS} steps, B={PROT_TRAIN_BATCH}): "
+    log(f"# launches ProtSTonKGs pretrain (block {bs}, {steps} steps, B={PROT_TRAIN_BATCH}): "
         f"{counts}")
     expected = {"bigbird_mid_fwd": t.num_hidden_layers, "bigbird_mid_bwd": t.num_hidden_layers,
                 "ffn_train_fwd": lm.num_hidden_layers + prot.num_hidden_layers
@@ -1616,11 +1700,11 @@ def phase_prot_training(cfg: ProtSTonKGsConfig, params_cpu: dict):
                 "ffn_train_bwd": t.num_hidden_layers,
                 "flash_attention_train_fwd": lm.num_hidden_layers + prot.num_hidden_layers}
     for name, per_step in expected.items():
-        check(counts[name] == per_step * PROT_TRAIN_STEPS,
-              f"{name}: {counts[name]} launches, expected {per_step} x {PROT_TRAIN_STEPS}")
+        check(counts[name] == per_step * steps,
+              f"{name}: {counts[name]} launches, expected {per_step} x {steps}")
     for step, m in logged:
-        log(f"# ProtSTonKGs pretrain step {step}: " + json.dumps(m))
-    check([s for s, _ in logged] == list(range(1, PROT_TRAIN_STEPS + 1)),
+        log(f"# ProtSTonKGs pretrain (block {bs}) step {step}: " + json.dumps(m))
+    check([s for s, _ in logged] == list(range(1, steps + 1)),
           f"ProtSTonKGs pretrain logged steps {[s for s, _ in logged]}")
     check(all(math.isfinite(m["loss"]) for _, m in logged),
           "non-finite ProtSTonKGs pretraining loss")
@@ -1630,19 +1714,20 @@ def phase_prot_training(cfg: ProtSTonKGsConfig, params_cpu: dict):
           "a frozen ProtSTonKGs backbone changed")
     before, after = tree_flatten_with_path(split_frozen(params)[0]), tree_flatten_with_path(state.params)
     unchanged = [k for k in before if torch.equal(before[k], after[k])]
-    log(f"# ProtSTonKGs trainable leaves unchanged after {PROT_TRAIN_STEPS} steps: "
-        f"{unchanged}")
+    log(f"# ProtSTonKGs trainable leaves unchanged after {steps} steps: {unchanged}")
     check(set(unchanged) <= set(PROT_UNUSED_LEAVES), "a trainable leaf did not change")
     check(not any(k.startswith("prot_projection") for k in unchanged),
           "prot_projection did not train")
     return counts, state, loss_fn
 
 
-def phase_prot_train_numerics(cfg_full: ProtSTonKGsConfig) -> None:
+def phase_prot_train_numerics(cfg_full: ProtSTonKGsConfig, block_size: int = 64) -> None:
     """Loss and trunk gradients, card fp32 vs CPU fp32, at 2 rows and 2
-    layers a stack of the full widths, hidden dropout 0 and the backbones'
-    attention dropout 0.1 (seeds from the same CPU generator)."""
-    cfg = _prot_cfg(cfg_full.kg_vocab_size, layers=2, hidden_dropout=0.0)
+    layers a stack of the full widths, the trunk at ``block_size`` (its
+    training plan), hidden dropout 0 and the backbones' attention dropout
+    0.1 (seeds from the same CPU generator)."""
+    cfg = _with_block(_prot_cfg(cfg_full.kg_vocab_size, layers=2, hidden_dropout=0.0),
+                      block_size)
     params = _prot_params(cfg, seed=12)
     feats = _prot_features(cfg, 2, seed=3, labels=True)
     plan = _train_plan(cfg)
@@ -1664,38 +1749,40 @@ def phase_prot_train_numerics(cfg_full: ProtSTonKGsConfig) -> None:
     loss_cpu, g_cpu = loss_and_grads("cpu")
     err = max(float((a - b).abs().max()) for a, b in zip(g_card, g_cpu))
     scale = max(float(b.abs().max()) for b in g_cpu)
-    log(f"# ProtSTonKGs train card fp32 vs CPU fp32 (2 rows, 2 layers a stack, attention "
-        f"dropout {ATTN_RATE}): loss {loss_card!r} vs {loss_cpu!r}; trunk and projection "
-        f"grads max_abs_err {err!r} of max |grad| {scale!r} (limits: loss 1e-4 relative, "
-        f"grads 1e-3 of max |grad|)")
+    log(f"# ProtSTonKGs train card fp32 vs CPU fp32 (block {block_size}, 2 rows, 2 layers a "
+        f"stack, attention dropout {ATTN_RATE}): loss {loss_card!r} vs {loss_cpu!r}; trunk and "
+        f"projection grads max_abs_err {err!r} of max |grad| {scale!r} (limits: loss 1e-4 "
+        f"relative, grads 1e-3 of max |grad|)")
     check(abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu),
           "ProtSTonKGs card loss disagrees with the CPU")
     check(err <= 1e-3 * scale, "ProtSTonKGs card gradients disagree with the CPU")
 
 
-def _time_sparse(label: str, B: int, gen, backward: bool, plan: str) -> dict:
-    """A BigBird kernel vs plain at the path's shape (S=4096, H=12), then
-    both timed, beside the bound and the design's floor (the forward: two
-    exps a score on the SFU or its three products; the backward: its seven
-    products, dS as two bf16 terms, or its one exp a score) and the library
-    call: SDPA over operands gathered beforehand (``benchmarks/
-    bigbird_sdpa.py``), its backward alone over a saved forward."""
-    nb, H, D, r = 64, 12, 64, 3
-    q, k, v, mask, rand, do = _sparse_inputs(B, nb, BF16, gen, plan, False, H)
-    n_mid, W = nb - 2, (5 + r) * 64
-    tensor = B * nb * 64 * H * D * 2           # one (B, S, H, D) bf16 tensor
-    mid = B * n_mid * 64 * H * D * 2           # its middle rows
-    lse_b, mask_b = B * H * n_mid * 64 * 4, B * nb * 64 * 4
-    scores = B * H * n_mid * 64 * W
+def _time_sparse(label: str, B: int, gen, backward: bool, plan: str, bs: int = 64) -> dict:
+    """A BigBird kernel vs plain at the path's shape (S=4096, H=12, block
+    ``bs``), then both timed, beside the bound and the design's floor (the
+    forward: two exps a score on the SFU or its three products; the
+    backward: its seven products, dS as two bf16 terms, or its one exp a
+    score) and the library call: SDPA over operands gathered beforehand
+    (``benchmarks/bigbird_sdpa.py``), its backward alone over a saved
+    forward."""
+    S, H, D, r = 4096, 12, 64, 3
+    nb = S // bs
+    q, k, v, mask, rand, do = _sparse_inputs(B, nb, BF16, gen, plan, False, H, bs)
+    n_mid, W = nb - 2, (5 + r) * bs
+    tensor = B * S * H * D * 2                 # one (B, S, H, D) bf16 tensor
+    mid = B * n_mid * bs * H * D * 2           # its middle rows
+    lse_b, mask_b = B * H * n_mid * bs * 4, B * S * 4
+    scores = B * H * n_mid * bs * W
     products = 2.0 * scores * D                # one (bs x W x D) product per block
-    out, lse = bigbird_mid_fwd(q, k, v, mask, rand, 64)
-    qg, kg, vg, bias = gathered_operands(q, k, v, mask, rand, 64)
+    out, lse = bigbird_mid_fwd(q, k, v, mask, rand, bs)
+    qg, kg, vg, bias = gathered_operands(q, k, v, mask, rand, bs)
     if not backward:
         # q's middle rows, k, v and the mask read; out and lse written
         bound, by = _bound_ms(2 * products, 2 * mid + 2 * tensor + lse_b + mask_b, BF16)
         floor = max(2 * scores / EX2_PER_S, 3 * products / PEAK_FLOPS[BF16]) * 1e3
-        fn = lambda: bigbird_mid_fwd(q, k, v, mask, rand, 64)  # noqa: E731
-        plain = lambda: bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)  # noqa: E731
+        fn = lambda: bigbird_mid_fwd(q, k, v, mask, rand, bs)  # noqa: E731
+        plain = lambda: bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)  # noqa: E731
         want = plain()[0]
         err = _compare_attn(f"sparse fwd bf16 {label}", fn()[0], want, BF16)
         sdpa_err = float((to_ctx(sdpa_mid(qg, kg, vg, bias), B, H).float() - want.float())
@@ -1707,8 +1794,8 @@ def _time_sparse(label: str, B: int, gen, backward: bool, plan: str) -> dict:
         # q, o, dO middle rows, k, v, lse, mask read; dq (middle), dk, dv written
         bound, by = _bound_ms(5 * products, 4 * mid + 4 * tensor + lse_b + mask_b, BF16)
         floor = max(scores / EX2_PER_S, 7 * products / PEAK_FLOPS[BF16]) * 1e3
-        fn = lambda: bigbird_mid_bwd(q, k, v, mask, rand, 64, out, lse, do)  # noqa: E731
-        plain = lambda: bigbird_mid_bwd_plain(q, k, v, mask, rand, 64, out, lse, do)  # noqa: E731
+        fn = lambda: bigbird_mid_bwd(q, k, v, mask, rand, bs, out, lse, do)  # noqa: E731
+        plain = lambda: bigbird_mid_bwd_plain(q, k, v, mask, rand, bs, out, lse, do)  # noqa: E731
         err = max(_compare_grad(f"sparse {n} bf16 {label}", g, w, BF16)
                   for n, g, w in zip(("dq", "dk", "dv"), fn(), plain()))
         lib = _time_sdpa_backward(f"BigBird {label} (gathered)", qg, kg, vg, bias,
@@ -1720,10 +1807,8 @@ def _time_sparse(label: str, B: int, gen, backward: bool, plan: str) -> dict:
     return t
 
 
-def phase_prot_timing(cfg: ProtSTonKGsConfig, engine, feats, state, loss_fn) -> dict:
-    """Embed sequences/s (B=8), the training step (B=2, median of 6 after
-    2 of warm-up), then each new or widened kernel at the ProtSTonKGs
-    path's shapes.  Returns per kernel the path shape's numbers."""
+def _prot_embed_rate(engine, feats) -> float:
+    """Median sequences/s of three ``embed`` calls over ``feats``."""
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1731,9 +1816,15 @@ def phase_prot_timing(cfg: ProtSTonKGsConfig, engine, feats, state, loss_fn) -> 
         out = engine.embed(feats)
         times.append(time.perf_counter() - t0)
     check(bool(np.isfinite(out).all()), "ProtSTonKGs embed not finite")
-    log(f"# ProtSTonKGs embed: {len(out)} rows, B={PROT_BATCH}, seconds {times!r}; best "
-        f"{len(out) / min(times)!r} sequences/s, median "
-        f"{len(out) / statistics.median(times)!r} sequences/s")
+    log(f"# ProtSTonKGs embed (block {engine.cfg.trunk.block_size}): {len(out)} rows, "
+        f"B={engine.batch_size}, seconds {times!r}; best {len(out) / min(times)!r} "
+        f"sequences/s, median {len(out) / statistics.median(times)!r} sequences/s")
+    return len(out) / statistics.median(times)
+
+
+def _prot_step_ms(cfg: ProtSTonKGsConfig, state, loss_fn) -> float:
+    """The training step's median ms (B=2, bf16, 6 steps after 2 of
+    warm-up, each synchronised by its loss)."""
     tx = AdamW(total_steps=1000)
     step = pretraining.make_train_step(cfg, tx, loss_fn=loss_fn, compute_dtype=BF16)
     batch = pretraining.to_device(_prot_features(cfg, PROT_TRAIN_BATCH, seed=4, labels=True),
@@ -1749,10 +1840,20 @@ def phase_prot_timing(cfg: ProtSTonKGsConfig, engine, feats, state, loss_fn) -> 
             times.append(time.perf_counter() - t0)
         check(math.isfinite(loss), "non-finite ProtSTonKGs loss in the timed steps")
     med = statistics.median(times)
-    log(f"# ProtSTonKGs train step B={PROT_TRAIN_BATCH} bf16: seconds {times!r}; median "
-        f"{med * 1e3!r} ms, {PROT_TRAIN_BATCH / med!r} sequences/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
-    del state, step, tx
+    log(f"# ProtSTonKGs train step (block {cfg.trunk.block_size}) B={PROT_TRAIN_BATCH} bf16: "
+        f"seconds {times!r}; median {med * 1e3!r} ms, {PROT_TRAIN_BATCH / med!r} sequences/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    return med * 1e3
+
+
+def phase_prot_timing(cfg: ProtSTonKGsConfig, engine, feats, state, loss_fn) -> dict:
+    """Embed sequences/s (B=8), the training step (B=2, median of 6 after
+    2 of warm-up), then each new or widened kernel at the ProtSTonKGs
+    path's shapes.  Returns per kernel the path shape's numbers, and under
+    "path" the embed sequences/s and the step's median ms."""
+    path = {"sequences_per_s": _prot_embed_rate(engine, feats),
+            "step_ms": _prot_step_ms(cfg, state, loss_fn)}
+    del state
     gen = torch.Generator().manual_seed(7)
     B, Bt = PROT_BATCH, PROT_TRAIN_BATCH
     cases = [
@@ -1787,7 +1888,118 @@ def phase_prot_timing(cfg: ProtSTonKGsConfig, engine, feats, state, loss_fn) -> 
         result[key] = t
     result["bigbird_mid_fwd"]["max_abs_err"] = max(
         result["bigbird_mid_fwd"]["max_abs_err"], result["bigbird_mid_fwd:train"]["max_abs_err"])
+    result["path"] = path
     return result
+
+
+# ---------------------------------------------------------------------------
+# ProtSTonKGs at block 128: serving, pre-training and loading, full width
+# ---------------------------------------------------------------------------
+
+PROT128_STEPS = 2     # pretrain steps at block 128
+PROT128_ENTITIES = 5_000   # the loaded model's KG vocabulary (phase 19's TSV size)
+
+
+def _prot_cut_kg(params: dict, cfg: ProtSTonKGsConfig, n: int):
+    """``params`` and ``cfg`` with the KG vocabulary cut to its first ``n``
+    entities: the entity decoder and its bias sliced (the KG table is
+    built from the TSVs on loading)."""
+    pred = dict(params["cls"]["predictions"])
+    pred["entity_decoder"] = {"kernel": pred["entity_decoder"]["kernel"][:, :n].contiguous()}
+    pred["entity_bias"] = pred["entity_bias"][:n].contiguous()
+    return ({**params, "cls": {**params["cls"], "predictions": pred}},
+            cfg.replace(kg_vocab_size=n))
+
+
+def _prot128_roundtrip(cfg: ProtSTonKGsConfig, params: dict, card: str) -> None:
+    """``save_protstonkgs_pretrained`` -> ``ProtSTonKGsEngine.from_pretrained``
+    of the block-128 model (KG vocabulary cut to ``PROT128_ENTITIES``, with
+    node2vec TSVs of that many 768-wide vectors), in a temporary directory
+    removed at the end: the config.json holds block size 128, the loaded
+    trunk runs at 128 (its launch counts), and its embeddings equal an
+    engine's built from the parameters in memory, bit for bit."""
+    p, cut = _prot_cut_kg(params, cfg, PROT128_ENTITIES)
+    with tempfile.TemporaryDirectory(prefix="stonkgs_prot128_") as tmp:
+        t0 = time.perf_counter()
+        ckpt = save_protstonkgs_pretrained(p, cut, os.path.join(tmp, "ckpt"))
+        art = make_random_artifacts(PROT128_ENTITIES, dim=cut.trunk.hidden_size,
+                                    rw_len=README_RW_LEN, seed=16)
+        emb, walks = os.path.join(tmp, "emb.tsv"), os.path.join(tmp, "walks.tsv")
+        save_kg_artifacts(art, emb, walks)
+        with open(os.path.join(ckpt, "config.json")) as f:
+            written = json.load(f)
+        log(f"# ProtSTonKGs block 128 files written in {time.perf_counter() - t0:.1f} s "
+            f"(checkpoint {_dir_gb(ckpt)!r} GB, config.json block_size "
+            f"{written['block_size']})")
+        check(written["block_size"] == 128, "config.json does not hold block size 128")
+        t0 = time.perf_counter()
+        loaded = ProtSTonKGsEngine.from_pretrained(ckpt, emb, walks, batch_size=PROT_BATCH,
+                                                   device=DEV)
+        log(f"# ProtSTonKGs block 128 from_pretrained: {time.perf_counter() - t0!r} s ({card})")
+        check(loaded.cfg.trunk == cut.trunk, f"loaded trunk {loaded.cfg.trunk} differs from "
+              f"{cut.trunk}")
+        feats = _prot_features(cut, PROT_ROWS, seed=5)
+        got, _ = _prot_embed_counted("ProtSTonKGs block 128 loaded embed", loaded, feats)
+        mem = params_to(p, DEV)
+        mem["kg_backbone"] = protstonkgs.build_kg_table(mem["lm_backbone"], cut, art.vectors)
+        want = dataclasses.replace(loaded, params=mem).embed(feats)
+        err = float(np.abs(got - want).max())
+        log(f"# ProtSTonKGs block 128 loaded vs in-memory engine ({PROT_ROWS} rows, bf16): "
+            f"max_abs_err {err!r}")
+        check(err == 0.0, "the loaded block-128 engine's embeddings differ from the in-memory "
+              "engine's")
+        del loaded, mem
+    torch.cuda.empty_cache()
+
+
+def phase_prot_block128(cfg64: ProtSTonKGsConfig, params: dict, feats: dict, prot_times: dict,
+                        card: str) -> tuple:
+    """ProtSTonKGs with the trunk at ``block_size=128`` (phase 11's
+    parameters and rows): (a) ``ProtSTonKGsEngine.embed`` at B=8 on 32 rows,
+    counts from 0 just before it, and 2 rows of it against the card's fp32
+    engine (cosine 0.99); (b) ``pretrain`` at B=2 for 2 steps (launch
+    counts, finite losses, frozen backbones unchanged); (c) a save ->
+    ``from_pretrained`` round trip; (d) sequences/s, the step's median ms
+    and the kernel pair's times at block 128 beside phase 14's at block 64.
+    Returns the launch counts of (a) and (b) and the kernel pair's times."""
+    cfg = _with_block(cfg64, 128)
+    engine = ProtSTonKGsEngine(cfg=cfg, params=params_to(params, DEV, BF16),
+                               batch_size=PROT_BATCH, device=DEV)
+    out, counts = _prot_embed_counted("ProtSTonKGs embed", engine, feats)
+    few = {k: v[:2] for k, v in feats.items()}
+    card32 = ProtSTonKGsEngine(cfg=cfg, params=params, compute_dtype="float32", batch_size=2,
+                               device=DEV).embed(few)
+    cos = _cosine(out[:2], card32)
+    log(f"# ProtSTonKGs block 128 card bf16 vs card fp32 (2 rows, full depth): cosine "
+        f"{cos.tolist()!r} (limit 0.99)")
+    check(bool((cos >= 0.99).all()), "ProtSTonKGs block 128 bf16 too far from the card fp32")
+    del card32
+    train_counts, state, loss_fn = phase_prot_training(cfg, params, steps=PROT128_STEPS)
+    for name, c in train_counts.items():
+        counts[name] = counts.get(name, 0) + c
+    path = {"sequences_per_s": _prot_embed_rate(engine, feats),
+            "step_ms": _prot_step_ms(cfg, state, loss_fn)}
+    del state, loss_fn, engine
+    torch.cuda.empty_cache()
+    _prot128_roundtrip(cfg, params, card)
+    b64 = prot_times["path"]
+    log(f"# ProtSTonKGs block 128 vs block 64 ({card}): embed {path['sequences_per_s']!r} vs "
+        f"{b64['sequences_per_s']!r} sequences/s; step {path['step_ms']!r} vs "
+        f"{b64['step_ms']!r} ms")
+    gen = torch.Generator().manual_seed(8)
+    B, Bt = PROT_BATCH, PROT_TRAIN_BATCH
+    times = {}
+    for key, label, Bk, backward, plan in (
+            ("bigbird_mid_fwd", f"serving B={B} S=4096 eval plan", B, False, "eval"),
+            ("bigbird_mid_fwd:train", f"training B={Bt} S=4096 train plan", Bt, False, "train"),
+            ("bigbird_mid_bwd", f"training B={Bt} S=4096 train plan", Bt, True, "train")):
+        t = _time_sparse(f"bs=128 {label}", Bk, gen, backward, plan, bs=128)
+        log(f"# time {key.split(':')[0]} bs=128 {label} bf16: {json.dumps(t)}")
+        t64 = prot_times[key]
+        log(f"# bigbird bs=128 / bs=64 {key} {label} ({card}): {t['ms']!r} / {t64['ms']!r} ms "
+            f"= {t['ms'] / t64['ms']!r}")
+        times[key] = t
+    return counts, times
 
 
 # ---------------------------------------------------------------------------
@@ -4835,10 +5047,17 @@ def main() -> int:
         for name, c in prot_train_counts.items():
             counts[name] = counts.get(name, 0) + c
         phase_prot_train_numerics(pcfg)
+        phase_prot_train_numerics(pcfg, block_size=128)
         prot_times = phase_prot_timing(pcfg, engine, pfeats, pstate, loss_fn)
         del pstate, loss_fn
+        counts128, times128 = phase_prot_block128(pcfg, pparams, pfeats, prot_times, card)
+        for name, c in counts128.items():
+            counts[name] = counts.get(name, 0) + c
+        # the kernel line keeps block 64's times and takes the worse error
         for name in ("bigbird_mid_fwd", "bigbird_mid_bwd"):
-            times[name] = prot_times[name]
+            times[name] = dict(prot_times[name], max_abs_err=max(
+                prot_times[name]["max_abs_err"], *(t["max_abs_err"] for k, t in
+                                                   times128.items() if k.startswith(name))))
         for name in ("ffn_ln_block", "flash_attention_infer", "ffn_train_fwd", "ffn_train_bwd",
                      "flash_attention_train_fwd"):
             times[name]["max_abs_err"] = max(times[name]["max_abs_err"], *(

@@ -6,7 +6,7 @@
 //
 // Middle query block j (query rows of block i = j + 1) attends its 5 + r
 // key slots [g0 | window i-1, i, i+1 | g_last | random r]; slot key c of
-// block blk takes the penalty (1 - mask[b, 64 blk + c]) * -10000, and the
+// block blk takes the penalty (1 - mask[b, bs blk + c]) * -10000, and the
 // duplicate window slot at j = 0 (block 0 = g0) and j = nb - 3 (block nb - 1
 // = g_last) takes -10000 outright.  Repeated blocks (the all-zero eval
 // plan) are separate keys.  Logits as _mid_logits
@@ -17,39 +17,54 @@
 //
 // Both kernels have the dense attention's shape (attention_sm90.cuh): 384
 // threads, a producer warpgroup (setmaxnreg.dec) whose first warp streams
-// key tiles through a ring of full/empty mbarriers with TMA (one 4-D map
-// per tensor over (B, S, H, 64), built from the strides it is given, box
-// 64 x 64, 128-byte swizzle) and writes each tile's 64 penalties beside
-// it, and two consumer warpgroups (setmaxnreg.inc) that own one query
-// block each: 64 rows, the wgmma M.  A block takes the query blocks 2x
-// and 2x + 1 of one (b, h), and a ring stage holds slot t of both (g0,
-// g_last and the window tiles of neighbouring query blocks are read from
-// L2: the grid's x, the query-block pair, runs fastest).  With nb - 2 odd
-// the last block's second consumer repeats the last query block and
-// writes nothing.  Measured on the H100 (PERF.md, the BigBird
-// redesign): three consumers a block ran no faster than two, two blocks
-// an SM leave ptxas 80 registers a thread (it spills), and reading the
-// penalties a stage ahead in the producer ran 9% slower than reading
-// them after the stage frees.
+// 64-key tiles through a ring of full/empty mbarriers with TMA (one 4-D
+// map per tensor over (B, S, H, 64), built from the strides it is given,
+// box 64 x 64, 128-byte swizzle) and writes each tile's 64 penalties
+// beside it, and two consumer warpgroups (setmaxnreg.inc) that own 64
+// query rows each, the wgmma M.  The block size bs is 64 or 128 (the
+// template's SUB = bs / 64 sub-tiles a block):
+//   bs = 64:  a CTA takes the query blocks 2x and 2x + 1 of one (b, h),
+//             one consumer each, and a ring stage holds slot t of both
+//             (g0, g_last and the window tiles of neighbouring query
+//             blocks are read from L2: the grid's x, the query-block
+//             pair, runs fastest).  With nb - 2 odd the last CTA's second
+//             consumer repeats the last query block and writes nothing.
+//   bs = 128: a CTA takes one query block, its two consumers the two
+//             64-row halves, and a 128-key slot is two ring steps of one
+//             64-key tile (sub-tile u: keys 128 blk + 64 u ..), which
+//             both consumers read.  The ring has twice the stages of one
+//             tile, so the bytes in flight and the shared memory are
+//             those of bs = 64.  The row statistics run over all
+//             2 (5 + r) sub-tiles; in the backward each consumer adds its
+//             own 64 x 64 dK and dV of the shared sub-tile, so two adds
+//             land on each key row of a slot, in no fixed order.
+//             Widening a step to a 128-key tile would not fit: dS and P
+//             of 64 x 128 push the backward's shared memory past 227 KB.
+// Measured on the H100 (PERF.md, the BigBird redesign, bs = 64): three
+// consumers a block ran no faster than two, two blocks an SM leave ptxas
+// 80 registers a thread (it spills), and reading the penalties a stage
+// ahead in the producer ran 9% slower than reading them after the stage
+// frees.
 //
-// Forward (bigbird_fwd_sm90_kernel), two passes over the slots, because
-// the TPU kernel normalises before it rounds:
-//   pass 1: S = Q K^T of each slot (wgmma.m64n64k16, both operands K-major
+// Forward (bigbird_fwd_sm90_kernel), two passes over the slots' tiles,
+// because the TPU kernel normalises before it rounds:
+//   pass 1: S = Q K^T of each tile (wgmma.m64n64k16, both operands K-major
 //           from shared memory); the logits in registers; each row's
 //           running max m and sum l of exp(s - m);
 //   pass 2: S recomputed; p = exp(s - m) * (1/l), rounded; O += P V with P
 //           from registers (the packed accumulator is the A fragment) and
 //           the V tile MN-major.
 // So the design's floor is three products of 2 * 64 * 64 * 64 flops a
-// slot and query block, and two exps a score: at B=8, S=4096, H=12, 195 M
-// scores need 0.093 ms of the SFU (16 ex2 a clock an SM at 1.98 GHz)
-// against 0.076 ms of products at 989 TFLOP/s and 0.060 ms of bytes.  The
+// tile and 64 query rows, and two exps a score: at B=8, S=4096, H=12,
+// bs=64, 195 M scores need 0.093 ms of the SFU (16 ex2 a clock an SM at
+// 1.98 GHz) against 0.076 ms of products at 989 TFLOP/s and 0.060 ms of
+// bytes (at bs=128: 0.180 ms against 0.146 and 0.059).  The
 // roundings to bf16 run on the same quarter-rate unit as the exps (the
 // single rounding made the forward 10% faster).
 //
 // Backward (bigbird_bwd_sm90_kernel), query-major as the TPU kernel: a
 // consumer keeps its block's Q and dO (and, for delta = rowsum(dO * O),
-// O) in shared memory and dQ in registers; per slot
+// O) in shared memory and dQ in registers; per slot tile
 //   S = Q K^T, dP = dO V^T                         (wgmma from shared memory)
 //   p = exp(s - lse), dS = p (dP - delta) * scale  (fp32, registers)
 //   round(p), and dS as hi = round(dS) and lo = round(dS - hi) (16 of its
@@ -57,15 +72,16 @@
 //   dQ += dS K (hi and lo), dK = dS^T Q (hi and lo), dV = round(p)^T dO:
 //   wgmma from shared memory, dS^T and P^T as M-major A operands, K, Q
 //   and dO as MN-major B operands;
-// then the slot's fp32 dK and dV tiles go to shared memory (128-byte
+// then the tile's fp32 dK and dV go to shared memory (128-byte
 // swizzle) and one thread adds them into the fp32 (B, S, H, 64)
 // accumulators with four TMA reduce-adds (cp.reduce.async.bulk.tensor
 // .add, 32 columns a box), where the old design made 65,536 scalar
 // atomics a query block (red.global.add.v4.f32 from registers, without
 // the staging, measured 27% slower).  Blocks run in no order, so the adds
 // into a key row land in an order that changes from run to run.  Seven
-// products a slot (dS's two halves count twice in dQ and dK) and one exp
-// a score: at B=2 0.044 ms of products against 0.012 ms of the SFU.
+// products a tile (dS's two halves count twice in dQ and dK) and one exp
+// a score: at B=2, bs=64 0.044 ms of products against 0.012 ms of the
+// SFU.
 //
 // Numerics against the plain versions (ops/bigbird_sparse.py): products
 // summed in another order; exp(s - x) as ex2.approx of s log2 e - x log2 e
@@ -85,11 +101,12 @@
 namespace stonkgs {
 namespace bigbird {
 
-constexpr int kBlock = 64;            // block size (query and key rows of a tile)
+constexpr int kRows = 64;             // query and key rows of a tile; a block is 1 or 2
 constexpr float kPenalty = -10000.f;  // BigBird's mask penalty
 
 struct Geo {
   int S, H, nb, r;
+  int bs;                // block size: 64 or 128
   long long sb, ss, sh;  // element strides of q, k, v
   float scale;
 };
@@ -108,9 +125,10 @@ __device__ __forceinline__ bool dup_slot(int t, int j, int nb) {
   return (t == 1 && j == 0) || (t == 3 && j == nb - 3);
 }
 
-// the penalty of key c of slot block blk, mask_b the batch row's (S) mask
-__device__ __forceinline__ float slot_penalty(const float* mask_b, int blk, int c, bool dup) {
-  return dup ? kPenalty : (1.f - __ldg(mask_b + blk * kBlock + c)) * kPenalty;
+// the penalty of key `key` (a row of S) of a slot, mask_b the batch row's
+// (S) mask; `dup` for every key of the duplicate window slot
+__device__ __forceinline__ float slot_penalty(const float* mask_b, int key, bool dup) {
+  return dup ? kPenalty : (1.f - __ldg(mask_b + key)) * kPenalty;
 }
 
 }  // namespace bigbird
@@ -119,11 +137,12 @@ namespace bigbird90 {
 
 using namespace sm90;
 using bigbird::Geo;
-using bigbird::kBlock;
+using bigbird::kRows;
 
 constexpr int kD = 64;
-// consumer warpgroups (one query block each) and ring stages of the
-// forward and of the backward
+// consumer warpgroups (64 query rows each) and ring stages of the forward
+// and of the backward at bs = 64 (a stage holds one tile a query block of
+// the CTA; at bs = 128, with one query block, twice the stages)
 constexpr int kFwdConsumers = 2;
 constexpr int kFwdStages = 4;
 constexpr int kBwdConsumers = 2;
@@ -138,35 +157,36 @@ __host__ __device__ constexpr int threads_of(int consumers) { return 128 * (cons
 __host__ __device__ constexpr int consumer_regs(int consumers, int producer) {
   return (65536 / 128 - producer) / consumers / 8 * 8;
 }
-constexpr int kTile = kBlock * kD;            // elements of a 64 x 64 tile
+constexpr int kTile = kRows * kD;             // elements of a 64 x 64 tile
 constexpr uint32_t kTileBytes = kTile * 2;    // 8 KB in bf16
 constexpr uint32_t kStep = 16 * 128 / 16;     // 16 lines of 128 bytes, in descriptor units
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int C, int S>
+// C consumers, Q query blocks a CTA (C / SUB), S ring stages
+template <int C, int Q, int S>
 struct alignas(1024) SmemFwd {
   bf16 q[C][kTile];
-  bf16 k[S][C][kTile];
-  bf16 v[S][C][kTile];
-  float pen[S][C][kBlock];
+  bf16 k[S][Q][kTile];
+  bf16 v[S][Q][kTile];
+  float pen[S][Q][kRows];
   uint64_t full[S];
   uint64_t empty[S];
   uint64_t rowbar;  // the blocks' own tiles
 };
 
-template <int C, int S>
+template <int C, int Q, int S>
 struct alignas(1024) SmemBwd {
   bf16 q[C][kTile];
   bf16 dout[C][kTile];
-  bf16 p[C][kTile];    // O (for delta), then each slot's round(p)
+  bf16 p[C][kTile];    // O (for delta), then each tile's round(p)
   bf16 dsh[C][kTile];  // dS, hi
   bf16 dsl[C][kTile];  // dS, lo
-  float dk[C][2][kBlock * 32];  // a slot's fp32 dK: two 32-column boxes
-  float dv[C][2][kBlock * 32];
-  bf16 k[S][C][kTile];
-  bf16 v[S][C][kTile];
-  float pen[S][C][kBlock];
-  float delta[C][kBlock];
+  float dk[C][2][kRows * 32];  // a tile's fp32 dK: two 32-column boxes
+  float dv[C][2][kRows * 32];
+  bf16 k[S][Q][kTile];
+  bf16 v[S][Q][kTile];
+  float pen[S][Q][kRows];
+  float delta[C][kRows];
   uint64_t full[S];
   uint64_t empty[S];
   uint64_t rowbar;
@@ -191,40 +211,40 @@ __device__ __forceinline__ void init_ring(SmemT& sm) {
 struct Stage {
   bf16 (*k)[kTile];
   bf16 (*v)[kTile];
-  float (*pen)[kBlock];
+  float (*pen)[kRows];
   uint64_t* full;
 };
 
-// the producer warp fills a free ring stage with slot t of the C
-// consumers' query blocks jc[c] (their random blocks at rand_c[c]): lane 0
-// issues the K (and V) tiles' TMA loads first, then every lane writes its
-// two penalties of each tile (keys lane and lane + 32) and arrives
-// (reading the penalties a stage ahead instead measured 9% slower in the
-// forward)
-template <int C>
+// the producer warp fills a free ring stage with sub-tile u of slot t of
+// the CTA's Q query blocks jc[c] (their random blocks at rand_c[c]; a
+// block of BS keys): lane 0 issues the K (and V) tiles' TMA loads first,
+// then every lane writes its two penalties of each tile (keys lane and
+// lane + 32) and arrives (reading the penalties a stage ahead instead
+// measured 9% slower in the forward)
+template <int Q, int BS>
 __device__ __forceinline__ void fill_stage(const Stage& st, const CUtensorMap* map_k,
                                            const CUtensorMap* map_v, const int* jc,
                                            const int* const* rand_c, const float* mask_b, int t,
-                                           int h, int b, int nb, bool with_v, int lane) {
-  int blk[C];
-  float pen[C][2];
+                                           int u, int h, int b, int nb, bool with_v, int lane) {
+  int key0[Q];
+  float pen[Q][2];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    blk[c] = bigbird::slot_block(rand_c[c], t, jc[c], nb);
+  for (int c = 0; c < Q; ++c) {
+    key0[c] = bigbird::slot_block(rand_c[c], t, jc[c], nb) * BS + u * kRows;
     const bool dup = bigbird::dup_slot(t, jc[c], nb);
-    pen[c][0] = bigbird::slot_penalty(mask_b, blk[c], lane, dup);
-    pen[c][1] = bigbird::slot_penalty(mask_b, blk[c], lane + 32, dup);
+    pen[c][0] = bigbird::slot_penalty(mask_b, key0[c] + lane, dup);
+    pen[c][1] = bigbird::slot_penalty(mask_b, key0[c] + lane + 32, dup);
   }
   if (lane == 0) {
-    mbar_expect_tx(st.full, (with_v ? 2 : 1) * C * kTileBytes);
+    mbar_expect_tx(st.full, (with_v ? 2 : 1) * Q * kTileBytes);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      tma_load_4d(st.k[c], map_k, 0, h, blk[c] * kBlock, b, st.full);
-      if (with_v) tma_load_4d(st.v[c], map_v, 0, h, blk[c] * kBlock, b, st.full);
+    for (int c = 0; c < Q; ++c) {
+      tma_load_4d(st.k[c], map_k, 0, h, key0[c], b, st.full);
+      if (with_v) tma_load_4d(st.v[c], map_v, 0, h, key0[c], b, st.full);
     }
   }
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
+  for (int c = 0; c < Q; ++c) {
     st.pen[c][lane] = pen[c][0];
     st.pen[c][lane + 32] = pen[c][1];
   }
@@ -271,17 +291,20 @@ __device__ __forceinline__ void store_acc(bf16* dst0, bf16* dst8, const float (&
 // forward
 // ---------------------------------------------------------------------------
 
-template <int C, int S>
+// C consumers, S ring stages, SUB = bs / 64 sub-tiles a block
+template <int C, int S, int SUB>
 __global__ void __launch_bounds__(threads_of(C), 1)
 bigbird_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
                         const float* __restrict__ mask, const int* __restrict__ rand,
                         bf16* __restrict__ out, float* __restrict__ lse, Geo g) {
+  constexpr int Q = C / SUB, BS = SUB * kRows;  // query blocks a CTA, the block size
+  static_assert(C % SUB == 0, "a query block's halves in one CTA");
   extern __shared__ unsigned char smem_raw[];
-  SmemFwd<C, S>& sm = aligned_smem<SmemFwd<C, S>>(smem_raw);
+  SmemFwd<C, Q, S>& sm = aligned_smem<SmemFwd<C, Q, S>>(smem_raw);
   const int h = blockIdx.y, b = blockIdx.z;
-  const int n_mid = g.nb - 2, slots = 5 + g.r;
+  const int n_mid = g.nb - 2, steps = (5 + g.r) * SUB;  // ring steps a pass
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   init_ring<C, S>(sm);
 
@@ -289,45 +312,48 @@ bigbird_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---------------- producer ----------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kFwdProducerRegs));
     if (warp == 0) {
-      int jc[C];
-      const int* rand_c[C];
+      int jc[Q];
+      const int* rand_c[Q];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        jc[c] = min(int(blockIdx.x) * C + c, n_mid - 1);
+      for (int c = 0; c < Q; ++c) {
+        jc[c] = min(int(blockIdx.x) * Q + c, n_mid - 1);
         rand_c[c] = rand + (size_t(h) * n_mid + jc[c]) * g.r;
       }
       if (lane == 0) {
         mbar_arrive_tx(&sm.rowbar, C * kTileBytes);
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          tma_load_4d(sm.q[c], &map_q, 0, h, (jc[c] + 1) * kBlock, b, &sm.rowbar);
+        for (int w = 0; w < C; ++w)
+          tma_load_4d(sm.q[w], &map_q, 0, h, (jc[w / SUB] + 1) * BS + (w % SUB) * kRows, b,
+                      &sm.rowbar);
       }
       const float* mask_b = mask + size_t(b) * g.S;
-      for (int it = 0; it < 2 * slots; ++it) {
-        const int stage = it % S;
+      for (int it = 0; it < 2 * steps; ++it) {
+        const int stage = it % S, step = it % steps;
         mbar_wait(&sm.empty[stage], ((it / S) & 1) ^ 1);
         const Stage st{sm.k[stage], sm.v[stage], sm.pen[stage], &sm.full[stage]};
-        fill_stage<C>(st, &map_k, &map_v, jc, rand_c, mask_b, it % slots, h, b, g.nb,
-                      it >= slots, lane);
+        fill_stage<Q, BS>(st, &map_k, &map_v, jc, rand_c, mask_b, step / SUB, step % SUB, h, b,
+                          g.nb, it >= steps, lane);
       }
     }
   } else {
     // ---------------- consumers ----------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(consumer_regs(C, kFwdProducerRegs)));
-    const int j = blockIdx.x * C + wg;  // the middle query block (may be n_mid)
-    const int lrow = warp * 16 + lane / 4;       // the thread's rows: lrow, lrow + 8
+    const int qb = wg / SUB;                  // the CTA's query block of this consumer
+    const int j = blockIdx.x * Q + qb;        // the middle query block (may be n_mid)
+    const int row0 = j * BS + (wg % SUB) * kRows;  // its first row among the middle rows
+    const int lrow = warp * 16 + lane / 4;    // the thread's rows: lrow, lrow + 8
     const uint64_t dq = desc_sw128(sm.q[wg]);
     float acc[32];
 
-    // the logits of slot tile `stage`
+    // the logits of the tile of ring stage `stage`
     auto scores = [&](int stage) {
       fence_regs(acc);
       wgmma_fence();
-      product_abt(acc, dq, desc_sw128(sm.k[stage][wg]));
+      product_abt(acc, dq, desc_sw128(sm.k[stage][qb]));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
-      logits(acc, sm.pen[stage][wg], g.scale, lane);
+      logits(acc, sm.pen[stage][qb], g.scale, lane);
     };
     mbar_wait(&sm.rowbar, 0);
 
@@ -335,7 +361,7 @@ bigbird_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     // thread (over its 16 columns, scaled by the row's shared m) and
     // summed across the quad at the end
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    for (int t = 0; t < slots; ++t) {
+    for (int t = 0; t < steps; ++t) {
       const int stage = t % S;
       mbar_wait(&sm.full[stage], (t / S) & 1);
       scores(stage);
@@ -355,14 +381,14 @@ bigbird_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int i = 0; i < 32; ++i)
         l[acc_row(i)] += ex2(fmaf(acc[i], kLog2e, -m[acc_row(i)] * kLog2e));
     }
-    const size_t n_rows = size_t(n_mid) * kBlock;  // middle rows of a (b, h)
+    const size_t n_rows = size_t(n_mid) * BS;  // middle rows of a (b, h)
     float inv_l[2], ml[2];  // 1/l and m log2 e of the thread's rows
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       if (j < n_mid && (lane & 3) == 0)
-        lse[(size_t(b) * g.H + h) * n_rows + size_t(j) * kBlock + lrow + 8 * r] = m[r] + logf(l[r]);
+        lse[(size_t(b) * g.H + h) * n_rows + row0 + lrow + 8 * r] = m[r] + logf(l[r]);
       inv_l[r] = 1.f / l[r];
       ml[r] = m[r] * kLog2e;
     }
@@ -371,8 +397,8 @@ bigbird_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     float o[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
-    for (int t = 0; t < slots; ++t) {
-      const int it = slots + t, stage = it % S;
+    for (int t = 0; t < steps; ++t) {
+      const int it = steps + t, stage = it % S;
       mbar_wait(&sm.full[stage], (it / S) & 1);
       scores(stage);
       uint32_t pa[16];  // the A fragments of k-step kk are pa[4kk .. 4kk+3]
@@ -382,19 +408,19 @@ bigbird_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         pa[u] = pack_bf16(ex2(fmaf(acc[i], kLog2e, -ml[r])) * inv_l[r],
                           ex2(fmaf(acc[i + 1], kLog2e, -ml[r])) * inv_l[r]);
       }
-      const uint64_t dv = desc_sw128(sm.v[stage][wg]);
+      const uint64_t dv = desc_sw128(sm.v[stage][qb]);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBlock / 16; ++kk) wgmma_pv(o, pa + 4 * kk, dv + kk * kStep);
+      for (int kk = 0; kk < kRows / 16; ++kk) wgmma_pv(o, pa + 4 * kk, dv + kk * kStep);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
       release_stage(&sm.empty[stage], lane);
     }
     if (j < n_mid) {
-      bf16* row0 = out + ((size_t(b) * n_rows + size_t(j) * kBlock + lrow) * g.H + h) * kD;
-      store_acc(row0, row0 + size_t(8) * g.H * kD, o, lane);
+      bf16* dst = out + ((size_t(b) * n_rows + row0 + lrow) * g.H + h) * kD;
+      store_acc(dst, dst + size_t(8) * g.H * kD, o, lane);
     }
   }
 }
@@ -405,7 +431,7 @@ bigbird_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // a 64 x 64 fp32 accumulator into two 64-line boxes of 32 floats (128-byte
 // swizzle), the layout of a TMA box of the fp32 accumulator's map
-__device__ __forceinline__ void stage_f32(float (*boxes)[kBlock * 32], const float (&d)[32],
+__device__ __forceinline__ void stage_f32(float (*boxes)[kRows * 32], const float (&d)[32],
                                           int lrow, int lane) {
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
@@ -419,7 +445,8 @@ __device__ __forceinline__ void st_shared_u32(bf16* tile, uint32_t byte_off, uin
   *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(tile) + byte_off) = v;
 }
 
-template <int C, int S>
+// C consumers, S ring stages, SUB = bs / 64 sub-tiles a block
+template <int C, int S, int SUB>
 __global__ void __launch_bounds__(threads_of(C), 1)
 bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -430,10 +457,12 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_dv,
                         const float* __restrict__ mask, const int* __restrict__ rand,
                         const float* __restrict__ lse, bf16* __restrict__ dq, Geo g) {
+  constexpr int Q = C / SUB, BS = SUB * kRows;  // query blocks a CTA, the block size
+  static_assert(C % SUB == 0, "a query block's halves in one CTA");
   extern __shared__ unsigned char smem_raw[];
-  SmemBwd<C, S>& sm = aligned_smem<SmemBwd<C, S>>(smem_raw);
+  SmemBwd<C, Q, S>& sm = aligned_smem<SmemBwd<C, Q, S>>(smem_raw);
   const int h = blockIdx.y, b = blockIdx.z;
-  const int n_mid = g.nb - 2, slots = 5 + g.r;
+  const int n_mid = g.nb - 2, steps = (5 + g.r) * SUB;  // ring steps
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   init_ring<C, S>(sm);
 
@@ -441,36 +470,40 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---------------- producer ----------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwdProducerRegs));
     if (warp == 0) {
-      int jc[C];
-      const int* rand_c[C];
+      int jc[Q];
+      const int* rand_c[Q];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        jc[c] = min(int(blockIdx.x) * C + c, n_mid - 1);
+      for (int c = 0; c < Q; ++c) {
+        jc[c] = min(int(blockIdx.x) * Q + c, n_mid - 1);
         rand_c[c] = rand + (size_t(h) * n_mid + jc[c]) * g.r;
       }
       if (lane == 0) {
         mbar_arrive_tx(&sm.rowbar, 3 * C * kTileBytes);
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          tma_load_4d(sm.q[c], &map_q, 0, h, (jc[c] + 1) * kBlock, b, &sm.rowbar);
-          tma_load_4d(sm.dout[c], &map_do, 0, h, jc[c] * kBlock, b, &sm.rowbar);
-          tma_load_4d(sm.p[c], &map_o, 0, h, jc[c] * kBlock, b, &sm.rowbar);
+        for (int w = 0; w < C; ++w) {
+          const int mrow = jc[w / SUB] * BS + (w % SUB) * kRows;  // among the middle rows
+          tma_load_4d(sm.q[w], &map_q, 0, h, BS + mrow, b, &sm.rowbar);
+          tma_load_4d(sm.dout[w], &map_do, 0, h, mrow, b, &sm.rowbar);
+          tma_load_4d(sm.p[w], &map_o, 0, h, mrow, b, &sm.rowbar);
         }
       }
       const float* mask_b = mask + size_t(b) * g.S;
-      for (int t = 0; t < slots; ++t) {
-        const int stage = t % S;
-        mbar_wait(&sm.empty[stage], ((t / S) & 1) ^ 1);
+      for (int it = 0; it < steps; ++it) {
+        const int stage = it % S;
+        mbar_wait(&sm.empty[stage], ((it / S) & 1) ^ 1);
         const Stage st{sm.k[stage], sm.v[stage], sm.pen[stage], &sm.full[stage]};
-        fill_stage<C>(st, &map_k, &map_v, jc, rand_c, mask_b, t, h, b, g.nb, true, lane);
+        fill_stage<Q, BS>(st, &map_k, &map_v, jc, rand_c, mask_b, it / SUB, it % SUB, h, b,
+                          g.nb, true, lane);
       }
     }
   } else {
     // ---------------- consumers ----------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(consumer_regs(C, kBwdProducerRegs)));
-    const int j = blockIdx.x * C + wg;  // the middle query block (may be n_mid)
+    const int qb = wg / SUB;             // the CTA's query block of this consumer
+    const int j = blockIdx.x * Q + qb;   // the middle query block (may be n_mid)
     const bool valid = j < n_mid;
     const int jc = min(j, n_mid - 1);
+    const int row0 = jc * BS + (wg % SUB) * kRows;  // its first row among the middle rows
     const int tid = threadIdx.x % 128;
     const int lrow = warp * 16 + lane / 4;  // the thread's rows: lrow, lrow + 8
     const int bar = 1 + wg;                 // the warpgroup's named barrier
@@ -502,10 +535,10 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     named_barrier(bar, 128);  // delta is in and O is read: sm.p is free
     float lse_l[2], delta_r[2];  // lse log2 e and delta of the thread's rows
-    const size_t n_rows = size_t(n_mid) * kBlock;
+    const size_t n_rows = size_t(n_mid) * BS;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      lse_l[r] = kLog2e * lse[(size_t(b) * g.H + h) * n_rows + size_t(jc) * kBlock + lrow + 8 * r];
+      lse_l[r] = kLog2e * lse[(size_t(b) * g.H + h) * n_rows + row0 + lrow + 8 * r];
       delta_r[r] = sm.delta[wg][lrow + 8 * r];
     }
     const uint64_t dqd = desc_sw128(sm.q[wg]), dod = desc_sw128(sm.dout[wg]);
@@ -515,10 +548,10 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
 
-    for (int t = 0; t < slots; ++t) {
-      const int stage = t % S;
-      mbar_wait(&sm.full[stage], (t / S) & 1);
-      const uint64_t dkd = desc_sw128(sm.k[stage][wg]), dvd = desc_sw128(sm.v[stage][wg]);
+    for (int it = 0; it < steps; ++it) {
+      const int stage = it % S;
+      mbar_wait(&sm.full[stage], (it / S) & 1);
+      const uint64_t dkd = desc_sw128(sm.k[stage][qb]), dvd = desc_sw128(sm.v[stage][qb]);
       // S = Q K^T and dP = dO V^T
       float s[32], dp[32];
       fence_regs(s);
@@ -530,9 +563,9 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      logits(s, sm.pen[stage][wg], g.scale, lane);
+      logits(s, sm.pen[stage][qb], g.scale, lane);
       // p = exp(s - lse), dS = p (dP - delta) * scale; round(p), dS hi and lo
-      // into shared memory (the previous slot's products are done: every
+      // into shared memory (the previous tile's products are done: every
       // warp passed the barriers below since)
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
@@ -557,17 +590,17 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(dv_acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBlock / 16; ++kk) {
+      for (int kk = 0; kk < kRows / 16; ++kk) {
         wgmma_ss64<0, 1>(dq_acc, dshd + 2 * kk, dkd + kk * kStep, 1);
         wgmma_ss64<0, 1>(dq_acc, dsld + 2 * kk, dkd + kk * kStep, 1);
       }
 #pragma unroll
-      for (int kk = 0; kk < kBlock / 16; ++kk) {
+      for (int kk = 0; kk < kRows / 16; ++kk) {
         wgmma_ss64<1, 1>(dk_acc, dshd + kk * kStep, dqd + kk * kStep, kk);
         wgmma_ss64<1, 1>(dk_acc, dsld + kk * kStep, dqd + kk * kStep, 1);
       }
 #pragma unroll
-      for (int kk = 0; kk < kBlock / 16; ++kk)
+      for (int kk = 0; kk < kRows / 16; ++kk)
         wgmma_ss64<1, 1>(dv_acc, dpd + kk * kStep, dod + kk * kStep, kk);
       wgmma_commit();
       wgmma_wait<0>();
@@ -575,16 +608,17 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(dk_acc);
       fence_regs(dv_acc);
       release_stage(&sm.empty[stage], lane);
-      // the slot's dK and dV, staged in shared memory, then added into the
+      // the tile's dK and dV, staged in shared memory, then added into the
       // accumulators with four TMA reduce-adds
-      if (tid == 0) tma_store_read_done();  // the previous slot's adds have read the staging
+      if (tid == 0) tma_store_read_done();  // the previous tile's adds have read the staging
       named_barrier(bar, 128);
       stage_f32(sm.dk[wg], dk_acc, lrow, lane);
       stage_f32(sm.dv[wg], dv_acc, lrow, lane);
       fence_async_shared();
       named_barrier(bar, 128);
       if (tid == 0 && valid) {
-        const int key0 = bigbird::slot_block(rand_j, t, jc, g.nb) * kBlock;
+        const int key0 =
+            bigbird::slot_block(rand_j, it / SUB, jc, g.nb) * BS + (it % SUB) * kRows;
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
           tma_reduce_add_4d(&map_dk, sm.dk[wg][x], 32 * x, h, key0, b);
@@ -595,8 +629,8 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     if (tid == 0) tma_store_done();
     if (valid) {
-      bf16* row0 = dq + ((size_t(b) * g.S + size_t(j + 1) * kBlock + lrow) * g.H + h) * kD;
-      store_acc(row0, row0 + size_t(8) * g.H * kD, dq_acc, lane);
+      bf16* dst = dq + ((size_t(b) * g.S + BS + row0 + lrow) * g.H + h) * kD;
+      store_acc(dst, dst + size_t(8) * g.H * kD, dq_acc, lane);
     }
   }
 }
@@ -604,14 +638,15 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 // --- host side --------------------------------------------------------------
 
 // 4-D map of a (B, S, H, 64) tensor of T with element strides (sb, ss, sh)
-// and a unit last stride: dims (64, H, S, B), box (box_d, 1, 64, 1)
+// and a unit last stride: dims (64, H, S, B), box (box_d, 1, 64, 1): one
+// 64-row tile at either block size
 template <typename T>
 inline bool make_map_bshd(CUtensorMap* map, const void* base, int B, int S, int H, long long sb,
                           long long ss, long long sh, int box_d) {
   const cuuint64_t dims[4] = {cuuint64_t(kD), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(sh) * sizeof(T), cuuint64_t(ss) * sizeof(T),
                                  cuuint64_t(sb) * sizeof(T)};
-  const cuuint32_t box[4] = {cuuint32_t(box_d), 1, cuuint32_t(kBlock), 1};
+  const cuuint32_t box[4] = {cuuint32_t(box_d), 1, cuuint32_t(kRows), 1};
   return encode_map(map, MapType<T>::kType, base, 4, dims, strides, box);
 }
 
@@ -627,8 +662,23 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
-inline dim3 grid_of(int B, const Geo& g, int consumers) {
-  return dim3((g.nb - 2 + consumers - 1) / consumers, g.H, B);
+// a CTA a pair of query blocks at bs = 64, one query block at bs = 128
+inline dim3 grid_of(int B, const Geo& g, int blocks_per_cta) {
+  return dim3((g.nb - 2 + blocks_per_cta - 1) / blocks_per_cta, g.H, B);
+}
+
+template <int S, int SUB>
+inline int launch_fwd_sm90_t(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                             const float* mask, const int* rand, void* out, float* lse, int B,
+                             const Geo& g, cudaStream_t stream) {
+  constexpr int C = kFwdConsumers;
+  constexpr size_t smem = sizeof(SmemFwd<C, C / SUB, S>) + 1024;
+  auto kernel = bigbird_fwd_sm90_kernel<C, S, SUB>;
+  const cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return int(e);
+  kernel<<<grid_of(B, g, C / SUB), threads_of(C), smem, stream>>>(
+      mq, mk, mv, mask, rand, static_cast<bf16*>(out), lse, g);
+  return int(cudaGetLastError());
 }
 
 inline int launch_fwd_sm90(const void* q, const void* k, const void* v, const float* mask,
@@ -639,13 +689,23 @@ inline int launch_fwd_sm90(const void* q, const void* k, const void* v, const fl
       !make_map_bshd<bf16>(&mk, k, B, g.S, g.H, g.sb, g.ss, g.sh, kD) ||
       !make_map_bshd<bf16>(&mv, v, B, g.S, g.H, g.sb, g.ss, g.sh, kD))
     return kErrTensorMap;
-  constexpr int C = kFwdConsumers;
-  constexpr size_t smem = sizeof(SmemFwd<C, kFwdStages>) + 1024;
-  auto kernel = bigbird_fwd_sm90_kernel<C, kFwdStages>;
+  if (g.bs == 2 * kRows)
+    return launch_fwd_sm90_t<2 * kFwdStages, 2>(mq, mk, mv, mask, rand, out, lse, B, g, stream);
+  return launch_fwd_sm90_t<kFwdStages, 1>(mq, mk, mv, mask, rand, out, lse, B, g, stream);
+}
+
+template <int S, int SUB>
+inline int launch_bwd_sm90_t(const CUtensorMap (&maps)[7], const float* mask, const int* rand,
+                             const float* lse, void* dq, int B, const Geo& g,
+                             cudaStream_t stream) {
+  constexpr int C = kBwdConsumers;
+  constexpr size_t smem = sizeof(SmemBwd<C, C / SUB, S>) + 1024;
+  auto kernel = bigbird_bwd_sm90_kernel<C, S, SUB>;
   const cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return int(e);
-  kernel<<<grid_of(B, g, C), threads_of(C), smem, stream>>>(
-      mq, mk, mv, mask, rand, static_cast<bf16*>(out), lse, g);
+  kernel<<<grid_of(B, g, C / SUB), threads_of(C), smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], mask, rand, lse,
+      static_cast<bf16*>(dq), g);
   return int(cudaGetLastError());
 }
 
@@ -653,24 +713,19 @@ inline int launch_bwd_sm90(const void* q, const void* k, const void* v, const fl
                            const int* rand, const void* out, const float* lse, const void* dout,
                            void* dq, float* dk, float* dv, int B, const Geo& g,
                            cudaStream_t stream) {
-  const int n_rows = (g.nb - 2) * kBlock;
-  CUtensorMap mq, mk, mv, mo, mdo, mdk, mdv;
-  if (!make_map_bshd<bf16>(&mq, q, B, g.S, g.H, g.sb, g.ss, g.sh, kD) ||
-      !make_map_bshd<bf16>(&mk, k, B, g.S, g.H, g.sb, g.ss, g.sh, kD) ||
-      !make_map_bshd<bf16>(&mv, v, B, g.S, g.H, g.sb, g.ss, g.sh, kD) ||
-      !make_map_dense<bf16>(&mo, out, B, n_rows, g.H, kD) ||
-      !make_map_dense<bf16>(&mdo, dout, B, n_rows, g.H, kD) ||
-      !make_map_dense<float>(&mdk, dk, B, g.S, g.H, 32) ||
-      !make_map_dense<float>(&mdv, dv, B, g.S, g.H, 32))
+  const int n_rows = (g.nb - 2) * g.bs;
+  CUtensorMap maps[7];  // q, k, v, o, dO, dK, dV
+  if (!make_map_bshd<bf16>(&maps[0], q, B, g.S, g.H, g.sb, g.ss, g.sh, kD) ||
+      !make_map_bshd<bf16>(&maps[1], k, B, g.S, g.H, g.sb, g.ss, g.sh, kD) ||
+      !make_map_bshd<bf16>(&maps[2], v, B, g.S, g.H, g.sb, g.ss, g.sh, kD) ||
+      !make_map_dense<bf16>(&maps[3], out, B, n_rows, g.H, kD) ||
+      !make_map_dense<bf16>(&maps[4], dout, B, n_rows, g.H, kD) ||
+      !make_map_dense<float>(&maps[5], dk, B, g.S, g.H, 32) ||
+      !make_map_dense<float>(&maps[6], dv, B, g.S, g.H, 32))
     return kErrTensorMap;
-  constexpr int C = kBwdConsumers;
-  constexpr size_t smem = sizeof(SmemBwd<C, kBwdStages>) + 1024;
-  auto kernel = bigbird_bwd_sm90_kernel<C, kBwdStages>;
-  const cudaError_t e = set_smem(kernel, smem);
-  if (e != cudaSuccess) return int(e);
-  kernel<<<grid_of(B, g, C), threads_of(C), smem, stream>>>(
-      mq, mk, mv, mo, mdo, mdk, mdv, mask, rand, lse, static_cast<bf16*>(dq), g);
-  return int(cudaGetLastError());
+  if (g.bs == 2 * kRows)
+    return launch_bwd_sm90_t<2 * kBwdStages, 2>(maps, mask, rand, lse, dq, B, g, stream);
+  return launch_bwd_sm90_t<kBwdStages, 1>(maps, mask, rand, lse, dq, B, g, stream);
 }
 
 }  // namespace bigbird90

@@ -1,5 +1,6 @@
 // BigBird block-sparse attention, the middle query blocks, forward and
-// backward (HF BigBirdBlockSparseAttention, block size 64, head width 64).
+// backward (HF BigBirdBlockSparseAttention, block size 64 or 128, head
+// width 64).
 //
 // Replaces the TPU kernels _mid_blocks_kernel and _mid_blocks_bwd_kernel
 // (stonkgs_tpu/ops/bigbird_sparse_pallas.py:83 and :113, which share
@@ -11,44 +12,49 @@
 // of 64 per middle query block): the forward at B=8 moves 4 x 50.3 MB of
 // q, k, v and out against 49.9 GFLOP of products, bound by bytes (0.061
 // ms against 0.050 ms at 989 TFLOP/s); the backward at B=2 does 31.2
-// GFLOP against ~101 MB, bound by operations.  See
+// GFLOP against ~101 MB, bound by operations.  At bs=128 (W = 1,024 keys)
+// the products nearly double and both are bound by operations.  See
 // stonkgs_tpu_torch/ops/bigbird_sparse.py for the numbers.
 //
 // bf16 runs the Hopper kernels of bigbird_sm90.cuh (TMA rings, wgmma; the
 // forward's two passes as the dense attention's, the backward's dK and dV
 // added with TMA reduce-adds).  The fp32 bodies here exist to hold the
 // model against the CPU: one block of 128 threads (4 warps of 16 query
-// rows) per (middle query block j, head h, batch b), query block i = j +
-// 1, streaming the 5 + r key slots [g0 | window i-1, i, i+1 | g_last |
-// random r] one 64-key tile at a time from the (B, S, H, D) layout with
-// strides into shared memory, with the slot penalties of bigbird_sm90.cuh.
+// rows) per 64 query rows (half u of middle query block j at bs = 128: the
+// grid's x is j * bs / 64 + u), head h and batch b, query block i = j + 1,
+// streaming the 5 + r key slots [g0 | window i-1, i, i+1 | g_last |
+// random r] one 64-key tile at a time (bs / 64 tiles a slot) from the
+// (B, S, H, D) layout with strides into shared memory, with the slot
+// penalties of bigbird_sm90.cuh.
 //
-// Forward, two passes over the slots (the TPU kernel normalises before it
-// rounds, which rules out the online softmax): pass 1 the row max m and
-// sum l of exp; pass 2 p = exp(s - m) / l, O += P V in fp32.  lse = m +
-// log l.  Logits as _mid_logits: s = Q K^T * scale + penalty (the
+// Forward, two passes over the slots' tiles (the TPU kernel normalises
+// before it rounds, which rules out the online softmax): pass 1 the row
+// max m and sum l of exp; pass 2 p = exp(s - m) / l, O += P V in fp32.
+// lse = m + log l.  Logits as _mid_logits: s = Q K^T * scale + penalty (the
 // roundings to the input type are the identity in fp32).
 //
 // Backward: the block keeps q, dO of its rows, and the row statistics lse
-// and delta = sum(dO * O); per slot tile it recomputes p = exp(s - lse),
+// and delta = sum(dO * O); per key tile it recomputes p = exp(s - lse),
 // dP = dO V^T, dS = p (dP - delta) * scale, accumulates dQ += dS K in
-// registers, and forms the slot's dK = dS^T q and dV = p^T dO, which it
+// registers, and forms the tile's dK = dS^T q and dV = p^T dO, which it
 // adds into the (B, S, H, D) accumulators with atomicAdd (blocks run in no
 // order; the TPU kernel carries them across its sequential j axis).  The
 // products are plain fp32 FMAs.
 //
 // C interface (pointers on the device; q, k, v share the element strides
 // sb, ss, sh of their (B, S, H, D) view, the last axis contiguous; out,
-// dout are (B, (nb-2)*64, H, 64) and lse (B, H, (nb-2)*64), contiguous;
+// dout are (B, (nb-2)*bs, H, 64) and lse (B, H, (nb-2)*bs), contiguous;
 // mask (B, S) fp32; rand (H, nb-2, r) int32; dq (B, S, H, 64) of q's type
-// and dk, dv fp32 accumulators of that shape, contiguous and zeroed):
+// and dk, dv fp32 accumulators of that shape, contiguous and zeroed; the
+// block size bs is 64 or 128 and the head width D 64, else the call
+// returns cudaErrorInvalidValue and launches nothing):
 //   int bigbird_mid_fwd(int dtype /*0 fp32, 1 bf16*/, q, k, v, mask, rand,
-//                       out, lse, int B, int S, int H, int r,
+//                       out, lse, int B, int S, int H, int r, int bs, int D,
 //                       long long sb, long long ss, long long sh,
 //                       float scale, cudaStream_t stream)
 //   int bigbird_mid_bwd(int dtype, q, k, v, mask, rand, out, lse, dout, dq,
-//                       dk, dv, int B, int S, int H, int r, sb, ss, sh,
-//                       float scale, cudaStream_t stream)
+//                       dk, dv, int B, int S, int H, int r, int bs, int D,
+//                       sb, ss, sh, float scale, cudaStream_t stream)
 // each returning cudaGetLastError() after its launch.
 
 #include "attention.cuh"
@@ -69,18 +75,24 @@ using attn::Sizes;
 using attn::store_rows;
 using T = float;  // the SIMT bodies' type (bf16 runs bigbird_sm90.cuh)
 
-// Slot t's K (and V) tile into shared memory, with its penalty vector;
-// barriers on both sides.
+// the first key (a row of S) of 64-key tile u of slot t of middle query
+// block j
+__device__ __forceinline__ int tile_key0(const Geo& g, const int* rand_hj, int j, int t, int u) {
+  return slot_block(rand_hj, t, j, g.nb) * g.bs + u * kTile;
+}
+
+// Tile u of slot t: its K (and V) rows into shared memory, with its
+// penalty vector; barriers on both sides.
 __device__ __forceinline__ void load_slot(const Geo& g, const T* k, const T* v, const float* mask_b,
                                           const int* rand_hj, size_t head_off, int j, int t,
-                                          T* ks, T* vs, float* pen) {
-  const int blk = slot_block(rand_hj, t, j, g.nb);
-  const size_t off = head_off + size_t(blk) * kTile * g.ss;
+                                          int u, T* ks, T* vs, float* pen) {
+  const int key0 = tile_key0(g, rand_hj, j, t, u);
+  const size_t off = head_off + size_t(key0) * g.ss;
   __syncthreads();  // the previous tile is consumed
   load_rows<T>(ks, k + off, g.ss, kTile);
   if (vs) load_rows<T>(vs, v + off, g.ss, kTile);
   if (threadIdx.x < kTile)
-    pen[threadIdx.x] = slot_penalty(mask_b, blk, threadIdx.x, dup_slot(t, j, g.nb));
+    pen[threadIdx.x] = slot_penalty(mask_b, key0 + threadIdx.x, dup_slot(t, j, g.nb));
   __syncthreads();
 }
 
@@ -99,8 +111,10 @@ mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                T* __restrict__ out, float* __restrict__ lse, Geo g) {
   using Z = Sizes<T>;
   constexpr int TS = Z::TS;
-  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_mid = g.nb - 2, slots = 5 + g.r;
+  const int sub = g.bs / kTile;  // 64-row tiles a block
+  const int j = blockIdx.x / sub, h = blockIdx.y, b = blockIdx.z;
+  const int n_mid = g.nb - 2, tiles = (5 + g.r) * sub;
+  const int mrow0 = j * g.bs + int(blockIdx.x % sub) * kTile;  // first row among the middle rows
 
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
@@ -118,13 +132,13 @@ mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   float* sw = sst + warp * 16 * kSST;
   T* pw = pst + warp * 16 * TS;
 
-  load_rows<T>(qs, q + head_off + size_t(j + 1) * kTile * g.ss, g.ss, kTile);
+  load_rows<T>(qs, q + head_off + size_t(g.bs + mrow0) * g.ss, g.ss, kTile);
 
   const int row = lane >> 1, half = lane & 1;
   float m = -INFINITY, l = 0.f;
   // pass 1: running max and sum of exp over every slot's keys
-  for (int t = 0; t < slots; ++t) {
-    load_slot(g, k, v, mask_b, rand_hj, head_off, j, t, ks, nullptr, pen);
+  for (int x = 0; x < tiles; ++x) {
+    load_slot(g, k, v, mask_b, rand_hj, head_off, j, x / sub, x % sub, ks, nullptr, pen);
     score_tile<T>(qw, ks, sw, lane);
     float tmax = -INFINITY;
     for (int c = half; c < kTile; c += 2)
@@ -139,14 +153,14 @@ mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     m = m_new;
     __syncwarp();
   }
-  const int r0 = j * kTile + warp * 16;  // the warp's first row among the middle rows
-  if (half == 0) lse[(size_t(b) * g.H + h) * (size_t(n_mid) * kTile) + r0 + row] = m + logf(l);
+  const int r0 = mrow0 + warp * 16;  // the warp's first row among the middle rows
+  if (half == 0) lse[(size_t(b) * g.H + h) * (size_t(n_mid) * g.bs) + r0 + row] = m + logf(l);
 
   // pass 2: O = P V, P = round(exp(s - m) / l)
   PvAcc<T> acc;
   acc.zero();
-  for (int t = 0; t < slots; ++t) {
-    load_slot(g, k, v, mask_b, rand_hj, head_off, j, t, ks, vs, pen);
+  for (int x = 0; x < tiles; ++x) {
+    load_slot(g, k, v, mask_b, rand_hj, head_off, j, x / sub, x % sub, ks, vs, pen);
     score_tile<T>(qw, ks, sw, lane);
     for (int c = half; c < kTile; c += 2)
       pw[row * TS + c] = expf(logit(sw[row * kSST + c], g.scale, pen[c]) - m) / l;
@@ -156,7 +170,7 @@ mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
   acc.store(sw, lane);
   const size_t ors = size_t(g.H) * kD;  // row stride of out
-  store_rows<T>(out + (size_t(b) * n_mid * kTile + r0) * ors + size_t(h) * kD, ors, sw, 16, 1.f,
+  store_rows<T>(out + (size_t(b) * n_mid * g.bs + r0) * ors + size_t(h) * kD, ors, sw, 16, 1.f,
                 lane);
 }
 
@@ -220,8 +234,10 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                float* __restrict__ dv, Geo g) {
   using Z = Sizes<T>;
   constexpr int TS = Z::TS;
-  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_mid = g.nb - 2, slots = 5 + g.r;
+  const int sub = g.bs / kTile;  // 64-row tiles a block
+  const int j = blockIdx.x / sub, h = blockIdx.y, b = blockIdx.z;
+  const int n_mid = g.nb - 2, tiles = (5 + g.r) * sub;
+  const int mrow0 = j * g.bs + int(blockIdx.x % sub) * kTile;  // first row among the middle rows
 
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
@@ -241,10 +257,10 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int* rand_hj = rand + (size_t(h) * n_mid + j) * g.r;
   const float* mask_b = mask + size_t(b) * g.S;
   const size_t ors = size_t(g.H) * kD;                                     // out, dout, dq, dk, dv rows
-  const size_t mid0 = (size_t(b) * n_mid * kTile + size_t(j) * kTile) * ors + size_t(h) * kD;
+  const size_t mid0 = (size_t(b) * n_mid * g.bs + mrow0) * ors + size_t(h) * kD;
   const size_t full_b = size_t(b) * g.S * ors + size_t(h) * kD;          // (b, 0, h, 0) of dq, dk, dv
 
-  load_rows<T>(qs, q + head_off + size_t(j + 1) * kTile * g.ss, g.ss, kTile);
+  load_rows<T>(qs, q + head_off + size_t(g.bs + mrow0) * g.ss, g.ss, kTile);
   load_rows<T>(dos, dout + mid0, ors, kTile);
   load_rows<T>(ks, out + mid0, ors, kTile);  // O, for delta
   __syncthreads();
@@ -253,7 +269,7 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     float s = 0.f;
     for (int d = 0; d < kD; ++d) s += dos[r * TS + d] * ks[r * TS + d];
     delta_s[r] = s;
-    lse_s[r] = lse[(size_t(b) * g.H + h) * (size_t(n_mid) * kTile) + size_t(j) * kTile + r];
+    lse_s[r] = lse[(size_t(b) * g.H + h) * (size_t(n_mid) * g.bs) + mrow0 + r];
   }
 
   const int wr = warp * 16;  // the warp's rows
@@ -263,8 +279,8 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   float* dpw = dpst + warp * 16 * kSST;
   PvAcc<T> dq_acc;
   dq_acc.zero();
-  for (int t = 0; t < slots; ++t) {
-    load_slot(g, k, v, mask_b, rand_hj, head_off, j, t, ks, vs, pen);
+  for (int x = 0; x < tiles; ++x) {
+    load_slot(g, k, v, mask_b, rand_hj, head_off, j, x / sub, x % sub, ks, vs, pen);
     score_tile<T>(qw, ks, sw, lane);   // Q K^T
     score_tile<T>(dow, vs, dpw, lane); // dO V^T
     for (int e = lane; e < 16 * kTile; e += 32) {
@@ -279,9 +295,9 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     dq_acc.mma(dst + wr * TS, ks, lane);
     __syncthreads();  // every warp's rows of P and dS are in
 
-    // the slot's dK and dV rows [key0, key0 + 16) of this warp
-    const int blk = slot_block(rand_hj, t, j, g.nb);
-    const size_t key_rows = full_b + size_t(blk * kTile + wr) * ors;
+    // the tile's dK and dV rows [wr, wr + 16) of this warp
+    const int key0 = tile_key0(g, rand_hj, j, x / sub, x % sub);
+    const size_t key_rows = full_b + size_t(key0 + wr) * ors;
     TAcc acc;
     acc.zero();
     acc.mma(dst, qs, wr, lane);
@@ -293,7 +309,7 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     atomic_add_rows(dv + key_rows, ors, dpw, lane);
   }
   dq_acc.store(sw, lane);
-  store_rows<T>(dq + full_b + size_t((j + 1) * kTile + wr) * ors, ors, sw, 16, 1.f, lane);
+  store_rows<T>(dq + full_b + size_t(g.bs + mrow0 + wr) * ors, ors, sw, 16, 1.f, lane);
 }
 
 int launch_fwd(const void* q, const void* k, const void* v, const float* mask, const int* rand,
@@ -303,7 +319,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const float* mask, c
   cudaError_t e = cudaFuncSetAttribute(mid_fwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
-  const dim3 grid(g.nb - 2, g.H, B);
+  const dim3 grid((g.nb - 2) * (g.bs / kTile), g.H, B);
   mid_fwd_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, rand,
       static_cast<T*>(out), lse, g);
@@ -317,7 +333,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* mask, c
   cudaError_t e = cudaFuncSetAttribute(mid_bwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
-  const dim3 grid(g.nb - 2, g.H, B);
+  const dim3 grid((g.nb - 2) * (g.bs / kTile), g.H, B);
   mid_bwd_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, rand,
       static_cast<const T*>(out), lse, static_cast<const T*>(dout), static_cast<T*>(dq), dk, dv,
@@ -325,9 +341,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* mask, c
   return int(cudaGetLastError());
 }
 
-bool bad_geometry(int B, int S, int H, int r) {
-  return B <= 0 || H <= 0 || r < 0 || S % kTile != 0 || S / kTile < 5 || B > 65535 ||
-         H > 65535;
+// the kernels take blocks of one or two 64-row tiles and head width 64
+bool bad_geometry(int B, int S, int H, int r, int bs, int D) {
+  return B <= 0 || H <= 0 || r < 0 || (bs != kTile && bs != 2 * kTile) || D != kD ||
+         S % bs != 0 || S / bs < 5 || B > 65535 || H > 65535;
 }
 
 // the bf16 kernels round a logit once: 1/sqrt(64) is a power of two
@@ -342,11 +359,11 @@ bool power_of_two(float x) {
 
 extern "C" int bigbird_mid_fwd(int dtype, const void* q, const void* k, const void* v,
                                const float* mask, const int* rand, void* out, float* lse, int B,
-                               int S, int H, int r, long long sb, long long ss, long long sh,
-                               float scale, void* stream) {
+                               int S, int H, int r, int bs, int D, long long sb, long long ss,
+                               long long sh, float scale, void* stream) {
   using namespace stonkgs::bigbird;
-  if (bad_geometry(B, S, H, r)) return int(cudaErrorInvalidValue);
-  const Geo g{S, H, S / kTile, r, sb, ss, sh, scale};
+  if (bad_geometry(B, S, H, r, bs, D)) return int(cudaErrorInvalidValue);
+  const Geo g{S, H, S / bs, r, bs, sb, ss, sh, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fwd(q, k, v, mask, rand, out, lse, B, g, s);
   if (dtype == 1 && power_of_two(scale))
@@ -357,11 +374,11 @@ extern "C" int bigbird_mid_fwd(int dtype, const void* q, const void* k, const vo
 extern "C" int bigbird_mid_bwd(int dtype, const void* q, const void* k, const void* v,
                                const float* mask, const int* rand, const void* out,
                                const float* lse, const void* dout, void* dq, float* dk, float* dv,
-                               int B, int S, int H, int r, long long sb, long long ss,
-                               long long sh, float scale, void* stream) {
+                               int B, int S, int H, int r, int bs, int D, long long sb,
+                               long long ss, long long sh, float scale, void* stream) {
   using namespace stonkgs::bigbird;
-  if (bad_geometry(B, S, H, r)) return int(cudaErrorInvalidValue);
-  const Geo g{S, H, S / kTile, r, sb, ss, sh, scale};
+  if (bad_geometry(B, S, H, r, bs, D)) return int(cudaErrorInvalidValue);
+  const Geo g{S, H, S / bs, r, bs, sb, ss, sh, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_bwd(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B, g, s);
   if (dtype == 1 && power_of_two(scale))

@@ -26,53 +26,74 @@ bigbird_sparse_pallas.py:83``, launched at ``:227``, with ``_gather_kv``
 at ``:51`` and ``_mid_logits`` at ``:70``) and ``_mid_blocks_bwd_kernel``
 (``:113``, launched at ``:272``).
 
-What bounds them on the H100, at the trunk's shape (S=4096, H=12, D=64,
-bs=64, r=3, so W = (5+r)·bs = 512 keys per middle query block), counting
-each input byte once and each output byte once:
+The kernels take block size 64 or 128 and head width 64; a CUDA tensor
+at any other block size or head width raises (there is no fallback to
+the plain versions on the card).
 
-* forward, B=8 bf16: 4·B·H·(nb-2)·bs·W·D = 49.9 GFLOP against q, k, v and
-  out (4 × 50.3 MB) plus the mask and the fp32 lse: 0.050 ms of products
-  at 989 TFLOP/s against 0.061 ms of bytes at 3.35 TB/s: bound by bytes;
-* backward, B=2: 10·B·H·(nb-2)·bs·W·D (the logits recomputed, dP, dQ, dK,
-  dV) = 31.2 GFLOP against q, k, v, o, dO read and dq, dk, dv written
-  (8 × 12.6 MB) plus lse: 0.032 ms of products, 0.030 ms of bytes: bound
-  by operations.
+What bounds them on the H100, at the trunk's shape (S=4096, H=12, D=64,
+r=3, so W = (5+r)·bs keys per middle query block), counting each input
+byte once and each output byte once, products at 989 TFLOP/s and bytes
+at 3.35 TB/s:
+
+* bs=64 (W=512, 62 middle blocks): the forward at B=8 does 4·B·H·(nb-2)
+  ·bs·W·D = 49.9 GFLOP against q's middle rows, k, v and out (~4 × 50.3
+  MB) plus the mask and the fp32 lse: 0.050 ms of products against 0.061
+  ms of bytes, bound by bytes; the backward at B=2 does 10·B·H·(nb-2)·bs
+  ·W·D (the logits recomputed, dP, dQ, dK, dV) = 31.2 GFLOP against q, k,
+  v, o, dO read and dq, dk, dv written (~8 × 12.6 MB) plus lse: 0.032 ms
+  of products, 0.030 ms of bytes, bound by operations;
+* bs=128 (W=1,024, 30 middle blocks): twice the keys a query row, so
+  96.6 GFLOP at B=8 (0.098 ms) against about the same bytes (0.059 ms)
+  and 60.4 GFLOP for the backward at B=2 (0.061 ms): both bound by
+  operations.  On the TPU, 128-wide blocks filled the 128 × 128 matrix
+  unit; the H100's ``wgmma`` is full at 64 rows, so block 128 is a model
+  the card must run, not a faster mode.
 
 The design's floor on top of that bound (``csrc/bigbird_sm90.cuh``): the
-forward's two passes need 2 exps a score, 0.093 ms of the SFU at B=8
-(16 ex2 a clock an SM), above its 3 products (0.076 ms); the backward's
-7 products (dS as two bf16 terms) take 0.044 ms.
+forward's two passes need 2 exps a score, 0.093 ms of the SFU at B=8,
+bs=64 (16 ex2 a clock an SM) and 0.180 ms at bs=128, above its 3 products
+(0.076 and 0.146 ms); the backward's 7 products (dS as two bf16 terms)
+take 0.044 ms at B=2, bs=64 and 0.086 ms at bs=128.
 
 Design.  The TPU kernel keeps a whole (S, D) key and value slice in VMEM
-per (batch, head) and assembles the 8 key blocks of a middle query block
-by VMEM-to-VMEM slices.  On Hopper (bf16, ``csrc/bigbird_sm90.cuh``) a
-block of 384 threads takes two neighbouring middle query blocks of one
-(batch, head), one consumer warpgroup each (64 rows, the ``wgmma`` M),
-and a producer warp streams the 64-key tiles of their slots [g0 | window
-i-1, i, i+1 | g_last | random r] through a TMA ring, from 4-D tensor maps
-built over the (B, S, H, D) views with their strides (:func:`tma_map_args`
-states which strides a map takes), with each tile's penalties beside it.
-The forward makes two passes over the slots (row max and sum of exp, then
+per (batch, head) and assembles the key blocks of a middle query block by
+VMEM-to-VMEM slices.  On Hopper (bf16, ``csrc/bigbird_sm90.cuh``) a CTA
+of 384 threads has two consumer warpgroups of 64 query rows each (the
+``wgmma`` M) and a producer warp that streams 64-key tiles of the slots
+[g0 | window i-1, i, i+1 | g_last | random r] through a TMA ring, from
+4-D tensor maps built over the (B, S, H, D) views with their strides
+(:func:`tma_map_args` states which strides a map takes), with each
+tile's penalties beside it.  At bs=64 the two consumers take two
+neighbouring middle query blocks of one (batch, head), and a ring stage
+holds a slot tile of each; at bs=128 they take the two 64-row halves of
+one query block, a 128-key slot is two ring steps of one 64-key tile that
+both read, and the ring has twice as many one-tile stages (the same
+shared memory): the row statistics span all 2·(5+r) sub-tiles, and the
+penalty of key c of sub-tile u of slot block blk is that of mask[b,
+128·blk + 64·u + c].  Widening a step to a 128-key tile instead would
+push the backward's dS and P tiles past the 227 KB a CTA may take.  The
+forward makes two passes over the tiles (row max and sum of exp, then
 normalised probabilities, rounded, times V), because the TPU kernel
 normalises before it rounds, as the port's dense attention kernels do;
 Q·Kᵀ and P·V run on ``wgmma``, the softmax in registers.  The (B, S) mask
 is read in the kernel, and the duplicate window slot at query blocks 1
-and nb-2 (where the window holds a global block) takes the penalty there:
-the TPU kernel's gathered mask outside the kernel was a Mosaic
-workaround.  The eval plan is all zeros: its random slots repeat block 0,
-each as a key of its own in the softmax, as the TPU kernel and HF count
-them.
+and nb-2 (where the window holds a global block) takes the penalty there
+(all its sub-tiles): the TPU kernel's gathered mask outside the kernel
+was a Mosaic workaround.  The eval plan is all zeros: its random slots
+repeat block 0, each as a key of its own in the softmax, as the TPU
+kernel and HF count them.
 
 The TPU backward carries dK and dV in VMEM across the sequential j axis.
-Hopper blocks run in no order, so each consumer forms a slot's 64 × 64
-dK and dV tiles on ``wgmma`` and adds them into fp32 (B, S, H, D)
-accumulators with TMA reduce-adds (the adds land in an order that changes
-from run to run); the global blocks take one add from each of the nb-2
-query blocks of their (batch, head).  The wrapper casts the accumulators
-to the input dtype.  dQ of a middle block is the block's own and is
-written once.  The fp32 instantiation (``csrc/bigbird_sparse.cu``) is a
-SIMT body with plain fp32 FMAs and ``atomicAdd``, there to hold the model
-against the CPU.
+Hopper blocks run in no order, so each consumer forms a tile's 64 × 64 dK
+and dV on ``wgmma`` and adds them into fp32 (B, S, H, D) accumulators
+with TMA reduce-adds (the adds land in an order that changes from run to
+run; at bs=128 both halves of a query block add into the same key rows);
+the global blocks take one add from each middle query block (each half)
+of their (batch, head).  The wrapper casts the accumulators to the input
+dtype.  dQ of a middle block's rows is the consumer's own and is written
+once.  The fp32 instantiation (``csrc/bigbird_sparse.cu``) is a SIMT body
+with plain fp32 FMAs and ``atomicAdd``, one CTA a 64-row half at bs=128,
+there to hold the model against the CPU.
 
 Rounding, as ``_mid_logits`` and the two TPU kernels: Q·Kᵀ accumulated in
 fp32 from products of the input dtype, rounded to it, times 1/√D (rounded
@@ -101,17 +122,18 @@ import torch
 from stonkgs_tpu_torch.ops import _build
 
 ATTN_PENALTY = -10000.0
-KERNEL_BLOCK = 64       # the kernels' block size
-KERNEL_HEAD_DIM = 64    # and head width
+KERNEL_BLOCKS = (64, 128)   # the kernels' block sizes
+KERNEL_TILE = 64            # rows of their tiles (a block is one or two)
+KERNEL_HEAD_DIM = 64        # and head width
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = _build.P, _build.I32, _build.I64, _build.F32
 _SIGNATURES = {
     # int bigbird_mid_fwd(dtype, q, k, v, mask, rand, out, lse, B, S, H, r,
-    #                     sb, ss, sh, scale, stream)
-    "bigbird_mid_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_L] * 3 + [_F, _P],
+    #                     bs, D, sb, ss, sh, scale, stream)
+    "bigbird_mid_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_L] * 3 + [_F, _P],
     # int bigbird_mid_bwd(dtype, q, k, v, mask, rand, out, lse, dout, dq, dk,
-    #                     dv, B, S, H, r, sb, ss, sh, scale, stream)
-    "bigbird_mid_bwd": [_I] + [_P] * 11 + [_I] * 4 + [_L] * 3 + [_F, _P],
+    #                     dv, B, S, H, r, bs, D, sb, ss, sh, scale, stream)
+    "bigbird_mid_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_L] * 3 + [_F, _P],
 }
 
 
@@ -375,14 +397,14 @@ def _geometry(q, k, v, mask, rand_attn, block_size) -> Tuple[int, int, int, int,
 
 def _check_cuda(what: str, q, tensors, block_size: int) -> None:
     """Raise unless the CUDA kernels take these arguments: fp32 or bf16 q
-    of head width 64, block size 64, every tensor on q's card."""
+    of head width 64, block size 64 or 128, every tensor on q's card."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: unsupported dtype {q.dtype}")
-    if q.shape[-1] != KERNEL_HEAD_DIM or block_size != KERNEL_BLOCK:
-        raise ValueError(f"{what} kernel takes D={KERNEL_HEAD_DIM} and block size "
-                         f"{KERNEL_BLOCK}, got D={q.shape[-1]}, block size {block_size}")
+    if q.shape[-1] != KERNEL_HEAD_DIM or block_size not in KERNEL_BLOCKS:
+        raise ValueError(f"{what} kernel takes D={KERNEL_HEAD_DIM} and a block size in "
+                         f"{KERNEL_BLOCKS}, got D={q.shape[-1]}, block size {block_size}")
     for t in tensors:
         if t.device != q.device:
             raise ValueError(f"{what}: tensors on different devices")
@@ -392,15 +414,15 @@ def tma_map_args(t: torch.Tensor):
     """The 4-D TMA tensor map the Hopper kernels build over a (B, S, H, D)
     view from its strides (``csrc/bigbird_sm90.cuh::make_map_bshd``): dims
     (D, H, S, B) innermost first, the byte strides of dims 1-3 and the box
-    (D, 1, block, 1); None where a map cannot take the view (a last stride
-    other than 1, or a byte stride that is not a multiple of 16 or not
-    below 2**40)."""
+    (D, 1, 64, 1), one 64-row tile at either block size; None where a map
+    cannot take the view (a last stride other than 1, or a byte stride
+    that is not a multiple of 16 or not below 2**40)."""
     B, S, H, D = t.shape
     sb, ss, sh, sd = t.stride()
     strides = tuple(x * t.element_size() for x in (sh, ss, sb))
     if sd != 1 or any(x % 16 or x >= 2 ** 40 for x in strides):
         return None
-    return (D, H, S, B), strides, (D, 1, KERNEL_BLOCK, 1)
+    return (D, H, S, B), strides, (D, 1, KERNEL_TILE, 1)
 
 
 def _strided_qkv(q, k, v):
@@ -436,7 +458,8 @@ def bigbird_mid_fwd(q, k, v, mask, rand_attn, block_size):
     lib = _build.load("bigbird_sparse", _SIGNATURES)
     status = lib.bigbird_mid_fwd(
         _DTYPES[q.dtype], *(_build.ptr(t) for t in (q, k, v, maskf, rand, out, lse)),
-        B, S, H, r, sb, ss, sh, 1.0 / math.sqrt(q.shape[3]), _build.stream(q.device))
+        B, S, H, r, block_size, q.shape[3], sb, ss, sh, 1.0 / math.sqrt(q.shape[3]),
+        _build.stream(q.device))
     _build.check(status, "bigbird_mid_fwd")
     bigbird_mid_fwd.launches += 1
     return out, lse
@@ -476,7 +499,7 @@ def bigbird_mid_bwd(q, k, v, mask, rand_attn, block_size, out, lse, dout):
     status = lib.bigbird_mid_bwd(
         _DTYPES[q.dtype],
         *(_build.ptr(t) for t in (q, k, v, maskf, rand, out, lse, dout, dq, dk, dv)),
-        B, S, H, r, sb, ss, sh, 1.0 / math.sqrt(D), _build.stream(q.device))
+        B, S, H, r, block_size, D, sb, ss, sh, 1.0 / math.sqrt(D), _build.stream(q.device))
     _build.check(status, "bigbird_mid_bwd")
     bigbird_mid_bwd.launches += 1
     return dq, dk.to(q.dtype), dv.to(q.dtype)

@@ -7,6 +7,11 @@ dropout at 0 so that training mode is comparable.  Weights come from the
 JAX ``init_protstonkgs_params`` through ``protstonkgs_params_from_jax``;
 batches are made with a numpy seed.
 
+The pre-training loss and its gradients are also held at the trunk's
+block size 128 (``CFG128``: S=1024 laid out text 384 | KG 128 | protein
+512, the text in 3 chunks of 128), where the trunk's middle blocks take
+the kernels' block-128 plain versions.
+
 Tolerances: pooled outputs and logits within 1e-5 absolute; losses within
 1e-5 absolute; gradients within 2e-5 absolute + 1e-4 relative; parameters
 after one AdamW step within 1e-5 absolute, 1% of the step (both frameworks
@@ -54,6 +59,15 @@ CFG = jconfig.ProtSTonKGsConfig(
     sep_id=102, mask_id=103, unk_id=100, num_labels=3)
 
 
+CFG128 = jconfig.ProtSTonKGsConfig(
+    trunk=dataclasses.replace(CFG.trunk, hidden_size=16, intermediate_size=32,
+                              max_position_embeddings=1024, block_size=128),
+    lm=_bert(vocab_size=128, hidden_size=16, intermediate_size=32, max_position_embeddings=128),
+    prot=_bert(vocab_size=30, hidden_size=8, intermediate_size=16, max_position_embeddings=512),
+    kg_vocab_size=150, kg_start_idx=384, prot_start_idx=512, seq_len=1024,
+    sep_id=102, mask_id=103, unk_id=100, num_labels=3)
+
+
 def port_cfg(cfg):
     """The port's config with the same fields as a JAX-package config."""
     d = dataclasses.asdict(cfg)
@@ -65,22 +79,23 @@ def port_cfg(cfg):
 TCFG = port_cfg(CFG)
 
 
-def features(n, seed=0, padded=True):
+def features(n, seed=0, padded=True, cfg=CFG):
     """Rows of random ids with k = max(int(0.15 * len), 1) masked positions
-    per segment; with ``padded`` the trunk masks the tail of some rows."""
+    per segment; with ``padded`` the trunk masks the tail of some rows (the
+    last 7/32 of the sequence: inside a middle block)."""
     rng = np.random.default_rng(seed)
-    tl, el, pl = CFG.text_len, CFG.entity_len, CFG.prot_len
-    ids = np.concatenate([rng.integers(0, CFG.lm_vocab_size, (n, tl)),
-                          rng.integers(0, CFG.kg_table_size, (n, el)),
-                          rng.integers(0, CFG.prot_vocab_size, (n, pl))], 1)
-    mask = np.ones((n, CFG.seq_len), np.int64)
+    tl, el, pl = cfg.text_len, cfg.entity_len, cfg.prot_len
+    ids = np.concatenate([rng.integers(0, cfg.lm_vocab_size, (n, tl)),
+                          rng.integers(0, cfg.kg_table_size, (n, el)),
+                          rng.integers(0, cfg.prot_vocab_size, (n, pl))], 1)
+    mask = np.ones((n, cfg.seq_len), np.int64)
     if padded:
-        mask[::2, 25:] = 0
+        mask[::2, cfg.seq_len * 25 // 32:] = 0
     out = {"input_ids": ids.astype(np.int64), "attention_mask": mask}
-    for name, a, b, vocab in (("masked_lm_labels", 0, tl, CFG.lm_vocab_size),
-                              ("ent_masked_lm_labels", tl, tl + el, CFG.kg_vocab_size),
-                              ("prot_masked_lm_labels", tl + el, CFG.seq_len,
-                               CFG.prot_vocab_size)):
+    for name, a, b, vocab in (("masked_lm_labels", 0, tl, cfg.lm_vocab_size),
+                              ("ent_masked_lm_labels", tl, tl + el, cfg.kg_vocab_size),
+                              ("prot_masked_lm_labels", tl + el, cfg.seq_len,
+                               cfg.prot_vocab_size)):
         k = max(int((b - a) * 0.15), 1)
         lab = np.full((n, b - a), -100, np.int64)
         for i in range(n):
@@ -89,12 +104,17 @@ def features(n, seed=0, padded=True):
     return out
 
 
+def _jax_params(cfg):
+    p = jax.jit(lambda key: jprot.init_protstonkgs_params(key, cfg, with_classifier=True))(
+        jax.random.PRNGKey(0))
+    p["kg_backbone"] = jax.random.normal(jax.random.PRNGKey(1),
+                                         (cfg.kg_table_size, cfg.trunk.hidden_size))
+    return jax.tree.map(np.asarray, p)
+
+
 @pytest.fixture(scope="module")
 def params():
-    p = jprot.init_protstonkgs_params(jax.random.PRNGKey(0), CFG, with_classifier=True)
-    p["kg_backbone"] = jax.random.normal(jax.random.PRNGKey(1),
-                                         (CFG.kg_table_size, CFG.trunk.hidden_size))
-    return jax.tree.map(np.asarray, p)
+    return _jax_params(CFG)
 
 
 def _jb(batch):
@@ -108,9 +128,9 @@ def _tb(batch):
 TRAIN_KEYS = ("trunk", "prot_projection", "cls")
 
 
-def _port_trainable(tree):
+def _port_trainable(tree, tcfg=TCFG):
     """A JAX trainable tree (numpy leaves) in the port's layout."""
-    out = {"trunk": bigbird_params_from_jax(tree["trunk"], TCFG.trunk)}
+    out = {"trunk": bigbird_params_from_jax(tree["trunk"], tcfg.trunk)}
     for k in ("prot_projection", "cls"):
         out[k] = tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)), tree[k])
     return out
@@ -131,29 +151,41 @@ def test_trunk_forward_pooled_matches_jax(params, trunk_type):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
 
 
-@pytest.mark.parametrize("dense_heads", [False, True], ids=["gathered", "dense"])
-def test_pretraining_loss_and_grads_match_jax(params, dense_heads):
-    batch = features(3, seed=2)
+@pytest.mark.parametrize("dense_heads,block", [(False, 4), (True, 4), (False, 128)],
+                         ids=["gathered", "dense", "gathered-bs128"])
+def test_pretraining_loss_and_grads_match_jax(params, dense_heads, block):
+    """The loss and the trunk, projection and head gradients in training
+    mode (the training plan); at block 128 the trunk's block-sparse layers
+    run the kernels' block-128 plain versions."""
+    cfg, tcfg = (CFG, TCFG) if block == CFG.trunk.block_size else (CFG128, port_cfg(CFG128))
+    if cfg is CFG128:
+        params = _jax_params(CFG128)
+        from stonkgs_tpu_torch.models.bigbird import effective_attention_type
+        assert effective_attention_type(tcfg.trunk, tcfg.seq_len) == "block_sparse"
+    batch = features(3, seed=2, cfg=cfg)
     jp = jax.tree.map(jnp.asarray, params)
     frozen = {k: jp[k] for k in ("lm_backbone", "prot_backbone", "kg_backbone", "classifier")}
 
     def jloss(train):
-        return jprot.pretraining_loss({**train, **frozen}, CFG, _jb(batch),
+        return jprot.pretraining_loss({**train, **frozen}, cfg, _jb(batch),
                                       dense_heads=dense_heads, deterministic=False,
                                       dropout_rng=jax.random.PRNGKey(0))
 
-    (jl, jm), jg = jax.value_and_grad(jloss, has_aux=True)({k: jp[k] for k in TRAIN_KEYS})
-    tp = protstonkgs_params_from_jax(params, TCFG)
+    value_and_grad = jax.value_and_grad(jloss, has_aux=True)
+    if cfg is CFG128:   # op by op, the sparse gathers at S=1024 take ~25 s on the CPU
+        value_and_grad = jax.jit(value_and_grad)
+    (jl, jm), jg = value_and_grad({k: jp[k] for k in TRAIN_KEYS})
+    tp = protstonkgs_params_from_jax(params, tcfg)
     leaves = tree_leaves({k: tp[k] for k in TRAIN_KEYS})
     for t in leaves:
         t.requires_grad_(True)
-    tl, tm = tprot.pretraining_loss(tp, TCFG, _tb(batch), dense_heads=dense_heads,
+    tl, tm = tprot.pretraining_loss(tp, tcfg, _tb(batch), dense_heads=dense_heads,
                                     deterministic=False, rng=tpre.step_rng(0, 0, "cpu"))
     grads = torch.autograd.grad(tl, leaves, allow_unused=True)
     for k in ("loss", "text_loss", "entity_loss", "prot_loss"):
         np.testing.assert_allclose(tm[k].item(), float(jm[k]), err_msg=k, **FWD_TOL)
     got = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    want = tree_leaves(_port_trainable(jax.tree.map(np.asarray, jg)))
+    want = tree_leaves(_port_trainable(jax.tree.map(np.asarray, jg), tcfg))
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=f"grad leaf {i}", **GRAD_TOL)
