@@ -32,7 +32,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``ATTN_STEP`` of their scale, a limit that must reject dK without its
    scale and dV without the keep scale) and the FFN pair (M = 0, 1, 3,
    127, 128, 129, 1,000, 8,192, 16,384 with gelu and gelu_new; bf16 at
-   I=1000; H=1024 at M = 3 and 6,144; the bf16 dh limit must reject a dh
+   I=992; H=1024 at M = 3 and 6,144; the bf16 dh limit must reject a dh
    whose gelu' lacks its h-dependent term), against their plain versions,
    in bf16 and fp32;
 5. serving: ``STonKGsEngine.embed`` at full BERT-base width (backbone and
@@ -255,10 +255,32 @@ Phases, each fatal on failure (exit code 1, no result line):
     (B=8 eval plan, B=2 training plan forward and backward) beside its
     bound, floor, plain version, SDPA over gathered operands and the
     block-64 time of the same run.
+26. widths: (a) the attention kernels at D = 16 and 32 (inference, the
+    training forward at rates 0 and 0.1, its output limit shown to reject
+    another seed's mask, and the backward), S = 1, 63, 129, 300 and 512,
+    B=1 and B=8 with a row whose keys are all at -1e9, and the three FFN
+    kernels at H = 32, 64, 96, 384 and 512, I = 4H, M = 3, 129 and 8,192,
+    gelu and gelu_new, against their plain versions in bf16 and fp32;
+    D = 8, 48, 128, H = 48 and 1,056, I = 100 and 1,000 raise; (b) STonKGs at
+    MiniLM-L12-H384's widths (12 x 384, 12 heads of 32, I=1536,
+    vocabulary 30,522, KG vocabulary 100,000, seeded random weights):
+    phase 5's checks on 512 rows at B=128, then the card's fp32 engines
+    on all rows, parity and bucketed, and bf16 against fp32 by cosine
+    (``WIDTH_COS_ALL`` over all rows, ``WIDTH_COS_ROW`` a row); (c)
+    phase 7's ``pretrain`` (B=32, 4 steps, dropout 0.1) and phase 8's
+    numerics at those widths; (d) ``run_pretraining`` from a memmap store
+    and 32- and 64-wide node2vec TSVs (the derived configs: D=16 and
+    D=32), 2 steps with an HF export, then ``from_pretrained`` ->
+    ``embed`` on the card in fp32 and bf16 against the CPU; (e) the
+    MiniLM embed's pairs/s and step's ms, and the six kernels at its
+    shapes beside their bounds, plain versions and library calls.
 
 The line before the last is a JSON object with one entry per kernel (the
 BigBird pair's times at block 64, its error the worse of both block
-sizes); the last line is ``{"ok": true, "device": {...}}``.
+sizes), then one for each of the six attention and FFN kernels at
+MiniLM-L12-H384's widths (``<name> H=384 D=32``: the launches of phase
+26's embed and step, the worst bf16 error of phase 26 at any new width);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -318,6 +340,8 @@ from stonkgs_tpu_torch.models import bert, node2vec, protstonkgs, stonkgs, word2
 from stonkgs_tpu_torch.models.heads import init_classifier_head
 from stonkgs_tpu_torch.ops import _build
 from stonkgs_tpu_torch.ops import bigbird_sparse as bigbird_sparse_ops
+from stonkgs_tpu_torch.ops import flash_attention as flash_attention_ops
+from stonkgs_tpu_torch.ops import fused_ffn as fused_ffn_ops
 from stonkgs_tpu_torch.ops.bigbird_sparse import (
     _blocked,
     _mid_logits,
@@ -339,7 +363,6 @@ from stonkgs_tpu_torch.ops.flash_attention import (
     flash_attention_train_fwd_plain,
 )
 from stonkgs_tpu_torch.ops.fused_ffn import (
-    BWD_HIDDEN,
     fused_ffn_bwd,
     fused_ffn_bwd_plain,
     fused_ffn_fwd,
@@ -523,15 +546,18 @@ def _attn_inputs(B, S, dtype, gen, masked=True, H=12, D=64):
     return q, k, v, bias, keep
 
 
-def _ffn_inputs(M, dtype, gen, H=768, I=3072):
+def _ffn_inputs(M, dtype, gen, H=768, I=3072, fan_in=False):
     """x, attn_out, LN1, W1, b1, W2, b2, LN2 of the serving block (fp32
-    vectors, weights in dtype)."""
+    vectors, weights in dtype): the weights at std 0.02, or with
+    ``fan_in`` at 1/sqrt(fan-in), so that at any width the products and
+    their gradients are of order 1."""
     def n(*shape, std=1.0, mean=0.0):
         return (mean + std * torch.randn(*shape, generator=gen)).to(DEV)
+    s1, s2 = (H ** -0.5, I ** -0.5) if fan_in else (0.02, 0.02)
     return [n(M, H).to(dtype), n(M, H).to(dtype),
             n(H, std=0.1, mean=1.0), n(H, std=0.1),
-            n(H, I, std=0.02).to(dtype), n(I, std=0.02),
-            n(I, H, std=0.02).to(dtype), n(H, std=0.02),
+            n(H, I, std=s1).to(dtype), n(I, std=0.02),
+            n(I, H, std=s2).to(dtype), n(H, std=0.02),
             n(H, std=0.1, mean=1.0), n(H, std=0.1)]
 
 
@@ -663,11 +689,11 @@ def _attention_edges(gen) -> None:
                                   flash_attention_infer_plain(q, k, v, bias), BF16)
 
 
-def _train_attn_inputs(B, S, dtype, gen, masked=True, H=12):
+def _train_attn_inputs(B, S, dtype, gen, masked=True, H=12, D=64):
     """q, k, v, bias, keep, a two-word seed and an output cotangent."""
-    q, k, v, bias, keep = _attn_inputs(B, S, dtype, gen, masked, H)
+    q, k, v, bias, keep = _attn_inputs(B, S, dtype, gen, masked, H, D)
     seed = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32, generator=gen)
-    do = torch.randn(B, S, H, 64, generator=gen).to(DEV, dtype)
+    do = torch.randn(B, S, H, D, generator=gen).to(DEV, dtype)
     return q, k, v, bias, keep, seed, do
 
 
@@ -683,7 +709,7 @@ def _compare_grad(name, got, want, dtype) -> float:
     return err
 
 
-def _attention_bwd_cases(tag, dtype, B, H, S, rate, gen) -> float:
+def _attention_bwd_cases(tag, dtype, B, H, S, rate, gen, D=64) -> float:
     """The backward kernel against its plain version from the plain
     forward's out and lse: masked with db, masked without db, unmasked
     with db and, for B > 1, masked with batch row 0's keys all at -1e9.
@@ -696,7 +722,7 @@ def _attention_bwd_cases(tag, dtype, B, H, S, rate, gen) -> float:
     if B > 1:
         cases.append(("mask db row 0 all -1e9", True, True, True))
     for name, masked, need_db, dead_row in cases:
-        q, k, v, bias, _, seed, do = _train_attn_inputs(B, S, dtype, gen, masked, H)
+        q, k, v, bias, _, seed, do = _train_attn_inputs(B, S, dtype, gen, masked, H, D)
         if dead_row:
             bias[0] = -1e9
         out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, bias, seed, rate)
@@ -704,7 +730,7 @@ def _attention_bwd_cases(tag, dtype, B, H, S, rate, gen) -> float:
                                         need_db=need_db)
         want = flash_attention_train_bwd_plain(q, k, v, bias, out_p, lse_p, do, seed, rate,
                                                need_db=need_db)
-        label = f"{tag} B={B} H={H} S={S} rate={rate} {name}"
+        label = f"{tag} B={B} H={H} S={S}{'' if D == 64 else f' D={D}'} rate={rate} {name}"
         for n, g, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
             worst = max(worst, _compare_grad(f"attention {n} {label}", g, w, dtype))
         check((got[3] is None) == (want[3] is None) == (not need_db), f"{label}: db presence")
@@ -712,7 +738,7 @@ def _attention_bwd_cases(tag, dtype, B, H, S, rate, gen) -> float:
             worst = max(worst, _compare_rel(f"attention db {label}", got[3], want[3], F32))
         if dtype == BF16 and B > 1 and S == 512 and rate > 0 and name == "mask db":
             _grad_limit_rejects(f"attention dk {label} without the scale", want[1],
-                                (want[1].float() * math.sqrt(64)).to(BF16))
+                                (want[1].float() * math.sqrt(D)).to(BF16))
             _grad_limit_rejects(f"attention dv {label} without the keep scale", want[2],
                                 (want[2].float() * (1.0 - rate)).to(BF16))
         del q, k, v, bias, do, out_p, lse_p, got, want
@@ -734,25 +760,27 @@ def _grad_limit_rejects(name, want, wrong) -> None:
     check(by_tol or by_step, f"{name}: the gradient limits do not catch this fault")
 
 
-def _train_ffn_inputs(M, dtype, gen, H=768, I=3072):
+def _train_ffn_inputs(M, dtype, gen, H=768, I=3072, fan_in=False):
     """x, w1, b1, w2, b2 (fp32 weights, as the model's parameters) and a
-    cotangent g."""
+    cotangent g; the weights at std 0.02, or at 1/sqrt(fan-in) with
+    ``fan_in`` (as :func:`_ffn_inputs`)."""
     def n(*shape, std=1.0):
         return (std * torch.randn(*shape, generator=gen)).to(DEV)
-    return (n(M, H).to(dtype), n(H, I, std=0.02), n(I, std=0.02), n(I, H, std=0.02),
+    s1, s2 = (H ** -0.5, I ** -0.5) if fan_in else (0.02, 0.02)
+    return (n(M, H).to(dtype), n(H, I, std=s1), n(I, std=0.02), n(I, H, std=s2),
             n(H, std=0.02), n(M, H).to(dtype))
 
 
 def _train_ffn_cases(gen, note) -> None:
     """The training FFN pair against its plain versions: bf16 and fp32 at
     H=768, I=3072 at every M of TRAIN_FFN_ROWS with gelu and gelu_new;
-    bf16 at I=1000 (a ragged edge of the 128-column tiles); ProtBERT's
-    H=1024, I=4096 at M = 3 and 6,144 (the fp32 backward takes H=768
-    only).  At M=8,192 the bf16 dh limit must reject dh whose gelu' lacks
-    its h-dependent term."""
+    bf16 at I=992 (a ragged edge of the 128-column tiles, within the
+    kernels' I % 32 == 0); ProtBERT's
+    H=1024, I=4096 at M = 3 and 6,144.  At M=8,192 the bf16 dh limit must
+    reject dh whose gelu' lacks its h-dependent term."""
     cases = [(dtype, 768, 3072, M, act) for dtype in (BF16, F32) for M in TRAIN_FFN_ROWS
              for act in ("gelu", "gelu_new")]
-    cases += [(BF16, 768, 1000, M, act) for M in (3, 129, 1000) for act in ("gelu", "gelu_new")]
+    cases += [(BF16, 768, 992, M, act) for M in (3, 129, 1000) for act in ("gelu", "gelu_new")]
     cases += [(dtype, 1024, 4096, M, "gelu") for dtype in (BF16, F32) for M in (3, 6144)]
     for dtype, H, I, M, act in cases:
         tag = "bf16" if dtype == BF16 else "fp32"
@@ -761,8 +789,6 @@ def _train_ffn_cases(gen, note) -> None:
         e = _compare(f"ffn fwd {label}", fused_ffn_fwd(x, w1, b1, w2, b2, act=act),
                      fused_ffn_plain(x, w1, b1, w2, b2, act=act), dtype)
         note("ffn_train_fwd", e, dtype, (H, M) in ((768, 16384), (1024, 6144)))
-        if dtype == F32 and H != BWD_HIDDEN:
-            continue
         got = fused_ffn_bwd(x, g, w1, b1, w2, act=act)
         want = fused_ffn_bwd_plain(x, g, w1, b1, w2, act=act)
         e = max(_compare_rel(f"ffn dx {label}", got[0], want[0], dtype),
@@ -1141,9 +1167,9 @@ def _time_ffn(label: str, M: int, gen, H=768, I=3072, act="gelu") -> dict:
     return t
 
 
-def _time_attention(label: str, B: int, S: int, masked: bool, gen, H=12) -> dict:
+def _time_attention(label: str, B: int, S: int, masked: bool, gen, H=12, D=64) -> dict:
     """Kernel vs plain at the main path's shape, then both and SDPA timed."""
-    q, k, v, bias, keep = _attn_inputs(B, S, BF16, gen, masked, H)
+    q, k, v, bias, keep = _attn_inputs(B, S, BF16, gen, masked, H, D)
     H, D = q.shape[2], q.shape[3]
     flops = 4.0 * B * H * S * S * D
     nbytes = 4 * B * S * H * D * 2 + (B * S * 4 if masked else 0)
@@ -1369,11 +1395,11 @@ def phase_train_numerics(cfg_full: STonKGsConfig) -> None:
     check(cosines[worst] >= 0.99, f"card bf16 gradient {worst} disagrees with the CPU")
 
 
-def _time_train_attention(label, B, S, masked, gen, backward, H=12) -> dict:
+def _time_train_attention(label, B, S, masked, gen, backward, H=12, D=64) -> dict:
     """A training attention kernel vs plain at the step's shape, then both
     and the library call (SDPA without dropout, which cannot draw the
     hash mask) timed."""
-    q, k, v, bias, keep, seed, do = _train_attn_inputs(B, S, BF16, gen, masked, H)
+    q, k, v, bias, keep, seed, do = _train_attn_inputs(B, S, BF16, gen, masked, H, D)
     H, D = q.shape[2], q.shape[3]
     io = B * S * H * D * 2   # one (B, S, H, D) bf16 tensor
     stats = B * H * S * 4    # lse (and, backward, delta is scratch: not counted)
@@ -1470,9 +1496,9 @@ def _time_train_ffn(label, M, gen, backward, H=768, I=3072, act="gelu") -> dict:
     return t
 
 
-def phase_train_timing(cfg: STonKGsConfig, state) -> dict:
-    """Step time at B=32 (sync through the loss), then each training kernel
-    at the step's shapes; returns, per kernel, the trunk shape's numbers."""
+def _train_step_seconds(cfg: STonKGsConfig, state, label: str) -> float:
+    """The median seconds of 6 ``make_train_step`` steps at B=32 in bf16
+    after 2 of warm-up, each synchronised by its loss."""
     tx = AdamW(total_steps=1000)
     step = pretraining.make_train_step(cfg, tx, compute_dtype=BF16)
     feats = _pretraining_features(cfg, TRAIN_BATCH, seed=11)
@@ -1487,9 +1513,16 @@ def phase_train_timing(cfg: STonKGsConfig, state) -> dict:
             times.append(time.perf_counter() - t0)
         check(math.isfinite(loss), "non-finite loss in the timed steps")
     med = statistics.median(times)
-    log(f"# train step B={TRAIN_BATCH} bf16: seconds {times!r}; median "
+    log(f"# train step{label} B={TRAIN_BATCH} bf16: seconds {times!r}; median "
         f"{med * 1e3!r} ms, {TRAIN_BATCH / med!r} examples/s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    return med
+
+
+def phase_train_timing(cfg: STonKGsConfig, state) -> dict:
+    """Step time at B=32 (sync through the loss), then each training kernel
+    at the step's shapes; returns, per kernel, the trunk shape's numbers."""
+    med = _train_step_seconds(cfg, state, "")
     gen = torch.Generator().manual_seed(4)
     tl, sl, B = cfg.text_len, cfg.seq_len, TRAIN_BATCH
     cases = {
@@ -5023,6 +5056,409 @@ def phase_cli(card: str, params: Optional[dict] = None,
     return total
 
 
+# ---------------------------------------------------------------------------
+# widths: the kernels at head widths 16 and 32 and hidden widths other than
+# 768 and 1024, STonKGs at MiniLM-L12-H384's widths, the CLI's narrow configs
+# ---------------------------------------------------------------------------
+
+# MiniLM-L12-H384 (Wang et al. 2020; microsoft/MiniLM-L12-H384-uncased,
+# config.json): 12 layers of H=384, 12 heads of D=32, I=1536, vocabulary
+# 30,522; STonKGs over it at the 256 + 256 layout, KG vocabulary 100,000
+MINILM = dict(vocab_size=30522, hidden_size=384, num_hidden_layers=12, num_attention_heads=12,
+              intermediate_size=1536)
+WIDTH_HEAD_DIMS = (16, 32)
+WIDTH_ATTN_S = (1, 63, 129, 300, 512)
+WIDTH_FFN_H = (32, 64, 96, 384, 512)
+WIDTH_FFN_M = (3, 129, 8192)
+# the rows of I that the planted FFN faults of phase 26 (a) drop
+WIDTH_FAULT_ROWS = 32
+WIDTH_NARROW = (32, 64)      # the KG TSV widths whose configs run_pretraining derives
+WIDTH_PF_ROWS = 2 * TRAIN_BATCH
+WIDTH_PF_STEPS = 2
+# bf16 against fp32 at MiniLM's widths, 24 layers deep: the cosine of the
+# embeddings of all rows together, and of each row alone (at BERT-base, 4
+# rows of phase 5 read 0.99989-0.99992 each against the CPU; at MiniLM's
+# widths the lowest of 512 rows read 0.99988 on the card)
+WIDTH_COS_ALL = 0.9999
+WIDTH_COS_ROW = 0.9995
+WIDTH_KERNELS = ("ffn_ln_block", "flash_attention_infer", "flash_attention_train_fwd",
+                 "flash_attention_train_bwd", "ffn_train_fwd", "ffn_train_bwd")
+
+
+def _minilm_cfg() -> STonKGsConfig:
+    return STonKGsConfig(bert=BertConfig(**MINILM), kg_vocab_size=100_000)
+
+
+def _widths_attention(gen, note) -> None:
+    """(a) The attention kernels at D = 16 and 32 against their plain
+    versions, bf16 and fp32: inference, the training forward at rates 0
+    and 0.1 and the backward at both, at every S of WIDTH_ATTN_S, one
+    head of one row (B=1) and B=8 with 12 heads whose batch row 0's keys
+    are all at -1e9.  At rate 0.1 the forward's output limit must reject
+    the plain output under another seed's mask (so the mask the kernel
+    drew is the plain version's)."""
+    for dtype in (BF16, F32):
+        tag = "bf16" if dtype == BF16 else "fp32"
+        for D in WIDTH_HEAD_DIMS:
+            for S in WIDTH_ATTN_S:
+                for B, H in ((1, 1), (8, 12)):
+                    label = f"{tag} D={D} B={B} H={H} S={S}"
+                    q, k, v, bias, _, seed, _ = _train_attn_inputs(B, S, dtype, gen, True, H, D)
+                    if B > 1:
+                        bias[0] = -1e9
+                    e = _compare_attn(f"attention {label} mask", flash_attention_infer(
+                        q, k, v, bias), flash_attention_infer_plain(q, k, v, bias), dtype)
+                    note("flash_attention_infer", e, dtype)
+                    for rate in (0.0, ATTN_RATE):
+                        out, lse = flash_attention_train_fwd(q, k, v, bias, seed, rate)
+                        out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, bias, seed, rate)
+                        e = max(_compare_attn(f"attention fwd {label} rate={rate}", out, out_p,
+                                              dtype),
+                                _compare(f"attention lse {label} rate={rate}", lse, lse_p, F32))
+                        note("flash_attention_train_fwd", e, dtype)
+                        if dtype == BF16 and rate > 0 and S == 512 and B > 1:
+                            other = (seed + 1).to(torch.int32)
+                            _attn_limit_rejects(
+                                f"attention fwd {label} rate={rate} with another seed's mask",
+                                out_p, flash_attention_train_fwd_plain(
+                                    q, k, v, bias, other, rate)[0])
+                        e = _attention_bwd_cases(tag, dtype, B, H, S, rate, gen, D)
+                        note("flash_attention_train_bwd", e, dtype)
+                    del q, k, v, bias
+
+
+def _widths_ffn(gen, note) -> None:
+    """(a) The three FFN kernels at every H of WIDTH_FFN_H, I = 4H, M = 3,
+    129 and 8,192, gelu and gelu_new, bf16 and fp32, against their plain
+    versions.  The weights are drawn at 1/sqrt(fan-in), so that outputs
+    and gradients are of order 1 at every width and TOL is a small part
+    of a typical value.  At M=8,192 in bf16 each limit must reject a
+    known fault applied to the plain version: the last 32 rows of I
+    dropped from the W2 product (ffn_ln, fwd) and from the W1ᵀ product
+    (dx), and dh whose gelu' lacks its h-dependent term."""
+    for dtype in (BF16, F32):
+        tag = "bf16" if dtype == BF16 else "fp32"
+        for H in WIDTH_FFN_H:
+            for M in WIDTH_FFN_M:
+                for act in ("gelu", "gelu_new"):
+                    label = f"{tag} H={H} I={4 * H} M={M} {act}"
+                    faults = dtype == BF16 and M == WIDTH_FFN_M[-1]
+                    args = _ffn_inputs(M, dtype, gen, H, 4 * H, fan_in=True)
+                    want = fused_ffn_ln_block_plain(*args, act=act)
+                    e = _compare(f"ffn_ln {label}", fused_ffn_ln_block(*args, act=act), want,
+                                 dtype)
+                    note("ffn_ln_block", e, dtype)
+                    if faults:
+                        w2 = args[6].clone()
+                        w2[-WIDTH_FAULT_ROWS:] = 0
+                        _tol_rejects(f"ffn_ln {label} without W2's last {WIDTH_FAULT_ROWS} rows",
+                                     want, fused_ffn_ln_block_plain(
+                                         *args[:6], w2, *args[7:], act=act))
+                    x, w1, b1, w2, b2, g = _train_ffn_inputs(M, dtype, gen, H, 4 * H,
+                                                             fan_in=True)
+                    want = fused_ffn_plain(x, w1, b1, w2, b2, act=act)
+                    e = _compare(f"ffn fwd {label}", fused_ffn_fwd(x, w1, b1, w2, b2, act=act),
+                                 want, dtype)
+                    note("ffn_train_fwd", e, dtype)
+                    if faults:
+                        cut = w2.clone()
+                        cut[-WIDTH_FAULT_ROWS:] = 0
+                        _tol_rejects(f"ffn fwd {label} without W2's last {WIDTH_FAULT_ROWS} rows",
+                                     want, fused_ffn_plain(x, w1, b1, cut, b2, act=act))
+                    got = fused_ffn_bwd(x, g, w1, b1, w2, act=act)
+                    want = fused_ffn_bwd_plain(x, g, w1, b1, w2, act=act)
+                    e = max(_compare_rel(f"ffn dx {label}", got[0], want[0], dtype),
+                            _compare_rel(f"ffn dh {label}", got[1], want[1], dtype),
+                            _compare(f"ffn a {label}", got[2], want[2], dtype))
+                    note("ffn_train_bwd", e, dtype)
+                    if faults:
+                        keep = 4 * H - WIDTH_FAULT_ROWS
+                        _rel_limit_rejects(
+                            f"ffn dx {label} without the last {WIDTH_FAULT_ROWS} rows of I",
+                            want[0], (want[1][:, :keep].float()
+                                      @ w1.to(dtype)[:, :keep].float().T).to(dtype))
+                        _rel_limit_rejects(f"ffn dh {label} without the h-dependent term of "
+                                           f"gelu'", want[1],
+                                           _dh_without_h_term(x, g, w1, b1, w2, act))
+                    del args, x, w1, b1, w2, b2, g, got, want
+
+
+def _tol_rejects(name, want, wrong) -> None:
+    """Fail unless TOL[want.dtype] tells ``wrong`` (a known kernel fault
+    applied to the plain output) from ``want``."""
+    g, w = wrong.float(), want.float()
+    err = float((g - w).abs().max())
+    ok = bool(torch.allclose(g, w, **TOL[want.dtype]))
+    log(f"# check {name}: max_abs_err {err!r} max|plain| {float(w.abs().max())!r} "
+        f"{'passes: FAIL' if ok else 'rejected: ok'}")
+    check(not ok, f"{name}: TOL does not catch this fault")
+
+
+def _refused(name, call) -> str:
+    """The message of the ValueError that ``call`` raises ('' if none)."""
+    try:
+        call()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def _widths_outside(gen) -> None:
+    """(a) Shapes outside the kernels' domain raise on the card in every
+    wrapper and both dtypes, with no fallback to the plain versions and
+    no launch counted: attention (inference, training forward and
+    backward) at D = 8, 48 and 128, the three FFN kernels at H = 48 and
+    1056 and at I = 100 and 1000.  The C entry points refuse such widths
+    themselves (cudaErrorInvalidValue, 1) without a launch: every entry
+    point at D=48 or H=48, in both dtypes."""
+    counted = {**TRAINING_KERNELS, **SERVING_KERNELS}
+    before = _counts(counted)
+    for dtype in (BF16, F32):
+        tag = "bf16" if dtype == BF16 else "fp32"
+        for D in (8, 48, 128):
+            q, k, v, bias, _ = _attn_inputs(1, 64, dtype, gen, True, 2, D)
+            lse = torch.zeros(1, 2, 64, device=DEV)
+            for name, fn in (
+                    ("flash_attention_infer", lambda: flash_attention_infer(q, k, v, bias)),
+                    ("flash_attention_train_fwd",
+                     lambda: flash_attention_train_fwd(q, k, v, bias)),
+                    ("flash_attention_train_bwd",
+                     lambda: flash_attention_train_bwd(q, k, v, bias, q, lse, q))):
+                raised = _refused(name, fn)
+                log(f"# check {name} {tag} at D={D} raises: {raised!r}")
+                check("D in (16, 32, 64)" in raised, f"{name} {tag} at D={D} did not raise")
+        for H, I in ((48, 192), (1056, 4224), (64, 100), (768, 1000)):
+            args = _ffn_inputs(3, dtype, gen, H, I)
+            x, w1, b1, w2, b2, g = _train_ffn_inputs(3, dtype, gen, H, I)
+            for name, fn in (("ffn_ln_block", lambda: fused_ffn_ln_block(*args)),
+                             ("ffn_train_fwd", lambda: fused_ffn_fwd(x, w1, b1, w2, b2)),
+                             ("ffn_train_bwd", lambda: fused_ffn_bwd(x, g, w1, b1, w2))):
+                raised = _refused(name, fn)
+                log(f"# check {name} {tag} at H={H} I={I} raises: {raised!r}")
+                check("a multiple of 32 up to 1024" in raised,
+                      f"{name} {tag} at H={H} I={I} did not raise")
+    after = _counts(counted)
+    check(after == before, f"a refused width counted a launch: {before} -> {after}")
+    # one zeroed buffer stands for every operand: the entry points must
+    # return before they read it
+    buf = torch.zeros(1 << 20, device=DEV)
+    p, st = _build.ptr(buf), _build.stream(buf.device)
+    drop = [0, 64, 0, 0, 0, 1.0]
+    attn_lib = _build.load("flash_attention_infer", flash_attention_ops._SIGNATURES)
+    train_lib = _build.load("flash_attention_train", flash_attention_ops._TRAIN_SIGNATURES)
+    ln_lib = _build.load("ffn_ln_block", fused_ffn_ops._SIGNATURES)
+    ffn_lib = _build.load("ffn_train", fused_ffn_ops._TRAIN_SIGNATURES)
+    for dt in (1, 0):
+        tag = "bf16" if dt == 1 else "fp32"
+        statuses = {
+            "flash_attention_infer D=48": attn_lib.flash_attention_infer(
+                dt, *[p] * 5, 1, 64, 2, 48, 48 ** -0.5, st),
+            "flash_attention_train_fwd D=48": train_lib.flash_attention_train_fwd(
+                dt, *[p] * 6, 1, 64, 2, 48, 48 ** -0.5, *drop, st),
+            "flash_attention_train_bwd D=48": train_lib.flash_attention_train_bwd(
+                dt, *[p] * 12, 1, 64, 2, 48, 48 ** -0.5, *drop, st),
+            "ffn_ln_block H=48": ln_lib.ffn_ln_block(dt, *[p] * 13, 3, 48, 192, 0, 1e-12, st),
+            "ffn_train_fwd H=48": ffn_lib.ffn_train_fwd(dt, *[p] * 7, 3, 48, 192, 0, st),
+            "ffn_train_bwd H=48": ffn_lib.ffn_train_bwd(dt, *[p] * 10, 3, 48, 192, 0, st)}
+        torch.cuda.synchronize()
+        for name, status in statuses.items():
+            log(f"# check {name} {tag} C entry point: status {status} (1: refused)")
+            check(status == 1, f"the C entry point {name} {tag} was not refused "
+                               f"(status {status})")
+
+
+def _widths_serving(cfg: STonKGsConfig) -> tuple:
+    """(b) Phase 5 at MiniLM's widths (``embed`` parity and bucketed in
+    bf16: launch counts, finite output, card fp32 against CPU fp32 on 4
+    rows), then the card's fp32 engines on all rows (parity and bucketed,
+    their launch counts), and bf16 against fp32 on the card by cosine.
+    Returns (the bf16 parity engine, the rows, the parity counts)."""
+    engine, bucketed, feats, counts, params = phase_serving(cfg)
+    del bucketed
+    out = engine.embed(feats)
+    per_batch = cfg.bert.num_hidden_layers * 2 - 1
+    n_batches = math.ceil(ROWS / BATCH)
+    outs = {}
+    for label, buckets in (("parity", None), ("bucketed", BUCKETS)):
+        eng = STonKGsEngine(cfg=cfg, params=params_to(params, DEV), compute_dtype="float32",
+                            batch_size=BATCH, length_buckets=buckets, device=DEV)
+        _reset_counts(SERVING_KERNELS)
+        outs[label] = eng.embed(feats)
+        c = _counts(SERVING_KERNELS)
+        log(f"# launches fp32 {label} embed (MiniLM widths): {c}")
+        check(bool(np.isfinite(outs[label]).all()), f"fp32 {label} embed not finite")
+        if buckets is None:
+            check(all(n == per_batch * n_batches for n in c.values()),
+                  f"fp32 parity embed launches {c}, expected {per_batch} x {n_batches}")
+        else:
+            check(all(n > 0 for n in c.values()), "fp32 bucketed embed skipped a kernel")
+        del eng
+    rows = _cosine(out, outs["parity"])
+    whole = float(_cosine(out.reshape(1, -1), outs["parity"].reshape(1, -1))[0])
+    log(f"# MiniLM widths, card bf16 vs card fp32 ({ROWS} rows): cosine of all rows "
+        f"{whole!r} (limit {WIDTH_COS_ALL}), lowest row {float(rows.min())!r}, mean "
+        f"{float(rows.mean())!r} (limit {WIDTH_COS_ROW} a row)")
+    check(whole >= WIDTH_COS_ALL and bool((rows >= WIDTH_COS_ROW).all()),
+          "MiniLM widths: bf16 embeddings too far from fp32")
+    cb = _cosine(outs["bucketed"], outs["parity"])
+    log(f"# MiniLM widths, fp32 bucketed vs parity: lowest cosine {float(cb.min())!r}")
+    return engine, feats, counts, params
+
+
+def _widths_pretrain_files(hidden: int, total: dict) -> None:
+    """(d) ``run_pretraining`` from a memmap store and a ``hidden``-wide
+    node2vec TSV (the config it derives: 2 layers, 2 heads of hidden/2,
+    I = 4 hidden), 2 steps of B=32 with an HF export, then
+    ``from_pretrained`` -> ``embed`` on the card in fp32 against the CPU
+    in fp32 and in bf16 by cosine."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=f"stonkgs_w{hidden}_") as tmp:
+        bert_cfg = BertConfig(hidden_size=hidden, num_hidden_layers=2,
+                              num_attention_heads=max(hidden // 64, 2),
+                              intermediate_size=hidden * 4)
+        cfg = STonKGsConfig(bert=bert_cfg, kg_vocab_size=README_ENTITIES)
+        feats = _pretraining_features(cfg, WIDTH_PF_ROWS, seed=hidden)
+        store_dir = os.path.join(tmp, "store")
+        MemmapFeatureStore.write(store_dir, feats)
+        art = make_random_artifacts(README_ENTITIES, dim=hidden, rw_len=README_RW_LEN,
+                                    seed=hidden)
+        emb, walks = os.path.join(tmp, "emb.tsv"), os.path.join(tmp, "walks.tsv")
+        save_kg_artifacts(art, emb, walks)
+        vocab_file = os.path.join(tmp, "vocab.txt")
+        with open(vocab_file, "w") as f:
+            f.write("\n".join(_readme_vocab(bert_cfg.vocab_size,
+                                            np.random.default_rng(hidden))) + "\n")
+        derived = stonkgs_pretraining_config(feats, "stonkgs", hidden, bert_cfg.vocab_size)
+        check(derived.bert == bert_cfg, f"run_pretraining derives {derived.bert}")
+        log(f"# {hidden}-wide KG TSV: run_pretraining derives H={hidden}, "
+            f"{derived.bert.num_attention_heads} heads of D={derived.bert.head_dim}, "
+            f"I={derived.bert.intermediate_size}, {derived.bert.num_hidden_layers} layers")
+        out_dir, hf = os.path.join(tmp, "run"), os.path.join(tmp, "hf")
+        steps = list(range(1, WIDTH_PF_STEPS + 1))
+        _pf_run(f"run_pretraining {hidden}-wide", store_dir, out_dir, TRAINING_KERNELS,
+                _training_per_step(bert_cfg.num_hidden_layers), steps, total,
+                kg_embedding_path=emb, vocab_file=vocab_file, batch_size=TRAIN_BATCH,
+                max_steps=WIDTH_PF_STEPS, save_steps=WIDTH_PF_STEPS, export_hf_dir=hf)
+        few = {k: feats[k][:8] for k in ("input_ids", "attention_mask", "token_type_ids")}
+        got = {}
+        for label, dev, dt in (("card fp32", DEV, "float32"), ("card bf16", DEV, "bfloat16"),
+                               ("CPU fp32", "cpu", "float32")):
+            eng = STonKGsEngine.from_pretrained(hf, emb, walks, vocab_file=vocab_file,
+                                                compute_dtype=dt, batch_size=8, device=dev)
+            check(eng.cfg.bert == bert_cfg, f"{label}: exported config {eng.cfg.bert}")
+            _reset_counts(SERVING_KERNELS)
+            got[label] = eng.embed(few)
+            if dev == DEV:
+                _check_counts(f"{hidden}-wide embed {label}", _counts(SERVING_KERNELS),
+                              {n: 2 * bert_cfg.num_hidden_layers - 1 for n in SERVING_KERNELS})
+                _add_counts(total, _counts(SERVING_KERNELS))
+            check(bool(np.isfinite(got[label]).all()), f"{hidden}-wide {label} embed not finite")
+            del eng
+        err = float(np.abs(got["card fp32"] - got["CPU fp32"]).max())
+        cos = _cosine(got["card bf16"], got["CPU fp32"])
+        log(f"# {hidden}-wide run_pretraining -> from_pretrained -> embed (8 rows): card fp32 vs "
+            f"CPU fp32 max_abs_err {err!r} (limit 1e-3); card bf16 vs CPU fp32 lowest cosine "
+            f"{float(cos.min())!r} (limit 0.99); {time.perf_counter() - t0:.1f} s")
+        check(err <= 1e-3, f"{hidden}-wide: card fp32 embeddings disagree with the CPU")
+        check(bool((cos >= 0.99).all()), f"{hidden}-wide: card bf16 too far from the CPU")
+
+
+def _widths_times(cfg: STonKGsConfig, engine, feats, state, card: str) -> dict:
+    """(e) The MiniLM embed's pairs/s (parity, 3 runs) and its step's ms
+    (median of 6 after 2), then each kernel at the path's shapes beside
+    its bound, plain version and the library call: attention D=32 at
+    B=128, S=512 (trunk, masked) and S=256 (backbone), the training pair
+    at B=32, S=512; the FFN at H=384, I=1536, M = 65,536 and 32,768
+    (serving) and 16,384 and 8,192 (training).  Returns, per kernel, the
+    trunk shape's numbers with the worse error of its shapes."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.embed(feats)
+        times.append(time.perf_counter() - t0)
+    check(bool(np.isfinite(out).all()), "MiniLM embed not finite")
+    log(f"# embed MiniLM widths parity: {len(out)} rows, B={BATCH}, seconds {times!r}; best "
+        f"{len(out) / min(times)!r} pairs/s, median {len(out) / statistics.median(times)!r} "
+        f"pairs/s ({card})")
+    med = _train_step_seconds(cfg, state, " MiniLM widths")
+    log(f"# MiniLM widths step: {med * 1e3!r} ms ({card})")
+    gen = torch.Generator().manual_seed(26)
+    H, I, D, nh = cfg.bert.hidden_size, cfg.bert.intermediate_size, cfg.bert.head_dim, \
+        cfg.bert.num_attention_heads
+    sl, tl, B = cfg.seq_len, cfg.text_len, TRAIN_BATCH
+    cases = {
+        "ffn_ln_block": [
+            (f"H={H} trunk M={BATCH * sl}", lambda lb: _time_ffn(lb, BATCH * sl, gen, H, I)),
+            (f"H={H} backbone M={BATCH * tl}", lambda lb: _time_ffn(lb, BATCH * tl, gen, H, I))],
+        "flash_attention_infer": [
+            (f"D={D} trunk B={BATCH} S={sl} mask",
+             lambda lb: _time_attention(lb, BATCH, sl, True, gen, nh, D)),
+            (f"D={D} backbone B={BATCH} S={tl} no-bias",
+             lambda lb: _time_attention(lb, BATCH, tl, False, gen, nh, D))],
+        "flash_attention_train_fwd": [
+            (f"D={D} trunk B={B} S={sl} mask",
+             lambda lb: _time_train_attention(lb, B, sl, True, gen, False, nh, D))],
+        "flash_attention_train_bwd": [
+            (f"D={D} trunk B={B} S={sl} mask",
+             lambda lb: _time_train_attention(lb, B, sl, True, gen, True, nh, D))],
+        "ffn_train_fwd": [
+            (f"H={H} trunk M={B * sl}", lambda lb: _time_train_ffn(lb, B * sl, gen, False, H, I)),
+            (f"H={H} backbone M={B * tl}",
+             lambda lb: _time_train_ffn(lb, B * tl, gen, False, H, I))],
+        "ffn_train_bwd": [
+            (f"H={H} trunk M={B * sl}", lambda lb: _time_train_ffn(lb, B * sl, gen, True, H, I))],
+    }
+    result = {}
+    for name, shapes in cases.items():
+        for i, (label, fn) in enumerate(shapes):
+            t = fn(label)
+            log(f"# time {name} {label} bf16 ({card}): {json.dumps(t)}")
+            if i == 0:
+                result[name] = t
+            else:
+                result[name]["max_abs_err"] = max(result[name]["max_abs_err"],
+                                                  t["max_abs_err"])
+    return result
+
+
+def phase_widths(card: str) -> tuple:
+    """Phase 26: (a) the kernels at the new widths against their plain
+    versions and the shapes outside their domain refused, (b) MiniLM's
+    embed, (c) its ``pretrain`` and training numerics, (d) the 32- and
+    64-wide ``run_pretraining`` -> ``embed``, (e) times.  Returns (the
+    launch counts of every counted run, summed; the counts of the MiniLM
+    embed and step; per kernel, the worst bf16 error at the new widths;
+    per kernel, the MiniLM shapes' times)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(25)
+    errs: dict = {}
+
+    def note(name, err, dtype):
+        if dtype == BF16:
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    _widths_attention(gen, note)
+    _widths_ffn(gen, note)
+    _widths_outside(gen)
+    log(f"# widths (a) kernels: {time.perf_counter() - t_phase:.1f} s")
+    cfg = _minilm_cfg()
+    engine, feats, counts, params = _widths_serving(cfg)
+    minilm_counts = dict(counts)
+    train_counts, state = phase_training(cfg, params)
+    minilm_counts.update(train_counts)
+    phase_train_numerics(cfg)
+    log(f"# widths (b, c) MiniLM: {time.perf_counter() - t_phase:.1f} s")
+    total = dict(minilm_counts)
+    for hidden in WIDTH_NARROW:
+        _widths_pretrain_files(hidden, total)
+    times = _widths_times(cfg, engine, feats, state, card)
+    del engine, state, params
+    torch.cuda.empty_cache()
+    log(f"# widths phase: {time.perf_counter() - t_phase:.1f} s")
+    return total, minilm_counts, errs, times
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -5087,6 +5523,9 @@ def main() -> int:
         for name, c in phase_cli(card, params, pparams).items():
             counts[name] += c
         del params, pparams
+        width_total, width_counts, width_errs, width_times = phase_widths(card)
+        for name, c in width_total.items():
+            counts[name] += c
         # the fine-tuning shapes' worst error goes into the kernel line
         for key, t in ft_times.items():
             name = key.split(":")[0]
@@ -5119,6 +5558,15 @@ def main() -> int:
                         "replaces": replaces, "launches": counts[name],
                         **{k: times[name][k] for k in keys},
                         "max_abs_err": max(errs[name], times[name]["max_abs_err"])})
+    # the six kernels at MiniLM-L12-H384's widths (H=384, D=32): launches of
+    # its embed and step, the worst bf16 error of phase 26 at every new width
+    for name in WIDTH_KERNELS:
+        src, replaces = sources[name]
+        t = width_times[name]
+        kernels.append({"name": f"{name} H=384 D=32", "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": width_counts[name],
+                        **{k: t[k] for k in keys},
+                        "max_abs_err": max(width_errs[name], t["max_abs_err"])})
     log(f"# card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,7 @@ is not a frozen backbone) with the fine-tuning harness's splits and
 weighted F1.  It runs on the card unless the caller asks for the CPU:
 training goes through the training kernels, evaluation through the
 serving ones.  The default compute dtype is fp32, as in the JAX package;
-on the card that runs the fp32 bodies, whose FFN backward takes H=768
-only (use bf16 for another width).
+on the card that runs the fp32 bodies.
 """
 
 from __future__ import annotations
@@ -24,7 +23,6 @@ from stonkgs_tpu_torch.models import bert
 from stonkgs_tpu_torch.models.bert import DropoutRng
 from stonkgs_tpu_torch.models.heads import classifier_head, init_classifier_head
 from stonkgs_tpu_torch.models.stonkgs import classification_metrics
-from stonkgs_tpu_torch.ops.fused_ffn import BWD_HIDDEN
 from stonkgs_tpu_torch.train.finetuning import (
     encode_labels,
     get_train_test_splits,
@@ -81,15 +79,6 @@ def classification_loss(params: dict, cfg: BertConfig, batch: dict, **kw):
                                   batch["labels"])
 
 
-def check_trainable(cfg: BertConfig, compute_dtype: str, device: torch.device) -> None:
-    """Raise for fp32 training on the card at a width other than the fp32
-    FFN backward's (768); bf16 takes any width."""
-    if device.type == "cuda" and compute_dtype == "float32" and cfg.hidden_size != BWD_HIDDEN:
-        raise ValueError(
-            f"the NLP baseline in fp32 on the card takes hidden size {BWD_HIDDEN} only (the "
-            f"fp32 FFN backward's width), not {cfg.hidden_size}: use compute_dtype='bfloat16'")
-
-
 def train_nlp_baseline(
     cfg: BertConfig,
     params: dict,
@@ -104,7 +93,6 @@ def train_nlp_baseline(
     """AdamW (clip 1.0, linear decay) over the tokenized evidences, on the
     parameters' device; updates ``params`` in place and returns them."""
     device = tree_leaves(params)[0].device
-    check_trainable(cfg, compute_dtype, device)
     total_steps = max(len(features["input_ids"]) // batch_size, 1) * epochs
     tx = AdamW(learning_rate=lr, total_steps=total_steps)
     state = init_train_state(params, tx, seed)

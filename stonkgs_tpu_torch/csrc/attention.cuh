@@ -1,6 +1,7 @@
 // Pieces shared by the attention kernels (flash_attention_infer.cu,
 // flash_attention_train.cu and bigbird_sparse.cu): 64-row tiles of the
-// (B, S, H, D=64) layout in shared memory, the two per-warp tile products,
+// (B, S, H, D) layout in shared memory (D = 16, 32 or 64; BigBird's
+// bodies take 64), the two per-warp tile products,
 // the dropout hash, and the fp32 forward kernel.  The bf16 attention
 // forward and backward and the bf16 BigBird pair are the Hopper kernels of
 // attention_sm90.cuh, attention_bwd_sm90.cuh and bigbird_sm90.cuh (wgmma
@@ -12,19 +13,23 @@
 // A block has 4 warps; in a product each warp owns 16 rows of the block's
 // 64-row tile, in plain fp32 FMAs:
 //   score_tile: sw (16 x 64, fp32) = A_w (16 x D) . B^T, B a 64 x D tile;
-//   PvAcc:      acc (16 x D, fp32) += P_w (16 x 64) . V, V a 64 x D tile.
+//   PvAcc:      acc (16 x D, fp32) += P_w (16 x 64) . V, V a 64 x D tile
+//               (lane owns columns lane, lane + 32, ... below D).
+// The head width is a template parameter (kD by default); with_head_dim
+// dispatches a run-time D to the instantiations the kernels take.
 
 #pragma once
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace stonkgs {
 namespace attn {
 
-constexpr int kD = 64;           // head width
+constexpr int kD = 64;           // the widest head width (BigBird's only one)
 constexpr int kTile = 64;        // rows of a q, k, v or dO tile
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -34,20 +39,35 @@ constexpr float kNegBias = -1e9f;  // score of a padded key (the JAX package's N
 template <typename T> struct Pad;
 template <> struct Pad<float> { static constexpr int value = 4; };
 
-template <typename T> struct Sizes {
-  static constexpr int TS = kD + Pad<T>::value;  // row stride of a tile in T
+// f(std::integral_constant<int, D>{}) for a head width D of 16, 32 or 64;
+// cudaErrorInvalidValue for any other
+template <typename F>
+inline int with_head_dim(int D, F&& f) {
+  switch (D) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int D = kD> struct Sizes {
+  static constexpr int TS = D + Pad<T>::value;  // row stride of a q, k, v or dO tile in T
+  // row stride of a warp's 16 x 64 probability (or dS) tile in T: 64 keys
+  // a row, whatever D
+  static constexpr int PS = kTile + Pad<T>::value;
   static constexpr size_t tile = align128(size_t(kTile) * TS * sizeof(T));
   // per-warp 16-row tiles: fp32 staging, and T operands
   static constexpr size_t stage = align128(size_t(kWarps) * 16 * kSST * sizeof(float));
-  static constexpr size_t wtile = align128(size_t(kWarps) * 16 * TS * sizeof(T));
+  static constexpr size_t wtile = align128(size_t(kWarps) * 16 * PS * sizeof(T));
   static constexpr size_t vec = align128(kTile * sizeof(float));
 };
 
 // 64 rows of D elements: global (row stride gs) -> shared (row stride TS);
 // rows >= n are zero.  16-byte vectors spread over the block.
-template <typename T>
+template <typename T, int D = kD>
 __device__ __forceinline__ void load_rows(T* s, const T* g, size_t gs, int n) {
-  constexpr int V = 16 / sizeof(T), VPR = kD / V, TS = Sizes<T>::TS;
+  constexpr int V = 16 / sizeof(T), VPR = D / V, TS = Sizes<T, D>::TS;
   for (int i = threadIdx.x; i < kTile * VPR; i += kThreads) {
     const int r = i / VPR, c = (i % VPR) * V;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -63,13 +83,13 @@ __device__ __forceinline__ void load_vec(float* s, const float* g, int n) {
 
 // sw (16 x kSST, fp32) = aw (16 x D) . bs^T, bs a 64 x D tile (both stride
 // TS); lane owns columns lane and lane + 32 (rows of bs)
-template <typename T>
+template <typename T, int D = kD>
 __device__ __forceinline__ void score_tile(const T* aw, const T* bs, float* sw, int lane) {
-  constexpr int TS = Sizes<T>::TS;
+  constexpr int TS = Sizes<T, D>::TS;
   float acc[16][2];
 #pragma unroll
   for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
-  for (int d = 0; d < kD; ++d) {
+  for (int d = 0; d < D; ++d) {
     const float b0 = to_f(bs[lane * TS + d]), b1 = to_f(bs[(lane + 32) * TS + d]);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
@@ -86,46 +106,52 @@ __device__ __forceinline__ void score_tile(const T* aw, const T* bs, float* sw, 
   __syncwarp();
 }
 
-// A warp's fp32 (16 x D) accumulator of P . V products.
-template <typename T> struct PvAcc;
+// A warp's fp32 (16 x D) accumulator of P . V products; P is a 16 x 64
+// tile of row stride PS, V a 64 x D tile of row stride TS.
+template <typename T, int D = kD> struct PvAcc;
 
-template <> struct PvAcc<float> {
+template <int D> struct PvAcc<float, D> {
   using T = float;
-  static constexpr int TS = Sizes<T>::TS;
-  float o[16][2];  // lane owns columns lane and lane + 32
+  static constexpr int TS = Sizes<T, D>::TS, PS = Sizes<T, D>::PS;
+  static constexpr int kC = (D + 31) / 32;  // columns a lane
+  float o[16][kC];  // lane owns columns lane + 32c below D
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int r = 0; r < 16; ++r) o[r][0] = o[r][1] = 0.f;
+    for (int r = 0; r < 16; ++r)
+#pragma unroll
+      for (int c = 0; c < kC; ++c) o[r][c] = 0.f;
   }
   __device__ __forceinline__ void mma(const T* pw, const T* vs, int lane) {
     for (int j = 0; j < kTile; ++j) {
-      const float va = vs[j * TS + lane], vb = vs[j * TS + lane + 32];
+      float vv[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) vv[c] = lane + 32 * c < D ? vs[j * TS + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < 16; ++r) {
-        const float p = pw[r * TS + j];
-        o[r][0] += p * va;
-        o[r][1] += p * vb;
+        const float p = pw[r * PS + j];
+#pragma unroll
+        for (int c = 0; c < kC; ++c) o[r][c] += p * vv[c];
       }
     }
   }
   __device__ __forceinline__ void store(float* sw, int lane) const {
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      sw[r * kSST + lane] = o[r][0];
-      sw[r * kSST + lane + 32] = o[r][1];
-    }
+    for (int r = 0; r < 16; ++r)
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        if (lane + 32 * c < D) sw[r * kSST + lane + 32 * c] = o[r][c];
     __syncwarp();
   }
 };
 
 // Rows [r0, r0 + 16) of a (B, S, H, D) tensor from a warp's fp32 staging
 // tile, times `mul`, rounded to T; rows >= rows_left are not written.
-template <typename T>
+template <typename T, int D = kD>
 __device__ __forceinline__ void store_rows(T* dst, size_t rs, const float* sw, int rows_left,
                                            float mul, int lane) {
-  for (int e = lane; e < 16 * kD; e += 32) {
-    const int r = e / kD, c = e % kD;
+  for (int e = lane; e < 16 * D; e += 32) {
+    const int r = e / D, c = e % D;
     if (r < rows_left) dst[r * rs + c] = from_f<T>(sw[r * kSST + c] * mul);
   }
 }
@@ -170,14 +196,14 @@ struct Dropout {
 // logsumexp m + log(l) per row into lse (B, H, S), the dropout, and the
 // TPU kernel's padded keys (s_pad - S keys of score -1e9, which matter
 // only for a row whose every key is masked).
-template <bool kTrain>
+template <int kD, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ key_bias,
                 float* __restrict__ out, float* __restrict__ lse, int S, int H, float scale,
                 Dropout drop) {
   using T = float;
-  using Z = Sizes<T>;
+  using Z = Sizes<T, kD>;
   constexpr int TS = Z::TS;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
 
@@ -197,16 +223,16 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
   const T* qw = qs + warp * 16 * TS;   // the warp's 16 query rows
   float* sw = sst + warp * 16 * kSST;  // the warp's fp32 score tile
-  T* pw = pst + warp * 16 * TS;        // the warp's probability tile, in T
+  T* pw = pst + warp * 16 * Z::PS;    // the warp's probability tile, in T
 
-  load_rows<T>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
+  load_rows<T, kD>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
 
   // the key tile [k0, k0 + 64): K (and, in pass 2, V) rows and the bias
   auto load_keys = [&](int k0, bool with_v) {
     const int n = min(kTile, S - k0);
     __syncthreads();  // the previous tile is consumed
-    load_rows<T>(ks, kg + size_t(k0) * rs, rs, n);
-    if (with_v) load_rows<T>(vs, vg + size_t(k0) * rs, rs, n);
+    load_rows<T, kD>(ks, kg + size_t(k0) * rs, rs, n);
+    if (with_v) load_rows<T, kD>(vs, vg + size_t(k0) * rs, rs, n);
     load_vec(bs, kb ? kb + k0 : nullptr, n);
     __syncthreads();
     return n;
@@ -219,7 +245,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // pass 1: running max and sum of exp over all keys
   for (int k0 = 0; k0 < S; k0 += kTile) {
     const int n = load_keys(k0, false);
-    score_tile<T>(qw, ks, sw, lane);
+    score_tile<T, kD>(qw, ks, sw, lane);
     float tmax = -INFINITY;
     for (int c = half; c < n; c += 2) tmax = fmaxf(tmax, sw[row * kSST + c] * scale + bs[c]);
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
@@ -243,48 +269,53 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // pass 2: O = P V with P = round_T(dropout(exp(s - m) / l))
   const uint32_t base = kTrain ? drop.row_base(b * H + h, qrow) : 0u;
-  PvAcc<T> acc;
+  PvAcc<T, kD> acc;
   acc.zero();
   for (int k0 = 0; k0 < S; k0 += kTile) {
     const int n = load_keys(k0, true);
-    score_tile<T>(qw, ks, sw, lane);
+    score_tile<T, kD>(qw, ks, sw, lane);
     for (int c = half; c < kTile; c += 2) {
       float p = c < n ? expf(sw[row * kSST + c] * scale + bs[c] - m) / l : 0.f;
       if constexpr (kTrain) {
         if (drop.enabled) p = drop.keep(base + uint32_t(k0 + c)) ? p * drop.keep_scale : 0.f;
       }
-      pw[row * TS + c] = from_f<T>(p);
+      pw[row * Z::PS + c] = from_f<T>(p);
     }
     __syncwarp();
     acc.mma(pw, vs, lane);
     __syncwarp();
   }
   acc.store(sw, lane);
-  store_rows<T>(out + head0 + size_t(q0 + warp * 16) * rs, rs, sw, S - (q0 + warp * 16), 1.f,
-                lane);
+  store_rows<T, kD>(out + head0 + size_t(q0 + warp * 16) * rs, rs, sw, S - (q0 + warp * 16),
+                    1.f, lane);
 }
 
 // Shared memory of attn_fwd_kernel: q, k, v tiles, score staging,
 // probability tiles, bias tile.
+template <int kD>
 constexpr size_t fwd_smem_bytes() {
-  using Z = Sizes<float>;
+  using Z = Sizes<float, kD>;
   return 3 * Z::tile + Z::stage + Z::wtile + Z::vec;
 }
 
 template <bool kTrain>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const float* key_bias,
-                   void* out, float* lse, int B, int S, int H, float scale, Dropout drop,
+                   void* out, float* lse, int B, int S, int H, int D, float scale, Dropout drop,
                    cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
-  constexpr size_t smem = fwd_smem_bytes();
-  cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<kTrain>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
-  attn_fwd_kernel<kTrain><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      key_bias, static_cast<float*>(out), lse, S, H, scale, drop);
-  return int(cudaGetLastError());
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kDh = decltype(d)::value;
+    constexpr size_t smem = fwd_smem_bytes<kDh>();
+    cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<kDh, kTrain>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+    const dim3 grid((S + kTile - 1) / kTile, H, B);
+    attn_fwd_kernel<kDh, kTrain><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), key_bias, static_cast<float*>(out), lse, S, H, scale,
+        drop);
+    return int(cudaGetLastError());
+  });
 }
 
 }  // namespace attn

@@ -8,8 +8,8 @@
 //   dQ = scale * round(dS) K,  dK = scale * round(dS)^T Q,
 //   dV = round(p * mr)^T dO,   db[b, key] = sum over heads and rows of dS
 //
-// over (B, S, H, D=64) bf16 q, k, v, dO and dq, dk, dv, with an optional
-// (B, S) fp32 key bias.  Rounding points as the TPU kernel
+// over (B, S, H, D) bf16 q, k, v, dO and dq, dk, dv, D = 16, 32 or 64 (a
+// template parameter), with an optional (B, S) fp32 key bias.  Rounding points as the TPU kernel
 // (stonkgs_tpu/ops/flash_attention.py:131-178): dS rounded to bf16 before
 // the dQ and dK products, the dropped p rounded for dV, the scale applied
 // after the products; the dropout mask is the forward's hash of
@@ -25,8 +25,8 @@
 // Each has the forward's shape (attention_sm90.cuh): 384 threads, a
 // producer warpgroup (setmaxnreg.dec) whose first warp streams 128-row
 // tiles of the other operand pair through a kStages-deep ring with TMA
-// (the forward's 4-D tensor maps over (B, S, H, D), 128-byte swizzle;
-// TMA zero-fills rows >= S) and writes the tile's fp32 vectors beside
+// (the forward's 4-D tensor maps over (B, S, H, D), the swizzle of a
+// 2D-byte row; TMA zero-fills rows >= S) and writes the tile's fp32 vectors beside
 // them, and two consumer warpgroups of 64 rows each.  The register split
 // is 56 for the producer (its address arithmetic for the lse and delta
 // vectors spills at the forward's 40) and 224 for the consumers.  The
@@ -36,9 +36,9 @@
 // * attn_bwd_dq_sm90_kernel: a block per 128 query rows of one (b, h); Q
 //   and dO loaded once; K and V tiles stream with the keys' bias (-inf
 //   for keys >= S, which makes p = 0 there).  Per half, S = Q K^T and dP~
-//   = dO V^T by wgmma.m64n64k16 from shared memory (both K-major), the
-//   element pass in registers, then dQ += dS K by wgmma.m64n64k16 with dS
-//   from registers (the packed accumulator is the A fragment) and the K
+//   = dO V^T by wgmma.m64n64k16 from shared memory (both K-major, D/16
+//   k-steps), the element pass in registers, then dQ += dS K by
+//   wgmma.m64nDk16 with dS from registers (the packed accumulator is the A fragment) and the K
 //   rows MN-major (its keys are the product's k).
 // * attn_bwd_dkdv_sm90_kernel: a block per 128 keys of one (b, h); K and
 //   V loaded once; Q and dO tiles stream with the rows' lse (+inf for rows
@@ -50,7 +50,7 @@
 //   shares a key at the end.
 // The element pass packs each pair of results to bf16x2 as it goes; the
 // peak is two 32-float score tiles, their packed fragments and the
-// accumulators (32 floats in dQ, 64 in dK/dV).
+// accumulators (D/2 floats in dQ, D in dK/dV).
 //
 // Numerics against the plain version: products summed in another order;
 // p = exp2((S*scale + bias - lse) * log2 e) on the SFU (ex2.approx), a
@@ -68,6 +68,7 @@ namespace attn90 {
 
 constexpr int kHalf = 64;  // rows of a stage's half
 
+template <int kD>
 struct alignas(1024) SmemBwdQ {
   bf16 q[kBM * kD];
   bf16 dout[kBM * kD];
@@ -79,6 +80,7 @@ struct alignas(1024) SmemBwdQ {
   uint64_t rowbar;
 };
 
+template <int kD>
 struct alignas(1024) SmemBwdKV {
   bf16 k[kBN * kD];
   bf16 v[kBN * kD];
@@ -91,6 +93,7 @@ struct alignas(1024) SmemBwdKV {
   uint64_t rowbar;
 };
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -99,8 +102,10 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const float* __restrict__ key_bias, const float* __restrict__ lse,
                         const float* __restrict__ delta, bf16* __restrict__ dq, int S, int H,
                         float scale, Dropout drop) {
+  constexpr int kLine = 2 * kD;  // bytes of a row: the swizzle's width
+  constexpr uint32_t kTile = kTileBytes<kD>;
   extern __shared__ unsigned char smem_raw[];
-  SmemBwdQ& sm = aligned_smem<SmemBwdQ>(smem_raw);
+  SmemBwdQ<kD>& sm = aligned_smem<SmemBwdQ<kD>>(smem_raw);
   const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (S + kBN - 1) / kBN;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -111,7 +116,7 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     if (warp == 0) {
       if (lane == 0) {
-        mbar_arrive_tx(&sm.rowbar, 2 * kTileBytes);
+        mbar_arrive_tx(&sm.rowbar, 2 * kTile);
         tma_load_4d(sm.q, &map_q, 0, h, q0, b, &sm.rowbar);
         tma_load_4d(sm.dout, &map_do, 0, h, q0, b, &sm.rowbar);
       }
@@ -125,7 +130,7 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
           sm.bias[stage][t * 32 + lane] = key < S ? (kb ? __ldg(kb + key) : 0.f) : -INFINITY;
         }
         if (lane == 0) {
-          mbar_arrive_tx(&sm.full[stage], 2 * kTileBytes);
+          mbar_arrive_tx(&sm.full[stage], 2 * kTile);
           tma_load_4d(sm.k[stage], &map_k, 0, h, k0, b, &sm.full[stage]);
           tma_load_4d(sm.v[stage], &map_v, 0, h, k0, b, &sm.full[stage]);
         } else {
@@ -147,11 +152,11 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       delta_r[r] = row < S ? delta[stat0 + row] : 0.f;
       base[r] = drop.row_base(b * H + h, row);
     }
-    const uint64_t dqd = desc_sw128(sm.q + wg * 64 * kD);
-    const uint64_t dod = desc_sw128(sm.dout + wg * 64 * kD);
-    float acc[32];
+    const uint64_t dqd = desc_sw<kLine>(sm.q + wg * 64 * kD);
+    const uint64_t dod = desc_sw<kLine>(sm.dout + wg * 64 * kD);
+    float acc[kD / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
 
     mbar_wait(&sm.rowbar, 0);
     for (int j = 0; j < n_tiles; ++j) {
@@ -161,8 +166,8 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int half = 0; half < kBN / kHalf; ++half) {
         // S = Q K^T and dP~ = dO V^T over the half's 64 keys
         const int c0 = half * kHalf, k0 = j * kBN + c0;
-        const uint64_t dk = desc_sw128(sm.k[stage] + c0 * kD);
-        const uint64_t dv = desc_sw128(sm.v[stage] + c0 * kD);
+        const uint64_t dk = desc_sw<kLine>(sm.k[stage] + c0 * kD);
+        const uint64_t dv = desc_sw<kLine>(sm.v[stage] + c0 * kD);
         float s[32], dp[32];
         fence_regs(s);
         fence_regs(dp);
@@ -198,17 +203,18 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kHalf / 16; ++kk)
-          wgmma_pv(acc, pa + 4 * kk, dk + kk * (16 * 128 / 16));  // 16 keys = 16 lines of 128 B
+          wgmma_pv(acc, pa + 4 * kk, dk + kk * kLine);  // 16 keys = 16 lines = kLine units
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
       }
       release_stage(&sm.empty[stage], lane);
     }
-    store_rows_sm90(dq + (size_t(b) * S * H + h) * kD, acc, row0, S, H, scale, lane);
+    store_rows_sm90<kD>(dq + (size_t(b) * S * H + h) * kD, acc, row0, S, H, scale, lane);
   }
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
@@ -218,8 +224,10 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const float* __restrict__ delta, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, float* __restrict__ db, int S, int H,
                           float scale, Dropout drop) {
+  constexpr int kLine = 2 * kD;  // bytes of a row: the swizzle's width
+  constexpr uint32_t kTile = kTileBytes<kD>;
   extern __shared__ unsigned char smem_raw[];
-  SmemBwdKV& sm = aligned_smem<SmemBwdKV>(smem_raw);
+  SmemBwdKV<kD>& sm = aligned_smem<SmemBwdKV<kD>>(smem_raw);
   const int k0 = blockIdx.x * kBN, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (S + kBM - 1) / kBM;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -231,7 +239,7 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     if (warp == 0) {
       if (lane == 0) {
-        mbar_arrive_tx(&sm.rowbar, 2 * kTileBytes);
+        mbar_arrive_tx(&sm.rowbar, 2 * kTile);
         tma_load_4d(sm.k, &map_k, 0, h, k0, b, &sm.rowbar);
         tma_load_4d(sm.v, &map_v, 0, h, k0, b, &sm.rowbar);
       }
@@ -245,7 +253,7 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
           sm.delta[stage][t * 32 + lane] = row < S ? __ldg(delta + stat0 + row) : 0.f;
         }
         if (lane == 0) {
-          mbar_arrive_tx(&sm.full[stage], 2 * kTileBytes);
+          mbar_arrive_tx(&sm.full[stage], 2 * kTile);
           tma_load_4d(sm.q[stage], &map_q, 0, h, q0, b, &sm.full[stage]);
           tma_load_4d(sm.dout[stage], &map_do, 0, h, q0, b, &sm.full[stage]);
         } else {
@@ -264,11 +272,11 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const int key = key0 + 8 * r;
       bias_r[r] = key < S ? (key_bias ? key_bias[size_t(b) * S + key] : 0.f) : -INFINITY;
     }
-    const uint64_t dkd = desc_sw128(sm.k + wg * 64 * kD);
-    const uint64_t dvd = desc_sw128(sm.v + wg * 64 * kD);
-    float dk_acc[32], dv_acc[32], db_acc[2] = {0.f, 0.f};
+    const uint64_t dkd = desc_sw<kLine>(sm.k + wg * 64 * kD);
+    const uint64_t dvd = desc_sw<kLine>(sm.v + wg * 64 * kD);
+    float dk_acc[kD / 2], dv_acc[kD / 2], db_acc[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     mbar_wait(&sm.rowbar, 0);
     for (int j = 0; j < n_tiles; ++j) {
@@ -278,8 +286,8 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int half = 0; half < kBM / kHalf; ++half) {
         // S^T = K Q^T over the half's 64 queries (rows keys, columns queries)
         const int c0 = half * kHalf, q0 = j * kBM + c0;
-        const uint64_t dq = desc_sw128(sm.q[stage] + c0 * kD);
-        const uint64_t ddo = desc_sw128(sm.dout[stage] + c0 * kD);
+        const uint64_t dq = desc_sw<kLine>(sm.q[stage] + c0 * kD);
+        const uint64_t ddo = desc_sw<kLine>(sm.dout[stage] + c0 * kD);
         float s[32], dp[32];
         fence_regs(s);
         wgmma_fence();
@@ -319,7 +327,7 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kHalf / 16; ++kk)
-          wgmma_pv(dv_acc, pa + 4 * kk, ddo + kk * (16 * 128 / 16));
+          wgmma_pv(dv_acc, pa + 4 * kk, ddo + kk * kLine);
 #pragma unroll
         for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk64(dp, dvd + 2 * kk, ddo + 2 * kk, kk);
         wgmma_commit();
@@ -348,7 +356,7 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kHalf / 16; ++kk)
-          wgmma_pv(dk_acc, pb + 4 * kk, dq + kk * (16 * 128 / 16));
+          wgmma_pv(dk_acc, pb + 4 * kk, dq + kk * kLine);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dk_acc);
@@ -356,8 +364,8 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       release_stage(&sm.empty[stage], lane);
     }
     const size_t head0 = (size_t(b) * S * H + h) * kD;
-    store_rows_sm90(dv + head0, dv_acc, key0, S, H, 1.f, lane);
-    store_rows_sm90(dk + head0, dk_acc, key0, S, H, scale, lane);
+    store_rows_sm90<kD>(dv + head0, dv_acc, key0, S, H, 1.f, lane);
+    store_rows_sm90<kD>(dk + head0, dk_acc, key0, S, H, scale, lane);
     if (db) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -379,27 +387,31 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
 
 inline int launch_bwd_sm90(const void* q, const void* k, const void* v, const float* key_bias,
                            const float* lse, const void* dout, const float* delta, void* dq,
-                           void* dk, void* dv, float* db, int B, int S, int H, float scale,
-                           Dropout drop, cudaStream_t stream) {
+                           void* dk, void* dv, float* db, int B, int S, int H, int D,
+                           float scale, Dropout drop, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
-  CUtensorMap mq, mk, mv, mdo;
-  if (!make_map(&mq, q, B, S, H) || !make_map(&mk, k, B, S, H) || !make_map(&mv, v, B, S, H) ||
-      !make_map(&mdo, dout, B, S, H))
-    return kErrTensorMap;
-  constexpr size_t smem_q = sizeof(SmemBwdQ) + 1024, smem_kv = sizeof(SmemBwdKV) + 1024;
-  cudaError_t e = set_smem(attn_bwd_dq_sm90_kernel, smem_q);
-  if (e != cudaSuccess) return int(e);
-  e = set_smem(attn_bwd_dkdv_sm90_kernel, smem_kv);
-  if (e != cudaSuccess) return int(e);
-  const dim3 grid((S + kBM - 1) / kBM, H, B);
-  attn_bwd_dq_sm90_kernel<<<grid, kThreads, smem_q, stream>>>(
-      mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dq), S, H, scale, drop);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  attn_bwd_dkdv_sm90_kernel<<<grid, kThreads, smem_kv, stream>>>(
-      mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), db,
-      S, H, scale, drop);
-  return int(cudaGetLastError());
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kDh = decltype(d)::value;
+    CUtensorMap mq, mk, mv, mdo;
+    if (!make_map(&mq, q, B, S, H, kDh) || !make_map(&mk, k, B, S, H, kDh) ||
+        !make_map(&mv, v, B, S, H, kDh) || !make_map(&mdo, dout, B, S, H, kDh))
+      return kErrTensorMap;
+    constexpr size_t smem_q = sizeof(SmemBwdQ<kDh>) + 1024;
+    constexpr size_t smem_kv = sizeof(SmemBwdKV<kDh>) + 1024;
+    cudaError_t e = set_smem(attn_bwd_dq_sm90_kernel<kDh>, smem_q);
+    if (e != cudaSuccess) return int(e);
+    e = set_smem(attn_bwd_dkdv_sm90_kernel<kDh>, smem_kv);
+    if (e != cudaSuccess) return int(e);
+    const dim3 grid((S + kBM - 1) / kBM, H, B);
+    attn_bwd_dq_sm90_kernel<kDh><<<grid, kThreads, smem_q, stream>>>(
+        mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dq), S, H, scale, drop);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return int(e);
+    attn_bwd_dkdv_sm90_kernel<kDh><<<grid, kThreads, smem_kv, stream>>>(
+        mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        db, S, H, scale, drop);
+    return int(cudaGetLastError());
+  });
 }
 
 }  // namespace attn90

@@ -4,8 +4,9 @@
 //
 //   out = dropout(softmax(Q K^T * scale + key_bias)) V
 //
-// over (B, S, H, D=64) bf16 q, k, v and out, with an optional (B, S) fp32
-// key bias; training also writes the fp32 logsumexp (B, H, S).
+// over (B, S, H, D) bf16 q, k, v and out, D = 16, 32 or 64 (a template
+// parameter), with an optional (B, S) fp32 key bias; training also writes
+// the fp32 logsumexp (B, H, S).
 //
 // Two passes over the keys, because the TPU kernels normalise the
 // probabilities, drop them and only then round them to bf16 before P V
@@ -25,15 +26,18 @@
 // * warpgroup 2, the producer (setmaxnreg.dec): one warp streams the key
 //   tiles through a ring of kStages stages with full/empty mbarriers; its
 //   lane 0 issues TMA loads (one 4-D tensor map per tensor, dims (D, H, S,
-//   B), box (64, 1, 128, 1), 128-byte swizzle: a row of 64 bf16 is one
-//   128-byte line), and its 32 lanes write the tile's 128 key biases into
+//   B), box (D, 1, 128, 1), the swizzle of a row's width: a row of D bf16
+//   is one line of 2D = 128, 64 or 32 bytes, and the wgmma descriptors
+//   take the same swizzle), and its 32 lanes write the tile's 128 key biases into
 //   the stage (-inf for keys >= S, which masks them; TMA zero-fills the
 //   ragged last tile's rows).  Pass 1 streams K tiles, pass 2 K and V
-//   tiles, through the same ring.  Q (128 x 64) is loaded once.
+//   tiles, through the same ring.  Q (128 x D) is loaded once.  The
+//   tiles shrink with D (16 KB at 64, 4 KB at 16); the ring keeps its 3
+//   stages at every D.
 // * warpgroups 0 and 1, the consumers (setmaxnreg.inc), own 64 rows each,
 //   the wgmma M.  S = Q K^T is wgmma.m64n128k16 (A = Q and B = the K tile
-//   from shared memory, both K-major, 4 k-steps over D).  O += P V is
-//   wgmma.m64n64k16 with A = P from registers: the fp32 S accumulator,
+//   from shared memory, both K-major, D/16 k-steps).  O += P V is
+//   wgmma.m64nDk16 with A = P from registers: the fp32 S accumulator,
 //   packed to bf16 pairs, is already in the A-fragment layout; B = the V
 //   tile, MN-major (the transpose bit), 8 k-steps over the 128 keys.
 //   S and P never touch shared memory.  The softmax runs in registers:
@@ -71,18 +75,21 @@ namespace attn90 {
 
 using namespace sm90;
 using attn::Dropout;
-using attn::kD;
 using attn::kNegBias;
+using attn::with_head_dim;
 
 constexpr int kBM = 128;                  // query rows of a block
 constexpr int kBN = 128;                  // keys of a tile
 constexpr int kStages = 3;                // ring depth
 constexpr int kConsumers = 2;             // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr uint32_t kTileBytes = kBN * kD * 2;  // one 128 x 64 bf16 tile, 16 KB
 constexpr float kLog2e = 1.4426950408889634f;
 
+// one 128 x D bf16 tile, in bytes
+template <int kD> constexpr uint32_t kTileBytes = kBN * kD * 2;
+
 // Shared memory, 1024-byte aligned tiles (aligned_smem).
+template <int kD>
 struct alignas(1024) Smem {
   bf16 q[kBM * kD];
   bf16 k[kStages][kBN * kD];
@@ -92,7 +99,8 @@ struct alignas(1024) Smem {
   uint64_t empty[kStages];
   uint64_t rowbar;  // the block's own tile (Q)
 };
-constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
+template <int kD>
+constexpr size_t kSmemBytes = sizeof(Smem<kD>) + 1024;  // + alignment slack
 
 // the barriers of a ring whose stages the producer warp's 32 lanes fill
 // (lane 0 with the TMA bytes) and each consumer warp empties, and rowbar
@@ -110,10 +118,11 @@ __device__ __forceinline__ void init_ring(SmemT& sm) {
   __syncthreads();
 }
 
-// a warpgroup's 64 x 64 fp32 accumulator times `scale`, rounded, into rows
-// row0 and row0 + 8 (< S) of a (B, S, H, 64) tensor whose (b, 0, h, 0) is
+// a warpgroup's 64 x D fp32 accumulator times `scale`, rounded, into rows
+// row0 and row0 + 8 (< S) of a (B, S, H, D) tensor whose (b, 0, h, 0) is
 // `base`: bf16 pairs straight from the accumulator
-__device__ __forceinline__ void store_rows_sm90(bf16* base, const float (&d)[32], int row0,
+template <int kD>
+__device__ __forceinline__ void store_rows_sm90(bf16* base, const float (&d)[kD / 2], int row0,
                                                 int S, int H, float scale, int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -121,7 +130,7 @@ __device__ __forceinline__ void store_rows_sm90(bf16* base, const float (&d)[32]
     if (row >= S) continue;
     bf16* dst = base + size_t(row) * H * kD;
 #pragma unroll
-    for (int i = 2 * r; i < 32; i += 4)
+    for (int i = 2 * r; i < kD / 2; i += 4)
       *reinterpret_cast<uint32_t*>(dst + acc_col(i, lane)) =
           pack_bf16(d[i] * scale, d[i + 1] * scale);
   }
@@ -129,15 +138,17 @@ __device__ __forceinline__ void store_rows_sm90(bf16* base, const float (&d)[32]
 
 // --- the kernel -------------------------------------------------------------
 
-template <bool kTrain>
+template <int kD, bool kTrain>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      const float* __restrict__ key_bias, bf16* __restrict__ out,
                      float* __restrict__ lse, int S, int H, float scale, Dropout drop) {
+  constexpr int kLine = 2 * kD;           // bytes of a row: the swizzle's width
+  constexpr uint32_t kTile = kTileBytes<kD>;
   extern __shared__ unsigned char smem_raw[];
-  Smem& sm = aligned_smem<Smem>(smem_raw);
+  Smem<kD>& sm = aligned_smem<Smem<kD>>(smem_raw);
   const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (S + kBN - 1) / kBN;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -164,7 +175,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
               key < S ? (kb ? __ldg(kb + key) : 0.f) : -INFINITY;
         }
         if (lane == 0) {
-          mbar_arrive_tx(&sm.full[stage], pass2 ? 2 * kTileBytes : kTileBytes);
+          mbar_arrive_tx(&sm.full[stage], pass2 ? 2 * kTile : kTile);
           tma_load_4d(sm.k[stage], &map_k, 0, h, k0, b, &sm.full[stage]);
           if (pass2) tma_load_4d(sm.v[stage], &map_v, 0, h, k0, b, &sm.full[stage]);
         } else {
@@ -176,12 +187,12 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---------------- consumers ----------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // the thread's rows: row0, row0 + 8
-    const uint64_t dq = desc_sw128(sm.q + wg * 64 * kD);
+    const uint64_t dq = desc_sw<kLine>(sm.q + wg * 64 * kD);
     float acc[64];
 
     // S = Q K^T of the tile in `stage`, then s = S*scale + bias in place
     auto scores = [&](int stage) {
-      const uint64_t dk = desc_sw128(sm.k[stage]);
+      const uint64_t dk = desc_sw<kLine>(sm.k[stage]);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
@@ -248,9 +259,9 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       base[0] = drop.row_base(b * H + h, row0);
       base[1] = drop.row_base(b * H + h, row0 + 8);
     }
-    float o[32];
+    float o[kD / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
     for (int j = 0; j < n_tiles; ++j) {
       const int it = n_tiles + j, stage = it % kStages, k0 = j * kBN;
       mbar_wait(&sm.full[stage], (it / kStages) & 1);
@@ -269,12 +280,12 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       uint32_t pa[32];
 #pragma unroll
       for (int t = 0; t < 32; ++t) pa[t] = pack_bf16(acc[2 * t], acc[2 * t + 1]);
-      const uint64_t dv = desc_sw128(sm.v[stage]);
+      const uint64_t dv = desc_sw<kLine>(sm.v[stage]);
       fence_regs(o);
       wgmma_fence();  // orders the writes of pa and o before the products read them
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_pv(o, pa + 4 * kk, dv + kk * (16 * 128 / 16));  // 16 keys = 16 lines of 128 B
+        wgmma_pv(o, pa + 4 * kk, dv + kk * kLine);  // 16 keys = 16 lines = kLine units
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -282,37 +293,43 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
 
     // epilogue: O rows < S
-    store_rows_sm90(out + (size_t(b) * S * H + h) * kD, o, row0, S, H, 1.f, lane);
+    store_rows_sm90<kD>(out + (size_t(b) * S * H + h) * kD, o, row0, S, H, 1.f, lane);
   }
 }
 
 // --- host side --------------------------------------------------------------
 
-// 4-D map of a (B, S, H, 64) bf16 tensor: dims (64, H, S, B), box (64, 1, 128, 1)
-inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int H) {
-  const cuuint64_t dims[4] = {cuuint64_t(kD), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
-  const cuuint64_t row = kD * 2;  // bytes of one (b, s, h) row
+// 4-D map of a (B, S, H, D) bf16 tensor: dims (D, H, S, B), box (D, 1,
+// 128, 1), the swizzle of a 2D-byte row
+inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int H, int D) {
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t row = cuuint64_t(D) * 2;  // bytes of one (b, s, h) row
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {kD, 1, kBN, 1};
-  return encode_map(map, MapType<bf16>::kType, base, 4, dims, strides, box);
+  const cuuint32_t box[4] = {cuuint32_t(D), 1, kBN, 1};
+  return encode_map(map, MapType<bf16>::kType, base, 4, dims, strides, box,
+                    swizzle_of(int(row)));
 }
 
 template <bool kTrain>
 int launch_fwd_sm90(const void* q, const void* k, const void* v, const float* key_bias,
-                    void* out, float* lse, int B, int S, int H, float scale, Dropout drop,
-                    cudaStream_t stream) {
+                    void* out, float* lse, int B, int S, int H, int D, float scale,
+                    Dropout drop, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, S, H) || !make_map(&mk, k, B, S, H) || !make_map(&mv, v, B, S, H))
-    return kErrTensorMap;
-  cudaError_t e = cudaFuncSetAttribute(attn_fwd_sm90_kernel<kTrain>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(kSmemBytes));
-  if (e != cudaSuccess) return int(e);
-  const dim3 grid((S + kBM - 1) / kBM, H, B);
-  attn_fwd_sm90_kernel<kTrain><<<grid, kThreads, kSmemBytes, stream>>>(
-      mq, mk, mv, key_bias, static_cast<bf16*>(out), lse, S, H, scale, drop);
-  return int(cudaGetLastError());
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kDh = decltype(d)::value;
+    CUtensorMap mq, mk, mv;
+    if (!make_map(&mq, q, B, S, H, kDh) || !make_map(&mk, k, B, S, H, kDh) ||
+        !make_map(&mv, v, B, S, H, kDh))
+      return kErrTensorMap;
+    constexpr size_t smem = kSmemBytes<kDh>;
+    cudaError_t e = cudaFuncSetAttribute(attn_fwd_sm90_kernel<kDh, kTrain>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+    const dim3 grid((S + kBM - 1) / kBM, H, B);
+    attn_fwd_sm90_kernel<kDh, kTrain><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, key_bias, static_cast<bf16*>(out), lse, S, H, scale, drop);
+    return int(cudaGetLastError());
+  });
 }
 
 }  // namespace attn90

@@ -8,12 +8,13 @@
 // bf16 runs the Hopper kernels of ffn_sm90.cuh, four launches: LN1 into
 // the scratch x2, the wgmma GEMM x2 @ W1 with a b1 + gelu epilogue into
 // the scratch h (M, I), the wgmma GEMM h @ W2 with a b2 epilogue into out,
-// and LN2 in place.  fp32 runs ffn_fwd_kernel<float, true, H> of ffn.cuh
-// in one launch (one block owns 16 rows: LN1 into shared memory, the
+// and LN2 in place.  fp32 runs ffn_fwd_kernel<true> of ffn.cuh in one
+// launch (one block owns 16 rows: LN1 into shared memory, the
 // intermediate axis walked in chunks with the (16, H) fp32 accumulator
 // in registers, LN2 in the epilogue); it exists to hold the model against
-// the CPU.  H is 768 (BERT-base layers and the BigBird trunk) or 1024
-// (ProtBERT).
+// the CPU.  Both take any H that is a multiple of 32 up to 1024 (768 in
+// BERT-base layers and the BigBird trunk, 1024 in ProtBERT, 384 in
+// MiniLM-L12-H384) and I a multiple of 32.
 //
 // C interface (all pointers on the device; LayerNorm and bias vectors fp32):
 //   int ffn_ln_block(int dtype /*0 fp32, 1 bf16*/, x, attn_out, ln1_scale,
@@ -22,9 +23,9 @@
 //                    h /*(M, I) bf16 scratch, or NULL for fp32*/, out,
 //                    int M, int H, int I, int act /*0 gelu(erf),
 //                    1 gelu_new(tanh)*/, float eps, cudaStream_t stream)
-// with H 768 or 1024 and I a multiple of its chunk (192 or 256) in fp32,
-// of 8 in bf16; returns cudaGetLastError() after the launches (or -1 when
-// a TMA tensor map cannot be encoded).
+// with H a multiple of 32 up to 1024 and I a multiple of 32; returns
+// cudaGetLastError() after the launches (cudaErrorInvalidValue for other
+// widths, -1 when a TMA tensor map cannot be encoded).
 
 #include "ffn_sm90.cuh"
 
@@ -37,7 +38,7 @@ extern "C" int ffn_ln_block(int dtype, const void* x, const void* attn_out,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const LnArgs ln{ln1_scale, ln1_bias, ln2_scale, ln2_bias, eps};
   if (dtype == 0)
-    return launch_fwd<float, true>(x, attn_out, w1, b1, w2, b2, ln, out, M, H, I, act, s);
+    return launch_fwd<true>(x, attn_out, w1, b1, w2, b2, ln, out, M, H, I, act, s);
   if (dtype == 1)
     return stonkgs::ffn90::launch_ffn_ln_sm90(x, attn_out, ln, w1, b1, w2, b2, x2, h, out, M, H,
                                               I, act, s);

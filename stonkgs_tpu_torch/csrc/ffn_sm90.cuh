@@ -45,8 +45,9 @@
 //   without branches), rounds, and writes bf16 pairs into the free ring as
 //   64 x 64 swizzled boxes, which one thread a consumer stores with TMA
 //   (rows >= M and columns >= N are not written).
-// The LayerNorm passes are bound by bytes: one warp a row, 16-byte loads
-// and stores, the row's H / 32 values in registers.
+// The LayerNorm passes are bound by bytes: one warp a row, the row's H / 32
+// values in registers, loaded and stored as the widest vectors H allows
+// (16 bytes when H is a multiple of 256).
 
 #pragma once
 
@@ -268,50 +269,87 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// out = round(LN(a + b)) over rows of width H, statistics in fp32; one warp
-// a row, each lane H / 256 16-byte vectors.  out may be b (in place: a
-// row's values are all read before any is written).
-template <int H>
+// a vector of kVec bf16 (8: 16 bytes, 4, 2 or 1), as one load or store
+template <int kVec> struct BfVec;
+template <> struct BfVec<8> { using type = uint4; };
+template <> struct BfVec<4> { using type = uint2; };
+template <> struct BfVec<2> { using type = uint32_t; };
+template <> struct BfVec<1> { using type = uint16_t; };
+
+// out = round(LN(a + b)) over rows of width H (a multiple of 32 up to
+// 1024), statistics in fp32; one warp a row, each lane H / 32 values as
+// H / (32 kVec) vectors of kVec (the widest that divides H / 32: 16 bytes
+// at H = 256, 512, 768, 1024), vector j of lane l at column (l + 32j)
+// kVec, in registers.  out may be b (in place: a row's values are all read
+// before any is written).
+template <int kVec>
 __global__ void __launch_bounds__(256)
 add_layer_norm_kernel(const bf16* a, const bf16* b, const float* __restrict__ g,
-                      const float* __restrict__ beta, float eps, bf16* out, int M) {
-  constexpr int V = H / 256;
+                      const float* __restrict__ beta, float eps, bf16* out, int M, int H) {
+  using V = typename BfVec<kVec>::type;
+  constexpr int kMaxVecs = 1024 / 32 / kVec;  // vectors a lane at H = 1024
+  const int nv = H / (32 * kVec);
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= M) return;
   const size_t off = size_t(row) * H;
-  float v[8 * V];
+  float v[kVec * kMaxVecs];
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    const int c = (lane + 32 * j) * 8;
-    const uint4 ua = *reinterpret_cast<const uint4*>(a + off + c);
-    const uint4 ub = *reinterpret_cast<const uint4*>(b + off + c);
-    const bf16* ea = reinterpret_cast<const bf16*>(&ua);
-    const bf16* eb = reinterpret_cast<const bf16*>(&ub);
+  for (int j = 0; j < kMaxVecs; ++j) {
+    if (j < nv) {
+      const int c = (lane + 32 * j) * kVec;
+      const V ua = *reinterpret_cast<const V*>(a + off + c);
+      const V ub = *reinterpret_cast<const V*>(b + off + c);
+      const bf16* ea = reinterpret_cast<const bf16*>(&ua);
+      const bf16* eb = reinterpret_cast<const bf16*>(&ub);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[8 * j + e] = to_f(ea[e]) + to_f(eb[e]);
+      for (int e = 0; e < kVec; ++e) v[kVec * j + e] = to_f(ea[e]) + to_f(eb[e]);
+    }
   }
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8 * V; ++i) s += v[i];
+  for (int j = 0; j < kMaxVecs; ++j)
+    if (j < nv)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) s += v[kVec * j + e];
   const float mean = warp_sum(s) / H;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8 * V; ++i) {
-    const float d = v[i] - mean;
-    q += d * d;
-  }
+  for (int j = 0; j < kMaxVecs; ++j)
+    if (j < nv)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float d = v[kVec * j + e] - mean;
+        q += d * d;
+      }
   const float rstd = rsqrtf(warp_sum(q) / H + eps);
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    const int c = (lane + 32 * j) * 8;
-    uint4 uo;
-    uint32_t* eo = reinterpret_cast<uint32_t*>(&uo);
+  for (int j = 0; j < kMaxVecs; ++j) {
+    if (j < nv) {
+      const int c = (lane + 32 * j) * kVec;
+      V uo;
+      bf16* eo = reinterpret_cast<bf16*>(&uo);
 #pragma unroll
-    for (int e = 0; e < 8; e += 2)
-      eo[e / 2] = pack_bf16((v[8 * j + e] - mean) * rstd * g[c + e] + beta[c + e],
-                            (v[8 * j + e + 1] - mean) * rstd * g[c + e + 1] + beta[c + e + 1]);
-    *reinterpret_cast<uint4*>(out + off + c) = uo;
+      for (int e = 0; e < kVec; ++e)
+        eo[e] = __float2bfloat16((v[kVec * j + e] - mean) * rstd * g[c + e] + beta[c + e]);
+      *reinterpret_cast<V*>(out + off + c) = uo;
+    }
   }
+}
+
+// the LayerNorm pass over M rows of width H, at the widest vector H takes
+inline int launch_add_layer_norm(const bf16* a, const bf16* b, const float* g, const float* beta,
+                                 float eps, bf16* out, int M, int H, cudaStream_t stream) {
+  const unsigned blocks = unsigned((M + 7) / 8);
+  const int per = H / 32;
+  if (per % 8 == 0)
+    add_layer_norm_kernel<8><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H);
+  else if (per % 4 == 0)
+    add_layer_norm_kernel<4><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H);
+  else if (per % 2 == 0)
+    add_layer_norm_kernel<2><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H);
+  else
+    add_layer_norm_kernel<1><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H);
+  return int(cudaGetLastError());
 }
 
 template <int kAct, bool kBKMajor = false>
@@ -351,39 +389,23 @@ inline int launch_ffn_gemms(const bf16* x, const bf16* w1, const float* b1, cons
   return launch_gemm<kNoAct>(ma2, mw2, mo, b2, M, H, I, stream);
 }
 
-// the block at hidden width H (768 or 1024); x2 (M, H) and h (M, I) are
-// the caller's scratch
-template <int H>
-int launch_ffn_ln_width(const bf16* x, const bf16* attn, const ffn::LnArgs& ln, const bf16* w1,
-                        const float* b1, const bf16* w2, const float* b2, bf16* x2, bf16* h,
-                        bf16* out, int M, int I, int act, cudaStream_t stream) {
-  if (!gemm_shapes_ok(M, H, I, act) || !x2) return int(cudaErrorInvalidValue);
-  const unsigned ln_blocks = unsigned((M + 7) / 8);
-  add_layer_norm_kernel<H><<<ln_blocks, 256, 0, stream>>>(x, attn, ln.g1, ln.be1, ln.eps, x2, M);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  const int s = launch_ffn_gemms(x2, w1, b1, w2, b2, h, out, M, H, I, act, stream);
-  if (s != 0) return s;
-  add_layer_norm_kernel<H><<<ln_blocks, 256, 0, stream>>>(x2, out, ln.g2, ln.be2, ln.eps, out, M);
-  return int(cudaGetLastError());
-}
-
+// the block at hidden width H (a multiple of 32 up to 1024) and I (a
+// multiple of 32); x2 (M, H) and h (M, I) are the caller's scratch
 inline int launch_ffn_ln_sm90(const void* x, const void* attn, const ffn::LnArgs& ln,
                               const void* w1, const float* b1, const void* w2, const float* b2,
                               void* x2, void* h, void* out, int M, int H, int I, int act,
                               cudaStream_t stream) {
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* ab = static_cast<const bf16*>(attn);
-  const auto* w1b = static_cast<const bf16*>(w1);
-  const auto* w2b = static_cast<const bf16*>(w2);
+  if (!ffn::widths_ok(H, I) || !gemm_shapes_ok(M, H, I, act) || !x2)
+    return int(cudaErrorInvalidValue);
   auto* x2b = static_cast<bf16*>(x2);
-  auto* hb = static_cast<bf16*>(h);
   auto* ob = static_cast<bf16*>(out);
-  if (H == 768)
-    return launch_ffn_ln_width<768>(xb, ab, ln, w1b, b1, w2b, b2, x2b, hb, ob, M, I, act, stream);
-  if (H == 1024)
-    return launch_ffn_ln_width<1024>(xb, ab, ln, w1b, b1, w2b, b2, x2b, hb, ob, M, I, act, stream);
-  return int(cudaErrorInvalidValue);
+  int s = launch_add_layer_norm(static_cast<const bf16*>(x), static_cast<const bf16*>(attn),
+                                ln.g1, ln.be1, ln.eps, x2b, M, H, stream);
+  if (s != 0) return s;
+  s = launch_ffn_gemms(x2b, static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
+                       static_cast<bf16*>(h), ob, M, H, I, act, stream);
+  if (s != 0) return s;
+  return launch_add_layer_norm(x2b, ob, ln.g2, ln.be2, ln.eps, ob, M, H, stream);
 }
 
 }  // namespace ffn90

@@ -11,23 +11,26 @@
 //
 // bf16 runs the Hopper kernels of ffn_train_sm90.cuh: the forward is two
 // wgmma GEMMs through a bf16 scratch h (M, I); the backward a dual wgmma
-// GEMM that writes a and dh, then the dx GEMM.  Any H and I that are
-// multiples of 8.
+// GEMM that writes a and dh, then the dx GEMM.  Both dtypes take the same
+// widths, H a multiple of 32 up to 1024 and I a multiple of 32 (the
+// GEMMs alone would take any multiples of 8).
 //
 // fp32 runs SIMT bodies that exist to hold the model against the CPU:
-// the forward is ffn_fwd_kernel<float, false, H> of ffn.cuh (H = 768 or
-// 1024); the backward, below, takes H = 768.  One block owns 16 rows of x
-// and g, both kept in shared memory, and walks I in chunks of 192.  For
-// each chunk:
-//   h = x @ W1[:, chunk]        (W1 streamed in 64 x 192 tiles)
+// the forward is ffn_fwd_kernel<false> of ffn.cuh; the backward, below,
+// is built from the same pieces with two row operands.  Both take any H
+// that is a multiple of 32 up to 1024 and any I that is a multiple of 32.
+// One block owns 16 rows of x and g, both kept in shared memory, and walks
+// I in chunks of 128 (the last one narrower when I % 128 != 0).  For each
+// chunk:
+//   h = x @ W1[:, chunk]        (W1 streamed in 32 x chunk tiles)
 //   a = gelu(h + b1) -> a[:, chunk];  gelu'(h) kept
-//   gw = g @ W2^T[:, chunk]     (W2^T (768, I) streamed in 64 x 192 tiles)
+//   gw = g @ W2^T[:, chunk]     (W2^T (H, I) streamed in 32 x chunk tiles)
 //   dh = gw * gelu'(h) -> dh[:, chunk], and kept in shared memory
-//   acc += dh @ W1^T[chunk, :]  (W1^T (I, 768) streamed in 16 x 768 tiles)
-// with the (16, 768) dx accumulator in registers.  The three weight
-// streams of a chunk form one sequence through the cp.async ring of
-// ffn.cuh; the caller passes W2^T and W1^T, so every tile is one of the
-// two shapes the forward streams.
+//   acc += dh @ W1^T[chunk, :]  (W1^T (I, H) streamed in 8 x H tiles)
+// with the (16, H) dx accumulator in registers.  The three weight streams
+// of a chunk form one sequence through the cp.async ring of ffn.cuh; the
+// caller passes W2^T and W1^T, so every tile is one of the two shapes the
+// forward streams.
 // dW1 = x^T dh, dW2 = a^T g and the bias sums are left to the caller, as
 // the TPU kernel leaves them to XLA.
 //
@@ -40,9 +43,10 @@
 //                     w2t (H, I), w1t (I, H) /*fp32 only, else NULL*/,
 //                     dx, dh (M, I), a (M, I), int M, int H, int I,
 //                     int act, cudaStream_t stream)
-// fp32 takes I a multiple of the width's chunk (192 at 768, 256 at 1024);
-// each returns cudaGetLastError() after its launches (or -1 when a TMA
-// tensor map cannot be encoded).
+// both take H a multiple of 32 up to 1024 and I a multiple of 32 in both
+// dtypes; each returns cudaGetLastError() after its launches
+// (cudaErrorInvalidValue for other widths, -1 when a TMA tensor map cannot
+// be encoded).
 
 #include "ffn_train_sm90.cuh"
 
@@ -51,114 +55,108 @@ namespace ffn {
 namespace {
 
 // the fp32 backward kernel: two row operands (x and g), 16 rows
-using BwdLayout = Layout<float, 768, 16, 2, 2>;
-
-__global__ void __launch_bounds__(Width<768>::kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gy,
                const float* __restrict__ w1, const float* __restrict__ b1,
                const float* __restrict__ w2t, const float* __restrict__ w1t,
                float* __restrict__ dx, float* __restrict__ dh_out, float* __restrict__ a_out,
-               int M, int I, int act) {
-  using L = BwdLayout;
-  using T = float;
-  constexpr int STAGES = L::STAGES;
-  constexpr int kChunk = L::kChunk, kThreads = L::kThreads;
-  constexpr int kTiles1 = L::kTiles1, kTiles2 = L::kTiles2;
+               int M, int H, int I, int act, Layout L) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  T* gs = reinterpret_cast<T*>(smem + L::xs_bytes);
-  unsigned char* work = smem + 2 * L::xs_bytes;
-  T* wbuf = reinterpret_cast<T*>(work);
-  T* hs = reinterpret_cast<T*>(work + L::wbuf_bytes);
+  float* xs = reinterpret_cast<float*>(smem);
+  float* gs = reinterpret_cast<float*>(smem + L.xs_bytes);
+  unsigned char* work = smem + 2 * L.xs_bytes;
+  float* wbuf = reinterpret_cast<float*>(work);
+  float* hs = reinterpret_cast<float*>(work + L.wbuf_bytes);
   float* stage = reinterpret_cast<float*>(work);  // epilogue only
 
-  const int row0 = blockIdx.x * L::BM;
-  constexpr int kTiles = 2 * kTiles1 + kTiles2;  // W1, W2^T, W1^T tiles per chunk
-  const int total = (I / kChunk) * kTiles;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kBM;
+  const int nt1 = H / kK1;
+  const int per = 2 * nt1 + kChunk / kK2;  // W1, W2^T, W1^T tiles a full chunk
+  const int total = stream_tiles(I, per);
 
   auto fetch = [&](int g) {
     if (g < total) {
-      T* dst = wbuf + (g % STAGES) * L::WBUF;
-      const int c0 = (g / kTiles) * kChunk, t = g % kTiles;
-      if (t < kTiles1)
-        fetch_w1<L>(dst, w1, I, c0, t);
-      else if (t < 2 * kTiles1)
-        fetch_w1<L>(dst, w2t, I, c0, t - kTiles1);
+      float* dst = wbuf + (g % kStages) * L.WBUF;
+      const int c = g / per, c0 = c * kChunk, t = g - c * per, cn = min(kChunk, I - c0);
+      if (t < nt1)
+        fetch_w1(dst, L, w1, I, c0, cn, t);
+      else if (t < 2 * nt1)
+        fetch_w1(dst, L, w2t, I, c0, cn, t - nt1);
       else
-        fetch_w2<L>(dst, w1t, c0, t - 2 * kTiles1);
+        fetch_w2(dst, L, w1t, H, c0, t - 2 * nt1);
     }
     cp_async_commit();
   };
-#pragma unroll
-  for (int g = 0; g < STAGES - 1; ++g) fetch(g);
-  load_row_block<L>(xs, x, row0, M);
-  load_row_block<L>(gs, gy, row0, M);
+  fetch(0);
+  load_row_block(xs, L, x, row0, M, H);
+  load_row_block(gs, L, gy, row0, M, H);
 
   int g = 0;
-  auto advance = [&]() -> const T* {
-    cp_async_wait<STAGES - 2>();
+  auto advance = [&]() -> const float* {
+    cp_async_wait<kStages - 2>();
     __syncthreads();
-    fetch(g + STAGES - 1);
-    const T* cur = wbuf + (g % STAGES) * L::WBUF;
+    fetch(g + kStages - 1);
+    const float* cur = wbuf + (g % kStages) * L.WBUF;
     ++g;
     return cur;
   };
   const LnArgs no_ln{};
 
-  // thread owns chunk column tid % 192 and rows [(tid / 192) * 8, +8) in
-  // the W1 and W2^T products; dx columns tid and tid + 384.
-  static_assert(L::BM == 16 && kThreads == 2 * kChunk && L::kH == 2 * kThreads,
-                "fp32 thread mapping");
-  const int tid = threadIdx.x;
+  // thread owns chunk column tid % 128 of rows [(tid / 128) * 8, +8) in
+  // the W1 and W2^T products; dx columns tid + 256j below H.
   const int hc = tid % kChunk, hr = (tid / kChunk) * 8;
-  float acc[16][2];
+  float acc[kBM][kCols];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int r = 0; r < kBM; ++r)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
   for (int c0 = 0; c0 < I; c0 += kChunk) {
+    const int cn = min(kChunk, I - c0);
+    const bool live = hc < cn;
     float hacc[8], gacc[8], dact[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) hacc[r] = gacc[r] = 0.f;
-    for (int t = 0; t < kTiles1; ++t) fma_w1_tile<L>(hacc, xs, advance(), t, hr, hc);
+    for (int t = 0; t < nt1; ++t) fma_w1_tile(hacc, xs, L, advance(), t, hr, hc);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      float av;
-      gelu_and_grad(hacc[r] + b1[c0 + hc], act, av, dact[r]);
-      if (row0 + hr + r < M) a_out[size_t(row0 + hr + r) * I + c0 + hc] = av;
+      float av = 0.f;
+      dact[r] = 0.f;
+      if (live) gelu_and_grad(hacc[r] + b1[c0 + hc], act, av, dact[r]);
+      if (live && row0 + hr + r < M) a_out[size_t(row0 + hr + r) * I + c0 + hc] = av;
     }
-    for (int t = 0; t < kTiles1; ++t) fma_w1_tile<L>(gacc, gs, advance(), t, hr, hc);
+    for (int t = 0; t < nt1; ++t) fma_w1_tile(gacc, gs, L, advance(), t, hr, hc);
+    if (live) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const float dh = gacc[r] * dact[r];
-      hs[(hr + r) * L::HSS + hc] = dh;
-      if (row0 + hr + r < M) dh_out[size_t(row0 + hr + r) * I + c0 + hc] = dh;
+      for (int r = 0; r < 8; ++r) {
+        const float dh = gacc[r] * dact[r];
+        hs[(hr + r) * L.HSS + hc] = dh;
+        if (row0 + hr + r < M) dh_out[size_t(row0 + hr + r) * I + c0 + hc] = dh;
+      }
     }
-    for (int kt = 0; kt < kTiles2; ++kt) fma_w2_tile<L>(acc, hs, advance(), kt, tid);
+    for (int kt = 0; kt < cn / kK2; ++kt) fma_w2_tile(acc, hs, L, advance(), kt, H);
   }
   __syncthreads();
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    stage[r * L::STS + tid] = acc[r][0];
-    stage[r * L::STS + tid + kThreads] = acc[r][1];
-  }
+  stage_acc(stage, L, acc, H);
   __syncthreads();
-  epilogue_rows<L, T, false>(stage, xs, 0, row0, M, nullptr, no_ln, dx);
+  epilogue_rows<false>(stage, xs, L, row0, M, H, nullptr, no_ln, dx);
 }
 
 int launch_bwd_f32(const void* x, const void* g, const void* w1, const float* b1,
                    const void* w2t, const void* w1t, void* dx, void* dh, void* a, int M, int H,
                    int I, int act, cudaStream_t stream) {
-  using L = BwdLayout;
-  if (M <= 0 || H != L::kH || I <= 0 || I % L::kChunk != 0 || (act != 0 && act != 1) ||
-      !w2t || !w1t)
+  if (M <= 0 || !widths_ok(H, I) || (act != 0 && act != 1) || !w2t || !w1t)
     return int(cudaErrorInvalidValue);
+  const Layout L = make_layout(H);
+  const size_t smem = L.smem_bytes(2);
   cudaError_t e = cudaFuncSetAttribute(ffn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(L::smem_bytes));
+                                       int(smem));
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((M + L::BM - 1) / L::BM);
-  ffn_bwd_kernel<<<grid, L::kThreads, L::smem_bytes, stream>>>(
+  const dim3 grid((M + kBM - 1) / kBM);
+  ffn_bwd_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(g), static_cast<const float*>(w1),
       b1, static_cast<const float*>(w2t), static_cast<const float*>(w1t),
-      static_cast<float*>(dx), static_cast<float*>(dh), static_cast<float*>(a), M, I, act);
+      static_cast<float*>(dx), static_cast<float*>(dh), static_cast<float*>(a), M, H, I, act, L);
   return int(cudaGetLastError());
 }
 
@@ -172,10 +170,11 @@ extern "C" int ffn_train_fwd(int dtype, const void* x, const void* w1, const flo
   using namespace stonkgs;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return ffn::launch_fwd<float, false>(x, nullptr, w1, b1, w2, b2, ffn::LnArgs{}, out, M, H,
-                                         I, act, s);
+    return ffn::launch_fwd<false>(x, nullptr, w1, b1, w2, b2, ffn::LnArgs{}, out, M, H, I, act,
+                                  s);
   if (dtype == 1) {
     using bf16 = __nv_bfloat16;
+    if (!ffn::widths_ok(H, I)) return int(cudaErrorInvalidValue);
     return ffn90::launch_ffn_gemms(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
                                    static_cast<const bf16*>(w2), b2, static_cast<bf16*>(h),
                                    static_cast<bf16*>(out), M, H, I, act, s);
@@ -191,6 +190,7 @@ extern "C" int ffn_train_bwd(int dtype, const void* x, const void* g, const void
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return ffn::launch_bwd_f32(x, g, w1, b1, w2t, w1t, dx, dh, a, M, H, I, act, s);
+  if (dtype == 1 && !ffn::widths_ok(H, I)) return int(cudaErrorInvalidValue);
   if (dtype == 1)
     return ffn90::launch_ffn_train_bwd_sm90(x, g, w1, b1, w2, dx, dh, a, M, H, I, act, s);
   return int(cudaErrorInvalidValue);

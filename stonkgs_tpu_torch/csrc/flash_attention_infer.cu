@@ -1,5 +1,6 @@
 // Inference attention: out = softmax(Q K^T * scale + key_bias) V, with q, k,
-// v and out in the (B, S, H, D=64) layout, read with strides.
+// v and out in the (B, S, H, D) layout, D = 16, 32 or 64, read with
+// strides.
 //
 // Replaces the TPU kernel _infer_kernel
 // (stonkgs_tpu/ops/flash_attention.py:359).  The table's bound on the H100
@@ -24,22 +25,23 @@
 // C interface:
 //   int flash_attention_infer(int dtype /*0 fp32, 1 bf16*/, q, k, v,
 //                             const float* key_bias /*(B, S) or NULL*/, out,
-//                             int B, int S, int H, float scale,
+//                             int B, int S, int H, int D, float scale,
 //                             cudaStream_t stream)
-// returns cudaGetLastError() after the launch.
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// D other than 16, 32 and 64).
 
 #include "attention_sm90.cuh"
 
 extern "C" int flash_attention_infer(int dtype, const void* q, const void* k, const void* v,
                                      const float* key_bias, void* out, int B, int S, int H,
-                                     float scale, void* stream) {
+                                     int D, float scale, void* stream) {
   using namespace stonkgs::attn;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout none{};
   if (dtype == 0)
-    return launch_fwd_f32<false>(q, k, v, key_bias, out, nullptr, B, S, H, scale, none, s);
+    return launch_fwd_f32<false>(q, k, v, key_bias, out, nullptr, B, S, H, D, scale, none, s);
   if (dtype == 1)
-    return stonkgs::attn90::launch_fwd_sm90<false>(q, k, v, key_bias, out, nullptr, B, S, H,
+    return stonkgs::attn90::launch_fwd_sm90<false>(q, k, v, key_bias, out, nullptr, B, S, H, D,
                                                    scale, none, s);
   return int(cudaErrorInvalidValue);
 }

@@ -1,6 +1,8 @@
 // Training attention, forward and backward, with the TPU kernels' in-kernel
-// hash dropout; q, k, v, out, dO, dq, dk, dv in the (B, S, H, D=64) layout,
-// read with strides; lse and delta (B, H, S) fp32.
+// hash dropout; q, k, v, out, dO, dq, dk, dv in the (B, S, H, D) layout
+// (D = 16, 32 or 64: each kernel is instantiated for the three, and D
+// picks one at the launch), read with strides; lse and delta (B, H, S)
+// fp32.
 //
 // Replaces the TPU kernels _train_fwd_kernel and _train_bwd_kernel
 // (stonkgs_tpu/ops/flash_attention.py:92 and :118, with _dropout_keep at
@@ -43,16 +45,17 @@
 // C interface (dtype 0 fp32, 1 bf16; key_bias (B, S) fp32 or NULL; the
 // dropout arguments as attention.cuh's Dropout):
 //   int flash_attention_train_fwd(int dtype, q, k, v, key_bias, out,
-//       float* lse, int B, int S, int H, float scale, int dropout,
+//       float* lse, int B, int S, int H, int D, float scale, int dropout,
 //       int s_pad, unsigned threshold, unsigned seed0, unsigned seed1,
 //       float keep_scale, cudaStream_t stream)
 //   int flash_attention_train_bwd(int dtype, q, k, v, key_bias, out,
 //       const float* lse, dout, dq, dk, dv, float* db /*(B, S) zeroed, or
 //       NULL*/, float* delta /*(B, H, S) scratch*/, int B, int S, int H,
-//       float scale, int dropout, int s_pad, unsigned threshold,
+//       int D, float scale, int dropout, int s_pad, unsigned threshold,
 //       unsigned seed0, unsigned seed1, float keep_scale,
 //       cudaStream_t stream)
-// each returns cudaGetLastError() after its launches.
+// each returns cudaGetLastError() after its launches (cudaErrorInvalidValue
+// for a D other than 16, 32 and 64).
 
 #include "attention_bwd_sm90.cuh"
 
@@ -61,7 +64,7 @@ namespace attn {
 namespace {
 
 // delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d], one warp per row
-template <typename T>
+template <typename T, int kD>
 __global__ void __launch_bounds__(256)
 attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                       float* __restrict__ delta, int B, int S, int H) {
@@ -70,7 +73,9 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (row >= size_t(B) * S * H) return;
   const T* op = o + row * kD;
   const T* dp = dout + row * kD;
-  float acc = to_f(op[lane]) * to_f(dp[lane]) + to_f(op[lane + 32]) * to_f(dp[lane + 32]);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = lane; c < kD; c += 32) acc += to_f(op[c]) * to_f(dp[c]);
   acc = warp_sum(acc);
   if (lane == 0) {
     const int h = int(row % H);
@@ -82,17 +87,19 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 // Backward shared memory of the fp32 bodies: four tiles, two fp32
 // staging tiles, two per-warp tiles, four 64-float vectors.
+template <int kD>
 constexpr size_t bwd_smem_bytes() {
-  using Z = Sizes<float>;
+  using Z = Sizes<float, kD>;
   return 4 * Z::tile + 2 * Z::stage + 2 * Z::wtile + 4 * Z::vec;
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ key_bias, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    float* __restrict__ dq, int S, int H, float scale, Dropout drop) {
-  using Z = Sizes<float>;
+  using Z = Sizes<float, kD>;
   constexpr int TS = Z::TS;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
 
@@ -112,14 +119,14 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
   const size_t stat0 = (size_t(b) * H + h) * S;  // (b, h, 0) of lse and delta
 
-  load_rows<float>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
-  load_rows<float>(dos, dout + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
+  load_rows<float, kD>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
+  load_rows<float, kD>(dos, dout + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
 
   const float* qw = qs + warp * 16 * TS;
   const float* dow = dos + warp * 16 * TS;
   float* sw = sst + warp * 16 * kSST;  // S tile
   float* pw = pst + warp * 16 * kSST;  // dP~ tile
-  float* dsw = dst + warp * 16 * TS;   // dS tile
+  float* dsw = dst + warp * 16 * Z::PS;  // dS tile
 
   const int row = lane >> 1, half = lane & 1;
   const int qrow = q0 + warp * 16 + row;
@@ -128,17 +135,17 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float delta_r = live ? delta[stat0 + qrow] : 0.f;
   const uint32_t base = drop.row_base(b * H + h, qrow);
 
-  PvAcc<float> acc;
+  PvAcc<float, kD> acc;
   acc.zero();
   for (int k0 = 0; k0 < S; k0 += kTile) {
     const int n = min(kTile, S - k0);
     __syncthreads();  // the previous tiles are consumed
-    load_rows<float>(ks, k + head0 + size_t(k0) * rs, rs, n);
-    load_rows<float>(vs, v + head0 + size_t(k0) * rs, rs, n);
+    load_rows<float, kD>(ks, k + head0 + size_t(k0) * rs, rs, n);
+    load_rows<float, kD>(vs, v + head0 + size_t(k0) * rs, rs, n);
     load_vec(bs, kb ? kb + k0 : nullptr, n);
     __syncthreads();
-    score_tile<float>(qw, ks, sw, lane);
-    score_tile<float>(dow, vs, pw, lane);
+    score_tile<float, kD>(qw, ks, sw, lane);
+    score_tile<float, kD>(dow, vs, pw, lane);
     for (int c = half; c < kTile; c += 2) {
       float ds = 0.f;
       if (live && c < n) {
@@ -147,24 +154,25 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (drop.enabled) dp = drop.keep(base + uint32_t(k0 + c)) ? dp * drop.keep_scale : 0.f;
         ds = p * (dp - delta_r);
       }
-      dsw[row * TS + c] = ds;
+      dsw[row * Z::PS + c] = ds;
     }
     __syncwarp();
     acc.mma(dsw, ks, lane);
     __syncwarp();
   }
   acc.store(sw, lane);
-  store_rows<float>(dq + head0 + size_t(q0 + warp * 16) * rs, rs, sw, S - (q0 + warp * 16),
-                    scale, lane);
+  store_rows<float, kD>(dq + head0 + size_t(q0 + warp * 16) * rs, rs, sw,
+                        S - (q0 + warp * 16), scale, lane);
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ key_bias, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ db, int S,
                      int H, float scale, Dropout drop) {
-  using Z = Sizes<float>;
+  using Z = Sizes<float, kD>;
   constexpr int TS = Z::TS;
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
 
@@ -188,36 +196,36 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t stat0 = (size_t(b) * H + h) * S;
   const int nk = min(kTile, S - k0);
 
-  load_rows<float>(ks, k + head0 + size_t(k0) * rs, rs, nk);
-  load_rows<float>(vs, v + head0 + size_t(k0) * rs, rs, nk);
+  load_rows<float, kD>(ks, k + head0 + size_t(k0) * rs, rs, nk);
+  load_rows<float, kD>(vs, v + head0 + size_t(k0) * rs, rs, nk);
   load_vec(bs, key_bias ? key_bias + size_t(b) * S + k0 : nullptr, nk);
 
   const float* kw = ks + warp * 16 * TS;   // the warp's 16 keys
   const float* vw = vs + warp * 16 * TS;
   float* sw = sst + warp * 16 * kSST;  // S^T tile (keys x queries)
   float* pw = pst + warp * 16 * kSST;  // dP~^T tile
-  float* pdw = pdt + warp * 16 * TS;   // (p * mr)^T
-  float* dsw = dst + warp * 16 * TS;   // dS^T
+  float* pdw = pdt + warp * 16 * Z::PS;  // (p * mr)^T
+  float* dsw = dst + warp * 16 * Z::PS;  // dS^T
 
   const int row = lane >> 1, half = lane & 1;
   const int key = k0 + warp * 16 + row;  // this lane's key
   const bool live = key < S;
   const int bh = b * H + h;
 
-  PvAcc<float> dv_acc, dk_acc;
+  PvAcc<float, kD> dv_acc, dk_acc;
   dv_acc.zero();
   dk_acc.zero();
   float db_acc = 0.f;
   for (int q0 = 0; q0 < S; q0 += kTile) {
     const int nq = min(kTile, S - q0);
     __syncthreads();  // the previous query tile is consumed
-    load_rows<float>(qs, q + head0 + size_t(q0) * rs, rs, nq);
-    load_rows<float>(dos, dout + head0 + size_t(q0) * rs, rs, nq);
+    load_rows<float, kD>(qs, q + head0 + size_t(q0) * rs, rs, nq);
+    load_rows<float, kD>(dos, dout + head0 + size_t(q0) * rs, rs, nq);
     load_vec(lse_s, lse + stat0 + q0, nq);
     load_vec(delta_s, delta + stat0 + q0, nq);
     __syncthreads();
-    score_tile<float>(kw, qs, sw, lane);
-    score_tile<float>(vw, dos, pw, lane);
+    score_tile<float, kD>(kw, qs, sw, lane);
+    score_tile<float, kD>(vw, dos, pw, lane);
     const float bias_r = bs[warp * 16 + row];
     for (int c = half; c < kTile; c += 2) {
       float pd = 0.f, ds = 0.f;
@@ -232,8 +240,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
         ds = p * (dp - delta_s[c]);
       }
-      pdw[row * TS + c] = pd;
-      dsw[row * TS + c] = ds;
+      pdw[row * Z::PS + c] = pd;
+      dsw[row * Z::PS + c] = ds;
       db_acc += ds;
     }
     __syncwarp();
@@ -243,9 +251,11 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const int rows_left = S - (k0 + warp * 16);
   dv_acc.store(sw, lane);
-  store_rows<float>(dv + head0 + size_t(k0 + warp * 16) * rs, rs, sw, rows_left, 1.f, lane);
+  store_rows<float, kD>(dv + head0 + size_t(k0 + warp * 16) * rs, rs, sw, rows_left, 1.f,
+                        lane);
   dk_acc.store(pw, lane);
-  store_rows<float>(dk + head0 + size_t(k0 + warp * 16) * rs, rs, pw, rows_left, scale, lane);
+  store_rows<float, kD>(dk + head0 + size_t(k0 + warp * 16) * rs, rs, pw, rows_left, scale,
+                        lane);
   db_acc += __shfl_xor_sync(0xffffffffu, db_acc, 1);
   if (db && live && half == 0) atomicAdd(db + size_t(b) * S + key, db_acc);
 }
@@ -255,39 +265,42 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const float* key_bias,
                const void* out, const float* lse, const void* dout, void* dq, void* dk,
-               void* dv, float* db, float* delta, int B, int S, int H, float scale,
+               void* dv, float* db, float* delta, int B, int S, int H, int D, float scale,
                Dropout drop, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
-  const size_t rows = size_t(B) * S * H;
-  attn_bwd_delta_kernel<T><<<unsigned((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), delta, B, S, H);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  if constexpr (kIsBf16<T>) {
-    return attn90::launch_bwd_sm90(q, k, v, key_bias, lse, dout, delta, dq, dk, dv, db, B, S, H,
-                                   scale, drop, stream);
-  } else {
-    const float* qt = static_cast<const float*>(q);
-    const float* kt = static_cast<const float*>(k);
-    const float* vt = static_cast<const float*>(v);
-    const float* dot = static_cast<const float*>(dout);
-    constexpr size_t smem = bwd_smem_bytes();
-    const dim3 grid((S + kTile - 1) / kTile, H, B);
-    e = cudaFuncSetAttribute(attn_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem));
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kDh = decltype(d)::value;
+    const size_t rows = size_t(B) * S * H;
+    attn_bwd_delta_kernel<T, kDh><<<unsigned((rows + 7) / 8), 256, 0, stream>>>(
+        static_cast<const T*>(out), static_cast<const T*>(dout), delta, B, S, H);
+    cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return int(e);
-    attn_bwd_dq_kernel<<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dq), S, H, scale, drop);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return int(e);
-    e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem));
-    if (e != cudaSuccess) return int(e);
-    attn_bwd_dkdv_kernel<<<grid, kThreads, smem, stream>>>(
-        qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
-        db, S, H, scale, drop);
-    return int(cudaGetLastError());
-  }
+    if constexpr (kIsBf16<T>) {
+      return attn90::launch_bwd_sm90(q, k, v, key_bias, lse, dout, delta, dq, dk, dv, db, B, S,
+                                     H, kDh, scale, drop, stream);
+    } else {
+      const float* qt = static_cast<const float*>(q);
+      const float* kt = static_cast<const float*>(k);
+      const float* vt = static_cast<const float*>(v);
+      const float* dot = static_cast<const float*>(dout);
+      constexpr size_t smem = bwd_smem_bytes<kDh>();
+      const dim3 grid((S + kTile - 1) / kTile, H, B);
+      e = cudaFuncSetAttribute(attn_bwd_dq_kernel<kDh>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      if (e != cudaSuccess) return int(e);
+      attn_bwd_dq_kernel<kDh><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dq), S, H, scale, drop);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return int(e);
+      e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<kDh>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      if (e != cudaSuccess) return int(e);
+      attn_bwd_dkdv_kernel<kDh><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dk),
+          static_cast<float*>(dv), db, S, H, scale, drop);
+      return int(cudaGetLastError());
+    }
+  });
 }
 
 Dropout make_dropout(int enabled, int s_pad, unsigned threshold, unsigned seed0,
@@ -301,7 +314,8 @@ Dropout make_dropout(int enabled, int s_pad, unsigned threshold, unsigned seed0,
 
 extern "C" int flash_attention_train_fwd(int dtype, const void* q, const void* k, const void* v,
                                          const float* key_bias, void* out, float* lse, int B,
-                                         int S, int H, float scale, int dropout, int s_pad,
+                                         int S, int H, int D, float scale, int dropout,
+                                         int s_pad,
                                          unsigned threshold, unsigned seed0, unsigned seed1,
                                          float keep_scale, void* stream) {
   using namespace stonkgs::attn;
@@ -309,10 +323,10 @@ extern "C" int flash_attention_train_fwd(int dtype, const void* q, const void* k
   if (s_pad < S) return int(cudaErrorInvalidValue);
   const Dropout drop = make_dropout(dropout, s_pad, threshold, seed0, seed1, keep_scale);
   if (dtype == 0)
-    return launch_fwd_f32<true>(q, k, v, key_bias, out, lse, B, S, H, scale, drop, st);
+    return launch_fwd_f32<true>(q, k, v, key_bias, out, lse, B, S, H, D, scale, drop, st);
   if (dtype == 1)
-    return stonkgs::attn90::launch_fwd_sm90<true>(q, k, v, key_bias, out, lse, B, S, H, scale,
-                                                  drop, st);
+    return stonkgs::attn90::launch_fwd_sm90<true>(q, k, v, key_bias, out, lse, B, S, H, D,
+                                                  scale, drop, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -320,7 +334,8 @@ extern "C" int flash_attention_train_bwd(int dtype, const void* q, const void* k
                                          const float* key_bias, const void* out,
                                          const float* lse, const void* dout, void* dq,
                                          void* dk, void* dv, float* db, float* delta, int B,
-                                         int S, int H, float scale, int dropout, int s_pad,
+                                         int S, int H, int D, float scale, int dropout,
+                                         int s_pad,
                                          unsigned threshold, unsigned seed0, unsigned seed1,
                                          float keep_scale, void* stream) {
   using namespace stonkgs::attn;
@@ -329,9 +344,9 @@ extern "C" int flash_attention_train_bwd(int dtype, const void* q, const void* k
   const Dropout drop = make_dropout(dropout, s_pad, threshold, seed0, seed1, keep_scale);
   if (dtype == 0)
     return launch_bwd<float>(q, k, v, key_bias, out, lse, dout, dq, dk, dv, db, delta, B, S, H,
-                             scale, drop, st);
+                             D, scale, drop, st);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(q, k, v, key_bias, out, lse, dout, dq, dk, dv, db, delta,
-                                     B, S, H, scale, drop, st);
+                                     B, S, H, D, scale, drop, st);
   return int(cudaErrorInvalidValue);
 }

@@ -175,18 +175,31 @@ __device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
 
 // --- wgmma ------------------------------------------------------------------
 
-// wgmma shared-memory descriptor of a tile of 128-byte lines with the
-// 128-byte swizzle (a line is 64 bf16; the pattern repeats every 8 lines,
-// so tiles are 1024-byte aligned and the base offset is 0): start
-// address, stride 1024 bytes between 8-line groups, and the leading
-// offset `lbo` in bytes.  K-major operands ignore the leading offset.  An
-// MN-major operand wider than 64 (a (K, N) row-major weight tile of N >
-// 64, stored as N/64 separate 64-wide column blocks of K lines each)
-// steps by it from one 64-wide block to the next.
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo = 1024) {
+// wgmma shared-memory descriptor of a tile of kLine-byte lines (kLine 128,
+// 64 or 32) with the swizzle of that width, as TMA writes it: the 16-byte
+// chunk index within a line is XORed with the line's index (mod 8, 4 or
+// 2), and the pattern repeats every 8 lines, so tiles are aligned to 8
+// lines (1024, 512 or 256 bytes) and the base offset is 0.  Fields: start
+// address, the leading offset `lbo` in bytes, the stride of 8 * kLine
+// bytes between 8-line groups, and the layout type (128 B: 1, 64 B: 2,
+// 32 B: 3).  K-major operands ignore the leading offset; an MN-major
+// operand wider than a line (a (K, N) row-major weight tile of N > 64 at
+// kLine 128, stored as N/64 separate 64-wide column blocks of K lines
+// each) steps by it from one column block to the next.  A K-major operand
+// advances by 32 bytes (2 units) a k16 step within its line; an MN-major
+// one by 16 lines.
+template <int kLine>
+__device__ __forceinline__ uint64_t desc_sw(const void* tile, uint32_t lbo = 8 * kLine) {
+  static_assert(kLine == 128 || kLine == 64 || kLine == 32, "a swizzle of 128, 64 or 32 bytes");
+  constexpr uint64_t kLayout = kLine == 128 ? 1 : kLine == 64 ? 2 : 3;
   const uint64_t addr = smem_u32(tile);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t(64) << 32) | (uint64_t(1) << 62);
+         (uint64_t((8 * kLine) >> 4) << 32) | (kLayout << 62);
+}
+
+// the 128-byte case (a line is 64 bf16)
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo = 1024) {
+  return desc_sw<128>(tile, lbo);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -264,16 +277,38 @@ __device__ __forceinline__ void wgmma_qk64(float (&d)[32], uint64_t da, uint64_t
   wgmma_ss64<0, 0>(d, da, db, acc);
 }
 
-// d (64 x 64, fp32) += A (64 x 16 bf16, registers) . B (16 x 64, desc, MN-major)
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : STONKGS_ACC32(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+// d (64 x N, fp32) += A (64 x 16 bf16, registers) . B (16 x N, desc,
+// MN-major), N = 2R for R = 32, 16 or 8 accumulator registers (N = 64,
+// 32 or 16: one line of B's tile at a swizzle of 128, 64 or 32 bytes)
+template <int R>
+__device__ __forceinline__ void wgmma_pv(float (&d)[R], const uint32_t* a, uint64_t db) {
+  static_assert(R == 32 || R == 16 || R == 8, "wgmma_pv takes N = 64, 32 or 16");
+  if constexpr (R == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : STONKGS_ACC32(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (R == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : STONKGS_ACC8(d, 0), STONKGS_ACC8(d, 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : STONKGS_ACC8(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
 }
 
 // d (64 x 256, fp32) += A (64 x 16, desc, K-major) . B (16 x 256, desc):
@@ -410,17 +445,24 @@ template <> struct MapType<int8_t> {  // codes move as bytes; wgmma reads them a
   static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
 };
 
-// a tensor map of `type` with the 128-byte swizzle: `rank` dims
-// (innermost first), the byte strides of dims 1.., and the box;
-// out-of-range elements of a box read as zero
+// the tensor-map swizzle of a box whose inner extent is `line` bytes
+// (128, 64 or 32), which wgmma's descriptor of the same width reads
+inline CUtensorMapSwizzle swizzle_of(int line) {
+  return line == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                    : line == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+}
+
+// a tensor map of `type` with the given swizzle (128 bytes by default):
+// `rank` dims (innermost first), the byte strides of dims 1.., and the
+// box; out-of-range elements of a box read as zero
 inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_fn();
   if (!encode) return false;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, type, cuuint32_t(rank), const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -57,7 +57,14 @@ version's uniform probabilities.
 fp32 runs the SIMT body ``attn_fwd_kernel`` of ``csrc/attention.cuh``
 (64-row tiles, plain FMAs, an IEEE exp and division per score); it
 exists to hold the whole model against the CPU.  Both take any S >= 1
-and D = 64, the head width of every model in the repo.
+and a head width D of 16, 32 or 64 (:func:`attention_kernel_takes`):
+64 in BERT-base, BioBERT, ProtBERT and the BigBird trunk, 32 in
+MiniLM-L12-H384 and in the 64-wide configs the CLI derives, 16 in the
+32-wide ones.  Each kernel is instantiated for the three widths.  A
+row of D bf16 is one line of 2D bytes (128, 64 or 32), and the TMA
+boxes and the ``wgmma`` descriptors take the swizzle of that width:
+QKᵀ runs D/16 k-steps, PV is ``wgmma.m64nDk16``, the tiles shrink
+with D and the ring keeps its 3 stages.
 
 Training, with the TPU kernels' hash dropout
 ============================================
@@ -135,25 +142,26 @@ import torch
 from stonkgs_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIM = 64
+# the head widths of the card's attention kernels (both dtypes)
+ATTENTION_HEAD_DIMS = (16, 32, 64)
 NEG_BIAS = -1e9  # score of a padded key, as the JAX package's NEG_BIAS
 _P, _I, _U, _F = _build.P, _build.I32, _build.U32, _build.F32
 # the dropout arguments of both training entry points:
 # dropout, s_pad, threshold, seed0, seed1, keep_scale
 _DROP = [_I, _I, _U, _U, _U, _F]
 _SIGNATURES = {
-    # int flash_attention_infer(dtype, q, k, v, key_bias, out, B, S, H,
+    # int flash_attention_infer(dtype, q, k, v, key_bias, out, B, S, H, D,
     #                           scale, stream)
-    "flash_attention_infer": [_I] + [_P] * 5 + [_I, _I, _I, _F, _P],
+    "flash_attention_infer": [_I] + [_P] * 5 + [_I, _I, _I, _I, _F, _P],
 }
 _TRAIN_SIGNATURES = {
     # int flash_attention_train_fwd(dtype, q, k, v, key_bias, out, lse, B,
-    #                               S, H, scale, *dropout, stream)
-    "flash_attention_train_fwd": [_I] + [_P] * 6 + [_I, _I, _I, _F] + _DROP + [_P],
+    #                               S, H, D, scale, *dropout, stream)
+    "flash_attention_train_fwd": [_I] + [_P] * 6 + [_I, _I, _I, _I, _F] + _DROP + [_P],
     # int flash_attention_train_bwd(dtype, q, k, v, key_bias, out, lse, dout,
-    #                               dq, dk, dv, db, delta, B, S, H, scale,
+    #                               dq, dk, dv, db, delta, B, S, H, D, scale,
     #                               *dropout, stream)
-    "flash_attention_train_bwd": [_I] + [_P] * 12 + [_I, _I, _I, _F] + _DROP + [_P],
+    "flash_attention_train_bwd": [_I] + [_P] * 12 + [_I, _I, _I, _I, _F] + _DROP + [_P],
 }
 
 
@@ -167,10 +175,25 @@ def _key_bias(bias: Optional[torch.Tensor], B: int, S: int):
     return bias.reshape(B, S).float()
 
 
+def attention_kernel_takes(D: int) -> bool:
+    """Whether the card's attention kernels (inference, the training
+    forward and backward, in fp32 and bf16) take head width ``D``."""
+    return D in ATTENTION_HEAD_DIMS
+
+
+def check_attention_shape(what: str, S: int, D: int) -> None:
+    """Raise unless the attention kernels take a sequence of ``S`` rows
+    (S >= 1) at head width ``D`` (:func:`attention_kernel_takes`)."""
+    if not attention_kernel_takes(D) or S < 1:
+        raise ValueError(f"{what} kernel takes D in {ATTENTION_HEAD_DIMS} and S >= 1, "
+                         f"got D={D}, S={S}")
+
+
 def _check_cuda_inputs(what: str, q: torch.Tensor, others, extra=()) -> None:
     """Raise unless q and ``others`` (same shape and dtype as q) and
     ``extra`` are contiguous tensors on q's CUDA device that the kernels
-    take: (B, S, H, 64) in fp32 or bf16, S >= 1."""
+    take: (B, S, H, D) in fp32 or bf16, S >= 1, D in
+    ``ATTENTION_HEAD_DIMS``."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
@@ -178,9 +201,7 @@ def _check_cuda_inputs(what: str, q: torch.Tensor, others, extra=()) -> None:
     if q.dim() != 4:
         raise ValueError(f"q must be (B, S, H, D), got {tuple(q.shape)}")
     _, S, _, D = q.shape
-    if D != KERNEL_HEAD_DIM or S < 1:
-        raise ValueError(f"{what} kernel takes D={KERNEL_HEAD_DIM} and S >= 1, "
-                         f"got D={D}, S={S}")
+    check_attention_shape(what, S, D)
     for t in others:
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"{what}: q, k, v (and o, dO) must share shape and dtype")
@@ -231,7 +252,7 @@ def flash_attention_infer(
     lib = _build.load("flash_attention_infer", _SIGNATURES)
     status = lib.flash_attention_infer(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(kb), _build.ptr(out), B, S, H, 1.0 / math.sqrt(D),
+        _build.ptr(kb), _build.ptr(out), B, S, H, D, 1.0 / math.sqrt(D),
         _build.stream(q.device))
     _build.check(status, "flash_attention_infer")
     flash_attention_infer.launches += 1
@@ -401,7 +422,7 @@ def flash_attention_train_fwd(q, k, v, bias=None, seed=(0, 0), rate=0.0, block_q
     lib = _build.load("flash_attention_train", _TRAIN_SIGNATURES)
     status = lib.flash_attention_train_fwd(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(kb), _build.ptr(out), _build.ptr(lse), B, S, H,
+        _build.ptr(kb), _build.ptr(out), _build.ptr(lse), B, S, H, D,
         1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
         _build.stream(q.device))
     _build.check(status, "flash_attention_train_fwd")
@@ -439,7 +460,7 @@ def flash_attention_train_bwd(q, k, v, bias, out, lse, dout, seed=(0, 0), rate=0
     status = lib.flash_attention_train_bwd(
         _DTYPES[q.dtype], *(_build.ptr(t) for t in (q, k, v, kb, out, lse, dout, dq, dk,
                                                     dv, db, delta)),
-        B, S, H, 1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
+        B, S, H, D, 1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
         _build.stream(q.device))
     _build.check(status, "flash_attention_train_bwd")
     flash_attention_train_bwd.launches += 1

@@ -40,16 +40,22 @@ ragged M, N or K edge.  The epilogue is the GEMM's second cost at K = 768
 (it does not overlap the products), so it is written without branches:
 erf and tanh are evaluated branch-free (``gelu_sel``: erf within 1.3 ulp
 of the true erf in fp32, as against 2 ulp for CUDA's ``erff``) and only
-the stores are guarded, so its 128 values a thread interleave.  The LayerNorm passes take a warp a row with
-16-byte loads.  The fp32 instantiation keeps the fused kernel
-(``ffn_fwd_kernel`` of ``csrc/ffn.cuh``, 16-row blocks of plain fp32 FMAs):
-it exists to hold the whole model against the CPU.
+the stores are guarded, so its 128 values a thread interleave.  The
+LayerNorm passes take a warp a row, its H/32 values a lane in registers,
+with the widest vector loads H allows (16 bytes when H is a multiple of
+256).  The fp32 instantiation keeps the fused kernel (``ffn_fwd_kernel``
+of ``csrc/ffn.cuh``, 16-row blocks of plain fp32 FMAs, 256 threads, the
+intermediate axis in chunks of 128 and the widths as run-time
+arguments): it exists to hold the whole model against the CPU.
 
-Width 1024 (ProtBERT, 30 layers, intermediate 4096): the same kernels at
-H = 1024 (the LayerNorm pass is instantiated per width; the GEMM takes
-any N and K that are multiples of 8).  At ProtBERT's serving shape
-(M = 8·3072 = 24,576 rows) the products are 4·M·1024·4096 = 412 GFLOP,
-bound by operations (0.42 ms at 989 TFLOP/s).
+Widths (:func:`ffn_kernel_takes`): every FFN kernel, in both dtypes,
+takes any hidden width H that is a multiple of 32 up to 1024 and any
+intermediate width I that is a multiple of 32, one instantiation for
+all: 768 in BERT-base, BioBERT and the BigBird trunk, 1024 in ProtBERT,
+384 in MiniLM-L12-H384, 32 and 64 in the CLI's narrow configs.  At
+ProtBERT's serving shape (M = 8·3072 = 24,576 rows) the products are
+4·M·1024·4096 = 412 GFLOP, bound by operations (0.42 ms at 989
+TFLOP/s).
 
 Rounding points, as the TPU kernel (``fused_ffn.py:444-467``):
 x2 = LN1(x + attn) in fp32, rounded; h accumulated in fp32, + b1, gelu in
@@ -95,11 +101,10 @@ rings and ``wgmma``, each weight read as it lies (no transposed copy):
   never leaves registers; then dx = dh W1ᵀ with W1 (H, I) as the K-major
   B operand.
 
-Any H and I that are multiples of 8 (the forward at 768 and ProtBERT's
-1024; the backward at 768, and 1024 is the same code).  fp32 keeps the
-SIMT bodies of ``csrc/ffn.cuh`` and ``csrc/ffn_train.cu`` (H = 768 or
-1024 forward, 768 backward; the backward streams W2ᵀ and W1ᵀ copies that
-the wrapper makes): they exist to hold the model against the CPU.  dW1 =
+The widths are the serving block's (the GEMMs alone would take any
+multiples of 8).  fp32 keeps the SIMT bodies of ``csrc/ffn.cuh`` and
+``csrc/ffn_train.cu`` (the backward streams W2ᵀ and W1ᵀ copies that the
+wrapper makes): they exist to hold the model against the CPU.  dW1 =
 xᵀ dh, dW2 = aᵀ g (fp32 results of bf16 products) and the bias sums stay
 plain PyTorch, as the JAX package leaves them to XLA
 (``fused_ffn.py:334-341``).  Rounding points as the TPU kernels: g cast
@@ -119,12 +124,11 @@ from stonkgs_tpu_torch.ops import _build
 
 _ACTS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# hidden widths of the fused fp32 bodies and of the serving block ->
-# their intermediate-axis chunk (I must be a multiple); the fp32 training
-# backward takes 768 only.  The bf16 training pair runs GEMMs that take
-# any H and I that are multiples of 8.
-KERNEL_CHUNKS = {768: 192, 1024: 256}
-BWD_HIDDEN = 768
+# the widest hidden width of the FFN kernels (the fp32 bodies' shared
+# memory and the LayerNorm pass's registers), and the multiple that H and
+# I must be
+FFN_MAX_HIDDEN = 1024
+FFN_WIDTH_MULTIPLE = 32
 _P, _I, _F = _build.P, _build.I32, _build.F32
 # int ffn_ln_block(dtype, x, attn_out, ln1_scale, ln1_bias, w1, b1, w2, b2,
 #                  ln2_scale, ln2_bias, x2, h, out, M, H, I, act, eps, stream)
@@ -172,25 +176,35 @@ def _check_act(act: str) -> None:
         raise ValueError(f"unsupported activation for the fused FFN: {act}")
 
 
-def _check_cuda_ffn(what: str, x, w1, w2, *tensors, widths=tuple(KERNEL_CHUNKS),
-                    gemm: bool = False) -> None:
-    """Raise unless x (..., H) and the weights suit the kernels and every
-    tensor is contiguous on x's CUDA device: H in ``widths`` and I a
-    multiple of the width's chunk, or, with ``gemm`` in bf16 (the
-    training pair's Hopper GEMMs), H and I multiples of 8."""
+def ffn_kernel_takes(H: int, I: int) -> bool:
+    """Whether the card's FFN kernels (the serving block, the training
+    forward and backward, in fp32 and bf16) take hidden width ``H`` and
+    intermediate width ``I``: H a multiple of 32 from 32 to 1024, I a
+    positive multiple of 32."""
+    m = FFN_WIDTH_MULTIPLE
+    return m <= H <= FFN_MAX_HIDDEN and H % m == 0 and I >= m and I % m == 0
+
+
+def check_ffn_widths(what: str, H: int, I: int) -> None:
+    """Raise unless the FFN kernels take widths ``H`` and ``I``
+    (:func:`ffn_kernel_takes`)."""
+    if not ffn_kernel_takes(H, I):
+        raise ValueError(
+            f"{what} kernel takes H a multiple of {FFN_WIDTH_MULTIPLE} up to "
+            f"{FFN_MAX_HIDDEN} and I a multiple of {FFN_WIDTH_MULTIPLE}, got H={H}, I={I}")
+
+
+def _check_cuda_ffn(what: str, x, w1, w2, *tensors) -> None:
+    """Raise unless x (..., H) and the weights suit the kernels
+    (:func:`check_ffn_widths`) and every tensor is contiguous on x's CUDA
+    device."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: unsupported dtype {x.dtype}")
     H = x.shape[-1]
     I = w1.shape[-1]
-    if gemm and x.dtype == torch.bfloat16:
-        if H % 8 or I % 8:
-            raise ValueError(f"{what} kernel takes H and I multiples of 8, got H={H}, I={I}")
-    elif H not in widths or I % KERNEL_CHUNKS[H]:
-        raise ValueError(
-            f"{what} kernel takes H in {widths} and I a multiple of the "
-            f"width's chunk {KERNEL_CHUNKS}, got H={H}, I={I}")
+    check_ffn_widths(what, H, I)
     if tuple(w1.shape) != (H, I) or tuple(w2.shape) != (I, H):
         raise ValueError(f"weight shapes {tuple(w1.shape)}, {tuple(w2.shape)}"
                          f" do not match H={H}, I={I}")
@@ -314,7 +328,7 @@ def fused_ffn_fwd(x, w1, b1, w2, b2, *, act="gelu"):
     dt = x.dtype
     w1, w2 = w1.to(dt), w2.to(dt)
     b1f, b2f = b1.float(), b2.float()
-    _check_cuda_ffn("fused_ffn_fwd", x, w1, w2, b1f, b2f, gemm=True)
+    _check_cuda_ffn("fused_ffn_fwd", x, w1, w2, b1f, b2f)
     H, I = w1.shape
     M = x.numel() // H
     out = torch.empty_like(x)
@@ -354,8 +368,7 @@ def fused_ffn_bwd(x, g, w1, b1, w2, *, act="gelu"):
     w2t, w1t = ((w2.t().contiguous(), w1.t().contiguous())
                 if dt == torch.float32 else (None, None))
     _check_cuda_ffn("fused_ffn_bwd", x, w1, w2, g, b1f,
-                    *(t for t in (w2t, w1t) if t is not None),
-                    widths=(BWD_HIDDEN,), gemm=True)
+                    *(t for t in (w2t, w1t) if t is not None))
     if x.dim() != 2 or g.shape != x.shape or g.dtype != dt:
         raise ValueError("fused_ffn_bwd takes x and g as (M, H) in one dtype")
     M, (H, I) = x.shape[0], w1.shape

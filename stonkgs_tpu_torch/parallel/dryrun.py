@@ -14,10 +14,11 @@ on a {data, model} mesh (``model`` 2 when ``n_ranks`` is even):
 5. ProtSTonKGs (text + KG + protein through the block-sparse BigBird
    trunk) and the TransE layout (text + 4 slots) on the first mesh.
 
-It prints one summary line.  The model is 64 wide: the CUDA kernels take
-head dim 64 and FFN widths 768/1024 in fp32, so on the card this runs at
-``device="cpu"`` (the plain versions); ``chip_smoke.py`` runs the sharded
-paths at full width on the card.
+It prints one summary line.  The model is 64 wide, and its ProtSTonKGs
+phase runs BigBird at a head width the card's block-sparse kernels do not
+take (they take 64), so this runs at ``device="cpu"`` (the plain
+versions); ``chip_smoke.py`` runs the sharded paths at full width on the
+card.
 
 Run it with ``python -m stonkgs_tpu_torch.parallel.dryrun 4``.
 """

@@ -13,7 +13,6 @@
   training mode with the dropouts at 0, and the separable task learnt.
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -212,14 +211,3 @@ def test_nlp_baseline_learns_separable(tmp_path):
     assert result["f1_score_mean"] > 0.9, result
     assert (tmp_path / "predicted_labels_nlp_toydf.tsv").exists()
 
-
-def test_nlp_baseline_fp32_width_on_the_card():
-    """fp32 training on the card takes H=768 only (the fp32 FFN
-    backward's width); bf16 and the CPU take any."""
-    narrow = port_cfg(NLP_CFG)
-    with pytest.raises(ValueError, match="hidden size 768 only"):
-        tnlp.check_trainable(narrow, "float32", torch.device("cuda"))
-    tnlp.check_trainable(narrow, "bfloat16", torch.device("cuda"))
-    tnlp.check_trainable(narrow, "float32", torch.device("cpu"))
-    tnlp.check_trainable(dataclasses.replace(narrow, hidden_size=768, num_attention_heads=12),
-                         "float32", torch.device("cuda"))
