@@ -61,8 +61,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    with the backend that ran), for the FFN pair the cuBLAS products it
    contains, timed alone;
 10. sparse kernels: the BigBird pair against its plain versions, bf16 and
-    fp32, at block size 64 (nb = 5, 8 with a padded mask, and 64: S=4096)
-    and 128 (nb = 5, 8 padded, and 32: S=640, 1,024 and 4,096), with the
+    fp32, at D=64, block size 64 (nb = 5, 8 with a padded mask, and 64:
+    S=4096) and 128 (nb = 5, 8 padded, and 32: S=640, 1,024 and 4,096), with the
     eval and the training plan, at B=2 (forward and backward) and B=8
     (forward); bf16 contexts also within ``ATTN_STEP`` of their scale,
     bf16 gradients within it plus ``GRAD_STEP_FLOOR``; at S=4096, at each
@@ -210,9 +210,12 @@ Phases, each fatal on failure (exit code 1, no result line):
     rank's within the spread of a one-rank run that sums its batch in two
     halves or within ``PAR_LOSS_GAP`` / ``PAR_UPDATE_COS`` /
     ``PAR_NU_GAP``, peak memory and parameter bytes a rank, step seconds
-    under gloo (not a throughput); (c) ProtSTonKGs on 1x2 at phase 11's
-    widths (B=2, 2 steps, the training plan) against two one-rank runs;
-    (d) ``train_classifier`` on 2x1 (B=8, 2 steps) against one rank; (e)
+    under gloo (not a throughput); (c) ProtSTonKGs on 1x2 at 2 layers a
+    stack in fp32 against one rank (an update cosine of at least
+    ``PAR_FP32_UPDATE_COS``: the mesh draws the unmeshed run's dropout
+    masks), then at phase 11's widths in bf16 (B=2, 2 steps, the training
+    plan) against one rank, within 4 of the widest spread of
+    ``PAR_PROT_PAIRS`` more one-rank runs or within the limits; (d) ``train_classifier`` on 2x1 (B=8, 2 steps) against one rank; (e)
     ``run_pretraining(n_model_shards=2)`` from a memmap store, saved at 2,
     resumed from it and equal to the uninterrupted run.
 24. the command line, the published-model API and remat, at phase 19's
@@ -274,13 +277,39 @@ Phases, each fatal on failure (exit code 1, no result line):
     ``embed`` on the card in fp32 and bf16 against the CPU; (e) the
     MiniLM embed's pairs/s and step's ms, and the six kernels at its
     shapes beside their bounds, plain versions and library calls.
+27. BigBird's widths: (a) the kernel pair at D=32 and block sizes 8, 48,
+    64, 96, 128, 256, 512 and 1,024 (nb=8, 3 heads, a padded mask), at
+    block 96 with nb=5, and at D=16 and blocks 64 and 512 (4 heads),
+    with the eval and the training plan, r=1, B=2, forward (lse too) and
+    backward in bf16 and fp32, within phase 10's limits; at blocks 96
+    and 512 the limits must reject a key past the block let into the
+    softmax, query rows past the block let into dK, and (on integer q and
+    k, where the kernel is held to them first) the D=32 logit's second
+    rounding left out; D = 8, 48 and 128 and blocks 12 and 2,048 raise
+    in both wrappers and dtypes with no launch counted, and the C entry
+    points refuse them; (b) ``run_pretraining(variant="prot")`` from a
+    memmap store and a synthetic 128-wide node2vec TSV of 20,000 nodes
+    (the derived config: stacks of 2 x 128, 4 heads of D=32, block 512,
+    r=1, at 768 | 256 | 3072), B=2, 2 steps, one save: launch counts,
+    finite losses, frozen backbones unchanged, the loss and trunk
+    gradients card fp32 against CPU fp32 (phase 13's limits), then
+    ``ProtSTonKGsEngine.embed`` on the trained parameters (32 rows, B=8):
+    card fp32 against CPU fp32 on 8 rows (1e-3 of max |CPU|), card bf16
+    against card fp32 by cosine (phase 26's limits); again from a
+    32-wide TSV (D=16) and at S=768 (384 | 128 | 256, block 96); (c) the
+    128-wide path's embed sequences/s and step ms, and the pair at its
+    shapes beside its bound, floor, plain version and SDPA over gathered
+    operands.
 
 The line before the last is a JSON object with one entry per kernel (the
 BigBird pair's times at block 64, its error the worse of both block
 sizes), then one for each of the six attention and FFN kernels at
 MiniLM-L12-H384's widths (``<name> H=384 D=32``: the launches of phase
-26's embed and step, the worst bf16 error of phase 26 at any new width);
-the last line is ``{"ok": true, "device": {...}}``.
+26's embed and step, the worst bf16 error of phase 26 at any new width),
+then the BigBird pair at the 128-wide ProtSTonKGs path's shapes
+(``<name> D=32``: the launches of phase 27's runs, the worst bf16 error
+of phase 27 at any new geometry); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -881,24 +910,24 @@ def phase_train_kernels() -> dict:
     return errs
 
 
-def _sparse_inputs(B, nb, dtype, gen, plan, padded, H=12, bs=64):
-    """q, k, v (B, S, H, 64) at S = nb * bs, a (B, S) mask, an (H, nb-2, 3)
+def _sparse_inputs(B, nb, dtype, gen, plan, padded, H=12, bs=64, D=64, r=3):
+    """q, k, v (B, S, H, D) at S = nb * bs, a (B, S) mask, an (H, nb-2, r)
     plan on the card and an output cotangent for the middle rows.
     ``plan``: "eval" (all zeros) or "train" (HF's training plan at S=4096,
     else random legal blocks)."""
     S = nb * bs
-    q, k, v = (torch.randn(B, S, H, 64, generator=gen).to(DEV, dtype) for _ in range(3))
+    q, k, v = (torch.randn(B, S, H, D, generator=gen).to(DEV, dtype) for _ in range(3))
     mask = torch.ones(B, S)
     if padded:
         lengths = torch.randint(S // 2, S, (B,), generator=gen)
         mask = (torch.arange(S)[None, :] < lengths[:, None]).float()
     if plan == "eval":
-        rand = torch.zeros(H, nb - 2, 3, dtype=torch.int32)
+        rand = torch.zeros(H, nb - 2, r, dtype=torch.int32)
     elif S == 4096:
-        rand = torch.as_tensor(build_rand_attn(S, bs, 3, H, 1, S, training=True)[0])
+        rand = torch.as_tensor(build_rand_attn(S, bs, r, H, 1, S, training=True)[0])
     else:
-        rand = torch.randint(1, nb - 1, (H, nb - 2, 3), generator=gen, dtype=torch.int32)
-    do = torch.randn(B, (nb - 2) * bs, H, 64, generator=gen).to(DEV, dtype)
+        rand = torch.randint(1, nb - 1, (H, nb - 2, r), generator=gen, dtype=torch.int32)
+    do = torch.randn(B, (nb - 2) * bs, H, D, generator=gen).to(DEV, dtype)
     return q, k, v, mask.to(DEV), rand.to(DEV), do
 
 
@@ -914,11 +943,10 @@ def phase_sparse_kernels() -> dict:
     fp32, at block sizes 64 and 128 (``SPARSE_CASES``), with the eval and
     the training plan; bf16 contexts and gradients also under the
     elementwise limits, which must reject three faults at S=4096, at each
-    block size (``_sparse_limits_reject``); other block sizes and head
-    widths raise (``_sparse_geometry_rejected``).  Returns, per kernel,
-    the worst bf16 error at S=4096 over both block sizes."""
+    block size (``_sparse_limits_reject``).  The other head widths and
+    block sizes are phase 27's.  Returns, per kernel, the worst bf16 error
+    at S=4096 over both block sizes."""
     gen = torch.Generator().manual_seed(6)
-    _sparse_geometry_rejected(gen)
     errs = {}
     for bs, cases in SPARSE_CASES.items():
         for dtype in (BF16, F32):
@@ -950,37 +978,65 @@ def phase_sparse_kernels() -> dict:
     return errs
 
 
+# (block size, head width) outside the pair's domain, and the block size
+# of the C entry points' own check
+SPARSE_OUTSIDE = ((64, 8), (64, 48), (64, 128), (12, 32), (2048, 32))
+
+
 def _sparse_geometry_rejected(gen) -> None:
-    """A CUDA tensor at a block size other than 64 or 128, or a head width
-    other than 64, raises in the wrappers and launches nothing; the C
+    """A CUDA tensor at a head width other than 16, 32 or 64, or a block
+    size that is not a multiple of 8 from 8 to 1,024 (``SPARSE_OUTSIDE``)
+    raises in both wrappers, in both dtypes, and launches nothing; the C
     entry points refuse such a geometry themselves (cudaErrorInvalidValue,
-    1) without a launch."""
+    1) without a launch, and in bf16 a logit scale other than 1/sqrt(D)
+    (the bf16 kernels fix it by D)."""
     fwd0, bwd0 = bigbird_mid_fwd.launches, bigbird_mid_bwd.launches
-    for bs, D in ((32, 64), (256, 64), (64, 32), (128, 128)):
-        S = 8 * bs
-        q, k, v = (torch.randn(2, S, 2, D, generator=gen).to(DEV, BF16) for _ in range(3))
-        mask = torch.ones(2, S, device=DEV)
-        rand = torch.ones(2, 6, 1, dtype=torch.int32, device=DEV)
-        out = torch.zeros(2, 6 * bs, 2, D, dtype=BF16, device=DEV)
-        lse = torch.zeros(2, 2, 6 * bs, device=DEV)
-        for name, call in (("fwd", lambda: bigbird_mid_fwd(q, k, v, mask, rand, bs)),
-                           ("bwd", lambda: bigbird_mid_bwd(q, k, v, mask, rand, bs, out, lse,
-                                                           out))):
-            try:
-                call()
-            except ValueError as e:
-                log(f"# check sparse {name} bs={bs} D={D} raises: {e}")
-            else:
-                check(False, f"sparse {name} took block size {bs}, head width {D} on the card")
+    for dtype in (BF16, F32):
+        for bs, D in SPARSE_OUTSIDE:
+            S = 5 * bs
+            q, k, v = (torch.randn(1, S, 1, D, generator=gen).to(DEV, dtype) for _ in range(3))
+            mask = torch.ones(1, S, device=DEV)
+            rand = torch.ones(1, 3, 1, dtype=torch.int32, device=DEV)
+            out = torch.zeros(1, 3 * bs, 1, D, dtype=dtype, device=DEV)
+            lse = torch.zeros(1, 1, 3 * bs, device=DEV)
+            for name, call in (("fwd", lambda: bigbird_mid_fwd(q, k, v, mask, rand, bs)),
+                               ("bwd", lambda: bigbird_mid_bwd(q, k, v, mask, rand, bs, out, lse,
+                                                               out))):
+                raised = _refused(name, call)
+                log(f"# check sparse {name} {dtype} bs={bs} D={D} raises: {raised!r}")
+                check("D in (16, 32, 64)" in raised,
+                      f"sparse {name} took block size {bs}, head width {D} on the card")
     check((bigbird_mid_fwd.launches, bigbird_mid_bwd.launches) == (fwd0, bwd0),
           "a refused geometry counted a launch")
     lib = _build.load("bigbird_sparse", bigbird_sparse_ops._SIGNATURES)
-    q = torch.zeros(1, 8 * 96, 1, 64, dtype=BF16, device=DEV)
-    status = lib.bigbird_mid_fwd(1, *([_build.ptr(q)] * 7), 1, 8 * 96, 1, 1, 96, 64, 64, 64,
-                                 64, 0.125, _build.stream(q.device))
-    torch.cuda.synchronize()
-    log(f"# check bigbird_mid_fwd C entry point at bs=96: status {status} (1: refused)")
-    check(status == 1, f"the C entry point took block size 96 (status {status})")
+    buf = torch.zeros(1 << 20, device=DEV)
+    p, st = _build.ptr(buf), _build.stream(buf.device)
+    for dt in (1, 0):
+        for bs, D in SPARSE_OUTSIDE:
+            S = 5 * bs
+            statuses = {
+                "bigbird_mid_fwd": lib.bigbird_mid_fwd(dt, *[p] * 7, 1, S, 1, 1, bs, D, S * D,
+                                                       D, D, D ** -0.5, st),
+                "bigbird_mid_bwd": lib.bigbird_mid_bwd(dt, *[p] * 11, 1, S, 1, 1, bs, D, S * D,
+                                                       D, D, D ** -0.5, st)}
+            torch.cuda.synchronize()
+            for name, status in statuses.items():
+                log(f"# check {name} C entry point dtype {dt} at bs={bs} D={D}: status "
+                    f"{status} (1: refused)")
+                check(status == 1, f"the C entry point {name} took bs={bs} D={D} "
+                                   f"(status {status})")
+    for D in bigbird_sparse_ops.KERNEL_HEAD_DIMS:
+        S = 5 * 64
+        statuses = {
+            "bigbird_mid_fwd": lib.bigbird_mid_fwd(1, *[p] * 7, 1, S, 1, 1, 64, D, S * D, D, D,
+                                                   0.3, st),
+            "bigbird_mid_bwd": lib.bigbird_mid_bwd(1, *[p] * 11, 1, S, 1, 1, 64, D, S * D, D, D,
+                                                   0.3, st)}
+        torch.cuda.synchronize()
+        for name, status in statuses.items():
+            log(f"# check {name} C entry point bf16 at D={D} with logit scale 0.3: status "
+                f"{status} (1: refused)")
+            check(status == 1, f"the C entry point {name} took scale 0.3 at D={D} in bf16")
 
 
 def _sparse_fwd_with(q, k, v, rand, bs, pen_of):
@@ -1791,18 +1847,21 @@ def phase_prot_train_numerics(cfg_full: ProtSTonKGsConfig, block_size: int = 64)
     check(err <= 1e-3 * scale, "ProtSTonKGs card gradients disagree with the CPU")
 
 
-def _time_sparse(label: str, B: int, gen, backward: bool, plan: str, bs: int = 64) -> dict:
-    """A BigBird kernel vs plain at the path's shape (S=4096, H=12, block
-    ``bs``), then both timed, beside the bound and the design's floor (the
-    forward: two exps a score on the SFU or its three products; the
-    backward: its seven products, dS as two bf16 terms, or its one exp a
-    score) and the library call: SDPA over operands gathered beforehand
-    (``benchmarks/bigbird_sdpa.py``), its backward alone over a saved
-    forward."""
-    S, H, D, r = 4096, 12, 64, 3
+def _time_sparse(label: str, B: int, gen, backward: bool, plan: str, bs: int = 64,
+                 S: int = 4096, H: int = 12, D: int = 64, r: int = 3) -> dict:
+    """A BigBird kernel vs plain at a path's shape (by default the trunk's:
+    S=4096, H=12, D=64, r=3, block ``bs``), then both timed, beside the
+    bound and the design's floor (the forward: two exps a score on the SFU
+    or its three products; the backward: its seven products, dS as two
+    bf16 terms, or its one exp a score; a partial tile's products counted
+    padded to 64 rows and keys) and the library call: SDPA over operands
+    gathered beforehand (``benchmarks/bigbird_sdpa.py``), its backward
+    alone over a saved forward."""
     nb = S // bs
-    q, k, v, mask, rand, do = _sparse_inputs(B, nb, BF16, gen, plan, False, H, bs)
+    q, k, v, mask, rand, do = _sparse_inputs(B, nb, BF16, gen, plan, False, H, bs, D, r)
     n_mid, W = nb - 2, (5 + r) * bs
+    padded = (-bs) % 64 + bs                   # rows of a block's tiles
+    padded_scores = B * H * n_mid * padded * (5 + r) * padded
     tensor = B * S * H * D * 2                 # one (B, S, H, D) bf16 tensor
     mid = B * n_mid * bs * H * D * 2           # its middle rows
     lse_b, mask_b = B * H * n_mid * bs * 4, B * S * 4
@@ -1813,7 +1872,8 @@ def _time_sparse(label: str, B: int, gen, backward: bool, plan: str, bs: int = 6
     if not backward:
         # q's middle rows, k, v and the mask read; out and lse written
         bound, by = _bound_ms(2 * products, 2 * mid + 2 * tensor + lse_b + mask_b, BF16)
-        floor = max(2 * scores / EX2_PER_S, 3 * products / PEAK_FLOPS[BF16]) * 1e3
+        floor = max(2 * padded_scores / EX2_PER_S,
+                    3 * 2.0 * padded_scores * D / PEAK_FLOPS[BF16]) * 1e3
         fn = lambda: bigbird_mid_fwd(q, k, v, mask, rand, bs)  # noqa: E731
         plain = lambda: bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)  # noqa: E731
         want = plain()[0]
@@ -1826,7 +1886,8 @@ def _time_sparse(label: str, B: int, gen, backward: bool, plan: str, bs: int = 6
     else:
         # q, o, dO middle rows, k, v, lse, mask read; dq (middle), dk, dv written
         bound, by = _bound_ms(5 * products, 4 * mid + 4 * tensor + lse_b + mask_b, BF16)
-        floor = max(scores / EX2_PER_S, 7 * products / PEAK_FLOPS[BF16]) * 1e3
+        floor = max(padded_scores / EX2_PER_S,
+                    7 * 2.0 * padded_scores * D / PEAK_FLOPS[BF16]) * 1e3
         fn = lambda: bigbird_mid_bwd(q, k, v, mask, rand, bs, out, lse, do)  # noqa: E731
         plain = lambda: bigbird_mid_bwd_plain(q, k, v, mask, rand, bs, out, lse, do)  # noqa: E731
         err = max(_compare_grad(f"sparse {n} bf16 {label}", g, w, BF16)
@@ -4137,6 +4198,12 @@ PAR_UPDATE_COS = 0.999   # cosine of the whole trainable update (final - initial
 PAR_LEAF_COS = 0.95      # lowest cosine of one trainable leaf's update: in bf16 a small
                          # leaf's update moves with the rounding of a split reduction
 PAR_NU_GAP = 5e-2        # relative gap of the summed second moment (the gradients' scale)
+# ProtSTonKGs on 1 x 2 in fp32 at 2 layers a stack against one rank: the
+# lowest cosine of the whole update (the mesh draws the unmeshed run's
+# dropout masks, so only summation order parts them)
+PAR_FP32_UPDATE_COS = 0.99999
+PAR_PROT_FP32_LAYERS = 2
+PAR_PROT_PAIRS = 3       # one-rank runs held to the first: the bf16 gate's spread samples
 # (label, n_data, n_model, fsdp, dropout): the 2 x 1 shards draw other
 # dropout masks than one rank, so there dropout is 0
 PAR_MESHES = (("1x2 TP", 1, 2, False, True), ("2x1 FSDP", 2, 1, True, False),
@@ -4152,7 +4219,8 @@ def _par_cfg(dropout: bool) -> STonKGsConfig:
 
 
 def _par_pretrain(cfg, params, feats, steps: int, batch: int, *, mesh=None, fsdp=False,
-                  accum: int = 1, loss_fn=None, kernels=TRAINING_KERNELS) -> dict:
+                  accum: int = 1, loss_fn=None, kernels=TRAINING_KERNELS,
+                  compute_dtype: str = "bfloat16") -> dict:
     """``pretrain`` with the counts from 0 just before it; returns the
     state, losses, seconds a step after the first (from the last logged
     examples/s, which ``pretrain`` takes between synchronised ends), counts
@@ -4162,7 +4230,7 @@ def _par_pretrain(cfg, params, feats, steps: int, batch: int, *, mesh=None, fsdp
     base = torch.cuda.memory_allocated()
     run = pretraining.PretrainingConfig(max_steps=steps, micro_batch_size=batch // accum,
                                         grad_accumulation_steps=accum, log_steps=1,
-                                        compute_dtype="bfloat16", fsdp=fsdp)
+                                        compute_dtype=compute_dtype, fsdp=fsdp)
     logged = []
     _reset_counts(kernels)
     state = pretraining.pretrain(cfg, params, feats, run, mesh=mesh, loss_fn=loss_fn,
@@ -4296,6 +4364,23 @@ def _par_rank(job: dict) -> dict:
                               PROT_UNUSED_LEAVES)
     out["prot 1x2"] = res
     del state, train, nu, pparams
+    torch.cuda.empty_cache()
+    # ... and in fp32 at 2 layers a stack
+    pcfg32 = _prot_cfg(layers=PAR_PROT_FP32_LAYERS)
+    p32 = torch.load(job["pparams32"], weights_only=True)
+    run = _par_pretrain(pcfg32, params_to(p32, DEV), pfeats, PAR_SHORT_STEPS, PROT_TRAIN_BATCH,
+                        mesh=make_mesh(1, 2), loss_fn=functools.partial(
+                            protstonkgs.pretraining_loss, rand_attn=_train_plan(pcfg32)),
+                        kernels=PROT_TRAINING_KERNELS, compute_dtype="float32")
+    state = run.pop("state")
+    res = {**run, "print": _replica_print(state)}
+    train, nu = _whole(state)   # a gather: every rank takes part
+    if rank == 0:
+        res["gap"] = _par_gap("ProtSTonKGs 1x2 fp32", run["losses"], train, _nu_sum(nu),
+                              torch.load(job["ref_prot32"], weights_only=True),
+                              tree_flatten_with_path(split_frozen(p32)[0]), PROT_UNUSED_LEAVES)
+    out["prot 1x2 fp32"] = res
+    del state, train, nu, p32
     torch.cuda.empty_cache()
 
     # (d) train_classifier on 2 x 1
@@ -4435,14 +4520,36 @@ def phase_parallel(card: str, params: Optional[dict] = None,
         pfeats = _prot_features(pcfg, PROT_TRAIN_BATCH * PAR_SHORT_STEPS, seed=23, labels=True)
         loss_fn = functools.partial(protstonkgs.pretraining_loss, rand_attn=_train_plan(pcfg))
         pinit = tree_flatten_with_path(split_frozen(pparams)[0])
-        prot = [_par_pretrain(pcfg, params_to(pparams, DEV), pfeats, PAR_SHORT_STEPS,
-                              PROT_TRAIN_BATCH, loss_fn=loss_fn, kernels=PROT_TRAINING_KERNELS)
-                for _ in range(2)]
-        ref_prot = _par_reference(prot[0], os.path.join(tmp, "ref_prot.pt"))
-        train, nu = _whole(prot[1]["state"])
-        prot_spread = _par_gap("ProtSTonKGs one rank, twice", prot[1]["losses"], train,
-                               _nu_sum(nu), ref_prot, pinit, PROT_UNUSED_LEAVES)
-        del prot, train, nu
+        # the bf16 one-rank reference and PAR_PROT_PAIRS more runs of the same
+        # code held to it (the BigBird backward adds with atomics): the
+        # spread is the widest of the pairs in each metric
+        run = _par_pretrain(pcfg, params_to(pparams, DEV), pfeats, PAR_SHORT_STEPS,
+                            PROT_TRAIN_BATCH, loss_fn=loss_fn, kernels=PROT_TRAINING_KERNELS)
+        ref_prot = _par_reference(run, os.path.join(tmp, "ref_prot.pt"))
+        del run
+        pairs = []
+        for i in range(PAR_PROT_PAIRS):
+            run = _par_pretrain(pcfg, params_to(pparams, DEV), pfeats, PAR_SHORT_STEPS,
+                                PROT_TRAIN_BATCH, loss_fn=loss_fn, kernels=PROT_TRAINING_KERNELS)
+            train, nu = _whole(run.pop("state"))
+            pairs.append(_par_gap(f"ProtSTonKGs one rank, run {i + 2} vs run 1", run["losses"],
+                                  train, _nu_sum(nu), ref_prot, pinit, PROT_UNUSED_LEAVES))
+            del run, train, nu
+            torch.cuda.empty_cache()
+        prot_spread = (max(g[0] for g in pairs), min(g[1] for g in pairs),
+                       min(g[2] for g in pairs), max(g[3] for g in pairs))
+        log(f"# (c) ProtSTonKGs one-rank spreads {pairs!r}; the widest {prot_spread!r}")
+        # the fp32 one-rank reference at 2 layers a stack
+        pcfg32 = _prot_cfg(layers=PAR_PROT_FP32_LAYERS)
+        p32 = _prot_params(pcfg32, seed=13)
+        run = _par_pretrain(pcfg32, params_to(p32, DEV), pfeats, PAR_SHORT_STEPS,
+                            PROT_TRAIN_BATCH, loss_fn=functools.partial(
+                                protstonkgs.pretraining_loss, rand_attn=_train_plan(pcfg32)),
+                            kernels=PROT_TRAINING_KERNELS, compute_dtype="float32")
+        _par_reference(run, os.path.join(tmp, "ref_prot32.pt"))
+        torch.save(p32, os.path.join(tmp, "pparams32.pt"))
+        del run, p32
+        torch.cuda.empty_cache()
         ccfg = _par_cfg(False).replace(num_labels=2)
         cfeats = _par_ft_features(ccfg)
         head0 = tree_flatten_with_path({"classifier": init_classifier_head(
@@ -4477,6 +4584,8 @@ def phase_parallel(card: str, params: Optional[dict] = None,
                "feats": os.path.join(tmp, "feats"), "feat_keys": sorted(feats),
                "ref_on": os.path.join(tmp, "ref_on.pt"), "ref_off": os.path.join(tmp, "ref_off.pt"),
                "ref_prot": os.path.join(tmp, "ref_prot.pt"),
+               "ref_prot32": os.path.join(tmp, "ref_prot32.pt"),
+               "pparams32": os.path.join(tmp, "pparams32.pt"),
                "ref_ft": os.path.join(tmp, "ref_ft.pt"),
                "store": store, "run_dir": os.path.join(tmp, "run")}
         t0 = time.perf_counter()
@@ -4519,6 +4628,24 @@ def phase_parallel(card: str, params: Optional[dict] = None,
             f"{res['step_s']!r}")
     check(ranks[0]["prot 1x2"]["print"] == ranks[1]["prot 1x2"]["print"],
           "(c) ProtSTonKGs: the replicated leaves or moments differ between the ranks")
+    # fp32 first: the mesh against one rank with nothing but summation order
+    # between them; only then the bf16 run against the spread of one rank
+    for r in ranks:
+        res = r["prot 1x2 fp32"]
+        _check_counts(f"(c) ProtSTonKGs 1x2 fp32, rank {r['rank']} ({PAR_SHORT_STEPS} steps)",
+                      res["counts"], {n: c * PAR_SHORT_STEPS for n, c in
+                                      _prot_training_per_step(pcfg32).items()})
+        _check_losses(f"(c) ProtSTonKGs 1x2 fp32, rank {r['rank']}", res["losses"],
+                      PAR_SHORT_STEPS)
+    check(ranks[0]["prot 1x2 fp32"]["print"] == ranks[1]["prot 1x2 fp32"]["print"],
+          "(c) ProtSTonKGs fp32: the replicated leaves or moments differ between the ranks")
+    gap32 = ranks[0]["prot 1x2 fp32"]["gap"]
+    log(f"# (c) ProtSTonKGs 1x2 fp32 ({PAR_PROT_FP32_LAYERS} layers a stack) vs one rank: "
+        f"largest relative loss gap {gap32[0]!r}, update cosine {gap32[1]!r} (limit "
+        f"{PAR_FP32_UPDATE_COS}), lowest leaf {gap32[2]!r}, summed second moment gap "
+        f"{gap32[3]!r}")
+    check(gap32[1] >= PAR_FP32_UPDATE_COS,
+          "(c) ProtSTonKGs 1x2 in fp32 is further from one rank than summation order allows")
     _par_verdict("(c) ProtSTonKGs 1x2", ranks[0]["prot 1x2"]["gap"], prot_spread)
     _add_counts(total, ranks[0]["prot 1x2"]["counts"])
 
@@ -5459,6 +5586,348 @@ def phase_widths(card: str) -> tuple:
     return total, minilm_counts, errs, times
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the BigBird pair at head widths 16 and 32 and every block size
+# the command line derives; ProtSTonKGs from a 128-wide KG TSV
+# ---------------------------------------------------------------------------
+
+BB_R = 1                 # the command line's num_random_blocks
+# (block size, D, B, H, nb, padded) of the pair's checks: the CLI's
+# block = S // 8 over S = 64 ... 8,192 at D=32 (3 heads, a padded mask),
+# the smallest block-sparse S at a partial block (nb=5, 2 heads), and D=16
+# (4 heads); each at the eval and the training plan
+BB_CASES = (tuple((bs, 32, 2, 3, 8, True) for bs in (8, 48, 64, 96, 128, 256, 512, 1024))
+            + ((96, 32, 2, 2, 5, False), (64, 16, 2, 4, 8, True), (512, 16, 2, 4, 8, True)))
+BB_FAULT_BLOCKS = (96, 512)   # a partial block size and the path's
+BB_KG_NODES = 20_000     # the synthetic node2vec TSVs' rows
+BB_STEPS = 2             # steps of each run_pretraining
+BB_BATCH = 2
+BB_ROWS = 32             # rows embedded at B = BB_EMBED_BATCH
+BB_EMBED_BATCH = 8
+BB_CPU_ROWS = 8          # of which the CPU embeds one batch
+# (KG TSV width, text | entity | protein lengths) of the path's runs: the
+# reference layout at a 128-wide TSV (D=32, block 512) and a 32-wide one
+# (D=16), and a 768-token layout (block 96; the text splits into the 3
+# chunks of the frozen BioBERT)
+BB_PATHS = ((128, (768, 256, 3072)), (32, (768, 256, 3072)), (128, (384, 128, 256)))
+
+
+def _bb_extra(bs: int) -> int:
+    """Rows (keys) past a block that a 64-row tile would hold: the rest of
+    its last tile, or one tile past a block of whole tiles."""
+    return (-bs) % 64 or 64
+
+
+def _sparse_fwd_fault(q, k, v, mask, rand, bs, extra=0, round2=True):
+    """The plain forward with a known fault: every slot widened by
+    ``extra`` keys past its block (the keys that follow it, with their
+    mask's penalty, zeros and -10000 past S), or (``round2=False``) the
+    scaled logit not rounded again."""
+    B, S, H, D = q.shape
+    nb = S // bs
+    dt, f = q.dtype, torch.float32
+    idx = bigbird_sparse_ops._slot_blocks(nb, rand)              # (H, n, 5+r)
+    n_mid, slots = idx.shape[1], idx.shape[2]
+    w = bs + extra
+    keys = idx[..., None] * bs + torch.arange(w, device=q.device)  # (H, n, slots, w)
+    kp, vp = (F.pad(t, (0, 0, 0, 0, 0, extra)).transpose(1, 2) for t in (k, v))  # (B, H, S+e, D)
+    hix = torch.arange(H, device=q.device)[:, None, None, None]
+    kc = kp[:, hix, keys].reshape(B, H, n_mid, slots * w, D)
+    vc = vp[:, hix, keys].reshape(B, H, n_mid, slots * w, D)
+    gm = F.pad(mask.float(), (0, extra))[:, keys]                   # (B, H, n, slots, w)
+    gm[:, :, 0, 1] = 0.0
+    gm[:, :, n_mid - 1, 3] = 0.0
+    pen = ((1.0 - gm) * bigbird_sparse_ops.ATTN_PENALTY).reshape(B, H, n_mid, 1, slots * w)
+    qm = _blocked(q, bs)[:, :, 1:-1]
+    s = torch.einsum("bhjqd,bhjkd->bhjqk", qm.to(f), kc.to(f)).to(dt)
+    if round2:
+        logits = (s * bigbird_sparse_ops._scale_in(dt, D)).to(f) + pen
+    else:
+        logits = s.to(f) * float(bigbird_sparse_ops._scale_in(dt, D)) + pen
+    wgt = torch.softmax(logits, dim=-1).to(dt)
+    ctx = torch.einsum("bhjqk,bhjkd->bhjqd", wgt.to(f), vc.to(f)).to(dt)
+    return ctx.permute(0, 2, 3, 1, 4).reshape(B, n_mid * bs, H, D)
+
+
+def _dk_with_rows_past(q, k, v, mask, rand, bs, out, lse, do, dk, extra):
+    """dK with a known fault: each middle query block's ``extra`` rows past
+    it (the next middle block's first rows, with their own q, dO, O and
+    lse) let into its slots' dK, as a kernel that did not zero their P and
+    dS would add them."""
+    B, S, H, D = q.shape
+    nb = S // bs
+    f = torch.float32
+    qm, kc, vc, pen, idx = _mid_operands(q, k, v, mask, rand, bs)
+    n = idx.shape[1] - 1       # the last middle block has no middle rows after it
+    rows = ((torch.arange(n, device=q.device)[:, None] + 1) * bs
+            + torch.arange(extra, device=q.device))                    # (n, extra) middle rows
+    per_head = lambda t: t.permute(0, 3, 1, 2, 4)  # noqa: E731 (B, n, e, H, D) -> (B, H, n, e, D)
+    qx, dox, ox = (per_head(t[:, rows]).to(f) for t in (q[:, bs:], do, out))
+    lsex = lse[:, :, rows]                                              # (B, H, n, extra)
+    logits = _mid_logits(qx.to(q.dtype), kc[:, :, :n], pen[:, :, :n], q.dtype)
+    p = torch.exp(logits - lsex[..., None])
+    dp = torch.einsum("bhjqd,bhjkd->bhjqk", dox, vc[:, :, :n].to(f))
+    ds = p * (dp - (dox * ox).sum(-1, keepdim=True)) / math.sqrt(D)
+    dkc = torch.einsum("bhjqk,bhjqd->bhjkd", ds, qx)                   # (B, H, n, W, D)
+    acc = torch.zeros(B, H, nb, bs, D, dtype=f, device=q.device)
+    bix = torch.arange(B, device=q.device)[:, None, None, None]
+    hix = torch.arange(H, device=q.device)[None, :, None, None]
+    acc.index_put_((bix, hix, idx[None, :, :n]), dkc.reshape(B, H, n, -1, bs, D),
+                   accumulate=True)
+    return (dk.float() + acc.permute(0, 2, 3, 1, 4).reshape(B, S, H, D)).to(dk.dtype)
+
+
+def _integer_qkv(B, S, H, D, gen):
+    """q and k of small integers (exact in bf16, their products' sums exact
+    in fp32 in any order, so the kernel's and the plain version's rounded
+    Q·Kᵀ are bit-equal) and v of normal draws, in bf16 on the card: logits
+    of order 10-60, where the scale's second rounding moves them by up to
+    half a bf16 step (0.06-0.25)."""
+    q, k = (torch.randint(-6, 7, (B, S, H, D), generator=gen).to(DEV, BF16) for _ in range(2))
+    v = torch.randn(B, S, H, D, generator=gen).to(DEV, BF16)
+    return q, k, v
+
+
+def _bb_faults(gen, bs: int) -> None:
+    """(a) At block ``bs`` (D=32, the training plan, an unpadded mask, B=2,
+    H=3, nb=8, bf16) the limits the pair is held to must reject: a key past
+    the block let into the softmax, a query row past the block let into dK
+    (``_bb_extra`` of them: the rest of a partial tile, or one tile), and
+    the scale's second rounding left out (on integer-valued q and k, where
+    the kernel is held to the same limits first)."""
+    extra = _bb_extra(bs)
+    label = f"bf16 D=32 bs={bs} train plan"
+    q, k, v, mask, rand, do = _sparse_inputs(2, 8, BF16, gen, "train", False, 3, bs, 32, BB_R)
+    out, lse = bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)
+    _attn_limit_rejects(f"sparse fwd {label} with {extra} keys past the block", out,
+                        _sparse_fwd_fault(q, k, v, mask, rand, bs, extra=extra))
+    dk = bigbird_mid_bwd_plain(q, k, v, mask, rand, bs, out, lse, do)[1]
+    _grad_limit_rejects(f"sparse dk {label} with {extra} query rows past the block", dk,
+                        _dk_with_rows_past(q, k, v, mask, rand, bs, out, lse, do, dk, extra))
+    q, k, v = _integer_qkv(2, 8 * bs, 3, 32, gen)
+    want = bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)[0]
+    _compare_attn(f"sparse fwd {label} integer q, k", bigbird_mid_fwd(q, k, v, mask, rand, bs)[0],
+                  want, BF16)
+    _attn_limit_rejects(f"sparse fwd {label} integer q, k without the second rounding", want,
+                        _sparse_fwd_fault(q, k, v, mask, rand, bs, round2=False))
+
+
+def _bb_kernels(gen, note) -> None:
+    """(a) The pair against its plain versions at every case of
+    ``BB_CASES``, bf16 and fp32, forward (lse too) and backward, at the
+    eval and the training plan; the faults at ``BB_FAULT_BLOCKS``; the
+    geometries outside the domain refused."""
+    for bs, D, B, H, nb, padded in BB_CASES:
+        for dtype in (BF16, F32):
+            tag = "bf16" if dtype == BF16 else "fp32"
+            for plan in ("eval", "train"):
+                q, k, v, mask, rand, do = _sparse_inputs(B, nb, dtype, gen, plan, padded, H, bs,
+                                                         D, BB_R)
+                label = (f"{tag} D={D} bs={bs} B={B} H={H} S={nb * bs} {plan} plan"
+                         f"{' mask' if padded else ''}")
+                out, lse = bigbird_mid_fwd(q, k, v, mask, rand, bs)
+                out_p, lse_p = bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)
+                e = max(_compare_attn(f"sparse fwd {label}", out, out_p, dtype),
+                        _compare(f"sparse lse {label}", lse, lse_p, dtype))
+                note("bigbird_mid_fwd", e, dtype)
+                got = bigbird_mid_bwd(q, k, v, mask, rand, bs, out_p, lse_p, do)
+                want = bigbird_mid_bwd_plain(q, k, v, mask, rand, bs, out_p, lse_p, do)
+                e = max(_compare_grad(f"sparse {n} {label}", g, w, dtype)
+                        for n, g, w in zip(("dq", "dk", "dv"), got, want))
+                note("bigbird_mid_bwd", e, dtype)
+                del q, k, v, out, lse, out_p, lse_p, got, want
+    for bs in BB_FAULT_BLOCKS:
+        _bb_faults(gen, bs)
+    _sparse_geometry_rejected(gen)
+
+
+def _bb_layout_cfg(kg_nodes: int, layout: tuple) -> ProtSTonKGsConfig:
+    """Phase 11's config at another text | entity | protein layout (the
+    features' shape; the widths are derived from the TSV)."""
+    tl, el, pl = layout
+    return dataclasses.replace(_prot_cfg(kg_nodes), kg_start_idx=tl, prot_start_idx=tl + el,
+                               seq_len=tl + el + pl)
+
+
+def _bb_path(width: int, layout: tuple, emb: str, tmp: str, total: dict) -> tuple:
+    """(b) ``run_pretraining(variant="prot")`` from a memmap store and a
+    ``width``-wide node2vec TSV at ``layout``: the derived config (heads of
+    32, or 2 of 16; block S // 8; r = 1) in the kernels' domain, 2 steps of
+    B=2 with one save (launch counts, finite losses, frozen trees
+    unchanged), loss and trunk gradients card fp32 against CPU fp32 (phase
+    13's limits), then ``ProtSTonKGsEngine.embed`` on the trained
+    parameters (32 rows at B=8, launch counts): card fp32 against CPU fp32
+    on one batch, card bf16 against card fp32 by cosine (phase 26's
+    limits).  Returns (the derived config, the trained state, the bf16
+    engine, the rows)."""
+    t0 = time.perf_counter()
+    S = sum(layout)
+    tag = f"{width}-wide TSV, S={S}"
+    feats = _prot_features(_bb_layout_cfg(BB_KG_NODES, layout), BB_BATCH * BB_STEPS, seed=width,
+                           labels=True)
+    ent = feats["input_ids"][:, layout[0]:layout[0] + layout[1]]
+    ent %= BB_KG_NODES            # entity ids index the TSV's nodes, all of which the
+    ent[0, 0] = BB_KG_NODES - 1   # derived KG vocabulary covers (the labels' range)
+    cfg = prot_pretraining_config(feats, width)
+    check(cfg.kg_vocab_size == BB_KG_NODES, f"{tag}: KG vocabulary {cfg.kg_vocab_size}")
+    t = cfg.trunk
+    log(f"# {tag}: run_pretraining derives the trunk {t.num_hidden_layers} x {t.hidden_size}, "
+        f"{t.num_attention_heads} heads of D={t.head_dim}, I={t.intermediate_size}, "
+        f"{t.hidden_act}, block {t.block_size}, r={t.num_random_blocks}; the backbones "
+        f"{cfg.lm.num_attention_heads} and {cfg.prot.num_attention_heads} heads of "
+        f"D={cfg.lm.head_dim}")
+    check(bigbird_sparse_ops.bigbird_kernel_takes(t.block_size, t.head_dim, S)
+          and t.num_random_blocks == BB_R, f"{tag}: the derived trunk is outside the pair's "
+                                           f"domain: {t}")
+    check(flash_attention_ops.attention_kernel_takes(cfg.lm.head_dim)
+          and flash_attention_ops.attention_kernel_takes(cfg.prot.head_dim)
+          and fused_ffn_ops.ffn_kernel_takes(width, 4 * width),
+          f"{tag}: a derived backbone is outside the dense kernels' domain")
+    store = os.path.join(tmp, f"store{width}_{S}")
+    MemmapFeatureStore.write(store, feats)
+    out_dir = os.path.join(tmp, f"run{width}_{S}")
+    state, _, _, _ = _pf_run(f"run_pretraining prot {tag}", store, out_dir,
+                             PROT_TRAINING_KERNELS, _prot_training_per_step(cfg),
+                             list(range(1, BB_STEPS + 1)), total, variant="prot",
+                             kg_embedding_path=emb, batch_size=BB_BATCH, max_steps=BB_STEPS,
+                             save_steps=BB_STEPS)
+    check(CheckpointManager(os.path.join(out_dir, "checkpoints")).steps() == [BB_STEPS],
+          f"{tag}: checkpoints")
+    params = params_to(state.params, "cpu", F32)
+    frozen = split_frozen(params)[1]
+    init = protstonkgs.init_protstonkgs_params(torch.Generator().manual_seed(0), cfg)
+    for name in ("lm_backbone", "prot_backbone"):
+        same = all(torch.equal(a, b.to(BF16).float()) for a, b in
+                   zip(tree_leaves(frozen[name]), tree_leaves(init[name])))
+        check(same, f"{tag}: the frozen {name} changed")
+    _bb_train_numerics(cfg, params, tag)
+
+    rows = _prot_features(cfg, BB_ROWS, seed=width + 1)
+    engines = {}
+    got = {}
+    for label, dev, dt in (("card bf16", DEV, BF16), ("card fp32", DEV, F32)):
+        engines[label] = ProtSTonKGsEngine(cfg=cfg, params=params_to(params, dev, dt),
+                                           compute_dtype="bfloat16" if dt == BF16 else "float32",
+                                           batch_size=BB_EMBED_BATCH, device=dev)
+        got[label], counts = _prot_embed_counted(f"{tag} embed {label}", engines[label], rows)
+        _add_counts(total, counts)
+    few = {k_: v[:BB_CPU_ROWS] for k_, v in rows.items()}
+    cpu = ProtSTonKGsEngine(cfg=cfg, params=params, compute_dtype="float32",
+                            batch_size=BB_EMBED_BATCH, device="cpu").embed(few)
+    err = float(np.abs(got["card fp32"][:BB_CPU_ROWS] - cpu).max())
+    scale = float(np.abs(cpu).max())
+    cos = _cosine(got["card bf16"], got["card fp32"])
+    whole = float(_cosine(got["card bf16"].reshape(1, -1), got["card fp32"].reshape(1, -1))[0])
+    log(f"# {tag} embed: card fp32 vs CPU fp32 ({BB_CPU_ROWS} rows) max_abs_err {err!r} of "
+        f"max |CPU| {scale!r} (limit 1e-3 of it); card bf16 vs card fp32 ({BB_ROWS} rows) "
+        f"cosine of all rows {whole!r} (limit {WIDTH_COS_ALL}), lowest row "
+        f"{float(cos.min())!r} (limit {WIDTH_COS_ROW}); {time.perf_counter() - t0:.1f} s")
+    check(err <= 1e-3 * scale, f"{tag}: card fp32 embeddings disagree with the CPU")
+    check(whole >= WIDTH_COS_ALL and bool((cos >= WIDTH_COS_ROW).all()),
+          f"{tag}: card bf16 embeddings too far from fp32")
+    del engines["card fp32"]
+    return cfg, state, engines["card bf16"], rows
+
+
+def _bb_train_numerics(cfg: ProtSTonKGsConfig, params: dict, tag: str) -> None:
+    """(b) The loss and the trunk's and projection's gradients at the
+    trained parameters on 2 rows, card fp32 against CPU fp32 (phase 13's
+    limits: 1e-4 relative, 1e-3 of max |grad|), the training plan, hidden
+    dropout 0 (the card's and the CPU's generators draw other masks) and
+    the backbones' hash attention dropout on the same seeds."""
+    zero = {"hidden_dropout_prob": 0.0}
+    cfg = cfg.replace(trunk=dataclasses.replace(cfg.trunk, **zero),
+                      lm=dataclasses.replace(cfg.lm, **zero),
+                      prot=dataclasses.replace(cfg.prot, **zero))
+    feats = _prot_features(cfg, 2, seed=5, labels=True)
+
+    def loss_and_grads(device):
+        p = params_to(params, device)
+        leaves = tree_leaves(p["trunk"]) + tree_leaves(p["prot_projection"])
+        for x in leaves:
+            x.requires_grad_(True)
+        loss, _ = protstonkgs.pretraining_loss(
+            p, cfg, pretraining.to_device(feats, device), deterministic=False,
+            rng=pretraining.step_rng(0, 0, device), compute_dtype=F32)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return float(loss.detach()), [g.detach().cpu() for g in grads if g is not None]
+
+    launches = bigbird_mid_bwd.launches
+    loss_card, g_card = loss_and_grads(DEV)
+    check(bigbird_mid_bwd.launches > launches, f"{tag}: the card run launched no sparse backward")
+    loss_cpu, g_cpu = loss_and_grads("cpu")
+    err = max(float((a - b).abs().max()) for a, b in zip(g_card, g_cpu))
+    scale = max(float(b.abs().max()) for b in g_cpu)
+    log(f"# {tag} train card fp32 vs CPU fp32 (2 rows): loss {loss_card!r} vs {loss_cpu!r}; "
+        f"trunk and projection grads max_abs_err {err!r} of max |grad| {scale!r} (limits: loss "
+        f"1e-4 relative, grads 1e-3 of max |grad|)")
+    check(abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu), f"{tag}: card loss disagrees")
+    check(err <= 1e-3 * scale, f"{tag}: card gradients disagree with the CPU")
+
+
+def _bb_times(cfg: ProtSTonKGsConfig, engine, rows, state, card: str) -> dict:
+    """(c) The embed's sequences/s and the step's median ms at the 128-wide
+    path, then the pair at its shapes (B=8 eval plan, B=2 training plan
+    forward and backward) beside bound, floor, plain version and SDPA over
+    gathered operands.  Returns the kernels' numbers."""
+    path = {"sequences_per_s": _prot_embed_rate(engine, rows),
+            "step_ms": _prot_step_ms(cfg, state, protstonkgs.pretraining_loss)}
+    log(f"# {cfg.trunk.hidden_size}-wide ProtSTonKGs path: {json.dumps(path)} ({card})")
+    t = cfg.trunk
+    gen = torch.Generator().manual_seed(27)
+    geo = dict(S=cfg.seq_len, H=t.num_attention_heads, D=t.head_dim, r=t.num_random_blocks,
+               bs=t.block_size)
+    shape = f"S={cfg.seq_len} H={geo['H']} D={geo['D']} bs={geo['bs']} r={geo['r']}"
+    result = {}
+    for key, label, B, backward, plan in (
+            ("bigbird_mid_fwd", f"serving B={BB_EMBED_BATCH} {shape} eval plan", BB_EMBED_BATCH,
+             False, "eval"),
+            ("bigbird_mid_fwd:train", f"training B={BB_BATCH} {shape} train plan", BB_BATCH,
+             False, "train"),
+            ("bigbird_mid_bwd", f"training B={BB_BATCH} {shape} train plan", BB_BATCH, True,
+             "train")):
+        result[key] = _time_sparse(label, B, gen, backward, plan, **geo)
+        log(f"# time {key.split(':')[0]} {label} bf16 ({card}): {json.dumps(result[key])}")
+    result["path"] = path
+    return result
+
+
+def phase_bigbird_widths(card: str) -> tuple:
+    """Phase 27: (a) the pair at D = 16 and 32 and the block sizes the
+    command line derives, the planted faults and the refused geometries,
+    (b) ProtSTonKGs from synthetic node2vec TSVs (``BB_PATHS``), (c) times.
+    Returns (the launch counts of every counted run, summed; per kernel,
+    the worst bf16 error at the new geometries; per kernel, the 128-wide
+    path shape's times)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(27)
+    errs: dict = {}
+
+    def note(name, err, dtype):
+        if dtype == BF16:
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    _bb_kernels(gen, note)
+    log(f"# bigbird widths (a) kernels: {time.perf_counter() - t_phase:.1f} s")
+    total, times = {}, None
+    with tempfile.TemporaryDirectory(prefix="stonkgs_bb_") as tmp:
+        tsvs = {}
+        for width in sorted({w for w, _ in BB_PATHS}):
+            art = make_random_artifacts(BB_KG_NODES, dim=width, rw_len=README_RW_LEN, seed=width)
+            tsvs[width] = os.path.join(tmp, f"emb{width}.tsv")
+            save_kg_artifacts(art, tsvs[width], os.path.join(tmp, f"walks{width}.tsv"))
+        log(f"# bigbird widths: node2vec TSVs of {BB_KG_NODES} nodes at widths {sorted(tsvs)}: "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        for i, (width, layout) in enumerate(BB_PATHS):
+            cfg, state, engine, rows = _bb_path(width, layout, tsvs[width], tmp, total)
+            if i == 0:
+                times = _bb_times(cfg, engine, rows, state, card)
+            del state, engine
+            torch.cuda.empty_cache()
+    log(f"# bigbird widths phase: {time.perf_counter() - t_phase:.1f} s")
+    return total, errs, times
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -5526,6 +5995,9 @@ def main() -> int:
         width_total, width_counts, width_errs, width_times = phase_widths(card)
         for name, c in width_total.items():
             counts[name] += c
+        bb_total, bb_errs, bb_times = phase_bigbird_widths(card)
+        for name, c in bb_total.items():
+            counts[name] += c
         # the fine-tuning shapes' worst error goes into the kernel line
         for key, t in ft_times.items():
             name = key.split(":")[0]
@@ -5567,6 +6039,16 @@ def main() -> int:
                         "replaces": replaces, "launches": width_counts[name],
                         **{k: t[k] for k in keys},
                         "max_abs_err": max(width_errs[name], t["max_abs_err"])})
+    # the pair at D=32 and block 512 (the 128-wide ProtSTonKGs path): launches
+    # of phase 27's runs, the worst bf16 error of phase 27 at any new geometry
+    for name in ("bigbird_mid_fwd", "bigbird_mid_bwd"):
+        src, replaces = sources[name]
+        t = bb_times[name]
+        err = max(bb_errs[name], t["max_abs_err"], *(x["max_abs_err"] for k, x in
+                                                    bb_times.items() if k.startswith(name + ":")))
+        kernels.append({"name": f"{name} D=32", "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": bb_total[name],
+                        **{k: t[k] for k in keys}, "max_abs_err": err})
     log(f"# card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

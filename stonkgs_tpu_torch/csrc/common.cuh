@@ -39,7 +39,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-constexpr size_t align128(size_t bytes) { return (bytes + 127) & ~size_t(127); }
+__host__ __device__ constexpr size_t align128(size_t bytes) {
+  return (bytes + 127) & ~size_t(127);
+}
 
 // 16-byte global -> shared copy that bypasses the registers (and L1)
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

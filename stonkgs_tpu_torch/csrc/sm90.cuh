@@ -255,26 +255,47 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t d
   wgmma_n128<0>(d, da, db, acc);
 }
 
-// d (64 x 64, fp32) (+)= A (64 x 16, desc) . B (16 x 64, desc), both from
-// shared memory: A K-major (kTnspA 0) or M-major (1: 16 lines of K, each
-// 64 values of M, as an MN-major B), B K-major (kTnspB 0: 64 lines of K,
-// read as B^T) or N-major (1); acc = 0 overwrites d
-template <int kTnspA, int kTnspB>
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n}\n"
-      : STONKGS_ACC32(d, 0)
-      : "l"(da), "l"(db), "r"(acc), "n"(kTnspA), "n"(kTnspB));
+// d (64 x N, fp32) (+)= A (64 x 16, desc) . B (16 x N, desc), both from
+// shared memory, N = 2R for R = 32, 16 or 8 accumulator registers (N =
+// 64, 32 or 16): A K-major (kTnspA 0) or M-major (1: 16 lines of K, each
+// 64 values of M, as an MN-major B), B K-major (kTnspB 0: N lines of K,
+// read as B^T) or N-major (1: 16 lines of K, each N values, one line of
+// a tile at a swizzle of 2N bytes); acc = 0 overwrites d
+template <int R, int kTnspA, int kTnspB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t da, uint64_t db, int acc) {
+  static_assert(R == 32 || R == 16 || R == 8, "wgmma_ss takes N = 64, 32 or 16");
+  if constexpr (R == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : STONKGS_ACC32(d, 0)
+        : "l"(da), "l"(db), "r"(acc), "n"(kTnspA), "n"(kTnspB));
+  } else if constexpr (R == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : STONKGS_ACC8(d, 0), STONKGS_ACC8(d, 8)
+        : "l"(da), "l"(db), "r"(acc), "n"(kTnspA), "n"(kTnspB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, %11, %12;\n}\n"
+        : STONKGS_ACC8(d, 0)
+        : "l"(da), "l"(db), "r"(acc), "n"(kTnspA), "n"(kTnspB));
+  }
 }
 
 // d (64 x 64, fp32) (+)= A (64 x 16, desc) . B^T (B 64 x 16, desc), both
 // K-major; acc = 0 overwrites d
 __device__ __forceinline__ void wgmma_qk64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  wgmma_ss64<0, 0>(d, da, db, acc);
+  wgmma_ss<32, 0, 0>(d, da, db, acc);
 }
 
 // d (64 x N, fp32) += A (64 x 16 bf16, registers) . B (16 x N, desc,

@@ -26,9 +26,12 @@ bigbird_sparse_pallas.py:83``, launched at ``:227``, with ``_gather_kv``
 at ``:51`` and ``_mid_logits`` at ``:70``) and ``_mid_blocks_bwd_kernel``
 (``:113``, launched at ``:272``).
 
-The kernels take block size 64 or 128 and head width 64; a CUDA tensor
-at any other block size or head width raises (there is no fallback to
-the plain versions on the card).
+The kernels take head width D = 16, 32 or 64 and a block size that is a
+multiple of 8 from 8 to 1,024 (:func:`bigbird_kernel_takes`: 8 is the
+JAX kernel's own alignment, ``bigbird_sparse_pallas.py:54-55``, and 1,024
+covers S = 8,192 under the command line's ``block_size = S // 8``); a
+CUDA tensor at any other block size or head width raises (there is no
+fallback to the plain versions on the card).
 
 What bounds them on the H100, at the trunk's shape (S=4096, H=12, D=64,
 r=3, so W = (5+r)·bs keys per middle query block), counting each input
@@ -49,6 +52,14 @@ at 3.35 TB/s:
   unit; the H100's ``wgmma`` is full at 64 rows, so block 128 is a model
   the card must run, not a faster mode.
 
+The same counts give any (bs, D, r, H, S): the products grow with bs·D,
+the bytes with D, and the exps (two a score in the forward, one in the
+backward) with bs alone, so at D = 32 or 16 the SFU's floor weighs two
+or four times as much against the products as at D = 64.  A block size
+that is not a multiple of 64 pads its last query tile and its last key
+sub-tile to 64 rows: the kernels do (64·⌈bs/64⌉ / bs)² of the useful
+products (64 times at bs = 8, 1.78 at bs = 96).
+
 The design's floor on top of that bound (``csrc/bigbird_sm90.cuh``): the
 forward's two passes need 2 exps a score, 0.093 ms of the SFU at B=8,
 bs=64 (16 ex2 a clock an SM) and 0.180 ms at bs=128, above its 3 products
@@ -59,20 +70,28 @@ Design.  The TPU kernel keeps a whole (S, D) key and value slice in VMEM
 per (batch, head) and assembles the key blocks of a middle query block by
 VMEM-to-VMEM slices.  On Hopper (bf16, ``csrc/bigbird_sm90.cuh``) a CTA
 of 384 threads has two consumer warpgroups of 64 query rows each (the
-``wgmma`` M) and a producer warp that streams 64-key tiles of the slots
-[g0 | window i-1, i, i+1 | g_last | random r] through a TMA ring, from
-4-D tensor maps built over the (B, S, H, D) views with their strides
+``wgmma`` M) and a producer warp that streams 64-key sub-tiles of the
+slots [g0 | window i-1, i, i+1 | g_last | random r] through a TMA ring,
+from 4-D tensor maps built over the (B, S, H, D) views with their strides
 (:func:`tma_map_args` states which strides a map takes), with each
-tile's penalties beside it.  At bs=64 the two consumers take two
+sub-tile's penalties beside it.  A row of D bf16 is a line of 2D bytes,
+and TMA and the ``wgmma`` descriptors take the swizzle of that width
+(128, 64 or 32 bytes), as the dense attention kernels do.  A block is
+T = ⌈bs/64⌉ row tiles.  At T = 1 (bs ≤ 64) the two consumers take two
 neighbouring middle query blocks of one (batch, head), and a ring stage
-holds a slot tile of each; at bs=128 they take the two 64-row halves of
-one query block, a 128-key slot is two ring steps of one 64-key tile that
-both read, and the ring has twice as many one-tile stages (the same
-shared memory): the row statistics span all 2·(5+r) sub-tiles, and the
-penalty of key c of sub-tile u of slot block blk is that of mask[b,
-128·blk + 64·u + c].  Widening a step to a 128-key tile instead would
-push the backward's dS and P tiles past the 227 KB a CTA may take.  The
-forward makes two passes over the tiles (row max and sum of exp, then
+holds a slot sub-tile of each; at T ≥ 2 they take two neighbouring 64-row
+tiles of one query block (⌈T/2⌉ CTAs a block), a slot is T ring steps of
+one 64-key sub-tile that both read, and the ring has twice as many
+one-tile stages (the same shared memory): the row statistics span all
+(5+r)·T sub-tiles, and the penalty of key c of sub-tile u of slot block
+blk is that of mask[b, bs·blk + 64·u + c].  Where bs is not a multiple
+of 64 the last tiles are partial: keys past the block take the penalty
+-inf (weight exactly 0; a key the mask pads keeps -10000 and its weight),
+query rows past the block are computed but not stored, and in the
+backward their p and dS are 0, so they add nothing into other blocks'
+dK and dV.  Widening a step to a 128-key tile instead would push the
+backward's dS and P tiles past the 227 KB a CTA may take.  The forward
+makes two passes over the sub-tiles (row max and sum of exp, then
 normalised probabilities, rounded, times V), because the TPU kernel
 normalises before it rounds, as the port's dense attention kernels do;
 Q·Kᵀ and P·V run on ``wgmma``, the softmax in registers.  The (B, S) mask
@@ -84,28 +103,31 @@ repeat block 0, each as a key of its own in the softmax, as the TPU
 kernel and HF count them.
 
 The TPU backward carries dK and dV in VMEM across the sequential j axis.
-Hopper blocks run in no order, so each consumer forms a tile's 64 × 64 dK
-and dV on ``wgmma`` and adds them into fp32 (B, S, H, D) accumulators
+Hopper blocks run in no order, so each consumer forms a sub-tile's 64 × D
+dK and dV on ``wgmma`` and adds them into fp32 (B, S, H, D) accumulators
 with TMA reduce-adds (the adds land in an order that changes from run to
-run; at bs=128 both halves of a query block add into the same key rows);
-the global blocks take one add from each middle query block (each half)
-of their (batch, head).  The wrapper casts the accumulators to the input
-dtype.  dQ of a middle block's rows is the consumer's own and is written
-once.  The fp32 instantiation (``csrc/bigbird_sparse.cu``) is a SIMT body
-with plain fp32 FMAs and ``atomicAdd``, one CTA a 64-row half at bs=128,
-there to hold the model against the CPU.
+run; at T ≥ 2 every tile of a query block adds into the same key rows);
+the global blocks take one add from each middle query tile of their
+(batch, head).  The wrapper casts the accumulators to the input dtype.
+dQ of a middle block's rows is the consumer's own and is written once.
+The fp32 instantiation (``csrc/bigbird_sparse.cu``) is a SIMT body with
+plain fp32 FMAs and ``atomicAdd``, one CTA a 64-row tile, there to hold
+the model against the CPU.
 
 Rounding, as ``_mid_logits`` and the two TPU kernels: Q·Kᵀ accumulated in
-fp32 from products of the input dtype, rounded to it, times 1/√D (rounded
-again: exact at D=64), plus the fp32 penalty; softmax in fp32;
-probabilities normalised, then rounded; P·V in fp32, the output rounded;
-the lse in fp32.  Backward: p = exp(logits - lse); dP = dO·Vᵀ; row =
-Σ dO⊙O; dS = p(dP - row)/√D in fp32; dq = dS·K rounded; dK = dSᵀ·q; dV =
-round(p)ᵀ·dO, all in fp32.  The bf16 kernel feeds dS to the tensor cores
-as the sum of two bf16 terms (hi = round(dS), lo = round(dS - hi)), which
-carries 16 of its 24 significant bits, takes its exps from the SFU's
-``ex2.approx`` and divides by l as a per-row reciprocal; the fp32
-instantiation multiplies in plain fp32.
+fp32 from products of the input dtype, rounded to it, times 1/√D in the
+input dtype (JAX multiplies a bf16 array by a Python float in bf16, so
+the scale itself is rounded: 0.1767578125 at D=32), rounded again (exact
+at D=16 and 64, where the scale is a power of two; the bf16 kernel makes
+the second rounding at D=32 only), plus the fp32 penalty; softmax in
+fp32; probabilities normalised, then rounded; P·V in fp32, the output
+rounded; the lse in fp32.  Backward: p = exp(logits - lse); dP = dO·Vᵀ;
+row = Σ dO⊙O; dS = p(dP - row)/√D in fp32; dq = dS·K rounded; dK =
+dSᵀ·q; dV = round(p)ᵀ·dO, all in fp32.  The bf16 kernel feeds dS to the
+tensor cores as the sum of two bf16 terms (hi = round(dS), lo = round(dS
+- hi)), which carries 16 of its 24 significant bits, takes its exps from
+the SFU's ``ex2.approx`` and divides by l as a per-row reciprocal; the
+fp32 instantiation multiplies in plain fp32.
 
 The first and last query blocks are dense rows in plain PyTorch under
 autograd, as the JAX package leaves them to XLA.
@@ -114,7 +136,7 @@ autograd, as the JAX package leaves them to XLA.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,9 +144,10 @@ import torch
 from stonkgs_tpu_torch.ops import _build
 
 ATTN_PENALTY = -10000.0
-KERNEL_BLOCKS = (64, 128)   # the kernels' block sizes
-KERNEL_TILE = 64            # rows of their tiles (a block is one or two)
-KERNEL_HEAD_DIM = 64        # and head width
+KERNEL_TILE = 64            # rows of the kernels' tiles (a block is ⌈bs/64⌉ of them)
+KERNEL_BLOCK_MULTIPLE = 8   # their block sizes: multiples of 8 ...
+KERNEL_MAX_BLOCK = 1024     # ... up to 1,024
+KERNEL_HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = _build.P, _build.I32, _build.I64, _build.F32
 _SIGNATURES = {
@@ -305,12 +328,20 @@ def _mid_operands(q, k, v, mask, rand_attn, bs):
     return qm, kc, vc, pen, idx
 
 
+def _scale_in(dt, D: int) -> torch.Tensor:
+    """1/√D in the compute dtype: JAX multiplies an array by a (weakly
+    typed) Python float in the array's dtype, so the scale is rounded to
+    it (0.1767578125 in bf16 at D=32)."""
+    return torch.tensor(1.0 / math.sqrt(D), dtype=dt)
+
+
 def _mid_logits(qm, kc, pen, dt):
     """Masked fp32 logits as ``_mid_logits``: the product rounded to the
-    compute dtype, times 1/√D in it, plus the fp32 penalty."""
+    compute dtype, times 1/√D in it (rounded again), plus the fp32
+    penalty."""
     f = torch.float32
     s = torch.einsum("bhjqd,bhjkd->bhjqk", qm.to(f), kc.to(f)).to(dt)
-    return (s * (1.0 / math.sqrt(qm.shape[-1]))).to(f) + pen
+    return (s * _scale_in(dt, qm.shape[-1])).to(f) + pen
 
 
 def bigbird_mid_fwd_plain(q, k, v, mask, rand_attn, block_size):
@@ -395,16 +426,31 @@ def _geometry(q, k, v, mask, rand_attn, block_size) -> Tuple[int, int, int, int,
     return B, S, H, nb, int(rand_attn.shape[2])
 
 
+def bigbird_kernel_takes(block_size: int, D: int, S: Optional[int] = None) -> bool:
+    """Whether the card's BigBird kernel pair (forward and backward, fp32
+    and bf16) takes block size ``block_size`` and head width ``D`` (and,
+    given, a sequence of ``S`` rows): D in ``KERNEL_HEAD_DIMS``, the block
+    size a multiple of 8 from 8 to 1,024, S a multiple of it of at least 5
+    blocks."""
+    m = KERNEL_BLOCK_MULTIPLE
+    takes = D in KERNEL_HEAD_DIMS and m <= block_size <= KERNEL_MAX_BLOCK and block_size % m == 0
+    if S is not None:
+        takes = takes and S % block_size == 0 and S // block_size >= 5
+    return takes
+
+
 def _check_cuda(what: str, q, tensors, block_size: int) -> None:
     """Raise unless the CUDA kernels take these arguments: fp32 or bf16 q
-    of head width 64, block size 64 or 128, every tensor on q's card."""
+    at a head width and block size :func:`bigbird_kernel_takes` takes,
+    every tensor on q's card."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: unsupported dtype {q.dtype}")
-    if q.shape[-1] != KERNEL_HEAD_DIM or block_size not in KERNEL_BLOCKS:
-        raise ValueError(f"{what} kernel takes D={KERNEL_HEAD_DIM} and a block size in "
-                         f"{KERNEL_BLOCKS}, got D={q.shape[-1]}, block size {block_size}")
+    if not bigbird_kernel_takes(block_size, q.shape[-1]):
+        raise ValueError(f"{what} kernel takes D in {KERNEL_HEAD_DIMS} and a block size that "
+                         f"is a multiple of {KERNEL_BLOCK_MULTIPLE} up to {KERNEL_MAX_BLOCK}, "
+                         f"got D={q.shape[-1]}, block size {block_size}")
     for t in tensors:
         if t.device != q.device:
             raise ValueError(f"{what}: tensors on different devices")
@@ -414,7 +460,7 @@ def tma_map_args(t: torch.Tensor):
     """The 4-D TMA tensor map the Hopper kernels build over a (B, S, H, D)
     view from its strides (``csrc/bigbird_sm90.cuh::make_map_bshd``): dims
     (D, H, S, B) innermost first, the byte strides of dims 1-3 and the box
-    (D, 1, 64, 1), one 64-row tile at either block size; None where a map
+    (D, 1, 64, 1), one 64-row tile at every block size; None where a map
     cannot take the view (a last stride other than 1, or a byte stride
     that is not a multiple of 16 or not below 2**40)."""
     B, S, H, D = t.shape
@@ -567,7 +613,7 @@ def block_sparse_attention(
     ctx_mid = _MidBlocks.apply(qs, ks, vs, mask, rand, bs)
 
     penalty = ((1.0 - mask) * ATTN_PENALTY)[:, None, None, :]   # (B, 1, 1, S)
-    scale = 1.0 / math.sqrt(D)
+    scale = _scale_in(q.dtype, D)
 
     def dense_block(qb):   # (B, bs, H, D) -> (B, bs, H, D)
         s = torch.einsum("bqhd,bkhd->bhqk", qb, ks) * scale

@@ -139,6 +139,34 @@ def dropout_replicas(cfg_d: dict, params_np: dict, feats: dict) -> dict:
             "nu": rep(state.opt_state["nu"])}
 
 
+def prot_dropout_cfg(cfg_d: dict) -> tconfig.ProtSTonKGsConfig:
+    """A ProtSTonKGs config with hidden dropout 0.1 in the trunk and both
+    backbones (and the backbones' attention dropout 0.1)."""
+    cfg = prot_cfg(cfg_d)
+    return cfg.replace(
+        trunk=dataclasses.replace(cfg.trunk, hidden_dropout_prob=0.1),
+        lm=dataclasses.replace(cfg.lm, hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1),
+        prot=dataclasses.replace(cfg.prot, hidden_dropout_prob=0.1,
+                                 attention_probs_dropout_prob=0.1))
+
+
+def prot_dropout_pretrain(cfg_d: dict, params_np: dict, feats: dict, mesh_shape=None) -> dict:
+    """2 steps of ProtSTonKGs ``pretrain`` with dropout on, fp32, on a mesh
+    of ``mesh_shape`` (None: unmeshed): the logged losses and the gathered
+    trainable parameters."""
+    cfg = prot_dropout_cfg(cfg_d)
+    mesh = None if mesh_shape is None else make_mesh(*mesh_shape)
+    run = tpre.PretrainingConfig(learning_rate=LR, max_steps=2, micro_batch_size=4,
+                                 log_steps=1, compute_dtype="float32", seed=7)
+    losses = []
+    state = tpre.pretrain(cfg, protstonkgs_params_from_jax(params_np, cfg), feats, run,
+                          mesh=mesh, loss_fn=tprot.pretraining_loss,
+                          log_fn=lambda s, m: losses.append(m["loss"]))
+    train = split_frozen(state.params)[0]
+    return {"losses": losses,
+            "params": _np(train if state.layout is None else state.layout.gather(train))}
+
+
 def resume(cfg_d: dict, params_np: dict, feats: dict, root: str) -> dict:
     """A 2 x 2 run of 4 steps with dropout on, and the same run stopped at
     step 2 and resumed: both runs' gathered parameters and losses."""

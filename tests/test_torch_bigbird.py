@@ -62,10 +62,10 @@ def test_rand_attn_matches_jax(seq_len, bs, r, heads, max_len, training):
     assert np.random.get_state()[1][0] == state[1][0]
 
 
-def _inputs(nb, r, seed, padded, zero_plan, bs=BS, heads=H):
+def _inputs(nb, r, seed, padded, zero_plan, bs=BS, heads=H, d=D):
     rng = np.random.default_rng(seed)
     S = nb * bs
-    q, k, v = (rng.normal(size=(B, heads, S, D)).astype(np.float32) * 0.5 for _ in range(3))
+    q, k, v = (rng.normal(size=(B, heads, S, d)).astype(np.float32) * 0.5 for _ in range(3))
     mask = np.ones((B, S), np.float32)
     if padded:
         mask[0, -(bs + 4):] = 0.0           # pad crossing the last block boundary
@@ -74,7 +74,7 @@ def _inputs(nb, r, seed, padded, zero_plan, bs=BS, heads=H):
         rand = np.zeros((heads, nb - 2, r), np.int32)
     else:
         rand = rng.integers(1, nb - 1, (heads, nb - 2, r)).astype(np.int32)
-    w = rng.normal(size=(B, heads, S, D)).astype(np.float32)
+    w = rng.normal(size=(B, heads, S, d)).astype(np.float32)
     return q, k, v, rand, mask, w
 
 
@@ -121,6 +121,106 @@ def test_block_sparse_gradients_match_jax(bs, heads, nb, r, padded, zero_plan):
                                    **GRAD_TOL)
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(b), err_msg=f"d{name} pallas",
                                    **GRAD_TOL)
+
+
+# the kernels' new domain: head widths 16 and 32 at block sizes the
+# command line derives (S // 8: 8 at S=64 ... 512 at S=4096), partial 64-row
+# tiles included (8, 48, 96), with 2 heads, nb=5 or 6 and r=1 or 2
+WIDTH_CASES = [(bs, d, 5 + i % 2, 1 + i % 2) for i, bs in enumerate((8, 48, 96, 256, 512))
+               for d in (16, 32)]
+WIDTH_IDS = [f"bs{bs}-D{d}-nb{nb}-r{r}" for bs, d, nb, r in WIDTH_CASES]
+
+
+@pytest.mark.parametrize("bs,d,nb,r", WIDTH_CASES, ids=WIDTH_IDS)
+def test_block_sparse_at_new_widths_matches_jax(bs, d, nb, r):
+    """``block_sparse_attention`` (the plain pair on the CPU) at D = 16 and
+    32 and block sizes that are not 64 or 128, with a padded mask and a
+    random plan: the forward and the q, k, v gradients against the JAX
+    XLA lowering and the Pallas kernel in interpret mode (under
+    ``jax.jit``), with the block-16 tolerances."""
+    q, k, v, rand, mask, w = _inputs(nb, r, bs + d, True, False, bs, 2, d)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    jr, jm, jw = jnp.asarray(rand), jnp.asarray(mask), jnp.asarray(w)
+
+    def xla(*a):
+        return jsparse.block_sparse_attention(*a, jr, jm, bs)
+
+    def pallas(*a):
+        return block_sparse_attention_pallas(*a, jr, jm, bs, interpret=True)
+
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = tsparse.block_sparse_attention(tq, tk, tv, rand, torch.from_numpy(mask), bs)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, fn in (("xla", xla), ("pallas", pallas)):
+        want = np.asarray(jax.jit(fn)(jq, jk, jv))
+        np.testing.assert_allclose(out.detach().numpy(), want, err_msg=name, **FWD_TOL)
+        grads = jax.jit(jax.grad(lambda *a: jnp.sum(fn(*a) * jw), argnums=(0, 1, 2)))(jq, jk, jv)
+        for n_, got, g in zip("qkv", (tq, tk, tv), grads):
+            np.testing.assert_allclose(got.grad.numpy(), np.asarray(g), err_msg=f"d{n_} {name}",
+                                       **GRAD_TOL)
+
+
+@pytest.mark.parametrize("bs,d", [(48, 32), (96, 16), (512, 32)], ids=["bs48-D32", "bs96-D16",
+                                                                      "bs512-D32"])
+def test_mid_blocks_plain_at_new_widths(bs, d):
+    """The plain pair at a partial or large block: shapes, the lse equal to
+    the log-sum-exp of the masked logits over the (5 + r) · bs slot keys,
+    zero dq on the dense blocks, and the plain backward equal to autograd
+    through the plain forward (fp32)."""
+    nb, r = 6, 2
+    q, k, v, rand, mask, w = _inputs(nb, r, 9, True, False, bs, 2, d)
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2).contiguous() for a in (q, k, v))
+    tmask, trand = torch.from_numpy(mask), torch.from_numpy(rand)
+    out, lse = tsparse.bigbird_mid_fwd(tq, tk, tv, tmask, trand, bs)
+    assert out.shape == (B, (nb - 2) * bs, 2, d) and lse.shape == (B, 2, (nb - 2) * bs)
+    qm, kc, _, pen, _ = tsparse._mid_operands(tq, tk, tv, tmask, trand, bs)
+    want = torch.logsumexp(tsparse._mid_logits(qm, kc, pen, torch.float32), dim=-1)
+    np.testing.assert_allclose(lse.numpy(), want.reshape(B, 2, -1).numpy(), atol=1e-5, rtol=0)
+    g = torch.from_numpy(w).transpose(1, 2)[:, bs:-bs].contiguous()
+    dq, dk, dv = tsparse.bigbird_mid_bwd(tq, tk, tv, tmask, trand, bs, out, lse, g)
+    assert torch.count_nonzero(dq[:, :bs]) == 0 and torch.count_nonzero(dq[:, -bs:]) == 0
+    aq, ak, av = (t.clone().requires_grad_(True) for t in (tq, tk, tv))
+    ctx = tsparse.bigbird_mid_fwd_plain(aq, ak, av, tmask, trand, bs)[0]
+    auto = torch.autograd.grad((ctx * g).sum(), (aq, ak, av))
+    for name, got, want_g in zip(("dq", "dk", "dv"), (dq, dk, dv), auto):
+        np.testing.assert_allclose(got.numpy(), want_g.numpy(), err_msg=name, **GRAD_TOL)
+
+
+def _bf16_steps(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """|got - want| in bf16 steps of |want| (8 significant bits)."""
+    w = np.maximum(np.abs(want), 2.0 ** -100)
+    return np.abs(got - want) / np.exp2(np.floor(np.log2(w)) - 7)
+
+
+def test_bf16_logit_scale_rounds_as_jax():
+    """In bf16 the logits are round(round(Q·Kᵀ) · 1/√D) with the scale itself
+    in bf16, as JAX multiplies a bf16 array by a Python float: bit-equal to
+    JAX at D=32 (where 1/√32 is not a power of two) and at D=16, 64; the
+    dense first and last query blocks scale the same way: on integer-valued
+    q and k (Q·Kᵀ exact in any order) their context is within one bf16 step
+    of JAX's (the fp32 scale puts hundreds of steps between them)."""
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=4096) * 20).astype(np.float32)
+    for d in (16, 32, 64):
+        want = np.asarray((jnp.asarray(x).astype(jnp.bfloat16) * (1.0 / d ** 0.5))
+                          .astype(jnp.float32))
+        got = (torch.from_numpy(x).to(torch.bfloat16)
+               * tsparse._scale_in(torch.bfloat16, d)).float().numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"D={d}")
+    assert float(tsparse._scale_in(torch.bfloat16, 32)) == 0.1767578125
+    assert float(tsparse._scale_in(torch.float32, 32)) == np.float32(1 / np.sqrt(32))
+    bs = 48
+    q, k, v, rand, mask, _ = _inputs(6, 2, 4, True, False, bs, 2, 32)
+    q, k = (np.rint(a * 6) for a in (q, k))
+    bf = torch.bfloat16
+    tq, tk, tv = (torch.from_numpy(a).to(bf) for a in (q, k, v))
+    got = tsparse.block_sparse_attention(tq, tk, tv, rand, torch.from_numpy(mask), bs)
+    want = jsparse.block_sparse_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                          jnp.asarray(rand), jnp.asarray(mask), bs)
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    for rows in (slice(0, bs), slice(-bs, None)):
+        assert _bf16_steps(got[:, :, rows], want[:, :, rows]).max() <= 1.0
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=1e-2)
 
 
 def test_mid_blocks_plain_shapes_and_lse():
@@ -212,15 +312,16 @@ def test_tma_map_args_follow_the_view_strides():
 def test_tma_map_args_at_block128():
     """At block 128 the kernels read a 128-key slot as two 64-row tiles:
     the map over the trunk's fused-QKV view (S=4096) keeps the 64-row
-    box, and a block of 128 rows is two boxes of it."""
+    box, and a block of 128 rows is two boxes of it (every block size the
+    kernels take is ⌈bs/64⌉ boxes, the last one partial below 64)."""
     Bq, S, Hq, Dq = 2, 4096, 12, 64
     fused = torch.zeros(Bq, S, 3, Hq, Dq, dtype=torch.bfloat16)[:, :, 0]
     row = 3 * Hq * Dq * 2
     dims, strides, box = tsparse.tma_map_args(fused)
     assert dims == (Dq, Hq, S, Bq) and strides == (Dq * 2, row, row * S)
     assert box == (Dq, 1, tsparse.KERNEL_TILE, 1)
-    assert set(tsparse.KERNEL_BLOCKS) == {64, 128}
-    assert all(bs % box[2] == 0 and S % bs == 0 for bs in tsparse.KERNEL_BLOCKS)
+    assert tsparse.bigbird_kernel_takes(128, Dq, S) and 128 // box[2] == 2
+    assert tsparse.bigbird_kernel_takes(64, Dq, S) and 64 // box[2] == 1
 
 
 # ---------------------------------------------------------------------------

@@ -231,6 +231,7 @@ def weights():
 def data():
     return {"steps": [stonkgs_rows(CFG, 8, seed=s) for s in (11, 12)],
             "prot": [prot_rows(4, seed=s) for s in (21, 22)],
+            "prot_pretrain": prot_rows(8, seed=23),
             "pretrain": stonkgs_rows(CFG, 16, seed=13)}
 
 
@@ -265,6 +266,8 @@ def world2(weights, data, tmp_path_factory):
                                        data["steps"], 1, 2)),
         ("prot_1x2", "sharded_steps", ("prot", dataclasses.asdict(PROT_CFG), weights["prot"],
                                        data["prot"], 1, 2)),
+        ("prot_dropout", "prot_dropout_pretrain", (dataclasses.asdict(PROT_CFG), weights["prot"],
+                                                   data["prot_pretrain"], (1, 2))),
         ("dropout", "dropout_replicas", (dataclasses.asdict(CFG), weights["stonkgs"],
                                          data["pretrain"])),
         ("multihost", "multihost_cases", ()),
@@ -461,6 +464,22 @@ def test_sharded_steps_match_jax_single_device(case, request, jax_steps, port_st
 # ---------------------------------------------------------------------------
 # dropout, the 1x1 mesh, the resume
 # ---------------------------------------------------------------------------
+
+def test_prot_dropout_on_1x2_matches_the_unmeshed_run(world2, weights, data):
+    """ProtSTonKGs ``pretrain`` on a 1x2 mesh (the KG table row-split, the
+    protein head vocab-parallel) with hidden dropout 0.1, fp32, against
+    the port's unmeshed ``pretrain`` with the same seed: a 1 x n mesh draws
+    the unmeshed run's dropout masks, so it must match it as closely as
+    the dropout-free steps match JAX."""
+    want = ranks.prot_dropout_pretrain(dataclasses.asdict(PROT_CFG), weights["prot"],
+                                       data["prot_pretrain"])
+    assert len(want["losses"]) == 2 and all(np.isfinite(want["losses"]))
+    for r in (r["prot_dropout"] for r in world2["ranks"]):
+        np.testing.assert_allclose(r["losses"], want["losses"], rtol=1e-5)
+        assert r["params"].keys() == want["params"].keys()
+        for k, v in want["params"].items():
+            np.testing.assert_allclose(r["params"][k], v, err_msg=k, **PARAM_TOL)
+
 
 def test_dropout_keeps_replicas_bit_equal(world2):
     a, b = (r["dropout"] for r in world2["ranks"])

@@ -311,3 +311,183 @@ def test_minilm_pretraining_loss_matches_jax(params):
     assert np.isfinite(float(jl))
     for k in ("loss", "mlm_loss", "elm_loss", "nsp_loss"):
         np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# ProtSTonKGs from a KG TSV that is not 768 wide: the derived config and
+# its loss (the BigBird pair at D = 16 and 32 and block S // 8)
+# ---------------------------------------------------------------------------
+
+class _Derived(Exception):
+    """Carries the config the JAX package's run derives out of it."""
+
+
+def _prot_feature_rows(layout, n=2, kg_rows=128, seed=0):
+    """Tri-modality rows at ``layout`` (text, entity, protein lengths) with
+    every label column, entity ids below ``kg_rows``."""
+    rng = np.random.default_rng(seed)
+    tl, el, pl = layout
+    ids = np.concatenate([rng.integers(0, 28996, (n, tl)), rng.integers(0, kg_rows, (n, el)),
+                          rng.integers(0, 30, (n, pl))], 1)
+    out = {"input_ids": ids.astype(np.int64),
+           "attention_mask": np.ones((n, sum(layout)), np.int64)}
+    for name, length in (("masked_lm_labels", tl), ("ent_masked_lm_labels", el),
+                         ("prot_masked_lm_labels", pl)):
+        out[name] = np.full((n, length), -100, np.int64)
+    return out
+
+
+def _jax_prot_config(feats, width, tmp_path, monkeypatch):
+    """The ProtSTonKGs config the JAX package's ``run_pretraining(variant=
+    "prot")`` derives from ``feats`` and a ``width``-wide KG TSV (its
+    ``pretrain`` replaced by one that hands the config back)."""
+    import importlib
+
+    from stonkgs_tpu.train import pretraining as jpre
+
+    emb = tmp_path / f"emb{width}.tsv"
+    vecs = np.random.default_rng(width).normal(size=(128, width)).astype(np.float32)
+    emb.write_text("".join(f"node{i}\t" + "\t".join(repr(float(x)) for x in v) + "\n"
+                           for i, v in enumerate(vecs)))
+
+    def capture(cfg, *a, **kw):
+        raise _Derived(cfg)
+
+    monkeypatch.setattr(jpre, "pretrain", capture)
+    jcli = importlib.import_module("stonkgs_tpu.cli.pretrain")
+    with pytest.raises(_Derived) as got:
+        jcli._run_prot_pretraining(feats, kg_embedding_path=str(emb), compute_dtype="float32",
+                                   output_dir=str(tmp_path / f"run{width}"))
+    return got.value.args[0]
+
+
+@pytest.mark.parametrize("layout", [(120, 72, 192), (384, 128, 256), (768, 256, 3072)],
+                         ids=["S384", "S768", "S4096"])
+@pytest.mark.parametrize("width", [32, 64, 128])
+def test_prot_pretraining_config_matches_jax(width, layout, tmp_path, monkeypatch):
+    """``prot_pretraining_config`` equals the JAX package's derived config
+    field for field, and every stack it derives lies in the kernels'
+    domains: the BigBird pair (head width, block S // 8, at least 5
+    blocks) and the dense attention and FFN kernels."""
+    from stonkgs_tpu_torch.cli.pretrain import prot_pretraining_config
+    from stonkgs_tpu_torch.ops import bigbird_sparse as tsparse
+
+    feats = _prot_feature_rows(layout)
+    want = _jax_prot_config(feats, width, tmp_path, monkeypatch)
+    got = prot_pretraining_config(feats, width)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    t, S = got.trunk, sum(layout)
+    assert (t.block_size, t.num_random_blocks, t.head_dim) == (S // 8, 1, width // t.num_attention_heads)
+    assert tsparse.bigbird_kernel_takes(t.block_size, t.head_dim, S)
+    for bert in (got.lm, got.prot):
+        assert tflash.attention_kernel_takes(bert.head_dim)
+        assert tffn.ffn_kernel_takes(bert.hidden_size, bert.intermediate_size)
+    assert tffn.ffn_kernel_takes(t.hidden_size, t.intermediate_size)
+
+
+def test_bigbird_kernel_domain_edges():
+    """The BigBird pair's domain: D in (16, 32, 64), a block size that is a
+    multiple of 8 from 8 to 1,024, and (given S) S a multiple of it of at
+    least 5 blocks."""
+    from stonkgs_tpu_torch.ops import bigbird_sparse as tsparse
+
+    takes = tsparse.bigbird_kernel_takes
+    for bs in range(8, 1025, 8):
+        for D in (16, 32, 64):
+            assert takes(bs, D) and takes(bs, D, 5 * bs) and takes(bs, D, 8 * bs)
+            assert not takes(bs, D, 4 * bs) and not takes(bs, D, 8 * bs + 4)
+    for bs in (0, 4, 12, 60, 100, 1020, 1032, 2048):
+        assert not takes(bs, 32)
+    for D in (8, 24, 48, 80, 96, 128):
+        assert not takes(64, D) and not takes(512, D)
+
+
+# the derived 128-wide config, cut: 2 rows of S=384 laid out 120 | 72 | 192
+# (block 48, 8 blocks, 4 heads of D=32), every dropout 0; the text in 3
+# chunks of 40
+PROT_WIDE_LAYOUT = (120, 72, 192)
+
+
+def _prot_wide_configs():
+    from stonkgs_tpu_torch.cli.pretrain import prot_pretraining_config
+
+    feats = _prot_feature_rows(PROT_WIDE_LAYOUT)
+    tcfg = prot_pretraining_config(feats, 128)
+    zero = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    tcfg = tcfg.replace(trunk=dataclasses.replace(tcfg.trunk, **zero),
+                        lm=dataclasses.replace(tcfg.lm, **zero),
+                        prot=dataclasses.replace(tcfg.prot, **zero))
+    d = dataclasses.asdict(tcfg)
+    jcfg = jconfig.ProtSTonKGsConfig(**{
+        **d, "trunk": jconfig.BigBirdConfig(**d["trunk"]),
+        "lm": jconfig.BertConfig(**d["lm"]), "prot": jconfig.BertConfig(**d["prot"])})
+    return jcfg, tcfg
+
+
+def test_prot_derived_128_wide_loss_and_grads_match_jax():
+    """The derived 128-wide ProtSTonKGs (2 layers a stack, 4 heads of D=32,
+    block 48 at S=384: the pair's partial 64-row tiles) in training mode
+    at dropout 0: the loss and the trunk, projection and head gradients
+    against the JAX package's (XLA sparse path), fp32."""
+    from stonkgs_tpu.models import protstonkgs as jprot
+    from stonkgs_tpu_torch.models import protstonkgs as tprot
+    from stonkgs_tpu_torch.models.bigbird import effective_attention_type
+    from stonkgs_tpu_torch.utils.convert import bigbird_params_from_jax, \
+        protstonkgs_params_from_jax
+    from stonkgs_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    jcfg, tcfg = _prot_wide_configs()
+    assert effective_attention_type(tcfg.trunk, tcfg.seq_len) == "block_sparse"
+    assert (tcfg.trunk.block_size, tcfg.trunk.head_dim) == (48, 32)
+    key = jax.random.PRNGKey(0)
+    params = jax.jit(lambda k: jprot.init_protstonkgs_params(k, jcfg))(key)
+    params["kg_backbone"] = jax.random.normal(jax.random.PRNGKey(1),
+                                              (jcfg.kg_table_size, jcfg.trunk.hidden_size))
+    params = jax.tree.map(np.asarray, params)
+    rng = np.random.default_rng(7)
+    tl, el, pl = PROT_WIDE_LAYOUT
+    n = 2
+    batch = {"input_ids": np.concatenate([rng.integers(0, jcfg.lm_vocab_size, (n, tl)),
+                                          rng.integers(0, jcfg.kg_table_size, (n, el)),
+                                          rng.integers(0, jcfg.prot_vocab_size, (n, pl))], 1),
+             "attention_mask": np.ones((n, jcfg.seq_len), np.int64)}
+    batch["attention_mask"][1, 300:] = 0       # a pad inside a middle block
+    for name, a, b, vocab in (("masked_lm_labels", 0, tl, jcfg.lm_vocab_size),
+                              ("ent_masked_lm_labels", tl, tl + el, jcfg.kg_vocab_size),
+                              ("prot_masked_lm_labels", tl + el, jcfg.seq_len,
+                               jcfg.prot_vocab_size)):
+        lab = np.full((n, b - a), -100, np.int64)
+        for i in range(n):
+            k = max(int((b - a) * 0.15), 1)
+            lab[i, rng.choice(b - a, k, replace=False)] = rng.integers(0, vocab, k)
+        batch[name] = lab
+    train_keys = ("trunk", "prot_projection", "cls")
+    jp = jax.tree.map(jnp.asarray, params)
+    frozen = {k: v for k, v in jp.items() if k not in train_keys}
+
+    def jloss(train):
+        return jprot.pretraining_loss({**train, **frozen}, jcfg,
+                                      {k: jnp.asarray(v) for k, v in batch.items()},
+                                      deterministic=False, dropout_rng=jax.random.PRNGKey(0))
+
+    (jl, jm), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        {k: jp[k] for k in train_keys})
+    tp = protstonkgs_params_from_jax(params, tcfg)
+    leaves = tree_leaves({k: tp[k] for k in train_keys})
+    for t in leaves:
+        t.requires_grad_(True)
+    tl_, tm = tprot.pretraining_loss(tp, tcfg, tpre.to_device(batch, "cpu"), deterministic=False,
+                                     rng=tpre.step_rng(0, 0, "cpu"))
+    grads = torch.autograd.grad(tl_, leaves, allow_unused=True)
+    for k in ("loss", "text_loss", "entity_loss", "prot_loss"):
+        np.testing.assert_allclose(tm[k].item(), float(jm[k]), err_msg=k, rtol=1e-5, atol=1e-5)
+    jg = jax.tree.map(np.asarray, jg)
+    want = {"trunk": bigbird_params_from_jax(jg["trunk"], tcfg.trunk)}
+    for k in ("prot_projection", "cls"):
+        want[k] = tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)), jg[k])
+    want = tree_leaves(want)
+    got = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=f"grad leaf {i}",
+                                   atol=2e-5, rtol=1e-4)
