@@ -264,7 +264,8 @@ Phases, each fatal on failure (exit code 1, no result line):
     B=1 and B=8 with a row whose keys are all at -1e9, and the three FFN
     kernels at H = 32, 64, 96, 384 and 512, I = 4H, M = 3, 129 and 8,192,
     gelu and gelu_new, against their plain versions in bf16 and fp32;
-    D = 8, 48, 128, H = 48 and 1,056, I = 100 and 1,000 raise; (b) STonKGs at
+    D = 136 and 256, H = 48 and 1,056, I = 100 and 1,000 raise, and the
+    C entry points refuse D = 136 and 68 and H = 48; (b) STonKGs at
     MiniLM-L12-H384's widths (12 x 384, 12 heads of 32, I=1536,
     vocabulary 30,522, KG vocabulary 100,000, seeded random weights):
     phase 5's checks on 512 rows at B=128, then the card's fp32 engines
@@ -300,6 +301,25 @@ Phases, each fatal on failure (exit code 1, no result line):
     128-wide path's embed sequences/s and step ms, and the pair at its
     shapes beside its bound, floor, plain version and SDPA over gathered
     operands.
+28. head widths: (a) the three attention kernels at D = 8, 24, 48, 68,
+    72, 80, 96, 112 and 128 (instances of the padded widths 16, 32, 64
+    and 128; D=68 through the wrappers' zero-padded copies), S = 1, 65
+    and 512, B=2 with 3 heads, against their plain versions in bf16 and
+    fp32: inference with a key bias whose batch row 0 is all -1e9 and
+    without one, the training forward at rates 0 and 0.1, the backward
+    at both (with and without db, unmasked, the dead row); at D = 80 and
+    128 the limits must reject the plain output without the scores'
+    columns from 64 on and under another seed's mask, and at S=512 dK
+    without its scale and dV without the keep scale; (b) STonKGs at
+    BERT-base's widths with 6 heads of D=128 on phase 5's parameters:
+    ``embed`` of 512 rows at B=128 (launch counts, finite, card fp32
+    against CPU fp32 on 4 rows, bf16 by cosine), phase 7's ``pretrain``
+    (B=32, 4 steps) and phase 8's numerics; (c) ``run_pretraining`` ->
+    ``from_pretrained`` -> ``embed`` from 96-, 160-, 288- and 544-wide
+    KG TSVs (the derived 2-layer configs: D = 48, 80, 72, 68), as phase
+    26 (d); (d) the three kernels at (b)'s shapes beside their bound,
+    the design's floor, their plain versions and SDPA (the backward:
+    its own alone over a saved forward).
 
 The line before the last is a JSON object with one entry per kernel (the
 BigBird pair's times at block 64, its error the worse of both block
@@ -308,8 +328,10 @@ MiniLM-L12-H384's widths (``<name> H=384 D=32``: the launches of phase
 26's embed and step, the worst bf16 error of phase 26 at any new width),
 then the BigBird pair at the 128-wide ProtSTonKGs path's shapes
 (``<name> D=32``: the launches of phase 27's runs, the worst bf16 error
-of phase 27 at any new geometry); the last line is ``{"ok": true,
-"device": {...}}``.
+of phase 27 at any new geometry), then the three attention kernels at 6
+heads of D=128 (``<name> D=128``: the launches of phase 28's embed and
+step, the worst bf16 error of phase 28 at any head width); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -5334,15 +5356,17 @@ def _widths_outside(gen) -> None:
     """(a) Shapes outside the kernels' domain raise on the card in every
     wrapper and both dtypes, with no fallback to the plain versions and
     no launch counted: attention (inference, training forward and
-    backward) at D = 8, 48 and 128, the three FFN kernels at H = 48 and
-    1056 and at I = 100 and 1000.  The C entry points refuse such widths
-    themselves (cudaErrorInvalidValue, 1) without a launch: every entry
-    point at D=48 or H=48, in both dtypes."""
+    backward) at D = 136 and 256 (``HEAD_OUTSIDE``; D from 8 to 128 is
+    phase 28's), the three FFN kernels at H = 48 and 1056 and at I = 100
+    and 1000.  The C entry points refuse such widths themselves
+    (cudaErrorInvalidValue, 1) without a launch: every entry point at
+    D=136 or H=48, in both dtypes, and the attention entry points at D=68
+    (the wrappers pad a D that is not a multiple of 8)."""
     counted = {**TRAINING_KERNELS, **SERVING_KERNELS}
     before = _counts(counted)
     for dtype in (BF16, F32):
         tag = "bf16" if dtype == BF16 else "fp32"
-        for D in (8, 48, 128):
+        for D in HEAD_OUTSIDE:
             q, k, v, bias, _ = _attn_inputs(1, 64, dtype, gen, True, 2, D)
             lse = torch.zeros(1, 2, 64, device=DEV)
             for name, fn in (
@@ -5353,7 +5377,7 @@ def _widths_outside(gen) -> None:
                      lambda: flash_attention_train_bwd(q, k, v, bias, q, lse, q))):
                 raised = _refused(name, fn)
                 log(f"# check {name} {tag} at D={D} raises: {raised!r}")
-                check("D in (16, 32, 64)" in raised, f"{name} {tag} at D={D} did not raise")
+                check("takes D from 8 to 128" in raised, f"{name} {tag} at D={D} did not raise")
         for H, I in ((48, 192), (1056, 4224), (64, 100), (768, 1000)):
             args = _ffn_inputs(3, dtype, gen, H, I)
             x, w1, b1, w2, b2, g = _train_ffn_inputs(3, dtype, gen, H, I)
@@ -5377,16 +5401,19 @@ def _widths_outside(gen) -> None:
     ffn_lib = _build.load("ffn_train", fused_ffn_ops._TRAIN_SIGNATURES)
     for dt in (1, 0):
         tag = "bf16" if dt == 1 else "fp32"
-        statuses = {
-            "flash_attention_infer D=48": attn_lib.flash_attention_infer(
-                dt, *[p] * 5, 1, 64, 2, 48, 48 ** -0.5, st),
-            "flash_attention_train_fwd D=48": train_lib.flash_attention_train_fwd(
-                dt, *[p] * 6, 1, 64, 2, 48, 48 ** -0.5, *drop, st),
-            "flash_attention_train_bwd D=48": train_lib.flash_attention_train_bwd(
-                dt, *[p] * 12, 1, 64, 2, 48, 48 ** -0.5, *drop, st),
+        statuses = {}
+        for D in (136, 68):
+            statuses.update({
+                f"flash_attention_infer D={D}": attn_lib.flash_attention_infer(
+                    dt, *[p] * 5, 1, 64, 2, D, D ** -0.5, st),
+                f"flash_attention_train_fwd D={D}": train_lib.flash_attention_train_fwd(
+                    dt, *[p] * 6, 1, 64, 2, D, D ** -0.5, *drop, st),
+                f"flash_attention_train_bwd D={D}": train_lib.flash_attention_train_bwd(
+                    dt, *[p] * 12, 1, 64, 2, D, D ** -0.5, *drop, st)})
+        statuses.update({
             "ffn_ln_block H=48": ln_lib.ffn_ln_block(dt, *[p] * 13, 3, 48, 192, 0, 1e-12, st),
             "ffn_train_fwd H=48": ffn_lib.ffn_train_fwd(dt, *[p] * 7, 3, 48, 192, 0, st),
-            "ffn_train_bwd H=48": ffn_lib.ffn_train_bwd(dt, *[p] * 10, 3, 48, 192, 0, st)}
+            "ffn_train_bwd H=48": ffn_lib.ffn_train_bwd(dt, *[p] * 10, 3, 48, 192, 0, st)})
         torch.cuda.synchronize()
         for name, status in statuses.items():
             log(f"# check {name} {tag} C entry point: status {status} (1: refused)")
@@ -5928,6 +5955,215 @@ def phase_bigbird_widths(card: str) -> tuple:
     return total, errs, times
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the attention kernels at every head width up to 128; STonKGs at
+# BERT-base's widths with 6 heads of D=128, and the CLI's 96-, 160-, 288-
+# and 544-wide configs
+# ---------------------------------------------------------------------------
+
+# head widths of the attention checks: 8 (run at 16), widths inside each
+# padded instance (24, 48, 96, 112), the CLI's derived 48, 68 (a 136-byte
+# bf16 row, which the wrappers pad to 72 for TMA), 72 and 80, and 128
+HEAD_WIDTHS = (8, 24, 48, 68, 72, 80, 96, 112, 128)
+HEAD_S = (1, 65, 512)
+HEAD_BATCH, HEAD_HEADS = 2, 3
+# the planted faults' widths: both reach the second 64-column block
+HEAD_FAULT_DIMS = (80, 128)
+# head widths outside the attention kernels' domain (phase 26 (a) refuses them)
+HEAD_OUTSIDE = (136, 256)
+# STonKGs at BERT-base's widths (12 x 768, I=3072, 256 + 256, KG vocabulary
+# 100,000) with its 768 split into 6 heads of D=128
+HEADS_128 = 6
+# the KG TSV widths whose derived configs run at D = 48, 80, 72 and 68
+HEAD_TSV_WIDTHS = (96, 160, 288, 544)
+HEAD_KERNELS = ("flash_attention_infer", "flash_attention_train_fwd",
+                "flash_attention_train_bwd")
+
+
+def _heads_attention(gen, note) -> None:
+    """(a) The three attention kernels at every D of HEAD_WIDTHS against
+    their plain versions, bf16 and fp32, at S = 1, 65 and 512, B=2 with 3
+    heads: inference with the key bias (batch row 0's keys all at -1e9)
+    and without it, the training forward at rates 0 and 0.1 (output and
+    lse), and the backward at both rates (``_attention_bwd_cases``: with
+    and without db, unmasked, a row all at -1e9; at S=512 in bf16 its
+    limits must reject dK without its scale and dV without the keep
+    scale).  At D = 80 and 128 (``HEAD_FAULT_DIMS``), S=512, in bf16 the
+    output limit must reject the plain output without the scores' columns
+    from 64 on (a lost second column block) and, at rate 0.1, under
+    another seed's mask."""
+    B, H = HEAD_BATCH, HEAD_HEADS
+    for dtype in (BF16, F32):
+        tag = "bf16" if dtype == BF16 else "fp32"
+        for D in HEAD_WIDTHS:
+            for S in HEAD_S:
+                label = f"{tag} D={D} B={B} H={H} S={S}"
+                faults = dtype == BF16 and S == HEAD_S[-1] and D in HEAD_FAULT_DIMS
+                q, k, v, bias, _, seed, _ = _train_attn_inputs(B, S, dtype, gen, True, H, D)
+                bias[0] = -1e9
+                for b_label, b in (("mask row 0 all -1e9", bias), ("no-bias", None)):
+                    want = flash_attention_infer_plain(q, k, v, b)
+                    e = _compare_attn(f"attention {label} {b_label}",
+                                      flash_attention_infer(q, k, v, b), want, dtype)
+                    note("flash_attention_infer", e, dtype)
+                if faults:
+                    cut_q, cut_k = q.clone(), k.clone()
+                    cut_q[..., 64:] = 0
+                    cut_k[..., 64:] = 0
+                    _attn_limit_rejects(f"attention {label} no-bias without the scores' columns "
+                                        f"64-{D - 1}", want,
+                                        flash_attention_infer_plain(cut_q, cut_k, v))
+                for rate in (0.0, ATTN_RATE):
+                    out, lse = flash_attention_train_fwd(q, k, v, bias, seed, rate)
+                    out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, bias, seed, rate)
+                    e = max(_compare_attn(f"attention fwd {label} rate={rate}", out, out_p,
+                                          dtype),
+                            _compare(f"attention lse {label} rate={rate}", lse, lse_p, F32))
+                    note("flash_attention_train_fwd", e, dtype)
+                    if faults and rate > 0:
+                        other = (seed + 1).to(torch.int32)
+                        _attn_limit_rejects(
+                            f"attention fwd {label} rate={rate} with another seed's mask",
+                            out_p, flash_attention_train_fwd_plain(q, k, v, bias, other, rate)[0])
+                    e = _attention_bwd_cases(tag, dtype, B, H, S, rate, gen, D)
+                    note("flash_attention_train_bwd", e, dtype)
+                del q, k, v, bias
+
+
+def _heads_cfg() -> STonKGsConfig:
+    return STonKGsConfig(bert=BertConfig(num_attention_heads=HEADS_128), kg_vocab_size=100_000)
+
+
+def _heads_serving(cfg: STonKGsConfig, params: dict) -> dict:
+    """(b) ``STonKGsEngine.embed`` at BERT-base's widths with 6 heads of
+    D=128 on phase 5's parameters (the head split changes no shape): ROWS
+    rows at B=128 in parity mode in bf16, the serving kernels' launches
+    from 0 just before it, finite output, pairs/s over 3 more runs (as
+    phase 6 times phase 5's engine); then 4 rows on the card in fp32
+    against the CPU in fp32 (1e-3) and the bf16 rows against the CPU by
+    cosine (0.99), as phase 5.  Returns the launch counts."""
+    t0 = time.perf_counter()
+    feats = _features(cfg, ROWS, seed=28)
+    engine = STonKGsEngine(cfg=cfg, params=params_to(params, DEV, BF16), batch_size=BATCH,
+                           device=DEV)
+    _reset_counts(SERVING_KERNELS)
+    out = engine.embed(feats)
+    counts = _counts(SERVING_KERNELS)
+    per_batch = cfg.bert.num_hidden_layers * 2 - 1
+    _check_counts(f"D=128 parity embed ({math.ceil(ROWS / BATCH)} batches)", counts,
+                  {n: per_batch * math.ceil(ROWS / BATCH) for n in SERVING_KERNELS})
+    check(out.shape == (ROWS, cfg.bert.hidden_size) and bool(np.isfinite(out).all()),
+          f"D=128 embed output {out.shape} not finite")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.embed(feats)
+        times.append(time.perf_counter() - t1)
+    log(f"# embed D=128 parity: {ROWS} rows, B={BATCH}, seconds {times!r}; best "
+        f"{ROWS / min(times)!r} pairs/s, median {ROWS / statistics.median(times)!r} pairs/s")
+    del engine
+    few = {k: v[:4] for k, v in feats.items()}
+    card32 = STonKGsEngine(cfg=cfg, params=params, compute_dtype="float32", batch_size=4,
+                           device=DEV).embed(few)
+    cpu32 = STonKGsEngine(cfg=cfg, params=params, compute_dtype="float32", batch_size=4,
+                          device="cpu").embed(few)
+    err32 = float(np.abs(card32 - cpu32).max())
+    cos = _cosine(out[:4], cpu32)
+    log(f"# D=128 embed: card fp32 vs CPU fp32 (4 rows) max_abs_err {err32!r} (limit 1e-3); "
+        f"card bf16 vs CPU fp32 cosine {cos.tolist()!r} (limit 0.99); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(err32 <= 1e-3, "D=128: card fp32 embeddings disagree with the CPU")
+    check(bool((cos >= 0.99).all()), "D=128: card bf16 embeddings too far from the CPU")
+    return counts
+
+
+def _attn_floor_ms(B: int, H: int, S: int, D: int, products: int) -> float:
+    """The two-pass design's floor: ``products`` products of 2·B·H·S²·D
+    flops at the bf16 peak, or two exps a score at the SFU's rate,
+    whichever is longer."""
+    return max(products * 2.0 * B * H * S * S * D / PEAK_FLOPS[BF16],
+               2.0 * B * H * S * S / EX2_PER_S) * 1e3
+
+
+def _heads_times(cfg: STonKGsConfig, card: str) -> dict:
+    """(d) The three kernels at (b)'s shapes (6 heads of D=128) beside
+    their bound, the design's floor (three products and two exps a score
+    forward, seven products backward), their plain versions and SDPA (the
+    backward: SDPA's alone over a saved forward, with the backend that
+    ran): inference at B=128 over the trunk (S=512, masked) and the
+    backbone (S=256, no bias), the training forward at B=32 over both,
+    the backward over the trunk.  Returns, per kernel, the trunk shape's
+    numbers with the worse error of its shapes."""
+    gen = torch.Generator().manual_seed(28)
+    nh, D = cfg.bert.num_attention_heads, cfg.bert.head_dim
+    sl, tl, B = cfg.seq_len, cfg.text_len, TRAIN_BATCH
+    cases = {
+        "flash_attention_infer": [
+            (f"D={D} trunk B={BATCH} S={sl} mask", BATCH, sl, 3,
+             lambda lb: _time_attention(lb, BATCH, sl, True, gen, nh, D)),
+            (f"D={D} backbone B={BATCH} S={tl} no-bias", BATCH, tl, 3,
+             lambda lb: _time_attention(lb, BATCH, tl, False, gen, nh, D))],
+        "flash_attention_train_fwd": [
+            (f"D={D} trunk B={B} S={sl} mask", B, sl, 3,
+             lambda lb: _time_train_attention(lb, B, sl, True, gen, False, nh, D)),
+            (f"D={D} backbone B={B} S={tl} no-bias", B, tl, 3,
+             lambda lb: _time_train_attention(lb, B, tl, False, gen, False, nh, D))],
+        "flash_attention_train_bwd": [
+            (f"D={D} trunk B={B} S={sl} mask", B, sl, 7,
+             lambda lb: _time_train_attention(lb, B, sl, True, gen, True, nh, D))],
+    }
+    result = {}
+    for name, shapes in cases.items():
+        for i, (label, b, S, products, fn) in enumerate(shapes):
+            t = fn(label)
+            t["floor_ms"] = _attn_floor_ms(b, nh, S, D, products)
+            log(f"# time {name} {label} bf16 ({card}): {json.dumps(t)}")
+            if i == 0:
+                result[name] = t
+            else:
+                result[name]["max_abs_err"] = max(result[name]["max_abs_err"],
+                                                  t["max_abs_err"])
+    return result
+
+
+def phase_head_widths(card: str, params: dict) -> tuple:
+    """Phase 28: (a) the attention kernels at every head width of
+    HEAD_WIDTHS against their plain versions (the refused widths are
+    phase 26's), (b) STonKGs at BERT-base's widths with 6 heads of D=128
+    on phase 5's parameters: ``embed`` and phase 7's ``pretrain`` (B=32, 4
+    steps) and phase 8's numerics, (c) ``run_pretraining`` -> ``embed``
+    from 96-, 160-, 288- and 544-wide KG TSVs (D = 48, 80, 72, 68), (d)
+    times.  Returns (the launch counts of every counted run, summed; the
+    counts of the D=128 embed and step; per kernel, the worst bf16 error
+    of (a); per kernel, the D=128 shapes' times)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(28)
+    errs: dict = {}
+
+    def note(name, err, dtype):
+        if dtype == BF16:
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    _heads_attention(gen, note)
+    log(f"# head widths (a) kernels: {time.perf_counter() - t_phase:.1f} s")
+    cfg = _heads_cfg()
+    counts = _heads_serving(cfg, params)
+    train_counts, state = phase_training(cfg, params)
+    counts.update(train_counts)
+    del state
+    phase_train_numerics(cfg)
+    log(f"# head widths (b) D=128: {time.perf_counter() - t_phase:.1f} s")
+    total = dict(counts)
+    for hidden in HEAD_TSV_WIDTHS:
+        _widths_pretrain_files(hidden, total)
+    log(f"# head widths (c) the CLI's configs: {time.perf_counter() - t_phase:.1f} s")
+    times = _heads_times(cfg, card)
+    torch.cuda.empty_cache()
+    log(f"# head widths phase: {time.perf_counter() - t_phase:.1f} s")
+    return total, counts, errs, times
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -5991,12 +6227,16 @@ def main() -> int:
             counts[name] += c
         for name, c in phase_cli(card, params, pparams).items():
             counts[name] += c
-        del params, pparams
+        del pparams
         width_total, width_counts, width_errs, width_times = phase_widths(card)
         for name, c in width_total.items():
             counts[name] += c
         bb_total, bb_errs, bb_times = phase_bigbird_widths(card)
         for name, c in bb_total.items():
+            counts[name] += c
+        head_total, head_counts, head_errs, head_times = phase_head_widths(card, params)
+        del params
+        for name, c in head_total.items():
             counts[name] += c
         # the fine-tuning shapes' worst error goes into the kernel line
         for key, t in ft_times.items():
@@ -6049,6 +6289,16 @@ def main() -> int:
         kernels.append({"name": f"{name} D=32", "route": "cuda", "source": src,
                         "replaces": replaces, "launches": bb_total[name],
                         **{k: t[k] for k in keys}, "max_abs_err": err})
+    # the three attention kernels at 6 heads of D=128 (phase 28 (b)'s
+    # shapes): launches of its embed and step, the worst bf16 error of
+    # phase 28 at any head width
+    for name in HEAD_KERNELS:
+        src, replaces = sources[name]
+        t = head_times[name]
+        kernels.append({"name": f"{name} D=128", "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": head_counts[name],
+                        **{k: t[k] for k in keys},
+                        "max_abs_err": max(head_errs[name], t["max_abs_err"])})
     log(f"# card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

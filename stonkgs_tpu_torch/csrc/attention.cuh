@@ -1,7 +1,6 @@
 // Pieces shared by the attention kernels (flash_attention_infer.cu,
 // flash_attention_train.cu and bigbird_sparse.cu): 64-row tiles of the
-// (B, S, H, D) layout in shared memory (D = 16, 32 or 64; BigBird's
-// bodies take 64), the two per-warp tile products,
+// (B, S, H, D) layout in shared memory, the two per-warp tile products,
 // the dropout hash, and the fp32 forward kernel.  The bf16 attention
 // forward and backward and the bf16 BigBird pair are the Hopper kernels of
 // attention_sm90.cuh, attention_bwd_sm90.cuh and bigbird_sm90.cuh (wgmma
@@ -15,9 +14,12 @@
 //   score_tile: sw (16 x 64, fp32) = A_w (16 x D) . B^T, B a 64 x D tile;
 //   PvAcc:      acc (16 x D, fp32) += P_w (16 x 64) . V, V a 64 x D tile
 //               (lane owns columns lane, lane + 32, ... below D).
-// The head width is a template parameter (kD by default); with_head_dim
-// dispatches a run-time D to the instantiations the kernels take.
-
+// The tile width is a template parameter.  Two dispatches give it from a
+// run-time head width D: with_head_dim takes D = 16, 32 or 64 (BigBird's
+// domain), with_padded_head_dim any multiple of 8 from 8 to 128 (the
+// attention kernels'), run on the instance of the padded width P = 16, 32,
+// 64 or 128, the smallest at least D: the loads zero the columns from D
+// to P, which add nothing to a product, and the stores write columns < D.
 #pragma once
 
 #include <cmath>
@@ -29,7 +31,7 @@
 namespace stonkgs {
 namespace attn {
 
-constexpr int kD = 64;           // the widest head width (BigBird's only one)
+constexpr int kD = 64;           // BigBird's widest head width
 constexpr int kTile = 64;        // rows of a q, k, v or dO tile
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -51,6 +53,22 @@ inline int with_head_dim(int D, F&& f) {
   }
 }
 
+// the widest head width of the attention kernels
+constexpr int kMaxHeadDim = 128;
+
+// f(std::integral_constant<int, P>{}) for a head width D that is a multiple
+// of 8 from 8 to 128, P = 16, 32, 64 or 128 the smallest width at least D
+// (a row of D elements is then a multiple of 16 bytes, as TMA's strides and
+// the 16-byte loads need); cudaErrorInvalidValue for any other D
+template <typename F>
+inline int with_padded_head_dim(int D, F&& f) {
+  if (D < 8 || D > kMaxHeadDim || D % 8 != 0) return int(cudaErrorInvalidValue);
+  if (D <= 16) return f(std::integral_constant<int, 16>{});
+  if (D <= 32) return f(std::integral_constant<int, 32>{});
+  if (D <= 64) return f(std::integral_constant<int, 64>{});
+  return f(std::integral_constant<int, 128>{});
+}
+
 template <typename T, int D = kD> struct Sizes {
   static constexpr int TS = D + Pad<T>::value;  // row stride of a q, k, v or dO tile in T
   // row stride of a warp's 16 x 64 probability (or dS) tile in T: 64 keys
@@ -59,19 +77,24 @@ template <typename T, int D = kD> struct Sizes {
   static constexpr size_t tile = align128(size_t(kTile) * TS * sizeof(T));
   // per-warp 16-row tiles: fp32 staging, and T operands
   static constexpr size_t stage = align128(size_t(kWarps) * 16 * kSST * sizeof(float));
+  // row stride of a warp's fp32 staging tile of 16 output rows (D columns,
+  // or a 64-key score row where D is narrower), and the block's such tiles
+  static constexpr int OS = (D > kTile ? D : kTile) + 4;
+  static constexpr size_t ostage = align128(size_t(kWarps) * 16 * OS * sizeof(float));
   static constexpr size_t wtile = align128(size_t(kWarps) * 16 * PS * sizeof(T));
   static constexpr size_t vec = align128(kTile * sizeof(float));
 };
 
 // 64 rows of D elements: global (row stride gs) -> shared (row stride TS);
-// rows >= n are zero.  16-byte vectors spread over the block.
+// rows >= n and columns >= d (a multiple of 16 bytes) are zero.  16-byte
+// vectors spread over the block.
 template <typename T, int D = kD>
-__device__ __forceinline__ void load_rows(T* s, const T* g, size_t gs, int n) {
+__device__ __forceinline__ void load_rows(T* s, const T* g, size_t gs, int n, int d = D) {
   constexpr int V = 16 / sizeof(T), VPR = D / V, TS = Sizes<T, D>::TS;
   for (int i = threadIdx.x; i < kTile * VPR; i += kThreads) {
     const int r = i / VPR, c = (i % VPR) * V;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n) val = *reinterpret_cast<const uint4*>(g + r * gs + c);
+    if (r < n && c < d) val = *reinterpret_cast<const uint4*>(g + r * gs + c);
     *reinterpret_cast<uint4*>(s + r * TS + c) = val;
   }
 }
@@ -107,7 +130,8 @@ __device__ __forceinline__ void score_tile(const T* aw, const T* bs, float* sw, 
 }
 
 // A warp's fp32 (16 x D) accumulator of P . V products; P is a 16 x 64
-// tile of row stride PS, V a 64 x D tile of row stride TS.
+// tile of row stride PS, V a 64 x D tile of row stride TS; store() writes
+// it to a staging tile of row stride OS.
 template <typename T, int D = kD> struct PvAcc;
 
 template <int D> struct PvAcc<float, D> {
@@ -140,19 +164,20 @@ template <int D> struct PvAcc<float, D> {
     for (int r = 0; r < 16; ++r)
 #pragma unroll
       for (int c = 0; c < kC; ++c)
-        if (lane + 32 * c < D) sw[r * kSST + lane + 32 * c] = o[r][c];
+        if (lane + 32 * c < D) sw[r * Sizes<T, D>::OS + lane + 32 * c] = o[r][c];
     __syncwarp();
   }
 };
 
 // Rows [r0, r0 + 16) of a (B, S, H, D) tensor from a warp's fp32 staging
-// tile, times `mul`, rounded to T; rows >= rows_left are not written.
+// tile (row stride OS), times `mul`, rounded to T; rows >= rows_left and
+// columns >= d are not written.
 template <typename T, int D = kD>
 __device__ __forceinline__ void store_rows(T* dst, size_t rs, const float* sw, int rows_left,
-                                           float mul, int lane) {
+                                           float mul, int lane, int d = D) {
   for (int e = lane; e < 16 * D; e += 32) {
     const int r = e / D, c = e % D;
-    if (r < rows_left) dst[r * rs + c] = from_f<T>(sw[r * kSST + c] * mul);
+    if (r < rows_left && c < d) dst[r * rs + c] = from_f<T>(sw[r * Sizes<T, D>::OS + c] * mul);
   }
 }
 
@@ -195,15 +220,16 @@ struct Dropout {
 // kTrain adds the training kernel's outputs and numerics: the fp32
 // logsumexp m + log(l) per row into lse (B, H, S), the dropout, and the
 // TPU kernel's padded keys (s_pad - S keys of score -1e9, which matter
-// only for a row whose every key is masked).
-template <int kD, bool kTrain>
+// only for a row whose every key is masked).  The tiles are kP wide (the
+// padded width); D <= kP is the tensors' head width.
+template <int kP, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ key_bias,
-                float* __restrict__ out, float* __restrict__ lse, int S, int H, float scale,
-                Dropout drop) {
+                float* __restrict__ out, float* __restrict__ lse, int S, int H, int D,
+                float scale, Dropout drop) {
   using T = float;
-  using Z = Sizes<T, kD>;
+  using Z = Sizes<T, kP>;
   constexpr int TS = Z::TS;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
 
@@ -212,27 +238,27 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   T* ks = reinterpret_cast<T*>(smem + Z::tile);
   T* vs = reinterpret_cast<T*>(smem + 2 * Z::tile);
   float* sst = reinterpret_cast<float*>(smem + 3 * Z::tile);
-  T* pst = reinterpret_cast<T*>(smem + 3 * Z::tile + Z::stage);
-  float* bs = reinterpret_cast<float*>(smem + 3 * Z::tile + Z::stage + Z::wtile);
+  T* pst = reinterpret_cast<T*>(smem + 3 * Z::tile + Z::ostage);
+  float* bs = reinterpret_cast<float*>(smem + 3 * Z::tile + Z::ostage + Z::wtile);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t rs = size_t(H) * kD;                   // stride between positions
-  const size_t head0 = (size_t(b) * S * H + h) * kD;  // (b, 0, h, 0)
+  const size_t rs = size_t(H) * D;                   // stride between positions
+  const size_t head0 = (size_t(b) * S * H + h) * D;  // (b, 0, h, 0)
   const T* kg = k + head0;
   const T* vg = v + head0;
   const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
   const T* qw = qs + warp * 16 * TS;   // the warp's 16 query rows
-  float* sw = sst + warp * 16 * kSST;  // the warp's fp32 score tile
+  float* sw = sst + warp * 16 * Z::OS;  // the warp's fp32 score (then output) tile
   T* pw = pst + warp * 16 * Z::PS;    // the warp's probability tile, in T
 
-  load_rows<T, kD>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
+  load_rows<T, kP>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0), D);
 
   // the key tile [k0, k0 + 64): K (and, in pass 2, V) rows and the bias
   auto load_keys = [&](int k0, bool with_v) {
     const int n = min(kTile, S - k0);
     __syncthreads();  // the previous tile is consumed
-    load_rows<T, kD>(ks, kg + size_t(k0) * rs, rs, n);
-    if (with_v) load_rows<T, kD>(vs, vg + size_t(k0) * rs, rs, n);
+    load_rows<T, kP>(ks, kg + size_t(k0) * rs, rs, n, D);
+    if (with_v) load_rows<T, kP>(vs, vg + size_t(k0) * rs, rs, n, D);
     load_vec(bs, kb ? kb + k0 : nullptr, n);
     __syncthreads();
     return n;
@@ -245,7 +271,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // pass 1: running max and sum of exp over all keys
   for (int k0 = 0; k0 < S; k0 += kTile) {
     const int n = load_keys(k0, false);
-    score_tile<T, kD>(qw, ks, sw, lane);
+    score_tile<T, kP>(qw, ks, sw, lane);
     float tmax = -INFINITY;
     for (int c = half; c < n; c += 2) tmax = fmaxf(tmax, sw[row * kSST + c] * scale + bs[c]);
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
@@ -269,11 +295,11 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // pass 2: O = P V with P = round_T(dropout(exp(s - m) / l))
   const uint32_t base = kTrain ? drop.row_base(b * H + h, qrow) : 0u;
-  PvAcc<T, kD> acc;
+  PvAcc<T, kP> acc;
   acc.zero();
   for (int k0 = 0; k0 < S; k0 += kTile) {
     const int n = load_keys(k0, true);
-    score_tile<T, kD>(qw, ks, sw, lane);
+    score_tile<T, kP>(qw, ks, sw, lane);
     for (int c = half; c < kTile; c += 2) {
       float p = c < n ? expf(sw[row * kSST + c] * scale + bs[c] - m) / l : 0.f;
       if constexpr (kTrain) {
@@ -286,16 +312,16 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();
   }
   acc.store(sw, lane);
-  store_rows<T, kD>(out + head0 + size_t(q0 + warp * 16) * rs, rs, sw, S - (q0 + warp * 16),
-                    1.f, lane);
+  store_rows<T, kP>(out + head0 + size_t(q0 + warp * 16) * rs, rs, sw, S - (q0 + warp * 16),
+                    1.f, lane, D);
 }
 
 // Shared memory of attn_fwd_kernel: q, k, v tiles, score staging,
 // probability tiles, bias tile.
-template <int kD>
+template <int kP>
 constexpr size_t fwd_smem_bytes() {
-  using Z = Sizes<float, kD>;
-  return 3 * Z::tile + Z::stage + Z::wtile + Z::vec;
+  using Z = Sizes<float, kP>;
+  return 3 * Z::tile + Z::ostage + Z::wtile + Z::vec;
 }
 
 template <bool kTrain>
@@ -303,16 +329,16 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, const float* key
                    void* out, float* lse, int B, int S, int H, int D, float scale, Dropout drop,
                    cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kDh = decltype(d)::value;
-    constexpr size_t smem = fwd_smem_bytes<kDh>();
-    cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<kDh, kTrain>,
+  return with_padded_head_dim(D, [&](auto p) {
+    constexpr int kP = decltype(p)::value;
+    constexpr size_t smem = fwd_smem_bytes<kP>();
+    cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<kP, kTrain>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
     const dim3 grid((S + kTile - 1) / kTile, H, B);
-    attn_fwd_kernel<kDh, kTrain><<<grid, kThreads, smem, stream>>>(
+    attn_fwd_kernel<kP, kTrain><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), key_bias, static_cast<float*>(out), lse, S, H, scale,
+        static_cast<const float*>(v), key_bias, static_cast<float*>(out), lse, S, H, D, scale,
         drop);
     return int(cudaGetLastError());
   });

@@ -8,8 +8,11 @@
 //   dQ = scale * round(dS) K,  dK = scale * round(dS)^T Q,
 //   dV = round(p * mr)^T dO,   db[b, key] = sum over heads and rows of dS
 //
-// over (B, S, H, D) bf16 q, k, v, dO and dq, dk, dv, D = 16, 32 or 64 (a
-// template parameter), with an optional (B, S) fp32 key bias.  Rounding points as the TPU kernel
+// over (B, S, H, D) bf16 q, k, v, dO and dq, dk, dv, D a multiple of 8 from
+// 8 to 128 run on the instance of its padded width P (attention_sm90.cuh:
+// tensor maps of dim 0 D and boxes P wide, zero columns past D, which add
+// nothing to S or dP~ and whose dQ, dK and dV columns are not stored), with
+// an optional (B, S) fp32 key bias.  Rounding points as the TPU kernel
 // (stonkgs_tpu/ops/flash_attention.py:131-178): dS rounded to bf16 before
 // the dQ and dK products, the dropped p rounded for dV, the scale applied
 // after the products; the dropout mask is the forward's hash of
@@ -24,33 +27,42 @@
 //
 // Each has the forward's shape (attention_sm90.cuh): 384 threads, a
 // producer warpgroup (setmaxnreg.dec) whose first warp streams 128-row
-// tiles of the other operand pair through a kStages-deep ring with TMA
-// (the forward's 4-D tensor maps over (B, S, H, D), the swizzle of a
-// 2D-byte row; TMA zero-fills rows >= S) and writes the tile's fp32 vectors beside
-// them, and two consumer warpgroups of 64 rows each.  The register split
+// tiles of the other operand pair through a ring with TMA
+// (the forward's 4-D tensor maps over (B, S, H, D), one box a column
+// block; TMA zero-fills rows >= S) and writes the tile's fp32 vectors beside
+// them, and two consumer warpgroups of 64 rows each.  The ring is 3 stages
+// deep, 2 at P = 128 (a stage's two 32 KB tiles beside the block's own two
+// leave no room for a third).  The register split
 // is 56 for the producer (its address arithmetic for the lse and delta
 // vectors spills at the forward's 40) and 224 for the consumers.  The
-// consumers take a stage in two halves of 64 rows: with the whole
-// 128-row tile, two 64-float score tiles, the accumulators and the
-// packed fragments (256 registers in dK/dV) spilled.
+// consumers take a stage in sub-steps of 64 rows (32 in dK/dV at P = 128):
+// with the whole 128-row tile, two 64-float score tiles, the accumulators
+// and the packed fragments (256 registers in dK/dV at P = 64) spilled.
+// At P = 128 the dK/dV kernel has one consumer warpgroup of 64 keys (256
+// threads, so 255 registers a thread): its dK and dV accumulators are 128
+// floats a thread, and beside the score tiles they spilled in a 384-thread
+// block (whose threads ptxas holds to 168 registers).
 // * attn_bwd_dq_sm90_kernel: a block per 128 query rows of one (b, h); Q
 //   and dO loaded once; K and V tiles stream with the keys' bias (-inf
 //   for keys >= S, which makes p = 0 there).  Per half, S = Q K^T and dP~
-//   = dO V^T by wgmma.m64n64k16 from shared memory (both K-major, D/16
+//   = dO V^T by wgmma.m64n64k16 from shared memory (both K-major, P/16
 //   k-steps), the element pass in registers, then dQ += dS K by
-//   wgmma.m64nDk16 with dS from registers (the packed accumulator is the A fragment) and the K
-//   rows MN-major (its keys are the product's k).
-// * attn_bwd_dkdv_sm90_kernel: a block per 128 keys of one (b, h); K and
-//   V loaded once; Q and dO tiles stream with the rows' lse (+inf for rows
+//   wgmma.m64nPk16 (two m64n64k16 at P = 128) with dS from registers (the
+//   packed accumulator is the A fragment) and the K rows MN-major (its keys
+//   are the product's k).
+// * attn_bwd_dkdv_sm90_kernel: a block per 128 keys of one (b, h) (64 at
+//   P = 128); K and V loaded once; Q and dO tiles stream with the rows' lse (+inf for rows
 //   >= S, which makes p = 0) and delta.  The transposed form: S^T = K Q^T
 //   and dP~^T = V dO^T (rows are keys, columns queries), then dV +=
 //   round(p*mr)^T dO and dK += round(dS)^T Q with dO and Q MN-major.  dK
-//   and dV stay in fp32 registers across all query tiles; db's row sums
-//   of the fp32 dS are kept per thread and summed across the quad that
-//   shares a key at the end.
+//   and dV stay in fp32 registers across all query tiles (P floats a
+//   thread: 128 at P = 128, hence the one consumer and the 32-query
+//   sub-steps there); db's row
+//   sums of the fp32 dS are kept per thread and summed across the quad
+//   that shares a key at the end.
 // The element pass packs each pair of results to bf16x2 as it goes; the
-// peak is two 32-float score tiles, their packed fragments and the
-// accumulators (D/2 floats in dQ, D in dK/dV).
+// peak is two score tiles, their packed fragments and the accumulators
+// (P/2 floats in dQ, P in dK/dV).
 //
 // Numerics against the plain version: products summed in another order;
 // p = exp2((S*scale + bias - lse) * log2 e) on the SFU (ex2.approx), a
@@ -66,34 +78,46 @@
 namespace stonkgs {
 namespace attn90 {
 
-constexpr int kHalf = 64;  // rows of a stage's half
+constexpr int kHalf = 64;  // rows of a stage's half in dQ
 
-template <int kD>
+// the backward's ring depth at padded width kP
+template <int kP> constexpr int kBwdRing = kP == 128 ? 2 : 3;
+// queries of a dK/dV sub-step at padded width kP
+template <int kP> constexpr int kKvSub = kP == 128 ? 32 : 64;
+// consumer warpgroups (64 keys each) of a dK/dV block at padded width kP
+template <int kP> constexpr int kKvConsumers = kP == 128 ? 1 : kConsumers;
+
+template <int kP>
 struct alignas(1024) SmemBwdQ {
-  bf16 q[kBM * kD];
-  bf16 dout[kBM * kD];
-  bf16 k[kStages][kBN * kD];
-  bf16 v[kStages][kBN * kD];
-  float bias[kStages][kBN];
-  uint64_t full[kStages];
-  uint64_t empty[kStages];
+  static constexpr int kRing = kBwdRing<kP>;
+  bf16 q[kBM * kP];
+  bf16 dout[kBM * kP];
+  bf16 k[kRing][kBN * kP];
+  bf16 v[kRing][kBN * kP];
+  float bias[kRing][kBN];
+  uint64_t full[kRing];
+  uint64_t empty[kRing];
   uint64_t rowbar;
 };
 
-template <int kD>
+template <int kP>
 struct alignas(1024) SmemBwdKV {
-  bf16 k[kBN * kD];
-  bf16 v[kBN * kD];
-  bf16 q[kStages][kBM * kD];
-  bf16 dout[kStages][kBM * kD];
-  float lse[kStages][kBM];
-  float delta[kStages][kBM];
-  uint64_t full[kStages];
-  uint64_t empty[kStages];
+  static constexpr int kRing = kBwdRing<kP>;
+  bf16 k[kBN * kP];
+  bf16 v[kBN * kP];
+  bf16 q[kRing][kBM * kP];
+  bf16 dout[kRing][kBM * kP];
+  float lse[kRing][kBM];
+  float delta[kRing][kBM];
+  uint64_t full[kRing];
+  uint64_t empty[kRing];
   uint64_t rowbar;
 };
+static_assert(sizeof(SmemBwdQ<128>) + 1024 <= kMaxSmem, "dQ's ring fits at P = 128");
+static_assert(sizeof(SmemBwdKV<128>) + 1024 <= kMaxSmem, "dK/dV's ring fits at P = 128");
+static_assert(sizeof(SmemBwdKV<64>) + 1024 <= kMaxSmem, "dK/dV's ring fits at P = 64");
 
-template <int kD>
+template <int kP>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -101,11 +125,13 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_do,
                         const float* __restrict__ key_bias, const float* __restrict__ lse,
                         const float* __restrict__ delta, bf16* __restrict__ dq, int S, int H,
-                        float scale, Dropout drop) {
-  constexpr int kLine = 2 * kD;  // bytes of a row: the swizzle's width
-  constexpr uint32_t kTile = kTileBytes<kD>;
+                        int D, float scale, Dropout drop) {
+  using W = Width<kP>;
+  using SmemT = SmemBwdQ<kP>;
+  constexpr int kRing = SmemT::kRing;
+  constexpr uint32_t kTile = W::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
-  SmemBwdQ<kD>& sm = aligned_smem<SmemBwdQ<kD>>(smem_raw);
+  SmemT& sm = aligned_smem<SmemT>(smem_raw);
   const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (S + kBN - 1) / kBN;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -117,13 +143,13 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     if (warp == 0) {
       if (lane == 0) {
         mbar_arrive_tx(&sm.rowbar, 2 * kTile);
-        tma_load_4d(sm.q, &map_q, 0, h, q0, b, &sm.rowbar);
-        tma_load_4d(sm.dout, &map_do, 0, h, q0, b, &sm.rowbar);
+        W::load(sm.q, &map_q, h, q0, b, &sm.rowbar);
+        W::load(sm.dout, &map_do, h, q0, b, &sm.rowbar);
       }
       const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
       for (int it = 0; it < n_tiles; ++it) {
-        const int stage = it % kStages, k0 = it * kBN;
-        mbar_wait(&sm.empty[stage], ((it / kStages) & 1) ^ 1);
+        const int stage = it % kRing, k0 = it * kBN;
+        mbar_wait(&sm.empty[stage], ((it / kRing) & 1) ^ 1);
 #pragma unroll
         for (int t = 0; t < kBN / 32; ++t) {
           const int key = k0 + t * 32 + lane;
@@ -131,8 +157,8 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         }
         if (lane == 0) {
           mbar_arrive_tx(&sm.full[stage], 2 * kTile);
-          tma_load_4d(sm.k[stage], &map_k, 0, h, k0, b, &sm.full[stage]);
-          tma_load_4d(sm.v[stage], &map_v, 0, h, k0, b, &sm.full[stage]);
+          W::load(sm.k[stage], &map_k, h, k0, b, &sm.full[stage]);
+          W::load(sm.v[stage], &map_v, h, k0, b, &sm.full[stage]);
         } else {
           mbar_arrive(&sm.full[stage]);
         }
@@ -152,30 +178,32 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       delta_r[r] = row < S ? delta[stat0 + row] : 0.f;
       base[r] = drop.row_base(b * H + h, row);
     }
-    const uint64_t dqd = desc_sw<kLine>(sm.q + wg * 64 * kD);
-    const uint64_t dod = desc_sw<kLine>(sm.dout + wg * 64 * kD);
-    float acc[kD / 2];
+    const uint64_t dqd = desc_sw<W::kLine>(sm.q + wg * 64 * W::kCB);
+    const uint64_t dod = desc_sw<W::kLine>(sm.dout + wg * 64 * W::kCB);
+    float acc[kP / 2];
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kP / 2; ++i) acc[i] = 0.f;
 
     mbar_wait(&sm.rowbar, 0);
     for (int j = 0; j < n_tiles; ++j) {
-      const int stage = j % kStages;
-      mbar_wait(&sm.full[stage], (j / kStages) & 1);
+      const int stage = j % kRing;
+      mbar_wait(&sm.full[stage], (j / kRing) & 1);
 #pragma unroll 1
       for (int half = 0; half < kBN / kHalf; ++half) {
         // S = Q K^T and dP~ = dO V^T over the half's 64 keys
         const int c0 = half * kHalf, k0 = j * kBN + c0;
-        const uint64_t dk = desc_sw<kLine>(sm.k[stage] + c0 * kD);
-        const uint64_t dv = desc_sw<kLine>(sm.v[stage] + c0 * kD);
+        const uint64_t dk = desc_sw<W::kLine>(sm.k[stage] + c0 * W::kCB);
+        const uint64_t dv = desc_sw<W::kLine>(sm.v[stage] + c0 * W::kCB);
         float s[32], dp[32];
         fence_regs(s);
         fence_regs(dp);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk64(s, dqd + 2 * kk, dk + 2 * kk, kk);
+        for (int kk = 0; kk < kP / 16; ++kk)
+          wgmma_qk64(s, W::kstep(dqd, kk), W::kstep(dk, kk), kk);
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk64(dp, dod + 2 * kk, dv + 2 * kk, kk);
+        for (int kk = 0; kk < kP / 16; ++kk)
+          wgmma_qk64(dp, W::kstep(dod, kk), W::kstep(dv, kk), kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
@@ -203,49 +231,54 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kHalf / 16; ++kk)
-          wgmma_pv(acc, pa + 4 * kk, dk + kk * kLine);  // 16 keys = 16 lines = kLine units
+          W::mma_rows(acc, pa + 4 * kk, dk + kk * W::kLine);  // 16 keys = 16 lines = kLine units
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
       }
       release_stage(&sm.empty[stage], lane);
     }
-    store_rows_sm90<kD>(dq + (size_t(b) * S * H + h) * kD, acc, row0, S, H, scale, lane);
+    store_rows_sm90<kP>(dq + (size_t(b) * S * H + h) * D, acc, row0, S, H, D, scale, lane);
   }
 }
 
-template <int kD>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int kP>
+__global__ void __launch_bounds__(128 * (kKvConsumers<kP> + 1), 1)
 attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           const __grid_constant__ CUtensorMap map_do,
                           const float* __restrict__ key_bias, const float* __restrict__ lse,
                           const float* __restrict__ delta, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, float* __restrict__ db, int S, int H,
+                          bf16* __restrict__ dv, float* __restrict__ db, int S, int H, int D,
                           float scale, Dropout drop) {
-  constexpr int kLine = 2 * kD;  // bytes of a row: the swizzle's width
-  constexpr uint32_t kTile = kTileBytes<kD>;
+  using W = Width<kP>;
+  using SmemT = SmemBwdKV<kP>;
+  constexpr int kRing = SmemT::kRing;
+  constexpr int kSub = kKvSub<kP>;  // queries of a sub-step
+  constexpr int NC = kKvConsumers<kP>;
+  constexpr uint32_t kTile = W::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
-  SmemBwdKV<kD>& sm = aligned_smem<SmemBwdKV<kD>>(smem_raw);
-  const int k0 = blockIdx.x * kBN, h = blockIdx.y, b = blockIdx.z;
+  SmemT& sm = aligned_smem<SmemT>(smem_raw);
+  // the block's 64 * NC keys (its K and V tiles are 128 rows all the same)
+  const int k0 = blockIdx.x * 64 * NC, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (S + kBM - 1) / kBM;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const size_t stat0 = (size_t(b) * H + h) * S;
-  init_ring(sm);
+  init_ring<NC>(sm);
 
-  if (wg == kConsumers) {
+  if (wg == NC) {
     // ---------------- producer ----------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if constexpr (NC == kConsumers) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     if (warp == 0) {
       if (lane == 0) {
         mbar_arrive_tx(&sm.rowbar, 2 * kTile);
-        tma_load_4d(sm.k, &map_k, 0, h, k0, b, &sm.rowbar);
-        tma_load_4d(sm.v, &map_v, 0, h, k0, b, &sm.rowbar);
+        W::load(sm.k, &map_k, h, k0, b, &sm.rowbar);
+        W::load(sm.v, &map_v, h, k0, b, &sm.rowbar);
       }
       for (int it = 0; it < n_tiles; ++it) {
-        const int stage = it % kStages, q0 = it * kBM;
-        mbar_wait(&sm.empty[stage], ((it / kStages) & 1) ^ 1);
+        const int stage = it % kRing, q0 = it * kBM;
+        mbar_wait(&sm.empty[stage], ((it / kRing) & 1) ^ 1);
 #pragma unroll
         for (int t = 0; t < kBM / 32; ++t) {
           const int row = q0 + t * 32 + lane;
@@ -254,8 +287,8 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         }
         if (lane == 0) {
           mbar_arrive_tx(&sm.full[stage], 2 * kTile);
-          tma_load_4d(sm.q[stage], &map_q, 0, h, q0, b, &sm.full[stage]);
-          tma_load_4d(sm.dout[stage], &map_do, 0, h, q0, b, &sm.full[stage]);
+          W::load(sm.q[stage], &map_q, h, q0, b, &sm.full[stage]);
+          W::load(sm.dout[stage], &map_do, h, q0, b, &sm.full[stage]);
         } else {
           mbar_arrive(&sm.full[stage]);
         }
@@ -263,7 +296,7 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---------------- consumers ----------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    if constexpr (NC == kConsumers) asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
     const int key0 = k0 + wg * 64 + warp * 16 + lane / 4;  // the thread's keys: key0, key0 + 8
     const int bh = b * H + h;
     float bias_r[2];
@@ -272,35 +305,36 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const int key = key0 + 8 * r;
       bias_r[r] = key < S ? (key_bias ? key_bias[size_t(b) * S + key] : 0.f) : -INFINITY;
     }
-    const uint64_t dkd = desc_sw<kLine>(sm.k + wg * 64 * kD);
-    const uint64_t dvd = desc_sw<kLine>(sm.v + wg * 64 * kD);
-    float dk_acc[kD / 2], dv_acc[kD / 2], db_acc[2] = {0.f, 0.f};
+    const uint64_t dkd = desc_sw<W::kLine>(sm.k + wg * 64 * W::kCB);
+    const uint64_t dvd = desc_sw<W::kLine>(sm.v + wg * 64 * W::kCB);
+    float dk_acc[kP / 2], dv_acc[kP / 2], db_acc[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < kP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     mbar_wait(&sm.rowbar, 0);
     for (int j = 0; j < n_tiles; ++j) {
-      const int stage = j % kStages;
-      mbar_wait(&sm.full[stage], (j / kStages) & 1);
+      const int stage = j % kRing;
+      mbar_wait(&sm.full[stage], (j / kRing) & 1);
 #pragma unroll 1
-      for (int half = 0; half < kBM / kHalf; ++half) {
-        // S^T = K Q^T over the half's 64 queries (rows keys, columns queries)
-        const int c0 = half * kHalf, q0 = j * kBM + c0;
-        const uint64_t dq = desc_sw<kLine>(sm.q[stage] + c0 * kD);
-        const uint64_t ddo = desc_sw<kLine>(sm.dout[stage] + c0 * kD);
-        float s[32], dp[32];
+      for (int sub = 0; sub < kBM / kSub; ++sub) {
+        // S^T = K Q^T over the sub-step's queries (rows keys, columns queries)
+        const int c0 = sub * kSub, q0 = j * kBM + c0;
+        const uint64_t dq = desc_sw<W::kLine>(sm.q[stage] + c0 * W::kCB);
+        const uint64_t ddo = desc_sw<W::kLine>(sm.dout[stage] + c0 * W::kCB);
+        float s[kSub / 2], dp[kSub / 2];
         fence_regs(s);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk64(s, dkd + 2 * kk, dq + 2 * kk, kk);
+        for (int kk = 0; kk < kP / 16; ++kk)
+          wgmma_ss<kSub / 2, 0, 0>(s, W::kstep(dkd, kk), W::kstep(dq, kk), kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
         // p in place of S, the keep bits, round(p*mr) packed to bf16 pairs
         const float* ls = sm.lse[stage] + c0;
-        uint32_t kept = 0xFFFFFFFFu, pa[16];
+        uint32_t kept = 0xFFFFFFFFu, pa[kSub / 4];
 #pragma unroll
-        for (int t = 0; t < 16; ++t) {
+        for (int t = 0; t < kSub / 4; ++t) {
           const int i = 2 * t, r = acc_row(i), c = acc_col(i, lane);
           const float2 lv = *reinterpret_cast<const float2*>(ls + c);
           float pd[2];
@@ -320,25 +354,26 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
           }
           pa[t] = pack_bf16(pd[0], pd[1]);
         }
-        // dV += round(p*mr)^T dO (dO MN-major, the half's 64 queries the k of
-        // 4 steps) and dP~^T = V dO^T, one group
+        // dV += round(p*mr)^T dO (dO MN-major, the sub-step's queries the k
+        // of kSub/16 steps) and dP~^T = V dO^T, one group
         fence_regs(dv_acc);
         fence_regs(dp);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kHalf / 16; ++kk)
-          wgmma_pv(dv_acc, pa + 4 * kk, ddo + kk * kLine);
+        for (int kk = 0; kk < kSub / 16; ++kk)
+          W::mma_rows(dv_acc, pa + 4 * kk, ddo + kk * W::kLine);
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk64(dp, dvd + 2 * kk, ddo + 2 * kk, kk);
+        for (int kk = 0; kk < kP / 16; ++kk)
+          wgmma_ss<kSub / 2, 0, 0>(dp, W::kstep(dvd, kk), W::kstep(ddo, kk), kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv_acc);
         fence_regs(dp);
         // dS = p (dP~ * mr - delta) packed to bf16 pairs; db's fp32 row sums
         const float* dl = sm.delta[stage] + c0;
-        uint32_t pb[16];
+        uint32_t pb[kSub / 4];
 #pragma unroll
-        for (int t = 0; t < 16; ++t) {
+        for (int t = 0; t < kSub / 4; ++t) {
           const int i = 2 * t, r = acc_row(i), c = acc_col(i, lane);
           const float2 dlv = *reinterpret_cast<const float2*>(dl + c);
           float ds[2];
@@ -355,17 +390,17 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(dk_acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kHalf / 16; ++kk)
-          wgmma_pv(dk_acc, pb + 4 * kk, dq + kk * kLine);
+        for (int kk = 0; kk < kSub / 16; ++kk)
+          W::mma_rows(dk_acc, pb + 4 * kk, dq + kk * W::kLine);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dk_acc);
       }
       release_stage(&sm.empty[stage], lane);
     }
-    const size_t head0 = (size_t(b) * S * H + h) * kD;
-    store_rows_sm90<kD>(dv + head0, dv_acc, key0, S, H, 1.f, lane);
-    store_rows_sm90<kD>(dk + head0, dk_acc, key0, S, H, scale, lane);
+    const size_t head0 = (size_t(b) * S * H + h) * D;
+    store_rows_sm90<kP>(dv + head0, dv_acc, key0, S, H, D, 1.f, lane);
+    store_rows_sm90<kP>(dk + head0, dk_acc, key0, S, H, D, scale, lane);
     if (db) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -385,33 +420,33 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
-inline int launch_bwd_sm90(const void* q, const void* k, const void* v, const float* key_bias,
-                           const float* lse, const void* dout, const float* delta, void* dq,
-                           void* dk, void* dv, float* db, int B, int S, int H, int D,
-                           float scale, Dropout drop, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kDh = decltype(d)::value;
-    CUtensorMap mq, mk, mv, mdo;
-    if (!make_map(&mq, q, B, S, H, kDh) || !make_map(&mk, k, B, S, H, kDh) ||
-        !make_map(&mv, v, B, S, H, kDh) || !make_map(&mdo, dout, B, S, H, kDh))
-      return kErrTensorMap;
-    constexpr size_t smem_q = sizeof(SmemBwdQ<kDh>) + 1024;
-    constexpr size_t smem_kv = sizeof(SmemBwdKV<kDh>) + 1024;
-    cudaError_t e = set_smem(attn_bwd_dq_sm90_kernel<kDh>, smem_q);
-    if (e != cudaSuccess) return int(e);
-    e = set_smem(attn_bwd_dkdv_sm90_kernel<kDh>, smem_kv);
-    if (e != cudaSuccess) return int(e);
-    const dim3 grid((S + kBM - 1) / kBM, H, B);
-    attn_bwd_dq_sm90_kernel<kDh><<<grid, kThreads, smem_q, stream>>>(
-        mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dq), S, H, scale, drop);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return int(e);
-    attn_bwd_dkdv_sm90_kernel<kDh><<<grid, kThreads, smem_kv, stream>>>(
-        mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        db, S, H, scale, drop);
-    return int(cudaGetLastError());
-  });
+// the dQ and dK/dV kernels at padded width kP (D <= kP)
+template <int kP>
+int launch_bwd_sm90(const void* q, const void* k, const void* v, const float* key_bias,
+                    const float* lse, const void* dout, const float* delta, void* dq, void* dk,
+                    void* dv, float* db, int B, int S, int H, int D, float scale, Dropout drop,
+                    cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map<kP>(&mq, q, B, S, H, D) || !make_map<kP>(&mk, k, B, S, H, D) ||
+      !make_map<kP>(&mv, v, B, S, H, D) || !make_map<kP>(&mdo, dout, B, S, H, D))
+    return kErrTensorMap;
+  constexpr size_t smem_q = sizeof(SmemBwdQ<kP>) + 1024;
+  constexpr size_t smem_kv = sizeof(SmemBwdKV<kP>) + 1024;
+  cudaError_t e = set_smem(attn_bwd_dq_sm90_kernel<kP>, smem_q);
+  if (e != cudaSuccess) return int(e);
+  e = set_smem(attn_bwd_dkdv_sm90_kernel<kP>, smem_kv);
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid((S + kBM - 1) / kBM, H, B);
+  attn_bwd_dq_sm90_kernel<kP><<<grid, kThreads, smem_q, stream>>>(
+      mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dq), S, H, D, scale, drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  constexpr int kKeys = 64 * kKvConsumers<kP>;  // keys of a dK/dV block
+  const dim3 grid_kv((S + kKeys - 1) / kKeys, H, B);
+  attn_bwd_dkdv_sm90_kernel<kP><<<grid_kv, 128 * (kKvConsumers<kP> + 1), smem_kv, stream>>>(
+      mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      db, S, H, D, scale, drop);
+  return int(cudaGetLastError());
 }
 
 }  // namespace attn90

@@ -4,9 +4,9 @@
 //
 //   out = dropout(softmax(Q K^T * scale + key_bias)) V
 //
-// over (B, S, H, D) bf16 q, k, v and out, D = 16, 32 or 64 (a template
-// parameter), with an optional (B, S) fp32 key bias; training also writes
-// the fp32 logsumexp (B, H, S).
+// over (B, S, H, D) bf16 q, k, v and out, D a multiple of 8 from 8 to 128,
+// with an optional (B, S) fp32 key bias; training also writes the fp32
+// logsumexp (B, H, S).
 //
 // Two passes over the keys, because the TPU kernels normalise the
 // probabilities, drop them and only then round them to bf16 before P V
@@ -20,26 +20,40 @@
 // 6*B*H*S^2*D flops) and two exps a score (one per pass).  At D=64 one
 // exp a score already costs the SFU (16 ex2 a clock an SM) about as much
 // time as the two products of one pass cost the tensor cores: the kernel
-// is bound by the SFU and the tensor cores together, above the bytes.
+// is bound by the SFU and the tensor cores together, above the bytes.  At
+// D=128 the products double and the exps a product halve: the tensor
+// cores bound it.
+//
+// Head widths: the kernel is instantiated at the padded widths P = 16, 32,
+// 64 and 128 (a template parameter), and a head width D runs on the
+// smallest P >= D.  The tensor maps' dim 0 is D itself and their boxes P
+// wide (Width<P>), so TMA zero-fills the columns from D to P: they add
+// nothing to Q K^T, and the columns of O past D are computed on zeros and
+// not stored.  A row of P bf16 is stored as P/64 column blocks of 64 (at P
+// = 128) or one block of P, each block a line of at most 128 bytes with the
+// swizzle of its width (TMA's and wgmma's widest is 128 bytes): a 128-row
+// tile is its column blocks one after the other, each 128 lines.
 //
 // Design (one block per 128 query rows of one (b, h); 384 threads):
 // * warpgroup 2, the producer (setmaxnreg.dec): one warp streams the key
 //   tiles through a ring of kStages stages with full/empty mbarriers; its
 //   lane 0 issues TMA loads (one 4-D tensor map per tensor, dims (D, H, S,
-//   B), box (D, 1, 128, 1), the swizzle of a row's width: a row of D bf16
-//   is one line of 2D = 128, 64 or 32 bytes, and the wgmma descriptors
-//   take the same swizzle), and its 32 lanes write the tile's 128 key biases into
-//   the stage (-inf for keys >= S, which masks them; TMA zero-fills the
-//   ragged last tile's rows).  Pass 1 streams K tiles, pass 2 K and V
-//   tiles, through the same ring.  Q (128 x D) is loaded once.  The
-//   tiles shrink with D (16 KB at 64, 4 KB at 16); the ring keeps its 3
-//   stages at every D.
+//   B), box (P or 64, 1, 128, 1): one load a column block), and its 32
+//   lanes write the tile's 128 key biases into the stage (-inf for keys
+//   >= S, which masks them; TMA zero-fills the ragged last tile's rows).
+//   Pass 1 streams K tiles, pass 2 K and V tiles, through the same ring.
+//   Q (128 x P) is loaded once.  The tiles shrink with P (16 KB at 64, 4
+//   KB at 16, 32 KB at 128); the ring keeps its 3 stages at every P (at
+//   128 they fill the 227 KB a block may take).
 // * warpgroups 0 and 1, the consumers (setmaxnreg.inc), own 64 rows each,
 //   the wgmma M.  S = Q K^T is wgmma.m64n128k16 (A = Q and B = the K tile
-//   from shared memory, both K-major, D/16 k-steps).  O += P V is
-//   wgmma.m64nDk16 with A = P from registers: the fp32 S accumulator,
+//   from shared memory, both K-major, P/16 k-steps, the steps past 64
+//   columns in the second column block).  O += P V is wgmma.m64nPk16
+//   with A = P from registers: the fp32 S accumulator,
 //   packed to bf16 pairs, is already in the A-fragment layout; B = the V
-//   tile, MN-major (the transpose bit), 8 k-steps over the 128 keys.
+//   tile, MN-major (the transpose bit), 8 k-steps over the 128 keys (at P
+//   = 128 two m64n64k16 products a k-step, one a column block, into the
+//   two halves of the accumulator).
 //   S and P never touch shared memory.  The softmax runs in registers:
 //   a thread owns 2 rows x 32 columns of the 64 x 128 accumulator, and a
 //   row's max and sum take two shuffles across the 4 lanes that share it.
@@ -49,7 +63,8 @@
 //   measured slower, because ptxas serialised the wgmma in flight across
 //   the loop's branches (C7515, C7518) or spilled under the 168-register
 //   cap of a 384-thread block (PERF.md, the attention forward redesign).
-// * O is written from registers with 4-byte stores, rows >= S skipped.
+// * O is written from registers with 4-byte stores, rows >= S and columns
+//   >= D skipped.
 //
 // Numerics against the plain version (and the SIMT fp32 body of
 // attention.cuh): the products accumulate in another order, each
@@ -76,41 +91,84 @@ namespace attn90 {
 using namespace sm90;
 using attn::Dropout;
 using attn::kNegBias;
-using attn::with_head_dim;
+using attn::with_padded_head_dim;
 
 constexpr int kBM = 128;                  // query rows of a block
 constexpr int kBN = 128;                  // keys of a tile
-constexpr int kStages = 3;                // ring depth
+constexpr int kStages = 3;                // the forward's ring depth
 constexpr int kConsumers = 2;             // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kMaxSmem = 232448;       // shared memory a block may take
 
-// one 128 x D bf16 tile, in bytes
-template <int kD> constexpr uint32_t kTileBytes = kBN * kD * 2;
+// The layout of a 128-row tile at padded width kP: kNB column blocks of
+// kCB columns, each 128 lines of kLine bytes with that swizzle, one after
+// the other.  Descriptors step by kBlock units from one column block to
+// the next.
+template <int kP>
+struct Width {
+  static constexpr int kCB = kP < 64 ? kP : 64;   // columns of a block
+  static constexpr int kNB = kP / kCB;            // column blocks
+  static constexpr int kLine = 2 * kCB;           // bytes of a line: the swizzle's width
+  static constexpr int kSteps = kCB / 16;         // k16 steps in a block
+  static constexpr uint64_t kBlock = uint64_t(kBN) * kLine / 16;
+  static constexpr uint32_t kTileBytes = kBN * kP * 2;
+
+  // the descriptor of k-step kk (columns 16kk .. 16kk + 15) of a K-major
+  // operand whose first column block has descriptor d0
+  static __device__ __forceinline__ uint64_t kstep(uint64_t d0, int kk) {
+    return d0 + uint64_t(kk / kSteps) * kBlock + 2 * (kk % kSteps);
+  }
+
+  // d (64 x kP, fp32) += A (64 x 16 bf16, registers) . B (16 x kP,
+  // MN-major): B's first column block has descriptor db, the others follow
+  static __device__ __forceinline__ void mma_rows(float (&d)[kP / 2], const uint32_t* a,
+                                                  uint64_t db) {
+    if constexpr (kNB == 1) {
+      wgmma_pv(d, a, db);
+    } else {
+      static_assert(kNB == 2, "two column blocks at most");
+      wgmma_pv_at<0>(d, a, db);
+      wgmma_pv_at<32>(d, a, db + kBlock);
+    }
+  }
+
+  // TMA: a 128-row tile at rows (row0, h, b) of `map` into `dst`, one box a
+  // column block, completing on `bar`
+  static __device__ __forceinline__ void load(bf16* dst, const CUtensorMap* map, int h, int row0,
+                                              int b, uint64_t* bar) {
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+      tma_load_4d(dst + nb * kBN * kCB, map, nb * kCB, h, row0, b, bar);
+  }
+};
 
 // Shared memory, 1024-byte aligned tiles (aligned_smem).
-template <int kD>
+template <int kP>
 struct alignas(1024) Smem {
-  bf16 q[kBM * kD];
-  bf16 k[kStages][kBN * kD];
-  bf16 v[kStages][kBN * kD];
-  float bias[kStages][kBN];
-  uint64_t full[kStages];
-  uint64_t empty[kStages];
+  static constexpr int kRing = kStages;
+  bf16 q[kBM * kP];
+  bf16 k[kRing][kBN * kP];
+  bf16 v[kRing][kBN * kP];
+  float bias[kRing][kBN];
+  uint64_t full[kRing];
+  uint64_t empty[kRing];
   uint64_t rowbar;  // the block's own tile (Q)
 };
-template <int kD>
-constexpr size_t kSmemBytes = sizeof(Smem<kD>) + 1024;  // + alignment slack
+template <int kP>
+constexpr size_t kSmemBytes = sizeof(Smem<kP>) + 1024;  // + alignment slack
+static_assert(kSmemBytes<128> <= kMaxSmem, "the forward's ring fits at P = 128");
 
 // the barriers of a ring whose stages the producer warp's 32 lanes fill
-// (lane 0 with the TMA bytes) and each consumer warp empties, and rowbar
-// for the block's own tiles; shared by the forward and the backward
-template <typename SmemT>
+// (lane 0 with the TMA bytes) and each warp of the NC consumer warpgroups
+// empties, and rowbar for the block's own tiles; shared by the forward
+// and the backward
+template <int NC = kConsumers, typename SmemT>
 __device__ __forceinline__ void init_ring(SmemT& sm) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < SmemT::kRing; ++s) {
       mbar_init(&sm.full[s], 32);
-      mbar_init(&sm.empty[s], 4 * kConsumers);
+      mbar_init(&sm.empty[s], 4 * NC);
     }
     mbar_init(&sm.rowbar, 1);
     mbar_fence_init();
@@ -118,37 +176,41 @@ __device__ __forceinline__ void init_ring(SmemT& sm) {
   __syncthreads();
 }
 
-// a warpgroup's 64 x D fp32 accumulator times `scale`, rounded, into rows
-// row0 and row0 + 8 (< S) of a (B, S, H, D) tensor whose (b, 0, h, 0) is
-// `base`: bf16 pairs straight from the accumulator
-template <int kD>
-__device__ __forceinline__ void store_rows_sm90(bf16* base, const float (&d)[kD / 2], int row0,
-                                                int S, int H, float scale, int lane) {
+// a warpgroup's 64 x kP fp32 accumulator times `scale`, rounded, into rows
+// row0 and row0 + 8 (< S), columns < D, of a (B, S, H, D) tensor whose
+// (b, 0, h, 0) is `base`: bf16 pairs straight from the accumulator
+template <int kP>
+__device__ __forceinline__ void store_rows_sm90(bf16* base, const float (&d)[kP / 2], int row0,
+                                                int S, int H, int D, float scale, int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= S) continue;
-    bf16* dst = base + size_t(row) * H * kD;
+    bf16* dst = base + size_t(row) * H * D;
 #pragma unroll
-    for (int i = 2 * r; i < kD / 2; i += 4)
-      *reinterpret_cast<uint32_t*>(dst + acc_col(i, lane)) =
-          pack_bf16(d[i] * scale, d[i + 1] * scale);
+    for (int i = 2 * r; i < kP / 2; i += 4) {
+      const int col = acc_col(i, lane);  // even; D is a multiple of 8
+      if (col < D)
+        *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(d[i] * scale, d[i + 1] * scale);
+    }
   }
 }
 
 // --- the kernel -------------------------------------------------------------
 
-template <int kD, bool kTrain>
+template <int kP, bool kTrain>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      const float* __restrict__ key_bias, bf16* __restrict__ out,
-                     float* __restrict__ lse, int S, int H, float scale, Dropout drop) {
-  constexpr int kLine = 2 * kD;           // bytes of a row: the swizzle's width
-  constexpr uint32_t kTile = kTileBytes<kD>;
+                     float* __restrict__ lse, int S, int H, int D, float scale, Dropout drop) {
+  using W = Width<kP>;
+  using SmemT = Smem<kP>;
+  constexpr int kRing = SmemT::kRing;
+  constexpr uint32_t kTile = W::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
-  Smem<kD>& sm = aligned_smem<Smem<kD>>(smem_raw);
+  SmemT& sm = aligned_smem<SmemT>(smem_raw);
   const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (S + kBN - 1) / kBN;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -159,15 +221,15 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (warp == 0) {
       if (lane == 0) {
-        mbar_arrive_tx(&sm.rowbar, kBM * kD * 2);
-        tma_load_4d(sm.q, &map_q, 0, h, q0, b, &sm.rowbar);
+        mbar_arrive_tx(&sm.rowbar, kTile);
+        W::load(sm.q, &map_q, h, q0, b, &sm.rowbar);
       }
       const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
       for (int it = 0; it < 2 * n_tiles; ++it) {
-        const int stage = it % kStages;
+        const int stage = it % kRing;
         const bool pass2 = it >= n_tiles;
         const int k0 = (pass2 ? it - n_tiles : it) * kBN;
-        mbar_wait(&sm.empty[stage], ((it / kStages) & 1) ^ 1);
+        mbar_wait(&sm.empty[stage], ((it / kRing) & 1) ^ 1);
 #pragma unroll
         for (int t = 0; t < kBN / 32; ++t) {
           const int key = k0 + t * 32 + lane;
@@ -176,8 +238,8 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         }
         if (lane == 0) {
           mbar_arrive_tx(&sm.full[stage], pass2 ? 2 * kTile : kTile);
-          tma_load_4d(sm.k[stage], &map_k, 0, h, k0, b, &sm.full[stage]);
-          if (pass2) tma_load_4d(sm.v[stage], &map_v, 0, h, k0, b, &sm.full[stage]);
+          W::load(sm.k[stage], &map_k, h, k0, b, &sm.full[stage]);
+          if (pass2) W::load(sm.v[stage], &map_v, h, k0, b, &sm.full[stage]);
         } else {
           mbar_arrive(&sm.full[stage]);
         }
@@ -187,17 +249,17 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---------------- consumers ----------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // the thread's rows: row0, row0 + 8
-    const uint64_t dq = desc_sw<kLine>(sm.q + wg * 64 * kD);
+    const uint64_t dq = desc_sw<W::kLine>(sm.q + wg * 64 * W::kCB);
     float acc[64];
 
     // S = Q K^T of the tile in `stage`, then s = S*scale + bias in place
     auto scores = [&](int stage) {
-      const uint64_t dk = desc_sw<kLine>(sm.k[stage]);
+      const uint64_t dk = desc_sw<W::kLine>(sm.k[stage]);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)  // 16 bf16 = 32 bytes = 2 descriptor units
-        wgmma_qk(acc, dq + 2 * kk, dk + 2 * kk, kk);
+      for (int kk = 0; kk < kP / 16; ++kk)
+        wgmma_qk(acc, W::kstep(dq, kk), W::kstep(dk, kk), kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -216,8 +278,8 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     // summed across the quad at the end
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     for (int it = 0; it < n_tiles; ++it) {
-      const int stage = it % kStages;
-      mbar_wait(&sm.full[stage], (it / kStages) & 1);
+      const int stage = it % kRing;
+      mbar_wait(&sm.full[stage], (it / kRing) & 1);
       scores(stage);
       release_stage(&sm.empty[stage], lane);
       float tmax[2] = {-INFINITY, -INFINITY};
@@ -259,12 +321,12 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       base[0] = drop.row_base(b * H + h, row0);
       base[1] = drop.row_base(b * H + h, row0 + 8);
     }
-    float o[kD / 2];
+    float o[kP / 2];
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kP / 2; ++i) o[i] = 0.f;
     for (int j = 0; j < n_tiles; ++j) {
-      const int it = n_tiles + j, stage = it % kStages, k0 = j * kBN;
-      mbar_wait(&sm.full[stage], (it / kStages) & 1);
+      const int it = n_tiles + j, stage = it % kRing, k0 = j * kBN;
+      mbar_wait(&sm.full[stage], (it / kRing) & 1);
       scores(stage);
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
@@ -280,34 +342,37 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       uint32_t pa[32];
 #pragma unroll
       for (int t = 0; t < 32; ++t) pa[t] = pack_bf16(acc[2 * t], acc[2 * t + 1]);
-      const uint64_t dv = desc_sw<kLine>(sm.v[stage]);
+      const uint64_t dv = desc_sw<W::kLine>(sm.v[stage]);
       fence_regs(o);
       wgmma_fence();  // orders the writes of pa and o before the products read them
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_pv(o, pa + 4 * kk, dv + kk * kLine);  // 16 keys = 16 lines = kLine units
+        W::mma_rows(o, pa + 4 * kk, dv + kk * W::kLine);  // 16 keys = 16 lines = kLine units
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
       release_stage(&sm.empty[stage], lane);
     }
 
-    // epilogue: O rows < S
-    store_rows_sm90<kD>(out + (size_t(b) * S * H + h) * kD, o, row0, S, H, 1.f, lane);
+    // epilogue: O rows < S, columns < D
+    store_rows_sm90<kP>(out + (size_t(b) * S * H + h) * D, o, row0, S, H, D, 1.f, lane);
   }
 }
 
 // --- host side --------------------------------------------------------------
 
-// 4-D map of a (B, S, H, D) bf16 tensor: dims (D, H, S, B), box (D, 1,
-// 128, 1), the swizzle of a 2D-byte row
+// 4-D map of a (B, S, H, D) bf16 tensor for tiles of padded width kP: dims
+// (D, H, S, B), box (kCB, 1, 128, 1) with the swizzle of a kCB-wide line;
+// the columns of a box past D read as zero
+template <int kP>
 inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int H, int D) {
+  using W = Width<kP>;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
   const cuuint64_t row = cuuint64_t(D) * 2;  // bytes of one (b, s, h) row
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {cuuint32_t(D), 1, kBN, 1};
+  const cuuint32_t box[4] = {cuuint32_t(W::kCB), 1, kBN, 1};
   return encode_map(map, MapType<bf16>::kType, base, 4, dims, strides, box,
-                    swizzle_of(int(row)));
+                    swizzle_of(W::kLine));
 }
 
 template <bool kTrain>
@@ -315,19 +380,19 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, const float* ke
                     void* out, float* lse, int B, int S, int H, int D, float scale,
                     Dropout drop, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kDh = decltype(d)::value;
+  return with_padded_head_dim(D, [&](auto p) {
+    constexpr int kP = decltype(p)::value;
     CUtensorMap mq, mk, mv;
-    if (!make_map(&mq, q, B, S, H, kDh) || !make_map(&mk, k, B, S, H, kDh) ||
-        !make_map(&mv, v, B, S, H, kDh))
+    if (!make_map<kP>(&mq, q, B, S, H, D) || !make_map<kP>(&mk, k, B, S, H, D) ||
+        !make_map<kP>(&mv, v, B, S, H, D))
       return kErrTensorMap;
-    constexpr size_t smem = kSmemBytes<kDh>;
-    cudaError_t e = cudaFuncSetAttribute(attn_fwd_sm90_kernel<kDh, kTrain>,
+    constexpr size_t smem = kSmemBytes<kP>;
+    cudaError_t e = cudaFuncSetAttribute(attn_fwd_sm90_kernel<kP, kTrain>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
     const dim3 grid((S + kBM - 1) / kBM, H, B);
-    attn_fwd_sm90_kernel<kDh, kTrain><<<grid, kThreads, smem, stream>>>(
-        mq, mk, mv, key_bias, static_cast<bf16*>(out), lse, S, H, scale, drop);
+    attn_fwd_sm90_kernel<kP, kTrain><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, key_bias, static_cast<bf16*>(out), lse, S, H, D, scale, drop);
     return int(cudaGetLastError());
   });
 }

@@ -1,6 +1,7 @@
 // Inference attention: out = softmax(Q K^T * scale + key_bias) V, with q, k,
-// v and out in the (B, S, H, D) layout, D = 16, 32 or 64, read with
-// strides.
+// v and out in the (B, S, H, D) layout, D a multiple of 8 from 8 to 128
+// (run on the instance of its padded width 16, 32, 64 or 128, the columns
+// past D zero), read with strides.
 //
 // Replaces the TPU kernel _infer_kernel
 // (stonkgs_tpu/ops/flash_attention.py:359).  The table's bound on the H100
@@ -27,8 +28,8 @@
 //                             const float* key_bias /*(B, S) or NULL*/, out,
 //                             int B, int S, int H, int D, float scale,
 //                             cudaStream_t stream)
-// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// D other than 16, 32 and 64).
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue, with
+// nothing launched, for a D that is not a multiple of 8 from 8 to 128).
 
 #include "attention_sm90.cuh"
 

@@ -1,7 +1,8 @@
 // Training attention, forward and backward, with the TPU kernels' in-kernel
 // hash dropout; q, k, v, out, dO, dq, dk, dv in the (B, S, H, D) layout
-// (D = 16, 32 or 64: each kernel is instantiated for the three, and D
-// picks one at the launch), read with strides; lse and delta (B, H, S)
+// (D a multiple of 8 from 8 to 128: each kernel is instantiated at the
+// padded widths 16, 32, 64 and 128, and D runs on the smallest at least D,
+// the columns past D zero), read with strides; lse and delta (B, H, S)
 // fp32.
 //
 // Replaces the TPU kernels _train_fwd_kernel and _train_bwd_kernel
@@ -54,8 +55,8 @@
 //       int D, float scale, int dropout, int s_pad, unsigned threshold,
 //       unsigned seed0, unsigned seed1, float keep_scale,
 //       cudaStream_t stream)
-// each returns cudaGetLastError() after its launches (cudaErrorInvalidValue
-// for a D other than 16, 32 and 64).
+// each returns cudaGetLastError() after its launches (cudaErrorInvalidValue,
+// with nothing launched, for a D that is not a multiple of 8 from 8 to 128).
 
 #include "attention_bwd_sm90.cuh"
 
@@ -64,18 +65,20 @@ namespace attn {
 namespace {
 
 // delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d], one warp per row
-template <typename T, int kD>
+// of D <= kP elements (the loads unrolled over kP)
+template <typename T, int kP>
 __global__ void __launch_bounds__(256)
 attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                      float* __restrict__ delta, int B, int S, int H) {
+                      float* __restrict__ delta, int B, int S, int H, int D) {
   const size_t row = size_t(blockIdx.x) * 8 + threadIdx.x / 32;  // (b*S + s)*H + h
   const int lane = threadIdx.x % 32;
   if (row >= size_t(B) * S * H) return;
-  const T* op = o + row * kD;
-  const T* dp = dout + row * kD;
+  const T* op = o + row * D;
+  const T* dp = dout + row * D;
   float acc = 0.f;
 #pragma unroll
-  for (int c = lane; c < kD; c += 32) acc += to_f(op[c]) * to_f(dp[c]);
+  for (int c = lane; c < kP; c += 32)
+    if (c < D) acc += to_f(op[c]) * to_f(dp[c]);
   acc = warp_sum(acc);
   if (lane == 0) {
     const int h = int(row % H);
@@ -86,20 +89,23 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // Backward shared memory of the fp32 bodies: four tiles, two fp32
-// staging tiles, two per-warp tiles, four 64-float vectors.
-template <int kD>
+// staging tiles (the first also stages the outputs, so it is kP wide),
+// two per-warp tiles, four 64-float vectors.  The tiles are kP wide (the
+// padded width), the tensors' rows D <= kP.
+template <int kP>
 constexpr size_t bwd_smem_bytes() {
-  using Z = Sizes<float, kD>;
-  return 4 * Z::tile + 2 * Z::stage + 2 * Z::wtile + 4 * Z::vec;
+  using Z = Sizes<float, kP>;
+  return 4 * Z::tile + Z::ostage + Z::stage + 2 * Z::wtile + 4 * Z::vec;
 }
 
-template <int kD>
+template <int kP>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ key_bias, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dq, int S, int H, float scale, Dropout drop) {
-  using Z = Sizes<float, kD>;
+                   float* __restrict__ dq, int S, int H, int D, float scale,
+                   Dropout drop) {
+  using Z = Sizes<float, kP>;
   constexpr int TS = Z::TS;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
 
@@ -109,23 +115,23 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ks = reinterpret_cast<float*>(smem + 2 * Z::tile);
   float* vs = reinterpret_cast<float*>(smem + 3 * Z::tile);
   float* sst = reinterpret_cast<float*>(smem + 4 * Z::tile);
-  float* pst = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::stage);
-  float* dst = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage);
-  float* bs = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage + 2 * Z::wtile);
+  float* pst = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::ostage);
+  float* dst = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::ostage + Z::stage);
+  float* bs = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::ostage + Z::stage + 2 * Z::wtile);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t rs = size_t(H) * kD;
-  const size_t head0 = (size_t(b) * S * H + h) * kD;
+  const size_t rs = size_t(H) * D;
+  const size_t head0 = (size_t(b) * S * H + h) * D;
   const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
   const size_t stat0 = (size_t(b) * H + h) * S;  // (b, h, 0) of lse and delta
 
-  load_rows<float, kD>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
-  load_rows<float, kD>(dos, dout + head0 + size_t(q0) * rs, rs, min(kTile, S - q0));
+  load_rows<float, kP>(qs, q + head0 + size_t(q0) * rs, rs, min(kTile, S - q0), D);
+  load_rows<float, kP>(dos, dout + head0 + size_t(q0) * rs, rs, min(kTile, S - q0), D);
 
   const float* qw = qs + warp * 16 * TS;
   const float* dow = dos + warp * 16 * TS;
-  float* sw = sst + warp * 16 * kSST;  // S tile
-  float* pw = pst + warp * 16 * kSST;  // dP~ tile
+  float* sw = sst + warp * 16 * Z::OS;  // S tile, then dQ
+  float* pw = pst + warp * 16 * kSST;   // dP~ tile
   float* dsw = dst + warp * 16 * Z::PS;  // dS tile
 
   const int row = lane >> 1, half = lane & 1;
@@ -135,17 +141,17 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float delta_r = live ? delta[stat0 + qrow] : 0.f;
   const uint32_t base = drop.row_base(b * H + h, qrow);
 
-  PvAcc<float, kD> acc;
+  PvAcc<float, kP> acc;
   acc.zero();
   for (int k0 = 0; k0 < S; k0 += kTile) {
     const int n = min(kTile, S - k0);
     __syncthreads();  // the previous tiles are consumed
-    load_rows<float, kD>(ks, k + head0 + size_t(k0) * rs, rs, n);
-    load_rows<float, kD>(vs, v + head0 + size_t(k0) * rs, rs, n);
+    load_rows<float, kP>(ks, k + head0 + size_t(k0) * rs, rs, n, D);
+    load_rows<float, kP>(vs, v + head0 + size_t(k0) * rs, rs, n, D);
     load_vec(bs, kb ? kb + k0 : nullptr, n);
     __syncthreads();
-    score_tile<float, kD>(qw, ks, sw, lane);
-    score_tile<float, kD>(dow, vs, pw, lane);
+    score_tile<float, kP>(qw, ks, sw, lane);
+    score_tile<float, kP>(dow, vs, pw, lane);
     for (int c = half; c < kTile; c += 2) {
       float ds = 0.f;
       if (live && c < n) {
@@ -161,18 +167,18 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();
   }
   acc.store(sw, lane);
-  store_rows<float, kD>(dq + head0 + size_t(q0 + warp * 16) * rs, rs, sw,
-                        S - (q0 + warp * 16), scale, lane);
+  store_rows<float, kP>(dq + head0 + size_t(q0 + warp * 16) * rs, rs, sw,
+                        S - (q0 + warp * 16), scale, lane, D);
 }
 
-template <int kD>
+template <int kP>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ key_bias, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ db, int S,
-                     int H, float scale, Dropout drop) {
-  using Z = Sizes<float, kD>;
+                     int H, int D, float scale, Dropout drop) {
+  using Z = Sizes<float, kP>;
   constexpr int TS = Z::TS;
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
 
@@ -182,28 +188,29 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* qs = reinterpret_cast<float*>(smem + 2 * Z::tile);
   float* dos = reinterpret_cast<float*>(smem + 3 * Z::tile);
   float* sst = reinterpret_cast<float*>(smem + 4 * Z::tile);
-  float* pst = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::stage);
-  float* pdt = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage);
-  float* dst = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage + Z::wtile);
-  float* vecs = reinterpret_cast<float*>(smem + 4 * Z::tile + 2 * Z::stage + 2 * Z::wtile);
+  float* pst = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::ostage);
+  float* pdt = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::ostage + Z::stage);
+  float* dst = reinterpret_cast<float*>(smem + 4 * Z::tile + Z::ostage + Z::stage + Z::wtile);
+  float* vecs =
+      reinterpret_cast<float*>(smem + 4 * Z::tile + Z::ostage + Z::stage + 2 * Z::wtile);
   float* bs = vecs;                            // bias of the block's keys
   float* lse_s = vecs + Z::vec / sizeof(float);  // lse and delta of the query tile
   float* delta_s = vecs + 2 * Z::vec / sizeof(float);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t rs = size_t(H) * kD;
-  const size_t head0 = (size_t(b) * S * H + h) * kD;
+  const size_t rs = size_t(H) * D;
+  const size_t head0 = (size_t(b) * S * H + h) * D;
   const size_t stat0 = (size_t(b) * H + h) * S;
   const int nk = min(kTile, S - k0);
 
-  load_rows<float, kD>(ks, k + head0 + size_t(k0) * rs, rs, nk);
-  load_rows<float, kD>(vs, v + head0 + size_t(k0) * rs, rs, nk);
+  load_rows<float, kP>(ks, k + head0 + size_t(k0) * rs, rs, nk, D);
+  load_rows<float, kP>(vs, v + head0 + size_t(k0) * rs, rs, nk, D);
   load_vec(bs, key_bias ? key_bias + size_t(b) * S + k0 : nullptr, nk);
 
   const float* kw = ks + warp * 16 * TS;   // the warp's 16 keys
   const float* vw = vs + warp * 16 * TS;
-  float* sw = sst + warp * 16 * kSST;  // S^T tile (keys x queries)
-  float* pw = pst + warp * 16 * kSST;  // dP~^T tile
+  float* sw = sst + warp * 16 * Z::OS;  // S^T tile (keys x queries), then dV and dK
+  float* pw = pst + warp * 16 * kSST;   // dP~^T tile
   float* pdw = pdt + warp * 16 * Z::PS;  // (p * mr)^T
   float* dsw = dst + warp * 16 * Z::PS;  // dS^T
 
@@ -212,20 +219,20 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool live = key < S;
   const int bh = b * H + h;
 
-  PvAcc<float, kD> dv_acc, dk_acc;
+  PvAcc<float, kP> dv_acc, dk_acc;
   dv_acc.zero();
   dk_acc.zero();
   float db_acc = 0.f;
   for (int q0 = 0; q0 < S; q0 += kTile) {
     const int nq = min(kTile, S - q0);
     __syncthreads();  // the previous query tile is consumed
-    load_rows<float, kD>(qs, q + head0 + size_t(q0) * rs, rs, nq);
-    load_rows<float, kD>(dos, dout + head0 + size_t(q0) * rs, rs, nq);
+    load_rows<float, kP>(qs, q + head0 + size_t(q0) * rs, rs, nq, D);
+    load_rows<float, kP>(dos, dout + head0 + size_t(q0) * rs, rs, nq, D);
     load_vec(lse_s, lse + stat0 + q0, nq);
     load_vec(delta_s, delta + stat0 + q0, nq);
     __syncthreads();
-    score_tile<float, kD>(kw, qs, sw, lane);
-    score_tile<float, kD>(vw, dos, pw, lane);
+    score_tile<float, kP>(kw, qs, sw, lane);
+    score_tile<float, kP>(vw, dos, pw, lane);
     const float bias_r = bs[warp * 16 + row];
     for (int c = half; c < kTile; c += 2) {
       float pd = 0.f, ds = 0.f;
@@ -251,53 +258,54 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const int rows_left = S - (k0 + warp * 16);
   dv_acc.store(sw, lane);
-  store_rows<float, kD>(dv + head0 + size_t(k0 + warp * 16) * rs, rs, sw, rows_left, 1.f,
-                        lane);
-  dk_acc.store(pw, lane);
-  store_rows<float, kD>(dk + head0 + size_t(k0 + warp * 16) * rs, rs, pw, rows_left, scale,
-                        lane);
+  store_rows<float, kP>(dv + head0 + size_t(k0 + warp * 16) * rs, rs, sw, rows_left, 1.f,
+                        lane, D);
+  __syncwarp();  // dV is read out before dK takes its place
+  dk_acc.store(sw, lane);
+  store_rows<float, kP>(dk + head0 + size_t(k0 + warp * 16) * rs, rs, sw, rows_left, scale,
+                        lane, D);
   db_acc += __shfl_xor_sync(0xffffffffu, db_acc, 1);
   if (db && live && half == 0) atomicAdd(db + size_t(b) * S + key, db_acc);
 }
 
 // delta = rowsum(dO * O), then dQ and dK/dV/db: the Hopper kernels in
-// bf16, the SIMT bodies in fp32
+// bf16, the SIMT bodies in fp32, at D's padded width
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const float* key_bias,
                const void* out, const float* lse, const void* dout, void* dq, void* dk,
                void* dv, float* db, float* delta, int B, int S, int H, int D, float scale,
                Dropout drop, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kDh = decltype(d)::value;
+  return with_padded_head_dim(D, [&](auto p) {
+    constexpr int kP = decltype(p)::value;
     const size_t rows = size_t(B) * S * H;
-    attn_bwd_delta_kernel<T, kDh><<<unsigned((rows + 7) / 8), 256, 0, stream>>>(
-        static_cast<const T*>(out), static_cast<const T*>(dout), delta, B, S, H);
+    attn_bwd_delta_kernel<T, kP><<<unsigned((rows + 7) / 8), 256, 0, stream>>>(
+        static_cast<const T*>(out), static_cast<const T*>(dout), delta, B, S, H, D);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return int(e);
     if constexpr (kIsBf16<T>) {
-      return attn90::launch_bwd_sm90(q, k, v, key_bias, lse, dout, delta, dq, dk, dv, db, B, S,
-                                     H, kDh, scale, drop, stream);
+      return attn90::launch_bwd_sm90<kP>(q, k, v, key_bias, lse, dout, delta, dq, dk, dv, db,
+                                         B, S, H, D, scale, drop, stream);
     } else {
       const float* qt = static_cast<const float*>(q);
       const float* kt = static_cast<const float*>(k);
       const float* vt = static_cast<const float*>(v);
       const float* dot = static_cast<const float*>(dout);
-      constexpr size_t smem = bwd_smem_bytes<kDh>();
+      constexpr size_t smem = bwd_smem_bytes<kP>();
       const dim3 grid((S + kTile - 1) / kTile, H, B);
-      e = cudaFuncSetAttribute(attn_bwd_dq_kernel<kDh>,
+      e = cudaFuncSetAttribute(attn_bwd_dq_kernel<kP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
       if (e != cudaSuccess) return int(e);
-      attn_bwd_dq_kernel<kDh><<<grid, kThreads, smem, stream>>>(
-          qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dq), S, H, scale, drop);
+      attn_bwd_dq_kernel<kP><<<grid, kThreads, smem, stream>>>(
+          qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dq), S, H, D, scale, drop);
       e = cudaGetLastError();
       if (e != cudaSuccess) return int(e);
-      e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<kDh>,
+      e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<kP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
       if (e != cudaSuccess) return int(e);
-      attn_bwd_dkdv_kernel<kDh><<<grid, kThreads, smem, stream>>>(
+      attn_bwd_dkdv_kernel<kP><<<grid, kThreads, smem, stream>>>(
           qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dk),
-          static_cast<float*>(dv), db, S, H, scale, drop);
+          static_cast<float*>(dv), db, S, H, D, scale, drop);
       return int(cudaGetLastError());
     }
   });

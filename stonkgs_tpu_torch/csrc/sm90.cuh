@@ -332,6 +332,25 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[R], const uint32_t* a, uint6
   }
 }
 
+// Registers kOff .. kOff + 31 of a wider accumulator d (64 x 2N, fp32),
+// its columns 2kOff .. 2kOff + 63, += A (64 x 16 bf16, registers) . B
+// (16 x 64, desc, MN-major, one line of B's tile at the 128-byte swizzle).  Two such
+// products at kOff 0 and 32 fill a 64 x 128 accumulator, register for
+// register as wgmma.m64n128k16 would (acc_col), with B's two 64-wide
+// column blocks apart.
+template <int kOff, int N>
+__device__ __forceinline__ void wgmma_pv_at(float (&d)[N], const uint32_t* a, uint64_t db) {
+  static_assert(kOff % 32 == 0 && kOff + 32 <= N, "a 64-wide block of the accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : STONKGS_ACC32(d, kOff)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 256, fp32) += A (64 x 16, desc, K-major) . B (16 x 256, desc):
 // B MN-major (kTnspB 1: four 64-wide column blocks `lbo` bytes apart) or
 // K-major (0: 256 lines of K, read as B^T)
@@ -467,7 +486,8 @@ template <> struct MapType<int8_t> {  // codes move as bytes; wgmma reads them a
 };
 
 // the tensor-map swizzle of a box whose inner extent is `line` bytes
-// (128, 64 or 32), which wgmma's descriptor of the same width reads
+// (128, 64 or 32), which wgmma's descriptor of the same width reads; a row
+// wider than 128 bytes is loaded as boxes of 128-byte lines (column blocks)
 inline CUtensorMapSwizzle swizzle_of(int line) {
   return line == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                     : line == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;

@@ -57,14 +57,32 @@ version's uniform probabilities.
 fp32 runs the SIMT body ``attn_fwd_kernel`` of ``csrc/attention.cuh``
 (64-row tiles, plain FMAs, an IEEE exp and division per score); it
 exists to hold the whole model against the CPU.  Both take any S >= 1
-and a head width D of 16, 32 or 64 (:func:`attention_kernel_takes`):
+and any head width D from 8 to 128 (:func:`attention_kernel_takes`):
 64 in BERT-base, BioBERT, ProtBERT and the BigBird trunk, 32 in
 MiniLM-L12-H384 and in the 64-wide configs the CLI derives, 16 in the
-32-wide ones.  Each kernel is instantiated for the three widths.  A
-row of D bf16 is one line of 2D bytes (128, 64 or 32), and the TMA
-boxes and the ``wgmma`` descriptors take the swizzle of that width:
-QKᵀ runs D/16 k-steps, PV is ``wgmma.m64nDk16``, the tiles shrink
-with D and the ring keeps its 3 stages.
+32-wide ones, 48, 80, 72 and 68 in the configs it derives from 96-,
+160-, 288- and 544-wide KG vectors (2, 2, 4 and 8 heads), 128 in
+BERT-base's widths split into 6 heads.  Each kernel is instantiated at
+the padded widths P = 16, 32, 64 and 128 and runs D on the smallest P
+>= D: the tensor maps' dim 0 is D and their boxes P wide, so TMA
+zero-fills the columns from D to P, which add nothing to QKᵀ, and the
+columns of O past D are computed on zeros and not stored (the fp32
+body zeroes and skips them in its loads and stores).  A row of P bf16
+is one line of 2P bytes (32, 64 or 128) or, at P = 128, two column
+blocks of 64 (a row of 256 bytes is wider than the widest swizzle,
+128 bytes, of TMA and ``wgmma``); the boxes and the descriptors take
+the swizzle of a line: QKᵀ runs P/16 k-steps, the steps past 64
+columns in the second block, PV is ``wgmma.m64nPk16`` (two
+``m64n64k16``, one a block, at P = 128), and the ring keeps its 3
+stages (at P = 128 they fill the 227 KB a block may take).  TMA needs
+every stride of a tensor map to be a multiple of 16 bytes, so a D that
+is not a multiple of 8 (68 in bf16 is a 136-byte row) is copied into
+zero-padded tensors of the next multiple of 8 and the outputs sliced
+back; the scale stays 1/√D of the true D.  Padding costs products: D=48
+runs at 64 (1.33x), D=80 at 128 (1.6x).  At D=128 the design's three
+products outweigh its two exps a score, so the tensor cores bound it:
+at B=128, S=512 and 6 heads, 155 GFLOP take 0.156 ms at 989 TFLOP/s,
+against 0.097 ms for the exps and 0.120 ms for the bytes.
 
 Training, with the TPU kernels' hash dropout
 ============================================
@@ -102,7 +120,13 @@ parallel, so the backward is three launches: a warp per row computes
 delta = rowsum(dO·O); a block per (128-row query tile, head, batch)
 streams the keys and forms dQ; a block per (128-key tile, head, batch)
 streams the queries and forms dK and dV in fp32 registers, and adds its
-keys' share of db into a zeroed (B, S) buffer with atomics.  S and dP̃
+keys' share of db into a zeroed (B, S) buffer with atomics.  The head
+widths are the forward's (P/2 accumulator floats a thread in dQ, P in
+dK/dV).  At P = 128 the ring is 2 stages deep, and a dK/dV block has one
+consumer warpgroup of 64 keys in 256 threads, which takes its query
+tiles in sub-steps of 32: with 128 accumulator floats a thread it
+spilled under the 168 registers ptxas gives a thread of a 384-thread
+block.  S and dP̃
 are thus computed twice, for no cross-block reduction of dQ: the design's
 floor is 7 products of 2·B·H·S²·D and two exps a score, plus the hash of
 each score twice with dropout.  In bf16 the dQ and dK/dV kernels are
@@ -142,8 +166,10 @@ import torch
 from stonkgs_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the head widths of the card's attention kernels (both dtypes)
-ATTENTION_HEAD_DIMS = (16, 32, 64)
+# the head widths of the card's attention kernels (both dtypes): D from 8
+# to 128; the C entry points take multiples of 8, so the wrappers pad
+# others with zero columns
+ATTENTION_MIN_HEAD_DIM, ATTENTION_MAX_HEAD_DIM = 8, 128
 NEG_BIAS = -1e9  # score of a padded key, as the JAX package's NEG_BIAS
 _P, _I, _U, _F = _build.P, _build.I32, _build.U32, _build.F32
 # the dropout arguments of both training entry points:
@@ -178,22 +204,38 @@ def _key_bias(bias: Optional[torch.Tensor], B: int, S: int):
 def attention_kernel_takes(D: int) -> bool:
     """Whether the card's attention kernels (inference, the training
     forward and backward, in fp32 and bf16) take head width ``D``."""
-    return D in ATTENTION_HEAD_DIMS
+    return ATTENTION_MIN_HEAD_DIM <= D <= ATTENTION_MAX_HEAD_DIM
 
 
 def check_attention_shape(what: str, S: int, D: int) -> None:
     """Raise unless the attention kernels take a sequence of ``S`` rows
     (S >= 1) at head width ``D`` (:func:`attention_kernel_takes`)."""
     if not attention_kernel_takes(D) or S < 1:
-        raise ValueError(f"{what} kernel takes D in {ATTENTION_HEAD_DIMS} and S >= 1, "
-                         f"got D={D}, S={S}")
+        raise ValueError(f"{what} kernel takes D from {ATTENTION_MIN_HEAD_DIM} to "
+                         f"{ATTENTION_MAX_HEAD_DIM} and S >= 1, got D={D}, S={S}")
+
+
+def _pad_heads(*tensors):
+    """(B, S, H, D) tensors zero-padded to a head width that is a multiple
+    of 8 (the kernels' strides are multiples of 16 bytes), or as they are
+    if D is one already (None stays None)."""
+    D = tensors[0].shape[-1]
+    if D % 8 == 0:
+        return tensors
+    pad = -D % 8
+    return tuple(None if t is None else torch.nn.functional.pad(t, (0, pad))
+                 for t in tensors)
+
+
+def _unpad(D: int, *tensors):
+    """The first ``D`` columns of each padded output, contiguous."""
+    return tuple(t if t.shape[-1] == D else t[..., :D].contiguous() for t in tensors)
 
 
 def _check_cuda_inputs(what: str, q: torch.Tensor, others, extra=()) -> None:
     """Raise unless q and ``others`` (same shape and dtype as q) and
     ``extra`` are contiguous tensors on q's CUDA device that the kernels
-    take: (B, S, H, D) in fp32 or bf16, S >= 1, D in
-    ``ATTENTION_HEAD_DIMS``."""
+    take: (B, S, H, D) in fp32 or bf16, S >= 1, D from 8 to 128."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
@@ -245,18 +287,19 @@ def flash_attention_infer(
     B, S, H, D = q.shape
     kb = _key_bias(bias, B, S)
     _check_cuda_inputs("flash_attention_infer", q, (k, v), (kb,))
+    if B == 0 or H == 0:
+        return torch.empty_like(q)
+    q, k, v = _pad_heads(q, k, v)
     out = torch.empty_like(q)
     _build.check_aligned("flash_attention_infer", q, k, v, out)
-    if B == 0 or H == 0:
-        return out
     lib = _build.load("flash_attention_infer", _SIGNATURES)
     status = lib.flash_attention_infer(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(kb), _build.ptr(out), B, S, H, D, 1.0 / math.sqrt(D),
+        _build.ptr(kb), _build.ptr(out), B, S, H, q.shape[-1], 1.0 / math.sqrt(D),
         _build.stream(q.device))
     _build.check(status, "flash_attention_infer")
     flash_attention_infer.launches += 1
-    return out
+    return _unpad(D, out)[0]
 
 
 flash_attention_infer.launches = 0
@@ -414,20 +457,21 @@ def flash_attention_train_fwd(q, k, v, bias=None, seed=(0, 0), rate=0.0, block_q
     B, S, H, D = q.shape
     kb = _key_bias(bias, B, S)
     _check_cuda_inputs("flash_attention_train_fwd", q, (k, v), (kb,))
-    out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _build.check_aligned("flash_attention_train_fwd", q, k, v, out)
     if B == 0 or H == 0:
-        return out, lse
+        return torch.empty_like(q), lse
+    q, k, v = _pad_heads(q, k, v)
+    out = torch.empty_like(q)
+    _build.check_aligned("flash_attention_train_fwd", q, k, v, out)
     lib = _build.load("flash_attention_train", _TRAIN_SIGNATURES)
     status = lib.flash_attention_train_fwd(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(kb), _build.ptr(out), _build.ptr(lse), B, S, H, D,
+        _build.ptr(kb), _build.ptr(out), _build.ptr(lse), B, S, H, q.shape[-1],
         1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
         _build.stream(q.device))
     _build.check(status, "flash_attention_train_fwd")
     flash_attention_train_fwd.launches += 1
-    return out, lse
+    return _unpad(D, out)[0], lse
 
 
 flash_attention_train_fwd.launches = 0
@@ -450,21 +494,22 @@ def flash_attention_train_bwd(q, k, v, bias, out, lse, dout, seed=(0, 0), rate=0
     if tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 (B, H, S), got {lse.dtype} {tuple(lse.shape)}")
     _check_cuda_inputs("flash_attention_train_bwd", q, (k, v, out, dout), (kb, lse))
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     db = torch.zeros((B, S), dtype=torch.float32, device=q.device) if need_db else None
+    if B == 0 or H == 0:
+        return (*(torch.empty_like(q) for _ in range(3)), db)
+    q, k, v, out, dout = _pad_heads(q, k, v, out, dout)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _build.check_aligned("flash_attention_train_bwd", q, k, v, out, dout, dq, dk, dv)
-    if B == 0 or H == 0:
-        return dq, dk, dv, db
     lib = _build.load("flash_attention_train", _TRAIN_SIGNATURES)
     status = lib.flash_attention_train_bwd(
         _DTYPES[q.dtype], *(_build.ptr(t) for t in (q, k, v, kb, out, lse, dout, dq, dk,
                                                     dv, db, delta)),
-        B, S, H, D, 1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
+        B, S, H, q.shape[-1], 1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
         _build.stream(q.device))
     _build.check(status, "flash_attention_train_bwd")
     flash_attention_train_bwd.launches += 1
-    return dq, dk, dv, db
+    return (*_unpad(D, dq, dk, dv), db)
 
 
 flash_attention_train_bwd.launches = 0

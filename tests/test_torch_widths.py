@@ -1,8 +1,9 @@
 """The port at head widths 16 and 32 and at hidden widths other than 768
 and 1024, against the JAX package, on the CPU.
 
-The card's attention kernels take D = 16, 32 and 64 and its FFN kernels
-any H that is a multiple of 32 up to 1024 with I a multiple of 32; on a
+The card's attention kernels take any D from 8 to 128 (the widths from 48
+up are ``tests/test_torch_head_widths.py``'s) and its FFN kernels any H
+that is a multiple of 32 up to 1024 with I a multiple of 32; on a
 CPU tensor each wrapper runs its kernel's plain version, which these
 tests hold against the JAX package's Pallas kernels in interpret mode at
 the new widths, and the port's STonKGs at MiniLM-L12-H384's widths
@@ -71,14 +72,15 @@ def port_cfg(cfg):
 # the domain functions
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("D,takes", [(8, False), (16, True), (32, True), (48, False),
-                                     (64, True), (128, False)])
+@pytest.mark.parametrize("D,takes", [(4, False), (8, True), (16, True), (32, True),
+                                     (48, True), (64, True), (68, True), (128, True),
+                                     (136, False), (256, False)])
 def test_attention_kernel_domain(D, takes):
     assert tflash.attention_kernel_takes(D) is takes
     if takes:
         tflash.check_attention_shape("flash_attention_infer", 512, D)
     else:
-        with pytest.raises(ValueError, match=rf"takes D in \(16, 32, 64\) .* got D={D}"):
+        with pytest.raises(ValueError, match=rf"takes D from 8 to 128 .* got D={D}"):
             tflash.check_attention_shape("flash_attention_infer", 512, D)
 
 
@@ -116,9 +118,24 @@ def test_ffn_kernel_domain(H, I, takes):
                                        intermediate_size=128), True),
     ("CLI 64-wide", tconfig.BertConfig(hidden_size=64, num_attention_heads=2,
                                        intermediate_size=256), True),
-    # ... and from 96-wide ones: 2 heads of D=48
+    # ... and from 96-, 160-, 288- and 544-wide ones: 2 heads of D=48 and
+    # 80, 4 of 72, 8 of 68
     ("CLI 96-wide", tconfig.BertConfig(hidden_size=96, num_attention_heads=2,
-                                       intermediate_size=384), False),
+                                       intermediate_size=384), True),
+    ("CLI 160-wide", tconfig.BertConfig(hidden_size=160, num_attention_heads=2,
+                                        intermediate_size=640), True),
+    ("CLI 288-wide", tconfig.BertConfig(hidden_size=288, num_attention_heads=4,
+                                        intermediate_size=1152), True),
+    ("CLI 544-wide", tconfig.BertConfig(hidden_size=544, num_attention_heads=8,
+                                        intermediate_size=2176), True),
+    # BERT-base's widths split into 6 heads of D=128
+    ("BERT-base 6 x 128", tconfig.BertConfig(num_attention_heads=6), True),
+    # ... and widths outside: 4 heads of 136, and a 48-wide config (H is
+    # not a multiple of 32)
+    ("H=544 4 x 136", tconfig.BertConfig(hidden_size=544, num_attention_heads=4,
+                                         intermediate_size=2176), False),
+    ("CLI 48-wide", tconfig.BertConfig(hidden_size=48, num_attention_heads=2,
+                                       intermediate_size=192), False),
 ])
 def test_model_configs_against_the_domains(name, cfg, takes):
     both = (tflash.attention_kernel_takes(cfg.head_dim)
