@@ -264,8 +264,10 @@ Phases, each fatal on failure (exit code 1, no result line):
     B=1 and B=8 with a row whose keys are all at -1e9, and the three FFN
     kernels at H = 32, 64, 96, 384 and 512, I = 4H, M = 3, 129 and 8,192,
     gelu and gelu_new, against their plain versions in bf16 and fp32;
-    D = 136 and 256, H = 48 and 1,056, I = 100 and 1,000 raise, and the
-    C entry points refuse D = 136 and 68 and H = 48; (b) STonKGs at
+    D = 136 and 256, H = 2,056 and I = 8,200 (the FFN's edges since
+    phase 29) and BigBird's D = 72 raise, and the C entry points refuse
+    D = 136 and 68, H = 2,056, I = 8,200 and BigBird's D = 72 and 36;
+    (b) STonKGs at
     MiniLM-L12-H384's widths (12 x 384, 12 heads of 32, I=1536,
     vocabulary 30,522, KG vocabulary 100,000, seeded random weights):
     phase 5's checks on 512 rows at B=128, then the card's fp32 engines
@@ -286,7 +288,7 @@ Phases, each fatal on failure (exit code 1, no result line):
     and 512 the limits must reject a key past the block let into the
     softmax, query rows past the block let into dK, and (on integer q and
     k, where the kernel is held to them first) the D=32 logit's second
-    rounding left out; D = 8, 48 and 128 and blocks 12 and 2,048 raise
+    rounding left out; D = 4, 72 and 128 and blocks 12 and 2,048 raise
     in both wrappers and dtypes with no launch counted, and the C entry
     points refuse them; (b) ``run_pretraining(variant="prot")`` from a
     memmap store and a synthetic 128-wide node2vec TSV of 20,000 nodes
@@ -320,6 +322,25 @@ Phases, each fatal on failure (exit code 1, no result line):
     26 (d); (d) the three kernels at (b)'s shapes beside their bound,
     the design's floor, their plain versions and SDPA (the backward:
     its own alone over a saved forward).
+29. wide: (a) the three FFN kernels at H = 16, 48, 100, 112, 144, 1,056,
+    1,280 and 2,048 with I = 4H, 100 and 1,000, M = 3 and 200, gelu (and
+    gelu_new at I = 4H), against their plain versions in bf16 and fp32;
+    at H=100 the limits must reject the serving block with its LayerNorm
+    statistics over the padded width (104 in bf16, 128 in fp32) and the
+    serving block and the training forward without the W2 product's last
+    partial tile of 64 columns; (b) the BigBird pair at D = 8, 24, 36, 40,
+    48 and 56 (padded instances; D=36 through the wrappers' zero-padded
+    copies), blocks 64 (nb=8, 3 heads, a padded mask) and 96 (nb=5), as
+    phase 27 (a), and at D=24 on integer q and k the kernel within the
+    limits and the plain output at the padded instance's scale 1/sqrt(32)
+    rejected; (c) ``run_pretraining`` -> ``from_pretrained`` -> ``embed``
+    from 48-, 80-, 100-, 112- and 1,280-wide KG TSVs (the derived configs:
+    2 heads of 24, 40, 50 and 56, 20 heads of 64 at I = 5,120; 1,000 KG
+    entities) and ``variant="transe"`` from the 80-wide one (508 + 4), as
+    phase 26 (d),
+    and ``run_pretraining(variant="prot")`` -> ``embed`` from 48-, 80- and
+    144-wide TSVs (trunk and backbones at D = 24, 40 and 36; blocks 96 and
+    512), as phase 27 (b).
 
 The line before the last is a JSON object with one entry per kernel (the
 BigBird pair's times at block 64, its error the worse of both block
@@ -1002,16 +1023,18 @@ def phase_sparse_kernels() -> dict:
 
 # (block size, head width) outside the pair's domain, and the block size
 # of the C entry points' own check
-SPARSE_OUTSIDE = ((64, 8), (64, 48), (64, 128), (12, 32), (2048, 32))
+SPARSE_OUTSIDE = ((64, 4), (64, 72), (64, 128), (12, 32), (2048, 32))
+# a logit scale that is 1/sqrt(d) of no head width d from 1 to 64 in bf16
+SPARSE_BAD_SCALE = 0.9
 
 
 def _sparse_geometry_rejected(gen) -> None:
-    """A CUDA tensor at a head width other than 16, 32 or 64, or a block
-    size that is not a multiple of 8 from 8 to 1,024 (``SPARSE_OUTSIDE``)
-    raises in both wrappers, in both dtypes, and launches nothing; the C
-    entry points refuse such a geometry themselves (cudaErrorInvalidValue,
-    1) without a launch, and in bf16 a logit scale other than 1/sqrt(D)
-    (the bf16 kernels fix it by D)."""
+    """A CUDA tensor at a head width outside 8 to 64, or a block size that
+    is not a multiple of 8 from 8 to 1,024 (``SPARSE_OUTSIDE``) raises in
+    both wrappers, in both dtypes, and launches nothing; the C entry points
+    refuse such a geometry themselves (cudaErrorInvalidValue, 1) without a
+    launch, and in bf16 a logit scale that is 1/sqrt(d) of no head width d
+    the padding to D may hide (``SPARSE_BAD_SCALE``)."""
     fwd0, bwd0 = bigbird_mid_fwd.launches, bigbird_mid_bwd.launches
     for dtype in (BF16, F32):
         for bs, D in SPARSE_OUTSIDE:
@@ -1026,7 +1049,7 @@ def _sparse_geometry_rejected(gen) -> None:
                                                                out))):
                 raised = _refused(name, call)
                 log(f"# check sparse {name} {dtype} bs={bs} D={D} raises: {raised!r}")
-                check("D in (16, 32, 64)" in raised,
+                check("takes D from 8 to 64" in raised,
                       f"sparse {name} took block size {bs}, head width {D} on the card")
     check((bigbird_mid_fwd.launches, bigbird_mid_bwd.launches) == (fwd0, bwd0),
           "a refused geometry counted a launch")
@@ -1047,18 +1070,19 @@ def _sparse_geometry_rejected(gen) -> None:
                     f"{status} (1: refused)")
                 check(status == 1, f"the C entry point {name} took bs={bs} D={D} "
                                    f"(status {status})")
-    for D in bigbird_sparse_ops.KERNEL_HEAD_DIMS:
+    for D in (8, 16, 32, 40, 64):
         S = 5 * 64
+        bad = SPARSE_BAD_SCALE
         statuses = {
             "bigbird_mid_fwd": lib.bigbird_mid_fwd(1, *[p] * 7, 1, S, 1, 1, 64, D, S * D, D, D,
-                                                   0.3, st),
+                                                   bad, st),
             "bigbird_mid_bwd": lib.bigbird_mid_bwd(1, *[p] * 11, 1, S, 1, 1, 64, D, S * D, D, D,
-                                                   0.3, st)}
+                                                   bad, st)}
         torch.cuda.synchronize()
         for name, status in statuses.items():
-            log(f"# check {name} C entry point bf16 at D={D} with logit scale 0.3: status "
+            log(f"# check {name} C entry point bf16 at D={D} with logit scale {bad}: status "
                 f"{status} (1: refused)")
-            check(status == 1, f"the C entry point {name} took scale 0.3 at D={D} in bf16")
+            check(status == 1, f"the C entry point {name} took scale {bad} at D={D} in bf16")
 
 
 def _sparse_fwd_with(q, k, v, rand, bs, pen_of):
@@ -5357,12 +5381,15 @@ def _widths_outside(gen) -> None:
     wrapper and both dtypes, with no fallback to the plain versions and
     no launch counted: attention (inference, training forward and
     backward) at D = 136 and 256 (``HEAD_OUTSIDE``; D from 8 to 128 is
-    phase 28's), the three FFN kernels at H = 48 and 1056 and at I = 100
-    and 1000.  The C entry points refuse such widths themselves
-    (cudaErrorInvalidValue, 1) without a launch: every entry point at
-    D=136 or H=48, in both dtypes, and the attention entry points at D=68
-    (the wrappers pad a D that is not a multiple of 8)."""
-    counted = {**TRAINING_KERNELS, **SERVING_KERNELS}
+    phase 28's), the three FFN kernels at H = 2056 and at I = 8200
+    (``WIDE_FFN_OUTSIDE``; H from 8 to 2048 and I from 8 to 8192 are phase
+    29's), the BigBird pair at D = 72.  The C entry points refuse such
+    widths themselves (cudaErrorInvalidValue, 1) without a launch: every
+    entry point at D=136, H=2056 or I=8200, in both dtypes, the attention
+    and BigBird entry points at D=68 and 36 (the wrappers pad a D that is
+    not a multiple of 8) and the BigBird ones at D=72."""
+    counted = {**TRAINING_KERNELS, **SERVING_KERNELS, "bigbird_mid_fwd": bigbird_mid_fwd,
+               "bigbird_mid_bwd": bigbird_mid_bwd}
     before = _counts(counted)
     for dtype in (BF16, F32):
         tag = "bf16" if dtype == BF16 else "fp32"
@@ -5378,7 +5405,7 @@ def _widths_outside(gen) -> None:
                 raised = _refused(name, fn)
                 log(f"# check {name} {tag} at D={D} raises: {raised!r}")
                 check("takes D from 8 to 128" in raised, f"{name} {tag} at D={D} did not raise")
-        for H, I in ((48, 192), (1056, 4224), (64, 100), (768, 1000)):
+        for H, I in WIDE_FFN_OUTSIDE:
             args = _ffn_inputs(3, dtype, gen, H, I)
             x, w1, b1, w2, b2, g = _train_ffn_inputs(3, dtype, gen, H, I)
             for name, fn in (("ffn_ln_block", lambda: fused_ffn_ln_block(*args)),
@@ -5386,8 +5413,18 @@ def _widths_outside(gen) -> None:
                              ("ffn_train_bwd", lambda: fused_ffn_bwd(x, g, w1, b1, w2))):
                 raised = _refused(name, fn)
                 log(f"# check {name} {tag} at H={H} I={I} raises: {raised!r}")
-                check("a multiple of 32 up to 1024" in raised,
+                check("takes H from 8 to 2048 and I from 8 to 8192" in raised,
                       f"{name} {tag} at H={H} I={I} did not raise")
+        D = WIDE_BB_OUTSIDE
+        q, k, v, mask, rand, do = _sparse_inputs(1, 5, dtype, gen, "eval", False, 2, 64, D, BB_R)
+        out = torch.zeros(1, 3 * 64, 2, D, dtype=dtype, device=DEV)
+        lse = torch.zeros(1, 2, 3 * 64, device=DEV)
+        for name, fn in (("bigbird_mid_fwd", lambda: bigbird_mid_fwd(q, k, v, mask, rand, 64)),
+                         ("bigbird_mid_bwd", lambda: bigbird_mid_bwd(q, k, v, mask, rand, 64,
+                                                                     out, lse, do))):
+            raised = _refused(name, fn)
+            log(f"# check {name} {tag} at D={D} raises: {raised!r}")
+            check("takes D from 8 to 64" in raised, f"{name} {tag} at D={D} did not raise")
     after = _counts(counted)
     check(after == before, f"a refused width counted a launch: {before} -> {after}")
     # one zeroed buffer stands for every operand: the entry points must
@@ -5399,6 +5436,7 @@ def _widths_outside(gen) -> None:
     train_lib = _build.load("flash_attention_train", flash_attention_ops._TRAIN_SIGNATURES)
     ln_lib = _build.load("ffn_ln_block", fused_ffn_ops._SIGNATURES)
     ffn_lib = _build.load("ffn_train", fused_ffn_ops._TRAIN_SIGNATURES)
+    sparse_lib = _build.load("bigbird_sparse", bigbird_sparse_ops._SIGNATURES)
     for dt in (1, 0):
         tag = "bf16" if dt == 1 else "fp32"
         statuses = {}
@@ -5410,10 +5448,20 @@ def _widths_outside(gen) -> None:
                     dt, *[p] * 6, 1, 64, 2, D, D ** -0.5, *drop, st),
                 f"flash_attention_train_bwd D={D}": train_lib.flash_attention_train_bwd(
                     dt, *[p] * 12, 1, 64, 2, D, D ** -0.5, *drop, st)})
-        statuses.update({
-            "ffn_ln_block H=48": ln_lib.ffn_ln_block(dt, *[p] * 13, 3, 48, 192, 0, 1e-12, st),
-            "ffn_train_fwd H=48": ffn_lib.ffn_train_fwd(dt, *[p] * 7, 3, 48, 192, 0, st),
-            "ffn_train_bwd H=48": ffn_lib.ffn_train_bwd(dt, *[p] * 10, 3, 48, 192, 0, st)})
+        for H, I in WIDE_FFN_OUTSIDE:
+            statuses.update({
+                f"ffn_ln_block H={H} I={I}": ln_lib.ffn_ln_block(dt, *[p] * 13, 3, H, I, 0,
+                                                                 1e-12, st),
+                f"ffn_train_fwd H={H} I={I}": ffn_lib.ffn_train_fwd(dt, *[p] * 7, 3, H, I, 0, st),
+                f"ffn_train_bwd H={H} I={I}": ffn_lib.ffn_train_bwd(dt, *[p] * 10, 3, H, I, 0,
+                                                                    st)})
+        for D in (WIDE_BB_OUTSIDE, 36):
+            S = 5 * 64
+            statuses.update({
+                f"bigbird_mid_fwd D={D}": sparse_lib.bigbird_mid_fwd(
+                    dt, *[p] * 7, 1, S, 1, 1, 64, D, S * D, D, D, D ** -0.5, st),
+                f"bigbird_mid_bwd D={D}": sparse_lib.bigbird_mid_bwd(
+                    dt, *[p] * 11, 1, S, 1, 1, 64, D, S * D, D, D, D ** -0.5, st)})
         torch.cuda.synchronize()
         for name, status in statuses.items():
             log(f"# check {name} {tag} C entry point: status {status} (1: refused)")
@@ -5459,62 +5507,85 @@ def _widths_serving(cfg: STonKGsConfig) -> tuple:
     return engine, feats, counts, params
 
 
-def _widths_pretrain_files(hidden: int, total: dict) -> None:
+def _widths_pretrain_files(hidden: int, total: dict, variant: str = "stonkgs",
+                           entities: Optional[int] = None) -> None:
     """(d) ``run_pretraining`` from a memmap store and a ``hidden``-wide
-    node2vec TSV (the config it derives: 2 layers, 2 heads of hidden/2,
-    I = 4 hidden), 2 steps of B=32 with an HF export, then
-    ``from_pretrained`` -> ``embed`` on the card in fp32 against the CPU
-    in fp32 and in bf16 by cosine."""
+    node2vec TSV of ``entities`` rows (README_ENTITIES by default; the
+    config it derives: 2 layers, max(hidden // 64, 2) heads, I = 4
+    hidden), 2 steps of B=32 with an HF export, then ``from_pretrained``
+    -> ``embed`` on the card in fp32 against the CPU in fp32 and in bf16
+    by cosine.  ``variant="transe"``: the TSV read as
+    TransE vectors and the 508 + 4 layout that ``from_pretrained(variant=
+    "transe")`` takes, one masked triple position a row."""
     t0 = time.perf_counter()
+    entities = entities or README_ENTITIES
+    tag = f"{hidden}-wide" + (" TransE" if variant == "transe" else "")
     with tempfile.TemporaryDirectory(prefix=f"stonkgs_w{hidden}_") as tmp:
         bert_cfg = BertConfig(hidden_size=hidden, num_hidden_layers=2,
                               num_attention_heads=max(hidden // 64, 2),
                               intermediate_size=hidden * 4)
-        cfg = STonKGsConfig(bert=bert_cfg, kg_vocab_size=README_ENTITIES)
+        cfg = STonKGsConfig(bert=bert_cfg, kg_vocab_size=entities)
+        if variant == "transe":
+            cfg = cfg.replace(text_len=bert_cfg.max_position_embeddings - 4, entity_len=4)
         feats = _pretraining_features(cfg, WIDTH_PF_ROWS, seed=hidden)
+        if variant == "transe":
+            # int(0.15 * 4) = 0 masked triple positions: one a row, labelled
+            # with its own id
+            rng = np.random.default_rng(hidden)
+            rows_t, pos = np.arange(WIDTH_PF_ROWS), rng.integers(0, 4, WIDTH_PF_ROWS)
+            feats["ent_masked_lm_labels"][rows_t, pos] = feats["input_ids"][
+                rows_t, cfg.text_len + pos]
         store_dir = os.path.join(tmp, "store")
         MemmapFeatureStore.write(store_dir, feats)
-        art = make_random_artifacts(README_ENTITIES, dim=hidden, rw_len=README_RW_LEN,
-                                    seed=hidden)
+        art = make_random_artifacts(entities, dim=hidden, rw_len=README_RW_LEN, seed=hidden)
         emb, walks = os.path.join(tmp, "emb.tsv"), os.path.join(tmp, "walks.tsv")
         save_kg_artifacts(art, emb, walks)
         vocab_file = os.path.join(tmp, "vocab.txt")
         with open(vocab_file, "w") as f:
             f.write("\n".join(_readme_vocab(bert_cfg.vocab_size,
                                             np.random.default_rng(hidden))) + "\n")
-        derived = stonkgs_pretraining_config(feats, "stonkgs", hidden, bert_cfg.vocab_size)
+        derived = stonkgs_pretraining_config(feats, variant, hidden, bert_cfg.vocab_size)
         check(derived.bert == bert_cfg, f"run_pretraining derives {derived.bert}")
-        log(f"# {hidden}-wide KG TSV: run_pretraining derives H={hidden}, "
+        check(flash_attention_ops.attention_kernel_takes(bert_cfg.head_dim)
+              and fused_ffn_ops.ffn_kernel_takes(hidden, 4 * hidden),
+              f"{hidden}-wide: the derived config is outside the kernels' domain")
+        log(f"# {tag} KG TSV: run_pretraining derives H={hidden}, "
             f"{derived.bert.num_attention_heads} heads of D={derived.bert.head_dim}, "
-            f"I={derived.bert.intermediate_size}, {derived.bert.num_hidden_layers} layers")
+            f"I={derived.bert.intermediate_size}, {derived.bert.num_hidden_layers} layers, "
+            f"{entities} KG entities; files {time.perf_counter() - t0:.1f} s")
         out_dir, hf = os.path.join(tmp, "run"), os.path.join(tmp, "hf")
         steps = list(range(1, WIDTH_PF_STEPS + 1))
-        _pf_run(f"run_pretraining {hidden}-wide", store_dir, out_dir, TRAINING_KERNELS,
+        _pf_run(f"run_pretraining {tag}", store_dir, out_dir, TRAINING_KERNELS,
                 _training_per_step(bert_cfg.num_hidden_layers), steps, total,
                 kg_embedding_path=emb, vocab_file=vocab_file, batch_size=TRAIN_BATCH,
-                max_steps=WIDTH_PF_STEPS, save_steps=WIDTH_PF_STEPS, export_hf_dir=hf)
+                max_steps=WIDTH_PF_STEPS, save_steps=WIDTH_PF_STEPS, export_hf_dir=hf,
+                variant=variant)
         few = {k: feats[k][:8] for k in ("input_ids", "attention_mask", "token_type_ids")}
         got = {}
         for label, dev, dt in (("card fp32", DEV, "float32"), ("card bf16", DEV, "bfloat16"),
                                ("CPU fp32", "cpu", "float32")):
+            t1 = time.perf_counter()
             eng = STonKGsEngine.from_pretrained(hf, emb, walks, vocab_file=vocab_file,
-                                                compute_dtype=dt, batch_size=8, device=dev)
-            check(eng.cfg.bert == bert_cfg, f"{label}: exported config {eng.cfg.bert}")
+                                                variant=variant, compute_dtype=dt, batch_size=8,
+                                                device=dev)
+            check(eng.cfg.bert == bert_cfg and eng.cfg.seq_len == cfg.seq_len,
+                  f"{label}: exported config {eng.cfg}")
             _reset_counts(SERVING_KERNELS)
             got[label] = eng.embed(few)
             if dev == DEV:
-                _check_counts(f"{hidden}-wide embed {label}", _counts(SERVING_KERNELS),
+                _check_counts(f"{tag} embed {label}", _counts(SERVING_KERNELS),
                               {n: 2 * bert_cfg.num_hidden_layers - 1 for n in SERVING_KERNELS})
                 _add_counts(total, _counts(SERVING_KERNELS))
-            check(bool(np.isfinite(got[label]).all()), f"{hidden}-wide {label} embed not finite")
+            check(bool(np.isfinite(got[label]).all()), f"{tag} {label} embed not finite")
+            log(f"# {tag} from_pretrained -> embed {label}: {time.perf_counter() - t1:.1f} s")
             del eng
         err = float(np.abs(got["card fp32"] - got["CPU fp32"]).max())
         cos = _cosine(got["card bf16"], got["CPU fp32"])
-        log(f"# {hidden}-wide run_pretraining -> from_pretrained -> embed (8 rows): card fp32 vs "
+        log(f"# {tag} run_pretraining -> from_pretrained -> embed (8 rows): card fp32 vs "
             f"CPU fp32 max_abs_err {err!r} (limit 1e-3); card bf16 vs CPU fp32 lowest cosine "
             f"{float(cos.min())!r} (limit 0.99); {time.perf_counter() - t0:.1f} s")
-        check(err <= 1e-3, f"{hidden}-wide: card fp32 embeddings disagree with the CPU")
-        check(bool((cos >= 0.99).all()), f"{hidden}-wide: card bf16 too far from the CPU")
+        check(err <= 1e-3, f"{tag}: card fp32 embeddings disagree with the CPU")
+        check(bool((cos >= 0.99).all()), f"{tag}: card bf16 too far from the CPU")
 
 
 def _widths_times(cfg: STonKGsConfig, engine, feats, state, card: str) -> dict:
@@ -5645,11 +5716,13 @@ def _bb_extra(bs: int) -> int:
     return (-bs) % 64 or 64
 
 
-def _sparse_fwd_fault(q, k, v, mask, rand, bs, extra=0, round2=True):
+def _sparse_fwd_fault(q, k, v, mask, rand, bs, extra=0, round2=True, scale_d=None):
     """The plain forward with a known fault: every slot widened by
     ``extra`` keys past its block (the keys that follow it, with their
-    mask's penalty, zeros and -10000 past S), or (``round2=False``) the
-    scaled logit not rounded again."""
+    mask's penalty, zeros and -10000 past S), (``round2=False``) the
+    scaled logit not rounded again, or (``scale_d``) the logit scale of
+    head width ``scale_d`` (a padded instance's width) in place of the
+    tensors' D."""
     B, S, H, D = q.shape
     nb = S // bs
     dt, f = q.dtype, torch.float32
@@ -5667,10 +5740,11 @@ def _sparse_fwd_fault(q, k, v, mask, rand, bs, extra=0, round2=True):
     pen = ((1.0 - gm) * bigbird_sparse_ops.ATTN_PENALTY).reshape(B, H, n_mid, 1, slots * w)
     qm = _blocked(q, bs)[:, :, 1:-1]
     s = torch.einsum("bhjqd,bhjkd->bhjqk", qm.to(f), kc.to(f)).to(dt)
+    scale = bigbird_sparse_ops._scale_in(dt, scale_d or D)
     if round2:
-        logits = (s * bigbird_sparse_ops._scale_in(dt, D)).to(f) + pen
+        logits = (s * scale).to(f) + pen
     else:
-        logits = s.to(f) * float(bigbird_sparse_ops._scale_in(dt, D)) + pen
+        logits = s.to(f) * float(scale) + pen
     wgt = torch.softmax(logits, dim=-1).to(dt)
     ctx = torch.einsum("bhjqk,bhjkd->bhjqd", wgt.to(f), vc.to(f)).to(dt)
     return ctx.permute(0, 2, 3, 1, 4).reshape(B, n_mid * bs, H, D)
@@ -5739,12 +5813,11 @@ def _bb_faults(gen, bs: int) -> None:
                         _sparse_fwd_fault(q, k, v, mask, rand, bs, round2=False))
 
 
-def _bb_kernels(gen, note) -> None:
-    """(a) The pair against its plain versions at every case of
-    ``BB_CASES``, bf16 and fp32, forward (lse too) and backward, at the
-    eval and the training plan; the faults at ``BB_FAULT_BLOCKS``; the
-    geometries outside the domain refused."""
-    for bs, D, B, H, nb, padded in BB_CASES:
+def _bb_cases(cases, gen, note) -> None:
+    """The pair against its plain versions at every (block size, D, B, H,
+    nb, padded mask) of ``cases``, bf16 and fp32, forward (lse too) and
+    backward, at the eval and the training plan."""
+    for bs, D, B, H, nb, padded in cases:
         for dtype in (BF16, F32):
             tag = "bf16" if dtype == BF16 else "fp32"
             for plan in ("eval", "train"):
@@ -5763,6 +5836,13 @@ def _bb_kernels(gen, note) -> None:
                         for n, g, w in zip(("dq", "dk", "dv"), got, want))
                 note("bigbird_mid_bwd", e, dtype)
                 del q, k, v, out, lse, out_p, lse_p, got, want
+
+
+def _bb_kernels(gen, note) -> None:
+    """(a) The pair against its plain versions at every case of
+    ``BB_CASES`` (``_bb_cases``); the faults at ``BB_FAULT_BLOCKS``; the
+    geometries outside the domain refused."""
+    _bb_cases(BB_CASES, gen, note)
     for bs in BB_FAULT_BLOCKS:
         _bb_faults(gen, bs)
     _sparse_geometry_rejected(gen)
@@ -6164,6 +6244,182 @@ def phase_head_widths(card: str, params: dict) -> tuple:
     return total, counts, errs, times
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the FFN kernels at every hidden width from 8 to 2048 and the
+# BigBird pair at every head width from 8 to 64; STonKGs and ProtSTonKGs
+# from KG TSVs 48 to 1280 wide
+# ---------------------------------------------------------------------------
+
+# hidden widths of the FFN checks: below 32 (16), no multiple of 32 (48,
+# 112, 144), no multiple of 8 (100, padded in both dtypes' layouts), above
+# 1024 (1056, 1280: the fp32 bodies' wide instance) and the widest (2048);
+# each at I = 4H (0 here), 100 and 1000
+WIDE_FFN_H = (16, 48, 100, 112, 144, 1056, 1280, 2048)
+WIDE_FFN_I = (0, 100, 1000)
+WIDE_FFN_M = (3, 200)
+# the planted faults' width (padded to 104 in bf16, 128 in fp32) and the
+# output columns of one TMA store box, the last partial one at H=100
+WIDE_FAULT_H = 100
+WIDE_FAULT_COLS = 64
+# the FFN widths just outside the kernels' domain, and BigBird's head width
+WIDE_FFN_OUTSIDE = ((2056, 8224), (768, 8200))
+WIDE_BB_OUTSIDE = 72
+# the BigBird checks' head widths (36: a 72-byte bf16 row, padded to 40),
+# each at (block size, B, H, nb, padded mask): block 64 (the padded
+# instances' run-time block of one tile) and 96 (a partial tile, nb = 5)
+WIDE_BB_D = (8, 24, 36, 40, 48, 56)
+WIDE_BB_GEOS = ((64, 2, 3, 8, True), (96, 2, 2, 5, False))
+# the planted fault's head width and the padded instance's width
+WIDE_BB_FAULT = (24, 32)
+# STonKGs from these KG TSV widths: 2 heads of 24, 40, 50 and 56, 20 of 64
+# (H = 1280, I = 5120); TransE from the 80-wide one; the rows of their
+# TSVs (phase 26's 5,000 made the 1280-wide path 24 s, two thirds of it
+# writing and reading the TSV and the checkpoint)
+WIDE_TSV_WIDTHS = (48, 80, 100, 112, 1280)
+WIDE_TRANSE_WIDTH = 80
+WIDE_ENTITIES = 1000
+# ProtSTonKGs from these (width, text | entity | protein lengths): trunk
+# heads of 24, 40, 36 (and the backbones'), blocks 96 and 512 (phase 27's)
+WIDE_PROT_PATHS = ((48, (384, 128, 256)), (80, (768, 256, 3072)), (144, (384, 128, 256)))
+
+
+def _ffn_ln_padded_stats(args, Hp, act):
+    """The serving block's plain version with a known fault: both
+    LayerNorms' statistics taken over the padded width ``Hp`` (the zero
+    columns counted) instead of the true H."""
+    x, attn, g1, be1, w1, b1, w2, b2, g2, be2 = args
+    dt, f, H = x.dtype, torch.float32, x.shape[-1]
+
+    def ln(y, g, b):
+        pad = lambda t: F.pad(t.float(), (0, Hp - H))  # noqa: E731
+        return fused_ffn_ops._layer_norm_rows(pad(y), pad(g), pad(b), 1e-12)[..., :H]
+
+    x2 = ln(x.float() + attn.float(), g1, be1).to(dt)
+    h = fused_ffn_ops._gelu(x2.float() @ w1.to(dt).float() + b1.float(), act).to(dt)
+    ff = (h.float() @ w2.to(dt).float() + b2.float()).to(dt)
+    return ln(x2.float() + ff.float(), g2, be2).to(dt)
+
+
+def _wide_ffn(gen, note) -> None:
+    """(a) The three FFN kernels at every H of WIDE_FFN_H with I = 4H, 100
+    and 1000, M = 3 and 200, gelu (and gelu_new at I = 4H, M = 200), bf16
+    and fp32, against their plain versions (weights at 1/sqrt(fan-in)).
+    At H=100, I=400, M=200 the limits must reject, in both dtypes, the
+    plain serving block with its LayerNorm statistics over the padded
+    width (104 in bf16, 128 in fp32), and the plain serving block and
+    training forward with the W2 product's last partial tile of 64 output
+    columns lost (columns 64-99 left at b2)."""
+    for dtype in (BF16, F32):
+        tag = "bf16" if dtype == BF16 else "fp32"
+        for H in WIDE_FFN_H:
+            for i_ in WIDE_FFN_I:
+                I = i_ or 4 * H
+                for M in WIDE_FFN_M:
+                    big = i_ == 0 and M == WIDE_FFN_M[-1]
+                    for act in ("gelu", "gelu_new") if big else ("gelu",):
+                        label = f"{tag} H={H} I={I} M={M} {act}"
+                        faults = big and H == WIDE_FAULT_H and act == "gelu"
+                        args = _ffn_inputs(M, dtype, gen, H, I, fan_in=True)
+                        want = fused_ffn_ln_block_plain(*args, act=act)
+                        e = _compare(f"ffn_ln {label}", fused_ffn_ln_block(*args, act=act), want,
+                                     dtype)
+                        note("ffn_ln_block", e, dtype)
+                        cut = WIDE_FAULT_COLS * (H // WIDE_FAULT_COLS)
+                        if faults:
+                            Hp = fused_ffn_ops.padded_width(H, dtype)
+                            _tol_rejects(f"ffn_ln {label} with the LayerNorm statistics over "
+                                         f"the padded width {Hp}", want,
+                                         _ffn_ln_padded_stats(args, Hp, act))
+                            w2 = args[6].clone()
+                            w2[:, cut:] = 0
+                            _tol_rejects(f"ffn_ln {label} without the W2 product's columns "
+                                         f"{cut}-{H - 1}", want, fused_ffn_ln_block_plain(
+                                             *args[:6], w2, *args[7:], act=act))
+                        x, w1, b1, w2, b2, g = _train_ffn_inputs(M, dtype, gen, H, I,
+                                                                 fan_in=True)
+                        want = fused_ffn_plain(x, w1, b1, w2, b2, act=act)
+                        e = _compare(f"ffn fwd {label}",
+                                     fused_ffn_fwd(x, w1, b1, w2, b2, act=act), want, dtype)
+                        note("ffn_train_fwd", e, dtype)
+                        if faults:
+                            w2c = w2.clone()
+                            w2c[:, cut:] = 0
+                            _tol_rejects(f"ffn fwd {label} without the W2 product's columns "
+                                         f"{cut}-{H - 1}", want,
+                                         fused_ffn_plain(x, w1, b1, w2c, b2, act=act))
+                        got = fused_ffn_bwd(x, g, w1, b1, w2, act=act)
+                        want = fused_ffn_bwd_plain(x, g, w1, b1, w2, act=act)
+                        e = max(_compare_rel(f"ffn dx {label}", got[0], want[0], dtype),
+                                _compare_rel(f"ffn dh {label}", got[1], want[1], dtype),
+                                _compare(f"ffn a {label}", got[2], want[2], dtype))
+                        note("ffn_train_bwd", e, dtype)
+                        del args, x, w1, b1, w2, b2, g, got, want
+
+
+def _wide_bigbird(gen, note) -> None:
+    """(b) The BigBird pair at every head width of WIDE_BB_D and each
+    geometry of WIDE_BB_GEOS against its plain versions (``_bb_cases``);
+    then at D=24 in bf16 (block 64, the training plan, integer-valued q
+    and k, where the rounded Q·Kᵀ is exact) the kernel within the limits
+    and the plain output at the padded instance's scale 1/sqrt(32) (in
+    place of 1/sqrt(24)) rejected by them."""
+    _bb_cases([(bs, D, B, H, nb, padded) for D in WIDE_BB_D
+               for bs, B, H, nb, padded in WIDE_BB_GEOS], gen, note)
+    D, P = WIDE_BB_FAULT
+    label = f"bf16 D={D} bs=64 train plan"
+    _, _, _, mask, rand, _ = _sparse_inputs(2, 8, BF16, gen, "train", False, 3, 64, D, BB_R)
+    q, k, v = _integer_qkv(2, 8 * 64, 3, D, gen)
+    want = bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)[0]
+    e = _compare_attn(f"sparse fwd {label} integer q, k",
+                      bigbird_mid_fwd(q, k, v, mask, rand, 64)[0], want, BF16)
+    note("bigbird_mid_fwd", e, BF16)
+    _attn_limit_rejects(f"sparse fwd {label} integer q, k at the scale 1/sqrt({P})", want,
+                        _sparse_fwd_fault(q, k, v, mask, rand, 64, scale_d=P))
+
+
+def _wide_paths(total: dict) -> None:
+    """(c) STonKGs ``run_pretraining`` -> ``from_pretrained`` -> ``embed``
+    from each width of WIDE_TSV_WIDTHS and TransE from the 80-wide TSV
+    (``_widths_pretrain_files``, WIDE_ENTITIES rows), and ProtSTonKGs from each TSV of
+    WIDE_PROT_PATHS (``_bb_path``): launch counts from 0, card fp32
+    against CPU fp32, card bf16 by cosine."""
+    for hidden in WIDE_TSV_WIDTHS:
+        _widths_pretrain_files(hidden, total, entities=WIDE_ENTITIES)
+    _widths_pretrain_files(WIDE_TRANSE_WIDTH, total, variant="transe", entities=WIDE_ENTITIES)
+    with tempfile.TemporaryDirectory(prefix="stonkgs_wide_") as tmp:
+        for width, layout in WIDE_PROT_PATHS:
+            art = make_random_artifacts(BB_KG_NODES, dim=width, rw_len=README_RW_LEN, seed=width)
+            emb = os.path.join(tmp, f"emb{width}.tsv")
+            save_kg_artifacts(art, emb, os.path.join(tmp, f"walks{width}.tsv"))
+            _bb_path(width, layout, emb, tmp, total)
+            torch.cuda.empty_cache()
+
+
+def phase_wide(card: str) -> tuple:
+    """Phase 29: (a) the FFN kernels at hidden widths from 16 to 2048 with
+    the planted faults, (b) the BigBird pair at head widths from 8 to 56
+    with the planted fault (the refused widths are phase 26's), (c) the
+    STonKGs and ProtSTonKGs paths from KG TSVs whose derived configs run
+    them.  Returns (the launch counts of every counted run, summed; per
+    kernel, the worst bf16 error of (a) and (b))."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(29)
+    errs: dict = {}
+
+    def note(name, err, dtype):
+        if dtype == BF16:
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    _wide_ffn(gen, note)
+    log(f"# wide (a) FFN kernels: {time.perf_counter() - t_phase:.1f} s")
+    _wide_bigbird(gen, note)
+    log(f"# wide (b) BigBird pair: {time.perf_counter() - t_phase:.1f} s")
+    total: dict = {}
+    _wide_paths(total)
+    log(f"# wide phase: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return total, errs
+
+
 def main() -> int:
     try:
         card = phase_device()
@@ -6238,6 +6494,12 @@ def main() -> int:
         del params
         for name, c in head_total.items():
             counts[name] += c
+        wide_total, wide_errs = phase_wide(card)
+        for name, c in wide_total.items():
+            counts[name] += c
+        # the worst bf16 error at the new widths goes into the kernel line
+        for name, e in wide_errs.items():
+            errs[name] = max(errs[name], e)
         # the fine-tuning shapes' worst error goes into the kernel line
         for key, t in ft_times.items():
             name = key.split(":")[0]

@@ -14,12 +14,12 @@
 //   score_tile: sw (16 x 64, fp32) = A_w (16 x D) . B^T, B a 64 x D tile;
 //   PvAcc:      acc (16 x D, fp32) += P_w (16 x 64) . V, V a 64 x D tile
 //               (lane owns columns lane, lane + 32, ... below D).
-// The tile width is a template parameter.  Two dispatches give it from a
-// run-time head width D: with_head_dim takes D = 16, 32 or 64 (BigBird's
-// domain), with_padded_head_dim any multiple of 8 from 8 to 128 (the
-// attention kernels'), run on the instance of the padded width P = 16, 32,
-// 64 or 128, the smallest at least D: the loads zero the columns from D
-// to P, which add nothing to a product, and the stores write columns < D.
+// The tile width is a template parameter.  with_padded_head_dim gives it
+// from a run-time head width D, any multiple of 8 from 8 to 128 (the
+// attention kernels'; up to 64 for BigBird's), run on the instance of the
+// padded width P = 16, 32, 64 or 128, the smallest at least D: the loads
+// zero the columns from D to P, which add nothing to a product, and the
+// stores write columns < D.
 #pragma once
 
 #include <cmath>
@@ -41,32 +41,26 @@ constexpr float kNegBias = -1e9f;  // score of a padded key (the JAX package's N
 template <typename T> struct Pad;
 template <> struct Pad<float> { static constexpr int value = 4; };
 
-// f(std::integral_constant<int, D>{}) for a head width D of 16, 32 or 64;
-// cudaErrorInvalidValue for any other
-template <typename F>
-inline int with_head_dim(int D, F&& f) {
-  switch (D) {
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 32: return f(std::integral_constant<int, 32>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-    default: return int(cudaErrorInvalidValue);
-  }
-}
-
 // the widest head width of the attention kernels
 constexpr int kMaxHeadDim = 128;
 
 // f(std::integral_constant<int, P>{}) for a head width D that is a multiple
-// of 8 from 8 to 128, P = 16, 32, 64 or 128 the smallest width at least D
-// (a row of D elements is then a multiple of 16 bytes, as TMA's strides and
-// the 16-byte loads need); cudaErrorInvalidValue for any other D
-template <typename F>
+// of 8 from 8 to kMax (128, or 64 for BigBird), P = 16, 32, 64 or 128 the
+// smallest width at least D (a row of D elements is then a multiple of 16
+// bytes, as TMA's strides and the 16-byte loads need);
+// cudaErrorInvalidValue for any other D
+template <int kMax = kMaxHeadDim, typename F>
 inline int with_padded_head_dim(int D, F&& f) {
-  if (D < 8 || D > kMaxHeadDim || D % 8 != 0) return int(cudaErrorInvalidValue);
+  static_assert(kMax == 64 || kMax == kMaxHeadDim, "instances at P = 16, 32, 64 (and 128)");
+  if (D < 8 || D > kMax || D % 8 != 0) return int(cudaErrorInvalidValue);
   if (D <= 16) return f(std::integral_constant<int, 16>{});
   if (D <= 32) return f(std::integral_constant<int, 32>{});
-  if (D <= 64) return f(std::integral_constant<int, 64>{});
-  return f(std::integral_constant<int, 128>{});
+  if constexpr (kMax == 64) {
+    return f(std::integral_constant<int, 64>{});
+  } else {
+    if (D <= 64) return f(std::integral_constant<int, 64>{});
+    return f(std::integral_constant<int, 128>{});
+  }
 }
 
 template <typename T, int D = kD> struct Sizes {

@@ -11,17 +11,26 @@
 // = g_last) takes -10000 outright.  Repeated blocks (the all-zero eval
 // plan) are separate keys.  Logits as _mid_logits
 // (stonkgs_tpu/ops/bigbird_sparse_pallas.py:70): s = round(round(Q K^T) *
-// scale) + penalty, Q K^T in fp32, the roundings to bf16, scale = 1/sqrt(D)
-// in bf16 (as JAX multiplies a bf16 array by a Python float; kLogitScale).
-// At D = 16 and 64 it is a power of two, so the second rounding is exact
-// and the kernels make only the first; at D = 32 they make both.  Both are
-// fixed by D at compile time.
+// scale) + penalty, Q K^T in fp32, the roundings to bf16, scale = 1/sqrt(d)
+// of the tensors' head width d, in bf16 (as JAX multiplies a bf16 array by
+// a Python float).
 //
-// Geometry: head width D = 16, 32 or 64 (a template parameter: a row of D
-// bf16 is a line of 2D bytes, and TMA and the wgmma descriptors take the
-// swizzle of that width) and a block size bs that is any multiple of 8
-// from 8 to 1,024.  A block is T = ceil(bs / 64) row tiles of 64, the
-// wgmma M.  Blocks of 64 and 128 (the trunk's) have instances of their own
+// Geometry: head width d any multiple of 8 from 8 to 64, run on the
+// instance of the padded width D = 16, 32 or 64, the smallest at least d (a
+// template parameter: a row of D bf16 is a line of 2D bytes, and TMA and
+// the wgmma descriptors take the swizzle of that width), and a block size
+// bs that is any multiple of 8 from 8 to 1,024.  At d = D (16, 32, 64 with
+// the scale 1/sqrt(D)) the exact instances fix the scale by D at compile
+// time (kLogitScale): at D = 16 and 64 it is a power of two, so the second
+// rounding is exact and the kernels make only the first; at D = 32 they
+// make both.  Every other call runs a padded instance (kPadded): the
+// tensor maps take d as their dimension and a box D wide, so TMA
+// zero-fills the columns from d to D (they add nothing to a product), the
+// stores skip them, and the logit takes the call's scale (Geo::logit,
+// 1/sqrt(d) in bf16, the true d's and not D's) rounded twice (a scale
+// that is no power of two, which every d other than 16 and 64 has).  The
+// padded instances take the block size at run time only.  A block is
+// T = ceil(bs / 64) row tiles of 64, the wgmma M.  Blocks of 64 and 128 (the trunk's) have instances of their own
 // (the template's BS) with bs and T fixed at compile time and no partial
 // tile; other sizes take bs at run time (BS = 0), which ran the block-64
 // forward 21-23% slower when it served every size (PERF.md).  When bs is not
@@ -119,7 +128,7 @@
 #include <cmath>
 #include <cstdint>
 
-#include "attention.cuh"  // attn::with_head_dim
+#include "attention.cuh"  // attn::with_padded_head_dim
 #include "sm90.cuh"
 
 namespace stonkgs {
@@ -132,7 +141,9 @@ struct Geo {
   int S, H, nb, r;
   int bs;                // block size: a multiple of 8 from 8 to 1,024
   long long sb, ss, sh;  // element strides of q, k, v
-  float scale;           // 1/sqrt(D) in fp32: dS's scale, and the fp32 bodies' logit scale
+  float scale;           // 1/sqrt(d) in fp32: dS's scale, and the fp32 bodies' logit scale
+  int d;                 // the tensors' head width (at most the instance's)
+  float logit;           // the scale rounded to bf16: the bf16 padded instances' logit scale
 };
 
 // 64-row tiles of a block of bs rows
@@ -171,7 +182,7 @@ using namespace sm90;
 using bigbird::Geo;
 using bigbird::kRows;
 using bigbird::tiles_of;
-using attn::with_head_dim;
+using attn::with_padded_head_dim;
 
 // consumer warpgroups (64 query rows each) and ring stages of the forward
 // and of the backward at Q = 2 (a stage holds one sub-tile a query block of
@@ -322,24 +333,27 @@ __device__ __forceinline__ void fill_stage(const Stage<D>& st, const CUtensorMap
 }
 
 // round(round(a) * scale) and round(round(b) * scale), the roundings to
-// bf16; where the scale is a power of two (D = 16, 64) round(a) * scale is
-// a bf16 value already and the second rounding is left out
-template <int D>
-__device__ __forceinline__ float2 rounded_logits(float a, float b) {
+// bf16; an exact instance takes the scale of D, and where it is a power of
+// two (D = 16, 64) round(a) * scale is a bf16 value already and the second
+// rounding is left out; a padded instance takes the call's scale (`logit`)
+// and rounds twice
+template <int D, bool kPadded>
+__device__ __forceinline__ float2 rounded_logits(float a, float b, float logit) {
+  const float scale = kPadded ? logit : kLogitScale<D>;
   float2 r = __bfloat1622float2(__floats2bfloat162_rn(a, b));
-  r.x *= kLogitScale<D>;
-  r.y *= kLogitScale<D>;
-  if constexpr (D == 32) r = __bfloat1622float2(__floats2bfloat162_rn(r.x, r.y));
+  r.x *= scale;
+  r.y *= scale;
+  if constexpr (kPadded || D == 32) r = __bfloat1622float2(__floats2bfloat162_rn(r.x, r.y));
   return r;
 }
 
 // the masked logits of a 64 x 64 Q K^T accumulator, in place
-template <int D>
-__device__ __forceinline__ void logits(float (&s)[32], const float* pen, int lane) {
+template <int D, bool kPadded>
+__device__ __forceinline__ void logits(float (&s)[32], const float* pen, int lane, float logit) {
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     const float2 pv = *reinterpret_cast<const float2*>(pen + acc_col(i, lane));
-    const float2 x = rounded_logits<D>(s[i], s[i + 1]);
+    const float2 x = rounded_logits<D, kPadded>(s[i], s[i + 1], logit);
     s[i] = x.x + pv.x;
     s[i + 1] = x.y + pv.y;
   }
@@ -355,13 +369,15 @@ __device__ __forceinline__ void product_abt(float (&s)[32], uint64_t da, uint64_
 
 // a warpgroup's 64 x 2R fp32 accumulator, rounded, into rows `row` and
 // row + 8 (the thread's) of a bf16 (.., 2R) array whose row `row` is dst0
-// and row + 8 is dst8, each only where its flag is set
-template <int R>
+// and row + 8 is dst8, each only where its flag is set; kPadded: only the
+// columns below `cols` (an even number)
+template <bool kPadded, int R>
 __device__ __forceinline__ void store_acc(bf16* dst0, bf16* dst8, bool ok0, bool ok8,
-                                          const float (&d)[R], int lane) {
+                                          const float (&d)[R], int lane, int cols) {
 #pragma unroll
   for (int i = 0; i < R; i += 2) {
     if (!(acc_row(i) ? ok8 : ok0)) continue;
+    if (kPadded && acc_col(i, lane) >= cols) continue;
     bf16* dst = acc_row(i) ? dst8 : dst0;
     *reinterpret_cast<uint32_t*>(dst + acc_col(i, lane)) = pack_bf16(d[i], d[i + 1]);
   }
@@ -371,9 +387,9 @@ __device__ __forceinline__ void store_acc(bf16* dst0, bf16* dst8, bool ok0, bool
 // forward
 // ---------------------------------------------------------------------------
 
-// head width D, Q query blocks a CTA, S ring stages, block size BS (0: at
-// run time)
-template <int D, int Q, int S, int BS>
+// head width D (padded past the tensors' g.d when kPadded), Q query blocks
+// a CTA, S ring stages, block size BS (0: at run time)
+template <int D, int Q, int S, int BS, bool kPadded>
 __global__ void __launch_bounds__(threads_of(kFwdConsumers), 1)
 bigbird_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -444,7 +460,7 @@ bigbird_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
-      logits<D>(acc, sm.pen[stage][qb], lane);
+      logits<D, kPadded>(acc, sm.pen[stage][qb], lane, g.logit);
     };
     mbar_wait(&sm.rowbar, 0);
 
@@ -511,8 +527,9 @@ bigbird_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       release_stage(&sm.empty[stage], lane);
     }
     if (ok[0] || ok[1]) {
-      bf16* dst = out + ((size_t(b) * n_rows + row0) * g.H + h) * D;
-      store_acc(dst, dst + size_t(8) * g.H * D, ok[0], ok[1], o, lane);
+      const int d = kPadded ? g.d : D;  // out's head width
+      bf16* dst = out + ((size_t(b) * n_rows + row0) * g.H + h) * d;
+      store_acc<kPadded>(dst, dst + size_t(8) * g.H * d, ok[0], ok[1], o, lane, d);
     }
   }
 }
@@ -541,9 +558,9 @@ __device__ __forceinline__ void st_shared_u32(bf16* tile, uint32_t byte_off, uin
   *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(tile) + byte_off) = v;
 }
 
-// head width D, Q query blocks a CTA, S ring stages, block size BS (0: at
-// run time)
-template <int D, int Q, int S, int BS>
+// head width D (padded past the tensors' g.d when kPadded), Q query blocks
+// a CTA, S ring stages, block size BS (0: at run time)
+template <int D, int Q, int S, int BS, bool kPadded>
 __global__ void __launch_bounds__(threads_of(kBwdConsumers), 1)
 bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -675,7 +692,7 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      logits<D>(s, sm.pen[stage][qb], lane);
+      logits<D, kPadded>(s, sm.pen[stage][qb], lane, g.logit);
       // p = exp(s - lse), dS = p (dP - delta) * scale, both 0 on rows past
       // the block; round(p), dS hi and lo into shared memory (the previous
       // sub-tile's products are done: every warp passed the barriers
@@ -738,6 +755,7 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
             bigbird::slot_block(rand_j, it / T, jc, g.nb) * bs + (it % T) * kRows;
 #pragma unroll
         for (int x = 0; x < D / BC; ++x) {
+          if (kPadded && BC * x >= g.d) break;  // a box wholly past the accumulators' d
           tma_reduce_add_4d(&map_dk, sm.dk[wg] + x * kRows * BC, BC * x, h, key0, b);
           tma_reduce_add_4d(&map_dv, sm.dv[wg] + x * kRows * BC, BC * x, h, key0, b);
         }
@@ -746,8 +764,9 @@ bigbird_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     if (tid == 0) tma_store_done();
     if (ok[0] || ok[1]) {
-      bf16* dst = dq + ((size_t(b) * g.S + bs + row0) * g.H + h) * D;
-      store_acc(dst, dst + size_t(8) * g.H * D, ok[0], ok[1], dq_acc, lane);
+      const int d = kPadded ? g.d : D;  // dq's head width
+      bf16* dst = dq + ((size_t(b) * g.S + bs + row0) * g.H + h) * d;
+      store_acc<kPadded>(dst, dst + size_t(8) * g.H * d, ok[0], ok[1], dq_acc, lane, d);
     }
   }
 }
@@ -791,12 +810,12 @@ inline dim3 grid_of(int B, const Geo& g, int Q) {
   return dim3(x, g.H, B);
 }
 
-template <int D, int Q, int S, int BS>
+template <int D, int Q, int S, int BS, bool kPadded>
 inline int launch_fwd_sm90_t(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
                              const float* mask, const int* rand, void* out, float* lse, int B,
                              const Geo& g, cudaStream_t stream) {
   constexpr size_t smem = sizeof(SmemFwd<D, kFwdConsumers, Q, S>) + 1024;
-  auto kernel = bigbird_fwd_sm90_kernel<D, Q, S, BS>;
+  auto kernel = bigbird_fwd_sm90_kernel<D, Q, S, BS, kPadded>;
   const cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return int(e);
   kernel<<<grid_of(B, g, Q), threads_of(kFwdConsumers), smem, stream>>>(
@@ -804,33 +823,55 @@ inline int launch_fwd_sm90_t(const CUtensorMap& mq, const CUtensorMap& mk, const
   return int(cudaGetLastError());
 }
 
+// whether a call runs an exact instance: its head width is one (16, 32 or
+// 64) and its scale, in bf16, that width's
+inline bool exact_call(const Geo& g) {
+  return (g.d == 16 && g.logit == kLogitScale<16>) || (g.d == 32 && g.logit == kLogitScale<32>) ||
+         (g.d == 64 && g.logit == kLogitScale<64>);
+}
+
+// f(std::integral_constant<bool, kPadded>{}) for the call's kind of instance
+template <typename F>
+inline int with_exactness(const Geo& g, F&& f) {
+  return exact_call(g) ? f(std::false_type{}) : f(std::true_type{});
+}
+
 inline int launch_fwd_sm90(const void* q, const void* k, const void* v, const float* mask,
-                           const int* rand, void* out, float* lse, int B, int D, const Geo& g,
+                           const int* rand, void* out, float* lse, int B, const Geo& g,
                            cudaStream_t stream) {
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
-    CUtensorMap mq, mk, mv;
-    if (!make_map_bshd<bf16>(&mq, q, B, g.S, g.H, kD, g.sb, g.ss, g.sh, kD) ||
-        !make_map_bshd<bf16>(&mk, k, B, g.S, g.H, kD, g.sb, g.ss, g.sh, kD) ||
-        !make_map_bshd<bf16>(&mv, v, B, g.S, g.H, kD, g.sb, g.ss, g.sh, kD))
-      return kErrTensorMap;
-    constexpr int S1 = kFwdStages, S2 = 2 * kFwdStages;
-    if (g.bs == 64)
-      return launch_fwd_sm90_t<kD, 2, S1, 64>(mq, mk, mv, mask, rand, out, lse, B, g, stream);
-    if (g.bs == 128)
-      return launch_fwd_sm90_t<kD, 1, S2, 128>(mq, mk, mv, mask, rand, out, lse, B, g, stream);
-    if (tiles_of(g.bs) > 1)
-      return launch_fwd_sm90_t<kD, 1, S2, 0>(mq, mk, mv, mask, rand, out, lse, B, g, stream);
-    return launch_fwd_sm90_t<kD, 2, S1, 0>(mq, mk, mv, mask, rand, out, lse, B, g, stream);
+  return with_padded_head_dim<64>(g.d, [&](auto p) {
+    constexpr int kD = decltype(p)::value;
+    return with_exactness(g, [&](auto pad) {
+      constexpr bool kPadded = decltype(pad)::value;
+      CUtensorMap mq, mk, mv;
+      if (!make_map_bshd<bf16>(&mq, q, B, g.S, g.H, g.d, g.sb, g.ss, g.sh, kD) ||
+          !make_map_bshd<bf16>(&mk, k, B, g.S, g.H, g.d, g.sb, g.ss, g.sh, kD) ||
+          !make_map_bshd<bf16>(&mv, v, B, g.S, g.H, g.d, g.sb, g.ss, g.sh, kD))
+        return kErrTensorMap;
+      constexpr int S1 = kFwdStages, S2 = 2 * kFwdStages;
+      if constexpr (!kPadded) {
+        if (g.bs == 64)
+          return launch_fwd_sm90_t<kD, 2, S1, 64, false>(mq, mk, mv, mask, rand, out, lse, B, g,
+                                                         stream);
+        if (g.bs == 128)
+          return launch_fwd_sm90_t<kD, 1, S2, 128, false>(mq, mk, mv, mask, rand, out, lse, B, g,
+                                                          stream);
+      }
+      if (tiles_of(g.bs) > 1)
+        return launch_fwd_sm90_t<kD, 1, S2, 0, kPadded>(mq, mk, mv, mask, rand, out, lse, B, g,
+                                                        stream);
+      return launch_fwd_sm90_t<kD, 2, S1, 0, kPadded>(mq, mk, mv, mask, rand, out, lse, B, g,
+                                                      stream);
+    });
   });
 }
 
-template <int D, int Q, int S, int BS>
+template <int D, int Q, int S, int BS, bool kPadded>
 inline int launch_bwd_sm90_t(const CUtensorMap (&maps)[7], const float* mask, const int* rand,
                              const float* lse, void* dq, int B, const Geo& g,
                              cudaStream_t stream) {
   constexpr size_t smem = sizeof(SmemBwd<D, kBwdConsumers, Q, S>) + 1024;
-  auto kernel = bigbird_bwd_sm90_kernel<D, Q, S, BS>;
+  auto kernel = bigbird_bwd_sm90_kernel<D, Q, S, BS, kPadded>;
   const cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return int(e);
   kernel<<<grid_of(B, g, Q), threads_of(kBwdConsumers), smem, stream>>>(
@@ -841,29 +882,35 @@ inline int launch_bwd_sm90_t(const CUtensorMap (&maps)[7], const float* mask, co
 
 inline int launch_bwd_sm90(const void* q, const void* k, const void* v, const float* mask,
                            const int* rand, const void* out, const float* lse, const void* dout,
-                           void* dq, float* dk, float* dv, int B, int D, const Geo& g,
+                           void* dq, float* dk, float* dv, int B, const Geo& g,
                            cudaStream_t stream) {
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
+  return with_padded_head_dim<64>(g.d, [&](auto p) {
+    constexpr int kD = decltype(p)::value;
     constexpr int BC = kBoxCols<kD>;
-    const int n_rows = (g.nb - 2) * g.bs;
-    CUtensorMap maps[7];  // q, k, v, o, dO, dK, dV
-    if (!make_map_bshd<bf16>(&maps[0], q, B, g.S, g.H, kD, g.sb, g.ss, g.sh, kD) ||
-        !make_map_bshd<bf16>(&maps[1], k, B, g.S, g.H, kD, g.sb, g.ss, g.sh, kD) ||
-        !make_map_bshd<bf16>(&maps[2], v, B, g.S, g.H, kD, g.sb, g.ss, g.sh, kD) ||
-        !make_map_dense<bf16>(&maps[3], out, B, n_rows, g.H, kD, kD) ||
-        !make_map_dense<bf16>(&maps[4], dout, B, n_rows, g.H, kD, kD) ||
-        !make_map_dense<float>(&maps[5], dk, B, g.S, g.H, kD, BC, BC == 32) ||
-        !make_map_dense<float>(&maps[6], dv, B, g.S, g.H, kD, BC, BC == 32))
-      return kErrTensorMap;
-    constexpr int S1 = kBwdStages, S2 = 2 * kBwdStages;
-    if (g.bs == 64)
-      return launch_bwd_sm90_t<kD, 2, S1, 64>(maps, mask, rand, lse, dq, B, g, stream);
-    if (g.bs == 128)
-      return launch_bwd_sm90_t<kD, 1, S2, 128>(maps, mask, rand, lse, dq, B, g, stream);
-    if (tiles_of(g.bs) > 1)
-      return launch_bwd_sm90_t<kD, 1, S2, 0>(maps, mask, rand, lse, dq, B, g, stream);
-    return launch_bwd_sm90_t<kD, 2, S1, 0>(maps, mask, rand, lse, dq, B, g, stream);
+    return with_exactness(g, [&](auto pad) {
+      constexpr bool kPadded = decltype(pad)::value;
+      const int n_rows = (g.nb - 2) * g.bs;
+      CUtensorMap maps[7];  // q, k, v, o, dO, dK, dV
+      if (!make_map_bshd<bf16>(&maps[0], q, B, g.S, g.H, g.d, g.sb, g.ss, g.sh, kD) ||
+          !make_map_bshd<bf16>(&maps[1], k, B, g.S, g.H, g.d, g.sb, g.ss, g.sh, kD) ||
+          !make_map_bshd<bf16>(&maps[2], v, B, g.S, g.H, g.d, g.sb, g.ss, g.sh, kD) ||
+          !make_map_dense<bf16>(&maps[3], out, B, n_rows, g.H, g.d, kD) ||
+          !make_map_dense<bf16>(&maps[4], dout, B, n_rows, g.H, g.d, kD) ||
+          !make_map_dense<float>(&maps[5], dk, B, g.S, g.H, g.d, BC, BC == 32) ||
+          !make_map_dense<float>(&maps[6], dv, B, g.S, g.H, g.d, BC, BC == 32))
+        return kErrTensorMap;
+      constexpr int S1 = kBwdStages, S2 = 2 * kBwdStages;
+      if constexpr (!kPadded) {
+        if (g.bs == 64)
+          return launch_bwd_sm90_t<kD, 2, S1, 64, false>(maps, mask, rand, lse, dq, B, g, stream);
+        if (g.bs == 128)
+          return launch_bwd_sm90_t<kD, 1, S2, 128, false>(maps, mask, rand, lse, dq, B, g,
+                                                          stream);
+      }
+      if (tiles_of(g.bs) > 1)
+        return launch_bwd_sm90_t<kD, 1, S2, 0, kPadded>(maps, mask, rand, lse, dq, B, g, stream);
+      return launch_bwd_sm90_t<kD, 2, S1, 0, kPadded>(maps, mask, rand, lse, dq, B, g, stream);
+    });
   });
 }
 

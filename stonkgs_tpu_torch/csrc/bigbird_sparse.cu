@@ -1,6 +1,7 @@
 // BigBird block-sparse attention, the middle query blocks, forward and
-// backward (HF BigBirdBlockSparseAttention), at head width D = 16, 32 or
-// 64 and a block size bs that is any multiple of 8 from 8 to 1,024.
+// backward (HF BigBirdBlockSparseAttention), at a head width d that is any
+// multiple of 8 from 8 to 64 and a block size bs that is any multiple of 8
+// from 8 to 1,024.
 //
 // Replaces the TPU kernels _mid_blocks_kernel and _mid_blocks_bwd_kernel
 // (stonkgs_tpu/ops/bigbird_sparse_pallas.py:83 and :113, which share
@@ -19,7 +20,9 @@
 // bf16 runs the Hopper kernels of bigbird_sm90.cuh (TMA rings, wgmma; the
 // forward's two passes as the dense attention's, the backward's dK and dV
 // added with TMA reduce-adds).  The fp32 bodies here exist to hold the
-// model against the CPU: one block of 128 threads (4 warps of 16 query
+// model against the CPU, instantiated at the padded widths D = 16, 32 and
+// 64 (the tiles D wide, zero past d; the stores and adds skip the columns
+// from d on): one block of 128 threads (4 warps of 16 query
 // rows) per 64-row tile u of middle query block j (T = ceil(bs / 64) tiles
 // a block: the grid's x is j * T + u), head h and batch b, query block i =
 // j + 1, streaming the 5 + r key slots [g0 | window i-1, i, i+1 | g_last |
@@ -48,11 +51,14 @@
 // sb, ss, sh of their (B, S, H, D) view, the last axis contiguous; out,
 // dout are (B, (nb-2)*bs, H, D) and lse (B, H, (nb-2)*bs), contiguous;
 // mask (B, S) fp32; rand (H, nb-2, r) int32; dq (B, S, H, D) of q's type
-// and dk, dv fp32 accumulators of that shape, contiguous and zeroed; scale
-// is 1/sqrt(D); a block size that is not a multiple of 8 from 8 to 1,024,
-// S not a multiple of it or fewer than 5 blocks, a head width other than
-// 16, 32 or 64, or in bf16 a scale whose bf16 rounding is not 1/sqrt(D)'s
-// returns cudaErrorInvalidValue and launches nothing):
+// and dk, dv fp32 accumulators of that shape, contiguous and zeroed; D is
+// the tensors' head width and scale 1/sqrt(d) of the true head width d,
+// D - 8 < d <= D (a caller pads a d that is not a multiple of 8 with zero
+// columns; the bf16 kernels round the scale to bf16 and take the logit at
+// it); a block size that is not a multiple of 8 from 8 to 1,024, S not a
+// multiple of it or fewer than 5 blocks, a head width D that is not a
+// multiple of 8 from 8 to 64, or in bf16 a scale whose bf16 rounding is no
+// such d's returns cudaErrorInvalidValue and launches nothing):
 //   int bigbird_mid_fwd(int dtype /*0 fp32, 1 bf16*/, q, k, v, mask, rand,
 //                       out, lse, int B, int S, int H, int r, int bs, int D,
 //                       long long sb, long long ss, long long sh,
@@ -77,7 +83,7 @@ using attn::PvAcc;
 using attn::score_tile;
 using attn::Sizes;
 using attn::store_rows;
-using attn::with_head_dim;
+using attn::with_padded_head_dim;
 using T = float;  // the SIMT bodies' type (bf16 runs bigbird_sm90.cuh)
 
 // the first key (a row of S) of 64-key sub-tile u of slot t of middle
@@ -97,8 +103,8 @@ __device__ __forceinline__ void load_slot(const Geo& g, const T* k, const T* v, 
   const int n = min(kTile, g.bs - u * kTile);
   const size_t off = head_off + size_t(key0) * g.ss;
   __syncthreads();  // the previous sub-tile is consumed
-  load_rows<T, D>(ks, k + off, g.ss, n);
-  if (vs) load_rows<T, D>(vs, v + off, g.ss, n);
+  load_rows<T, D>(ks, k + off, g.ss, n, g.d);
+  if (vs) load_rows<T, D>(vs, v + off, g.ss, n, g.d);
   if (threadIdx.x < kTile)
     pen[threadIdx.x] = tile_penalty(mask_b, key0, threadIdx.x, u, g.bs, dup_slot(t, j, g.nb));
   __syncthreads();
@@ -114,7 +120,7 @@ __device__ __forceinline__ float logit(float qk, float scale, float pen) {
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const float* __restrict__ mask, const int* __restrict__ rand,
                T* __restrict__ out, float* __restrict__ lse, Geo g) {
@@ -142,7 +148,7 @@ mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   float* sw = sst + warp * 16 * kSST;
   T* pw = pst + warp * 16 * PS;
 
-  load_rows<T, D>(qs, q + head_off + size_t(g.bs + mrow0) * g.ss, g.ss, n_rows);
+  load_rows<T, D>(qs, q + head_off + size_t(g.bs + mrow0) * g.ss, g.ss, n_rows, g.d);
 
   const int row = lane >> 1, half = lane & 1;
   float m = -INFINITY, l = 0.f;
@@ -180,9 +186,9 @@ mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     __syncwarp();
   }
   acc.store(sw, lane);
-  const size_t ors = size_t(g.H) * D;  // row stride of out
-  store_rows<T, D>(out + (size_t(b) * n_mid * g.bs + mrow0 + r0) * ors + size_t(h) * D, ors, sw,
-                   n_rows - r0, 1.f, lane);
+  const size_t ors = size_t(g.H) * g.d;  // row stride of out
+  store_rows<T, D>(out + (size_t(b) * n_mid * g.bs + mrow0 + r0) * ors + size_t(h) * g.d, ors,
+                   sw, n_rows - r0, 1.f, lane, g.d);
 }
 
 // ---------------------------------------------------------------------------
@@ -227,14 +233,14 @@ struct TAcc {
   }
 };
 
-// the first n (<= 16) rows of a warp's fp32 staging tile added into an
-// fp32 (.., D) array with row stride rs
+// the first n (<= 16) rows and d columns of a warp's fp32 staging tile
+// added into an fp32 (.., d) array with row stride rs
 template <int D>
 __device__ __forceinline__ void atomic_add_rows(float* dst, size_t rs, const float* sw, int n,
-                                                int lane) {
+                                                int d, int lane) {
   for (int e = lane; e < 16 * D; e += 32) {
     const int r = e / D, c = e % D;
-    if (r < n) atomicAdd(dst + r * rs + c, sw[r * kSST + c]);
+    if (r < n && c < d) atomicAdd(dst + r * rs + c, sw[r * kSST + c]);
   }
 }
 
@@ -248,7 +254,7 @@ constexpr size_t bwd_smem_bytes() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const float* __restrict__ mask, const int* __restrict__ rand,
                const T* __restrict__ out, const float* __restrict__ lse,
@@ -280,13 +286,13 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const size_t head_off = size_t(b) * g.sb + size_t(h) * g.sh;
   const int* rand_hj = rand + (size_t(h) * n_mid + j) * g.r;
   const float* mask_b = mask + size_t(b) * g.S;
-  const size_t ors = size_t(g.H) * D;                                     // out, dout, dq, dk, dv rows
-  const size_t mid0 = (size_t(b) * n_mid * g.bs + mrow0) * ors + size_t(h) * D;
-  const size_t full_b = size_t(b) * g.S * ors + size_t(h) * D;          // (b, 0, h, 0) of dq, dk, dv
+  const size_t ors = size_t(g.H) * g.d;                                   // out, dout, dq, dk, dv rows
+  const size_t mid0 = (size_t(b) * n_mid * g.bs + mrow0) * ors + size_t(h) * g.d;
+  const size_t full_b = size_t(b) * g.S * ors + size_t(h) * g.d;        // (b, 0, h, 0) of dq, dk, dv
 
-  load_rows<T, D>(qs, q + head_off + size_t(g.bs + mrow0) * g.ss, g.ss, n_rows);
-  load_rows<T, D>(dos, dout + mid0, ors, n_rows);
-  load_rows<T, D>(ks, out + mid0, ors, n_rows);  // O, for delta
+  load_rows<T, D>(qs, q + head_off + size_t(g.bs + mrow0) * g.ss, g.ss, n_rows, g.d);
+  load_rows<T, D>(dos, dout + mid0, ors, n_rows, g.d);
+  load_rows<T, D>(ks, out + mid0, ors, n_rows, g.d);  // O, for delta
   __syncthreads();
   if (threadIdx.x < kTile) {
     const int r = threadIdx.x;
@@ -333,21 +339,21 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       acc.zero();
       acc.mma(dst, qs, wr, lane);
       acc.store(sw, lane);
-      atomic_add_rows<D>(dk + key_rows, ors, sw, n_keys, lane);
+      atomic_add_rows<D>(dk + key_rows, ors, sw, n_keys, g.d, lane);
       acc.zero();
       acc.mma(pt, dos, wr, lane);
       acc.store(dpw, lane);
-      atomic_add_rows<D>(dv + key_rows, ors, dpw, n_keys, lane);
+      atomic_add_rows<D>(dv + key_rows, ors, dpw, n_keys, g.d, lane);
     }
   }
   dq_acc.store(sw, lane);
   store_rows<T, D>(dq + full_b + size_t(g.bs + mrow0 + wr) * ors, ors, sw, n_rows - wr, 1.f,
-                   lane);
+                   lane, g.d);
 }
 
 int launch_fwd(const void* q, const void* k, const void* v, const float* mask, const int* rand,
-               void* out, float* lse, int B, int D, const Geo& g, cudaStream_t stream) {
-  return with_head_dim(D, [&](auto d) {
+               void* out, float* lse, int B, const Geo& g, cudaStream_t stream) {
+  return with_padded_head_dim<64>(g.d, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     using Z = Sizes<T, kD>;
     constexpr size_t smem = 3 * Z::tile + Z::stage + Z::wtile + Z::vec;
@@ -364,8 +370,8 @@ int launch_fwd(const void* q, const void* k, const void* v, const float* mask, c
 
 int launch_bwd(const void* q, const void* k, const void* v, const float* mask, const int* rand,
                const void* out, const float* lse, const void* dout, void* dq, float* dk,
-               float* dv, int B, int D, const Geo& g, cudaStream_t stream) {
-  return with_head_dim(D, [&](auto d) {
+               float* dv, int B, const Geo& g, cudaStream_t stream) {
+  return with_padded_head_dim<64>(g.d, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     constexpr size_t smem = bwd_smem_bytes<kD>();
     cudaError_t e = cudaFuncSetAttribute(mid_bwd_kernel<kD>,
@@ -380,26 +386,27 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* mask, c
   });
 }
 
-// the kernels' domain (ops/bigbird_sparse.py::bigbird_kernel_takes): a
-// block size that is a multiple of 8 from 8 to 1,024, at least 5 blocks,
-// head width 16, 32 or 64
+// the kernels' domain (ops/bigbird_sparse.py::bigbird_kernel_takes, at the
+// padded width): a block size that is a multiple of 8 from 8 to 1,024, at
+// least 5 blocks, a head width that is a multiple of 8 from 8 to 64
 bool bad_geometry(int B, int S, int H, int r, int bs, int D) {
-  return B <= 0 || H <= 0 || r < 0 || bs < 8 || bs > 1024 || bs % 8 != 0 ||
-         (D != 16 && D != 32 && D != 64) || S % bs != 0 || S / bs < 5 || B > 65535 ||
-         H > 65535;
+  return B <= 0 || H <= 0 || r < 0 || bs < 8 || bs > 1024 || bs % 8 != 0 || D < 8 || D > 64 ||
+         D % 8 != 0 || S % bs != 0 || S / bs < 5 || B > 65535 || H > 65535;
 }
 
 // the geometry of a call
-Geo geo_of(int S, int H, int r, int bs, long long sb, long long ss, long long sh, float scale) {
-  return Geo{S, H, S / bs, r, bs, sb, ss, sh, scale};
+Geo geo_of(int S, int H, int r, int bs, int D, long long sb, long long ss, long long sh,
+           float scale) {
+  return Geo{S, H, S / bs, r, bs, sb, ss, sh, scale, D,
+             __bfloat162float(__float2bfloat16(scale))};
 }
 
-// the bf16 kernels fix the logit scale by D: 1/sqrt(D) rounded to bf16
-bool bad_bf16_scale(float scale, int D) {
-  const float s = __bfloat162float(__float2bfloat16(scale));
-  return with_head_dim(D, [&](auto d) {
-    return int(s != bigbird90::kLogitScale<decltype(d)::value>);
-  }) != 0;
+// the bf16 kernels take the scale 1/sqrt(d), in bf16, of a true head width
+// d that the padding to D may hide: D - 8 < d <= D
+bool bad_bf16_scale(const Geo& g) {
+  for (int d = g.d - 7; d <= g.d; ++d)
+    if (g.logit == __bfloat162float(__float2bfloat16(1.0f / std::sqrt(float(d))))) return false;
+  return true;
 }
 
 }  // namespace
@@ -412,11 +419,11 @@ extern "C" int bigbird_mid_fwd(int dtype, const void* q, const void* k, const vo
                                long long sh, float scale, void* stream) {
   using namespace stonkgs::bigbird;
   if (bad_geometry(B, S, H, r, bs, D)) return int(cudaErrorInvalidValue);
-  const Geo g = geo_of(S, H, r, bs, sb, ss, sh, scale);
+  const Geo g = geo_of(S, H, r, bs, D, sb, ss, sh, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd(q, k, v, mask, rand, out, lse, B, D, g, s);
-  if (dtype == 1 && !bad_bf16_scale(scale, D))
-    return stonkgs::bigbird90::launch_fwd_sm90(q, k, v, mask, rand, out, lse, B, D, g, s);
+  if (dtype == 0) return launch_fwd(q, k, v, mask, rand, out, lse, B, g, s);
+  if (dtype == 1 && !bad_bf16_scale(g))
+    return stonkgs::bigbird90::launch_fwd_sm90(q, k, v, mask, rand, out, lse, B, g, s);
   return int(cudaErrorInvalidValue);
 }
 
@@ -427,12 +434,12 @@ extern "C" int bigbird_mid_bwd(int dtype, const void* q, const void* k, const vo
                                long long ss, long long sh, float scale, void* stream) {
   using namespace stonkgs::bigbird;
   if (bad_geometry(B, S, H, r, bs, D)) return int(cudaErrorInvalidValue);
-  const Geo g = geo_of(S, H, r, bs, sb, ss, sh, scale);
+  const Geo g = geo_of(S, H, r, bs, D, sb, ss, sh, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B, D, g, s);
-  if (dtype == 1 && !bad_bf16_scale(scale, D))
+    return launch_bwd(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B, g, s);
+  if (dtype == 1 && !bad_bf16_scale(g))
     return stonkgs::bigbird90::launch_bwd_sm90(q, k, v, mask, rand, out, lse, dout, dq, dk, dv,
-                                               B, D, g, s);
+                                               B, g, s);
   return int(cudaErrorInvalidValue);
 }

@@ -2,25 +2,37 @@
 // the model against the CPU: the tiling of the (rows, H) x (H, I) x (I, H)
 // products, the weight-tile stream, gelu and its derivative, and the fused
 // forward kernel that the fp32 training FFN and the fp32 serving block
-// (LN1 -> FFN -> LN2) launch; LnArgs is shared with ffn_sm90.cuh.  bf16
-// runs the Hopper kernels of ffn_sm90.cuh and ffn_train_sm90.cuh.
+// (LN1 -> FFN -> LN2) launch; LnArgs, the widths' domain and the padded
+// layout are shared with ffn_sm90.cuh.  bf16 runs the Hopper kernels of
+// ffn_sm90.cuh and ffn_train_sm90.cuh.
 //
-// The widths are run-time arguments: any hidden width H that is a multiple
-// of 32 up to 1024 and any intermediate width I that is a multiple of 32
-// (widths_ok), one instantiation for all.  A block of 256 threads owns
-// kBM = 16 rows.  The intermediate axis is walked in chunks of 128
-// columns (the last one 32, 64, 96 or 128 wide); the weight tiles of all
-// chunks form one stream through a ring of two shared-memory buffers
-// filled by cp.async, one tile ahead of the tile in use, with one block
-// barrier per tile.  Two tile shapes:
-//   "W1 tile": 32 x chunk of an (H, I) matrix (rows t*32, the chunk's columns);
-//   "W2 tile": 8 x H of an (I, H) matrix (rows chunk + t*8).
-// In a W1 product a thread owns one chunk column of 8 of the 16 rows; in
-// a W2 product the columns tid + 256j (j < 4) below H of all 16 rows, so
-// the (16, H) fp32 accumulator stays in registers (a warp's columns are
-// all below H or all above it, as H is a multiple of 32).  The products
-// are plain FMAs.  Shared memory at H = 1024: 140 KB with one row operand
-// (the forward), 206 KB with two (the backward in ffn_train.cu).
+// Widths: every FFN entry point takes any hidden width H from 8 to 2048 and
+// any intermediate width I from 8 to 8192 (widths_ok), in both dtypes.  The
+// arrays lie in a padded layout: each row of H (or I) values is ld(H) (or
+// ld(I)) elements long, ld rounding up to a multiple of 32 in fp32 and of 8
+// in bf16 (padded_width), the padding zero (fp32) or never read (bf16).
+// The fp32 bodies run at the padded widths Hp and Ip, where the zero
+// columns and rows add nothing to a product; only the LayerNorm statistics
+// see the true H (LnArgs::n), and they are taken over it alone.
+//
+// Two instances of the body (Geometry): Narrow for Hp <= 1024, the
+// original one, and Wide for 1024 < Hp <= 2048, with half the rows a block
+// and half the rows a W2 tile, so that the (rows, Hp) accumulator keeps
+// its 64 registers a thread and shared memory stays under 227 KB.  A
+// block of 256 threads owns kBM rows (16, or 8 wide).  The intermediate
+// axis is walked in chunks of 128 columns (the last one 32, 64, 96 or 128
+// wide); the weight tiles of all chunks form one stream through a ring of
+// two shared-memory buffers filled by cp.async, one tile ahead of the tile
+// in use, with one block barrier per tile.  Two tile shapes:
+//   "W1 tile": 32 x chunk of an (Hp, Ip) matrix (rows t*32, the chunk's columns);
+//   "W2 tile": kK2 x Hp of an (Ip, Hp) matrix (rows chunk + t*kK2; kK2 8, or 4 wide).
+// In a W1 product a thread owns one chunk column of kBM / 2 rows; in a W2
+// product the columns tid + 256j below Hp of all kBM rows, so the (kBM,
+// Hp) fp32 accumulator stays in registers (a warp's columns are all below
+// Hp or all above it, as Hp is a multiple of 32).  The products are plain
+// FMAs.  Shared memory at Hp = 1024 (Narrow): 140 KB with one row operand
+// (the forward), 206 KB with two (the backward in ffn_train.cu); at Hp =
+// 2048 (Wide): 136 KB and 201 KB.
 
 #pragma once
 
@@ -31,24 +43,44 @@ namespace ffn {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBM = 16;                  // rows of a block
 constexpr int kChunk = 128;              // intermediate columns of a chunk
 constexpr int kK1 = 32;                  // rows (hidden axis) of a W1 tile
-constexpr int kK2 = 8;                   // rows (intermediate axis) of a W2 tile
 constexpr int kStages = 2;               // weight ring buffers
 constexpr int kPad = 4;                  // floats of padding a shared row
-constexpr int kMaxH = 1024;
-constexpr int kCols = kMaxH / kThreads;  // W2-product columns a thread, at most
-constexpr int kMaxPer = kMaxH / 32;      // a row's values a lane in the LayerNorms
+constexpr int kMinWidth = 8;             // the narrowest H and I
+constexpr int kMaxHidden = 2048;         // the widest H
+constexpr int kMaxInter = 8192;          // the widest I
 
-// whether the fp32 bodies (and the bf16 LayerNorm pass) take widths H and I
+// whether the FFN entry points take widths H and I (both dtypes)
 inline bool widths_ok(int H, int I) {
-  return H >= 32 && H <= kMaxH && H % 32 == 0 && I >= 32 && I % 32 == 0;
+  return H >= kMinWidth && H <= kMaxHidden && I >= kMinWidth && I <= kMaxInter;
 }
 
-// Shared memory of a block at hidden width H: `nrow` (16, H) row operands,
-// then a work area (the weight ring and the h chunk) that the epilogue
-// reuses as its (16, H) fp32 staging.  Row strides in floats.
+// the row length of an n-wide array in the padded layout: a multiple of
+// 32 elements in fp32 (dtype 0), of 8 (16 bytes, as TMA's strides need) in
+// bf16 (dtype 1); ops/fused_ffn.py::padded_width
+inline int padded_width(int n, int dtype) {
+  const int m = dtype == 0 ? 32 : 8;
+  return (n + m - 1) / m * m;
+}
+
+// A body's geometry: the widest padded H it takes, the rows of a block and
+// the rows of a W2 tile
+template <int kMaxH_, int kBM_, int kK2_>
+struct Geometry {
+  static constexpr int kMaxH = kMaxH_;
+  static constexpr int kBM = kBM_;
+  static constexpr int kK2 = kK2_;
+  static constexpr int kCols = kMaxH / kThreads;        // W2-product columns a thread, at most
+  static constexpr int kMaxPer = kMaxH / 32;            // a row's values a lane in the LayerNorms
+  static constexpr int kRowsW1 = kBM * kChunk / kThreads;  // W1-product rows a thread
+};
+using Narrow = Geometry<1024, 16, 8>;
+using Wide = Geometry<2048, 8, 4>;
+
+// Shared memory of a block at padded hidden width H: `nrow` (kBM, H) row
+// operands, then a work area (the weight ring and the h chunk) that the
+// epilogue reuses as its (kBM, H) fp32 staging.  Row strides in floats.
 struct Layout {
   int XS;    // row operand and staging stride
   int W1S;   // W1 tile stride
@@ -60,25 +92,28 @@ struct Layout {
   size_t smem_bytes(int nrow) const { return nrow * xs_bytes + work_bytes; }
 };
 
+template <class G>
 inline Layout make_layout(int H) {
   Layout L;
   L.XS = H + kPad;
   L.W1S = kChunk + kPad;
   L.W2S = H + kPad;
-  L.WBUF = kK1 * L.W1S > kK2 * L.W2S ? kK1 * L.W1S : kK2 * L.W2S;
+  L.WBUF = kK1 * L.W1S > G::kK2 * L.W2S ? kK1 * L.W1S : G::kK2 * L.W2S;
   L.HSS = kChunk + kPad;
-  L.xs_bytes = align128(size_t(kBM) * L.XS * sizeof(float));
+  L.xs_bytes = align128(size_t(G::kBM) * L.XS * sizeof(float));
   L.wbuf_bytes = align128(size_t(kStages) * L.WBUF * sizeof(float));
-  const size_t ring_and_h = L.wbuf_bytes + align128(size_t(kBM) * L.HSS * sizeof(float));
-  L.work_bytes = ring_and_h > L.xs_bytes ? ring_and_h : L.xs_bytes;  // staging: (16, H)
+  const size_t ring_and_h =
+      L.wbuf_bytes + align128(size_t(G::kBM) * L.HSS * sizeof(float));
+  L.work_bytes = ring_and_h > L.xs_bytes ? ring_and_h : L.xs_bytes;  // staging: (kBM, H)
   return L;
 }
 
 // weight tiles in the stream of an I-wide intermediate axis with `per`
 // tiles a full chunk (the last chunk has fewer W2 tiles when I % 128 != 0)
+template <class G>
 __device__ __forceinline__ int stream_tiles(int I, int per) {
   const int rem = I % kChunk;
-  return (I / kChunk) * per + (rem ? per - (kChunk - rem) / kK2 : 0);
+  return (I / kChunk) * per + (rem ? per - (kChunk - rem) / G::kK2 : 0);
 }
 
 __device__ __forceinline__ float gelu(float h, int act) {
@@ -119,16 +154,18 @@ __device__ __forceinline__ void fetch_w1(float* dst, const Layout& L, const floa
 }
 
 // W2 tile t of the chunk at c0 of an (I, H) matrix
+template <class G>
 __device__ __forceinline__ void fetch_w2(float* dst, const Layout& L, const float* w, int H,
                                          int c0, int t) {
-  load_tile_async(dst, L.W2S, w + size_t(c0 + t * kK2) * H, size_t(H), kK2, H);
+  load_tile_async(dst, L.W2S, w + size_t(c0 + t * G::kK2) * H, size_t(H), G::kK2, H);
 }
 
 // kBM rows of a (M, H) matrix -> shared (stride XS); rows >= M are zero
+template <class G>
 __device__ __forceinline__ void load_row_block(float* s, const Layout& L, const float* g,
                                                int row0, int M, int H) {
   const int vpr = H / 4;
-  for (int i = threadIdx.x; i < kBM * vpr; i += kThreads) {
+  for (int i = threadIdx.x; i < G::kBM * vpr; i += kThreads) {
     const int r = i / vpr, c = (i % vpr) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < M) val = *reinterpret_cast<const float4*>(g + size_t(row0 + r) * H + c);
@@ -136,107 +173,117 @@ __device__ __forceinline__ void load_row_block(float* s, const Layout& L, const 
   }
 }
 
-// hacc[r] += a[hr + r, t*32 + kk] * W1 tile[kk, hc] (rows hr..hr+8)
-__device__ __forceinline__ void fma_w1_tile(float (&hacc)[8], const float* as, const Layout& L,
-                                            const float* cur, int t, int hr, int hc) {
+// hacc[r] += a[hr + r, t*32 + kk] * W1 tile[kk, hc] (rows hr..hr+kRowsW1)
+template <class G>
+__device__ __forceinline__ void fma_w1_tile(float (&hacc)[G::kRowsW1], const float* as,
+                                            const Layout& L, const float* cur, int t, int hr,
+                                            int hc) {
   for (int kk = 0; kk < kK1; ++kk) {
     const float w = cur[kk * L.W1S + hc];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) hacc[r] += as[(hr + r) * L.XS + t * kK1 + kk] * w;
+    for (int r = 0; r < G::kRowsW1; ++r) hacc[r] += as[(hr + r) * L.XS + t * kK1 + kk] * w;
   }
 }
 
-// acc[r][j] += hs[r, kt*8 + kk] * W2 tile[kk, tid + 256j], columns below H
-__device__ __forceinline__ void fma_w2_tile(float (&acc)[kBM][kCols], const float* hs,
+// acc[r][j] += hs[r, kt*kK2 + kk] * W2 tile[kk, tid + 256j], columns below H
+template <class G>
+__device__ __forceinline__ void fma_w2_tile(float (&acc)[G::kBM][G::kCols], const float* hs,
                                             const Layout& L, const float* cur, int kt, int H) {
   const int tid = threadIdx.x;
-  for (int kk = 0; kk < kK2; ++kk) {
-    float w[kCols];
+  for (int kk = 0; kk < G::kK2; ++kk) {
+    float w[G::kCols];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
+    for (int j = 0; j < G::kCols; ++j) {
       const int c = tid + j * kThreads;
       w[j] = c < H ? cur[kk * L.W2S + c] : 0.f;
     }
 #pragma unroll
-    for (int r = 0; r < kBM; ++r) {
-      const float h = hs[r * L.HSS + kt * kK2 + kk];
+    for (int r = 0; r < G::kBM; ++r) {
+      const float h = hs[r * L.HSS + kt * G::kK2 + kk];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j)
+      for (int j = 0; j < G::kCols; ++j)
         if (tid + j * kThreads < H) acc[r][j] += h * w[j];
     }
   }
 }
 
-// the (16, H) accumulator -> the fp32 staging rows (stride XS)
+// the (kBM, H) accumulator -> the fp32 staging rows (stride XS)
+template <class G>
 __device__ __forceinline__ void stage_acc(float* stage, const Layout& L,
-                                          const float (&acc)[kBM][kCols], int H) {
+                                          const float (&acc)[G::kBM][G::kCols], int H) {
 #pragma unroll
-  for (int r = 0; r < kBM; ++r)
+  for (int r = 0; r < G::kBM; ++r)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
+    for (int j = 0; j < G::kCols; ++j) {
       const int c = threadIdx.x + j * kThreads;
       if (c < H) stage[r * L.XS + c] = acc[r][j];
     }
 }
 
-// LayerNorm of one row of width H held as H / 32 values per lane (column
-// lane + 32*i, i < H / 32)
-__device__ __forceinline__ void layer_norm_row(float (&v)[kMaxPer], int H, const float* g,
-                                               const float* b, float eps, int lane) {
-  const int per = H / 32;
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxPer; ++i)
-    if (i < per) s += v[i];
-  const float mean = warp_sum(s) / H;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxPer; ++i)
-    if (i < per) {
-      const float d = v[i] - mean;
-      q += d * d;
-    }
-  const float rstd = rsqrtf(warp_sum(q) / H + eps);
-#pragma unroll
-  for (int i = 0; i < kMaxPer; ++i)
-    if (i < per) {
-      const int c = lane + 32 * i;
-      v[i] = (v[i] - mean) * rstd * g[c] + b[c];
-    }
-}
-
-// LayerNorm parameters of the serving block (both null for the plain FFN)
+// LayerNorm parameters of the serving block (all null for the plain FFN):
+// the scales and biases, eps, and the true hidden width n over which the
+// statistics are taken
 struct LnArgs {
   const float* g1;
   const float* be1;
   const float* g2;
   const float* be2;
   float eps;
+  int n;
 };
+
+// LayerNorm of one row held as H / 32 values per lane (column lane + 32*i,
+// i < H / 32, H the padded width), statistics over the first n columns;
+// the columns from n on come out 0
+template <class G>
+__device__ __forceinline__ void layer_norm_row(float (&v)[G::kMaxPer], int H, int n,
+                                               const float* g, const float* b, float eps,
+                                               int lane) {
+  const int per = H / 32;
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < G::kMaxPer; ++i)
+    if (i < per && lane + 32 * i < n) s += v[i];
+  const float mean = warp_sum(s) / n;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < G::kMaxPer; ++i)
+    if (i < per && lane + 32 * i < n) {
+      const float d = v[i] - mean;
+      q += d * d;
+    }
+  const float rstd = rsqrtf(warp_sum(q) / n + eps);
+#pragma unroll
+  for (int i = 0; i < G::kMaxPer; ++i)
+    if (i < per) {
+      const int c = lane + 32 * i;
+      v[i] = c < n ? (v[i] - mean) * rstd * g[c] + b[c] : 0.f;
+    }
+}
 
 // Epilogue for the block's rows, whose W2 product sits in `stage` (fp32,
 // stride XS): ff = acc + b2 (b2 may be null); out = LN2(x2 + ff) for the
 // serving block, out = ff otherwise.
-template <bool kLN>
+template <class G, bool kLN>
 __device__ __forceinline__ void epilogue_rows(const float* stage, const float* xs,
                                               const Layout& L, int row0, int M, int H,
                                               const float* b2, const LnArgs& ln, float* out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, per = H / 32;
-  for (int r = warp; r < kBM; r += kWarps) {
+  for (int r = warp; r < G::kBM; r += kWarps) {
     const int gr = row0 + r;
     if (gr >= M) continue;
-    float v[kMaxPer];
+    float v[G::kMaxPer];
 #pragma unroll
-    for (int i = 0; i < kMaxPer; ++i)
+    for (int i = 0; i < G::kMaxPer; ++i)
       if (i < per) {
         const int c = lane + 32 * i;
         v[i] = stage[r * L.XS + c] + (b2 ? b2[c] : 0.f);
         if constexpr (kLN) v[i] += xs[r * L.XS + c];
       }
-    if constexpr (kLN) layer_norm_row(v, H, ln.g2, ln.be2, ln.eps, lane);
+    if constexpr (kLN) layer_norm_row<G>(v, H, ln.n, ln.g2, ln.be2, ln.eps, lane);
     float* o = out + size_t(gr) * H;
 #pragma unroll
-    for (int i = 0; i < kMaxPer; ++i)
+    for (int i = 0; i < G::kMaxPer; ++i)
       if (i < per) o[lane + 32 * i] = v[i];
   }
 }
@@ -245,16 +292,17 @@ __device__ __forceinline__ void epilogue_rows(const float* stage, const float* x
 //   kLN: x2 = LN1(x + attn) and out = LN2(x2 + y) (the serving block,
 //        _ffn_ln_kernel of the JAX package);
 //   else x2 = x and out = y (the training FFN, _ffn_kernel).
-// h accumulated in fp32, + b1, gelu in fp32; y = h @ W2 + b2 (the TPU
-// kernels' rounding points are the identity in fp32).  The (16, I)
-// intermediate never reaches device memory; the (16, H) fp32 accumulator
-// stays in registers across the whole walk.
-template <bool kLN>
+// H and I are the padded widths.  h accumulated in fp32, + b1, gelu in
+// fp32; y = h @ W2 + b2 (the TPU kernels' rounding points are the identity
+// in fp32).  The (kBM, I) intermediate never reaches device memory; the
+// (kBM, H) fp32 accumulator stays in registers across the whole walk.
+template <class G, bool kLN>
 __global__ void __launch_bounds__(kThreads, 1)
 ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
                const float* __restrict__ w1, const float* __restrict__ b1,
                const float* __restrict__ w2, const float* __restrict__ b2, LnArgs ln,
                float* __restrict__ out, int M, int H, int I, int act, Layout L) {
+  constexpr int kBM = G::kBM;
   extern __shared__ __align__(128) unsigned char smem[];
   float* xs = reinterpret_cast<float*>(smem);
   unsigned char* work = smem + L.xs_bytes;
@@ -265,8 +313,8 @@ ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tid = threadIdx.x;
   const int row0 = blockIdx.x * kBM;
   const int nt1 = H / kK1;                   // W1 tiles a chunk
-  const int per = nt1 + kChunk / kK2;        // W1 then W2 tiles a full chunk
-  const int total = stream_tiles(I, per);    // weight tiles in the stream
+  const int per = nt1 + kChunk / G::kK2;     // W1 then W2 tiles a full chunk
+  const int total = stream_tiles<G>(I, per);  // weight tiles in the stream
 
   // tile g of the stream into ring buffer g % kStages; one cp.async group
   // per call, empty past the end
@@ -277,7 +325,7 @@ ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
       if (t < nt1)
         fetch_w1(dst, L, w1, I, c0, min(kChunk, I - c0), t);
       else
-        fetch_w2(dst, L, w2, H, c0, t - nt1);
+        fetch_w2<G>(dst, L, w2, H, c0, t - nt1);
     }
     cp_async_commit();
   };
@@ -297,17 +345,17 @@ ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
       }
       const float* xp = x + size_t(gr) * H;
       const float* ap = a + size_t(gr) * H;
-      float v[kMaxPer];
+      float v[G::kMaxPer];
 #pragma unroll
-      for (int i = 0; i < kMaxPer; ++i)
+      for (int i = 0; i < G::kMaxPer; ++i)
         if (i < per_lane) v[i] = xp[lane + 32 * i] + ap[lane + 32 * i];
-      layer_norm_row(v, H, ln.g1, ln.be1, ln.eps, lane);
+      layer_norm_row<G>(v, H, ln.n, ln.g1, ln.be1, ln.eps, lane);
 #pragma unroll
-      for (int i = 0; i < kMaxPer; ++i)
+      for (int i = 0; i < G::kMaxPer; ++i)
         if (i < per_lane) xr[lane + 32 * i] = v[i];
     }
   } else {
-    load_row_block(xs, L, x, row0, M, H);
+    load_row_block<G>(xs, L, x, row0, M, H);
   }
 
   // next tile of the weight stream: wait for it, then refill the buffer
@@ -322,48 +370,61 @@ ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
     return cur;
   };
 
-  // W1 product: thread owns h column tid % 128 of rows [(tid / 128) * 8, +8)
-  const int hc = tid % kChunk, hr = (tid / kChunk) * 8;
-  float acc[kBM][kCols];
+  // W1 product: thread owns h column tid % 128 of kRowsW1 rows from hr
+  const int hc = tid % kChunk, hr = (tid / kChunk) * G::kRowsW1;
+  float acc[kBM][G::kCols];
 #pragma unroll
   for (int r = 0; r < kBM; ++r)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < G::kCols; ++j) acc[r][j] = 0.f;
   for (int c0 = 0; c0 < I; c0 += kChunk) {
     const int cn = min(kChunk, I - c0);
-    float hacc[8];
+    float hacc[G::kRowsW1];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) hacc[r] = 0.f;
-    for (int t = 0; t < nt1; ++t) fma_w1_tile(hacc, xs, L, advance(), t, hr, hc);
+    for (int r = 0; r < G::kRowsW1; ++r) hacc[r] = 0.f;
+    for (int t = 0; t < nt1; ++t) fma_w1_tile<G>(hacc, xs, L, advance(), t, hr, hc);
     if (hc < cn) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r) hs[(hr + r) * L.HSS + hc] = gelu(hacc[r] + b1[c0 + hc], act);
+      for (int r = 0; r < G::kRowsW1; ++r)
+        hs[(hr + r) * L.HSS + hc] = gelu(hacc[r] + b1[c0 + hc], act);
     }
-    for (int kt = 0; kt < cn / kK2; ++kt) fma_w2_tile(acc, hs, L, advance(), kt, H);
+    for (int kt = 0; kt < cn / G::kK2; ++kt) fma_w2_tile<G>(acc, hs, L, advance(), kt, H);
   }
   __syncthreads();
-  stage_acc(stage, L, acc, H);
+  stage_acc<G>(stage, L, acc, H);
   __syncthreads();
-  epilogue_rows<kLN>(stage, xs, L, row0, M, H, b2, ln, out);
+  epilogue_rows<G, kLN>(stage, xs, L, row0, M, H, b2, ln, out);
 }
 
-// the fp32 forward kernel at any H and I that widths_ok takes
+// f(Narrow{}) at padded H <= 1024, f(Wide{}) above
+template <typename F>
+inline int with_geometry(int Hp, F&& f) {
+  return Hp <= Narrow::kMaxH ? f(Narrow{}) : f(Wide{});
+}
+
+// the fp32 forward kernel at the true widths H and I (widths_ok), on
+// arrays in the padded layout
 template <bool kLN>
 int launch_fwd(const void* x, const void* a, const void* w1, const float* b1, const void* w2,
-               const float* b2, const LnArgs& ln, void* out, int M, int H, int I, int act,
+               const float* b2, LnArgs ln, void* out, int M, int H, int I, int act,
                cudaStream_t stream) {
   if (M <= 0 || !widths_ok(H, I) || (act != 0 && act != 1)) return int(cudaErrorInvalidValue);
-  const Layout L = make_layout(H);
-  const size_t smem = L.smem_bytes(1);
-  cudaError_t e = cudaFuncSetAttribute(ffn_fwd_kernel<kLN>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  const dim3 grid((M + kBM - 1) / kBM);
-  ffn_fwd_kernel<kLN><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(a),
-      static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2, ln,
-      static_cast<float*>(out), M, H, I, act, L);
-  return int(cudaGetLastError());
+  const int Hp = padded_width(H, 0), Ip = padded_width(I, 0);
+  ln.n = H;
+  return with_geometry(Hp, [&](auto geo) {
+    using G = decltype(geo);
+    const Layout L = make_layout<G>(Hp);
+    const size_t smem = L.smem_bytes(1);
+    cudaError_t e = cudaFuncSetAttribute(ffn_fwd_kernel<G, kLN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+    const dim3 grid((M + G::kBM - 1) / G::kBM);
+    ffn_fwd_kernel<G, kLN><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(a),
+        static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2, ln,
+        static_cast<float*>(out), M, Hp, Ip, act, L);
+    return int(cudaGetLastError());
+  });
 }
 
 }  // namespace ffn

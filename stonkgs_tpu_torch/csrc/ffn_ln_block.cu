@@ -12,20 +12,25 @@
 // launch (one block owns 16 rows: LN1 into shared memory, the
 // intermediate axis walked in chunks with the (16, H) fp32 accumulator
 // in registers, LN2 in the epilogue); it exists to hold the model against
-// the CPU.  Both take any H that is a multiple of 32 up to 1024 (768 in
-// BERT-base layers and the BigBird trunk, 1024 in ProtBERT, 384 in
-// MiniLM-L12-H384) and I a multiple of 32.
+// the CPU.  Both take any H from 8 to 2048 (768 in BERT-base layers and
+// the BigBird trunk, 1024 in ProtBERT, 384 in MiniLM-L12-H384, the KG
+// vectors' width in the command line's configs) and any I from 8 to 8192,
+// on arrays in the padded layout of ffn.cuh (rows of ld(H) or ld(I)
+// elements: multiples of 32 in fp32, of 8 in bf16); the LayerNorm
+// statistics run over the true H.
 //
-// C interface (all pointers on the device; LayerNorm and bias vectors fp32):
+// C interface (all pointers on the device; LayerNorm and bias vectors fp32;
+// every array in the padded layout, x (M, ld(H)), W1 (ld(H), ld(I)) and so
+// on):
 //   int ffn_ln_block(int dtype /*0 fp32, 1 bf16*/, x, attn_out, ln1_scale,
 //                    ln1_bias, w1 (H, I), b1, w2 (I, H), b2, ln2_scale,
 //                    ln2_bias, x2 /*(M, H) bf16 scratch, or NULL for fp32*/,
 //                    h /*(M, I) bf16 scratch, or NULL for fp32*/, out,
 //                    int M, int H, int I, int act /*0 gelu(erf),
 //                    1 gelu_new(tanh)*/, float eps, cudaStream_t stream)
-// with H a multiple of 32 up to 1024 and I a multiple of 32; returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue for other
-// widths, -1 when a TMA tensor map cannot be encoded).
+// with M, H and I the true widths; returns cudaGetLastError() after the
+// launches (cudaErrorInvalidValue, with no launch, for widths outside H 8 to
+// 2048 and I 8 to 8192; -1 when a TMA tensor map cannot be encoded).
 
 #include "ffn_sm90.cuh"
 
@@ -36,7 +41,7 @@ extern "C" int ffn_ln_block(int dtype, const void* x, const void* attn_out,
                             void* out, int M, int H, int I, int act, float eps, void* stream) {
   using namespace stonkgs::ffn;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const LnArgs ln{ln1_scale, ln1_bias, ln2_scale, ln2_bias, eps};
+  const LnArgs ln{ln1_scale, ln1_bias, ln2_scale, ln2_bias, eps, H};
   if (dtype == 0)
     return launch_fwd<true>(x, attn_out, w1, b1, w2, b2, ln, out, M, H, I, act, s);
   if (dtype == 1)

@@ -45,9 +45,19 @@
 //   without branches), rounds, and writes bf16 pairs into the free ring as
 //   64 x 64 swizzled boxes, which one thread a consumer stores with TMA
 //   (rows >= M and columns >= N are not written).
-// The LayerNorm passes are bound by bytes: one warp a row, the row's H / 32
-// values in registers, loaded and stored as the widest vectors H allows
-// (16 bytes when H is a multiple of 256).
+// The LayerNorm passes are bound by bytes: one warp a row, the row's values
+// in registers, loaded and stored as the widest vectors H allows (16 bytes
+// when H is a multiple of 256).
+//
+// Widths: any H from 8 to 2048 and I from 8 to 8192 (ffn.cuh, widths_ok),
+// each row of the arrays ld(H) = H rounded up to a multiple of 8 elements
+// long (ld(I) likewise): TMA needs 16-byte row strides.  The tensor maps
+// take the true width as the dimension and ld as the stride, so TMA
+// zero-fills the columns past it in every load (an operand's K edge adds
+// nothing) and skips them in every store; the padding is never read.  The
+// LayerNorm pass takes its statistics over the true H: for H a multiple of
+// 32 up to 1024 the instances above, for any other H a masked one with
+// 16-byte vectors over ld(H).
 
 #pragma once
 
@@ -70,6 +80,7 @@ constexpr uint32_t kBBytes = kBK * kBN * 2;  // 32 KB
 constexpr uint32_t kBBlock = kBK * 64 * 2;   // one 64-wide column block of B, 8 KB
 constexpr uint32_t kOutBox = 64 * 64 * 2;    // one 64 x 64 bf16 box of C, 8 KB
 constexpr int kNoAct = -1;                   // epilogue without gelu
+using ffn::kMaxHidden;
 
 struct alignas(1024) SmemGemm {
   bf16 a[kStages][kBM * kBK];
@@ -276,33 +287,44 @@ template <> struct BfVec<4> { using type = uint2; };
 template <> struct BfVec<2> { using type = uint32_t; };
 template <> struct BfVec<1> { using type = uint16_t; };
 
-// out = round(LN(a + b)) over rows of width H (a multiple of 32 up to
-// 1024), statistics in fp32; one warp a row, each lane H / 32 values as
+// out = round(LN(a + b)) over rows of width H, statistics in fp32; one
+// warp a row, vector j of lane l at column (l + 32j) kVec, in registers.
+// kMasked false: H a multiple of 32 up to 1024, each lane H / 32 values as
 // H / (32 kVec) vectors of kVec (the widest that divides H / 32: 16 bytes
-// at H = 256, 512, 768, 1024), vector j of lane l at column (l + 32j)
-// kVec, in registers.  out may be b (in place: a row's values are all read
+// at H = 256, 512, 768, 1024), rows H apart.  kMasked true: any H up to
+// 2048 with rows ld apart (a multiple of 8), 16-byte vectors over the
+// row's ld columns; the statistics take the first H, and the columns from
+// H on are written 0.  out may be b (in place: a row's values are all read
 // before any is written).
-template <int kVec>
+template <int kVec, bool kMasked = false>
 __global__ void __launch_bounds__(256)
 add_layer_norm_kernel(const bf16* a, const bf16* b, const float* __restrict__ g,
-                      const float* __restrict__ beta, float eps, bf16* out, int M, int H) {
+                      const float* __restrict__ beta, float eps, bf16* out, int M, int H,
+                      int ld) {
   using V = typename BfVec<kVec>::type;
-  constexpr int kMaxVecs = 1024 / 32 / kVec;  // vectors a lane at H = 1024
-  const int nv = H / (32 * kVec);
+  // vectors a lane at the widest H
+  constexpr int kMaxVecs = (kMasked ? kMaxHidden : 1024) / 32 / kVec;
+  const int nv = kMasked ? (H + 32 * kVec - 1) / (32 * kVec) : H / (32 * kVec);
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= M) return;
-  const size_t off = size_t(row) * H;
+  const size_t off = size_t(row) * (kMasked ? ld : H);
+  // whether column c + e of the row counts
+  auto in = [&](int c, int e) { return !kMasked || c + e < H; };
   float v[kVec * kMaxVecs];
 #pragma unroll
   for (int j = 0; j < kMaxVecs; ++j) {
-    if (j < nv) {
-      const int c = (lane + 32 * j) * kVec;
+    const int c = (lane + 32 * j) * kVec;
+    if (j < nv && (!kMasked || c < H)) {
       const V ua = *reinterpret_cast<const V*>(a + off + c);
       const V ub = *reinterpret_cast<const V*>(b + off + c);
       const bf16* ea = reinterpret_cast<const bf16*>(&ua);
       const bf16* eb = reinterpret_cast<const bf16*>(&ub);
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) v[kVec * j + e] = to_f(ea[e]) + to_f(eb[e]);
+      for (int e = 0; e < kVec; ++e)
+        v[kVec * j + e] = in(c, e) ? to_f(ea[e]) + to_f(eb[e]) : 0.f;
+    } else if constexpr (kMasked) {  // a vector wholly past H
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) v[kVec * j + e] = 0.f;
     }
   }
   float s = 0.f;
@@ -315,40 +337,48 @@ add_layer_norm_kernel(const bf16* a, const bf16* b, const float* __restrict__ g,
   float q = 0.f;
 #pragma unroll
   for (int j = 0; j < kMaxVecs; ++j)
-    if (j < nv)
+    if (j < nv) {
+      const int c = (lane + 32 * j) * kVec;
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         const float d = v[kVec * j + e] - mean;
-        q += d * d;
+        if (in(c, e)) q += d * d;
       }
+    }
   const float rstd = rsqrtf(warp_sum(q) / H + eps);
 #pragma unroll
   for (int j = 0; j < kMaxVecs; ++j) {
-    if (j < nv) {
-      const int c = (lane + 32 * j) * kVec;
+    const int c = (lane + 32 * j) * kVec;
+    if (j < nv && (!kMasked || c < H)) {
       V uo;
       bf16* eo = reinterpret_cast<bf16*>(&uo);
 #pragma unroll
       for (int e = 0; e < kVec; ++e)
-        eo[e] = __float2bfloat16((v[kVec * j + e] - mean) * rstd * g[c + e] + beta[c + e]);
+        eo[e] = __float2bfloat16(
+            in(c, e) ? (v[kVec * j + e] - mean) * rstd * g[c + e] + beta[c + e] : 0.f);
       *reinterpret_cast<V*>(out + off + c) = uo;
     }
   }
 }
 
-// the LayerNorm pass over M rows of width H, at the widest vector H takes
+// the LayerNorm pass over M rows of width H, ld apart: at the widest
+// vector H takes when H is a multiple of 32 up to 1024 (then ld = H), else
+// masked
 inline int launch_add_layer_norm(const bf16* a, const bf16* b, const float* g, const float* beta,
-                                 float eps, bf16* out, int M, int H, cudaStream_t stream) {
+                                 float eps, bf16* out, int M, int H, int ld,
+                                 cudaStream_t stream) {
   const unsigned blocks = unsigned((M + 7) / 8);
   const int per = H / 32;
-  if (per % 8 == 0)
-    add_layer_norm_kernel<8><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H);
+  if (H % 32 != 0 || H > 1024)
+    add_layer_norm_kernel<8, true><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H, ld);
+  else if (per % 8 == 0)
+    add_layer_norm_kernel<8><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H, ld);
   else if (per % 4 == 0)
-    add_layer_norm_kernel<4><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H);
+    add_layer_norm_kernel<4><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H, ld);
   else if (per % 2 == 0)
-    add_layer_norm_kernel<2><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H);
+    add_layer_norm_kernel<2><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H, ld);
   else
-    add_layer_norm_kernel<1><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H);
+    add_layer_norm_kernel<1><<<blocks, 256, 0, stream>>>(a, b, g, beta, eps, out, M, H, ld);
   return int(cudaGetLastError());
 }
 
@@ -365,23 +395,25 @@ inline int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mw, const CUten
   return int(cudaGetLastError());
 }
 
-// whether the GEMMs take (M, H) rows and an intermediate width I: TMA
-// needs 16-byte row strides, and the grid's y extent is at most 65,535
+// whether the GEMMs take (M, H) rows and an intermediate width I: the
+// FFN's widths (widths_ok), and the grid's y extent is at most 65,535
 inline bool gemm_shapes_ok(int M, int H, int I, int act) {
-  return M > 0 && H > 0 && I > 0 && H % 8 == 0 && I % 8 == 0 && (act == 0 || act == 1) &&
+  return M > 0 && ffn::widths_ok(H, I) && (act == 0 || act == 1) &&
          (M + kBM - 1) / kBM <= 65535;
 }
 
 // h = round(gelu(x @ W1 + b1)) into the (M, I) scratch h, then out =
-// round(h @ W2 + b2): the FFN of the serving block and the training forward
+// round(h @ W2 + b2): the FFN of the serving block and the training forward,
+// at the true widths H and I on arrays in the padded layout
 inline int launch_ffn_gemms(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
                             const float* b2, bf16* h, bf16* out, int M, int H, int I, int act,
                             cudaStream_t stream) {
   if (!gemm_shapes_ok(M, H, I, act) || !h) return int(cudaErrorInvalidValue);
+  const int Hp = ffn::padded_width(H, 1), Ip = ffn::padded_width(I, 1);
   CUtensorMap ma1, mw1, mh, ma2, mw2, mo;
-  if (!make_map_2d(&ma1, x, M, H, kBK, kBM) || !make_map_2d(&mw1, w1, H, I, 64, kBK) ||
-      !make_map_2d(&mh, h, M, I, 64, 64) || !make_map_2d(&ma2, h, M, I, kBK, kBM) ||
-      !make_map_2d(&mw2, w2, I, H, 64, kBK) || !make_map_2d(&mo, out, M, H, 64, 64))
+  if (!make_map_2d(&ma1, x, M, H, kBK, kBM, Hp) || !make_map_2d(&mw1, w1, H, I, 64, kBK, Ip) ||
+      !make_map_2d(&mh, h, M, I, 64, 64, Ip) || !make_map_2d(&ma2, h, M, I, kBK, kBM, Ip) ||
+      !make_map_2d(&mw2, w2, I, H, 64, kBK, Hp) || !make_map_2d(&mo, out, M, H, 64, 64, Hp))
     return kErrTensorMap;
   const int s1 = act == 0 ? launch_gemm<0>(ma1, mw1, mh, b1, M, I, H, stream)
                           : launch_gemm<1>(ma1, mw1, mh, b1, M, I, H, stream);
@@ -389,23 +421,23 @@ inline int launch_ffn_gemms(const bf16* x, const bf16* w1, const float* b1, cons
   return launch_gemm<kNoAct>(ma2, mw2, mo, b2, M, H, I, stream);
 }
 
-// the block at hidden width H (a multiple of 32 up to 1024) and I (a
-// multiple of 32); x2 (M, H) and h (M, I) are the caller's scratch
+// the block at the true widths H and I (widths_ok) on arrays in the padded
+// layout; x2 (M, ld(H)) and h (M, ld(I)) are the caller's scratch
 inline int launch_ffn_ln_sm90(const void* x, const void* attn, const ffn::LnArgs& ln,
                               const void* w1, const float* b1, const void* w2, const float* b2,
                               void* x2, void* h, void* out, int M, int H, int I, int act,
                               cudaStream_t stream) {
-  if (!ffn::widths_ok(H, I) || !gemm_shapes_ok(M, H, I, act) || !x2)
-    return int(cudaErrorInvalidValue);
+  if (!gemm_shapes_ok(M, H, I, act) || !x2 || !h) return int(cudaErrorInvalidValue);
+  const int Hp = ffn::padded_width(H, 1);
   auto* x2b = static_cast<bf16*>(x2);
   auto* ob = static_cast<bf16*>(out);
   int s = launch_add_layer_norm(static_cast<const bf16*>(x), static_cast<const bf16*>(attn),
-                                ln.g1, ln.be1, ln.eps, x2b, M, H, stream);
+                                ln.g1, ln.be1, ln.eps, x2b, M, H, Hp, stream);
   if (s != 0) return s;
   s = launch_ffn_gemms(x2b, static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
                        static_cast<bf16*>(h), ob, M, H, I, act, stream);
   if (s != 0) return s;
-  return launch_add_layer_norm(x2b, ob, ln.g2, ln.be2, ln.eps, ob, M, H, stream);
+  return launch_add_layer_norm(x2b, ob, ln.g2, ln.be2, ln.eps, ob, M, H, Hp, stream);
 }
 
 }  // namespace ffn90

@@ -32,7 +32,9 @@
 // h[i] with P[i]: it computes gelu and gelu' together without branches
 // (gelu_grad_sel), writes a and dh as bf16 pairs into the free ring, and
 // stores them with TMA.  TMA zero-fills a ragged M, I or H edge of the
-// loads and skips it in the stores.
+// loads and skips it in the stores; the tensor maps take the true widths
+// and the padded layout's row strides (ffn_sm90.cuh), so the same holds
+// for an H or I that is not a multiple of 8.
 
 #pragma once
 
@@ -184,20 +186,23 @@ inline int launch_dual(const CUtensorMap& mx, const CUtensorMap& mg, const CUten
   return int(cudaGetLastError());
 }
 
-// the training backward: (dx, dh, a) from x, g (M, H), W1 (H, I), b1, W2 (I, H)
+// the training backward: (dx, dh, a) from x, g (M, H), W1 (H, I), b1, W2
+// (I, H), at the true widths H and I on arrays in the padded layout
 inline int launch_ffn_train_bwd_sm90(const void* x, const void* g, const void* w1,
                                      const float* b1, const void* w2, void* dx, void* dh,
                                      void* a, int M, int H, int I, int act,
                                      cudaStream_t stream) {
   if (!gemm_shapes_ok(M, H, I, act)) return int(cudaErrorInvalidValue);
+  const int Hp = ffn::padded_width(H, 1), Ip = ffn::padded_width(I, 1);
   // loads: x, g, W1 (MN-major), W2 (K-major); stores: a, dh; the dx GEMM:
   // dh, W1 (K-major), dx
   CUtensorMap mx, mg, mw1, mw2, ma, mdh_out, mdh, mw1k, mdx;
-  if (!make_map_2d(&mx, x, M, H, kBK, kBM) || !make_map_2d(&mg, g, M, H, kBK, kBM) ||
-      !make_map_2d(&mw1, w1, H, I, 64, kBK) || !make_map_2d(&mw2, w2, I, H, kBK, kDualBN) ||
-      !make_map_2d(&ma, a, M, I, 64, 64) || !make_map_2d(&mdh_out, dh, M, I, 64, 64) ||
-      !make_map_2d(&mdh, dh, M, I, kBK, kBM) || !make_map_2d(&mw1k, w1, H, I, kBK, kBN) ||
-      !make_map_2d(&mdx, dx, M, H, 64, 64))
+  if (!make_map_2d(&mx, x, M, H, kBK, kBM, Hp) || !make_map_2d(&mg, g, M, H, kBK, kBM, Hp) ||
+      !make_map_2d(&mw1, w1, H, I, 64, kBK, Ip) ||
+      !make_map_2d(&mw2, w2, I, H, kBK, kDualBN, Hp) || !make_map_2d(&ma, a, M, I, 64, 64, Ip) ||
+      !make_map_2d(&mdh_out, dh, M, I, 64, 64, Ip) ||
+      !make_map_2d(&mdh, dh, M, I, kBK, kBM, Ip) || !make_map_2d(&mw1k, w1, H, I, kBK, kBN, Ip) ||
+      !make_map_2d(&mdx, dx, M, H, 64, 64, Hp))
     return kErrTensorMap;
   const int s1 = act == 0 ? launch_dual<0>(mx, mg, mw1, mw2, ma, mdh_out, b1, M, H, I, stream)
                           : launch_dual<1>(mx, mg, mw1, mw2, ma, mdh_out, b1, M, H, I, stream);

@@ -26,12 +26,20 @@ bigbird_sparse_pallas.py:83``, launched at ``:227``, with ``_gather_kv``
 at ``:51`` and ``_mid_logits`` at ``:70``) and ``_mid_blocks_bwd_kernel``
 (``:113``, launched at ``:272``).
 
-The kernels take head width D = 16, 32 or 64 and a block size that is a
-multiple of 8 from 8 to 1,024 (:func:`bigbird_kernel_takes`: 8 is the
+The kernels take any head width D from 8 to 64 and a block size that is
+a multiple of 8 from 8 to 1,024 (:func:`bigbird_kernel_takes`: 8 is the
 JAX kernel's own alignment, ``bigbird_sparse_pallas.py:54-55``, and 1,024
 covers S = 8,192 under the command line's ``block_size = S // 8``); a
 CUDA tensor at any other block size or head width raises (there is no
-fallback to the plain versions on the card).
+fallback to the plain versions on the card).  The kernels are instances
+at the padded widths 16, 32 and 64 that take the true D at run time (the
+tensor maps' dimension, the stores' columns); the C entry points take a D
+that is a multiple of 8, so the wrappers pad any other D (36: a 72-byte
+bf16 row, which TMA's 16-byte strides refuse) with zero columns and slice
+the outputs back.  The logit scale is 1/√D of the true D, rounded to bf16
+as JAX rounds it: D = 16, 32 and 64 keep their exact instances with the
+scale fixed at compile time, every other D runs a padded instance that
+takes the scale at run time and rounds the scaled logit again.
 
 What bounds them on the H100, at the trunk's shape (S=4096, H=12, D=64,
 r=3, so W = (5+r)·bs keys per middle query block), counting each input
@@ -117,9 +125,11 @@ the model against the CPU.
 Rounding, as ``_mid_logits`` and the two TPU kernels: Q·Kᵀ accumulated in
 fp32 from products of the input dtype, rounded to it, times 1/√D in the
 input dtype (JAX multiplies a bf16 array by a Python float in bf16, so
-the scale itself is rounded: 0.1767578125 at D=32), rounded again (exact
-at D=16 and 64, where the scale is a power of two; the bf16 kernel makes
-the second rounding at D=32 only), plus the fp32 penalty; softmax in
+the scale itself is rounded: 0.1767578125 at D=32, 0.2041015625 at
+D=24, with D the true head width, never the padded one), rounded again
+(exact at D=16 and 64, where the scale is a power of two; the bf16
+kernels make the second rounding at every other D), plus the fp32
+penalty; softmax in
 fp32; probabilities normalised, then rounded; P·V in fp32, the output
 rounded; the lse in fp32.  Backward: p = exp(logits - lse); dP = dO·Vᵀ;
 row = Σ dO⊙O; dS = p(dP - row)/√D in fp32; dq = dS·K rounded; dK =
@@ -142,12 +152,14 @@ import numpy as np
 import torch
 
 from stonkgs_tpu_torch.ops import _build
+from stonkgs_tpu_torch.ops.flash_attention import _pad_heads, _unpad
 
 ATTN_PENALTY = -10000.0
 KERNEL_TILE = 64            # rows of the kernels' tiles (a block is ⌈bs/64⌉ of them)
 KERNEL_BLOCK_MULTIPLE = 8   # their block sizes: multiples of 8 ...
 KERNEL_MAX_BLOCK = 1024     # ... up to 1,024
-KERNEL_HEAD_DIMS = (16, 32, 64)
+KERNEL_MIN_HEAD_DIM = 8     # their head widths: any from 8 ...
+KERNEL_MAX_HEAD_DIM = 64    # ... to 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = _build.P, _build.I32, _build.I64, _build.F32
 _SIGNATURES = {
@@ -429,11 +441,12 @@ def _geometry(q, k, v, mask, rand_attn, block_size) -> Tuple[int, int, int, int,
 def bigbird_kernel_takes(block_size: int, D: int, S: Optional[int] = None) -> bool:
     """Whether the card's BigBird kernel pair (forward and backward, fp32
     and bf16) takes block size ``block_size`` and head width ``D`` (and,
-    given, a sequence of ``S`` rows): D in ``KERNEL_HEAD_DIMS``, the block
-    size a multiple of 8 from 8 to 1,024, S a multiple of it of at least 5
+    given, a sequence of ``S`` rows): D from 8 to 64, the block size a
+    multiple of 8 from 8 to 1,024, S a multiple of it of at least 5
     blocks."""
     m = KERNEL_BLOCK_MULTIPLE
-    takes = D in KERNEL_HEAD_DIMS and m <= block_size <= KERNEL_MAX_BLOCK and block_size % m == 0
+    takes = (KERNEL_MIN_HEAD_DIM <= D <= KERNEL_MAX_HEAD_DIM
+             and m <= block_size <= KERNEL_MAX_BLOCK and block_size % m == 0)
     if S is not None:
         takes = takes and S % block_size == 0 and S // block_size >= 5
     return takes
@@ -448,9 +461,10 @@ def _check_cuda(what: str, q, tensors, block_size: int) -> None:
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: unsupported dtype {q.dtype}")
     if not bigbird_kernel_takes(block_size, q.shape[-1]):
-        raise ValueError(f"{what} kernel takes D in {KERNEL_HEAD_DIMS} and a block size that "
-                         f"is a multiple of {KERNEL_BLOCK_MULTIPLE} up to {KERNEL_MAX_BLOCK}, "
-                         f"got D={q.shape[-1]}, block size {block_size}")
+        raise ValueError(f"{what} kernel takes D from {KERNEL_MIN_HEAD_DIM} to "
+                         f"{KERNEL_MAX_HEAD_DIM} and a block size that is a multiple of "
+                         f"{KERNEL_BLOCK_MULTIPLE} up to {KERNEL_MAX_BLOCK}, got D={q.shape[-1]}, "
+                         f"block size {block_size}")
     for t in tensors:
         if t.device != q.device:
             raise ValueError(f"{what}: tensors on different devices")
@@ -472,9 +486,11 @@ def tma_map_args(t: torch.Tensor):
 
 
 def _strided_qkv(q, k, v):
-    """q, k, v sharing one (B, S, H, D) stride set that the kernels' tensor
-    maps take (copies only where they do not); returns them and the
-    strides (sb, ss, sh) in elements."""
+    """q, k, v at a head width that is a multiple of 8 (:func:`_pad_heads`),
+    sharing one (B, S, H, D) stride set that the kernels' tensor maps take
+    (copies only where they do not); returns them and the strides (sb, ss,
+    sh) in elements."""
+    q, k, v = _pad_heads(q, k, v)
     if not (tma_map_args(q) is not None and k.stride() == q.stride()
             and v.stride() == q.stride()):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -492,6 +508,7 @@ def bigbird_mid_fwd(q, k, v, mask, rand_attn, block_size):
     if q.device.type == "cpu":
         return bigbird_mid_fwd_plain(q, k, v, mask, rand_attn, block_size)
     _check_cuda("bigbird_mid_fwd", q, (k, v, mask, rand_attn), block_size)
+    D = q.shape[3]
     q, k, v, (sb, ss, sh) = _strided_qkv(q, k, v)
     maskf = mask.float().contiguous()
     rand = rand_attn.to(torch.int32).contiguous()
@@ -500,15 +517,15 @@ def bigbird_mid_fwd(q, k, v, mask, rand_attn, block_size):
     lse = torch.empty((B, H, n), dtype=torch.float32, device=q.device)
     _build.check_aligned("bigbird_mid_fwd", q, k, v, out)
     if B == 0 or H == 0:
-        return out, lse
+        return _unpad(D, out)[0], lse
     lib = _build.load("bigbird_sparse", _SIGNATURES)
     status = lib.bigbird_mid_fwd(
         _DTYPES[q.dtype], *(_build.ptr(t) for t in (q, k, v, maskf, rand, out, lse)),
-        B, S, H, r, block_size, q.shape[3], sb, ss, sh, 1.0 / math.sqrt(q.shape[3]),
+        B, S, H, r, block_size, q.shape[3], sb, ss, sh, 1.0 / math.sqrt(D),
         _build.stream(q.device))
     _build.check(status, "bigbird_mid_fwd")
     bigbird_mid_fwd.launches += 1
-    return out, lse
+    return _unpad(D, out)[0], lse
 
 
 bigbird_mid_fwd.launches = 0
@@ -532,23 +549,25 @@ def bigbird_mid_bwd(q, k, v, mask, rand_attn, block_size, out, lse, dout):
     if tuple(lse.shape) != (B, H, n) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 ({B}, {H}, {n})")
     q, k, v, (sb, ss, sh) = _strided_qkv(q, k, v)
-    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    out, dout = (t.contiguous() for t in _pad_heads(out, dout))
+    lse = lse.contiguous()
     maskf = mask.float().contiguous()
     rand = rand_attn.to(torch.int32).contiguous()
-    dq = torch.zeros((B, S, H, D), dtype=q.dtype, device=q.device)
-    dk = torch.zeros((B, S, H, D), dtype=torch.float32, device=q.device)
+    Dp = q.shape[3]
+    dq = torch.zeros((B, S, H, Dp), dtype=q.dtype, device=q.device)
+    dk = torch.zeros((B, S, H, Dp), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
     _build.check_aligned("bigbird_mid_bwd", q, k, v, out, dout, dq, dk, dv)
     if B == 0 or H == 0:
-        return dq, dk.to(q.dtype), dv.to(q.dtype)
+        return _unpad(D, dq, dk.to(q.dtype), dv.to(q.dtype))
     lib = _build.load("bigbird_sparse", _SIGNATURES)
     status = lib.bigbird_mid_bwd(
         _DTYPES[q.dtype],
         *(_build.ptr(t) for t in (q, k, v, maskf, rand, out, lse, dout, dq, dk, dv)),
-        B, S, H, r, block_size, D, sb, ss, sh, 1.0 / math.sqrt(D), _build.stream(q.device))
+        B, S, H, r, block_size, Dp, sb, ss, sh, 1.0 / math.sqrt(D), _build.stream(q.device))
     _build.check(status, "bigbird_mid_bwd")
     bigbird_mid_bwd.launches += 1
-    return dq, dk.to(q.dtype), dv.to(q.dtype)
+    return _unpad(D, dq, dk.to(q.dtype), dv.to(q.dtype))
 
 
 bigbird_mid_bwd.launches = 0

@@ -49,13 +49,22 @@ intermediate axis in chunks of 128 and the widths as run-time
 arguments): it exists to hold the whole model against the CPU.
 
 Widths (:func:`ffn_kernel_takes`): every FFN kernel, in both dtypes,
-takes any hidden width H that is a multiple of 32 up to 1024 and any
-intermediate width I that is a multiple of 32, one instantiation for
-all: 768 in BERT-base, BioBERT and the BigBird trunk, 1024 in ProtBERT,
-384 in MiniLM-L12-H384, 32 and 64 in the CLI's narrow configs.  At
-ProtBERT's serving shape (M = 8·3072 = 24,576 rows) the products are
-4·M·1024·4096 = 412 GFLOP, bound by operations (0.42 ms at 989
-TFLOP/s).
+takes any hidden width H from 8 to 2048 and any intermediate width I from
+8 to 8192: 768 in BERT-base, BioBERT and the BigBird trunk, 1024 in
+ProtBERT, 384 in MiniLM-L12-H384, and the KG vectors' width in the
+command line's configs (48, 100, 1280, ... at I = 4H).  The C entry points
+take the true widths and arrays in a padded layout, each row of H (or I)
+values ``padded_width`` elements long: a multiple of 8 in bf16 (TMA's
+16-byte strides; the tensor maps take the true width, so TMA zero-fills
+past it and nothing reads the padding), of 32 in fp32 (the SIMT bodies
+run at the padded widths on zero padding).  The wrappers pad a width that
+is not such a multiple with zeros and slice the outputs back; at H = 768,
+1024, 384 and every multiple of 8 in bf16 nothing is copied.  The
+LayerNorm passes take their statistics over the true H.  The fp32 bodies
+have two instances, the original one up to a padded H of 1024 and one
+with 8-row blocks above it (``csrc/ffn.cuh``).  At ProtBERT's serving
+shape (M = 8·3072 = 24,576 rows) the products are 4·M·1024·4096 = 412
+GFLOP, bound by operations (0.42 ms at 989 TFLOP/s).
 
 Rounding points, as the TPU kernel (``fused_ffn.py:444-467``):
 x2 = LN1(x + attn) in fp32, rounded; h accumulated in fp32, + b1, gelu in
@@ -101,11 +110,11 @@ rings and ``wgmma``, each weight read as it lies (no transposed copy):
   never leaves registers; then dx = dh W1ᵀ with W1 (H, I) as the K-major
   B operand.
 
-The widths are the serving block's (the GEMMs alone would take any
-multiples of 8).  fp32 keeps the SIMT bodies of ``csrc/ffn.cuh`` and
-``csrc/ffn_train.cu`` (the backward streams W2ᵀ and W1ᵀ copies that the
-wrapper makes): they exist to hold the model against the CPU.  dW1 =
-xᵀ dh, dW2 = aᵀ g (fp32 results of bf16 products) and the bias sums stay
+The widths and the padded layout are the serving block's.  fp32 keeps
+the SIMT bodies of ``csrc/ffn.cuh`` and ``csrc/ffn_train.cu`` (the
+backward streams W2ᵀ and W1ᵀ copies that the wrapper makes): they exist
+to hold the model against the CPU.  dW1 = xᵀ dh, dW2 = aᵀ g (fp32
+results of bf16 products) and the bias sums stay
 plain PyTorch, as the JAX package leaves them to XLA
 (``fused_ffn.py:334-341``).  Rounding points as the TPU kernels: g cast
 to x's dtype; h, gelu and gelu' in fp32; a rounded; dh = (g W2ᵀ) ⊙
@@ -121,14 +130,17 @@ import math
 import torch
 
 from stonkgs_tpu_torch.ops import _build
+from stonkgs_tpu_torch.ops.flash_attention import _unpad
 
 _ACTS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the widest hidden width of the FFN kernels (the fp32 bodies' shared
-# memory and the LayerNorm pass's registers), and the multiple that H and
-# I must be
-FFN_MAX_HIDDEN = 1024
-FFN_WIDTH_MULTIPLE = 32
+# the FFN kernels' widths: H from FFN_MIN_WIDTH to FFN_MAX_HIDDEN, I from
+# FFN_MIN_WIDTH to FFN_MAX_INTERMEDIATE
+FFN_MIN_WIDTH = 8
+FFN_MAX_HIDDEN = 2048
+FFN_MAX_INTERMEDIATE = 8192
+# the padded layout's row multiple in each dtype (csrc/ffn.cuh, padded_width)
+_ROW_MULTIPLE = {torch.float32: 32, torch.bfloat16: 8}
 _P, _I, _F = _build.P, _build.I32, _build.F32
 # int ffn_ln_block(dtype, x, attn_out, ln1_scale, ln1_bias, w1, b1, w2, b2,
 #                  ln2_scale, ln2_bias, x2, h, out, M, H, I, act, eps, stream)
@@ -179,10 +191,9 @@ def _check_act(act: str) -> None:
 def ffn_kernel_takes(H: int, I: int) -> bool:
     """Whether the card's FFN kernels (the serving block, the training
     forward and backward, in fp32 and bf16) take hidden width ``H`` and
-    intermediate width ``I``: H a multiple of 32 from 32 to 1024, I a
-    positive multiple of 32."""
-    m = FFN_WIDTH_MULTIPLE
-    return m <= H <= FFN_MAX_HIDDEN and H % m == 0 and I >= m and I % m == 0
+    intermediate width ``I``: H from 8 to 2048, I from 8 to 8192."""
+    return (FFN_MIN_WIDTH <= H <= FFN_MAX_HIDDEN
+            and FFN_MIN_WIDTH <= I <= FFN_MAX_INTERMEDIATE)
 
 
 def check_ffn_widths(what: str, H: int, I: int) -> None:
@@ -190,8 +201,24 @@ def check_ffn_widths(what: str, H: int, I: int) -> None:
     (:func:`ffn_kernel_takes`)."""
     if not ffn_kernel_takes(H, I):
         raise ValueError(
-            f"{what} kernel takes H a multiple of {FFN_WIDTH_MULTIPLE} up to "
-            f"{FFN_MAX_HIDDEN} and I a multiple of {FFN_WIDTH_MULTIPLE}, got H={H}, I={I}")
+            f"{what} kernel takes H from {FFN_MIN_WIDTH} to {FFN_MAX_HIDDEN} and I from "
+            f"{FFN_MIN_WIDTH} to {FFN_MAX_INTERMEDIATE}, got H={H}, I={I}")
+
+
+def padded_width(n: int, dtype) -> int:
+    """The row length of an ``n``-wide array in the kernels' padded layout:
+    ``n`` rounded up to a multiple of 32 in fp32, of 8 in bf16."""
+    m = _ROW_MULTIPLE[dtype]
+    return -(-n // m) * m
+
+
+def _pad_to(t: torch.Tensor, *widths):
+    """``t`` with its last ``len(widths)`` axes zero-padded to ``widths``
+    (``t`` itself where they already are)."""
+    pad = []
+    for size, width in zip(reversed(t.shape[-len(widths):]), reversed(widths)):
+        pad += [0, width - size]
+    return torch.nn.functional.pad(t, pad) if any(pad) else t
 
 
 def _check_cuda_ffn(what: str, x, w1, w2, *tensors) -> None:
@@ -264,25 +291,30 @@ def fused_ffn_ln_block(
         if tuple(t.shape) != (n,):
             raise ValueError(f"vector of shape {tuple(t.shape)}, expected ({n},)")
     M = x.numel() // H
-    out = torch.empty_like(x)
+    Hp, Ip = padded_width(H, dt), padded_width(I, dt)
+    # the padded layout: rows of Hp and Ip elements, zero past H and I
+    xp, ap = (_pad_to(t.reshape(M, H), Hp) for t in (x, attn_out))
+    w1, w2 = _pad_to(w1, Hp, Ip), _pad_to(w2, Ip, Hp)
+    g1, be1, b1f, b2f, g2, be2 = (_pad_to(t, n) for t, n in
+                                  zip(vecs, (Hp, Hp, Ip, Hp, Hp, Hp)))
+    out = torch.empty((M, Hp), dtype=dt, device=x.device)
     # bf16 scratch of the Hopper design: x2 = LN1(x + attn) and h (M, I)
-    x2, h = ((torch.empty((M, H), dtype=dt, device=x.device),
-              torch.empty((M, I), dtype=dt, device=x.device))
+    x2, h = ((torch.empty((M, Hp), dtype=dt, device=x.device),
+              torch.empty((M, Ip), dtype=dt, device=x.device))
              if dt == torch.bfloat16 else (None, None))
-    _build.check_aligned("fused_ffn_ln_block", x, attn_out, w1, w2, x2, h, out)
+    _build.check_aligned("fused_ffn_ln_block", xp, ap, w1, w2, x2, h, out)
     if M == 0:
-        return out
+        return _unpad(H, out)[0].reshape(x.shape)
     lib = _build.load("ffn_ln_block", _SIGNATURES)
-    g1, be1, b1f, b2f, g2, be2 = vecs
     status = lib.ffn_ln_block(
-        _DTYPES[dt], _build.ptr(x), _build.ptr(attn_out),
+        _DTYPES[dt], _build.ptr(xp), _build.ptr(ap),
         _build.ptr(g1), _build.ptr(be1), _build.ptr(w1), _build.ptr(b1f),
         _build.ptr(w2), _build.ptr(b2f), _build.ptr(g2), _build.ptr(be2),
         _build.ptr(x2), _build.ptr(h), _build.ptr(out), M, H, I, _ACTS[act],
         float(eps), _build.stream(x.device))
     _build.check(status, "ffn_ln_block")
     fused_ffn_ln_block.launches += 1
-    return out
+    return _unpad(H, out)[0].reshape(x.shape)
 
 
 fused_ffn_ln_block.launches = 0
@@ -331,21 +363,25 @@ def fused_ffn_fwd(x, w1, b1, w2, b2, *, act="gelu"):
     _check_cuda_ffn("fused_ffn_fwd", x, w1, w2, b1f, b2f)
     H, I = w1.shape
     M = x.numel() // H
-    out = torch.empty_like(x)
+    Hp, Ip = padded_width(H, dt), padded_width(I, dt)
+    xp = _pad_to(x.reshape(M, H), Hp)
+    w1, w2 = _pad_to(w1, Hp, Ip), _pad_to(w2, Ip, Hp)
+    b1f, b2f = _pad_to(b1f, Ip), _pad_to(b2f, Hp)
+    out = torch.empty((M, Hp), dtype=dt, device=x.device)
     # bf16 scratch of the Hopper design: h (M, I)
-    h = (torch.empty((M, I), dtype=dt, device=x.device)
+    h = (torch.empty((M, Ip), dtype=dt, device=x.device)
          if dt == torch.bfloat16 else None)
-    _build.check_aligned("fused_ffn_fwd", x, w1, w2, h, out)
+    _build.check_aligned("fused_ffn_fwd", xp, w1, w2, h, out)
     if M == 0:
-        return out
+        return _unpad(H, out)[0].reshape(x.shape)
     lib = _build.load("ffn_train", _TRAIN_SIGNATURES)
     status = lib.ffn_train_fwd(
-        _DTYPES[dt], _build.ptr(x), _build.ptr(w1), _build.ptr(b1f), _build.ptr(w2),
+        _DTYPES[dt], _build.ptr(xp), _build.ptr(w1), _build.ptr(b1f), _build.ptr(w2),
         _build.ptr(b2f), _build.ptr(h), _build.ptr(out), M, H, I, _ACTS[act],
         _build.stream(x.device))
     _build.check(status, "ffn_train_fwd")
     fused_ffn_fwd.launches += 1
-    return out
+    return _unpad(H, out)[0].reshape(x.shape)
 
 
 fused_ffn_fwd.launches = 0
@@ -363,29 +399,31 @@ def fused_ffn_bwd(x, g, w1, b1, w2, *, act="gelu"):
     dt = x.dtype
     w1, w2 = w1.to(dt), w2.to(dt)
     b1f = b1.float()
+    _check_cuda_ffn("fused_ffn_bwd", x, w1, w2, g, b1f)
+    if x.dim() != 2 or g.shape != x.shape or g.dtype != dt:
+        raise ValueError("fused_ffn_bwd takes x and g as (M, H) in one dtype")
+    M, (H, I) = x.shape[0], w1.shape
+    Hp, Ip = padded_width(H, dt), padded_width(I, dt)
+    xp, gp = _pad_to(x, Hp), _pad_to(g, Hp)
+    w1, w2, b1f = _pad_to(w1, Hp, Ip), _pad_to(w2, Ip, Hp), _pad_to(b1f, Ip)
     # fp32: the SIMT body streams W2ᵀ and W1ᵀ copies; the bf16 GEMMs read
     # both weights as they lie
     w2t, w1t = ((w2.t().contiguous(), w1.t().contiguous())
                 if dt == torch.float32 else (None, None))
-    _check_cuda_ffn("fused_ffn_bwd", x, w1, w2, g, b1f,
-                    *(t for t in (w2t, w1t) if t is not None))
-    if x.dim() != 2 or g.shape != x.shape or g.dtype != dt:
-        raise ValueError("fused_ffn_bwd takes x and g as (M, H) in one dtype")
-    M, (H, I) = x.shape[0], w1.shape
-    dx = torch.empty_like(x)
-    dh = torch.empty((M, I), dtype=dt, device=x.device)
-    a = torch.empty((M, I), dtype=dt, device=x.device)
-    _build.check_aligned("fused_ffn_bwd", x, g, w1, w2, w2t, w1t, dx, dh, a)
+    dx = torch.empty((M, Hp), dtype=dt, device=x.device)
+    dh = torch.empty((M, Ip), dtype=dt, device=x.device)
+    a = torch.empty((M, Ip), dtype=dt, device=x.device)
+    _build.check_aligned("fused_ffn_bwd", xp, gp, w1, w2, w2t, w1t, dx, dh, a)
     if M == 0:
-        return dx, dh, a
+        return (*_unpad(H, dx), *_unpad(I, dh, a))
     lib = _build.load("ffn_train", _TRAIN_SIGNATURES)
     status = lib.ffn_train_bwd(
-        _DTYPES[dt], _build.ptr(x), _build.ptr(g), _build.ptr(w1), _build.ptr(b1f),
+        _DTYPES[dt], _build.ptr(xp), _build.ptr(gp), _build.ptr(w1), _build.ptr(b1f),
         _build.ptr(w2), _build.ptr(w2t), _build.ptr(w1t), _build.ptr(dx), _build.ptr(dh),
         _build.ptr(a), M, H, I, _ACTS[act], _build.stream(x.device))
     _build.check(status, "ffn_train_bwd")
     fused_ffn_bwd.launches += 1
-    return dx, dh, a
+    return (*_unpad(H, dx), *_unpad(I, dh, a))
 
 
 fused_ffn_bwd.launches = 0

@@ -3,7 +3,8 @@ and 1024, against the JAX package, on the CPU.
 
 The card's attention kernels take any D from 8 to 128 (the widths from 48
 up are ``tests/test_torch_head_widths.py``'s) and its FFN kernels any H
-that is a multiple of 32 up to 1024 with I a multiple of 32; on a
+from 8 to 2048 with any I from 8 to 8192 (the widths that are no
+multiple of 32 and those above 1024 are ``tests/test_torch_ffn_widths.py``'s); on a
 CPU tensor each wrapper runs its kernel's plain version, which these
 tests hold against the JAX package's Pallas kernels in interpret mode at
 the new widths, and the port's STonKGs at MiniLM-L12-H384's widths
@@ -91,16 +92,17 @@ def test_attention_kernel_refuses_empty_sequences():
 
 @pytest.mark.parametrize("H,I,takes", [
     (32, 128, True), (64, 256, True), (96, 384, True), (384, 1536, True), (512, 2048, True),
-    (768, 3072, True), (1024, 4096, True), (768, 1000, False), (16, 64, False),
-    (48, 192, False), (1056, 4224, False), (384, 100, False), (0, 0, False)])
+    (768, 3072, True), (1024, 4096, True), (768, 1000, True), (16, 64, True),
+    (48, 192, True), (1056, 4224, True), (384, 100, True), (0, 0, False),
+    (8, 8, True), (2048, 8192, True), (2056, 8224, False), (768, 8200, False), (4, 16, False)])
 def test_ffn_kernel_domain(H, I, takes):
     assert tffn.ffn_kernel_takes(H, I) is takes
     if takes:
         tffn.check_ffn_widths("fused_ffn_fwd", H, I)
     else:
         with pytest.raises(ValueError,
-                           match=rf"takes H a multiple of 32 up to 1024 and I a multiple of "
-                                 rf"32, got H={H}, I={I}"):
+                           match=rf"takes H from 8 to 2048 and I from 8 to 8192, "
+                                 rf"got H={H}, I={I}"):
             tffn.check_ffn_widths("fused_ffn_fwd", H, I)
 
 
@@ -130,12 +132,16 @@ def test_ffn_kernel_domain(H, I, takes):
                                         intermediate_size=2176), True),
     # BERT-base's widths split into 6 heads of D=128
     ("BERT-base 6 x 128", tconfig.BertConfig(num_attention_heads=6), True),
-    # ... and widths outside: 4 heads of 136, and a 48-wide config (H is
-    # not a multiple of 32)
+    # a 48-wide config (H is not a multiple of 32, which the FFN kernels
+    # take since they take any H from 8 to 2048) ...
+    ("CLI 48-wide", tconfig.BertConfig(hidden_size=48, num_attention_heads=2,
+                                       intermediate_size=192), True),
+    # ... and widths outside: 4 heads of 136, and a 2112-wide config (H
+    # above 2048)
     ("H=544 4 x 136", tconfig.BertConfig(hidden_size=544, num_attention_heads=4,
                                          intermediate_size=2176), False),
-    ("CLI 48-wide", tconfig.BertConfig(hidden_size=48, num_attention_heads=2,
-                                       intermediate_size=192), False),
+    ("CLI 2112-wide", tconfig.BertConfig(hidden_size=2112, num_attention_heads=33,
+                                         intermediate_size=8448), False),
 ])
 def test_model_configs_against_the_domains(name, cfg, takes):
     both = (tflash.attention_kernel_takes(cfg.head_dim)
@@ -403,19 +409,21 @@ def test_prot_pretraining_config_matches_jax(width, layout, tmp_path, monkeypatc
 
 
 def test_bigbird_kernel_domain_edges():
-    """The BigBird pair's domain: D in (16, 32, 64), a block size that is a
-    multiple of 8 from 8 to 1,024, and (given S) S a multiple of it of at
+    """The BigBird pair's domain: any D from 8 to 64, a block size that is
+    a multiple of 8 from 8 to 1,024, and (given S) S a multiple of it of at
     least 5 blocks."""
     from stonkgs_tpu_torch.ops import bigbird_sparse as tsparse
 
     takes = tsparse.bigbird_kernel_takes
     for bs in range(8, 1025, 8):
-        for D in (16, 32, 64):
+        for D in (8, 16, 24, 32, 36, 40, 64):
             assert takes(bs, D) and takes(bs, D, 5 * bs) and takes(bs, D, 8 * bs)
             assert not takes(bs, D, 4 * bs) and not takes(bs, D, 8 * bs + 4)
     for bs in (0, 4, 12, 60, 100, 1020, 1032, 2048):
         assert not takes(bs, 32)
-    for D in (8, 24, 48, 80, 96, 128):
+    for D in range(8, 65):
+        assert takes(64, D) and takes(512, D)
+    for D in (4, 7, 65, 72, 80, 96, 128):
         assert not takes(64, D) and not takes(512, D)
 
 
