@@ -448,8 +448,10 @@ from stonkgs_tpu_torch.ops.quantization import (
     dense_int8_fused_plain,
     dense_int8_gemm,
     dense_int8_quantize,
+    is_k_major,
     is_quantized,
     k_major,
+    padded_k,
     quantize_kernel,
     quantize_params,
     quantize_rows,
@@ -509,7 +511,7 @@ SM90_KERNELS = {
     "flash_attention_infer": ("attn_fwd_sm90_kernel",),
     "flash_attention_train": ("attn_fwd_sm90_kernel", "attn_bwd_dq_sm90_kernel",
                               "attn_bwd_dkdv_sm90_kernel"),
-    "ffn_ln_block": ("gemm_sm90_kernel", "add_layer_norm_kernel"),
+    "ffn_ln_block": ("gemm_sm90_kernel", "add_layer_norm_kernel", "layer_norm_rows_kernel"),
     "ffn_train": ("gemm_sm90_kernel", "ffn_bwd_dual_sm90_kernel"),
     "bigbird_sparse": ("bigbird_fwd_sm90_kernel", "bigbird_bwd_sm90_kernel"),
     "dense_int8": ("quantize_rows_kernel", "gemm_kmajor_sm90_kernel"),
@@ -605,15 +607,17 @@ def _ptxas_spills(text: str) -> dict:
 
 
 def _bias(B: int, S: int, gen: torch.Generator) -> tuple:
-    """Random right-padding: (B, 1, 1, S) fp32 key bias and (B, S) keep mask."""
-    lengths = torch.randint(1, S + 1, (B,), generator=gen)
-    keep = torch.arange(S)[None, :] < lengths[:, None]
+    """Random right-padding: (B, 1, 1, S) fp32 key bias and (B, S) keep mask
+    (drawn on ``gen``'s device, a CPU or a card generator)."""
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=gen.device)
+    keep = torch.arange(S, device=gen.device)[None, :] < lengths[:, None]
     bias = ((1.0 - keep.float()) * -1e9)[:, None, None, :]
     return bias.to(DEV), keep.to(DEV)
 
 
 def _attn_inputs(B, S, dtype, gen, masked=True, H=12, D=64):
-    q, k, v = (torch.randn(B, S, H, D, generator=gen).to(DEV, dtype) for _ in range(3))
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device=gen.device).to(DEV, dtype)
+               for _ in range(3))
     bias, keep = _bias(B, S, gen) if masked else (None, None)
     return q, k, v, bias, keep
 
@@ -624,7 +628,7 @@ def _ffn_inputs(M, dtype, gen, H=768, I=3072, fan_in=False):
     ``fan_in`` at 1/sqrt(fan-in), so that at any width the products and
     their gradients are of order 1."""
     def n(*shape, std=1.0, mean=0.0):
-        return (mean + std * torch.randn(*shape, generator=gen)).to(DEV)
+        return (mean + std * torch.randn(*shape, generator=gen, device=gen.device)).to(DEV)
     s1, s2 = (H ** -0.5, I ** -0.5) if fan_in else (0.02, 0.02)
     return [n(M, H).to(dtype), n(M, H).to(dtype),
             n(H, std=0.1, mean=1.0), n(H, std=0.1),
@@ -700,7 +704,7 @@ def _compare_rel(name, got, want, dtype) -> float:
 def phase_kernels() -> dict:
     """Kernel vs plain version on the card; returns the bf16 errors at the
     largest path shape of each kernel."""
-    gen = torch.Generator().manual_seed(1)
+    gen = torch.Generator(device=DEV).manual_seed(1)
     errs = {}
     for dtype in (BF16, F32):
         tag = "bf16" if dtype == BF16 else "fp32"
@@ -764,8 +768,9 @@ def _attention_edges(gen) -> None:
 def _train_attn_inputs(B, S, dtype, gen, masked=True, H=12, D=64):
     """q, k, v, bias, keep, a two-word seed and an output cotangent."""
     q, k, v, bias, keep = _attn_inputs(B, S, dtype, gen, masked, H, D)
-    seed = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32, generator=gen)
-    do = torch.randn(B, S, H, D, generator=gen).to(DEV, dtype)
+    seed = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32, generator=gen,
+                         device=gen.device).cpu()
+    do = torch.randn(B, S, H, D, generator=gen, device=gen.device).to(DEV, dtype)
     return q, k, v, bias, keep, seed, do
 
 
@@ -837,7 +842,7 @@ def _train_ffn_inputs(M, dtype, gen, H=768, I=3072, fan_in=False):
     cotangent g; the weights at std 0.02, or at 1/sqrt(fan-in) with
     ``fan_in`` (as :func:`_ffn_inputs`)."""
     def n(*shape, std=1.0):
-        return (std * torch.randn(*shape, generator=gen)).to(DEV)
+        return (std * torch.randn(*shape, generator=gen, device=gen.device)).to(DEV)
     s1, s2 = (H ** -0.5, I ** -0.5) if fan_in else (0.02, 0.02)
     return (n(M, H).to(dtype), n(H, I, std=s1), n(I, std=0.02), n(I, H, std=s2),
             n(H, std=0.02), n(M, H).to(dtype))
@@ -901,7 +906,7 @@ def _rel_limit_rejects(name, want, wrong) -> None:
 def phase_train_kernels() -> dict:
     """The training kernels vs their plain versions on the card; returns,
     per kernel, the worst bf16 error at the step's largest shape."""
-    gen = torch.Generator().manual_seed(3)
+    gen = torch.Generator(device=DEV).manual_seed(3)
     errs = {}
 
     def note(name, err, dtype, at_path_shape):
@@ -1313,7 +1318,7 @@ def phase_timing(cfg: STonKGsConfig, engine, bucketed, feats) -> dict:
         log(f"# embed {label}: {n} rows, B={BATCH}, seconds {times!r}; "
             f"best {n / min(times)!r} pairs/s, median "
             f"{n / statistics.median(times)!r} pairs/s")
-    gen = torch.Generator().manual_seed(2)
+    gen = torch.Generator(device=DEV).manual_seed(2)
     tl, sl = cfg.text_len, cfg.seq_len
     shapes = {
         "ffn_ln_block": [(f"trunk M={BATCH * sl}", _time_ffn, (BATCH * sl,)),
@@ -1625,7 +1630,7 @@ def phase_train_timing(cfg: STonKGsConfig, state) -> dict:
     """Step time at B=32 (sync through the loss), then each training kernel
     at the step's shapes; returns, per kernel, the trunk shape's numbers."""
     med = _train_step_seconds(cfg, state, "")
-    gen = torch.Generator().manual_seed(4)
+    gen = torch.Generator(device=DEV).manual_seed(4)
     tl, sl, B = cfg.text_len, cfg.seq_len, TRAIN_BATCH
     cases = {
         "flash_attention_train_fwd": [
@@ -1856,15 +1861,22 @@ def phase_prot_training(cfg: ProtSTonKGsConfig, params_cpu: dict,
     return counts, state, loss_fn
 
 
+# rows and layers a stack of phase 13's card-against-CPU loss and
+# gradients: its CPU half at S=4096 and full width took 123 s of the smoke
+# at 2 rows and 2 layers (blocks 64 and 128), the most of any phase's part
+PROT_NUMERICS_ROWS, PROT_NUMERICS_LAYERS = 1, 1
+
+
 def phase_prot_train_numerics(cfg_full: ProtSTonKGsConfig, block_size: int = 64) -> None:
-    """Loss and trunk gradients, card fp32 vs CPU fp32, at 2 rows and 2
-    layers a stack of the full widths, the trunk at ``block_size`` (its
-    training plan), hidden dropout 0 and the backbones' attention dropout
-    0.1 (seeds from the same CPU generator)."""
-    cfg = _with_block(_prot_cfg(cfg_full.kg_vocab_size, layers=2, hidden_dropout=0.0),
-                      block_size)
+    """Loss and trunk gradients, card fp32 vs CPU fp32, at
+    PROT_NUMERICS_ROWS rows and PROT_NUMERICS_LAYERS layers a stack of the
+    full widths, the trunk at ``block_size`` (its training plan), hidden
+    dropout 0 and the backbones' attention dropout 0.1 (seeds from the
+    same CPU generator)."""
+    cfg = _with_block(_prot_cfg(cfg_full.kg_vocab_size, layers=PROT_NUMERICS_LAYERS,
+                                hidden_dropout=0.0), block_size)
     params = _prot_params(cfg, seed=12)
-    feats = _prot_features(cfg, 2, seed=3, labels=True)
+    feats = _prot_features(cfg, PROT_NUMERICS_ROWS, seed=3, labels=True)
     plan = _train_plan(cfg)
 
     def loss_and_grads(device):
@@ -1884,8 +1896,10 @@ def phase_prot_train_numerics(cfg_full: ProtSTonKGsConfig, block_size: int = 64)
     loss_cpu, g_cpu = loss_and_grads("cpu")
     err = max(float((a - b).abs().max()) for a, b in zip(g_card, g_cpu))
     scale = max(float(b.abs().max()) for b in g_cpu)
-    log(f"# ProtSTonKGs train card fp32 vs CPU fp32 (block {block_size}, 2 rows, 2 layers a "
-        f"stack, attention dropout {ATTN_RATE}): loss {loss_card!r} vs {loss_cpu!r}; trunk and "
+    log(f"# ProtSTonKGs train card fp32 vs CPU fp32 (block {block_size}, rows "
+        f"{PROT_NUMERICS_ROWS}, layers a stack {PROT_NUMERICS_LAYERS}, attention dropout "
+        f"{ATTN_RATE}): loss "
+        f"{loss_card!r} vs {loss_cpu!r}; trunk and "
         f"projection grads max_abs_err {err!r} of max |grad| {scale!r} (limits: loss 1e-4 "
         f"relative, grads 1e-3 of max |grad|)")
     check(abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu),
@@ -2324,12 +2338,164 @@ def _time_embed_in_turns(label: str, engines: dict, feats: dict, unit: str) -> d
     return outs
 
 
-def phase_int8_serving(cfg: STonKGsConfig, params: dict, feats: dict) -> dict:
+# int8 at any K (phase 16 (c)): K no multiple of the kernel's step of 16
+# (8, 72, 100: the 100-wide config's Q/K/V/O and FFN in), K = 400 (its FFN
+# out) and the 2560-wide config's 2,560 and 10,240, each (M, K, N) a path's
+# dense or an edge (M = 1, the decoder's N = 28,996)
+INT8_ANY_K = ((300, 8, 768), (1, 72, 100), (300, 72, 768), (300, 100, 100), (1000, 100, 400),
+              (1000, 400, 100), (128, 100, 28996), (300, 2560, 2560), (300, 2560, 10240),
+              (300, 10240, 2560))
+# the planted fault's shape: the product without its last partial K step
+INT8_FAULT = (1000, 100, 400)
+# (hidden, heads, intermediate) of the int8 engines at the CLI's 100-wide
+# config (K = 100) and the 2560-wide one (K = 2,560 and 10,240), with
+# WIDEST_ENTITIES KG entities
+INT8_WIDE_CFGS = ((100, 2, 400), (2560, 40, 10240))
+# the kernel line's K=100 shape: the 100-wide trunk's FFN in at B=128
+INT8_K100 = ("100-wide trunk FFN in", BATCH * 512, 100, 400)
+
+
+def _int8_limit_rejects(name, want, wrong, dtype) -> None:
+    """Fail unless ``_compare_int8``'s limit (TOL in bf16, INT8_F32_TOL of
+    max |want| in fp32) tells ``wrong`` from ``want``."""
+    g, w = wrong.float(), want.float()
+    err = float((g - w).abs().max())
+    if dtype == BF16:
+        passes = bool(torch.allclose(g, w, **TOL[BF16]))
+    else:
+        passes = err <= INT8_F32_TOL * float(w.abs().max())
+    log(f"# check {name}: max_abs_err {err!r} max|plain| {float(w.abs().max())!r} "
+        f"{'passes: FAIL' if passes else 'rejected: ok'}")
+    check(not passes, f"{name}: the int8 limit does not catch this fault")
+
+
+def _int8_any_k(gen) -> float:
+    """(c) The int8 dense at every (M, K, N) of INT8_ANY_K against its
+    plain version, bf16 and fp32: the row-quantize pass's codes and scales
+    bit for bit, the dense from one call (a zero row included) and from
+    its two launches apart, on the column-major weight that
+    ``quantized_to`` lays out (rows of padded_k(K) codes) and on a
+    row-major one (copied so for the call).  At INT8_FAULT the limits must
+    reject the plain product without its last partial K step (codes
+    96-99 of K = 100).  Returns the worst bf16 error."""
+    worst = 0.0
+    for dtype in (BF16, F32):
+        tag = "bf16" if dtype == BF16 else "fp32"
+        for M, K, N in INT8_ANY_K:
+            x, w, s, b = _int8_dense_inputs(M, K, N, dtype, gen, zero_row=True)
+            check(is_k_major(w) and w.stride(1) == padded_k(K),
+                  f"dense_int8 K={K}: the weight is not laid out in padded_k(K) rows")
+            _check_codes(f"dense_int8 {tag} M={M} K={K}", x)
+            want = dense_int8_fused_plain(x, w, s, b)
+            e = _compare_int8(f"dense_int8 {tag} M={M} {K}->{N} zero row",
+                              dense_int8_fused(x, w, s, b), want, dtype)
+            codes, scales = dense_int8_quantize(x)
+            _compare_int8(f"dense_int8 {tag} M={M} {K}->{N} two launches apart",
+                          dense_int8_gemm(codes, scales, w, s, b, dtype), want, dtype)
+            w_row = w.contiguous()
+            _compare_int8(f"dense_int8 {tag} M={M} {K}->{N} row-major kernel_q",
+                          dense_int8_fused(x, w_row, s, b), want, dtype)
+            if dtype == BF16:
+                worst = max(worst, e)
+            del x, w, s, b, want, codes, scales, w_row
+        M, K, N = INT8_FAULT
+        x, w, s, b = _int8_dense_inputs(M, K, N, dtype, gen)
+        want = dense_int8_fused_plain(x, w, s, b)
+        e = _compare_int8(f"dense_int8 {tag} M={M} {K}->{N}", dense_int8_fused(x, w, s, b), want,
+                          dtype)
+        q, sx = quantize_rows(x)
+        cut = K // 16 * 16
+        q[:, cut:] = 0
+        _int8_limit_rejects(f"dense_int8 {tag} M={M} {K}->{N} without the last partial K step "
+                            f"(codes {cut}-{K - 1})", want,
+                            _dequant_plain(q, sx, w, s, b, dtype), dtype)
+        if dtype == BF16:
+            worst = max(worst, e)
+        del x, w, s, b, want, q, sx
+    return worst
+
+
+def _int8_wide_engine(label: str, cfg: STonKGsConfig, params: dict, feats: dict) -> dict:
+    """(c) ``quantize_params`` on seeded parameters of a 2-layer config,
+    then ``STonKGsEngine.embed`` in bf16 on the card, counts from 0 just
+    before it; then, under the phase's limits at full depth (at 2,560 wide
+    a code that flips between the card's and the CPU's fp32 inputs moves
+    the end-to-end cosine to 0.9996 in 2 layers), card fp32 vs CPU fp32
+    (both int8, 4 rows) layer by layer (:func:`_int8_layers_card_vs_cpu`:
+    cosine 0.9999 and the flipped codes' share a layer) and end to end
+    (cosine 0.999), and card bf16 vs CPU fp32 (0.99).  Returns the launch
+    counts."""
+    t0 = time.perf_counter()
+    params_q = quantize_params(params_to(params, DEV))
+    engine = STonKGsEngine(cfg=cfg, params=params_to(params_q, DEV, BF16), batch_size=BATCH,
+                           device=DEV)
+    _check_k_major(f"{label} int8 engine", engine.params)
+    n = len(feats["input_ids"])
+    _reset_counts(INT8_SERVING_KERNELS)
+    out = engine.embed(feats)
+    counts = _counts(INT8_SERVING_KERNELS)
+    n_batches, layers = math.ceil(n / BATCH), cfg.bert.num_hidden_layers
+    per_batch = {"dense_int8": 6 * 2 * layers, "flash_attention_infer": 2 * layers - 1,
+                 "ffn_ln_block": 0}
+    log(f"# launches int8 {label} embed ({n_batches} batches): {counts}")
+    check(out.shape == (n, cfg.bert.hidden_size) and bool(np.isfinite(out).all()),
+          f"int8 {label} embed output {out.shape} not finite")
+    for name, c in per_batch.items():
+        check(counts[name] == c * n_batches,
+              f"int8 {label} {name}: {counts[name]} launches, expected {c} x {n_batches}")
+    few = {k: v[:4] for k, v in feats.items()}
+
+    def embed32(p, device):
+        return STonKGsEngine(cfg=cfg, params=p, compute_dtype="float32", batch_size=4,
+                             device=device).embed(few)
+
+    cpu32 = _int8_layers_card_vs_cpu(lambda p: embed32(p, "cpu"), params_q)
+    card32 = embed32(params_q, DEV)
+    cos32, cos16 = _cosine(card32, cpu32), _cosine(out[:4], cpu32)
+    log(f"# int8 {label}: card fp32 vs CPU fp32 (4 rows, {layers} layers end to end) cosine "
+        f"{cos32.tolist()!r} (limit 0.999), max_abs_err {float(np.abs(card32 - cpu32).max())!r}; "
+        f"card bf16 vs CPU fp32 cosine {cos16.tolist()!r} (limit 0.99); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(bool((cos32 >= 0.999).all()), f"int8 {label}: card fp32 disagrees with the CPU")
+    check(bool((cos16 >= 0.99).all()), f"int8 {label}: card bf16 too far from the CPU fp32")
+    return counts
+
+
+def _int8_wide(gen) -> dict:
+    """(c) The int8 dense at any K (:func:`_int8_any_k`), the int8 engines at
+    the configs of INT8_WIDE_CFGS (:func:`_int8_wide_engine`) and the
+    dense at INT8_K100 timed for the kernel line.  Returns the 100-wide
+    engine's launch counts, every engine's counts summed, the worst bf16
+    error and the K=100 times."""
+    t0 = time.perf_counter()
+    err = _int8_any_k(gen)
+    log(f"# int8 (c) any K: {time.perf_counter() - t0:.1f} s")
+    total, k100 = {}, None
+    for hidden, heads, inter in INT8_WIDE_CFGS:
+        cfg = STonKGsConfig(bert=BertConfig(hidden_size=hidden, num_hidden_layers=2,
+                                            num_attention_heads=heads,
+                                            intermediate_size=inter),
+                            kg_vocab_size=WIDEST_ENTITIES)
+        params = _stonkgs_params(cfg, seed=hidden)
+        counts = _int8_wide_engine(f"{hidden}-wide", cfg, params,
+                                   _features(cfg, ROWS, seed=hidden))
+        k100 = k100 or counts
+        _add_counts(total, counts)
+        del params
+        torch.cuda.empty_cache()
+    label, M, K, N = INT8_K100
+    t = _time_int8_shape(label, M, K, N, gen)
+    log(f"# int8 (c) any K, the engines, K=100 timed: {time.perf_counter() - t0:.1f} s")
+    return {"counts": k100, "total": total, "err": max(err, t["max_abs_err"]), "time": t}
+
+
+def phase_int8_serving(cfg: STonKGsConfig, params: dict, feats: dict) -> tuple:
     """``quantize_params`` on phase 5's fp32 parameters (KG table
     included), then ``STonKGsEngine.embed`` in bf16 on the card: the
     int8 main path, counts from 0 just before it.  Then card fp32 vs CPU
     fp32 (both int8) on 4 rows, card bf16 vs CPU fp32, and pairs/s in
-    turns with the bf16 engine.  Returns the launch counts.
+    turns with the bf16 engine.  Then (c), the int8 dense at any K
+    (:func:`_int8_wide`).  Returns the launch counts and (c)'s results.
 
     End to end, the 0.9999 cosine holds at 2 layers a stack (full
     width).  At full depth a code that flips in one layer (the card's
@@ -2393,16 +2559,19 @@ def phase_int8_serving(cfg: STonKGsConfig, params: dict, feats: dict) -> dict:
     cos = _cosine(outs["int8"], outs["bf16"])
     log(f"# int8 vs bf16 embeddings ({ROWS} rows, random weights, not gated): cosine mean "
         f"{float(cos.mean())!r} min {float(cos.min())!r}")
-    return counts
+    del engine, bf16, outs
+    torch.cuda.empty_cache()
+    return counts, _int8_wide(torch.Generator(device=DEV).manual_seed(16))
 
 
 def _check_k_major(name: str, params) -> None:
     """Every quantized dense of an engine's parameters holds its weight
-    column-major on the card, so the timed path never copies W."""
+    column-major on the card (rows of W^T padded_k(K) codes apart), so the
+    timed path never copies W."""
     leaves = []
     tree_map(lambda p: leaves.append(p) or p, params, is_leaf=is_quantized)
     dense = [p["kernel_q"] for p in leaves if is_quantized(p)]
-    bad = sum(1 for w in dense if w.device.type != "cuda" or not w.t().is_contiguous())
+    bad = sum(1 for w in dense if w.device.type != "cuda" or not is_k_major(w))
     log(f"# {name}: {len(dense)} quantized weights, {bad} not column-major on the card")
     check(bool(dense) and bad == 0, f"{name}: a quantized weight is not column-major")
 
@@ -2539,6 +2708,43 @@ def phase_prot_int8_serving(cfg: ProtSTonKGsConfig, params: dict, bf16_engine, f
     return counts
 
 
+def _time_int8_shape(label: str, M: int, K: int, N: int, gen) -> dict:
+    """The int8 dense at one path shape, held against its plain version
+    there, then timed beside its bound, its plain version, its two
+    launches apart (each beside its own bound) and two references:
+    ``torch._int_mm`` on the padded codes (M, Kp) and the padded
+    column-major weight (the GEMM alone; cuBLAS takes K a multiple of 8,
+    Kp = padded_k(K) is one) and the bf16 dense ``x @ W + b`` that the int8
+    mode replaces."""
+    x, w, s, b = _int8_dense_inputs(M, K, N, BF16, gen)
+    Kp = padded_k(K)
+    bound, by = _bound_ms(2.0 * M * K * N, M * K * 2 + K * N + 2 * N * 4 + M * N * 2, I8)
+    pass_bound, _ = _bound_ms(0.0, M * K * 2 + M * K + M * 4, I8)
+    gemm_bound, gemm_by = _bound_ms(2.0 * M * K * N,
+                                    M * K + M * 4 + K * N + 2 * N * 4 + M * N * 2, I8)
+    err = _compare(f"dense_int8 bf16 {label} M={M} {K}->{N}", dense_int8_fused(x, w, s, b),
+                   dense_int8_fused_plain(x, w, s, b), BF16)
+    codes, scales = dense_int8_quantize(x)
+    codes_p = F.pad(codes, (0, Kp - K)).contiguous()      # (M, Kp), zero past K
+    w_p = torch.as_strided(w, (Kp, N), (1, Kp))            # k_major's padded (Kp, N)
+    wb, bb = (w.float() * s).to(BF16), b.to(BF16)
+    t = dict(max_abs_err=err, ms=_time_ms(lambda: dense_int8_fused(x, w, s, b)),
+             plain_ms=_time_ms(lambda: dense_int8_fused_plain(x, w, s, b), iters=3),
+             bound_ms=bound, bound_by=by, library_ms=None,
+             pass_ms=_time_ms(lambda: dense_int8_quantize(x)), pass_bound_ms=pass_bound,
+             gemm_ms=_time_ms(lambda: dense_int8_gemm(codes, scales, w, s, b, BF16)),
+             gemm_bound_ms=gemm_bound, gemm_bound_by=gemm_by,
+             floor_ms=pass_bound + gemm_bound,
+             int_mm_ms=_time_ms(lambda: torch._int_mm(codes_p, w_p)),
+             bf16_dense_ms=_time_ms(lambda: x @ wb + bb))
+    log(f"# time dense_int8 {label} M={M} {K}->{N} bf16: {json.dumps(t)}")
+    log(f"# rate dense_int8 {label}: {2.0 * M * K * N / (t['ms'] * 1e-3) / 1e12!r} TOP/s; "
+        f"GEMM alone {2.0 * M * K * N / (t['gemm_ms'] * 1e-3) / 1e12!r} TOP/s; "
+        f"{t['ms'] / t['floor_ms']!r} x the floor, {t['ms'] / t['bf16_dense_ms']!r} x the "
+        f"bf16 dense")
+    return t
+
+
 def phase_int8_timing():
     """The int8 dense at each path shape (held against its plain version
     there, then timed) beside its bound, its plain version and two
@@ -2550,33 +2756,8 @@ def phase_int8_timing():
     counts from 0 just before it.  Returns the per-shape numbers, the
     probe's kernel-line numbers and its launch count."""
     gen = torch.Generator(device=DEV).manual_seed(21)
-    result = {}
-    for label, (M, K, N) in INT8_SHAPES.items():
-        x, w, s, b = _int8_dense_inputs(M, K, N, BF16, gen)
-        bound, by = _bound_ms(2.0 * M * K * N, M * K * 2 + K * N + 2 * N * 4 + M * N * 2, I8)
-        pass_bound, _ = _bound_ms(0.0, M * K * 2 + M * K + M * 4, I8)
-        gemm_bound, gemm_by = _bound_ms(2.0 * M * K * N,
-                                        M * K + M * 4 + K * N + 2 * N * 4 + M * N * 2, I8)
-        err = _compare(f"dense_int8 bf16 {label} M={M} {K}->{N}", dense_int8_fused(x, w, s, b),
-                       dense_int8_fused_plain(x, w, s, b), BF16)
-        codes, scales = dense_int8_quantize(x)
-        wb, bb = (w.float() * s).to(BF16), b.to(BF16)
-        t = dict(max_abs_err=err, ms=_time_ms(lambda: dense_int8_fused(x, w, s, b)),
-                 plain_ms=_time_ms(lambda: dense_int8_fused_plain(x, w, s, b), iters=3),
-                 bound_ms=bound, bound_by=by, library_ms=None,
-                 pass_ms=_time_ms(lambda: dense_int8_quantize(x)), pass_bound_ms=pass_bound,
-                 gemm_ms=_time_ms(lambda: dense_int8_gemm(codes, scales, w, s, b, BF16)),
-                 gemm_bound_ms=gemm_bound, gemm_bound_by=gemm_by,
-                 floor_ms=pass_bound + gemm_bound,
-                 int_mm_ms=_time_ms(lambda: torch._int_mm(codes, w)),
-                 bf16_dense_ms=_time_ms(lambda: x @ wb + bb))
-        log(f"# time dense_int8 {label} M={M} {K}->{N} bf16: {json.dumps(t)}")
-        log(f"# rate dense_int8 {label}: {2.0 * M * K * N / (t['ms'] * 1e-3) / 1e12!r} TOP/s; "
-            f"GEMM alone {2.0 * M * K * N / (t['gemm_ms'] * 1e-3) / 1e12!r} TOP/s; "
-            f"{t['ms'] / t['floor_ms']!r} x the floor, {t['ms'] / t['bf16_dense_ms']!r} x the "
-            f"bf16 dense")
-        result[label] = t
-        del x, w, s, b, codes, scales, wb, bb
+    result = {label: _time_int8_shape(label, M, K, N, gen)
+              for label, (M, K, N) in INT8_SHAPES.items()}
     ops = bench_int8_gemm.operands(GEMM_SIZE, GEMM_SIZE, GEMM_SIZE)
     err = _gemm_int8_err(ops["a8"], ops["b8"])
     check(err == 0, "int8_gemm: int8 result differs from its plain version")
@@ -3252,7 +3433,7 @@ def _finetune_timing(cfg: STonKGsConfig, params: dict, card: str) -> dict:
                 card)
     del nparams, step, tx
 
-    gen = torch.Generator().manual_seed(31)
+    gen = torch.Generator(device=DEV).manual_seed(31)
     B, sl, tl = FT_BATCH, cfg.seq_len, cfg.text_len
     cases = [
         ("ffn_train_fwd", f"finetune trunk M={B * sl}",
@@ -3744,7 +3925,9 @@ def phase_pretrain_files(card: str) -> dict:
 # production node count
 # ---------------------------------------------------------------------------
 
-KG_COMMUNITIES = 260      # communities of KG_COMMUNITY agents: ~16,000 nodes
+# communities of KG_COMMUNITY agents: ~11,400 nodes in the largest
+# component (260 gave ~16,400, whose two node2vec runs took 75 s)
+KG_COMMUNITIES = 180
 KG_COMMUNITY = 50
 KG_INTRA = 0.95           # share of a statement's partners in its community
 KG_HUBS = 4               # hub agents (INDRA's TP53s) with KG_HUB_DEGREE partners
@@ -3756,11 +3939,13 @@ KG_DIM, KG_WALK_LEN, KG_EPOCHS, KG_WINDOW, KG_NEGATIVE = 768, 127, 4, 3, 5
 # link-prediction AUC (hard predictions) at full width at least
 # KG_AUC_MIN, and the mean centred cosine of the graph's edges at least
 # KG_COS_MARGIN above that of random pairs, each pipeline's floor set from
-# the CPU rehearsal of (a)-(b) at this configuration (dim 768): host AUC
-# 0.553, margin 0.845; device AUC 0.500, margin 0.035.  The device
-# pipeline's ~380 updates, each a mean over a 172-row slab, leave vectors
-# so short that the regression predicts one class (chance), so its margin
-# shows what it learnt.  (At dim 64 the rehearsal gave AUC 0.80 and 0.56.)
+# the CPU rehearsal of (a)-(b) at dim 768 and 260 communities: host AUC
+# 0.553, margin 0.845; device AUC 0.500, margin 0.035 (at 180
+# communities: host 0.573, 0.828; device 0.553, 0.028).  The device
+# pipeline's few hundred updates, each a mean over a 172-row slab, leave
+# vectors so short that the regression predicts one class (chance) or
+# near it, so its margin shows what it learnt.  (At dim 64 the rehearsal
+# gave AUC 0.80 and 0.56.)
 KG_AUC_MIN = {"host": 0.52, "device": 0.5}
 KG_COS_MARGIN = {"host": 0.5, "device": 0.02}
 # card against CPU on equal inputs: fp32 sums of up to a few hundred
@@ -4211,12 +4396,20 @@ def phase_kg_embeddings(card: str) -> dict:
     trained files and the KG battery, (e) timing at the production node
     count.  Returns (d)'s embed launch counts."""
     t_phase = time.perf_counter()
+
+    def done(part: str) -> None:
+        log(f"# kg {part}: {time.perf_counter() - t_phase:.1f} s")
+
     with tempfile.TemporaryDirectory(prefix="stonkgs_kg_") as tmp:
         paths = _kg_extract(tmp)
+        done("(a)")
         runs = _kg_node2vec(paths, tmp, card)
+        done("(a)-(b)")
         result, walks, graph, _, _ = runs["host"]
         _kg_card_vs_cpu(result, walks, graph)
+        done("(a)-(c)")
         counts = _kg_serving(paths, runs["host"], tmp, card)
+        done("(a)-(d)")
         del runs, result, walks
     torch.cuda.empty_cache()
     _kg_timing(card)
@@ -4882,24 +5075,40 @@ sys.exit(main(sys.argv[1:]))
 """
 
 
-def _cli(args: list, env: dict, label: str, expect_rc: int = 0, program=None) -> str:
-    """``python3 -m stonkgs_tpu_torch <args>`` (or ``python3 -c program
-    <args>``) from the checkout's root; checks its exit code and returns
-    its standard output."""
-    t0 = time.perf_counter()
+def _cli_start(args: list, env: dict, program=None) -> tuple:
+    """Start ``python3 -m stonkgs_tpu_torch <args>`` (or ``python3 -c
+    program <args>``) from the checkout's root; returns (the process, its
+    start time) for :func:`_cli_wait`."""
     cmd = ["-m", "stonkgs_tpu_torch"] if program is None else ["-c", program]
-    proc = subprocess.run([sys.executable, *cmd, *args], env=env,
-                          cwd=os.path.dirname(os.path.abspath(__file__)),
-                          capture_output=True, text=True, timeout=600)
-    out = proc.stdout
+    proc = subprocess.Popen([sys.executable, *cmd, *args], env=env,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def _cli_wait(job: tuple, label: str, expect_rc: int = 0) -> str:
+    """Wait for a command of :func:`_cli_start`; checks its exit code and
+    returns its standard output."""
+    proc, t0 = job
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"cli {label}: no exit within 600 s") from None
     shown = [ln for ln in out.splitlines() if not ln.startswith('{"type"')]
     log(f"# cli {label}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; "
         f"output {shown[-4:]!r}")
     if proc.returncode != expect_rc:
-        log(proc.stderr[-4000:])
+        log(err[-4000:])
     check(proc.returncode == expect_rc,
           f"cli {label}: exit code {proc.returncode}, expected {expect_rc}")
     return out
+
+
+def _cli(args: list, env: dict, label: str, expect_rc: int = 0, program=None) -> str:
+    """One command of :func:`_cli_start`, waited for."""
+    return _cli_wait(_cli_start(args, env, program), label, expect_rc)
 
 
 def _cli_files(cfg: STonKGsConfig, cache_dir: str):
@@ -4985,7 +5194,10 @@ def _cli_published(rows: list, paths: dict, total: dict):
 
 
 def _cli_commands(tmp: str, rows: list, paths: dict, out: np.ndarray, env: dict):
-    """(b) the command line as subprocesses."""
+    """(b) the command line as subprocesses: ``embed``, both
+    ``verify-parity`` runs and ``preprocess`` side by side (none reads
+    another's output), and ``pretrain`` on what ``preprocess`` wrote as
+    soon as it exits, beside the others."""
     version = _cli(["--version"], env, "--version").strip()
     check(version == "stonkgs-tpu-torch (dev)", f"--version printed {version!r}")
     rows_tsv = os.path.join(tmp, "rows.tsv")
@@ -4993,37 +5205,47 @@ def _cli_commands(tmp: str, rows: list, paths: dict, out: np.ndarray, env: dict)
                                   for i, c in enumerate(("source", "target", "evidence"))})
     kg = ["--kg-embedding-path", paths["emb"], "--kg-walks-path", paths["walks"]]
     emb_tsv = os.path.join(tmp, "embeddings.tsv")
-    printed = _cli(["embed", "--input", rows_tsv, "--model_path", paths["hub"], *kg,
-                    "--vocab-file", paths["vocab"], "--output", emb_tsv,
-                    "--batch_size", str(BATCH)], env, "embed")
-    check(f"wrote {len(rows)} embeddings to {emb_tsv}" in printed, "embed's printed line")
-    cli_emb = np.asarray([json.loads(c) for c in tsv_io.read_columns(
-        emb_tsv, ["embedding"])["embedding"]], np.float32)
-    err = float(np.abs(cli_emb - out).max())
-    log(f"# cli embed TSV ({cli_emb.shape}) against the in-process embed of the same engine: "
-        f"max_abs_err {err!r} (limit {CLI_INFER_TOL})")
-    check(cli_emb.shape == out.shape and err <= CLI_INFER_TOL, "cli embed differs")
-
-    parity = ["verify-parity", *kg, "--n_rows", "8", "--tolerance", str(CLI_PARITY_TOL)]
-    printed = _cli([*parity, "--model_path", paths["species"]], env, "verify-parity")
-    check(printed.startswith("PASS") and "cls " in printed, "verify-parity did not pass")
-    printed = _cli([*parity, "--model_path", paths["species"]], env,
-                   f"verify-parity, the port's NSP bias shifted by {CLI_PARITY_FAULT}",
-                   expect_rc=1, program=CLI_FAULT)
-    check(printed.startswith("FAIL") and "nsp 1.00e-02" in printed,
-          "verify-parity accepted the shifted NSP bias")
-
+    parity = ["verify-parity", *kg, "--n_rows", "8", "--tolerance", str(CLI_PARITY_TOL),
+              "--model_path", paths["species"]]
     triples = os.path.join(tmp, "triples.tsv")
     shutil.copy(rows_tsv, triples)
     pkl = os.path.join(tmp, "features.pkl")
-    printed = _cli(["preprocess", "--pretraining_path", triples, *kg,
-                    "--vocab-file", paths["vocab"], "--output", pkl], env, "preprocess")
-    check(f"to {pkl}" in printed, "preprocess's printed line")
+    jobs = [_cli_start(["embed", "--input", rows_tsv, "--model_path", paths["hub"], *kg,
+                        "--vocab-file", paths["vocab"], "--output", emb_tsv,
+                        "--batch_size", str(BATCH)], env),
+            _cli_start(parity, env),
+            _cli_start(parity, env, program=CLI_FAULT),
+            _cli_start(["preprocess", "--pretraining_path", triples, *kg,
+                        "--vocab-file", paths["vocab"], "--output", pkl], env)]
     run_dir = os.path.join(tmp, "pretrain")
-    _cli(["pretrain", "--dataset", pkl, "--kg-embedding-path", paths["emb"],
-          "--vocab-file", paths["vocab"], "--max_steps", "2", "--save_steps", "2",
-          "--log_steps", "1", "--num_hidden_layers", "2", "--remat", "full",
-          "--output_dir", run_dir], env, "pretrain --remat full")
+    try:
+        printed = _cli_wait(jobs[3], "preprocess")
+        check(f"to {pkl}" in printed, "preprocess's printed line")
+        jobs.append(_cli_start(["pretrain", "--dataset", pkl, "--kg-embedding-path", paths["emb"],
+                                "--vocab-file", paths["vocab"], "--max_steps", "2",
+                                "--save_steps", "2", "--log_steps", "1",
+                                "--num_hidden_layers", "2", "--remat", "full",
+                                "--output_dir", run_dir], env))
+        printed = _cli_wait(jobs[0], "embed")
+        check(f"wrote {len(rows)} embeddings to {emb_tsv}" in printed, "embed's printed line")
+        cli_emb = np.asarray([json.loads(c) for c in tsv_io.read_columns(
+            emb_tsv, ["embedding"])["embedding"]], np.float32)
+        err = float(np.abs(cli_emb - out).max())
+        log(f"# cli embed TSV ({cli_emb.shape}) against the in-process embed of the same "
+            f"engine: max_abs_err {err!r} (limit {CLI_INFER_TOL})")
+        check(cli_emb.shape == out.shape and err <= CLI_INFER_TOL, "cli embed differs")
+        printed = _cli_wait(jobs[1], "verify-parity")
+        check(printed.startswith("PASS") and "cls " in printed, "verify-parity did not pass")
+        printed = _cli_wait(jobs[2], f"verify-parity, the port's NSP bias shifted by "
+                                     f"{CLI_PARITY_FAULT}", expect_rc=1)
+        check(printed.startswith("FAIL") and "nsp 1.00e-02" in printed,
+              "verify-parity accepted the shifted NSP bias")
+        _cli_wait(jobs[4], "pretrain --remat full")
+    finally:
+        for proc, _ in jobs:   # none outlives a failed check
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     losses = {r["step"]: r["value"] for r in _metric_records(run_dir) if r["key"] == "loss"}
     log(f"# cli pretrain --remat full losses {losses!r}; checkpoints "
         f"{sorted(os.listdir(os.path.join(run_dir, 'checkpoints')))}")
@@ -5380,14 +5602,14 @@ def _widths_outside(gen) -> None:
     """(a) Shapes outside the kernels' domain raise on the card in every
     wrapper and both dtypes, with no fallback to the plain versions and
     no launch counted: attention (inference, training forward and
-    backward) at D = 136 and 256 (``HEAD_OUTSIDE``; D from 8 to 128 is
-    phase 28's), the three FFN kernels at H = 2056 and at I = 8200
-    (``WIDE_FFN_OUTSIDE``; H from 8 to 2048 and I from 8 to 8192 are phase
-    29's), the BigBird pair at D = 72.  The C entry points refuse such
-    widths themselves (cudaErrorInvalidValue, 1) without a launch: every
-    entry point at D=136, H=2056 or I=8200, in both dtypes, the attention
-    and BigBird entry points at D=68 and 36 (the wrappers pad a D that is
-    not a multiple of 8) and the BigBird ones at D=72."""
+    backward) at D = 264 and 512 (``HEAD_OUTSIDE``; D from 8 to 256 is
+    phase 28's and 29's), the three FFN kernels at H = 4 and at I = 4
+    (``WIDE_FFN_OUTSIDE``; any H and I from 8 are phase 29's), the
+    BigBird pair at D = 72.  The C entry points refuse such widths
+    themselves (cudaErrorInvalidValue, 1) without a launch: every entry
+    point at D=264, H=4 or I=4, in both dtypes, the attention and BigBird
+    entry points at D=68 and 36 (the wrappers pad a D that is not a
+    multiple of 8) and the BigBird ones at D=72."""
     counted = {**TRAINING_KERNELS, **SERVING_KERNELS, "bigbird_mid_fwd": bigbird_mid_fwd,
                "bigbird_mid_bwd": bigbird_mid_bwd}
     before = _counts(counted)
@@ -5404,7 +5626,7 @@ def _widths_outside(gen) -> None:
                      lambda: flash_attention_train_bwd(q, k, v, bias, q, lse, q))):
                 raised = _refused(name, fn)
                 log(f"# check {name} {tag} at D={D} raises: {raised!r}")
-                check("takes D from 8 to 128" in raised, f"{name} {tag} at D={D} did not raise")
+                check("takes D from 8 to 256" in raised, f"{name} {tag} at D={D} did not raise")
         for H, I in WIDE_FFN_OUTSIDE:
             args = _ffn_inputs(3, dtype, gen, H, I)
             x, w1, b1, w2, b2, g = _train_ffn_inputs(3, dtype, gen, H, I)
@@ -5413,7 +5635,7 @@ def _widths_outside(gen) -> None:
                              ("ffn_train_bwd", lambda: fused_ffn_bwd(x, g, w1, b1, w2))):
                 raised = _refused(name, fn)
                 log(f"# check {name} {tag} at H={H} I={I} raises: {raised!r}")
-                check("takes H from 8 to 2048 and I from 8 to 8192" in raised,
+                check("takes H and I from 8 up" in raised,
                       f"{name} {tag} at H={H} I={I} did not raise")
         D = WIDE_BB_OUTSIDE
         q, k, v, mask, rand, do = _sparse_inputs(1, 5, dtype, gen, "eval", False, 2, 64, D, BB_R)
@@ -5440,7 +5662,7 @@ def _widths_outside(gen) -> None:
     for dt in (1, 0):
         tag = "bf16" if dt == 1 else "fp32"
         statuses = {}
-        for D in (136, 68):
+        for D in (HEAD_OUTSIDE[0], 68):
             statuses.update({
                 f"flash_attention_infer D={D}": attn_lib.flash_attention_infer(
                     dt, *[p] * 5, 1, 64, 2, D, D ** -0.5, st),
@@ -5508,13 +5730,16 @@ def _widths_serving(cfg: STonKGsConfig) -> tuple:
 
 
 def _widths_pretrain_files(hidden: int, total: dict, variant: str = "stonkgs",
-                           entities: Optional[int] = None) -> None:
+                           entities: Optional[int] = None, steps: int = WIDTH_PF_STEPS,
+                           embed_rows: int = 0) -> None:
     """(d) ``run_pretraining`` from a memmap store and a ``hidden``-wide
     node2vec TSV of ``entities`` rows (README_ENTITIES by default; the
     config it derives: 2 layers, max(hidden // 64, 2) heads, I = 4
-    hidden), 2 steps of B=32 with an HF export, then ``from_pretrained``
-    -> ``embed`` on the card in fp32 against the CPU in fp32 and in bf16
-    by cosine.  ``variant="transe"``: the TSV read as
+    hidden), ``steps`` steps of B=32 with an HF export, then
+    ``from_pretrained`` -> ``embed`` on the card in fp32 against the CPU
+    in fp32 (8 rows) and in bf16 by cosine; with ``embed_rows``, the card's
+    bf16 embed runs over that many rows at B=128, its launches counted from
+    0 just before it.  ``variant="transe"``: the TSV read as
     TransE vectors and the 508 + 4 layout that ``from_pretrained(variant=
     "transe")`` takes, one masked triple position a row."""
     t0 = time.perf_counter()
@@ -5527,16 +5752,18 @@ def _widths_pretrain_files(hidden: int, total: dict, variant: str = "stonkgs",
         cfg = STonKGsConfig(bert=bert_cfg, kg_vocab_size=entities)
         if variant == "transe":
             cfg = cfg.replace(text_len=bert_cfg.max_position_embeddings - 4, entity_len=4)
-        feats = _pretraining_features(cfg, WIDTH_PF_ROWS, seed=hidden)
+        n_store = max(WIDTH_PF_ROWS, steps * TRAIN_BATCH)
+        feats = _pretraining_features(cfg, max(n_store, embed_rows), seed=hidden)
         if variant == "transe":
             # int(0.15 * 4) = 0 masked triple positions: one a row, labelled
             # with its own id
             rng = np.random.default_rng(hidden)
-            rows_t, pos = np.arange(WIDTH_PF_ROWS), rng.integers(0, 4, WIDTH_PF_ROWS)
+            n = len(feats["input_ids"])
+            rows_t, pos = np.arange(n), rng.integers(0, 4, n)
             feats["ent_masked_lm_labels"][rows_t, pos] = feats["input_ids"][
                 rows_t, cfg.text_len + pos]
         store_dir = os.path.join(tmp, "store")
-        MemmapFeatureStore.write(store_dir, feats)
+        MemmapFeatureStore.write(store_dir, {k: v[:n_store] for k, v in feats.items()})
         art = make_random_artifacts(entities, dim=hidden, rw_len=README_RW_LEN, seed=hidden)
         emb, walks = os.path.join(tmp, "emb.tsv"), os.path.join(tmp, "walks.tsv")
         save_kg_artifacts(art, emb, walks)
@@ -5554,29 +5781,34 @@ def _widths_pretrain_files(hidden: int, total: dict, variant: str = "stonkgs",
             f"I={derived.bert.intermediate_size}, {derived.bert.num_hidden_layers} layers, "
             f"{entities} KG entities; files {time.perf_counter() - t0:.1f} s")
         out_dir, hf = os.path.join(tmp, "run"), os.path.join(tmp, "hf")
-        steps = list(range(1, WIDTH_PF_STEPS + 1))
         _pf_run(f"run_pretraining {tag}", store_dir, out_dir, TRAINING_KERNELS,
-                _training_per_step(bert_cfg.num_hidden_layers), steps, total,
-                kg_embedding_path=emb, vocab_file=vocab_file, batch_size=TRAIN_BATCH,
-                max_steps=WIDTH_PF_STEPS, save_steps=WIDTH_PF_STEPS, export_hf_dir=hf,
-                variant=variant)
-        few = {k: feats[k][:8] for k in ("input_ids", "attention_mask", "token_type_ids")}
+                _training_per_step(bert_cfg.num_hidden_layers), list(range(1, steps + 1)),
+                total, kg_embedding_path=emb, vocab_file=vocab_file, batch_size=TRAIN_BATCH,
+                max_steps=steps, save_steps=steps, export_hf_dir=hf, variant=variant)
+        keys = ("input_ids", "attention_mask", "token_type_ids")
+        few = {k: feats[k][:8] for k in keys}
         got = {}
         for label, dev, dt in (("card fp32", DEV, "float32"), ("card bf16", DEV, "bfloat16"),
                                ("CPU fp32", "cpu", "float32")):
             t1 = time.perf_counter()
+            wide = embed_rows and label == "card bf16"
             eng = STonKGsEngine.from_pretrained(hf, emb, walks, vocab_file=vocab_file,
-                                                variant=variant, compute_dtype=dt, batch_size=8,
-                                                device=dev)
+                                                variant=variant, compute_dtype=dt,
+                                                batch_size=BATCH if wide else 8, device=dev)
             check(eng.cfg.bert == bert_cfg and eng.cfg.seq_len == cfg.seq_len,
                   f"{label}: exported config {eng.cfg}")
+            rows = {k: feats[k][:embed_rows] for k in keys} if wide else few
             _reset_counts(SERVING_KERNELS)
-            got[label] = eng.embed(few)
+            out = eng.embed(rows)
+            got[label] = out[:8]
             if dev == DEV:
-                _check_counts(f"{tag} embed {label}", _counts(SERVING_KERNELS),
-                              {n: 2 * bert_cfg.num_hidden_layers - 1 for n in SERVING_KERNELS})
+                batches = math.ceil(len(out) / eng.batch_size)
+                _check_counts(f"{tag} embed {label} ({len(out)} rows, {batches} batches)",
+                              _counts(SERVING_KERNELS),
+                              {n: (2 * bert_cfg.num_hidden_layers - 1) * batches
+                               for n in SERVING_KERNELS})
                 _add_counts(total, _counts(SERVING_KERNELS))
-            check(bool(np.isfinite(got[label]).all()), f"{tag} {label} embed not finite")
+            check(bool(np.isfinite(out).all()), f"{tag} {label} embed not finite")
             log(f"# {tag} from_pretrained -> embed {label}: {time.perf_counter() - t1:.1f} s")
             del eng
         err = float(np.abs(got["card fp32"] - got["CPU fp32"]).max())
@@ -5608,7 +5840,7 @@ def _widths_times(cfg: STonKGsConfig, engine, feats, state, card: str) -> dict:
         f"pairs/s ({card})")
     med = _train_step_seconds(cfg, state, " MiniLM widths")
     log(f"# MiniLM widths step: {med * 1e3!r} ms ({card})")
-    gen = torch.Generator().manual_seed(26)
+    gen = torch.Generator(device=DEV).manual_seed(26)
     H, I, D, nh = cfg.bert.hidden_size, cfg.bert.intermediate_size, cfg.bert.head_dim, \
         cfg.bert.num_attention_heads
     sl, tl, B = cfg.seq_len, cfg.text_len, TRAIN_BATCH
@@ -6050,7 +6282,7 @@ HEAD_BATCH, HEAD_HEADS = 2, 3
 # the planted faults' widths: both reach the second 64-column block
 HEAD_FAULT_DIMS = (80, 128)
 # head widths outside the attention kernels' domain (phase 26 (a) refuses them)
-HEAD_OUTSIDE = (136, 256)
+HEAD_OUTSIDE = (264, 512)
 # STonKGs at BERT-base's widths (12 x 768, I=3072, 256 + 256, KG vocabulary
 # 100,000) with its 768 split into 6 heads of D=128
 HEADS_128 = 6
@@ -6116,13 +6348,15 @@ def _heads_cfg() -> STonKGsConfig:
 
 def _heads_serving(cfg: STonKGsConfig, params: dict) -> dict:
     """(b) ``STonKGsEngine.embed`` at BERT-base's widths with 6 heads of
-    D=128 on phase 5's parameters (the head split changes no shape): ROWS
+    D=128 (3 of D=256 in phase 29) on phase 5's parameters (the head split
+    changes no shape): ROWS
     rows at B=128 in parity mode in bf16, the serving kernels' launches
     from 0 just before it, finite output, pairs/s over 3 more runs (as
     phase 6 times phase 5's engine); then 4 rows on the card in fp32
     against the CPU in fp32 (1e-3) and the bf16 rows against the CPU by
     cosine (0.99), as phase 5.  Returns the launch counts."""
     t0 = time.perf_counter()
+    tag = f"D={cfg.bert.head_dim}"
     feats = _features(cfg, ROWS, seed=28)
     engine = STonKGsEngine(cfg=cfg, params=params_to(params, DEV, BF16), batch_size=BATCH,
                            device=DEV)
@@ -6130,17 +6364,17 @@ def _heads_serving(cfg: STonKGsConfig, params: dict) -> dict:
     out = engine.embed(feats)
     counts = _counts(SERVING_KERNELS)
     per_batch = cfg.bert.num_hidden_layers * 2 - 1
-    _check_counts(f"D=128 parity embed ({math.ceil(ROWS / BATCH)} batches)", counts,
+    _check_counts(f"{tag} parity embed ({math.ceil(ROWS / BATCH)} batches)", counts,
                   {n: per_batch * math.ceil(ROWS / BATCH) for n in SERVING_KERNELS})
     check(out.shape == (ROWS, cfg.bert.hidden_size) and bool(np.isfinite(out).all()),
-          f"D=128 embed output {out.shape} not finite")
+          f"{tag} embed output {out.shape} not finite")
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         engine.embed(feats)
         times.append(time.perf_counter() - t1)
-    log(f"# embed D=128 parity: {ROWS} rows, B={BATCH}, seconds {times!r}; best "
+    log(f"# embed {tag} parity: {ROWS} rows, B={BATCH}, seconds {times!r}; best "
         f"{ROWS / min(times)!r} pairs/s, median {ROWS / statistics.median(times)!r} pairs/s")
     del engine
     few = {k: v[:4] for k, v in feats.items()}
@@ -6150,11 +6384,11 @@ def _heads_serving(cfg: STonKGsConfig, params: dict) -> dict:
                           device="cpu").embed(few)
     err32 = float(np.abs(card32 - cpu32).max())
     cos = _cosine(out[:4], cpu32)
-    log(f"# D=128 embed: card fp32 vs CPU fp32 (4 rows) max_abs_err {err32!r} (limit 1e-3); "
+    log(f"# {tag} embed: card fp32 vs CPU fp32 (4 rows) max_abs_err {err32!r} (limit 1e-3); "
         f"card bf16 vs CPU fp32 cosine {cos.tolist()!r} (limit 0.99); "
         f"{time.perf_counter() - t0:.1f} s")
-    check(err32 <= 1e-3, "D=128: card fp32 embeddings disagree with the CPU")
-    check(bool((cos >= 0.99).all()), "D=128: card bf16 embeddings too far from the CPU")
+    check(err32 <= 1e-3, f"{tag}: card fp32 embeddings disagree with the CPU")
+    check(bool((cos >= 0.99).all()), f"{tag}: card bf16 embeddings too far from the CPU")
     return counts
 
 
@@ -6175,7 +6409,7 @@ def _heads_times(cfg: STonKGsConfig, card: str) -> dict:
     backbone (S=256, no bias), the training forward at B=32 over both,
     the backward over the trunk.  Returns, per kernel, the trunk shape's
     numbers with the worse error of its shapes."""
-    gen = torch.Generator().manual_seed(28)
+    gen = torch.Generator(device=DEV).manual_seed(28)
     nh, D = cfg.bert.num_attention_heads, cfg.bert.head_dim
     sl, tl, B = cfg.seq_len, cfg.text_len, TRAIN_BATCH
     cases = {
@@ -6218,7 +6452,7 @@ def phase_head_widths(card: str, params: dict) -> tuple:
     counts of the D=128 embed and step; per kernel, the worst bf16 error
     of (a); per kernel, the D=128 shapes' times)."""
     t_phase = time.perf_counter()
-    gen = torch.Generator().manual_seed(28)
+    gen = torch.Generator(device=DEV).manual_seed(28)
     errs: dict = {}
 
     def note(name, err, dtype):
@@ -6261,8 +6495,9 @@ WIDE_FFN_M = (3, 200)
 # output columns of one TMA store box, the last partial one at H=100
 WIDE_FAULT_H = 100
 WIDE_FAULT_COLS = 64
-# the FFN widths just outside the kernels' domain, and BigBird's head width
-WIDE_FFN_OUTSIDE = ((2056, 8224), (768, 8200))
+# the FFN widths outside the kernels' domain (H or I below 8), and BigBird's
+# head width
+WIDE_FFN_OUTSIDE = ((4, 16), (16, 4))
 WIDE_BB_OUTSIDE = 72
 # the BigBird checks' head widths (36: a 72-byte bf16 row, padded to 40),
 # each at (block size, B, H, nb, padded mask): block 64 (the padded
@@ -6395,58 +6630,273 @@ def _wide_paths(total: dict) -> None:
             torch.cuda.empty_cache()
 
 
-def phase_wide(card: str) -> tuple:
+# the widths past the earlier domains (phase 29 (d)-(g)): the FFN at (H, I)
+# just past the old cap of 2048 (2056, no multiple of 32), the CLI's
+# 2560-wide config (Megatron-BERT 3.9B's H and I), 4096 and 8192 at I = 4H,
+# and I past the old cap of 8192 at H = 768
+WIDEST_FFN = ((2056, 8224), (2560, 10240), (4096, 16384), (8192, 32768), (768, 8200))
+WIDEST_FFN_M = (3, 200)
+# the planted fault: the LayerNorm statistics over the first 2048 columns
+# (a register row's width) at H = 2560
+WIDEST_LN_FAULT = (2560, 2048)
+# head widths past 128: 136 (just past), 140 (no multiple of 8: padded to
+# 144), 160, 192, 200 and 256 (3 heads at BERT-base's 768), all run at P = 256
+WIDEST_HEAD_DIMS = (136, 140, 160, 192, 200, 256)
+# the planted fault: the scores without their columns from 128 on at D = 256
+WIDEST_HEAD_FAULT = (256, 128)
+# STonKGs from a 2560-wide KG TSV: WIDEST_ENTITIES rows, 4 steps of B=32,
+# embed over ROWS rows at B=128; and BERT-base's widths in 3 heads of 256
+WIDEST_TSV_WIDTH = 2560
+WIDEST_ENTITIES = 1000
+WIDEST_PF_STEPS = 4
+HEADS_256 = 3
+
+
+def _ffn_ln_first_stats(args, n: int, act):
+    """The serving block's plain version with a known fault: both
+    LayerNorms' statistics taken over the first ``n`` columns only (one
+    chunk of a wide row), applied to all of H."""
+    x, attn, g1, be1, w1, b1, w2, b2, g2, be2 = args
+    dt = x.dtype
+
+    def ln(y, g, b):
+        m = y[..., :n].mean(dim=-1, keepdim=True)
+        v = (y[..., :n] - m).square().mean(dim=-1, keepdim=True)
+        return (y - m) * torch.rsqrt(v + 1e-12) * g.float() + b.float()
+
+    x2 = ln(x.float() + attn.float(), g1, be1).to(dt)
+    h = fused_ffn_ops._gelu(x2.float() @ w1.to(dt).float() + b1.float(), act).to(dt)
+    ff = (h.float() @ w2.to(dt).float() + b2.float()).to(dt)
+    return ln(x2.float() + ff.float(), g2, be2).to(dt)
+
+
+def _widest_ffn(gen, note) -> None:
+    """(d) The three FFN kernels at every (H, I) of WIDEST_FFN, M = 3 and
+    200, gelu (and gelu_new at M = 200), bf16 and fp32, against their plain
+    versions (weights at 1/sqrt(fan-in), drawn on the card): bf16 above H
+    = 2048 through the chunked LayerNorm pass, fp32 through the split
+    path.  At H = 2560, M = 200, gelu, the limits must reject in both
+    dtypes the plain serving block with its LayerNorm statistics over the
+    first 2048 columns."""
+    fault_h, fault_n = WIDEST_LN_FAULT
+    for dtype in (BF16, F32):
+        tag = "bf16" if dtype == BF16 else "fp32"
+        for H, I in WIDEST_FFN:
+            for M in WIDEST_FFN_M:
+                big = M == WIDEST_FFN_M[-1]
+                for act in ("gelu", "gelu_new") if big else ("gelu",):
+                    label = f"{tag} H={H} I={I} M={M} {act}"
+                    args = _ffn_inputs(M, dtype, gen, H, I, fan_in=True)
+                    want = fused_ffn_ln_block_plain(*args, act=act)
+                    e = _compare(f"ffn_ln {label}", fused_ffn_ln_block(*args, act=act), want,
+                                 dtype)
+                    note("ffn_ln_block", e, dtype)
+                    if big and act == "gelu" and H == fault_h:
+                        _tol_rejects(f"ffn_ln {label} with the LayerNorm statistics over the "
+                                     f"first {fault_n} columns", want,
+                                     _ffn_ln_first_stats(args, fault_n, act))
+                    del args, want
+                    x, w1, b1, w2, b2, g = _train_ffn_inputs(M, dtype, gen, H, I, fan_in=True)
+                    e = _compare(f"ffn fwd {label}", fused_ffn_fwd(x, w1, b1, w2, b2, act=act),
+                                 fused_ffn_plain(x, w1, b1, w2, b2, act=act), dtype)
+                    note("ffn_train_fwd", e, dtype)
+                    got = fused_ffn_bwd(x, g, w1, b1, w2, act=act)
+                    want = fused_ffn_bwd_plain(x, g, w1, b1, w2, act=act)
+                    e = max(_compare_rel(f"ffn dx {label}", got[0], want[0], dtype),
+                            _compare_rel(f"ffn dh {label}", got[1], want[1], dtype),
+                            _compare(f"ffn a {label}", got[2], want[2], dtype))
+                    note("ffn_train_bwd", e, dtype)
+                    del x, w1, b1, w2, b2, g, got, want
+        torch.cuda.empty_cache()
+
+
+def _widest_attention(gen, note) -> None:
+    """(e) The three attention kernels at every D of WIDEST_HEAD_DIMS
+    against their plain versions, bf16 and fp32, at S = 1, 65 and 512,
+    B=2 with 3 heads, as phase 28 (a): inference with the key bias (batch
+    row 0's keys all at -1e9) and without it, the training forward at
+    rates 0 and 0.1 (output and lse), the backward at both rates
+    (``_attention_bwd_cases``; at S=512 in bf16 its limits must reject dK
+    without its scale and dV without the keep scale).  At D=256, S=512,
+    in bf16 the output limit must reject the plain output without the
+    scores' columns from 128 on (half of the wide row lost)."""
+    B, H = HEAD_BATCH, HEAD_HEADS
+    fault_d, fault_c = WIDEST_HEAD_FAULT
+    for dtype in (BF16, F32):
+        tag = "bf16" if dtype == BF16 else "fp32"
+        for D in WIDEST_HEAD_DIMS:
+            for S in HEAD_S:
+                label = f"{tag} D={D} B={B} H={H} S={S}"
+                q, k, v, bias, _, seed, _ = _train_attn_inputs(B, S, dtype, gen, True, H, D)
+                bias[0] = -1e9
+                for b_label, b in (("mask row 0 all -1e9", bias), ("no-bias", None)):
+                    want = flash_attention_infer_plain(q, k, v, b)
+                    e = _compare_attn(f"attention {label} {b_label}",
+                                      flash_attention_infer(q, k, v, b), want, dtype)
+                    note("flash_attention_infer", e, dtype)
+                if dtype == BF16 and S == HEAD_S[-1] and D == fault_d:
+                    cut_q, cut_k = q.clone(), k.clone()
+                    cut_q[..., fault_c:] = 0
+                    cut_k[..., fault_c:] = 0
+                    _attn_limit_rejects(f"attention {label} no-bias without the scores' columns "
+                                        f"{fault_c}-{D - 1}", want,
+                                        flash_attention_infer_plain(cut_q, cut_k, v))
+                for rate in (0.0, ATTN_RATE):
+                    out, lse = flash_attention_train_fwd(q, k, v, bias, seed, rate)
+                    out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, bias, seed, rate)
+                    e = max(_compare_attn(f"attention fwd {label} rate={rate}", out, out_p,
+                                          dtype),
+                            _compare(f"attention lse {label} rate={rate}", lse, lse_p, F32))
+                    note("flash_attention_train_fwd", e, dtype)
+                    e = _attention_bwd_cases(tag, dtype, B, H, S, rate, gen, D)
+                    note("flash_attention_train_bwd", e, dtype)
+                del q, k, v, bias
+
+
+def _widest_paths(params: dict, total: dict) -> tuple:
+    """(f) STonKGs ``run_pretraining`` -> ``from_pretrained`` -> ``embed``
+    from a 2560-wide KG TSV (the derived config: 2 layers, 40 heads of 64,
+    I = 10,240; WIDEST_ENTITIES rows, 4 steps of B=32, the embed over ROWS
+    rows at B=128, card fp32 vs CPU fp32 and bf16 by cosine), then STonKGs
+    at BERT-base's widths in 3 heads of D=256 on phase 5's parameters:
+    ``embed`` and phase 7's ``pretrain`` (B=32, 4 steps) and phase 8's
+    numerics.  Returns the launch counts of the 2560-wide path and of the
+    D=256 embed and step."""
+    t0 = time.perf_counter()
+    wide: dict = {}
+    _widths_pretrain_files(WIDEST_TSV_WIDTH, wide, entities=WIDEST_ENTITIES,
+                           steps=WIDEST_PF_STEPS, embed_rows=ROWS)
+    _add_counts(total, wide)
+    torch.cuda.empty_cache()
+    log(f"# wide (f) {WIDEST_TSV_WIDTH}-wide path: {time.perf_counter() - t0:.1f} s")
+    cfg = _heads256_cfg()
+    heads = _heads_serving(cfg, params)
+    train_counts, state = phase_training(cfg, params)
+    heads.update(train_counts)
+    del state
+    phase_train_numerics(cfg)
+    _add_counts(total, heads)
+    torch.cuda.empty_cache()
+    log(f"# wide (f) D=256: {time.perf_counter() - t0:.1f} s")
+    return wide, heads
+
+
+def _heads256_cfg() -> STonKGsConfig:
+    return STonKGsConfig(bert=BertConfig(num_attention_heads=HEADS_256), kg_vocab_size=100_000)
+
+
+def _widest_times(card: str) -> dict:
+    """(g) The three FFN kernels at the 2560-wide path's shapes (the
+    serving block at the trunk's M = 128 x 512, the training pair at the
+    step's 32 x 512) beside their bound, plain versions and the cuBLAS
+    products they contain, and the three attention kernels at the D=256
+    path's shapes (``_heads_times``).  Returns, per kernel name, its
+    times."""
+    gen = torch.Generator(device=DEV).manual_seed(29)
+    H, I = WIDEST_TSV_WIDTH, 4 * WIDEST_TSV_WIDTH
+    M, Mt = BATCH * 512, TRAIN_BATCH * 512
+    times = {"ffn_ln_block": _time_ffn(f"H={H} trunk M={M}", M, gen, H, I),
+             "ffn_train_fwd": _time_train_ffn(f"H={H} step M={Mt}", Mt, gen, False, H, I),
+             "ffn_train_bwd": _time_train_ffn(f"H={H} step M={Mt}", Mt, gen, True, H, I)}
+    for name, t in times.items():
+        log(f"# time {name} H={H} bf16 ({card}): {json.dumps(t)}")
+    torch.cuda.empty_cache()
+    times.update(_heads_times(_heads256_cfg(), card))
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_wide(card: str, params: dict) -> tuple:
     """Phase 29: (a) the FFN kernels at hidden widths from 16 to 2048 with
     the planted faults, (b) the BigBird pair at head widths from 8 to 56
     with the planted fault (the refused widths are phase 26's), (c) the
     STonKGs and ProtSTonKGs paths from KG TSVs whose derived configs run
-    them.  Returns (the launch counts of every counted run, summed; per
-    kernel, the worst bf16 error of (a) and (b))."""
+    them; past the earlier domains, (d) the FFN kernels at H from 2056 to
+    8192 and I up to 32,768, (e) the attention kernels at D from 136 to
+    256, each with a planted fault, (f) STonKGs from a 2560-wide KG TSV
+    and at 3 heads of D=256 on phase 5's ``params``, (g) the kernels'
+    times at (f)'s shapes.  Returns (the launch counts of every counted
+    run, summed; per kernel, the worst bf16 error of (a), (b), (d) and
+    (e); the counts of the 2560-wide path; the counts of the D=256 embed
+    and step; per kernel, the worst bf16 error of (d) and (e); (g)'s
+    times)."""
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(29)
     errs: dict = {}
+    widest: dict = {}
 
     def note(name, err, dtype):
         if dtype == BF16:
             errs[name] = max(errs.get(name, 0.0), err)
 
-    _wide_ffn(gen, note)
+    def note_widest(name, err, dtype):
+        note(name, err, dtype)
+        if dtype == BF16:
+            widest[name] = max(widest.get(name, 0.0), err)
+
+    card_gen = torch.Generator(device=DEV).manual_seed(29)
+    _wide_ffn(card_gen, note)
     log(f"# wide (a) FFN kernels: {time.perf_counter() - t_phase:.1f} s")
     _wide_bigbird(gen, note)
     log(f"# wide (b) BigBird pair: {time.perf_counter() - t_phase:.1f} s")
     total: dict = {}
     _wide_paths(total)
+    log(f"# wide (c) paths: {time.perf_counter() - t_phase:.1f} s")
+    _widest_ffn(card_gen, note_widest)
+    log(f"# wide (d) FFN kernels past H=2048: {time.perf_counter() - t_phase:.1f} s")
+    _widest_attention(card_gen, note_widest)
+    log(f"# wide (e) attention kernels past D=128: {time.perf_counter() - t_phase:.1f} s")
+    wide_counts, head_counts = _widest_paths(params, total)
+    times = _widest_times(card)
     log(f"# wide phase: {time.perf_counter() - t_phase:.1f} s ({card})")
-    return total, errs
+    return total, errs, wide_counts, head_counts, widest, times
 
 
 def main() -> int:
+    t_last = [time.perf_counter()]
+
+    def lap(phases: str) -> None:
+        """Log the seconds since the last lap, with the phases they ran."""
+        now = time.perf_counter()
+        log(f"# seconds of phases {phases}: {now - t_last[0]:.1f}")
+        t_last[0] = now
+
     try:
         card = phase_device()
         phase_build()
+        lap("0-1 (device, build)")
         errs = phase_kernels()
+        lap("2 (serving kernels)")
         errs.update(phase_train_kernels())
+        lap("3 (training kernels)")
         cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000)
         engine, bucketed, feats, counts, params = phase_serving(cfg)
         times = phase_timing(cfg, engine, bucketed, feats)
         del engine, bucketed
+        lap("5-6 (serving, timing)")
         train_counts, state = phase_training(cfg, params)
         counts.update(train_counts)
         phase_train_numerics(cfg)
         times.update(phase_train_timing(cfg, state))
         del state          # params (CPU, fp32) stay for the int8 path
+        lap("7-9 (training)")
         errs.update(phase_sparse_kernels())
+        lap("10 (sparse kernels)")
         pcfg = _prot_cfg()
         engine, pfeats, prot_counts, pparams = phase_prot_serving(pcfg)
         for name, c in prot_counts.items():
             counts[name] = counts.get(name, 0) + c
+        lap("11 (ProtSTonKGs serving)")
         prot_train_counts, pstate, loss_fn = phase_prot_training(pcfg, pparams)
         for name, c in prot_train_counts.items():
             counts[name] = counts.get(name, 0) + c
+        lap("12 (ProtSTonKGs training)")
         phase_prot_train_numerics(pcfg)
         phase_prot_train_numerics(pcfg, block_size=128)
+        lap("13 (ProtSTonKGs training numerics, blocks 64 and 128)")
         prot_times = phase_prot_timing(pcfg, engine, pfeats, pstate, loss_fn)
         del pstate, loss_fn
+        lap("14 (ProtSTonKGs timing)")
         counts128, times128 = phase_prot_block128(pcfg, pparams, pfeats, prot_times, card)
         for name, c in counts128.items():
             counts[name] = counts.get(name, 0) + c
@@ -6459,9 +6909,11 @@ def main() -> int:
                      "flash_attention_train_fwd"):
             times[name]["max_abs_err"] = max(times[name]["max_abs_err"], *(
                 t["max_abs_err"] for k, t in prot_times.items() if k.startswith(name + ":")))
+        lap("25 (ProtSTonKGs at block 128)")
         errs.update(phase_int8_kernels())
-        int8_counts = phase_int8_serving(cfg, params, feats)
-        for counted in (int8_counts, phase_prot_int8_serving(pcfg, pparams, engine, pfeats)):
+        int8_counts, int8_wide = phase_int8_serving(cfg, params, feats)
+        for counted in (int8_counts, int8_wide["total"],
+                        phase_prot_int8_serving(pcfg, pparams, engine, pfeats)):
             for name, c in counted.items():
                 counts[name] = counts.get(name, 0) + c
         del engine
@@ -6470,31 +6922,43 @@ def main() -> int:
         # worst error of every path shape
         times["dense_int8"] = dict(int8_times["trunk FFN in"], max_abs_err=max(
             t["max_abs_err"] for t in int8_times.values()))
+        lap("15-18 (int8)")
         for name, c in phase_readme(card).items():
             counts[name] += c
+        lap("19 (README flow)")
         ft_counts, ft_times = phase_finetune(card, params, pparams)
         for name, c in ft_counts.items():
             counts[name] += c
+        lap("20 (fine-tuning)")
         for name, c in phase_pretrain_files(card).items():
             counts[name] += c
+        lap("21 (pre-training from files)")
         for name, c in phase_kg_embeddings(card).items():
             counts[name] += c
+        lap("22 (KG embeddings)")
         for name, c in phase_parallel(card, params, pparams).items():
             counts[name] += c
+        lap("23 (parallel)")
         for name, c in phase_cli(card, params, pparams).items():
             counts[name] += c
         del pparams
+        lap("24 (CLI)")
         width_total, width_counts, width_errs, width_times = phase_widths(card)
         for name, c in width_total.items():
             counts[name] += c
+        lap("26 (widths)")
         bb_total, bb_errs, bb_times = phase_bigbird_widths(card)
         for name, c in bb_total.items():
             counts[name] += c
+        lap("27 (BigBird widths)")
         head_total, head_counts, head_errs, head_times = phase_head_widths(card, params)
-        del params
         for name, c in head_total.items():
             counts[name] += c
-        wide_total, wide_errs = phase_wide(card)
+        lap("28 (head widths)")
+        wide_total, wide_errs, w2560_counts, d256_counts, widest_errs, widest_times = \
+            phase_wide(card, params)
+        del params
+        lap("29 (wide)")
         for name, c in wide_total.items():
             counts[name] += c
         # the worst bf16 error at the new widths goes into the kernel line
@@ -6561,6 +7025,26 @@ def main() -> int:
                         "replaces": replaces, "launches": head_counts[name],
                         **{k: t[k] for k in keys},
                         "max_abs_err": max(head_errs[name], t["max_abs_err"])})
+    # past the earlier domains: the three FFN kernels at H=2560 (the
+    # 2560-wide path's launches and shapes) and the three attention kernels
+    # at D=256 (the 3-head path's), with the worst bf16 error of phase 29
+    # (d) and (e); the int8 dense at K=100 (the 100-wide int8 engine's
+    # launches, the trunk's FFN-in shape, the worst bf16 error at any K)
+    for name, tag, launched in (
+            *((n, "H=2560", w2560_counts) for n in ("ffn_ln_block", "ffn_train_fwd",
+                                                      "ffn_train_bwd")),
+            *((n, "D=256", d256_counts) for n in HEAD_KERNELS)):
+        src, replaces = sources[name]
+        t = widest_times[name]
+        kernels.append({"name": f"{name} {tag}", "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launched[name],
+                        **{k: t[k] for k in keys},
+                        "max_abs_err": max(widest_errs[name], t["max_abs_err"])})
+    src, replaces = sources["dense_int8"]
+    t = int8_wide["time"]
+    kernels.append({"name": "dense_int8 K=100", "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": int8_wide["counts"]["dense_int8"],
+                    **{k: t[k] for k in keys}, "max_abs_err": int8_wide["err"]})
     log(f"# card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

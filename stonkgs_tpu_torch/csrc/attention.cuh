@@ -15,11 +15,19 @@
 //   PvAcc:      acc (16 x D, fp32) += P_w (16 x 64) . V, V a 64 x D tile
 //               (lane owns columns lane, lane + 32, ... below D).
 // The tile width is a template parameter.  with_padded_head_dim gives it
-// from a run-time head width D, any multiple of 8 from 8 to 128 (the
+// from a run-time head width D, any multiple of 8 from 8 to 256 (the
 // attention kernels'; up to 64 for BigBird's), run on the instance of the
-// padded width P = 16, 32, 64 or 128, the smallest at least D: the loads
-// zero the columns from D to P, which add nothing to a product, and the
-// stores write columns < D.
+// padded width P = 16, 32, 64, 128 or 256, the smallest at least D: the
+// loads zero the columns from D to P, which add nothing to a product, and
+// the stores write columns < D.
+//
+// Above P = 128 the fp32 bodies are not tiled: four 64-row fp32 tiles of
+// 256 columns are 266 KB, past the 227 KB of a block, and a dK/dV block's
+// two accumulators past a thread's registers.  There a warp owns one row
+// (attn_fwd_rows_kernel here, the backward's in flash_attention_train.cu):
+// a lane holds its D/32 columns of the row in registers and walks the
+// other operand's rows from L2, each score a warp-wide sum.  They exist to
+// hold the model against the CPU; right matters more than fast.
 #pragma once
 
 #include <cmath>
@@ -41,17 +49,22 @@ constexpr float kNegBias = -1e9f;  // score of a padded key (the JAX package's N
 template <typename T> struct Pad;
 template <> struct Pad<float> { static constexpr int value = 4; };
 
-// the widest head width of the attention kernels
-constexpr int kMaxHeadDim = 128;
+// the widest head width of the attention kernels, and the widest padded
+// width of the tiled fp32 bodies
+constexpr int kMaxHeadDim = 256;
+constexpr int kTiledMaxHeadDim = 128;
 
 // f(std::integral_constant<int, P>{}) for a head width D that is a multiple
-// of 8 from 8 to kMax (128, or 64 for BigBird), P = 16, 32, 64 or 128 the
-// smallest width at least D (a row of D elements is then a multiple of 16
-// bytes, as TMA's strides and the 16-byte loads need);
-// cudaErrorInvalidValue for any other D
+// of 8 from 8 to kMax (256, or 64 for BigBird), P = 16, 32, 64, 128 or 256
+// the smallest width at least D (a row of D elements is then a multiple of
+// 16 bytes, as TMA's strides and the 16-byte loads need);
+// cudaErrorInvalidValue for any other D.  No instance between 128 and 256:
+// D from 136 to 256 runs at 256 (at most twice the products of its true
+// width), one wide shape to build and hold to the registers and shared
+// memory of a block.
 template <int kMax = kMaxHeadDim, typename F>
 inline int with_padded_head_dim(int D, F&& f) {
-  static_assert(kMax == 64 || kMax == kMaxHeadDim, "instances at P = 16, 32, 64 (and 128)");
+  static_assert(kMax == 64 || kMax == kMaxHeadDim, "instances at P = 16, 32, 64 (to 256)");
   if (D < 8 || D > kMax || D % 8 != 0) return int(cudaErrorInvalidValue);
   if (D <= 16) return f(std::integral_constant<int, 16>{});
   if (D <= 32) return f(std::integral_constant<int, 32>{});
@@ -59,7 +72,8 @@ inline int with_padded_head_dim(int D, F&& f) {
     return f(std::integral_constant<int, 64>{});
   } else {
     if (D <= 64) return f(std::integral_constant<int, 64>{});
-    return f(std::integral_constant<int, 128>{});
+    if (D <= 128) return f(std::integral_constant<int, 128>{});
+    return f(std::integral_constant<int, 256>{});
   }
 }
 
@@ -318,6 +332,86 @@ constexpr size_t fwd_smem_bytes() {
   return 3 * Z::tile + Z::ostage + Z::wtile + Z::vec;
 }
 
+// --- the fp32 bodies above P = 128: a warp a row ------------------------------
+
+constexpr int kRowWarps = 8;  // rows (warps) of a block of the row kernels
+
+// the dot product of a lane's kC columns (lane + 32c, zero from D on) with
+// the same columns of the fp32 row at `g`, summed over the warp
+template <int kC>
+__device__ __forceinline__ float row_dot(const float (&a)[kC], const float* g, int D,
+                                         int lane) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+    if (lane + 32 * c < D) s += a[c] * g[lane + 32 * c];
+  return warp_sum(s);
+}
+
+// a lane's kC columns of a row of D values at g (zero from D on)
+template <int kC>
+__device__ __forceinline__ void load_row(float (&a)[kC], const float* g, int D, int lane) {
+#pragma unroll
+  for (int c = 0; c < kC; ++c) a[c] = lane + 32 * c < D ? g[lane + 32 * c] : 0.f;
+}
+
+// The fp32 forward above P = 128, as attn_fwd_kernel computes it: a warp a
+// (b, h, query row), the row's kP/32 columns a lane in registers, the keys
+// walked twice from L2 (pass 1 the running max and sum of exp, pass 2 the
+// normalised, dropped probabilities times V), each score a warp-wide sum
+template <int kP, bool kTrain>
+__global__ void __launch_bounds__(32 * kRowWarps)
+attn_fwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ key_bias,
+                     float* __restrict__ out, float* __restrict__ lse, int B, int S, int H, int D,
+                     float scale, Dropout drop) {
+  constexpr int kC = kP / 32;
+  const size_t gw = size_t(blockIdx.x) * kRowWarps + threadIdx.x / 32;  // (b*H + h)*S + s
+  const int lane = threadIdx.x % 32;
+  if (gw >= size_t(B) * H * S) return;
+  const int s = int(gw % S), bh = int(gw / S), h = bh % H, b = bh / H;
+  const size_t rs = size_t(H) * D, head0 = (size_t(b) * S * H + h) * D;
+  const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
+  float qv[kC];
+  load_row<kC>(qv, q + head0 + size_t(s) * rs, D, lane);
+  float m = -INFINITY, l = 0.f;
+  for (int j = 0; j < S; ++j) {
+    const float sc = row_dot<kC>(qv, k + head0 + size_t(j) * rs, D, lane) * scale +
+                     (kb ? kb[j] : 0.f);
+    const float m_new = fmaxf(m, sc);
+    l = l * expf(m - m_new) + expf(sc - m_new);
+    m = m_new;
+  }
+  if constexpr (kTrain) {
+    const int n_pad = drop.s_pad - S;
+    if (n_pad > 0) {
+      const float m_new = fmaxf(m, kNegBias);
+      l = l * expf(m - m_new) + float(n_pad) * expf(kNegBias - m_new);
+      m = m_new;
+    }
+    if (lane == 0) lse[gw] = m + logf(l);
+  }
+  const uint32_t base = kTrain ? drop.row_base(bh, s) : 0u;
+  float o[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) o[c] = 0.f;
+  for (int j = 0; j < S; ++j) {
+    const float* kr = k + head0 + size_t(j) * rs;
+    float p = expf(row_dot<kC>(qv, kr, D, lane) * scale + (kb ? kb[j] : 0.f) - m) / l;
+    if constexpr (kTrain) {
+      if (drop.enabled) p = drop.keep(base + uint32_t(j)) ? p * drop.keep_scale : 0.f;
+    }
+    const float* vr = v + head0 + size_t(j) * rs;
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      if (lane + 32 * c < D) o[c] += p * vr[lane + 32 * c];
+  }
+  float* orow = out + head0 + size_t(s) * rs;
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+    if (lane + 32 * c < D) orow[lane + 32 * c] = o[c];
+}
+
 template <bool kTrain>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const float* key_bias,
                    void* out, float* lse, int B, int S, int H, int D, float scale, Dropout drop,
@@ -325,16 +419,26 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, const float* key
   if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
   return with_padded_head_dim(D, [&](auto p) {
     constexpr int kP = decltype(p)::value;
-    constexpr size_t smem = fwd_smem_bytes<kP>();
-    cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<kP, kTrain>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-    const dim3 grid((S + kTile - 1) / kTile, H, B);
-    attn_fwd_kernel<kP, kTrain><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), key_bias, static_cast<float*>(out), lse, S, H, D, scale,
-        drop);
-    return int(cudaGetLastError());
+    if constexpr (kP > kTiledMaxHeadDim) {
+      const size_t rows = size_t(B) * H * S;
+      attn_fwd_rows_kernel<kP, kTrain>
+          <<<unsigned((rows + kRowWarps - 1) / kRowWarps), 32 * kRowWarps, 0, stream>>>(
+              static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), key_bias, static_cast<float*>(out), lse, B, S, H, D,
+              scale, drop);
+      return int(cudaGetLastError());
+    } else {
+      constexpr size_t smem = fwd_smem_bytes<kP>();
+      cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<kP, kTrain>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      if (e != cudaSuccess) return int(e);
+      const dim3 grid((S + kTile - 1) / kTile, H, B);
+      attn_fwd_kernel<kP, kTrain><<<grid, kThreads, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), key_bias, static_cast<float*>(out), lse, S, H, D, scale,
+          drop);
+      return int(cudaGetLastError());
+    }
   });
 }
 

@@ -9,7 +9,7 @@
 //   dV = round(p * mr)^T dO,   db[b, key] = sum over heads and rows of dS
 //
 // over (B, S, H, D) bf16 q, k, v, dO and dq, dk, dv, D a multiple of 8 from
-// 8 to 128 run on the instance of its padded width P (attention_sm90.cuh:
+// 8 to 256 run on the instance of its padded width P (attention_sm90.cuh:
 // tensor maps of dim 0 D and boxes P wide, zero columns past D, which add
 // nothing to S or dP~ and whose dQ, dK and dV columns are not stored), with
 // an optional (B, S) fp32 key bias.  Rounding points as the TPU kernel
@@ -64,6 +64,20 @@
 // peak is two score tiles, their packed fragments and the accumulators
 // (P/2 floats in dQ, P in dK/dV).
 //
+// The wide instance, P = 256 (Width<256>: 64-row tiles, one consumer
+// warpgroup, 256 threads, 255 registers a thread).  dQ: a block per 64
+// query rows, the 64-key K and V tiles in a 2-stage ring (Q and dO 64 KB,
+// a stage 64 KB), taken in sub-steps of 32 keys (the 128-float dQ
+// accumulator beside two 16-float score tiles).  dK/dV: a block's dK and
+// dV accumulators for 64 keys at 256 columns would be 256 floats a thread,
+// past the 255 registers a thread may hold, so a block takes 64 keys and
+// half of the columns (kParts = 2 column halves of 128, two column blocks
+// each: blockIdx.x = 2 * key tile + half).  Both halves form S^T and dP~^T
+// over all 256 columns (the scores are computed twice more, the price of
+// no accumulator in shared memory) and multiply into their own columns of
+// Q and dO; only half 0 adds db.  Its ring streams 64-row Q and dO tiles,
+// 2 stages (K, V 64 KB, a stage 64 KB), in sub-steps of 32 queries.
+//
 // Numerics against the plain version: products summed in another order;
 // p = exp2((S*scale + bias - lse) * log2 e) on the SFU (ex2.approx), a
 // few ulps from an IEEE exp, so a rounded dS or p*mr moves by at most one
@@ -78,37 +92,43 @@
 namespace stonkgs {
 namespace attn90 {
 
-constexpr int kHalf = 64;  // rows of a stage's half in dQ
-
+// keys of a dQ sub-step at padded width kP
+template <int kP> constexpr int kHalf = kP > 128 ? 32 : 64;
 // the backward's ring depth at padded width kP
-template <int kP> constexpr int kBwdRing = kP == 128 ? 2 : 3;
+template <int kP> constexpr int kBwdRing = kP >= 128 ? 2 : 3;
 // queries of a dK/dV sub-step at padded width kP
-template <int kP> constexpr int kKvSub = kP == 128 ? 32 : 64;
+template <int kP> constexpr int kKvSub = kP >= 128 ? 32 : 64;
 // consumer warpgroups (64 keys each) of a dK/dV block at padded width kP
-template <int kP> constexpr int kKvConsumers = kP == 128 ? 1 : kConsumers;
+template <int kP> constexpr int kKvConsumers = kP >= 128 ? 1 : kConsumers;
+// column parts of a dK/dV block's outputs (blocks over the columns) at kP
+template <int kP> constexpr int kParts = kP > 128 ? 2 : 1;
 
 template <int kP>
 struct alignas(1024) SmemBwdQ {
   static constexpr int kRing = kBwdRing<kP>;
-  bf16 q[kBM * kP];
-  bf16 dout[kBM * kP];
-  bf16 k[kRing][kBN * kP];
-  bf16 v[kRing][kBN * kP];
-  float bias[kRing][kBN];
+  static constexpr int kRows = Width<kP>::kRows;
+  bf16 q[kRows * kP];
+  bf16 dout[kRows * kP];
+  bf16 k[kRing][kRows * kP];
+  bf16 v[kRing][kRows * kP];
+  float bias[kRing][kRows];
   uint64_t full[kRing];
   uint64_t empty[kRing];
   uint64_t rowbar;
 };
 
+// K and V: the block's 64 * kKvConsumers keys, in a tile of kRows (its
+// first rows used where kRows is more)
 template <int kP>
 struct alignas(1024) SmemBwdKV {
   static constexpr int kRing = kBwdRing<kP>;
-  bf16 k[kBN * kP];
-  bf16 v[kBN * kP];
-  bf16 q[kRing][kBM * kP];
-  bf16 dout[kRing][kBM * kP];
-  float lse[kRing][kBM];
-  float delta[kRing][kBM];
+  static constexpr int kRows = Width<kP>::kRows;
+  bf16 k[kRows * kP];
+  bf16 v[kRows * kP];
+  bf16 q[kRing][kRows * kP];
+  bf16 dout[kRing][kRows * kP];
+  float lse[kRing][kRows];
+  float delta[kRing][kRows];
   uint64_t full[kRing];
   uint64_t empty[kRing];
   uint64_t rowbar;
@@ -116,9 +136,11 @@ struct alignas(1024) SmemBwdKV {
 static_assert(sizeof(SmemBwdQ<128>) + 1024 <= kMaxSmem, "dQ's ring fits at P = 128");
 static_assert(sizeof(SmemBwdKV<128>) + 1024 <= kMaxSmem, "dK/dV's ring fits at P = 128");
 static_assert(sizeof(SmemBwdKV<64>) + 1024 <= kMaxSmem, "dK/dV's ring fits at P = 64");
+static_assert(sizeof(SmemBwdQ<256>) + 1024 <= kMaxSmem, "dQ's ring fits at P = 256");
+static_assert(sizeof(SmemBwdKV<256>) + 1024 <= kMaxSmem, "dK/dV's ring fits at P = 256");
 
 template <int kP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Width<kP>::kThreads, 1)
 attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
@@ -129,17 +151,20 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   using W = Width<kP>;
   using SmemT = SmemBwdQ<kP>;
   constexpr int kRing = SmemT::kRing;
+  constexpr int kR = W::kRows;  // query rows of the block, keys of a tile
+  constexpr int NC = W::kNC;
+  constexpr int kH = kHalf<kP>;  // keys of a sub-step
   constexpr uint32_t kTile = W::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
   SmemT& sm = aligned_smem<SmemT>(smem_raw);
-  const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (S + kBN - 1) / kBN;
+  const int q0 = blockIdx.x * kR, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (S + kR - 1) / kR;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  init_ring(sm);
+  init_ring<NC>(sm);
 
-  if (wg == kConsumers) {
+  if (wg == NC) {
     // ---------------- producer ----------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if constexpr (NC == kConsumers) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     if (warp == 0) {
       if (lane == 0) {
         mbar_arrive_tx(&sm.rowbar, 2 * kTile);
@@ -148,10 +173,10 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
       for (int it = 0; it < n_tiles; ++it) {
-        const int stage = it % kRing, k0 = it * kBN;
+        const int stage = it % kRing, k0 = it * kR;
         mbar_wait(&sm.empty[stage], ((it / kRing) & 1) ^ 1);
 #pragma unroll
-        for (int t = 0; t < kBN / 32; ++t) {
+        for (int t = 0; t < kR / 32; ++t) {
           const int key = k0 + t * 32 + lane;
           sm.bias[stage][t * 32 + lane] = key < S ? (kb ? __ldg(kb + key) : 0.f) : -INFINITY;
         }
@@ -166,7 +191,7 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---------------- consumers ----------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    if constexpr (NC == kConsumers) asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
     const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // the thread's rows: row0, row0 + 8
     const size_t stat0 = (size_t(b) * H + h) * S;          // (b, h, 0) of lse and delta
     float lse_r[2], delta_r[2];
@@ -189,30 +214,30 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const int stage = j % kRing;
       mbar_wait(&sm.full[stage], (j / kRing) & 1);
 #pragma unroll 1
-      for (int half = 0; half < kBN / kHalf; ++half) {
-        // S = Q K^T and dP~ = dO V^T over the half's 64 keys
-        const int c0 = half * kHalf, k0 = j * kBN + c0;
+      for (int half = 0; half < kR / kH; ++half) {
+        // S = Q K^T and dP~ = dO V^T over the sub-step's kH keys
+        const int c0 = half * kH, k0 = j * kR + c0;
         const uint64_t dk = desc_sw<W::kLine>(sm.k[stage] + c0 * W::kCB);
         const uint64_t dv = desc_sw<W::kLine>(sm.v[stage] + c0 * W::kCB);
-        float s[32], dp[32];
+        float s[kH / 2], dp[kH / 2];
         fence_regs(s);
         fence_regs(dp);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kP / 16; ++kk)
-          wgmma_qk64(s, W::kstep(dqd, kk), W::kstep(dk, kk), kk);
+          wgmma_ss<kH / 2, 0, 0>(s, W::kstep(dqd, kk), W::kstep(dk, kk), kk);
 #pragma unroll
         for (int kk = 0; kk < kP / 16; ++kk)
-          wgmma_qk64(dp, W::kstep(dod, kk), W::kstep(dv, kk), kk);
+          wgmma_ss<kH / 2, 0, 0>(dp, W::kstep(dod, kk), W::kstep(dv, kk), kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
         fence_regs(dp);
         // dS = p (dP~ * mr - delta), packed to bf16 pairs as it goes
         const float* bs = sm.bias[stage] + c0;
-        uint32_t pa[16];
+        uint32_t pa[kH / 4];
 #pragma unroll
-        for (int t = 0; t < 16; ++t) {
+        for (int t = 0; t < kH / 4; ++t) {
           const int i = 2 * t, r = acc_row(i), c = acc_col(i, lane);
           const float2 bv = *reinterpret_cast<const float2*>(bs + c);
           float ds[2];
@@ -226,11 +251,11 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
           }
           pa[t] = pack_bf16(ds[0], ds[1]);
         }
-        // dQ += dS K: the half's K rows MN-major, its 64 keys the k of 4 steps
+        // dQ += dS K: the sub-step's K rows MN-major, its kH keys the k of kH/16 steps
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kHalf / 16; ++kk)
+        for (int kk = 0; kk < kH / 16; ++kk)
           W::mma_rows(acc, pa + 4 * kk, dk + kk * W::kLine);  // 16 keys = 16 lines = kLine units
         wgmma_commit();
         wgmma_wait<0>();
@@ -238,7 +263,8 @@ attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       release_stage(&sm.empty[stage], lane);
     }
-    store_rows_sm90<kP>(dq + (size_t(b) * S * H + h) * D, acc, row0, S, H, D, scale, lane);
+    store_rows_sm90<kP>(dq + (size_t(b) * S * H + h) * D, acc, row0, S, size_t(H) * D, D, scale,
+                        lane);
   }
 }
 
@@ -255,14 +281,19 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   using W = Width<kP>;
   using SmemT = SmemBwdKV<kP>;
   constexpr int kRing = SmemT::kRing;
+  constexpr int kR = W::kRows;      // rows of a tile: queries a stage
   constexpr int kSub = kKvSub<kP>;  // queries of a sub-step
   constexpr int NC = kKvConsumers<kP>;
+  constexpr int kNP = kParts<kP>;   // column parts
+  constexpr int kN = kP / kNP;      // output columns of the block
   constexpr uint32_t kTile = W::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
   SmemT& sm = aligned_smem<SmemT>(smem_raw);
-  // the block's 64 * NC keys (its K and V tiles are 128 rows all the same)
-  const int k0 = blockIdx.x * 64 * NC, h = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (S + kBM - 1) / kBM;
+  // the block's 64 * NC keys (its K and V tiles are kR rows all the same)
+  // and its part of the output columns, [part * kN, part * kN + kN)
+  const int part = blockIdx.x % kNP;
+  const int k0 = blockIdx.x / kNP * 64 * NC, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (S + kR - 1) / kR;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const size_t stat0 = (size_t(b) * H + h) * S;
   init_ring<NC>(sm);
@@ -277,10 +308,10 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         W::load(sm.v, &map_v, h, k0, b, &sm.rowbar);
       }
       for (int it = 0; it < n_tiles; ++it) {
-        const int stage = it % kRing, q0 = it * kBM;
+        const int stage = it % kRing, q0 = it * kR;
         mbar_wait(&sm.empty[stage], ((it / kRing) & 1) ^ 1);
 #pragma unroll
-        for (int t = 0; t < kBM / 32; ++t) {
+        for (int t = 0; t < kR / 32; ++t) {
           const int row = q0 + t * 32 + lane;
           sm.lse[stage][t * 32 + lane] = row < S ? __ldg(lse + stat0 + row) : INFINITY;
           sm.delta[stage][t * 32 + lane] = row < S ? __ldg(delta + stat0 + row) : 0.f;
@@ -307,18 +338,20 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     const uint64_t dkd = desc_sw<W::kLine>(sm.k + wg * 64 * W::kCB);
     const uint64_t dvd = desc_sw<W::kLine>(sm.v + wg * 64 * W::kCB);
-    float dk_acc[kP / 2], dv_acc[kP / 2], db_acc[2] = {0.f, 0.f};
+    // the part's first column block, in the MN-major products' descriptors
+    const uint64_t part_off = uint64_t(part) * (kN / W::kCB) * W::kBlock;
+    float dk_acc[kN / 2], dv_acc[kN / 2], db_acc[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < kN / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     mbar_wait(&sm.rowbar, 0);
     for (int j = 0; j < n_tiles; ++j) {
       const int stage = j % kRing;
       mbar_wait(&sm.full[stage], (j / kRing) & 1);
 #pragma unroll 1
-      for (int sub = 0; sub < kBM / kSub; ++sub) {
+      for (int sub = 0; sub < kR / kSub; ++sub) {
         // S^T = K Q^T over the sub-step's queries (rows keys, columns queries)
-        const int c0 = sub * kSub, q0 = j * kBM + c0;
+        const int c0 = sub * kSub, q0 = j * kR + c0;
         const uint64_t dq = desc_sw<W::kLine>(sm.q[stage] + c0 * W::kCB);
         const uint64_t ddo = desc_sw<W::kLine>(sm.dout[stage] + c0 * W::kCB);
         float s[kSub / 2], dp[kSub / 2];
@@ -361,7 +394,7 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kSub / 16; ++kk)
-          W::mma_rows(dv_acc, pa + 4 * kk, ddo + kk * W::kLine);
+          W::template mma_rows<kN>(dv_acc, pa + 4 * kk, ddo + part_off + kk * W::kLine);
 #pragma unroll
         for (int kk = 0; kk < kP / 16; ++kk)
           wgmma_ss<kSub / 2, 0, 0>(dp, W::kstep(dvd, kk), W::kstep(ddo, kk), kk);
@@ -391,17 +424,17 @@ attn_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kSub / 16; ++kk)
-          W::mma_rows(dk_acc, pb + 4 * kk, dq + kk * W::kLine);
+          W::template mma_rows<kN>(dk_acc, pb + 4 * kk, dq + part_off + kk * W::kLine);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dk_acc);
       }
       release_stage(&sm.empty[stage], lane);
     }
-    const size_t head0 = (size_t(b) * S * H + h) * D;
-    store_rows_sm90<kP>(dv + head0, dv_acc, key0, S, H, D, 1.f, lane);
-    store_rows_sm90<kP>(dk + head0, dk_acc, key0, S, H, D, scale, lane);
-    if (db) {
+    const size_t head0 = (size_t(b) * S * H + h) * D + size_t(part) * kN;
+    store_rows_sm90<kN>(dv + head0, dv_acc, key0, S, size_t(H) * D, D - part * kN, 1.f, lane);
+    store_rows_sm90<kN>(dk + head0, dk_acc, key0, S, size_t(H) * D, D - part * kN, scale, lane);
+    if (db && part == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float v = db_acc[r];
@@ -436,13 +469,14 @@ int launch_bwd_sm90(const void* q, const void* k, const void* v, const float* ke
   if (e != cudaSuccess) return int(e);
   e = set_smem(attn_bwd_dkdv_sm90_kernel<kP>, smem_kv);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((S + kBM - 1) / kBM, H, B);
-  attn_bwd_dq_sm90_kernel<kP><<<grid, kThreads, smem_q, stream>>>(
+  using W = Width<kP>;
+  const dim3 grid((S + W::kRows - 1) / W::kRows, H, B);
+  attn_bwd_dq_sm90_kernel<kP><<<grid, W::kThreads, smem_q, stream>>>(
       mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dq), S, H, D, scale, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   constexpr int kKeys = 64 * kKvConsumers<kP>;  // keys of a dK/dV block
-  const dim3 grid_kv((S + kKeys - 1) / kKeys, H, B);
+  const dim3 grid_kv((S + kKeys - 1) / kKeys * kParts<kP>, H, B);
   attn_bwd_dkdv_sm90_kernel<kP><<<grid_kv, 128 * (kKvConsumers<kP> + 1), smem_kv, stream>>>(
       mq, mk, mv, mdo, key_bias, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       db, S, H, D, scale, drop);

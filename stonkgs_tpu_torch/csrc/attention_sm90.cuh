@@ -4,7 +4,7 @@
 //
 //   out = dropout(softmax(Q K^T * scale + key_bias)) V
 //
-// over (B, S, H, D) bf16 q, k, v and out, D a multiple of 8 from 8 to 128,
+// over (B, S, H, D) bf16 q, k, v and out, D a multiple of 8 from 8 to 256,
 // with an optional (B, S) fp32 key bias; training also writes the fp32
 // logsumexp (B, H, S).
 //
@@ -25,16 +25,26 @@
 // cores bound it.
 //
 // Head widths: the kernel is instantiated at the padded widths P = 16, 32,
-// 64 and 128 (a template parameter), and a head width D runs on the
+// 64, 128 and 256 (a template parameter), and a head width D runs on the
 // smallest P >= D.  The tensor maps' dim 0 is D itself and their boxes P
 // wide (Width<P>), so TMA zero-fills the columns from D to P: they add
 // nothing to Q K^T, and the columns of O past D are computed on zeros and
 // not stored.  A row of P bf16 is stored as P/64 column blocks of 64 (at P
-// = 128) or one block of P, each block a line of at most 128 bytes with the
-// swizzle of its width (TMA's and wgmma's widest is 128 bytes): a 128-row
-// tile is its column blocks one after the other, each 128 lines.
+// = 128 and 256) or one block of P, each block a line of at most 128 bytes
+// with the swizzle of its width (TMA's and wgmma's widest is 128 bytes): a
+// tile is its column blocks one after the other, each a line per row.
 //
-// Design (one block per 128 query rows of one (b, h); 384 threads):
+// The wide instance, P = 256 (Width<256>::kWide).  A consumer's O
+// accumulator is 64 x 256 fp32, 128 registers a thread: beside the score
+// tile it spills under the 168 registers ptxas gives a thread of a
+// 384-thread block, and a stage of 128 keys of K and V is 128 KB.  So a
+// block there has one consumer warpgroup of 64 query rows (256 threads,
+// 255 registers a thread), the tiles are 64 rows (64 keys a stage: K and V
+// 64 KB, three stages beside Q's 32 KB in 225 KB), S is wgmma.m64n64k16
+// and O += P V four m64n64k16 products a k-step, one a column block.
+//
+// Design (one block per 128 query rows of one (b, h); 384 threads; at P =
+// 256 64 rows and 256 threads, as above):
 // * warpgroup 2, the producer (setmaxnreg.dec): one warp streams the key
 //   tiles through a ring of kStages stages with full/empty mbarriers; its
 //   lane 0 issues TMA loads (one 4-D tensor map per tensor, dims (D, H, S,
@@ -93,26 +103,32 @@ using attn::Dropout;
 using attn::kNegBias;
 using attn::with_padded_head_dim;
 
-constexpr int kBM = 128;                  // query rows of a block
-constexpr int kBN = 128;                  // keys of a tile
+constexpr int kBM = 128;                  // query rows of a block (P <= 128)
+constexpr int kBN = 128;                  // keys of a tile (P <= 128)
 constexpr int kStages = 3;                // the forward's ring depth
-constexpr int kConsumers = 2;             // consumer warpgroups, 64 rows each
+constexpr int kConsumers = 2;             // consumer warpgroups, 64 rows each (P <= 128)
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr size_t kMaxSmem = 232448;       // shared memory a block may take
 
-// The layout of a 128-row tile at padded width kP: kNB column blocks of
-// kCB columns, each 128 lines of kLine bytes with that swizzle, one after
-// the other.  Descriptors step by kBlock units from one column block to
-// the next.
+// The block shape and tile layout at padded width kP.  A tile is kRows
+// rows (the block's query rows, and a stage's keys): 128 up to P = 128,
+// 64 in the wide instance (P = 256), whose block has one consumer
+// warpgroup.  A tile is kNB column blocks of kCB columns, each kRows lines
+// of kLine bytes with that swizzle, one after the other.  Descriptors step
+// by kBlock units from one column block to the next.
 template <int kP>
 struct Width {
+  static constexpr bool kWide = kP > 128;
+  static constexpr int kNC = kWide ? 1 : kConsumers;  // consumer warpgroups, 64 rows each
+  static constexpr int kRows = 64 * kNC;              // rows of a tile
+  static constexpr int kThreads = 128 * (kNC + 1);
   static constexpr int kCB = kP < 64 ? kP : 64;   // columns of a block
   static constexpr int kNB = kP / kCB;            // column blocks
   static constexpr int kLine = 2 * kCB;           // bytes of a line: the swizzle's width
   static constexpr int kSteps = kCB / 16;         // k16 steps in a block
-  static constexpr uint64_t kBlock = uint64_t(kBN) * kLine / 16;
-  static constexpr uint32_t kTileBytes = kBN * kP * 2;
+  static constexpr uint64_t kBlock = uint64_t(kRows) * kLine / 16;
+  static constexpr uint32_t kTileBytes = kRows * kP * 2;
 
   // the descriptor of k-step kk (columns 16kk .. 16kk + 15) of a K-major
   // operand whose first column block has descriptor d0
@@ -120,26 +136,42 @@ struct Width {
     return d0 + uint64_t(kk / kSteps) * kBlock + 2 * (kk % kSteps);
   }
 
-  // d (64 x kP, fp32) += A (64 x 16 bf16, registers) . B (16 x kP,
-  // MN-major): B's first column block has descriptor db, the others follow
-  static __device__ __forceinline__ void mma_rows(float (&d)[kP / 2], const uint32_t* a,
+  // d (64 x kN, fp32) += A (64 x 16 bf16, registers) . B (16 x kN,
+  // MN-major): B's column block at descriptor db and the kN / kCB - 1
+  // after it, one m64n64k16 product a block into its 32 registers of d
+  // (kN = kP, all of B; or, in the wide dK/dV kernel, 128, half of it)
+  template <int kN = kP>
+  static __device__ __forceinline__ void mma_rows(float (&d)[kN / 2], const uint32_t* a,
                                                   uint64_t db) {
     if constexpr (kNB == 1) {
       wgmma_pv(d, a, db);
     } else {
-      static_assert(kNB == 2, "two column blocks at most");
-      wgmma_pv_at<0>(d, a, db);
-      wgmma_pv_at<32>(d, a, db + kBlock);
+      blocks<kN / kCB>(d, a, db);
+    }
+  }
+  template <int kN, int nb = 0, int R>
+  static __device__ __forceinline__ void blocks(float (&d)[R], const uint32_t* a, uint64_t db) {
+    if constexpr (nb < kN) {
+      wgmma_pv_at<32 * nb>(d, a, db + nb * kBlock);
+      blocks<kN, nb + 1>(d, a, db);
     }
   }
 
-  // TMA: a 128-row tile at rows (row0, h, b) of `map` into `dst`, one box a
-  // column block, completing on `bar`
+  // S (64 x kRows, fp32) (+)= A (64 x 16, desc) . B^T (B kRows x 16, desc),
+  // both K-major: one k-step of the scores over a key tile
+  static __device__ __forceinline__ void qk(float (&d)[kRows / 2], uint64_t da, uint64_t db,
+                                            int acc) {
+    if constexpr (kRows == 128) wgmma_qk(d, da, db, acc);
+    else wgmma_qk64(d, da, db, acc);
+  }
+
+  // TMA: a kRows-row tile at rows (row0, h, b) of `map` into `dst`, one box
+  // a column block, completing on `bar`
   static __device__ __forceinline__ void load(bf16* dst, const CUtensorMap* map, int h, int row0,
                                               int b, uint64_t* bar) {
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb)
-      tma_load_4d(dst + nb * kBN * kCB, map, nb * kCB, h, row0, b, bar);
+      tma_load_4d(dst + nb * kRows * kCB, map, nb * kCB, h, row0, b, bar);
   }
 };
 
@@ -147,10 +179,11 @@ struct Width {
 template <int kP>
 struct alignas(1024) Smem {
   static constexpr int kRing = kStages;
-  bf16 q[kBM * kP];
-  bf16 k[kRing][kBN * kP];
-  bf16 v[kRing][kBN * kP];
-  float bias[kRing][kBN];
+  static constexpr int kRows = Width<kP>::kRows;
+  bf16 q[kRows * kP];
+  bf16 k[kRing][kRows * kP];
+  bf16 v[kRing][kRows * kP];
+  float bias[kRing][kRows];
   uint64_t full[kRing];
   uint64_t empty[kRing];
   uint64_t rowbar;  // the block's own tile (Q)
@@ -158,6 +191,7 @@ struct alignas(1024) Smem {
 template <int kP>
 constexpr size_t kSmemBytes = sizeof(Smem<kP>) + 1024;  // + alignment slack
 static_assert(kSmemBytes<128> <= kMaxSmem, "the forward's ring fits at P = 128");
+static_assert(kSmemBytes<256> <= kMaxSmem, "the forward's ring fits at P = 256");
 
 // the barriers of a ring whose stages the producer warp's 32 lanes fill
 // (lane 0 with the TMA bytes) and each warp of the NC consumer warpgroups
@@ -176,21 +210,23 @@ __device__ __forceinline__ void init_ring(SmemT& sm) {
   __syncthreads();
 }
 
-// a warpgroup's 64 x kP fp32 accumulator times `scale`, rounded, into rows
-// row0 and row0 + 8 (< S), columns < D, of a (B, S, H, D) tensor whose
-// (b, 0, h, 0) is `base`: bf16 pairs straight from the accumulator
-template <int kP>
-__device__ __forceinline__ void store_rows_sm90(bf16* base, const float (&d)[kP / 2], int row0,
-                                                int S, int H, int D, float scale, int lane) {
+// a warpgroup's 64 x kN fp32 accumulator times `scale`, rounded, into rows
+// row0 and row0 + 8 (< S), columns < cols, of rows `ld` elements apart
+// from `base` (a (B, S, H, D) tensor's (b, 0, h, c0): ld = H*D, cols = D -
+// c0): bf16 pairs straight from the accumulator
+template <int kN>
+__device__ __forceinline__ void store_rows_sm90(bf16* base, const float (&d)[kN / 2], int row0,
+                                                int S, size_t ld, int cols, float scale,
+                                                int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= S) continue;
-    bf16* dst = base + size_t(row) * H * D;
+    bf16* dst = base + size_t(row) * ld;
 #pragma unroll
-    for (int i = 2 * r; i < kP / 2; i += 4) {
-      const int col = acc_col(i, lane);  // even; D is a multiple of 8
-      if (col < D)
+    for (int i = 2 * r; i < kN / 2; i += 4) {
+      const int col = acc_col(i, lane);  // even; cols is a multiple of 8
+      if (col < cols)
         *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(d[i] * scale, d[i + 1] * scale);
     }
   }
@@ -199,7 +235,7 @@ __device__ __forceinline__ void store_rows_sm90(bf16* base, const float (&d)[kP 
 // --- the kernel -------------------------------------------------------------
 
 template <int kP, bool kTrain>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Width<kP>::kThreads, 1)
 attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
@@ -208,17 +244,19 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   using W = Width<kP>;
   using SmemT = Smem<kP>;
   constexpr int kRing = SmemT::kRing;
+  constexpr int kR = W::kRows;  // query rows of the block, keys of a tile
+  constexpr int NC = W::kNC;
   constexpr uint32_t kTile = W::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
   SmemT& sm = aligned_smem<SmemT>(smem_raw);
-  const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (S + kBN - 1) / kBN;
+  const int q0 = blockIdx.x * kR, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (S + kR - 1) / kR;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  init_ring(sm);
+  init_ring<NC>(sm);
 
-  if (wg == kConsumers) {
+  if (wg == NC) {
     // ---------------- producer ----------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if constexpr (NC == kConsumers) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (warp == 0) {
       if (lane == 0) {
         mbar_arrive_tx(&sm.rowbar, kTile);
@@ -228,10 +266,10 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int it = 0; it < 2 * n_tiles; ++it) {
         const int stage = it % kRing;
         const bool pass2 = it >= n_tiles;
-        const int k0 = (pass2 ? it - n_tiles : it) * kBN;
+        const int k0 = (pass2 ? it - n_tiles : it) * kR;
         mbar_wait(&sm.empty[stage], ((it / kRing) & 1) ^ 1);
 #pragma unroll
-        for (int t = 0; t < kBN / 32; ++t) {
+        for (int t = 0; t < kR / 32; ++t) {
           const int key = k0 + t * 32 + lane;
           sm.bias[stage][t * 32 + lane] =
               key < S ? (kb ? __ldg(kb + key) : 0.f) : -INFINITY;
@@ -247,10 +285,11 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---------------- consumers ----------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (NC == kConsumers) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // the thread's rows: row0, row0 + 8
     const uint64_t dq = desc_sw<W::kLine>(sm.q + wg * 64 * W::kCB);
-    float acc[64];
+    constexpr int kA = kR / 2;  // score accumulator registers: 64 x kR
+    float acc[kA];
 
     // S = Q K^T of the tile in `stage`, then s = S*scale + bias in place
     auto scores = [&](int stage) {
@@ -259,13 +298,13 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kP / 16; ++kk)
-        wgmma_qk(acc, W::kstep(dq, kk), W::kstep(dk, kk), kk);
+        W::qk(acc, W::kstep(dq, kk), W::kstep(dk, kk), kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
       const float* bs = sm.bias[stage];
 #pragma unroll
-      for (int i = 0; i < 64; i += 2) {
+      for (int i = 0; i < kA; i += 2) {
         const float2 bv = *reinterpret_cast<const float2*>(bs + acc_col(i, lane));
         acc[i] = fmaf(acc[i], scale, bv.x);
         acc[i + 1] = fmaf(acc[i + 1], scale, bv.y);
@@ -284,7 +323,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       release_stage(&sm.empty[stage], lane);
       float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int i = 0; i < 64; ++i) tmax[acc_row(i)] = fmaxf(tmax[acc_row(i)], acc[i]);
+      for (int i = 0; i < kA; ++i) tmax[acc_row(i)] = fmaxf(tmax[acc_row(i)], acc[i]);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
@@ -294,7 +333,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         m[r] = m_new;
       }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) l[acc_row(i)] += ex2((acc[i] - m[acc_row(i)]) * kLog2e);
+      for (int i = 0; i < kA; ++i) l[acc_row(i)] += ex2((acc[i] - m[acc_row(i)]) * kLog2e);
     }
     float inv_l[2];
 #pragma unroll
@@ -325,11 +364,11 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int i = 0; i < kP / 2; ++i) o[i] = 0.f;
     for (int j = 0; j < n_tiles; ++j) {
-      const int it = n_tiles + j, stage = it % kRing, k0 = j * kBN;
+      const int it = n_tiles + j, stage = it % kRing, k0 = j * kR;
       mbar_wait(&sm.full[stage], (it / kRing) & 1);
       scores(stage);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kA; ++i) {
         float p = ex2((acc[i] - m[acc_row(i)]) * kLog2e) * inv_l[acc_row(i)];
         if constexpr (kTrain) {
           if (drop.enabled)
@@ -339,14 +378,14 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         acc[i] = p;
       }
       // the A fragments of k-step kk are registers 8kk .. 8kk+7, in pairs
-      uint32_t pa[32];
+      uint32_t pa[kA / 2];
 #pragma unroll
-      for (int t = 0; t < 32; ++t) pa[t] = pack_bf16(acc[2 * t], acc[2 * t + 1]);
+      for (int t = 0; t < kA / 2; ++t) pa[t] = pack_bf16(acc[2 * t], acc[2 * t + 1]);
       const uint64_t dv = desc_sw<W::kLine>(sm.v[stage]);
       fence_regs(o);
       wgmma_fence();  // orders the writes of pa and o before the products read them
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
+      for (int kk = 0; kk < kR / 16; ++kk)
         W::mma_rows(o, pa + 4 * kk, dv + kk * W::kLine);  // 16 keys = 16 lines = kLine units
       wgmma_commit();
       wgmma_wait<0>();
@@ -355,14 +394,15 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     }
 
     // epilogue: O rows < S, columns < D
-    store_rows_sm90<kP>(out + (size_t(b) * S * H + h) * D, o, row0, S, H, D, 1.f, lane);
+    store_rows_sm90<kP>(out + (size_t(b) * S * H + h) * D, o, row0, S, size_t(H) * D, D, 1.f,
+                        lane);
   }
 }
 
 // --- host side --------------------------------------------------------------
 
 // 4-D map of a (B, S, H, D) bf16 tensor for tiles of padded width kP: dims
-// (D, H, S, B), box (kCB, 1, 128, 1) with the swizzle of a kCB-wide line;
+// (D, H, S, B), box (kCB, 1, kRows, 1) with the swizzle of a kCB-wide line;
 // the columns of a box past D read as zero
 template <int kP>
 inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int H, int D) {
@@ -370,7 +410,7 @@ inline bool make_map(CUtensorMap* map, const void* base, int B, int S, int H, in
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S), cuuint64_t(B)};
   const cuuint64_t row = cuuint64_t(D) * 2;  // bytes of one (b, s, h) row
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {cuuint32_t(W::kCB), 1, kBN, 1};
+  const cuuint32_t box[4] = {cuuint32_t(W::kCB), 1, cuuint32_t(W::kRows), 1};
   return encode_map(map, MapType<bf16>::kType, base, 4, dims, strides, box,
                     swizzle_of(W::kLine));
 }
@@ -390,8 +430,9 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, const float* ke
     cudaError_t e = cudaFuncSetAttribute(attn_fwd_sm90_kernel<kP, kTrain>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
-    const dim3 grid((S + kBM - 1) / kBM, H, B);
-    attn_fwd_sm90_kernel<kP, kTrain><<<grid, kThreads, smem, stream>>>(
+    using W = Width<kP>;
+    const dim3 grid((S + W::kRows - 1) / W::kRows, H, B);
+    attn_fwd_sm90_kernel<kP, kTrain><<<grid, W::kThreads, smem, stream>>>(
         mq, mk, mv, key_bias, static_cast<bf16*>(out), lse, S, H, D, scale, drop);
     return int(cudaGetLastError());
   });

@@ -21,30 +21,43 @@
 // plain version exactly; the epilogue's products are rounded one by one
 // (no fused multiply-add), as the plain version computes them.
 //
+// Any K >= 1.  Kp is K rounded up to a multiple of 16, the pass's and the
+// GEMM's step: x comes as Kp-wide rows whose columns past K are zero (the
+// wrapper pads a ragged K; a zero leaves the row's absmax as it is and
+// quantizes to code 0), the codes q are (M, Kp), and the GEMM's tensor
+// maps take the true K with rows Kp (codes) and ldw (W) apart, so TMA
+// zero-fills the last k-step's columns past K and W's padding is never
+// read.  ops/quantization.py::quantized_to lays W out so once, on the card.
+//
 // C interface (all pointers on the device, 16-byte aligned; x has rows of
 // stride ldx elements and a unit column stride, ldx * sizeof(T) a multiple
-// of 16; q (M, K) int8 and s_x (M,) fp32 the caller's scratch; w (N, K)
-// row-major int8; w_scale and bias fp32, bias may be null; out (M, N) in
-// x's dtype with rows ldo elements apart, ldo * sizeof(T) a multiple of 16):
+// of 16, its columns K to Kp zero; q (M, Kp) int8 and s_x (M,) fp32 the
+// caller's scratch; w (N, K) row-major int8 with rows ldw >= K elements
+// apart, ldw a multiple of 16; w_scale and bias fp32, bias may be null;
+// out (M, N) in x's dtype with rows ldo elements apart, ldo * sizeof(T) a
+// multiple of 16):
 //   int dense_int8(int dtype /*0 fp32, 1 bf16*/, x, long long ldx, q, s_x,
-//                  w, w_scale, bias, out, long long ldo, int M, int K,
-//                  int N, cudaStream_t stream)
-// with M >= 1, N >= 1 and K a multiple of 16; returns cudaGetLastError()
-// after the launches (or -1 when a tensor map cannot be encoded).  The
-// two launches are also exposed on their own (dense_int8_quantize,
-// dense_int8_gemm) for checks and timing.
+//                  w, long long ldw, w_scale, bias, out, long long ldo,
+//                  int M, int K, int N, cudaStream_t stream)
+// with M >= 1, N >= 1 and K >= 1; returns cudaGetLastError() after the
+// launches (or -1 when a tensor map cannot be encoded).  The two launches
+// are also exposed on their own (dense_int8_quantize over Kp-wide rows,
+// dense_int8_gemm with the true K) for checks and timing.
 
 #include "int8_sm90.cuh"
 
 namespace stonkgs {
 namespace int8_90 {
 
+// the codes' and W's rows are K rounded up to a multiple of 16 apart
+inline long long padded_k(int K) { return (K + 15LL) / 16 * 16; }
+
 template <typename T>
-int launch_dense_gemm(const void* q, const float* sx, const void* w, const float* w_scale,
-                      const float* bias, void* out, long long ldo, int M, int K, int N,
-                      cudaStream_t stream) {
+int launch_dense_gemm(const void* q, const float* sx, const void* w, long long ldw,
+                      const float* w_scale, const float* bias, void* out, long long ldo, int M,
+                      int K, int N, cudaStream_t stream) {
   return launch_gemm<int8_t, T, 256, 128, 3, true>(q, w, out, ldo, sx, w_scale, bias, M, N, K,
-                                                   stream);
+                                                   stream, padded_k(K), ldw);
 }
 
 }  // namespace int8_90
@@ -60,21 +73,24 @@ extern "C" int dense_int8_quantize(int dtype, const void* x, long long ldx, void
 }
 
 extern "C" int dense_int8_gemm(int dtype, const void* q, const float* sx, const void* w,
-                               const float* w_scale, const float* bias, void* out,
+                               long long ldw, const float* w_scale, const float* bias, void* out,
                                long long ldo, int M, int K, int N, void* stream) {
   using namespace stonkgs::int8_90;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dense_gemm<float>(q, sx, w, w_scale, bias, out, ldo, M, K, N, s);
+  if (dtype == 0)
+    return launch_dense_gemm<float>(q, sx, w, ldw, w_scale, bias, out, ldo, M, K, N, s);
   if (dtype == 1)
-    return launch_dense_gemm<__nv_bfloat16>(q, sx, w, w_scale, bias, out, ldo, M, K, N, s);
+    return launch_dense_gemm<__nv_bfloat16>(q, sx, w, ldw, w_scale, bias, out, ldo, M, K, N, s);
   return int(cudaErrorInvalidValue);
 }
 
 extern "C" int dense_int8(int dtype, const void* x, long long ldx, void* q, float* sx,
-                          const void* w, const float* w_scale, const float* bias, void* out,
-                          long long ldo, int M, int K, int N, void* stream) {
-  if (N <= 0) return int(cudaErrorInvalidValue);
-  const int status = dense_int8_quantize(dtype, x, ldx, q, sx, M, K, stream);
+                          const void* w, long long ldw, const float* w_scale, const float* bias,
+                          void* out, long long ldo, int M, int K, int N, void* stream) {
+  using stonkgs::int8_90::padded_k;
+  if (N <= 0 || K <= 0) return int(cudaErrorInvalidValue);
+  // the pass quantizes the Kp-wide zero-padded rows (x's padding is zero)
+  const int status = dense_int8_quantize(dtype, x, ldx, q, sx, M, int(padded_k(K)), stream);
   if (status != 0) return status;
-  return dense_int8_gemm(dtype, q, sx, w, w_scale, bias, out, ldo, M, K, N, stream);
+  return dense_int8_gemm(dtype, q, sx, w, ldw, w_scale, bias, out, ldo, M, K, N, stream);
 }

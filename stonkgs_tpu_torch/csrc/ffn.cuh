@@ -6,8 +6,8 @@
 // layout are shared with ffn_sm90.cuh.  bf16 runs the Hopper kernels of
 // ffn_sm90.cuh and ffn_train_sm90.cuh.
 //
-// Widths: every FFN entry point takes any hidden width H from 8 to 2048 and
-// any intermediate width I from 8 to 8192 (widths_ok), in both dtypes.  The
+// Widths: every FFN entry point takes any hidden width H >= 8 and any
+// intermediate width I >= 8 (widths_ok), in both dtypes.  The
 // arrays lie in a padded layout: each row of H (or I) values is ld(H) (or
 // ld(I)) elements long, ld rounding up to a multiple of 32 in fp32 and of 8
 // in bf16 (padded_width), the padding zero (fp32) or never read (bf16).
@@ -15,10 +15,16 @@
 // columns and rows add nothing to a product; only the LayerNorm statistics
 // see the true H (LnArgs::n), and they are taken over it alone.
 //
-// Two instances of the body (Geometry): Narrow for Hp <= 1024, the
-// original one, and Wide for 1024 < Hp <= 2048, with half the rows a block
-// and half the rows a W2 tile, so that the (rows, Hp) accumulator keeps
-// its 64 registers a thread and shared memory stays under 227 KB.  A
+// Two instances of the fused body (Geometry): Narrow for Hp <= 1024, the
+// original one, and Wide for 1024 < Hp <= 2048 (kRowHidden), with half the
+// rows a block and half the rows a W2 tile, so that the (rows, Hp)
+// accumulator keeps its 64 registers a thread and shared memory stays
+// under 227 KB.  Above 2048 the fused shape has no room (its accumulator
+// and row operands grow with H), so fp32 is split at h as bf16 is
+// (ffn_sm90.cuh): a LayerNorm pass that walks a row in chunks
+// (layer_norm_rows_kernel), a tiled SIMT GEMM with the bias and gelu in
+// its epilogue into an (M, Ip) fp32 scratch h, a second GEMM, and the
+// LayerNorm in place; the backward is three such GEMMs (ffn_train.cu).  A
 // block of 256 threads owns kBM rows (16, or 8 wide).  The intermediate
 // axis is walked in chunks of 128 columns (the last one 32, 64, 96 or 128
 // wide); the weight tiles of all chunks form one stream through a ring of
@@ -48,13 +54,13 @@ constexpr int kK1 = 32;                  // rows (hidden axis) of a W1 tile
 constexpr int kStages = 2;               // weight ring buffers
 constexpr int kPad = 4;                  // floats of padding a shared row
 constexpr int kMinWidth = 8;             // the narrowest H and I
-constexpr int kMaxHidden = 2048;         // the widest H
-constexpr int kMaxInter = 8192;          // the widest I
+// the widest padded H of the fused fp32 bodies and of the bf16 LayerNorm
+// passes that hold a row in registers; wider rows take the split fp32 path
+// and the chunked LayerNorm pass
+constexpr int kRowHidden = 2048;
 
 // whether the FFN entry points take widths H and I (both dtypes)
-inline bool widths_ok(int H, int I) {
-  return H >= kMinWidth && H <= kMaxHidden && I >= kMinWidth && I <= kMaxInter;
-}
+inline bool widths_ok(int H, int I) { return H >= kMinWidth && I >= kMinWidth; }
 
 // the row length of an n-wide array in the padded layout: a multiple of
 // 32 elements in fp32 (dtype 0), of 8 (16 bytes, as TMA's strides need) in
@@ -402,15 +408,190 @@ inline int with_geometry(int Hp, F&& f) {
   return Hp <= Narrow::kMaxH ? f(Narrow{}) : f(Wide{});
 }
 
-// the fp32 forward kernel at the true widths H and I (widths_ok), on
-// arrays in the padded layout
+// --- the split fp32 path, above a padded H of kRowHidden ---------------------
+
+// out = LN(a + b) (b may be null: LN(a)) over M rows of ld elements (a
+// multiple of 16 bytes), statistics in fp32 over the first n columns; one
+// warp a row walks it in 16-byte vectors three times, re-reading it from
+// L2: the sum, the centred sum of squares, then the normalised values,
+// rounded to T once; the columns from n to ld are written 0.  out may be b
+// (in place: each lane reads a vector before it writes it, after the
+// statistics).  Any width: the bf16 pass of ffn_sm90.cuh above
+// kRowHidden, and the split fp32 path's.
+template <typename T>
+__global__ void __launch_bounds__(256)
+layer_norm_rows_kernel(const T* a, const T* b, const float* __restrict__ g,
+                       const float* __restrict__ beta, float eps, T* out, int M, int n, int ld) {
+  constexpr int V = 16 / int(sizeof(T));
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const size_t off = size_t(row) * ld;
+  // the V values of a + b at columns c .. c + V - 1, zero from n on
+  auto load = [&](int c, float (&v)[V]) {
+    const uint4 ua = *reinterpret_cast<const uint4*>(a + off + c);
+    uint4 ub = make_uint4(0u, 0u, 0u, 0u);
+    if (b) ub = *reinterpret_cast<const uint4*>(b + off + c);
+    const T* ea = reinterpret_cast<const T*>(&ua);
+    const T* eb = reinterpret_cast<const T*>(&ub);
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = c + e < n ? to_f(ea[e]) + (b ? to_f(eb[e]) : 0.f) : 0.f;
+  };
+  float s = 0.f, v[V];
+  for (int c = lane * V; c < n; c += 32 * V) {
+    load(c, v);
+#pragma unroll
+    for (int e = 0; e < V; ++e) s += v[e];
+  }
+  const float mean = warp_sum(s) / n;
+  float q = 0.f;
+  for (int c = lane * V; c < n; c += 32 * V) {
+    load(c, v);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float d = v[e] - mean;
+      if (c + e < n) q += d * d;
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(q) / n + eps);
+  for (int c = lane * V; c < ld; c += 32 * V) {
+    load(c, v);
+    uint4 uo;
+    T* eo = reinterpret_cast<T*>(&uo);
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      eo[e] = from_f<T>(c + e < n ? (v[e] - mean) * rstd * g[c + e] + beta[c + e] : 0.f);
+    *reinterpret_cast<uint4*>(out + off + c) = uo;
+  }
+}
+
+template <typename T>
+inline int launch_layer_norm_rows(const T* a, const T* b, const float* g, const float* beta,
+                                  float eps, T* out, int M, int n, int ld, cudaStream_t stream) {
+  layer_norm_rows_kernel<T><<<unsigned((M + 7) / 8), 256, 0, stream>>>(a, b, g, beta, eps, out,
+                                                                      M, n, ld);
+  return int(cudaGetLastError());
+}
+
+// the epilogues of gemm_f32_kernel
+constexpr int kEpiBias = 0;      // C = acc + bias (bias may be null)
+constexpr int kEpiGelu = 1;      // C = gelu(acc + bias)
+constexpr int kEpiGeluGrad = 2;  // h = aux: C = acc * gelu'(h), aux = gelu(h)
+
+constexpr int kGemmTile = 64;  // rows and columns of C a block
+constexpr int kGemmK = 16;     // K of a shared-memory step
+
+// C (M, N) = epilogue(A (M, K) . B (K, N)) in fp32, all row-major and
+// dense (the padded layout's rows); a block of 256 threads owns a 64 x 64
+// tile of C, each thread 4 x 4 of it in registers, and walks K in steps of
+// 16 through shared memory (A stored k-major, so that a thread's 4 rows
+// are one 16-byte read); plain FMAs, edges zero-filled.  The split fp32
+// FFN's products: it exists to hold the model against the CPU.
+template <int kEpi>
+__global__ void __launch_bounds__(256)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                const float* __restrict__ bias, float* __restrict__ C, float* aux, int M, int N,
+                int K, int act) {
+  __shared__ __align__(16) float as[kGemmK][kGemmTile + 4];
+  __shared__ __align__(16) float bs[kGemmK][kGemmTile + 4];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * kGemmTile, n0 = blockIdx.x * kGemmTile;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kGemmK) {
+    for (int i = threadIdx.x; i < kGemmTile * kGemmK; i += 256) {
+      const int r = i / kGemmK, c = i % kGemmK;
+      as[c][r] = m0 + r < M && k0 + c < K ? A[size_t(m0 + r) * K + k0 + c] : 0.f;
+      const int kr = i / kGemmTile, kc = i % kGemmTile;
+      bs[kr][kc] = k0 + kr < K && n0 + kc < N ? B[size_t(k0 + kr) * N + n0 + kc] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kGemmK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&as[kk][4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][4 * tx]);
+      const float a4[4] = {av.x, av.y, av.z, av.w}, b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += a4[i] * b4[j];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + 4 * ty + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + 4 * tx + j;
+      if (r >= M || c >= N) continue;
+      const size_t at = size_t(r) * N + c;
+      float val = acc[i][j];
+      if constexpr (kEpi == kEpiGeluGrad) {
+        float ga, da;
+        gelu_and_grad(aux[at], act, ga, da);
+        aux[at] = ga;
+        val *= da;
+      } else {
+        if (bias) val += bias[c];
+        if constexpr (kEpi == kEpiGelu) val = gelu(val, act);
+      }
+      C[at] = val;
+    }
+  }
+}
+
+template <int kEpi>
+inline int launch_gemm_f32(const void* a, const void* b, const float* bias, void* c, float* aux,
+                           int M, int N, int K, int act, cudaStream_t stream) {
+  const dim3 grid((N + kGemmTile - 1) / kGemmTile, (M + kGemmTile - 1) / kGemmTile);
+  if (grid.y > 65535) return int(cudaErrorInvalidValue);
+  gemm_f32_kernel<kEpi><<<grid, 256, 0, stream>>>(static_cast<const float*>(a),
+                                                   static_cast<const float*>(b), bias,
+                                                   static_cast<float*>(c), aux, M, N, K, act);
+  return int(cudaGetLastError());
+}
+
+// the split fp32 forward at the padded widths Hp > kRowHidden and Ip:
+// kLN: x2 = LN1(x + a) into the scratch x2, h = gelu(x2 W1 + b1) into the
+// scratch h, out = h W2 + b2, then out = LN2(x2 + out) in place; else h =
+// gelu(x W1 + b1), out = h W2 + b2
+template <bool kLN>
+int launch_fwd_split(const float* x, const float* a, const float* w1, const float* b1,
+                     const float* w2, const float* b2, const LnArgs& ln, float* x2, float* h,
+                     float* out, int M, int Hp, int Ip, int act, cudaStream_t stream) {
+  if (!h || (kLN && !x2)) return int(cudaErrorInvalidValue);
+  int s = 0;
+  if constexpr (kLN) {
+    s = launch_layer_norm_rows<float>(x, a, ln.g1, ln.be1, ln.eps, x2, M, ln.n, Hp, stream);
+    if (s != 0) return s;
+    x = x2;
+  }
+  s = launch_gemm_f32<kEpiGelu>(x, w1, b1, h, nullptr, M, Ip, Hp, act, stream);
+  if (s != 0) return s;
+  s = launch_gemm_f32<kEpiBias>(h, w2, b2, out, nullptr, M, Hp, Ip, act, stream);
+  if (s != 0 || !kLN) return s;
+  return launch_layer_norm_rows<float>(x2, out, ln.g2, ln.be2, ln.eps, out, M, ln.n, Hp, stream);
+}
+
+// the fp32 forward at the true widths H and I (widths_ok), on arrays in the
+// padded layout: the fused kernel up to a padded H of kRowHidden, the split
+// path above it (x2 (M, Hp), for kLN, and h (M, Ip) are then the caller's
+// fp32 scratch)
 template <bool kLN>
 int launch_fwd(const void* x, const void* a, const void* w1, const float* b1, const void* w2,
-               const float* b2, LnArgs ln, void* out, int M, int H, int I, int act,
-               cudaStream_t stream) {
+               const float* b2, LnArgs ln, void* x2, void* h, void* out, int M, int H, int I,
+               int act, cudaStream_t stream) {
   if (M <= 0 || !widths_ok(H, I) || (act != 0 && act != 1)) return int(cudaErrorInvalidValue);
   const int Hp = padded_width(H, 0), Ip = padded_width(I, 0);
   ln.n = H;
+  if (Hp > kRowHidden)
+    return launch_fwd_split<kLN>(
+        static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(w1),
+        b1, static_cast<const float*>(w2), b2, ln, static_cast<float*>(x2),
+        static_cast<float*>(h), static_cast<float*>(out), M, Hp, Ip, act, stream);
   return with_geometry(Hp, [&](auto geo) {
     using G = decltype(geo);
     const Layout L = make_layout<G>(Hp);

@@ -49,15 +49,21 @@
 // in registers, loaded and stored as the widest vectors H allows (16 bytes
 // when H is a multiple of 256).
 //
-// Widths: any H from 8 to 2048 and I from 8 to 8192 (ffn.cuh, widths_ok),
-// each row of the arrays ld(H) = H rounded up to a multiple of 8 elements
-// long (ld(I) likewise): TMA needs 16-byte row strides.  The tensor maps
-// take the true width as the dimension and ld as the stride, so TMA
-// zero-fills the columns past it in every load (an operand's K edge adds
-// nothing) and skips them in every store; the padding is never read.  The
-// LayerNorm pass takes its statistics over the true H: for H a multiple of
-// 32 up to 1024 the instances above, for any other H a masked one with
-// 16-byte vectors over ld(H).
+// Widths: any H >= 8 and I >= 8 (ffn.cuh, widths_ok), each row of the
+// arrays ld(H) = H rounded up to a multiple of 8 elements long (ld(I)
+// likewise): TMA needs 16-byte row strides.  The tensor maps take the true
+// width as the dimension and ld as the stride, so TMA zero-fills the
+// columns past it in every load (an operand's K edge adds nothing) and
+// skips them in every store; the padding is never read.  Every offset is
+// TMA's (64-bit) or a size_t: M x I reaches 2^31 elements at the trunk's
+// rows and I = 32,768.  The LayerNorm pass takes its statistics over the
+// true H: for H a multiple of 32 up to 1024 the instances above, for any
+// other H up to 2048 a masked one with 16-byte vectors over ld(H), and
+// above 2048, where a row no longer fits a lane's registers (80 values a
+// lane at H = 2,560, 256 at 8,192 would spill), ffn.cuh's
+// layer_norm_rows_kernel, which walks the row in 16-byte chunks three
+// times (sum, centred sum of squares from a second read out of L2, then
+// the normalised values), its statistics in fp32 over the true H.
 
 #pragma once
 
@@ -80,7 +86,7 @@ constexpr uint32_t kBBytes = kBK * kBN * 2;  // 32 KB
 constexpr uint32_t kBBlock = kBK * 64 * 2;   // one 64-wide column block of B, 8 KB
 constexpr uint32_t kOutBox = 64 * 64 * 2;    // one 64 x 64 bf16 box of C, 8 KB
 constexpr int kNoAct = -1;                   // epilogue without gelu
-using ffn::kMaxHidden;
+using ffn::kRowHidden;
 
 struct alignas(1024) SmemGemm {
   bf16 a[kStages][kBM * kBK];
@@ -303,7 +309,7 @@ add_layer_norm_kernel(const bf16* a, const bf16* b, const float* __restrict__ g,
                       int ld) {
   using V = typename BfVec<kVec>::type;
   // vectors a lane at the widest H
-  constexpr int kMaxVecs = (kMasked ? kMaxHidden : 1024) / 32 / kVec;
+  constexpr int kMaxVecs = (kMasked ? kRowHidden : 1024) / 32 / kVec;
   const int nv = kMasked ? (H + 32 * kVec - 1) / (32 * kVec) : H / (32 * kVec);
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= M) return;
@@ -362,11 +368,13 @@ add_layer_norm_kernel(const bf16* a, const bf16* b, const float* __restrict__ g,
 }
 
 // the LayerNorm pass over M rows of width H, ld apart: at the widest
-// vector H takes when H is a multiple of 32 up to 1024 (then ld = H), else
-// masked
+// vector H takes when H is a multiple of 32 up to 1024 (then ld = H),
+// masked up to 2048, in chunks above
 inline int launch_add_layer_norm(const bf16* a, const bf16* b, const float* g, const float* beta,
                                  float eps, bf16* out, int M, int H, int ld,
                                  cudaStream_t stream) {
+  if (ld > kRowHidden)
+    return ffn::launch_layer_norm_rows<bf16>(a, b, g, beta, eps, out, M, H, ld, stream);
   const unsigned blocks = unsigned((M + 7) / 8);
   const int per = H / 32;
   if (H % 32 != 0 || H > 1024)

@@ -11,16 +11,19 @@
 //
 // bf16 runs the Hopper kernels of ffn_train_sm90.cuh: the forward is two
 // wgmma GEMMs through a bf16 scratch h (M, I); the backward a dual wgmma
-// GEMM that writes a and dh, then the dx GEMM.  Both dtypes take any H from
-// 8 to 2048 and any I from 8 to 8192, on arrays in the padded layout of
-// ffn.cuh (rows of ld(H) or ld(I) elements: multiples of 32 in fp32, of 8 in
-// bf16).
+// GEMM that writes a and dh, then the dx GEMM.  Both dtypes take any H >= 8
+// and any I >= 8, on arrays in the padded layout of ffn.cuh (rows of ld(H)
+// or ld(I) elements: multiples of 32 in fp32, of 8 in bf16).
 //
-// fp32 runs SIMT bodies that exist to hold the model against the CPU:
-// the forward is ffn_fwd_kernel<G, false> of ffn.cuh; the backward, below,
-// is built from the same pieces with two row operands, in the same two
-// geometries (Narrow up to a padded H of 1024, Wide above), at the padded
-// widths.  One block owns kBM rows of x and g, both kept in shared memory,
+// fp32 runs SIMT bodies that exist to hold the model against the CPU.  Up
+// to a padded H of 2048 (kRowHidden): the forward is ffn_fwd_kernel<G,
+// false> of ffn.cuh; the backward, below, is built from the same pieces
+// with two row operands, in the same two geometries (Narrow up to a padded
+// H of 1024, Wide above), at the padded widths.  Above 2048 both are split
+// at h, as bf16 is, into ffn.cuh's tiled SIMT GEMM (launch_bwd_split): the
+// forward's two products through an fp32 scratch h, and the backward's
+// x W1 + b1 into a, then g W2^T with an epilogue that turns a's h into
+// gelu(h) and writes dh = (g W2^T) gelu'(h), then dh W1^T into dx.  One block owns kBM rows of x and g, both kept in shared memory,
 // and walks I in chunks of 128 (the last one narrower when I % 128 != 0).
 // For each chunk:
 //   h = x @ W1[:, chunk]        (W1 streamed in 32 x chunk tiles)
@@ -38,17 +41,17 @@
 // C interface (all pointers on the device; b1, b2 fp32; every array in the
 // padded layout, x (M, ld(H)), W1 (ld(H), ld(I)) and so on):
 //   int ffn_train_fwd(int dtype /*0 fp32, 1 bf16*/, x, w1, b1, w2, b2,
-//                     h /*(M, I) bf16 scratch, or NULL for fp32*/, out,
-//                     int M, int H, int I, int act /*0 gelu(erf),
-//                     1 gelu_new*/, cudaStream_t stream)
+//                     h /*(M, I) scratch in x's dtype: bf16, and fp32 at
+//                     ld(H) > 2048; else NULL*/, out, int M, int H, int I,
+//                     int act /*0 gelu(erf), 1 gelu_new*/, cudaStream_t stream)
 //   int ffn_train_bwd(int dtype, x, g, w1 (H, I), b1, w2 (I, H),
 //                     w2t (H, I), w1t (I, H) /*fp32 only, else NULL*/,
 //                     dx, dh (M, I), a (M, I), int M, int H, int I,
 //                     int act, cudaStream_t stream)
-// with M, H and I the true widths, H from 8 to 2048 and I from 8 to 8192;
-// each returns cudaGetLastError() after its launches (cudaErrorInvalidValue,
-// with no launch, for other widths; -1 when a TMA tensor map cannot be
-// encoded).
+// with M, H and I the true widths, H >= 8 and I >= 8; each returns
+// cudaGetLastError() after its launches (cudaErrorInvalidValue, with no
+// launch, for other widths or a missing scratch; -1 when a TMA tensor map
+// cannot be encoded).
 
 #include "ffn_train_sm90.cuh"
 
@@ -147,6 +150,20 @@ ffn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gy,
   epilogue_rows<G, false>(stage, xs, L, row0, M, H, nullptr, no_ln, dx);
 }
 
+// the split fp32 backward at the padded widths Hp > kRowHidden and Ip:
+// a = x W1 + b1 (h, in a's place), then dh = (g W2^T) gelu'(h) with a =
+// gelu(h) in the same epilogue, then dx = dh W1^T
+int launch_bwd_split(const void* x, const void* g, const void* w1, const float* b1,
+                     const void* w2t, const void* w1t, void* dx, void* dh, void* a, int M, int Hp,
+                     int Ip, int act, cudaStream_t stream) {
+  float* af = static_cast<float*>(a);
+  int s = launch_gemm_f32<kEpiBias>(x, w1, b1, a, nullptr, M, Ip, Hp, act, stream);
+  if (s != 0) return s;
+  s = launch_gemm_f32<kEpiGeluGrad>(g, w2t, nullptr, dh, af, M, Ip, Hp, act, stream);
+  if (s != 0) return s;
+  return launch_gemm_f32<kEpiBias>(dh, w1t, nullptr, dx, nullptr, M, Hp, Ip, act, stream);
+}
+
 // the fp32 backward at the true widths H and I (widths_ok), on arrays in
 // the padded layout
 int launch_bwd_f32(const void* x, const void* g, const void* w1, const float* b1,
@@ -155,6 +172,8 @@ int launch_bwd_f32(const void* x, const void* g, const void* w1, const float* b1
   if (M <= 0 || !widths_ok(H, I) || (act != 0 && act != 1) || !w2t || !w1t)
     return int(cudaErrorInvalidValue);
   const int Hp = padded_width(H, 0), Ip = padded_width(I, 0);
+  if (Hp > kRowHidden)
+    return launch_bwd_split(x, g, w1, b1, w2t, w1t, dx, dh, a, M, Hp, Ip, act, stream);
   return with_geometry(Hp, [&](auto geo) {
     using G = decltype(geo);
     const Layout L = make_layout<G>(Hp);
@@ -182,8 +201,8 @@ extern "C" int ffn_train_fwd(int dtype, const void* x, const void* w1, const flo
   using namespace stonkgs;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return ffn::launch_fwd<false>(x, nullptr, w1, b1, w2, b2, ffn::LnArgs{}, out, M, H, I, act,
-                                  s);
+    return ffn::launch_fwd<false>(x, nullptr, w1, b1, w2, b2, ffn::LnArgs{}, nullptr, h, out, M,
+                                  H, I, act, s);
   if (dtype == 1) {
     using bf16 = __nv_bfloat16;
     return ffn90::launch_ffn_gemms(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,

@@ -1,7 +1,7 @@
 // Inference attention: out = softmax(Q K^T * scale + key_bias) V, with q, k,
-// v and out in the (B, S, H, D) layout, D a multiple of 8 from 8 to 128
-// (run on the instance of its padded width 16, 32, 64 or 128, the columns
-// past D zero), read with strides.
+// v and out in the (B, S, H, D) layout, D a multiple of 8 from 8 to 256
+// (run on the instance of its padded width 16, 32, 64, 128 or 256, the
+// columns past D zero), read with strides.
 //
 // Replaces the TPU kernel _infer_kernel
 // (stonkgs_tpu/ops/flash_attention.py:359).  The table's bound on the H100
@@ -13,14 +13,16 @@
 // products.  Design note: stonkgs_tpu_torch/ops/flash_attention.py.
 //
 // bf16: attn_fwd_sm90_kernel<false> of attention_sm90.cuh, for Hopper: a
-// block per 128 query rows of one (b, h); a producer warpgroup streams
-// 128-key tiles (and their key bias) through a 3-stage TMA ring; two
-// consumer warpgroups run S = Q K^T and O += P V as wgmma, P from
+// block per 128 query rows of one (b, h) (64 at D > 128); a producer
+// warpgroup streams 128-key tiles (64 at D > 128) and their key bias
+// through a 3-stage TMA ring; two consumer warpgroups (one at D > 128)
+// run S = Q K^T and O += P V as wgmma, P from
 // registers, the softmax in registers.  Numerics: exp2 on the SFU and a
 // per-row reciprocal instead of an IEEE exp and a division per score
 // (a bf16 probability moves by at most one step at a rounding boundary).
 // fp32: attn_fwd_kernel<false> of attention.cuh, the SIMT body (64-row
-// tiles, K streamed twice), which holds the model against the CPU.
+// tiles, K streamed twice; a warp a row above D = 128), which holds the
+// model against the CPU.
 // Keys >= S take no part; rows >= S are not written.
 //
 // C interface:
@@ -29,7 +31,7 @@
 //                             int B, int S, int H, int D, float scale,
 //                             cudaStream_t stream)
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue, with
-// nothing launched, for a D that is not a multiple of 8 from 8 to 128).
+// nothing launched, for a D that is not a multiple of 8 from 8 to 256).
 
 #include "attention_sm90.cuh"
 

@@ -1,9 +1,9 @@
 // Training attention, forward and backward, with the TPU kernels' in-kernel
 // hash dropout; q, k, v, out, dO, dq, dk, dv in the (B, S, H, D) layout
-// (D a multiple of 8 from 8 to 128: each kernel is instantiated at the
-// padded widths 16, 32, 64 and 128, and D runs on the smallest at least D,
-// the columns past D zero), read with strides; lse and delta (B, H, S)
-// fp32.
+// (D a multiple of 8 from 8 to 256: each kernel is instantiated at the
+// padded widths 16, 32, 64, 128 and 256, and D runs on the smallest at
+// least D, the columns past D zero), read with strides; lse and delta
+// (B, H, S) fp32.
 //
 // Replaces the TPU kernels _train_fwd_kernel and _train_bwd_kernel
 // (stonkgs_tpu/ops/flash_attention.py:92 and :118, with _dropout_keep at
@@ -37,8 +37,10 @@
 // In bf16, (2) and (3) are the Hopper kernels of attention_bwd_sm90.cuh
 // (128-row tiles streamed by TMA, wgmma products, S, dP~, dS and P in
 // registers); in fp32 they are the SIMT bodies below (64-row tiles, plain
-// FMAs through attention.cuh's score_tile and PvAcc), which exist to hold
-// the model against the CPU.  Parallel over key tiles in (3), the
+// FMAs through attention.cuh's score_tile and PvAcc; above P = 128, where
+// those tiles do not fit a block, a warp a row: attn_bwd_dq_rows_kernel
+// and attn_bwd_dkdv_rows_kernel), which exist to hold the model against
+// the CPU.  Parallel over key tiles in (3), the
 // backward needs no cross-block reduction for dK and dV; dQ takes the
 // second pass (2) instead of atomics, at the cost of computing S and dP~
 // twice.
@@ -56,7 +58,7 @@
 //       unsigned seed0, unsigned seed1, float keep_scale,
 //       cudaStream_t stream)
 // each returns cudaGetLastError() after its launches (cudaErrorInvalidValue,
-// with nothing launched, for a D that is not a multiple of 8 from 8 to 128).
+// with nothing launched, for a D that is not a multiple of 8 from 8 to 256).
 
 #include "attention_bwd_sm90.cuh"
 
@@ -268,6 +270,103 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (db && live && half == 0) atomicAdd(db + size_t(b) * S + key, db_acc);
 }
 
+// The fp32 dQ above P = 128, as attn_bwd_dq_kernel computes it: a warp a
+// (b, h, query row), its q and dO columns in registers (kP/32 a lane), the
+// keys walked from L2: s = q.k and dP~ = dO.v as warp-wide sums, p =
+// exp(s*scale + bias - lse), dS = p (dP~ * mr - delta), dQ += dS k
+template <int kP>
+__global__ void __launch_bounds__(32 * kRowWarps)
+attn_bwd_dq_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ key_bias,
+                        const float* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq, int B, int S,
+                        int H, int D, float scale, Dropout drop) {
+  constexpr int kC = kP / 32;
+  const size_t gw = size_t(blockIdx.x) * kRowWarps + threadIdx.x / 32;  // (b*H + h)*S + s
+  const int lane = threadIdx.x % 32;
+  if (gw >= size_t(B) * H * S) return;
+  const int s = int(gw % S), bh = int(gw / S), h = bh % H, b = bh / H;
+  const size_t rs = size_t(H) * D, head0 = (size_t(b) * S * H + h) * D;
+  const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
+  float qv[kC], dov[kC], acc[kC];
+  load_row<kC>(qv, q + head0 + size_t(s) * rs, D, lane);
+  load_row<kC>(dov, dout + head0 + size_t(s) * rs, D, lane);
+#pragma unroll
+  for (int c = 0; c < kC; ++c) acc[c] = 0.f;
+  const float lse_r = lse[gw], delta_r = delta[gw];
+  const uint32_t base = drop.row_base(bh, s);
+  for (int j = 0; j < S; ++j) {
+    const float* kr = k + head0 + size_t(j) * rs;
+    const float p = expf(row_dot<kC>(qv, kr, D, lane) * scale + (kb ? kb[j] : 0.f) - lse_r);
+    float dp = row_dot<kC>(dov, v + head0 + size_t(j) * rs, D, lane);
+    if (drop.enabled) dp = drop.keep(base + uint32_t(j)) ? dp * drop.keep_scale : 0.f;
+    const float ds = p * (dp - delta_r);
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      if (lane + 32 * c < D) acc[c] += ds * kr[lane + 32 * c];
+  }
+  float* out = dq + head0 + size_t(s) * rs;
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+    if (lane + 32 * c < D) out[lane + 32 * c] = acc[c] * scale;
+}
+
+// The fp32 dK, dV and db above P = 128, as attn_bwd_dkdv_kernel computes
+// them: a warp a (b, h, key), its k and v columns in registers, the query
+// rows walked from L2: s = k.q and dP~ = v.dO, p = exp(s*scale + bias -
+// lse[row]), dV += (p * mr) dO, dS = p (dP~ * mr - delta[row]), dK += dS q,
+// and the key's db the sum of its dS over rows (one atomicAdd a head)
+template <int kP>
+__global__ void __launch_bounds__(32 * kRowWarps)
+attn_bwd_dkdv_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ key_bias,
+                          const float* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ delta, float* __restrict__ dk,
+                          float* __restrict__ dv, float* __restrict__ db, int B, int S, int H,
+                          int D, float scale, Dropout drop) {
+  constexpr int kC = kP / 32;
+  const size_t gw = size_t(blockIdx.x) * kRowWarps + threadIdx.x / 32;  // (b*H + h)*S + key
+  const int lane = threadIdx.x % 32;
+  if (gw >= size_t(B) * H * S) return;
+  const int key = int(gw % S), bh = int(gw / S), h = bh % H, b = bh / H;
+  const size_t rs = size_t(H) * D, head0 = (size_t(b) * S * H + h) * D;
+  const size_t stat0 = size_t(bh) * S;
+  const float bias_r = key_bias ? key_bias[size_t(b) * S + key] : 0.f;
+  float kv[kC], vv[kC], dk_acc[kC], dv_acc[kC];
+  load_row<kC>(kv, k + head0 + size_t(key) * rs, D, lane);
+  load_row<kC>(vv, v + head0 + size_t(key) * rs, D, lane);
+#pragma unroll
+  for (int c = 0; c < kC; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+  float db_acc = 0.f;
+  for (int i = 0; i < S; ++i) {
+    const float* qr = q + head0 + size_t(i) * rs;
+    const float* dor = dout + head0 + size_t(i) * rs;
+    const float p = expf(row_dot<kC>(kv, qr, D, lane) * scale + bias_r - lse[stat0 + i]);
+    float dp = row_dot<kC>(vv, dor, D, lane), pd = p;
+    if (drop.enabled) {
+      const bool kept = drop.keep(drop.row_base(bh, i) + uint32_t(key));
+      pd = kept ? p * drop.keep_scale : 0.f;
+      dp = kept ? dp * drop.keep_scale : 0.f;
+    }
+    const float ds = p * (dp - delta[stat0 + i]);
+    db_acc += ds;
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      if (lane + 32 * c < D) {
+        dv_acc[c] += pd * dor[lane + 32 * c];
+        dk_acc[c] += ds * qr[lane + 32 * c];
+      }
+  }
+  const size_t at = head0 + size_t(key) * rs;
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+    if (lane + 32 * c < D) {
+      dv[at + lane + 32 * c] = dv_acc[c];
+      dk[at + lane + 32 * c] = dk_acc[c] * scale;
+    }
+  if (db && lane == 0) atomicAdd(db + size_t(b) * S + key, db_acc);
+}
+
 // delta = rowsum(dO * O), then dQ and dK/dV/db: the Hopper kernels in
 // bf16, the SIMT bodies in fp32, at D's padded width
 template <typename T>
@@ -286,6 +385,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* key_bia
     if constexpr (kIsBf16<T>) {
       return attn90::launch_bwd_sm90<kP>(q, k, v, key_bias, lse, dout, delta, dq, dk, dv, db,
                                          B, S, H, D, scale, drop, stream);
+    } else if constexpr (kP > kTiledMaxHeadDim) {
+      const unsigned blocks = unsigned((rows + kRowWarps - 1) / kRowWarps);
+      attn_bwd_dq_rows_kernel<kP><<<blocks, 32 * kRowWarps, 0, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), key_bias, static_cast<const float*>(dout), lse, delta,
+          static_cast<float*>(dq), B, S, H, D, scale, drop);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return int(e);
+      attn_bwd_dkdv_rows_kernel<kP><<<blocks, 32 * kRowWarps, 0, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), key_bias, static_cast<const float*>(dout), lse, delta,
+          static_cast<float*>(dk), static_cast<float*>(dv), db, B, S, H, D, scale, drop);
+      return int(cudaGetLastError());
     } else {
       const float* qt = static_cast<const float*>(q);
       const float* kt = static_cast<const float*>(k);

@@ -21,8 +21,9 @@
 //   k-step of every tile of the block, one 128-byte swizzled line of K a
 //   stage (128 int8 or 64 bf16 values), through a kStages-deep ring with
 //   TMA and full/empty mbarriers: A's BM lines and B's BN lines a stage.
-//   TMA zero-fills rows >= M, lines >= N and a ragged K (K % 32 == 16 in
-//   int8: the last k32 step's upper half).  The ring runs on across tiles,
+//   TMA zero-fills rows >= M, lines >= N and a ragged K (any K: the maps
+//   take the true K, with rows lda and ldb elements apart, so the last
+//   k-step's columns past K read as zero codes and add nothing).  The ring runs on across tiles,
 //   so the next tile's first stages load during this tile's epilogue;
 // * warpgroups 0 and 1, the consumers (setmaxnreg.inc), own BM / 2 rows
 //   each (one or two m64 tiles): four k32 (k16) products a stage, the
@@ -283,20 +284,28 @@ gemm_kmajor_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
 }
 
 // C (M, N), rows `ldc` elements apart, = A (M, K) . B^T, A and B (N, K)
-// row-major; sx null: no dequantization (TOut the accumulator's type); one
-// block an SM, or one a tile where there are fewer tiles
+// row-major with rows `lda` and `ldb` elements apart (0: K; each a
+// multiple of 16 bytes, K itself any width: the maps take the true K and
+// TMA zero-fills a box's columns past it, so a ragged last k-step adds
+// nothing and the padding is never read); sx null: no dequantization
+// (TOut the accumulator's type); one block an SM, or one a tile where
+// there are fewer tiles
 template <typename TIn, typename TOut, int BM, int BN, int kStages, bool kDequant>
 int launch_gemm(const void* a, const void* b, void* c, long long ldc, const float* sx,
-                const float* sw, const float* bias, int M, int N, int K, cudaStream_t stream) {
+                const float* sw, const float* bias, int M, int N, int K, cudaStream_t stream,
+                long long lda = 0, long long ldb = 0) {
   using Smem = SmemGemm<BM, BN, kStages, kDequant ? BN : 1>;
   constexpr int kLineK = kLineBytes / int(sizeof(TIn));
-  if (M <= 0 || N <= 0 || K <= 0 || (K * sizeof(TIn)) % 16 || ldc < N ||
-      (ldc * sizeof(TOut)) % 16 ||
+  if (lda == 0) lda = K;
+  if (ldb == 0) ldb = K;
+  if (M <= 0 || N <= 0 || K <= 0 || lda < K || ldb < K || (lda * sizeof(TIn)) % 16 ||
+      (ldb * sizeof(TIn)) % 16 || ldc < N || (ldc * sizeof(TOut)) % 16 ||
       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
        reinterpret_cast<uintptr_t>(c)) % 16 || (kDequant && (!sx || !sw)))
     return int(cudaErrorInvalidValue);
   CUtensorMap ma, mb, mc;
-  if (!make_map_2d<TIn>(&ma, a, M, K, kLineK, BM) || !make_map_2d<TIn>(&mb, b, N, K, kLineK, BN) ||
+  if (!make_map_2d<TIn>(&ma, a, M, K, kLineK, BM, lda) ||
+      !make_map_2d<TIn>(&mb, b, N, K, kLineK, BN, ldb) ||
       !make_map_2d<TOut>(&mc, c, M, N, kLineBytes / int(sizeof(TOut)), 64, ldc))
     return kErrTensorMap;
   constexpr size_t smem = sizeof(Smem) + 1024;  // + alignment slack
@@ -422,7 +431,9 @@ void quantize_launch(const T* x, long long ldx, int8_t* q, float* sx, int M, int
 }
 
 // codes q (M, K) and scales sx (M,) of x (M, K), rows `ldx` elements apart
-// (16-byte aligned); K a multiple of 16.  A row is split over as few warps
+// (16-byte aligned); K a multiple of 16 (the wrapper zero-pads a row of
+// any other K to one: a zero adds nothing to the absmax and its code is
+// 0, which adds nothing to the product).  A row is split over as few warps
 // as keep each lane at 4 vectors or fewer (K <= 8,192 in bf16, 4,096 in
 // fp32), so that a block stays small in registers and many are in flight
 template <typename T>

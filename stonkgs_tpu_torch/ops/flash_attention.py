@@ -57,14 +57,16 @@ version's uniform probabilities.
 fp32 runs the SIMT body ``attn_fwd_kernel`` of ``csrc/attention.cuh``
 (64-row tiles, plain FMAs, an IEEE exp and division per score); it
 exists to hold the whole model against the CPU.  Both take any S >= 1
-and any head width D from 8 to 128 (:func:`attention_kernel_takes`):
+and any head width D from 8 to 256 (:func:`attention_kernel_takes`):
 64 in BERT-base, BioBERT, ProtBERT and the BigBird trunk, 32 in
 MiniLM-L12-H384 and in the 64-wide configs the CLI derives, 16 in the
 32-wide ones, 48, 80, 72 and 68 in the configs it derives from 96-,
 160-, 288- and 544-wide KG vectors (2, 2, 4 and 8 heads), 128 in
-BERT-base's widths split into 6 heads.  Each kernel is instantiated at
-the padded widths P = 16, 32, 64 and 128 and runs D on the smallest P
->= D: the tensor maps' dim 0 is D and their boxes P wide, so TMA
+BERT-base's widths split into 6 heads, 256 in 3 heads.  The JAX package
+runs every D (its Pallas kernels where they fit, XLA beyond); above 256
+the port raises.  Each kernel is instantiated at the padded widths P =
+16, 32, 64, 128 and 256 and runs D on the smallest P >= D: the tensor
+maps' dim 0 is D and their boxes P wide, so TMA
 zero-fills the columns from D to P, which add nothing to QKᵀ, and the
 columns of O past D are computed on zeros and not stored (the fp32
 body zeroes and skips them in its loads and stores).  A row of P bf16
@@ -74,7 +76,12 @@ blocks of 64 (a row of 256 bytes is wider than the widest swizzle,
 the swizzle of a line: QKᵀ runs P/16 k-steps, the steps past 64
 columns in the second block, PV is ``wgmma.m64nPk16`` (two
 ``m64n64k16``, one a block, at P = 128), and the ring keeps its 3
-stages (at P = 128 they fill the 227 KB a block may take).  TMA needs
+stages (at P = 128 they fill the 227 KB a block may take).  At P = 256
+a consumer's O accumulator alone is 128 registers a thread and a stage of
+128 keys of K and V 128 KB, so that instance runs a block of 64 query
+rows with one consumer warpgroup (256 threads, 255 registers a thread)
+over 64-key tiles (three stages beside Q in 225 KB), and the backward
+below takes 64-row tiles too.  TMA needs
 every stride of a tensor map to be a multiple of 16 bytes, so a D that
 is not a multiple of 8 (68 in bf16 is a 136-byte row) is copied into
 zero-padded tensors of the next multiple of 8 and the outputs sliced
@@ -126,7 +133,13 @@ dK/dV).  At P = 128 the ring is 2 stages deep, and a dK/dV block has one
 consumer warpgroup of 64 keys in 256 threads, which takes its query
 tiles in sub-steps of 32: with 128 accumulator floats a thread it
 spilled under the 168 registers ptxas gives a thread of a 384-thread
-block.  S and dP̃
+block.  At P = 256 both kernels take 64-row tiles with one consumer
+warpgroup in a 2-stage ring, dQ in sub-steps of 32 keys, and a dK/dV
+block forms half of its keys' dK and dV columns (dK and dV of 64 keys at
+256 columns would be 256 floats a thread): the two halves' blocks each
+form the scores over all 256 columns.  The fp32 bodies above P = 128 are
+not tiled (four 64 x 256 fp32 tiles are 266 KB): a warp owns a row, its
+columns in registers, and walks the other side's rows from L2.  S and dP̃
 are thus computed twice, for no cross-block reduction of dQ: the design's
 floor is 7 products of 2·B·H·S²·D and two exps a score, plus the hash of
 each score twice with dropout.  In bf16 the dQ and dK/dV kernels are
@@ -167,9 +180,9 @@ from stonkgs_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head widths of the card's attention kernels (both dtypes): D from 8
-# to 128; the C entry points take multiples of 8, so the wrappers pad
+# to 256; the C entry points take multiples of 8, so the wrappers pad
 # others with zero columns
-ATTENTION_MIN_HEAD_DIM, ATTENTION_MAX_HEAD_DIM = 8, 128
+ATTENTION_MIN_HEAD_DIM, ATTENTION_MAX_HEAD_DIM = 8, 256
 NEG_BIAS = -1e9  # score of a padded key, as the JAX package's NEG_BIAS
 _P, _I, _U, _F = _build.P, _build.I32, _build.U32, _build.F32
 # the dropout arguments of both training entry points:
@@ -235,7 +248,7 @@ def _unpad(D: int, *tensors):
 def _check_cuda_inputs(what: str, q: torch.Tensor, others, extra=()) -> None:
     """Raise unless q and ``others`` (same shape and dtype as q) and
     ``extra`` are contiguous tensors on q's CUDA device that the kernels
-    take: (B, S, H, D) in fp32 or bf16, S >= 1, D from 8 to 128."""
+    take: (B, S, H, D) in fp32 or bf16, S >= 1, D from 8 to 256."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:

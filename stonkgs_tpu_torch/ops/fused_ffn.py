@@ -49,10 +49,12 @@ intermediate axis in chunks of 128 and the widths as run-time
 arguments): it exists to hold the whole model against the CPU.
 
 Widths (:func:`ffn_kernel_takes`): every FFN kernel, in both dtypes,
-takes any hidden width H from 8 to 2048 and any intermediate width I from
-8 to 8192: 768 in BERT-base, BioBERT and the BigBird trunk, 1024 in
-ProtBERT, 384 in MiniLM-L12-H384, and the KG vectors' width in the
-command line's configs (48, 100, 1280, ... at I = 4H).  The C entry points
+takes any hidden width H >= 8 and any intermediate width I >= 8, as the
+JAX package runs every width (it falls back to XLA where its Pallas
+kernels do not fit; the port has no fallback): 768 in BERT-base, BioBERT
+and the BigBird trunk, 1024 in ProtBERT, 384 in MiniLM-L12-H384, and the
+KG vectors' width in the command line's configs (48, 100, 1280, 2560, ...
+at I = 4H; 2,560 with I = 10,240 is Megatron-BERT 3.9B's).  The C entry points
 take the true widths and arrays in a padded layout, each row of H (or I)
 values ``padded_width`` elements long: a multiple of 8 in bf16 (TMA's
 16-byte strides; the tensor maps take the true width, so TMA zero-fills
@@ -60,9 +62,16 @@ past it and nothing reads the padding), of 32 in fp32 (the SIMT bodies
 run at the padded widths on zero padding).  The wrappers pad a width that
 is not such a multiple with zeros and slice the outputs back; at H = 768,
 1024, 384 and every multiple of 8 in bf16 nothing is copied.  The
-LayerNorm passes take their statistics over the true H.  The fp32 bodies
-have two instances, the original one up to a padded H of 1024 and one
-with 8-row blocks above it (``csrc/ffn.cuh``).  At ProtBERT's serving
+LayerNorm passes take their statistics over the true H; a bf16 pass holds
+a row in registers up to H = 2048 and walks it in 16-byte chunks above
+(sum, centred sum of squares over a second read from L2, normalise), as a
+lane would otherwise hold 80 values at H = 2,560 and spill.  The fused
+fp32 bodies have two instances, the original one up to a padded H of 1024
+and one with 8-row blocks up to 2048 (``csrc/ffn.cuh``); above 2048 their
+(rows, H) accumulator and row operands leave no room, so fp32 is split at
+h as bf16 is (a chunked LayerNorm pass, a tiled SIMT GEMM with the bias
+and gelu in its epilogue into an fp32 scratch h, a second GEMM, the
+LayerNorm in place; the backward three such GEMMs).  At ProtBERT's serving
 shape (M = 8·3072 = 24,576 rows) the products are 4·M·1024·4096 = 412
 GFLOP, bound by operations (0.42 ms at 989 TFLOP/s).
 
@@ -134,11 +143,11 @@ from stonkgs_tpu_torch.ops.flash_attention import _unpad
 
 _ACTS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the FFN kernels' widths: H from FFN_MIN_WIDTH to FFN_MAX_HIDDEN, I from
-# FFN_MIN_WIDTH to FFN_MAX_INTERMEDIATE
+# the FFN kernels' widths: any H and I from FFN_MIN_WIDTH up
 FFN_MIN_WIDTH = 8
-FFN_MAX_HIDDEN = 2048
-FFN_MAX_INTERMEDIATE = 8192
+# the widest padded H of the fused fp32 bodies (csrc/ffn.cuh, kRowHidden):
+# above it the fp32 path is split at h and takes scratch as bf16 does
+FFN_FUSED_MAX_HIDDEN = 2048
 # the padded layout's row multiple in each dtype (csrc/ffn.cuh, padded_width)
 _ROW_MULTIPLE = {torch.float32: 32, torch.bfloat16: 8}
 _P, _I, _F = _build.P, _build.I32, _build.F32
@@ -191,18 +200,16 @@ def _check_act(act: str) -> None:
 def ffn_kernel_takes(H: int, I: int) -> bool:
     """Whether the card's FFN kernels (the serving block, the training
     forward and backward, in fp32 and bf16) take hidden width ``H`` and
-    intermediate width ``I``: H from 8 to 2048, I from 8 to 8192."""
-    return (FFN_MIN_WIDTH <= H <= FFN_MAX_HIDDEN
-            and FFN_MIN_WIDTH <= I <= FFN_MAX_INTERMEDIATE)
+    intermediate width ``I``: any H and I from 8 up."""
+    return H >= FFN_MIN_WIDTH and I >= FFN_MIN_WIDTH
 
 
 def check_ffn_widths(what: str, H: int, I: int) -> None:
     """Raise unless the FFN kernels take widths ``H`` and ``I``
     (:func:`ffn_kernel_takes`)."""
     if not ffn_kernel_takes(H, I):
-        raise ValueError(
-            f"{what} kernel takes H from {FFN_MIN_WIDTH} to {FFN_MAX_HIDDEN} and I from "
-            f"{FFN_MIN_WIDTH} to {FFN_MAX_INTERMEDIATE}, got H={H}, I={I}")
+        raise ValueError(f"{what} kernel takes H and I from {FFN_MIN_WIDTH} up, "
+                         f"got H={H}, I={I}")
 
 
 def padded_width(n: int, dtype) -> int:
@@ -210,6 +217,16 @@ def padded_width(n: int, dtype) -> int:
     ``n`` rounded up to a multiple of 32 in fp32, of 8 in bf16."""
     m = _ROW_MULTIPLE[dtype]
     return -(-n // m) * m
+
+
+def _scratch(M: int, Hp: int, Ip: int, dt, device, with_x2: bool):
+    """The kernels' scratch, x2 (M, Hp) (``with_x2``) and h (M, Ip) in
+    ``dt``, where the path takes it (bf16, and fp32 above a padded H of
+    :data:`FFN_FUSED_MAX_HIDDEN`), else None."""
+    if dt == torch.float32 and Hp <= FFN_FUSED_MAX_HIDDEN:
+        return None, None
+    h = torch.empty((M, Ip), dtype=dt, device=device)
+    return (torch.empty((M, Hp), dtype=dt, device=device) if with_x2 else None), h
 
 
 def _pad_to(t: torch.Tensor, *widths):
@@ -298,10 +315,8 @@ def fused_ffn_ln_block(
     g1, be1, b1f, b2f, g2, be2 = (_pad_to(t, n) for t, n in
                                   zip(vecs, (Hp, Hp, Ip, Hp, Hp, Hp)))
     out = torch.empty((M, Hp), dtype=dt, device=x.device)
-    # bf16 scratch of the Hopper design: x2 = LN1(x + attn) and h (M, I)
-    x2, h = ((torch.empty((M, Hp), dtype=dt, device=x.device),
-              torch.empty((M, Ip), dtype=dt, device=x.device))
-             if dt == torch.bfloat16 else (None, None))
+    # scratch of the split path: x2 = LN1(x + attn) and h (M, I)
+    x2, h = _scratch(M, Hp, Ip, dt, x.device, True)
     _build.check_aligned("fused_ffn_ln_block", xp, ap, w1, w2, x2, h, out)
     if M == 0:
         return _unpad(H, out)[0].reshape(x.shape)
@@ -368,9 +383,8 @@ def fused_ffn_fwd(x, w1, b1, w2, b2, *, act="gelu"):
     w1, w2 = _pad_to(w1, Hp, Ip), _pad_to(w2, Ip, Hp)
     b1f, b2f = _pad_to(b1f, Ip), _pad_to(b2f, Hp)
     out = torch.empty((M, Hp), dtype=dt, device=x.device)
-    # bf16 scratch of the Hopper design: h (M, I)
-    h = (torch.empty((M, Ip), dtype=dt, device=x.device)
-         if dt == torch.bfloat16 else None)
+    # scratch of the split path: h (M, I)
+    h = _scratch(M, Hp, Ip, dt, x.device, False)[1]
     _build.check_aligned("fused_ffn_fwd", xp, w1, w2, h, out)
     if M == 0:
         return _unpad(H, out)[0].reshape(x.shape)

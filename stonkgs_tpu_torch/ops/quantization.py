@@ -22,7 +22,20 @@ launched at ``:77``).  The TPU wrapper's gate (``supported``: K and N
 multiples of 128, W under 8 MB of VMEM) and its padding of M to 256 rows
 are Mosaic needs and are not copied: the kernel takes every leaf that
 :func:`quantize_params` makes, the decoders (N = 28,996 and 100,000)
-included, for any M, any N >= 1 and K a multiple of 16.
+included, for any M, any N >= 1 and any K >= 1, as the JAX package's
+``dense_int8`` does on every device.
+
+Any K.  The kernel steps K by :data:`K_MULTIPLE` = 16.  A K that is no
+multiple of it (the 100-wide KG vectors' Q/K/V/O and W1 at K = 100) runs
+on zero padding to Kp, the next multiple: a zero leaves a row's absmax
+(over the true K) as it is and quantizes to code 0, and a zero code adds
+nothing to the int32 sum.  W is padded once, where :func:`quantized_to`
+lays it out column-major on the card (rows of Kp codes; the GEMM's tensor
+maps take the true K, so TMA zero-fills the last k-step past it and the
+padding is never read).  x is padded in the wrapper, a copy of the
+(M, Kp) rows for each call at a ragged K only (the pass reads 16-byte
+vectors, and a row of 100 bf16 is 200 bytes); at every K that is a
+multiple of 16 nothing is copied.
 
 What bounds it on the H100 (each input byte once, each output byte once;
 x and y bf16, W int8; 3.35 TB/s and 1,979 int8 TOP/s): at M = 65,536 the
@@ -51,8 +64,9 @@ of the N / 256 column tiles):
    each product rounded (``__fmul_rn``, ``__fadd_rn``: no fused
    multiply-add), is rounded once to x's dtype, staged in shared memory
    and stored with TMA while the next tile's first stages load.  TMA
-   zero-fills rows past M and N and a ragged K (K % 32 == 16) and clips
-   the store, so no store is guarded.
+   zero-fills rows past M and N and the last k-step's columns past K
+   (the maps take the true K) and clips the store, so no store is
+   guarded.
 
 ``wgmma`` takes 8-bit operands only K-major, both A and B.  W is kept
 (K, N) in the tree, but on the card :func:`quantized_to` stores it as a
@@ -76,21 +90,23 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 from stonkgs_tpu_torch.ops import _build
+from stonkgs_tpu_torch.ops.fused_ffn import _pad_to
 
 # dense kernels are quantized when both dims are at least this (skips tiny
 # projections where quantization costs more than it saves)
 MIN_QUANT_DIM = 64
 SKIP_KEYS = ("pooler",)   # the tanh pooler is scale-sensitive
-K_MULTIPLE = 16           # the kernel's K step of its tensor-core products
+K_MULTIPLE = 16           # the kernel's K step: other K run on zero padding to a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = _build.P, _build.I32, _build.I64
 _SIGNATURES = {
-    # int dense_int8(dtype, x, ldx, q, s_x, w, w_scale, bias, out, ldo, M, K, N, stream)
-    "dense_int8": [_I, _P, _L, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
-    # int dense_int8_quantize(dtype, x, ldx, q, s_x, M, K, stream)
+    # int dense_int8(dtype, x, ldx, q, s_x, w, ldw, w_scale, bias, out, ldo, M, K, N,
+    #                stream)
+    "dense_int8": [_I, _P, _L, _P, _P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _P],
+    # int dense_int8_quantize(dtype, x, ldx, q, s_x, M, Kp, stream)
     "dense_int8_quantize": [_I, _P, _L, _P, _P, _I, _I, _P],
-    # int dense_int8_gemm(dtype, q, s_x, w, w_scale, bias, out, ldo, M, K, N, stream)
-    "dense_int8_gemm": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # int dense_int8_gemm(dtype, q, s_x, w, ldw, w_scale, bias, out, ldo, M, K, N, stream)
+    "dense_int8_gemm": [_I, _P, _P, _P, _L, _P, _P, _P, _L, _I, _I, _I, _P],
 }
 
 
@@ -154,18 +170,40 @@ def is_quantized(tree) -> bool:
     return isinstance(tree, Mapping) and "kernel_q" in tree
 
 
+def padded_k(K: int) -> int:
+    """K rounded up to a multiple of :data:`K_MULTIPLE`: the row length of
+    the codes and of W's K-major layout on the card."""
+    return -(-K // K_MULTIPLE) * K_MULTIPLE
+
+
+def is_k_major(kernel_q: torch.Tensor) -> bool:
+    """Whether ``kernel_q`` (K, N) is a view the GEMM reads as it lies: its
+    transpose (N, K) has a unit column stride, rows of Kp codes and a
+    16-byte aligned start (:func:`k_major`'s layout)."""
+    K = kernel_q.shape[0]
+    return (kernel_q.stride(0) == 1 and kernel_q.stride(1) == padded_k(K)
+            and kernel_q.data_ptr() % 16 == 0)
+
+
 def k_major(kernel_q: torch.Tensor) -> torch.Tensor:
     """``kernel_q`` (K, N) as a column-major view: the same shape and
-    values, its transpose the (N, K) row-major operand of the card's GEMM
-    (no copy where it already is one)."""
-    return kernel_q.t().contiguous().t()
+    values, its transpose the (N, K) rows of the card's GEMM, each row Kp
+    = :func:`padded_k` codes apart, the codes past K zero (no copy where it
+    already is one)."""
+    if is_k_major(kernel_q):
+        return kernel_q
+    K, N = kernel_q.shape
+    wt = kernel_q.new_zeros((N, padded_k(K)))
+    wt[:, :K] = kernel_q.t()
+    return wt[:, :K].t()
 
 
 def quantized_to(p: Mapping, device=None) -> dict:
     """A quantized dense moved to ``device``, every leaf in its own dtype:
     :func:`dense_int8` reads the scale and the bias in fp32 whatever the
-    compute dtype.  On the card ``kernel_q`` is stored column-major
-    (:func:`k_major`), the layout the kernel reads without a copy."""
+    compute dtype.  On the card ``kernel_q`` is stored column-major with
+    rows of Kp codes (:func:`k_major`), the layout the kernel reads
+    without a copy."""
     out = {k: v.to(device) for k, v in p.items()}
     if out["kernel_q"].device.type == "cuda":
         out["kernel_q"] = k_major(out["kernel_q"])
@@ -208,9 +246,8 @@ def _check_args(x, kernel_q, w_scale, bias) -> Tuple[int, int]:
     K, N = kernel_q.shape
     if x.shape[-1] != K:
         raise ValueError(f"x (..., {x.shape[-1]}) does not match kernel_q ({K}, {N})")
-    if K % K_MULTIPLE or N < 1:
-        raise ValueError(f"dense_int8 takes K a multiple of {K_MULTIPLE} and N >= 1, "
-                         f"got K={K}, N={N}")
+    if K < 1 or N < 1:
+        raise ValueError(f"dense_int8 takes K >= 1 and N >= 1, got K={K}, N={N}")
     for name, t in (("scale", w_scale), ("bias", bias)):
         if t is not None and tuple(t.shape) != (N,):
             raise ValueError(f"{name} must be ({N},), got {tuple(t.shape)}")
@@ -218,9 +255,12 @@ def _check_args(x, kernel_q, w_scale, bias) -> Tuple[int, int]:
 
 
 def _rows(x: torch.Tensor, K: int) -> torch.Tensor:
-    """x as (M, K) rows with a unit column stride and 16-byte aligned rows
-    (a view where it already is one, else a copy)."""
+    """x as (M, Kp) rows with a unit column stride and 16-byte aligned
+    rows, the columns past K zero: a view where K is a multiple of 16 and
+    x already is one, else a copy (zero-padded at a ragged K)."""
     x2 = x.reshape(-1, K)
+    if K % K_MULTIPLE:
+        return _pad_to(x2, padded_k(K))
     if (x2.stride(1) != 1 or x2.stride(0) < K or (x2.stride(0) * x2.element_size()) % 16
             or x2.data_ptr() % 16):
         x2 = x2.contiguous()
@@ -228,12 +268,10 @@ def _rows(x: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def _gemm_operands(kernel_q, w_scale, bias):
-    """W^T (N, K) row-major (a view of a column-major ``kernel_q``, as
-    :func:`quantized_to` stores it on the card, else a copy for the call),
-    and s_w and the bias in fp32."""
-    wt = kernel_q.t()
-    if not (wt.is_contiguous() and wt.data_ptr() % 16 == 0):
-        wt = wt.clone(memory_format=torch.contiguous_format)
+    """W^T (N, K) with rows of Kp codes (a view of ``kernel_q`` in
+    :func:`k_major`'s layout, as :func:`quantized_to` stores it on the
+    card, else such a copy for the call), and s_w and the bias in fp32."""
+    wt = k_major(kernel_q).t()
     b = None if bias is None else bias.to(torch.float32).contiguous()
     return wt, w_scale.to(torch.float32).contiguous(), b
 
@@ -250,8 +288,8 @@ def _cuda_args(x, *tensors):
 
 
 def _scratch(M: int, K: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The pass's outputs: codes (M, K) int8 and scales (M,) fp32."""
-    return (torch.empty((M, K), dtype=torch.int8, device=device),
+    """The pass's outputs: codes (M, Kp) int8 and scales (M,) fp32."""
+    return (torch.empty((M, padded_k(K)), dtype=torch.int8, device=device),
             torch.empty((M,), dtype=torch.float32, device=device))
 
 
@@ -268,25 +306,35 @@ def _unpad(out: torch.Tensor, N: int) -> torch.Tensor:
 
 def dense_int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's first launch alone: codes (M, K) int8 and scales (M,)
-    fp32 of x (..., K) flattened to rows.  A CPU tensor takes
-    :func:`quantize_rows`.  Not counted: the checks and timings of the
-    pass use it, the engines call :func:`dense_int8_fused`."""
+    fp32 of x (..., K) flattened to rows (on the card a view of the
+    pass's (M, Kp) codes).  A CPU tensor takes :func:`quantize_rows`.  Not
+    counted: the checks and timings of the pass use it, the engines call
+    :func:`dense_int8_fused`."""
     K = x.shape[-1]
     if x.device.type == "cpu":
         q, s = quantize_rows(x.reshape(-1, K))
         return q, s.reshape(-1)
     _cuda_args(x)
-    if K % K_MULTIPLE:
-        raise ValueError(f"dense_int8 takes K a multiple of {K_MULTIPLE}, got K={K}")
+    if K < 1:
+        raise ValueError(f"dense_int8 takes K >= 1, got K={K}")
     x2 = _rows(x, K)
     M = x2.shape[0]
     q, s = _scratch(M, K, x.device)
     if M:
         lib = _build.load("dense_int8", _SIGNATURES)
         _build.check(lib.dense_int8_quantize(
-            _DTYPES[x.dtype], _build.ptr(x2), x2.stride(0), _build.ptr(q), _build.ptr(s), M, K,
-            _build.stream(x.device)), "dense_int8_quantize")
-    return q, s
+            _DTYPES[x.dtype], _build.ptr(x2), x2.stride(0), _build.ptr(q), _build.ptr(s), M,
+            padded_k(K), _build.stream(x.device)), "dense_int8_quantize")
+    return q[:, :K], s
+
+
+def _padded_codes(q: torch.Tensor, K: int) -> torch.Tensor:
+    """Codes q (M, K) as rows Kp apart with a unit column stride (a view of
+    :func:`dense_int8_quantize`'s codes as they lie, else a zero-padded
+    copy)."""
+    if (q.stride(-1) == 1 and q.stride(0) == padded_k(K) and q.data_ptr() % 16 == 0):
+        return q
+    return _pad_to(q.contiguous(), padded_k(K))
 
 
 def dense_int8_gemm(q, s, kernel_q, w_scale, bias=None, dtype=torch.bfloat16):
@@ -298,13 +346,14 @@ def dense_int8_gemm(q, s, kernel_q, w_scale, bias=None, dtype=torch.bfloat16):
         return _dequant_plain(q, s.reshape(-1, 1), kernel_q, w_scale, bias, dtype)
     wt, sw, b = _gemm_operands(kernel_q, w_scale, bias)
     M = q.shape[0]
+    qp = _padded_codes(q, K)
     out = _out(M, N, dtype, q.device)
     if M:
         lib = _build.load("dense_int8", _SIGNATURES)
         _build.check(lib.dense_int8_gemm(
-            _DTYPES[dtype], _build.ptr(q), _build.ptr(s), _build.ptr(wt), _build.ptr(sw),
-            _build.ptr(b), _build.ptr(out), out.stride(0), M, K, N, _build.stream(q.device)),
-            "dense_int8_gemm")
+            _DTYPES[dtype], _build.ptr(qp), _build.ptr(s), _build.ptr(wt), wt.stride(0),
+            _build.ptr(sw), _build.ptr(b), _build.ptr(out), out.stride(0), M, K, N,
+            _build.stream(q.device)), "dense_int8_gemm")
     return _unpad(out, N)
 
 
@@ -335,8 +384,8 @@ def dense_int8_fused(
         lib = _build.load("dense_int8", _SIGNATURES)
         status = lib.dense_int8(
             _DTYPES[x.dtype], _build.ptr(x2), x2.stride(0), _build.ptr(q), _build.ptr(s),
-            _build.ptr(wt), _build.ptr(sw), _build.ptr(b), _build.ptr(out), out.stride(0), M, K,
-            N, _build.stream(x.device))
+            _build.ptr(wt), wt.stride(0), _build.ptr(sw), _build.ptr(b), _build.ptr(out),
+            out.stride(0), M, K, N, _build.stream(x.device))
         _build.check(status, "dense_int8")
         dense_int8_fused.launches += 1
     return _unpad(out, N).reshape(*lead, N)

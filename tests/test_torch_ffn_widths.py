@@ -2,8 +2,8 @@
 BigBird head widths other than 16, 32 and 64, against the JAX package, on
 the CPU.
 
-The card's FFN kernels take any H from 8 to 2048 and any I from 8 to 8192,
-and its BigBird pair any head width D from 8 to 64 (a width that the
+The card's FFN kernels take any H and I from 8 up (those above 2048 are
+``tests/test_torch_widest.py``'s), and its BigBird pair any head width D from 8 to 64 (a width that the
 padded layout does not hold, in zero-padded copies); on a CPU tensor each
 wrapper runs its kernel's plain version, which these tests hold against
 the JAX package's Pallas kernels in interpret mode: the three FFN kernels
@@ -153,7 +153,7 @@ def test_jax_gate_widest_width_lies_in_the_domain():
     """The widest H at I = 4H at which the JAX package sends the bf16 FFN
     to its Pallas kernels (``ffn_kernel_fits`` at the smallest row block
     it tries, 128, and ``ffn_bwd_kernel_fits``; every narrower H fits as
-    well) lies inside the port's FFN domain (H up to 2048): 1,635 for the
+    well) lies inside the port's FFN domain (any H from 8): 1,635 for the
     training forward, 1,620 for the serving block, 963 for the backward."""
     gates = {"fwd": lambda H: jffn.ffn_kernel_fits(128, H, 4 * H),
              "ln": lambda H: jffn.ffn_kernel_fits(128, H, 4 * H, with_ln_block=True),
@@ -166,7 +166,8 @@ def test_jax_gate_widest_width_lies_in_the_domain():
     assert widest == {"fwd": 1635, "ln": 1620, "bwd": 963}
     for H in range(tffn.FFN_MIN_WIDTH, max(widest.values()) + 1):
         assert tffn.ffn_kernel_takes(H, 4 * H)
-    assert not tffn.ffn_kernel_takes(tffn.FFN_MAX_HIDDEN + 1, 4 * tffn.FFN_MAX_HIDDEN)
+    assert tffn.ffn_kernel_takes(2049, 4 * 2049)   # and every wider H since the cap went
+    assert not tffn.ffn_kernel_takes(tffn.FFN_MIN_WIDTH - 1, 4 * tffn.FFN_MIN_WIDTH)
 
 
 # ---------------------------------------------------------------------------

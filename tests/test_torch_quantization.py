@@ -241,9 +241,17 @@ def test_dense_int8_plain_matches_jax_bf16(lead, K, N, bias, zero_row):
 
 def test_dense_int8_bad_args_and_strided_rows():
     q = tq.quantize_kernel(torch.randn(64, 64))
-    with pytest.raises(ValueError, match="multiple of 16"):
-        tq.dense_int8_fused(torch.randn(2, 72), tq.quantize_kernel(torch.randn(72, 64))
-                            ["kernel_q"], torch.ones(64))
+    # K = 72, no multiple of the kernel's step of 16: the JAX dense's
+    # result, as every K (to 1e-6 of the largest output, as the fp32 cases)
+    x72, w72, _ = _dense_inputs((2,), 72, 64, False, False, seed=5)
+    q72 = jq.quantize_kernel(w72)
+    want = np.asarray(jq.dense_int8(jnp.asarray(x72), q72))
+    got = tq.dense_int8_fused(torch.from_numpy(x72), torch.from_numpy(np.array(q72["kernel_q"])),
+                              torch.from_numpy(np.array(q72["scale"])))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6 * np.abs(want).max(), rtol=0)
+    with pytest.raises(ValueError, match="K >= 1"):
+        tq.dense_int8_fused(torch.randn(2, 0), torch.zeros(0, 64, dtype=torch.int8),
+                            torch.ones(64))
     with pytest.raises(ValueError, match="int8"):
         tq.dense_int8_fused(torch.randn(2, 64), q["kernel_q"].float(), q["scale"])
     with pytest.raises(ValueError, match="does not match"):

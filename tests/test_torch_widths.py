@@ -1,10 +1,12 @@
 """The port at head widths 16 and 32 and at hidden widths other than 768
 and 1024, against the JAX package, on the CPU.
 
-The card's attention kernels take any D from 8 to 128 (the widths from 48
-up are ``tests/test_torch_head_widths.py``'s) and its FFN kernels any H
-from 8 to 2048 with any I from 8 to 8192 (the widths that are no
-multiple of 32 and those above 1024 are ``tests/test_torch_ffn_widths.py``'s); on a
+The card's attention kernels take any D from 8 to 256 (the widths from 48
+up are ``tests/test_torch_head_widths.py``'s, those above 128
+``tests/test_torch_widest.py``'s) and its FFN kernels any H and I from 8
+up (the widths that are no multiple of 32 and those above 1024 are
+``tests/test_torch_ffn_widths.py``'s, those above 2048
+``tests/test_torch_widest.py``'s); on a
 CPU tensor each wrapper runs its kernel's plain version, which these
 tests hold against the JAX package's Pallas kernels in interpret mode at
 the new widths, and the port's STonKGs at MiniLM-L12-H384's widths
@@ -75,13 +77,13 @@ def port_cfg(cfg):
 
 @pytest.mark.parametrize("D,takes", [(4, False), (8, True), (16, True), (32, True),
                                      (48, True), (64, True), (68, True), (128, True),
-                                     (136, False), (256, False)])
+                                     (136, True), (256, True), (264, False)])
 def test_attention_kernel_domain(D, takes):
     assert tflash.attention_kernel_takes(D) is takes
     if takes:
         tflash.check_attention_shape("flash_attention_infer", 512, D)
     else:
-        with pytest.raises(ValueError, match=rf"takes D from 8 to 128 .* got D={D}"):
+        with pytest.raises(ValueError, match=rf"takes D from 8 to 256 .* got D={D}"):
             tflash.check_attention_shape("flash_attention_infer", 512, D)
 
 
@@ -94,15 +96,15 @@ def test_attention_kernel_refuses_empty_sequences():
     (32, 128, True), (64, 256, True), (96, 384, True), (384, 1536, True), (512, 2048, True),
     (768, 3072, True), (1024, 4096, True), (768, 1000, True), (16, 64, True),
     (48, 192, True), (1056, 4224, True), (384, 100, True), (0, 0, False),
-    (8, 8, True), (2048, 8192, True), (2056, 8224, False), (768, 8200, False), (4, 16, False)])
+    (8, 8, True), (2048, 8192, True), (2056, 8224, True), (768, 8200, True), (4, 16, False),
+    (2560, 10240, True), (8192, 32768, True), (16, 4, False)])
 def test_ffn_kernel_domain(H, I, takes):
     assert tffn.ffn_kernel_takes(H, I) is takes
     if takes:
         tffn.check_ffn_widths("fused_ffn_fwd", H, I)
     else:
         with pytest.raises(ValueError,
-                           match=rf"takes H from 8 to 2048 and I from 8 to 8192, "
-                                 rf"got H={H}, I={I}"):
+                           match=rf"takes H and I from 8 up, got H={H}, I={I}"):
             tffn.check_ffn_widths("fused_ffn_fwd", H, I)
 
 
@@ -133,15 +135,20 @@ def test_ffn_kernel_domain(H, I, takes):
     # BERT-base's widths split into 6 heads of D=128
     ("BERT-base 6 x 128", tconfig.BertConfig(num_attention_heads=6), True),
     # a 48-wide config (H is not a multiple of 32, which the FFN kernels
-    # take since they take any H from 8 to 2048) ...
+    # take since they take any H from 8 up) ...
     ("CLI 48-wide", tconfig.BertConfig(hidden_size=48, num_attention_heads=2,
                                        intermediate_size=192), True),
-    # ... and widths outside: 4 heads of 136, and a 2112-wide config (H
-    # above 2048)
+    # ... 4 heads of 136, a 2112-wide config (H above 2048) and the CLI's
+    # 2560-wide one (40 heads of 64, I = 10,240) ...
     ("H=544 4 x 136", tconfig.BertConfig(hidden_size=544, num_attention_heads=4,
-                                         intermediate_size=2176), False),
+                                         intermediate_size=2176), True),
     ("CLI 2112-wide", tconfig.BertConfig(hidden_size=2112, num_attention_heads=33,
-                                         intermediate_size=8448), False),
+                                         intermediate_size=8448), True),
+    ("CLI 2560-wide", tconfig.BertConfig(hidden_size=2560, num_attention_heads=40,
+                                         intermediate_size=10240), True),
+    # ... and widths outside: 2 heads of 272 (D above 256)
+    ("H=544 2 x 272", tconfig.BertConfig(hidden_size=544, num_attention_heads=2,
+                                         intermediate_size=2176), False),
 ])
 def test_model_configs_against_the_domains(name, cfg, takes):
     both = (tflash.attention_kernel_takes(cfg.head_dim)
