@@ -506,14 +506,17 @@ GRAD_TOL = {F32: 1e-4, BF16: 2e-2}
 INT8_F32_TOL = 1e-6
 SOURCES = ("ffn_ln_block", "flash_attention_infer", "flash_attention_train", "ffn_train",
            "bigbird_sparse", "dense_int8", "int8_gemm")
-# the Hopper (wgmma, TMA) kernels of each library, which must not spill
+# the Hopper (wgmma, TMA) kernels of each library, and the SIMT kernels
+# that run bf16 past their widest instances, which must not spill
 SM90_KERNELS = {
-    "flash_attention_infer": ("attn_fwd_sm90_kernel",),
+    "flash_attention_infer": ("attn_fwd_sm90_kernel", "attn_fwd_rows_kernel"),
     "flash_attention_train": ("attn_fwd_sm90_kernel", "attn_bwd_dq_sm90_kernel",
-                              "attn_bwd_dkdv_sm90_kernel"),
+                              "attn_bwd_dkdv_sm90_kernel", "attn_fwd_rows_kernel",
+                              "attn_bwd_dq_rows_kernel", "attn_bwd_dkdv_rows_kernel"),
     "ffn_ln_block": ("gemm_sm90_kernel", "add_layer_norm_kernel", "layer_norm_rows_kernel"),
     "ffn_train": ("gemm_sm90_kernel", "ffn_bwd_dual_sm90_kernel"),
-    "bigbird_sparse": ("bigbird_fwd_sm90_kernel", "bigbird_bwd_sm90_kernel"),
+    "bigbird_sparse": ("bigbird_fwd_sm90_kernel", "bigbird_bwd_sm90_kernel", "mid_fwd_kernel",
+                       "mid_bwd_kernel"),
     "dense_int8": ("quantize_rows_kernel", "gemm_kmajor_sm90_kernel"),
     "int8_gemm": ("gemm_kmajor_sm90_kernel",),
 }
@@ -814,8 +817,9 @@ def _attention_bwd_cases(tag, dtype, B, H, S, rate, gen, D=64) -> float:
         if need_db:
             worst = max(worst, _compare_rel(f"attention db {label}", got[3], want[3], F32))
         if dtype == BF16 and B > 1 and S == 512 and rate > 0 and name == "mask db":
-            _grad_limit_rejects(f"attention dk {label} without the scale", want[1],
-                                (want[1].float() * math.sqrt(D)).to(BF16))
+            if D > 1:   # at D = 1 the scale is 1: there is none to lose
+                _grad_limit_rejects(f"attention dk {label} without the scale", want[1],
+                                    (want[1].float() * math.sqrt(D)).to(BF16))
             _grad_limit_rejects(f"attention dv {label} without the keep scale", want[2],
                                 (want[2].float() * (1.0 - rate)).to(BF16))
         del q, k, v, bias, do, out_p, lse_p, got, want
@@ -1026,56 +1030,62 @@ def phase_sparse_kernels() -> dict:
     return errs
 
 
-# (block size, head width) outside the pair's domain, and the block size
-# of the C entry points' own check
-SPARSE_OUTSIDE = ((64, 4), (64, 72), (64, 128), (12, 32), (2048, 32))
+# (block size, head width, S) outside the pair's domain: S not a multiple
+# of the block size, 4 blocks, block size 0, head width 0 (any block size
+# and head width from 1 with at least 5 blocks is inside); and the C entry
+# points' own refusals, which take head widths that are multiples of 8
+# (the wrappers pad others): the same, and D = 4 and 36
+SPARSE_OUTSIDE = ((25, 32, 210), (25, 32, 100), (0, 32, 320), (64, 0, 320))
+SPARSE_C_OUTSIDE = SPARSE_OUTSIDE + ((64, 4, 320), (64, 36, 320))
 # a logit scale that is 1/sqrt(d) of no head width d from 1 to 64 in bf16
 SPARSE_BAD_SCALE = 0.9
 
 
 def _sparse_geometry_rejected(gen) -> None:
-    """A CUDA tensor at a head width outside 8 to 64, or a block size that
-    is not a multiple of 8 from 8 to 1,024 (``SPARSE_OUTSIDE``) raises in
-    both wrappers, in both dtypes, and launches nothing; the C entry points
-    refuse such a geometry themselves (cudaErrorInvalidValue, 1) without a
-    launch, and in bf16 a logit scale that is 1/sqrt(d) of no head width d
-    the padding to D may hide (``SPARSE_BAD_SCALE``)."""
+    """A CUDA tensor outside the pair's domain (``SPARSE_OUTSIDE``) raises
+    in both wrappers, in both dtypes, and launches nothing; the C entry
+    points refuse such a geometry themselves (cudaErrorInvalidValue, 1)
+    without a launch (``SPARSE_C_OUTSIDE``), and in bf16 a logit scale
+    that is 1/sqrt(d) of no head width d the padding to D may hide
+    (``SPARSE_BAD_SCALE``)."""
     fwd0, bwd0 = bigbird_mid_fwd.launches, bigbird_mid_bwd.launches
+    said = ("takes any D and block size from 1", "not a multiple of the block size",
+            "at least 5 blocks", "block size must be at least 1")
     for dtype in (BF16, F32):
-        for bs, D in SPARSE_OUTSIDE:
-            S = 5 * bs
+        for bs, D, S in SPARSE_OUTSIDE:
+            n = max(S - 2 * bs, 1)
             q, k, v = (torch.randn(1, S, 1, D, generator=gen).to(DEV, dtype) for _ in range(3))
             mask = torch.ones(1, S, device=DEV)
-            rand = torch.ones(1, 3, 1, dtype=torch.int32, device=DEV)
-            out = torch.zeros(1, 3 * bs, 1, D, dtype=dtype, device=DEV)
-            lse = torch.zeros(1, 1, 3 * bs, device=DEV)
+            rand = torch.ones(1, max(S // max(bs, 1) - 2, 1), 1, dtype=torch.int32, device=DEV)
+            out = torch.zeros(1, n, 1, D, dtype=dtype, device=DEV)
+            lse = torch.zeros(1, 1, n, device=DEV)
             for name, call in (("fwd", lambda: bigbird_mid_fwd(q, k, v, mask, rand, bs)),
                                ("bwd", lambda: bigbird_mid_bwd(q, k, v, mask, rand, bs, out, lse,
                                                                out))):
                 raised = _refused(name, call)
-                log(f"# check sparse {name} {dtype} bs={bs} D={D} raises: {raised!r}")
-                check("takes D from 8 to 64" in raised,
-                      f"sparse {name} took block size {bs}, head width {D} on the card")
+                log(f"# check sparse {name} {dtype} bs={bs} D={D} S={S} raises: {raised!r}")
+                check(any(x in raised for x in said),
+                      f"sparse {name} took block size {bs}, head width {D}, S={S} on the card")
     check((bigbird_mid_fwd.launches, bigbird_mid_bwd.launches) == (fwd0, bwd0),
           "a refused geometry counted a launch")
     lib = _build.load("bigbird_sparse", bigbird_sparse_ops._SIGNATURES)
     buf = torch.zeros(1 << 20, device=DEV)
     p, st = _build.ptr(buf), _build.stream(buf.device)
     for dt in (1, 0):
-        for bs, D in SPARSE_OUTSIDE:
-            S = 5 * bs
+        for bs, D, S in SPARSE_C_OUTSIDE:
+            scale = max(D, 1) ** -0.5
             statuses = {
                 "bigbird_mid_fwd": lib.bigbird_mid_fwd(dt, *[p] * 7, 1, S, 1, 1, bs, D, S * D,
-                                                       D, D, D ** -0.5, st),
+                                                       D, D, scale, st),
                 "bigbird_mid_bwd": lib.bigbird_mid_bwd(dt, *[p] * 11, 1, S, 1, 1, bs, D, S * D,
-                                                       D, D, D ** -0.5, st)}
+                                                       D, D, scale, st)}
             torch.cuda.synchronize()
             for name, status in statuses.items():
-                log(f"# check {name} C entry point dtype {dt} at bs={bs} D={D}: status "
+                log(f"# check {name} C entry point dtype {dt} at bs={bs} D={D} S={S}: status "
                     f"{status} (1: refused)")
-                check(status == 1, f"the C entry point {name} took bs={bs} D={D} "
+                check(status == 1, f"the C entry point {name} took bs={bs} D={D} S={S} "
                                    f"(status {status})")
-    for D in (8, 16, 32, 40, 64):
+    for D in (8, 16, 32, 40, 64, 128):
         S = 5 * 64
         bad = SPARSE_BAD_SCALE
         statuses = {
@@ -1207,7 +1217,10 @@ def phase_serving(cfg: STonKGsConfig):
 
     # the main path: parity-mode embed, counts from 0 just before it
     _reset_counts(SERVING_KERNELS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     out = engine.embed(feats)
+    first = time.perf_counter() - t1
     counts = _counts(SERVING_KERNELS)
     n_batches = math.ceil(ROWS / BATCH)
     per_batch = cfg.bert.num_hidden_layers * 2 - 1   # backbone 12 + trunk 11
@@ -1870,11 +1883,13 @@ PROT_NUMERICS_ROWS, PROT_NUMERICS_LAYERS = 1, 1
 def phase_prot_train_numerics(cfg_full: ProtSTonKGsConfig, block_size: int = 64) -> None:
     """Loss and trunk gradients, card fp32 vs CPU fp32, at
     PROT_NUMERICS_ROWS rows and PROT_NUMERICS_LAYERS layers a stack of the
-    full widths, the trunk at ``block_size`` (its training plan), hidden
-    dropout 0 and the backbones' attention dropout 0.1 (seeds from the
-    same CPU generator)."""
+    full widths, the trunk at ``block_size`` (its training plan) and at
+    ``cfg_full``'s head split, hidden dropout 0 and the backbones'
+    attention dropout 0.1 (seeds from the same CPU generator)."""
     cfg = _with_block(_prot_cfg(cfg_full.kg_vocab_size, layers=PROT_NUMERICS_LAYERS,
                                 hidden_dropout=0.0), block_size)
+    cfg = cfg.replace(trunk=dataclasses.replace(
+        cfg.trunk, num_attention_heads=cfg_full.trunk.num_attention_heads))
     params = _prot_params(cfg, seed=12)
     feats = _prot_features(cfg, PROT_NUMERICS_ROWS, seed=3, labels=True)
     plan = _train_plan(cfg)
@@ -4245,7 +4260,10 @@ def _kg_serving(paths: dict, run: tuple, tmp: str, card: str) -> dict:
     feats = engine.preprocess(*(pre[c][:ROWS] for c in ("source", "target", "evidence")))
     t_setup = time.perf_counter() - t0
     _reset_counts(SERVING_KERNELS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     out = engine.embed(feats)
+    first = time.perf_counter() - t1
     counts = _counts(SERVING_KERNELS)
     n_batches, per_batch = math.ceil(ROWS / BATCH), cfg.bert.num_hidden_layers * 2 - 1
     log(f"# kg (d) checkpoint, from_pretrained and preprocess in {t_setup!r} s; embed of "
@@ -5163,7 +5181,10 @@ def _cli_published(rows: list, paths: dict, total: dict):
           f"from_default_pretrained: {engine.cfg} on {engine.device}")
     feats = engine.preprocess(src, tgt, ev)
     _reset_counts(SERVING_KERNELS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     out = engine.embed(feats)
+    first = time.perf_counter() - t1
     counts = _counts(SERVING_KERNELS)
     n_batches = math.ceil(len(rows) / BATCH)
     per_batch = cfg.bert.num_hidden_layers * 2 - 1
@@ -5602,22 +5623,22 @@ def _widths_outside(gen) -> None:
     """(a) Shapes outside the kernels' domain raise on the card in every
     wrapper and both dtypes, with no fallback to the plain versions and
     no launch counted: attention (inference, training forward and
-    backward) at D = 264 and 512 (``HEAD_OUTSIDE``; D from 8 to 256 is
-    phase 28's and 29's), the three FFN kernels at H = 4 and at I = 4
-    (``WIDE_FFN_OUTSIDE``; any H and I from 8 are phase 29's), the
-    BigBird pair at D = 72.  The C entry points refuse such widths
-    themselves (cudaErrorInvalidValue, 1) without a launch: every entry
-    point at D=264, H=4 or I=4, in both dtypes, the attention and BigBird
-    entry points at D=68 and 36 (the wrappers pad a D that is not a
-    multiple of 8) and the BigBird ones at D=72."""
-    counted = {**TRAINING_KERNELS, **SERVING_KERNELS, "bigbird_mid_fwd": bigbird_mid_fwd,
-               "bigbird_mid_bwd": bigbird_mid_bwd}
+    backward) at D = 0 and at S = 0 (``HEAD_OUTSIDE``: (S, D); any D from
+    1 is phases 28's and 29's), the three FFN kernels at H = 0 and at I =
+    0 (``WIDE_FFN_OUTSIDE``; any H and I from 1 are phase 29's); the
+    BigBird pair's refused geometries are phase 10's and 27's
+    (``_sparse_geometry_rejected``).  The C entry points refuse such
+    widths themselves (cudaErrorInvalidValue, 1) without a launch: the
+    attention and BigBird entry points at D = 0 and at D = 4, 36 and 68
+    (the wrappers pad a D that is not a multiple of 8), the FFN ones at H
+    = 0 or I = 0, in both dtypes."""
+    counted = {**TRAINING_KERNELS, **SERVING_KERNELS}
     before = _counts(counted)
     for dtype in (BF16, F32):
         tag = "bf16" if dtype == BF16 else "fp32"
-        for D in HEAD_OUTSIDE:
-            q, k, v, bias, _ = _attn_inputs(1, 64, dtype, gen, True, 2, D)
-            lse = torch.zeros(1, 2, 64, device=DEV)
+        for S, D in HEAD_OUTSIDE:
+            q, k, v, bias, _ = _attn_inputs(1, S, dtype, gen, S > 0, 2, D)
+            lse = torch.zeros(1, 2, S, device=DEV)
             for name, fn in (
                     ("flash_attention_infer", lambda: flash_attention_infer(q, k, v, bias)),
                     ("flash_attention_train_fwd",
@@ -5625,8 +5646,9 @@ def _widths_outside(gen) -> None:
                     ("flash_attention_train_bwd",
                      lambda: flash_attention_train_bwd(q, k, v, bias, q, lse, q))):
                 raised = _refused(name, fn)
-                log(f"# check {name} {tag} at D={D} raises: {raised!r}")
-                check("takes D from 8 to 256" in raised, f"{name} {tag} at D={D} did not raise")
+                log(f"# check {name} {tag} at S={S} D={D} raises: {raised!r}")
+                check("takes any D from 1 up and S >= 1" in raised,
+                      f"{name} {tag} at S={S} D={D} did not raise")
         for H, I in WIDE_FFN_OUTSIDE:
             args = _ffn_inputs(3, dtype, gen, H, I)
             x, w1, b1, w2, b2, g = _train_ffn_inputs(3, dtype, gen, H, I)
@@ -5635,18 +5657,8 @@ def _widths_outside(gen) -> None:
                              ("ffn_train_bwd", lambda: fused_ffn_bwd(x, g, w1, b1, w2))):
                 raised = _refused(name, fn)
                 log(f"# check {name} {tag} at H={H} I={I} raises: {raised!r}")
-                check("takes H and I from 8 up" in raised,
+                check("takes H and I from 1 up" in raised,
                       f"{name} {tag} at H={H} I={I} did not raise")
-        D = WIDE_BB_OUTSIDE
-        q, k, v, mask, rand, do = _sparse_inputs(1, 5, dtype, gen, "eval", False, 2, 64, D, BB_R)
-        out = torch.zeros(1, 3 * 64, 2, D, dtype=dtype, device=DEV)
-        lse = torch.zeros(1, 2, 3 * 64, device=DEV)
-        for name, fn in (("bigbird_mid_fwd", lambda: bigbird_mid_fwd(q, k, v, mask, rand, 64)),
-                         ("bigbird_mid_bwd", lambda: bigbird_mid_bwd(q, k, v, mask, rand, 64,
-                                                                     out, lse, do))):
-            raised = _refused(name, fn)
-            log(f"# check {name} {tag} at D={D} raises: {raised!r}")
-            check("takes D from 8 to 64" in raised, f"{name} {tag} at D={D} did not raise")
     after = _counts(counted)
     check(after == before, f"a refused width counted a launch: {before} -> {after}")
     # one zeroed buffer stands for every operand: the entry points must
@@ -5662,14 +5674,21 @@ def _widths_outside(gen) -> None:
     for dt in (1, 0):
         tag = "bf16" if dt == 1 else "fp32"
         statuses = {}
-        for D in (HEAD_OUTSIDE[0], 68):
+        for D in WIDTHS_C_OUTSIDE:
+            scale = max(D, 1) ** -0.5
             statuses.update({
                 f"flash_attention_infer D={D}": attn_lib.flash_attention_infer(
-                    dt, *[p] * 5, 1, 64, 2, D, D ** -0.5, st),
+                    dt, *[p] * 5, 1, 64, 2, D, scale, st),
                 f"flash_attention_train_fwd D={D}": train_lib.flash_attention_train_fwd(
-                    dt, *[p] * 6, 1, 64, 2, D, D ** -0.5, *drop, st),
+                    dt, *[p] * 6, 1, 64, 2, D, scale, *drop, st),
                 f"flash_attention_train_bwd D={D}": train_lib.flash_attention_train_bwd(
-                    dt, *[p] * 12, 1, 64, 2, D, D ** -0.5, *drop, st)})
+                    dt, *[p] * 12, 1, 64, 2, D, scale, *drop, st)})
+            S = 5 * 64
+            statuses.update({
+                f"bigbird_mid_fwd D={D}": sparse_lib.bigbird_mid_fwd(
+                    dt, *[p] * 7, 1, S, 1, 1, 64, D, S * D, D, D, scale, st),
+                f"bigbird_mid_bwd D={D}": sparse_lib.bigbird_mid_bwd(
+                    dt, *[p] * 11, 1, S, 1, 1, 64, D, S * D, D, D, scale, st)})
         for H, I in WIDE_FFN_OUTSIDE:
             statuses.update({
                 f"ffn_ln_block H={H} I={I}": ln_lib.ffn_ln_block(dt, *[p] * 13, 3, H, I, 0,
@@ -5677,13 +5696,6 @@ def _widths_outside(gen) -> None:
                 f"ffn_train_fwd H={H} I={I}": ffn_lib.ffn_train_fwd(dt, *[p] * 7, 3, H, I, 0, st),
                 f"ffn_train_bwd H={H} I={I}": ffn_lib.ffn_train_bwd(dt, *[p] * 10, 3, H, I, 0,
                                                                     st)})
-        for D in (WIDE_BB_OUTSIDE, 36):
-            S = 5 * 64
-            statuses.update({
-                f"bigbird_mid_fwd D={D}": sparse_lib.bigbird_mid_fwd(
-                    dt, *[p] * 7, 1, S, 1, 1, 64, D, S * D, D, D, D ** -0.5, st),
-                f"bigbird_mid_bwd D={D}": sparse_lib.bigbird_mid_bwd(
-                    dt, *[p] * 11, 1, S, 1, 1, 64, D, S * D, D, D, D ** -0.5, st)})
         torch.cuda.synchronize()
         for name, status in statuses.items():
             log(f"# check {name} {tag} C entry point: status {status} (1: refused)")
@@ -5908,7 +5920,7 @@ def phase_widths(card: str) -> tuple:
     log(f"# widths (b, c) MiniLM: {time.perf_counter() - t_phase:.1f} s")
     total = dict(minilm_counts)
     for hidden in WIDTH_NARROW:
-        _widths_pretrain_files(hidden, total)
+        _widths_pretrain_files(hidden, total, entities=WIDE_ENTITIES)
     times = _widths_times(cfg, engine, feats, state, card)
     del engine, state, params
     torch.cuda.empty_cache()
@@ -5928,18 +5940,39 @@ BB_R = 1                 # the command line's num_random_blocks
 # (4 heads); each at the eval and the training plan
 BB_CASES = (tuple((bs, 32, 2, 3, 8, True) for bs in (8, 48, 64, 96, 128, 256, 512, 1024))
             + ((96, 32, 2, 2, 5, False), (64, 16, 2, 4, 8, True), (512, 16, 2, 4, 8, True)))
-BB_FAULT_BLOCKS = (96, 512)   # a partial block size and the path's
+# past the old block rule (multiples of 8 up to 1,024): the command line's
+# blocks at S = 32 (4), 96 (12), 200 (25), 800 (100), 8,256 (1,032) and
+# 16,384 (2,048) at D=32, block 4 at the 8-wide configs' D = 4, and block
+# 25 at nb = 5 (S = 125)
+BB_ANY_CASES = (tuple((bs, 32, 2, 3, 8, True) for bs in (4, 12, 25, 100, 1032, 2048))
+                + ((4, 4, 2, 2, 8, True), (25, 32, 2, 2, 5, False)))
+BB_FAULT_BLOCKS = (96, 512, 25)   # partial block sizes and the path's
+BB_DROP_FAULT = 25                # the block whose slots lose their last key
 BB_KG_NODES = 20_000     # the synthetic node2vec TSVs' rows
 BB_STEPS = 2             # steps of each run_pretraining
 BB_BATCH = 2
 BB_ROWS = 32             # rows embedded at B = BB_EMBED_BATCH
 BB_EMBED_BATCH = 8
-BB_CPU_ROWS = 8          # of which the CPU embeds one batch
+BB_CPU_ROWS = 2          # of which the CPU embeds these (and 1 at S = BB_LONG_S)
 # (KG TSV width, text | entity | protein lengths) of the path's runs: the
 # reference layout at a 128-wide TSV (D=32, block 512) and a 32-wide one
 # (D=16), and a 768-token layout (block 96; the text splits into the 3
 # chunks of the frozen BioBERT)
 BB_PATHS = ((128, (768, 256, 3072)), (32, (768, 256, 3072)), (128, (384, 128, 256)))
+# (KG TSV width, layout) of the stores past the old block rule, 4 steps of
+# B=2 each: S = 200 from a 64-wide TSV (block 25, 2 heads of 32), S = 32
+# from an 8-wide one (block 4, 2 heads of D = 4 in the trunk and both
+# backbones) and S = 16,384 from a 32-wide one (block 2,048, 2 heads of
+# 16; the entities, which the KG table gathers, take the length, so that
+# the CPU's checks of the backbones stay short); the CPU checks 1 row at
+# S = 16,384
+BB_ANY_PATHS = ((64, (96, 48, 56)), (8, (12, 8, 12)), (32, (384, 15616, 384)))
+BB_ANY_STEPS = 4
+BB_LONG_S = 16384
+# ProtSTonKGs at its published widths with the trunk's 768 in 6 heads of
+# D = 128, on phase 11's parameters: embed BB_HEADS_ROWS rows at B=8
+BB_HEADS_128 = 6
+BB_HEADS_ROWS = 16
 
 
 def _bb_extra(bs: int) -> int:
@@ -5980,6 +6013,18 @@ def _sparse_fwd_fault(q, k, v, mask, rand, bs, extra=0, round2=True, scale_d=Non
     wgt = torch.softmax(logits, dim=-1).to(dt)
     ctx = torch.einsum("bhjqk,bhjkd->bhjqd", wgt.to(f), vc.to(f)).to(dt)
     return ctx.permute(0, 2, 3, 1, 4).reshape(B, n_mid * bs, H, D)
+
+
+def _sparse_fwd_drop_last(q, k, v, mask, rand, bs):
+    """The plain forward with a known fault: the last key of every slot
+    left out of the softmax."""
+    B, S, H, D = q.shape
+    qm, kc, vc, pen, _ = _mid_operands(q, k, v, mask, rand, bs)
+    pen = pen.clone()
+    pen[..., bs - 1::bs] = -math.inf
+    wgt = torch.softmax(_mid_logits(qm, kc, pen, q.dtype), dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhjqk,bhjkd->bhjqd", wgt.float(), vc.float()).to(q.dtype)
+    return ctx.permute(0, 2, 3, 1, 4).reshape(B, -1, H, D)
 
 
 def _dk_with_rows_past(q, k, v, mask, rand, bs, out, lse, do, dk, extra):
@@ -6025,18 +6070,20 @@ def _bb_faults(gen, bs: int) -> None:
     """(a) At block ``bs`` (D=32, the training plan, an unpadded mask, B=2,
     H=3, nb=8, bf16) the limits the pair is held to must reject: a key past
     the block let into the softmax, a query row past the block let into dK
-    (``_bb_extra`` of them: the rest of a partial tile, or one tile), and
-    the scale's second rounding left out (on integer-valued q and k, where
-    the kernel is held to the same limits first)."""
+    (``_bb_extra`` of them: the rest of a partial tile, or one tile; the
+    next block's rows only, at most bs, where the tile holds several
+    blocks), and the scale's second rounding left out (on integer-valued q
+    and k, where the kernel is held to the same limits first)."""
     extra = _bb_extra(bs)
+    rows = min(extra, bs)
     label = f"bf16 D=32 bs={bs} train plan"
     q, k, v, mask, rand, do = _sparse_inputs(2, 8, BF16, gen, "train", False, 3, bs, 32, BB_R)
     out, lse = bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)
     _attn_limit_rejects(f"sparse fwd {label} with {extra} keys past the block", out,
                         _sparse_fwd_fault(q, k, v, mask, rand, bs, extra=extra))
     dk = bigbird_mid_bwd_plain(q, k, v, mask, rand, bs, out, lse, do)[1]
-    _grad_limit_rejects(f"sparse dk {label} with {extra} query rows past the block", dk,
-                        _dk_with_rows_past(q, k, v, mask, rand, bs, out, lse, do, dk, extra))
+    _grad_limit_rejects(f"sparse dk {label} with {rows} query rows past the block", dk,
+                        _dk_with_rows_past(q, k, v, mask, rand, bs, out, lse, do, dk, rows))
     q, k, v = _integer_qkv(2, 8 * bs, 3, 32, gen)
     want = bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)[0]
     _compare_attn(f"sparse fwd {label} integer q, k", bigbird_mid_fwd(q, k, v, mask, rand, bs)[0],
@@ -6072,11 +6119,18 @@ def _bb_cases(cases, gen, note) -> None:
 
 def _bb_kernels(gen, note) -> None:
     """(a) The pair against its plain versions at every case of
-    ``BB_CASES`` (``_bb_cases``); the faults at ``BB_FAULT_BLOCKS``; the
-    geometries outside the domain refused."""
-    _bb_cases(BB_CASES, gen, note)
+    ``BB_CASES`` and ``BB_ANY_CASES`` (``_bb_cases``); the faults at
+    ``BB_FAULT_BLOCKS``, and at block ``BB_DROP_FAULT`` (D=32, the
+    training plan, bf16) the plain output with the last key of every slot
+    dropped; the geometries outside the domain refused."""
+    _bb_cases(BB_CASES + BB_ANY_CASES, gen, note)
     for bs in BB_FAULT_BLOCKS:
         _bb_faults(gen, bs)
+    bs = BB_DROP_FAULT
+    q, k, v, mask, rand, _ = _sparse_inputs(2, 8, BF16, gen, "train", True, 3, bs, 32, BB_R)
+    _attn_limit_rejects(f"sparse fwd bf16 D=32 bs={bs} train plan without the last key of "
+                        f"every slot", bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)[0],
+                        _sparse_fwd_drop_last(q, k, v, mask, rand, bs))
     _sparse_geometry_rejected(gen)
 
 
@@ -6088,21 +6142,23 @@ def _bb_layout_cfg(kg_nodes: int, layout: tuple) -> ProtSTonKGsConfig:
                                seq_len=tl + el + pl)
 
 
-def _bb_path(width: int, layout: tuple, emb: str, tmp: str, total: dict) -> tuple:
+def _bb_path(width: int, layout: tuple, emb: str, tmp: str, total: dict,
+             steps: int = BB_STEPS) -> tuple:
     """(b) ``run_pretraining(variant="prot")`` from a memmap store and a
     ``width``-wide node2vec TSV at ``layout``: the derived config (heads of
-    32, or 2 of 16; block S // 8; r = 1) in the kernels' domain, 2 steps of
-    B=2 with one save (launch counts, finite losses, frozen trees
-    unchanged), loss and trunk gradients card fp32 against CPU fp32 (phase
-    13's limits), then ``ProtSTonKGsEngine.embed`` on the trained
-    parameters (32 rows at B=8, launch counts): card fp32 against CPU fp32
-    on one batch, card bf16 against card fp32 by cosine (phase 26's
-    limits).  Returns (the derived config, the trained state, the bf16
-    engine, the rows)."""
+    32, or 2 of 16; block max(S // 8, 4); r = 1) in the kernels' domain,
+    ``steps`` steps of B=2 with one save (launch counts, finite losses,
+    frozen trees unchanged), loss and trunk gradients card fp32 against
+    CPU fp32 (phase 13's limits), then ``ProtSTonKGsEngine.embed`` on the
+    trained parameters (32 rows at B=8, launch counts): card fp32 against
+    CPU fp32 on one batch, card bf16 against card fp32 by cosine (phase
+    26's limits).  At S = BB_LONG_S the CPU's checks take 1 row.  Returns
+    (the derived config, the trained state, the bf16 engine, the rows)."""
     t0 = time.perf_counter()
     S = sum(layout)
     tag = f"{width}-wide TSV, S={S}"
-    feats = _prot_features(_bb_layout_cfg(BB_KG_NODES, layout), BB_BATCH * BB_STEPS, seed=width,
+    cpu_rows = 1 if S >= BB_LONG_S else BB_CPU_ROWS
+    feats = _prot_features(_bb_layout_cfg(BB_KG_NODES, layout), BB_BATCH * steps, seed=width,
                            labels=True)
     ent = feats["input_ids"][:, layout[0]:layout[0] + layout[1]]
     ent %= BB_KG_NODES            # entity ids index the TSV's nodes, all of which the
@@ -6127,10 +6183,10 @@ def _bb_path(width: int, layout: tuple, emb: str, tmp: str, total: dict) -> tupl
     out_dir = os.path.join(tmp, f"run{width}_{S}")
     state, _, _, _ = _pf_run(f"run_pretraining prot {tag}", store, out_dir,
                              PROT_TRAINING_KERNELS, _prot_training_per_step(cfg),
-                             list(range(1, BB_STEPS + 1)), total, variant="prot",
-                             kg_embedding_path=emb, batch_size=BB_BATCH, max_steps=BB_STEPS,
-                             save_steps=BB_STEPS)
-    check(CheckpointManager(os.path.join(out_dir, "checkpoints")).steps() == [BB_STEPS],
+                             list(range(1, steps + 1)), total, variant="prot",
+                             kg_embedding_path=emb, batch_size=BB_BATCH, max_steps=steps,
+                             save_steps=steps)
+    check(CheckpointManager(os.path.join(out_dir, "checkpoints")).steps() == [steps],
           f"{tag}: checkpoints")
     params = params_to(state.params, "cpu", F32)
     frozen = split_frozen(params)[1]
@@ -6139,9 +6195,10 @@ def _bb_path(width: int, layout: tuple, emb: str, tmp: str, total: dict) -> tupl
         same = all(torch.equal(a, b.to(BF16).float()) for a, b in
                    zip(tree_leaves(frozen[name]), tree_leaves(init[name])))
         check(same, f"{tag}: the frozen {name} changed")
-    _bb_train_numerics(cfg, params, tag)
+    if S < BB_LONG_S:   # at block 2,048 the pair is held to its plain versions in (a)
+        _bb_train_numerics(cfg, params, tag)
 
-    rows = _prot_features(cfg, BB_ROWS, seed=width + 1)
+    rows = _prot_features(cfg, BB_EMBED_BATCH if S >= BB_LONG_S else BB_ROWS, seed=width + 1)
     engines = {}
     got = {}
     for label, dev, dt in (("card bf16", DEV, BF16), ("card fp32", DEV, F32)):
@@ -6150,14 +6207,14 @@ def _bb_path(width: int, layout: tuple, emb: str, tmp: str, total: dict) -> tupl
                                            batch_size=BB_EMBED_BATCH, device=dev)
         got[label], counts = _prot_embed_counted(f"{tag} embed {label}", engines[label], rows)
         _add_counts(total, counts)
-    few = {k_: v[:BB_CPU_ROWS] for k_, v in rows.items()}
+    few = {k_: v[:cpu_rows] for k_, v in rows.items()}
     cpu = ProtSTonKGsEngine(cfg=cfg, params=params, compute_dtype="float32",
                             batch_size=BB_EMBED_BATCH, device="cpu").embed(few)
-    err = float(np.abs(got["card fp32"][:BB_CPU_ROWS] - cpu).max())
+    err = float(np.abs(got["card fp32"][:cpu_rows] - cpu).max())
     scale = float(np.abs(cpu).max())
     cos = _cosine(got["card bf16"], got["card fp32"])
     whole = float(_cosine(got["card bf16"].reshape(1, -1), got["card fp32"].reshape(1, -1))[0])
-    log(f"# {tag} embed: card fp32 vs CPU fp32 ({BB_CPU_ROWS} rows) max_abs_err {err!r} of "
+    log(f"# {tag} embed: card fp32 vs CPU fp32 ({cpu_rows} rows) max_abs_err {err!r} of "
         f"max |CPU| {scale!r} (limit 1e-3 of it); card bf16 vs card fp32 ({BB_ROWS} rows) "
         f"cosine of all rows {whole!r} (limit {WIDTH_COS_ALL}), lowest row "
         f"{float(cos.min())!r} (limit {WIDTH_COS_ROW}); {time.perf_counter() - t0:.1f} s")
@@ -6231,13 +6288,71 @@ def _bb_times(cfg: ProtSTonKGsConfig, engine, rows, state, card: str) -> dict:
     return result
 
 
-def phase_bigbird_widths(card: str) -> tuple:
-    """Phase 27: (a) the pair at D = 16 and 32 and the block sizes the
-    command line derives, the planted faults and the refused geometries,
-    (b) ProtSTonKGs from synthetic node2vec TSVs (``BB_PATHS``), (c) times.
+def _bb_any_paths(tmp: str, card: str) -> tuple:
+    """(d) The stores of ``BB_ANY_PATHS`` through ``_bb_path`` at
+    BB_ANY_STEPS steps, each with its own TSV; the S = 200 store's (block
+    25) counts and times (``_bb_times``).  Returns (the counts of every
+    run, summed; the block-25 store's counts; its times)."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    counts25: dict = {}
+    times25 = None
+    for width, layout in BB_ANY_PATHS:
+        art = make_random_artifacts(BB_KG_NODES, dim=width, rw_len=README_RW_LEN, seed=width)
+        emb = os.path.join(tmp, f"emb_any{width}.tsv")
+        save_kg_artifacts(art, emb, os.path.join(tmp, f"walks_any{width}.tsv"))
+        counted: dict = {}
+        cfg, state, engine, rows = _bb_path(width, layout, emb, tmp, counted, BB_ANY_STEPS)
+        _add_counts(total, counted)
+        if cfg.trunk.block_size == BB_DROP_FAULT:
+            counts25 = counted
+            times25 = _bb_times(cfg, engine, rows, state, card)
+        del state, engine
+        torch.cuda.empty_cache()
+        log(f"# bigbird widths (d) S={sum(layout)} block {cfg.trunk.block_size}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    return total, counts25, times25
+
+
+def _bb_heads128(pcfg: ProtSTonKGsConfig, pparams: dict, card: str) -> tuple:
+    """(e) ProtSTonKGs at its published widths with the trunk's 768 in
+    BB_HEADS_128 heads of D = 128 on phase 11's parameters (the head split
+    changes no parameter's shape): ``embed`` over BB_HEADS_ROWS rows at
+    B=8 (launch counts from 0, finite output), phase 12's ``pretrain``
+    (B=2, 4 steps), phase 13's card fp32 against CPU fp32 numerics at this
+    head split, then the pair's times at the trunk's shape
+    (``_bb_times``).  Returns (the counts of the embed and the steps; the
+    times)."""
+    t0 = time.perf_counter()
+    cfg = pcfg.replace(trunk=dataclasses.replace(pcfg.trunk, num_attention_heads=BB_HEADS_128))
+    check(cfg.trunk.head_dim == 128 and bigbird_sparse_ops.bigbird_kernel_takes(
+        cfg.trunk.block_size, cfg.trunk.head_dim, cfg.seq_len), f"the 6-head trunk: {cfg.trunk}")
+    engine = ProtSTonKGsEngine(cfg=cfg, params=params_to(pparams, DEV, BF16),
+                               batch_size=BB_EMBED_BATCH, device=DEV)
+    rows = _prot_features(cfg, BB_HEADS_ROWS, seed=22)
+    _, counts = _prot_embed_counted(f"ProtSTonKGs embed, trunk {BB_HEADS_128} x 128", engine,
+                                    rows)
+    train_counts, state, _ = phase_prot_training(cfg, pparams)
+    _add_counts(counts, train_counts)
+    phase_prot_train_numerics(cfg)
+    log(f"# bigbird widths (e) 6 heads of 128: {time.perf_counter() - t0:.1f} s")
+    times = _bb_times(cfg, engine, rows, state, card)
+    del engine, state
+    torch.cuda.empty_cache()
+    return counts, times
+
+
+def phase_bigbird_widths(card: str, pcfg: ProtSTonKGsConfig, pparams: dict) -> tuple:
+    """Phase 27: (a) the pair at D = 16 and 32 and every block size the
+    command line derives (any block size since the block rule went), the
+    planted faults and the refused geometries, (b) ProtSTonKGs from
+    synthetic node2vec TSVs (``BB_PATHS``), (c) times, (d) the stores
+    past the old block rule (``BB_ANY_PATHS``: blocks 25, 4 and 2,048),
+    (e) ProtSTonKGs in 6 heads of D = 128 on phase 11's ``pparams``.
     Returns (the launch counts of every counted run, summed; per kernel,
     the worst bf16 error at the new geometries; per kernel, the 128-wide
-    path shape's times)."""
+    path shape's times; the block-25 store's counts and times; the
+    6-head path's counts and times)."""
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(27)
     errs: dict = {}
@@ -6263,8 +6378,13 @@ def phase_bigbird_widths(card: str) -> tuple:
                 times = _bb_times(cfg, engine, rows, state, card)
             del state, engine
             torch.cuda.empty_cache()
+        log(f"# bigbird widths (b, c): {time.perf_counter() - t_phase:.1f} s")
+        any_total, counts25, times25 = _bb_any_paths(tmp, card)
+        _add_counts(total, any_total)
+    counts128, times128 = _bb_heads128(pcfg, pparams, card)
+    _add_counts(total, counts128)
     log(f"# bigbird widths phase: {time.perf_counter() - t_phase:.1f} s")
-    return total, errs, times
+    return total, errs, times, (counts25, times25), (counts128, times128)
 
 
 # ---------------------------------------------------------------------------
@@ -6273,16 +6393,21 @@ def phase_bigbird_widths(card: str) -> tuple:
 # and 544-wide configs
 # ---------------------------------------------------------------------------
 
-# head widths of the attention checks: 8 (run at 16), widths inside each
-# padded instance (24, 48, 96, 112), the CLI's derived 48, 68 (a 136-byte
-# bf16 row, which the wrappers pad to 72 for TMA), 72 and 80, and 128
-HEAD_WIDTHS = (8, 24, 48, 68, 72, 80, 96, 112, 128)
+# head widths of the attention checks: below 8 (1, 2 and the CLI's 4- and
+# 8-wide configs' 2 and 4, 7; padded to 8, run at 16), 8, widths inside
+# each padded instance (24, 48, 96, 112), the CLI's derived 48, 68 (a
+# 136-byte bf16 row, which the wrappers pad to 72 for TMA), 72 and 80, and
+# 128
+HEAD_WIDTHS = (1, 2, 4, 7, 8, 24, 48, 68, 72, 80, 96, 112, 128)
 HEAD_S = (1, 65, 512)
 HEAD_BATCH, HEAD_HEADS = 2, 3
 # the planted faults' widths: both reach the second 64-column block
 HEAD_FAULT_DIMS = (80, 128)
-# head widths outside the attention kernels' domain (phase 26 (a) refuses them)
-HEAD_OUTSIDE = (264, 512)
+# (S, D) outside the attention kernels' domain (phase 26 (a) refuses them):
+# no head width, no rows
+HEAD_OUTSIDE = ((64, 0), (0, 32))
+# head widths the C entry points refuse (they take positive multiples of 8)
+WIDTHS_C_OUTSIDE = (0, 4, 36, 68)
 # STonKGs at BERT-base's widths (12 x 768, I=3072, 256 + 256, KG vocabulary
 # 100,000) with its 768 split into 6 heads of D=128
 HEADS_128 = 6
@@ -6346,13 +6471,15 @@ def _heads_cfg() -> STonKGsConfig:
     return STonKGsConfig(bert=BertConfig(num_attention_heads=HEADS_128), kg_vocab_size=100_000)
 
 
-def _heads_serving(cfg: STonKGsConfig, params: dict) -> dict:
+def _heads_serving(cfg: STonKGsConfig, params: dict, timed_runs: int = 3) -> dict:
     """(b) ``STonKGsEngine.embed`` at BERT-base's widths with 6 heads of
     D=128 (3 of D=256 in phase 29) on phase 5's parameters (the head split
     changes no shape): ROWS
     rows at B=128 in parity mode in bf16, the serving kernels' launches
-    from 0 just before it, finite output, pairs/s over 3 more runs (as
-    phase 6 times phase 5's engine); then 4 rows on the card in fp32
+    from 0 just before it, finite output, pairs/s over ``timed_runs``
+    more runs (as phase 6 times phase 5's engine; 0 at D=384, whose SIMT
+    attention takes 5.7 s a run: the counted run is timed); then 4 rows on
+    the card in fp32
     against the CPU in fp32 (1e-3) and the bf16 rows against the CPU by
     cosine (0.99), as phase 5.  Returns the launch counts."""
     t0 = time.perf_counter()
@@ -6361,15 +6488,18 @@ def _heads_serving(cfg: STonKGsConfig, params: dict) -> dict:
     engine = STonKGsEngine(cfg=cfg, params=params_to(params, DEV, BF16), batch_size=BATCH,
                            device=DEV)
     _reset_counts(SERVING_KERNELS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     out = engine.embed(feats)
+    first = time.perf_counter() - t1
     counts = _counts(SERVING_KERNELS)
     per_batch = cfg.bert.num_hidden_layers * 2 - 1
     _check_counts(f"{tag} parity embed ({math.ceil(ROWS / BATCH)} batches)", counts,
                   {n: per_batch * math.ceil(ROWS / BATCH) for n in SERVING_KERNELS})
     check(out.shape == (ROWS, cfg.bert.hidden_size) and bool(np.isfinite(out).all()),
           f"{tag} embed output {out.shape} not finite")
-    times = []
-    for _ in range(3):
+    times = [] if timed_runs else [first]
+    for _ in range(timed_runs):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         engine.embed(feats)
@@ -6470,7 +6600,7 @@ def phase_head_widths(card: str, params: dict) -> tuple:
     log(f"# head widths (b) D=128: {time.perf_counter() - t_phase:.1f} s")
     total = dict(counts)
     for hidden in HEAD_TSV_WIDTHS:
-        _widths_pretrain_files(hidden, total)
+        _widths_pretrain_files(hidden, total, entities=WIDE_ENTITIES)
     log(f"# head widths (c) the CLI's configs: {time.perf_counter() - t_phase:.1f} s")
     times = _heads_times(cfg, card)
     torch.cuda.empty_cache()
@@ -6495,10 +6625,8 @@ WIDE_FFN_M = (3, 200)
 # output columns of one TMA store box, the last partial one at H=100
 WIDE_FAULT_H = 100
 WIDE_FAULT_COLS = 64
-# the FFN widths outside the kernels' domain (H or I below 8), and BigBird's
-# head width
-WIDE_FFN_OUTSIDE = ((4, 16), (16, 4))
-WIDE_BB_OUTSIDE = 72
+# the FFN widths outside the kernels' domain (H or I 0)
+WIDE_FFN_OUTSIDE = ((0, 16), (16, 0))
 # the BigBird checks' head widths (36: a 72-byte bf16 row, padded to 40),
 # each at (block size, B, H, nb, padded mask): block 64 (the padded
 # instances' run-time block of one tile) and 96 (a partial tile, nb = 5)
@@ -6506,11 +6634,20 @@ WIDE_BB_D = (8, 24, 36, 40, 48, 56)
 WIDE_BB_GEOS = ((64, 2, 3, 8, True), (96, 2, 2, 5, False))
 # the planted fault's head width and the padded instance's width
 WIDE_BB_FAULT = (24, 32)
+# past the old head rule (8 to 64): D = 1, 2, 4 and 7 (padded to 8) and
+# the SIMT bodies' column parts from 72 to 520, each at block 64, 25 (a
+# partial tile) and 512 (nb = 5, one batch row)
+WIDE_BB_ANY_D = (1, 2, 4, 7, 72, 100, 128, 200, 256, 384, 520)
+WIDE_BB_ANY_GEOS = ((64, 2, 3, 8, True), (25, 2, 2, 8, True), (512, 1, 2, 5, False))
+# the planted fault: at D = 128 the logits without their columns from 64 on
+WIDE_BB_COL_FAULT = (128, 64)
 # STonKGs from these KG TSV widths: 2 heads of 24, 40, 50 and 56, 20 of 64
 # (H = 1280, I = 5120); TransE from the 80-wide one; the rows of their
 # TSVs (phase 26's 5,000 made the 1280-wide path 24 s, two thirds of it
 # writing and reading the TSV and the checkpoint)
 WIDE_TSV_WIDTHS = (48, 80, 100, 112, 1280)
+# ... and from 8- and 4-wide ones (2 heads of 4; H = 4 in 2 heads of 2)
+WIDE_NARROW_TSV_WIDTHS = (8, 4)
 WIDE_TRANSE_WIDTH = 80
 WIDE_ENTITIES = 1000
 # ProtSTonKGs from these (width, text | entity | protein lengths): trunk
@@ -6610,16 +6747,33 @@ def _wide_bigbird(gen, note) -> None:
     note("bigbird_mid_fwd", e, BF16)
     _attn_limit_rejects(f"sparse fwd {label} integer q, k at the scale 1/sqrt({P})", want,
                         _sparse_fwd_fault(q, k, v, mask, rand, 64, scale_d=P))
+    _bb_cases([(bs, D, B, H, nb, padded) for D in WIDE_BB_ANY_D
+               for bs, B, H, nb, padded in WIDE_BB_ANY_GEOS], gen, note)
+    D, c = WIDE_BB_COL_FAULT
+    q, k, v, mask, rand, _ = _sparse_inputs(2, 8, BF16, gen, "train", True, 3, 64, D, BB_R)
+    cut_q, cut_k = q.clone(), k.clone()
+    cut_q[..., c:] = 0
+    cut_k[..., c:] = 0
+    _attn_limit_rejects(f"sparse fwd bf16 D={D} bs=64 train plan without the logits' columns "
+                        f"{c}-{D - 1}", bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)[0],
+                        bigbird_mid_fwd_plain(cut_q, cut_k, v, mask, rand, 64)[0])
 
 
-def _wide_paths(total: dict) -> None:
+def _wide_paths(total: dict) -> dict:
     """(c) STonKGs ``run_pretraining`` -> ``from_pretrained`` -> ``embed``
-    from each width of WIDE_TSV_WIDTHS and TransE from the 80-wide TSV
-    (``_widths_pretrain_files``, WIDE_ENTITIES rows), and ProtSTonKGs from each TSV of
-    WIDE_PROT_PATHS (``_bb_path``): launch counts from 0, card fp32
-    against CPU fp32, card bf16 by cosine."""
+    from each width of WIDE_TSV_WIDTHS and WIDE_NARROW_TSV_WIDTHS and
+    TransE from the 80-wide TSV (``_widths_pretrain_files``, WIDE_ENTITIES
+    rows), and ProtSTonKGs from each TSV of WIDE_PROT_PATHS (``_bb_path``):
+    launch counts from 0, card fp32 against CPU fp32, card bf16 by cosine.
+    Returns the 4-wide path's counts."""
     for hidden in WIDE_TSV_WIDTHS:
         _widths_pretrain_files(hidden, total, entities=WIDE_ENTITIES)
+    narrow: dict = {}
+    for hidden in WIDE_NARROW_TSV_WIDTHS:
+        counted: dict = {}
+        _widths_pretrain_files(hidden, counted, entities=WIDE_ENTITIES)
+        _add_counts(total, counted)
+        narrow[hidden] = counted
     _widths_pretrain_files(WIDE_TRANSE_WIDTH, total, variant="transe", entities=WIDE_ENTITIES)
     with tempfile.TemporaryDirectory(prefix="stonkgs_wide_") as tmp:
         for width, layout in WIDE_PROT_PATHS:
@@ -6628,6 +6782,7 @@ def _wide_paths(total: dict) -> None:
             save_kg_artifacts(art, emb, os.path.join(tmp, f"walks{width}.tsv"))
             _bb_path(width, layout, emb, tmp, total)
             torch.cuda.empty_cache()
+    return narrow[min(WIDE_NARROW_TSV_WIDTHS)]
 
 
 # the widths past the earlier domains (phase 29 (d)-(g)): the FFN at (H, I)
@@ -6642,10 +6797,22 @@ WIDEST_LN_FAULT = (2560, 2048)
 # head widths past 128: 136 (just past), 140 (no multiple of 8: padded to
 # 144), 160, 192, 200 and 256 (3 heads at BERT-base's 768), all run at P = 256
 WIDEST_HEAD_DIMS = (136, 140, 160, 192, 200, 256)
-# the planted fault: the scores without their columns from 128 on at D = 256
-WIDEST_HEAD_FAULT = (256, 128)
+# past the old cap of 256, run by the kernels of a warp a row in column
+# parts of 256: 264 (just past), 300 (no multiple of 8: padded to 304), 384
+# (2 heads at BERT-base's 768), 768 (1 head), 1,024 and 2,560 (10 parts)
+WIDEST_ANY_HEAD_DIMS = (264, 300, 384, 768, 1024, 2560)
+# the planted faults: the scores without their columns from 128 on at D =
+# 256, and from 256 on (the second column part's) at D = 384
+WIDEST_HEAD_FAULTS = ((256, 128), (384, 256))
+# the FFN below 8: the CLI's 4-wide config (I = 16), and H or I from 2 to 6
+TINY_FFN = ((4, 16), (6, 24), (2, 8), (16, 4))
+# the planted fault: at H = 4 the LayerNorm statistics over 8 columns (the
+# padded bf16 row)
+TINY_LN_FAULT = (4, 8)
+HEADS_384 = 2
 # STonKGs from a 2560-wide KG TSV: WIDEST_ENTITIES rows, 4 steps of B=32,
-# embed over ROWS rows at B=128; and BERT-base's widths in 3 heads of 256
+# embed over one batch of B=128 (ROWS until the smoke's time was won back
+# for the last widths); and BERT-base's widths in 3 heads of 256
 WIDEST_TSV_WIDTH = 2560
 WIDEST_ENTITIES = 1000
 WIDEST_PF_STEPS = 4
@@ -6670,18 +6837,22 @@ def _ffn_ln_first_stats(args, n: int, act):
     return ln(x2.float() + ff.float(), g2, be2).to(dt)
 
 
-def _widest_ffn(gen, note) -> None:
-    """(d) The three FFN kernels at every (H, I) of WIDEST_FFN, M = 3 and
-    200, gelu (and gelu_new at M = 200), bf16 and fp32, against their plain
-    versions (weights at 1/sqrt(fan-in), drawn on the card): bf16 above H
-    = 2048 through the chunked LayerNorm pass, fp32 through the split
-    path.  At H = 2560, M = 200, gelu, the limits must reject in both
-    dtypes the plain serving block with its LayerNorm statistics over the
-    first 2048 columns."""
-    fault_h, fault_n = WIDEST_LN_FAULT
+def _widest_ffn(gen, note, pairs=WIDEST_FFN, fault=None) -> None:
+    """(d) The three FFN kernels at every (H, I) of ``pairs`` (WIDEST_FFN;
+    (h) TINY_FFN, H or I below 8), M = 3 and 200, gelu (and gelu_new at M =
+    200), bf16 and fp32, against their plain versions (weights at
+    1/sqrt(fan-in), drawn on the card): bf16 above H = 2048 through the
+    chunked LayerNorm pass, fp32 through the split path.  At ``fault``'s
+    (H, fault function) (WIDEST_FFN: H = 2560 with the LayerNorm
+    statistics over the first 2048 columns; TINY_FFN: H = 4 with them over
+    8, the padded bf16 row), M = 200, gelu, the limits must reject the
+    faulty plain serving block in both dtypes."""
+    fault_h, fault_label, faulty = fault or (
+        WIDEST_LN_FAULT[0], f"over the first {WIDEST_LN_FAULT[1]} columns",
+        lambda args, act: _ffn_ln_first_stats(args, WIDEST_LN_FAULT[1], act))
     for dtype in (BF16, F32):
         tag = "bf16" if dtype == BF16 else "fp32"
-        for H, I in WIDEST_FFN:
+        for H, I in pairs:
             for M in WIDEST_FFN_M:
                 big = M == WIDEST_FFN_M[-1]
                 for act in ("gelu", "gelu_new") if big else ("gelu",):
@@ -6692,9 +6863,8 @@ def _widest_ffn(gen, note) -> None:
                                  dtype)
                     note("ffn_ln_block", e, dtype)
                     if big and act == "gelu" and H == fault_h:
-                        _tol_rejects(f"ffn_ln {label} with the LayerNorm statistics over the "
-                                     f"first {fault_n} columns", want,
-                                     _ffn_ln_first_stats(args, fault_n, act))
+                        _tol_rejects(f"ffn_ln {label} with the LayerNorm statistics "
+                                     f"{fault_label}", want, faulty(args, act))
                     del args, want
                     x, w1, b1, w2, b2, g = _train_ffn_inputs(M, dtype, gen, H, I, fan_in=True)
                     e = _compare(f"ffn fwd {label}", fused_ffn_fwd(x, w1, b1, w2, b2, act=act),
@@ -6710,21 +6880,30 @@ def _widest_ffn(gen, note) -> None:
         torch.cuda.empty_cache()
 
 
-def _widest_attention(gen, note) -> None:
-    """(e) The three attention kernels at every D of WIDEST_HEAD_DIMS
-    against their plain versions, bf16 and fp32, at S = 1, 65 and 512,
-    B=2 with 3 heads, as phase 28 (a): inference with the key bias (batch
-    row 0's keys all at -1e9) and without it, the training forward at
-    rates 0 and 0.1 (output and lse), the backward at both rates
+def _tiny_ffn(gen, note) -> None:
+    """(h) ``_widest_ffn`` at TINY_FFN, the LayerNorm fault at H = 4 over
+    the 8 columns of the padded bf16 row (``_ffn_ln_padded_stats``)."""
+    h, n = TINY_LN_FAULT
+    _widest_ffn(gen, note, TINY_FFN,
+                (h, f"over {n} columns", lambda args, act: _ffn_ln_padded_stats(args, n, act)))
+
+
+def _widest_attention(gen, note, dims=WIDEST_HEAD_DIMS) -> None:
+    """(e) The three attention kernels at every D of ``dims`` against
+    their plain versions, bf16 and fp32, at S = 1, 65 and 512, B=2 with 3
+    heads, as phase 28 (a): inference with the key bias (batch row 0's
+    keys all at -1e9) and without it, the training forward at rates 0 and
+    0.1 (output and lse), the backward at both rates
     (``_attention_bwd_cases``; at S=512 in bf16 its limits must reject dK
-    without its scale and dV without the keep scale).  At D=256, S=512,
-    in bf16 the output limit must reject the plain output without the
-    scores' columns from 128 on (half of the wide row lost)."""
+    without its scale and dV without the keep scale).  At each (D, c) of
+    WIDEST_HEAD_FAULTS, S=512, in bf16 the output limit must reject the
+    plain output without the scores' columns from c on (256: half of the
+    wide row lost; 384: the second column part's)."""
     B, H = HEAD_BATCH, HEAD_HEADS
-    fault_d, fault_c = WIDEST_HEAD_FAULT
+    faults = dict(WIDEST_HEAD_FAULTS)
     for dtype in (BF16, F32):
         tag = "bf16" if dtype == BF16 else "fp32"
-        for D in WIDEST_HEAD_DIMS:
+        for D in dims:
             for S in HEAD_S:
                 label = f"{tag} D={D} B={B} H={H} S={S}"
                 q, k, v, bias, _, seed, _ = _train_attn_inputs(B, S, dtype, gen, True, H, D)
@@ -6734,7 +6913,8 @@ def _widest_attention(gen, note) -> None:
                     e = _compare_attn(f"attention {label} {b_label}",
                                       flash_attention_infer(q, k, v, b), want, dtype)
                     note("flash_attention_infer", e, dtype)
-                if dtype == BF16 and S == HEAD_S[-1] and D == fault_d:
+                if dtype == BF16 and S == HEAD_S[-1] and D in faults:
+                    fault_c = faults[D]
                     cut_q, cut_k = q.clone(), k.clone()
                     cut_q[..., fault_c:] = 0
                     cut_k[..., fault_c:] = 0
@@ -6756,8 +6936,8 @@ def _widest_attention(gen, note) -> None:
 def _widest_paths(params: dict, total: dict) -> tuple:
     """(f) STonKGs ``run_pretraining`` -> ``from_pretrained`` -> ``embed``
     from a 2560-wide KG TSV (the derived config: 2 layers, 40 heads of 64,
-    I = 10,240; WIDEST_ENTITIES rows, 4 steps of B=32, the embed over ROWS
-    rows at B=128, card fp32 vs CPU fp32 and bf16 by cosine), then STonKGs
+    I = 10,240; WIDEST_ENTITIES rows, 4 steps of B=32, the embed over one
+    batch of B=128, card fp32 vs CPU fp32 and bf16 by cosine), then STonKGs
     at BERT-base's widths in 3 heads of D=256 on phase 5's parameters:
     ``embed`` and phase 7's ``pretrain`` (B=32, 4 steps) and phase 8's
     numerics.  Returns the launch counts of the 2560-wide path and of the
@@ -6765,7 +6945,7 @@ def _widest_paths(params: dict, total: dict) -> tuple:
     t0 = time.perf_counter()
     wide: dict = {}
     _widths_pretrain_files(WIDEST_TSV_WIDTH, wide, entities=WIDEST_ENTITIES,
-                           steps=WIDEST_PF_STEPS, embed_rows=ROWS)
+                           steps=WIDEST_PF_STEPS, embed_rows=BATCH)
     _add_counts(total, wide)
     torch.cuda.empty_cache()
     log(f"# wide (f) {WIDEST_TSV_WIDTH}-wide path: {time.perf_counter() - t0:.1f} s")
@@ -6806,24 +6986,72 @@ def _widest_times(card: str) -> dict:
     return times
 
 
+def _heads384_cfg() -> STonKGsConfig:
+    return STonKGsConfig(bert=BertConfig(num_attention_heads=HEADS_384), kg_vocab_size=100_000)
+
+
+def _heads384_path(params: dict, total: dict) -> dict:
+    """(i) STonKGs at BERT-base's widths in 2 heads of D=384 on phase 5's
+    parameters, as (f) in 3 heads of 256: ``embed`` over ROWS rows at
+    B=128 and phase 7's ``pretrain`` (B=32, 4 steps) and phase 8's
+    numerics.  Returns the launch counts of the embed and step."""
+    t0 = time.perf_counter()
+    cfg = _heads384_cfg()
+    heads = _heads_serving(cfg, params, timed_runs=0)
+    train_counts, state = phase_training(cfg, params)
+    heads.update(train_counts)
+    del state
+    phase_train_numerics(cfg)
+    _add_counts(total, heads)
+    torch.cuda.empty_cache()
+    log(f"# wide (i) D=384: {time.perf_counter() - t0:.1f} s")
+    return heads
+
+
+def _any_width_times(card: str) -> dict:
+    """(j) The three FFN kernels at the 4-wide path's shapes (the serving
+    block at the trunk's M = 128 x 512, the training pair at the step's 32
+    x 512) beside their bound, plain versions and the cuBLAS products they
+    contain, and the three attention kernels at the D=384 path's shapes
+    (``_heads_times``).  Returns, per kernel name, its times."""
+    gen = torch.Generator(device=DEV).manual_seed(29)
+    H, I = TINY_FFN[0]
+    M, Mt = BATCH * 512, TRAIN_BATCH * 512
+    times = {"ffn_ln_block": _time_ffn(f"H={H} trunk M={M}", M, gen, H, I),
+             "ffn_train_fwd": _time_train_ffn(f"H={H} step M={Mt}", Mt, gen, False, H, I),
+             "ffn_train_bwd": _time_train_ffn(f"H={H} step M={Mt}", Mt, gen, True, H, I)}
+    for name, t in times.items():
+        log(f"# time {name} H={H} bf16 ({card}): {json.dumps(t)}")
+    times.update(_heads_times(_heads384_cfg(), card))
+    torch.cuda.empty_cache()
+    return times
+
+
 def phase_wide(card: str, params: dict) -> tuple:
     """Phase 29: (a) the FFN kernels at hidden widths from 16 to 2048 with
-    the planted faults, (b) the BigBird pair at head widths from 8 to 56
-    with the planted fault (the refused widths are phase 26's), (c) the
-    STonKGs and ProtSTonKGs paths from KG TSVs whose derived configs run
-    them; past the earlier domains, (d) the FFN kernels at H from 2056 to
-    8192 and I up to 32,768, (e) the attention kernels at D from 136 to
-    256, each with a planted fault, (f) STonKGs from a 2560-wide KG TSV
-    and at 3 heads of D=256 on phase 5's ``params``, (g) the kernels'
-    times at (f)'s shapes.  Returns (the launch counts of every counted
-    run, summed; per kernel, the worst bf16 error of (a), (b), (d) and
-    (e); the counts of the 2560-wide path; the counts of the D=256 embed
-    and step; per kernel, the worst bf16 error of (d) and (e); (g)'s
-    times)."""
+    the planted faults, (b) the BigBird pair at head widths from 4 to 520
+    with the planted faults (the refused geometries are phase 10's and
+    27's), (c) the STonKGs and ProtSTonKGs paths from KG TSVs whose
+    derived configs run them (4 to 1280 wide); past the earlier domains,
+    (d) the FFN kernels at H from 2056 to 8192 and I up to 32,768, (e) the
+    attention kernels at D from 136 to 256, each with a planted fault, (f)
+    STonKGs from a 2560-wide KG TSV and at 3 heads of D=256 on phase 5's
+    ``params``, (g) the kernels' times at (f)'s shapes; past the last
+    domains, (h) the FFN kernels at H or I below 8 and the attention
+    kernels at D from 264 to 2,560, with planted faults, (i) STonKGs at 2
+    heads of D=384 on ``params``, (j) the kernels' times at (i)'s and the
+    4-wide path's shapes.  Returns (the launch counts of every counted
+    run, summed; per kernel, the worst bf16 error of (a), (b), (d), (e)
+    and (h); the counts of the 2560-wide path; the counts of the D=256
+    embed and step; per kernel, the worst bf16 error of (d) and (e); (g)'s
+    times; and a dict of (h)-(j): "errs" (per kernel, the worst bf16 error
+    of (h)), "d384" (the D=384 embed's and step's counts), "h4" (the
+    4-wide path's counts), "times" ((j)'s))."""
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(29)
     errs: dict = {}
     widest: dict = {}
+    any_errs: dict = {}
 
     def note(name, err, dtype):
         if dtype == BF16:
@@ -6834,13 +7062,18 @@ def phase_wide(card: str, params: dict) -> tuple:
         if dtype == BF16:
             widest[name] = max(widest.get(name, 0.0), err)
 
+    def note_any(name, err, dtype):
+        note(name, err, dtype)
+        if dtype == BF16:
+            any_errs[name] = max(any_errs.get(name, 0.0), err)
+
     card_gen = torch.Generator(device=DEV).manual_seed(29)
     _wide_ffn(card_gen, note)
     log(f"# wide (a) FFN kernels: {time.perf_counter() - t_phase:.1f} s")
     _wide_bigbird(gen, note)
     log(f"# wide (b) BigBird pair: {time.perf_counter() - t_phase:.1f} s")
     total: dict = {}
-    _wide_paths(total)
+    h4_counts = _wide_paths(total)
     log(f"# wide (c) paths: {time.perf_counter() - t_phase:.1f} s")
     _widest_ffn(card_gen, note_widest)
     log(f"# wide (d) FFN kernels past H=2048: {time.perf_counter() - t_phase:.1f} s")
@@ -6848,8 +7081,15 @@ def phase_wide(card: str, params: dict) -> tuple:
     log(f"# wide (e) attention kernels past D=128: {time.perf_counter() - t_phase:.1f} s")
     wide_counts, head_counts = _widest_paths(params, total)
     times = _widest_times(card)
+    log(f"# wide (f, g): {time.perf_counter() - t_phase:.1f} s")
+    _tiny_ffn(card_gen, note_any)
+    _widest_attention(card_gen, note_any, WIDEST_ANY_HEAD_DIMS)
+    log(f"# wide (h) FFN below 8, attention past D=256: {time.perf_counter() - t_phase:.1f} s")
+    d384_counts = _heads384_path(params, total)
+    any_times = _any_width_times(card)
     log(f"# wide phase: {time.perf_counter() - t_phase:.1f} s ({card})")
-    return total, errs, wide_counts, head_counts, widest, times
+    return total, errs, wide_counts, head_counts, widest, times, {
+        "errs": any_errs, "d384": d384_counts, "h4": h4_counts, "times": any_times}
 
 
 def main() -> int:
@@ -6941,13 +7181,14 @@ def main() -> int:
         lap("23 (parallel)")
         for name, c in phase_cli(card, params, pparams).items():
             counts[name] += c
-        del pparams
         lap("24 (CLI)")
         width_total, width_counts, width_errs, width_times = phase_widths(card)
         for name, c in width_total.items():
             counts[name] += c
         lap("26 (widths)")
-        bb_total, bb_errs, bb_times = phase_bigbird_widths(card)
+        bb_total, bb_errs, bb_times, (bs25_counts, bs25_times), (d128_counts, d128_times) = \
+            phase_bigbird_widths(card, pcfg, pparams)
+        del pparams
         for name, c in bb_total.items():
             counts[name] += c
         lap("27 (BigBird widths)")
@@ -6955,7 +7196,7 @@ def main() -> int:
         for name, c in head_total.items():
             counts[name] += c
         lap("28 (head widths)")
-        wide_total, wide_errs, w2560_counts, d256_counts, widest_errs, widest_times = \
+        wide_total, wide_errs, w2560_counts, d256_counts, widest_errs, widest_times, anyw = \
             phase_wide(card, params)
         del params
         lap("29 (wide)")
@@ -7045,6 +7286,26 @@ def main() -> int:
     kernels.append({"name": "dense_int8 K=100", "route": "cuda", "source": src,
                     "replaces": replaces, "launches": int8_wide["counts"]["dense_int8"],
                     **{k: t[k] for k in keys}, "max_abs_err": int8_wide["err"]})
+    # past the last domains: the pair at block 25 (the S = 200 store's
+    # launches and shapes; the worst bf16 error of phase 27 at any
+    # geometry) and at D = 128 (the 6-head ProtSTonKGs path's; the worst
+    # bf16 error of phase 29's pair checks), the three attention kernels
+    # at D = 384 (the 2-head path's) and the three FFN kernels at H = 4
+    # (the 4-wide path's), with the worst bf16 error of phase 29 (h)
+    for name, tag, launched, t, err in (
+            *((n, "bs=25", bs25_counts, bs25_times, bb_errs[n])
+              for n in ("bigbird_mid_fwd", "bigbird_mid_bwd")),
+            *((n, "D=128", d128_counts, d128_times, wide_errs[n])
+              for n in ("bigbird_mid_fwd", "bigbird_mid_bwd")),
+            *((n, "D=384", anyw["d384"], anyw["times"], anyw["errs"][n]) for n in HEAD_KERNELS),
+            *((n, "H=4", anyw["h4"], anyw["times"], anyw["errs"][n])
+              for n in ("ffn_ln_block", "ffn_train_fwd", "ffn_train_bwd"))):
+        src, replaces = sources[name]
+        err = max(err, t[name]["max_abs_err"], *(x["max_abs_err"] for k, x in t.items()
+                                                 if k.startswith(name + ":")))
+        kernels.append({"name": f"{name} {tag}", "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launched[name],
+                        **{k: t[name][k] for k in keys}, "max_abs_err": err})
     log(f"# card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,33 +1,43 @@
 // Pieces shared by the attention kernels (flash_attention_infer.cu,
 // flash_attention_train.cu and bigbird_sparse.cu): 64-row tiles of the
 // (B, S, H, D) layout in shared memory, the two per-warp tile products,
-// the dropout hash, and the fp32 forward kernel.  The bf16 attention
-// forward and backward and the bf16 BigBird pair are the Hopper kernels of
-// attention_sm90.cuh, attention_bwd_sm90.cuh and bigbird_sm90.cuh (wgmma
-// and TMA): the SIMT bodies that use these pieces (the forward here, dQ
-// and dK/dV in flash_attention_train.cu, the BigBird pair in
-// bigbird_sparse.cu) are fp32 only, and exist to hold the whole model
-// against the CPU.
+// the dropout hash, the fp32 forward kernel, and the kernels of a warp a
+// row past the tiled widths.  The bf16 attention forward and backward and
+// the bf16 BigBird pair are the Hopper kernels of attention_sm90.cuh,
+// attention_bwd_sm90.cuh and bigbird_sm90.cuh (wgmma and TMA) up to their
+// widest instances (D = 256 for attention, 64 for BigBird); the SIMT bodies
+// that use these pieces (the forward here, dQ and dK/dV in
+// flash_attention_train.cu, the BigBird pair in bigbird_sparse.cu) run
+// fp32, which holds the whole model against the CPU, and bf16 past those
+// instances.
 //
 // A block has 4 warps; in a product each warp owns 16 rows of the block's
 // 64-row tile, in plain fp32 FMAs:
-//   score_tile: sw (16 x 64, fp32) = A_w (16 x D) . B^T, B a 64 x D tile;
+//   score_tile: sw (16 x 64, fp32) (+)= A_w (16 x D) . B^T, B a 64 x D tile;
 //   PvAcc:      acc (16 x D, fp32) += P_w (16 x 64) . V, V a 64 x D tile
 //               (lane owns columns lane, lane + 32, ... below D).
 // The tile width is a template parameter.  with_padded_head_dim gives it
 // from a run-time head width D, any multiple of 8 from 8 to 256 (the
-// attention kernels'; up to 64 for BigBird's), run on the instance of the
-// padded width P = 16, 32, 64, 128 or 256, the smallest at least D: the
-// loads zero the columns from D to P, which add nothing to a product, and
-// the stores write columns < D.
+// attention kernels' instances; up to 64 for BigBird's), run on the
+// instance of the padded width P = 16, 32, 64, 128 or 256, the smallest at
+// least D: the loads zero the columns from D to P, which add nothing to a
+// product, and the stores write columns < D.
 //
-// Above P = 128 the fp32 bodies are not tiled: four 64-row fp32 tiles of
-// 256 columns are 266 KB, past the 227 KB of a block, and a dK/dV block's
-// two accumulators past a thread's registers.  There a warp owns one row
-// (attn_fwd_rows_kernel here, the backward's in flash_attention_train.cu):
-// a lane holds its D/32 columns of the row in registers and walks the
-// other operand's rows from L2, each score a warp-wide sum.  They exist to
-// hold the model against the CPU; right matters more than fast.
+// Above the tiled widths (fp32 past P = 128, where four 64-row fp32 tiles
+// of 256 columns are 266 KB, past the 227 KB of a block; bf16 past the
+// Hopper kernels' P = 256) a warp owns one row (attn_fwd_rows_kernel here,
+// the backward's in flash_attention_train.cu), at any D that is a multiple
+// of 8: each score is a warp-wide sum over the whole row, a lane reading 8
+// columns at a time (16 or 32 bytes) from L2, and the row's outputs are cut
+// into column parts of 256 (kPartCols), 8 columns a lane, one warp a part:
+// a part's warp forms every score over the full D again, keeps its own
+// softmax statistics over the true scores, and accumulates only its
+// columns, so no lane holds more than 8 accumulators at any D (2,560 is 10
+// parts).  The scores are formed once a part (twice at D = 384), kRowKeys
+// keys' sums in flight a warp; every warp reads all of K and V from L2, so
+// L2 bounds them (about 0.24 TB a call at B=128, S=512, 2 heads of 384).
+// They exist to hold the model against the CPU and to run the widths no
+// Hopper instance takes; right matters more than fast.
 #pragma once
 
 #include <cmath>
@@ -48,11 +58,19 @@ constexpr float kNegBias = -1e9f;  // score of a padded key (the JAX package's N
 
 template <typename T> struct Pad;
 template <> struct Pad<float> { static constexpr int value = 4; };
+// bf16 rows of D + 8 elements stay 16-byte aligned for load_rows' vectors
+template <> struct Pad<__nv_bfloat16> { static constexpr int value = 8; };
 
-// the widest head width of the attention kernels, and the widest padded
-// width of the tiled fp32 bodies
+// the widest instance of the attention kernels (the bf16 Hopper kernels
+// take D up to it), and the widest padded width of the tiled fp32 bodies;
+// wider heads run the kernels of a warp a row
 constexpr int kMaxHeadDim = 256;
 constexpr int kTiledMaxHeadDim = 128;
+
+// the head widths the C entry points take (the wrappers pad any other D
+// with zero columns): any multiple of 8, whose rows are multiples of 16
+// bytes, as TMA's strides and the 16-byte loads need
+inline bool head_dim_ok(int D) { return D >= 8 && D % 8 == 0; }
 
 // f(std::integral_constant<int, P>{}) for a head width D that is a multiple
 // of 8 from 8 to kMax (256, or 64 for BigBird), P = 16, 32, 64, 128 or 256
@@ -113,13 +131,18 @@ __device__ __forceinline__ void load_vec(float* s, const float* g, int n) {
 }
 
 // sw (16 x kSST, fp32) = aw (16 x D) . bs^T, bs a 64 x D tile (both stride
-// TS); lane owns columns lane and lane + 32 (rows of bs)
+// TS); lane owns columns lane and lane + 32 (rows of bs); `add`: sw +=
+// (a sum over another chunk of the columns)
 template <typename T, int D = kD>
-__device__ __forceinline__ void score_tile(const T* aw, const T* bs, float* sw, int lane) {
+__device__ __forceinline__ void score_tile(const T* aw, const T* bs, float* sw, int lane,
+                                           bool add = false) {
   constexpr int TS = Sizes<T, D>::TS;
   float acc[16][2];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int r = 0; r < 16; ++r) {
+    acc[r][0] = add ? sw[r * kSST + lane] : 0.f;
+    acc[r][1] = add ? sw[r * kSST + lane + 32] : 0.f;
+  }
   for (int d = 0; d < D; ++d) {
     const float b0 = to_f(bs[lane * TS + d]), b1 = to_f(bs[(lane + 32) * TS + d]);
 #pragma unroll
@@ -138,12 +161,9 @@ __device__ __forceinline__ void score_tile(const T* aw, const T* bs, float* sw, 
 }
 
 // A warp's fp32 (16 x D) accumulator of P . V products; P is a 16 x 64
-// tile of row stride PS, V a 64 x D tile of row stride TS; store() writes
-// it to a staging tile of row stride OS.
-template <typename T, int D = kD> struct PvAcc;
-
-template <int D> struct PvAcc<float, D> {
-  using T = float;
+// tile (of T, or of fp32 with its own row stride), V a 64 x D tile of T of
+// row stride TS; store() writes it to a staging tile of row stride OS.
+template <typename T, int D = kD> struct PvAcc {
   static constexpr int TS = Sizes<T, D>::TS, PS = Sizes<T, D>::PS;
   static constexpr int kC = (D + 31) / 32;  // columns a lane
   float o[16][kC];  // lane owns columns lane + 32c below D
@@ -154,14 +174,16 @@ template <int D> struct PvAcc<float, D> {
 #pragma unroll
       for (int c = 0; c < kC; ++c) o[r][c] = 0.f;
   }
-  __device__ __forceinline__ void mma(const T* pw, const T* vs, int lane) {
+  template <typename TP>
+  __device__ __forceinline__ void mma(const TP* pw, const T* vs, int lane, int ps = PS) {
     for (int j = 0; j < kTile; ++j) {
       float vv[kC];
 #pragma unroll
-      for (int c = 0; c < kC; ++c) vv[c] = lane + 32 * c < D ? vs[j * TS + lane + 32 * c] : 0.f;
+      for (int c = 0; c < kC; ++c)
+        vv[c] = lane + 32 * c < D ? to_f(vs[j * TS + lane + 32 * c]) : 0.f;
 #pragma unroll
       for (int r = 0; r < 16; ++r) {
-        const float p = pw[r * PS + j];
+        const float p = to_f(pw[r * ps + j]);
 #pragma unroll
         for (int c = 0; c < kC; ++c) o[r][c] += p * vv[c];
       }
@@ -332,55 +354,136 @@ constexpr size_t fwd_smem_bytes() {
   return 3 * Z::tile + Z::ostage + Z::wtile + Z::vec;
 }
 
-// --- the fp32 bodies above P = 128: a warp a row ------------------------------
+// --- past the tiled widths: a warp a (row, column part) ----------------------
 
-constexpr int kRowWarps = 8;  // rows (warps) of a block of the row kernels
+constexpr int kRowWarps = 8;    // rows (warps) of a block of the row kernels
+constexpr int kPartCols = 256;  // output columns of a part: 8 a lane
+constexpr int kRowKeys = 4;     // keys (or query rows) a warp walks at a time
 
-// the dot product of a lane's kC columns (lane + 32c, zero from D on) with
-// the same columns of the fp32 row at `g`, summed over the warp
-template <int kC>
-__device__ __forceinline__ float row_dot(const float (&a)[kC], const float* g, int D,
-                                         int lane) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < kC; ++c)
-    if (lane + 32 * c < D) s += a[c] * g[lane + 32 * c];
-  return warp_sum(s);
+// column parts of a row of D values
+__host__ __device__ __forceinline__ int parts_of(int D) {
+  return (D + kPartCols - 1) / kPartCols;
 }
 
-// a lane's kC columns of a row of D values at g (zero from D on)
-template <int kC>
-__device__ __forceinline__ void load_row(float (&a)[kC], const float* g, int D, int lane) {
-#pragma unroll
-  for (int c = 0; c < kC; ++c) a[c] = lane + 32 * c < D ? g[lane + 32 * c] : 0.f;
+// the 8 values at g (16 bytes of bf16 or 32 of fp32, aligned) as fp32
+template <typename T>
+__device__ __forceinline__ void load8(float (&x)[8], const T* g) {
+  if constexpr (kIsBf16<T>) {
+    // a bf16 is the high half of its fp32: the element at the lower
+    // address is a word's low half
+    const uint4 u = *reinterpret_cast<const uint4*>(g);
+    x[0] = __uint_as_float(u.x << 16), x[1] = __uint_as_float(u.x & 0xffff0000u);
+    x[2] = __uint_as_float(u.y << 16), x[3] = __uint_as_float(u.y & 0xffff0000u);
+    x[4] = __uint_as_float(u.z << 16), x[5] = __uint_as_float(u.z & 0xffff0000u);
+    x[6] = __uint_as_float(u.w << 16), x[7] = __uint_as_float(u.w & 0xffff0000u);
+  } else {
+    const float4 a = reinterpret_cast<const float4*>(g)[0];
+    const float4 b = reinterpret_cast<const float4*>(g)[1];
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+    x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+  }
 }
 
-// The fp32 forward above P = 128, as attn_fwd_kernel computes it: a warp a
-// (b, h, query row), the row's kP/32 columns a lane in registers, the keys
-// walked twice from L2 (pass 1 the running max and sum of exp, pass 2 the
-// normalised, dropped probabilities times V), each score a warp-wide sum
-template <int kP, bool kTrain>
-__global__ void __launch_bounds__(32 * kRowWarps)
-attn_fwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ key_bias,
-                     float* __restrict__ out, float* __restrict__ lse, int B, int S, int H, int D,
-                     float scale, Dropout drop) {
-  constexpr int kC = kP / 32;
-  const size_t gw = size_t(blockIdx.x) * kRowWarps + threadIdx.x / 32;  // (b*H + h)*S + s
+// the dot products of the row at a with the rows base + u rs, u < n <=
+// kKeys (the others 0), rows of D values of T (D a multiple of 8) in fp32,
+// each summed over the warp: a lane takes the columns 8 lane + 256 i ..
+// + 7.  The kKeys sums are in flight together, the row at a loaded once:
+// one warp-wide sum a key left a row kernel waiting on its shuffles.
+template <typename T, int kKeys>
+__device__ __forceinline__ void row_dots(float (&s)[kKeys], const T* a, const T* base,
+                                         size_t rs, int n, int D, int lane) {
+#pragma unroll
+  for (int u = 0; u < kKeys; ++u) s[u] = 0.f;
+  for (int c = 8 * lane; c < D; c += kPartCols) {
+    float x[8];
+    load8(x, a + c);
+#pragma unroll
+    for (int u = 0; u < kKeys; ++u) {
+      if (u < n) {
+        float y[8];
+        load8(y, base + u * rs + c);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[u] = fmaf(x[e], y[e], s[u]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int u = 0; u < kKeys; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+}
+
+// acc += w * (the 8 values at g)
+template <typename T>
+__device__ __forceinline__ void axpy8(float (&acc)[8], float w, const T* g) {
+  float x[8];
+  load8(x, g);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = fmaf(w, x[e], acc[e]);
+}
+
+// x * mul, rounded to T, into the 8 values at g
+template <typename T>
+__device__ __forceinline__ void store8(T* g, const float (&x)[8], float mul) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) g[e] = from_f<T>(x[e] * mul);
+}
+
+// the row and column part of this warp of a row kernel over B x H x S
+// rows of D columns (the grid's x the (s, part) pairs of a head, in blocks
+// of kRowWarps, y the head, z the batch row: no 64-bit division); false
+// past the last
+struct RowPart {
+  int b, h, s, part;
+  size_t bhs;  // (b H + h) S + s: the row of lse and delta
+};
+__device__ __forceinline__ bool row_part(int S, int H, int D, RowPart& rp) {
+  const int parts = parts_of(D);
+  const int w = int(blockIdx.x) * kRowWarps + int(threadIdx.x) / 32;
+  if (w >= S * parts) return false;
+  rp.part = w % parts;
+  rp.s = w / parts;
+  rp.h = blockIdx.y;
+  rp.b = blockIdx.z;
+  rp.bhs = (size_t(rp.b) * H + rp.h) * S + rp.s;
+  return true;
+}
+
+// a row kernel's grid
+inline dim3 row_grid(int B, int S, int H, int D) {
+  return dim3(unsigned((size_t(S) * parts_of(D) + kRowWarps - 1) / kRowWarps), H, B);
+}
+
+// The forward past the tiled widths, as attn_fwd_kernel computes it: a
+// warp a (b, h, query row, column part), the keys walked twice from L2
+// (pass 1 the running max and sum of exp, pass 2 the normalised, dropped
+// probabilities rounded to T times the part's columns of V), each score a
+// warp-wide sum over the full D, kRowKeys keys at a time
+template <typename T, bool kTrain>
+__global__ void __launch_bounds__(32 * kRowWarps, 1)
+attn_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ key_bias, T* __restrict__ out,
+                     float* __restrict__ lse, int S, int H, int D, float scale, Dropout drop) {
+  RowPart rp;
+  if (!row_part(S, H, D, rp)) return;
   const int lane = threadIdx.x % 32;
-  if (gw >= size_t(B) * H * S) return;
-  const int s = int(gw % S), bh = int(gw / S), h = bh % H, b = bh / H;
-  const size_t rs = size_t(H) * D, head0 = (size_t(b) * S * H + h) * D;
-  const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
-  float qv[kC];
-  load_row<kC>(qv, q + head0 + size_t(s) * rs, D, lane);
+  const size_t rs = size_t(H) * D, head0 = (size_t(rp.b) * S * H + rp.h) * D;
+  const int c0 = rp.part * kPartCols + 8 * lane;  // the lane's 8 output columns
+  const float* kb = key_bias ? key_bias + size_t(rp.b) * S : nullptr;
+  const T* qr = q + head0 + size_t(rp.s) * rs;
   float m = -INFINITY, l = 0.f;
-  for (int j = 0; j < S; ++j) {
-    const float sc = row_dot<kC>(qv, k + head0 + size_t(j) * rs, D, lane) * scale +
-                     (kb ? kb[j] : 0.f);
-    const float m_new = fmaxf(m, sc);
-    l = l * expf(m - m_new) + expf(sc - m_new);
-    m = m_new;
+  for (int j0 = 0; j0 < S; j0 += kRowKeys) {
+    const int n = min(kRowKeys, S - j0);
+    float dots[kRowKeys];
+    row_dots(dots, qr, k + head0 + size_t(j0) * rs, rs, n, D, lane);
+#pragma unroll
+    for (int u = 0; u < kRowKeys; ++u) {
+      if (u >= n) break;
+      const float sc = dots[u] * scale + (kb ? kb[j0 + u] : 0.f);
+      const float m_new = fmaxf(m, sc);
+      l = l * expf(m - m_new) + expf(sc - m_new);
+      m = m_new;
+    }
   }
   if constexpr (kTrain) {
     const int n_pad = drop.s_pad - S;
@@ -389,44 +492,57 @@ attn_fwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l = l * expf(m - m_new) + float(n_pad) * expf(kNegBias - m_new);
       m = m_new;
     }
-    if (lane == 0) lse[gw] = m + logf(l);
+    if (rp.part == 0 && lane == 0) lse[rp.bhs] = m + logf(l);
   }
-  const uint32_t base = kTrain ? drop.row_base(bh, s) : 0u;
-  float o[kC];
+  const uint32_t base = kTrain ? drop.row_base(rp.b * H + rp.h, rp.s) : 0u;
+  float o[8] = {};
+  for (int j0 = 0; j0 < S; j0 += kRowKeys) {
+    const int n = min(kRowKeys, S - j0);
+    float dots[kRowKeys];
+    row_dots(dots, qr, k + head0 + size_t(j0) * rs, rs, n, D, lane);
 #pragma unroll
-  for (int c = 0; c < kC; ++c) o[c] = 0.f;
-  for (int j = 0; j < S; ++j) {
-    const float* kr = k + head0 + size_t(j) * rs;
-    float p = expf(row_dot<kC>(qv, kr, D, lane) * scale + (kb ? kb[j] : 0.f) - m) / l;
-    if constexpr (kTrain) {
-      if (drop.enabled) p = drop.keep(base + uint32_t(j)) ? p * drop.keep_scale : 0.f;
+    for (int u = 0; u < kRowKeys; ++u) {
+      if (u >= n) break;
+      const int j = j0 + u;
+      float p = expf(dots[u] * scale + (kb ? kb[j] : 0.f) - m) / l;
+      if constexpr (kTrain) {
+        if (drop.enabled) p = drop.keep(base + uint32_t(j)) ? p * drop.keep_scale : 0.f;
+      }
+      if (c0 < D) axpy8(o, round_to<T>(p), v + head0 + size_t(j) * rs + c0);
     }
-    const float* vr = v + head0 + size_t(j) * rs;
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-      if (lane + 32 * c < D) o[c] += p * vr[lane + 32 * c];
   }
-  float* orow = out + head0 + size_t(s) * rs;
-#pragma unroll
-  for (int c = 0; c < kC; ++c)
-    if (lane + 32 * c < D) orow[lane + 32 * c] = o[c];
+  if (c0 < D) store8(out + head0 + size_t(rp.s) * rs + c0, o, 1.f);
 }
 
+// whether the attention kernels take (B, S, H) at head width D
+inline bool shape_ok(int B, int S, int H, int D) {
+  return B > 0 && H > 0 && S >= 1 && B <= 65535 && H <= 65535 && head_dim_ok(D);
+}
+
+template <typename T, bool kTrain>
+int launch_fwd_rows(const void* q, const void* k, const void* v, const float* key_bias,
+                    void* out, float* lse, int B, int S, int H, int D, float scale, Dropout drop,
+                    cudaStream_t stream) {
+  if (!shape_ok(B, S, H, D)) return int(cudaErrorInvalidValue);
+  attn_fwd_rows_kernel<T, kTrain><<<row_grid(B, S, H, D), 32 * kRowWarps, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_bias,
+      static_cast<T*>(out), lse, S, H, D, scale, drop);
+  return int(cudaGetLastError());
+}
+
+// the fp32 forward: the tiled body up to P = 128, a warp a row past it
 template <bool kTrain>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const float* key_bias,
                    void* out, float* lse, int B, int S, int H, int D, float scale, Dropout drop,
                    cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
+  if (!shape_ok(B, S, H, D)) return int(cudaErrorInvalidValue);
+  if (D > kTiledMaxHeadDim)
+    return launch_fwd_rows<float, kTrain>(q, k, v, key_bias, out, lse, B, S, H, D, scale, drop,
+                                          stream);
   return with_padded_head_dim(D, [&](auto p) {
     constexpr int kP = decltype(p)::value;
     if constexpr (kP > kTiledMaxHeadDim) {
-      const size_t rows = size_t(B) * H * S;
-      attn_fwd_rows_kernel<kP, kTrain>
-          <<<unsigned((rows + kRowWarps - 1) / kRowWarps), 32 * kRowWarps, 0, stream>>>(
-              static_cast<const float*>(q), static_cast<const float*>(k),
-              static_cast<const float*>(v), key_bias, static_cast<float*>(out), lse, B, S, H, D,
-              scale, drop);
-      return int(cudaGetLastError());
+      return int(cudaErrorInvalidValue);  // taken by the row kernel above
     } else {
       constexpr size_t smem = fwd_smem_bytes<kP>();
       cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<kP, kTrain>,

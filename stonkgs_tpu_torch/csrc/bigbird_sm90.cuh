@@ -15,11 +15,13 @@
 // of the tensors' head width d, in bf16 (as JAX multiplies a bf16 array by
 // a Python float).
 //
-// Geometry: head width d any multiple of 8 from 8 to 64, run on the
-// instance of the padded width D = 16, 32 or 64, the smallest at least d (a
-// template parameter: a row of D bf16 is a line of 2D bytes, and TMA and
-// the wgmma descriptors take the swizzle of that width), and a block size
-// bs that is any multiple of 8 from 8 to 1,024.  At d = D (16, 32, 64 with
+// Geometry: head width d any multiple of 8 from 8 to 64 (wider heads run
+// bigbird_sparse.cu's SIMT body in column parts), run on the instance of
+// the padded width D = 16, 32 or 64, the smallest at least d (a template
+// parameter: a row of D bf16 is a line of 2D bytes, and TMA and the wgmma
+// descriptors take the swizzle of that width), and any block size bs >= 1
+// (TMA takes any row coordinate bs * blk; a box reaching past S is
+// zero-filled on loads and clipped on reduce-adds).  At d = D (16, 32, 64 with
 // the scale 1/sqrt(D)) the exact instances fix the scale by D at compile
 // time (kLogitScale): at D = 16 and 64 it is a power of two, so the second
 // rounding is exact and the kernels make only the first; at D = 32 they
@@ -44,7 +46,9 @@
 //     so no store races with the CTA that owns those rows;
 //   * query rows past bs in the backward get P = dS = 0 before the dK and
 //     dV products, so they add nothing into other blocks' keys.
-// A partial tile wastes 64 / bs of its products (8x at bs = 8).
+// A partial tile wastes 64 / bs of its products (8x at bs = 8, 16x at bs =
+// 4); below 64 a tile holds rows of the next blocks too, computed and not
+// stored.
 //
 // Both kernels have the dense attention's shape (attention_sm90.cuh): 384
 // threads, a producer warpgroup (setmaxnreg.dec) whose first warp streams
@@ -139,7 +143,7 @@ constexpr float kPenalty = -10000.f;  // BigBird's mask penalty
 
 struct Geo {
   int S, H, nb, r;
-  int bs;                // block size: a multiple of 8 from 8 to 1,024
+  int bs;                // block size: any, with at least 5 blocks
   long long sb, ss, sh;  // element strides of q, k, v
   float scale;           // 1/sqrt(d) in fp32: dS's scale, and the fp32 bodies' logit scale
   int d;                 // the tensors' head width (at most the instance's)

@@ -6,8 +6,8 @@
 // layout are shared with ffn_sm90.cuh.  bf16 runs the Hopper kernels of
 // ffn_sm90.cuh and ffn_train_sm90.cuh.
 //
-// Widths: every FFN entry point takes any hidden width H >= 8 and any
-// intermediate width I >= 8 (widths_ok), in both dtypes.  The
+// Widths: every FFN entry point takes any hidden width H >= 1 and any
+// intermediate width I >= 1 (widths_ok), in both dtypes.  The
 // arrays lie in a padded layout: each row of H (or I) values is ld(H) (or
 // ld(I)) elements long, ld rounding up to a multiple of 32 in fp32 and of 8
 // in bf16 (padded_width), the padding zero (fp32) or never read (bf16).
@@ -53,7 +53,8 @@ constexpr int kChunk = 128;              // intermediate columns of a chunk
 constexpr int kK1 = 32;                  // rows (hidden axis) of a W1 tile
 constexpr int kStages = 2;               // weight ring buffers
 constexpr int kPad = 4;                  // floats of padding a shared row
-constexpr int kMinWidth = 8;             // the narrowest H and I
+constexpr int kMinWidth = 1;             // the narrowest H and I (a bf16 row of
+                                         // H < 8 is padded to 8, 16 bytes)
 // the widest padded H of the fused fp32 bodies and of the bf16 LayerNorm
 // passes that hold a row in registers; wider rows take the split fp32 path
 // and the chunked LayerNorm pass

@@ -14,9 +14,9 @@
 // accumulator in registers, LN2 in the epilogue) and the split path of
 // ffn.cuh above it (chunked LayerNorm passes, two SIMT GEMMs through an
 // fp32 scratch h); it exists to hold the model against the CPU.  Both take
-// any H >= 8 (768 in BERT-base layers and the BigBird trunk, 1024 in
+// any H >= 1 (768 in BERT-base layers and the BigBird trunk, 1024 in
 // ProtBERT, 384 in MiniLM-L12-H384, the KG vectors' width in the command
-// line's configs: 2,560 from a 2,560-wide TSV) and any I >= 8, on arrays
+// line's configs: 2,560 from a 2,560-wide TSV) and any I >= 1, on arrays
 // in the padded layout of ffn.cuh (rows of ld(H) or ld(I) elements:
 // multiples of 32 in fp32, of 8 in bf16); the LayerNorm statistics run
 // over the true H.

@@ -49,7 +49,7 @@
 // in registers, loaded and stored as the widest vectors H allows (16 bytes
 // when H is a multiple of 256).
 //
-// Widths: any H >= 8 and I >= 8 (ffn.cuh, widths_ok), each row of the
+// Widths: any H >= 1 and I >= 1 (ffn.cuh, widths_ok), each row of the
 // arrays ld(H) = H rounded up to a multiple of 8 elements long (ld(I)
 // likewise): TMA needs 16-byte row strides.  The tensor maps take the true
 // width as the dimension and ld as the stride, so TMA zero-fills the

@@ -11,8 +11,8 @@
 //
 // bf16 runs the Hopper kernels of ffn_train_sm90.cuh: the forward is two
 // wgmma GEMMs through a bf16 scratch h (M, I); the backward a dual wgmma
-// GEMM that writes a and dh, then the dx GEMM.  Both dtypes take any H >= 8
-// and any I >= 8, on arrays in the padded layout of ffn.cuh (rows of ld(H)
+// GEMM that writes a and dh, then the dx GEMM.  Both dtypes take any H >= 1
+// and any I >= 1, on arrays in the padded layout of ffn.cuh (rows of ld(H)
 // or ld(I) elements: multiples of 32 in fp32, of 8 in bf16).
 //
 // fp32 runs SIMT bodies that exist to hold the model against the CPU.  Up
@@ -48,7 +48,7 @@
 //                     w2t (H, I), w1t (I, H) /*fp32 only, else NULL*/,
 //                     dx, dh (M, I), a (M, I), int M, int H, int I,
 //                     int act, cudaStream_t stream)
-// with M, H and I the true widths, H >= 8 and I >= 8; each returns
+// with M, H and I the true widths, H >= 1 and I >= 1; each returns
 // cudaGetLastError() after its launches (cudaErrorInvalidValue, with no
 // launch, for other widths or a missing scratch; -1 when a TMA tensor map
 // cannot be encoded).

@@ -1,7 +1,8 @@
 // Inference attention: out = softmax(Q K^T * scale + key_bias) V, with q, k,
-// v and out in the (B, S, H, D) layout, D a multiple of 8 from 8 to 256
-// (run on the instance of its padded width 16, 32, 64, 128 or 256, the
-// columns past D zero), read with strides.
+// v and out in the (B, S, H, D) layout, D any multiple of 8 (up to 256 run
+// on the instance of its padded width 16, 32, 64, 128 or 256, the columns
+// past D zero; past it a warp a row in column parts, attention.cuh), read
+// with strides.
 //
 // Replaces the TPU kernel _infer_kernel
 // (stonkgs_tpu/ops/flash_attention.py:359).  The table's bound on the H100
@@ -22,7 +23,9 @@
 // (a bf16 probability moves by at most one step at a rounding boundary).
 // fp32: attn_fwd_kernel<false> of attention.cuh, the SIMT body (64-row
 // tiles, K streamed twice; a warp a row above D = 128), which holds the
-// model against the CPU.
+// model against the CPU.  bf16 past D = 256: attn_fwd_rows_kernel of
+// attention.cuh (a warp a row and column part of 256; the scores over the
+// full D again in each part).
 // Keys >= S take no part; rows >= S are not written.
 //
 // C interface:
@@ -31,7 +34,7 @@
 //                             int B, int S, int H, int D, float scale,
 //                             cudaStream_t stream)
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue, with
-// nothing launched, for a D that is not a multiple of 8 from 8 to 256).
+// nothing launched, for a D that is not a positive multiple of 8).
 
 #include "attention_sm90.cuh"
 
@@ -43,6 +46,9 @@ extern "C" int flash_attention_infer(int dtype, const void* q, const void* k, co
   const Dropout none{};
   if (dtype == 0)
     return launch_fwd_f32<false>(q, k, v, key_bias, out, nullptr, B, S, H, D, scale, none, s);
+  if (dtype == 1 && D > kMaxHeadDim)
+    return launch_fwd_rows<__nv_bfloat16, false>(q, k, v, key_bias, out, nullptr, B, S, H, D,
+                                                 scale, none, s);
   if (dtype == 1)
     return stonkgs::attn90::launch_fwd_sm90<false>(q, k, v, key_bias, out, nullptr, B, S, H, D,
                                                    scale, none, s);

@@ -1,8 +1,9 @@
 // Training attention, forward and backward, with the TPU kernels' in-kernel
 // hash dropout; q, k, v, out, dO, dq, dk, dv in the (B, S, H, D) layout
-// (D a multiple of 8 from 8 to 256: each kernel is instantiated at the
+// (D any multiple of 8: up to 256 each kernel is instantiated at the
 // padded widths 16, 32, 64, 128 and 256, and D runs on the smallest at
-// least D, the columns past D zero), read with strides; lse and delta
+// least D, the columns past D zero; past the tiled widths a warp a row in
+// column parts of 256, attention.cuh), read with strides; lse and delta
 // (B, H, S) fp32.
 //
 // Replaces the TPU kernels _train_fwd_kernel and _train_bwd_kernel
@@ -34,13 +35,14 @@
 //      all rows and adds the result into db with one atomicAdd per key (12
 //      heads per address, so the order of the fp32 sum may vary between
 //      runs).
-// In bf16, (2) and (3) are the Hopper kernels of attention_bwd_sm90.cuh
-// (128-row tiles streamed by TMA, wgmma products, S, dP~, dS and P in
-// registers); in fp32 they are the SIMT bodies below (64-row tiles, plain
-// FMAs through attention.cuh's score_tile and PvAcc; above P = 128, where
-// those tiles do not fit a block, a warp a row: attn_bwd_dq_rows_kernel
-// and attn_bwd_dkdv_rows_kernel), which exist to hold the model against
-// the CPU.  Parallel over key tiles in (3), the
+// In bf16 up to D = 256, (2) and (3) are the Hopper kernels of
+// attention_bwd_sm90.cuh (128-row tiles streamed by TMA, wgmma products,
+// S, dP~, dS and P in registers); in fp32 up to D = 128 they are the SIMT
+// bodies below (64-row tiles, plain FMAs through attention.cuh's
+// score_tile and PvAcc), which exist to hold the model against the CPU.
+// Past those widths, in both dtypes, a warp a (row, column part of 256):
+// attn_bwd_dq_rows_kernel and attn_bwd_dkdv_rows_kernel, each score and
+// dP~ a warp-wide sum over the full D, formed again by every part.  Parallel over key tiles in (3), the
 // backward needs no cross-block reduction for dK and dV; dQ takes the
 // second pass (2) instead of atomics, at the cost of computing S and dP~
 // twice.
@@ -58,7 +60,7 @@
 //       unsigned seed0, unsigned seed1, float keep_scale,
 //       cudaStream_t stream)
 // each returns cudaGetLastError() after its launches (cudaErrorInvalidValue,
-// with nothing launched, for a D that is not a multiple of 8 from 8 to 256).
+// with nothing launched, for a D that is not a positive multiple of 8).
 
 #include "attention_bwd_sm90.cuh"
 
@@ -67,7 +69,8 @@ namespace attn {
 namespace {
 
 // delta[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d], one warp per row
-// of D <= kP elements (the loads unrolled over kP)
+// of D <= kP elements (the loads unrolled over kP; kP = 0: any D, walked at
+// run time)
 template <typename T, int kP>
 __global__ void __launch_bounds__(256)
 attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -77,9 +80,10 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (row >= size_t(B) * S * H) return;
   const T* op = o + row * D;
   const T* dp = dout + row * D;
+  const int n = kP ? kP : D;
   float acc = 0.f;
 #pragma unroll
-  for (int c = lane; c < kP; c += 32)
+  for (int c = lane; c < n; c += 32)
     if (c < D) acc += to_f(op[c]) * to_f(dp[c]);
   acc = warp_sum(acc);
   if (lane == 0) {
@@ -270,115 +274,136 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (db && live && half == 0) atomicAdd(db + size_t(b) * S + key, db_acc);
 }
 
-// The fp32 dQ above P = 128, as attn_bwd_dq_kernel computes it: a warp a
-// (b, h, query row), its q and dO columns in registers (kP/32 a lane), the
-// keys walked from L2: s = q.k and dP~ = dO.v as warp-wide sums, p =
-// exp(s*scale + bias - lse), dS = p (dP~ * mr - delta), dQ += dS k
-template <int kP>
-__global__ void __launch_bounds__(32 * kRowWarps)
-attn_bwd_dq_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ key_bias,
-                        const float* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, float* __restrict__ dq, int B, int S,
-                        int H, int D, float scale, Dropout drop) {
-  constexpr int kC = kP / 32;
-  const size_t gw = size_t(blockIdx.x) * kRowWarps + threadIdx.x / 32;  // (b*H + h)*S + s
+// dQ past the tiled widths, as attn_bwd_dq_kernel computes it: a warp a
+// (b, h, query row, column part), the keys walked from L2 kRowKeys at a
+// time: s = q.k and dP~ = dO.v as warp-wide sums over the full D, p =
+// exp(s*scale + bias - lse), dS = p (dP~ * mr - delta) rounded to T, dQ +=
+// dS k over the part's columns
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowWarps, 1)
+attn_bwd_dq_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const float* __restrict__ key_bias,
+                        const T* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq, int S, int H, int D,
+                        float scale, Dropout drop) {
+  RowPart rp;
+  if (!row_part(S, H, D, rp)) return;
   const int lane = threadIdx.x % 32;
-  if (gw >= size_t(B) * H * S) return;
-  const int s = int(gw % S), bh = int(gw / S), h = bh % H, b = bh / H;
-  const size_t rs = size_t(H) * D, head0 = (size_t(b) * S * H + h) * D;
-  const float* kb = key_bias ? key_bias + size_t(b) * S : nullptr;
-  float qv[kC], dov[kC], acc[kC];
-  load_row<kC>(qv, q + head0 + size_t(s) * rs, D, lane);
-  load_row<kC>(dov, dout + head0 + size_t(s) * rs, D, lane);
+  const size_t rs = size_t(H) * D, head0 = (size_t(rp.b) * S * H + rp.h) * D;
+  const size_t row = head0 + size_t(rp.s) * rs;
+  const int c0 = rp.part * kPartCols + 8 * lane;
+  const float* kb = key_bias ? key_bias + size_t(rp.b) * S : nullptr;
+  const float lse_r = lse[rp.bhs], delta_r = delta[rp.bhs];
+  const uint32_t base = drop.row_base(rp.b * H + rp.h, rp.s);
+  float acc[8] = {};
+  for (int j0 = 0; j0 < S; j0 += kRowKeys) {
+    const int n = min(kRowKeys, S - j0);
+    const size_t at0 = head0 + size_t(j0) * rs;
+    float s[kRowKeys], dps[kRowKeys];
+    row_dots(s, q + row, k + at0, rs, n, D, lane);
+    row_dots(dps, dout + row, v + at0, rs, n, D, lane);
 #pragma unroll
-  for (int c = 0; c < kC; ++c) acc[c] = 0.f;
-  const float lse_r = lse[gw], delta_r = delta[gw];
-  const uint32_t base = drop.row_base(bh, s);
-  for (int j = 0; j < S; ++j) {
-    const float* kr = k + head0 + size_t(j) * rs;
-    const float p = expf(row_dot<kC>(qv, kr, D, lane) * scale + (kb ? kb[j] : 0.f) - lse_r);
-    float dp = row_dot<kC>(dov, v + head0 + size_t(j) * rs, D, lane);
-    if (drop.enabled) dp = drop.keep(base + uint32_t(j)) ? dp * drop.keep_scale : 0.f;
-    const float ds = p * (dp - delta_r);
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-      if (lane + 32 * c < D) acc[c] += ds * kr[lane + 32 * c];
+    for (int u = 0; u < kRowKeys; ++u) {
+      if (u >= n) break;
+      const int j = j0 + u;
+      const float p = expf(s[u] * scale + (kb ? kb[j] : 0.f) - lse_r);
+      float dp = dps[u];
+      if (drop.enabled) dp = drop.keep(base + uint32_t(j)) ? dp * drop.keep_scale : 0.f;
+      if (c0 < D) axpy8(acc, round_to<T>(p * (dp - delta_r)), k + at0 + u * rs + c0);
+    }
   }
-  float* out = dq + head0 + size_t(s) * rs;
-#pragma unroll
-  for (int c = 0; c < kC; ++c)
-    if (lane + 32 * c < D) out[lane + 32 * c] = acc[c] * scale;
+  if (c0 < D) store8(dq + row + c0, acc, scale);
 }
 
-// The fp32 dK, dV and db above P = 128, as attn_bwd_dkdv_kernel computes
-// them: a warp a (b, h, key), its k and v columns in registers, the query
-// rows walked from L2: s = k.q and dP~ = v.dO, p = exp(s*scale + bias -
-// lse[row]), dV += (p * mr) dO, dS = p (dP~ * mr - delta[row]), dK += dS q,
-// and the key's db the sum of its dS over rows (one atomicAdd a head)
-template <int kP>
-__global__ void __launch_bounds__(32 * kRowWarps)
-attn_bwd_dkdv_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ key_bias,
-                          const float* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ delta, float* __restrict__ dk,
-                          float* __restrict__ dv, float* __restrict__ db, int B, int S, int H,
-                          int D, float scale, Dropout drop) {
-  constexpr int kC = kP / 32;
-  const size_t gw = size_t(blockIdx.x) * kRowWarps + threadIdx.x / 32;  // (b*H + h)*S + key
-  const int lane = threadIdx.x % 32;
-  if (gw >= size_t(B) * H * S) return;
-  const int key = int(gw % S), bh = int(gw / S), h = bh % H, b = bh / H;
-  const size_t rs = size_t(H) * D, head0 = (size_t(b) * S * H + h) * D;
-  const size_t stat0 = size_t(bh) * S;
-  const float bias_r = key_bias ? key_bias[size_t(b) * S + key] : 0.f;
-  float kv[kC], vv[kC], dk_acc[kC], dv_acc[kC];
-  load_row<kC>(kv, k + head0 + size_t(key) * rs, D, lane);
-  load_row<kC>(vv, v + head0 + size_t(key) * rs, D, lane);
-#pragma unroll
-  for (int c = 0; c < kC; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+// dK, dV and db past the tiled widths, as attn_bwd_dkdv_kernel computes
+// them: a warp a (b, h, key, column part), the query rows walked from L2
+// kRowKeys at a time: s = k.q and dP~ = v.dO over the full D, p =
+// exp(s*scale + bias - lse[row]), dV += round(p * mr) dO, dS = p (dP~ * mr
+// - delta[row]), dK += round(dS) q over the part's columns; the first
+// part's warp adds the key's db, the sum of its fp32 dS over rows (one
+// atomicAdd a head)
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowWarps, 1)
+attn_bwd_dkdv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const float* __restrict__ key_bias,
+                          const T* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, float* __restrict__ db, int S, int H, int D,
+                          float scale, Dropout drop) {
+  RowPart rp;
+  if (!row_part(S, H, D, rp)) return;
+  const int lane = threadIdx.x % 32, key = rp.s, bh = rp.b * H + rp.h;
+  const size_t rs = size_t(H) * D, head0 = (size_t(rp.b) * S * H + rp.h) * D;
+  const size_t row = head0 + size_t(key) * rs, stat0 = size_t(bh) * S;
+  const int c0 = rp.part * kPartCols + 8 * lane;
+  const float bias_r = key_bias ? key_bias[size_t(rp.b) * S + key] : 0.f;
+  float dk_acc[8] = {}, dv_acc[8] = {};
   float db_acc = 0.f;
-  for (int i = 0; i < S; ++i) {
-    const float* qr = q + head0 + size_t(i) * rs;
-    const float* dor = dout + head0 + size_t(i) * rs;
-    const float p = expf(row_dot<kC>(kv, qr, D, lane) * scale + bias_r - lse[stat0 + i]);
-    float dp = row_dot<kC>(vv, dor, D, lane), pd = p;
-    if (drop.enabled) {
-      const bool kept = drop.keep(drop.row_base(bh, i) + uint32_t(key));
-      pd = kept ? p * drop.keep_scale : 0.f;
-      dp = kept ? dp * drop.keep_scale : 0.f;
-    }
-    const float ds = p * (dp - delta[stat0 + i]);
-    db_acc += ds;
+  for (int i0 = 0; i0 < S; i0 += kRowKeys) {
+    const int n = min(kRowKeys, S - i0);
+    const size_t at0 = head0 + size_t(i0) * rs;
+    float s[kRowKeys], dps[kRowKeys];
+    row_dots(s, k + row, q + at0, rs, n, D, lane);
+    row_dots(dps, v + row, dout + at0, rs, n, D, lane);
 #pragma unroll
-    for (int c = 0; c < kC; ++c)
-      if (lane + 32 * c < D) {
-        dv_acc[c] += pd * dor[lane + 32 * c];
-        dk_acc[c] += ds * qr[lane + 32 * c];
+    for (int u = 0; u < kRowKeys; ++u) {
+      if (u >= n) break;
+      const int i = i0 + u;
+      const size_t at = at0 + u * rs;
+      const float p = expf(s[u] * scale + bias_r - lse[stat0 + i]);
+      float dp = dps[u], pd = p;
+      if (drop.enabled) {
+        const bool kept = drop.keep(drop.row_base(bh, i) + uint32_t(key));
+        pd = kept ? p * drop.keep_scale : 0.f;
+        dp = kept ? dp * drop.keep_scale : 0.f;
       }
-  }
-  const size_t at = head0 + size_t(key) * rs;
-#pragma unroll
-  for (int c = 0; c < kC; ++c)
-    if (lane + 32 * c < D) {
-      dv[at + lane + 32 * c] = dv_acc[c];
-      dk[at + lane + 32 * c] = dk_acc[c] * scale;
+      const float ds = p * (dp - delta[stat0 + i]);
+      db_acc += ds;
+      if (c0 < D) {
+        axpy8(dv_acc, round_to<T>(pd), dout + at + c0);
+        axpy8(dk_acc, round_to<T>(ds), q + at + c0);
+      }
     }
-  if (db && lane == 0) atomicAdd(db + size_t(b) * S + key, db_acc);
+  }
+  if (c0 < D) {
+    store8(dv + row + c0, dv_acc, 1.f);
+    store8(dk + row + c0, dk_acc, scale);
+  }
+  if (db && rp.part == 0 && lane == 0) atomicAdd(db + size_t(rp.b) * S + key, db_acc);
 }
 
 // delta = rowsum(dO * O), then dQ and dK/dV/db: the Hopper kernels in
-// bf16, the SIMT bodies in fp32, at D's padded width
+// bf16 up to P = 256, the tiled SIMT bodies in fp32 up to P = 128, the
+// kernels of a warp a row past them
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const float* key_bias,
                const void* out, const float* lse, const void* dout, void* dq, void* dk,
                void* dv, float* db, float* delta, int B, int S, int H, int D, float scale,
                Dropout drop, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || S < 1 || B > 65535 || H > 65535) return int(cudaErrorInvalidValue);
+  if (!shape_ok(B, S, H, D)) return int(cudaErrorInvalidValue);
+  const unsigned delta_blocks = unsigned((size_t(B) * S * H + 7) / 8);
+  if (D > (kIsBf16<T> ? kMaxHeadDim : kTiledMaxHeadDim)) {
+    attn_bwd_delta_kernel<T, 0><<<delta_blocks, 256, 0, stream>>>(
+        static_cast<const T*>(out), static_cast<const T*>(dout), delta, B, S, H, D);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return int(e);
+    const T* qt = static_cast<const T*>(q);
+    const T* kt = static_cast<const T*>(k);
+    const T* vt = static_cast<const T*>(v);
+    const T* dot = static_cast<const T*>(dout);
+    const dim3 blocks = row_grid(B, S, H, D);
+    attn_bwd_dq_rows_kernel<T><<<blocks, 32 * kRowWarps, 0, stream>>>(
+        qt, kt, vt, key_bias, dot, lse, delta, static_cast<T*>(dq), S, H, D, scale, drop);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return int(e);
+    attn_bwd_dkdv_rows_kernel<T><<<blocks, 32 * kRowWarps, 0, stream>>>(
+        qt, kt, vt, key_bias, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), db, S,
+        H, D, scale, drop);
+    return int(cudaGetLastError());
+  }
   return with_padded_head_dim(D, [&](auto p) {
     constexpr int kP = decltype(p)::value;
-    const size_t rows = size_t(B) * S * H;
-    attn_bwd_delta_kernel<T, kP><<<unsigned((rows + 7) / 8), 256, 0, stream>>>(
+    attn_bwd_delta_kernel<T, kP><<<delta_blocks, 256, 0, stream>>>(
         static_cast<const T*>(out), static_cast<const T*>(dout), delta, B, S, H, D);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return int(e);
@@ -386,18 +411,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* key_bia
       return attn90::launch_bwd_sm90<kP>(q, k, v, key_bias, lse, dout, delta, dq, dk, dv, db,
                                          B, S, H, D, scale, drop, stream);
     } else if constexpr (kP > kTiledMaxHeadDim) {
-      const unsigned blocks = unsigned((rows + kRowWarps - 1) / kRowWarps);
-      attn_bwd_dq_rows_kernel<kP><<<blocks, 32 * kRowWarps, 0, stream>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), key_bias, static_cast<const float*>(dout), lse, delta,
-          static_cast<float*>(dq), B, S, H, D, scale, drop);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return int(e);
-      attn_bwd_dkdv_rows_kernel<kP><<<blocks, 32 * kRowWarps, 0, stream>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), key_bias, static_cast<const float*>(dout), lse, delta,
-          static_cast<float*>(dk), static_cast<float*>(dv), db, B, S, H, D, scale, drop);
-      return int(cudaGetLastError());
+      return int(cudaErrorInvalidValue);  // taken by the row kernels above
     } else {
       const float* qt = static_cast<const float*>(q);
       const float* kt = static_cast<const float*>(k);
@@ -444,6 +458,9 @@ extern "C" int flash_attention_train_fwd(int dtype, const void* q, const void* k
   const Dropout drop = make_dropout(dropout, s_pad, threshold, seed0, seed1, keep_scale);
   if (dtype == 0)
     return launch_fwd_f32<true>(q, k, v, key_bias, out, lse, B, S, H, D, scale, drop, st);
+  if (dtype == 1 && D > kMaxHeadDim)
+    return launch_fwd_rows<__nv_bfloat16, true>(q, k, v, key_bias, out, lse, B, S, H, D, scale,
+                                                drop, st);
   if (dtype == 1)
     return stonkgs::attn90::launch_fwd_sm90<true>(q, k, v, key_bias, out, lse, B, S, H, D,
                                                   scale, drop, st);

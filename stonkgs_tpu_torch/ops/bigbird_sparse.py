@@ -26,20 +26,32 @@ bigbird_sparse_pallas.py:83``, launched at ``:227``, with ``_gather_kv``
 at ``:51`` and ``_mid_logits`` at ``:70``) and ``_mid_blocks_bwd_kernel``
 (``:113``, launched at ``:272``).
 
-The kernels take any head width D from 8 to 64 and a block size that is
-a multiple of 8 from 8 to 1,024 (:func:`bigbird_kernel_takes`: 8 is the
-JAX kernel's own alignment, ``bigbird_sparse_pallas.py:54-55``, and 1,024
-covers S = 8,192 under the command line's ``block_size = S // 8``); a
-CUDA tensor at any other block size or head width raises (there is no
-fallback to the plain versions on the card).  The kernels are instances
-at the padded widths 16, 32 and 64 that take the true D at run time (the
-tensor maps' dimension, the stores' columns); the C entry points take a D
-that is a multiple of 8, so the wrappers pad any other D (36: a 72-byte
-bf16 row, which TMA's 16-byte strides refuse) with zero columns and slice
-the outputs back.  The logit scale is 1/√D of the true D, rounded to bf16
-as JAX rounds it: D = 16, 32 and 64 keep their exact instances with the
-scale fixed at compile time, every other D runs a padded instance that
-takes the scale at run time and rounds the scaled logit again.
+The kernels take any head width D >= 1 and any block size bs >= 1 with S
+a multiple of it of at least 5 blocks (:func:`bigbird_kernel_takes`), as
+the JAX package runs every geometry (its Pallas kernel at blocks that are
+multiples of 8, ``bigbird_sparse_pallas.py:54-55``, XLA's block-sparse
+attention elsewhere); the command line's ``block_size = max(S // 8, 4)``
+gives 25 at S = 200, 4 at S = 32 and 2,048 at S = 16,384.  There is no
+fallback to the plain versions on the card.  bf16 up to D = 64 runs the
+Hopper kernels at the padded widths 16, 32 and 64, which take the true D
+at run time (the tensor maps' dimension, the stores' columns) and the
+block size at run time too (a block is ⌈bs/64⌉ row tiles, the last one
+partial and masked; below 64 one tile holds rows of the next blocks,
+computed and not stored).  The C entry points take a D that is a
+multiple of 8, so the wrappers pad any other D (36: a 72-byte bf16 row,
+which TMA's 16-byte strides refuse; 4: the 8-wide configs' heads) with
+zero columns and slice the outputs back.  The logit scale is 1/√D of the
+true D, rounded to bf16 as JAX rounds it: D = 16, 32 and 64 keep their
+exact instances with the scale fixed at compile time, every other D runs
+a padded instance that takes the scale at run time and rounds the scaled
+logit again.  Past D = 64 (6 heads of 128 at the trunk's 768) the Hopper
+kernels' shared memory has no room (a forward stage holds 64 x D K and V
+tiles of two query blocks, the backward fp32 64 x D dK and dV staging a
+consumer), and bf16 runs the SIMT bodies of ``csrc/bigbird_sparse.cu`` in
+column parts of 64: a CTA a (64-row tile, part) forms the full-D scores
+over 64-column chunks of Q and K (dP over chunks of dO and V), keeps its
+own softmax statistics, and makes its products over its part's columns;
+right first, at D/64 times the scores' products of one pass.
 
 What bounds them on the H100, at the trunk's shape (S=4096, H=12, D=64,
 r=3, so W = (5+r)·bs keys per middle query block), counting each input
@@ -156,10 +168,7 @@ from stonkgs_tpu_torch.ops.flash_attention import _pad_heads, _unpad
 
 ATTN_PENALTY = -10000.0
 KERNEL_TILE = 64            # rows of the kernels' tiles (a block is ⌈bs/64⌉ of them)
-KERNEL_BLOCK_MULTIPLE = 8   # their block sizes: multiples of 8 ...
-KERNEL_MAX_BLOCK = 1024     # ... up to 1,024
-KERNEL_MIN_HEAD_DIM = 8     # their head widths: any from 8 ...
-KERNEL_MAX_HEAD_DIM = 64    # ... to 64
+KERNEL_MIN_BLOCKS = 5       # blocks of a sequence: at least 5 (global, window, global)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = _build.P, _build.I32, _build.I64, _build.F32
 _SIGNATURES = {
@@ -425,10 +434,12 @@ def _geometry(q, k, v, mask, rand_attn, block_size) -> Tuple[int, int, int, int,
     for t in (k, v):
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError("q, k and v must share shape and dtype")
+    if block_size < 1:
+        raise ValueError(f"the block size must be at least 1, got {block_size}")
     if S % block_size:
         raise ValueError(f"S={S} is not a multiple of the block size {block_size}")
     nb = S // block_size
-    if nb < 5:
+    if nb < KERNEL_MIN_BLOCKS:
         raise ValueError(f"block-sparse attention needs at least 5 blocks, got {nb}")
     if tuple(mask.shape) != (B, S):
         raise ValueError(f"mask must be (B, S) = {(B, S)}, got {tuple(mask.shape)}")
@@ -441,14 +452,11 @@ def _geometry(q, k, v, mask, rand_attn, block_size) -> Tuple[int, int, int, int,
 def bigbird_kernel_takes(block_size: int, D: int, S: Optional[int] = None) -> bool:
     """Whether the card's BigBird kernel pair (forward and backward, fp32
     and bf16) takes block size ``block_size`` and head width ``D`` (and,
-    given, a sequence of ``S`` rows): D from 8 to 64, the block size a
-    multiple of 8 from 8 to 1,024, S a multiple of it of at least 5
-    blocks."""
-    m = KERNEL_BLOCK_MULTIPLE
-    takes = (KERNEL_MIN_HEAD_DIM <= D <= KERNEL_MAX_HEAD_DIM
-             and m <= block_size <= KERNEL_MAX_BLOCK and block_size % m == 0)
+    given, a sequence of ``S`` rows): any D and block size from 1, S a
+    multiple of the block size of at least 5 blocks."""
+    takes = D >= 1 and block_size >= 1
     if S is not None:
-        takes = takes and S % block_size == 0 and S // block_size >= 5
+        takes = takes and S % block_size == 0 and S // block_size >= KERNEL_MIN_BLOCKS
     return takes
 
 
@@ -460,11 +468,10 @@ def _check_cuda(what: str, q, tensors, block_size: int) -> None:
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: unsupported dtype {q.dtype}")
-    if not bigbird_kernel_takes(block_size, q.shape[-1]):
-        raise ValueError(f"{what} kernel takes D from {KERNEL_MIN_HEAD_DIM} to "
-                         f"{KERNEL_MAX_HEAD_DIM} and a block size that is a multiple of "
-                         f"{KERNEL_BLOCK_MULTIPLE} up to {KERNEL_MAX_BLOCK}, got D={q.shape[-1]}, "
-                         f"block size {block_size}")
+    if not bigbird_kernel_takes(block_size, q.shape[-1], q.shape[1]):
+        raise ValueError(f"{what} kernel takes any D and block size from 1 with at least "
+                         f"{KERNEL_MIN_BLOCKS} blocks, got D={q.shape[-1]}, block size "
+                         f"{block_size}, S={q.shape[1]}")
     for t in tensors:
         if t.device != q.device:
             raise ValueError(f"{what}: tensors on different devices")

@@ -57,14 +57,23 @@ version's uniform probabilities.
 fp32 runs the SIMT body ``attn_fwd_kernel`` of ``csrc/attention.cuh``
 (64-row tiles, plain FMAs, an IEEE exp and division per score); it
 exists to hold the whole model against the CPU.  Both take any S >= 1
-and any head width D from 8 to 256 (:func:`attention_kernel_takes`):
+and any head width D >= 1 (:func:`attention_kernel_takes`), as the JAX
+package runs every D (its Pallas kernels where they fit, XLA beyond):
 64 in BERT-base, BioBERT, ProtBERT and the BigBird trunk, 32 in
 MiniLM-L12-H384 and in the 64-wide configs the CLI derives, 16 in the
-32-wide ones, 48, 80, 72 and 68 in the configs it derives from 96-,
-160-, 288- and 544-wide KG vectors (2, 2, 4 and 8 heads), 128 in
-BERT-base's widths split into 6 heads, 256 in 3 heads.  The JAX package
-runs every D (its Pallas kernels where they fit, XLA beyond); above 256
-the port raises.  Each kernel is instantiated at the padded widths P =
+32-wide ones, 4 and 2 in the 8- and 4-wide ones, 48, 80, 72 and 68 in
+the configs it derives from 96-, 160-, 288- and 544-wide KG vectors (2,
+2, 4 and 8 heads), 128, 256 and 384 in BERT-base's widths split into 6,
+3 and 2 heads.  Below 8 the wrappers pad D to 8 (P = 16).  Past 256,
+where a 64-row bf16 O accumulator alone would pass a thread's registers,
+both dtypes run the kernels of a warp a row of ``csrc/attention.cuh``
+(``attn_fwd_rows_kernel``; the backward's in
+``csrc/flash_attention_train.cu``): each score a warp-wide sum over the
+full D read 8 columns a lane from L2, the outputs cut into column parts
+of 256 (8 columns a lane), a warp a part, each part forming every score
+again and keeping its own softmax statistics over the true scores.
+They are SIMT, not ``wgmma``: right first, at (D/256 + 1)x the scores'
+products of one pass.  Up to 256 each kernel is instantiated at the padded widths P =
 16, 32, 64, 128 and 256 and runs D on the smallest P >= D: the tensor
 maps' dim 0 is D and their boxes P wide, so TMA
 zero-fills the columns from D to P, which add nothing to QKᵀ, and the
@@ -138,8 +147,9 @@ warpgroup in a 2-stage ring, dQ in sub-steps of 32 keys, and a dK/dV
 block forms half of its keys' dK and dV columns (dK and dV of 64 keys at
 256 columns would be 256 floats a thread): the two halves' blocks each
 form the scores over all 256 columns.  The fp32 bodies above P = 128 are
-not tiled (four 64 x 256 fp32 tiles are 266 KB): a warp owns a row, its
-columns in registers, and walks the other side's rows from L2.  S and dP̃
+not tiled (four 64 x 256 fp32 tiles are 266 KB): a warp owns a row and
+column part, as past D = 256 in both dtypes, and walks the other side's
+rows from L2.  S and dP̃
 are thus computed twice, for no cross-block reduction of dQ: the design's
 floor is 7 products of 2·B·H·S²·D and two exps a score, plus the hash of
 each score twice with dropout.  In bf16 the dQ and dK/dV kernels are
@@ -179,10 +189,11 @@ import torch
 from stonkgs_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the head widths of the card's attention kernels (both dtypes): D from 8
-# to 256; the C entry points take multiples of 8, so the wrappers pad
+# the head widths of the card's attention kernels (both dtypes): any D from
+# 1 (the Hopper kernels' instances up to 256, a warp a row in column parts
+# past it); the C entry points take multiples of 8, so the wrappers pad
 # others with zero columns
-ATTENTION_MIN_HEAD_DIM, ATTENTION_MAX_HEAD_DIM = 8, 256
+ATTENTION_MIN_HEAD_DIM = 1
 NEG_BIAS = -1e9  # score of a padded key, as the JAX package's NEG_BIAS
 _P, _I, _U, _F = _build.P, _build.I32, _build.U32, _build.F32
 # the dropout arguments of both training entry points:
@@ -216,16 +227,17 @@ def _key_bias(bias: Optional[torch.Tensor], B: int, S: int):
 
 def attention_kernel_takes(D: int) -> bool:
     """Whether the card's attention kernels (inference, the training
-    forward and backward, in fp32 and bf16) take head width ``D``."""
-    return ATTENTION_MIN_HEAD_DIM <= D <= ATTENTION_MAX_HEAD_DIM
+    forward and backward, in fp32 and bf16) take head width ``D``: any D
+    from 1 up."""
+    return D >= ATTENTION_MIN_HEAD_DIM
 
 
 def check_attention_shape(what: str, S: int, D: int) -> None:
     """Raise unless the attention kernels take a sequence of ``S`` rows
     (S >= 1) at head width ``D`` (:func:`attention_kernel_takes`)."""
     if not attention_kernel_takes(D) or S < 1:
-        raise ValueError(f"{what} kernel takes D from {ATTENTION_MIN_HEAD_DIM} to "
-                         f"{ATTENTION_MAX_HEAD_DIM} and S >= 1, got D={D}, S={S}")
+        raise ValueError(f"{what} kernel takes any D from {ATTENTION_MIN_HEAD_DIM} up "
+                         f"and S >= 1, got D={D}, S={S}")
 
 
 def _pad_heads(*tensors):
@@ -248,7 +260,7 @@ def _unpad(D: int, *tensors):
 def _check_cuda_inputs(what: str, q: torch.Tensor, others, extra=()) -> None:
     """Raise unless q and ``others`` (same shape and dtype as q) and
     ``extra`` are contiguous tensors on q's CUDA device that the kernels
-    take: (B, S, H, D) in fp32 or bf16, S >= 1, D from 8 to 256."""
+    take: (B, S, H, D) in fp32 or bf16, S >= 1, D >= 1."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:

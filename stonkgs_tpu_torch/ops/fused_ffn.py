@@ -49,11 +49,11 @@ intermediate axis in chunks of 128 and the widths as run-time
 arguments): it exists to hold the whole model against the CPU.
 
 Widths (:func:`ffn_kernel_takes`): every FFN kernel, in both dtypes,
-takes any hidden width H >= 8 and any intermediate width I >= 8, as the
+takes any hidden width H >= 1 and any intermediate width I >= 1, as the
 JAX package runs every width (it falls back to XLA where its Pallas
 kernels do not fit; the port has no fallback): 768 in BERT-base, BioBERT
 and the BigBird trunk, 1024 in ProtBERT, 384 in MiniLM-L12-H384, and the
-KG vectors' width in the command line's configs (48, 100, 1280, 2560, ...
+KG vectors' width in the command line's configs (4, 8, 48, 100, 1280, 2560, ...
 at I = 4H; 2,560 with I = 10,240 is Megatron-BERT 3.9B's).  The C entry points
 take the true widths and arrays in a padded layout, each row of H (or I)
 values ``padded_width`` elements long: a multiple of 8 in bf16 (TMA's
@@ -61,7 +61,9 @@ values ``padded_width`` elements long: a multiple of 8 in bf16 (TMA's
 past it and nothing reads the padding), of 32 in fp32 (the SIMT bodies
 run at the padded widths on zero padding).  The wrappers pad a width that
 is not such a multiple with zeros and slice the outputs back; at H = 768,
-1024, 384 and every multiple of 8 in bf16 nothing is copied.  The
+1024, 384 and every multiple of 8 in bf16 nothing is copied; below 8 (H
+= 4 from a 4-wide KG TSV) a bf16 row of 8 bytes is copied into a row of
+16, as TMA's strides are multiples of 16 bytes.  The
 LayerNorm passes take their statistics over the true H; a bf16 pass holds
 a row in registers up to H = 2048 and walks it in 16-byte chunks above
 (sum, centred sum of squares over a second read from L2, normalise), as a
@@ -144,7 +146,7 @@ from stonkgs_tpu_torch.ops.flash_attention import _unpad
 _ACTS = {"gelu": 0, "gelu_new": 1, "gelu_pytorch_tanh": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the FFN kernels' widths: any H and I from FFN_MIN_WIDTH up
-FFN_MIN_WIDTH = 8
+FFN_MIN_WIDTH = 1
 # the widest padded H of the fused fp32 bodies (csrc/ffn.cuh, kRowHidden):
 # above it the fp32 path is split at h and takes scratch as bf16 does
 FFN_FUSED_MAX_HIDDEN = 2048
@@ -200,7 +202,7 @@ def _check_act(act: str) -> None:
 def ffn_kernel_takes(H: int, I: int) -> bool:
     """Whether the card's FFN kernels (the serving block, the training
     forward and backward, in fp32 and bf16) take hidden width ``H`` and
-    intermediate width ``I``: any H and I from 8 up."""
+    intermediate width ``I``: any H and I from 1 up."""
     return H >= FFN_MIN_WIDTH and I >= FFN_MIN_WIDTH
 
 

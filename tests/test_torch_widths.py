@@ -75,15 +75,17 @@ def port_cfg(cfg):
 # the domain functions
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("D,takes", [(4, False), (8, True), (16, True), (32, True),
+@pytest.mark.parametrize("D,takes", [(4, True), (8, True), (16, True), (32, True),
                                      (48, True), (64, True), (68, True), (128, True),
-                                     (136, True), (256, True), (264, False)])
+                                     (136, True), (256, True), (264, True), (0, False),
+                                     (-8, False), (1, True), (2, True), (7, True), (300, True),
+                                     (384, True), (768, True), (2560, True)])
 def test_attention_kernel_domain(D, takes):
     assert tflash.attention_kernel_takes(D) is takes
     if takes:
         tflash.check_attention_shape("flash_attention_infer", 512, D)
     else:
-        with pytest.raises(ValueError, match=rf"takes D from 8 to 256 .* got D={D}"):
+        with pytest.raises(ValueError, match=rf"takes any D from 1 up .* got D={D}"):
             tflash.check_attention_shape("flash_attention_infer", 512, D)
 
 
@@ -96,15 +98,16 @@ def test_attention_kernel_refuses_empty_sequences():
     (32, 128, True), (64, 256, True), (96, 384, True), (384, 1536, True), (512, 2048, True),
     (768, 3072, True), (1024, 4096, True), (768, 1000, True), (16, 64, True),
     (48, 192, True), (1056, 4224, True), (384, 100, True), (0, 0, False),
-    (8, 8, True), (2048, 8192, True), (2056, 8224, True), (768, 8200, True), (4, 16, False),
-    (2560, 10240, True), (8192, 32768, True), (16, 4, False)])
+    (8, 8, True), (2048, 8192, True), (2056, 8224, True), (768, 8200, True), (4, 16, True),
+    (2560, 10240, True), (8192, 32768, True), (16, 4, True), (0, 16, False), (16, 0, False),
+    (1, 1, True), (2, 8, True), (6, 24, True), (7, 7, True)])
 def test_ffn_kernel_domain(H, I, takes):
     assert tffn.ffn_kernel_takes(H, I) is takes
     if takes:
         tffn.check_ffn_widths("fused_ffn_fwd", H, I)
     else:
         with pytest.raises(ValueError,
-                           match=rf"takes H and I from 8 up, got H={H}, I={I}"):
+                           match=rf"takes H and I from 1 up, got H={H}, I={I}"):
             tffn.check_ffn_widths("fused_ffn_fwd", H, I)
 
 
@@ -146,9 +149,16 @@ def test_ffn_kernel_domain(H, I, takes):
                                          intermediate_size=8448), True),
     ("CLI 2560-wide", tconfig.BertConfig(hidden_size=2560, num_attention_heads=40,
                                          intermediate_size=10240), True),
-    # ... and widths outside: 2 heads of 272 (D above 256)
+    # ... 2 heads of 272 (D above 256, outside until every D was taken) ...
     ("H=544 2 x 272", tconfig.BertConfig(hidden_size=544, num_attention_heads=2,
-                                         intermediate_size=2176), False),
+                                         intermediate_size=2176), True),
+    # ... the CLI's 8- and 4-wide configs (2 heads of 4 and of 2; H = 4)
+    # and BERT-base's widths in 2 heads of 384
+    ("CLI 8-wide", tconfig.BertConfig(hidden_size=8, num_attention_heads=2,
+                                      intermediate_size=32), True),
+    ("CLI 4-wide", tconfig.BertConfig(hidden_size=4, num_attention_heads=2,
+                                      intermediate_size=16), True),
+    ("BERT-base 2 x 384", tconfig.BertConfig(num_attention_heads=2), True),
 ])
 def test_model_configs_against_the_domains(name, cfg, takes):
     both = (tflash.attention_kernel_takes(cfg.head_dim)
@@ -416,22 +426,26 @@ def test_prot_pretraining_config_matches_jax(width, layout, tmp_path, monkeypatc
 
 
 def test_bigbird_kernel_domain_edges():
-    """The BigBird pair's domain: any D from 8 to 64, a block size that is
-    a multiple of 8 from 8 to 1,024, and (given S) S a multiple of it of at
-    least 5 blocks."""
+    """The BigBird pair's domain: any D and block size from 1, and (given
+    S) S a multiple of the block size of at least 5 blocks."""
     from stonkgs_tpu_torch.ops import bigbird_sparse as tsparse
 
     takes = tsparse.bigbird_kernel_takes
-    for bs in range(8, 1025, 8):
-        for D in (8, 16, 24, 32, 36, 40, 64):
+    for bs in (*range(1, 130), 200, 1020, 1024, 1032, 2048, 4096):
+        for D in (1, 4, 7, 8, 16, 24, 32, 36, 64, 72, 128, 520):
             assert takes(bs, D) and takes(bs, D, 5 * bs) and takes(bs, D, 8 * bs)
-            assert not takes(bs, D, 4 * bs) and not takes(bs, D, 8 * bs + 4)
-    for bs in (0, 4, 12, 60, 100, 1020, 1032, 2048):
-        assert not takes(bs, 32)
-    for D in range(8, 65):
+            assert not takes(bs, D, 4 * bs)
+            if bs > 1:
+                assert not takes(bs, D, 8 * bs + 1)
+    for bs in (4, 12, 60, 100, 1020, 1032, 2048):   # refused until the block rule went
+        assert takes(bs, 32) and takes(bs, 32, 8 * bs)
+    for D in (*range(1, 8), *range(65, 129), 200, 256, 384, 520):   # ... and the width rule
         assert takes(64, D) and takes(512, D)
-    for D in (4, 7, 65, 72, 80, 96, 128):
-        assert not takes(64, D) and not takes(512, D)
+    for bs in (0, -8):
+        assert not takes(bs, 32)
+    for D in (0, -1):
+        assert not takes(64, D) and not takes(64, D, 512)
+    assert not takes(64, 32, 0) and not takes(25, 32, 100) and not takes(25, 32, 210)
 
 
 # the derived 128-wide config, cut: 2 rows of S=384 laid out 120 | 72 | 192
