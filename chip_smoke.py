@@ -506,13 +506,17 @@ GRAD_TOL = {F32: 1e-4, BF16: 2e-2}
 INT8_F32_TOL = 1e-6
 SOURCES = ("ffn_ln_block", "flash_attention_infer", "flash_attention_train", "ffn_train",
            "bigbird_sparse", "dense_int8", "int8_gemm")
-# the Hopper (wgmma, TMA) kernels of each library, and the SIMT kernels
-# that run bf16 past their widest instances, which must not spill
+# the Hopper (wgmma, TMA) kernels of each library (the attention forward's
+# past D = 256 too), and the SIMT kernels past their widest instances (the
+# forward's in fp32, the backward's and BigBird's in both dtypes), which
+# must not spill
 SM90_KERNELS = {
-    "flash_attention_infer": ("attn_fwd_sm90_kernel", "attn_fwd_rows_kernel"),
-    "flash_attention_train": ("attn_fwd_sm90_kernel", "attn_bwd_dq_sm90_kernel",
-                              "attn_bwd_dkdv_sm90_kernel", "attn_fwd_rows_kernel",
-                              "attn_bwd_dq_rows_kernel", "attn_bwd_dkdv_rows_kernel"),
+    "flash_attention_infer": ("attn_fwd_sm90_kernel", "attn_fwd_wide_sm90_kernel",
+                              "attn_fwd_rows_kernel"),
+    "flash_attention_train": ("attn_fwd_sm90_kernel", "attn_fwd_wide_sm90_kernel",
+                              "attn_bwd_dq_sm90_kernel", "attn_bwd_dkdv_sm90_kernel",
+                              "attn_fwd_rows_kernel", "attn_bwd_dq_rows_kernel",
+                              "attn_bwd_dkdv_rows_kernel"),
     "ffn_ln_block": ("gemm_sm90_kernel", "add_layer_norm_kernel", "layer_norm_rows_kernel"),
     "ffn_train": ("gemm_sm90_kernel", "ffn_bwd_dual_sm90_kernel"),
     "bigbird_sparse": ("bigbird_fwd_sm90_kernel", "bigbird_bwd_sm90_kernel", "mid_fwd_kernel",
@@ -5678,9 +5682,9 @@ def _widths_outside(gen) -> None:
             scale = max(D, 1) ** -0.5
             statuses.update({
                 f"flash_attention_infer D={D}": attn_lib.flash_attention_infer(
-                    dt, *[p] * 5, 1, 64, 2, D, scale, st),
+                    dt, *[p] * 6, 1, 64, 2, D, scale, st),
                 f"flash_attention_train_fwd D={D}": train_lib.flash_attention_train_fwd(
-                    dt, *[p] * 6, 1, 64, 2, D, scale, *drop, st),
+                    dt, *[p] * 7, 1, 64, 2, D, scale, *drop, st),
                 f"flash_attention_train_bwd D={D}": train_lib.flash_attention_train_bwd(
                     dt, *[p] * 12, 1, 64, 2, D, scale, *drop, st)})
             S = 5 * 64
@@ -5696,6 +5700,13 @@ def _widths_outside(gen) -> None:
                 f"ffn_train_fwd H={H} I={I}": ffn_lib.ffn_train_fwd(dt, *[p] * 7, 3, H, I, 0, st),
                 f"ffn_train_bwd H={H} I={I}": ffn_lib.ffn_train_bwd(dt, *[p] * 10, 3, H, I, 0,
                                                                     st)})
+        if dt == 1:  # the bf16 forward past D = 256 requires its statistics scratch
+            statuses.update({
+                "flash_attention_infer D=384 without stats": attn_lib.flash_attention_infer(
+                    dt, *[p] * 5, None, 1, 64, 2, 384, 384 ** -0.5, st),
+                "flash_attention_train_fwd D=384 without stats":
+                    train_lib.flash_attention_train_fwd(dt, *[p] * 6, None, 1, 64, 2, 384,
+                                                        384 ** -0.5, *drop, st)})
         torch.cuda.synchronize()
         for name, status in statuses.items():
             log(f"# check {name} {tag} C entry point: status {status} (1: refused)")
@@ -6471,17 +6482,15 @@ def _heads_cfg() -> STonKGsConfig:
     return STonKGsConfig(bert=BertConfig(num_attention_heads=HEADS_128), kg_vocab_size=100_000)
 
 
-def _heads_serving(cfg: STonKGsConfig, params: dict, timed_runs: int = 3) -> dict:
+def _heads_serving(cfg: STonKGsConfig, params: dict) -> dict:
     """(b) ``STonKGsEngine.embed`` at BERT-base's widths with 6 heads of
-    D=128 (3 of D=256 in phase 29) on phase 5's parameters (the head split
-    changes no shape): ROWS
-    rows at B=128 in parity mode in bf16, the serving kernels' launches
-    from 0 just before it, finite output, pairs/s over ``timed_runs``
-    more runs (as phase 6 times phase 5's engine; 0 at D=384, whose SIMT
-    attention takes 5.7 s a run: the counted run is timed); then 4 rows on
-    the card in fp32
-    against the CPU in fp32 (1e-3) and the bf16 rows against the CPU by
-    cosine (0.99), as phase 5.  Returns the launch counts."""
+    D=128 (3 of D=256 and 2 of D=384 in phase 29) on phase 5's parameters
+    (the head split changes no shape): ROWS rows at B=128 in parity mode in
+    bf16, the serving kernels' launches from 0 just before it, finite
+    output, pairs/s over 3 more runs (as phase 6 times phase 5's engine);
+    then 4 rows on the card in fp32 against the CPU in fp32 (1e-3) and the
+    bf16 rows against the CPU by cosine (0.99), as phase 5.  Returns the
+    launch counts."""
     t0 = time.perf_counter()
     tag = f"D={cfg.bert.head_dim}"
     feats = _features(cfg, ROWS, seed=28)
@@ -6489,17 +6498,15 @@ def _heads_serving(cfg: STonKGsConfig, params: dict, timed_runs: int = 3) -> dic
                            device=DEV)
     _reset_counts(SERVING_KERNELS)
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
     out = engine.embed(feats)
-    first = time.perf_counter() - t1
     counts = _counts(SERVING_KERNELS)
     per_batch = cfg.bert.num_hidden_layers * 2 - 1
     _check_counts(f"{tag} parity embed ({math.ceil(ROWS / BATCH)} batches)", counts,
                   {n: per_batch * math.ceil(ROWS / BATCH) for n in SERVING_KERNELS})
     check(out.shape == (ROWS, cfg.bert.hidden_size) and bool(np.isfinite(out).all()),
           f"{tag} embed output {out.shape} not finite")
-    times = [] if timed_runs else [first]
-    for _ in range(timed_runs):
+    times = []
+    for _ in range(3):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         engine.embed(feats)
@@ -6797,13 +6804,17 @@ WIDEST_LN_FAULT = (2560, 2048)
 # head widths past 128: 136 (just past), 140 (no multiple of 8: padded to
 # 144), 160, 192, 200 and 256 (3 heads at BERT-base's 768), all run at P = 256
 WIDEST_HEAD_DIMS = (136, 140, 160, 192, 200, 256)
-# past the old cap of 256, run by the kernels of a warp a row in column
-# parts of 256: 264 (just past), 300 (no multiple of 8: padded to 304), 384
-# (2 heads at BERT-base's 768), 768 (1 head), 1,024 and 2,560 (10 parts)
+# past the old cap of 256, run in bf16 by attn_fwd_wide_sm90_kernel (the
+# forward, O in column parts of 128) and otherwise by the kernels of a warp
+# a row in column parts of 256: 264 (just past), 300 (no multiple of 8:
+# padded to 304), 384 (2 heads at BERT-base's 768; Q stays in shared
+# memory), 768 (1 head; Q's column blocks streamed beside K's), 1,024 and
+# 2,560 (40 column blocks, 20 parts of 128)
 WIDEST_ANY_HEAD_DIMS = (264, 300, 384, 768, 1024, 2560)
 # the planted faults: the scores without their columns from 128 on at D =
-# 256, and from 256 on (the second column part's) at D = 384
-WIDEST_HEAD_FAULTS = ((256, 128), (384, 256))
+# 256, from 256 on (the second column part's of a warp a row) at D = 384,
+# and from 2,048 on (the last streamed column blocks of Q and K) at 2,560
+WIDEST_HEAD_FAULTS = ((256, 128), (384, 256), (2560, 2048))
 # the FFN below 8: the CLI's 4-wide config (I = 16), and H or I from 2 to 6
 TINY_FFN = ((4, 16), (6, 24), (2, 8), (16, 4))
 # the planted fault: at H = 4 the LayerNorm statistics over 8 columns (the
@@ -6898,7 +6909,11 @@ def _widest_attention(gen, note, dims=WIDEST_HEAD_DIMS) -> None:
     without its scale and dV without the keep scale).  At each (D, c) of
     WIDEST_HEAD_FAULTS, S=512, in bf16 the output limit must reject the
     plain output without the scores' columns from c on (256: half of the
-    wide row lost; 384: the second column part's)."""
+    wide row lost; 384: the second column part's; 2,560: the last eight
+    streamed column blocks).  In bf16 past D = 256 (the Hopper instances'
+    widest) each forward call must raise its library's count of calls that ran
+    attn_fwd_wide_sm90_kernel by one (``_wide_route``; the forward of a warp
+    a row is no longer on that route)."""
     B, H = HEAD_BATCH, HEAD_HEADS
     faults = dict(WIDEST_HEAD_FAULTS)
     for dtype in (BF16, F32):
@@ -6908,10 +6923,12 @@ def _widest_attention(gen, note, dims=WIDEST_HEAD_DIMS) -> None:
                 label = f"{tag} D={D} B={B} H={H} S={S}"
                 q, k, v, bias, _, seed, _ = _train_attn_inputs(B, S, dtype, gen, True, H, D)
                 bias[0] = -1e9
+                wide = dtype == BF16 and D > flash_attention_ops.MAX_INSTANCE_HEAD_DIM
                 for b_label, b in (("mask row 0 all -1e9", bias), ("no-bias", None)):
                     want = flash_attention_infer_plain(q, k, v, b)
-                    e = _compare_attn(f"attention {label} {b_label}",
-                                      flash_attention_infer(q, k, v, b), want, dtype)
+                    got = _wide_route(f"{label} {b_label}", "flash_attention_infer", wide,
+                                      lambda: flash_attention_infer(q, k, v, b))
+                    e = _compare_attn(f"attention {label} {b_label}", got, want, dtype)
                     note("flash_attention_infer", e, dtype)
                 if dtype == BF16 and S == HEAD_S[-1] and D in faults:
                     fault_c = faults[D]
@@ -6922,7 +6939,9 @@ def _widest_attention(gen, note, dims=WIDEST_HEAD_DIMS) -> None:
                                         f"{fault_c}-{D - 1}", want,
                                         flash_attention_infer_plain(cut_q, cut_k, v))
                 for rate in (0.0, ATTN_RATE):
-                    out, lse = flash_attention_train_fwd(q, k, v, bias, seed, rate)
+                    out, lse = _wide_route(f"{label} rate={rate}", "flash_attention_train_fwd",
+                                           wide, lambda: flash_attention_train_fwd(
+                                               q, k, v, bias, seed, rate))
                     out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, bias, seed, rate)
                     e = max(_compare_attn(f"attention fwd {label} rate={rate}", out, out_p,
                                           dtype),
@@ -6931,6 +6950,22 @@ def _widest_attention(gen, note, dims=WIDEST_HEAD_DIMS) -> None:
                     e = _attention_bwd_cases(tag, dtype, B, H, S, rate, gen, D)
                     note("flash_attention_train_bwd", e, dtype)
                 del q, k, v, bias
+
+
+def _wide_route(label: str, name: str, wide: bool, fn):
+    """``fn()``, a call of the forward wrapper ``name``; with ``wide``, it
+    must raise its library's count of calls that ran
+    attn_fwd_wide_sm90_kernel by one (torch.profiler cannot show the route
+    here: later in a full run its traces hold no device kernels)."""
+    if not wide:
+        return fn()
+    before = flash_attention_ops.wide_forward_calls()[name]
+    out = fn()
+    ran = flash_attention_ops.wide_forward_calls()[name] - before
+    log(f"# check {name} {label} route: {ran} call of attn_fwd_wide_sm90_kernel "
+        f"{'ok' if ran == 1 else 'FAIL'}")
+    check(ran == 1, f"{name} {label}: not attn_fwd_wide_sm90_kernel")
+    return out
 
 
 def _widest_paths(params: dict, total: dict) -> tuple:
@@ -6997,7 +7032,7 @@ def _heads384_path(params: dict, total: dict) -> dict:
     numerics.  Returns the launch counts of the embed and step."""
     t0 = time.perf_counter()
     cfg = _heads384_cfg()
-    heads = _heads_serving(cfg, params, timed_runs=0)
+    heads = _heads_serving(cfg, params)
     train_counts, state = phase_training(cfg, params)
     heads.update(train_counts)
     del state

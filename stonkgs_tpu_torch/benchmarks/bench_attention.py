@@ -5,9 +5,10 @@ Run from the root of a checkout::
     python -m stonkgs_tpu_torch.benchmarks.bench_attention [--iters N]
 
 For each head split of a model the port runs (BERT-base's 12 heads of
-64, MiniLM-L12-H384's 12 of 32, BERT-base's widths in 6 heads of 128,
-and the configs the command line derives from 96-, 160-, 288- and
-544-wide KG TSVs: 2 heads of 48 and 80, 4 of 72, 8 of 68), in bf16, it
+64, MiniLM-L12-H384's 12 of 32, BERT-base's widths in 6 heads of 128, 3
+of 256, 2 of 384 and one of 768, and the configs the command line
+derives from 96-, 160-, 288- and 544-wide KG TSVs: 2 heads of 48 and 80,
+4 of 72, 8 of 68), in bf16, it
 prints one JSON line for each call of the paths: ``flash_attention_infer``
 at B=128 over the trunk (S=512, key bias) and the backbone (S=256, no
 bias), ``flash_attention_train_fwd`` at B=32 over both with the hash
@@ -42,6 +43,9 @@ SPLITS = (
     ("BERT-base 12x64", 12, 64),
     ("MiniLM 12x32", 12, 32),
     ("BERT-base 6x128", 6, 128),
+    ("BERT-base 3x256", 3, 256),
+    ("BERT-base 2x384", 2, 384),
+    ("1x768", 1, 768),
     ("CLI 96-wide 2x48", 2, 48),
     ("CLI 160-wide 2x80", 2, 80),
     ("CLI 288-wide 4x72", 4, 72),

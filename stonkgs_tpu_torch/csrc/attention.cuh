@@ -5,11 +5,12 @@
 // row past the tiled widths.  The bf16 attention forward and backward and
 // the bf16 BigBird pair are the Hopper kernels of attention_sm90.cuh,
 // attention_bwd_sm90.cuh and bigbird_sm90.cuh (wgmma and TMA) up to their
-// widest instances (D = 256 for attention, 64 for BigBird); the SIMT bodies
+// widest instances (D = 256 for attention, 64 for BigBird), and the bf16
+// attention forward past 256 is attention_wide_sm90.cuh's; the SIMT bodies
 // that use these pieces (the forward here, dQ and dK/dV in
 // flash_attention_train.cu, the BigBird pair in bigbird_sparse.cu) run
 // fp32, which holds the whole model against the CPU, and bf16 past those
-// instances.
+// instances (the attention backward past D = 256, BigBird past D = 64).
 //
 // A block has 4 warps; in a product each warp owns 16 rows of the block's
 // 64-row tile, in plain fp32 FMAs:
@@ -24,20 +25,22 @@
 // product, and the stores write columns < D.
 //
 // Above the tiled widths (fp32 past P = 128, where four 64-row fp32 tiles
-// of 256 columns are 266 KB, past the 227 KB of a block; bf16 past the
-// Hopper kernels' P = 256) a warp owns one row (attn_fwd_rows_kernel here,
-// the backward's in flash_attention_train.cu), at any D that is a multiple
-// of 8: each score is a warp-wide sum over the whole row, a lane reading 8
-// columns at a time (16 or 32 bytes) from L2, and the row's outputs are cut
-// into column parts of 256 (kPartCols), 8 columns a lane, one warp a part:
-// a part's warp forms every score over the full D again, keeps its own
-// softmax statistics over the true scores, and accumulates only its
-// columns, so no lane holds more than 8 accumulators at any D (2,560 is 10
-// parts).  The scores are formed once a part (twice at D = 384), kRowKeys
-// keys' sums in flight a warp; every warp reads all of K and V from L2, so
-// L2 bounds them (about 0.24 TB a call at B=128, S=512, 2 heads of 384).
-// They exist to hold the model against the CPU and to run the widths no
-// Hopper instance takes; right matters more than fast.
+// of 256 columns are 266 KB, past the 227 KB of a block; the bf16 backward
+// past the Hopper kernels' P = 256) a warp owns one row
+// (attn_fwd_rows_kernel here, in fp32 only; the backward's in
+// flash_attention_train.cu), at any D that is a multiple of 8: each score
+// is a warp-wide sum over the whole row, a lane reading 8 columns at a
+// time (16 or 32 bytes) from L2, and the row's outputs are cut into column
+// parts of 256 (kPartCols), 8 columns a lane, one warp a part: a part's
+// warp forms every score over the full D again, keeps its own softmax
+// statistics over the true scores, and accumulates only its columns, so no
+// lane holds more than 8 accumulators at any D (2,560 is 10 parts).  The
+// scores are formed once a part (twice at D = 384), kRowKeys keys' sums in
+// flight a warp; every warp reads all of K and V from L2, so L2 bounds them
+// (about 0.24 TB a call at B=128, S=512, 2 heads of 384: 54.8 ms in bf16,
+// 67x SDPA, before attention_wide_sm90.cuh took the bf16 forward).  They
+// exist to hold the model against the CPU and to run the widths no Hopper
+// instance takes; right matters more than fast.
 #pragma once
 
 #include <cmath>
@@ -457,20 +460,22 @@ inline dim3 row_grid(int B, int S, int H, int D) {
 // The forward past the tiled widths, as attn_fwd_kernel computes it: a
 // warp a (b, h, query row, column part), the keys walked twice from L2
 // (pass 1 the running max and sum of exp, pass 2 the normalised, dropped
-// probabilities rounded to T times the part's columns of V), each score a
-// warp-wide sum over the full D, kRowKeys keys at a time
-template <typename T, bool kTrain>
+// probabilities times the part's columns of V), each score a warp-wide sum
+// over the full D, kRowKeys keys at a time; fp32 only (bf16 past D = 256
+// runs attention_wide_sm90.cuh)
+template <bool kTrain>
 __global__ void __launch_bounds__(32 * kRowWarps, 1)
-attn_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ key_bias, T* __restrict__ out,
-                     float* __restrict__ lse, int S, int H, int D, float scale, Dropout drop) {
+attn_fwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ key_bias,
+                     float* __restrict__ out, float* __restrict__ lse, int S, int H, int D,
+                     float scale, Dropout drop) {
   RowPart rp;
   if (!row_part(S, H, D, rp)) return;
   const int lane = threadIdx.x % 32;
   const size_t rs = size_t(H) * D, head0 = (size_t(rp.b) * S * H + rp.h) * D;
   const int c0 = rp.part * kPartCols + 8 * lane;  // the lane's 8 output columns
   const float* kb = key_bias ? key_bias + size_t(rp.b) * S : nullptr;
-  const T* qr = q + head0 + size_t(rp.s) * rs;
+  const float* qr = q + head0 + size_t(rp.s) * rs;
   float m = -INFINITY, l = 0.f;
   for (int j0 = 0; j0 < S; j0 += kRowKeys) {
     const int n = min(kRowKeys, S - j0);
@@ -508,7 +513,7 @@ attn_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       if constexpr (kTrain) {
         if (drop.enabled) p = drop.keep(base + uint32_t(j)) ? p * drop.keep_scale : 0.f;
       }
-      if (c0 < D) axpy8(o, round_to<T>(p), v + head0 + size_t(j) * rs + c0);
+      if (c0 < D) axpy8(o, p, v + head0 + size_t(j) * rs + c0);
     }
   }
   if (c0 < D) store8(out + head0 + size_t(rp.s) * rs + c0, o, 1.f);
@@ -519,26 +524,18 @@ inline bool shape_ok(int B, int S, int H, int D) {
   return B > 0 && H > 0 && S >= 1 && B <= 65535 && H <= 65535 && head_dim_ok(D);
 }
 
-template <typename T, bool kTrain>
-int launch_fwd_rows(const void* q, const void* k, const void* v, const float* key_bias,
-                    void* out, float* lse, int B, int S, int H, int D, float scale, Dropout drop,
-                    cudaStream_t stream) {
-  if (!shape_ok(B, S, H, D)) return int(cudaErrorInvalidValue);
-  attn_fwd_rows_kernel<T, kTrain><<<row_grid(B, S, H, D), 32 * kRowWarps, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_bias,
-      static_cast<T*>(out), lse, S, H, D, scale, drop);
-  return int(cudaGetLastError());
-}
-
 // the fp32 forward: the tiled body up to P = 128, a warp a row past it
 template <bool kTrain>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const float* key_bias,
                    void* out, float* lse, int B, int S, int H, int D, float scale, Dropout drop,
                    cudaStream_t stream) {
   if (!shape_ok(B, S, H, D)) return int(cudaErrorInvalidValue);
-  if (D > kTiledMaxHeadDim)
-    return launch_fwd_rows<float, kTrain>(q, k, v, key_bias, out, lse, B, S, H, D, scale, drop,
-                                          stream);
+  if (D > kTiledMaxHeadDim) {
+    attn_fwd_rows_kernel<kTrain><<<row_grid(B, S, H, D), 32 * kRowWarps, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        key_bias, static_cast<float*>(out), lse, S, H, D, scale, drop);
+    return int(cudaGetLastError());
+  }
   return with_padded_head_dim(D, [&](auto p) {
     constexpr int kP = decltype(p)::value;
     if constexpr (kP > kTiledMaxHeadDim) {

@@ -2,9 +2,10 @@
 // hash dropout; q, k, v, out, dO, dq, dk, dv in the (B, S, H, D) layout
 // (D any multiple of 8: up to 256 each kernel is instantiated at the
 // padded widths 16, 32, 64, 128 and 256, and D runs on the smallest at
-// least D, the columns past D zero; past the tiled widths a warp a row in
-// column parts of 256, attention.cuh), read with strides; lse and delta
-// (B, H, S) fp32.
+// least D, the columns past D zero; past that the bf16 forward runs
+// attention_wide_sm90.cuh in column parts of 128, the backward and fp32 a
+// warp a row in column parts of 256, attention.cuh), read with strides;
+// lse and delta (B, H, S) fp32.
 //
 // Replaces the TPU kernels _train_fwd_kernel and _train_bwd_kernel
 // (stonkgs_tpu/ops/flash_attention.py:92 and :118, with _dropout_keep at
@@ -17,9 +18,13 @@
 // of attention_sm90.cuh (TMA ring fed by a producer warpgroup, wgmma
 // products, S and P in registers, exp2 on the SFU and a per-row
 // reciprocal: a bf16 probability moves by at most one step at a rounding
-// boundary); in fp32 the SIMT body attn_fwd_kernel<true> of
-// attention.cuh.  The TPU kernel's S_pad - S padded keys enter each
-// row's max and sum analytically.
+// boundary), past D = 256 attn_fwd_wide_sm90_kernel<true> of
+// attention_wide_sm90.cuh (a statistics launch writes lse and each row's
+// (m, 1/l) into the `stats` scratch, then a block per 128 query rows and
+// output column part of 128 runs pass 2); in fp32 the SIMT body
+// attn_fwd_kernel<true> of attention.cuh (attn_fwd_rows_kernel past D =
+// 128).  The TPU kernel's S_pad - S padded keys enter each row's max and
+// sum analytically.
 //
 // Backward, three launches on the stream:
 //   1. delta = rowsum(dO * O) in fp32, one warp per (b, s, h) row;
@@ -50,7 +55,8 @@
 // C interface (dtype 0 fp32, 1 bf16; key_bias (B, S) fp32 or NULL; the
 // dropout arguments as attention.cuh's Dropout):
 //   int flash_attention_train_fwd(int dtype, q, k, v, key_bias, out,
-//       float* lse, int B, int S, int H, int D, float scale, int dropout,
+//       float* lse, float* stats /*bf16 at D > 256: (B, H, S) x 2 fp32
+//       scratch, required; else unused*/, int B, int S, int H, int D, float scale, int dropout,
 //       int s_pad, unsigned threshold, unsigned seed0, unsigned seed1,
 //       float keep_scale, cudaStream_t stream)
 //   int flash_attention_train_bwd(int dtype, q, k, v, key_bias, out,
@@ -60,9 +66,13 @@
 //       unsigned seed0, unsigned seed1, float keep_scale,
 //       cudaStream_t stream)
 // each returns cudaGetLastError() after its launches (cudaErrorInvalidValue,
-// with nothing launched, for a D that is not a positive multiple of 8).
+// with nothing launched, for a D that is not a positive multiple of 8);
+//   int flash_attention_train_fwd_wide_calls(void)
+// the forward's calls so far that ran attn_fwd_wide_sm90_kernel (bf16 past
+// D = 256).
 
 #include "attention_bwd_sm90.cuh"
+#include "attention_wide_sm90.cuh"
 
 namespace stonkgs {
 namespace attn {
@@ -447,8 +457,9 @@ Dropout make_dropout(int enabled, int s_pad, unsigned threshold, unsigned seed0,
 }  // namespace stonkgs
 
 extern "C" int flash_attention_train_fwd(int dtype, const void* q, const void* k, const void* v,
-                                         const float* key_bias, void* out, float* lse, int B,
-                                         int S, int H, int D, float scale, int dropout,
+                                         const float* key_bias, void* out, float* lse,
+                                         float* stats, int B, int S, int H, int D, float scale,
+                                         int dropout,
                                          int s_pad,
                                          unsigned threshold, unsigned seed0, unsigned seed1,
                                          float keep_scale, void* stream) {
@@ -459,8 +470,8 @@ extern "C" int flash_attention_train_fwd(int dtype, const void* q, const void* k
   if (dtype == 0)
     return launch_fwd_f32<true>(q, k, v, key_bias, out, lse, B, S, H, D, scale, drop, st);
   if (dtype == 1 && D > kMaxHeadDim)
-    return launch_fwd_rows<__nv_bfloat16, true>(q, k, v, key_bias, out, lse, B, S, H, D, scale,
-                                                drop, st);
+    return stonkgs::attn90::launch_fwd_wide_sm90<true>(q, k, v, key_bias, out, lse, stats, B, S,
+                                                       H, D, scale, drop, st);
   if (dtype == 1)
     return stonkgs::attn90::launch_fwd_sm90<true>(q, k, v, key_bias, out, lse, B, S, H, D,
                                                   scale, drop, st);
@@ -487,3 +498,5 @@ extern "C" int flash_attention_train_bwd(int dtype, const void* q, const void* k
                                      B, S, H, D, scale, drop, st);
   return int(cudaErrorInvalidValue);
 }
+
+extern "C" int flash_attention_train_fwd_wide_calls() { return stonkgs::attn90::wide_calls(); }

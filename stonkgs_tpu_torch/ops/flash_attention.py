@@ -65,15 +65,33 @@ MiniLM-L12-H384 and in the 64-wide configs the CLI derives, 16 in the
 the configs it derives from 96-, 160-, 288- and 544-wide KG vectors (2,
 2, 4 and 8 heads), 128, 256 and 384 in BERT-base's widths split into 6,
 3 and 2 heads.  Below 8 the wrappers pad D to 8 (P = 16).  Past 256,
-where a 64-row bf16 O accumulator alone would pass a thread's registers,
-both dtypes run the kernels of a warp a row of ``csrc/attention.cuh``
-(``attn_fwd_rows_kernel``; the backward's in
+where a 64-row O accumulator of D fp32 columns alone would pass a
+thread's registers and Q and K tiles of D columns a ring of shared
+memory, bf16 runs the Hopper kernel of ``csrc/attention_wide_sm90.cuh``
+(``attn_fwd_wide_sm90_kernel``): a block of 128 query rows (two consumer
+warpgroups, whose first warp also feeds the ring: in 256 threads a thread
+may take 255 registers, in more only 168, too few for a 64 x 128 score
+tile beside an O part) forms the scores over the full D in column
+blocks of 64, four ``wgmma.m64n128k16`` k-steps a block into one 64 x
+128 fp32 tile, K's blocks (and Q's, past D = 512, where Q no longer
+stays in shared memory beside the ring) streamed through a 3-stage TMA
+ring; O is cut into column parts of 128, a grid axis, each part's block
+running ``wgmma.m64n64k16`` with P from registers against its columns of
+V.  Pass 1 is the same for every part, so a statistics launch writes
+each row's (m, 1/l), and lse when training, to a (B, H, S) x 2 fp32
+scratch, and the part blocks run pass 2 only:
+parts + 2 score-sized products (2·B·H·S²·D flops each) and parts + 1
+exps a score; at the trunk's B=128, S=512 and 2 heads of 384 (three
+parts) 258 GFLOP, and about 2.0 GB read from L2 (K once per 128 rows per
+launch, each part's V columns), against 0.24 TB for the kernels of a
+warp a row that ran it before.  fp32 past 128 and the backward past 256
+(in both dtypes) still run those kernels of a warp a row of
+``csrc/attention.cuh`` (``attn_fwd_rows_kernel``; the backward's in
 ``csrc/flash_attention_train.cu``): each score a warp-wide sum over the
 full D read 8 columns a lane from L2, the outputs cut into column parts
 of 256 (8 columns a lane), a warp a part, each part forming every score
 again and keeping its own softmax statistics over the true scores.
-They are SIMT, not ``wgmma``: right first, at (D/256 + 1)x the scores'
-products of one pass.  Up to 256 each kernel is instantiated at the padded widths P =
+Up to 256 each kernel is instantiated at the padded widths P =
 16, 32, 64, 128 and 256 and runs D on the smallest P >= D: the tensor
 maps' dim 0 is D and their boxes P wide, so TMA
 zero-fills the columns from D to P, which add nothing to QKᵀ, and the
@@ -200,19 +218,50 @@ _P, _I, _U, _F = _build.P, _build.I32, _build.U32, _build.F32
 # dropout, s_pad, threshold, seed0, seed1, keep_scale
 _DROP = [_I, _I, _U, _U, _U, _F]
 _SIGNATURES = {
-    # int flash_attention_infer(dtype, q, k, v, key_bias, out, B, S, H, D,
-    #                           scale, stream)
-    "flash_attention_infer": [_I] + [_P] * 5 + [_I, _I, _I, _I, _F, _P],
+    # int flash_attention_infer(dtype, q, k, v, key_bias, out, stats, B, S,
+    #                           H, D, scale, stream)
+    "flash_attention_infer": [_I] + [_P] * 6 + [_I, _I, _I, _I, _F, _P],
+    # int flash_attention_infer_wide_calls(void)
+    "flash_attention_infer_wide_calls": [],
 }
 _TRAIN_SIGNATURES = {
-    # int flash_attention_train_fwd(dtype, q, k, v, key_bias, out, lse, B,
-    #                               S, H, D, scale, *dropout, stream)
-    "flash_attention_train_fwd": [_I] + [_P] * 6 + [_I, _I, _I, _I, _F] + _DROP + [_P],
+    # int flash_attention_train_fwd(dtype, q, k, v, key_bias, out, lse,
+    #                               stats, B, S, H, D, scale, *dropout,
+    #                               stream)
+    "flash_attention_train_fwd": [_I] + [_P] * 7 + [_I, _I, _I, _I, _F] + _DROP + [_P],
+    # int flash_attention_train_fwd_wide_calls(void)
+    "flash_attention_train_fwd_wide_calls": [],
     # int flash_attention_train_bwd(dtype, q, k, v, key_bias, out, lse, dout,
     #                               dq, dk, dv, db, delta, B, S, H, D, scale,
     #                               *dropout, stream)
     "flash_attention_train_bwd": [_I] + [_P] * 12 + [_I, _I, _I, _I, _F] + _DROP + [_P],
 }
+
+
+# the widest head width of the Hopper instances; the bf16 forward past it
+# runs attn_fwd_wide_sm90_kernel in column parts
+MAX_INSTANCE_HEAD_DIM = 256
+
+
+def _wide_stats(q: torch.Tensor) -> Optional[torch.Tensor]:
+    """The statistics scratch of the bf16 forward past
+    ``MAX_INSTANCE_HEAD_DIM`` for the (padded) ``q``, or None."""
+    B, S, H, D = q.shape
+    if q.dtype != torch.bfloat16 or D <= MAX_INSTANCE_HEAD_DIM:
+        return None
+    return torch.empty((B, H, S, 2), dtype=torch.float32, device=q.device)
+
+
+def wide_forward_calls() -> dict:
+    """How many calls of each forward wrapper ran the bf16 kernel past
+    ``MAX_INSTANCE_HEAD_DIM`` (``attn_fwd_wide_sm90_kernel``) in this
+    process, as the kernels' own libraries count them: the route a check
+    can read on the card (builds the libraries on first use)."""
+    return {
+        "flash_attention_infer": _build.load(
+            "flash_attention_infer", _SIGNATURES).flash_attention_infer_wide_calls(),
+        "flash_attention_train_fwd": _build.load(
+            "flash_attention_train", _TRAIN_SIGNATURES).flash_attention_train_fwd_wide_calls()}
 
 
 def _key_bias(bias: Optional[torch.Tensor], B: int, S: int):
@@ -315,13 +364,13 @@ def flash_attention_infer(
     if B == 0 or H == 0:
         return torch.empty_like(q)
     q, k, v = _pad_heads(q, k, v)
-    out = torch.empty_like(q)
+    out, stats = torch.empty_like(q), _wide_stats(q)
     _build.check_aligned("flash_attention_infer", q, k, v, out)
     lib = _build.load("flash_attention_infer", _SIGNATURES)
     status = lib.flash_attention_infer(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(kb), _build.ptr(out), B, S, H, q.shape[-1], 1.0 / math.sqrt(D),
-        _build.stream(q.device))
+        _build.ptr(kb), _build.ptr(out), _build.ptr(stats), B, S, H, q.shape[-1],
+        1.0 / math.sqrt(D), _build.stream(q.device))
     _build.check(status, "flash_attention_infer")
     flash_attention_infer.launches += 1
     return _unpad(D, out)[0]
@@ -486,13 +535,13 @@ def flash_attention_train_fwd(q, k, v, bias=None, seed=(0, 0), rate=0.0, block_q
     if B == 0 or H == 0:
         return torch.empty_like(q), lse
     q, k, v = _pad_heads(q, k, v)
-    out = torch.empty_like(q)
+    out, stats = torch.empty_like(q), _wide_stats(q)
     _build.check_aligned("flash_attention_train_fwd", q, k, v, out)
     lib = _build.load("flash_attention_train", _TRAIN_SIGNATURES)
     status = lib.flash_attention_train_fwd(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(kb), _build.ptr(out), _build.ptr(lse), B, S, H, q.shape[-1],
-        1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
+        _build.ptr(kb), _build.ptr(out), _build.ptr(lse), _build.ptr(stats), B, S, H,
+        q.shape[-1], 1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
         _build.stream(q.device))
     _build.check(status, "flash_attention_train_fwd")
     flash_attention_train_fwd.launches += 1

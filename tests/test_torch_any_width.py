@@ -4,7 +4,10 @@ domains refused, against the JAX package, on the CPU.
 The card's kernels now take BigBird at any block size (4, 12 and 25 here:
 the command line's ``block_size = max(S // 8, 4)`` at S = 32, 96 and 200)
 and any head width (4, 72 and 128 here), attention at any D (4 below the
-old floor of 8; 300 and 384 past the old cap of 256) and the FFN at H or
+old floor of 8; 264, 300, 384, 520 and 768 past the old cap of 256, where
+the bf16 forward's Hopper kernel cuts O into column parts of 128: one
+column past 256, no multiple of 8, two heads of BERT-base's 768, three
+parts the last ragged, one head of 768) and the FFN at H or
 I below 8 ((4, 16), the 4-wide config's, and (16, 4)).  On a CPU tensor
 each wrapper runs its kernel's plain version, which these tests hold
 against the JAX function at the same width: the Pallas kernel in
@@ -127,10 +130,10 @@ def test_block_sparse_attention_and_gradients_match_jax(bs, d):
 
 
 # ---------------------------------------------------------------------------
-# the attention kernels' plain versions at D = 4, 300 and 384
+# the attention kernels' plain versions at D = 4 and 264 ... 768
 # ---------------------------------------------------------------------------
 
-HEAD_DIMS = [4, 300, 384]
+HEAD_DIMS = [4, 264, 300, 384, 520, 768]
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
@@ -169,6 +172,21 @@ def test_flash_attention_train_matches_jax(S, D, rate):
     for name, g, wg in zip(("dq", "dk", "dv", "dbias"), (tq.grad, tk.grad, tv.grad, tb.grad),
                            want_grads):
         _scaled_close(g, wg, name, floor=np.sqrt(D))
+
+
+@pytest.mark.parametrize("D,dtype,takes", [(264, torch.bfloat16, True),
+                                            (768, torch.bfloat16, True),
+                                            (256, torch.bfloat16, False),
+                                            (384, torch.float32, False)])
+def test_wide_forward_statistics_scratch(D, dtype, takes):
+    """The bf16 forward past D = 256 takes its rows' softmax statistics
+    from a launch of its own: the wrapper hands the kernel a (B, H, S) x 2
+    fp32 scratch for them (none below, or in fp32)."""
+    q = torch.zeros(2, 5, 3, D, dtype=dtype)
+    stats = tflash._wide_stats(q)
+    assert (stats is not None) == takes
+    if takes:
+        assert stats.shape == (2, 3, 5, 2) and stats.dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------
