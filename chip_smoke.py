@@ -506,21 +506,22 @@ GRAD_TOL = {F32: 1e-4, BF16: 2e-2}
 INT8_F32_TOL = 1e-6
 SOURCES = ("ffn_ln_block", "flash_attention_infer", "flash_attention_train", "ffn_train",
            "bigbird_sparse", "dense_int8", "int8_gemm")
-# the Hopper (wgmma, TMA) kernels of each library (the attention forward's
-# past D = 256 too), and the SIMT kernels past their widest instances (the
-# forward's in fp32, the backward's and BigBird's in both dtypes), which
-# must not spill
+# the Hopper (wgmma, TMA) kernels of each library (the attention pair's
+# past D = 256 and BigBird's forward past 64 too), and the SIMT kernels past
+# their widest instances (the attention kernels' in fp32, BigBird's
+# backward in both dtypes and its forward in fp32), which must not spill
 SM90_KERNELS = {
     "flash_attention_infer": ("attn_fwd_sm90_kernel", "attn_fwd_wide_sm90_kernel",
                               "attn_fwd_rows_kernel"),
     "flash_attention_train": ("attn_fwd_sm90_kernel", "attn_fwd_wide_sm90_kernel",
                               "attn_bwd_dq_sm90_kernel", "attn_bwd_dkdv_sm90_kernel",
+                              "attn_bwd_ds_wide_sm90_kernel", "attn_bwd_gemm_wide_sm90_kernel",
                               "attn_fwd_rows_kernel", "attn_bwd_dq_rows_kernel",
                               "attn_bwd_dkdv_rows_kernel"),
     "ffn_ln_block": ("gemm_sm90_kernel", "add_layer_norm_kernel", "layer_norm_rows_kernel"),
     "ffn_train": ("gemm_sm90_kernel", "ffn_bwd_dual_sm90_kernel"),
-    "bigbird_sparse": ("bigbird_fwd_sm90_kernel", "bigbird_bwd_sm90_kernel", "mid_fwd_kernel",
-                       "mid_bwd_kernel"),
+    "bigbird_sparse": ("bigbird_fwd_sm90_kernel", "bigbird_bwd_sm90_kernel",
+                       "bigbird_fwd_wide_sm90_kernel", "mid_fwd_kernel", "mid_bwd_kernel"),
     "dense_int8": ("quantize_rows_kernel", "gemm_kmajor_sm90_kernel"),
     "int8_gemm": ("gemm_kmajor_sm90_kernel",),
 }
@@ -796,10 +797,13 @@ def _compare_grad(name, got, want, dtype) -> float:
 def _attention_bwd_cases(tag, dtype, B, H, S, rate, gen, D=64) -> float:
     """The backward kernel against its plain version from the plain
     forward's out and lse: masked with db, masked without db, unmasked
-    with db and, for B > 1, masked with batch row 0's keys all at -1e9.
-    At the step's shape, bf16 and rate 0.1, it also shows that the bf16
-    gradient limits reject dK without its final scale and dV without the
-    keep scale.  Returns the worst gradient error."""
+    with db and, for B > 1, masked with batch row 0's keys all at -1e9;
+    each call in bf16 past D = 256, and none other, on the dS pass and
+    GEMMs of attention_bwd_wide_sm90.cuh (the library's count of its
+    calls).  At the step's shape, bf16 and rate 0.1, it also shows that
+    the bf16 gradient limits reject dK without its final scale and dV
+    without the keep scale, and past D = 256 dQ from a dS pass without
+    the keep scale on dP~.  Returns the worst gradient error."""
     worst = 0.0
     cases = [("mask db", True, True, False), ("mask no-db", True, False, False),
              ("no-bias db", False, True, False)]
@@ -810,11 +814,14 @@ def _attention_bwd_cases(tag, dtype, B, H, S, rate, gen, D=64) -> float:
         if dead_row:
             bias[0] = -1e9
         out_p, lse_p = flash_attention_train_fwd_plain(q, k, v, bias, seed, rate)
-        got = flash_attention_train_bwd(q, k, v, bias, out_p, lse_p, do, seed, rate,
-                                        need_db=need_db)
+        label = f"{tag} B={B} H={H} S={S}{'' if D == 64 else f' D={D}'} rate={rate} {name}"
+        wide = dtype == BF16 and D > flash_attention_ops.MAX_INSTANCE_HEAD_DIM
+        got = _route(f"attention bwd {label}", "the backward's dS pass and GEMMs",
+                     flash_attention_ops.wide_backward_calls, int(wide),
+                     lambda: flash_attention_train_bwd(q, k, v, bias, out_p, lse_p, do, seed,
+                                                       rate, need_db=need_db))
         want = flash_attention_train_bwd_plain(q, k, v, bias, out_p, lse_p, do, seed, rate,
                                                need_db=need_db)
-        label = f"{tag} B={B} H={H} S={S}{'' if D == 64 else f' D={D}'} rate={rate} {name}"
         for n, g, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
             worst = max(worst, _compare_grad(f"attention {n} {label}", g, w, dtype))
         check((got[3] is None) == (want[3] is None) == (not need_db), f"{label}: db presence")
@@ -826,8 +833,31 @@ def _attention_bwd_cases(tag, dtype, B, H, S, rate, gen, D=64) -> float:
                                     (want[1].float() * math.sqrt(D)).to(BF16))
             _grad_limit_rejects(f"attention dv {label} without the keep scale", want[2],
                                 (want[2].float() * (1.0 - rate)).to(BF16))
+            if wide:
+                _grad_limit_rejects(f"attention dq {label} from a dS pass without the keep "
+                                    f"scale on dP~", want[0],
+                                    _dq_without_dp_keep_scale(q, k, v, bias, out_p, lse_p, do,
+                                                              seed, rate))
         del q, k, v, bias, do, out_p, lse_p, got, want
     return worst
+
+
+def _dq_without_dp_keep_scale(q, k, v, bias, out, lse, do, seed, rate):
+    """The plain backward's dQ with a known fault: dP~ dropped by the hash
+    but not scaled by 1/(1 - rate) before dS = p (dP - delta)."""
+    B, S, H, D = q.shape
+    f, scale = torch.float32, 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.reshape(B, 1, 1, S).float()
+    p = torch.exp(s - lse[..., None])
+    idx = torch.arange(S, device=q.device)
+    keep = flash_attention_ops.dropout_keep_plain(
+        seed, B, H, flash_attention_ops.padded_length(S), idx, idx, rate)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float()) * keep.to(f)
+    delta = (do.float() * out.float()).sum(dim=-1).permute(0, 2, 1)[..., None]
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.float())).to(q.dtype)
 
 
 def _grad_limit_rejects(name, want, wrong) -> None:
@@ -1079,7 +1109,7 @@ def _sparse_geometry_rejected(gen) -> None:
         for bs, D, S in SPARSE_C_OUTSIDE:
             scale = max(D, 1) ** -0.5
             statuses = {
-                "bigbird_mid_fwd": lib.bigbird_mid_fwd(dt, *[p] * 7, 1, S, 1, 1, bs, D, S * D,
+                "bigbird_mid_fwd": lib.bigbird_mid_fwd(dt, *[p] * 8, 1, S, 1, 1, bs, D, S * D,
                                                        D, D, scale, st),
                 "bigbird_mid_bwd": lib.bigbird_mid_bwd(dt, *[p] * 11, 1, S, 1, 1, bs, D, S * D,
                                                        D, D, scale, st)}
@@ -1093,7 +1123,7 @@ def _sparse_geometry_rejected(gen) -> None:
         S = 5 * 64
         bad = SPARSE_BAD_SCALE
         statuses = {
-            "bigbird_mid_fwd": lib.bigbird_mid_fwd(1, *[p] * 7, 1, S, 1, 1, 64, D, S * D, D, D,
+            "bigbird_mid_fwd": lib.bigbird_mid_fwd(1, *[p] * 8, 1, S, 1, 1, 64, D, S * D, D, D,
                                                    bad, st),
             "bigbird_mid_bwd": lib.bigbird_mid_bwd(1, *[p] * 11, 1, S, 1, 1, 64, D, S * D, D, D,
                                                    bad, st)}
@@ -5686,11 +5716,11 @@ def _widths_outside(gen) -> None:
                 f"flash_attention_train_fwd D={D}": train_lib.flash_attention_train_fwd(
                     dt, *[p] * 7, 1, 64, 2, D, scale, *drop, st),
                 f"flash_attention_train_bwd D={D}": train_lib.flash_attention_train_bwd(
-                    dt, *[p] * 12, 1, 64, 2, D, scale, *drop, st)})
+                    dt, *[p] * 16, 1, 64, 2, D, 1, 64, scale, *drop, st)})
             S = 5 * 64
             statuses.update({
                 f"bigbird_mid_fwd D={D}": sparse_lib.bigbird_mid_fwd(
-                    dt, *[p] * 7, 1, S, 1, 1, 64, D, S * D, D, D, scale, st),
+                    dt, *[p] * 8, 1, S, 1, 1, 64, D, S * D, D, D, scale, st),
                 f"bigbird_mid_bwd D={D}": sparse_lib.bigbird_mid_bwd(
                     dt, *[p] * 11, 1, S, 1, 1, 64, D, S * D, D, D, scale, st)})
         for H, I in WIDE_FFN_OUTSIDE:
@@ -5700,13 +5730,23 @@ def _widths_outside(gen) -> None:
                 f"ffn_train_fwd H={H} I={I}": ffn_lib.ffn_train_fwd(dt, *[p] * 7, 3, H, I, 0, st),
                 f"ffn_train_bwd H={H} I={I}": ffn_lib.ffn_train_bwd(dt, *[p] * 10, 3, H, I, 0,
                                                                     st)})
-        if dt == 1:  # the bf16 forward past D = 256 requires its statistics scratch
+        if dt == 1:  # the bf16 kernels past the instances require their scratch
             statuses.update({
                 "flash_attention_infer D=384 without stats": attn_lib.flash_attention_infer(
                     dt, *[p] * 5, None, 1, 64, 2, 384, 384 ** -0.5, st),
                 "flash_attention_train_fwd D=384 without stats":
                     train_lib.flash_attention_train_fwd(dt, *[p] * 6, None, 1, 64, 2, 384,
-                                                        384 ** -0.5, *drop, st)})
+                                                        384 ** -0.5, *drop, st),
+                "flash_attention_train_bwd D=384 without its dS scratch":
+                    train_lib.flash_attention_train_bwd(dt, *[p] * 12, None, None, None, None,
+                                                        1, 64, 2, 384, 1, 64, 384 ** -0.5,
+                                                        *drop, st),
+                "flash_attention_train_bwd D=384 in chunks without the fp32 carries":
+                    train_lib.flash_attention_train_bwd(dt, *[p] * 14, None, None, 1, 64, 2,
+                                                        384, 1, 32, 384 ** -0.5, *drop, st),
+                "bigbird_mid_fwd D=256 without stats": sparse_lib.bigbird_mid_fwd(
+                    dt, *[p] * 7, None, 1, 5 * 64, 1, 1, 64, 256, 5 * 64 * 256, 256, 256,
+                    256 ** -0.5, st)})
         torch.cuda.synchronize()
         for name, status in statuses.items():
             log(f"# check {name} {tag} C entry point: status {status} (1: refused)")
@@ -6115,7 +6155,8 @@ def _bb_cases(cases, gen, note) -> None:
                                                          D, BB_R)
                 label = (f"{tag} D={D} bs={bs} B={B} H={H} S={nb * bs} {plan} plan"
                          f"{' mask' if padded else ''}")
-                out, lse = bigbird_mid_fwd(q, k, v, mask, rand, bs)
+                out, lse = _bb_wide_route(label, D, dtype,
+                                          lambda: bigbird_mid_fwd(q, k, v, mask, rand, bs))
                 out_p, lse_p = bigbird_mid_fwd_plain(q, k, v, mask, rand, bs)
                 e = max(_compare_attn(f"sparse fwd {label}", out, out_p, dtype),
                         _compare(f"sparse lse {label}", lse, lse_p, dtype))
@@ -6330,9 +6371,10 @@ def _bb_heads128(pcfg: ProtSTonKGsConfig, pparams: dict, card: str) -> tuple:
     BB_HEADS_128 heads of D = 128 on phase 11's parameters (the head split
     changes no parameter's shape): ``embed`` over BB_HEADS_ROWS rows at
     B=8 (launch counts from 0, finite output), phase 12's ``pretrain``
-    (B=2, 4 steps), phase 13's card fp32 against CPU fp32 numerics at this
-    head split, then the pair's times at the trunk's shape
-    (``_bb_times``).  Returns (the counts of the embed and the steps; the
+    (B=2, 4 steps), every forward of both on bigbird_fwd_wide_sm90_kernel
+    (the library's count of its calls), phase 13's card fp32 against CPU
+    fp32 numerics at this head split, then the pair's times at the trunk's
+    shape (``_bb_times``).  Returns (the counts of the embed and the steps; the
     times)."""
     t0 = time.perf_counter()
     cfg = pcfg.replace(trunk=dataclasses.replace(pcfg.trunk, num_attention_heads=BB_HEADS_128))
@@ -6341,10 +6383,18 @@ def _bb_heads128(pcfg: ProtSTonKGsConfig, pparams: dict, card: str) -> tuple:
     engine = ProtSTonKGsEngine(cfg=cfg, params=params_to(pparams, DEV, BF16),
                                batch_size=BB_EMBED_BATCH, device=DEV)
     rows = _prot_features(cfg, BB_HEADS_ROWS, seed=22)
+    wide0 = bigbird_sparse_ops.wide_forward_calls()
     _, counts = _prot_embed_counted(f"ProtSTonKGs embed, trunk {BB_HEADS_128} x 128", engine,
                                     rows)
     train_counts, state, _ = phase_prot_training(cfg, pparams)
     _add_counts(counts, train_counts)
+    # every bf16 forward at D = 128 runs bigbird_fwd_wide_sm90_kernel
+    ran = bigbird_sparse_ops.wide_forward_calls() - wide0
+    log(f"# check 6-head ProtSTonKGs embed and step route: {ran} calls of "
+        f"bigbird_fwd_wide_sm90_kernel, {counts['bigbird_mid_fwd']} launches of bigbird_mid_fwd "
+        f"{'ok' if ran == counts['bigbird_mid_fwd'] > 0 else 'FAIL'}")
+    check(ran == counts["bigbird_mid_fwd"] > 0,
+          "the 6-head ProtSTonKGs path did not run bigbird_fwd_wide_sm90_kernel at every call")
     phase_prot_train_numerics(cfg)
     log(f"# bigbird widths (e) 6 heads of 128: {time.perf_counter() - t0:.1f} s")
     times = _bb_times(cfg, engine, rows, state, card)
@@ -6648,6 +6698,9 @@ WIDE_BB_ANY_D = (1, 2, 4, 7, 72, 100, 128, 200, 256, 384, 520)
 WIDE_BB_ANY_GEOS = ((64, 2, 3, 8, True), (25, 2, 2, 8, True), (512, 1, 2, 5, False))
 # the planted fault: at D = 128 the logits without their columns from 64 on
 WIDE_BB_COL_FAULT = (128, 64)
+# the planted fault of the forward past D = 128: at D = 384 each row's
+# statistics without the last column block (320 on)
+WIDE_BB_STATS_FAULT = (384, 320)
 # STonKGs from these KG TSV widths: 2 heads of 24, 40, 50 and 56, 20 of 64
 # (H = 1280, I = 5120); TransE from the 80-wide one; the rows of their
 # TSVs (phase 26's 5,000 made the 1280-wide path 24 s, two thirds of it
@@ -6741,7 +6794,12 @@ def _wide_bigbird(gen, note) -> None:
     then at D=24 in bf16 (block 64, the training plan, integer-valued q
     and k, where the rounded Q·Kᵀ is exact) the kernel within the limits
     and the plain output at the padded instance's scale 1/sqrt(32) (in
-    place of 1/sqrt(24)) rejected by them."""
+    place of 1/sqrt(24)) rejected by them; the pair at WIDE_BB_ANY_D (the
+    bf16 forward past D = 64 on bigbird_fwd_wide_sm90_kernel, its route
+    read from the library's count), and the limits rejecting the plain
+    output without the logits' columns from 64 on at D = 128
+    (WIDE_BB_COL_FAULT) and with each row's statistics without the last
+    column block at D = 384 (WIDE_BB_STATS_FAULT)."""
     _bb_cases([(bs, D, B, H, nb, padded) for D in WIDE_BB_D
                for bs, B, H, nb, padded in WIDE_BB_GEOS], gen, note)
     D, P = WIDE_BB_FAULT
@@ -6764,6 +6822,30 @@ def _wide_bigbird(gen, note) -> None:
     _attn_limit_rejects(f"sparse fwd bf16 D={D} bs=64 train plan without the logits' columns "
                         f"{c}-{D - 1}", bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)[0],
                         bigbird_mid_fwd_plain(cut_q, cut_k, v, mask, rand, 64)[0])
+    D, c = WIDE_BB_STATS_FAULT
+    q, k, v, mask, rand, _ = _sparse_inputs(2, 8, BF16, gen, "train", True, 3, 64, D, BB_R)
+    _attn_limit_rejects(f"sparse fwd bf16 D={D} bs=64 train plan with each row's statistics "
+                        f"over the logits without their columns {c}-{D - 1}",
+                        bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)[0],
+                        _sparse_fwd_stats_cut(q, k, v, mask, rand, 64, c))
+
+
+def _sparse_fwd_stats_cut(q, k, v, mask, rand, bs, c):
+    """The plain forward with a known fault: each row's softmax statistics
+    (m, l) taken over the logits without the columns of q and k from ``c``
+    on (a statistics pass that drops its last column block), its
+    probabilities exp(s - m) / l over the whole logits."""
+    B, S, H, D = q.shape
+    f = torch.float32
+    qm, kc, vc, pen, _ = _mid_operands(q, k, v, mask, rand, bs)
+    cut = qm.clone()
+    cut[..., c:] = 0
+    partial = _mid_logits(cut, kc, pen, q.dtype)
+    m = partial.amax(dim=-1, keepdim=True)
+    l = torch.exp(partial - m).sum(dim=-1, keepdim=True)
+    w = (torch.exp(_mid_logits(qm, kc, pen, q.dtype) - m) / l).to(q.dtype)
+    ctx = torch.einsum("bhjqk,bhjkd->bhjqd", w.to(f), vc.to(f)).to(q.dtype)
+    return ctx.permute(0, 2, 3, 1, 4).reshape(B, -1, H, D)
 
 
 def _wide_paths(total: dict) -> dict:
@@ -6913,7 +6995,8 @@ def _widest_attention(gen, note, dims=WIDEST_HEAD_DIMS) -> None:
     streamed column blocks).  In bf16 past D = 256 (the Hopper instances'
     widest) each forward call must raise its library's count of calls that ran
     attn_fwd_wide_sm90_kernel by one (``_wide_route``; the forward of a warp
-    a row is no longer on that route)."""
+    a row is no longer on that route), and each backward call the count of
+    the backward's dS pass and GEMMs (``_attention_bwd_cases``)."""
     B, H = HEAD_BATCH, HEAD_HEADS
     faults = dict(WIDEST_HEAD_FAULTS)
     for dtype in (BF16, F32):
@@ -6952,6 +7035,32 @@ def _widest_attention(gen, note, dims=WIDEST_HEAD_DIMS) -> None:
                 del q, k, v, bias
 
 
+# scratch caps of the backward past D = 256 and the plans they force at
+# D = 384, S = 512, B = 2 with 3 heads: groups of two heads, then one head
+# in chunks of 128 query rows (dK and dV carried in fp32)
+WIDE_BWD_CAPS = ((4 * 512 * 512 * 2, (2, 512)), (4 * 512 * 200, (1, 128)))
+
+
+def _wide_backward_pieces(gen, note) -> None:
+    """(h) The backward past D = 256 under the smaller scratch caps of
+    WIDE_BWD_CAPS (``_attention_bwd_cases`` at D = 384, S = 512, rate 0.1):
+    the plan each forces, and the kernels against the plain version over
+    its groups of heads and chunks of rows."""
+    saved = flash_attention_ops.WIDE_BWD_SCRATCH_BYTES
+    try:
+        for cap, want in WIDE_BWD_CAPS:
+            flash_attention_ops.WIDE_BWD_SCRATCH_BYTES = cap
+            plan = flash_attention_ops.wide_backward_plan(HEAD_BATCH, 512, HEAD_HEADS, 384, BF16)
+            log(f"# check wide backward plan at a scratch cap of {cap} bytes: {plan} (heads a "
+                f"group, query rows a chunk), expected {want} {'ok' if plan == want else 'FAIL'}")
+            check(plan == want, f"the wide backward's plan at cap {cap}: {plan}")
+            e = _attention_bwd_cases(f"bf16 cap={cap}", BF16, HEAD_BATCH, HEAD_HEADS, 512,
+                                     ATTN_RATE, gen, 384)
+            note("flash_attention_train_bwd", e, BF16)
+    finally:
+        flash_attention_ops.WIDE_BWD_SCRATCH_BYTES = saved
+
+
 def _wide_route(label: str, name: str, wide: bool, fn):
     """``fn()``, a call of the forward wrapper ``name``; with ``wide``, it
     must raise its library's count of calls that ran
@@ -6959,13 +7068,29 @@ def _wide_route(label: str, name: str, wide: bool, fn):
     here: later in a full run its traces hold no device kernels)."""
     if not wide:
         return fn()
-    before = flash_attention_ops.wide_forward_calls()[name]
+    return _route(f"{name} {label}", "attn_fwd_wide_sm90_kernel",
+                  lambda: flash_attention_ops.wide_forward_calls()[name], 1, fn)
+
+
+def _route(label: str, kernel: str, counter, calls: int, fn):
+    """``fn()``, which must raise ``counter()`` (a library's count of the
+    calls that ran ``kernel``) by exactly ``calls``: the route a check
+    reads without a profiler."""
+    before = counter()
     out = fn()
-    ran = flash_attention_ops.wide_forward_calls()[name] - before
-    log(f"# check {name} {label} route: {ran} call of attn_fwd_wide_sm90_kernel "
-        f"{'ok' if ran == 1 else 'FAIL'}")
-    check(ran == 1, f"{name} {label}: not attn_fwd_wide_sm90_kernel")
+    ran = counter() - before
+    log(f"# check {label} route: {ran} calls of {kernel}, expected {calls} "
+        f"{'ok' if ran == calls else 'FAIL'}")
+    check(ran == calls, f"{label}: {ran} calls of {kernel}, expected {calls}")
     return out
+
+
+def _bb_wide_route(label: str, D: int, dtype, fn):
+    """``fn()``, a call of ``bigbird_mid_fwd``: in bf16 past D = 64 it must
+    run bigbird_fwd_wide_sm90_kernel (``_route``), in fp32 or up to 64 not."""
+    wide = dtype == BF16 and D > bigbird_sparse_ops.MAX_INSTANCE_HEAD_DIM
+    return _route(f"sparse fwd {label}", "bigbird_fwd_wide_sm90_kernel",
+                  bigbird_sparse_ops.wide_forward_calls, int(wide), fn)
 
 
 def _widest_paths(params: dict, total: dict) -> tuple:
@@ -7028,12 +7153,21 @@ def _heads384_cfg() -> STonKGsConfig:
 def _heads384_path(params: dict, total: dict) -> dict:
     """(i) STonKGs at BERT-base's widths in 2 heads of D=384 on phase 5's
     parameters, as (f) in 3 heads of 256: ``embed`` over ROWS rows at
-    B=128 and phase 7's ``pretrain`` (B=32, 4 steps) and phase 8's
-    numerics.  Returns the launch counts of the embed and step."""
+    B=128 and phase 7's ``pretrain`` (B=32, 4 steps; every backward on the
+    dS pass and GEMMs of attention_bwd_wide_sm90.cuh, the library's count
+    of its calls) and phase 8's numerics.  Returns the launch counts of
+    the embed and step."""
     t0 = time.perf_counter()
     cfg = _heads384_cfg()
     heads = _heads_serving(cfg, params)
+    wide0 = flash_attention_ops.wide_backward_calls()
     train_counts, state = phase_training(cfg, params)
+    ran = flash_attention_ops.wide_backward_calls() - wide0
+    launched = train_counts["flash_attention_train_bwd"]
+    log(f"# check D=384 step route: {ran} calls of the backward's dS pass and GEMMs, "
+        f"{launched} launches of flash_attention_train_bwd "
+        f"{'ok' if ran == launched > 0 else 'FAIL'}")
+    check(ran == launched > 0, "the D=384 step did not run the wide backward at every call")
     heads.update(train_counts)
     del state
     phase_train_numerics(cfg)
@@ -7119,6 +7253,7 @@ def phase_wide(card: str, params: dict) -> tuple:
     log(f"# wide (f, g): {time.perf_counter() - t_phase:.1f} s")
     _tiny_ffn(card_gen, note_any)
     _widest_attention(card_gen, note_any, WIDEST_ANY_HEAD_DIMS)
+    _wide_backward_pieces(card_gen, note_any)
     log(f"# wide (h) FFN below 8, attention past D=256: {time.perf_counter() - t_phase:.1f} s")
     d384_counts = _heads384_path(params, total)
     any_times = _any_width_times(card)

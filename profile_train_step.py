@@ -4,7 +4,8 @@ CUDA card.
 Run from the root of a checkout, with one CUDA card visible:
 
     python3 profile_train_step.py [--model stonkgs|stonkgs-finetune|protstonkgs]
-                                  [--serve [--int8]] [--out profile_train_step.json]
+                                  [--serve [--int8]] [--heads N]
+                                  [--out profile_train_step.json]
 
 Builds the port's kernels and makes the full-width model of
 ``chip_smoke.py`` with random seeded weights: STonKGs (BERT-base backbone
@@ -12,7 +13,10 @@ and trunk, 256 + 256, KG vocabulary 100,000; B=32), the same model
 fine-tuned (``classification_loss``, two labels, B=8: a step of the
 fine-tuning battery) or ProtSTonKGs (BigBird trunk, BioBERT, ProtBERT
 30 x 1024, 4096 tokens, KG vocabulary 20,000; B=2 with the training
-plan).  It runs two warm-up steps of
+plan); ``--heads N`` splits the trunk's width into N attention heads
+(STonKGs: every BERT stack, as ``chip_smoke.py``'s head-split paths;
+ProtSTonKGs: the BigBird trunk) in place of the published 12.  It runs
+two warm-up steps of
 ``make_train_step`` in bf16 with fp32 parameters, then traces three steps
 with ``torch.profiler`` (each step synchronised through its loss).  With
 ``--serve`` it traces three embed batches in bf16 instead
@@ -29,6 +33,7 @@ writes the groups to ``--out``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import subprocess
@@ -63,6 +68,12 @@ PORT_KERNELS = {
     "attn_bwd_dkdv_kernel": "flash_attention_train_bwd",
     "attn_bwd_dq_sm90_kernel": "flash_attention_train_bwd",
     "attn_bwd_dkdv_sm90_kernel": "flash_attention_train_bwd",
+    "attn_fwd_wide_sm90_kernel": ("flash_attention_infer", "flash_attention_train_fwd"),
+    "attn_fwd_rows_kernel": ("flash_attention_infer", "flash_attention_train_fwd"),
+    "attn_bwd_ds_wide_sm90_kernel": "flash_attention_train_bwd",
+    "attn_bwd_gemm_wide_sm90_kernel": "flash_attention_train_bwd",
+    "attn_bwd_dq_rows_kernel": "flash_attention_train_bwd",
+    "attn_bwd_dkdv_rows_kernel": "flash_attention_train_bwd",
     "ffn_fwd_kernel": ("ffn_train_fwd", "ffn_ln_block"),
     "gemm_sm90_kernel": ("ffn_train_fwd", "ffn_train_bwd"),
     "add_layer_norm_kernel": "ffn_ln_block",
@@ -71,6 +82,7 @@ PORT_KERNELS = {
     "mid_fwd_kernel": "bigbird_mid_fwd",
     "mid_bwd_kernel": "bigbird_mid_bwd",
     "bigbird_fwd_sm90_kernel": "bigbird_mid_fwd",
+    "bigbird_fwd_wide_sm90_kernel": "bigbird_mid_fwd",
     "bigbird_bwd_sm90_kernel": "bigbird_mid_bwd",
     "quantize_rows_kernel": "dense_int8",
     "gemm_kmajor_sm90_kernel": "dense_int8",
@@ -109,6 +121,8 @@ def main() -> int:
     ap.add_argument("--serve", action="store_true", help="trace the engine's embed batches")
     ap.add_argument("--int8", action="store_true",
                     help="with --serve: the engine on quantize_params output")
+    ap.add_argument("--heads", type=int, default=12,
+                    help="attention heads of the trunk's width (the published 12)")
     args = ap.parse_args()
     if args.int8 and not args.serve:
         ap.error("--int8 traces int8 serving: pass --serve")
@@ -124,11 +138,11 @@ def main() -> int:
     _build.build_all(chip_smoke.SOURCES)
     if args.serve:
         embed = _prot_embed if args.model == "protstonkgs" else _stonkgs_embed
-        run, batch_size = embed(args.int8)
+        run, batch_size = embed(args.int8, args.heads)
     else:
         run, batch_size = {"stonkgs": _stonkgs_train, "protstonkgs": _prot_train,
                            "stonkgs-finetune": functools.partial(_stonkgs_train, True)
-                           }[args.model]()
+                           }[args.model](heads=args.heads)
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -155,7 +169,8 @@ def main() -> int:
     print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=20))
     step_ms = wall_ms / STEPS
     busy = device_ms / wall_ms
-    mode = (" int8" if args.int8 else "") + (" embed" if args.serve else "")
+    mode = ((" int8" if args.int8 else "") + (" embed" if args.serve else "")
+            + (f" {args.heads} heads" if args.heads != 12 else ""))
     print(f"# {args.model}{mode}: {STEPS} steps, B={batch_size}: "
           f"{step_ms!r} ms a step on the "
           f"host clock, device time {device_ms / STEPS!r} ms a step; device busy "
@@ -168,6 +183,7 @@ def main() -> int:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:40]
     out.write_text(json.dumps({
         "card": card, "model": args.model, "serve": args.serve, "int8": args.int8,
+        "heads": args.heads,
         "batch": batch_size,
         "steps": STEPS, "step_ms": step_ms,
         "device_ms_per_step": device_ms / STEPS, "device_busy": busy,
@@ -178,11 +194,11 @@ def main() -> int:
     return 0
 
 
-def _stonkgs_train(finetune: bool = False):
+def _stonkgs_train(finetune: bool = False, heads: int = 12):
     """One STonKGs train step at B=32, synchronised through its loss; with
     ``finetune`` a fine-tuning step (a classifier head, two labels,
     ``classification_loss``) at B=8."""
-    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000,
+    cfg = STonKGsConfig(bert=BertConfig(num_attention_heads=heads), kg_vocab_size=100_000,
                         num_labels=2 if finetune else None)
     gen = torch.Generator().manual_seed(0)
     params = stonkgs.init_stonkgs_params(gen, cfg, with_classifier=finetune)
@@ -206,9 +222,15 @@ def _stonkgs_train(finetune: bool = False):
     return run, B
 
 
-def _prot_train():
-    """One ProtSTonKGs train step at B=2 with the training plan."""
+def _prot_cfg(heads: int):
+    """chip_smoke.py's ProtSTonKGs config with the trunk in ``heads`` heads."""
     cfg = chip_smoke._prot_cfg()
+    return cfg.replace(trunk=dataclasses.replace(cfg.trunk, num_attention_heads=heads))
+
+
+def _prot_train(heads: int = 12):
+    """One ProtSTonKGs train step at B=2 with the training plan."""
+    cfg = _prot_cfg(heads)
     params = chip_smoke._prot_params(cfg, seed=0)
     tx = AdamW(total_steps=1000)
     state = pretraining.init_train_state(params_to(params, "cuda"), tx)
@@ -232,10 +254,10 @@ def _serving_params(params, int8: bool):
     return params_to(params, "cuda", torch.bfloat16)
 
 
-def _stonkgs_embed(int8: bool):
+def _stonkgs_embed(int8: bool, heads: int = 12):
     """One STonKGs embed batch of 128 (bf16), synchronised by the copy of
     its output to the host."""
-    cfg = STonKGsConfig(bert=BertConfig(), kg_vocab_size=100_000)
+    cfg = STonKGsConfig(bert=BertConfig(num_attention_heads=heads), kg_vocab_size=100_000)
     gen = torch.Generator().manual_seed(0)
     params = stonkgs.init_stonkgs_params(gen, cfg)
     params["kg_backbone"] = 0.05 * torch.randn(cfg.kg_table_size, cfg.bert.hidden_size,
@@ -249,10 +271,10 @@ def _stonkgs_embed(int8: bool):
     return run, B
 
 
-def _prot_embed(int8: bool):
+def _prot_embed(int8: bool, heads: int = 12):
     """One ProtSTonKGs embed batch of 8 (bf16), synchronised by the copy
     of its output to the host."""
-    cfg = chip_smoke._prot_cfg()
+    cfg = _prot_cfg(heads)
     params = chip_smoke._prot_params(cfg, seed=0, dtype=torch.float32 if int8 else torch.bfloat16)
     B = chip_smoke.PROT_BATCH
     engine = ProtSTonKGsEngine(cfg=cfg, params=_serving_params(params, int8), batch_size=B)

@@ -13,7 +13,9 @@ one JSON line with the time of ``bigbird_mid_fwd`` or
 ``bigbird_mid_bwd`` (CUDA events over ``--iters`` calls) and the card's
 name and power limit.  ``--widths`` adds the configurations derived from
 48-, 80- and 144-wide KG TSVs (2 heads of 24 and 40, 4 of 36; blocks 512
-and 96) and the head widths 8, 48 and 56 at the 128-wide shape; ``--full``
+and 96), the head widths 8, 48 and 56 at the 128-wide shape, and the
+trunk's 768 in 6 heads of 128 (S=4096, block 64, r=3: the bf16 forward
+past D = 64, the SIMT backward); ``--full``
 adds to each line the bound (the products at 989 TFLOP/s or the bytes,
 each input read once and each output written once, at 3.35 TB/s), the
 plain version's time and the library call's: SDPA over operands gathered
@@ -54,7 +56,8 @@ GEOMETRIES = (
     ("128-wide TSV S=768", 768, 4, 32, 96, 1),
 )
 # --widths: the configurations derived from 48-, 80- and 144-wide TSVs,
-# and head widths 8, 48 and 56 at the 128-wide TSV's shape
+# head widths 8, 48 and 56 at the 128-wide TSV's shape, and the trunk in 6
+# heads of 128
 WIDTH_GEOMETRIES = (
     ("48-wide TSV", 4096, 2, 24, 512, 1),
     ("80-wide TSV", 4096, 2, 40, 512, 1),
@@ -63,6 +66,7 @@ WIDTH_GEOMETRIES = (
     ("D=8 at the 128-wide shape", 4096, 4, 8, 512, 1),
     ("D=48 at the 128-wide shape", 4096, 4, 48, 512, 1),
     ("D=56 at the 128-wide shape", 4096, 4, 56, 512, 1),
+    ("trunk 6x128", 4096, 6, 128, 64, 3),
 )
 PEAK_BF16 = 989e12
 HBM_BYTES_PER_S = 3.35e12

@@ -25,10 +25,11 @@
 // product, and the stores write columns < D.
 //
 // Above the tiled widths (fp32 past P = 128, where four 64-row fp32 tiles
-// of 256 columns are 266 KB, past the 227 KB of a block; the bf16 backward
-// past the Hopper kernels' P = 256) a warp owns one row
-// (attn_fwd_rows_kernel here, in fp32 only; the backward's in
-// flash_attention_train.cu), at any D that is a multiple of 8: each score
+// of 256 columns are 266 KB, past the 227 KB of a block; bf16 past P = 256
+// runs the wgmma kernels of attention_wide_sm90.cuh and
+// attention_bwd_wide_sm90.cuh) a warp owns one row (attn_fwd_rows_kernel
+// here, the backward's in flash_attention_train.cu, all in fp32 only), at
+// any D that is a multiple of 8: each score
 // is a warp-wide sum over the whole row, a lane reading 8 columns at a
 // time (16 or 32 bytes) from L2, and the row's outputs are cut into column
 // parts of 256 (kPartCols), 8 columns a lane, one warp a part: a part's
@@ -38,9 +39,8 @@
 // scores are formed once a part (twice at D = 384), kRowKeys keys' sums in
 // flight a warp; every warp reads all of K and V from L2, so L2 bounds them
 // (about 0.24 TB a call at B=128, S=512, 2 heads of 384: 54.8 ms in bf16,
-// 67x SDPA, before attention_wide_sm90.cuh took the bf16 forward).  They
-// exist to hold the model against the CPU and to run the widths no Hopper
-// instance takes; right matters more than fast.
+// 67x SDPA, before the wgmma kernels took bf16).  They exist to hold the
+// model against the CPU; right matters more than fast.
 #pragma once
 
 #include <cmath>
@@ -66,7 +66,7 @@ template <> struct Pad<__nv_bfloat16> { static constexpr int value = 8; };
 
 // the widest instance of the attention kernels (the bf16 Hopper kernels
 // take D up to it), and the widest padded width of the tiled fp32 bodies;
-// wider heads run the kernels of a warp a row
+// wider heads run the wide wgmma kernels in bf16, a warp a row in fp32
 constexpr int kMaxHeadDim = 256;
 constexpr int kTiledMaxHeadDim = 128;
 

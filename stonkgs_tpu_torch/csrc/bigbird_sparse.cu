@@ -1,7 +1,9 @@
 // BigBird block-sparse attention, the middle query blocks, forward and
 // backward (HF BigBirdBlockSparseAttention), at any head width d that is a
 // multiple of 8 (the wrappers pad any other) and any block size bs >= 1
-// with at least 5 blocks.
+// with at least 5 blocks: the bf16 Hopper kernels of bigbird_sm90.cuh up
+// to d = 64, past it the bf16 forward of bigbird_wide_sm90.cuh and the
+// SIMT bodies here (the bf16 backward and everything in fp32).
 //
 // Replaces the TPU kernels _mid_blocks_kernel and _mid_blocks_bwd_kernel
 // (stonkgs_tpu/ops/bigbird_sparse_pallas.py:83 and :113, which share
@@ -21,39 +23,40 @@
 // rings, wgmma; the forward's two passes as the dense attention's, the
 // backward's dK and dV added with TMA reduce-adds), at any block size: a
 // block is ceil(bs / 64) row tiles, the last one partial (masked) where bs
-// is no multiple of 64, several blocks' rows in one tile below 64.  The
-// SIMT bodies here run fp32 at every d (they exist to hold the model
-// against the CPU) and bf16 past d = 64, where the Hopper kernels'
-// shared memory has no room (their forward ring holds 4 stages of two
-// 64 x d K and V tiles a query block, 256 KB at d = 128; their backward
-// two fp32 64 x d staging tiles a consumer).  A SIMT body is instantiated
-// at the padded widths D = 16, 32 and 64 (the tiles D wide, zero past d;
-// the stores and adds skip the columns from d on); past d = 64 at D = 64
-// in column parts: ceil(d / 64) CTAs a tile, each forming the full-d
-// scores over 64-column chunks of Q and K (and dP of dO and V) through
-// the same tiles, the chunk of its own part last, so that the tiles then
-// hold the part's columns for its products (P V; dS K, dS^T Q, P^T dO).
-// Each part keeps its own softmax statistics over the true scores; the
-// first writes lse.  The scores are formed once a part: (d / 64) times
-// the products of one pass.  One block of 128 threads (4 warps of 16 query
-// rows) per 64-row tile u of middle query block j (T = ceil(bs / 64) tiles
-// a block) and part: the grid's x is (j * T + u) * parts + part, head h
-// and batch b, query block i = j + 1, streaming the 5 + r key slots [g0 |
-// window i-1, i, i+1 | g_last | random r] one 64-key sub-tile at a time (T
-// sub-tiles a slot) from the (B, S, H, d) layout with strides into shared
-// memory, with the slot penalties of bigbird_sm90.cuh.  A partial tile (bs
-// not a multiple of 64) loads only the block's rows and keys (zeros past
-// them): keys past bs take the penalty -inf (weight 0), rows past bs are
-// not stored and get p = dS = 0 in the backward, and only the block's keys
-// take dK and dV adds.
+// is no multiple of 64, several blocks' rows in one tile below 64.  Past
+// d = 64, where those kernels' shared memory has no room (their forward
+// ring holds 4 stages of two 64 x d K and V tiles a query block, 256 KB at
+// d = 128; their backward two fp32 64 x d staging tiles a consumer), the
+// bf16 forward runs bigbird_wide_sm90.cuh (the scores over the full d in
+// column blocks of 64 on wgmma, O in column parts of 128, a statistics
+// launch past d = 128).  The SIMT bodies here run fp32 at every d (they
+// exist to hold the model against the CPU) and the bf16 backward past d =
+// 64.  A SIMT body is instantiated at the padded widths D = 16, 32 and 64
+// (the tiles D wide, zero past d; the stores and adds skip the columns
+// from d on); past d = 64 at D = 64 in column parts: ceil(d / 64) CTAs a
+// tile, each forming the full-d scores over 64-column chunks of Q and K
+// (and dP of dO and V) through the same tiles, the chunk of its own part
+// last, so that the tiles then hold the part's columns for its products (P
+// V; dS K, dS^T Q, P^T dO).  Each part keeps its own softmax statistics
+// over the true scores; the first writes lse.  The scores are formed once
+// a part: (d / 64) times the products of one pass.  One block of 128
+// threads (4 warps of 16 query rows) per 64-row tile u of middle query
+// block j (T = ceil(bs / 64) tiles a block) and part: the grid's x is (j *
+// T + u) * parts + part, head h and batch b, query block i = j + 1,
+// streaming the 5 + r key slots [g0 | window i-1, i, i+1 | g_last | random
+// r] one 64-key sub-tile at a time (T sub-tiles a slot) from the (B, S, H,
+// d) layout with strides into shared memory, with the slot penalties of
+// bigbird_sm90.cuh.  A partial tile (bs not a multiple of 64) loads only
+// the block's rows and keys (zeros past them): keys past bs take the
+// penalty -inf (weight 0), rows past bs are not stored and get p = dS = 0
+// in the backward, and only the block's keys take dK and dV adds.
 //
-// Forward, two passes over the slots' sub-tiles (the TPU kernel normalises
-// before it rounds, which rules out the online softmax): pass 1 the row
-// max m and sum l of exp; pass 2 p = exp(s - m) / l rounded to the input
-// type, O += P V in fp32.  lse = m + log l.  Logits as _mid_logits: s =
-// Q K^T * scale + penalty in fp32; in bf16 s = round(round(Q K^T) * scale)
-// + penalty with the scale rounded to bf16, as the Hopper kernels' padded
-// instances.
+// Forward (fp32), two passes over the slots' sub-tiles (the TPU kernel
+// normalises before it rounds, which rules out the online softmax): pass 1
+// the row max m and sum l of exp; pass 2 p = exp(s - m) / l, O += P V.
+// lse = m + log l.  Logits as _mid_logits: s = Q K^T * scale + penalty in
+// fp32; in bf16 (the backward) s = round(round(Q K^T) * scale) + penalty
+// with the scale rounded to bf16, as the Hopper kernels' padded instances.
 //
 // Backward: the block keeps its rows' lse and delta = sum(dO * O) (over
 // the full d); per key sub-tile it recomputes p = exp(s - lse), dP = dO
@@ -76,16 +79,22 @@
 // whose bf16 rounding is no such d's returns cudaErrorInvalidValue and
 // launches nothing):
 //   int bigbird_mid_fwd(int dtype /*0 fp32, 1 bf16*/, q, k, v, mask, rand,
-//                       out, lse, int B, int S, int H, int r, int bs, int D,
+//                       out, lse, float* stats /*bf16 at D > 128: (B, H,
+//                       (nb-2)*bs) x 2 fp32 scratch, required; else
+//                       unused*/, int B, int S, int H, int r, int bs, int D,
 //                       long long sb, long long ss, long long sh,
 //                       float scale, cudaStream_t stream)
 //   int bigbird_mid_bwd(int dtype, q, k, v, mask, rand, out, lse, dout, dq,
 //                       dk, dv, int B, int S, int H, int r, int bs, int D,
 //                       sb, ss, sh, float scale, cudaStream_t stream)
-// each returning cudaGetLastError() after its launch.
+// each returning cudaGetLastError() after its launches;
+//   int bigbird_mid_fwd_wide_calls(void)
+// the forward's calls so far that ran bigbird_fwd_wide_sm90_kernel (bf16
+// past D = 64).
 
 #include "attention.cuh"
 #include "bigbird_sm90.cuh"
+#include "bigbird_wide_sm90.cuh"
 
 namespace stonkgs {
 namespace bigbird {
@@ -171,17 +180,20 @@ __device__ __forceinline__ void load_chunk(const Geo& g, const TileOf<D>& tl, co
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 constexpr size_t fwd_smem_bytes() {
-  using Z = Sizes<T, D>;
+  using Z = Sizes<float, D>;
   return 3 * Z::tile + Z::stage + Z::wtile + Z::vec;
 }
 
-template <typename T, int D>
+// the fp32 forward (bf16 runs the Hopper kernels at every d)
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-mid_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const float* __restrict__ mask, const int* __restrict__ rand,
-               T* __restrict__ out, float* __restrict__ lse, Geo g) {
+mid_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ mask,
+               const int* __restrict__ rand, float* __restrict__ out, float* __restrict__ lse,
+               Geo g) {
+  using T = float;
   using Z = Sizes<T, D>;
   constexpr int TS = Z::TS, PS = Z::PS;
   const TileOf<D> tl(g);
@@ -438,17 +450,17 @@ inline dim3 simt_grid(int B, const Geo& g) {
   return dim3((g.nb - 2) * tiles_of(g.bs) * ((g.d + D - 1) / D), g.H, B);
 }
 
-template <typename T, int D>
+template <int D>
 int launch_fwd_t(const void* q, const void* k, const void* v, const float* mask,
                  const int* rand, void* out, float* lse, int B, const Geo& g,
                  cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<T, D>();
-  cudaError_t e = cudaFuncSetAttribute(mid_fwd_kernel<T, D>,
+  constexpr size_t smem = fwd_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(mid_fwd_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
-  mid_fwd_kernel<T, D><<<simt_grid<D>(B, g), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, rand,
-      static_cast<T*>(out), lse, g);
+  mid_fwd_kernel<D><<<simt_grid<D>(B, g), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      mask, rand, static_cast<float*>(out), lse, g);
   return int(cudaGetLastError());
 }
 
@@ -471,9 +483,9 @@ int launch_bwd_t(const void* q, const void* k, const void* v, const float* mask,
 int launch_fwd_f32(const void* q, const void* k, const void* v, const float* mask,
                    const int* rand, void* out, float* lse, int B, const Geo& g,
                    cudaStream_t stream) {
-  if (g.d > kD) return launch_fwd_t<float, kD>(q, k, v, mask, rand, out, lse, B, g, stream);
+  if (g.d > kD) return launch_fwd_t<kD>(q, k, v, mask, rand, out, lse, B, g, stream);
   return with_padded_head_dim<kD>(g.d, [&](auto d) {
-    return launch_fwd_t<float, decltype(d)::value>(q, k, v, mask, rand, out, lse, B, g, stream);
+    return launch_fwd_t<decltype(d)::value>(q, k, v, mask, rand, out, lse, B, g, stream);
   });
 }
 
@@ -517,16 +529,18 @@ bool bad_bf16_scale(const Geo& g) {
 }  // namespace stonkgs
 
 extern "C" int bigbird_mid_fwd(int dtype, const void* q, const void* k, const void* v,
-                               const float* mask, const int* rand, void* out, float* lse, int B,
-                               int S, int H, int r, int bs, int D, long long sb, long long ss,
-                               long long sh, float scale, void* stream) {
+                               const float* mask, const int* rand, void* out, float* lse,
+                               float* stats, int B, int S, int H, int r, int bs, int D,
+                               long long sb, long long ss, long long sh, float scale,
+                               void* stream) {
   using namespace stonkgs::bigbird;
   if (bad_geometry(B, S, H, r, bs, D)) return int(cudaErrorInvalidValue);
   const Geo g = geo_of(S, H, r, bs, D, sb, ss, sh, scale);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fwd_f32(q, k, v, mask, rand, out, lse, B, g, s);
   if (dtype != 1 || bad_bf16_scale(g)) return int(cudaErrorInvalidValue);
-  if (D > kD) return launch_fwd_t<bf16, kD>(q, k, v, mask, rand, out, lse, B, g, s);
+  if (D > kD)
+    return stonkgs::bigbird90::launch_fwd_wide_sm90(q, k, v, mask, rand, out, lse, stats, B, g, s);
   return stonkgs::bigbird90::launch_fwd_sm90(q, k, v, mask, rand, out, lse, B, g, s);
 }
 
@@ -546,3 +560,5 @@ extern "C" int bigbird_mid_bwd(int dtype, const void* q, const void* k, const vo
   return stonkgs::bigbird90::launch_bwd_sm90(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B,
                                              g, s);
 }
+
+extern "C" int bigbird_mid_fwd_wide_calls() { return stonkgs::bigbird90::fwd_wide_calls(); }

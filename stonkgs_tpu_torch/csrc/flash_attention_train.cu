@@ -1,11 +1,13 @@
 // Training attention, forward and backward, with the TPU kernels' in-kernel
 // hash dropout; q, k, v, out, dO, dq, dk, dv in the (B, S, H, D) layout
-// (D any multiple of 8: up to 256 each kernel is instantiated at the
-// padded widths 16, 32, 64, 128 and 256, and D runs on the smallest at
-// least D, the columns past D zero; past that the bf16 forward runs
-// attention_wide_sm90.cuh in column parts of 128, the backward and fp32 a
-// warp a row in column parts of 256, attention.cuh), read with strides;
-// lse and delta (B, H, S) fp32.
+// (D a positive multiple of 8: the wrappers pad any other D with zero
+// columns; up to 256 each kernel is instantiated at the padded widths 16,
+// 32, 64, 128 and 256, and D runs on the smallest at least D, the columns
+// past D zero; past that bf16 runs attention_wide_sm90.cuh (the forward,
+// in column parts of 128) and attention_bwd_wide_sm90.cuh (the backward:
+// a dS pass into a bf16 scratch, then wgmma GEMMs), fp32 a warp a row in
+// column parts of 256, attention.cuh and below), read with strides; lse
+// and delta (B, H, S) fp32.
 //
 // Replaces the TPU kernels _train_fwd_kernel and _train_bwd_kernel
 // (stonkgs_tpu/ops/flash_attention.py:92 and :118, with _dropout_keep at
@@ -42,13 +44,17 @@
 //      runs).
 // In bf16 up to D = 256, (2) and (3) are the Hopper kernels of
 // attention_bwd_sm90.cuh (128-row tiles streamed by TMA, wgmma products,
-// S, dP~, dS and P in registers); in fp32 up to D = 128 they are the SIMT
-// bodies below (64-row tiles, plain FMAs through attention.cuh's
-// score_tile and PvAcc), which exist to hold the model against the CPU.
-// Past those widths, in both dtypes, a warp a (row, column part of 256):
-// attn_bwd_dq_rows_kernel and attn_bwd_dkdv_rows_kernel, each score and
-// dP~ a warp-wide sum over the full D, formed again by every part.  Parallel over key tiles in (3), the
-// backward needs no cross-block reduction for dK and dV; dQ takes the
+// S, dP~, dS and P in registers); past D = 256 they are replaced by the
+// kernels of attention_bwd_wide_sm90.cuh: a key-major dS pass forms S^T
+// and dP~^T once over the full D, writes round(dS)^T and round(p * mr)^T
+// into a bf16 scratch and adds db, then wgmma GEMMs form dK and dV, and
+// dQ, from it.  In fp32 up to D = 128 (2) and (3) are the SIMT bodies
+// below (64-row tiles, plain FMAs through attention.cuh's score_tile and
+// PvAcc), which exist to hold the model against the CPU; past 128 a warp
+// a (row, column part of 256): attn_bwd_dq_rows_kernel and
+// attn_bwd_dkdv_rows_kernel, each score and dP~ a warp-wide sum over the
+// full D, formed again by every part.  Parallel over key tiles in (3),
+// the backward needs no cross-block reduction for dK and dV; dQ takes the
 // second pass (2) instead of atomics, at the cost of computing S and dP~
 // twice.
 //
@@ -61,17 +67,25 @@
 //       float keep_scale, cudaStream_t stream)
 //   int flash_attention_train_bwd(int dtype, q, k, v, key_bias, out,
 //       const float* lse, dout, dq, dk, dv, float* db /*(B, S) zeroed, or
-//       NULL*/, float* delta /*(B, H, S) scratch*/, int B, int S, int H,
-//       int D, float scale, int dropout, int s_pad, unsigned threshold,
-//       unsigned seed0, unsigned seed1, float keep_scale,
-//       cudaStream_t stream)
+//       NULL*/, float* delta /*(B, H, S) scratch*/, ds, pd /*bf16 at D >
+//       256: (group, S, ld) bf16 scratch each, ld = chunk rounded up to a
+//       multiple of 8, required; else unused*/, float* dk_carry,
+//       float* dv_carry /*bf16 at D > 256 with chunk < S: (B, S, H, D)
+//       fp32, required; else unused*/, int B, int S, int H, int D,
+//       int group, int chunk /*bf16 at D > 256: heads a group and query
+//       rows a chunk of the scratch; else unused*/, float scale,
+//       int dropout, int s_pad, unsigned threshold, unsigned seed0,
+//       unsigned seed1, float keep_scale, cudaStream_t stream)
 // each returns cudaGetLastError() after its launches (cudaErrorInvalidValue,
 // with nothing launched, for a D that is not a positive multiple of 8);
 //   int flash_attention_train_fwd_wide_calls(void)
-// the forward's calls so far that ran attn_fwd_wide_sm90_kernel (bf16 past
-// D = 256).
+//   int flash_attention_train_bwd_wide_calls(void)
+// the forward's and the backward's calls so far that ran the kernels past
+// D = 256 in bf16 (attn_fwd_wide_sm90_kernel; the backward's dS pass and
+// GEMMs).
 
 #include "attention_bwd_sm90.cuh"
+#include "attention_bwd_wide_sm90.cuh"
 #include "attention_wide_sm90.cuh"
 
 namespace stonkgs {
@@ -284,18 +298,17 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (db && live && half == 0) atomicAdd(db + size_t(b) * S + key, db_acc);
 }
 
-// dQ past the tiled widths, as attn_bwd_dq_kernel computes it: a warp a
-// (b, h, query row, column part), the keys walked from L2 kRowKeys at a
-// time: s = q.k and dP~ = dO.v as warp-wide sums over the full D, p =
-// exp(s*scale + bias - lse), dS = p (dP~ * mr - delta) rounded to T, dQ +=
-// dS k over the part's columns
-template <typename T>
+// dQ past the tiled widths in fp32, as attn_bwd_dq_kernel computes it: a
+// warp a (b, h, query row, column part), the keys walked from L2 kRowKeys
+// at a time: s = q.k and dP~ = dO.v as warp-wide sums over the full D, p =
+// exp(s*scale + bias - lse), dS = p (dP~ * mr - delta), dQ += dS k over
+// the part's columns
 __global__ void __launch_bounds__(32 * kRowWarps, 1)
-attn_bwd_dq_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const float* __restrict__ key_bias,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq, int S, int H, int D,
-                        float scale, Dropout drop) {
+attn_bwd_dq_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ key_bias,
+                        const float* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq, int S, int H,
+                        int D, float scale, Dropout drop) {
   RowPart rp;
   if (!row_part(S, H, D, rp)) return;
   const int lane = threadIdx.x % 32;
@@ -319,26 +332,24 @@ attn_bwd_dq_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p = expf(s[u] * scale + (kb ? kb[j] : 0.f) - lse_r);
       float dp = dps[u];
       if (drop.enabled) dp = drop.keep(base + uint32_t(j)) ? dp * drop.keep_scale : 0.f;
-      if (c0 < D) axpy8(acc, round_to<T>(p * (dp - delta_r)), k + at0 + u * rs + c0);
+      if (c0 < D) axpy8(acc, p * (dp - delta_r), k + at0 + u * rs + c0);
     }
   }
   if (c0 < D) store8(dq + row + c0, acc, scale);
 }
 
-// dK, dV and db past the tiled widths, as attn_bwd_dkdv_kernel computes
-// them: a warp a (b, h, key, column part), the query rows walked from L2
-// kRowKeys at a time: s = k.q and dP~ = v.dO over the full D, p =
-// exp(s*scale + bias - lse[row]), dV += round(p * mr) dO, dS = p (dP~ * mr
-// - delta[row]), dK += round(dS) q over the part's columns; the first
-// part's warp adds the key's db, the sum of its fp32 dS over rows (one
-// atomicAdd a head)
-template <typename T>
+// dK, dV and db past the tiled widths in fp32, as attn_bwd_dkdv_kernel
+// computes them: a warp a (b, h, key, column part), the query rows walked
+// from L2 kRowKeys at a time: s = k.q and dP~ = v.dO over the full D, p =
+// exp(s*scale + bias - lse[row]), dV += (p * mr) dO, dS = p (dP~ * mr -
+// delta[row]), dK += dS q over the part's columns; the first part's warp
+// adds the key's db, the sum of its dS over rows (one atomicAdd a head)
 __global__ void __launch_bounds__(32 * kRowWarps, 1)
-attn_bwd_dkdv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const float* __restrict__ key_bias,
-                          const T* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ delta, T* __restrict__ dk,
-                          T* __restrict__ dv, float* __restrict__ db, int S, int H, int D,
+attn_bwd_dkdv_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ key_bias,
+                          const float* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ delta, float* __restrict__ dk,
+                          float* __restrict__ dv, float* __restrict__ db, int S, int H, int D,
                           float scale, Dropout drop) {
   RowPart rp;
   if (!row_part(S, H, D, rp)) return;
@@ -370,8 +381,8 @@ attn_bwd_dkdv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float ds = p * (dp - delta[stat0 + i]);
       db_acc += ds;
       if (c0 < D) {
-        axpy8(dv_acc, round_to<T>(pd), dout + at + c0);
-        axpy8(dk_acc, round_to<T>(ds), q + at + c0);
+        axpy8(dv_acc, pd, dout + at + c0);
+        axpy8(dk_acc, ds, q + at + c0);
       }
     }
   }
@@ -383,33 +394,43 @@ attn_bwd_dkdv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // delta = rowsum(dO * O), then dQ and dK/dV/db: the Hopper kernels in
-// bf16 up to P = 256, the tiled SIMT bodies in fp32 up to P = 128, the
-// kernels of a warp a row past them
+// bf16 up to P = 256 and the dS pass and GEMMs past it, the tiled SIMT
+// bodies in fp32 up to P = 128 and the kernels of a warp a row past them
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const float* key_bias,
                const void* out, const float* lse, const void* dout, void* dq, void* dk,
-               void* dv, float* db, float* delta, int B, int S, int H, int D, float scale,
+               void* dv, float* db, float* delta, void* ds, void* pd, float* dk_carry,
+               float* dv_carry, int B, int S, int H, int D, int group, int chunk, float scale,
                Dropout drop, cudaStream_t stream) {
   if (!shape_ok(B, S, H, D)) return int(cudaErrorInvalidValue);
   const unsigned delta_blocks = unsigned((size_t(B) * S * H + 7) / 8);
   if (D > (kIsBf16<T> ? kMaxHeadDim : kTiledMaxHeadDim)) {
+    if (kIsBf16<T> && !attn90::bwd_wide_args_ok(B, H, S, D, group, chunk, ds, pd, dk_carry,
+                                                dv_carry))
+      return int(cudaErrorInvalidValue);
     attn_bwd_delta_kernel<T, 0><<<delta_blocks, 256, 0, stream>>>(
         static_cast<const T*>(out), static_cast<const T*>(dout), delta, B, S, H, D);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return int(e);
-    const T* qt = static_cast<const T*>(q);
-    const T* kt = static_cast<const T*>(k);
-    const T* vt = static_cast<const T*>(v);
-    const T* dot = static_cast<const T*>(dout);
-    const dim3 blocks = row_grid(B, S, H, D);
-    attn_bwd_dq_rows_kernel<T><<<blocks, 32 * kRowWarps, 0, stream>>>(
-        qt, kt, vt, key_bias, dot, lse, delta, static_cast<T*>(dq), S, H, D, scale, drop);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return int(e);
-    attn_bwd_dkdv_rows_kernel<T><<<blocks, 32 * kRowWarps, 0, stream>>>(
-        qt, kt, vt, key_bias, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), db, S,
-        H, D, scale, drop);
-    return int(cudaGetLastError());
+    if constexpr (kIsBf16<T>) {
+      return attn90::launch_bwd_wide_sm90(q, k, v, key_bias, lse, dout, delta, dq, dk, dv, db,
+                                          ds, pd, dk_carry, dv_carry, B, S, H, D, group, chunk,
+                                          scale, drop, stream);
+    } else {
+      const float* qt = static_cast<const float*>(q);
+      const float* kt = static_cast<const float*>(k);
+      const float* vt = static_cast<const float*>(v);
+      const float* dot = static_cast<const float*>(dout);
+      const dim3 blocks = row_grid(B, S, H, D);
+      attn_bwd_dq_rows_kernel<<<blocks, 32 * kRowWarps, 0, stream>>>(
+          qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dq), S, H, D, scale, drop);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return int(e);
+      attn_bwd_dkdv_rows_kernel<<<blocks, 32 * kRowWarps, 0, stream>>>(
+          qt, kt, vt, key_bias, dot, lse, delta, static_cast<float*>(dk),
+          static_cast<float*>(dv), db, S, H, D, scale, drop);
+      return int(cudaGetLastError());
+    }
   }
   return with_padded_head_dim(D, [&](auto p) {
     constexpr int kP = decltype(p)::value;
@@ -481,22 +502,28 @@ extern "C" int flash_attention_train_fwd(int dtype, const void* q, const void* k
 extern "C" int flash_attention_train_bwd(int dtype, const void* q, const void* k, const void* v,
                                          const float* key_bias, const void* out,
                                          const float* lse, const void* dout, void* dq,
-                                         void* dk, void* dv, float* db, float* delta, int B,
-                                         int S, int H, int D, float scale, int dropout,
-                                         int s_pad,
-                                         unsigned threshold, unsigned seed0, unsigned seed1,
-                                         float keep_scale, void* stream) {
+                                         void* dk, void* dv, float* db, float* delta, void* ds,
+                                         void* pd, float* dk_carry, float* dv_carry, int B,
+                                         int S, int H, int D, int group, int chunk, float scale,
+                                         int dropout, int s_pad, unsigned threshold,
+                                         unsigned seed0, unsigned seed1, float keep_scale,
+                                         void* stream) {
   using namespace stonkgs::attn;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s_pad < S) return int(cudaErrorInvalidValue);
   const Dropout drop = make_dropout(dropout, s_pad, threshold, seed0, seed1, keep_scale);
   if (dtype == 0)
-    return launch_bwd<float>(q, k, v, key_bias, out, lse, dout, dq, dk, dv, db, delta, B, S, H,
-                             D, scale, drop, st);
+    return launch_bwd<float>(q, k, v, key_bias, out, lse, dout, dq, dk, dv, db, delta, ds, pd,
+                             dk_carry, dv_carry, B, S, H, D, group, chunk, scale, drop, st);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(q, k, v, key_bias, out, lse, dout, dq, dk, dv, db, delta,
-                                     B, S, H, D, scale, drop, st);
+                                     ds, pd, dk_carry, dv_carry, B, S, H, D, group, chunk,
+                                     scale, drop, st);
   return int(cudaErrorInvalidValue);
 }
 
 extern "C" int flash_attention_train_fwd_wide_calls() { return stonkgs::attn90::wide_calls(); }
+
+extern "C" int flash_attention_train_bwd_wide_calls() {
+  return stonkgs::attn90::bwd_wide_calls();
+}

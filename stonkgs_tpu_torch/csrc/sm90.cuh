@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (attention_sm90.cuh, attention_bwd_sm90.cuh, bigbird_sm90.cuh,
+// (attention_sm90.cuh, attention_wide_sm90.cuh, attention_bwd_sm90.cuh,
+// attention_bwd_wide_sm90.cuh, bigbird_sm90.cuh, bigbird_wide_sm90.cuh,
 // ffn_sm90.cuh, ffn_train_sm90.cuh, int8_sm90.cuh): mbarriers, TMA loads,
 // stores and reduce-adds, wgmma
 // shared-memory descriptors and the wgmma instructions (bf16 and s8), the
@@ -92,6 +93,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a box at (c0, c1, c2) of a 3-D map -> shared, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -232,10 +243,11 @@ __device__ __forceinline__ void fence_regs(int (&d)[N]) {
 #define STONKGS_ACC32(d, i) \
   STONKGS_ACC8(d, i), STONKGS_ACC8(d, i + 8), STONKGS_ACC8(d, i + 16), STONKGS_ACC8(d, i + 24)
 
-// d (64 x 128, fp32) (+)= A (64 x 16, desc, K-major) . B (16 x 128, desc):
+// d (64 x 128, fp32) (+)= A (64 x 16, desc) . B (16 x 128, desc): A
+// K-major (kTnspA 0) or M-major (1: 16 lines of K, each 64 values of M);
 // B K-major (kTnspB 0: 128 lines of K, read as B^T) or MN-major (1: two
 // 64-wide column blocks `lbo` bytes apart); acc = 0 overwrites d
-template <int kTnspB>
+template <int kTnspB, int kTnspA = 0>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -244,9 +256,9 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : STONKGS_ACC32(d, 0), STONKGS_ACC32(d, 32)
-      : "l"(da), "l"(db), "r"(acc), "n"(kTnspB));
+      : "l"(da), "l"(db), "r"(acc), "n"(kTnspA), "n"(kTnspB));
 }
 
 // d (64 x 128, fp32) (+)= A (64 x 16, desc) . B^T (B 128 x 16, desc), both

@@ -47,7 +47,18 @@ a padded instance that takes the scale at run time and rounds the scaled
 logit again.  Past D = 64 (6 heads of 128 at the trunk's 768) the Hopper
 kernels' shared memory has no room (a forward stage holds 64 x D K and V
 tiles of two query blocks, the backward fp32 64 x D dK and dV staging a
-consumer), and bf16 runs the SIMT bodies of ``csrc/bigbird_sparse.cu`` in
+consumer).  There the bf16 forward runs ``csrc/bigbird_wide_sm90.cuh``
+(``bigbird_fwd_wide_sm90_kernel``, the design of the dense attention's
+forward past D = 256): 256 threads, two consumer warpgroups of 64 query
+rows whose first warp feeds a TMA ring of 64 x 64 tiles, the scores over
+the full D in column blocks of 64 (four ``wgmma.m64n64k16`` k-steps each),
+O in column parts of 128 with P from registers; up to D = 128 one launch
+runs both passes, past it a statistics launch writes each row's (m, 1/l)
+into a (B, H, (nb-2)·bs) x 2 fp32 scratch (:func:`_wide_stats`) and lse,
+and a block per part runs pass 2.  At the 6-head trunk (B=8, bs 64, r 3)
+that is three products of 2·B·H·(nb-2)·bs·512·D, 0.076 ms at 989
+TFLOP/s, over 0.059 ms of bytes.  The bf16 backward past D = 64 and fp32
+at every D past 64 run the SIMT bodies of ``csrc/bigbird_sparse.cu`` in
 column parts of 64: a CTA a (64-row tile, part) forms the full-D scores
 over 64-column chunks of Q and K (dP over chunks of dO and V), keeps its
 own softmax statistics, and makes its products over its part's columns;
@@ -172,9 +183,11 @@ KERNEL_MIN_BLOCKS = 5       # blocks of a sequence: at least 5 (global, window, 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = _build.P, _build.I32, _build.I64, _build.F32
 _SIGNATURES = {
-    # int bigbird_mid_fwd(dtype, q, k, v, mask, rand, out, lse, B, S, H, r,
-    #                     bs, D, sb, ss, sh, scale, stream)
-    "bigbird_mid_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_L] * 3 + [_F, _P],
+    # int bigbird_mid_fwd(dtype, q, k, v, mask, rand, out, lse, stats, B, S,
+    #                     H, r, bs, D, sb, ss, sh, scale, stream)
+    "bigbird_mid_fwd": [_I] + [_P] * 8 + [_I] * 6 + [_L] * 3 + [_F, _P],
+    # int bigbird_mid_fwd_wide_calls(void)
+    "bigbird_mid_fwd_wide_calls": [],
     # int bigbird_mid_bwd(dtype, q, k, v, mask, rand, out, lse, dout, dq, dk,
     #                     dv, B, S, H, r, bs, D, sb, ss, sh, scale, stream)
     "bigbird_mid_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_L] * 3 + [_F, _P],
@@ -504,6 +517,30 @@ def _strided_qkv(q, k, v):
     return q, k, v, q.stride()[:3]
 
 
+# the widest head width of the Hopper pair's instances; the bf16 forward
+# past it runs bigbird_fwd_wide_sm90_kernel, and past WIDE_ONE_LAUNCH_HEAD_DIM
+# (one output part of 128 columns) with a statistics launch of its own
+MAX_INSTANCE_HEAD_DIM = 64
+WIDE_ONE_LAUNCH_HEAD_DIM = 128
+
+
+def _wide_stats(q: torch.Tensor, n_rows: int) -> Optional[torch.Tensor]:
+    """The statistics scratch of the bf16 forward past
+    ``WIDE_ONE_LAUNCH_HEAD_DIM`` for the (padded) ``q`` and ``n_rows``
+    middle rows: (B, H, n_rows, 2) fp32 for each row's (m, 1/l), or None."""
+    B, _, H, D = q.shape
+    if q.dtype != torch.bfloat16 or D <= WIDE_ONE_LAUNCH_HEAD_DIM:
+        return None
+    return torch.empty((B, H, n_rows, 2), dtype=torch.float32, device=q.device)
+
+
+def wide_forward_calls() -> int:
+    """How many calls of :func:`bigbird_mid_fwd` ran the bf16 forward past
+    ``MAX_INSTANCE_HEAD_DIM`` (``bigbird_fwd_wide_sm90_kernel``) in this
+    process, as the kernels' library counts them (builds it on first use)."""
+    return _build.load("bigbird_sparse", _SIGNATURES).bigbird_mid_fwd_wide_calls()
+
+
 def bigbird_mid_fwd(q, k, v, mask, rand_attn, block_size):
     """Middle query blocks of block-sparse attention: (ctx, lse), as
     :func:`bigbird_mid_fwd_plain`.  q, k, v (B, S, H, D) may be strided
@@ -522,12 +559,13 @@ def bigbird_mid_fwd(q, k, v, mask, rand_attn, block_size):
     n = (nb - 2) * block_size
     out = torch.empty((B, n, H, q.shape[3]), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, n), dtype=torch.float32, device=q.device)
+    stats = _wide_stats(q, n)
     _build.check_aligned("bigbird_mid_fwd", q, k, v, out)
     if B == 0 or H == 0:
         return _unpad(D, out)[0], lse
     lib = _build.load("bigbird_sparse", _SIGNATURES)
     status = lib.bigbird_mid_fwd(
-        _DTYPES[q.dtype], *(_build.ptr(t) for t in (q, k, v, maskf, rand, out, lse)),
+        _DTYPES[q.dtype], *(_build.ptr(t) for t in (q, k, v, maskf, rand, out, lse, stats)),
         B, S, H, r, block_size, q.shape[3], sb, ss, sh, 1.0 / math.sqrt(D),
         _build.stream(q.device))
     _build.check(status, "bigbird_mid_fwd")

@@ -84,9 +84,10 @@ parts + 2 score-sized products (2·B·H·S²·D flops each) and parts + 1
 exps a score; at the trunk's B=128, S=512 and 2 heads of 384 (three
 parts) 258 GFLOP, and about 2.0 GB read from L2 (K once per 128 rows per
 launch, each part's V columns), against 0.24 TB for the kernels of a
-warp a row that ran it before.  fp32 past 128 and the backward past 256
-(in both dtypes) still run those kernels of a warp a row of
-``csrc/attention.cuh`` (``attn_fwd_rows_kernel``; the backward's in
+warp a row that ran it before.  The bf16 backward past 256 runs the
+kernels of ``csrc/attention_bwd_wide_sm90.cuh`` (see the training section
+below).  fp32 past 128 still runs kernels of a warp a row
+(``csrc/attention.cuh``'s ``attn_fwd_rows_kernel``; the backward's in
 ``csrc/flash_attention_train.cu``): each score a warp-wide sum over the
 full D read 8 columns a lane from L2, the outputs cut into column parts
 of 256 (8 columns a lane), a warp a part, each part forming every score
@@ -166,8 +167,25 @@ block forms half of its keys' dK and dV columns (dK and dV of 64 keys at
 256 columns would be 256 floats a thread): the two halves' blocks each
 form the scores over all 256 columns.  The fp32 bodies above P = 128 are
 not tiled (four 64 x 256 fp32 tiles are 266 KB): a warp owns a row and
-column part, as past D = 256 in both dtypes, and walks the other side's
-rows from L2.  S and dP̃
+column part and walks the other side's rows from L2.
+
+Past D = 256 in bf16 (``csrc/attention_bwd_wide_sm90.cuh``) the backward
+writes what the TPU kernel rounds anyway: a key-major dS pass (256
+threads, two consumer warpgroups of 64 keys, warp 0 feeding a TMA ring
+whose items hold one 64-column block of K, V, Q and dO) forms Sᵀ = K Qᵀ
+and dP̃ᵀ = V dOᵀ once over the full D, takes p, the hash's keep bit and dS
+in registers, adds db with one atomic a key and head, and stores
+round(dS)ᵀ and round(p·mr)ᵀ into a bf16 scratch (keys by query rows);
+hand-written ``wgmma`` GEMMs (128 x 128 output tiles in fp32 registers)
+then form dK = scale·dSᵀ Q and dV = (p·mr)ᵀ dO, and dQ = scale·dS K with
+the scratch read M-major.  Five products of 2·B·H·S²·D (at the 2-head
+trunk, B=32, S=512, D=384: 64.4 GFLOP, 0.065 ms at 989 TFLOP/s) against
+the seven of the instances up to 256 and the fifteen a flash-style pair
+would make past them (S and dP̃ formed again for each column part of its
+outputs).  The scratch takes 4·B·H·S² bytes; :func:`wide_backward_plan`
+bounds it (``WIDE_BWD_SCRATCH_BYTES``, 1 GiB) with groups of heads, and
+where one head passes the bound, chunks of query rows whose dK and dV the
+GEMMs carry in fp32.  Up to 256, S and dP̃
 are thus computed twice, for no cross-block reduction of dQ: the design's
 floor is 7 products of 2·B·H·S²·D and two exps a score, plus the hash of
 each score twice with dropout.  In bf16 the dQ and dK/dV kernels are
@@ -208,9 +226,9 @@ from stonkgs_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head widths of the card's attention kernels (both dtypes): any D from
-# 1 (the Hopper kernels' instances up to 256, a warp a row in column parts
-# past it); the C entry points take multiples of 8, so the wrappers pad
-# others with zero columns
+# 1 (the Hopper kernels' instances up to 256; past it bf16 on the wide
+# wgmma kernels, fp32 a warp a row in column parts); the C entry points
+# take multiples of 8, so the wrappers pad others with zero columns
 ATTENTION_MIN_HEAD_DIM = 1
 NEG_BIAS = -1e9  # score of a padded key, as the JAX package's NEG_BIAS
 _P, _I, _U, _F = _build.P, _build.I32, _build.U32, _build.F32
@@ -232,9 +250,12 @@ _TRAIN_SIGNATURES = {
     # int flash_attention_train_fwd_wide_calls(void)
     "flash_attention_train_fwd_wide_calls": [],
     # int flash_attention_train_bwd(dtype, q, k, v, key_bias, out, lse, dout,
-    #                               dq, dk, dv, db, delta, B, S, H, D, scale,
+    #                               dq, dk, dv, db, delta, ds, pd, dk_carry,
+    #                               dv_carry, B, S, H, D, group, chunk, scale,
     #                               *dropout, stream)
-    "flash_attention_train_bwd": [_I] + [_P] * 12 + [_I, _I, _I, _I, _F] + _DROP + [_P],
+    "flash_attention_train_bwd": [_I] + [_P] * 16 + [_I] * 6 + [_F] + _DROP + [_P],
+    # int flash_attention_train_bwd_wide_calls(void)
+    "flash_attention_train_bwd_wide_calls": [],
 }
 
 
@@ -250,6 +271,76 @@ def _wide_stats(q: torch.Tensor) -> Optional[torch.Tensor]:
     if q.dtype != torch.bfloat16 or D <= MAX_INSTANCE_HEAD_DIM:
         return None
     return torch.empty((B, H, S, 2), dtype=torch.float32, device=q.device)
+
+
+# the bytes the bf16 backward past MAX_INSTANCE_HEAD_DIM may take for its
+# dS and dropped-P scratch (two bf16 matrices of keys x query rows a head)
+WIDE_BWD_SCRATCH_BYTES = 1 << 30
+# a chunk of query rows is a multiple of the GEMMs' 128-row tiles
+WIDE_BWD_ROWS = 128
+_MAX_GRID_Y = 65535
+
+
+def _ld8(n: int) -> int:
+    """n rounded up to a multiple of 8 (a scratch row of bf16 in 16-byte units)."""
+    return -(-n // 8) * 8
+
+
+def wide_backward_plan(B: int, S: int, H: int, D: int, dtype,
+                       cap: Optional[int] = None) -> Optional[Tuple[int, int]]:
+    """(heads a group, query rows a chunk) of the bf16 backward past
+    ``MAX_INSTANCE_HEAD_DIM`` at (padded) head width ``D``, or None (no
+    scratch: D up to it, or fp32).  The kernels write round(dS) and the
+    dropped P of a group of heads, keys by a chunk of query rows, into a
+    bf16 scratch of ``4 · group · S · ⌈chunk⌉₈`` bytes: as many heads as
+    fit in ``cap`` (at most the grid's 65,535), all S rows a chunk; where
+    one head's scratch passes ``cap``, one head and the multiple of 128
+    rows that fits (at least 128).  ``cap`` defaults to
+    ``WIDE_BWD_SCRATCH_BYTES``, read at the call."""
+    if dtype != torch.bfloat16 or D <= MAX_INSTANCE_HEAD_DIM:
+        return None
+    cap = WIDE_BWD_SCRATCH_BYTES if cap is None else cap
+    head = 4 * S * _ld8(S)
+    if head <= cap:
+        return max(1, min(B * H, cap // head, _MAX_GRID_Y)), S
+    rows = max(WIDE_BWD_ROWS, cap // (4 * S) // WIDE_BWD_ROWS * WIDE_BWD_ROWS)
+    return 1, min(rows, S)
+
+
+def wide_backward_pieces(B: int, S: int, H: int, plan: Tuple[int, int]):
+    """The (first head, heads, first query row, rows) of each launch group
+    of the backward past ``MAX_INSTANCE_HEAD_DIM`` under ``plan``, in the
+    order the C entry point runs them (heads numbered b·H + h)."""
+    group, chunk = plan
+    return [(g0, min(group, B * H - g0), q0, min(chunk, S - q0))
+            for g0 in range(0, B * H, group) for q0 in range(0, S, chunk)]
+
+
+def _wide_bwd_scratch(q: torch.Tensor, plan):
+    """The scratch of the bf16 backward past ``MAX_INSTANCE_HEAD_DIM`` for
+    the (padded) ``q`` under ``plan``: (ds, pd), each (group, S, ⌈chunk⌉₈)
+    bf16, and, where a chunk is shorter than S, the fp32 (B, S, H, D)
+    carries of dK and dV (else None)."""
+    if plan is None:
+        return None, None, None, None
+    B, S, H, D = q.shape
+    group, chunk = plan
+    ds, pd = (torch.empty((group, S, _ld8(chunk)), dtype=torch.bfloat16, device=q.device)
+              for _ in range(2))
+    if chunk >= S:
+        return ds, pd, None, None
+    dk_carry, dv_carry = (torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
+                          for _ in range(2))
+    return ds, pd, dk_carry, dv_carry
+
+
+def wide_backward_calls() -> int:
+    """How many calls of :func:`flash_attention_train_bwd` ran the bf16
+    kernels past ``MAX_INSTANCE_HEAD_DIM`` (the dS pass and its GEMMs) in
+    this process, as the kernels' library counts them (builds it on first
+    use)."""
+    return _build.load("flash_attention_train",
+                       _TRAIN_SIGNATURES).flash_attention_train_bwd_wide_calls()
 
 
 def wide_forward_calls() -> dict:
@@ -574,13 +665,15 @@ def flash_attention_train_bwd(q, k, v, bias, out, lse, dout, seed=(0, 0), rate=0
     q, k, v, out, dout = _pad_heads(q, k, v, out, dout)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _build.check_aligned("flash_attention_train_bwd", q, k, v, out, dout, dq, dk, dv)
+    plan = wide_backward_plan(B, S, H, q.shape[-1], q.dtype)
+    scratch = _wide_bwd_scratch(q, plan)
+    _build.check_aligned("flash_attention_train_bwd", q, k, v, out, dout, dq, dk, dv, *scratch)
     lib = _build.load("flash_attention_train", _TRAIN_SIGNATURES)
     status = lib.flash_attention_train_bwd(
         _DTYPES[q.dtype], *(_build.ptr(t) for t in (q, k, v, kb, out, lse, dout, dq, dk,
-                                                    dv, db, delta)),
-        B, S, H, q.shape[-1], 1.0 / math.sqrt(D), *_dropout_args(rate, seed, S, block_q),
-        _build.stream(q.device))
+                                                    dv, db, delta, *scratch)),
+        B, S, H, q.shape[-1], *(plan or (0, 0)), 1.0 / math.sqrt(D),
+        *_dropout_args(rate, seed, S, block_q), _build.stream(q.device))
     _build.check(status, "flash_attention_train_bwd")
     flash_attention_train_bwd.launches += 1
     return (*_unpad(D, dq, dk, dv), db)

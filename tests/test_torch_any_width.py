@@ -189,6 +189,82 @@ def test_wide_forward_statistics_scratch(D, dtype, takes):
         assert stats.shape == (2, 3, 5, 2) and stats.dtype == torch.float32
 
 
+# (B, S, H, D, dtype, scratch cap in bytes, the plan expected): past D =
+# 256 in bf16 a group of every head at the trunk's shape, groups of fewer
+# heads, one head in chunks of 128 rows (the last ragged) and of 256, none
+# at D = 256 or in fp32
+WIDE_BWD_PLANS = [
+    (32, 512, 2, 384, torch.bfloat16, 1 << 30, (64, 512)),
+    (3, 100, 2, 264, torch.bfloat16, 4 * 100 * 104 * 4, (4, 100)),
+    (2, 300, 3, 768, torch.bfloat16, 4 * 300 * 128, (1, 128)),
+    (1, 600, 1, 304, torch.bfloat16, 4 * 600 * 300, (1, 256)),
+    (1, 100, 1, 264, torch.bfloat16, 8, (1, 100)),
+    (4, 512, 3, 256, torch.bfloat16, 1 << 30, None),
+    (4, 512, 2, 384, torch.float32, 1 << 30, None),
+]
+
+
+@pytest.mark.parametrize("B,S,H,D,dtype,cap,want", WIDE_BWD_PLANS)
+def test_wide_backward_plan_covers_each_head_and_row_once(B, S, H, D, dtype, cap, want):
+    """The bf16 backward past D = 256 writes round(dS) and the dropped P
+    into a bf16 scratch of 4 · group · S · ⌈chunk⌉₈ bytes: its plan takes
+    as many heads a group as the cap allows, or one head in chunks of
+    query rows (multiples of 128), and its launch groups cover each head
+    and query row exactly once within the cap (or one 128-row chunk where
+    even that passes it); no plan at D = 256 or in fp32."""
+    plan = tflash.wide_backward_plan(B, S, H, D, dtype, cap=cap)
+    assert plan == want
+    if plan is None:
+        return
+    group, chunk = plan
+    assert chunk == S or chunk % tflash.WIDE_BWD_ROWS == 0
+    assert 4 * group * S * (-(-chunk // 8) * 8) <= cap or (group, chunk) == (
+        1, min(S, tflash.WIDE_BWD_ROWS))
+    covered = np.zeros((B * H, S), np.int64)
+    for g0, n_bh, q0, n_q in tflash.wide_backward_pieces(B, S, H, plan):
+        assert 1 <= n_bh <= group and 1 <= n_q <= chunk
+        covered[g0:g0 + n_bh, q0:q0 + n_q] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("S,chunk,carries", [(300, 300, False), (300, 128, True),
+                                             (301, 301, False)])
+def test_wide_backward_scratch(S, chunk, carries):
+    """The scratch the wrapper hands the backward past D = 256: dS and the
+    dropped P, each (group, S, ⌈chunk⌉₈) bf16 (keys by query rows), and
+    fp32 (B, S, H, D) carries of dK and dV only where a chunk is shorter
+    than S; none at D = 256 or in fp32."""
+    q = torch.zeros(2, S, 3, 384, dtype=torch.bfloat16)
+    ds, pd, dk_carry, dv_carry = tflash._wide_bwd_scratch(q, (4, chunk))
+    for t in (ds, pd):
+        assert t.shape == (4, S, -(-chunk // 8) * 8) and t.dtype == torch.bfloat16
+    assert (dk_carry is not None) == (dv_carry is not None) == carries
+    if carries:
+        for t in (dk_carry, dv_carry):
+            assert t.shape == (2, S, 3, 384) and t.dtype == torch.float32
+    assert tflash._wide_bwd_scratch(q, None) == (None, None, None, None)
+    for D, dtype in ((256, torch.bfloat16), (384, torch.float32)):
+        assert tflash.wide_backward_plan(2, S, 3, D, dtype) is None
+
+
+@pytest.mark.parametrize("D,dtype,takes", [(136, torch.bfloat16, True),
+                                            (384, torch.bfloat16, True),
+                                            (128, torch.bfloat16, False),
+                                            (72, torch.bfloat16, False),
+                                            (256, torch.float32, False)])
+def test_bigbird_wide_forward_statistics_scratch(D, dtype, takes):
+    """The bf16 BigBird forward past D = 128 (more than one output part of
+    128 columns) takes its rows' softmax statistics from a launch of its
+    own: the wrapper hands the kernel a (B, H, (nb - 2) bs) x 2 fp32
+    scratch for them; none up to 128, where one launch runs both passes,
+    or in fp32."""
+    q = torch.zeros(2, 5 * 4, 3, D, dtype=dtype)
+    stats = tsparse._wide_stats(q, 3 * 4)
+    assert (stats is not None) == takes
+    if takes:
+        assert stats.shape == (2, 3, 12, 2) and stats.dtype == torch.float32
+
+
 # ---------------------------------------------------------------------------
 # the FFN kernels' plain versions at H or I below 8
 # ---------------------------------------------------------------------------
