@@ -507,9 +507,9 @@ INT8_F32_TOL = 1e-6
 SOURCES = ("ffn_ln_block", "flash_attention_infer", "flash_attention_train", "ffn_train",
            "bigbird_sparse", "dense_int8", "int8_gemm")
 # the Hopper (wgmma, TMA) kernels of each library (the attention pair's
-# past D = 256 and BigBird's forward past 64 too), and the SIMT kernels past
-# their widest instances (the attention kernels' in fp32, BigBird's
-# backward in both dtypes and its forward in fp32), which must not spill
+# past D = 256 and BigBird's pair past 64 too), and the SIMT kernels past
+# their widest instances (the attention kernels' and BigBird's, fp32
+# only), which must not spill
 SM90_KERNELS = {
     "flash_attention_infer": ("attn_fwd_sm90_kernel", "attn_fwd_wide_sm90_kernel",
                               "attn_fwd_rows_kernel"),
@@ -521,7 +521,8 @@ SM90_KERNELS = {
     "ffn_ln_block": ("gemm_sm90_kernel", "add_layer_norm_kernel", "layer_norm_rows_kernel"),
     "ffn_train": ("gemm_sm90_kernel", "ffn_bwd_dual_sm90_kernel"),
     "bigbird_sparse": ("bigbird_fwd_sm90_kernel", "bigbird_bwd_sm90_kernel",
-                       "bigbird_fwd_wide_sm90_kernel", "mid_fwd_kernel", "mid_bwd_kernel"),
+                       "bigbird_fwd_wide_sm90_kernel", "bigbird_bwd_wide_sm90_kernel",
+                       "mid_fwd_kernel", "mid_bwd_kernel"),
     "dense_int8": ("quantize_rows_kernel", "gemm_kmajor_sm90_kernel"),
     "int8_gemm": ("gemm_kmajor_sm90_kernel",),
 }
@@ -6146,7 +6147,8 @@ def _bb_faults(gen, bs: int) -> None:
 def _bb_cases(cases, gen, note) -> None:
     """The pair against its plain versions at every (block size, D, B, H,
     nb, padded mask) of ``cases``, bf16 and fp32, forward (lse too) and
-    backward, at the eval and the training plan."""
+    backward, at the eval and the training plan; each call's route read
+    from the library's counts (``_bb_wide_route``)."""
     for bs, D, B, H, nb, padded in cases:
         for dtype in (BF16, F32):
             tag = "bf16" if dtype == BF16 else "fp32"
@@ -6161,7 +6163,8 @@ def _bb_cases(cases, gen, note) -> None:
                 e = max(_compare_attn(f"sparse fwd {label}", out, out_p, dtype),
                         _compare(f"sparse lse {label}", lse, lse_p, dtype))
                 note("bigbird_mid_fwd", e, dtype)
-                got = bigbird_mid_bwd(q, k, v, mask, rand, bs, out_p, lse_p, do)
+                got = _bb_wide_route(label, D, dtype, lambda: bigbird_mid_bwd(
+                    q, k, v, mask, rand, bs, out_p, lse_p, do), backward=True)
                 want = bigbird_mid_bwd_plain(q, k, v, mask, rand, bs, out_p, lse_p, do)
                 e = max(_compare_grad(f"sparse {n} {label}", g, w, dtype)
                         for n, g, w in zip(("dq", "dk", "dv"), got, want))
@@ -6372,7 +6375,8 @@ def _bb_heads128(pcfg: ProtSTonKGsConfig, pparams: dict, card: str) -> tuple:
     changes no parameter's shape): ``embed`` over BB_HEADS_ROWS rows at
     B=8 (launch counts from 0, finite output), phase 12's ``pretrain``
     (B=2, 4 steps), every forward of both on bigbird_fwd_wide_sm90_kernel
-    (the library's count of its calls), phase 13's card fp32 against CPU
+    and every backward of the steps on bigbird_bwd_wide_sm90_kernel (the
+    library's counts of their calls), phase 13's card fp32 against CPU
     fp32 numerics at this head split, then the pair's times at the trunk's
     shape (``_bb_times``).  Returns (the counts of the embed and the steps; the
     times)."""
@@ -6384,6 +6388,7 @@ def _bb_heads128(pcfg: ProtSTonKGsConfig, pparams: dict, card: str) -> tuple:
                                batch_size=BB_EMBED_BATCH, device=DEV)
     rows = _prot_features(cfg, BB_HEADS_ROWS, seed=22)
     wide0 = bigbird_sparse_ops.wide_forward_calls()
+    wide_bwd0 = bigbird_sparse_ops.wide_backward_calls()
     _, counts = _prot_embed_counted(f"ProtSTonKGs embed, trunk {BB_HEADS_128} x 128", engine,
                                     rows)
     train_counts, state, _ = phase_prot_training(cfg, pparams)
@@ -6395,6 +6400,13 @@ def _bb_heads128(pcfg: ProtSTonKGsConfig, pparams: dict, card: str) -> tuple:
         f"{'ok' if ran == counts['bigbird_mid_fwd'] > 0 else 'FAIL'}")
     check(ran == counts["bigbird_mid_fwd"] > 0,
           "the 6-head ProtSTonKGs path did not run bigbird_fwd_wide_sm90_kernel at every call")
+    # ... and every bf16 backward bigbird_bwd_wide_sm90_kernel
+    ran = bigbird_sparse_ops.wide_backward_calls() - wide_bwd0
+    log(f"# check 6-head ProtSTonKGs step backward route: {ran} calls of "
+        f"bigbird_bwd_wide_sm90_kernel, {counts['bigbird_mid_bwd']} launches of bigbird_mid_bwd "
+        f"{'ok' if ran == counts['bigbird_mid_bwd'] > 0 else 'FAIL'}")
+    check(ran == counts["bigbird_mid_bwd"] > 0,
+          "the 6-head ProtSTonKGs step did not run bigbird_bwd_wide_sm90_kernel at every call")
     phase_prot_train_numerics(cfg)
     log(f"# bigbird widths (e) 6 heads of 128: {time.perf_counter() - t0:.1f} s")
     times = _bb_times(cfg, engine, rows, state, card)
@@ -6701,6 +6713,9 @@ WIDE_BB_COL_FAULT = (128, 64)
 # the planted fault of the forward past D = 128: at D = 384 each row's
 # statistics without the last column block (320 on)
 WIDE_BB_STATS_FAULT = (384, 320)
+# the planted fault of the backward past D = 64 at these head widths (one
+# output part, three): dS rounded once to bf16 before dQ and dK
+WIDE_BB_DS_FAULT_D = (128, 384)
 # STonKGs from these KG TSV widths: 2 heads of 24, 40, 50 and 56, 20 of 64
 # (H = 1280, I = 5120); TransE from the 80-wide one; the rows of their
 # TSVs (phase 26's 5,000 made the 1280-wide path 24 s, two thirds of it
@@ -6795,11 +6810,14 @@ def _wide_bigbird(gen, note) -> None:
     and k, where the rounded Q·Kᵀ is exact) the kernel within the limits
     and the plain output at the padded instance's scale 1/sqrt(32) (in
     place of 1/sqrt(24)) rejected by them; the pair at WIDE_BB_ANY_D (the
-    bf16 forward past D = 64 on bigbird_fwd_wide_sm90_kernel, its route
-    read from the library's count), and the limits rejecting the plain
+    bf16 pair past D = 64 on bigbird_fwd_wide_sm90_kernel and
+    bigbird_bwd_wide_sm90_kernel, their routes read from the library's
+    counts), and the limits rejecting the plain
     output without the logits' columns from 64 on at D = 128
     (WIDE_BB_COL_FAULT) and with each row's statistics without the last
-    column block at D = 384 (WIDE_BB_STATS_FAULT)."""
+    column block at D = 384 (WIDE_BB_STATS_FAULT); at D = 128 and 384
+    the backward (bigbird_bwd_wide_sm90_kernel) told from the plain one
+    with dS rounded once (``_bb_ds_fault``)."""
     _bb_cases([(bs, D, B, H, nb, padded) for D in WIDE_BB_D
                for bs, B, H, nb, padded in WIDE_BB_GEOS], gen, note)
     D, P = WIDE_BB_FAULT
@@ -6828,6 +6846,67 @@ def _wide_bigbird(gen, note) -> None:
                         f"over the logits without their columns {c}-{D - 1}",
                         bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)[0],
                         _sparse_fwd_stats_cut(q, k, v, mask, rand, 64, c))
+    for D in WIDE_BB_DS_FAULT_D:
+        _bb_ds_fault(gen, D, note)
+
+
+def _bb_ds_fault(gen, D: int, note) -> None:
+    """At head width ``D`` (block 64, the training plan, a padded mask,
+    bf16) the kernel's dq and dk against the plain backward's and against
+    the plain backward with dS rounded once to bf16 (no lo term:
+    ``_sparse_bwd_ds_rounded``).  Where the gradient limits (GRAD_TOL,
+    ATTN_STEP) reject the fault, that suffices; where they do not, the
+    kernel's mean |error| must stay below half of the fault's mean
+    |deviation| from the plain version (both outputs are rounded to bf16,
+    so the largest difference of either is one bf16 step where a value
+    sits at a rounding boundary: only the mean tells the 16 bits of dS
+    from 8)."""
+    q, k, v, mask, rand, do = _sparse_inputs(2, 8, BF16, gen, "train", True, 3, 64, D, BB_R)
+    label = f"bf16 D={D} bs=64 train plan mask"
+    out, lse = bigbird_mid_fwd_plain(q, k, v, mask, rand, 64)
+    got = _bb_wide_route(label, D, BF16, lambda: bigbird_mid_bwd(q, k, v, mask, rand, 64, out,
+                                                                  lse, do), backward=True)
+    want = bigbird_mid_bwd_plain(q, k, v, mask, rand, 64, out, lse, do)
+    wrong = _sparse_bwd_ds_rounded(q, k, v, mask, rand, 64, out, lse, do)
+    for n, g, w, x in zip(("dq", "dk"), got, want, wrong):
+        note("bigbird_mid_bwd", _compare_grad(f"sparse {n} {label}", g, w, BF16), BF16)
+        g, w, x = g.float(), w.float(), x.float()
+        scale = float(w.abs().max())
+        fault_max = float((x - w).abs().max())
+        by_limits = (fault_max > GRAD_TOL[BF16] * max(1.0, scale)
+                     or not _attn_within(x.to(BF16), w.to(BF16), GRAD_STEP_FLOOR)[2])
+        kernel_mean, fault_mean = float((g - w).abs().mean()), float((x - w).abs().mean())
+        ok = by_limits or kernel_mean < 0.5 * fault_mean
+        log(f"# check sparse {n} {label} with dS rounded once to bf16: the limits "
+            f"{'reject' if by_limits else 'pass'} it (max_abs_err {fault_max!r}, max|plain| "
+            f"{scale!r}); mean |error| of the kernel {kernel_mean!r} (max "
+            f"{float((g - w).abs().max())!r}), of the fault {fault_mean!r}: "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"sparse {n} {label}: the kernel is not told from dS rounded once")
+
+
+def _sparse_bwd_ds_rounded(q, k, v, mask, rand, bs, out, lse, do):
+    """dq and dk of the plain backward with a known fault: dS rounded once
+    to q's dtype before dQ = dS K and dK = dS^T q (a kernel that drops the
+    lo term of dS)."""
+    B, S, H, D = q.shape
+    nb, f = S // bs, torch.float32
+    qm, kc, vc, pen, idx = _mid_operands(q, k, v, mask, rand, bs)
+    n_mid, slots = idx.shape[1], idx.shape[2]
+    do_b, o_b = (_blocked(t, bs).float() for t in (do, out))
+    p = torch.exp(_mid_logits(qm, kc, pen, q.dtype) - lse.reshape(B, H, n_mid, bs, 1))
+    dp = torch.einsum("bhjqd,bhjkd->bhjqk", do_b, vc.to(f))
+    ds = ((p * (dp - (do_b * o_b).sum(dim=-1, keepdim=True))) / math.sqrt(D)).to(q.dtype).to(f)
+    dq = torch.zeros_like(q)
+    dq[:, bs:S - bs] = (torch.einsum("bhjqk,bhjkd->bhjqd", ds, kc.to(f)).to(q.dtype)
+                        .permute(0, 2, 3, 1, 4).reshape(B, n_mid * bs, H, D))
+    dkc = torch.einsum("bhjqk,bhjqd->bhjkd", ds, qm.to(f))
+    acc = torch.zeros(B, H, nb, bs, D, dtype=f, device=q.device)
+    bix = torch.arange(B, device=q.device)[:, None, None, None]
+    hix = torch.arange(H, device=q.device)[None, :, None, None]
+    acc.index_put_((bix, hix, idx[None]), dkc.reshape(B, H, n_mid, slots, bs, D),
+                   accumulate=True)
+    return dq, acc.permute(0, 2, 3, 1, 4).reshape(B, S, H, D).to(q.dtype)
 
 
 def _sparse_fwd_stats_cut(q, k, v, mask, rand, bs, c):
@@ -7085,10 +7164,15 @@ def _route(label: str, kernel: str, counter, calls: int, fn):
     return out
 
 
-def _bb_wide_route(label: str, D: int, dtype, fn):
-    """``fn()``, a call of ``bigbird_mid_fwd``: in bf16 past D = 64 it must
-    run bigbird_fwd_wide_sm90_kernel (``_route``), in fp32 or up to 64 not."""
+def _bb_wide_route(label: str, D: int, dtype, fn, backward: bool = False):
+    """``fn()``, a call of ``bigbird_mid_fwd`` (``bigbird_mid_bwd`` with
+    ``backward``): in bf16 past D = 64 it must run
+    bigbird_fwd_wide_sm90_kernel (bigbird_bwd_wide_sm90_kernel)
+    (``_route``), in fp32 or up to 64 not."""
     wide = dtype == BF16 and D > bigbird_sparse_ops.MAX_INSTANCE_HEAD_DIM
+    if backward:
+        return _route(f"sparse bwd {label}", "bigbird_bwd_wide_sm90_kernel",
+                      bigbird_sparse_ops.wide_backward_calls, int(wide), fn)
     return _route(f"sparse fwd {label}", "bigbird_fwd_wide_sm90_kernel",
                   bigbird_sparse_ops.wide_forward_calls, int(wide), fn)
 

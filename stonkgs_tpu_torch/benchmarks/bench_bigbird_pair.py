@@ -14,8 +14,8 @@ one JSON line with the time of ``bigbird_mid_fwd`` or
 name and power limit.  ``--widths`` adds the configurations derived from
 48-, 80- and 144-wide KG TSVs (2 heads of 24 and 40, 4 of 36; blocks 512
 and 96), the head widths 8, 48 and 56 at the 128-wide shape, and the
-trunk's 768 in 6 heads of 128 (S=4096, block 64, r=3: the bf16 forward
-past D = 64, the SIMT backward); ``--full``
+trunk's 768 in 6 heads of 128 (S=4096, block 64, r=3: the bf16 pair
+past D = 64); ``--full``
 adds to each line the bound (the products at 989 TFLOP/s or the bytes,
 each input read once and each output written once, at 3.35 TB/s), the
 plain version's time and the library call's: SDPA over operands gathered

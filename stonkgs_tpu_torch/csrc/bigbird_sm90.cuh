@@ -16,8 +16,8 @@
 // a Python float).
 //
 // Geometry: head width d any multiple of 8 from 8 to 64 (wider heads run
-// bigbird_wide_sm90.cuh's forward and bigbird_sparse.cu's SIMT backward
-// in column parts), run on the instance of
+// bigbird_wide_sm90.cuh's forward and bigbird_bwd_wide_sm90.cuh's
+// backward in column blocks), run on the instance of
 // the padded width D = 16, 32 or 64, the smallest at least d (a template
 // parameter: a row of D bf16 is a line of 2D bytes, and TMA and the wgmma
 // descriptors take the swizzle of that width), and any block size bs >= 1

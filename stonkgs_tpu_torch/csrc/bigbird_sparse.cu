@@ -2,8 +2,9 @@
 // backward (HF BigBirdBlockSparseAttention), at any head width d that is a
 // multiple of 8 (the wrappers pad any other) and any block size bs >= 1
 // with at least 5 blocks: the bf16 Hopper kernels of bigbird_sm90.cuh up
-// to d = 64, past it the bf16 forward of bigbird_wide_sm90.cuh and the
-// SIMT bodies here (the bf16 backward and everything in fp32).
+// to d = 64, past it those of bigbird_wide_sm90.cuh (the forward) and
+// bigbird_bwd_wide_sm90.cuh (the backward), and the SIMT bodies here for
+// fp32 at every d.
 //
 // Replaces the TPU kernels _mid_blocks_kernel and _mid_blocks_bwd_kernel
 // (stonkgs_tpu/ops/bigbird_sparse_pallas.py:83 and :113, which share
@@ -29,11 +30,14 @@
 // d = 128; their backward two fp32 64 x d staging tiles a consumer), the
 // bf16 forward runs bigbird_wide_sm90.cuh (the scores over the full d in
 // column blocks of 64 on wgmma, O in column parts of 128, a statistics
-// launch past d = 128).  The SIMT bodies here run fp32 at every d (they
-// exist to hold the model against the CPU) and the bf16 backward past d =
-// 64.  A SIMT body is instantiated at the padded widths D = 16, 32 and 64
-// (the tiles D wide, zero past d; the stores and adds skip the columns
-// from d on); past d = 64 at D = 64 in column parts: ceil(d / 64) CTAs a
+// launch past d = 128) and the bf16 backward bigbird_bwd_wide_sm90.cuh (a
+// warpgroup a 64-row tile and output part of 128 columns: S and dP over
+// the full d in column blocks of 64 on wgmma, dQ in registers, dK and dV
+// a column block at a time through TMA reduce-adds).  The SIMT bodies
+// here run fp32 only, at every d (they exist to hold the model against
+// the CPU).  A SIMT body is instantiated at the padded widths D = 16, 32
+// and 64 (the tiles D wide, zero past d; the stores and adds skip the
+// columns from d on); past d = 64 at D = 64 in column parts: ceil(d / 64) CTAs a
 // tile, each forming the full-d scores over 64-column chunks of Q and K
 // (and dP of dO and V) through the same tiles, the chunk of its own part
 // last, so that the tiles then hold the part's columns for its products (P
@@ -51,12 +55,11 @@
 // penalty -inf (weight 0), rows past bs are not stored and get p = dS = 0
 // in the backward, and only the block's keys take dK and dV adds.
 //
-// Forward (fp32), two passes over the slots' sub-tiles (the TPU kernel
+// Forward, two passes over the slots' sub-tiles (the TPU kernel
 // normalises before it rounds, which rules out the online softmax): pass 1
 // the row max m and sum l of exp; pass 2 p = exp(s - m) / l, O += P V.
 // lse = m + log l.  Logits as _mid_logits: s = Q K^T * scale + penalty in
-// fp32; in bf16 (the backward) s = round(round(Q K^T) * scale) + penalty
-// with the scale rounded to bf16, as the Hopper kernels' padded instances.
+// fp32.
 //
 // Backward: the block keeps its rows' lse and delta = sum(dO * O) (over
 // the full d); per key sub-tile it recomputes p = exp(s - lse), dP = dO
@@ -89,10 +92,12 @@
 //                       sb, ss, sh, float scale, cudaStream_t stream)
 // each returning cudaGetLastError() after its launches;
 //   int bigbird_mid_fwd_wide_calls(void)
-// the forward's calls so far that ran bigbird_fwd_wide_sm90_kernel (bf16
-// past D = 64).
+//   int bigbird_mid_bwd_wide_calls(void)
+// the forward's calls so far that ran bigbird_fwd_wide_sm90_kernel and the
+// backward's that ran bigbird_bwd_wide_sm90_kernel (bf16 past D = 64).
 
 #include "attention.cuh"
+#include "bigbird_bwd_wide_sm90.cuh"
 #include "bigbird_sm90.cuh"
 #include "bigbird_wide_sm90.cuh"
 
@@ -110,7 +115,6 @@ using attn::score_tile;
 using attn::Sizes;
 using attn::store_rows;
 using attn::with_padded_head_dim;
-using bf16 = __nv_bfloat16;
 
 // the first key (a row of S) of 64-key sub-tile u of slot t of middle
 // query block j
@@ -118,11 +122,8 @@ __device__ __forceinline__ int tile_key0(const Geo& g, const int* rand_hj, int j
   return slot_block(rand_hj, t, j, g.nb) * g.bs + u * kTile;
 }
 
-// the masked logit of a Q K^T sum (_mid_logits): fp32 at the call's
-// scale; bf16 rounded to bf16, times the bf16 scale, rounded again
-template <typename T>
+// the masked fp32 logit of a Q K^T sum (_mid_logits) at the call's scale
 __device__ __forceinline__ float logit(float qk, const Geo& g, float pen) {
-  if constexpr (kIsBf16<T>) return round_to<T>(round_to<T>(qk) * g.logit) + pen;
   return qk * g.scale + pen;
 }
 
@@ -237,12 +238,12 @@ mid_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     scores(x, false);
     float tmax = -INFINITY;
     for (int c = half; c < kTile; c += 2)
-      tmax = fmaxf(tmax, logit<T>(sw[row * kSST + c], g, pen[c]));
+      tmax = fmaxf(tmax, logit(sw[row * kSST + c], g, pen[c]));
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
     const float m_new = fmaxf(m, tmax);
     float tsum = 0.f;
     for (int c = half; c < kTile; c += 2)
-      tsum += expf(logit<T>(sw[row * kSST + c], g, pen[c]) - m_new);
+      tsum += expf(logit(sw[row * kSST + c], g, pen[c]) - m_new);
     tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
     l = l * expf(m - m_new) + tsum;
     m = m_new;
@@ -258,7 +259,7 @@ mid_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int x = 0; x < tiles; ++x) {
     scores(x, true);
     for (int c = half; c < kTile; c += 2)
-      pw[row * PS + c] = from_f<T>(expf(logit<T>(sw[row * kSST + c], g, pen[c]) - m) / l);
+      pw[row * PS + c] = from_f<T>(expf(logit(sw[row * kSST + c], g, pen[c]) - m) / l);
     __syncwarp();
     acc.mma(pw, vs, lane);
     __syncwarp();
@@ -325,8 +326,9 @@ __device__ __forceinline__ void atomic_add_rows(float* dst, size_t rs, const flo
   }
 }
 
-template <typename T, int D>
+template <int D>
 constexpr size_t bwd_smem_bytes() {
+  using T = float;
   using Z = Sizes<T, D>;
   // q, dO, K, V tiles; P (T) and dS (fp32) tiles, 64 keys a row; two
   // per-warp fp32 staging areas; penalty, lse and delta vectors
@@ -335,13 +337,15 @@ constexpr size_t bwd_smem_bytes() {
          3 * Z::vec;
 }
 
-template <typename T, int D>
+// the fp32 backward (bf16 runs the Hopper kernels at every d)
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const float* __restrict__ mask, const int* __restrict__ rand,
-               const T* __restrict__ out, const float* __restrict__ lse,
-               const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ dk,
-               float* __restrict__ dv, Geo g) {
+mid_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ mask,
+               const int* __restrict__ rand, const float* __restrict__ out,
+               const float* __restrict__ lse, const float* __restrict__ dout,
+               float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, Geo g) {
+  using T = float;
   using Z = Sizes<T, D>;
   constexpr int TS = Z::TS, PS = Z::PS, PSF = Sizes<float, D>::PS;
   constexpr size_t ptile = align128(size_t(kTile) * PS * sizeof(T));
@@ -411,7 +415,7 @@ mid_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       const int r = e / kTile, c = e % kTile;
       float p = 0.f, ds = 0.f;   // rows past the block add nothing
       if (wr + r < tl.n_rows) {
-        p = expf(logit<T>(sw[r * kSST + c], g, pen[c]) - lse_s[wr + r]);
+        p = expf(logit(sw[r * kSST + c], g, pen[c]) - lse_s[wr + r]);
         ds = p * (dpw[r * kSST + c] - delta_s[wr + r]) * g.scale;
       }
       pt[(wr + r) * PS + c] = from_f<T>(p);
@@ -464,18 +468,18 @@ int launch_fwd_t(const void* q, const void* k, const void* v, const float* mask,
   return int(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int launch_bwd_t(const void* q, const void* k, const void* v, const float* mask,
                  const int* rand, const void* out, const float* lse, const void* dout, void* dq,
                  float* dk, float* dv, int B, const Geo& g, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<T, D>();
-  cudaError_t e = cudaFuncSetAttribute(mid_bwd_kernel<T, D>,
+  constexpr size_t smem = bwd_smem_bytes<D>();
+  cudaError_t e = cudaFuncSetAttribute(mid_bwd_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
-  mid_bwd_kernel<T, D><<<simt_grid<D>(B, g), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, rand,
-      static_cast<const T*>(out), lse, static_cast<const T*>(dout), static_cast<T*>(dq), dk, dv,
-      g);
+  using F = const float*;
+  mid_bwd_kernel<D><<<simt_grid<D>(B, g), kThreads, smem, stream>>>(
+      static_cast<F>(q), static_cast<F>(k), static_cast<F>(v), mask, rand, static_cast<F>(out),
+      lse, static_cast<F>(dout), static_cast<float*>(dq), dk, dv, g);
   return int(cudaGetLastError());
 }
 
@@ -493,11 +497,10 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const float* mas
                    const int* rand, const void* out, const float* lse, const void* dout,
                    void* dq, float* dk, float* dv, int B, const Geo& g, cudaStream_t stream) {
   if (g.d > kD)
-    return launch_bwd_t<float, kD>(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B, g,
-                                   stream);
+    return launch_bwd_t<kD>(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B, g, stream);
   return with_padded_head_dim<kD>(g.d, [&](auto d) {
-    return launch_bwd_t<float, decltype(d)::value>(q, k, v, mask, rand, out, lse, dout, dq, dk,
-                                                   dv, B, g, stream);
+    return launch_bwd_t<decltype(d)::value>(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B,
+                                            g, stream);
   });
 }
 
@@ -556,9 +559,12 @@ extern "C" int bigbird_mid_bwd(int dtype, const void* q, const void* k, const vo
   if (dtype == 0) return launch_bwd_f32(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B, g, s);
   if (dtype != 1 || bad_bf16_scale(g)) return int(cudaErrorInvalidValue);
   if (D > kD)
-    return launch_bwd_t<bf16, kD>(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B, g, s);
+    return stonkgs::bigbird90::launch_bwd_wide_sm90(q, k, v, mask, rand, out, lse, dout, dq, dk,
+                                                    dv, B, g, s);
   return stonkgs::bigbird90::launch_bwd_sm90(q, k, v, mask, rand, out, lse, dout, dq, dk, dv, B,
                                              g, s);
 }
 
 extern "C" int bigbird_mid_fwd_wide_calls() { return stonkgs::bigbird90::fwd_wide_calls(); }
+
+extern "C" int bigbird_mid_bwd_wide_calls() { return stonkgs::bigbird90::bwd_wide_calls(); }

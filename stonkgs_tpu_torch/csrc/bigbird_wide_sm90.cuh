@@ -46,7 +46,7 @@
 // Numerics: those of bigbird_fwd_sm90_kernel (exp2 on the SFU and a
 // per-row reciprocal of l; the products summed in another order), held to
 // the same bf16 limits in chip_smoke.py.  The lse it writes is what
-// bigbird_sparse.cu's SIMT backward reads.
+// bigbird_bwd_wide_sm90.cuh's backward reads.
 
 #pragma once
 

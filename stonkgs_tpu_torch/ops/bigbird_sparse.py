@@ -57,12 +57,24 @@ runs both passes, past it a statistics launch writes each row's (m, 1/l)
 into a (B, H, (nb-2)·bs) x 2 fp32 scratch (:func:`_wide_stats`) and lse,
 and a block per part runs pass 2.  At the 6-head trunk (B=8, bs 64, r 3)
 that is three products of 2·B·H·(nb-2)·bs·512·D, 0.076 ms at 989
-TFLOP/s, over 0.059 ms of bytes.  The bf16 backward past D = 64 and fp32
-at every D past 64 run the SIMT bodies of ``csrc/bigbird_sparse.cu`` in
-column parts of 64: a CTA a (64-row tile, part) forms the full-D scores
-over 64-column chunks of Q and K (dP over chunks of dO and V), keeps its
-own softmax statistics, and makes its products over its part's columns;
-right first, at D/64 times the scores' products of one pass.
+TFLOP/s, over 0.059 ms of bytes.  The bf16 backward past D = 64 runs
+``csrc/bigbird_bwd_wide_sm90.cuh`` (``bigbird_bwd_wide_sm90_kernel``):
+a CTA is one warpgroup of 128 threads that owns a 64-row query tile and
+an output part of 128 columns (a grid axis past D = 128), its first warp
+feeding a 4-stage TMA ring; per 64-key slot sub-tile S and dP run over
+the full D in column blocks of 64 (each block's dP in its own
+accumulator, added in fp32), Q and dO of the part's columns stay in
+shared memory and the other blocks stream beside K and V; dQ of the
+part's columns stays in registers (dS hi and lo as the A fragments), dK
+= dSᵀQ and dV = round(p)ᵀdO run a column block at a time and go to the
+fp32 accumulators through TMA reduce-adds.  At the 6-head training plan
+(B=2, bs 64, r 3) that is seven products of 2·B·H·(nb-2)·bs·512·D, 0.044
+ms at 989 TFLOP/s.  fp32 at every D past 64 runs the SIMT bodies of
+``csrc/bigbird_sparse.cu`` in column parts of 64: a CTA a (64-row tile,
+part) forms the full-D scores over 64-column chunks of Q and K (dP over
+chunks of dO and V), keeps its own softmax statistics, and makes its
+products over its part's columns: D/64 times the scores' products of
+one pass, there to hold the model against the CPU.
 
 What bounds them on the H100, at the trunk's shape (S=4096, H=12, D=64,
 r=3, so W = (5+r)·bs keys per middle query block), counting each input
@@ -141,9 +153,9 @@ run; at T ≥ 2 every tile of a query block adds into the same key rows);
 the global blocks take one add from each middle query tile of their
 (batch, head).  The wrapper casts the accumulators to the input dtype.
 dQ of a middle block's rows is the consumer's own and is written once.
-The fp32 instantiation (``csrc/bigbird_sparse.cu``) is a SIMT body with
-plain fp32 FMAs and ``atomicAdd``, one CTA a 64-row tile, there to hold
-the model against the CPU.
+The fp32 instantiations (``csrc/bigbird_sparse.cu``) are SIMT bodies
+with plain fp32 FMAs and ``atomicAdd``, one CTA a 64-row tile, there to
+hold the model against the CPU; no bf16 call runs them.
 
 Rounding, as ``_mid_logits`` and the two TPU kernels: Q·Kᵀ accumulated in
 fp32 from products of the input dtype, rounded to it, times 1/√D in the
@@ -188,6 +200,8 @@ _SIGNATURES = {
     "bigbird_mid_fwd": [_I] + [_P] * 8 + [_I] * 6 + [_L] * 3 + [_F, _P],
     # int bigbird_mid_fwd_wide_calls(void)
     "bigbird_mid_fwd_wide_calls": [],
+    # int bigbird_mid_bwd_wide_calls(void)
+    "bigbird_mid_bwd_wide_calls": [],
     # int bigbird_mid_bwd(dtype, q, k, v, mask, rand, out, lse, dout, dq, dk,
     #                     dv, B, S, H, r, bs, D, sb, ss, sh, scale, stream)
     "bigbird_mid_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_L] * 3 + [_F, _P],
@@ -519,7 +533,8 @@ def _strided_qkv(q, k, v):
 
 # the widest head width of the Hopper pair's instances; the bf16 forward
 # past it runs bigbird_fwd_wide_sm90_kernel, and past WIDE_ONE_LAUNCH_HEAD_DIM
-# (one output part of 128 columns) with a statistics launch of its own
+# (one output part of 128 columns) with a statistics launch of its own; the
+# bf16 backward past it runs bigbird_bwd_wide_sm90_kernel
 MAX_INSTANCE_HEAD_DIM = 64
 WIDE_ONE_LAUNCH_HEAD_DIM = 128
 
@@ -539,6 +554,13 @@ def wide_forward_calls() -> int:
     ``MAX_INSTANCE_HEAD_DIM`` (``bigbird_fwd_wide_sm90_kernel``) in this
     process, as the kernels' library counts them (builds it on first use)."""
     return _build.load("bigbird_sparse", _SIGNATURES).bigbird_mid_fwd_wide_calls()
+
+
+def wide_backward_calls() -> int:
+    """How many calls of :func:`bigbird_mid_bwd` ran the bf16 backward past
+    ``MAX_INSTANCE_HEAD_DIM`` (``bigbird_bwd_wide_sm90_kernel``) in this
+    process, as the kernels' library counts them (builds it on first use)."""
+    return _build.load("bigbird_sparse", _SIGNATURES).bigbird_mid_bwd_wide_calls()
 
 
 def bigbird_mid_fwd(q, k, v, mask, rand_attn, block_size):

@@ -14,7 +14,10 @@ against the JAX function at the same width: the Pallas kernel in
 interpret mode where the JAX package's own tests run it so (attention,
 the FFN), else the path the JAX package takes on the CPU (BigBird's
 ``block_sparse_attention``, its XLA lowering, which takes every block
-size; its Pallas kernel takes none of 4, 12 and 25).
+size; its Pallas kernel takes none of 4, 12 and 25), and past D = 64
+(72 and 128 at block 16, 136 at block 8: where the card's bf16 backward
+runs ``bigbird_bwd_wide_sm90_kernel``) also the Pallas pair in
+interpret mode, gradients through its custom VJP.
 Then 1-layer models against the JAX package's: ProtSTonKGs at the config
 the command line derives from a 64-wide KG TSV at S = 200 (block 25, 2
 heads of 32; ``trunk_forward`` and ``pretraining_loss``), and STonKGs at
@@ -52,6 +55,7 @@ from stonkgs_tpu.models import stonkgs as jstonkgs
 from stonkgs_tpu.ops import bigbird_sparse as jsparse
 from stonkgs_tpu.ops import flash_attention as jflash
 from stonkgs_tpu.ops import fused_ffn as jffn
+from stonkgs_tpu.ops.bigbird_sparse_pallas import block_sparse_attention_pallas
 from stonkgs_tpu_torch.cli.pretrain import prot_pretraining_config
 from stonkgs_tpu_torch.models import protstonkgs as tprot
 from stonkgs_tpu_torch.models import stonkgs as tstonkgs
@@ -125,6 +129,36 @@ def test_block_sparse_attention_and_gradients_match_jax(bs, d):
     (out * torch.from_numpy(w)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **SPARSE_FWD_TOL)
     for x, got, g in zip("qkv", (tq, tk, tv), want_grads):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(g), err_msg=f"d{x}",
+                                   **SPARSE_GRAD_TOL)
+
+
+# (block size, head width) past D = 64, where the card's bf16 backward is
+# bigbird_bwd_wide_sm90_kernel: one output part of 128 columns (72, 128)
+# and past it (136: two parts, the second one column block); blocks that
+# are multiples of 8, as the Pallas kernel takes
+SPARSE_PALLAS_CASES = [(16, 72), (16, 128), (8, 136)]
+SPARSE_PALLAS_IDS = [f"bs{bs}-D{d}" for bs, d in SPARSE_PALLAS_CASES]
+
+
+@pytest.mark.parametrize("bs,d", SPARSE_PALLAS_CASES, ids=SPARSE_PALLAS_IDS)
+def test_block_sparse_gradients_past_64_match_pallas_kernel(bs, d):
+    """The q, k and v cotangents of ``block_sparse_attention`` (the kernel
+    pair's plain versions) past D = 64 against the JAX package's Pallas
+    pair in interpret mode (``_mid_blocks_bwd_kernel`` through its custom
+    VJP), fp32, a padded mask and one random block."""
+    q, k, v, rand, mask, w = _sparse_inputs(bs, d, seed=7000 + bs * 1000 + d)
+    jr, jm = jnp.asarray(rand), jnp.asarray(mask)
+
+    def pallas(*a):
+        return block_sparse_attention_pallas(*a, jr, jm, bs, interpret=True)
+
+    want, vjp = jax.vjp(pallas, *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = tsparse.block_sparse_attention(tq, tk, tv, rand, torch.from_numpy(mask), bs)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **SPARSE_FWD_TOL)
+    for x, got, g in zip("qkv", (tq, tk, tv), vjp(jnp.asarray(w))):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(g), err_msg=f"d{x}",
                                    **SPARSE_GRAD_TOL)
 
