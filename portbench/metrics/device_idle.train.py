@@ -1,0 +1,7 @@
+"""Share of a step's wall time in which no device operation runs."""
+
+from portbench.harness import readers
+
+
+def read(ctx):
+    return readers.device_idle(ctx, "pretrain")

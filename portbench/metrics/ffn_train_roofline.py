@@ -1,0 +1,7 @@
+"""The training FFN pair's bound time (forward and backward) over its device time."""
+
+from portbench.harness import readers
+
+
+def read(ctx):
+    return readers.roofline(ctx, "ffn_train", "pretrain")

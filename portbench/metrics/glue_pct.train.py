@@ -1,0 +1,7 @@
+"""Share of the training step's kernel time outside the port's kernels and cuBLAS."""
+
+from portbench.harness import readers
+
+
+def read(ctx):
+    return readers.glue_pct(ctx, "pretrain")
